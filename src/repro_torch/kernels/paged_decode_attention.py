@@ -1,0 +1,131 @@
+"""Fused paged GQA decode attention: CUDA kernel, plain version, launch count.
+
+Replaces the TPU kernel ``repro/kernels/paged_decode_attention.py``,
+function ``paged_decode_attention``.  The kernel
+(``csrc/paged_decode_attention.cu``) walks each row's block table inside
+the kernel, so the pool is read once per live key and no dense
+``pool[block_tables]`` copy exists; its header says what bounds it on the
+H100 (bytes) and how the TPU's sequential page grid became a loop inside
+one thread block per (kv head, row).
+
+:func:`paged_decode_attention` launches the kernel for CUDA tensors and
+runs :func:`paged_decode_attention_ref` for CPU tensors — the device of
+the input decides, never a fallback.  ``paged_decode_attention.launches``
+counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64, 128)
+_GMAX = 8
+
+
+def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths, *,
+                               block_size: int, window: Optional[int] = None,
+                               scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version: gather ``pool[block_tables]``, dense masked attention
+    in f32 (the reference's ``ref.paged_decode_attention``).
+    Returns (B, 1, H, Dv) in q.dtype."""
+    B, _, H, D = q.shape
+    W = block_tables.shape[1]
+    KV, Dv = k_pool.shape[2], v_pool.shape[3]
+    G = H // KV
+    S = W * block_size
+    scale = scale if scale is not None else D ** -0.5
+    idx = block_tables.long()
+    k = k_pool[idx].reshape(B, S, KV, D).float()
+    v = v_pool[idx].reshape(B, S, KV, Dv).float()
+    qh = q.reshape(B, KV, G, D).float() * scale
+    s = torch.einsum("bkgd,bskd->bkgs", qh, k)
+    pos = torch.arange(S, device=q.device)[None, :]
+    lens = lengths.long()[:, None]
+    mask = pos < lens
+    if window is not None:
+        mask &= pos >= lens - window
+    s = s.masked_fill(~mask[:, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v)
+    return out.reshape(B, 1, H, Dv).to(q.dtype)
+
+
+@functools.cache
+def _lib():
+    lib = build.load("paged_decode_attention")
+    fn = lib.paged_decode_attention_launch
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, k_pool, v_pool):
+    B, one, H, D = q.shape
+    KV = k_pool.shape[2]
+    problems = []
+    if one != 1:
+        problems.append(f"q must be (B, 1, H, D), got {tuple(q.shape)}")
+    if q.dtype not in _DTYPES or k_pool.dtype != q.dtype \
+            or v_pool.dtype != q.dtype:
+        problems.append(f"dtypes q={q.dtype} k={k_pool.dtype} "
+                        f"v={v_pool.dtype}: need one of float32/bfloat16")
+    if D not in _HEAD_DIMS or v_pool.shape[3] != D:
+        problems.append(f"head dim {D} (v {v_pool.shape[3]}): kernel "
+                        f"built for {_HEAD_DIMS} with Dv == D")
+    if H % KV or H // KV > _GMAX:
+        problems.append(f"H={H}, KV={KV}: need H % KV == 0 and H/KV <= "
+                        f"{_GMAX}")
+    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
+        problems.append("pools must be contiguous")
+    if (k_pool.data_ptr() | v_pool.data_ptr()) % 16:
+        problems.append("pools must start on a 16-byte boundary (the "
+                        "kernel reads them with 16-byte vector loads)")
+    if problems:
+        raise ValueError("paged_decode_attention kernel: "
+                         + "; ".join(problems))
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
+                           block_size: int, window: Optional[int] = None,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Fused paged flash decode.  q (B, 1, H, D); pools (N, bs, KV, D);
+    block_tables (B, W); lengths (B,) valid positions.  Returns (B, 1, H, D).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    """
+    if q.device.type == "cpu":
+        return paged_decode_attention_ref(
+            q, k_pool, v_pool, block_tables, lengths, block_size=block_size,
+            window=window, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention: no kernel for device "
+                         f"{q.device}")
+    _check(q, k_pool, v_pool)
+    B, _, H, D = q.shape
+    KV = k_pool.shape[2]
+    W = block_tables.shape[1]
+    q = q.contiguous()
+    tables = block_tables.to(torch.int32).contiguous()
+    lens = lengths.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    scale = scale if scale is not None else D ** -0.5
+    rc = _lib()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                B, H, KV, D, W, block_size,
+                window if window is not None else 0, scale,
+                _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_decode_attention launch failed: code {rc}")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0

@@ -1,0 +1,158 @@
+"""Analytic bytes/FLOPs model of the fused paged attention kernels.
+
+Two work definitions, both computed from the same ``lengths`` /
+``starts, limits`` vectors the kernels consume:
+
+- the reference's (``repro/kernels/perf_model.py``, copied): pages
+  visited, each live page's K and V read once and every one of its keys
+  charged against every query of the row.  It is what the kernels' page
+  skips save, and it overcounts the work at page granularity;
+- the visible work (:func:`decode_visible_cost`,
+  :func:`prefill_visible_cost`): only the (query, key) pairs that pass
+  the causal and window masks, for queries below the row's limit, and only
+  the keys some such query sees.  This is the least the function needs,
+  so the H100 bound is computed from it.
+
+:meth:`KernelCost.bound_seconds` turns a cost into the least time an H100
+SXM could take for it: the larger of bytes over the memory rate and FLOPs
+over the peak rate for the operand type (NVIDIA's data sheet, dense rates,
+at the full 700 W power limit).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+H100_HBM_BYTES_PER_S = 3.35e12
+H100_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelCost:
+    """Pure-work resource counts for one kernel invocation."""
+    name: str
+    flops: float              # 2 * M * N * K per matmul
+    hbm_bytes: float          # each input byte read once, output written once
+
+    def bound_seconds(self, dtype: str) -> float:
+        return max(self.flops / H100_PEAK_FLOPS[dtype],
+                   self.hbm_bytes / H100_HBM_BYTES_PER_S)
+
+    def bound_by(self, dtype: str) -> str:
+        t_ops = self.flops / H100_PEAK_FLOPS[dtype]
+        return "operations" if t_ops > self.hbm_bytes / H100_HBM_BYTES_PER_S \
+            else "bytes"
+
+
+# ---------------------------------------------------------------------------
+# pages-visited: the shared work definition (mirrors the kernels' skips)
+# ---------------------------------------------------------------------------
+def decode_pages_visited(lengths: Sequence[int], *, block_size: int,
+                         window: Optional[int] = None) -> int:
+    """Pages the fused decode kernel computes on, summed over rows: page
+    ``w`` is live iff ``w*bs < length`` and (windowed)
+    ``(w+1)*bs > length - window``."""
+    total = 0
+    for length in lengths:
+        for w in range((int(length) + block_size - 1) // block_size):
+            if window is not None and (w + 1) * block_size <= length - window:
+                continue
+            total += 1
+    return total
+
+
+def prefill_pages_visited(starts: Sequence[int], limits: Sequence[int],
+                          chunk: int, *, block_size: int, table_width: int,
+                          window: Optional[int] = None) -> int:
+    """Pages the fused ragged-prefill kernel computes on, summed over rows:
+    dead rows contribute 0; live rows visit pages up to the causal bound
+    ``start + C - 1`` (and above the window bound when windowed)."""
+    total = 0
+    for start, limit in zip(starts, limits):
+        if limit <= 0:
+            continue
+        for w in range(table_width):
+            if w * block_size > start + chunk - 1:
+                continue
+            if window is not None and (w + 1) * block_size <= start - window + 1:
+                continue
+            total += 1
+    return total
+
+
+# ---------------------------------------------------------------------------
+# per-kernel costs (the fused variants of the reference's model)
+# ---------------------------------------------------------------------------
+def paged_decode_cost(*, batch: int, num_heads: int, kv_heads: int,
+                      head_dim: int, block_size: int, pages_visited: int,
+                      itemsize: int) -> KernelCost:
+    """One paged decode step: each live page's K and V stream from the pool
+    once; FLOPs cover only live pages (scores + read-out)."""
+    page_flops = 4 * num_heads * block_size * head_dim
+    page_bytes = 2 * block_size * kv_heads * head_dim * itemsize
+    q_bytes = batch * num_heads * head_dim * itemsize
+    return KernelCost("paged_decode", float(pages_visited * page_flops),
+                      float(pages_visited * page_bytes + 2 * q_bytes))
+
+
+def ragged_prefill_cost(*, rows_live: int, chunk: int, num_heads: int,
+                        kv_heads: int, head_dim: int, block_size: int,
+                        pages_visited: int, itemsize: int) -> KernelCost:
+    """One batched ragged-prefill step: live rows' causally reachable pages
+    only, C queries per live row."""
+    page_flops = 4 * chunk * num_heads * block_size * head_dim
+    page_bytes = 2 * block_size * kv_heads * head_dim * itemsize
+    q_bytes = rows_live * chunk * num_heads * head_dim * itemsize
+    return KernelCost("ragged_prefill", float(pages_visited * page_flops),
+                      float(pages_visited * page_bytes + 2 * q_bytes))
+
+
+# ---------------------------------------------------------------------------
+# visible work: what the masks let through (the bound's work definition)
+# ---------------------------------------------------------------------------
+def decode_visible_cost(lengths: Sequence[int], *, num_heads: int,
+                        kv_heads: int, head_dim: int, itemsize: int,
+                        window: Optional[int] = None) -> KernelCost:
+    """One decode step counted over visible keys: row ``b`` sees
+    ``min(length, window)`` keys, each read once per kv head and scored
+    against every query head (4*D FLOPs per head and key); q and the
+    lengths read once, the output written once.  The table entries (4
+    bytes a page) are left out, which can only lower the bound."""
+    keys = sum(min(int(n), window) if window is not None else int(n)
+               for n in lengths)
+    batch = len(lengths)
+    item = num_heads * head_dim * itemsize
+    kv_bytes = keys * 2 * kv_heads * head_dim * itemsize
+    return KernelCost("paged_decode", float(4 * head_dim * num_heads * keys),
+                      float(kv_bytes + 2 * batch * item + 4 * batch))
+
+
+def prefill_visible_cost(starts: Sequence[int], limits: Sequence[int],
+                         chunk: int, *, num_heads: int, kv_heads: int,
+                         head_dim: int, itemsize: int,
+                         window: Optional[int] = None) -> KernelCost:
+    """One batched ragged-prefill step counted over visible pairs: query
+    ``c`` of a live row (``start + c < limit``) sees the keys ``kp <= qp``
+    (and ``qp - kp < window``), ``qp = start + c``; 4*D FLOPs per pair and
+    head.  Bytes: the live queries and every key some query sees read
+    once, the whole (P, C, H, D) output written once (filler rows and the
+    positions past a row's limit included), starts and limits read once."""
+    pairs = queries = keys = 0
+    for start, limit in zip(starts, limits):
+        start, limit = int(start), int(limit)
+        if limit <= 0:
+            continue
+        n_q = max(0, min(chunk, limit - start))
+        for c in range(n_q):
+            qp = start + c
+            pairs += min(qp + 1, window) if window is not None else qp + 1
+        if n_q:
+            hi = start + n_q                  # last query position + 1
+            lo = max(0, start - window + 1) if window is not None else 0
+            keys += hi - lo
+        queries += n_q
+    item = head_dim * itemsize
+    return KernelCost(
+        "ragged_prefill", float(4 * head_dim * num_heads * pairs),
+        float(queries * num_heads * item + keys * 2 * kv_heads * item
+              + len(starts) * chunk * num_heads * item + 8 * len(starts)))

@@ -1,0 +1,154 @@
+"""Serving launcher of the port: the HyperServe continuous-batching runtime.
+
+    python -m repro_torch.launch.serve --arch qwen2-0.5b --continuous \
+        --requests 8 --max-new 16                 # on the card
+    python -m repro_torch.launch.serve --arch qwen2-0.5b --reduced \
+        --continuous --device cpu                 # plain versions, CPU
+
+The flags are the reference launcher's (``repro.launch.serve``) plus
+``--device``.  Weights are random, drawn from a seeded ``torch.Generator``
+on the serving device.  Fixed-batch generation (``--batch``), ``--window``,
+``--disaggregate`` and ``--explain`` need parts of the reference the port
+does not have yet (ROADMAP.md) and exit with a message naming them.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.api.errors import PlanError
+from repro_torch.configs.base import ServeConfig, get_config
+from repro_torch.models import model as M
+from repro_torch.serve.api import HyperServe
+from repro_torch.serve.runtime import resolve_device
+
+
+def serve_config(args) -> ServeConfig:
+    return ServeConfig(block_size=args.block_size,
+                       num_blocks=args.num_blocks,
+                       max_blocks_per_req=max(
+                           4, -(-(args.prompt_len + args.max_new)
+                                // args.block_size) + 1),
+                       max_slots=args.slots,
+                       prefill_chunk=args.prefill_chunk,
+                       kernels=args.kernels)
+
+
+def run_continuous(serve, cfg, args):
+    rng = np.random.default_rng(0)
+    rids = []
+    t0 = time.perf_counter()
+    for _ in range(args.requests):
+        plen = int(rng.integers(4, args.prompt_len + 1))
+        prompt = rng.integers(1, cfg.vocab_size, size=plen).tolist()
+        rids.append(serve.submit(prompt, int(rng.integers(
+            args.max_new // 2, args.max_new + 1)),
+            temperature=args.temperature))
+        # stagger arrivals: interleave a couple of engine steps per submit
+        for _ in range(2):
+            serve.step_once()
+    out = serve.join()
+    if serve.engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    st = serve.stats()
+    n_new = sum(len(out[r]) for r in rids)
+    print(f"served {len(rids)} requests, {n_new} tokens in {dt:.2f}s "
+          f"({n_new / dt:.1f} tok/s on {serve.engine.device})")
+    print(f"peak-free blocks={st['free_blocks']} "
+          f"preemptions={st['preemptions']} prefix_hits={st['prefix_hits']}")
+    print("first request tokens:", out[rids[0]])
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="batch of fixed-batch generation (not ported yet)")
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--window", type=int, default=0,
+                    help="sliding-window decode cache of fixed-batch "
+                         "generation (not ported yet)")
+    # HyperServe runtime
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous batching over the paged KV pool")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--block-size", type=int, default=16)
+    ap.add_argument("--num-blocks", type=int, default=256)
+    ap.add_argument("--prefill-chunk", type=int, default=32)
+    ap.add_argument("--kernels", default="auto",
+                    choices=("auto", "fused", "composed"),
+                    help="paged attention lowering: the fused kernels "
+                         "(auto); composed is not ported yet")
+    ap.add_argument("--disaggregate", action="store_true",
+                    help="prefill/decode role split (not ported yet)")
+    ap.add_argument("--explain", action="store_true",
+                    help="plan resolution report (not ported yet)")
+    ap.add_argument("--trace", metavar="PATH", default=None,
+                    help="capture a HyperTrace timeline and write "
+                         "Perfetto/Chrome trace_event JSON here")
+    ap.add_argument("--metrics", action="store_true",
+                    help="print the Prometheus metrics dump after the run")
+    ap.add_argument("--device", default=None,
+                    help="serving device (default: the CUDA card; pass "
+                         "'cpu' to run the kernels' plain versions there)")
+    args = ap.parse_args(argv)
+
+    not_ported = [(args.disaggregate, "--disaggregate needs mpmd role "
+                   "groups (ROADMAP.md, 'Multi-device')"),
+                  (args.explain, "--explain needs the HyperPlan facade "
+                   "(ROADMAP.md, 'Multi-device')"),
+                  (not args.continuous, "fixed-batch generation needs the "
+                   "dense Generator (ROADMAP.md, 'Dense generation'); pass "
+                   "--continuous"),
+                  (args.batch is not None, "--batch sizes fixed-batch "
+                   "generation, which needs the dense Generator (ROADMAP.md, "
+                   "'Dense generation'); --continuous takes --requests"),
+                  (args.window, "--window sizes the dense Generator's "
+                   "sliding-window cache (ROADMAP.md, 'Dense generation')")]
+    for flag, why in not_ported:
+        if flag:
+            raise SystemExit(f"not ported yet: {why}")
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        raise SystemExit(str(e))
+
+    try:
+        cfg = get_config(args.arch)
+    except KeyError as e:                  # unknown, or not ported yet
+        raise SystemExit(e.args[0])
+    if args.reduced:
+        cfg = cfg.reduced()
+    try:
+        params = M.init_model(
+            cfg, torch.Generator(device=device).manual_seed(0))
+        serve = HyperServe(cfg, params, serve_cfg=serve_config(args),
+                           device=device)
+    except (PlanError, NotImplementedError) as e:
+        # typed validation: the message already names the rule
+        raise SystemExit(f"{type(e).__name__}: {e}")
+    obs = serve.obs()
+    if args.trace:
+        obs.trace.enable()
+    try:
+        run_continuous(serve, cfg, args)
+    finally:
+        if args.trace:
+            # export validates the payload before writing (assert inside)
+            print(f"trace: {obs.trace.export(args.trace)} "
+                  f"({len(obs.trace.events())} events, "
+                  f"{obs.trace.dropped} dropped)")
+        if args.metrics:
+            print(obs.metrics.dump_prometheus(), end="")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,36 @@
+"""Weight bridge: the reference's param pytree (as numpy) -> the port's.
+
+The two packages share the stacked layout and the leaf names, so the
+bridge maps leaf to leaf.  Call it with the JAX tree after
+``jax.tree.map(np.asarray, params)``; this module imports no JAX.
+bfloat16 leaves (numpy's ``ml_dtypes`` bfloat16, which torch cannot
+wrap) pass through float32, which holds every bfloat16 value exactly —
+the same route the reference's checkpoints take.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.tree import tree_map
+
+
+def _leaf(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))     # a writable copy
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def params_from_numpy(tree, device, dtype: Optional[torch.dtype] = None):
+    """Port params from a numpy pytree of the reference's params.
+
+    ``dtype`` casts floating leaves (None keeps each leaf's own type).
+    """
+    return tree_map(lambda a: _leaf(a, device, dtype), tree)

@@ -1,0 +1,73 @@
+"""Shared model building blocks: norms, RoPE, initialisers.
+
+The port of ``repro.models.common``.  Parameters are nested dicts of
+tensors; every random draw comes from an explicit ``torch.Generator`` and
+lands on that generator's device.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def dtype_of(cfg) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, *,
+               lead=()) -> torch.Tensor:
+    """Glorot-scaled normal ``(*lead, d_in, d_out)``; ``lead`` stacks layers."""
+    scale = (2.0 / (d_in + d_out)) ** 0.5
+    w = torch.randn(*lead, d_in, d_out, generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (scale * w).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype) -> torch.Tensor:
+    w = torch.randn(vocab, d, generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (w * d ** -0.5).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms / activations
+# ---------------------------------------------------------------------------
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMS norm scaled by ``1 + scale`` (norm weights are stored as offsets
+    from one and initialised to zero, as in the reference)."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return out.to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+# ---------------------------------------------------------------------------
+# RoPE (half-split form, not interleaved)
+# ---------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    half = head_dim // 2
+    return 1.0 / (theta ** (np.arange(0, half, dtype=np.float32) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, D) with D even; positions: (S,) or (B, S)."""
+    D = x.shape[-1]
+    inv = torch.from_numpy(rope_freqs(D, theta)).to(x.device)     # (D/2,)
+    if positions.ndim == 1:
+        ang = positions[None, :, None].float() * inv
+    else:
+        ang = positions[..., None].float() * inv                   # (B, S, D/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

@@ -1,0 +1,199 @@
+"""Mixer registry: one table from mixer kind to its init and serving hooks.
+
+The port of ``repro.models.mixers``.  Every sequence-mixing block family
+registers a :class:`MixerSpec`; the model stack and the serving runtime
+dispatch through this table instead of per-call-site ``if mixer == ...``
+chains.  Each spec also declares how its decode state lives under paged
+serving:
+
+  - ``PAGED``     per-layer KV pages indexed through block tables;
+  - ``SLOT``      O(1) per-request dense state in a fixed decode seat;
+  - ``WINDOWED``  paged, with out-of-window blocks freed.
+
+Only ``ATTN`` is registered so far.  The other kinds register when their
+family is ported (ROADMAP.md, "Modules to port"); until then
+:func:`model_state_layout` refuses a config that uses them with a typed
+``ServePlanError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ATTN
+from repro_torch.models import attention
+
+# decode-state kinds under paged serving ------------------------------------
+PAGED = "paged"
+SLOT = "slot"
+WINDOWED = "windowed"
+
+STATE_KINDS = (PAGED, SLOT, WINDOWED)
+
+
+@dataclasses.dataclass(frozen=True)
+class MixerSpec:
+    """Everything the stack and the serving runtime need for one mixer kind.
+
+    Hooks receive the whole sublayer param dict and index their own
+    ``param_key`` entry; serving hooks write their state in place and
+    return the sublayer output.
+    """
+    kind: str                  # configs.base mixer constant
+    state: str                 # PAGED | SLOT | WINDOWED
+    param_key: str             # sublayer dict entry the params live under
+    init: Callable             # (cfg, gen, *, lead) -> param subtree
+    init_state: Callable       # (cfg, *, layers, num_blocks, block_size,
+    #                             dtype, device) -> stacked state leaves
+    decode_paged: Callable     # (p, h, positions, cfg, state, tables, *,
+    #                             block_size, window) -> y
+    prefill_paged: Callable    # (p, h, starts, limits, slots, cfg, state,
+    #                             tables, *, block_size, window) -> y
+    #   batched: h (P, C, D); starts/limits/slots (P,); tables (P, W) — all
+    #   scheduled prompt chunks in ONE call, filler rows at limit 0
+
+    def window(self, cfg) -> Optional[int]:
+        """Static sliding window this mixer serves under (None = unbounded)."""
+        return cfg.sliding_window if self.state == WINDOWED else None
+
+
+_REGISTRY: dict = {}
+
+
+def register_mixer(spec: MixerSpec) -> MixerSpec:
+    assert spec.state in STATE_KINDS, spec.state
+    _REGISTRY[spec.kind] = spec
+    return spec
+
+
+def get_mixer(kind: str) -> MixerSpec:
+    try:
+        return _REGISTRY[kind]
+    except KeyError:
+        raise ValueError(
+            f"unknown mixer kind {kind!r}: no MixerSpec registered "
+            f"(registered: {sorted(_REGISTRY)}); its family is not ported "
+            "yet (ROADMAP.md, 'Modules to port')") from None
+
+
+# ---------------------------------------------------------------------------
+# stack segmentation (shared by model.py and the serving state layout)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    kinds: Tuple[Tuple[str, str], ...]   # (mixer, ffn) per sub-layer
+    repeat: int
+
+
+def segments(cfg) -> Tuple[Segment, ...]:
+    kinds = cfg.block_kinds()
+    if cfg.family == "hybrid":
+        pat = len(cfg.rglru.block_pattern)
+        n_macro, tail = cfg.num_layers // pat, cfg.num_layers % pat
+        segs = [Segment(tuple(kinds[:pat]), n_macro)]
+        if tail:
+            segs.append(Segment(tuple(kinds[n_macro * pat:]), 1))
+        return tuple(segs)
+    # otherwise: group maximal runs of identical (mixer, ffn)
+    segs = []
+    run_kind, run_len = kinds[0], 0
+    for kd in kinds:
+        if kd == run_kind:
+            run_len += 1
+        else:
+            segs.append(Segment((run_kind,), run_len))
+            run_kind, run_len = kd, 1
+    segs.append(Segment((run_kind,), run_len))
+    return tuple(segs)
+
+
+# ---------------------------------------------------------------------------
+# serving state layout: the whole-model resolution of the registry
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class SegmentStates:
+    name: str                             # "seg0", "seg1", ...
+    repeat: int
+    kinds: Tuple[Tuple[str, str], ...]    # (mixer, ffn) per sub-layer
+    specs: Tuple[MixerSpec, ...]          # one per sub-layer
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelStateLayout:
+    """How one model's decode state lives under the paged serving pool."""
+    segments: Tuple[SegmentStates, ...]
+    has_slot_state: bool                  # any SLOT mixer in the stack
+    has_paged_state: bool                 # any PAGED/WINDOWED mixer
+    has_windowed_state: bool              # any WINDOWED mixer
+    free_window: Optional[int]            # out-of-window block freeing is
+    #   sound only when EVERY paged mixer is windowed; then this is the
+    #   largest window any layer still needs (None otherwise)
+
+    @property
+    def pure_paged(self) -> bool:
+        """Only full (unwindowed) paged state: CoW prefix forks are sound."""
+        return not self.has_slot_state and not self.has_windowed_state
+
+
+def model_state_layout(cfg) -> ModelStateLayout:
+    """Resolve ``cfg`` against the mixer registry; typed error if unservable."""
+    segs = []
+    windows: list = []
+    has_slot = has_paged = has_windowed = False
+    all_paged_windowed = True
+    for si, seg in enumerate(segments(cfg)):
+        specs = []
+        for mixer, _ in seg.kinds:
+            try:
+                spec = get_mixer(mixer)
+            except ValueError as e:
+                from repro_torch.api.errors import ServePlanError
+                raise ServePlanError(
+                    f"{cfg.name} is not servable: segment {si} uses mixer "
+                    f"{mixer!r}, which has no registered MixerSpec (rule: "
+                    "every mixer kind must register init/decode/prefill "
+                    "hooks plus a paged/slot/windowed StateSpec in "
+                    "repro_torch.models.mixers).") from e
+            specs.append(spec)
+            if spec.state == SLOT:
+                has_slot = True
+            else:
+                has_paged = True
+                if spec.state == WINDOWED:
+                    has_windowed = True
+                    windows.append(spec.window(cfg))
+                else:
+                    all_paged_windowed = False
+        segs.append(SegmentStates(f"seg{si}", seg.repeat, seg.kinds,
+                                  tuple(specs)))
+    free_window = (max(windows) if has_paged and all_paged_windowed and windows
+                   else None)
+    return ModelStateLayout(tuple(segs), has_slot, has_paged, has_windowed,
+                            free_window)
+
+
+# ---------------------------------------------------------------------------
+# registrations
+# ---------------------------------------------------------------------------
+def _attn_init_state(cfg, *, layers, num_blocks, block_size, dtype, device):
+    shape = (layers, num_blocks, block_size, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+register_mixer(MixerSpec(
+    kind=ATTN, state=PAGED, param_key="attn",
+    init=attention.init_attention,
+    init_state=_attn_init_state,
+    decode_paged=lambda p, h, positions, cfg, state, tables, *, block_size,
+        window: attention.attn_decode_paged(
+            p["attn"], h, positions, cfg, state, tables,
+            block_size=block_size, window=window),
+    prefill_paged=lambda p, h, starts, limits, slots, cfg, state, tables, *,
+        block_size, window: attention.attn_prefill_paged(
+            p["attn"], h, starts, limits, cfg, state, tables,
+            block_size=block_size, window=window),
+))

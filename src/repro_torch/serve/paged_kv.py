@@ -1,0 +1,220 @@
+"""Paged decode state: fixed-size pool blocks + block tables (HyperServe).
+
+The port of ``repro.serve.paged_kv``.  Two pieces:
+
+  - :class:`BlockManager` — pure host-side bookkeeping: a free list,
+    per-block reference counts (copy-on-write prefix sharing), admission
+    queries, and spill/restore of a request's pages into the shared
+    :class:`~repro_torch.core.kvcache.HostArchive`.
+  - :class:`StatePool` — the device tensors themselves, one leaf dict per
+    (segment, sublayer) with the layout the mixer registry declares:
+    paged leaves ``(L, N_blocks, block, ...)`` indexed through block
+    tables.  Host-driven page extract/insert serves spill/restore.
+
+Block id 0 is the **null block**: never allocated, the write target for
+inactive batch slots, the padding entry of every block table.  Reads
+through it are always masked, so its contents are don't-care.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.kvcache import HostArchive
+from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.models import mixers as MX
+
+
+class NoFreeBlocks(RuntimeError):
+    """Raised when an allocation cannot be satisfied from the free list."""
+
+
+def blocks_for(num_tokens: int, block_size: int) -> int:
+    return -(-num_tokens // block_size)          # ceil div
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedKVConfig:
+    block_size: int = 16          # tokens per pool block
+    num_blocks: int = 128         # pool size, including the null block
+    max_blocks_per_req: int = 16  # block-table width
+    dtype: str = "bfloat16"
+
+    @property
+    def max_context(self) -> int:
+        return self.block_size * self.max_blocks_per_req
+
+
+class BlockManager:
+    """Free-list allocator with refcounts, CoW forking and host spill."""
+
+    NULL = 0
+
+    def __init__(self, cfg: PagedKVConfig, archive: HostArchive):
+        self.cfg = cfg
+        self.archive = archive
+        self._free: List[int] = list(range(cfg.num_blocks - 1, 0, -1))
+        self._ref = np.zeros((cfg.num_blocks,), np.int32)
+        self._ref[self.NULL] = 1                 # never allocatable
+        # CoW accounting: blocks shared by fork vs pages physically
+        # duplicated on a write fault
+        self.forked_blocks = 0
+        self.cow_faults = 0
+
+    # -- queries -----------------------------------------------------------
+    @property
+    def num_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def num_total(self) -> int:
+        return self.cfg.num_blocks - 1           # null block excluded
+
+    def occupancy(self) -> float:
+        return 1.0 - self.num_free / max(self.num_total, 1)
+
+    def can_alloc(self, n: int) -> bool:
+        return n <= self.num_free
+
+    def refcount(self, bid: int) -> int:
+        return int(self._ref[bid])
+
+    # -- alloc / free ------------------------------------------------------
+    def alloc(self, n: int) -> List[int]:
+        if n > self.num_free:
+            raise NoFreeBlocks(f"need {n} blocks, have {self.num_free}")
+        out = [self._free.pop() for _ in range(n)]
+        for b in out:
+            assert self._ref[b] == 0, (b, self._ref[b])
+            self._ref[b] = 1
+        return out
+
+    def free(self, blocks: Sequence[int]) -> None:
+        for b in blocks:
+            if b == self.NULL:
+                continue
+            assert self._ref[b] > 0, f"double free of block {b}"
+            self._ref[b] -= 1
+            if self._ref[b] == 0:
+                self._free.append(b)
+
+    # -- copy-on-write -----------------------------------------------------
+    def fork(self, table: Sequence[int]) -> List[int]:
+        """Share ``table``'s blocks with a new owner (prefix sharing)."""
+        for b in table:
+            if b != self.NULL:
+                self._ref[b] += 1
+                self.forked_blocks += 1
+        return list(table)
+
+    def is_shared(self, bid: int) -> bool:
+        return bid != self.NULL and self._ref[bid] > 1
+
+    def ensure_writable(self, table: List[int], idx: int,
+                        copy_page) -> Tuple[List[int], int]:
+        """Make ``table[idx]`` exclusively owned before a write: a shared
+        block is copied into a fresh one (``copy_page(src, dst)``) and the
+        entry repointed (the classic CoW fault)."""
+        bid = table[idx]
+        if not self.is_shared(bid):
+            return table, bid
+        [new] = self.alloc(1)
+        copy_page(bid, new)
+        self._ref[bid] -= 1                      # old ref released, >=1 remain
+        self.cow_faults += 1
+        table = list(table)
+        table[idx] = new
+        return table, new
+
+    # -- spill / restore (cold tier) ---------------------------------------
+    def spill(self, key, table: Sequence[int], extract_pages) -> None:
+        """Move a request's page contents to the host archive, free blocks.
+
+        ``extract_pages(bids) -> tree`` pulls the page contents out of the
+        device pool *before* the blocks return to the free list (they may be
+        reallocated in the same scheduler step).
+        """
+        real = [b for b in table if b != self.NULL]
+        self.archive.put(key, extract_pages(real))
+        self.free(real)
+
+    def restore(self, key, insert_pages) -> List[int]:
+        """Re-seat spilled pages into freshly allocated blocks; raises
+        :class:`NoFreeBlocks` (archive entry intact) when they don't fit."""
+        pages = self.archive.fetch(key, pop=False)
+        leaves = tree_leaves(pages)
+        n = leaves[0].shape[1] if leaves else 0
+        bids = self.alloc(n)                     # may raise NoFreeBlocks
+        self.archive.discard(key)
+        insert_pages(pages, bids)
+        return bids
+
+    def spilled(self, key) -> bool:
+        return key in self.archive
+
+    def stats(self) -> dict:
+        """Pool occupancy + CoW accounting snapshot."""
+        return {
+            "num_total": self.num_total,
+            "num_free": self.num_free,
+            "occupancy": self.occupancy(),
+            "shared_blocks": int((self._ref[1:] > 1).sum()),
+            "forked_blocks": self.forked_blocks,
+            "cow_faults": self.cow_faults,
+            "archive_entries": len(self.archive.keys()),
+            "archive_bytes": self.archive.nbytes(),
+        }
+
+
+class StatePool:
+    """The pooled decode-state tensors for every layer of one model.
+
+    Per segment a tuple of per-sublayer leaf dicts, each leaf
+    ``(L, N_blocks, block, KV, hd)``: the per-request sequence dim is
+    replaced by the shared (block, offset) pool that block tables index,
+    and the leading stacked-layer axis is what the model's layer loop
+    slices.  Construction resolves the config against the mixer registry
+    (:func:`repro_torch.models.mixers.model_state_layout`) — an
+    unregistered mixer kind raises a typed ``ServePlanError`` here.
+    """
+
+    def __init__(self, cfg, pcfg: PagedKVConfig, *, device):
+        self.cfg = cfg
+        self.pcfg = pcfg
+        self.layout = MX.model_state_layout(cfg)
+        dt = getattr(torch, pcfg.dtype)
+        self.state: dict = {
+            seg.name: tuple(spec.init_state(
+                cfg, layers=seg.repeat, num_blocks=pcfg.num_blocks,
+                block_size=pcfg.block_size, dtype=dt, device=device)
+                for spec in seg.specs)
+            for seg in self.layout.segments}
+
+    def hbm_bytes(self) -> int:
+        return sum(a.numel() * a.element_size()
+                   for a in tree_leaves(self.state))
+
+    # -- host-driven page movement (spill / restore / CoW copy) ------------
+    def _idx(self, bids: Sequence[int]) -> torch.Tensor:
+        device = tree_leaves(self.state)[0].device
+        return torch.tensor(list(bids), dtype=torch.long, device=device)
+
+    def extract_pages(self, bids: Sequence[int]):
+        """Copy blocks ``bids`` out of every paged leaf: (L, n, bs, ...)."""
+        idx = self._idx(bids)
+        return tree_map(lambda a: a[:, idx], self.state)
+
+    def insert_pages(self, pages, bids: Sequence[int]) -> None:
+        idx = self._idx(bids)
+
+        def put(a, p):
+            a[:, idx] = p.to(a.dtype)
+        tree_map(put, self.state, pages)
+
+    def copy_page(self, src: int, dst: int) -> None:
+        def cp(a):
+            a[:, dst] = a[:, src]
+        tree_map(cp, self.state)

@@ -1,0 +1,437 @@
+"""HyperServe engine loop: requests in, tokens out (PyTorch port).
+
+The port of ``repro.serve.runtime.ServeEngine`` on one device, without
+mesh, shardings, disaggregation or MPMD groups.  It composes the paged pool
+(:mod:`repro_torch.serve.paged_kv`), the continuous-batching scheduler
+(:mod:`repro_torch.serve.scheduler`) and the paged model steps
+(:mod:`repro_torch.models.model`) into one iteration:
+
+    plan = scheduler.schedule()          # admit / resume / preempt
+    run plan.prefill as ONE batched call # <= budget, so decode never starves
+    run one decode step for all slots    # every runner advances one token
+
+The decode batch is a fixed set of ``max_slots`` seats; empty seats decode
+a dummy token against the null block and their logits are ignored.  Every
+attention layer of a step runs the fused paged kernels: on the card their
+CUDA kernels, on an explicit ``device="cpu"`` their plain versions.
+
+A finished prompt's full blocks can be retained in a copy-on-write
+**prefix cache**: an identical prompt prefix forks the cached blocks
+(refcount bump, zero copies, zero recompute) and prefills only the tail.
+"""
+from __future__ import annotations
+
+import time
+from collections import OrderedDict
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.api.errors import ServePlanError
+from repro_torch.configs.base import DENSE_FFN, ServeConfig
+from repro_torch.core.kvcache import HostArchive
+from repro_torch.core.tree import tree_map
+from repro_torch.kernels import ops
+from repro_torch.mem.prefetcher import Prefetcher
+from repro_torch.models import model as M
+from repro_torch.obs import Observability
+from repro_torch.serve.paged_kv import BlockManager, StatePool
+from repro_torch.serve.scheduler import ContinuousScheduler, Request, RequestState
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device to serve on: ``device`` if given, else the card.
+
+    With no device named and no CUDA device present this raises; it never
+    falls back to the CPU (pass ``device="cpu"`` to run there on purpose).
+    """
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available: repro_torch serves on the card "
+            "unless the caller passes device='cpu' explicitly")
+    return torch.device("cuda")
+
+
+def _sample_seed(seed: int, position: int) -> int:
+    """Generator seed for one request position: a fixed mix of
+    ``(seed, position)``, the port's counterpart of the reference's
+    ``fold_in(PRNGKey(seed), position)``."""
+    return (seed * 0x9E3779B97F4A7C15 + position) & 0x7FFFFFFFFFFFFFFF
+
+
+class ServeEngine:
+    def __init__(self, cfg, params, *, serve_cfg: Optional[ServeConfig] = None,
+                 seed: int = 0, obs: Optional[Observability] = None,
+                 device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        # a bare engine gets a private hub so per-engine counters and the
+        # compile ledger stay clean across engines in one process
+        self.obs = obs if obs is not None else Observability()
+        self.scfg = scfg = (serve_cfg or ServeConfig()).validate()
+        if scfg.archive_host_bytes or scfg.archive_disk_bytes:
+            raise ServePlanError(
+                "archive_host_bytes/archive_disk_bytes budget the HyperMem "
+                "host and disk tiers, which the port does not have yet "
+                "(ROADMAP.md, 'HyperMem and the host archive'); leave both "
+                "at 0 for the unbounded host archive")
+        unported = sorted({f for _, f in cfg.block_kinds() if f != DENSE_FFN})
+        if unported:
+            raise ServePlanError(
+                f"{cfg.name} is not servable by the port yet: FFN kinds "
+                f"{unported} are not ported (ROADMAP.md, 'Modules to port')")
+        # plan-level kernels toggle -> lowering path, resolved ONCE so every
+        # step this engine dispatches takes the same path (and the
+        # serve.kernels.* counters pin it exactly)
+        self.kernel_path = ops.resolve_paged_path(scfg.kernels)
+
+        self.pcfg = scfg.paged_config(model_dtype=cfg.dtype)
+        # resolves cfg against the mixer registry; typed ServePlanError for
+        # unservable stacks (unregistered mixer kinds)
+        self.pool = StatePool(cfg, self.pcfg, device=self.device)
+        self.layout = self.pool.layout
+        self.blocks = BlockManager(self.pcfg, HostArchive(self.device))
+        # predictive restore: a lookahead prefetcher stages restores for
+        # preempted requests nearing the queue head (StepPlan.near_head)
+        self._restore_prefetch = Prefetcher(
+            lambda key: self.blocks.archive.fetch(key, pop=False),
+            depth=max(1, 2 * scfg.restore_lookahead), obs=self.obs)
+        self.restore_ahead_hits = 0
+        self.scheduler = ContinuousScheduler(
+            scfg.scheduler_config(), self.blocks, scfg.block_size,
+            scfg.max_blocks_per_req,
+            spill=self._spill, restore=self._restore, reclaim=self._reclaim,
+            prefix=self._prefix_lookup, retain=self._retain,
+            free_window=self.layout.free_window,
+            needs_pages=self.layout.has_paged_state,
+            seed_fn=self._default_seed, obs=self.obs)
+        self.params = tree_map(lambda t: t.to(self.device), params)
+
+        # prefix cache: token-tuple -> block ids (refs held by the cache)
+        self._prefix_cache: "OrderedDict[Tuple[int, ...], List[int]]" = \
+            OrderedDict()
+        self.seed = seed
+        self.t_start = time.perf_counter()
+        self.tokens_generated = 0
+        # interval-rate marks: stats() reports tokens/sec over the window
+        # since the previous stats() call
+        self._rate_t = self.t_start
+        self._rate_tokens = 0
+        # batching effectiveness: chunks serviced vs calls made
+        self.prefill_calls = 0
+        self.prefill_chunks = 0
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    # ------------------------------------------------------------------
+    # tier-movement callbacks (scheduler-driven)
+    # ------------------------------------------------------------------
+    def _spill(self, req: Request) -> None:
+        """Archive a preempted request's pages."""
+        with self.obs.trace.span("serve.spill", track="engine", rid=req.rid,
+                                 blocks=len(req.table)):
+            self.blocks.spill(req.archive_key, req.table,
+                              self.pool.extract_pages)
+        self.obs.metrics.counter("serve.spills").inc()
+
+    def _restore(self, req: Request) -> List[int]:
+        with self.obs.trace.span("serve.restore", track="engine",
+                                 rid=req.rid):
+            bids = self._restore_inner(req)
+        self.obs.metrics.counter("serve.restores").inc()
+        return bids
+
+    def _restore_inner(self, req: Request) -> List[int]:
+        # allocate BEFORE consuming staged state: NoFreeBlocks aborts the
+        # resume with both the archive entry and the prefetch buffer
+        # intact, so the retry next iteration is identical
+        bids = self.blocks.alloc(req.spilled_blocks)
+        pages, hit = self._restore_prefetch.take(req.archive_key)
+        self.blocks.archive.discard(req.archive_key)
+        self.pool.insert_pages(pages, bids)
+        if hit:
+            # the request's archived pages were already moving before
+            # _admit asked for them
+            self.restore_ahead_hits += 1
+            self.obs.metrics.counter("mem.restore_ahead.hit").inc()
+        # window-freed entries were a table prefix; rebuild alignment
+        return [BlockManager.NULL] * req.null_prefix + bids
+
+    def _stage_restores(self, near: List[Request]) -> None:
+        """Predictive restore: start pulling archived pages for PREEMPTED
+        requests nearing the queue head.  The fetch is an asynchronous
+        host->device copy (pop=False — the archive entry survives until the
+        real restore commits), so it overlaps this iteration's work."""
+        pf = self._restore_prefetch
+        arch = self.blocks.archive
+        pf.prune(lambda k: k in arch)     # cancelled requests drop staged
+        for req in near:
+            if req.archive_key in arch:
+                pf.stage(req.archive_key)
+
+    def _reclaim(self, n: int) -> int:
+        """Evict LRU prefix-cache entries until >= n blocks are freed."""
+        freed = 0
+        while self._prefix_cache and freed < n:
+            _, bids = self._prefix_cache.popitem(last=False)
+            before = self.blocks.num_free
+            self.blocks.free(bids)
+            freed += self.blocks.num_free - before
+        return freed
+
+    def _prefix_lookup(self, req: Request) -> List[int]:
+        # prefix forks are only sound for pure-paged layouts
+        if not self.scfg.enable_prefix_cache or not self.layout.pure_paged:
+            return []
+        bs = self.pcfg.block_size
+        # at least one prompt token must remain to prefill (its logits seed
+        # the first generated token), hence the -1
+        for nb in range((req.prompt_len - 1) // bs, 0, -1):
+            key = tuple(req.prompt[:nb * bs])
+            if key in self._prefix_cache:
+                self._prefix_cache.move_to_end(key)
+                return self.blocks.fork(self._prefix_cache[key])
+        return []
+
+    def _retain(self, req: Request) -> None:
+        if not self.scfg.enable_prefix_cache or not self.layout.pure_paged:
+            return
+        bs = self.pcfg.block_size
+        # retain every full-block prefix: a future prompt can only fork a
+        # prefix strictly shorter than itself
+        for nb in range(1, req.prompt_len // bs + 1):
+            key = tuple(req.prompt[:nb * bs])
+            if key in self._prefix_cache:
+                self._prefix_cache.move_to_end(key)
+                continue
+            self._prefix_cache[key] = self.blocks.fork(req.table[:nb])
+        while (sum(len(v) for v in self._prefix_cache.values())
+               > self.scfg.prefix_cache_blocks):
+            _, bids = self._prefix_cache.popitem(last=False)
+            self.blocks.free(bids)
+
+    # ------------------------------------------------------------------
+    # sampling
+    # ------------------------------------------------------------------
+    def _default_seed(self, rid: int) -> int:
+        """Per-request seed for requests that didn't pin one at submit."""
+        return (self.seed ^ (rid * 0x9E3779B1)) & 0x7FFFFFFF
+
+    def _sample(self, logits_row, req: Request) -> int:
+        """Sample the request's next token under a per-request generator.
+
+        The generator is seeded from ``(req.seed, len(req.generated))``
+        only — no engine-global counter — so a temperature>0 request
+        resamples the identical token stream across runs AND across
+        preemption spill/restore.  The draw runs on the CPU, so the stream
+        does not depend on the device either.  With ``capture_logprobs``
+        the sampled token's logprob under the sampling distribution is
+        appended to ``req.logprobs``.
+        """
+        lg = logits_row[:self.cfg.vocab_size].float()
+        if req.temperature > 0:
+            lg = (lg / req.temperature).cpu()
+            gen = torch.Generator(device="cpu")
+            gen.manual_seed(_sample_seed(req.seed, len(req.generated)))
+            tok = int(torch.multinomial(torch.softmax(lg, -1), 1,
+                                        generator=gen))
+        else:
+            tok = int(torch.argmax(lg))
+        if req.capture_logprobs:
+            req.logprobs.append(float(torch.log_softmax(lg, -1)[tok]))
+        return tok
+
+    # ------------------------------------------------------------------
+    # prefill execution
+    # ------------------------------------------------------------------
+    def _run_prefill_batch(self, reqs: List[Request]) -> None:
+        """Every scheduled prompt chunk in ONE call (<= prefill_batch rows,
+        filler rows padded to limit 0 / the null slot / the null block).
+
+        The row count is bucketed to the next power of two (1, 2, 4, ...,
+        prefill_batch), as the reference buckets its jit shapes: a lone
+        prefilling request costs a (1, chunk) call, not a fully padded one.
+        """
+        C = self.scfg.prefill_chunk
+        Pb = 1
+        while Pb < len(reqs):
+            Pb *= 2
+        Pb = min(Pb, self.scfg.prefill_batch)
+        W = self.pcfg.max_blocks_per_req
+        toks = np.zeros((Pb, C), np.int32)
+        starts = np.zeros((Pb,), np.int32)
+        limits = np.zeros((Pb,), np.int32)
+        slots = np.full((Pb,), self.scfg.max_slots, np.int32)
+        tables = np.zeros((Pb, W), np.int32)
+        meta = []
+        for i, req in enumerate(reqs):
+            c0 = req.prefill_done
+            n = min(C, req.prompt_len - c0)
+            toks[i, :n] = req.prompt[c0:c0 + n]
+            starts[i] = c0
+            limits[i] = req.prompt_len
+            slots[i] = req.slot
+            tables[i, :len(req.table)] = req.table
+            meta.append((i, req, n))
+        self.obs.record_compile("paged_prefill", (Pb, C, W))
+        self.obs.metrics.counter(
+            f"serve.kernels.prefill.{self.kernel_path}").inc()
+        with self.obs.trace.span("serve.prefill", track="engine",
+                                 rows=len(reqs), bucket=Pb,
+                                 rids=[r.rid for r in reqs]):
+            logits = M.prefill_chunk_paged(
+                self.params, self._tensor(toks), self._tensor(starts),
+                self._tensor(limits), self._tensor(slots), self.cfg,
+                self.pool.state, self._tensor(tables),
+                block_size=self.scfg.block_size)
+        self.prefill_calls += 1
+        self.prefill_chunks += len(reqs)
+        self.obs.metrics.counter("serve.prefill_calls").inc()
+        self.obs.metrics.counter("serve.prefill_chunks").inc(len(reqs))
+        for i, req, n in meta:
+            self.scheduler.on_prefill_chunk(req, n)
+            if req.prefill_done == req.prompt_len:
+                # the step returns each row's LAST in-chunk prompt-token
+                # logits: exactly what seeds the first sampled token
+                first = self._sample(logits[i], req)
+                self.scheduler.on_prompt_complete(req, first)
+                self.tokens_generated += 1
+
+    # ------------------------------------------------------------------
+    # the engine iteration
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def step(self) -> List[Tuple[int, int]]:
+        """One scheduler+compute iteration.  Returns [(rid, new token)]."""
+        plan = self.scheduler.schedule()
+        if plan.near_head or self._restore_prefetch.entries:
+            self._stage_restores(plan.near_head)
+        events: List[Tuple[int, int]] = []
+        if plan.prefill:
+            gsz = self.scfg.prefill_batch
+            for i in range(0, len(plan.prefill), gsz):
+                self._run_prefill_batch(plan.prefill[i:i + gsz])
+            for req in plan.prefill:
+                if req.generated:
+                    events.append((req.rid, req.generated[-1]))
+
+        runners = [r for r in plan.decode
+                   if r.state is RequestState.RUNNING]
+        if runners:
+            B = self.scfg.max_slots
+            W = self.pcfg.max_blocks_per_req
+            tokens = np.zeros((B, 1), np.int32)
+            positions = np.zeros((B,), np.int32)
+            tables = np.zeros((B, W), np.int32)
+            for r in runners:
+                tokens[r.slot, 0] = r.generated[-1]
+                positions[r.slot] = r.total_len - 1
+                tables[r.slot, :len(r.table)] = r.table
+            self.obs.record_compile("paged_decode", (B, W))
+            self.obs.metrics.counter(
+                f"serve.kernels.decode.{self.kernel_path}").inc()
+            t_dec = time.perf_counter()
+            with self.obs.trace.span("serve.decode", track="engine",
+                                     runners=len(runners)):
+                logits = M.decode_step_paged(
+                    self.params, self._tensor(tokens),
+                    self._tensor(positions), self.cfg, self.pool.state,
+                    self._tensor(tables), block_size=self.scfg.block_size)
+                if all(r.temperature <= 0 and not r.capture_logprobs
+                       for r in runners):
+                    # batched greedy: one device op + one transfer for the
+                    # whole batch instead of a sync per seated slot
+                    nxt = torch.argmax(
+                        logits[:, -1, :self.cfg.vocab_size].float(),
+                        dim=-1).cpu().numpy()
+                    picks = {r.slot: int(nxt[r.slot]) for r in runners}
+                else:
+                    if all(r.temperature > 0 for r in runners):
+                        # the reference's batched stochastic sampler key
+                        self.obs.record_compile("sampler", (B,))
+                    picks = {r.slot: self._sample(logits[r.slot, -1], r)
+                             for r in runners}
+            # one decode step advances every runner one token: the step's
+            # wall time IS each seated request's inter-token latency
+            self.obs.metrics.histogram("serve.itl_s").observe(
+                time.perf_counter() - t_dec)
+            for r in runners:
+                tok = picks[r.slot]
+                self.scheduler.on_decode_token(r, tok)
+                self.tokens_generated += 1
+                events.append((r.rid, tok))
+        self._set_gauges()
+        return events
+
+    def _set_gauges(self) -> None:
+        """Occupancy snapshot after an engine iteration (pool / archive /
+        prefix-cache gauges, plus Perfetto counter tracks while a trace is
+        being captured)."""
+        m = self.obs.metrics
+        occ = self.blocks.occupancy()
+        m.gauge("serve.block_occupancy").set(occ)
+        m.gauge("serve.blocks_free").set(self.blocks.num_free)
+        m.gauge("serve.archive_host_bytes").set(self.blocks.archive.nbytes())
+        m.gauge("serve.pool_hbm_bytes").set(self.pool.hbm_bytes())
+        m.gauge("serve.prefix_cache_blocks").set(
+            sum(len(v) for v in self._prefix_cache.values()))
+        tr = self.obs.trace
+        if tr.enabled:
+            tr.counter("block_occupancy", occ, track="pool")
+            tr.counter("archive_bytes", self.blocks.archive.nbytes(),
+                       track="pool")
+            tr.counter("running",
+                       sum(1 for r in self.scheduler.active
+                           if r.state is RequestState.RUNNING), track="pool")
+
+    def run_until_complete(self, max_steps: int = 100_000) -> Dict[int, List[int]]:
+        steps = 0
+        while self.scheduler.has_work():
+            self.step()
+            steps += 1
+            if steps > max_steps:
+                raise RuntimeError("serving loop did not drain "
+                                   f"({max_steps} steps)")
+        return {rid: r.generated for rid, r in self.scheduler.requests.items()}
+
+    def stats(self) -> Dict[str, float]:
+        now = time.perf_counter()
+        # interval rate: tokens since the previous stats() call over the
+        # wall time since that call
+        dt_int = now - self._rate_t
+        tok_int = self.tokens_generated - self._rate_tokens
+        self._rate_t = now
+        self._rate_tokens = self.tokens_generated
+        dt_cum = now - self.t_start
+        m = self.obs.metrics
+        ttft = m.histogram("serve.ttft_s")
+        itl = m.histogram("serve.itl_s")
+        qw = m.histogram("serve.queue_wait_s")
+        s = self.scheduler.stats()
+        s.update({
+            "queue_depth": len(self.scheduler.queue),
+            "tokens_generated": self.tokens_generated,
+            "tokens_per_sec": tok_int / dt_int if dt_int > 0 else 0.0,
+            "tokens_per_sec_cumulative":
+                self.tokens_generated / dt_cum if dt_cum > 0 else 0.0,
+            "prefill_calls": self.prefill_calls,
+            "prefill_chunks": self.prefill_chunks,
+            "pool_hbm_bytes": self.pool.hbm_bytes(),
+            "archive_host_bytes": self.blocks.archive.nbytes(),
+            "restore_ahead_hits": self.restore_ahead_hits,
+            "prefetch_hits": self._restore_prefetch.counters["hit"],
+            "prefetch_misses": self._restore_prefetch.counters["miss"],
+            "prefix_cache_blocks": sum(len(v)
+                                       for v in self._prefix_cache.values()),
+            "ttft_p50_s": ttft.percentile(50),
+            "ttft_p95_s": ttft.percentile(95),
+            "itl_p50_s": itl.percentile(50),
+            "itl_p95_s": itl.percentile(95),
+            "queue_wait_p50_s": qw.percentile(50),
+            "recompiles": self.obs.recompiles(),
+        })
+        return s

@@ -1,0 +1,143 @@
+"""The port's CUDA kernels and its serving path on the card.
+
+Every test here is marked ``gpu`` and skips without a CUDA device (the
+CUDA kernels have no CPU mode; on the CPU the wrappers run the plain
+versions, which ``tests/test_torch_kernels.py`` holds against the JAX
+reference).  The file imports no JAX, so it runs on a machine with a card
+and no JAX:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
+
+Tolerances: 2e-5 in float32 (sums in another order).  In bfloat16 the
+kernels and the plain versions both compute in float32 and round once, so
+the kernel must be within one bfloat16 step of the plain version and
+within half a step of the plain version's float32 result on the same
+inputs (plus 4e-6 where a step is smaller than the float32 differences).
+"""
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs.base import ServeConfig, get_config  # noqa: E402
+from repro_torch.kernels import paged_decode_attention as pda  # noqa: E402
+from repro_torch.kernels import ragged_prefill_attention as rpa  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
+from repro_torch.serve.api import HyperServe  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+BS, W, N = 4, 6, 32
+H, KV, D = 14, 2, 64
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _inputs(dtype, device):
+    g = torch.Generator().manual_seed(7)
+    perm = torch.randperm(N - 1, generator=g)[:4 * W] + 1
+    tables = perm.reshape(4, W).to(torch.int32)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(device, dtype)
+    return (rnd(N, BS, KV, D), rnd(N, BS, KV, D), tables.to(device),
+            rnd(3, 1, H, D), rnd(4, 8, H, D))
+
+
+def _bf16_step(x):
+    _, e = torch.frexp(x.float().abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def _assert_close(got, fn, args, kw):
+    want = fn(*args, **kw)
+    if got.dtype == torch.float32:
+        assert (got - want).abs().max().item() < 2e-5
+        return
+    want32 = fn(*[a.float() if a.is_floating_point() else a for a in args],
+                **kw)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= _bf16_step(want) + 4e-6).all())
+    err32 = (got.float() - want32).abs()
+    assert bool((err32 <= 0.5 * _bf16_step(want32) + 4e-6).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 7])
+def test_kernels_match_plain_versions(cuda, dtype, window):
+    k_pool, v_pool, tables, q_dec, q_pre = _inputs(dtype, cuda)
+    kw = dict(block_size=BS, window=window)
+    lengths = torch.tensor([10, 3, 24], dtype=torch.int32, device=cuda)
+    n0 = pda.paged_decode_attention.launches
+    args = (q_dec, k_pool, v_pool, tables[:3], lengths)
+    got = pda.paged_decode_attention(*args, **kw)
+    assert pda.paged_decode_attention.launches == n0 + 1
+    _assert_close(got, pda.paged_decode_attention_ref, args, kw)
+    starts = torch.tensor([0, 5, 16, 0], dtype=torch.int32, device=cuda)
+    limits = torch.tensor([12, 13, 24, 0], dtype=torch.int32, device=cuda)
+    args = (q_pre, k_pool, v_pool, tables, starts, limits)
+    got = rpa.ragged_prefill_attention(*args, **kw)
+    _assert_close(got, rpa.ragged_prefill_attention_ref, args, kw)
+    assert bool((got[3] == 0).all())
+
+
+def test_decode_kernel_at_serving_lengths(cuda):
+    """Block size 16, lengths from 1 key to 40 pages with last pages of
+    many fill levels (a full one too), so every lane position of a warp
+    tile and the cross-warp combine are exercised."""
+    g = torch.Generator().manual_seed(3)
+    B, Wd, Nb = 18, 40, 800
+    lengths = torch.tensor([2, 1, 15, 16, 17, 31, 32, 33, 100, 255, 256,
+                            257, 511, 600, 613, 639, 640, 7], dtype=torch.int32)
+    tables = (torch.randperm(Nb - 1, generator=g)[:B * Wd] + 1).reshape(B, Wd)
+    for dtype in (torch.float32, torch.bfloat16):
+        def rnd(*shape):
+            return torch.randn(*shape, generator=g).to(cuda, dtype)
+        args = (rnd(B, 1, H, D), rnd(Nb, 16, KV, D), rnd(Nb, 16, KV, D),
+                tables.to(cuda, torch.int32), lengths.to(cuda))
+        for window in (None, 50):
+            kw = dict(block_size=16, window=window)
+            got = pda.paged_decode_attention(*args, **kw)
+            _assert_close(got, pda.paged_decode_attention_ref, args, kw)
+
+
+def test_wrappers_refuse_what_no_kernel_takes(cuda):
+    k_pool, v_pool, tables, q_dec, _ = _inputs(torch.float32, cuda)
+    lengths = torch.tensor([10, 3, 24], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        pda.paged_decode_attention(q_dec[..., :16], k_pool[..., :16],
+                                   v_pool[..., :16], tables[:3], lengths,
+                                   block_size=BS)
+    with pytest.raises(ValueError, match="dtypes"):
+        pda.paged_decode_attention(q_dec.half(), k_pool, v_pool, tables[:3],
+                                   lengths, block_size=BS)
+
+
+def test_serving_on_the_card_matches_the_cpu(cuda):
+    """Reduced qwen2-0.5b in float32: the same params served on the card
+    (CUDA kernels) and on the CPU (plain versions) give the same greedy
+    tokens, through preemption, and the card run launches the kernels."""
+    cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
+                              dtype="float32")
+    params = M.init_model(cfg, torch.Generator().manual_seed(0))
+    scfg = ServeConfig(block_size=2, num_blocks=9, max_blocks_per_req=6,
+                       max_slots=2, prefill_chunk=4, enable_prefix_cache=False)
+    prompts, max_new = [list(range(1, 5)), list(range(7, 11))], [8, 8]
+    outs = {}
+    n0 = (pda.paged_decode_attention.launches,
+          rpa.ragged_prefill_attention.launches)
+    for device in ("cpu", cuda):
+        serve = HyperServe(cfg, params, serve_cfg=scfg, device=device)
+        rids = [serve.submit(p, n) for p, n in zip(prompts, max_new)]
+        out = serve.join()
+        outs[str(device)] = [out[r] for r in rids]
+        assert serve.stats()["preemptions"] >= 1
+    assert outs["cpu"] == outs["cuda"]
+    assert pda.paged_decode_attention.launches > n0[0]
+    assert rpa.ragged_prefill_attention.launches > n0[1]

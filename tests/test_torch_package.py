@@ -1,0 +1,93 @@
+"""Package-level contract of the port.
+
+- ``repro_torch`` and every submodule import without JAX and without
+  anything of the reference package ``repro`` (checked in a fresh
+  interpreter, where nothing else could have imported them);
+- the serving entry points run on the card unless the caller names
+  ``device="cpu"``: with no CUDA device and no device named they raise,
+  they never fall back to the CPU;
+- ``chip_smoke.py`` exits non-zero and prints no result without a card,
+  and in a directory that holds nothing else of the repository.
+"""
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from tests.conftest import REPO, run_subprocess  # noqa: E402
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    out = run_subprocess("""
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+assert not bad, bad
+assert "repro_torch.serve.runtime" in names, names
+print(len(names), "modules")
+""", devices=1)
+    assert "modules" in out
+
+
+def test_serving_needs_a_card_unless_cpu_is_named(monkeypatch):
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import model as M
+    from repro_torch.serve.api import HyperServe
+    from repro_torch.serve.runtime import ServeEngine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("qwen2-0.5b").reduced()
+    params = M.init_model(cfg, torch.Generator().manual_seed(0))
+    for ctor in (HyperServe, ServeEngine):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ctor(cfg, params)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--continuous"])
+    serve = HyperServe(cfg, params, device="cpu")
+    assert serve.engine.device.type == "cpu"
+
+
+def test_launcher_serves_on_an_explicit_cpu(capsys):
+    from repro_torch.launch import serve as launcher
+    launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--continuous",
+                   "--device", "cpu", "--requests", "3", "--max-new", "4",
+                   "--block-size", "4", "--num-blocks", "64",
+                   "--prefill-chunk", "8", "--metrics"])
+    out = capsys.readouterr().out
+    assert "served 3 requests" in out and "on cpu" in out
+    assert "serve_kernels_decode_fused" in out
+    with pytest.raises(SystemExit, match="dense Generator"):
+        launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--device",
+                       "cpu"])
+    with pytest.raises(SystemExit, match="--batch sizes fixed-batch"):
+        launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--continuous",
+                       "--batch", "2", "--device", "cpu"])
+
+
+def _run_smoke(cwd):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH", None)
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_chip_smoke_fails_without_a_card_or_the_repository(tmp_path):
+    out = _run_smoke(REPO)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    out = _run_smoke(tmp_path)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+    assert "No module named 'repro_torch'" in out.stderr

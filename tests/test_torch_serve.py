@@ -1,0 +1,187 @@
+"""The port's HyperServe against the reference's, end to end on the CPU.
+
+Same float32 params (JAX ``init_model``, carried over by the weight
+bridge), same prompts and ``ServeConfig``s as the reference's own fused
+serving tests (``tests/test_fused_serve.py``): the port's ``HyperServe``
+on ``device="cpu"`` (the fused kernels' plain versions) must produce
+greedy tokens identical to the JAX ``HyperServe`` (composed lowering, the
+fast one on CPU) and to the JAX ``Generator``, through preemption, with
+the scheduler counters and the compile-ledger keys equal to the
+reference's exactly.  Float32 so that no argmax can flip on rounding.
+"""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs.base import ServeConfig as JaxServeConfig  # noqa: E402
+from repro.configs.base import get_config as jax_get_config  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro.serve.api import HyperServe as JaxHyperServe  # noqa: E402
+from repro.serve.engine import GenerateConfig, Generator  # noqa: E402
+from repro_torch.api.errors import ServePlanError  # noqa: E402
+from repro_torch.configs.base import (ArchNotPortedError,  # noqa: E402
+                                      ServeConfig, get_config)
+from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models.bridge import params_from_numpy  # noqa: E402
+from repro_torch.serve.api import HyperServe, RequestRejected  # noqa: E402
+
+CASES = {
+    # tests/test_fused_serve.py: test_attn_fused_serve_matches_generator
+    "mixed": (dict(block_size=4, num_blocks=40, max_blocks_per_req=8,
+                   max_slots=3, prefill_chunk=4),
+              [list(range(1, 9)), list(range(20, 33)), list(range(5, 10))],
+              [6, 4, 8]),
+    # tests/test_fused_serve.py: test_fused_preemption_spill_restore_exact
+    "preempt": (dict(block_size=2, num_blocks=9, max_blocks_per_req=6,
+                     max_slots=2, prefill_chunk=4, enable_prefix_cache=False),
+                [list(range(1, 5)), list(range(7, 11))], [8, 8]),
+}
+
+
+@functools.cache
+def _models(arch):
+    jcfg = dataclasses.replace(jax_get_config(arch).reduced(),
+                               dtype="float32")
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    jp = JM.init_model(jcfg, jax.random.PRNGKey(0))
+    return jcfg, cfg, jp, params_from_numpy(jax.tree.map(np.asarray, jp),
+                                            "cpu")
+
+
+@functools.cache
+def _generator(arch):
+    """One reference Generator per arch: its decode step compiles once
+    for both cases."""
+    jcfg, _, jp, _ = _models(arch)
+    return Generator(jcfg, jp, max_len=128)
+
+
+def _serve(server, prompts, max_new, **kw):
+    rids = [server.submit(p, n, **kw) for p, n in zip(prompts, max_new)]
+    out = server.join()
+    return [out[r] for r in rids]
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "llama3-8b"])
+def test_serve_matches_reference_serve_and_generator(arch, case):
+    kw, prompts, max_new = CASES[case]
+    jcfg, cfg, jp, tp = _models(arch)
+    ref = JaxHyperServe(jcfg, jp, serve_cfg=JaxServeConfig(kernels="composed",
+                                                           **kw))
+    want = _serve(ref, prompts, max_new)
+    gen = _generator(arch)
+    want_gen = [gen.generate(jnp.asarray(p, jnp.int32)[None, :],
+                             GenerateConfig(max_new_tokens=n))[0, len(p):]
+                .tolist() for p, n in zip(prompts, max_new)]
+    port = HyperServe(cfg, tp, serve_cfg=ServeConfig(**kw), device="cpu")
+    got = _serve(port, prompts, max_new)
+    assert got == want == want_gen
+    rs, ps = ref.stats(), port.stats()
+    for key in ("prefill_calls", "prefill_chunks", "preemptions",
+                "prefix_hits", "finished"):
+        assert ps[key] == rs[key], key
+    if case == "preempt":
+        assert ps["preemptions"] >= 1, "the case must really preempt"
+        m = port.engine.obs.metrics
+        assert m.counter("serve.spills").value >= 1
+        assert m.counter("serve.restores").value >= 1
+    assert (port.engine.obs.compiled_keys()
+            == ref.engine.obs.compiled_keys())
+
+
+def test_kernel_dispatch_counters_pinned():
+    """The reference pins its dispatch counts on this workload (prompts of
+    5 and 3 tokens: prefill chunks [4+3] then [1], then 4 batched decode
+    steps); the port counts the same dispatches on the fused path."""
+    cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
+                              dtype="float32")
+    params = M.init_model(cfg, torch.Generator().manual_seed(0))
+    serve = HyperServe(cfg, params, device="cpu", serve_cfg=ServeConfig(
+        block_size=4, num_blocks=40, max_blocks_per_req=8, max_slots=2,
+        prefill_chunk=4))
+    assert serve.engine.kernel_path == "fused"
+    _serve(serve, [[1, 2, 3, 4, 5], [7, 8, 9]], [4, 3])
+    m = serve.engine.obs.metrics
+    assert m.counter("serve.kernels.decode.fused").value == 4
+    assert m.counter("serve.kernels.prefill.fused").value == 2
+    assert m.counter("serve.kernels.decode.composed").value == 0
+
+
+def test_seeded_sampling_replays_within_the_port():
+    """Temperature sampling draws from a generator seeded by (request
+    seed, position): two runs give the same tokens, and so does a run
+    that preempts, spills and restores on a tight pool."""
+    cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
+                              dtype="float32")
+    params = M.init_model(cfg, torch.Generator().manual_seed(0))
+    kw, prompts, max_new = CASES["preempt"]
+    ample = dict(kw, num_blocks=40)
+    runs = []
+    for skw in (ample, ample, kw):
+        serve = HyperServe(cfg, params, serve_cfg=ServeConfig(**skw),
+                           device="cpu")
+        rids = [serve.submit(p, n, temperature=0.9, seed=11 + i,
+                             capture_logprobs=True)
+                for i, (p, n) in enumerate(zip(prompts, max_new))]
+        out = serve.join()
+        runs.append(([out[r] for r in rids],
+                     [serve.engine.scheduler.requests[r].logprobs
+                      for r in rids], serve.stats()["preemptions"]))
+    (t0, lp0, _), (t1, lp1, _), (t2, lp2, pre) = runs
+    assert t0 == t1 == t2
+    assert lp0 == lp1
+    assert np.allclose(np.concatenate(lp0), np.concatenate(lp2), atol=1e-5)
+    assert pre >= 1
+    # sampling really happened: not the greedy stream
+    greedy = HyperServe(cfg, params, serve_cfg=ServeConfig(**ample),
+                        device="cpu")
+    assert _serve(greedy, prompts, max_new) != t0
+
+
+def test_cancel_and_admission_control():
+    """Cancelling returns a request's blocks and seat; an unservable or
+    over-queue submit raises the typed RequestRejected."""
+    cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
+                              dtype="float32")
+    params = M.init_model(cfg, torch.Generator().manual_seed(0))
+    serve = HyperServe(cfg, params, device="cpu", serve_cfg=ServeConfig(
+        block_size=4, num_blocks=16, max_blocks_per_req=4, max_slots=1,
+        prefill_chunk=4, max_queue=1))
+    free0 = serve.stats()["free_blocks"]
+    a = serve.submit(list(range(1, 6)), 4)
+    serve.step_once()                       # a is seated and prefilling
+    b = serve.submit(list(range(1, 4)), 2)  # b waits in the queue
+    with pytest.raises(RequestRejected) as e:
+        serve.submit([1, 2], 2)             # queue full
+    assert e.value.reason == "queue_full" and e.value.retry_after_s
+    with pytest.raises(RequestRejected) as e:
+        serve.submit(list(range(20)), 4)    # can never fit the table
+    assert e.value.reason == "unservable" and e.value.retry_after_s is None
+    assert serve.cancel(a) and serve.state(a) == "cancelled"
+    assert not serve.cancel(a)
+    assert serve.result(b) == [] and len(serve.join()[b]) == 2
+    assert serve.stats()["free_blocks"] == free0 - serve.stats()[
+        "prefix_cache_blocks"]
+
+
+def test_typed_errors_name_what_is_missing():
+    cfg = get_config("qwen2-0.5b").reduced()
+    params = M.init_model(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(ServePlanError, match="HyperMem"):
+        HyperServe(cfg, params, device="cpu",
+                   serve_cfg=ServeConfig(archive_host_bytes=1 << 20))
+    with pytest.raises(NotImplementedError, match="composed"):
+        HyperServe(cfg, params, device="cpu",
+                   serve_cfg=ServeConfig(kernels="composed"))
+    with pytest.raises(ServePlanError, match="num_blocks"):
+        HyperServe(cfg, params, device="cpu",
+                   serve_cfg=ServeConfig(num_blocks=1))
+    with pytest.raises(ArchNotPortedError, match="SSD"):
+        get_config("mamba2-370m")
