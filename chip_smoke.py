@@ -5,27 +5,52 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
 
-  1. device   — card name and power limit (nvidia-smi), torch/CUDA versions;
-  2. build    — nvcc builds both CUDA kernels from ``src/repro_torch``;
-  3. kernels  — each kernel against its plain PyTorch version on the card at
-                the serving shapes (H=14, KV=2, D=64, block 16; decode B=16,
-                prefill P=4, C=256 with a filler row), bf16 and f32, with and
-                without a window; timed beside its plain version, an SDPA
-                yardstick and its bound;
-  4. serve    — qwen2-0.5b at full width (24 layers, random weights from a
-                seed) in bf16 through HyperServe continuous batching; the
-                kernels must launch 24 times per decode step / prefill call;
-  5. profile  — torch.profiler over one prefill call and over steady
-                decode steps of the same server: device time by kernel
-                against wall time, and the device's idle share;
-  6. identity — greedy tokens in float32 identical with the kernels and with
-                the plain versions (``ops.set_mode("ref")``);
-  7. preempt  — a pool smaller than the working set preempts, spills and
-                restores, with tokens identical to an ample pool;
-  8. result   — the nvidia-smi line, the kernel JSON line, and
-                ``{"ok": true, "device": {...}}`` as the last line.
+   1. device   — card name and power limit (nvidia-smi), torch/CUDA versions;
+   2. build    — nvcc builds the four CUDA kernels from ``src/repro_torch``,
+                 one process per source, all started together;
+   3. kernels  — each kernel against its plain PyTorch version on the card,
+                 bf16 and f32, with and without a window, at the shapes the
+                 runs below give it: the paged kernels at phase 4's (H=14,
+                 KV=2, D=64, block 16; decode B=16, prefill P=4, C=256 with a
+                 filler row); flash at phase 6's Generator prefill (B=8,
+                 S=1024) and with per-row q_offsets at phase 10's composed
+                 prefill (P=4, C=256 over 64 x 16 gathered keys); dense
+                 decode at phase 6's (B=8 over a 1096-entry cache, lengths
+                 1025..1087), at phase 10's (8 seats over 1024 gathered
+                 keys, one seat empty) and, as extra coverage, at B=16 over
+                 1600 entries with lengths 100..1564; the dense kernels also
+                 at llama3-8b's H=32, KV=8, D=128.  Each kernel is timed in
+                 bf16 at its main-path shape beside its plain version, an
+                 SDPA yardstick and its bound;
+   4. serve    — qwen2-0.5b at full width (24 layers, random weights from a
+                 seed) in bf16 through HyperServe continuous batching; the
+                 fused kernels must launch 24 times per decode step /
+                 prefill call;
+   5. profile  — torch.profiler over one prefill call and over steady
+                 decode steps of the same server: device time by kernel
+                 against wall time, and the device's idle share;
+   6. dense    — the dense Generator (fixed-batch generation) on the same
+                 model in bf16, 8 prompts x 1024 tokens, 64 greedy tokens:
+                 exactly 24 flash_attention and 24 x 63 decode_attention
+                 launches; generate's wall time, then a prefill and the
+                 63 decode steps each timed alone between syncs;
+   7. dense profile — torch.profiler over one Generator prefill and 8
+                 decode steps;
+   8. identity — HyperServe greedy tokens in float32 identical with the
+                 kernels and with the plain versions (``ops.set_mode("ref")``);
+   9. dense identity — float32 Generator tokens identical with the kernels
+                 and the plain versions, with and without a 256-entry ring
+                 cache, and identical to HyperServe's fused tokens;
+  10. composed — HyperServe with ``kernels="composed"`` (gather, then the
+                 dense kernels): tokens identical to the fused path's, 24
+                 launches per decode step and per prefill call, no fused
+                 launch;
+  11. preempt  — a pool smaller than the working set preempts, spills and
+                 restores, with tokens identical to an ample pool;
+  12. result   — the nvidia-smi line, the kernel JSON line, and
+                 ``{"ok": true, "device": {...}}`` as the last line.
 
-It needs one CUDA device and exits non-zero without one.
+Each phase prints its wall seconds.  It needs one CUDA device and exits non-zero without one.
 """
 from __future__ import annotations
 
@@ -46,6 +71,19 @@ H, KV, D, BS = 14, 2, 64, 16
 DEC_B, NUM_BLOCKS, TABLE_W = 16, 2048, 128
 PRE_P, PRE_C = 4, 256
 WINDOW = 256
+# the dense Generator run (bf16): B prompts of S tokens, NEW greedy tokens
+# into a cache of S + NEW + 8 entries
+GEN_B, GEN_S, GEN_NEW = 8, 1024, 64
+GEN_CACHE = GEN_S + GEN_NEW + 8
+# the float32 identity runs: HyperServe's seats and tables (the composed
+# lowering gathers ID_TABLE_W * BS keys per row), the Generator's batch
+ID_SLOTS, ID_TABLE_W = 8, 64
+ID_B, ID_S = 4, 512
+ID_NEW = 32
+ID_PROMPT_MAX = 700
+ROW_OFFSETS = (0, 256, 512, 768)    # composed prefill rows: whole chunks
+MIX_CACHE = 1600                    # extra decode coverage: mixed lengths
+LLAMA_H, LLAMA_KV, LLAMA_D = 32, 8, 128
 F32_TOL = 2e-5         # float32: the same sums in another order
 # bfloat16: both the kernels and the plain versions compute in float32 and
 # round once to bfloat16, so the kernel must be within one bfloat16 step of
@@ -155,17 +193,44 @@ def prefill_inputs(torch, dtype, device):
             limits.to(**to))
 
 
+def dense_decode_inputs(torch, dtype, device, heads, kv, dim, batch, cache,
+                        lengths, seed):
+    """Dense decode: ``batch`` rows of a ``cache``-entry cache, each row's
+    length drawn from the range ``lengths``."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    lengths = torch.randint(lengths[0], lengths[1] + 1, (batch,), generator=g)
+    q = torch.randn(batch, 1, heads, dim, generator=g)
+    k = torch.randn(batch, cache, kv, dim, generator=g)
+    v = torch.randn(batch, cache, kv, dim, generator=g)
+    return (q.to(device, dtype), k.to(device, dtype), v.to(device, dtype),
+            lengths.to(device, torch.int32))
+
+
+def flash_inputs(torch, dtype, device, heads, kv, dim, batch, sq, sk):
+    g = torch.Generator(device="cpu").manual_seed(SEED + 3)
+    return tuple(torch.randn(batch, s, n, dim, generator=g).to(device, dtype)
+                 for s, n in ((sq, heads), (sk, kv), (sk, kv)))
+
+
 def sdpa_decode(torch, q, k_pool, v_pool, tables, lengths):
     """Yardstick: one SDPA call over K/V gathered densely beforehand (the
     gather and the GQA head expansion are outside the call)."""
-    import torch.nn.functional as F
     B = q.shape[0]
     npg = -(-int(lengths.max()) // BS)
     S = npg * BS
     idx = tables[:, :npg].long()
-    k = k_pool[idx].reshape(B, S, KV, D).repeat_interleave(H // KV, 2)
-    v = v_pool[idx].reshape(B, S, KV, D).repeat_interleave(H // KV, 2)
-    k, v = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    k = k_pool[idx].reshape(B, S, KV, D)
+    v = v_pool[idx].reshape(B, S, KV, D)
+    return sdpa_dense_decode(torch, q, k, v, lengths)
+
+
+def sdpa_dense_decode(torch, q, k, v, lengths):
+    """Yardstick: one SDPA call with a length mask (the GQA head expansion
+    and the layout change are outside the call)."""
+    import torch.nn.functional as F
+    S, G = k.shape[1], q.shape[2] // k.shape[2]
+    k = k.repeat_interleave(G, 2).transpose(1, 2).contiguous()
+    v = v.repeat_interleave(G, 2).transpose(1, 2).contiguous()
     qh = q.transpose(1, 2).contiguous()                       # (B, H, 1, D)
     mask = (torch.arange(S, device=q.device)[None, :]
             < lengths[:, None])[:, None, None, :]
@@ -186,6 +251,15 @@ def sdpa_prefill(torch, q, k_pool, v_pool, tables, starts, limits):
     mask = (torch.arange(S, device=q.device)[None, None, :]
             <= qp[:, :, None])[:, None]
     return lambda: F.scaled_dot_product_attention(qh, k, v, attn_mask=mask)
+
+
+def sdpa_flash(torch, q, k, v):
+    """Yardstick: one causal GQA SDPA call on the (B, H, S, D) layout (the
+    transposes are outside the call)."""
+    import torch.nn.functional as F
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                                  enable_gqa=True)
 
 
 # ---------------------------------------------------------------------------
@@ -209,7 +283,8 @@ def phase_device(torch):
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    logs = build.build(["paged_decode_attention", "ragged_prefill_attention"])
+    logs = build.build(["paged_decode_attention", "ragged_prefill_attention",
+                        "flash_attention", "decode_attention"])
     log(f"[build] {time.perf_counter() - t0:.1f}s into {build.BUILD_DIR}")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -217,94 +292,166 @@ def phase_build():
                 log(f"[build] {name}: {line.strip()}")
 
 
-def phase_kernels(torch):
-    from repro_torch.kernels import perf_model as pm
+def kernel_cases(torch, dtype, heads, kv, dim):
+    """(kernel, case, window, wrapper, plain version, args, kwargs) for
+    every kernel at the shapes the main path's runs give it, windowed or
+    not.  The paged kernels run at qwen2-0.5b's layout only (their serving
+    shapes); the dense ones at llama3-8b's too (H=32, KV=8, D=128)."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_ref)
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
     from repro_torch.kernels.paged_decode_attention import (
         paged_decode_attention, paged_decode_attention_ref)
     from repro_torch.kernels.ragged_prefill_attention import (
         ragged_prefill_attention, ragged_prefill_attention_ref)
-    rows = {}
-    for dtype_name in ("bfloat16", "float32"):
-        dtype = getattr(torch, dtype_name)
+    paged = dim == D
+    if paged:
         dec = decode_inputs(torch, dtype, DEVICE)
         pre = prefill_inputs(torch, dtype, DEVICE)
-        dec32 = [t.float() if t.is_floating_point() else t for t in dec]
-        pre32 = [t.float() if t.is_floating_point() else t for t in pre]
-        for window in (None, WINDOW):
+    shape = (torch, dtype, DEVICE, heads, kv, dim)
+    dense = flash_inputs(*shape, GEN_B, GEN_S, GEN_S)
+    rows = flash_inputs(*shape, PRE_P, PRE_C, ID_TABLE_W * BS)
+    offsets = torch.tensor(ROW_OFFSETS, dtype=torch.int32, device=DEVICE)
+    gdec = dense_decode_inputs(*shape, GEN_B, GEN_CACHE,
+                               (GEN_S + 1, GEN_S + GEN_NEW - 1), SEED + 4)
+    cdec = dense_decode_inputs(*shape, ID_SLOTS, ID_TABLE_W * BS,
+                               (101, ID_PROMPT_MAX + ID_NEW), SEED + 5)
+    cdec[3][-1] = 1                 # an empty seat decodes at position 0
+    mdec = dense_decode_inputs(*shape, DEC_B, MIX_CACHE, (100, 1564),
+                               SEED + 2)
+    cases = []
+    for window in (None, WINDOW):
+        if paged:
             kw = dict(block_size=BS, window=window)
-            got = paged_decode_attention(*dec, **kw)
-            err_d, share_d = parity(
-                torch, dtype_name, got, paged_decode_attention_ref(*dec, **kw),
-                paged_decode_attention_ref(*dec32, **kw))
-            got = ragged_prefill_attention(*pre, **kw)
-            err_p, share_p = parity(
-                torch, dtype_name, got,
-                ragged_prefill_attention_ref(*pre, **kw),
-                ragged_prefill_attention_ref(*pre32, **kw))
-            sync(torch)
-            filler_zero = bool((got[3] == 0).all().item())
-            limit = (f"{F32_TOL} abs" if dtype_name == "float32" else
-                     "one bf16 step of the plain version and half a step "
-                     f"of its f32 result, + {BF16_ABS}")
-            log(f"[kernels] {dtype_name} window={window}: decode max_abs_err="
-                f"{err_d:.3e} ({share_d:.3f} of allowed), prefill "
-                f"max_abs_err={err_p:.3e} ({share_p:.3f} of allowed), filler "
-                f"row exactly zero={filler_zero} (limit: {limit})")
-            if not (share_d <= 1 and share_p <= 1 and filler_zero):
-                raise AssertionError(f"kernel parity failed ({dtype_name}, "
-                                     f"window={window})")
-            if window is None:
-                rows[dtype_name] = (dec, pre, err_d, err_p)
+            cases += [("paged_decode_attention", "serving", window,
+                       paged_decode_attention, paged_decode_attention_ref,
+                       dec, kw),
+                      ("ragged_prefill_attention", "serving", window,
+                       ragged_prefill_attention, ragged_prefill_attention_ref,
+                       pre, kw)]
+        cases += [("flash_attention", "Generator prefill", window,
+                   flash_attention, flash_attention_ref, dense,
+                   dict(causal=True, window=window)),
+                  ("flash_attention", "composed rows q_offset", window,
+                   flash_attention, flash_attention_ref, rows,
+                   dict(causal=True, window=window, q_offset=offsets))]
+        cases += [("decode_attention", case, window, decode_attention,
+                   decode_attention_ref, args, dict(window=window))
+                  for case, args in (("Generator", gdec), ("composed", cdec),
+                                     ("mixed lengths", mdec))]
+    return cases
+
+
+def phase_kernels(torch):
+    from repro_torch.kernels import perf_model as pm
+    timed = {}
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        limit = (f"{F32_TOL} abs" if dtype_name == "float32" else
+                 "one bf16 step of the plain version and half a step of its "
+                 f"f32 result, + {BF16_ABS}")
+        for heads, kv, dim in ((H, KV, D), (LLAMA_H, LLAMA_KV, LLAMA_D)):
+            for name, case, window, fn, ref, args, kw in kernel_cases(
+                    torch, dtype, heads, kv, dim):
+                args32 = [t.float() if t.is_floating_point() else t
+                          for t in args]
+                got = fn(*args, **kw)
+                err, share = parity(torch, dtype_name, got, ref(*args, **kw),
+                                    ref(*args32, **kw))
+                sync(torch)
+                extra = ""
+                if name == "ragged_prefill_attention":
+                    filler_zero = bool((got[3] == 0).all().item())
+                    extra = f", filler row exactly zero={filler_zero}"
+                    share = share if filler_zero else float("inf")
+                log(f"[kernels] {name} ({case}, H={heads} KV={kv} D={dim}) "
+                    f"{dtype_name} window={window}: max_abs_err={err:.3e} "
+                    f"({share:.3f} of allowed){extra} (limit: {limit})")
+                if not share <= 1:
+                    raise AssertionError(f"kernel parity failed: {name} "
+                                         f"{case} {dtype_name} D={dim} "
+                                         f"window={window}")
+                if (dtype_name == "bfloat16" and dim == D and window is None
+                        and (name, case) not in timed):
+                    timed[(name, case)] = (fn, ref, args, kw, err)
+
     if DEVICE != "cuda":
         return []
 
-    # timing at the main path's dtype (bf16), no window
-    dec, pre, err_d, err_p = rows["bfloat16"]
-    kw = dict(block_size=BS)
-    # the bound counts the work this run's inputs need (visible keys and
-    # pairs); the reference's pages-visited model is printed beside it
-    lengths = dec[4].tolist()
-    _, _, _, _, starts, limits = pre
-    starts, limits = starts.tolist(), limits.tolist()
+    # timing at the main path's dtype (bf16), no window; the bound counts
+    # the work this run's inputs need (visible keys and pairs); for the
+    # paged kernels the reference's pages-visited model is printed beside it
     shape = dict(num_heads=H, kv_heads=KV, head_dim=D, itemsize=2)
-    dec_cost = pm.decode_visible_cost(lengths, **shape)
-    dec_pages = pm.paged_decode_cost(
-        batch=DEC_B, block_size=BS, **shape,
-        pages_visited=pm.decode_pages_visited(lengths, block_size=BS))
-    pre_cost = pm.prefill_visible_cost(starts, limits, PRE_C, **shape)
-    pre_pages = pm.ragged_prefill_cost(
-        rows_live=sum(n > 0 for n in limits), chunk=PRE_C, block_size=BS,
-        **shape, pages_visited=pm.prefill_pages_visited(
-            starts, limits, PRE_C, block_size=BS, table_width=TABLE_W))
+    dec = timed[("paged_decode_attention", "serving")][2]
+    pre = timed[("ragged_prefill_attention", "serving")][2]
+    lengths = dec[4].tolist()
+    starts, limits = pre[4].tolist(), pre[5].tolist()
+    pages = {
+        "paged_decode_attention": pm.paged_decode_cost(
+            batch=DEC_B, block_size=BS, **shape,
+            pages_visited=pm.decode_pages_visited(lengths, block_size=BS)),
+        "ragged_prefill_attention": pm.ragged_prefill_cost(
+            rows_live=sum(n > 0 for n in limits), chunk=PRE_C,
+            block_size=BS, **shape, pages_visited=pm.prefill_pages_visited(
+                starts, limits, PRE_C, block_size=BS, table_width=TABLE_W))}
+    flash = timed[("flash_attention", "Generator prefill")][2]
+    gdec = timed[("decode_attention", "Generator")][2]
+    cdec = timed[("decode_attention", "composed")][2]
+    table = (
+        ("paged_decode_attention", "serving",
+         pm.decode_visible_cost(lengths, **shape), sdpa_decode(torch, *dec),
+         "SDPA on pre-gathered K/V (gather excluded)",
+         "src/repro/kernels/paged_decode_attention.py:91"),
+        ("ragged_prefill_attention", "serving",
+         pm.prefill_visible_cost(starts, limits, PRE_C, **shape),
+         sdpa_prefill(torch, *pre),
+         "SDPA on pre-gathered K/V (gather excluded)",
+         "src/repro/kernels/ragged_prefill_attention.py:89"),
+        ("flash_attention", "Generator prefill",
+         pm.prefill_visible_cost([0] * GEN_B, [GEN_S] * GEN_B, GEN_S,
+                                 **shape),
+         sdpa_flash(torch, *flash),
+         "SDPA causal, enable_gqa (transposes excluded)",
+         "src/repro/kernels/flash_attention.py:87"),
+        ("flash_attention", "composed rows q_offset",
+         pm.prefill_visible_cost(ROW_OFFSETS, [o + PRE_C for o in
+                                               ROW_OFFSETS], PRE_C, **shape),
+         None, None, None),
+        ("decode_attention", "Generator",
+         pm.decode_visible_cost(gdec[3].tolist(), **shape),
+         sdpa_dense_decode(torch, *gdec),
+         "SDPA with a length mask (head expansion excluded)",
+         "src/repro/kernels/decode_attention.py:67"),
+        ("decode_attention", "composed",
+         pm.decode_visible_cost(cdec[3].tolist(), **shape),
+         None, None, None))
     out = []
-    for name, fn, ref, args, cost, pages, err, lib, source, replaces in (
-            ("paged_decode_attention", paged_decode_attention,
-             paged_decode_attention_ref, dec, dec_cost, dec_pages, err_d,
-             sdpa_decode(torch, *dec),
-             "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
-             "src/repro/kernels/paged_decode_attention.py:91"),
-            ("ragged_prefill_attention", ragged_prefill_attention,
-             ragged_prefill_attention_ref, pre, pre_cost, pre_pages, err_p,
-             sdpa_prefill(torch, *pre),
-             "src/repro_torch/kernels/csrc/ragged_prefill_attention.cu",
-             "src/repro/kernels/ragged_prefill_attention.py:89")):
+    for name, case, cost, lib, lib_what, replaces in table:
+        fn, ref, args, kw, err = timed[(name, case)]
         ms = time_ms(lambda: fn(*args, **kw), torch)
         plain_ms = time_ms(lambda: ref(*args, **kw), torch)
-        library_ms = time_ms(lib, torch)
+        library_ms = time_ms(lib, torch) if lib is not None else None
         bound_ms = cost.bound_seconds("bfloat16") * 1e3
-        row = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces, "launches": 0, "max_abs_err": err,
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": cost.bound_by("bfloat16"),
-               "library_ms": library_ms}
-        log(f"[kernels] {name} bf16: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"SDPA on pre-gathered K/V (gather excluded) {library_ms:.4f} "
-            f"ms, bound {bound_ms:.5f} ms ({row['bound_by']}: visible work "
-            f"{cost.flops:.4g} flop, {cost.hbm_bytes:.4g} B; the "
-            f"reference's pages-visited model: {pages.flops:.4g} flop, "
-            f"{pages.hbm_bytes:.4g} B, "
-            f"{pages.bound_seconds('bfloat16') * 1e3:.5f} ms)")
-        out.append(row)
+        bound_by = cost.bound_by("bfloat16")
+        msg = (f"[kernels] {name} ({case}) bf16: {ms:.4f} ms, plain "
+               f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+               f"visible work {cost.flops:.4g} flop, {cost.hbm_bytes:.4g} B)")
+        if lib is not None:
+            msg += f", {lib_what} {library_ms:.4f} ms"
+        if name in pages:
+            pc = pages[name]
+            msg += (f"; the reference's pages-visited model: {pc.flops:.4g} "
+                    f"flop, {pc.hbm_bytes:.4g} B, "
+                    f"{pc.bound_seconds('bfloat16') * 1e3:.5f} ms")
+        log(msg)
+        if replaces is None:          # the composed cases: logged only
+            continue
+        out.append({"name": name, "route": "cuda",
+                    "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                    "replaces": replaces, "launches": 0, "max_abs_err": err,
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": library_ms})
     return out
 
 
@@ -391,6 +538,25 @@ def _device_ms(evt) -> float:
     return us / 1e3
 
 
+def report_profile(tag, windows):
+    """Device time by kernel against wall time for each profiled window
+    ``(name, profiler, wall seconds, steps)``, per step."""
+    for name, prof, wall, steps in windows:
+        # device-side rows only (kernels, copies): an operator's row also
+        # carries its kernels' time, which would count it twice
+        rows = [(e.key, _device_ms(e) / steps) for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA") and _device_ms(e) > 0]
+        rows.sort(key=lambda kv: -kv[1])
+        busy = sum(ms for _, ms in rows)
+        wall_ms = wall * 1e3 / steps
+        log(f"[{tag}] {name}: wall {wall_ms:.3f} ms, device busy "
+            f"{busy:.3f} ms, idle share {1 - busy / wall_ms:.3f}")
+        for key, ms in rows[:8]:
+            log(f"[{tag}]   {ms:8.4f} ms  {ms / busy:6.1%}  {key[:70]}")
+        if busy <= 0:
+            raise AssertionError("the profiler saw no device time")
+
+
 def phase_profile(torch, serve, prompts):
     """Where a step's time goes: torch.profiler over one prefill call (the
     first step of a fresh batch) and over steady decode steps, device time
@@ -417,20 +583,7 @@ def phase_profile(torch, serve, prompts):
             serve.step_once()
         sync(torch)
         windows.append(("decode step", prof, time.perf_counter() - t0, n))
-    for name, prof, wall, steps in windows:
-        # device-side rows only (kernels, copies): an operator's row also
-        # carries its kernels' time, which would count it twice
-        rows = [(e.key, _device_ms(e) / steps) for e in prof.key_averages()
-                if str(e.device_type).endswith("CUDA") and _device_ms(e) > 0]
-        rows.sort(key=lambda kv: -kv[1])
-        busy = sum(ms for _, ms in rows)
-        wall_ms = wall * 1e3 / steps
-        log(f"[profile] {name}: wall {wall_ms:.3f} ms, device busy "
-            f"{busy:.3f} ms, idle share {1 - busy / wall_ms:.3f}")
-        for key, ms in rows[:8]:
-            log(f"[profile]   {ms:8.4f} ms  {ms / busy:6.1%}  {key[:70]}")
-        if busy <= 0:
-            raise AssertionError("the profiler saw no device time")
+    report_profile("profile", windows)
     serve.join()
 
 
@@ -442,16 +595,17 @@ def phase_identity(torch, np):
     cfg = dataclasses.replace(get_config("qwen2-0.5b"), dtype="float32")
     params = M.init_model(
         cfg, torch.Generator(device=DEVICE).manual_seed(SEED))
-    scfg = ServeConfig(block_size=BS, num_blocks=512, max_blocks_per_req=64,
-                       max_slots=8, prefill_chunk=PRE_C, prefill_batch=PRE_P)
-    prompts = make_prompts(np.random.default_rng(SEED + 2), 6, 100, 700,
-                           cfg.vocab_size)
+    scfg = ServeConfig(block_size=BS, num_blocks=512,
+                       max_blocks_per_req=ID_TABLE_W, max_slots=ID_SLOTS,
+                       prefill_chunk=PRE_C, prefill_batch=PRE_P)
+    prompts = make_prompts(np.random.default_rng(SEED + 2), 6, 100,
+                           ID_PROMPT_MAX, cfg.vocab_size)
     runs = {}
     for mode in ("auto", "ref"):
         ops.set_mode(mode)
         try:
             runs[mode], _ = serve_all(HyperServe(
-                cfg, params, serve_cfg=scfg, device=DEVICE), prompts, 32)
+                cfg, params, serve_cfg=scfg, device=DEVICE), prompts, ID_NEW)
         finally:
             ops.set_mode("auto")
     for i, (a, b) in enumerate(zip(runs["auto"], runs["ref"])):
@@ -460,8 +614,180 @@ def phase_identity(torch, np):
             raise AssertionError(f"request {i}: first divergence at token "
                                  f"{j}: kernels {a[j]} vs plain {b[j]}")
     log(f"[identity] f32 greedy tokens identical, kernels vs plain versions: "
-        f"{len(prompts)} requests x 32 tokens")
-    return cfg, params
+        f"{len(prompts)} requests x {ID_NEW} tokens")
+    return cfg, params, prompts, runs["auto"], scfg
+
+
+def dense_prefill(torch, gen, prompts):
+    """One Generator prefill between two syncs: (seconds, logits, prompt
+    caches)."""
+    sync(torch)
+    t0 = time.perf_counter()
+    logits, pcaches = gen.prefill(prompts)
+    sync(torch)
+    return time.perf_counter() - t0, logits, pcaches
+
+
+def dense_decode(torch, gen, logits, pcaches, start, n):
+    """Seat the prompt caches, then time ``n`` greedy Generator decode
+    steps from position ``start`` between two syncs (the seating outside
+    the window): seconds."""
+    caches = gen.init_caches(logits.shape[0], pcaches)
+    vocab = gen.cfg.vocab_size
+    cur = torch.argmax(logits[:, -1:, :vocab], dim=-1)
+    sync(torch)
+    t0 = time.perf_counter()
+    for i in range(n):
+        lg = gen.decode(cur, start + i, caches)
+        cur = torch.argmax(lg[:, -1, :vocab], dim=-1)[:, None]
+    sync(torch)
+    return time.perf_counter() - t0
+
+
+def phase_dense(torch, np):
+    """The dense Generator (fixed-batch generation) on qwen2-0.5b at full
+    width in bf16: GEN_B prompts of GEN_S tokens, GEN_NEW greedy tokens.
+    One flash_attention launch per layer for the prefill and one
+    decode_attention launch per layer and decode step."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import GenerateConfig, Generator
+    cfg = get_config("qwen2-0.5b")
+    params = M.init_model(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED))
+    gen = Generator(cfg, params, max_len=GEN_CACHE, device=DEVICE)
+    prompts = torch.from_numpy(np.random.default_rng(SEED + 4).integers(
+        1, cfg.vocab_size, size=(GEN_B, GEN_S))).to(DEVICE)
+    gen.generate(prompts[:, :64], GenerateConfig(max_new_tokens=4))  # warm
+    # the main path's run: every launch count starts at 0 here
+    flash_attention.launches = 0
+    decode_attention.launches = 0
+    sync(torch)
+    t0 = time.perf_counter()
+    out = gen.generate(prompts, GenerateConfig(max_new_tokens=GEN_NEW))
+    sync(torch)
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention.launches,
+                "decode_attention": decode_attention.launches}
+    n, steps = cfg.num_layers, GEN_NEW - 1
+    decode_tokens = GEN_B * steps
+    prefill_s, logits, pcaches = dense_prefill(torch, gen, prompts)
+    decode_s = dense_decode(torch, gen, logits, pcaches, GEN_S, steps)
+    del logits, pcaches
+    log(f"[dense] qwen2-0.5b bf16 full width, Generator: {GEN_B} prompts x "
+        f"{GEN_S} tokens, {GEN_NEW} new each: generate {wall:.3f}s "
+        f"({GEN_B * GEN_NEW / wall:.1f} new tok/s overall); timed alone on "
+        f"the same prompts: prefill {prefill_s:.3f}s, decode "
+        f"{decode_tokens} tokens in {steps} steps, {decode_s:.3f}s "
+        f"({decode_tokens / decode_s:.1f} decode tok/s)")
+    log(f"[dense] launches {launches}; expected flash {n} (one prefill), "
+        f"decode {n} x {steps} = {n * steps}")
+    new = out[:, GEN_S:]
+    if (tuple(out.shape) != (GEN_B, GEN_S + GEN_NEW)
+            or not torch.equal(out[:, :GEN_S], prompts)
+            or not bool(((new >= 0) & (new < cfg.vocab_size)).all())):
+        raise AssertionError(f"Generator output malformed: {out.shape}")
+    if launches != {"flash_attention": n, "decode_attention": n * steps}:
+        raise AssertionError(f"launch counts {launches} do not match {n} "
+                             f"per prefill and {n} x {steps} decode steps")
+    return launches, gen, prompts
+
+
+def phase_dense_profile(torch, gen, prompts):
+    """torch.profiler over one Generator prefill and 8 decode steps."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    n = 8
+    with profile(activities=acts) as prof:
+        wall, logits, pcaches = dense_prefill(torch, gen, prompts)
+    windows = [("dense prefill", prof, wall, 1)]
+    with profile(activities=acts) as prof:
+        # the seating runs before the profiled window opens
+        wall = dense_decode(torch, gen, logits, pcaches, GEN_S, n)
+    windows.append(("dense decode step", prof, wall, n))
+    report_profile("dense profile", windows)
+
+
+def phase_dense_identity(torch, np, cfg, params):
+    """float32 Generator tokens identical with the kernels and with the
+    plain versions, with and without a 256-entry ring cache (prompts
+    longer than the window), and identical to HyperServe's fused path."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serve.api import HyperServe
+    from repro_torch.serve.engine import GenerateConfig, Generator
+    prompts = torch.from_numpy(np.random.default_rng(SEED + 5).integers(
+        1, cfg.vocab_size, size=(ID_B, ID_S)))
+    runs = {}
+    for window in (None, WINDOW):
+        for mode in ("auto", "ref"):
+            ops.set_mode(mode)
+            try:
+                gen = Generator(cfg, params, max_len=ID_S + ID_NEW + 8,
+                                window_override=window, device=DEVICE)
+                runs[window, mode] = gen.generate(
+                    prompts, GenerateConfig(max_new_tokens=ID_NEW)).cpu()
+            finally:
+                ops.set_mode("auto")
+        a, b = runs[window, "auto"], runs[window, "ref"]
+        if not torch.equal(a, b):
+            i, j = (a != b).nonzero()[0].tolist()
+            raise AssertionError(f"window={window}: row {i} diverges at "
+                                 f"{j}: kernels {a[i, j]} vs plain {b[i, j]}")
+    scfg = ServeConfig(block_size=BS, num_blocks=512,
+                       max_blocks_per_req=ID_TABLE_W, max_slots=ID_B,
+                       prefill_chunk=PRE_C, prefill_batch=PRE_P)
+    served, _ = serve_all(HyperServe(cfg, params, serve_cfg=scfg,
+                                     device=DEVICE), prompts.tolist(), ID_NEW)
+    same = served == runs[None, "auto"][:, ID_S:].tolist()
+    log(f"[dense identity] f32 Generator greedy tokens identical, kernels vs "
+        f"plain versions: {ID_B} prompts x {ID_S} tokens, {ID_NEW} new, "
+        f"window None and {WINDOW} (the windowed tokens differ from the "
+        f"unwindowed: {not torch.equal(runs[None, 'auto'], runs[WINDOW, 'auto'])}"
+        f"); HyperServe fused tokens identical to the Generator's: {same}")
+    if not same:
+        raise AssertionError("HyperServe tokens differ from the Generator's")
+
+
+def phase_composed(torch, cfg, params, prompts, fused, scfg):
+    """HyperServe with kernels="composed" (gather, then the dense kernels)
+    on the identity phase's workload: tokens identical to the fused path,
+    one decode_attention per layer and decode step, one flash_attention
+    per layer and prefill call, and no fused kernel launched."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_decode_attention import \
+        paged_decode_attention
+    from repro_torch.kernels.ragged_prefill_attention import \
+        ragged_prefill_attention
+    from repro_torch.serve.api import HyperServe
+    serve = HyperServe(cfg, params, device=DEVICE,
+                       serve_cfg=dataclasses.replace(scfg, kernels="composed"))
+    kernels = (flash_attention, decode_attention, paged_decode_attention,
+               ragged_prefill_attention)
+    for k in kernels:
+        k.launches = 0
+    got, _ = serve_all(serve, prompts, ID_NEW)
+    sync(torch)
+    launches = {k.__name__: k.launches for k in kernels}
+    m = serve.engine.obs.metrics
+    steps = int(m.counter("serve.kernels.decode.composed").value)
+    calls = int(m.counter("serve.kernels.prefill.composed").value)
+    n = cfg.num_layers
+    log(f"[composed] f32 HyperServe kernels=composed: tokens identical to "
+        f"the fused path: {got == fused} ({len(prompts)} requests x "
+        f"{ID_NEW}); launches {launches}; expected decode {n} x {steps}, "
+        f"flash {n} x {calls}, fused 0")
+    if got != fused:
+        raise AssertionError("composed tokens differ from the fused path's")
+    if launches != {"flash_attention": n * calls,
+                    "decode_attention": n * steps,
+                    "paged_decode_attention": 0,
+                    "ragged_prefill_attention": 0} or not steps or not calls:
+        raise AssertionError(f"composed launch counts {launches} do not "
+                             f"match {n} x (steps={steps}, calls={calls})")
 
 
 def phase_preempt(torch, np, cfg, params):
@@ -489,20 +815,37 @@ def phase_preempt(torch, np, cfg, params):
         raise AssertionError("preemption phase failed")
 
 
+def timed(name, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[time] {name}: {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def main() -> int:
     import repro_torch  # noqa: F401  (the port must be here, card or not)
     import numpy as np
     import torch
-    smi = phase_device(torch)
-    phase_build()
-    rows = phase_kernels(torch)
-    launches, serve, prompts = phase_serve(torch, np)
+    t0 = time.perf_counter()
+    smi = timed("device", phase_device, torch)
+    timed("build", phase_build)
+    rows = timed("kernels", phase_kernels, torch)
+    launches, serve, prompts = timed("serve", phase_serve, torch, np)
+    timed("profile", phase_profile, torch, serve, prompts)
+    del serve
+    dense_launches, gen, gen_prompts = timed("dense", phase_dense, torch, np)
+    timed("dense profile", phase_dense_profile, torch, gen, gen_prompts)
+    del gen
+    launches.update(dense_launches)
     for row in rows:
         row["launches"] = launches[row["name"]]
-    phase_profile(torch, serve, prompts)
-    del serve
-    cfg32, params32 = phase_identity(torch, np)
-    phase_preempt(torch, np, cfg32, params32)
+    cfg32, params32, id_prompts, fused, scfg = timed(
+        "identity", phase_identity, torch, np)
+    timed("dense identity", phase_dense_identity, torch, np, cfg32, params32)
+    timed("composed", phase_composed, torch, cfg32, params32, id_prompts,
+          fused, scfg)
+    timed("preempt", phase_preempt, torch, np, cfg32, params32)
+    log(f"[time] all phases: {time.perf_counter() - t0:.1f}s")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

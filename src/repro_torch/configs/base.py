@@ -200,7 +200,8 @@ class ServeConfig:
     # attention lowering for the paged steps:
     #   "fused"    — the block-table-walking kernels (CUDA on the card,
     #                their plain PyTorch versions on CPU tensors)
-    #   "composed" — gather tables -> dense attention (not ported yet)
+    #   "composed" — gather tables -> the dense decode_attention /
+    #                flash_attention kernels
     #   "auto"     — fused
     kernels: str = "auto"
 

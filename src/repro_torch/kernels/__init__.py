@@ -1,3 +1,62 @@
 """Hand-written Hopper kernels of the port, their plain PyTorch versions,
 and the dispatch in :mod:`repro_torch.kernels.ops`.  CUDA sources live in
-``csrc/`` and build at first use (:mod:`repro_torch.kernels.build`)."""
+``csrc/`` and build at first use (:mod:`repro_torch.kernels.build`).
+
+What every attention wrapper shares lives here: the reference's masked
+score, the dtype codes of ``csrc/common.cuh``, the checks of what the
+kernels take, and the launch bookkeeping."""
+import torch
+
+NEG_INF = -1e30                                      # masked score
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # REPRO_F32, REPRO_BF16
+HEAD_DIMS = (64, 128)                                # instantiated head dims
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when a gradient is asked of a kernel that has no backward
+    (the wrappers launch through ctypes, so autograd would not see the
+    kernel and the gradient would be wrong in silence).  The backward
+    comes with the train step."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: an input requires grad, and the kernel "
+                           "has no backward yet (ROADMAP.md, train step); "
+                           "run under torch.no_grad()")
+
+
+def attention_problems(q, k, v, *, gmax=None, vector_loads=False):
+    """What the kernels cannot take in q (..., H, D) and k/v (..., KV, D):
+    the dtypes, the head dims, the head grouping (at most ``gmax`` query
+    heads per kv head), contiguous k and v, and, for kernels that read k
+    and v with 16-byte vector loads, their alignment.  Returns the list of
+    problems, empty when the kernels take them."""
+    H, D, KV = q.shape[-2], q.shape[-1], k.shape[-2]
+    problems = []
+    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        problems.append(f"dtypes q={q.dtype} k={k.dtype} v={v.dtype}: need "
+                        "one of float32/bfloat16")
+    if D not in HEAD_DIMS or k.shape[-1] != D or v.shape[-1] != D:
+        problems.append(f"head dims q {D}, k {k.shape[-1]}, v {v.shape[-1]}: "
+                        f"kernel built for {HEAD_DIMS} with Dk == Dv")
+    if H % KV or (gmax is not None and H // KV > gmax):
+        limit = f" and H/KV <= {gmax}" if gmax is not None else ""
+        problems.append(f"H={H}, KV={KV}: need H % KV == 0{limit}")
+    if not (k.is_contiguous() and v.is_contiguous()):
+        problems.append("k and v must be contiguous")
+    if vector_loads and (k.data_ptr() | v.data_ptr()) % 16:
+        problems.append("k and v must start on a 16-byte boundary (the "
+                        "kernel reads them with 16-byte vector loads)")
+    return problems
+
+
+def raise_problems(name: str, problems) -> None:
+    if problems:
+        raise ValueError(f"{name} kernel: " + "; ".join(problems))
+
+
+def count_launch(wrapper, rc: int) -> None:
+    """Raise when the C launcher returned an error (``cudaGetLastError``
+    after the launch, or -1 for a configuration no kernel was built for);
+    else count the launch on ``wrapper.launches``."""
+    if rc != 0:
+        raise RuntimeError(f"{wrapper.__name__} launch failed: code {rc}")
+    wrapper.launches += 1

@@ -1,7 +1,7 @@
 // Fused ragged batched chunked-prefill attention for Hopper (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/ragged_prefill_attention.py,
-// function ragged_prefill_attention (Pallas body _prefill_kernel).  Each
+// function ragged_prefill_attention (:89, Pallas body _prefill_kernel).  Each
 // row p is one prompt chunk of C tokens whose first token sits at absolute
 // position starts[p]; its queries attend causally over the row's pages of
 // the paged K/V pool (history plus the chunk just written), walking the
@@ -17,27 +17,18 @@
 //
 // Design.  The TPU kernel steps a sequential grid (P, KV, W) and carries
 // (acc, m, l) for all C x G query rows in VMEM across the page axis.  Here
-// one thread block takes one (query-row tile, kv head, row): the C x G
-// (token, head) pairs of that kv head are flattened and cut into tiles of
-// THREADS rows, one query row per thread, its q vector and accumulator in
-// registers.  The block loops over key tiles of KT keys between the
-// tile's bounds: the causal bound start + c_max and, windowed, the window
-// bound start + c_min - window + 1, so pages beyond causal reach or wholly
-// below the window are never read.  Each key tile is staged in shared
-// memory (block ids from the table) and every thread folds the keys it may
-// see (kp <= qp and qp - kp < window, qp = start + c) into its online
-// softmax in f32.  All threads of a warp read the same shared key at once
-// (a broadcast), so staging is the only shared-memory traffic that can
-// conflict.
+// one thread block takes one (query-row tile, kv head, row) and walks the
+// row's keys itself: prefill_block of common.cuh (one query row per
+// thread, key tiles staged in shared memory, f32 online softmax), shared
+// with flash_attention.cu; here its address functor finds each key's block
+// id in the row's table, and a filler row returns before reading anything.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;   // query rows per block
-
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) ragged_prefill_kernel(
+__global__ void __launch_bounds__(PRE_THREADS) ragged_prefill_kernel(
     const T* __restrict__ q,           // (P, C, H, D)
     const T* __restrict__ k_pool,      // (N, bs, KV, D)
     const T* __restrict__ v_pool,      // (N, bs, KV, D)
@@ -46,82 +37,25 @@ __global__ void __launch_bounds__(THREADS) ragged_prefill_kernel(
     const int* __restrict__ limits,    // (P,)
     T* __restrict__ out,               // (P, C, H, D)
     int C, int H, int KV, int W, int bs, int window, float scale) {
-    constexpr int KT = 4096 / D;       // keys per tile
     const int h = blockIdx.y;
     const int p = blockIdx.z;
     const int G = H / KV;
-    const int rows = C * G;
-    const int r0 = blockIdx.x * THREADS;
-    const int r = r0 + threadIdx.x;
-    const bool active = r < rows;
-    const int c = active ? r / G : 0;
-    const int g = active ? r % G : 0;
-    const size_t o = (((size_t)p * C + c) * H + h * G + g) * D;
+    const int r0 = blockIdx.x * PRE_THREADS;
+    const size_t row = (size_t)p * C * H * D;
 
     if (limits[p] <= 0) {              // filler row: exact zeros, no reads
-        if (active)
-            for (int d = 0; d < D; ++d) out[o + d] = from_f<T>(0.f);
+        const int r = r0 + threadIdx.x;
+        if (r < C * G) {
+            T* o = out + row + ((size_t)(r / G) * H + h * G + r % G) * D;
+            for (int d = 0; d < D; ++d) o[d] = from_f<T>(0.f);
+        }
         return;
     }
-
     extern __shared__ float smem[];
-    float* k_s = smem;                 // KT * D
-    float* v_s = k_s + KT * D;         // KT * D
-
-    const int start = starts[p];
-    const int qp = start + c;
-    const int c_lo = r0 / G;
-    const int c_hi = min(rows - 1, r0 + THREADS - 1) / G;
-    const int k_hi = min(W * bs, start + c_hi + 1);      // causal bound
-    const int k_lo = window > 0 ? max(0, start + c_lo - window + 1) : 0;
-
-    float qr[D], acc[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-        qr[d] = active ? to_f(q[o + d]) * scale : 0.f;
-        acc[d] = 0.f;
-    }
-    float m = REPRO_NEG_INF, l = 0.f;
-
-    for (int t0 = k_lo; t0 < k_hi; t0 += KT) {
-        const int n = min(KT, k_hi - t0);
-        __syncthreads();               // previous tile fully consumed
-        for (int e = threadIdx.x; e < n * D; e += THREADS) {
-            const int i = e / D, d = e % D;
-            const int pos = t0 + i;
-            const int bid = tables[(size_t)p * W + pos / bs];
-            const size_t src = (((size_t)bid * bs + pos % bs) * KV + h) * D + d;
-            k_s[e] = to_f(k_pool[src]);
-            v_s[e] = to_f(v_pool[src]);
-        }
-        __syncthreads();
-        if (!active) continue;
-        for (int i = 0; i < n; ++i) {
-            const int kp = t0 + i;
-            if (kp > qp || (window > 0 && qp - kp >= window)) continue;
-            const float* kr = k_s + i * D;
-            float s = 0.f;
-#pragma unroll
-            for (int d = 0; d < D; ++d) s += qr[d] * kr[d];
-            if (s > m) {               // new running max: rescale once
-                const float corr = expf(m - s);
-                l *= corr;
-#pragma unroll
-                for (int d = 0; d < D; ++d) acc[d] *= corr;
-                m = s;
-            }
-            const float pe = expf(s - m);
-            l += pe;
-            const float* vr = v_s + i * D;
-#pragma unroll
-            for (int d = 0; d < D; ++d) acc[d] += pe * vr[d];
-        }
-    }
-    if (active) {
-        const float inv = 1.f / fmaxf(l, REPRO_L_FLOOR);
-#pragma unroll
-        for (int d = 0; d < D; ++d) out[o + d] = from_f<T>(acc[d] * inv);
-    }
+    prefill_block<T, D>(q + row, k_pool, v_pool, out + row, C, H, G, h, r0,
+                        starts[p], W * bs, true, window, scale,
+                        PagedAddr<D>{tables + (size_t)p * W, bs, KV, h},
+                        smem);
 }
 
 template <typename T, int D>
@@ -129,13 +63,12 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
            const int* tables, const int* starts, const int* limits, void* out,
            int P, int C, int H, int KV, int W, int bs, int window, float scale,
            cudaStream_t stream) {
-    constexpr int KT = 4096 / D;
-    const size_t smem = sizeof(float) * 2 * KT * D;
+    constexpr size_t smem = pre_smem_bytes<D>();
     auto kernel = ragged_prefill_kernel<T, D>;
     cudaError_t err = reserve_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    const int tiles = (C * (H / KV) + THREADS - 1) / THREADS;
-    kernel<<<dim3(tiles, KV, P), THREADS, smem, stream>>>(
+    const int tiles = (C * (H / KV) + PRE_THREADS - 1) / PRE_THREADS;
+    kernel<<<dim3(tiles, KV, P), PRE_THREADS, smem, stream>>>(
         (const T*)q, (const T*)k_pool, (const T*)v_pool, tables, starts,
         limits, (T*)out, C, H, KV, W, bs, window, scale);
     return (int)cudaGetLastError();

@@ -1,0 +1,113 @@
+"""Dense GQA flash-decode attention: CUDA kernel, plain version, launch
+count.
+
+Replaces the TPU kernel ``repro/kernels/decode_attention.py``, function
+``decode_attention``, and adds the sliding window the Pallas kernel lacks
+(the reference sends a windowed call to its oracle; the port sends it to
+the kernel).  The kernel (``csrc/decode_attention.cu``) shares its body
+with the fused paged decode kernel and differs only in how a key's address
+is found; its header says what bounds it on the H100 (bytes) and how the
+TPU's sequential cache grid became a loop inside one thread block per
+(kv head, row).
+
+:func:`decode_attention` launches the kernel for CUDA tensors and runs
+:func:`decode_attention_ref` for CPU tensors.  ``decode_attention.launches``
+counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import (DTYPE_CODES, NEG_INF, attention_problems,
+                                 build, count_launch, raise_problems,
+                                 refuse_grad)
+
+_GMAX = 8
+
+
+def decode_attention_ref(q, k_cache, v_cache, length, *,
+                         scale: Optional[float] = None,
+                         window: Optional[int] = None) -> torch.Tensor:
+    """Plain version: dense masked attention in f32 (the reference's
+    ``ref.decode_attention``): keys ``pos < length`` and, windowed,
+    ``pos >= length - window``.  q (B, 1, H, Dk); caches (B, S, KV, D*);
+    length (B,).  Returns (B, 1, H, Dv) in q.dtype."""
+    B, _, H, D = q.shape
+    S, KV, Dv = k_cache.shape[1], k_cache.shape[2], v_cache.shape[3]
+    G = H // KV
+    scale = scale if scale is not None else D ** -0.5
+    qh = q.reshape(B, KV, G, D).float() * scale
+    s = torch.einsum("bkgd,bskd->bkgs", qh, k_cache.float())
+    pos = torch.arange(S, device=q.device)[None, :]
+    lens = length.long()[:, None]
+    mask = pos < lens
+    if window is not None:
+        mask &= pos >= lens - window
+    s = s.masked_fill(~mask[:, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    return out.reshape(B, 1, H, Dv).to(q.dtype)
+
+
+@functools.cache
+def _lib():
+    lib = build.load("decode_attention")
+    fn = lib.decode_attention_launch
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, k_cache, v_cache, length):
+    B = q.shape[0]
+    problems = attention_problems(q, k_cache, v_cache, gmax=_GMAX,
+                                  vector_loads=True)
+    if q.shape[1] != 1:
+        problems.append(f"q must be (B, 1, H, D), got {tuple(q.shape)}")
+    if k_cache.shape[0] != B or v_cache.shape[:3] != k_cache.shape[:3]:
+        problems.append(f"caches {tuple(k_cache.shape)} / "
+                        f"{tuple(v_cache.shape)} do not match q "
+                        f"{tuple(q.shape)}")
+    if length.shape != (B,) or length.device != q.device:
+        problems.append(f"length {tuple(length.shape)} on {length.device}: "
+                        f"need ({B},) on {q.device}")
+    raise_problems("decode_attention", problems)
+
+
+def decode_attention(q, k_cache, v_cache, length, *,
+                     scale: Optional[float] = None,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """Flash decode of one query per row against a dense cache.  q
+    (B, 1, H, D); caches (B, S, KV, D); length (B,) valid entries; keys
+    below ``length - window`` masked when windowed.  Returns (B, 1, H, D).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    """
+    refuse_grad("decode_attention", q, k_cache, v_cache)
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k_cache, v_cache, length, scale=scale,
+                                    window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: no kernel for device {q.device}")
+    _check(q, k_cache, v_cache, length)
+    B, _, H, D = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    q = q.contiguous()
+    lens = length.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    scale = scale if scale is not None else D ** -0.5
+    rc = _lib()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                lens.data_ptr(), out.data_ptr(), B, S, H, KV, D,
+                window if window is not None else 0, scale,
+                DTYPE_CODES[q.dtype],
+                torch.cuda.current_stream(q.device).cuda_stream)
+    count_launch(decode_attention, rc)
+    return out
+
+
+decode_attention.launches = 0

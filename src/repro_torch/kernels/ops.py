@@ -9,6 +9,8 @@ Every op picks an implementation:
 """
 from __future__ import annotations
 
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_decode_attention as pda
 from repro_torch.kernels import ragged_prefill_attention as rpa
 
@@ -26,21 +28,31 @@ def set_mode(mode: str) -> None:
 def resolve_paged_path(kernels: str) -> str:
     """Resolve the plan-level ``kernels`` toggle to a lowering path.
 
-    ``"auto"`` and ``"fused"`` give the block-table-walking kernels.  The
-    composed lowering (gather the tables, then dense attention) needs the
-    ``decode_attention``/``flash_attention`` kernels, which the port does
-    not have yet.
+    ``"auto"`` and ``"fused"`` give the block-table-walking kernels;
+    ``"composed"`` gathers ``pool[block_tables]`` into dense K/V and runs
+    the dense ``decode_attention``/``flash_attention`` kernels on it.
     """
     if kernels in ("auto", "fused"):
         return "fused"
     if kernels == "composed":
-        raise NotImplementedError(
-            "kernels='composed' is not ported yet: it needs the "
-            "decode_attention and flash_attention kernels (ROADMAP.md, "
-            "'TPU kernels to port', items 1-2, and the composed lowering "
-            "under 'Modules to port'); use kernels='fused' or 'auto'")
+        return "composed"
     raise ValueError(f"kernels={kernels!r}: must be 'auto', 'fused' or "
                      "'composed'")
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0,
+                    scale=None):
+    """Dense blockwise flash attention; ``q_offset`` int or (B,) tensor."""
+    fn = fa.flash_attention_ref if _MODE == "ref" else fa.flash_attention
+    return fn(q, k, v, causal=causal, window=window, q_offset=q_offset,
+              scale=scale)
+
+
+def decode_attention(q, k_cache, v_cache, length, *, scale=None,
+                     window=None):
+    """Flash decode against a dense cache, with an optional window."""
+    fn = da.decode_attention_ref if _MODE == "ref" else da.decode_attention
+    return fn(q, k_cache, v_cache, length, scale=scale, window=window)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,

@@ -21,11 +21,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import (DTYPE_CODES, NEG_INF, attention_problems,
+                                 build, count_launch, raise_problems,
+                                 refuse_grad)
 
-NEG_INF = -1e30
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
 _GMAX = 8
 
 
@@ -68,29 +67,11 @@ def _lib():
 
 
 def _check(q, k_pool, v_pool):
-    B, one, H, D = q.shape
-    KV = k_pool.shape[2]
-    problems = []
-    if one != 1:
+    problems = attention_problems(q, k_pool, v_pool, gmax=_GMAX,
+                                  vector_loads=True)
+    if q.shape[1] != 1:
         problems.append(f"q must be (B, 1, H, D), got {tuple(q.shape)}")
-    if q.dtype not in _DTYPES or k_pool.dtype != q.dtype \
-            or v_pool.dtype != q.dtype:
-        problems.append(f"dtypes q={q.dtype} k={k_pool.dtype} "
-                        f"v={v_pool.dtype}: need one of float32/bfloat16")
-    if D not in _HEAD_DIMS or v_pool.shape[3] != D:
-        problems.append(f"head dim {D} (v {v_pool.shape[3]}): kernel "
-                        f"built for {_HEAD_DIMS} with Dv == D")
-    if H % KV or H // KV > _GMAX:
-        problems.append(f"H={H}, KV={KV}: need H % KV == 0 and H/KV <= "
-                        f"{_GMAX}")
-    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
-        problems.append("pools must be contiguous")
-    if (k_pool.data_ptr() | v_pool.data_ptr()) % 16:
-        problems.append("pools must start on a 16-byte boundary (the "
-                        "kernel reads them with 16-byte vector loads)")
-    if problems:
-        raise ValueError("paged_decode_attention kernel: "
-                         + "; ".join(problems))
+    raise_problems("paged_decode_attention", problems)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
@@ -101,6 +82,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
+    refuse_grad("paged_decode_attention", q, k_pool, v_pool)
     if q.device.type == "cpu":
         return paged_decode_attention_ref(
             q, k_pool, v_pool, block_tables, lengths, block_size=block_size,
@@ -121,10 +103,9 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
                 tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
                 B, H, KV, D, W, block_size,
                 window if window is not None else 0, scale,
-                _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"paged_decode_attention launch failed: code {rc}")
-    paged_decode_attention.launches += 1
+                DTYPE_CODES[q.dtype],
+                torch.cuda.current_stream(q.device).cuda_stream)
+    count_launch(paged_decode_attention, rc)
     return out
 
 

@@ -1,4 +1,4 @@
-"""Analytic bytes/FLOPs model of the fused paged attention kernels.
+"""Analytic bytes/FLOPs model of the attention kernels.
 
 Two work definitions, both computed from the same ``lengths`` /
 ``starts, limits`` vectors the kernels consume:
@@ -12,6 +12,12 @@ Two work definitions, both computed from the same ``lengths`` /
   the causal and window masks, for queries below the row's limit, and only
   the keys some such query sees.  This is the least the function needs,
   so the H100 bound is computed from it.
+
+The dense kernels reuse the visible-work costs: a ``decode_attention``
+call is ``decode_visible_cost(lengths, window=...)`` (``min(length,
+window)`` keys per row), and a causal ``flash_attention`` call is
+``prefill_visible_cost(starts=q_offset, limits=q_offset + Sq, chunk=Sq)``
+(every row live, every query below its limit).
 
 :meth:`KernelCost.bound_seconds` turns a cost into the least time an H100
 SXM could take for it: the larger of bytes over the memory rate and FLOPs

@@ -22,11 +22,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
-
-NEG_INF = -1e30
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+from repro_torch.kernels import (DTYPE_CODES, NEG_INF, attention_problems,
+                                 build, count_launch, raise_problems,
+                                 refuse_grad)
 
 
 def ragged_prefill_attention_ref(q, k_pool, v_pool, block_tables, starts,
@@ -73,23 +71,8 @@ def _lib():
 
 
 def _check(q, k_pool, v_pool):
-    P, C, H, D = q.shape
-    KV = k_pool.shape[2]
-    problems = []
-    if q.dtype not in _DTYPES or k_pool.dtype != q.dtype \
-            or v_pool.dtype != q.dtype:
-        problems.append(f"dtypes q={q.dtype} k={k_pool.dtype} "
-                        f"v={v_pool.dtype}: need one of float32/bfloat16")
-    if D not in _HEAD_DIMS or v_pool.shape[3] != D:
-        problems.append(f"head dim {D} (v {v_pool.shape[3]}): kernel "
-                        f"built for {_HEAD_DIMS} with Dv == D")
-    if H % KV:
-        problems.append(f"H={H} not a multiple of KV={KV}")
-    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
-        problems.append("pools must be contiguous")
-    if problems:
-        raise ValueError("ragged_prefill_attention kernel: "
-                         + "; ".join(problems))
+    raise_problems("ragged_prefill_attention",
+                   attention_problems(q, k_pool, v_pool))
 
 
 def ragged_prefill_attention(q, k_pool, v_pool, block_tables, starts, limits,
@@ -101,6 +84,7 @@ def ragged_prefill_attention(q, k_pool, v_pool, block_tables, starts, limits,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
+    refuse_grad("ragged_prefill_attention", q, k_pool, v_pool)
     if q.device.type == "cpu":
         return ragged_prefill_attention_ref(
             q, k_pool, v_pool, block_tables, starts, limits,
@@ -122,10 +106,9 @@ def ragged_prefill_attention(q, k_pool, v_pool, block_tables, starts, limits,
                 tables.data_ptr(), st.data_ptr(), lim.data_ptr(),
                 out.data_ptr(), P, C, H, KV, D, W, block_size,
                 window if window is not None else 0, scale,
-                _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"ragged_prefill_attention launch failed: code {rc}")
-    ragged_prefill_attention.launches += 1
+                DTYPE_CODES[q.dtype],
+                torch.cuda.current_stream(q.device).cuda_stream)
+    count_launch(ragged_prefill_attention, rc)
     return out
 
 

@@ -1,15 +1,18 @@
-"""Serving launcher of the port: the HyperServe continuous-batching runtime.
+"""Serving launcher of the port: fixed-batch generation (the dense
+``Generator``) or the HyperServe continuous-batching runtime.
 
+    python -m repro_torch.launch.serve --arch qwen2-0.5b --batch 4 \
+        --prompt-len 16 --max-new 32              # fixed batch, on the card
     python -m repro_torch.launch.serve --arch qwen2-0.5b --continuous \
-        --requests 8 --max-new 16                 # on the card
+        --requests 8 --max-new 16 [--kernels composed]   # on the card
     python -m repro_torch.launch.serve --arch qwen2-0.5b --reduced \
         --continuous --device cpu                 # plain versions, CPU
 
 The flags are the reference launcher's (``repro.launch.serve``) plus
 ``--device``.  Weights are random, drawn from a seeded ``torch.Generator``
-on the serving device.  Fixed-batch generation (``--batch``), ``--window``,
-``--disaggregate`` and ``--explain`` need parts of the reference the port
-does not have yet (ROADMAP.md) and exit with a message naming them.
+on the serving device.  ``--disaggregate`` and ``--explain`` need parts
+of the reference the port does not have yet (ROADMAP.md) and exit with a
+message naming them.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from repro_torch.api.errors import PlanError
 from repro_torch.configs.base import ServeConfig, get_config
 from repro_torch.models import model as M
 from repro_torch.serve.api import HyperServe
+from repro_torch.serve.engine import GenerateConfig, Generator
 from repro_torch.serve.runtime import resolve_device
 
 
@@ -35,6 +39,18 @@ def serve_config(args) -> ServeConfig:
                        max_slots=args.slots,
                        prefill_chunk=args.prefill_chunk,
                        kernels=args.kernels)
+
+
+def run_fixed(gen, args):
+    prompts = torch.ones((args.batch, args.prompt_len), dtype=torch.long)
+    t0 = time.perf_counter()
+    out = gen.generate(prompts, GenerateConfig(
+        max_new_tokens=args.max_new, temperature=args.temperature)).cpu()
+    dt = time.perf_counter() - t0
+    n_new = args.batch * args.max_new
+    print(f"generated {n_new} tokens in {dt:.2f}s "
+          f"({n_new / dt:.1f} tok/s on {gen.device})")
+    print("first sequence:", out[0].tolist())
 
 
 def run_continuous(serve, cfg, args):
@@ -67,14 +83,14 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--batch", type=int, default=None,
-                    help="batch of fixed-batch generation (not ported yet)")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="batch of fixed-batch generation")
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--window", type=int, default=0,
                     help="sliding-window decode cache of fixed-batch "
-                         "generation (not ported yet)")
+                         "generation (0: none)")
     # HyperServe runtime
     ap.add_argument("--continuous", action="store_true",
                     help="continuous batching over the paged KV pool")
@@ -86,7 +102,8 @@ def main(argv=None):
     ap.add_argument("--kernels", default="auto",
                     choices=("auto", "fused", "composed"),
                     help="paged attention lowering: the fused kernels "
-                         "(auto); composed is not ported yet")
+                         "(auto), or composed (gather the tables, then the "
+                         "dense kernels)")
     ap.add_argument("--disaggregate", action="store_true",
                     help="prefill/decode role split (not ported yet)")
     ap.add_argument("--explain", action="store_true",
@@ -104,15 +121,7 @@ def main(argv=None):
     not_ported = [(args.disaggregate, "--disaggregate needs mpmd role "
                    "groups (ROADMAP.md, 'Multi-device')"),
                   (args.explain, "--explain needs the HyperPlan facade "
-                   "(ROADMAP.md, 'Multi-device')"),
-                  (not args.continuous, "fixed-batch generation needs the "
-                   "dense Generator (ROADMAP.md, 'Dense generation'); pass "
-                   "--continuous"),
-                  (args.batch is not None, "--batch sizes fixed-batch "
-                   "generation, which needs the dense Generator (ROADMAP.md, "
-                   "'Dense generation'); --continuous takes --requests"),
-                  (args.window, "--window sizes the dense Generator's "
-                   "sliding-window cache (ROADMAP.md, 'Dense generation')")]
+                   "(ROADMAP.md, 'Multi-device')")]
     for flag, why in not_ported:
         if flag:
             raise SystemExit(f"not ported yet: {why}")
@@ -130,16 +139,25 @@ def main(argv=None):
     try:
         params = M.init_model(
             cfg, torch.Generator(device=device).manual_seed(0))
-        serve = HyperServe(cfg, params, serve_cfg=serve_config(args),
-                           device=device)
+        if args.continuous:
+            runner = HyperServe(cfg, params, serve_cfg=serve_config(args),
+                                device=device)
+            obs = runner.obs()
+        else:
+            runner = Generator(
+                cfg, params, max_len=args.prompt_len + args.max_new + 8,
+                window_override=args.window or None, device=device)
+            obs = runner.obs
     except (PlanError, NotImplementedError) as e:
         # typed validation: the message already names the rule
         raise SystemExit(f"{type(e).__name__}: {e}")
-    obs = serve.obs()
     if args.trace:
         obs.trace.enable()
     try:
-        run_continuous(serve, cfg, args)
+        if args.continuous:
+            run_continuous(runner, cfg, args)
+        else:
+            run_fixed(runner, args)
     finally:
         if args.trace:
             # export validates the payload before writing (assert inside)

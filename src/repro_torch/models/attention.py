@@ -1,11 +1,19 @@
-"""GQA / MHA attention over the paged KV pool (HyperServe steps).
+"""GQA / MHA / sliding-window attention with KV cache.
 
-The port of the paged, fused branches of ``repro.models.attention``.  The
-pool leaves are written in place: the reference donates the pool to its
-jitted step and returns the rewritten array (``.at[bidx, off].set``), so
-an in-place ``index_put_`` keeps the same memory and the same result
-without a copy.  The dense (training / ``Generator``) paths come with the
-``flash_attention``/``decode_attention`` kernels.
+The port of ``repro.models.attention`` on one device.  Entry modes share
+one parameter set:
+  - ``attn_forward``       : full-sequence (training)
+  - ``attn_prefill``       : full-sequence, returns the populated KV cache
+  - ``attn_decode``        : one token against a dense cache
+  - ``attn_decode_paged`` / ``attn_prefill_paged`` : HyperServe steps over
+    the paged pool, lowered ``"fused"`` (block-table-walking kernels) or
+    ``"composed"`` (gather ``pool[block_tables]``, then dense attention)
+
+Caches and pool leaves are written in place: the reference returns the
+rewritten array (``dynamic_update_slice`` / ``.at[bidx, off].set``) from
+a step that donates it, so an in-place write keeps the same memory and the
+same result without a copy.  The ring and head-sharded multi-device modes
+of ``full_attention`` come with multi-device.
 """
 from __future__ import annotations
 
@@ -50,8 +58,100 @@ def _qkv(p, x, cfg, positions):
     return q, k, v
 
 
+def full_attention(q, k, v, *, window=None, scale=None):
+    """Full-sequence causal attention on one device (the reference's
+    ``plain`` strategy): one ``flash_attention`` launch."""
+    return ops.flash_attention(q, k, v, causal=True, window=window,
+                               scale=scale)
+
+
+def attn_forward(p, x, positions, cfg, *, window: Optional[int] = None):
+    """(B, S, D) -> (B, S, D); full-sequence causal attention."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, x, cfg, positions)
+    out = full_attention(q, k, v, window=window)
+    return out.reshape(B, S, -1) @ p["wo"]
+
+
+def init_kv_cache(cfg, batch: int, cache_len: int, dtype, device):
+    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    shape = (batch, cache_len, KV, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attn_prefill(p, x, positions, cfg, *, window: Optional[int] = None):
+    """Full-sequence forward that also returns the KV cache.
+
+    When ``window`` is set and smaller than S the cache holds only the last
+    ``window`` keys (ring layout with slot = pos % window).
+    """
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, x, cfg, positions)
+    out = full_attention(q, k, v, window=window)
+    if window is not None and window < S:
+        # keep last `window` entries, arranged so slot = pos % window
+        shift = S % window
+        cache = {"k": torch.roll(k[:, -window:], shift, dims=1),
+                 "v": torch.roll(v[:, -window:], shift, dims=1)}
+    else:
+        cache = {"k": k, "v": v}
+    return out.reshape(B, S, -1) @ p["wo"], cache
+
+
+class DecodePosition:
+    """One dense decode step's absolute position: ``pos`` as a Python int
+    (so that nothing is read back from the card) and its device tensors,
+    made once per step and shared by every layer: the (B, 1) ``positions``
+    and, per cache length, the (B,) valid lengths."""
+
+    def __init__(self, pos: int, batch: int, device):
+        self.pos = pos
+        self.positions = torch.full((batch, 1), pos, dtype=torch.int32,
+                                    device=device)
+        self._lengths: dict = {}
+
+    def lengths(self, cache_len: int) -> torch.Tensor:
+        n = min(self.pos + 1, cache_len)
+        if n not in self._lengths:
+            self._lengths[n] = torch.full(
+                self.positions.shape[:1], n, dtype=torch.int32,
+                device=self.positions.device)
+        return self._lengths[n]
+
+
+def attn_decode(p, x, pos: DecodePosition, cfg, cache, *,
+                window: Optional[int] = None):
+    """One-token decode.  x: (B, 1, D); pos: the step's position.
+
+    The cache is a ring buffer when ``window`` is set (slot = pos %
+    cache_len), else a linear buffer indexed by absolute position; it is
+    written in place.  The ring holds exactly the window, so the kernel
+    gets no window: it attends over all ``min(pos + 1, cache_len)`` valid
+    entries in any order.  Returns y (B, 1, D).
+    """
+    B = x.shape[0]
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    cache_len = cache["k"].shape[1]
+    q, k, v = _qkv(p, x, cfg, pos.positions)
+    slot = (pos.pos % cache_len) if window is not None else pos.pos
+    cache["k"][:, slot:slot + 1] = k
+    cache["v"][:, slot:slot + 1] = v
+    out = ops.decode_attention(q, cache["k"], cache["v"],
+                               pos.lengths(cache_len))
+    return out.reshape(B, 1, H * hd) @ p["wo"]
+
+
+def _gather_pages(pool, block_tables):
+    """Dense (B, W * block, KV, hd) copy of each row's pages."""
+    B, W = block_tables.shape
+    return pool[block_tables.long()].reshape(B, W * pool.shape[1],
+                                             *pool.shape[2:])
+
+
 def attn_decode_paged(p, x, positions, cfg, kv, block_tables, *,
-                      block_size: int, window: Optional[int] = None):
+                      block_size: int, window: Optional[int] = None,
+                      kernels: str = "fused"):
     """One-token decode against the paged KV pool (HyperServe).
 
     x: (B, 1, D) — one token per batch slot; ``positions``: (B,) absolute
@@ -59,7 +159,9 @@ def attn_decode_paged(p, x, positions, cfg, kv, block_tables, *,
     views (N_blocks, block, KV, hd), written in place.  ``block_tables``:
     (B, W) int32; padding entries point at the null block and are never
     unmasked.  ``window`` (LOCAL_ATTN) masks keys below ``pos + 1 -
-    window``.  Returns y (B, 1, D).
+    window``.  ``kernels="fused"`` walks the tables in the kernel;
+    ``"composed"`` gathers them into dense K/V and runs
+    ``decode_attention``.  Returns y (B, 1, D).
     """
     B = x.shape[0]
     H, hd = cfg.num_heads, cfg.resolved_head_dim
@@ -70,9 +172,14 @@ def attn_decode_paged(p, x, positions, cfg, kv, block_tables, *,
     kv["k"][bidx, off] = k[:, 0]
     kv["v"][bidx, off] = v[:, 0]
     lengths = (positions + 1).to(torch.int32)
-    out = ops.paged_decode_attention(q, kv["k"], kv["v"], block_tables,
-                                     lengths, block_size=block_size,
-                                     window=window)
+    if kernels == "fused":
+        out = ops.paged_decode_attention(q, kv["k"], kv["v"], block_tables,
+                                         lengths, block_size=block_size,
+                                         window=window)
+    else:
+        out = ops.decode_attention(q, _gather_pages(kv["k"], block_tables),
+                                   _gather_pages(kv["v"], block_tables),
+                                   lengths, window=window)
     return out.reshape(B, 1, H * hd) @ p["wo"]
 
 
@@ -92,8 +199,22 @@ def paged_chunk_indices(positions, limits, block_tables, *, block_size: int):
     return bidx, off, valid
 
 
+def flash_rows(q, k, v, starts, *, window=None, scale=None):
+    """Row-wise flash attention with a per-row query offset.
+
+    q: (P, C, H, d); k/v: (P, S, KV, d); starts: (P,) — row ``r``'s
+    queries occupy absolute positions ``starts[r] + [0, C)`` over that
+    row's own keys.  ONE ``flash_attention`` launch takes the (P,) offset
+    tensor, where the reference vmaps a static-offset call per row.
+    """
+    return ops.flash_attention(q, k, v, causal=True,
+                               q_offset=starts.to(torch.int32),
+                               window=window, scale=scale)
+
+
 def attn_prefill_paged(p, x, starts, limits, cfg, kv, block_tables, *,
-                       block_size: int, window: Optional[int] = None):
+                       block_size: int, window: Optional[int] = None,
+                       kernels: str = "fused"):
     """One batched chunked-prefill step against the paged KV pool.
 
     x: (P, C, D) — one prompt chunk per row, row ``r``'s first token at
@@ -101,7 +222,10 @@ def attn_prefill_paged(p, x, starts, limits, cfg, kv, block_tables, *,
     pages (in place), then attends each row's chunk queries over that
     row's table (history + chunk) with causal masking from ``starts``.
     ``limits``: (P,) true prompt lengths — positions >= the limit are
-    padding; rows with limit 0 are scheduler filler.  Returns y (P, C, D).
+    padding; rows with limit 0 are scheduler filler (zeros from the fused
+    kernel; the composed path attends them over the null block, and their
+    outputs are discarded).  ``kernels`` as in :func:`attn_decode_paged`,
+    with ``flash_rows`` on the gathered K/V.  Returns y (P, C, D).
     """
     P, C, _ = x.shape
     H, hd = cfg.num_heads, cfg.resolved_head_dim
@@ -112,7 +236,12 @@ def attn_prefill_paged(p, x, starts, limits, cfg, kv, block_tables, *,
     bidx, off = bidx.long(), off.long()
     kv["k"][bidx, off] = k
     kv["v"][bidx, off] = v
-    out = ops.ragged_prefill_attention(
-        q, kv["k"], kv["v"], block_tables, starts.to(torch.int32),
-        limits.to(torch.int32), block_size=block_size, window=window)
+    if kernels == "fused":
+        out = ops.ragged_prefill_attention(
+            q, kv["k"], kv["v"], block_tables, starts.to(torch.int32),
+            limits.to(torch.int32), block_size=block_size, window=window)
+    else:
+        out = flash_rows(q, _gather_pages(kv["k"], block_tables),
+                         _gather_pages(kv["v"], block_tables), starts,
+                         window=window)
     return out.reshape(P, C, H * hd) @ p["wo"]

@@ -6,6 +6,8 @@ lands on that generator's device.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -57,11 +59,20 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, half, dtype=np.float32) / half))
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_freqs_on(device: torch.device, head_dim: int,
+                   theta: float) -> torch.Tensor:
+    """:func:`rope_freqs` on ``device``, copied there once: a blocking
+    host-to-device copy synchronises the stream, and a decode step would
+    otherwise make two such copies per layer."""
+    return torch.from_numpy(rope_freqs(head_dim, theta)).to(device)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (B, S, H, D) with D even; positions: (S,) or (B, S)."""
     D = x.shape[-1]
-    inv = torch.from_numpy(rope_freqs(D, theta)).to(x.device)     # (D/2,)
+    inv = _rope_freqs_on(x.device, D, theta)                       # (D/2,)
     if positions.ndim == 1:
         ang = positions[None, :, None].float() * inv
     else:

@@ -1,7 +1,8 @@
 """Mixer registry: one table from mixer kind to its init and serving hooks.
 
 The port of ``repro.models.mixers``.  Every sequence-mixing block family
-registers a :class:`MixerSpec`; the model stack and the serving runtime
+registers a :class:`MixerSpec` (dense hooks for ``forward``/``decode_step``
+and serving hooks for the paged steps); the model stack and the serving runtime
 dispatch through this table instead of per-call-site ``if mixer == ...``
 chains.  Each spec also declares how its decode state lives under paged
 serving:
@@ -38,19 +39,29 @@ class MixerSpec:
     """Everything the stack and the serving runtime need for one mixer kind.
 
     Hooks receive the whole sublayer param dict and index their own
-    ``param_key`` entry; serving hooks write their state in place and
-    return the sublayer output.
+    ``param_key`` entry.  Dense hooks (``forward``/``decode``/
+    ``init_cache``) serve ``model.forward`` and ``model.decode_step``;
+    serving hooks (``init_state``/``decode_paged``/``prefill_paged``)
+    define the mixer's :data:`state` layout under the paged pool.  Decode
+    hooks write their cache or state in place and return the sublayer
+    output.
     """
     kind: str                  # configs.base mixer constant
     state: str                 # PAGED | SLOT | WINDOWED
     param_key: str             # sublayer dict entry the params live under
     init: Callable             # (cfg, gen, *, lead) -> param subtree
+    forward: Callable          # (p, h, positions, cfg, *, window,
+    #                             want_cache) -> (y, cache | None)
+    decode: Callable           # (p, h, pos, cfg, cache, *, window) -> y
+    #                             pos: attention.DecodePosition
+    init_cache: Callable       # (cfg, batch, eff_len, dtype, device)
+    #                             -> one-layer cache leaves
     init_state: Callable       # (cfg, *, layers, num_blocks, block_size,
     #                             dtype, device) -> stacked state leaves
     decode_paged: Callable     # (p, h, positions, cfg, state, tables, *,
-    #                             block_size, window) -> y
+    #                             block_size, window, kernels) -> y
     prefill_paged: Callable    # (p, h, starts, limits, slots, cfg, state,
-    #                             tables, *, block_size, window) -> y
+    #                             tables, *, block_size, window, kernels) -> y
     #   batched: h (P, C, D); starts/limits/slots (P,); tables (P, W) — all
     #   scheduled prompt chunks in ONE call, filler rows at limit 0
 
@@ -76,6 +87,17 @@ def get_mixer(kind: str) -> MixerSpec:
             f"unknown mixer kind {kind!r}: no MixerSpec registered "
             f"(registered: {sorted(_REGISTRY)}); its family is not ported "
             "yet (ROADMAP.md, 'Modules to port')") from None
+
+
+def resolve_window(cfg, kind: str, window_override: Optional[int]):
+    """Dense-path window: WINDOWED mixers pin their registry window (the
+    same one the paged serving path uses, so dense/served parity holds by
+    construction); other mixers accept the caller's override (the
+    windowed-decode mode of long contexts)."""
+    spec = get_mixer(kind)
+    if spec.state == WINDOWED:
+        return spec.window(cfg)
+    return window_override
 
 
 # ---------------------------------------------------------------------------
@@ -184,16 +206,28 @@ def _attn_init_state(cfg, *, layers, num_blocks, block_size, dtype, device):
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _attn_forward(p, h, positions, cfg, *, window, want_cache):
+    if want_cache:
+        return attention.attn_prefill(p["attn"], h, positions, cfg,
+                                      window=window)
+    return attention.attn_forward(p["attn"], h, positions, cfg,
+                                  window=window), None
+
+
 register_mixer(MixerSpec(
     kind=ATTN, state=PAGED, param_key="attn",
     init=attention.init_attention,
+    forward=_attn_forward,
+    decode=lambda p, h, pos, cfg, cache, *, window: attention.attn_decode(
+        p["attn"], h, pos, cfg, cache, window=window),
+    init_cache=attention.init_kv_cache,
     init_state=_attn_init_state,
     decode_paged=lambda p, h, positions, cfg, state, tables, *, block_size,
-        window: attention.attn_decode_paged(
+        window, kernels: attention.attn_decode_paged(
             p["attn"], h, positions, cfg, state, tables,
-            block_size=block_size, window=window),
+            block_size=block_size, window=window, kernels=kernels),
     prefill_paged=lambda p, h, starts, limits, slots, cfg, state, tables, *,
-        block_size, window: attention.attn_prefill_paged(
+        block_size, window, kernels: attention.attn_prefill_paged(
             p["attn"], h, starts, limits, cfg, state, tables,
-            block_size=block_size, window=window),
+            block_size=block_size, window=window, kernels=kernels),
 ))

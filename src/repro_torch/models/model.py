@@ -1,15 +1,22 @@
-"""The causal LM's paged serving steps (HyperServe), PyTorch port.
+"""The causal LM, PyTorch port of ``repro.models.model`` on one device.
 
-Parameters keep the reference's stacked layout (``repro.models.model``):
-``params["seg{i}"]`` is a tuple of per-sublayer dicts whose leaves carry a
-leading ``repeat`` axis, with the reference's leaf names, so the weight
-bridge (:mod:`repro_torch.models.bridge`) maps leaf to leaf.  The
-reference's ``lax.scan`` over the stacked layers becomes a Python loop
-over ``repeat``; slicing a stacked leaf is a view, so the loop copies no
-weights and writes each layer's pool pages in place.
+Parameters keep the reference's stacked layout: ``params["seg{i}"]`` is a
+tuple of per-sublayer dicts whose leaves carry a leading ``repeat`` axis,
+with the reference's leaf names, so the weight bridge
+(:mod:`repro_torch.models.bridge`) maps leaf to leaf.  The reference's
+``lax.scan`` over the stacked layers becomes a Python loop over
+``repeat``; slicing a stacked leaf is a view, so the loop copies no
+weights, and the decode steps write each layer's cache or pool pages in
+place (where the reference returns the updated arrays).
 
-The dense ``forward``/``decode_step`` (training and ``Generator``) come in
-a later slice with their kernels.
+Modes:
+  forward(..., mode="train")    -> logits, None, metrics
+  forward(..., mode="prefill")  -> logits, caches, metrics
+  decode_step(...)              -> logits (caches written in place)
+  decode_step_paged / prefill_chunk_paged -> logits (pool written in place)
+
+Remat, unrolling and meshes, which shape the reference's compiled
+programs, have no counterpart in eager PyTorch.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import DENSE_FFN
 from repro_torch.core.tree import tree_map
 from repro_torch.models import mixers as MX
+from repro_torch.models.attention import DecodePosition
 from repro_torch.models.common import (dense_init, dtype_of, embed_init,
                                        rms_norm, swiglu)
 from repro_torch.models.mixers import segments
@@ -63,22 +71,122 @@ def init_model(cfg, gen: torch.Generator):
     return params
 
 
-def _paged_ffn(p, x, cfg):
+def _ffn(p, x, cfg):
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     return x + swiglu(h, p["ffn"]["w_gate"], p["ffn"]["w_up"],
                       p["ffn"]["w_down"])
 
 
-def _layers(params, kv_pools, cfg):
-    """Yield (mixer spec, sublayer params, sublayer pool state) in stack
-    order, each a view into the stacked leaves of its layer."""
+def _layers(params, cfg, states=None):
+    """Yield (mixer kind, sublayer params, sublayer state) in stack order,
+    each a view into the stacked leaves of its layer (state None when
+    ``states`` is None)."""
     for si, seg in enumerate(segments(cfg)):
-        seg_p, seg_kv = params[f"seg{si}"], kv_pools[f"seg{si}"]
+        seg_p = params[f"seg{si}"]
         for li in range(seg.repeat):
             for j, (mixer, _) in enumerate(seg.kinds):
-                yield (MX.get_mixer(mixer),
-                       tree_map(lambda a: a[li], seg_p[j]),
-                       tree_map(lambda a: a[li], seg_kv[j]))
+                yield (mixer, tree_map(lambda a: a[li], seg_p[j]),
+                       None if states is None else
+                       tree_map(lambda a: a[li], states[f"seg{si}"][j]))
+
+
+# ---------------------------------------------------------------------------
+# per-sublayer forward / decode / cache — mixer dispatch is one registry
+# lookup; only the FFN leg lives here
+# ---------------------------------------------------------------------------
+def _sublayer_forward(p, x, positions, cfg, mixer, *, mode, window_override):
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    w = MX.resolve_window(cfg, mixer, window_override)
+    y, cache = MX.get_mixer(mixer).forward(p, h, positions, cfg, window=w,
+                                           want_cache=mode == "prefill")
+    return _ffn(p, x + y, cfg), cache
+
+
+def _sublayer_decode(p, x, pos, cfg, mixer, cache, *, window_override):
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    w = MX.resolve_window(cfg, mixer, window_override)
+    y = MX.get_mixer(mixer).decode(p, h, pos, cfg, cache, window=w)
+    return _ffn(p, x + y, cfg)
+
+
+def _init_sublayer_cache(cfg, kind, batch, cache_len, dtype, window_override,
+                         device):
+    mixer, _ = kind
+    w = MX.resolve_window(cfg, mixer, window_override)
+    eff_len = min(cache_len, w) if w is not None else cache_len
+    return MX.get_mixer(mixer).init_cache(cfg, batch, eff_len, dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# forward (train / prefill)
+# ---------------------------------------------------------------------------
+def forward(params, tokens, cfg, *, prefix_embeds=None, mode="train",
+            window_override=None):
+    """tokens: (B, S) int.  Returns (logits (B, S, V_pad), caches | None,
+    metrics).  ``mode="prefill"`` also returns each layer's KV cache,
+    stacked per segment like the params (windowed caches in ring layout).
+    The metrics are the reference's MoE loss terms, zero for the dense
+    FFN (the MoE family is not ported yet)."""
+    if prefix_embeds is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: prefix_embeds need the multimodal frontends, "
+            "which are not ported yet")
+    if mode not in ("train", "prefill"):
+        raise ValueError(f"mode={mode!r}: must be 'train' or 'prefill'")
+    S = tokens.shape[1]
+    x = F.embedding(tokens.long(), params["embed"])
+    positions = torch.arange(S, device=x.device)
+    per_layer: dict = {}
+    for si, seg in enumerate(segments(cfg)):
+        seg_p = params[f"seg{si}"]
+        for li in range(seg.repeat):
+            caches = []
+            for j, (mixer, _) in enumerate(seg.kinds):
+                x, c = _sublayer_forward(
+                    tree_map(lambda a: a[li], seg_p[j]), x, positions, cfg,
+                    mixer, mode=mode, window_override=window_override)
+                caches.append(c)
+            per_layer.setdefault(f"seg{si}", []).append(tuple(caches))
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = x @ _unembed(params, cfg).T
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    metrics = {"moe_aux_loss": zero, "moe_z_loss": zero.clone()}
+    if mode != "prefill":
+        return logits, None, metrics
+    caches = {name: tree_map(lambda *xs: torch.stack(xs), *layers)
+              for name, layers in per_layer.items()}
+    return logits, caches, metrics
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+def init_caches(cfg, batch, cache_len, *, dtype=None, window_override=None,
+                device=None):
+    """Zero caches matching :func:`decode_step` (stacked per segment)."""
+    dt = dtype or dtype_of(cfg)
+    caches = {}
+    for si, seg in enumerate(segments(cfg)):
+        one = tuple(_init_sublayer_cache(cfg, kd, batch, cache_len, dt,
+                                         window_override, device)
+                    for kd in seg.kinds)
+        caches[f"seg{si}"] = tree_map(
+            lambda a: a[None].repeat(seg.repeat, *([1] * a.ndim)), one)
+    return caches
+
+
+def decode_step(params, token, pos: int, cfg, caches, *,
+                window_override=None):
+    """token: (B, 1) int; pos: absolute position (a Python int).  Writes
+    every layer's cache in place and returns logits (B, 1, V_pad).  The
+    step's position tensors are made once and shared by every layer."""
+    x = F.embedding(token.long(), params["embed"])
+    step = DecodePosition(pos, token.shape[0], x.device)
+    for mixer, sub_p, cache in _layers(params, cfg, caches):
+        x = _sublayer_decode(sub_p, x, step, cfg, mixer, cache,
+                             window_override=window_override)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x @ _unembed(params, cfg).T
 
 
 def _unembed(params, cfg):
@@ -86,26 +194,30 @@ def _unembed(params, cfg):
 
 
 def decode_step_paged(params, tokens, positions, cfg, kv_pools, block_tables,
-                      *, block_size: int):
+                      *, block_size: int, kernels: str = "fused"):
     """Continuous-batching decode: one token per slot at per-slot positions.
 
     tokens: (B, 1) int; positions: (B,) absolute write positions; kv_pools:
     :class:`~repro_torch.serve.paged_kv.StatePool` state, paged leaves
     (L, N_blocks, block, KV, hd), written in place; block_tables: (B, W)
-    int32.  Returns logits (B, 1, V_pad).
+    int32.  ``kernels``: ``"fused"`` or ``"composed"`` lowering
+    (``ops.resolve_paged_path``).  Returns logits (B, 1, V_pad).
     """
     x = F.embedding(tokens.long(), params["embed"])
-    for spec, sub_p, kv in _layers(params, kv_pools, cfg):
+    for mixer, sub_p, kv in _layers(params, cfg, kv_pools):
+        spec = MX.get_mixer(mixer)
         x = x + spec.decode_paged(
             sub_p, rms_norm(x, sub_p["norm1"], cfg.norm_eps), positions, cfg,
-            kv, block_tables, block_size=block_size, window=spec.window(cfg))
-        x = _paged_ffn(sub_p, x, cfg)
+            kv, block_tables, block_size=block_size, window=spec.window(cfg),
+            kernels=kernels)
+        x = _ffn(sub_p, x, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ _unembed(params, cfg).T
 
 
 def prefill_chunk_paged(params, tokens, starts, limits, slots, cfg, kv_pools,
-                        block_tables, *, block_size: int):
+                        block_tables, *, block_size: int,
+                        kernels: str = "fused"):
     """One batched chunked-prefill step (HyperServe).
 
     tokens: (P, C) — every prompt chunk the scheduler admitted this
@@ -115,15 +227,17 @@ def prefill_chunk_paged(params, tokens, starts, limits, slots, cfg, kv_pools,
     every row's K/V into the pool pages in place and returns the logits of
     each row's last in-chunk prompt token, (P, V_pad) — the only position
     any caller reads, so the unembedding runs over P rows, not P*C.
+    ``kernels`` as in :func:`decode_step_paged`.
     """
     P, C = tokens.shape
     x = F.embedding(tokens.long(), params["embed"])
-    for spec, sub_p, kv in _layers(params, kv_pools, cfg):
+    for mixer, sub_p, kv in _layers(params, cfg, kv_pools):
+        spec = MX.get_mixer(mixer)
         x = x + spec.prefill_paged(
             sub_p, rms_norm(x, sub_p["norm1"], cfg.norm_eps), starts, limits,
             slots, cfg, kv, block_tables, block_size=block_size,
-            window=spec.window(cfg))
-        x = _paged_ffn(sub_p, x, cfg)
+            window=spec.window(cfg), kernels=kernels)
+        x = _ffn(sub_p, x, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     # row r's last in-chunk prompt token sits at chunk index
     # min(limit, start + C) - 1 - start (clamped for filler rows)

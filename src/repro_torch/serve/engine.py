@@ -1,0 +1,121 @@
+"""Dense batched generation: the ``Generator`` (PyTorch port).
+
+The port of ``repro.serve.engine``'s ``GenerateConfig``/``Generator``/
+``_seat`` on one device.  A batch of equal-length prompts is prefilled in
+one ``forward(mode="prefill")`` (one ``flash_attention`` launch per
+layer), its caches are seated into decode caches of ``max_len`` entries,
+and ``decode_step`` then advances every row one token per step (one
+``decode_attention`` launch per layer).  This is the fixed-batch mode of
+``launch/serve.py`` and the sequential baseline HyperServe is held to.
+
+The step positions stay Python ints and the sampled tokens stay on the
+device, so a step reads nothing back to the host.  Greedy decoding is
+argmax over ``[:vocab_size]``; temperature sampling draws from a
+``torch.Generator`` on the device seeded from ``GenerateConfig.seed``: it
+replays within the port, not JAX's random bits.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core.tree import tree_map
+from repro_torch.models import model as M
+from repro_torch.obs import Observability
+from repro_torch.serve.runtime import resolve_device
+
+
+@dataclasses.dataclass
+class GenerateConfig:
+    max_new_tokens: int = 32
+    temperature: float = 0.0            # 0 => greedy
+    seed: int = 0
+
+
+class Generator:
+    """Host-side prefill+decode loop.
+
+    ``device=None`` serves on the card and raises without one (pass
+    ``device="cpu"`` to run the kernels' plain versions there); params are
+    moved to that device.  ``window_override`` gives the decode steps a
+    ring cache of that many entries; the prompt's prefill runs without it
+    and its last entries are seated into the ring, as in the reference
+    (ROADMAP.md section 3 records what that does when the prompt length is
+    no multiple of the window).
+    """
+
+    def __init__(self, cfg, params, *, max_len: int = 512,
+                 window_override: Optional[int] = None,
+                 obs: Optional[Observability] = None, device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = tree_map(lambda t: t.to(self.device), params)
+        self.obs = obs if obs is not None else Observability()
+        self.max_len = max_len
+        self.window_override = window_override
+
+    @torch.no_grad()
+    def prefill(self, tokens):
+        """Prompt forward: (logits (B, S, V_pad), per-layer prompt caches)."""
+        B, S = tokens.shape
+        self.obs.record_compile("dense_prefill", (B, S))
+        with self.obs.trace.span("gen.prefill", track="engine", batch=B,
+                                 seq=S):
+            logits, caches, _ = M.forward(self.params, tokens, self.cfg,
+                                          mode="prefill")
+        return logits, caches
+
+    def init_caches(self, batch: int, prompt_caches):
+        """Decode caches of ``max_len`` (the window when overridden) with
+        the prompt caches seated in them."""
+        caches = M.init_caches(self.cfg, batch, self.max_len,
+                               window_override=self.window_override,
+                               device=self.device)
+        return _seat(caches, prompt_caches)
+
+    @torch.no_grad()
+    def decode(self, token, pos: int, caches):
+        """One decode step for every row at position ``pos``; writes the
+        caches in place.  Returns logits (B, 1, V_pad)."""
+        with self.obs.trace.span("gen.decode", track="engine", pos=pos):
+            return M.decode_step(self.params, token, pos, self.cfg, caches,
+                                 window_override=self.window_override)
+
+    @torch.no_grad()
+    def generate(self, tokens, gen: GenerateConfig = GenerateConfig()):
+        """tokens: (B, S) prompt. Returns (B, S + max_new) tokens on the
+        generator's device."""
+        tokens = tokens.to(self.device)
+        B, S = tokens.shape
+        vocab = self.cfg.vocab_size
+        logits, pcaches = self.prefill(tokens)
+        caches = self.init_caches(B, pcaches)
+        del pcaches
+        out = [tokens.long()]
+        rng = torch.Generator(device=self.device).manual_seed(gen.seed)
+        cur = torch.argmax(logits[:, -1:, :vocab], dim=-1)
+        out.append(cur)
+        self.obs.record_compile("dense_serve", (B, self.max_len))
+        for i in range(gen.max_new_tokens - 1):
+            lg = self.decode(cur, S + i, caches)[:, -1, :vocab]
+            if gen.temperature > 0:
+                probs = torch.softmax(lg.float() / gen.temperature, dim=-1)
+                cur = torch.multinomial(probs, 1, generator=rng)
+            else:
+                cur = torch.argmax(lg, dim=-1)[:, None]
+            out.append(cur)
+        return torch.cat(out, dim=1)
+
+
+def _seat(dcaches, pcaches):
+    """Copy prefill caches into the (larger) decode cache buffers, in
+    place: each (L, B, S, ...) leaf takes the last ``min(S_prompt,
+    S_decode)`` prompt entries at its start, as the reference's
+    ``_seat`` does."""
+    def seat_leaf(d, p):
+        n = min(p.shape[2], d.shape[2])
+        d[:, :, :n] = p[:, :, p.shape[2] - n:].to(d.dtype)
+        return d
+    return tree_map(seat_leaf, dcaches, pcaches)

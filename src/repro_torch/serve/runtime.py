@@ -12,8 +12,11 @@ mesh, shardings, disaggregation or MPMD groups.  It composes the paged pool
 
 The decode batch is a fixed set of ``max_slots`` seats; empty seats decode
 a dummy token against the null block and their logits are ignored.  Every
-attention layer of a step runs the fused paged kernels: on the card their
-CUDA kernels, on an explicit ``device="cpu"`` their plain versions.
+attention layer of a step runs the paged path that ``ServeConfig.kernels``
+resolves to (``ops.resolve_paged_path``): the fused block-table-walking
+kernels, or the composed lowering (gather, then the dense kernels); on the
+card their CUDA kernels, on an explicit ``device="cpu"`` their plain
+versions.
 
 A finished prompt's full blocks can be retained in a copy-on-write
 **prefix cache**: an identical prompt prefix forks the cached blocks
@@ -287,7 +290,7 @@ class ServeEngine:
                 self.params, self._tensor(toks), self._tensor(starts),
                 self._tensor(limits), self._tensor(slots), self.cfg,
                 self.pool.state, self._tensor(tables),
-                block_size=self.scfg.block_size)
+                block_size=self.scfg.block_size, kernels=self.kernel_path)
         self.prefill_calls += 1
         self.prefill_chunks += len(reqs)
         self.obs.metrics.counter("serve.prefill_calls").inc()
@@ -340,7 +343,8 @@ class ServeEngine:
                 logits = M.decode_step_paged(
                     self.params, self._tensor(tokens),
                     self._tensor(positions), self.cfg, self.pool.state,
-                    self._tensor(tables), block_size=self.scfg.block_size)
+                    self._tensor(tables), block_size=self.scfg.block_size,
+                    kernels=self.kernel_path)
                 if all(r.temperature <= 0 and not r.capture_logprobs
                        for r in runners):
                     # batched greedy: one device op + one transfer for the

@@ -1,4 +1,10 @@
-"""The port's CUDA kernels and its serving path on the card.
+"""The port's CUDA kernels, its serving path and its Generator on the card.
+
+The four kernels (fused paged decode, ragged prefill, flash attention
+with per-row query offsets, dense decode with a window) against their
+plain versions at head dims 64 and 128, the wrappers' refusals (shapes,
+dtypes, inputs that require grad), and the Generator and HyperServe on
+the card token-identical to the CPU.
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
 CUDA kernels have no CPU mode; on the CPU the wrappers run the plain
@@ -21,10 +27,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs.base import ServeConfig, get_config  # noqa: E402
+from repro_torch.kernels import decode_attention as da  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_decode_attention as pda  # noqa: E402
 from repro_torch.kernels import ragged_prefill_attention as rpa  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serve.api import HyperServe  # noqa: E402
+from repro_torch.serve.engine import GenerateConfig, Generator  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -108,7 +117,7 @@ def test_decode_kernel_at_serving_lengths(cuda):
 
 
 def test_wrappers_refuse_what_no_kernel_takes(cuda):
-    k_pool, v_pool, tables, q_dec, _ = _inputs(torch.float32, cuda)
+    k_pool, v_pool, tables, q_dec, q_pre = _inputs(torch.float32, cuda)
     lengths = torch.tensor([10, 3, 24], dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         pda.paged_decode_attention(q_dec[..., :16], k_pool[..., :16],
@@ -117,6 +126,104 @@ def test_wrappers_refuse_what_no_kernel_takes(cuda):
     with pytest.raises(ValueError, match="dtypes"):
         pda.paged_decode_attention(q_dec.half(), k_pool, v_pool, tables[:3],
                                    lengths, block_size=BS)
+    # the dense kernels: no launch for what they do not take, and none
+    # for an input that asks for a gradient (there is no backward yet)
+    q, k, kd = q_pre, k_pool[:4], k_pool[:3]     # B = 4 and B = 3 rows
+    n0 = (fa.flash_attention.launches, da.decode_attention.launches)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_attention(q.clone().requires_grad_(), k, k)
+    with pytest.raises(RuntimeError, match="no backward"):
+        da.decode_attention(q_dec, kd.clone().requires_grad_(), kd, lengths)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention(q[..., :32], k[..., :32], k[..., :32])
+    with pytest.raises(ValueError, match="q_offset"):
+        fa.flash_attention(q, k, k, q_offset=lengths)
+    with pytest.raises(ValueError, match="dtypes"):
+        da.decode_attention(q_dec.half(), kd, kd, lengths)
+    assert (fa.flash_attention.launches,
+            da.decode_attention.launches) == n0
+    with torch.no_grad():                  # no gradient asked: it runs
+        da.decode_attention(q_dec, kd.clone().requires_grad_(), kd, lengths)
+    assert da.decode_attention.launches == n0[1] + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,kv,dim", [(14, 2, 64), (32, 8, 128)])
+@pytest.mark.parametrize("window", [None, 37])
+def test_flash_kernel_matches_plain_version(cuda, dtype, heads, kv, dim,
+                                            window):
+    """Dense causal prefill (q_offset 0, Sq = Sk, a length that is no
+    multiple of the query tile) and the composed paged prefill's per-row
+    q_offset tensor (Sq < Sk, offsets at and off tile edges)."""
+    g = torch.Generator().manual_seed(11)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(cuda, dtype)
+    q, k, v = rnd(2, 77, heads, dim), rnd(2, 77, kv, dim), rnd(2, 77, kv, dim)
+    kw = dict(causal=True, window=window)
+    n0 = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, **kw)
+    assert fa.flash_attention.launches == n0 + 1
+    _assert_close(got, fa.flash_attention_ref, (q, k, v), kw)
+    offs = torch.tensor([0, 37, 160, 219], dtype=torch.int32, device=cuda)
+    q, k, v = rnd(4, 48, heads, dim), rnd(4, 272, kv, dim), \
+        rnd(4, 272, kv, dim)
+    kw = dict(causal=True, window=window, q_offset=offs)
+    _assert_close(fa.flash_attention(q, k, v, **kw), fa.flash_attention_ref,
+                  (q, k, v), kw)
+    kw = dict(causal=True, window=window, q_offset=19)
+    _assert_close(fa.flash_attention(q, k, v, **kw), fa.flash_attention_ref,
+                  (q, k, v), kw)
+    kw = dict(causal=False, window=None, q_offset=0)
+    _assert_close(fa.flash_attention(q, k, v, **kw), fa.flash_attention_ref,
+                  (q, k, v), kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,kv,dim", [(14, 2, 64), (32, 8, 128)])
+@pytest.mark.parametrize("window", [None, 50])
+def test_decode_kernel_matches_plain_version(cuda, dtype, heads, kv, dim,
+                                             window):
+    """Lengths of 1 to 640 keys over a 640-entry cache, so every lane
+    position of a warp tile and the cross-warp combine are exercised, and
+    a window shorter and longer than the length."""
+    g = torch.Generator().manual_seed(5)
+    lengths = torch.tensor([1, 2, 15, 16, 17, 31, 33, 100, 255, 257, 511,
+                            613, 639, 640], dtype=torch.int32)
+    B, S = len(lengths), 640
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(cuda, dtype)
+    args = (rnd(B, 1, heads, dim), rnd(B, S, kv, dim), rnd(B, S, kv, dim),
+            lengths.to(cuda))
+    kw = dict(window=window)
+    n0 = da.decode_attention.launches
+    got = da.decode_attention(*args, **kw)
+    assert da.decode_attention.launches == n0 + 1
+    _assert_close(got, da.decode_attention_ref, args, kw)
+
+
+def test_generator_on_the_card_matches_the_cpu(cuda):
+    """Reduced qwen2-0.5b in float32 (head dim 64): the Generator's greedy
+    tokens on the card (CUDA kernels) equal the CPU's (plain versions),
+    windowed or not, and the card run launches one flash_attention per
+    layer for the prefill and one decode_attention per layer and step."""
+    cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
+                              dtype="float32")
+    params = M.init_model(cfg, torch.Generator().manual_seed(0))
+    prompts = torch.randint(1, cfg.vocab_size, (2, 24),
+                            generator=torch.Generator().manual_seed(1))
+    for window in (None, 8):
+        outs = {}
+        for device in ("cpu", cuda):
+            gen = Generator(cfg, params, max_len=40, window_override=window,
+                            device=device)
+            n0 = (fa.flash_attention.launches, da.decode_attention.launches)
+            outs[str(device)] = gen.generate(
+                prompts.to(device), GenerateConfig(max_new_tokens=6)).cpu()
+        assert torch.equal(outs["cpu"], outs["cuda"])
+        assert (fa.flash_attention.launches - n0[0],
+                da.decode_attention.launches - n0[1]) == (2, 2 * 5)
 
 
 def test_serving_on_the_card_matches_the_cpu(cuda):

@@ -6,8 +6,9 @@ through ``jax.tree.map(np.asarray, ...)`` and the port's weight bridge, so
 both frameworks compute the same function.  On the same pools, tables,
 starts, limits and positions (made with numpy from a seed),
 ``decode_step_paged`` and ``prefill_chunk_paged`` must give the same
-logits and the same updated pools, against both of the reference's
-lowerings.  Pools are compared outside the null block 0, which takes the
+logits and the same updated pools, each of the port's lowerings
+(``kernels="fused"`` and ``"composed"``) against the reference's same
+lowering.  Pools are compared outside the null block 0, which takes the
 padding writes in any order.  Tolerance 1e-4 abs in float32: the matmul
 and softmax sums run in another order.
 """
@@ -102,7 +103,7 @@ def test_decode_step_paged_matches_reference(arch, kernels):
     tpools = tree_map(lambda a: torch.from_numpy(a.copy()), pools)
     lt = M.decode_step_paged(
         tp, torch.from_numpy(tokens), torch.from_numpy(positions), cfg,
-        tpools, torch.from_numpy(tables), block_size=BS)
+        tpools, torch.from_numpy(tables), block_size=BS, kernels=kernels)
     _assert_same(lj, pj, lt, tpools)
 
 
@@ -126,10 +127,10 @@ def test_prefill_chunk_paged_matches_reference(arch, kernels):
     lt = M.prefill_chunk_paged(
         tp, torch.from_numpy(tokens), torch.from_numpy(starts),
         torch.from_numpy(limits), torch.from_numpy(slots), cfg, tpools,
-        torch.from_numpy(tables), block_size=BS)
-    # the composed reference attends filler rows too (their logits are
-    # discarded); the fused kernels zero them, so the port matches the
-    # fused reference on every row and the composed one on live rows
+        torch.from_numpy(tables), block_size=BS, kernels=kernels)
+    # the composed lowering attends filler rows too (their logits are
+    # discarded) and the fused kernels zero them; rows are compared where
+    # the result is defined: every row fused, the live rows composed
     _assert_same(lj, pj, lt, tpools,
                  rows=slice(None) if kernels == "fused" else slice(0, 2))
 

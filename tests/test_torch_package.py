@@ -3,7 +3,8 @@
 - ``repro_torch`` and every submodule import without JAX and without
   anything of the reference package ``repro`` (checked in a fresh
   interpreter, where nothing else could have imported them);
-- the serving entry points run on the card unless the caller names
+- the serving entry points (``HyperServe``, ``ServeEngine``,
+  ``Generator``, the launcher) run on the card unless the caller names
   ``device="cpu"``: with no CUDA device and no device named they raise,
   they never fall back to the CPU;
 - ``chip_smoke.py`` exits non-zero and prints no result without a card,
@@ -44,15 +45,17 @@ def test_serving_needs_a_card_unless_cpu_is_named(monkeypatch):
     from repro_torch.launch import serve as launcher
     from repro_torch.models import model as M
     from repro_torch.serve.api import HyperServe
+    from repro_torch.serve.engine import Generator
     from repro_torch.serve.runtime import ServeEngine
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_config("qwen2-0.5b").reduced()
     params = M.init_model(cfg, torch.Generator().manual_seed(0))
-    for ctor in (HyperServe, ServeEngine):
+    for ctor in (HyperServe, ServeEngine, Generator):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ctor(cfg, params)
-    with pytest.raises(SystemExit, match="no CUDA device"):
-        launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--continuous"])
+    for mode in (["--continuous"], ["--batch", "2"]):
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            launcher.main(["--arch", "qwen2-0.5b", "--reduced", *mode])
     serve = HyperServe(cfg, params, device="cpu")
     assert serve.engine.device.type == "cpu"
 
@@ -66,12 +69,34 @@ def test_launcher_serves_on_an_explicit_cpu(capsys):
     out = capsys.readouterr().out
     assert "served 3 requests" in out and "on cpu" in out
     assert "serve_kernels_decode_fused" in out
-    with pytest.raises(SystemExit, match="dense Generator"):
-        launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--device",
-                       "cpu"])
-    with pytest.raises(SystemExit, match="--batch sizes fixed-batch"):
+    launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--continuous",
+                   "--device", "cpu", "--requests", "2", "--max-new", "3",
+                   "--kernels", "composed", "--metrics"])
+    out = capsys.readouterr().out
+    assert "served 2 requests" in out
+    assert "serve_kernels_decode_composed" in out
+    assert "serve_kernels_decode_fused" not in out
+    with pytest.raises(SystemExit, match="--disaggregate needs mpmd"):
         launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--continuous",
-                       "--batch", "2", "--device", "cpu"])
+                       "--disaggregate", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("window", [0, 4])
+def test_launcher_runs_fixed_batch_generation_on_an_explicit_cpu(capsys,
+                                                                 window):
+    """Without ``--continuous`` the launcher runs the dense ``Generator``
+    over ``--batch`` prompts of ones, as the reference's does, windowed
+    with ``--window``."""
+    from repro_torch.launch import serve as launcher
+    launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--device", "cpu",
+                   "--batch", "2", "--prompt-len", "8", "--max-new", "5",
+                   "--window", str(window), "--metrics"])
+    out = capsys.readouterr().out
+    assert "generated 10 tokens" in out and "on cpu" in out
+    first = out.split("first sequence:")[1].splitlines()[0]
+    assert first.strip().startswith("[1, 1, 1, 1, 1, 1, 1, 1,")
+    assert len(first.split(",")) == 13
+    assert "jit_recompiles_dense_serve 1.0" in out
 
 
 def _run_smoke(cwd):

@@ -7,7 +7,9 @@ on ``device="cpu"`` (the fused kernels' plain versions) must produce
 greedy tokens identical to the JAX ``HyperServe`` (composed lowering, the
 fast one on CPU) and to the JAX ``Generator``, through preemption, with
 the scheduler counters and the compile-ledger keys equal to the
-reference's exactly.  Float32 so that no argmax can flip on rounding.
+reference's exactly; the port's composed lowering is held to the same
+tokens and to both frameworks' ``Generator``s.  Float32 so that no argmax
+can flip on rounding.
 """
 import dataclasses
 import functools
@@ -30,6 +32,9 @@ from repro_torch.configs.base import (ArchNotPortedError,  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.bridge import params_from_numpy  # noqa: E402
 from repro_torch.serve.api import HyperServe, RequestRejected  # noqa: E402
+from repro_torch.serve.engine import \
+    GenerateConfig as PortGenerateConfig  # noqa: E402
+from repro_torch.serve.engine import Generator as PortGenerator  # noqa: E402
 
 CASES = {
     # tests/test_fused_serve.py: test_attn_fused_serve_matches_generator
@@ -114,6 +119,40 @@ def test_kernel_dispatch_counters_pinned():
     assert m.counter("serve.kernels.decode.composed").value == 0
 
 
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "llama3-8b"])
+def test_composed_serve_matches_reference_and_generator(arch):
+    """``kernels="composed"`` (gather the tables, then the dense
+    ``decode_attention``/``flash_attention``): greedy tokens identical to
+    the JAX ``HyperServe(kernels="composed")`` and to the JAX and port
+    ``Generator``s, through preemption, with every dispatch counted on
+    the composed path and none on the fused one."""
+    kw, prompts, max_new = CASES["preempt"]
+    jcfg, cfg, jp, tp = _models(arch)
+    ref = JaxHyperServe(jcfg, jp, serve_cfg=JaxServeConfig(kernels="composed",
+                                                           **kw))
+    want = _serve(ref, prompts, max_new)
+    gen = _generator(arch)
+    want_gen = [gen.generate(jnp.asarray(p, jnp.int32)[None, :],
+                             GenerateConfig(max_new_tokens=n))[0, len(p):]
+                .tolist() for p, n in zip(prompts, max_new)]
+    port_gen = PortGenerator(cfg, tp, max_len=128, device="cpu")
+    got_gen = [port_gen.generate(torch.tensor([p]), PortGenerateConfig(
+        max_new_tokens=n))[0, len(p):].tolist()
+        for p, n in zip(prompts, max_new)]
+    port = HyperServe(cfg, tp, serve_cfg=ServeConfig(kernels="composed",
+                                                     **kw), device="cpu")
+    got = _serve(port, prompts, max_new)
+    assert got == want == want_gen == got_gen
+    assert port.stats()["preemptions"] == ref.stats()["preemptions"] >= 1
+    m, rm = port.engine.obs.metrics, ref.engine.obs.metrics
+    for stage in ("decode", "prefill"):
+        n = m.counter(f"serve.kernels.{stage}.composed").value
+        assert n >= 1
+        assert n == rm.counter(f"serve.kernels.{stage}.composed").value
+        assert m.counter(f"serve.kernels.{stage}.fused").value == 0
+    assert n == port.engine.prefill_calls
+
+
 def test_seeded_sampling_replays_within_the_port():
     """Temperature sampling draws from a generator seeded by (request
     seed, position): two runs give the same tokens, and so does a run
@@ -177,9 +216,8 @@ def test_typed_errors_name_what_is_missing():
     with pytest.raises(ServePlanError, match="HyperMem"):
         HyperServe(cfg, params, device="cpu",
                    serve_cfg=ServeConfig(archive_host_bytes=1 << 20))
-    with pytest.raises(NotImplementedError, match="composed"):
-        HyperServe(cfg, params, device="cpu",
-                   serve_cfg=ServeConfig(kernels="composed"))
+    assert HyperServe(cfg, params, device="cpu", serve_cfg=ServeConfig(
+        kernels="composed")).engine.kernel_path == "composed"
     with pytest.raises(ServePlanError, match="num_blocks"):
         HyperServe(cfg, params, device="cpu",
                    serve_cfg=ServeConfig(num_blocks=1))
