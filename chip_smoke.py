@@ -6,7 +6,7 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
    1. device   — card name and power limit (nvidia-smi), torch/CUDA versions;
-   2. build    — nvcc builds the four CUDA kernels from ``src/repro_torch``,
+   2. build    — nvcc builds the six CUDA kernels from ``src/repro_torch``,
                  one process per source, all started together;
    3. kernels  — each kernel against its plain PyTorch version on the card,
                  bf16 and f32, with and without a window, at the shapes the
@@ -19,9 +19,17 @@ Phases, in order; any failure raises and the script exits non-zero:
                  1025..1087), at phase 10's (8 seats over 1024 gathered
                  keys, one seat empty) and, as extra coverage, at B=16 over
                  1600 entries with lengths 100..1564; the dense kernels also
-                 at llama3-8b's H=32, KV=8, D=128.  Each kernel is timed in
-                 bf16 at its main-path shape beside its plain version, an
-                 SDPA yardstick and its bound;
+                 at llama3-8b's H=32, KV=8, D=128; and deepseek-v2-lite's
+                 kernels at phase 12's shapes: the grouped matmul at a decode
+                 step's 16 x 6 = 96 rows (some experts empty) and a prefill
+                 call's 4 x 256 x 6 = 6144, for the w_gate/w_up (2048 ->
+                 1408) and w_down (1408 -> 2048) stacks and with every row
+                 in one expert; the MLA decode at 16 seats, block 16,
+                 lengths 100..1532; flash at (Dk, Dv) = (192, 128) with
+                 per-row offsets over 96 x 16 gathered keys.  Each kernel is
+                 timed in bf16 at its main-path shape beside its plain
+                 version, a library yardstick (SDPA; torch._grouped_mm) and
+                 its bound;
    4. serve    — qwen2-0.5b at full width (24 layers, random weights from a
                  seed) in bf16 through HyperServe continuous batching; the
                  fused kernels must launch 24 times per decode step /
@@ -47,8 +55,22 @@ Phases, in order; any failure raises and the script exits non-zero:
                  launch;
   11. preempt  — a pool smaller than the working set preempts, spills and
                  restores, with tokens identical to an ample pool;
-  12. result   — the nvidia-smi line, the kernel JSON line, and
-                 ``{"ok": true, "device": {...}}`` as the last line.
+  12. moe serve — deepseek-v2-lite-16b (MLA + MoE, 27 layers, 64 routed
+                 experts top-6, random weights from a seed) at full width
+                 in bf16 through HyperServe: 16 requests of 100-1500 prompt
+                 tokens, 32 new each; exactly 27 paged_mla_decode_attention
+                 and 78 grouped_matmul launches per decode step, 27
+                 flash_attention and 78 grouped_matmul per prefill call;
+  13. moe profile — torch.profiler over one prefill call and 8 decode steps
+                 of that server;
+  14. moe identity — deepseek-v2-lite at full width, 4 layers, float32:
+                 HyperServe greedy tokens identical with the kernels, the
+                 plain versions and the composed lowering, and to the
+                 Generator's; then phase 11 on it;
+  15. result   — the nvidia-smi line, the kernel JSON line (six kernels;
+                 flash has a row for each run it is on: phase 6's (64, 64)
+                 and phase 12's (192, 128), each with that run's launches),
+                 and ``{"ok": true, "device": {...}}`` as the last line.
 
 Each phase prints its wall seconds.  It needs one CUDA device and exits non-zero without one.
 """
@@ -91,8 +113,28 @@ F32_TOL = 2e-5         # float32: the same sums in another order
 # plain version's float32 result on the same inputs; BF16_ABS covers the
 # float32 differences (<= 1.1e-6 measured) where a step is smaller.
 BF16_ABS = 4e-6
+# the grouped matmul sums over D = 2048 (1408): its float32 sums differ from
+# cuBLAS's by up to 1.335e-5 (this script's f32 parity on an H100 80GB
+# HBM3 at 700 W), so its bf16 slack is the f32 limit
+GM_ABS = F32_TOL
+# the MLA decode kernel returns float32 from bfloat16 inputs; kernel and
+# plain version both compute in float32
+MLA_BF16_TOL = 1e-4
 REPEATS = 30
 PREEMPT_BLOCKS = 32
+# deepseek-v2-lite-16b (MLA + MoE) served at full width in bf16: DS_REQUESTS
+# prompts of DS_PROMPT tokens, DS_NEW greedy tokens each, through the
+# serving shapes above (DEC_B seats, PRE_P x PRE_C prefill calls); the
+# table covers the longest request
+DS_ARCH = "deepseek-v2-lite-16b"
+DS_REQUESTS, DS_NEW = 16, 32
+DS_PROMPT = (100, 1500)
+DS_TABLE_W = -(-(DS_PROMPT[1] + DS_NEW) // BS)        # 96 blocks
+DS_NUM_BLOCKS = 2048
+DS_ROW_OFFSETS = (0, 256, 768, 1280)   # its flash_rows prefill: whole chunks
+# the float32 identity runs of deepseek-v2-lite: full width, cut depth (one
+# dense layer and three MoE layers, about 9 GB)
+DS_ID_LAYERS = 4
 
 
 def log(msg: str) -> None:
@@ -110,20 +152,22 @@ def sync(torch) -> None:
 def time_ms(fn, torch, repeats: int = REPEATS) -> float:
     """Median device time of ``fn()`` in ms over ``repeats`` launches, each
     with a cold L2 (a 128 MB buffer is rewritten before every launch, as a
-    serving step finds the previous layer's data evicted)."""
+    serving step finds the previous layer's data evicted).  The launches
+    are queued with no wait between them, so the host's own time (a
+    wrapper's checks, the launch call) falls while the card still works on
+    the queue and is not counted, unless ``fn`` itself waits for the card
+    (a plain version that reads sizes back)."""
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device="cuda")
     fn()                                            # warm up
-    times = []
-    for _ in range(repeats):
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(repeats)]
+    for t0, t1 in events:
         flush.zero_()
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
         fn()
         t1.record()
-        t1.synchronize()
-        times.append(t0.elapsed_time(t1))
-    times.sort()
+    events[-1][1].synchronize()
+    times = sorted(t0.elapsed_time(t1) for t0, t1 in events)
     return times[len(times) // 2]
 
 
@@ -136,16 +180,19 @@ def bf16_step(torch, x):
     return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
 
 
-def parity(torch, dtype_name, got, want, want32):
+def parity(torch, dtype_name, got, want, want32, slack=BF16_ABS):
     """(max abs error against the plain version, worst share of the
-    allowed error; <= 1 passes)."""
+    allowed error; <= 1 passes).  A float32 result from bfloat16 inputs
+    (the MLA decode kernel's) is held to MLA_BF16_TOL abs."""
     err = (got.float() - want.float()).abs()
     if dtype_name == "float32":
         return err.max().item(), err.max().item() / F32_TOL
+    if got.dtype == torch.float32:
+        return err.max().item(), err.max().item() / MLA_BF16_TOL
     step = bf16_step(torch, want)
-    share = err / (step + BF16_ABS)
+    share = err / (step + slack)
     err32 = (got.float() - want32).abs()
-    share32 = err32 / (0.5 * bf16_step(torch, want32) + BF16_ABS)
+    share32 = err32 / (0.5 * bf16_step(torch, want32) + slack)
     return err.max().item(), max(share.max().item(), share32.max().item())
 
 
@@ -262,6 +309,147 @@ def sdpa_flash(torch, q, k, v):
                                                   enable_gqa=True)
 
 
+def sdpa_flash_rows(torch, q, k, v, q_offset, scale):
+    """Yardstick: one SDPA call with a boolean mask for per-row offsets
+    (row b's query i sees the keys up to q_offset[b] + i; the transposes
+    and the mask are outside the call)."""
+    import torch.nn.functional as F
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    pos = q_offset[:, None] + torch.arange(q.shape[1], device=q.device)
+    mask = (torch.arange(k.shape[1], device=q.device)[None, None, :]
+            <= pos[:, :, None])[:, None]                   # (B, 1, Sq, Sk)
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                  scale=scale)
+
+
+def gm_inputs(torch, dtype, cfg, rows, d_in, d_out, seed, one_expert=False):
+    """``rows`` expert-sorted rows, an (E, d_in, d_out) expert stack at the
+    model's init scale and the group sizes: each of rows / top_k tokens
+    routed to top_k distinct experts drawn uniformly (at decode sizes some
+    experts get none), or every row in one expert."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    if one_expert:
+        sizes = torch.zeros(E, dtype=torch.int32, device=DEVICE)
+        sizes[E // 2] = rows
+    else:
+        picks = torch.rand(rows // k, E, generator=g, device=DEVICE).topk(
+            k, dim=-1).indices
+        sizes = torch.bincount(picks.reshape(-1), minlength=E).to(torch.int32)
+    scale = (2.0 / (cfg.d_model + cfg.moe.d_ff_expert)) ** 0.5
+    x = torch.randn(rows, d_in, generator=g, device=DEVICE)
+    w = torch.randn(E, d_in, d_out, generator=g, device=DEVICE) * scale
+    return x.to(dtype), w.to(dtype), sizes
+
+
+def mla_inputs(torch, dtype, cfg):
+    """The absorbed MLA decode of the deepseek serving run: DEC_B seats,
+    lengths of DS_PROMPT prompts plus up to DS_NEW tokens, block BS."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 6)
+    m, H = cfg.mla, cfg.num_heads
+    lengths = torch.randint(DS_PROMPT[0], DS_PROMPT[1] + DS_NEW + 1, (DEC_B,),
+                            generator=g)
+    perm = torch.randperm(DS_NUM_BLOCKS - 1, generator=g) + 1
+    tables = torch.zeros(DEC_B, DS_TABLE_W, dtype=torch.int32)
+    used = 0
+    for b in range(DEC_B):
+        n = -(-int(lengths[b]) // BS)
+        tables[b, :n] = perm[used:used + n]
+        used += n
+    R, r = m.kv_lora_rank, m.qk_rope_head_dim
+    arrays = [torch.randn(*s, generator=g) for s in
+              ((DEC_B, H, R), (DEC_B, H, r), (DS_NUM_BLOCKS, BS, R),
+               (DS_NUM_BLOCKS, BS, r))]
+    return ([a.to(DEVICE, dtype) for a in arrays]
+            + [tables.to(DEVICE), lengths.to(DEVICE, torch.int32)])
+
+
+def mla_scale(cfg) -> float:
+    return (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim) ** -0.5
+
+
+def flash_mla_inputs(torch, dtype, cfg):
+    """The deepseek prefill call's flash_rows: PRE_P rows of PRE_C queries
+    over DS_TABLE_W * BS gathered, decompressed keys, (Dk, Dv) = (nope +
+    rope, v_head_dim)."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 7)
+    m, H = cfg.mla, cfg.num_heads
+    dk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    S = DS_TABLE_W * BS
+    return tuple(torch.randn(*s, generator=g).to(DEVICE, dtype) for s in
+                 ((PRE_P, PRE_C, H, dk), (PRE_P, S, H, dk),
+                  (PRE_P, S, H, m.v_head_dim)))
+
+
+def grouped_mm_yardstick(torch, x, w, sizes):
+    """Yardstick: one torch._grouped_mm call where this torch has it (bf16),
+    else None."""
+    if not hasattr(torch, "_grouped_mm") or x.dtype != torch.bfloat16:
+        return None
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    return lambda: torch._grouped_mm(x, w, offs=offs)
+
+
+def sdpa_mla(torch, q_lat, q_rope, ckv_pool, krope_pool, tables, lengths,
+             scale):
+    """Yardstick: one SDPA call of the H heads over one shared key head,
+    the gathered latents with their rope dims concatenated, values the
+    latents, with a length mask (the gather and the concatenations are
+    outside the call)."""
+    import torch.nn.functional as F
+    B = q_lat.shape[0]
+    npg = -(-int(lengths.max()) // BS)
+    S = npg * BS
+    idx = tables[:, :npg].long()
+    ckv = ckv_pool[idx].reshape(B, 1, S, ckv_pool.shape[-1])
+    kr = krope_pool[idx].reshape(B, 1, S, krope_pool.shape[-1])
+    k = torch.cat([ckv, kr], dim=-1)
+    q = torch.cat([q_lat, q_rope], dim=-1)[:, :, None]      # (B, H, 1, R + r)
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(
+        q, k, ckv, attn_mask=mask, scale=scale, enable_gqa=True)
+
+
+def moe_mla_cases(torch, dtype):
+    """(kernel, case, window, wrapper, plain version, args, kwargs) for the
+    deepseek-v2-lite path's kernels at the shapes its runs give them: the
+    grouped matmul at a decode step's DEC_B x top_k rows and a prefill
+    call's PRE_P x PRE_C x top_k, for the w_gate/w_up and the w_down
+    shapes, and with every row in one expert; the MLA decode at the serving
+    run's seats; flash at its prefill's (Dk, Dv) and per-row offsets."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.grouped_matmul import (grouped_matmul,
+                                                    grouped_matmul_ref)
+    from repro_torch.kernels.paged_decode_attention import (
+        paged_mla_decode_attention, paged_mla_decode_attention_ref)
+    cfg = get_config(DS_ARCH)
+    D, F, k = cfg.d_model, cfg.moe.d_ff_expert, cfg.moe.top_k
+    dec, pre = DEC_B * k, PRE_P * PRE_C * k
+    cases = [("grouped_matmul", case, None, grouped_matmul,
+              grouped_matmul_ref,
+              gm_inputs(torch, dtype, cfg, rows, d_in, d_out, SEED + 10 + i,
+                        one), {})
+             for i, (case, rows, d_in, d_out, one) in enumerate((
+                 ("decode w_gate/w_up", dec, D, F, False),
+                 ("decode w_down", dec, F, D, False),
+                 ("prefill w_gate/w_up", pre, D, F, False),
+                 ("prefill w_down", pre, F, D, False),
+                 ("prefill, one expert", pre, D, F, True)))]
+    cases.append(("paged_mla_decode_attention", "serving", None,
+                  paged_mla_decode_attention, paged_mla_decode_attention_ref,
+                  mla_inputs(torch, dtype, cfg),
+                  dict(block_size=BS, scale=mla_scale(cfg))))
+    offsets = torch.tensor(DS_ROW_OFFSETS, dtype=torch.int32, device=DEVICE)
+    cases.append(("flash_attention", "MLA rows q_offset (192, 128)", None,
+                  flash_attention, flash_attention_ref,
+                  flash_mla_inputs(torch, dtype, cfg),
+                  dict(causal=True, q_offset=offsets, scale=mla_scale(cfg))))
+    return cases
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -284,7 +472,8 @@ def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build(["paged_decode_attention", "ragged_prefill_attention",
-                        "flash_attention", "decode_attention"])
+                        "flash_attention", "decode_attention",
+                        "paged_mla_decode_attention", "grouped_matmul"])
     log(f"[build] {time.perf_counter() - t0:.1f}s into {build.BUILD_DIR}")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -344,7 +533,6 @@ def kernel_cases(torch, dtype, heads, kv, dim):
 
 
 def phase_kernels(torch):
-    from repro_torch.kernels import perf_model as pm
     timed = {}
     for dtype_name in ("bfloat16", "float32"):
         dtype = getattr(torch, dtype_name)
@@ -375,13 +563,44 @@ def phase_kernels(torch):
                 if (dtype_name == "bfloat16" and dim == D and window is None
                         and (name, case) not in timed):
                     timed[(name, case)] = (fn, ref, args, kw, err)
+        # the deepseek-v2-lite path: grouped matmul (its bf16 slack covers
+        # the f32 sums' differences over D = 2048), MLA decode (f32 out),
+        # flash at (Dk, Dv) = (192, 128)
+        for name, case, window, fn, ref, args, kw in moe_mla_cases(
+                torch, dtype):
+            args32 = [t.float() if t.is_floating_point() else t
+                      for t in args]
+            got = fn(*args, **kw)
+            slack = GM_ABS if name == "grouped_matmul" else BF16_ABS
+            err, share = parity(torch, dtype_name, got, ref(*args, **kw),
+                                ref(*args32, **kw), slack)
+            sync(torch)
+            rule = (limit if dtype_name == "float32" else
+                    f"{MLA_BF16_TOL} abs (f32 out)" if got.dtype ==
+                    torch.float32 else
+                    limit.replace(f"+ {BF16_ABS}", f"+ {slack}"))
+            log(f"[kernels] {name} ({case}) {dtype_name}: max_abs_err="
+                f"{err:.3e} ({share:.3f} of allowed) (limit: {rule})")
+            if not share <= 1:
+                raise AssertionError(f"kernel parity failed: {name} {case} "
+                                     f"{dtype_name}")
+            if dtype_name == "bfloat16":
+                timed[(name, case)] = (fn, ref, args, kw, err)
 
+    return time_kernels(torch, timed)
+
+
+def time_kernels(torch, timed):
+    """Timing at the main path's dtype (bf16), no window, of the cases in
+    ``timed``; the bound counts the work this run's inputs need (visible
+    keys and pairs, live experts); for the paged kernels the reference's
+    pages-visited model is printed beside it.  Returns the kernel JSON
+    rows (none off the card), each with the ``path`` (qwen2-0.5b or
+    deepseek-v2-lite-16b) whose run its launches are read from; flash has
+    a row on each, at the shape that run gives it."""
+    from repro_torch.kernels import perf_model as pm
     if DEVICE != "cuda":
         return []
-
-    # timing at the main path's dtype (bf16), no window; the bound counts
-    # the work this run's inputs need (visible keys and pairs); for the
-    # paged kernels the reference's pages-visited model is printed beside it
     shape = dict(num_heads=H, kv_heads=KV, head_dim=D, itemsize=2)
     dec = timed[("paged_decode_attention", "serving")][2]
     pre = timed[("ragged_prefill_attention", "serving")][2]
@@ -426,8 +645,10 @@ def phase_kernels(torch):
         ("decode_attention", "composed",
          pm.decode_visible_cost(cdec[3].tolist(), **shape),
          None, None, None))
+    table = (tuple(t + ("qwen2-0.5b",) for t in table)
+             + tuple(t + (DS_ARCH,) for t in moe_mla_table(torch, pm, timed)))
     out = []
-    for name, case, cost, lib, lib_what, replaces in table:
+    for name, case, cost, lib, lib_what, replaces, path in table:
         fn, ref, args, kw, err = timed[(name, case)]
         ms = time_ms(lambda: fn(*args, **kw), torch)
         plain_ms = time_ms(lambda: ref(*args, **kw), torch)
@@ -439,20 +660,76 @@ def phase_kernels(torch):
                f"visible work {cost.flops:.4g} flop, {cost.hbm_bytes:.4g} B)")
         if lib is not None:
             msg += f", {lib_what} {library_ms:.4f} ms"
+        elif lib_what is not None:
+            msg += f", {lib_what}"
         if name in pages:
             pc = pages[name]
             msg += (f"; the reference's pages-visited model: {pc.flops:.4g} "
                     f"flop, {pc.hbm_bytes:.4g} B, "
                     f"{pc.bound_seconds('bfloat16') * 1e3:.5f} ms")
         log(msg)
-        if replaces is None:          # the composed cases: logged only
+        if replaces is None:          # logged only
             continue
-        out.append({"name": name, "route": "cuda",
+        out.append({"name": ROW_NAMES.get((name, case), name),
+                    "route": "cuda",
                     "source": f"src/repro_torch/kernels/csrc/{name}.cu",
                     "replaces": replaces, "launches": 0, "max_abs_err": err,
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "library_ms": library_ms})
+                    "bound_by": bound_by, "library_ms": library_ms,
+                    "path": path})
     return out
+
+
+# JSON row names where a kernel has a second row
+ROW_NAMES = {("flash_attention", "MLA rows q_offset (192, 128)"):
+             "flash_attention_dk192_dv128"}
+
+
+def moe_mla_table(torch, pm, timed):
+    """Timing rows of the deepseek-v2-lite path's kernels, a tuple of
+    (kernel, case, visible-work cost, yardstick, what it is, TPU kernel
+    replaced or None for a row that is logged only)."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(DS_ARCH)
+    m, H = cfg.mla, cfg.num_heads
+    rows = []
+    for case in ("decode w_gate/w_up", "decode w_down", "prefill w_gate/w_up",
+                 "prefill w_down"):
+        x, w, sizes = timed[("grouped_matmul", case)][2]
+        lib = grouped_mm_yardstick(torch, x, w, sizes)
+        rows.append((
+            "grouped_matmul", case,
+            pm.grouped_matmul_cost(sizes.tolist(), d_in=w.shape[1],
+                                   d_out=w.shape[2], itemsize=2),
+            lib, "torch._grouped_mm" if lib is not None else
+            "library call: none (this torch has no torch._grouped_mm)",
+            "src/repro/kernels/grouped_matmul.py:58"
+            if case == "decode w_gate/w_up" else None))
+    mla = timed[("paged_mla_decode_attention", "serving")][2]
+    rows.append((
+        "paged_mla_decode_attention", "serving",
+        pm.paged_mla_decode_cost(mla[5].tolist(), num_heads=H,
+                                 kv_lora_rank=m.kv_lora_rank,
+                                 rope_dim=m.qk_rope_head_dim, itemsize=2),
+        sdpa_mla(torch, *mla, mla_scale(cfg)),
+        "SDPA on pre-gathered latents + rope dims, one shared key head "
+        "(gather excluded)",
+        "src/repro/kernels/paged_decode_attention.py:189"))
+    # every row live and whole, so the mean head dim (Dk + Dv) / 2 gives
+    # the exact visible work of (Dk, Dv) = (192, 128)
+    dk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    fl = timed[("flash_attention", "MLA rows q_offset (192, 128)")]
+    rows.append((
+        "flash_attention", "MLA rows q_offset (192, 128)",
+        pm.prefill_visible_cost(DS_ROW_OFFSETS,
+                                [o + PRE_C for o in DS_ROW_OFFSETS], PRE_C,
+                                num_heads=H, kv_heads=H,
+                                head_dim=(dk + m.v_head_dim) // 2,
+                                itemsize=2),
+        sdpa_flash_rows(torch, *fl[2], fl[3]["q_offset"], fl[3]["scale"]),
+        "SDPA with a per-row offset mask (transposes excluded)",
+        "src/repro/kernels/flash_attention.py:87"))
+    return tuple(rows)
 
 
 def make_prompts(rng, n, lo, hi, vocab):
@@ -557,14 +834,14 @@ def report_profile(tag, windows):
             raise AssertionError("the profiler saw no device time")
 
 
-def phase_profile(torch, serve, prompts):
+def phase_profile(torch, serve, prompts, max_new=64, tag="profile"):
     """Where a step's time goes: torch.profiler over one prefill call (the
     first step of a fresh batch) and over steady decode steps, device time
     by kernel against the step's wall time."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     for p in prompts:
-        serve.submit(p, 64)
+        serve.submit(p, max_new)
     windows = []
     with profile(activities=acts) as prof:
         sync(torch)
@@ -583,7 +860,7 @@ def phase_profile(torch, serve, prompts):
             serve.step_once()
         sync(torch)
         windows.append(("decode step", prof, time.perf_counter() - t0, n))
-    report_profile("profile", windows)
+    report_profile(tag, windows)
     serve.join()
 
 
@@ -790,7 +1067,7 @@ def phase_composed(torch, cfg, params, prompts, fused, scfg):
                              f"match {n} x (steps={steps}, calls={calls})")
 
 
-def phase_preempt(torch, np, cfg, params):
+def phase_preempt(torch, np, cfg, params, tag="preempt"):
     from repro_torch.configs.base import ServeConfig
     from repro_torch.serve.api import HyperServe
     prompts = make_prompts(np.random.default_rng(SEED + 3), 4, 180, 220,
@@ -806,13 +1083,170 @@ def phase_preempt(torch, np, cfg, params):
     m = tight.engine.obs.metrics
     spills, restores = (int(m.counter("serve.spills").value),
                         int(m.counter("serve.restores").value))
-    log(f"[preempt] pool {PREEMPT_BLOCKS - 1} blocks for a working set of "
+    log(f"[{tag}] pool {PREEMPT_BLOCKS - 1} blocks for a working set of "
         f"{sum(-(-(len(p) + 64) // BS) for p in prompts)}: preemptions="
         f"{st['preemptions']} spills={spills} restores={restores} "
         f"prefetch hits={st['prefetch_hits']}, tokens identical to the "
         f"ample pool: {got == ample}")
     if st["preemptions"] < 1 or spills < 1 or restores < 1 or got != ample:
         raise AssertionError("preemption phase failed")
+
+
+def phase_moe_serve(torch, np):
+    """deepseek-v2-lite-16b (MLA + MoE) at full width in bf16 through
+    HyperServe, fused: one paged_mla_decode_attention per layer and decode
+    step, one flash_attention per layer and prefill call (MLA prefill is
+    composed), three grouped_matmul per MoE layer and step or call."""
+    from repro_torch.configs.base import MOE_FFN, ServeConfig, get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.grouped_matmul import grouped_matmul
+    from repro_torch.kernels.paged_decode_attention import \
+        paged_mla_decode_attention
+    from repro_torch.models import model as M
+    from repro_torch.serve.api import HyperServe
+    cfg = get_config(DS_ARCH)
+    t0 = time.perf_counter()
+    params = M.init_model(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED))
+    sync(torch)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"[moe serve] {DS_ARCH} bf16 full width: {n_params / 1e9:.3f} B "
+        f"params drawn in {time.perf_counter() - t0:.1f}s")
+    scfg = ServeConfig(block_size=BS, num_blocks=DS_NUM_BLOCKS,
+                       max_blocks_per_req=DS_TABLE_W, max_slots=DEC_B,
+                       prefill_chunk=PRE_C, prefill_batch=PRE_P)
+    serve = HyperServe(cfg, params, serve_cfg=scfg, device=DEVICE)
+    rng = np.random.default_rng(SEED + 8)
+    serve_all(serve, make_prompts(rng, 2, 50, 60, cfg.vocab_size), 4)  # warm
+    prompts = make_prompts(rng, DS_REQUESTS, *DS_PROMPT, cfg.vocab_size)
+    eng = serve.engine
+    m = eng.obs.metrics
+    before = {k: m.counter(k).value for k in
+              ("serve.kernels.decode.fused", "serve.prefill_calls",
+               "serve.prefill_chunks", "serve.preemptions")}
+    itl0 = m.histogram("serve.itl_s").sum
+    tokens0 = eng.tokens_generated
+    kernels = (paged_mla_decode_attention, flash_attention, grouped_matmul)
+    # the main path's run: every launch count starts at 0 here
+    for k in kernels:
+        k.launches = 0
+    sync(torch)
+    t0 = time.perf_counter()
+    outs, rids = serve_all(serve, prompts, DS_NEW)
+    sync(torch)
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    d = {k: m.counter(k).value - v for k, v in before.items()}
+    steps, calls = int(d["serve.kernels.decode.fused"]), \
+        int(d["serve.prefill_calls"])
+    tokens = eng.tokens_generated - tokens0
+    decode_s = m.histogram("serve.itl_s").sum - itl0
+    decode_tokens = tokens - len(prompts)
+    ttfts = sorted(serve.request_meta(r)["ttft_s"] for r in rids)
+    finished = sum(serve.state(r) == "finished" for r in rids)
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if DEVICE == "cuda"
+            else 0.0)
+    log(f"[moe serve] {finished}/{len(prompts)} requests finished, {tokens} "
+        f"tokens in {wall:.3f}s ({tokens / wall:.1f} tok/s overall), decode "
+        f"{decode_tokens} tokens in {steps} steps, {decode_s:.3f}s "
+        f"({decode_tokens / decode_s:.1f} decode tok/s, "
+        f"{decode_s / steps * 1e3:.1f} ms a step), median TTFT "
+        f"{ttfts[len(ttfts) // 2]:.3f}s (all submitted at t=0), "
+        f"prefill_calls={calls} prefill_chunks="
+        f"{int(d['serve.prefill_chunks'])}, preemptions="
+        f"{int(d['serve.preemptions'])}, peak device memory {peak:.1f} GiB")
+    n = cfg.num_layers
+    moe = sum(f == MOE_FFN for _, f in cfg.block_kinds())
+    want = {"paged_mla_decode_attention": n * steps,
+            "flash_attention": n * calls,
+            "grouped_matmul": 3 * moe * (steps + calls)}
+    log(f"[moe serve] launches {launches}; expected MLA decode {n} x {steps}"
+        f", flash {n} x {calls}, grouped matmul 3 x {moe} x ({steps} + "
+        f"{calls}) = {want['grouped_matmul']} ({3 * moe} per decode step "
+        f"and per prefill call)")
+    if finished != len(prompts) or any(len(o) != DS_NEW for o in outs):
+        raise AssertionError(f"not every request finished with {DS_NEW} "
+                             "tokens")
+    if launches != want or steps == 0 or calls == 0:
+        raise AssertionError(f"launch counts {launches} do not match {want}")
+    return launches, serve, prompts
+
+
+def phase_moe_identity(torch, np):
+    """deepseek-v2-lite-16b in float32 at full width, DS_ID_LAYERS layers:
+    HyperServe greedy tokens identical with the kernels and with the plain
+    versions, fused and composed (no MLA decode kernel launched, flash and
+    the grouped matmul still), and the Generator's; then through a
+    preemption."""
+    from repro_torch.configs.base import MOE_FFN, ServeConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.grouped_matmul import grouped_matmul
+    from repro_torch.kernels.paged_decode_attention import \
+        paged_mla_decode_attention
+    from repro_torch.models import model as M
+    from repro_torch.serve.api import HyperServe
+    from repro_torch.serve.engine import GenerateConfig, Generator
+    cfg = dataclasses.replace(get_config(DS_ARCH), dtype="float32",
+                              num_layers=DS_ID_LAYERS)
+    params = M.init_model(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED))
+    scfg = ServeConfig(block_size=BS, num_blocks=512,
+                       max_blocks_per_req=ID_TABLE_W, max_slots=ID_SLOTS,
+                       prefill_chunk=PRE_C, prefill_batch=PRE_P)
+    prompts = make_prompts(np.random.default_rng(SEED + 9), 6, 100,
+                           ID_PROMPT_MAX, cfg.vocab_size)
+    kernels = (paged_mla_decode_attention, flash_attention, grouped_matmul)
+    runs, counts = {}, {}
+    for name, mode, path in (("fused", "auto", "fused"),
+                             ("plain", "ref", "fused"),
+                             ("composed", "auto", "composed")):
+        for k in kernels:
+            k.launches = 0
+        ops.set_mode(mode)
+        try:
+            serve = HyperServe(cfg, params, device=DEVICE,
+                               serve_cfg=dataclasses.replace(scfg,
+                                                             kernels=path))
+            runs[name], _ = serve_all(serve, prompts, ID_NEW)
+        finally:
+            ops.set_mode("auto")
+        sync(torch)
+        m = serve.engine.obs.metrics
+        counts[name] = ({k.__name__: k.launches for k in kernels},
+                        int(m.counter(f"serve.kernels.decode.{path}").value),
+                        int(m.counter(f"serve.kernels.prefill.{path}").value))
+    gen = Generator(cfg, params, max_len=ID_PROMPT_MAX + ID_NEW + 8,
+                    device=DEVICE)
+    runs["Generator"] = [gen.generate(
+        torch.tensor([p], device=DEVICE), GenerateConfig(
+            max_new_tokens=ID_NEW))[0, len(p):].tolist() for p in prompts]
+    n = cfg.num_layers
+    moe = sum(f == MOE_FFN for _, f in cfg.block_kinds())
+    for name, want_mla in (("fused", True), ("composed", False)):
+        got, steps, calls = counts[name]
+        want = {"paged_mla_decode_attention": n * steps if want_mla else 0,
+                "flash_attention": n * calls,
+                "grouped_matmul": 3 * moe * (steps + calls)}
+        log(f"[moe identity] {name}: launches {got}, expected {want} "
+            f"({steps} decode steps, {calls} prefill calls)")
+        if got != want or not steps or not calls:
+            raise AssertionError(f"{name} launch counts {got} != {want}")
+    if counts["plain"][0] != {k.__name__: 0 for k in kernels}:
+        raise AssertionError(f"the plain run launched {counts['plain'][0]}")
+    same = {name: runs[name] == runs["fused"] for name in runs}
+    log(f"[moe identity] f32 {DS_ARCH} at full width, {n} layers ({moe} "
+        f"MoE): {len(prompts)} requests x {ID_NEW} tokens, greedy tokens "
+        f"identical to the fused kernels' run: {same}")
+    for name, ok in same.items():
+        if not ok:
+            a, b = runs["fused"], runs[name]
+            i = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            j = next(j for j, (x, y) in enumerate(zip(a[i], b[i])) if x != y)
+            raise AssertionError(f"{name}: request {i} diverges at token {j}"
+                                 f": fused {a[i][j]} vs {b[i][j]}")
+    phase_preempt(torch, np, cfg, params, tag="moe preempt")
 
 
 def timed(name, fn, *args):
@@ -837,14 +1271,24 @@ def main() -> int:
     timed("dense profile", phase_dense_profile, torch, gen, gen_prompts)
     del gen
     launches.update(dense_launches)
-    for row in rows:
-        row["launches"] = launches[row["name"]]
     cfg32, params32, id_prompts, fused, scfg = timed(
         "identity", phase_identity, torch, np)
     timed("dense identity", phase_dense_identity, torch, np, cfg32, params32)
     timed("composed", phase_composed, torch, cfg32, params32, id_prompts,
           fused, scfg)
     timed("preempt", phase_preempt, torch, np, cfg32, params32)
+    del params32
+    moe_launches, serve, ds_prompts = timed("moe serve", phase_moe_serve,
+                                            torch, np)
+    timed("moe profile", phase_profile, torch, serve, ds_prompts, DS_NEW,
+          "moe profile")
+    del serve
+    torch.cuda.empty_cache()
+    runs = {"qwen2-0.5b": launches, DS_ARCH: moe_launches}
+    for row in rows:
+        row["launches"] = runs[row["path"]][
+            os.path.basename(row["source"])[:-len(".cu")]]
+    timed("moe identity", phase_moe_identity, torch, np)
     log(f"[time] all phases: {time.perf_counter() - t0:.1f}s")
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -263,12 +263,9 @@ class ArchNotPortedError(KeyError):
 
 # reference architectures whose families arrive in later slices
 NOT_YET_PORTED = {
-    "deepseek-moe-16b": "MoE FFN",
-    "deepseek-v2-lite-16b": "MLA mixer and MoE FFN",
     "granite-3-2b": "its config module",
     "internvl2-26b": "the vision frontend",
     "mamba2-370m": "SSD mixer",
-    "moonshot-v1-16b-a3b": "MoE FFN",
     "musicgen-large": "the audio frontend",
     "phi4-mini-3.8b": "its config module",
     "recurrentgemma-2b": "RG-LRU and LOCAL_ATTN mixers",
@@ -303,4 +300,6 @@ def list_archs() -> Tuple[str, ...]:
 
 def _load_all() -> None:
     # import every module in this package so configs self-register
-    from repro_torch.configs import llama3_8b, qwen2_0_5b  # noqa: F401
+    from repro_torch.configs import (deepseek_moe_16b,  # noqa: F401
+                                     deepseek_v2_lite_16b, llama3_8b,
+                                     moonshot_v1_16b_a3b, qwen2_0_5b)

@@ -9,7 +9,7 @@ import torch
 
 NEG_INF = -1e30                                      # masked score
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # REPRO_F32, REPRO_BF16
-HEAD_DIMS = (64, 128)                                # instantiated head dims
+SAME_DIMS = ((64, 64), (128, 128))                   # (Dk, Dv) built
 
 
 def refuse_grad(name: str, *tensors) -> None:
@@ -23,20 +23,23 @@ def refuse_grad(name: str, *tensors) -> None:
                            "run under torch.no_grad()")
 
 
-def attention_problems(q, k, v, *, gmax=None, vector_loads=False):
-    """What the kernels cannot take in q (..., H, D) and k/v (..., KV, D):
-    the dtypes, the head dims, the head grouping (at most ``gmax`` query
-    heads per kv head), contiguous k and v, and, for kernels that read k
-    and v with 16-byte vector loads, their alignment.  Returns the list of
-    problems, empty when the kernels take them."""
+def attention_problems(q, k, v, *, gmax=None, vector_loads=False,
+                       pairs=SAME_DIMS):
+    """What the kernels cannot take in q (..., H, Dk), k (..., KV, Dk) and
+    v (..., KV, Dv): the dtypes, the (Dk, Dv) pair (one of ``pairs``), the
+    head grouping (at most ``gmax`` query heads per kv head), contiguous k
+    and v, and, for kernels that read k and v with 16-byte vector loads,
+    their alignment.  Returns the list of problems, empty when the kernels
+    take them."""
     H, D, KV = q.shape[-2], q.shape[-1], k.shape[-2]
     problems = []
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         problems.append(f"dtypes q={q.dtype} k={k.dtype} v={v.dtype}: need "
                         "one of float32/bfloat16")
-    if D not in HEAD_DIMS or k.shape[-1] != D or v.shape[-1] != D:
+    dims = (D, v.shape[-1])
+    if dims not in pairs or k.shape[-1] != D:
         problems.append(f"head dims q {D}, k {k.shape[-1]}, v {v.shape[-1]}: "
-                        f"kernel built for {HEAD_DIMS} with Dk == Dv")
+                        f"kernel built for (Dk, Dv) in {pairs}")
     if H % KV or (gmax is not None and H // KV > gmax):
         limit = f" and H/KV <= {gmax}" if gmax is not None else ""
         problems.append(f"H={H}, KV={KV}: need H % KV == 0{limit}")

@@ -1,8 +1,8 @@
-// Shared device code of the hand-written attention kernels.
+// Shared device code of the hand-written kernels.
 //
-// Two block bodies carry all four kernels, each parameterised by how a
-// key's address is found (an "address" functor: key position -> element
-// offset of that key's D values for the block's kv head):
+// Three block bodies carry the four GQA attention kernels, each
+// parameterised by how a key's address is found (an "address" functor: key
+// position -> element offset of that key's values for the block's kv head):
 //
 //   decode_block   one query token per row, G query heads per kv head:
 //                  paged_decode_attention.cu (block table) and
@@ -14,9 +14,12 @@
 //                  flash_attention.cu in bf16 (the ragged prefill takes it
 //                  with one template change, measured on its own).
 //
-// A kernel file resolves its block's row, bounds and address functor and
-// calls one of them, so a faster body (tensor-core tiles, split-K) lifts
-// each of its kernels at once.
+// The prefill bodies take separate key and value widths (DK, DV) and
+// address functors, for MLA's decompressed heads.  A kernel file resolves
+// its block's row, bounds and address functors and calls one of them, so a
+// faster body (tensor-core tiles, split-K) lifts each of its kernels at
+// once.  The mma.sync and cp.async helpers below also serve
+// grouped_matmul.cu and paged_mla_decode_attention.cu.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -342,44 +345,46 @@ __device__ __forceinline__ void decode_block(
 // tile's bounds: the causal bound start + c_max (all k_max keys when not
 // causal) and, windowed, the window bound start + c_min - window + 1, so
 // keys beyond causal reach or wholly below the window are never read.
-// Each key tile is staged in shared memory (addresses from the functor)
+// Each key tile is staged in shared memory (addresses from the functors)
 // and every thread folds the keys it may see (kp <= qp unless not causal,
 // and qp - kp < window; qp = start + c) into its online softmax in f32.
 // All threads of a warp read the same shared key at once (a broadcast), so
-// staging is the only shared-memory traffic that can conflict.
+// staging is the only shared-memory traffic that can conflict.  Keys have
+// DK values and values DV (MLA's decompressed heads: DK = DV + rope dims);
+// kaddr and vaddr find a key's K and V rows.
 
 constexpr int PRE_THREADS = 128;   // query rows per block
 
-template <int D>
+template <int DK, int DV>
 __host__ __device__ constexpr int pre_key_tile() {   // keys per staged tile
-    return 4096 / D;
+    return 8192 / (DK + DV);
 }
 
-template <int D>
+template <int DK, int DV>
 __host__ __device__ constexpr size_t pre_smem_bytes() {
-    return sizeof(float) * 2 * pre_key_tile<D>() * D;
+    return sizeof(float) * pre_key_tile<DK, DV>() * (DK + DV);
 }
 
-// q_rows / out_rows: this row's (C, H, D) queries and outputs; k_src /
-// v_src: the whole K and V arrays, indexed by addr over [0, k_max).
-// smem: pre_smem_bytes<D>() of dynamic shared memory.  Call with
-// PRE_THREADS threads.
-template <typename T, int D, typename Addr>
+// q_rows / out_rows: this row's (C, H, DK) queries and (C, H, DV) outputs;
+// k_src / v_src: the whole K and V arrays, indexed by kaddr / vaddr over
+// [0, k_max).  smem: pre_smem_bytes<DK, DV>() of dynamic shared memory.
+// Call with PRE_THREADS threads.
+template <typename T, int DK, int DV, typename KAddr, typename VAddr>
 __device__ __forceinline__ void prefill_block(
     const T* __restrict__ q_rows, const T* __restrict__ k_src,
     const T* __restrict__ v_src, T* __restrict__ out_rows, int C, int H,
     int G, int h, int r0, int start, int k_max, bool causal, int window,
-    float scale, const Addr& addr, float* smem) {
-    constexpr int KT = pre_key_tile<D>();
+    float scale, const KAddr& kaddr, const VAddr& vaddr, float* smem) {
+    constexpr int KT = pre_key_tile<DK, DV>();
     const int rows = C * G;
     const int r = r0 + threadIdx.x;
     const bool active = r < rows;
     const int c = active ? r / G : 0;
     const int g = active ? r % G : 0;
-    const size_t o = ((size_t)c * H + h * G + g) * D;
+    const size_t head = (size_t)c * H + h * G + g;
 
-    float* k_s = smem;                 // KT * D
-    float* v_s = k_s + KT * D;         // KT * D
+    float* k_s = smem;                 // KT * DK
+    float* v_s = k_s + KT * DK;        // KT * DV
 
     const int qp = start + c;
     const int c_lo = r0 / G;
@@ -387,22 +392,29 @@ __device__ __forceinline__ void prefill_block(
     const int k_hi = causal ? min(k_max, start + c_hi + 1) : k_max;
     const int k_lo = window > 0 ? max(0, start + c_lo - window + 1) : 0;
 
-    float qr[D], acc[D];
+    float qr[DK], acc[DV];
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-        qr[d] = active ? to_f(q_rows[o + d]) * scale : 0.f;
-        acc[d] = 0.f;
-    }
+    for (int d = 0; d < DK; ++d)
+        qr[d] = active ? to_f(q_rows[head * DK + d]) * scale : 0.f;
+#pragma unroll
+    for (int d = 0; d < DV; ++d) acc[d] = 0.f;
     float m = REPRO_NEG_INF, l = 0.f;
 
     for (int t0 = k_lo; t0 < k_hi; t0 += KT) {
         const int n = min(KT, k_hi - t0);
         __syncthreads();               // previous tile fully consumed
-        for (int e = threadIdx.x; e < n * D; e += PRE_THREADS) {
-            const int i = e / D, d = e % D;
-            const size_t src = addr(t0 + i) + d;
-            k_s[e] = to_f(k_src[src]);
-            v_s[e] = to_f(v_src[src]);
+        if constexpr (DK == DV) {
+            for (int e = threadIdx.x; e < n * DK; e += PRE_THREADS) {
+                const int i = e / DK, d = e % DK;
+                const size_t src = kaddr(t0 + i) + d;
+                k_s[e] = to_f(k_src[src]);
+                v_s[e] = to_f(v_src[src]);
+            }
+        } else {
+            for (int e = threadIdx.x; e < n * DK; e += PRE_THREADS)
+                k_s[e] = to_f(k_src[kaddr(t0 + e / DK) + e % DK]);
+            for (int e = threadIdx.x; e < n * DV; e += PRE_THREADS)
+                v_s[e] = to_f(v_src[vaddr(t0 + e / DV) + e % DV]);
         }
         __syncthreads();
         if (!active) continue;
@@ -410,28 +422,29 @@ __device__ __forceinline__ void prefill_block(
             const int kp = t0 + i;
             if ((causal && kp > qp) || (window > 0 && qp - kp >= window))
                 continue;
-            const float* kr = k_s + i * D;
+            const float* kr = k_s + i * DK;
             float s = 0.f;
 #pragma unroll
-            for (int d = 0; d < D; ++d) s += qr[d] * kr[d];
+            for (int d = 0; d < DK; ++d) s += qr[d] * kr[d];
             if (s > m) {               // new running max: rescale once
                 const float corr = expf(m - s);
                 l *= corr;
 #pragma unroll
-                for (int d = 0; d < D; ++d) acc[d] *= corr;
+                for (int d = 0; d < DV; ++d) acc[d] *= corr;
                 m = s;
             }
             const float pe = expf(s - m);
             l += pe;
-            const float* vr = v_s + i * D;
+            const float* vr = v_s + i * DV;
 #pragma unroll
-            for (int d = 0; d < D; ++d) acc[d] += pe * vr[d];
+            for (int d = 0; d < DV; ++d) acc[d] += pe * vr[d];
         }
     }
     if (active) {
         const float inv = 1.f / fmaxf(l, REPRO_L_FLOOR);
 #pragma unroll
-        for (int d = 0; d < D; ++d) out_rows[o + d] = from_f<T>(acc[d] * inv);
+        for (int d = 0; d < DV; ++d)
+            out_rows[head * DV + d] = from_f<T>(acc[d] * inv);
     }
 }
 
@@ -460,9 +473,9 @@ constexpr int MMA_THREADS = MMA_WARPS * 32;
 constexpr int MMA_ROWS = MMA_WARPS * 16;   // query rows per block
 constexpr int MMA_KT = 64;                 // keys per staged tile
 
-template <int D>
+template <int DK, int DV>
 __host__ __device__ constexpr size_t mma_smem_bytes() {
-    return 2 * MMA_KT * (D + 8) * sizeof(__nv_bfloat16);
+    return MMA_KT * ((DK + 8) + (DV + 8)) * sizeof(__nv_bfloat16);
 }
 
 // c += a b for one m16n8k16 tile: a 16x16 bf16 (row), b 16x8 bf16 (col).
@@ -494,24 +507,69 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
     return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// Arguments as prefill_block's; smem: mma_smem_bytes<D>() bytes, 16-byte
-// aligned; k_src / v_src 16-byte aligned.  Call with MMA_THREADS threads,
-// r0 a multiple of MMA_ROWS.
-template <int D, typename Addr>
+// Four 8x8 bf16 matrices from shared memory (ldmatrix): lane l gives the
+// 16-byte row address of row l % 8 of matrix l / 8, and receives element
+// pair (row lane / 4, columns 2 (lane % 4), +1) of each matrix, or with
+// ``trans`` the pair (rows 2 (lane % 4), +1; column lane / 4): the mma.sync
+// A fragment of a row-major tile, and the B fragment of a row-major (k, n)
+// tile.
+template <bool trans>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4],
+                                        const __nv_bfloat16* p) {
+    const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+    if constexpr (trans)
+        asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+                     "{%0,%1,%2,%3}, [%4];\n"
+                     : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                     : "r"(a));
+    else
+        asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
+                     "{%0,%1,%2,%3}, [%4];\n"
+                     : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                     : "r"(a));
+}
+
+// ---------------------------------------------------------------------------
+// asynchronous 16-byte copies into shared memory (cp.async, sm_80+)
+// ---------------------------------------------------------------------------
+// Copies 16 bytes from src to the shared dst, or writes 16 zero bytes and
+// reads nothing when !full (src must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(s), "l"(src), "r"(full ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N committed groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// Arguments as prefill_block's; smem: mma_smem_bytes<DK, DV>() bytes,
+// 16-byte aligned; k_src / v_src 16-byte aligned.  Call with MMA_THREADS
+// threads, r0 a multiple of MMA_ROWS.
+template <int DK, int DV, typename KAddr, typename VAddr>
 __device__ __forceinline__ void prefill_block_mma(
     const __nv_bfloat16* __restrict__ q_rows,
     const __nv_bfloat16* __restrict__ k_src,
     const __nv_bfloat16* __restrict__ v_src,
     __nv_bfloat16* __restrict__ out_rows, int C, int H, int G, int h, int r0,
     int start, int k_max, bool causal, int window, float scale,
-    const Addr& addr, __nv_bfloat16* smem) {
-    constexpr int KT = MMA_KT, LD = D + 8;   // staged row stride, elements
+    const KAddr& kaddr, const VAddr& vaddr, __nv_bfloat16* smem) {
+    constexpr int KT = MMA_KT;
+    constexpr int LDK = DK + 8, LDV = DV + 8;  // staged row strides, elements
     constexpr int NT = KT / 8;               // 8-key column tiles of S
-    constexpr int DK = D / 16;               // 16-deep steps of Q K^T
-    constexpr int DN = D / 8;                // 8-wide column tiles of O
-    constexpr int CH = D / 8;                // 16-byte chunks per key row
+    constexpr int KS = DK / 16;              // 16-deep steps of Q K^T
+    constexpr int DN = DV / 8;               // 8-wide column tiles of O
+    constexpr int CHK = DK / 8, CHV = DV / 8;  // 16-byte chunks per row
     __nv_bfloat16* k_s = smem;
-    __nv_bfloat16* v_s = smem + KT * LD;
+    __nv_bfloat16* v_s = smem + KT * LDK;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int gid = lane / 4, tig = lane % 4;
     const int rows = C * G;
@@ -519,18 +577,18 @@ __device__ __forceinline__ void prefill_block_mma(
     // this lane's two query rows: gid and gid + 8 of its warp's 16
     bool act[2];
     int qp[2];
-    size_t off[2];
+    size_t off[2];                     // the rows' query offsets, elements
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
         const int r = r0 + warp * 16 + gid + 8 * i;
         act[i] = r < rows;
         const int c = act[i] ? r / G : 0, g = act[i] ? r % G : 0;
         qp[i] = start + c;
-        off[i] = ((size_t)c * H + h * G + g) * D;
+        off[i] = ((size_t)c * H + h * G + g) * DK;
     }
-    uint32_t qa[DK][4];
+    uint32_t qa[KS][4];
 #pragma unroll
-    for (int kk = 0; kk < DK; ++kk) {
+    for (int kk = 0; kk < KS; ++kk) {
         const int d = kk * 16 + tig * 2;
         qa[kk][0] = act[0] ? ld32(q_rows + off[0] + d) : 0u;
         qa[kk][1] = act[1] ? ld32(q_rows + off[1] + d) : 0u;
@@ -552,16 +610,35 @@ __device__ __forceinline__ void prefill_block_mma(
     for (int t0 = k_lo; t0 < k_hi; t0 += KT) {
         const int n = min(KT, k_hi - t0);
         __syncthreads();               // previous tile fully consumed
-        for (int e = threadIdx.x; e < KT * CH; e += MMA_THREADS) {
-            const int i = e / CH, ch = e % CH;
-            uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
-            if (i < n) {
-                const size_t src = addr(t0 + i) + ch * 8;
-                kv = __ldg(reinterpret_cast<const uint4*>(k_src + src));
-                vv = __ldg(reinterpret_cast<const uint4*>(v_src + src));
+        if constexpr (DK == DV) {
+            for (int e = threadIdx.x; e < KT * CHK; e += MMA_THREADS) {
+                const int i = e / CHK, ch = e % CHK;
+                uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
+                if (i < n) {
+                    const size_t src = kaddr(t0 + i) + ch * 8;
+                    kv = __ldg(reinterpret_cast<const uint4*>(k_src + src));
+                    vv = __ldg(reinterpret_cast<const uint4*>(v_src + src));
+                }
+                *reinterpret_cast<uint4*>(k_s + i * LDK + ch * 8) = kv;
+                *reinterpret_cast<uint4*>(v_s + i * LDV + ch * 8) = vv;
             }
-            *reinterpret_cast<uint4*>(k_s + i * LD + ch * 8) = kv;
-            *reinterpret_cast<uint4*>(v_s + i * LD + ch * 8) = vv;
+        } else {
+            for (int e = threadIdx.x; e < KT * CHK; e += MMA_THREADS) {
+                const int i = e / CHK, ch = e % CHK;
+                uint4 kv = make_uint4(0, 0, 0, 0);
+                if (i < n)
+                    kv = __ldg(reinterpret_cast<const uint4*>(
+                        k_src + kaddr(t0 + i) + ch * 8));
+                *reinterpret_cast<uint4*>(k_s + i * LDK + ch * 8) = kv;
+            }
+            for (int e = threadIdx.x; e < KT * CHV; e += MMA_THREADS) {
+                const int i = e / CHV, ch = e % CHV;
+                uint4 vv = make_uint4(0, 0, 0, 0);
+                if (i < n)
+                    vv = __ldg(reinterpret_cast<const uint4*>(
+                        v_src + vaddr(t0 + i) + ch * 8));
+                *reinterpret_cast<uint4*>(v_s + i * LDV + ch * 8) = vv;
+            }
         }
         __syncthreads();
 
@@ -571,10 +648,10 @@ __device__ __forceinline__ void prefill_block_mma(
 #pragma unroll
             for (int j = 0; j < 4; ++j) s[nt][j] = 0.f;
 #pragma unroll
-        for (int kk = 0; kk < DK; ++kk)
+        for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
             for (int nt = 0; nt < NT; ++nt) {
-                const __nv_bfloat16* kr = k_s + (nt * 8 + gid) * LD
+                const __nv_bfloat16* kr = k_s + (nt * 8 + gid) * LDK
                                         + kk * 16 + tig * 2;
                 mma_bf16(s[nt], qa[kk], ld32(kr), ld32(kr + 8));
             }
@@ -629,10 +706,10 @@ __device__ __forceinline__ void prefill_block_mma(
             split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
 #pragma unroll
             for (int dn = 0; dn < DN; ++dn) {
-                const __nv_bfloat16* vr = v_s + (kk * 16 + tig * 2) * LD
+                const __nv_bfloat16* vr = v_s + (kk * 16 + tig * 2) * LDV
                                         + dn * 8 + gid;
-                const uint32_t b0 = pack_bf16(vr[0], vr[LD]);
-                const uint32_t b1 = pack_bf16(vr[8 * LD], vr[9 * LD]);
+                const uint32_t b0 = pack_bf16(vr[0], vr[LDV]);
+                const uint32_t b1 = pack_bf16(vr[8 * LDV], vr[9 * LDV]);
                 mma_bf16(o[dn], ph, b0, b1);
                 mma_bf16(o[dn], pl, b0, b1);
             }
@@ -651,7 +728,7 @@ __device__ __forceinline__ void prefill_block_mma(
             const __nv_bfloat162 v2 = __floats2bfloat162_rn(
                 o[dn][2 * i] * inv, o[dn][2 * i + 1] * inv);
             *reinterpret_cast<__nv_bfloat162*>(
-                out_rows + off[i] + dn * 8 + tig * 2) = v2;
+                out_rows + off[i] / DK * DV + dn * 8 + tig * 2) = v2;
         }
     }
 }

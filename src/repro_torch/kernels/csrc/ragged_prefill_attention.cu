@@ -52,10 +52,10 @@ __global__ void __launch_bounds__(PRE_THREADS) ragged_prefill_kernel(
         return;
     }
     extern __shared__ float smem[];
-    prefill_block<T, D>(q + row, k_pool, v_pool, out + row, C, H, G, h, r0,
-                        starts[p], W * bs, true, window, scale,
-                        PagedAddr<D>{tables + (size_t)p * W, bs, KV, h},
-                        smem);
+    const PagedAddr<D> addr{tables + (size_t)p * W, bs, KV, h};
+    prefill_block<T, D, D>(q + row, k_pool, v_pool, out + row, C, H, G, h,
+                           r0, starts[p], W * bs, true, window, scale, addr,
+                           addr, smem);
 }
 
 template <typename T, int D>
@@ -63,7 +63,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
            const int* tables, const int* starts, const int* limits, void* out,
            int P, int C, int H, int KV, int W, int bs, int window, float scale,
            cudaStream_t stream) {
-    constexpr size_t smem = pre_smem_bytes<D>();
+    constexpr size_t smem = pre_smem_bytes<D, D>();
     auto kernel = ragged_prefill_kernel<T, D>;
     cudaError_t err = reserve_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import grouped_matmul as gm
 from repro_torch.kernels import paged_decode_attention as pda
 from repro_torch.kernels import ragged_prefill_attention as rpa
 
@@ -71,3 +72,18 @@ def ragged_prefill_attention(q, k_pool, v_pool, block_tables, starts, limits,
         else rpa.ragged_prefill_attention
     return fn(q, k_pool, v_pool, block_tables, starts, limits,
               block_size=block_size, window=window, scale=scale)
+
+
+def paged_mla_decode_attention(q_lat, q_rope, ckv_pool, krope_pool,
+                               block_tables, lengths, *, block_size, scale):
+    """Fused MLA absorbed paged decode over the latent pools (f32 out)."""
+    fn = pda.paged_mla_decode_attention_ref if _MODE == "ref" \
+        else pda.paged_mla_decode_attention
+    return fn(q_lat, q_rope, ckv_pool, krope_pool, block_tables, lengths,
+              block_size=block_size, scale=scale)
+
+
+def grouped_matmul(x, w, group_sizes):
+    """Ragged grouped matmul over expert-sorted rows."""
+    fn = gm.grouped_matmul_ref if _MODE == "ref" else gm.grouped_matmul
+    return fn(x, w, group_sizes)

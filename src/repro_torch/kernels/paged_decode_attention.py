@@ -1,4 +1,5 @@
-"""Fused paged GQA decode attention: CUDA kernel, plain version, launch count.
+"""Fused paged decode attention, GQA and absorbed MLA: CUDA kernels, plain
+versions, launch counts.
 
 Replaces the TPU kernel ``repro/kernels/paged_decode_attention.py``,
 function ``paged_decode_attention``.  The kernel
@@ -12,6 +13,13 @@ one thread block per (kv head, row).
 runs :func:`paged_decode_attention_ref` for CPU tensors — the device of
 the input decides, never a fallback.  ``paged_decode_attention.launches``
 counts kernel launches.
+
+:func:`paged_mla_decode_attention` (kernel
+``csrc/paged_mla_decode_attention.cu``) replaces the same file's
+``paged_mla_decode_attention``: MLA's absorbed decode in the rank-R latent
+space, one thread block per row walking its table once for every head, an
+f32 (B, H, R) read-out; ``paged_mla_decode_attention.launches`` counts its
+launches.
 """
 from __future__ import annotations
 
@@ -110,3 +118,101 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
 
 
 paged_decode_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# absorbed-MLA paged decode
+# ---------------------------------------------------------------------------
+# (R, r) pairs the MLA kernel is built for: deepseek-v2-lite's latent rank
+# and rope dims, and its reduced test config's
+MLA_DIMS = ((512, 64), (64, 32))
+_MLA_HMAX = 16
+
+
+def paged_mla_decode_attention_ref(q_lat, q_rope, ckv_pool, krope_pool,
+                                   block_tables, lengths, *, block_size: int,
+                                   scale: float) -> torch.Tensor:
+    """Plain version: gather ``pool[block_tables]``, masked softmax over
+    the latent scores in f32 (the reference's
+    ``ref.paged_mla_decode_attention``).  Returns (B, H, R) f32."""
+    B, W = block_tables.shape
+    S = W * block_size
+    R, r = ckv_pool.shape[-1], krope_pool.shape[-1]
+    idx = block_tables.long()
+    ckv = ckv_pool[idx].reshape(B, S, R).float()
+    kr = krope_pool[idx].reshape(B, S, r).float()
+    s = (torch.einsum("bhr,bsr->bhs", q_lat.float(), ckv)
+         + torch.einsum("bhr,bsr->bhs", q_rope.float(), kr)) * scale
+    mask = (torch.arange(S, device=q_lat.device)[None, None, :]
+            < lengths.long()[:, None, None])
+    p = torch.softmax(s.masked_fill(~mask, NEG_INF), dim=-1)
+    return torch.einsum("bhs,bsr->bhr", p, ckv)
+
+
+@functools.cache
+def _mla_lib():
+    lib = build.load("paged_mla_decode_attention")
+    fn = lib.paged_mla_decode_attention_launch
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _mla_check(q_lat, q_rope, ckv_pool, krope_pool):
+    B, H, R = q_lat.shape
+    r = q_rope.shape[-1]
+    problems = []
+    dts = {t.dtype for t in (q_lat, q_rope, ckv_pool, krope_pool)}
+    if len(dts) != 1 or q_lat.dtype not in DTYPE_CODES:
+        problems.append(f"dtypes {sorted(map(str, dts))}: need one of "
+                        "float32/bfloat16 for all four")
+    if (R, r) not in MLA_DIMS or ckv_pool.shape[-1] != R \
+            or krope_pool.shape[-1] != r or q_rope.shape[:2] != (B, H):
+        problems.append(f"latent dims q_lat {R}, q_rope {r}, ckv "
+                        f"{ckv_pool.shape[-1]}, krope {krope_pool.shape[-1]}: "
+                        f"kernel built for (R, r) in {MLA_DIMS}")
+    if H > _MLA_HMAX:
+        problems.append(f"H={H}: the kernel takes at most {_MLA_HMAX} heads")
+    if not (ckv_pool.is_contiguous() and krope_pool.is_contiguous()) or \
+            (ckv_pool.data_ptr() | krope_pool.data_ptr()) % 16:
+        problems.append("the pools must be contiguous and 16-byte aligned")
+    raise_problems("paged_mla_decode_attention", problems)
+
+
+def paged_mla_decode_attention(q_lat, q_rope, ckv_pool, krope_pool,
+                               block_tables, lengths, *, block_size: int,
+                               scale: float) -> torch.Tensor:
+    """Fused absorbed-MLA paged decode.  q_lat (B, H, R) (``W_uk``
+    absorbed); q_rope (B, H, r); pools (N, bs, R) / (N, bs, r);
+    block_tables (B, W); lengths (B,) valid positions.  Returns the latent
+    read-out (B, H, R) in f32 (the caller applies ``W_uv``).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    """
+    refuse_grad("paged_mla_decode_attention", q_lat, q_rope, ckv_pool,
+                krope_pool)
+    if q_lat.device.type == "cpu":
+        return paged_mla_decode_attention_ref(
+            q_lat, q_rope, ckv_pool, krope_pool, block_tables, lengths,
+            block_size=block_size, scale=scale)
+    if q_lat.device.type != "cuda":
+        raise ValueError(f"paged_mla_decode_attention: no kernel for device "
+                         f"{q_lat.device}")
+    _mla_check(q_lat, q_rope, ckv_pool, krope_pool)
+    B, H, R = q_lat.shape
+    W = block_tables.shape[1]
+    q_lat, q_rope = q_lat.contiguous(), q_rope.contiguous()
+    tables = block_tables.to(torch.int32).contiguous()
+    lens = lengths.to(torch.int32).contiguous()
+    out = torch.empty(B, H, R, dtype=torch.float32, device=q_lat.device)
+    rc = _mla_lib()(q_lat.data_ptr(), q_rope.data_ptr(), ckv_pool.data_ptr(),
+                    krope_pool.data_ptr(), tables.data_ptr(), lens.data_ptr(),
+                    out.data_ptr(), B, H, R, q_rope.shape[-1], W, block_size,
+                    float(scale), DTYPE_CODES[q_lat.dtype],
+                    torch.cuda.current_stream(q_lat.device).cuda_stream)
+    count_launch(paged_mla_decode_attention, rc)
+    return out
+
+
+paged_mla_decode_attention.launches = 0

@@ -13,6 +13,10 @@ Two work definitions, both computed from the same ``lengths`` /
   the keys some such query sees.  This is the least the function needs,
   so the H100 bound is computed from it.
 
+:func:`paged_mla_decode_cost` and :func:`grouped_matmul_cost` count the
+work of the two MoE/MLA kernels the same way: the keys below each row's
+length, the rows each expert takes, nothing for an empty expert.
+
 The dense kernels reuse the visible-work costs: a ``decode_attention``
 call is ``decode_visible_cost(lengths, window=...)`` (``min(length,
 window)`` keys per row), and a causal ``flash_attention`` call is
@@ -162,3 +166,37 @@ def prefill_visible_cost(starts: Sequence[int], limits: Sequence[int],
         "ragged_prefill", float(4 * head_dim * num_heads * pairs),
         float(queries * num_heads * item + keys * 2 * kv_heads * item
               + len(starts) * chunk * num_heads * item + 8 * len(starts)))
+
+
+# ---------------------------------------------------------------------------
+# MLA decode and the MoE grouped matmul
+# ---------------------------------------------------------------------------
+def paged_mla_decode_cost(lengths: Sequence[int], *, num_heads: int,
+                          kv_lora_rank: int, rope_dim: int,
+                          itemsize: int) -> KernelCost:
+    """One absorbed-MLA decode step: row ``b`` reads its ``length_b``
+    latent and rope entries once for all heads ((R + r) values a key) and
+    scores and reads them out for every head (2 H (2R + r) FLOPs a key);
+    q_lat and q_rope read once, the f32 (B, H, R) read-out written once,
+    the lengths read once.  Table entries are left out, as in
+    :func:`decode_visible_cost`."""
+    keys = sum(int(n) for n in lengths)
+    B, H, R, r = len(lengths), num_heads, kv_lora_rank, rope_dim
+    return KernelCost(
+        "paged_mla_decode", float(2 * H * (2 * R + r) * keys),
+        float(keys * (R + r) * itemsize + B * H * (R + r) * itemsize
+              + B * H * R * 4 + 4 * B))
+
+
+def grouped_matmul_cost(group_sizes: Sequence[int], *, d_in: int,
+                        d_out: int, itemsize: int) -> KernelCost:
+    """One grouped matmul: 2 D F FLOPs a row; bytes: every row of x read
+    once, every non-empty expert's (D, F) weight read once, every output
+    row written once, the sizes read once.  An empty expert costs
+    nothing."""
+    rows = sum(int(n) for n in group_sizes)
+    live = sum(1 for n in group_sizes if int(n) > 0)
+    return KernelCost(
+        "grouped_matmul", float(2 * rows * d_in * d_out),
+        float((rows * d_in + live * d_in * d_out + rows * d_out) * itemsize
+              + 4 * len(group_sizes)))

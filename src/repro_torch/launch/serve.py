@@ -7,8 +7,13 @@
         --requests 8 --max-new 16 [--kernels composed]   # on the card
     python -m repro_torch.launch.serve --arch qwen2-0.5b --reduced \
         --continuous --device cpu                 # plain versions, CPU
+    python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \
+        --continuous                              # MLA + MoE, on the card
 
-The flags are the reference launcher's (``repro.launch.serve``) plus
+``--arch`` takes every ported config (``configs.list_archs()``): the dense
+qwen2-0.5b and llama3-8b, and the MoE deepseek-v2-lite-16b (with MLA),
+deepseek-moe-16b and moonshot-v1-16b-a3b.  The flags are the reference
+launcher's (``repro.launch.serve``) plus
 ``--device``.  Weights are random, drawn from a seeded ``torch.Generator``
 on the serving device.  ``--disaggregate`` and ``--explain`` need parts
 of the reference the port does not have yet (ROADMAP.md) and exit with a

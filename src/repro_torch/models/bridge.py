@@ -14,7 +14,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.tree import tree_map
 
 
 def _leaf(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -28,9 +27,22 @@ def _leaf(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
     return t.to(device)
 
 
+# leaves the reference keeps in float32 whatever the model's dtype (the MoE
+# router runs in f32)
+F32_LEAVES = ("router",)
+
+
 def params_from_numpy(tree, device, dtype: Optional[torch.dtype] = None):
     """Port params from a numpy pytree of the reference's params.
 
-    ``dtype`` casts floating leaves (None keeps each leaf's own type).
+    ``dtype`` casts floating leaves (None keeps each leaf's own type),
+    except those named in :data:`F32_LEAVES`, which stay float32 as in the
+    reference.
     """
-    return tree_map(lambda a: _leaf(a, device, dtype), tree)
+    def convert(node, key=None):
+        if isinstance(node, dict):
+            return {k: convert(v, k) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return type(node)(convert(v, key) for v in node)
+        return _leaf(node, device, None if key in F32_LEAVES else dtype)
+    return convert(tree)

@@ -11,8 +11,8 @@ serving:
   - ``SLOT``      O(1) per-request dense state in a fixed decode seat;
   - ``WINDOWED``  paged, with out-of-window blocks freed.
 
-Only ``ATTN`` is registered so far.  The other kinds register when their
-family is ported (ROADMAP.md, "Modules to port"); until then
+``ATTN`` and ``MLA`` are registered so far.  The other kinds register
+when their family is ported (ROADMAP.md, "Modules to port"); until then
 :func:`model_state_layout` refuses a config that uses them with a typed
 ``ServePlanError``.
 """
@@ -23,8 +23,8 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ATTN
-from repro_torch.models import attention
+from repro_torch.configs.base import ATTN, MLA
+from repro_torch.models import attention, mla as mla_mod
 
 # decode-state kinds under paged serving ------------------------------------
 PAGED = "paged"
@@ -230,4 +230,31 @@ register_mixer(MixerSpec(
         block_size, window, kernels: attention.attn_prefill_paged(
             p["attn"], h, starts, limits, cfg, state, tables,
             block_size=block_size, window=window, kernels=kernels),
+))
+
+
+def _mla_forward(p, h, positions, cfg, *, window, want_cache):
+    if want_cache:
+        return mla_mod.mla_forward(p["attn"], h, positions, cfg,
+                                   window=window, return_cache=True)
+    return mla_mod.mla_forward(p["attn"], h, positions, cfg,
+                               window=window), None
+
+
+register_mixer(MixerSpec(
+    kind=MLA, state=PAGED, param_key="attn",
+    init=mla_mod.init_mla,
+    forward=_mla_forward,
+    decode=lambda p, h, pos, cfg, cache, *, window: mla_mod.mla_decode(
+        p["attn"], h, pos, cfg, cache, window=window),
+    init_cache=mla_mod.init_mla_cache,
+    init_state=mla_mod.init_mla_pool,
+    decode_paged=lambda p, h, positions, cfg, state, tables, *, block_size,
+        window, kernels: mla_mod.mla_decode_paged(
+            p["attn"], h, positions, cfg, state, tables,
+            block_size=block_size, kernels=kernels),
+    prefill_paged=lambda p, h, starts, limits, slots, cfg, state, tables, *,
+        block_size, window, kernels: mla_mod.mla_prefill_chunk_paged(
+            p["attn"], h, starts, limits, cfg, state, tables,
+            block_size=block_size, kernels=kernels),
 ))

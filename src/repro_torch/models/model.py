@@ -15,6 +15,10 @@ Modes:
   decode_step(...)              -> logits (caches written in place)
   decode_step_paged / prefill_chunk_paged -> logits (pool written in place)
 
+The MoE FFN always takes the sort-based ragged dispatch (sort, grouped
+matmuls, unsort), the one the reference's serving resolves every MoE
+config to; the reference's other dispatches come with the train step.
+
 Remat, unrolling and meshes, which shape the reference's compiled
 programs, have no counterpart in eager PyTorch.
 """
@@ -23,9 +27,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import DENSE_FFN
+from repro_torch.configs.base import DENSE_FFN, MOE_FFN
 from repro_torch.core.tree import tree_map
-from repro_torch.models import mixers as MX
+from repro_torch.models import mixers as MX, moe as moe_mod
 from repro_torch.models.attention import DecodePosition
 from repro_torch.models.common import (dense_init, dtype_of, embed_init,
                                        rms_norm, swiglu)
@@ -40,11 +44,14 @@ def _init_sublayer(cfg, kind, gen: torch.Generator, repeat: int):
     p: dict = {"norm1": torch.zeros(repeat, d, dtype=dt, device=gen.device)}
     spec = MX.get_mixer(mixer)
     p[spec.param_key] = spec.init(cfg, gen, lead=lead)
-    if ffn != DENSE_FFN:
+    if ffn not in (DENSE_FFN, MOE_FFN):
         raise NotImplementedError(
             f"{cfg.name}: FFN kind {ffn!r} is not ported yet (ROADMAP.md, "
             "'Modules to port')")
     p["norm2"] = torch.zeros(repeat, d, dtype=dt, device=gen.device)
+    if ffn == MOE_FFN:
+        p["ffn"] = moe_mod.init_moe(cfg, gen, lead=lead)
+        return p
     p["ffn"] = {
         "w_gate": dense_init(gen, d, cfg.d_ff, dt, lead=lead),
         "w_up": dense_init(gen, d, cfg.d_ff, dt, lead=lead),
@@ -71,21 +78,30 @@ def init_model(cfg, gen: torch.Generator):
     return params
 
 
-def _ffn(p, x, cfg):
+def _ffn(p, x, cfg, ffn, metrics=None):
+    """The FFN leg: x + FFN(norm2(x)).  For the MoE FFN, ``metrics`` (a
+    dict) accumulates the router's loss terms; None skips computing them."""
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    if ffn == MOE_FFN:
+        y, mm = moe_mod.moe_forward(p["ffn"], h, cfg,
+                                    metrics=metrics is not None)
+        if metrics is not None:
+            for name in ("moe_aux_loss", "moe_z_loss"):
+                metrics[name] = metrics[name] + mm[name]
+        return x + y
     return x + swiglu(h, p["ffn"]["w_gate"], p["ffn"]["w_up"],
                       p["ffn"]["w_down"])
 
 
 def _layers(params, cfg, states=None):
-    """Yield (mixer kind, sublayer params, sublayer state) in stack order,
-    each a view into the stacked leaves of its layer (state None when
-    ``states`` is None)."""
+    """Yield (mixer kind, ffn kind, sublayer params, sublayer state) in
+    stack order, each a view into the stacked leaves of its layer (state
+    None when ``states`` is None)."""
     for si, seg in enumerate(segments(cfg)):
         seg_p = params[f"seg{si}"]
         for li in range(seg.repeat):
-            for j, (mixer, _) in enumerate(seg.kinds):
-                yield (mixer, tree_map(lambda a: a[li], seg_p[j]),
+            for j, (mixer, ffn) in enumerate(seg.kinds):
+                yield (mixer, ffn, tree_map(lambda a: a[li], seg_p[j]),
                        None if states is None else
                        tree_map(lambda a: a[li], states[f"seg{si}"][j]))
 
@@ -94,19 +110,22 @@ def _layers(params, cfg, states=None):
 # per-sublayer forward / decode / cache — mixer dispatch is one registry
 # lookup; only the FFN leg lives here
 # ---------------------------------------------------------------------------
-def _sublayer_forward(p, x, positions, cfg, mixer, *, mode, window_override):
+def _sublayer_forward(p, x, positions, cfg, kind, *, mode, window_override,
+                      metrics):
+    mixer, ffn = kind
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     w = MX.resolve_window(cfg, mixer, window_override)
     y, cache = MX.get_mixer(mixer).forward(p, h, positions, cfg, window=w,
                                            want_cache=mode == "prefill")
-    return _ffn(p, x + y, cfg), cache
+    return _ffn(p, x + y, cfg, ffn, metrics), cache
 
 
-def _sublayer_decode(p, x, pos, cfg, mixer, cache, *, window_override):
+def _sublayer_decode(p, x, pos, cfg, kind, cache, *, window_override):
+    mixer, ffn = kind
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     w = MX.resolve_window(cfg, mixer, window_override)
     y = MX.get_mixer(mixer).decode(p, h, pos, cfg, cache, window=w)
-    return _ffn(p, x + y, cfg)
+    return _ffn(p, x + y, cfg, ffn)
 
 
 def _init_sublayer_cache(cfg, kind, batch, cache_len, dtype, window_override,
@@ -125,8 +144,8 @@ def forward(params, tokens, cfg, *, prefix_embeds=None, mode="train",
     """tokens: (B, S) int.  Returns (logits (B, S, V_pad), caches | None,
     metrics).  ``mode="prefill"`` also returns each layer's KV cache,
     stacked per segment like the params (windowed caches in ring layout).
-    The metrics are the reference's MoE loss terms, zero for the dense
-    FFN (the MoE family is not ported yet)."""
+    The metrics are the reference's MoE loss terms summed over the MoE
+    layers (zero without any)."""
     if prefix_embeds is not None:
         raise NotImplementedError(
             f"{cfg.name}: prefix_embeds need the multimodal frontends, "
@@ -136,21 +155,22 @@ def forward(params, tokens, cfg, *, prefix_embeds=None, mode="train",
     S = tokens.shape[1]
     x = F.embedding(tokens.long(), params["embed"])
     positions = torch.arange(S, device=x.device)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    metrics = {"moe_aux_loss": zero, "moe_z_loss": zero.clone()}
     per_layer: dict = {}
     for si, seg in enumerate(segments(cfg)):
         seg_p = params[f"seg{si}"]
         for li in range(seg.repeat):
             caches = []
-            for j, (mixer, _) in enumerate(seg.kinds):
+            for j, kind in enumerate(seg.kinds):
                 x, c = _sublayer_forward(
                     tree_map(lambda a: a[li], seg_p[j]), x, positions, cfg,
-                    mixer, mode=mode, window_override=window_override)
+                    kind, mode=mode, window_override=window_override,
+                    metrics=metrics)
                 caches.append(c)
             per_layer.setdefault(f"seg{si}", []).append(tuple(caches))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x @ _unembed(params, cfg).T
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    metrics = {"moe_aux_loss": zero, "moe_z_loss": zero.clone()}
     if mode != "prefill":
         return logits, None, metrics
     caches = {name: tree_map(lambda *xs: torch.stack(xs), *layers)
@@ -182,8 +202,8 @@ def decode_step(params, token, pos: int, cfg, caches, *,
     step's position tensors are made once and shared by every layer."""
     x = F.embedding(token.long(), params["embed"])
     step = DecodePosition(pos, token.shape[0], x.device)
-    for mixer, sub_p, cache in _layers(params, cfg, caches):
-        x = _sublayer_decode(sub_p, x, step, cfg, mixer, cache,
+    for mixer, ffn, sub_p, cache in _layers(params, cfg, caches):
+        x = _sublayer_decode(sub_p, x, step, cfg, (mixer, ffn), cache,
                              window_override=window_override)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ _unembed(params, cfg).T
@@ -199,18 +219,19 @@ def decode_step_paged(params, tokens, positions, cfg, kv_pools, block_tables,
 
     tokens: (B, 1) int; positions: (B,) absolute write positions; kv_pools:
     :class:`~repro_torch.serve.paged_kv.StatePool` state, paged leaves
-    (L, N_blocks, block, KV, hd), written in place; block_tables: (B, W)
+    (L, N_blocks, block, ...), written in place; block_tables: (B, W)
     int32.  ``kernels``: ``"fused"`` or ``"composed"`` lowering
-    (``ops.resolve_paged_path``).  Returns logits (B, 1, V_pad).
+    (``ops.resolve_paged_path``; a mixer without a fused decode hook takes
+    its composed path).  Returns logits (B, 1, V_pad).
     """
     x = F.embedding(tokens.long(), params["embed"])
-    for mixer, sub_p, kv in _layers(params, cfg, kv_pools):
+    for mixer, ffn, sub_p, kv in _layers(params, cfg, kv_pools):
         spec = MX.get_mixer(mixer)
         x = x + spec.decode_paged(
             sub_p, rms_norm(x, sub_p["norm1"], cfg.norm_eps), positions, cfg,
             kv, block_tables, block_size=block_size, window=spec.window(cfg),
             kernels=kernels)
-        x = _ffn(sub_p, x, cfg)
+        x = _ffn(sub_p, x, cfg, ffn)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ _unembed(params, cfg).T
 
@@ -231,13 +252,13 @@ def prefill_chunk_paged(params, tokens, starts, limits, slots, cfg, kv_pools,
     """
     P, C = tokens.shape
     x = F.embedding(tokens.long(), params["embed"])
-    for mixer, sub_p, kv in _layers(params, cfg, kv_pools):
+    for mixer, ffn, sub_p, kv in _layers(params, cfg, kv_pools):
         spec = MX.get_mixer(mixer)
         x = x + spec.prefill_paged(
             sub_p, rms_norm(x, sub_p["norm1"], cfg.norm_eps), starts, limits,
             slots, cfg, kv, block_tables, block_size=block_size,
             window=spec.window(cfg), kernels=kernels)
-        x = _ffn(sub_p, x, cfg)
+        x = _ffn(sub_p, x, cfg, ffn)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     # row r's last in-chunk prompt token sits at chunk index
     # min(limit, start + C) - 1 - start (clamped for filler rows)

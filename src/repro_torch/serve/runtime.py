@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.api.errors import ServePlanError
-from repro_torch.configs.base import DENSE_FFN, ServeConfig
+from repro_torch.configs.base import ServeConfig
 from repro_torch.core.kvcache import HostArchive
 from repro_torch.core.tree import tree_map
 from repro_torch.kernels import ops
@@ -81,11 +81,6 @@ class ServeEngine:
                 "host and disk tiers, which the port does not have yet "
                 "(ROADMAP.md, 'HyperMem and the host archive'); leave both "
                 "at 0 for the unbounded host archive")
-        unported = sorted({f for _, f in cfg.block_kinds() if f != DENSE_FFN})
-        if unported:
-            raise ServePlanError(
-                f"{cfg.name} is not servable by the port yet: FFN kinds "
-                f"{unported} are not ported (ROADMAP.md, 'Modules to port')")
         # plan-level kernels toggle -> lowering path, resolved ONCE so every
         # step this engine dispatches takes the same path (and the
         # serve.kernels.* counters pin it exactly)

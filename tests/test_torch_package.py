@@ -81,6 +81,26 @@ def test_launcher_serves_on_an_explicit_cpu(capsys):
                        "--disaggregate", "--device", "cpu"])
 
 
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "deepseek-moe-16b",
+                                  "moonshot-v1-16b-a3b"])
+def test_launcher_serves_the_moe_archs_on_an_explicit_cpu(capsys, arch):
+    """The MoE configs go through ``--arch`` like the dense ones: served
+    continuously (the ragged MoE dispatch, MLA's latent pools for
+    deepseek-v2-lite) and generated in a fixed batch."""
+    from repro_torch.launch import serve as launcher
+    launcher.main(["--arch", arch, "--reduced", "--continuous", "--device",
+                   "cpu", "--requests", "2", "--max-new", "3",
+                   "--block-size", "4", "--num-blocks", "64",
+                   "--prefill-chunk", "8", "--metrics"])
+    out = capsys.readouterr().out
+    assert "served 2 requests" in out and "on cpu" in out
+    assert "serve_kernels_decode_fused" in out
+    launcher.main(["--arch", arch, "--reduced", "--device", "cpu",
+                   "--batch", "2", "--prompt-len", "6", "--max-new", "3"])
+    out = capsys.readouterr().out
+    assert "generated 6 tokens" in out
+
+
 @pytest.mark.parametrize("window", [0, 4])
 def test_launcher_runs_fixed_batch_generation_on_an_explicit_cpu(capsys,
                                                                  window):
@@ -116,3 +136,16 @@ def test_chip_smoke_fails_without_a_card_or_the_repository(tmp_path):
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
     assert "No module named 'repro_torch'" in out.stderr
+
+
+def test_kernel_ab_needs_two_checkouts_and_a_card():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH", None)
+    run = lambda *args: subprocess.run(  # noqa: E731
+        [sys.executable, "kernel_ab.py", *args], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300)
+    out = run()
+    assert out.returncode != 0 and "A_DIR B_DIR" in out.stderr
+    out = run(REPO, REPO)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr and out.stdout == ""

@@ -8,8 +8,10 @@ greedy tokens identical to the JAX ``HyperServe`` (composed lowering, the
 fast one on CPU) and to the JAX ``Generator``, through preemption, with
 the scheduler counters and the compile-ledger keys equal to the
 reference's exactly; the port's composed lowering is held to the same
-tokens and to both frameworks' ``Generator``s.  Float32 so that no argmax
-can flip on rounding.
+tokens and to both frameworks' ``Generator``s.  The MoE configs
+(deepseek-v2-lite-16b with MLA, deepseek-moe-16b) are served the same way,
+fused and composed, through the ragged MoE dispatch.  Float32 so that no
+argmax can flip on rounding.
 """
 import dataclasses
 import functools
@@ -28,7 +30,7 @@ from repro.serve.api import HyperServe as JaxHyperServe  # noqa: E402
 from repro.serve.engine import GenerateConfig, Generator  # noqa: E402
 from repro_torch.api.errors import ServePlanError  # noqa: E402
 from repro_torch.configs.base import (ArchNotPortedError,  # noqa: E402
-                                      ServeConfig, get_config)
+                                      ServeConfig, get_config, list_archs)
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.bridge import params_from_numpy  # noqa: E402
 from repro_torch.serve.api import HyperServe, RequestRejected  # noqa: E402
@@ -99,6 +101,48 @@ def test_serve_matches_reference_serve_and_generator(arch, case):
         assert m.counter("serve.restores").value >= 1
     assert (port.engine.obs.compiled_keys()
             == ref.engine.obs.compiled_keys())
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "deepseek-moe-16b"])
+def test_moe_serve_matches_reference_and_generators(arch, case):
+    """MLA + MoE and attention + MoE: the port's HyperServe, fused and
+    composed, gives the JAX HyperServe's and both Generators' greedy
+    tokens (the "preempt" case through preemption), with the scheduler
+    counters, the ``serve.kernels.*`` dispatch counts and the compile
+    ledger equal to the reference's (MLA has no fused prefill, so its
+    prefill counts under the toggle, as in the reference)."""
+    kw, prompts, max_new = CASES[case]
+    jcfg, cfg, jp, tp = _models(arch)
+    ref = JaxHyperServe(jcfg, jp, serve_cfg=JaxServeConfig(kernels="composed",
+                                                           **kw))
+    want = _serve(ref, prompts, max_new)
+    gen = _generator(arch)
+    want_gen = [gen.generate(jnp.asarray(p, jnp.int32)[None, :],
+                             GenerateConfig(max_new_tokens=n))[0, len(p):]
+                .tolist() for p, n in zip(prompts, max_new)]
+    port_gen = PortGenerator(cfg, tp, max_len=128, device="cpu")
+    got_gen = [port_gen.generate(torch.tensor([p]), PortGenerateConfig(
+        max_new_tokens=n))[0, len(p):].tolist()
+        for p, n in zip(prompts, max_new)]
+    assert want == want_gen == got_gen
+    rs, rm = ref.stats(), ref.engine.obs.metrics
+    for kernels in ("fused", "composed"):
+        port = HyperServe(cfg, tp, device="cpu", serve_cfg=ServeConfig(
+            kernels=kernels, **kw))
+        assert _serve(port, prompts, max_new) == want, kernels
+        ps, m = port.stats(), port.engine.obs.metrics
+        for key in ("prefill_calls", "prefill_chunks", "preemptions",
+                    "prefix_hits", "finished"):
+            assert ps[key] == rs[key], key
+        for stage in ("decode", "prefill"):
+            assert (m.counter(f"serve.kernels.{stage}.{kernels}").value
+                    == rm.counter(f"serve.kernels.{stage}.composed").value
+                    >= 1)
+        assert (port.engine.obs.compiled_keys()
+                == ref.engine.obs.compiled_keys())
+    if case == "preempt":
+        assert ps["preemptions"] >= 1, "the case must really preempt"
 
 
 def test_kernel_dispatch_counters_pinned():
@@ -223,3 +267,22 @@ def test_typed_errors_name_what_is_missing():
                    serve_cfg=ServeConfig(num_blocks=1))
     with pytest.raises(ArchNotPortedError, match="SSD"):
         get_config("mamba2-370m")
+
+
+def test_ported_and_not_yet_ported_archs():
+    """Five archs are ported (the dense GQA pair and the three MoE
+    configs), each a copy of the reference's config; every other arch of
+    the reference raises the typed ArchNotPortedError naming what it still
+    needs."""
+    from repro.configs.base import list_archs as jax_list_archs
+    assert list_archs() == ("deepseek-moe-16b", "deepseek-v2-lite-16b",
+                            "llama3-8b", "moonshot-v1-16b-a3b", "qwen2-0.5b")
+    rest = sorted(set(jax_list_archs()) - set(list_archs()))
+    assert rest == ["granite-3-2b", "internvl2-26b", "mamba2-370m",
+                    "musicgen-large", "phi4-mini-3.8b", "recurrentgemma-2b"]
+    for name in rest:
+        with pytest.raises(ArchNotPortedError, match="not ported yet"):
+            get_config(name)
+    for name in list_archs():      # the copies hold the reference's values
+        assert (dataclasses.asdict(get_config(name))
+                == dataclasses.asdict(jax_get_config(name)))
