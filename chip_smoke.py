@@ -6,7 +6,7 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
    1. device   — card name and power limit (nvidia-smi), torch/CUDA versions;
-   2. build    — nvcc builds the six CUDA kernels from ``src/repro_torch``,
+   2. build    — nvcc builds the seven CUDA kernels from ``src/repro_torch``,
                  one process per source, all started together;
    3. kernels  — each kernel against its plain PyTorch version on the card,
                  bf16 and f32, with and without a window, at the shapes the
@@ -26,10 +26,14 @@ Phases, in order; any failure raises and the script exits non-zero:
                  1408) and w_down (1408 -> 2048) stacks and with every row
                  in one expert; the MLA decode at 16 seats, block 16,
                  lengths 100..1532; flash at (Dk, Dv) = (192, 128) with
-                 per-row offsets over 96 x 16 gathered keys.  Each kernel is
-                 timed in bf16 at its main-path shape beside its plain
-                 version, a library yardstick (SDPA; torch._grouped_mm) and
-                 its bound;
+                 per-row offsets over 96 x 16 gathered keys; and mamba2-370m's
+                 ssd_scan at phase 15's prefill call (4 rows x 256 with a
+                 bf16 initial state, one row padded past its limit, a
+                 filler row) and phase 17's Generator prefill (8 x 1024,
+                 chunks of 256), and at S = 100, 1000, 1023 (chunks of 100,
+                 8, 1).  Each kernel is timed in bf16 at its main-path
+                 shape beside its plain version, a library yardstick (SDPA;
+                 torch._grouped_mm; none for the SSD scan) and its bound;
    4. serve    — qwen2-0.5b at full width (24 layers, random weights from a
                  seed) in bf16 through HyperServe continuous batching; the
                  fused kernels must launch 24 times per decode step /
@@ -67,10 +71,27 @@ Phases, in order; any failure raises and the script exits non-zero:
                  HyperServe greedy tokens identical with the kernels, the
                  plain versions and the composed lowering, and to the
                  Generator's; then phase 11 on it;
-  15. result   — the nvidia-smi line, the kernel JSON line (six kernels;
+  15. ssm serve — mamba2-370m (Mamba-2 SSD, 48 layers, attention-free,
+                 random weights from a seed) at full width in bf16 through
+                 HyperServe (16 seats, prefill calls of 4 x 256): 16 requests
+                 of 100-1500 prompt tokens, 64 new each; exactly 48 ssd_scan
+                 launches per prefill call and none per decode step (the
+                 decode recurrence is plain PyTorch, as in the reference);
+                 no preemption and no block taken;
+  16. ssm profile — torch.profiler over one prefill call and 8 decode steps
+                 of that server;
+  17. ssm Generator — the Generator on the same model, 8 x 1024 prompt
+                 tokens, 64 new: exactly 48 ssd_scan launches (one prefill);
+                 prefill and the decode loop each timed alone;
+  18. ssm identity — mamba2-370m at full width, all 48 layers, float32:
+                 HyperServe greedy tokens identical with the kernel and the
+                 plain versions, and to the Generator's;
+  19. result   — the nvidia-smi line, the kernel JSON line (seven kernels;
                  flash has a row for each run it is on: phase 6's (64, 64)
-                 and phase 12's (192, 128), each with that run's launches),
-                 and ``{"ok": true, "device": {...}}`` as the last line.
+                 and phase 12's (192, 128), and ssd_scan one for phase 15's
+                 prefill calls and one for phase 17's Generator prefill, each
+                 with that run's launches), and ``{"ok": true, "device":
+                 {...}}`` as the last line.
 
 Each phase prints its wall seconds.  It needs one CUDA device and exits non-zero without one.
 """
@@ -135,6 +156,26 @@ DS_ROW_OFFSETS = (0, 256, 768, 1280)   # its flash_rows prefill: whole chunks
 # the float32 identity runs of deepseek-v2-lite: full width, cut depth (one
 # dense layer and three MoE layers, about 9 GB)
 DS_ID_LAYERS = 4
+# mamba2-370m (Mamba-2 SSD, slot state) served at full width in bf16:
+# SSM_REQUESTS prompts of SSM_PROMPT tokens, SSM_NEW greedy tokens each,
+# DEC_B seats, PRE_P x PRE_C prefill calls; no pages are needed, so the pool
+# keeps a token few blocks.  Its Generator runs GEN_B x GEN_S prompts.
+SSM_ARCH = "mamba2-370m"
+SSM_REQUESTS, SSM_NEW = 16, 64
+SSM_PROMPT = (100, 1500)
+SSM_NUM_BLOCKS = 64
+# phase 3's ssd_scan at the prefill call: rows (start, limit) — a first
+# chunk, a middle chunk of a long prompt, a final chunk padded past its
+# limit (dt = 0 there) and a filler row (limit 0, the null seat's zeros)
+SSM_ROWS = ((0, 900), (768, 1400), (1280, 1400), (0, 0))
+SSM_EXTRA_S = (100, 1000, 1023)          # chunks of 100, 8 and 1
+# the SSD scan's decays exp(cs_q - cs_k) are differences of running sums of
+# dt * A that reach |cs| ~ 200 in a chunk of 256, so any float32 evaluation
+# carries ~|cs| 2^-24 relative error in them, and two evaluations summing in
+# different orders differ by about twice the plain version's own distance
+# from a float64 evaluation: the float32 limit, and the bf16 slack, of each
+# output tensor is SSM_REL x max(1, max |output|) + 2 x that distance
+SSM_REL = 2e-5
 
 
 def log(msg: str) -> None:
@@ -381,6 +422,65 @@ def flash_mla_inputs(torch, dtype, cfg):
                   (PRE_P, S, H, m.v_head_dim)))
 
 
+def ssd_inputs(torch, dtype, cfg, rows, S, seed, serving):
+    """ssd_scan's inputs as the SSD layer hands them over: x, B and C
+    column slices of one (rows, S, d_inner + 2N) tensor at the reference
+    kernel test's 0.3 scale, dt = softplus(N(0, 1)) in float32, A =
+    -exp(0.3 N(0, 1)).  ``serving``: SSM_ROWS' (start, limit) zero dt past
+    each row's limit and a bf16 initial state per row (zeros for the
+    filler row, as the null seat holds).  Returns (args, kwargs)."""
+    import torch.nn.functional as F
+    from repro_torch.models.mamba2 import _chunk
+    s = cfg.ssm
+    di, H = s.d_inner(cfg.d_model), s.num_heads(cfg.d_model)
+    P, N = s.head_dim, s.d_state
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    xbc = (torch.randn(rows, S, di + 2 * N, generator=g) * 0.3).to(
+        DEVICE, dtype)
+    x = xbc[..., :di].reshape(rows, S, H, P)
+    dt = F.softplus(torch.randn(rows, S, H, generator=g))
+    A = -torch.exp(torch.randn(H, generator=g) * 0.3)
+    init = None
+    if serving:
+        starts = torch.tensor([r[0] for r in SSM_ROWS])
+        limits = torch.tensor([r[1] for r in SSM_ROWS])
+        pos = starts[:, None] + torch.arange(S)[None, :]
+        dt = dt * (pos < limits[:, None])[..., None]
+        init = torch.randn(rows, H, P, N, generator=g)
+        init[limits == 0] = 0.0
+        init = init.to(DEVICE, dtype)
+    args = (x, dt.to(DEVICE), A.to(DEVICE), xbc[..., di:di + N],
+            xbc[..., di + N:])
+    return args, dict(chunk=_chunk(s.chunk_size, S), init_state=init)
+
+
+def ssd_cases(torch, dtype):
+    """(case, args, kwargs) of ssd_scan at the mamba2-370m runs' shapes:
+    phase 15's prefill call and phase 17's Generator prefill, then the
+    extra sequence lengths."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(SSM_ARCH)
+    cases = [("serving prefill",) + ssd_inputs(torch, dtype, cfg, PRE_P,
+                                               PRE_C, SEED + 20, True),
+             ("Generator prefill",) + ssd_inputs(torch, dtype, cfg, GEN_B,
+                                                 GEN_S, SEED + 21, False)]
+    cases += [(f"S={S}",) + ssd_inputs(torch, dtype, cfg, 2, S, SEED + 22 + i,
+                                       False)
+              for i, S in enumerate(SSM_EXTRA_S)]
+    return cases
+
+
+def ssd_parity(torch, dtype_name, got, want, want32, want64):
+    """parity() for one ssd_scan output with SSM_REL's limit; ``want64``
+    the plain version computed in float64 on the same inputs."""
+    own = (want32.double() - want64).abs().max().item()
+    tol = SSM_REL * max(1.0, want32.abs().max().item()) + 2 * own
+    if dtype_name == "float32":
+        err = (got - want).abs().max().item()
+        return err, err / tol
+    return parity(torch, dtype_name, got, want, want32, slack=tol)
+
+
 def grouped_mm_yardstick(torch, x, w, sizes):
     """Yardstick: one torch._grouped_mm call where this torch has it (bf16),
     else None."""
@@ -473,7 +573,8 @@ def phase_build():
     t0 = time.perf_counter()
     logs = build.build(["paged_decode_attention", "ragged_prefill_attention",
                         "flash_attention", "decode_attention",
-                        "paged_mla_decode_attention", "grouped_matmul"])
+                        "paged_mla_decode_attention", "grouped_matmul",
+                        "ssd_scan"])
     log(f"[build] {time.perf_counter() - t0:.1f}s into {build.BUILD_DIR}")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -586,6 +687,37 @@ def phase_kernels(torch):
                                      f"{dtype_name}")
             if dtype_name == "bfloat16":
                 timed[(name, case)] = (fn, ref, args, kw, err)
+        # mamba2-370m's SSD scan: y and the final state
+        from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+        for case, args, kw in ssd_cases(torch, dtype):
+            args32 = [t.float() for t in args]
+            kw32 = dict(kw, init_state=None if kw["init_state"] is None
+                        else kw["init_state"].float())
+            kw64 = dict(kw32, acc=torch.float64, init_state=None
+                        if kw["init_state"] is None
+                        else kw["init_state"].double())
+            got = ssd_scan(*args, **kw)
+            checks = [ssd_parity(torch, dtype_name, g, w, w32, w64)
+                      for g, w, w32, w64 in zip(
+                          got, ssd_scan_ref(*args, **kw),
+                          ssd_scan_ref(*args32, **kw32),
+                          ssd_scan_ref(*[t.double() for t in args], **kw64))]
+            sync(torch)
+            err, share = max(c[0] for c in checks), max(c[1] for c in checks)
+            log(f"[kernels] ssd_scan ({case}, Q={kw['chunk']}, init_state="
+                f"{kw['init_state'] is not None}) {dtype_name}: max_abs_err="
+                f"{err:.3e} over y and the final state ({share:.3f} of "
+                f"allowed) (limit: {SSM_REL} x max(1, max |output|) + 2 x the "
+                f"plain version's own distance from float64"
+                + ("" if dtype_name == "float32" else
+                   " + one bf16 step of the plain version, half a step of "
+                   "its f32 result") + ")")
+            if not share <= 1:
+                raise AssertionError(f"kernel parity failed: ssd_scan {case} "
+                                     f"{dtype_name}")
+            if dtype_name == "bfloat16":
+                timed[("ssd_scan", case)] = (ssd_scan, ssd_scan_ref, args, kw,
+                                             err)
 
     return time_kernels(torch, timed)
 
@@ -646,7 +778,8 @@ def time_kernels(torch, timed):
          pm.decode_visible_cost(cdec[3].tolist(), **shape),
          None, None, None))
     table = (tuple(t + ("qwen2-0.5b",) for t in table)
-             + tuple(t + (DS_ARCH,) for t in moe_mla_table(torch, pm, timed)))
+             + tuple(t + (DS_ARCH,) for t in moe_mla_table(torch, pm, timed))
+             + ssm_table(pm, timed))
     out = []
     for name, case, cost, lib, lib_what, replaces, path in table:
         fn, ref, args, kw, err = timed[(name, case)]
@@ -682,7 +815,30 @@ def time_kernels(torch, timed):
 
 # JSON row names where a kernel has a second row
 ROW_NAMES = {("flash_attention", "MLA rows q_offset (192, 128)"):
-             "flash_attention_dk192_dv128"}
+             "flash_attention_dk192_dv128",
+             ("ssd_scan", "Generator prefill"): "ssd_scan_generator_prefill"}
+
+
+def ssm_table(pm, timed):
+    """Timing rows of ssd_scan at mamba2-370m's prefill call and Generator
+    prefill, each with the path its launches are read from: (kernel, case,
+    visible-work cost, yardstick, what it is, TPU kernel replaced, path).
+    No PyTorch call computes the SSD scan, so there is no yardstick."""
+    from repro_torch.configs.base import get_config
+    s = get_config(SSM_ARCH).ssm
+    rows = []
+    for case, path in (("serving prefill", SSM_ARCH),
+                       ("Generator prefill", f"{SSM_ARCH} Generator")):
+        x, _, _, Bm, _ = timed[("ssd_scan", case)][2]
+        kw = timed[("ssd_scan", case)][3]
+        cost = pm.ssd_scan_cost(
+            batch=x.shape[0], seq=x.shape[1], heads=x.shape[2],
+            head_dim=x.shape[3], d_state=Bm.shape[-1], chunk=kw["chunk"],
+            itemsize=2, init_state=kw["init_state"] is not None)
+        rows.append(("ssd_scan", case, cost, None,
+                     "library call: none (no PyTorch call computes the SSD "
+                     "scan)", "src/repro/kernels/ssd_scan.py:70", path))
+    return tuple(rows)
 
 
 def moe_mla_table(torch, pm, timed):
@@ -1249,6 +1405,176 @@ def phase_moe_identity(torch, np):
     phase_preempt(torch, np, cfg, params, tag="moe preempt")
 
 
+def phase_ssm_serve(torch, np):
+    """mamba2-370m at full width in bf16 through HyperServe: one ssd_scan
+    launch per layer and prefill call, none per decode step (the decode
+    recurrence is plain PyTorch); slot state only, so no preemption and no
+    block taken."""
+    from repro_torch.configs.base import ServeConfig, get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models import model as M
+    from repro_torch.serve.api import HyperServe
+    cfg = get_config(SSM_ARCH)
+    params = M.init_model(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    scfg = ServeConfig(block_size=BS, num_blocks=SSM_NUM_BLOCKS,
+                       max_blocks_per_req=TABLE_W, max_slots=DEC_B,
+                       prefill_chunk=PRE_C, prefill_batch=PRE_P)
+    serve = HyperServe(cfg, params, serve_cfg=scfg, device=DEVICE)
+    rng = np.random.default_rng(SEED + 11)
+    serve_all(serve, make_prompts(rng, 2, 50, 60, cfg.vocab_size), 4)  # warm
+    prompts = make_prompts(rng, SSM_REQUESTS, *SSM_PROMPT, cfg.vocab_size)
+    eng = serve.engine
+    m = eng.obs.metrics
+    before = {k: m.counter(k).value for k in
+              ("serve.kernels.decode.fused", "serve.prefill_calls",
+               "serve.prefill_chunks", "serve.preemptions")}
+    itl0 = m.histogram("serve.itl_s").sum
+    tokens0 = eng.tokens_generated
+    # the main path's run: the launch count starts at 0 here
+    ssd_scan.launches = 0
+    sync(torch)
+    t0 = time.perf_counter()
+    outs, rids = serve_all(serve, prompts, SSM_NEW)
+    sync(torch)
+    wall = time.perf_counter() - t0
+    launches = {"ssd_scan": ssd_scan.launches}
+    d = {k: m.counter(k).value - v for k, v in before.items()}
+    steps, calls = int(d["serve.kernels.decode.fused"]), \
+        int(d["serve.prefill_calls"])
+    tokens = eng.tokens_generated - tokens0
+    decode_s = m.histogram("serve.itl_s").sum - itl0
+    decode_tokens = tokens - len(prompts)
+    ttfts = sorted(serve.request_meta(r)["ttft_s"] for r in rids)
+    finished = sum(serve.state(r) == "finished" for r in rids)
+    st = serve.stats()
+    log(f"[ssm serve] {SSM_ARCH} bf16 full width ({n_params / 1e6:.1f} M "
+        f"params): {finished}/{len(prompts)} requests finished, {tokens} "
+        f"tokens in {wall:.3f}s ({tokens / wall:.1f} tok/s overall), decode "
+        f"{decode_tokens} tokens in {steps} steps, {decode_s:.3f}s "
+        f"({decode_tokens / decode_s:.1f} decode tok/s, "
+        f"{decode_s / steps * 1e3:.1f} ms a step), median TTFT "
+        f"{ttfts[len(ttfts) // 2]:.3f}s (all submitted at t=0), "
+        f"prefill_calls={calls} prefill_chunks="
+        f"{int(d['serve.prefill_chunks'])}, preemptions="
+        f"{int(d['serve.preemptions'])}, block_occupancy="
+        f"{st['block_occupancy']}")
+    n = cfg.num_layers
+    log(f"[ssm serve] launches {launches}; expected ssd_scan {n} x {calls} "
+        f"= {n * calls} ({n} per prefill call, none in {steps} decode steps)")
+    if finished != len(prompts) or any(len(o) != SSM_NEW for o in outs):
+        raise AssertionError(f"not every request finished with {SSM_NEW} "
+                             "tokens")
+    if launches != {"ssd_scan": n * calls} or not steps or not calls:
+        raise AssertionError(f"launch counts {launches} do not match "
+                             f"{n} x {calls} prefill calls")
+    if d["serve.preemptions"] or st["block_occupancy"] != 0.0:
+        raise AssertionError("a pure-SSD model preempted or took a block")
+    return launches, serve, prompts
+
+
+def phase_ssm_generator(torch, np):
+    """The Generator on mamba2-370m at full width in bf16: GEN_B prompts of
+    GEN_S tokens, GEN_NEW greedy tokens; one ssd_scan launch per layer for
+    the prefill (chunks of 256) and none for the decode steps."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import GenerateConfig, Generator
+    cfg = get_config(SSM_ARCH)
+    params = M.init_model(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED))
+    gen = Generator(cfg, params, max_len=GEN_CACHE, device=DEVICE)
+    prompts = torch.from_numpy(np.random.default_rng(SEED + 12).integers(
+        1, cfg.vocab_size, size=(GEN_B, GEN_S))).to(DEVICE)
+    gen.generate(prompts[:, :64], GenerateConfig(max_new_tokens=4))  # warm
+    # the main path's run: the launch count starts at 0 here
+    ssd_scan.launches = 0
+    sync(torch)
+    t0 = time.perf_counter()
+    out = gen.generate(prompts, GenerateConfig(max_new_tokens=GEN_NEW))
+    sync(torch)
+    wall = time.perf_counter() - t0
+    launches = {"ssd_scan": ssd_scan.launches}
+    n, steps = cfg.num_layers, GEN_NEW - 1
+    prefill_s, logits, pcaches = dense_prefill(torch, gen, prompts)
+    decode_s = dense_decode(torch, gen, logits, pcaches, GEN_S, steps)
+    del logits, pcaches
+    log(f"[ssm Generator] {SSM_ARCH} bf16 full width: {GEN_B} prompts x "
+        f"{GEN_S} tokens, {GEN_NEW} new each: generate {wall:.3f}s "
+        f"({GEN_B * GEN_NEW / wall:.1f} new tok/s overall); timed alone: "
+        f"prefill {prefill_s:.3f}s, decode {GEN_B * steps} tokens in {steps} "
+        f"steps, {decode_s:.3f}s ({GEN_B * steps / decode_s:.1f} decode "
+        f"tok/s)")
+    log(f"[ssm Generator] launches {launches}; expected ssd_scan {n} (one "
+        "prefill), none per decode step")
+    new = out[:, GEN_S:]
+    if (tuple(out.shape) != (GEN_B, GEN_S + GEN_NEW)
+            or not torch.equal(out[:, :GEN_S], prompts)
+            or not bool(((new >= 0) & (new < cfg.vocab_size)).all())):
+        raise AssertionError(f"Generator output malformed: {out.shape}")
+    if launches != {"ssd_scan": n}:
+        raise AssertionError(f"launch counts {launches} != {n}")
+    return launches, gen, prompts
+
+
+def phase_ssm_identity(torch, np):
+    """mamba2-370m in float32 at full width, all layers: HyperServe greedy
+    tokens identical with the kernel and with the plain versions, and to
+    the Generator's (prompt by prompt: chunks of min(256, S) halved until
+    they divide S, so down to 1)."""
+    from repro_torch.configs.base import ServeConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models import model as M
+    from repro_torch.serve.api import HyperServe
+    from repro_torch.serve.engine import GenerateConfig, Generator
+    cfg = dataclasses.replace(get_config(SSM_ARCH), dtype="float32")
+    params = M.init_model(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED))
+    scfg = ServeConfig(block_size=BS, num_blocks=SSM_NUM_BLOCKS,
+                       max_blocks_per_req=ID_TABLE_W, max_slots=ID_SLOTS,
+                       prefill_chunk=PRE_C, prefill_batch=PRE_P)
+    prompts = make_prompts(np.random.default_rng(SEED + 13), 6, 100,
+                           ID_PROMPT_MAX, cfg.vocab_size)
+    runs, counts = {}, {}
+    for name, mode in (("kernel", "auto"), ("plain", "ref")):
+        ssd_scan.launches = 0
+        ops.set_mode(mode)
+        try:
+            serve = HyperServe(cfg, params, serve_cfg=scfg, device=DEVICE)
+            runs[name], _ = serve_all(serve, prompts, ID_NEW)
+        finally:
+            ops.set_mode("auto")
+        sync(torch)
+        counts[name] = (ssd_scan.launches, serve.stats()["prefill_calls"])
+    gen = Generator(cfg, params, max_len=ID_PROMPT_MAX + ID_NEW + 8,
+                    device=DEVICE)
+    runs["Generator"] = [gen.generate(
+        torch.tensor([p], device=DEVICE), GenerateConfig(
+            max_new_tokens=ID_NEW))[0, len(p):].tolist() for p in prompts]
+    n = cfg.num_layers
+    log(f"[ssm identity] launches (ssd_scan, prefill calls): kernel "
+        f"{counts['kernel']}, plain {counts['plain']}; expected {n} per "
+        "call with the kernel, 0 plain")
+    if (counts["kernel"][0] != n * counts["kernel"][1]
+            or not counts["kernel"][1] or counts["plain"][0]):
+        raise AssertionError(f"ssd_scan launch counts {counts}")
+    same = {name: runs[name] == runs["kernel"] for name in runs}
+    log(f"[ssm identity] f32 {SSM_ARCH} at full width, {n} layers: "
+        f"{len(prompts)} requests x {ID_NEW} tokens, greedy tokens identical "
+        f"to the kernel's run: {same}")
+    for name, ok in same.items():
+        if not ok:
+            a, b = runs["kernel"], runs[name]
+            i = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            j = next(j for j, (x, y) in enumerate(zip(a[i], b[i])) if x != y)
+            raise AssertionError(f"{name}: request {i} diverges at token {j}"
+                                 f": kernel {a[i][j]} vs {b[i][j]}")
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1284,11 +1610,22 @@ def main() -> int:
           "moe profile")
     del serve
     torch.cuda.empty_cache()
-    runs = {"qwen2-0.5b": launches, DS_ARCH: moe_launches}
+    timed("moe identity", phase_moe_identity, torch, np)
+    torch.cuda.empty_cache()
+    ssm_launches, serve, ssm_prompts = timed("ssm serve", phase_ssm_serve,
+                                             torch, np)
+    timed("ssm profile", phase_profile, torch, serve, ssm_prompts, SSM_NEW,
+          "ssm profile")
+    del serve
+    ssm_gen_launches, gen, gen_prompts = timed(
+        "ssm Generator", phase_ssm_generator, torch, np)
+    del gen
+    timed("ssm identity", phase_ssm_identity, torch, np)
+    runs = {"qwen2-0.5b": launches, DS_ARCH: moe_launches,
+            SSM_ARCH: ssm_launches, f"{SSM_ARCH} Generator": ssm_gen_launches}
     for row in rows:
         row["launches"] = runs[row["path"]][
             os.path.basename(row["source"])[:-len(".cu")]]
-    timed("moe identity", phase_moe_identity, torch, np)
     log(f"[time] all phases: {time.perf_counter() - t0:.1f}s")
     print(smi)
     print(json.dumps({"kernels": rows}))

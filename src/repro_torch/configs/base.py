@@ -22,6 +22,7 @@ RGLRU = "rglru"          # RecurrentGemma RG-LRU block
 
 DENSE_FFN = "dense"      # SwiGLU MLP
 MOE_FFN = "moe"          # shared + routed experts
+NO_FFN = "none"          # no FFN leg (mamba2 blocks)
 
 
 @dataclass(frozen=True)
@@ -124,7 +125,7 @@ class ModelConfig:
             if self.moe is not None and i >= self.moe.first_k_dense:
                 ffn = MOE_FFN
             elif self.family == "ssm":
-                ffn = "none"         # mamba2 blocks have no separate MLP
+                ffn = NO_FFN         # mamba2 blocks have no separate MLP
             else:
                 ffn = DENSE_FFN
             out.append((mixer, ffn))
@@ -265,7 +266,6 @@ class ArchNotPortedError(KeyError):
 NOT_YET_PORTED = {
     "granite-3-2b": "its config module",
     "internvl2-26b": "the vision frontend",
-    "mamba2-370m": "SSD mixer",
     "musicgen-large": "the audio frontend",
     "phi4-mini-3.8b": "its config module",
     "recurrentgemma-2b": "RG-LRU and LOCAL_ATTN mixers",
@@ -302,4 +302,5 @@ def _load_all() -> None:
     # import every module in this package so configs self-register
     from repro_torch.configs import (deepseek_moe_16b,  # noqa: F401
                                      deepseek_v2_lite_16b, llama3_8b,
-                                     moonshot_v1_16b_a3b, qwen2_0_5b)
+                                     mamba2_370m, moonshot_v1_16b_a3b,
+                                     qwen2_0_5b)

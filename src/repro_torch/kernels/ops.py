@@ -14,6 +14,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import grouped_matmul as gm
 from repro_torch.kernels import paged_decode_attention as pda
 from repro_torch.kernels import ragged_prefill_attention as rpa
+from repro_torch.kernels import ssd_scan as ss
 
 _MODES = ("auto", "ref")
 _MODE = "auto"
@@ -87,3 +88,15 @@ def grouped_matmul(x, w, group_sizes):
     """Ragged grouped matmul over expert-sorted rows."""
     fn = gm.grouped_matmul_ref if _MODE == "ref" else gm.grouped_matmul
     return fn(x, w, group_sizes)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, *, chunk=64, init_state=None):
+    """Mamba-2 SSD chunked scan; returns (y, final state)."""
+    fn = ss.ssd_scan_ref if _MODE == "ref" else ss.ssd_scan
+    return fn(x, dt, A, Bm, Cm, chunk=chunk, init_state=init_state)
+
+
+def ssd_decode_step(x, dt, A, Bm, Cm, state):
+    """One SSD recurrence step: plain PyTorch in both modes, as the
+    reference runs its oracle in every mode."""
+    return ss.ssd_decode_step(x, dt, A, Bm, Cm, state)

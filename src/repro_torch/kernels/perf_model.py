@@ -15,7 +15,8 @@ Two work definitions, both computed from the same ``lengths`` /
 
 :func:`paged_mla_decode_cost` and :func:`grouped_matmul_cost` count the
 work of the two MoE/MLA kernels the same way: the keys below each row's
-length, the rows each expert takes, nothing for an empty expert.
+length, the rows each expert takes, nothing for an empty expert;
+:func:`ssd_scan_cost` counts the SSD scan's causal pairs per chunk.
 
 The dense kernels reuse the visible-work costs: a ``decode_attention``
 call is ``decode_visible_cost(lengths, window=...)`` (``min(length,
@@ -200,3 +201,32 @@ def grouped_matmul_cost(group_sizes: Sequence[int], *, d_in: int,
         "grouped_matmul", float(2 * rows * d_in * d_out),
         float((rows * d_in + live * d_in * d_out + rows * d_out) * itemsize
               + 4 * len(group_sizes)))
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD scan
+# ---------------------------------------------------------------------------
+def ssd_scan_cost(*, batch: int, seq: int, heads: int, head_dim: int,
+                  d_state: int, chunk: int, itemsize: int,
+                  init_state: bool) -> KernelCost:
+    """One chunked SSD scan over (batch, seq) positions in chunks of
+    ``chunk``.  FLOPs per (row, chunk): the scores C B^T over the chunk's
+    Q (Q + 1) / 2 causal pairs once for all heads (B and C are shared,
+    2 N a pair); per head, the scores times x (2 P a pair), the read-out of
+    the carried state (2 Q P N, skipped for a row's first chunk when it
+    starts from zeros) and the state update (2 Q P N).  Decays and
+    exponentials are not counted.  Bytes: x, dt (float32), A (float32),
+    Bm and Cm read once, the initial state read once when given, y and the
+    final state written once."""
+    nc, Q = seq // chunk, chunk
+    pairs = Q * (Q + 1) // 2
+    P, N, H = head_dim, d_state, heads
+    readouts = nc if init_state else nc - 1
+    flops = batch * (nc * (2 * N * pairs + H * (2 * P * pairs + 2 * Q * P * N))
+                     + readouts * H * 2 * Q * P * N)
+    state = batch * H * P * N * itemsize
+    hbm = (2 * batch * seq * H * P * itemsize          # x in, y out
+           + batch * seq * H * 4 + H * 4               # dt, A
+           + 2 * batch * seq * N * itemsize            # Bm, Cm
+           + state * (2 if init_state else 1))         # init, final
+    return KernelCost("ssd_scan", float(flops), float(hbm))

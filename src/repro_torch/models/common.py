@@ -82,3 +82,40 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# causal depthwise conv (Mamba / RG-LRU front conv)
+# ---------------------------------------------------------------------------
+# Written as the reference writes it, K shifted multiply-adds in float32
+# rounded once, and not as F.conv1d: on the card a float32 convolution goes
+# through cuDNN in TF32 by default, which would break f32 token identity.
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, *, cache=None):
+    """Depthwise causal conv.  x: (B, S, C), w: (K, C).
+
+    cache: (B, K-1, C) trailing context from the previous segment (or None).
+    Returns (y (B, S, C), new_cache (B, K-1, C)).
+    """
+    B, S, C = x.shape
+    K = w.shape[0]
+    if cache is None:
+        cache = x.new_zeros(B, K - 1, C)
+    xp = torch.cat([cache.to(x.dtype), x], dim=1)            # (B, S+K-1, C)
+    wf = w.float()
+    y = torch.zeros(B, S, C, dtype=torch.float32, device=x.device)
+    for i in range(K):
+        y = y + xp[:, i:i + S].float() * wf[i]
+    new_cache = xp[:, S:] if K > 1 else x.new_zeros(B, 0, C)
+    return y.to(x.dtype), new_cache
+
+
+def conv1d_decode_step(x: torch.Tensor, w: torch.Tensor, cache: torch.Tensor):
+    """One-token conv step.  x: (B, C), cache: (B, K-1, C).  Returns
+    (y (B, C), new_cache (B, K-1, C))."""
+    K = w.shape[0]
+    full = torch.cat([cache.to(x.dtype), x[:, None, :]], dim=1)  # (B, K, C)
+    wf = w.float()
+    y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(K):
+        y = y + full[:, i].float() * wf[i]
+    return y.to(x.dtype), full[:, 1:]

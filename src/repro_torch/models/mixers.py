@@ -11,10 +11,10 @@ serving:
   - ``SLOT``      O(1) per-request dense state in a fixed decode seat;
   - ``WINDOWED``  paged, with out-of-window blocks freed.
 
-``ATTN`` and ``MLA`` are registered so far.  The other kinds register
-when their family is ported (ROADMAP.md, "Modules to port"); until then
-:func:`model_state_layout` refuses a config that uses them with a typed
-``ServePlanError``.
+``ATTN``, ``MLA`` and ``SSD`` are registered so far.  The other kinds
+register when their family is ported (ROADMAP.md, "Modules to port");
+until then :func:`model_state_layout` refuses a config that uses them with
+a typed ``ServePlanError``.
 """
 from __future__ import annotations
 
@@ -23,8 +23,8 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ATTN, MLA
-from repro_torch.models import attention, mla as mla_mod
+from repro_torch.configs.base import ATTN, MLA, SSD
+from repro_torch.models import attention, mamba2 as m2, mla as mla_mod
 
 # decode-state kinds under paged serving ------------------------------------
 PAGED = "paged"
@@ -57,9 +57,13 @@ class MixerSpec:
     init_cache: Callable       # (cfg, batch, eff_len, dtype, device)
     #                             -> one-layer cache leaves
     init_state: Callable       # (cfg, *, layers, num_blocks, block_size,
-    #                             dtype, device) -> stacked state leaves
+    #                             num_slots, dtype, device) -> stacked
+    #                             state leaves (slot leaves carry
+    #                             num_slots + 1 rows: the last is the null
+    #                             seat of filler rows)
     decode_paged: Callable     # (p, h, positions, cfg, state, tables, *,
-    #                             block_size, window, kernels) -> y
+    #                             block_size, window, kernels, slot_mask)
+    #                             -> y; slot_mask (B,) bool gates slot state
     prefill_paged: Callable    # (p, h, starts, limits, slots, cfg, state,
     #                             tables, *, block_size, window, kernels) -> y
     #   batched: h (P, C, D); starts/limits/slots (P,); tables (P, W) — all
@@ -199,7 +203,8 @@ def model_state_layout(cfg) -> ModelStateLayout:
 # ---------------------------------------------------------------------------
 # registrations
 # ---------------------------------------------------------------------------
-def _attn_init_state(cfg, *, layers, num_blocks, block_size, dtype, device):
+def _attn_init_state(cfg, *, layers, num_blocks, block_size, num_slots,
+                     dtype, device):
     shape = (layers, num_blocks, block_size, cfg.num_kv_heads,
              cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -223,7 +228,7 @@ register_mixer(MixerSpec(
     init_cache=attention.init_kv_cache,
     init_state=_attn_init_state,
     decode_paged=lambda p, h, positions, cfg, state, tables, *, block_size,
-        window, kernels: attention.attn_decode_paged(
+        window, kernels, slot_mask=None: attention.attn_decode_paged(
             p["attn"], h, positions, cfg, state, tables,
             block_size=block_size, window=window, kernels=kernels),
     prefill_paged=lambda p, h, starts, limits, slots, cfg, state, tables, *,
@@ -248,13 +253,74 @@ register_mixer(MixerSpec(
     decode=lambda p, h, pos, cfg, cache, *, window: mla_mod.mla_decode(
         p["attn"], h, pos, cfg, cache, window=window),
     init_cache=mla_mod.init_mla_cache,
-    init_state=mla_mod.init_mla_pool,
+    init_state=lambda cfg, *, layers, num_blocks, block_size, num_slots,
+        dtype, device: mla_mod.init_mla_pool(
+            cfg, layers=layers, num_blocks=num_blocks, block_size=block_size,
+            dtype=dtype, device=device),
     decode_paged=lambda p, h, positions, cfg, state, tables, *, block_size,
-        window, kernels: mla_mod.mla_decode_paged(
+        window, kernels, slot_mask=None: mla_mod.mla_decode_paged(
             p["attn"], h, positions, cfg, state, tables,
             block_size=block_size, kernels=kernels),
     prefill_paged=lambda p, h, starts, limits, slots, cfg, state, tables, *,
         block_size, window, kernels: mla_mod.mla_prefill_chunk_paged(
             p["attn"], h, starts, limits, cfg, state, tables,
             block_size=block_size, kernels=kernels),
+))
+
+
+def _gate_slot_update(state, new, slot_mask) -> None:
+    """Write a slot mixer's new decode state in place, keeping inactive
+    seats' state untouched.
+
+    The batched decode step advances EVERY seat (empty or prefilling seats
+    run a dummy token).  Paged mixers are safe by construction (dummy
+    writes land in the null block), but a slot mixer's recurrence would
+    absorb the dummy, so the write is gated per seat: ``slot_mask`` (B,)
+    bool, True where the seat holds a RUNNING request (None: write all).
+    """
+    for k, v in new.items():
+        old = state[k]
+        v = v.to(old.dtype)
+        if slot_mask is not None:
+            m = slot_mask.reshape((-1,) + (1,) * (v.ndim - 1))
+            v = torch.where(m, v, old)
+        old.copy_(v)
+
+
+def _ssd_forward(p, h, positions, cfg, *, window, want_cache):
+    if want_cache:
+        return m2.mamba2_forward(p["mixer"], h, cfg, return_cache=True)
+    return m2.mamba2_forward(p["mixer"], h, cfg), None
+
+
+def _ssd_decode(p, h, pos, cfg, cache, *, window):
+    y, new = m2.mamba2_decode(p["mixer"], h, cfg, cache)
+    _gate_slot_update(cache, new, None)
+    return y
+
+
+def _ssd_decode_paged(p, h, positions, cfg, state, tables, *, block_size,
+                      window, kernels, slot_mask=None):
+    B = h.shape[0]                      # the seats; the null seat is last
+    seats = {k: v[:B] for k, v in state.items()}
+    y, new = m2.mamba2_decode(p["mixer"], h, cfg, seats)
+    _gate_slot_update(seats, new, slot_mask)
+    return y
+
+
+register_mixer(MixerSpec(
+    kind=SSD, state=SLOT, param_key="mixer",
+    init=m2.init_mamba2,
+    forward=_ssd_forward,
+    decode=_ssd_decode,
+    init_cache=lambda cfg, batch, eff_len, dtype, device:
+        m2.init_mamba2_cache(cfg, batch, dtype, device),
+    init_state=lambda cfg, *, layers, num_blocks, block_size, num_slots,
+        dtype, device: m2.init_mamba2_pool(cfg, layers=layers,
+                                           num_slots=num_slots, dtype=dtype,
+                                           device=device),
+    decode_paged=_ssd_decode_paged,
+    prefill_paged=lambda p, h, starts, limits, slots, cfg, state, tables, *,
+        block_size, window, kernels: m2.mamba2_prefill_chunk(
+            p["mixer"], h, starts, limits, slots, cfg, state),
 ))

@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import DENSE_FFN, MOE_FFN
+from repro_torch.configs.base import DENSE_FFN, MOE_FFN, NO_FFN
 from repro_torch.core.tree import tree_map
 from repro_torch.models import mixers as MX, moe as moe_mod
 from repro_torch.models.attention import DecodePosition
@@ -44,10 +44,12 @@ def _init_sublayer(cfg, kind, gen: torch.Generator, repeat: int):
     p: dict = {"norm1": torch.zeros(repeat, d, dtype=dt, device=gen.device)}
     spec = MX.get_mixer(mixer)
     p[spec.param_key] = spec.init(cfg, gen, lead=lead)
-    if ffn not in (DENSE_FFN, MOE_FFN):
+    if ffn not in (DENSE_FFN, MOE_FFN, NO_FFN):
         raise NotImplementedError(
             f"{cfg.name}: FFN kind {ffn!r} is not ported yet (ROADMAP.md, "
             "'Modules to port')")
+    if ffn == NO_FFN:              # mamba2 blocks: no norm2, no FFN
+        return p
     p["norm2"] = torch.zeros(repeat, d, dtype=dt, device=gen.device)
     if ffn == MOE_FFN:
         p["ffn"] = moe_mod.init_moe(cfg, gen, lead=lead)
@@ -79,8 +81,11 @@ def init_model(cfg, gen: torch.Generator):
 
 
 def _ffn(p, x, cfg, ffn, metrics=None):
-    """The FFN leg: x + FFN(norm2(x)).  For the MoE FFN, ``metrics`` (a
-    dict) accumulates the router's loss terms; None skips computing them."""
+    """The FFN leg: x + FFN(norm2(x)), or x for a block without one.  For
+    the MoE FFN, ``metrics`` (a dict) accumulates the router's loss terms;
+    None skips computing them."""
+    if ffn == NO_FFN:
+        return x
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     if ffn == MOE_FFN:
         y, mm = moe_mod.moe_forward(p["ffn"], h, cfg,
@@ -214,15 +219,19 @@ def _unembed(params, cfg):
 
 
 def decode_step_paged(params, tokens, positions, cfg, kv_pools, block_tables,
-                      *, block_size: int, kernels: str = "fused"):
+                      *, block_size: int, slot_mask=None,
+                      kernels: str = "fused"):
     """Continuous-batching decode: one token per slot at per-slot positions.
 
     tokens: (B, 1) int; positions: (B,) absolute write positions; kv_pools:
     :class:`~repro_torch.serve.paged_kv.StatePool` state, paged leaves
     (L, N_blocks, block, ...), written in place; block_tables: (B, W)
-    int32.  ``kernels``: ``"fused"`` or ``"composed"`` lowering
-    (``ops.resolve_paged_path``; a mixer without a fused decode hook takes
-    its composed path).  Returns logits (B, 1, V_pad).
+    int32; slot_mask: (B,) bool, True where the seat holds a RUNNING
+    request: inactive seats' dummy decode must not advance slot-state
+    recurrences (None advances every seat).  ``kernels``: ``"fused"`` or
+    ``"composed"`` lowering (``ops.resolve_paged_path``; a mixer without a
+    fused decode hook takes its composed path).  Returns logits
+    (B, 1, V_pad).
     """
     x = F.embedding(tokens.long(), params["embed"])
     for mixer, ffn, sub_p, kv in _layers(params, cfg, kv_pools):
@@ -230,7 +239,7 @@ def decode_step_paged(params, tokens, positions, cfg, kv_pools, block_tables,
         x = x + spec.decode_paged(
             sub_p, rms_norm(x, sub_p["norm1"], cfg.norm_eps), positions, cfg,
             kv, block_tables, block_size=block_size, window=spec.window(cfg),
-            kernels=kernels)
+            kernels=kernels, slot_mask=slot_mask)
         x = _ffn(sub_p, x, cfg, ffn)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ _unembed(params, cfg).T
@@ -244,7 +253,8 @@ def prefill_chunk_paged(params, tokens, starts, limits, slots, cfg, kv_pools,
     tokens: (P, C) — every prompt chunk the scheduler admitted this
     iteration, row ``r``'s first token at absolute position ``starts[r]``;
     ``limits``: (P,) true prompt lengths (0 = filler row); ``slots``: (P,)
-    decode seats (read by slot-state mixers); block_tables: (P, W).  Writes
+    decode seats, read and written by slot-state mixers (filler rows carry
+    the null seat, ``max_slots``); block_tables: (P, W).  Writes
     every row's K/V into the pool pages in place and returns the logits of
     each row's last in-chunk prompt token, (P, V_pad) — the only position
     any caller reads, so the unembedding runs over P rows, not P*C.

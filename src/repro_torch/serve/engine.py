@@ -3,9 +3,11 @@
 The port of ``repro.serve.engine``'s ``GenerateConfig``/``Generator``/
 ``_seat`` on one device.  A batch of equal-length prompts is prefilled in
 one ``forward(mode="prefill")`` (one ``flash_attention`` launch per
-layer), its caches are seated into decode caches of ``max_len`` entries,
-and ``decode_step`` then advances every row one token per step (one
-``decode_attention`` launch per layer).  This is the fixed-batch mode of
+attention layer, one ``ssd_scan`` per SSD layer), its caches are seated
+into decode caches of ``max_len`` entries (an SSD layer's constant-size
+state whole), and ``decode_step`` then advances every row one token per
+step (one ``decode_attention`` launch per attention layer; the SSD
+recurrence step is plain PyTorch, as in the reference).  This is the fixed-batch mode of
 ``launch/serve.py`` and the sequential baseline HyperServe is held to.
 
 The step positions stay Python ints and the sampled tokens stay on the
@@ -110,12 +112,17 @@ class Generator:
 
 
 def _seat(dcaches, pcaches):
-    """Copy prefill caches into the (larger) decode cache buffers, in
-    place: each (L, B, S, ...) leaf takes the last ``min(S_prompt,
-    S_decode)`` prompt entries at its start, as the reference's
-    ``_seat`` does."""
+    """Copy prefill caches into the decode cache buffers, in place, as the
+    reference's ``_seat`` does: a leaf of the prefill's shape (the SSD
+    state (L, B, H, P, N) and conv tail (L, B, K-1, C)) is copied whole;
+    else an (L, B, S, ...) KV leaf takes the last ``min(S_prompt,
+    S_decode)`` prompt entries at its start; any other leaf is left
+    as it is."""
     def seat_leaf(d, p):
-        n = min(p.shape[2], d.shape[2])
-        d[:, :, :n] = p[:, :, p.shape[2] - n:].to(d.dtype)
+        if d.shape == p.shape:
+            d.copy_(p)
+        elif d.ndim >= 4 and p.ndim == d.ndim:
+            n = min(p.shape[2], d.shape[2])
+            d[:, :, :n] = p[:, :, p.shape[2] - n:].to(d.dtype)
         return d
     return tree_map(seat_leaf, dcaches, pcaches)

@@ -9,7 +9,9 @@ The port of ``repro.serve.paged_kv``.  Two pieces:
   - :class:`StatePool` — the device tensors themselves, one leaf dict per
     (segment, sublayer) with the layout the mixer registry declares:
     paged leaves ``(L, N_blocks, block, ...)`` indexed through block
-    tables.  Host-driven page extract/insert serves spill/restore.
+    tables, slot leaves ``(L, num_slots + 1, ...)`` one row per decode
+    seat plus the null seat.  Host-driven page and seat extract/insert
+    serve spill/restore.
 
 Block id 0 is the **null block**: never allocated, the write target for
 inactive batch slots, the padding entry of every block table.  Reads
@@ -172,24 +174,34 @@ class BlockManager:
 class StatePool:
     """The pooled decode-state tensors for every layer of one model.
 
-    Per segment a tuple of per-sublayer leaf dicts, each leaf
-    ``(L, N_blocks, block, KV, hd)``: the per-request sequence dim is
-    replaced by the shared (block, offset) pool that block tables index,
-    and the leading stacked-layer axis is what the model's layer loop
-    slices.  Construction resolves the config against the mixer registry
+    Per segment a tuple of per-sublayer leaf dicts, with the layout the
+    mixer registry declares for the sublayer:
+
+      - **paged** sublayers (ATTN, MLA): leaves ``(L, N_blocks, block,
+        ...)`` — the per-request sequence dim is replaced by the shared
+        (block, offset) pool that block tables index;
+      - **slot** sublayers (SSD): leaves ``(L, num_slots + 1, ...)`` — O(1)
+        dense recurrent state, one row per decode seat, and last the null
+        seat that filler prefill rows write (never read by a request).
+
+    The leading stacked-layer axis is what the model's layer loop slices.
+    Construction resolves the config against the mixer registry
     (:func:`repro_torch.models.mixers.model_state_layout`) — an
     unregistered mixer kind raises a typed ``ServePlanError`` here.
     """
 
-    def __init__(self, cfg, pcfg: PagedKVConfig, *, device):
+    def __init__(self, cfg, pcfg: PagedKVConfig, *, num_slots: int = 1,
+                 device):
         self.cfg = cfg
         self.pcfg = pcfg
+        self.num_slots = num_slots
         self.layout = MX.model_state_layout(cfg)
         dt = getattr(torch, pcfg.dtype)
         self.state: dict = {
             seg.name: tuple(spec.init_state(
                 cfg, layers=seg.repeat, num_blocks=pcfg.num_blocks,
-                block_size=pcfg.block_size, dtype=dt, device=device)
+                block_size=pcfg.block_size, num_slots=num_slots, dtype=dt,
+                device=device)
                 for spec in seg.specs)
             for seg in self.layout.segments}
 
@@ -197,24 +209,68 @@ class StatePool:
         return sum(a.numel() * a.element_size()
                    for a in tree_leaves(self.state))
 
+    # -- structural helpers ------------------------------------------------
+    # Every pool operation below targets one side of the paged/slot split;
+    # these two visitors are the one place the segment/sublayer walk (and
+    # the split itself) is written.
+    def _collect(self, want_slot: bool, fn):
+        """Structure-preserving gather: ``fn(leaf)`` on every leaf of the
+        matching sublayers, ``{}`` placeholders elsewhere (so an insert can
+        realign)."""
+        return {seg.name: tuple(
+            tree_map(fn, self.state[seg.name][j])
+            if (spec.state == MX.SLOT) == want_slot else {}
+            for j, spec in enumerate(seg.specs))
+            for seg in self.layout.segments}
+
+    def _rewrite(self, want_slot: bool, fn, values=None) -> None:
+        """``fn(leaf[, value])`` in place on every leaf of the matching
+        sublayers (``values`` aligned as :meth:`_collect` returns them)."""
+        for seg in self.layout.segments:
+            for j, spec in enumerate(seg.specs):
+                if (spec.state == MX.SLOT) != want_slot:
+                    continue
+                sub = self.state[seg.name][j]
+                if values is None:
+                    tree_map(fn, sub)
+                else:
+                    tree_map(fn, sub, values[seg.name][j])
+
     # -- host-driven page movement (spill / restore / CoW copy) ------------
     def _idx(self, bids: Sequence[int]) -> torch.Tensor:
         device = tree_leaves(self.state)[0].device
         return torch.tensor(list(bids), dtype=torch.long, device=device)
 
     def extract_pages(self, bids: Sequence[int]):
-        """Copy blocks ``bids`` out of every paged leaf: (L, n, bs, ...)."""
+        """Copy blocks ``bids`` out of every paged leaf: (L, n, bs, ...);
+        slot sublayers contribute an empty dict."""
         idx = self._idx(bids)
-        return tree_map(lambda a: a[:, idx], self.state)
+        return self._collect(False, lambda a: a[:, idx])
 
     def insert_pages(self, pages, bids: Sequence[int]) -> None:
         idx = self._idx(bids)
 
         def put(a, p):
             a[:, idx] = p.to(a.dtype)
-        tree_map(put, self.state, pages)
+        self._rewrite(False, put, pages)
 
     def copy_page(self, src: int, dst: int) -> None:
         def cp(a):
             a[:, dst] = a[:, src]
-        tree_map(cp, self.state)
+        self._rewrite(False, cp)
+
+    # -- per-seat dense state (seating / eviction) -------------------------
+    def extract_slot(self, slot: int):
+        """Copy one decode seat's dense state rows out: leaf (L, 1, ...);
+        paged sublayers contribute an empty dict."""
+        return self._collect(True, lambda a: a[:, slot:slot + 1].clone())
+
+    def insert_slot(self, slot: int, values) -> None:
+        def put(a, v):
+            a[:, slot:slot + 1] = v.to(a.dtype)
+        self._rewrite(True, put, values)
+
+    def zero_slot(self, slot: int) -> None:
+        """Reset one seat's dense state (a newly admitted request must not
+        inherit the previous occupant's recurrence)."""
+        self._rewrite(True, lambda a: a[:, slot].zero_())

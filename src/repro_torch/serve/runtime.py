@@ -11,7 +11,11 @@ mesh, shardings, disaggregation or MPMD groups.  It composes the paged pool
     run one decode step for all slots    # every runner advances one token
 
 The decode batch is a fixed set of ``max_slots`` seats; empty seats decode
-a dummy token against the null block and their logits are ignored.  Every
+a dummy token against the null block and their logits are ignored, and a
+slot mixer's (SSD) per-seat state is written only for running seats
+(``slot_mask``).  A fresh admission zeroes its seat's state; a preempted
+request's seat rows are archived beside its pages and re-seated with
+them.  Every
 attention layer of a step runs the paged path that ``ServeConfig.kernels``
 resolves to (``ops.resolve_paged_path``): the fused block-table-walking
 kernels, or the composed lowering (gather, then the dense kernels); on the
@@ -89,7 +93,8 @@ class ServeEngine:
         self.pcfg = scfg.paged_config(model_dtype=cfg.dtype)
         # resolves cfg against the mixer registry; typed ServePlanError for
         # unservable stacks (unregistered mixer kinds)
-        self.pool = StatePool(cfg, self.pcfg, device=self.device)
+        self.pool = StatePool(cfg, self.pcfg, num_slots=scfg.max_slots,
+                              device=self.device)
         self.layout = self.pool.layout
         self.blocks = BlockManager(self.pcfg, HostArchive(self.device))
         # predictive restore: a lookahead prefetcher stages restores for
@@ -129,9 +134,12 @@ class ServeEngine:
     # tier-movement callbacks (scheduler-driven)
     # ------------------------------------------------------------------
     def _spill(self, req: Request) -> None:
-        """Archive a preempted request's pages."""
+        """Archive a preempted request's pages AND its dense seat rows."""
         with self.obs.trace.span("serve.spill", track="engine", rid=req.rid,
                                  blocks=len(req.table)):
+            if self.layout.has_slot_state:
+                self.blocks.archive.put(req.slot_archive_key,
+                                        self.pool.extract_slot(req.slot))
             self.blocks.spill(req.archive_key, req.table,
                               self.pool.extract_pages)
         self.obs.metrics.counter("serve.spills").inc()
@@ -147,10 +155,20 @@ class ServeEngine:
         # allocate BEFORE consuming staged state: NoFreeBlocks aborts the
         # resume with both the archive entry and the prefetch buffer
         # intact, so the retry next iteration is identical
+        pf = self._restore_prefetch
         bids = self.blocks.alloc(req.spilled_blocks)
-        pages, hit = self._restore_prefetch.take(req.archive_key)
+        pages, hit = pf.take(req.archive_key)
         self.blocks.archive.discard(req.archive_key)
         self.pool.insert_pages(pages, bids)
+        # the scheduler seats req.slot before calling this, so the dense
+        # seat rows are re-seated here, with the pages (seating them later
+        # in step() would lose a same-iteration re-preemption race: _spill
+        # would archive the seat's stale rows)
+        if self.layout.has_slot_state:
+            rows, slot_hit = pf.take(req.slot_archive_key)
+            self.blocks.archive.discard(req.slot_archive_key)
+            self.pool.insert_slot(req.slot, rows)
+            hit = hit and slot_hit
         if hit:
             # the request's archived pages were already moving before
             # _admit asked for them
@@ -170,6 +188,8 @@ class ServeEngine:
         for req in near:
             if req.archive_key in arch:
                 pf.stage(req.archive_key)
+            if self.layout.has_slot_state and req.slot_archive_key in arch:
+                pf.stage(req.slot_archive_key)
 
     def _reclaim(self, n: int) -> int:
         """Evict LRU prefix-cache entries until >= n blocks are freed."""
@@ -308,6 +328,11 @@ class ServeEngine:
         plan = self.scheduler.schedule()
         if plan.near_head or self._restore_prefetch.entries:
             self._stage_restores(plan.near_head)
+        if self.layout.has_slot_state:
+            # fresh admissions must not inherit the previous occupant's
+            # recurrence (resumed requests were re-seated inside _restore)
+            for req in plan.admitted:
+                self.pool.zero_slot(req.slot)
         events: List[Tuple[int, int]] = []
         if plan.prefill:
             gsz = self.scfg.prefill_batch
@@ -325,10 +350,12 @@ class ServeEngine:
             tokens = np.zeros((B, 1), np.int32)
             positions = np.zeros((B,), np.int32)
             tables = np.zeros((B, W), np.int32)
+            slot_mask = np.zeros((B,), bool)
             for r in runners:
                 tokens[r.slot, 0] = r.generated[-1]
                 positions[r.slot] = r.total_len - 1
                 tables[r.slot, :len(r.table)] = r.table
+                slot_mask[r.slot] = True
             self.obs.record_compile("paged_decode", (B, W))
             self.obs.metrics.counter(
                 f"serve.kernels.decode.{self.kernel_path}").inc()
@@ -339,6 +366,8 @@ class ServeEngine:
                     self.params, self._tensor(tokens),
                     self._tensor(positions), self.cfg, self.pool.state,
                     self._tensor(tables), block_size=self.scfg.block_size,
+                    slot_mask=(self._tensor(slot_mask)
+                               if self.layout.has_slot_state else None),
                     kernels=self.kernel_path)
                 if all(r.temperature <= 0 and not r.capture_logprobs
                        for r in runners):

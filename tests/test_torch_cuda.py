@@ -1,12 +1,13 @@
 """The port's CUDA kernels, its serving path and its Generator on the card.
 
-The six kernels (fused paged decode, ragged prefill, flash attention
+The seven kernels (fused paged decode, ragged prefill, flash attention
 with per-row query offsets and MLA's (Dk, Dv) = (96, 64) and (192, 128),
 dense decode with a window, MLA paged decode, the MoE grouped matmul with
-empty and single-expert groups) against their plain versions, the
-wrappers' refusals (shapes, dtypes, inputs that require grad), and the
-Generator and HyperServe on the card token-identical to the CPU, for
-qwen2-0.5b and for deepseek-v2-lite (MLA + MoE).
+empty and single-expert groups, the Mamba-2 SSD scan at chunks of 256,
+100, 8 and 1 with and without an initial state) against their plain
+versions, the wrappers' refusals (shapes, dtypes, inputs that require
+grad), and the Generator and HyperServe on the card token-identical to
+the CPU, for qwen2-0.5b, deepseek-v2-lite (MLA + MoE) and mamba2-370m.
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
 CUDA kernels have no CPU mode; on the CPU the wrappers run the plain
@@ -25,7 +26,13 @@ inputs (plus 4e-6 where a step is smaller than the float32 differences;
 cuBLAS's by up to 1.335e-5, as ``chip_smoke.py`` measured on an H100 80GB
 HBM3 at 700 W).
 The MLA decode kernel returns float32 from bfloat16 inputs, both sides
-computing in float32: 1e-4 abs.
+computing in float32: 1e-4 abs.  The SSD scan's decays exp(cs_q - cs_k)
+are differences of running sums of dt * A that reach |cs| ~ 200 in a chunk
+of 256, so every float32 evaluation carries ~|cs| 2^-24 relative error in
+them, and two that sum in different orders differ by about twice the plain
+version's own distance from a float64 evaluation: its float32 limit, and
+its bfloat16 slack, is 2e-5 times max(1, the largest |output|) of the
+tensor plus twice that distance.
 """
 import dataclasses
 
@@ -39,6 +46,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import grouped_matmul as gm  # noqa: E402
 from repro_torch.kernels import paged_decode_attention as pda  # noqa: E402
 from repro_torch.kernels import ragged_prefill_attention as rpa  # noqa: E402
+from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serve.api import HyperServe  # noqa: E402
 from repro_torch.serve.engine import GenerateConfig, Generator  # noqa: E402
@@ -407,3 +415,137 @@ def test_deepseek_serving_on_the_card_matches_the_cpu(cuda):
         max_new_tokens=n))[0, len(p):].tolist()
         for p, n in zip(prompts, max_new)]
     assert got == want
+
+
+def _ssd_inputs(dtype, device, B, S, H, P, N, seed, init):
+    """The reference kernel test's scales; row 0's last 40 positions have
+    dt = 0 (a prompt's padding)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, S, H, P, generator=g) * 0.3
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g))
+    dt[0, -40:] = 0.0
+    A = -torch.exp(torch.randn(H, generator=g) * 0.3)
+    Bm = torch.randn(B, S, N, generator=g) * 0.3
+    Cm = torch.randn(B, S, N, generator=g) * 0.3
+    s0 = torch.randn(B, H, P, N, generator=g) if init else None
+    to = lambda t: t.to(device, dtype)  # noqa: E731
+    return ((to(x), dt.to(device), A.to(device), to(Bm), to(Cm)),
+            None if s0 is None else to(s0))
+
+
+def _ssd_close(got, want, want32, want64):
+    """The SSD limit of the module docstring."""
+    tol = (2e-5 * max(1.0, want32.abs().max().item())
+           + 2 * (want32.double() - want64).abs().max().item())
+    if got.dtype == torch.float32:
+        assert (got - want).abs().max().item() <= tol
+        return
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= _bf16_step(want) + tol).all())
+    err32 = (got.float() - want32).abs()
+    assert bool((err32 <= 0.5 * _bf16_step(want32) + tol).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("S,Q,P,N", [(512, 256, 64, 128), (200, 100, 64, 128),
+                                     (64, 8, 64, 128), (45, 1, 32, 16),
+                                     (96, 32, 32, 16)])
+def test_ssd_scan_kernel_matches_plain_version(cuda, dtype, init, S, Q, P,
+                                               N):
+    args, s0 = _ssd_inputs(dtype, cuda, 2, S, 3, P, N, seed=S + Q, init=init)
+    n0 = ss.ssd_scan.launches
+    y, fin = ss.ssd_scan(*args, chunk=Q, init_state=s0)
+    assert ss.ssd_scan.launches == n0 + 1
+    assert y.dtype == fin.dtype == dtype
+    want = ss.ssd_scan_ref(*args, chunk=Q, init_state=s0)
+    args32 = [a.float() for a in args]
+    want32 = ss.ssd_scan_ref(*args32, chunk=Q, init_state=None if s0 is None
+                             else s0.float())
+    want64 = ss.ssd_scan_ref(*[a.double() for a in args], chunk=Q,
+                             init_state=None if s0 is None else s0.double(),
+                             acc=torch.float64)
+    for g, w, w32, w64 in zip((y, fin), want, want32, want64):
+        _ssd_close(g, w, w32, w64)
+
+
+def test_ssd_scan_kernel_takes_strided_views_and_f32_state(cuda):
+    """x, B and C as the model hands them over (column slices of one
+    projection, so strided rows), and a float32 initial state with
+    bfloat16 inputs."""
+    g = torch.Generator().manual_seed(1)
+    B, S, H, P, N = 2, 128, 4, 64, 128
+    xbc = (torch.randn(B, S, H * P + 2 * N, generator=g) * 0.3).to(
+        cuda, torch.bfloat16)
+    x = xbc[..., :H * P].reshape(B, S, H, P)
+    Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g)).to(
+        cuda)
+    A = -torch.ones(H, device=cuda)
+    s0 = torch.randn(B, H, P, N, generator=g).to(cuda)
+    got = ss.ssd_scan(x, dt, A, Bm, Cm, chunk=64, init_state=s0)
+    want = ss.ssd_scan_ref(x.contiguous(), dt, A, Bm.contiguous(),
+                           Cm.contiguous(), chunk=64, init_state=s0)
+    want32 = ss.ssd_scan_ref(x.float(), dt, A, Bm.float(), Cm.float(),
+                             chunk=64, init_state=s0)
+    want64 = ss.ssd_scan_ref(*[t.double() for t in (x, dt, A, Bm, Cm)],
+                             chunk=64, init_state=s0.double(),
+                             acc=torch.float64)
+    for gt, w, w32, w64 in zip(got, want, want32, want64):
+        _ssd_close(gt, w, w32, w64)
+
+
+def test_ssd_scan_refusals_and_no_plain_version_on_the_card(cuda,
+                                                            monkeypatch):
+    """An unbuilt (P, N), a chunk above 256 or not dividing S, and an
+    input that requires grad are refused before any launch; on a CUDA
+    tensor the wrapper never runs the plain version."""
+    args, _ = _ssd_inputs(torch.float32, cuda, 1, 64, 2, 32, 16, seed=4,
+                          init=False)
+    x, dt, A, Bm, Cm = args
+    n0 = ss.ssd_scan.launches
+    with pytest.raises(ValueError, match=r"\(P, N\)"):
+        ss.ssd_scan(x[..., :16], dt, A, Bm[..., :8], Cm[..., :8], chunk=8)
+    with pytest.raises(ValueError, match="chunk"):
+        ss.ssd_scan(*args, chunk=24)
+    with pytest.raises(ValueError, match="dtypes"):
+        ss.ssd_scan(x.half(), dt, A, Bm.half(), Cm.half(), chunk=8)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ss.ssd_scan(x, dt.clone().requires_grad_(), A, Bm, Cm, chunk=8)
+    assert ss.ssd_scan.launches == n0
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+    monkeypatch.setattr(ss, "ssd_scan_ref", plain)
+    ss.ssd_scan(*args, chunk=8)
+    assert ss.ssd_scan.launches == n0 + 1
+
+
+def test_mamba2_serving_on_the_card_matches_the_cpu(cuda):
+    """Reduced mamba2-370m in float32: greedy tokens on the card (the SSD
+    scan kernel) equal the CPU's (plain versions) and the card Generator's,
+    with one ssd_scan launch per layer and prefill call."""
+    cfg = dataclasses.replace(get_config("mamba2-370m").reduced(),
+                              dtype="float32")
+    params = M.init_model(cfg, torch.Generator().manual_seed(0))
+    scfg = ServeConfig(block_size=4, num_blocks=48, max_blocks_per_req=8,
+                       max_slots=4, prefill_chunk=4, prefill_batch=4,
+                       enable_prefix_cache=False)
+    prompts = [list(range(1, 14)), list(range(20, 23)), list(range(30, 39))]
+    max_new = [5, 7, 4]
+    outs = {}
+    for device in ("cpu", cuda):
+        n0 = ss.ssd_scan.launches
+        serve = HyperServe(cfg, params, device=device, serve_cfg=scfg)
+        rids = [serve.submit(p, n) for p, n in zip(prompts, max_new)]
+        out = serve.join()
+        outs[str(device)] = [out[r] for r in rids]
+        if device != "cpu":
+            calls = serve.stats()["prefill_calls"]
+            assert ss.ssd_scan.launches - n0 == cfg.num_layers * calls
+    assert outs["cpu"] == outs[str(cuda)]
+    gen = Generator(cfg, params, max_len=32, device=cuda)
+    got = [gen.generate(torch.tensor([p], device=cuda), GenerateConfig(
+        max_new_tokens=n))[0, len(p):].tolist()
+        for p, n in zip(prompts, max_new)]
+    assert got == outs["cpu"]

@@ -101,6 +101,24 @@ def test_launcher_serves_the_moe_archs_on_an_explicit_cpu(capsys, arch):
     assert "generated 6 tokens" in out
 
 
+def test_launcher_serves_mamba2_on_an_explicit_cpu(capsys):
+    """mamba2-370m (SSD, per-seat state, no pages) through ``--arch``:
+    served continuously, with no block ever taken, and generated in a
+    fixed batch."""
+    from repro_torch.launch import serve as launcher
+    launcher.main(["--arch", "mamba2-370m", "--reduced", "--continuous",
+                   "--device", "cpu", "--requests", "3", "--max-new", "4",
+                   "--block-size", "4", "--num-blocks", "64",
+                   "--prefill-chunk", "8", "--metrics"])
+    out = capsys.readouterr().out
+    assert "served 3 requests" in out and "on cpu" in out
+    assert "peak-free blocks=63 preemptions=0" in out
+    launcher.main(["--arch", "mamba2-370m", "--reduced", "--device", "cpu",
+                   "--batch", "2", "--prompt-len", "6", "--max-new", "3"])
+    out = capsys.readouterr().out
+    assert "generated 6 tokens" in out
+
+
 @pytest.mark.parametrize("window", [0, 4])
 def test_launcher_runs_fixed_batch_generation_on_an_explicit_cpu(capsys,
                                                                  window):

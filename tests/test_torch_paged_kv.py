@@ -19,7 +19,8 @@ from hypothesis import given, settings, strategies as st  # noqa: E402
 
 from repro.serve import paged_kv as ref_kv  # noqa: E402
 from repro_torch.api.errors import ServePlanError  # noqa: E402
-from repro_torch.configs.base import ModelConfig, get_config  # noqa: E402
+from repro_torch.configs.base import (ModelConfig, RGLRUConfig,  # noqa: E402
+                                      get_config)
 from repro_torch.core.kvcache import HostArchive  # noqa: E402
 from repro_torch.core.tree import tree_leaves  # noqa: E402
 from repro_torch.serve.paged_kv import (BlockManager,  # noqa: E402
@@ -160,7 +161,9 @@ def test_pool_accounting_and_unservable_mixers():
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     assert pool.hbm_bytes() == cfg.num_layers * 2 * 16 * 2 * kv * hd * 4
     assert blocks_for(5, 4) == 2 and blocks_for(4, 4) == 1
-    ssm = ModelConfig(name="ssm", family="ssm", num_layers=2, d_model=64,
-                      num_heads=2, num_kv_heads=2, d_ff=128, vocab_size=256)
-    with pytest.raises(ServePlanError, match="'ssd'.*MixerSpec"):
-        StatePool(ssm, pcfg, device="cpu")
+    # RG-LRU registers no MixerSpec yet (SSD does since mamba2-370m)
+    hybrid = ModelConfig(name="hybrid", family="hybrid", num_layers=3,
+                         d_model=64, num_heads=2, num_kv_heads=2, d_ff=128,
+                         vocab_size=256, rglru=RGLRUConfig())
+    with pytest.raises(ServePlanError, match="'rglru'.*MixerSpec"):
+        StatePool(hybrid, pcfg, device="cpu")

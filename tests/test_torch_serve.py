@@ -10,8 +10,9 @@ the scheduler counters and the compile-ledger keys equal to the
 reference's exactly; the port's composed lowering is held to the same
 tokens and to both frameworks' ``Generator``s.  The MoE configs
 (deepseek-v2-lite-16b with MLA, deepseek-moe-16b) are served the same way,
-fused and composed, through the ragged MoE dispatch.  Float32 so that no
-argmax can flip on rounding.
+fused and composed, through the ragged MoE dispatch, and the attention-free
+mamba2-370m (SSD mixer, per-seat state) as the reference's own slot-state
+serving tests serve it.  Float32 so that no argmax can flip on rounding.
 """
 import dataclasses
 import functools
@@ -48,6 +49,26 @@ CASES = {
     "preempt": (dict(block_size=2, num_blocks=9, max_blocks_per_req=6,
                      max_slots=2, prefill_chunk=4, enable_prefix_cache=False),
                 [list(range(1, 5)), list(range(7, 11))], [8, 8]),
+}
+
+
+# mamba2-370m: tests/test_hyperserve.py's slot-state cases
+SSD_CASES = {
+    # test_mamba2_paged_serve_matches_generator
+    "mixed": CASES["mixed"],
+    # test_batched_prefill_matches_generator_all_families: ragged lengths,
+    # chunks of several requests per call, filler rows at the null seat
+    "batched": (dict(block_size=4, num_blocks=48, max_blocks_per_req=8,
+                     max_slots=4, prefill_chunk=4, prefill_chunks_per_step=4,
+                     prefill_batch=4, enable_prefix_cache=False),
+                [list(range(1, 14)), list(range(20, 23)),
+                 list(range(30, 39)), list(range(50, 56))], [5, 7, 4, 6]),
+    # test_pure_slot_models_ignore_block_pressure: a prompt far beyond the
+    # block-table budget (40 tokens >> 4 x 2)
+    "beyond_budget": (dict(block_size=4, num_blocks=4, max_blocks_per_req=2,
+                           max_slots=2, prefill_chunk=8,
+                           enable_prefix_cache=False),
+                      [list(range(1, 41)), list(range(50, 60))], [8, 6]),
 }
 
 
@@ -143,6 +164,42 @@ def test_moe_serve_matches_reference_and_generators(arch, case):
                 == ref.engine.obs.compiled_keys())
     if case == "preempt":
         assert ps["preemptions"] >= 1, "the case must really preempt"
+
+
+@pytest.mark.parametrize("case", sorted(SSD_CASES))
+def test_ssd_serve_matches_reference_and_generators(case):
+    """mamba2-370m (SSD, per-seat state): the port's HyperServe gives the
+    JAX HyperServe's and both Generators' greedy tokens, with the scheduler
+    counters and the compile ledger equal to the reference's; a prompt far
+    beyond the block budget is admitted and never preempted, and no block
+    is ever taken."""
+    arch = "mamba2-370m"
+    kw, prompts, max_new = SSD_CASES[case]
+    jcfg, cfg, jp, tp = _models(arch)
+    ref = JaxHyperServe(jcfg, jp, serve_cfg=JaxServeConfig(kernels="composed",
+                                                           **kw))
+    want = _serve(ref, prompts, max_new)
+    gen = _generator(arch)
+    want_gen = [gen.generate(jnp.asarray(p, jnp.int32)[None, :],
+                             GenerateConfig(max_new_tokens=n))[0, len(p):]
+                .tolist() for p, n in zip(prompts, max_new)]
+    port_gen = PortGenerator(cfg, tp, max_len=128, device="cpu")
+    got_gen = [port_gen.generate(torch.tensor([p]), PortGenerateConfig(
+        max_new_tokens=n))[0, len(p):].tolist()
+        for p, n in zip(prompts, max_new)]
+    port = HyperServe(cfg, tp, serve_cfg=ServeConfig(**kw), device="cpu")
+    got = _serve(port, prompts, max_new)
+    assert got == want == want_gen == got_gen
+    rs, ps = ref.stats(), port.stats()
+    for key in ("prefill_calls", "prefill_chunks", "preemptions",
+                "prefix_hits", "finished"):
+        assert ps[key] == rs[key], key
+    assert (port.engine.obs.compiled_keys()
+            == ref.engine.obs.compiled_keys())
+    if case == "batched":
+        assert ps["prefill_chunks"] > ps["prefill_calls"]
+    if case == "beyond_budget":
+        assert ps["preemptions"] == 0 and ps["block_occupancy"] == 0.0
 
 
 def test_kernel_dispatch_counters_pinned():
@@ -265,21 +322,22 @@ def test_typed_errors_name_what_is_missing():
     with pytest.raises(ServePlanError, match="num_blocks"):
         HyperServe(cfg, params, device="cpu",
                    serve_cfg=ServeConfig(num_blocks=1))
-    with pytest.raises(ArchNotPortedError, match="SSD"):
-        get_config("mamba2-370m")
+    with pytest.raises(ArchNotPortedError, match="RG-LRU"):
+        get_config("recurrentgemma-2b")
 
 
 def test_ported_and_not_yet_ported_archs():
-    """Five archs are ported (the dense GQA pair and the three MoE
-    configs), each a copy of the reference's config; every other arch of
-    the reference raises the typed ArchNotPortedError naming what it still
-    needs."""
+    """Six archs are ported (the dense GQA pair, the three MoE configs and
+    mamba2-370m), each a copy of the reference's config; every other arch
+    of the reference raises the typed ArchNotPortedError naming what it
+    still needs."""
     from repro.configs.base import list_archs as jax_list_archs
     assert list_archs() == ("deepseek-moe-16b", "deepseek-v2-lite-16b",
-                            "llama3-8b", "moonshot-v1-16b-a3b", "qwen2-0.5b")
+                            "llama3-8b", "mamba2-370m", "moonshot-v1-16b-a3b",
+                            "qwen2-0.5b")
     rest = sorted(set(jax_list_archs()) - set(list_archs()))
-    assert rest == ["granite-3-2b", "internvl2-26b", "mamba2-370m",
-                    "musicgen-large", "phi4-mini-3.8b", "recurrentgemma-2b"]
+    assert rest == ["granite-3-2b", "internvl2-26b", "musicgen-large",
+                    "phi4-mini-3.8b", "recurrentgemma-2b"]
     for name in rest:
         with pytest.raises(ArchNotPortedError, match="not ported yet"):
             get_config(name)
