@@ -6,7 +6,7 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
    1. device   — card name and power limit (nvidia-smi), torch/CUDA versions;
-   2. build    — nvcc builds the seven CUDA kernels from ``src/repro_torch``,
+   2. build    — nvcc builds the eight CUDA kernels from ``src/repro_torch``,
                  one process per source, all started together;
    3. kernels  — each kernel against its plain PyTorch version on the card,
                  bf16 and f32, with and without a window, at the shapes the
@@ -31,9 +31,21 @@ Phases, in order; any failure raises and the script exits non-zero:
                  bf16 initial state, one row padded past its limit, a
                  filler row) and phase 17's Generator prefill (8 x 1024,
                  chunks of 256), and at S = 100, 1000, 1023 (chunks of 100,
-                 8, 1).  Each kernel is timed in bf16 at its main-path
-                 shape beside its plain version, a library yardstick (SDPA;
-                 torch._grouped_mm; none for the SSD scan) and its bound;
+                 8, 1); and recurrentgemma-2b's rglru_scan at phase 19's
+                 prefill call (4 rows x 256 x 2560 with a bf16 initial
+                 state, one row padded after 120 positions with a_gate = 0,
+                 a filler row), at phase 21's Generator prefill (8 x 1024)
+                 and at S = 1, 100, 1023, and the four attention kernels at
+                 its (H, KV, D) = (10, 1, 256) with its window of 2048:
+                 paged decode at 16 seats with lengths past the window and
+                 the freed blocks null, ragged prefill with a row starting
+                 past the window, dense decode over the Generator's 1096
+                 entries, a full 2048-entry ring and the composed phase's
+                 gathered keys, flash at 8 x 1024, at S = 3072 and with the
+                 composed phase's per-row offsets.  Each kernel is timed in
+                 bf16 at its main-path shape beside its plain version, a
+                 library yardstick (SDPA; torch._grouped_mm; none for the
+                 two scans) and its bound;
    4. serve    — qwen2-0.5b at full width (24 layers, random weights from a
                  seed) in bf16 through HyperServe continuous batching; the
                  fused kernels must launch 24 times per decode step /
@@ -86,12 +98,37 @@ Phases, in order; any failure raises and the script exits non-zero:
   18. ssm identity — mamba2-370m at full width, all 48 layers, float32:
                  HyperServe greedy tokens identical with the kernel and the
                  plain versions, and to the Generator's;
-  19. result   — the nvidia-smi line, the kernel JSON line (seven kernels;
-                 flash has a row for each run it is on: phase 6's (64, 64)
-                 and phase 12's (192, 128), and ssd_scan one for phase 15's
-                 prefill calls and one for phase 17's Generator prefill, each
-                 with that run's launches), and ``{"ok": true, "device":
-                 {...}}`` as the last line.
+  19. hybrid serve — recurrentgemma-2b (RG-LRU + LOCAL_ATTN, 26 layers: 18
+                 RG-LRU and 8 local attention at head dim 256, 10 heads
+                 over one kv head, window 2048; random weights from a seed)
+                 at full width in bf16 through HyperServe (16 seats, prefill
+                 calls of 4 x 256, 2048 blocks, a 194-block table): 16
+                 requests of 100-3000 prompt tokens, four longer than the
+                 window and a block, 64 new each; exactly 8
+                 paged_decode_attention and no rglru_scan per decode step,
+                 8 ragged_prefill_attention and 18 rglru_scan per prefill
+                 call; blocks freed below the window, at most 129 live
+                 blocks per running request;
+  20. hybrid profile — torch.profiler over one prefill call and 8 decode
+                 steps of that server;
+  21. hybrid Generator — the Generator on the same model, 8 x 1024 prompt
+                 tokens, 64 new: exactly 8 flash_attention and 18 rglru_scan
+                 per prefill, 8 decode_attention per decode step;
+  22. hybrid identity — recurrentgemma-2b at full width, all 26 layers,
+                 float32: HyperServe greedy tokens identical with the
+                 kernels, the plain versions and the composed lowering on 6
+                 prompts of 100-2400 tokens (two past the window), to the
+                 Generator's on prompts of at most the window (one exactly
+                 it, so decode crosses it), and through a preemption that
+                 spills and restores seat rows beside the pages;
+  23. result   — the nvidia-smi line, the kernel JSON line (eight kernels;
+                 flash has a row for each run it is on: phase 6's (64, 64),
+                 phase 12's (192, 128) and phase 21's (256, 256); ssd_scan
+                 and rglru_scan one for their serving prefill calls and one
+                 for their Generator prefill; the paged decode, ragged
+                 prefill and dense decode a second row at (256, G = 10);
+                 each with that run's launches), and ``{"ok": true,
+                 "device": {...}}`` as the last line.
 
 Each phase prints its wall seconds.  It needs one CUDA device and exits non-zero without one.
 """
@@ -176,6 +213,35 @@ SSM_EXTRA_S = (100, 1000, 1023)          # chunks of 100, 8 and 1
 # from a float64 evaluation: the float32 limit, and the bf16 slack, of each
 # output tensor is SSM_REL x max(1, max |output|) + 2 x that distance
 SSM_REL = 2e-5
+# recurrentgemma-2b (RG-LRU + LOCAL_ATTN: 18 RG-LRU layers and 8 local
+# attention layers at H=10, KV=1, D=256, window 2048) served at full width
+# in bf16: RG_REQUESTS prompts of RG_PROMPT tokens (RG_LONG of them longer
+# than the window and a block), RG_NEW greedy tokens each, DEC_B seats,
+# PRE_P x PRE_C prefill calls, a table covering the longest request.  Its
+# Generator runs GEN_B x GEN_S prompts.
+RG_ARCH = "recurrentgemma-2b"
+RG_REQUESTS, RG_NEW, RG_LONG = 16, 64, 4
+RG_PROMPT = (100, 3000)
+RG_TABLE_W = -(-3100 // BS)                    # 194 blocks
+RG_NUM_BLOCKS = 2048
+# phase 3's attention rows at the serving run's shapes: the ragged prefill's
+# (start, limit) rows reach past the window (one starts above it), and the
+# composed phase's rows and seats over RG_ID_TABLE_W x BS gathered keys
+RG_PRE_ROWS = ((0, 900), (1792, 2900), (2304, 3000), (0, 0))
+RG_ID_TABLE_W = 160                            # 2400 + 32 tokens, whole
+RG_ROW_OFFSETS = (0, 1024, 1792, 2304)         # composed rows: whole chunks
+RG_EXTRA_S = (1, 100, 1023)                    # rglru_scan at odd lengths
+# the float32 identity runs: full width, all 26 layers (about 11 GB);
+# RG_ID_PROMPT prompt lengths (two above the window) for the kernel, plain
+# and composed runs, RG_GEN_PROMPTS (at most the window, one exactly it)
+# for HyperServe against the Generator, whose ring seats a prompt right
+# only when its length is at most the window or a multiple of it
+RG_ID_PROMPT = (100, 2400)
+RG_GEN_PROMPTS = (2048, 1900, 700)
+# the RG-LRU scan walks t in order and its plain version in a log-depth
+# tree: their float32 carries differ by up to the float32 limit, which is
+# also its bf16 slack
+RG_ABS = F32_TOL
 
 
 def log(msg: str) -> None:
@@ -481,6 +547,225 @@ def ssd_parity(torch, dtype_name, got, want, want32, want64):
     return parity(torch, dtype_name, got, want, want32, slack=tol)
 
 
+def rg_scan_inputs(torch, dtype, W, rows, S, seed, serving):
+    """rglru_scan's inputs as the RG-LRU layer hands them over: x (the conv
+    output) at 0.5 N(0, 1), the gates sigmoid(N(0, 1)), log_a =
+    -softplus(-lambda) over the layer's linspace(2, 6).  ``serving``:
+    SSM_ROWS' (start, limit) zero a_gate past each row's limit and give
+    each row an initial state in ``dtype``, the pool's (zeros for the
+    filler row, as the null seat holds).  Returns (args, kwargs)."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(rows, S, W, generator=g) * 0.5
+    ig = torch.sigmoid(torch.randn(rows, S, W, generator=g))
+    ag = torch.sigmoid(torch.randn(rows, S, W, generator=g))
+    la = -F.softplus(-torch.linspace(2.0, 6.0, W))
+    init = None
+    if serving:
+        starts = torch.tensor([r[0] for r in SSM_ROWS])
+        limits = torch.tensor([r[1] for r in SSM_ROWS])
+        pos = starts[:, None] + torch.arange(S)[None, :]
+        ag = ag * (pos < limits[:, None])[..., None]
+        init = torch.randn(rows, W, generator=g)
+        init[limits == 0] = 0.0
+        init = init.to(DEVICE, dtype)
+    args = [t.to(DEVICE, dtype) for t in (x, ig, ag)] + [la.to(DEVICE)]
+    return args, dict(init_state=init)
+
+
+def rg_tables(torch, g, limits, blocks, window):
+    """Block tables of rows with ``limits`` tokens, each block drawn once
+    from ``blocks``, and the entries wholly below the window of the row's
+    last query set to the null block, as the scheduler frees them."""
+    perm = torch.randperm(blocks - 1, generator=g) + 1
+    tables = torch.zeros(len(limits), RG_TABLE_W, dtype=torch.int32)
+    used = 0
+    for r, n in enumerate(limits):
+        nb = -(-int(n) // BS)
+        freed = max(0, int(n) - window) // BS
+        tables[r, freed:nb] = perm[used:used + nb - freed]
+        used += nb - freed
+    return tables
+
+
+def rg_cases(torch, dtype):
+    """(kernel, case, window, wrapper, plain version, args, kwargs) for
+    recurrentgemma-2b's kernels at the shapes its runs give them:
+    rglru_scan at the hybrid serve phase's prefill call (PRE_P x PRE_C, a
+    bf16 initial state, one row padded after 120 positions, a filler row),
+    at the hybrid Generator's prefill (GEN_B x GEN_S) and at odd lengths;
+    the attention kernels at (H, KV, D) = (10, 1, 256) with the window:
+    paged decode at DEC_B seats (lengths up to RG_PROMPT[1] + RG_NEW, the
+    freed blocks null), ragged prefill over RG_PRE_ROWS, dense decode at
+    the Generator's cache (GEN_CACHE entries), over a full ring of the
+    window and at the composed phase's gathered keys, flash at the
+    Generator's prefill, at S = 3072 (past the window) and with the
+    composed phase's per-row offsets."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_ref)
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.paged_decode_attention import (
+        paged_decode_attention, paged_decode_attention_ref)
+    from repro_torch.kernels.ragged_prefill_attention import (
+        ragged_prefill_attention, ragged_prefill_attention_ref)
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
+    cfg = get_config(RG_ARCH)
+    W, win = cfg.rglru.lru_width, cfg.sliding_window
+    hd = (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim)
+    cases = [("rglru_scan", "serving prefill", None, rglru_scan,
+              rglru_scan_ref) + rg_scan_inputs(torch, dtype, W, PRE_P, PRE_C,
+                                               SEED + 30, True),
+             ("rglru_scan", "Generator prefill", None, rglru_scan,
+              rglru_scan_ref) + rg_scan_inputs(torch, dtype, W, GEN_B, GEN_S,
+                                               SEED + 31, False)]
+    cases += [("rglru_scan", f"S={S}", None, rglru_scan, rglru_scan_ref)
+              + rg_scan_inputs(torch, dtype, W, 2, S, SEED + 32 + i, False)
+              for i, S in enumerate(RG_EXTRA_S)]
+    g = torch.Generator(device="cpu").manual_seed(SEED + 40)
+    nb = RG_NUM_BLOCKS * 2
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(DEVICE, dtype)
+    Hq, KVh, Dh = hd
+    k_pool, v_pool = rnd(nb, BS, KVh, Dh), rnd(nb, BS, KVh, Dh)
+    top = RG_PROMPT[1] + RG_NEW
+    lengths = torch.randint(RG_PROMPT[0], top + 1, (DEC_B,), generator=g)
+    lengths[:RG_LONG] = torch.tensor([win + 1, win + BS, (win + top) // 2,
+                                      top])[:RG_LONG]
+    tables = rg_tables(torch, g, lengths.tolist(), nb, win)
+    dec = (rnd(DEC_B, 1, Hq, Dh), k_pool, v_pool, tables.to(DEVICE),
+           lengths.to(DEVICE, torch.int32))
+    starts = torch.tensor([r[0] for r in RG_PRE_ROWS], dtype=torch.int32)
+    limits = torch.tensor([r[1] for r in RG_PRE_ROWS], dtype=torch.int32)
+    ptab = rg_tables(torch, g, [min(lim, st + PRE_C) for st, lim in
+                                RG_PRE_ROWS], nb, win + PRE_C)
+    pre = (rnd(PRE_P, PRE_C, Hq, Dh), k_pool, v_pool, ptab.to(DEVICE),
+           starts.to(DEVICE), limits.to(DEVICE))
+    kw = dict(block_size=BS, window=win)
+    cases += [("paged_decode_attention", "recurrentgemma serving", win,
+               paged_decode_attention, paged_decode_attention_ref, dec, kw),
+              ("ragged_prefill_attention", "recurrentgemma serving", win,
+               ragged_prefill_attention, ragged_prefill_attention_ref, pre,
+               kw)]
+    shape = (torch, dtype, DEVICE, Hq, KVh, Dh)
+    gdec = dense_decode_inputs(*shape, GEN_B, GEN_CACHE,
+                               (GEN_S + 1, GEN_S + GEN_NEW - 1), SEED + 41)
+    ring = dense_decode_inputs(*shape, 4, win, (win, win), SEED + 42)
+    cdec = dense_decode_inputs(*shape, ID_SLOTS, RG_ID_TABLE_W * BS,
+                               (RG_ID_PROMPT[0] + 1, RG_ID_PROMPT[1] + ID_NEW),
+                               SEED + 43)
+    cdec[3][-1] = 1                 # an empty seat decodes at position 0
+    cases += [("decode_attention", case, window, decode_attention,
+               decode_attention_ref, args, dict(window=window))
+              for case, window, args in (
+                  ("recurrentgemma Generator", None, gdec),
+                  ("recurrentgemma ring", None, ring),
+                  ("recurrentgemma composed", win, cdec))]
+    offsets = torch.tensor(RG_ROW_OFFSETS, dtype=torch.int32, device=DEVICE)
+    cases += [("flash_attention", case, window, flash_attention,
+               flash_attention_ref, flash_inputs(*shape, b, sq, sk), fkw)
+              for case, window, b, sq, sk, fkw in (
+                  ("recurrentgemma Generator prefill", win, GEN_B, GEN_S,
+                   GEN_S, dict(causal=True, window=win)),
+                  ("recurrentgemma S=3072", win, 2, 3072, 3072,
+                   dict(causal=True, window=win)),
+                  ("recurrentgemma composed rows", win, PRE_P, PRE_C,
+                   RG_ID_TABLE_W * BS, dict(causal=True, window=win,
+                                             q_offset=offsets)))]
+    return cases
+
+
+def sdpa_masked(torch, q, k, v, mask):
+    """Yardstick: one SDPA call of q (B, Sq, H, D) over k, v (B, Sk, KV,
+    D) under a boolean mask (B, Sq, Sk) (the GQA head expansion, the layout
+    change and the mask are outside the call)."""
+    import torch.nn.functional as F
+    G = q.shape[2] // k.shape[2]
+    kh, vh = (t.repeat_interleave(G, 2).transpose(1, 2).contiguous()
+              for t in (k, v))
+    qh = q.transpose(1, 2).contiguous()
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                  attn_mask=mask[:, None])
+
+
+def rg_decode_mask(torch, lengths, S, window):
+    pos = torch.arange(S, device=lengths.device)[None, :]
+    lens = lengths.long()[:, None]
+    mask = (pos < lens) & (pos >= lens - window if window else True)
+    return mask[:, None, :]
+
+
+def rg_table(torch, pm, timed):
+    """Timing rows of recurrentgemma-2b's kernels at the hybrid runs'
+    shapes, each with the path its launches are read from: (kernel, case,
+    visible-work cost, yardstick, what it is, TPU kernel replaced, path).
+    No PyTorch call computes the RG-LRU recurrence, so it has no
+    yardstick; the attention rows have SDPA with the window's mask."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(RG_ARCH)
+    win = cfg.sliding_window
+    shape = dict(num_heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+                 head_dim=cfg.resolved_head_dim, itemsize=2)
+    rows = []
+    for case, path in (("serving prefill", RG_ARCH),
+                       ("Generator prefill", f"{RG_ARCH} Generator")):
+        x = timed[("rglru_scan", case)][2][0]
+        init = timed[("rglru_scan", case)][3]["init_state"]
+        rows.append(("rglru_scan", case, pm.rglru_scan_cost(
+            batch=x.shape[0], seq=x.shape[1], width=x.shape[2], itemsize=2,
+            init_state=init is not None), None,
+            "library call: none (no PyTorch call computes the RG-LRU "
+            "recurrence)", "src/repro/kernels/rglru_scan.py:66", path))
+    q, k_pool, v_pool, tables, lengths = timed[
+        ("paged_decode_attention", "recurrentgemma serving")][2]
+    S = RG_TABLE_W * BS
+    kd, vd = (pool[tables.long()].reshape(DEC_B, S, *pool.shape[2:])
+              for pool in (k_pool, v_pool))
+    rows.append(("paged_decode_attention", "recurrentgemma serving",
+                 pm.decode_visible_cost(lengths.tolist(), window=win,
+                                        **shape),
+                 sdpa_masked(torch, q, kd, vd, rg_decode_mask(
+                     torch, lengths, S, win)),
+                 "SDPA on pre-gathered K/V, window mask (gather excluded)",
+                 "src/repro/kernels/paged_decode_attention.py:91", RG_ARCH))
+    q, k_pool, v_pool, tables, starts, limits = timed[
+        ("ragged_prefill_attention", "recurrentgemma serving")][2]
+    kd, vd = (pool[tables.long()].reshape(PRE_P, S, *pool.shape[2:])
+              for pool in (k_pool, v_pool))
+    qp = starts.long()[:, None] + torch.arange(PRE_C, device=q.device)
+    kp = torch.arange(S, device=q.device)[None, None, :]
+    mask = (kp <= qp[:, :, None]) & (qp[:, :, None] - kp < win)
+    rows.append(("ragged_prefill_attention", "recurrentgemma serving",
+                 pm.prefill_visible_cost(starts.tolist(), limits.tolist(),
+                                         PRE_C, window=win, **shape),
+                 sdpa_masked(torch, q, kd, vd, mask),
+                 "SDPA on pre-gathered K/V, causal window mask (gather "
+                 "excluded)",
+                 "src/repro/kernels/ragged_prefill_attention.py:89", RG_ARCH))
+    q, k, v = timed[("flash_attention", "recurrentgemma Generator prefill")][2]
+    qp = torch.arange(GEN_S, device=q.device)
+    mask = ((qp[None, :] <= qp[:, None]) & (qp[:, None] - qp[None, :] < win))
+    rows.append(("flash_attention", "recurrentgemma Generator prefill",
+                 pm.prefill_visible_cost([0] * GEN_B, [GEN_S] * GEN_B, GEN_S,
+                                         window=win, **shape),
+                 sdpa_masked(torch, q, k, v, mask.expand(GEN_B, -1, -1)),
+                 "SDPA with a causal window mask (head expansion excluded)",
+                 "src/repro/kernels/flash_attention.py:87",
+                 f"{RG_ARCH} Generator"))
+    q, k, v, lengths = timed[("decode_attention",
+                              "recurrentgemma Generator")][2]
+    rows.append(("decode_attention", "recurrentgemma Generator",
+                 pm.decode_visible_cost(lengths.tolist(), **shape),
+                 sdpa_masked(torch, q, k, v, rg_decode_mask(
+                     torch, lengths, k.shape[1], None)),
+                 "SDPA with a length mask (head expansion excluded)",
+                 "src/repro/kernels/decode_attention.py:67",
+                 f"{RG_ARCH} Generator"))
+    return tuple(rows)
+
+
 def grouped_mm_yardstick(torch, x, w, sizes):
     """Yardstick: one torch._grouped_mm call where this torch has it (bf16),
     else None."""
@@ -574,7 +859,7 @@ def phase_build():
     logs = build.build(["paged_decode_attention", "ragged_prefill_attention",
                         "flash_attention", "decode_attention",
                         "paged_mla_decode_attention", "grouped_matmul",
-                        "ssd_scan"])
+                        "ssd_scan", "rglru_scan"])
     log(f"[build] {time.perf_counter() - t0:.1f}s into {build.BUILD_DIR}")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -718,6 +1003,47 @@ def phase_kernels(torch):
             if dtype_name == "bfloat16":
                 timed[("ssd_scan", case)] = (ssd_scan, ssd_scan_ref, args, kw,
                                              err)
+        # recurrentgemma-2b's rglru_scan (h and the final state) and its
+        # attention kernels at (H, KV, D) = (10, 1, 256), windowed
+        for name, case, window, fn, ref, args, kw in rg_cases(torch, dtype):
+            args32 = [t.float() if t.is_floating_point() else t
+                      for t in args]
+            got = fn(*args, **kw)
+            wants, wants32 = ref(*args, **kw), ref(*args32, **kw)
+            if name != "rglru_scan":
+                got, wants, wants32 = (got,), (wants,), (wants32,)
+            slack = RG_ABS if name == "rglru_scan" else BF16_ABS
+            checks = [parity(torch, dtype_name, g, w, w32, slack)
+                      for g, w, w32 in zip(got, wants, wants32)]
+            sync(torch)
+            err, share = max(c[0] for c in checks), max(c[1] for c in checks)
+            extra = ""
+            if name == "ragged_prefill_attention":
+                filler_zero = bool((got[0][3] == 0).all().item())
+                extra = f", filler row exactly zero={filler_zero}"
+                share = share if filler_zero else float("inf")
+            if name == "rglru_scan":
+                kw64 = dict(kw, acc=torch.float64)
+                w64 = ref(*[t.double() for t in args], **kw64)
+                own = max((w.double() - v).abs().max().item()
+                          for w, v in zip(ref(*args32, **kw), w64))
+                extra = (f", init_state={kw['init_state'] is not None}; the "
+                         f"f32 plain version's own distance from float64 "
+                         f"{own:.3e}")
+            rule = (limit if dtype_name == "float32" else
+                    limit.replace(f"+ {BF16_ABS}", f"+ {slack}"))
+            what = ("B x S x W = " + " x ".join(map(str, args[0].shape))
+                    if name == "rglru_scan" else
+                    f"H={args[0].shape[-2]} KV={args[1].shape[-2]} "
+                    f"D={args[0].shape[-1]}")
+            log(f"[kernels] {name} ({case}, {what}) {dtype_name} window="
+                f"{window}: max_abs_err={err:.3e} ({share:.3f} of allowed)"
+                f"{extra} (limit: {rule})")
+            if not share <= 1:
+                raise AssertionError(f"kernel parity failed: {name} {case} "
+                                     f"{dtype_name}")
+            if dtype_name == "bfloat16":
+                timed[(name, case)] = (fn, ref, args, kw, err)
 
     return time_kernels(torch, timed)
 
@@ -738,11 +1064,11 @@ def time_kernels(torch, timed):
     pre = timed[("ragged_prefill_attention", "serving")][2]
     lengths = dec[4].tolist()
     starts, limits = pre[4].tolist(), pre[5].tolist()
-    pages = {
-        "paged_decode_attention": pm.paged_decode_cost(
+    pages = {       # qwen2's serving rows only
+        ("paged_decode_attention", "serving"): pm.paged_decode_cost(
             batch=DEC_B, block_size=BS, **shape,
             pages_visited=pm.decode_pages_visited(lengths, block_size=BS)),
-        "ragged_prefill_attention": pm.ragged_prefill_cost(
+        ("ragged_prefill_attention", "serving"): pm.ragged_prefill_cost(
             rows_live=sum(n > 0 for n in limits), chunk=PRE_C,
             block_size=BS, **shape, pages_visited=pm.prefill_pages_visited(
                 starts, limits, PRE_C, block_size=BS, table_width=TABLE_W))}
@@ -779,7 +1105,7 @@ def time_kernels(torch, timed):
          None, None, None))
     table = (tuple(t + ("qwen2-0.5b",) for t in table)
              + tuple(t + (DS_ARCH,) for t in moe_mla_table(torch, pm, timed))
-             + ssm_table(pm, timed))
+             + ssm_table(pm, timed) + rg_table(torch, pm, timed))
     out = []
     for name, case, cost, lib, lib_what, replaces, path in table:
         fn, ref, args, kw, err = timed[(name, case)]
@@ -795,8 +1121,8 @@ def time_kernels(torch, timed):
             msg += f", {lib_what} {library_ms:.4f} ms"
         elif lib_what is not None:
             msg += f", {lib_what}"
-        if name in pages:
-            pc = pages[name]
+        if (name, case) in pages:
+            pc = pages[(name, case)]
             msg += (f"; the reference's pages-visited model: {pc.flops:.4g} "
                     f"flop, {pc.hbm_bytes:.4g} B, "
                     f"{pc.bound_seconds('bfloat16') * 1e3:.5f} ms")
@@ -816,7 +1142,17 @@ def time_kernels(torch, timed):
 # JSON row names where a kernel has a second row
 ROW_NAMES = {("flash_attention", "MLA rows q_offset (192, 128)"):
              "flash_attention_dk192_dv128",
-             ("ssd_scan", "Generator prefill"): "ssd_scan_generator_prefill"}
+             ("ssd_scan", "Generator prefill"): "ssd_scan_generator_prefill",
+             ("rglru_scan", "Generator prefill"):
+             "rglru_scan_generator_prefill",
+             ("paged_decode_attention", "recurrentgemma serving"):
+             "paged_decode_attention_d256_g10",
+             ("ragged_prefill_attention", "recurrentgemma serving"):
+             "ragged_prefill_attention_d256_g10",
+             ("flash_attention", "recurrentgemma Generator prefill"):
+             "flash_attention_d256_g10",
+             ("decode_attention", "recurrentgemma Generator"):
+             "decode_attention_d256_g10"}
 
 
 def ssm_table(pm, timed):
@@ -1575,6 +1911,273 @@ def phase_ssm_identity(torch, np):
                                  f": kernel {a[i][j]} vs {b[i][j]}")
 
 
+def leading_nulls(table) -> int:
+    """Window-freed entries of a block table: its prefix of null blocks."""
+    n = 0
+    while n < len(table) and table[n] == 0:
+        n += 1
+    return n
+
+
+def phase_rg_serve(torch, np):
+    """recurrentgemma-2b at full width in bf16 through HyperServe, fused:
+    one paged_decode_attention per LOCAL_ATTN layer and decode step, one
+    ragged_prefill_attention per LOCAL_ATTN layer and one rglru_scan per
+    RG-LRU layer and prefill call, and no rglru_scan in a decode step (the
+    recurrence step is plain PyTorch, as in the reference).  Every paged
+    layer is windowed: blocks wholly below the window are freed, and a
+    running request never holds more than ceil(window / block) + 1."""
+    from repro_torch.configs.base import ServeConfig, get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels.paged_decode_attention import \
+        paged_decode_attention
+    from repro_torch.kernels.ragged_prefill_attention import \
+        ragged_prefill_attention
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.models import model as M
+    from repro_torch.serve.api import HyperServe
+    from repro_torch.serve.scheduler import RequestState
+    cfg = get_config(RG_ARCH)
+    t0 = time.perf_counter()
+    params = M.init_model(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED))
+    sync(torch)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"[hybrid serve] {RG_ARCH} bf16 full width: {n_params / 1e9:.3f} B "
+        f"params drawn in {time.perf_counter() - t0:.1f}s")
+    scfg = ServeConfig(block_size=BS, num_blocks=RG_NUM_BLOCKS,
+                       max_blocks_per_req=RG_TABLE_W, max_slots=DEC_B,
+                       prefill_chunk=PRE_C, prefill_batch=PRE_P)
+    serve = HyperServe(cfg, params, serve_cfg=scfg, device=DEVICE)
+    eng = serve.engine
+    win = cfg.sliding_window
+    if eng.layout.free_window != win or not eng.layout.has_slot_state:
+        raise AssertionError(f"state layout {eng.layout}: want slot state "
+                             f"and window freeing at {win}")
+    rng = np.random.default_rng(SEED + 14)
+    serve_all(serve, make_prompts(rng, 2, 50, 60, cfg.vocab_size), 4)  # warm
+    prompts = (make_prompts(rng, RG_LONG, win + BS + 1, RG_PROMPT[1],
+                            cfg.vocab_size)
+               + make_prompts(rng, RG_REQUESTS - RG_LONG, *RG_PROMPT,
+                              cfg.vocab_size))
+    m = eng.obs.metrics
+    before = {k: m.counter(k).value for k in
+              ("serve.kernels.decode.fused", "serve.prefill_calls",
+               "serve.prefill_chunks", "serve.preemptions")}
+    itl0 = m.histogram("serve.itl_s").sum
+    tokens0 = eng.tokens_generated
+    kernels = (paged_decode_attention, ragged_prefill_attention, rglru_scan)
+    bound = -(-win // BS) + 1
+    freed, live = {}, 0
+    # the main path's run: every launch count starts at 0 here
+    for k in kernels:
+        k.launches = 0
+    sync(torch)
+    t0 = time.perf_counter()
+    rids = [serve.submit(p, RG_NEW) for p in prompts]
+    while eng.scheduler.has_work():
+        serve.step_once()
+        for rid in rids:
+            r = eng.scheduler.requests[rid]
+            freed[rid] = max(freed.get(rid, 0), leading_nulls(r.table))
+            if r.state is RequestState.RUNNING:
+                live = max(live, r.live_blocks)
+    sync(torch)
+    wall = time.perf_counter() - t0
+    outs = [serve.result(r) for r in rids]
+    launches = {k.__name__: k.launches for k in kernels}
+    d = {k: m.counter(k).value - v for k, v in before.items()}
+    steps, calls = int(d["serve.kernels.decode.fused"]), \
+        int(d["serve.prefill_calls"])
+    tokens = eng.tokens_generated - tokens0
+    decode_s = m.histogram("serve.itl_s").sum - itl0
+    decode_tokens = tokens - len(prompts)
+    ttfts = sorted(serve.request_meta(r)["ttft_s"] for r in rids)
+    finished = sum(serve.state(r) == "finished" for r in rids)
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if DEVICE == "cuda"
+            else 0.0)
+    log(f"[hybrid serve] {finished}/{len(prompts)} requests finished "
+        f"(prompts {min(map(len, prompts))}..{max(map(len, prompts))} "
+        f"tokens, {sum(len(p) > win + BS for p in prompts)} above the "
+        f"window + a block), {tokens} tokens in {wall:.3f}s "
+        f"({tokens / wall:.1f} tok/s overall), decode {decode_tokens} "
+        f"tokens in {steps} steps, {decode_s:.3f}s "
+        f"({decode_tokens / decode_s:.1f} decode tok/s, "
+        f"{decode_s / steps * 1e3:.1f} ms a step), median TTFT "
+        f"{ttfts[len(ttfts) // 2]:.3f}s (all submitted at t=0), "
+        f"prefill_calls={calls} prefill_chunks="
+        f"{int(d['serve.prefill_chunks'])}, preemptions="
+        f"{int(d['serve.preemptions'])}, peak device memory {peak:.1f} GiB")
+    n_rg = sum(mx == "rglru" for mx, _ in cfg.block_kinds())
+    n_at = cfg.num_layers - n_rg
+    want = {"paged_decode_attention": n_at * steps,
+            "ragged_prefill_attention": n_at * calls,
+            "rglru_scan": n_rg * calls}
+    log(f"[hybrid serve] launches {launches}; expected paged decode {n_at} x "
+        f"{steps}, ragged prefill {n_at} x {calls}, rglru_scan {n_rg} x "
+        f"{calls} ({n_at} + 0 per decode step, {n_at} + {n_rg} per prefill "
+        "call)")
+    log(f"[hybrid serve] window-freed blocks: {sum(freed.values())} over "
+        f"{sum(v > 0 for v in freed.values())} requests; most live blocks of "
+        f"a running request {live} (bound ceil({win} / {BS}) + 1 = {bound})")
+    if finished != len(prompts) or any(len(o) != RG_NEW for o in outs):
+        raise AssertionError(f"not every request finished with {RG_NEW} "
+                             "tokens")
+    if launches != want or steps == 0 or calls == 0:
+        raise AssertionError(f"launch counts {launches} do not match {want}")
+    if not sum(freed.values()) or live > bound:
+        raise AssertionError(f"window freeing: {sum(freed.values())} blocks "
+                             f"freed, {live} live > {bound}")
+    return launches, serve, prompts
+
+
+def phase_rg_generator(torch, np):
+    """The Generator on recurrentgemma-2b at full width in bf16: GEN_B
+    prompts of GEN_S tokens, GEN_NEW greedy tokens; one flash_attention per
+    LOCAL_ATTN layer and one rglru_scan per RG-LRU layer for the prefill,
+    one decode_attention per LOCAL_ATTN layer and decode step."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import GenerateConfig, Generator
+    cfg = get_config(RG_ARCH)
+    params = M.init_model(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED))
+    gen = Generator(cfg, params, max_len=GEN_CACHE, device=DEVICE)
+    prompts = torch.from_numpy(np.random.default_rng(SEED + 16).integers(
+        1, cfg.vocab_size, size=(GEN_B, GEN_S))).to(DEVICE)
+    gen.generate(prompts[:, :64], GenerateConfig(max_new_tokens=4))  # warm
+    kernels = (flash_attention, decode_attention, rglru_scan)
+    # the main path's run: every launch count starts at 0 here
+    for k in kernels:
+        k.launches = 0
+    sync(torch)
+    t0 = time.perf_counter()
+    out = gen.generate(prompts, GenerateConfig(max_new_tokens=GEN_NEW))
+    sync(torch)
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    steps = GEN_NEW - 1
+    n_rg = sum(mx == "rglru" for mx, _ in cfg.block_kinds())
+    n_at = cfg.num_layers - n_rg
+    prefill_s, logits, pcaches = dense_prefill(torch, gen, prompts)
+    decode_s = dense_decode(torch, gen, logits, pcaches, GEN_S, steps)
+    del logits, pcaches
+    log(f"[hybrid Generator] {RG_ARCH} bf16 full width: {GEN_B} prompts x "
+        f"{GEN_S} tokens, {GEN_NEW} new each: generate {wall:.3f}s "
+        f"({GEN_B * GEN_NEW / wall:.1f} new tok/s overall); timed alone: "
+        f"prefill {prefill_s:.3f}s, decode {GEN_B * steps} tokens in {steps} "
+        f"steps, {decode_s:.3f}s ({GEN_B * steps / decode_s:.1f} decode "
+        f"tok/s)")
+    want = {"flash_attention": n_at, "decode_attention": n_at * steps,
+            "rglru_scan": n_rg}
+    log(f"[hybrid Generator] launches {launches}; expected {want} ({n_at} "
+        f"flash + {n_rg} rglru_scan per prefill, {n_at} decode per step)")
+    new = out[:, GEN_S:]
+    if (tuple(out.shape) != (GEN_B, GEN_S + GEN_NEW)
+            or not torch.equal(out[:, :GEN_S], prompts)
+            or not bool(((new >= 0) & (new < cfg.vocab_size)).all())):
+        raise AssertionError(f"Generator output malformed: {out.shape}")
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    return launches
+
+
+def phase_rg_identity(torch, np):
+    """recurrentgemma-2b in float32 at full width, all 26 layers: HyperServe
+    greedy tokens identical with the kernels, the plain versions and the
+    composed lowering on prompts up to RG_ID_PROMPT[1] tokens (two above
+    the window); HyperServe's identical to the Generator's on prompts of
+    at most the window, one exactly the window, so decode crosses it;
+    then through a preemption that spills seat rows beside the pages."""
+    from repro_torch.configs.base import ServeConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_decode_attention import \
+        paged_decode_attention
+    from repro_torch.kernels.ragged_prefill_attention import \
+        ragged_prefill_attention
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.models import model as M
+    from repro_torch.serve.api import HyperServe
+    from repro_torch.serve.engine import GenerateConfig, Generator
+    cfg = dataclasses.replace(get_config(RG_ARCH), dtype="float32")
+    params = M.init_model(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED))
+    win = cfg.sliding_window
+    scfg = ServeConfig(block_size=BS, num_blocks=1024,
+                       max_blocks_per_req=RG_ID_TABLE_W, max_slots=ID_SLOTS,
+                       prefill_chunk=PRE_C, prefill_batch=PRE_P)
+    rng = np.random.default_rng(SEED + 15)
+    prompts = (make_prompts(rng, 2, win + BS + 1, RG_ID_PROMPT[1],
+                            cfg.vocab_size)
+               + make_prompts(rng, 4, RG_ID_PROMPT[0], win, cfg.vocab_size))
+    kernels = (paged_decode_attention, ragged_prefill_attention, rglru_scan,
+               flash_attention, decode_attention)
+    runs, counts = {}, {}
+    for name, mode, path in (("fused", "auto", "fused"),
+                             ("plain", "ref", "fused"),
+                             ("composed", "auto", "composed")):
+        for k in kernels:
+            k.launches = 0
+        ops.set_mode(mode)
+        try:
+            serve = HyperServe(cfg, params, device=DEVICE,
+                               serve_cfg=dataclasses.replace(scfg,
+                                                             kernels=path))
+            runs[name], _ = serve_all(serve, prompts, ID_NEW)
+        finally:
+            ops.set_mode("auto")
+        sync(torch)
+        m = serve.engine.obs.metrics
+        counts[name] = ({k.__name__: k.launches for k in kernels},
+                        int(m.counter(f"serve.kernels.decode.{path}").value),
+                        int(m.counter(f"serve.kernels.prefill.{path}").value))
+    n_rg = sum(mx == "rglru" for mx, _ in cfg.block_kinds())
+    n_at = cfg.num_layers - n_rg
+    for name, fused in (("fused", True), ("composed", False)):
+        got, steps, calls = counts[name]
+        want = {"paged_decode_attention": n_at * steps if fused else 0,
+                "ragged_prefill_attention": n_at * calls if fused else 0,
+                "rglru_scan": n_rg * calls,
+                "flash_attention": 0 if fused else n_at * calls,
+                "decode_attention": 0 if fused else n_at * steps}
+        log(f"[hybrid identity] {name}: launches {got}, expected {want} "
+            f"({steps} decode steps, {calls} prefill calls)")
+        if got != want or not steps or not calls:
+            raise AssertionError(f"{name} launch counts {got} != {want}")
+    if counts["plain"][0] != {k.__name__: 0 for k in kernels}:
+        raise AssertionError(f"the plain run launched {counts['plain'][0]}")
+    gprompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
+                for n in RG_GEN_PROMPTS]
+    runs["HyperServe, prompts <= window"], _ = serve_all(HyperServe(
+        cfg, params, serve_cfg=scfg, device=DEVICE), gprompts, ID_NEW)
+    gen = Generator(cfg, params, max_len=win + ID_NEW + 8, device=DEVICE)
+    runs["Generator, prompts <= window"] = [gen.generate(
+        torch.tensor([p], device=DEVICE), GenerateConfig(
+            max_new_tokens=ID_NEW))[0, len(p):].tolist() for p in gprompts]
+    del gen
+    pairs = (("plain", "fused"), ("composed", "fused"),
+             ("Generator, prompts <= window",
+              "HyperServe, prompts <= window"))
+    same = {a: runs[a] == runs[b] for a, b in pairs}
+    log(f"[hybrid identity] f32 {RG_ARCH} at full width, {cfg.num_layers} "
+        f"layers: {len(prompts)} requests of {sorted(map(len, prompts))} "
+        f"tokens x {ID_NEW} new, and {len(gprompts)} of {RG_GEN_PROMPTS} "
+        f"against the Generator; greedy tokens identical: {same}")
+    for a, b in pairs:
+        if not same[a]:
+            x, y = runs[b], runs[a]
+            i = next(i for i, (u, v) in enumerate(zip(x, y)) if u != v)
+            j = next(j for j, (u, v) in enumerate(zip(x[i], y[i])) if u != v)
+            raise AssertionError(f"{a}: request {i} diverges at token {j}: "
+                                 f"{b} {x[i][j]} vs {y[i][j]}")
+    phase_preempt(torch, np, cfg, params, tag="hybrid preempt")
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1621,8 +2224,19 @@ def main() -> int:
         "ssm Generator", phase_ssm_generator, torch, np)
     del gen
     timed("ssm identity", phase_ssm_identity, torch, np)
+    torch.cuda.empty_cache()
+    rg_launches, serve, rg_prompts = timed("hybrid serve", phase_rg_serve,
+                                           torch, np)
+    timed("hybrid profile", phase_profile, torch, serve, rg_prompts, RG_NEW,
+          "hybrid profile")
+    del serve
+    torch.cuda.empty_cache()
+    rg_gen_launches = timed("hybrid Generator", phase_rg_generator, torch, np)
+    torch.cuda.empty_cache()
+    timed("hybrid identity", phase_rg_identity, torch, np)
     runs = {"qwen2-0.5b": launches, DS_ARCH: moe_launches,
-            SSM_ARCH: ssm_launches, f"{SSM_ARCH} Generator": ssm_gen_launches}
+            SSM_ARCH: ssm_launches, f"{SSM_ARCH} Generator": ssm_gen_launches,
+            RG_ARCH: rg_launches, f"{RG_ARCH} Generator": rg_gen_launches}
     for row in rows:
         row["launches"] = runs[row["path"]][
             os.path.basename(row["source"])[:-len(".cu")]]

@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""Time the flash_attention kernel of two checkouts of this repository on
+"""Time the GQA attention kernels of two checkouts of this repository on
 one NVIDIA card, each checkout in its own process, in the order A, B, B, A.
 
     python3 kernel_ab.py A_DIR B_DIR     # two unpacked checkouts, A first
 
-Each process builds its checkout's flash kernel (into that checkout's
-``build/``), holds it against that checkout's plain version, and times it
-through the checkout's wrapper at the Generator prefill shape of
-``chip_smoke.py`` (qwen2-0.5b: B=8, S=1024, H=14, KV=2, D=64, bf16,
-causal) with two timers, ROUNDS readings each:
+Each process builds its checkout's kernels (into that checkout's
+``build/``), holds each against that checkout's plain version, and times
+it through the checkout's wrapper at the qwen2-0.5b shapes of
+``chip_smoke.py`` (H=14, KV=2, D=64, bf16): flash_attention at the
+Generator prefill (B=8, S=1024, causal), decode_attention at the
+Generator's decode (B=8 over a 1096-entry cache, lengths 1025..1087),
+paged_decode_attention at the serving decode (16 seats, block 16,
+lengths 100..1564) and ragged_prefill_attention at a serving prefill call
+(4 rows of 256, one a filler); with two timers, ROUNDS readings each:
 
 * queued -- every launch queued behind a cold-L2 flush and one wait at
   the end (the ``time_ms`` of ``chip_smoke.py``);
 * synced -- a wait after every launch, so host time that the card does
-  not hide is counted too (the timer ``chip_smoke.py`` had before);
+  not hide is counted too;
 
 and the host's own time of one wrapper call (``host_us``: CALLS calls
 queued back to back on the host's clock, the wait for the card after the
@@ -21,8 +25,8 @@ clock stops) and of its input checks alone (``check_us``).
 
 A reading is the median of REPEATS launches.  The script prints the
 card's name and power limit, one JSON line per process, a summary line
-per checkout and timer, and last a JSON object with every reading.  It
-exits non-zero without a card or when a process fails.
+per kernel, checkout and timer, and last a JSON object with every
+reading.  It exits non-zero without a card or when a process fails.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ import subprocess
 import sys
 import time
 
-B, S, H, KV, D = 8, 1024, 14, 2, 64
+H, KV, D, BS = 14, 2, 64, 16
 ROUNDS = 5
 REPEATS = 30
 CALLS = 200
@@ -87,34 +91,76 @@ TIMERS = (("queued", timer_queued), ("synced", timer_synced))
 MEASURES = ("queued", "synced", "host_us", "check_us")
 
 
+def cases(torch):
+    """{kernel: (module, wrapper args, kwargs, check args)}, the same
+    inputs in every process (drawn on the host from fixed seeds)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import ragged_prefill_attention as rpa
+    g = torch.Generator(device="cpu").manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to("cuda", torch.bfloat16)
+
+    def ints(t):
+        return t.to("cuda", torch.int32)
+    q, k, v = rnd(8, 1024, H, D), rnd(8, 1024, KV, D), rnd(8, 1024, KV, D)
+    out = {"flash_attention": (fa, (q, k, v), dict(causal=True),
+                               (q, k, v, 0))}
+    q, k, v = rnd(8, 1, H, D), rnd(8, 1096, KV, D), rnd(8, 1096, KV, D)
+    lens = ints(torch.randint(1025, 1088, (8,), generator=g))
+    out["decode_attention"] = (da, (q, k, v, lens), {}, (q, k, v, lens))
+    nb, width = 2048, 128
+    k_pool, v_pool = rnd(nb, BS, KV, D), rnd(nb, BS, KV, D)
+    perm = torch.randperm(nb - 1, generator=g) + 1
+    lengths = torch.randint(100, 1565, (16,), generator=g)
+    tables = torch.zeros(16, width, dtype=torch.int32)
+    used = 0
+    for b, n in enumerate(lengths.tolist()):
+        nbk = -(-n // BS)
+        tables[b, :nbk] = perm[used:used + nbk]
+        used += nbk
+    q = rnd(16, 1, H, D)
+    out["paged_decode_attention"] = (
+        pda, (q, k_pool, v_pool, ints(tables), ints(lengths)),
+        dict(block_size=BS), (q, k_pool, v_pool))
+    starts = ints(torch.tensor([0, 768, 1280, 0]))
+    limits = ints(torch.tensor([900, 1400, 1400, 0]))
+    q = rnd(4, 256, H, D)
+    out["ragged_prefill_attention"] = (
+        rpa, (q, k_pool, v_pool, ints(tables[:4]), starts, limits),
+        dict(block_size=BS), (q, k_pool, v_pool))
+    return out
+
+
 def worker(tree: str) -> None:
     sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
     import torch
     from repro_torch.kernels import build
-    from repro_torch.kernels import flash_attention as fa
-    g = torch.Generator(device="cpu").manual_seed(3)
-    q, k, v = (torch.randn(B, S, n, D, generator=g).to("cuda", torch.bfloat16)
-               for n in (H, KV, KV))
-    before = fa.flash_attention.launches
-    got = fa.flash_attention(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    if fa.flash_attention.launches != before + 1:
-        raise AssertionError(f"{tree}: the wrapper launched no kernel")
-    err = (got.float() - fa.flash_attention_ref(q, k, v, causal=True).float()
-           ).abs().max().item()
-    if not err <= PARITY:
-        raise AssertionError(f"{tree}: max abs error {err} > {PARITY}")
-    readings = {name: [] for name in MEASURES}
-    for _ in range(ROUNDS):
-        for name, timer in TIMERS:
-            readings[name].append(timer(
-                lambda: fa.flash_attention(q, k, v, causal=True), torch))
-        readings["host_us"].append(host_us(
-            lambda: fa.flash_attention(q, k, v, causal=True), torch))
-        readings["check_us"].append(host_us(
-            lambda: fa._check(q, k, v, 0), torch))
-    print(json.dumps({"tree": tree, "lib": build.lib_path(
-        "flash_attention").name, "max_abs_err": err, **readings}))
+    result = {"tree": tree}
+    for name, (mod, args, kw, check) in cases(torch).items():
+        fn, ref = getattr(mod, name), getattr(mod, f"{name}_ref")
+        before = fn.launches
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        if fn.launches != before + 1:
+            raise AssertionError(f"{tree}: {name} launched no kernel")
+        err = (got.float() - ref(*args, **kw).float()).abs().max().item()
+        if not err <= PARITY:
+            raise AssertionError(f"{tree}: {name} max abs error {err} > "
+                                 f"{PARITY}")
+        readings = {m: [] for m in MEASURES}
+        for _ in range(ROUNDS):
+            for m, timer in TIMERS:
+                readings[m].append(timer(lambda: fn(*args, **kw), torch))
+            readings["host_us"].append(host_us(lambda: fn(*args, **kw),
+                                               torch))
+            readings["check_us"].append(host_us(lambda: mod._check(*check),
+                                                torch))
+        result[name] = {"lib": build.lib_path(name).name,
+                        "max_abs_err": err, **readings}
+    print(json.dumps(result))
 
 
 def main(a: str, b: str) -> int:
@@ -134,18 +180,20 @@ def main(a: str, b: str) -> int:
         line = out.stdout.strip().splitlines()[-1]
         print(line, flush=True)
         runs.append(json.loads(line))
-    for name in MEASURES:
-        med = {}
-        for tree in (a, b):
-            vals = sorted(x for r in runs if r["tree"] == tree
-                          for x in r[name])
-            med[tree] = vals[len(vals) // 2]
-            unit = "us" if name.endswith("_us") else "ms"
-            print(f"{name} {tree}: median {med[tree]:.4f} {unit}, range "
-                  f"{vals[0]:.4f}..{vals[-1]:.4f} {unit} over {len(vals)} "
-                  "readings")
-        print(f"{name}: B / A = {med[b] / med[a]:.4f}")
-    print(json.dumps({"shape": [B, S, H, KV, D], "runs": runs}))
+    kernels = [k for k in runs[0] if k != "tree"]
+    for kernel in kernels:
+        for name in MEASURES:
+            med = {}
+            for tree in (a, b):
+                vals = sorted(x for r in runs if r["tree"] == tree
+                              for x in r[kernel][name])
+                med[tree] = vals[len(vals) // 2]
+                unit = "us" if name.endswith("_us") else "ms"
+                print(f"{kernel} {name} {tree}: median {med[tree]:.4f} "
+                      f"{unit}, range {vals[0]:.4f}..{vals[-1]:.4f} {unit} "
+                      f"over {len(vals)} readings")
+            print(f"{kernel} {name}: B / A = {med[b] / med[a]:.4f}")
+    print(json.dumps({"shape": [H, KV, D], "runs": runs}))
     return 0
 
 

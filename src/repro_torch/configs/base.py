@@ -268,7 +268,6 @@ NOT_YET_PORTED = {
     "internvl2-26b": "the vision frontend",
     "musicgen-large": "the audio frontend",
     "phi4-mini-3.8b": "its config module",
-    "recurrentgemma-2b": "RG-LRU and LOCAL_ATTN mixers",
 }
 
 _REGISTRY: dict = {}
@@ -303,4 +302,4 @@ def _load_all() -> None:
     from repro_torch.configs import (deepseek_moe_16b,  # noqa: F401
                                      deepseek_v2_lite_16b, llama3_8b,
                                      mamba2_370m, moonshot_v1_16b_a3b,
-                                     qwen2_0_5b)
+                                     qwen2_0_5b, recurrentgemma_2b)

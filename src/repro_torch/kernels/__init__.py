@@ -9,7 +9,7 @@ import torch
 
 NEG_INF = -1e30                                      # masked score
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # REPRO_F32, REPRO_BF16
-SAME_DIMS = ((64, 64), (128, 128))                   # (Dk, Dv) built
+SAME_DIMS = ((64, 64), (128, 128), (256, 256))       # (Dk, Dv) built
 
 
 def refuse_grad(name: str, *tensors) -> None:
@@ -23,14 +23,12 @@ def refuse_grad(name: str, *tensors) -> None:
                            "run under torch.no_grad()")
 
 
-def attention_problems(q, k, v, *, gmax=None, vector_loads=False,
-                       pairs=SAME_DIMS):
+def attention_problems(q, k, v, *, vector_loads=False, pairs=SAME_DIMS):
     """What the kernels cannot take in q (..., H, Dk), k (..., KV, Dk) and
     v (..., KV, Dv): the dtypes, the (Dk, Dv) pair (one of ``pairs``), the
-    head grouping (at most ``gmax`` query heads per kv head), contiguous k
-    and v, and, for kernels that read k and v with 16-byte vector loads,
-    their alignment.  Returns the list of problems, empty when the kernels
-    take them."""
+    head grouping (H a multiple of KV), contiguous k and v, and, for
+    kernels that read k and v with 16-byte vector loads, their alignment.
+    Returns the list of problems, empty when the kernels take them."""
     H, D, KV = q.shape[-2], q.shape[-1], k.shape[-2]
     problems = []
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -40,9 +38,8 @@ def attention_problems(q, k, v, *, gmax=None, vector_loads=False,
     if dims not in pairs or k.shape[-1] != D:
         problems.append(f"head dims q {D}, k {k.shape[-1]}, v {v.shape[-1]}: "
                         f"kernel built for (Dk, Dv) in {pairs}")
-    if H % KV or (gmax is not None and H // KV > gmax):
-        limit = f" and H/KV <= {gmax}" if gmax is not None else ""
-        problems.append(f"H={H}, KV={KV}: need H % KV == 0{limit}")
+    if H % KV:
+        problems.append(f"H={H}, KV={KV}: need H % KV == 0")
     if not (k.is_contiguous() and v.is_contiguous()):
         problems.append("k and v must be contiguous")
     if vector_loads and (k.data_ptr() | v.data_ptr()) % 16:

@@ -106,10 +106,38 @@ struct DenseAddr {
 // widened to f32 on load; sums stay in f32.  Keys outside [k_lo, k_hi)
 // score NEG_INF and the output divides by max(l, 1e-30), so an empty
 // range writes zeros.
+//
+// A block takes at most DEC_GMAX query heads of its kv head: a lane holds
+// DEC_GMAX x 8 accumulators and DEC_GMAX x NJ scores in registers, and
+// more would spill them.  A group of G > DEC_GMAX heads (recurrentgemma's
+// 10 over one kv head) is cut into ceil(G / DEC_GMAX) chunks along a third
+// grid axis (dec_grid): each chunk's block walks the same keys, the second
+// read coming from L2, and twice the blocks fill more of the card where
+// B x KV is small.  The combine buffer, DEC_WARPS x DEC_GMAX x D floats
+// (64 KB at D = 256), lives in dynamic shared memory (dec_smem_bytes),
+// which a launch above 48 KB reserves (reserve_smem).
 
 constexpr int DEC_WARPS = 8;
 constexpr int DEC_THREADS = DEC_WARPS * 32;
-constexpr int DEC_GMAX = 8;  // query heads per kv head the decode body takes
+constexpr int DEC_GMAX = 8;  // query heads of one kv head a block takes
+
+template <int D>
+__host__ __device__ constexpr size_t dec_smem_bytes() {
+    return sizeof(float) * DEC_WARPS * DEC_GMAX * D;
+}
+
+// Grid of a decode launch: (kv head, row, chunk of DEC_GMAX query heads).
+inline dim3 dec_grid(int B, int H, int KV) {
+    return dim3(KV, B, (H / KV + DEC_GMAX - 1) / DEC_GMAX);
+}
+
+// This block's query heads: the first (``g0``, within the group of G) and
+// how many (``gn``), from blockIdx.z.
+struct DecHeads {
+    int g0, gn;
+    __device__ __forceinline__ DecHeads(int G)
+        : g0(blockIdx.z * DEC_GMAX), gn(min(DEC_GMAX, G - g0)) {}
+};
 
 // Eight consecutive elements of one row, read with 16-byte vector loads.
 template <typename T>
@@ -181,14 +209,15 @@ __device__ __forceinline__ void dec_load_tile(
     }
 }
 
-// q_row / out_row: the G query heads of this block's kv head, (G, D)
-// contiguous; k_src / v_src: the whole K and V arrays, indexed by addr.
-// Call with DEC_THREADS threads.
+// q_row / out_row: this block's G <= DEC_GMAX query heads of its kv head,
+// (G, D) contiguous; k_src / v_src: the whole K and V arrays, indexed by
+// addr; acc_s: dec_smem_bytes<D>() of dynamic shared memory.  Call with
+// DEC_THREADS threads.
 template <typename T, int D, typename Addr>
 __device__ __forceinline__ void decode_block(
     const T* __restrict__ q_row, const T* __restrict__ k_src,
     const T* __restrict__ v_src, T* __restrict__ out_row, int G, int k_lo,
-    int k_hi, float scale, const Addr& addr) {
+    int k_hi, float scale, const Addr& addr, float* __restrict__ acc_s) {
     using Tl = DecTile<T, D>;
     constexpr int NJ = Tl::NJ;
     constexpr int GMAX = DEC_GMAX;
@@ -200,7 +229,6 @@ __device__ __forceinline__ void decode_block(
     __shared__ __align__(16) float q_s[GMAX][D];
     __shared__ float m_s[DEC_WARPS][GMAX];
     __shared__ float l_s[DEC_WARPS][GMAX];
-    __shared__ float acc_s[DEC_WARPS][GMAX][D];
 
     const float qscale = scale * 1.4426950408889634f;   // * log2(e)
     for (int e = threadIdx.x; e < GMAX * D; e += DEC_THREADS) {
@@ -306,7 +334,8 @@ __device__ __forceinline__ void decode_block(
 #pragma unroll
         for (int g = 0; g < GMAX; ++g)
 #pragma unroll
-            for (int e = 0; e < 8; ++e) acc_s[warp][g][dc * 8 + e] = acc[g][e];
+            for (int e = 0; e < 8; ++e)
+                acc_s[(warp * GMAX + g) * D + dc * 8 + e] = acc[g][e];
     }
     if (lane == 0) {
 #pragma unroll
@@ -327,7 +356,7 @@ __device__ __forceinline__ void decode_block(
 #pragma unroll
         for (int w = 0; w < DEC_WARPS; ++w) {
             const float c = exp2f(m_s[w][g] - mx);
-            num += acc_s[w][g][d] * c;
+            num += acc_s[(w * GMAX + g) * D + d] * c;
             den += l_s[w][g] * c;
         }
         out_row[(size_t)g * D + d] =

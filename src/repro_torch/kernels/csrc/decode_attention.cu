@@ -23,9 +23,13 @@
 // all 32 lanes, the warps merged once per block), here with the dense
 // address ((b*S + pos)*KV + h)*D in place of a block-table walk.
 //
+// Head dims 64, 128 and 256 (recurrentgemma-2b); any number of query heads
+// per kv head, in blocks of at most DEC_GMAX (common.cuh).
+//
 // Known limit, shared with the paged kernel: B * KV blocks (32 at the
-// Generator's shapes) underfill 132 SMs; split-K over the cache axis with
-// a combine pass is the later change, and lands in both kernels at once.
+// Generator's shapes, 16 at recurrentgemma's with its two head chunks)
+// underfill 132 SMs; split-K over the cache axis with a combine pass is the
+// later change, and lands in both kernels at once.
 
 #include "common.cuh"
 
@@ -42,20 +46,26 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(
     const int h = blockIdx.x;
     const int b = blockIdx.y;
     const int G = H / KV;
+    const DecHeads hd(G);
     const int length = lengths[b];
     // valid keys: pos < length and, windowed, pos >= length - window
     const int k_hi = min(length, S);
     const int k_lo = window > 0 ? max(0, length - window) : 0;
-    const size_t row = ((size_t)b * H + h * G) * D;
-    decode_block<T, D>(q + row, k_cache, v_cache, out + row, G, k_lo, k_hi,
-                       scale, DenseAddr<D>{b, S, KV, h});
+    const size_t row = ((size_t)b * H + h * G + hd.g0) * D;
+    extern __shared__ __align__(16) float dec_smem[];
+    decode_block<T, D>(q + row, k_cache, v_cache, out + row, hd.gn, k_lo,
+                       k_hi, scale, DenseAddr<D>{b, S, KV, h}, dec_smem);
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k_cache, const void* v_cache,
            const int* lengths, void* out, int B, int S, int H, int KV,
            int window, float scale, cudaStream_t stream) {
-    decode_kernel<T, D><<<dim3(KV, B), DEC_THREADS, 0, stream>>>(
+    constexpr size_t smem = dec_smem_bytes<D>();
+    auto kernel = decode_kernel<T, D>;
+    cudaError_t err = reserve_smem(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<dec_grid(B, H, KV), DEC_THREADS, smem, stream>>>(
         (const T*)q, (const T*)k_cache, (const T*)v_cache, lengths, (T*)out,
         S, H, KV, window, scale);
     return (int)cudaGetLastError();
@@ -70,7 +80,7 @@ extern "C" int decode_attention_launch(
     const void* q, const void* k_cache, const void* v_cache,
     const void* lengths, void* out, int B, int S, int H, int KV, int D,
     int window, float scale, int dtype, void* stream) {
-    if (KV <= 0 || H % KV != 0 || H / KV > DEC_GMAX) return REPRO_UNSUPPORTED;
+    if (KV <= 0 || H % KV != 0) return REPRO_UNSUPPORTED;
     if (((size_t)k_cache | (size_t)v_cache) % 16 != 0)
         return REPRO_UNSUPPORTED;
     const int* len = (const int*)lengths;
@@ -82,6 +92,8 @@ extern "C" int decode_attention_launch(
     if (dtype == REPRO_F32 && D == 128) REPRO_CASE(float, 128);
     if (dtype == REPRO_BF16 && D == 64) REPRO_CASE(__nv_bfloat16, 64);
     if (dtype == REPRO_BF16 && D == 128) REPRO_CASE(__nv_bfloat16, 128);
+    if (dtype == REPRO_F32 && D == 256) REPRO_CASE(float, 256);
+    if (dtype == REPRO_BF16 && D == 256) REPRO_CASE(__nv_bfloat16, 256);
 #undef REPRO_CASE
     return REPRO_UNSUPPORTED;
 }

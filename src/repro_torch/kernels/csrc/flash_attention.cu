@@ -11,8 +11,11 @@
 // of the dense prefill (Generator, forward) with q_offset 0, and of the
 // composed paged prefill with one offset per row (flash_rows: P rows in one
 // launch, the Pallas kernel's static q_offset made a per-row tensor).
-// (DK, DV) pairs built: (64, 64) and (128, 128) for GQA heads, (192, 128)
-// for deepseek-v2-lite's MLA (128 nope + 64 rope dims) and (96, 64) for its
+// (DK, DV) pairs built: (64, 64), (128, 128) and (256, 256) for GQA heads
+// (the last recurrentgemma-2b's, whose tensor-core tiles take 67.6 KB of
+// shared memory, reserved at launch; its f32 FMA body spills the 512-float
+// q row and accumulator to local memory), (192, 128) for
+// deepseek-v2-lite's MLA (128 nope + 64 rope dims) and (96, 64) for its
 // reduced test config.
 //
 // What bounds it on the H100: operations.  At the dense prefill shapes
@@ -127,6 +130,7 @@ extern "C" int flash_attention_launch(
     }
     REPRO_CASE(64, 64)
     REPRO_CASE(128, 128)
+    REPRO_CASE(256, 256)
     REPRO_CASE(192, 128)
     REPRO_CASE(96, 64)
 #undef REPRO_CASE

@@ -25,6 +25,9 @@
 // score NEG_INF = -1e30, and the output divides by max(l, 1e-30), so a row
 // of length 0 writes zeros.
 //
+// Head dims 64, 128 and 256 (recurrentgemma-2b); any number of query heads
+// per kv head, in blocks of at most DEC_GMAX (common.cuh).
+//
 // Known limit, left for a later change: with B * KV = 16..32 blocks on 132
 // SMs the card is underfilled, and the block of the longest row, one tile
 // of loads in flight per warp, sets the time.  Splitting the key axis
@@ -47,13 +50,16 @@ __global__ void __launch_bounds__(DEC_THREADS) paged_decode_kernel(
     const int h = blockIdx.x;
     const int b = blockIdx.y;
     const int G = H / KV;
+    const DecHeads hd(G);
     const int length = lengths[b];
     // valid keys: pos < length and, windowed, pos >= length - window
     const int k_hi = min(length, W * bs);
     const int k_lo = window > 0 ? max(0, length - window) : 0;
-    const size_t row = ((size_t)b * H + h * G) * D;
-    decode_block<T, D>(q + row, k_pool, v_pool, out + row, G, k_lo, k_hi,
-                       scale, PagedAddr<D>{tables + (size_t)b * W, bs, KV, h});
+    const size_t row = ((size_t)b * H + h * G + hd.g0) * D;
+    extern __shared__ __align__(16) float dec_smem[];
+    decode_block<T, D>(q + row, k_pool, v_pool, out + row, hd.gn, k_lo, k_hi,
+                       scale, PagedAddr<D>{tables + (size_t)b * W, bs, KV, h},
+                       dec_smem);
 }
 
 template <typename T, int D>
@@ -61,7 +67,11 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
            const int* tables, const int* lengths, void* out, int B, int H,
            int KV, int W, int bs, int window, float scale,
            cudaStream_t stream) {
-    paged_decode_kernel<T, D><<<dim3(KV, B), DEC_THREADS, 0, stream>>>(
+    constexpr size_t smem = dec_smem_bytes<D>();
+    auto kernel = paged_decode_kernel<T, D>;
+    cudaError_t err = reserve_smem(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<dec_grid(B, H, KV), DEC_THREADS, smem, stream>>>(
         (const T*)q, (const T*)k_pool, (const T*)v_pool, tables, lengths,
         (T*)out, H, KV, W, bs, window, scale);
     return (int)cudaGetLastError();
@@ -77,7 +87,7 @@ extern "C" int paged_decode_attention_launch(
     const void* q, const void* k_pool, const void* v_pool, const void* tables,
     const void* lengths, void* out, int B, int H, int KV, int D, int W,
     int bs, int window, float scale, int dtype, void* stream) {
-    if (KV <= 0 || H % KV != 0 || H / KV > DEC_GMAX) return REPRO_UNSUPPORTED;
+    if (KV <= 0 || H % KV != 0) return REPRO_UNSUPPORTED;
     if (((size_t)k_pool | (size_t)v_pool) % 16 != 0) return REPRO_UNSUPPORTED;
     const int* tab = (const int*)tables;
     const int* len = (const int*)lengths;
@@ -89,6 +99,8 @@ extern "C" int paged_decode_attention_launch(
     if (dtype == REPRO_F32 && D == 128) REPRO_CASE(float, 128);
     if (dtype == REPRO_BF16 && D == 64) REPRO_CASE(__nv_bfloat16, 64);
     if (dtype == REPRO_BF16 && D == 128) REPRO_CASE(__nv_bfloat16, 128);
+    if (dtype == REPRO_F32 && D == 256) REPRO_CASE(float, 256);
+    if (dtype == REPRO_BF16 && D == 256) REPRO_CASE(__nv_bfloat16, 256);
 #undef REPRO_CASE
     return REPRO_UNSUPPORTED;
 }

@@ -22,6 +22,9 @@
 // thread, key tiles staged in shared memory, f32 online softmax), shared
 // with flash_attention.cu; here its address functor finds each key's block
 // id in the row's table, and a filler row returns before reading anything.
+// Head dims 64, 128 and 256; at 256 a thread's q row and accumulator (512
+// floats) exceed the 255 registers a thread may hold and spill to local
+// memory: correct, and slow until the tensor-core body takes bf16.
 
 #include "common.cuh"
 
@@ -97,6 +100,8 @@ extern "C" int ragged_prefill_attention_launch(
     if (dtype == REPRO_F32 && D == 128) REPRO_CASE(float, 128);
     if (dtype == REPRO_BF16 && D == 64) REPRO_CASE(__nv_bfloat16, 64);
     if (dtype == REPRO_BF16 && D == 128) REPRO_CASE(__nv_bfloat16, 128);
+    if (dtype == REPRO_F32 && D == 256) REPRO_CASE(float, 256);
+    if (dtype == REPRO_BF16 && D == 256) REPRO_CASE(__nv_bfloat16, 256);
 #undef REPRO_CASE
     return REPRO_UNSUPPORTED;
 }

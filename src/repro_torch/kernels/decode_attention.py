@@ -26,8 +26,6 @@ from repro_torch.kernels import (DTYPE_CODES, NEG_INF, attention_problems,
                                  build, count_launch, raise_problems,
                                  refuse_grad)
 
-_GMAX = 8
-
 
 def decode_attention_ref(q, k_cache, v_cache, length, *,
                          scale: Optional[float] = None,
@@ -65,8 +63,7 @@ def _lib():
 
 def _check(q, k_cache, v_cache, length):
     B = q.shape[0]
-    problems = attention_problems(q, k_cache, v_cache, gmax=_GMAX,
-                                  vector_loads=True)
+    problems = attention_problems(q, k_cache, v_cache, vector_loads=True)
     if q.shape[1] != 1:
         problems.append(f"q must be (B, 1, H, D), got {tuple(q.shape)}")
     if k_cache.shape[0] != B or v_cache.shape[:3] != k_cache.shape[:3]:

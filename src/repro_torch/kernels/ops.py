@@ -14,6 +14,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import grouped_matmul as gm
 from repro_torch.kernels import paged_decode_attention as pda
 from repro_torch.kernels import ragged_prefill_attention as rpa
+from repro_torch.kernels import rglru_scan as rs
 from repro_torch.kernels import ssd_scan as ss
 
 _MODES = ("auto", "ref")
@@ -100,3 +101,15 @@ def ssd_decode_step(x, dt, A, Bm, Cm, state):
     """One SSD recurrence step: plain PyTorch in both modes, as the
     reference runs its oracle in every mode."""
     return ss.ssd_decode_step(x, dt, A, Bm, Cm, state)
+
+
+def rglru_scan(x, input_gate, a_gate, log_a, *, init_state=None, c=8.0):
+    """RG-LRU gated linear recurrence; returns (h, final state)."""
+    fn = rs.rglru_scan_ref if _MODE == "ref" else rs.rglru_scan
+    return fn(x, input_gate, a_gate, log_a, init_state=init_state, c=c)
+
+
+def rglru_decode_step(x, input_gate, a_gate, log_a, state, *, c=8.0):
+    """One RG-LRU recurrence step: plain PyTorch in both modes, as the
+    reference runs its oracle in every mode."""
+    return rs.rglru_decode_step(x, input_gate, a_gate, log_a, state, c=c)

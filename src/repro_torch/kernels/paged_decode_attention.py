@@ -33,8 +33,6 @@ from repro_torch.kernels import (DTYPE_CODES, NEG_INF, attention_problems,
                                  build, count_launch, raise_problems,
                                  refuse_grad)
 
-_GMAX = 8
-
 
 def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths, *,
                                block_size: int, window: Optional[int] = None,
@@ -75,8 +73,7 @@ def _lib():
 
 
 def _check(q, k_pool, v_pool):
-    problems = attention_problems(q, k_pool, v_pool, gmax=_GMAX,
-                                  vector_loads=True)
+    problems = attention_problems(q, k_pool, v_pool, vector_loads=True)
     if q.shape[1] != 1:
         problems.append(f"q must be (B, 1, H, D), got {tuple(q.shape)}")
     raise_problems("paged_decode_attention", problems)

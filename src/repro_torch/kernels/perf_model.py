@@ -16,7 +16,8 @@ Two work definitions, both computed from the same ``lengths`` /
 :func:`paged_mla_decode_cost` and :func:`grouped_matmul_cost` count the
 work of the two MoE/MLA kernels the same way: the keys below each row's
 length, the rows each expert takes, nothing for an empty expert;
-:func:`ssd_scan_cost` counts the SSD scan's causal pairs per chunk.
+:func:`ssd_scan_cost` counts the SSD scan's causal pairs per chunk, and
+:func:`rglru_scan_cost` the RG-LRU recurrence's elements.
 
 The dense kernels reuse the visible-work costs: a ``decode_attention``
 call is ``decode_visible_cost(lengths, window=...)`` (``min(length,
@@ -230,3 +231,19 @@ def ssd_scan_cost(*, batch: int, seq: int, heads: int, head_dim: int,
            + 2 * batch * seq * N * itemsize            # Bm, Cm
            + state * (2 if init_state else 1))         # init, final
     return KernelCost("ssd_scan", float(flops), float(hbm))
+
+
+def rglru_scan_cost(*, batch: int, seq: int, width: int, itemsize: int,
+                    init_state: bool) -> KernelCost:
+    """One RG-LRU scan over (batch, seq, width) elements.  FLOPs: about 10
+    an element (the gate product c log_a a_gate, exp, 2 log_at, expm1 and
+    its negation, sqrt, input_gate x, beta times it, and the recurrence's
+    multiply-add), each transcendental counted as one.  Bytes: x,
+    input_gate and a_gate read once, h written once, log_a (float32) read
+    once, the initial state read once when given and the final state
+    written once."""
+    n = batch * seq * width
+    state = batch * width * itemsize
+    hbm = (4 * n * itemsize + width * 4
+           + state * (2 if init_state else 1))
+    return KernelCost("rglru_scan", float(10 * n), float(hbm))

@@ -1,0 +1,148 @@
+"""RG-LRU gated linear recurrence: CUDA kernel, plain version, launch
+count; and the one-token recurrence step.
+
+Replaces the TPU kernel ``repro/kernels/rglru_scan.py``, function
+``rglru_scan``, and computes what its oracle ``ref.rglru_scan`` computes,
+``init_state`` included (the Pallas kernel refuses one; serving prefill
+passes one): for x, input_gate, a_gate (B, S, W) and log_a (W,) float32,
+
+    log_at = c * log_a * a_gate,  a_t = exp(log_at),
+    beta_t = sqrt(-expm1(2 log_at))            (sqrt(1 - a_t^2), stably)
+    h_t = a_t h_{t-1} + beta_t (input_gate_t x_t),  h_{-1} = init_state or 0
+
+in float32, and returns h (B, S, W) and the final state h_{S-1} (B, W),
+both rounded once to x's dtype.  The kernel (``csrc/rglru_scan.cu``) runs
+one thread per (row, channel) walking t in order with the carry in a
+register; its header says what bounds it on the H100.
+
+:func:`rglru_scan` launches the kernel for CUDA tensors and runs
+:func:`rglru_scan_ref` for CPU tensors — the device of the input decides,
+never a fallback.  ``rglru_scan.launches`` counts kernel launches.
+:func:`rglru_decode_step` is plain PyTorch: the reference runs its decode
+step through the oracle only (``ops.rglru_decode_step``).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import (DTYPE_CODES, build, count_launch,
+                                 raise_problems, refuse_grad)
+
+
+def _gates(input_gate, a_gate, log_a, x, c, f):
+    """(a_t, beta_t (input_gate x)) in type ``f``, as the oracle forms
+    them."""
+    log_at = c * log_a.to(f) * a_gate.to(f)
+    a = torch.exp(log_at)
+    beta = torch.sqrt(-torch.expm1(2.0 * log_at))
+    return a, beta * (input_gate.to(f) * x.to(f))
+
+
+def rglru_scan_ref(x, input_gate, a_gate, log_a, *, init_state=None,
+                   c: float = 8.0, acc=torch.float32):
+    """Plain version: the oracle's (a, b) monoid, combine(l, r) = (a_l a_r,
+    b_l a_r + b_r), scanned over S in log2(S) Hillis-Steele steps in
+    float32 (as ``jax.lax.associative_scan`` scans it in a log-depth
+    tree, not a loop of S steps), the initial state folded into the first
+    step; rounded once to x.dtype.  Returns (h, final state).
+    ``acc=torch.float64`` computes in float64 instead (with float64
+    inputs, a yardstick of the float32 evaluation's own rounding)."""
+    a, b = _gates(input_gate, a_gate, log_a, x, c, acc)
+    if init_state is not None:
+        b = torch.cat([b[:, :1] + a[:, :1] * init_state.to(acc)[:, None],
+                       b[:, 1:]], dim=1)
+    S, d = x.shape[1], 1
+    while d < S:
+        b = torch.cat([b[:, :d], b[:, :-d] * a[:, d:] + b[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], dim=1)
+        d *= 2
+    return b.to(x.dtype), b[:, -1].to(x.dtype)
+
+
+def rglru_decode_step(x, input_gate, a_gate, log_a, state, *,
+                      c: float = 8.0):
+    """One RG-LRU step (the reference's ``ref.rglru_decode_step``): x,
+    input_gate, a_gate, state (B, W), log_a (W,).  Returns (h in x.dtype,
+    new state in state.dtype)."""
+    a, b = _gates(input_gate, a_gate, log_a, x, c, torch.float32)
+    h = a * state.float() + b
+    return h.to(x.dtype), h.to(state.dtype)
+
+
+@functools.cache
+def _lib():
+    lib = build.load("rglru_scan")
+    fn = lib.rglru_scan_launch
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 6
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(x, input_gate, a_gate, log_a, init_state):
+    problems = []
+    if x.dtype not in DTYPE_CODES or input_gate.dtype != x.dtype \
+            or a_gate.dtype != x.dtype:
+        problems.append(f"dtypes x={x.dtype} input_gate={input_gate.dtype} "
+                        f"a_gate={a_gate.dtype}: need one of "
+                        "float32/bfloat16")
+    if log_a.dtype != torch.float32:
+        problems.append(f"log_a={log_a.dtype}: need float32")
+    Bb, S, W = x.shape if x.ndim == 3 else (0, 0, 0)
+    if (x.ndim != 3 or input_gate.shape != x.shape or a_gate.shape != x.shape
+            or log_a.shape != (W,) or S < 1):
+        problems.append(f"x {tuple(x.shape)}, input_gate "
+                        f"{tuple(input_gate.shape)}, a_gate "
+                        f"{tuple(a_gate.shape)}, log_a {tuple(log_a.shape)}: "
+                        "need (B, S, W) thrice with S >= 1, and (W,)")
+    if any(t.stride(-1) != 1 for t in (x, input_gate, a_gate)):
+        problems.append("x, input_gate and a_gate need a contiguous last dim")
+    if init_state is not None and (
+            init_state.shape != (Bb, W)
+            or init_state.dtype not in (x.dtype, torch.float32)):
+        problems.append(f"init_state {tuple(init_state.shape)} "
+                        f"{init_state.dtype}: need ({Bb}, {W}) in {x.dtype} "
+                        "or float32")
+    extra = () if init_state is None else (init_state,)
+    if any(t.device != x.device for t in (input_gate, a_gate, log_a, *extra)):
+        problems.append("every input must lie on x's device")
+    raise_problems("rglru_scan", problems)
+
+
+def rglru_scan(x, input_gate, a_gate, log_a, *, init_state=None,
+               c: float = 8.0):
+    """x, input_gate, a_gate (B, S, W), each with a contiguous last dim;
+    log_a (W,) float32; init_state (B, W) in x's dtype or float32, or None
+    for zeros.  Returns (h (B, S, W), final state (B, W)), both in x.dtype.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    """
+    extra = () if init_state is None else (init_state,)
+    refuse_grad("rglru_scan", x, input_gate, a_gate, log_a, *extra)
+    if x.device.type == "cpu":
+        return rglru_scan_ref(x, input_gate, a_gate, log_a,
+                              init_state=init_state, c=c)
+    if x.device.type != "cuda":
+        raise ValueError(f"rglru_scan: no kernel for device {x.device}")
+    _check(x, input_gate, a_gate, log_a, init_state)
+    Bb, S, W = x.shape
+    h = x.new_empty(Bb, S, W)
+    fin = x.new_empty(Bb, W)
+    init = None if init_state is None else init_state.contiguous()
+    log_a = log_a.contiguous()
+    rc = _lib()(x.data_ptr(), input_gate.data_ptr(), a_gate.data_ptr(),
+                log_a.data_ptr(), 0 if init is None else init.data_ptr(),
+                h.data_ptr(), fin.data_ptr(), Bb, S, W, DTYPE_CODES[x.dtype],
+                int(init is not None and init.dtype == torch.float32),
+                *x.stride()[:2], *input_gate.stride()[:2],
+                *a_gate.stride()[:2], c,
+                torch.cuda.current_stream(x.device).cuda_stream)
+    count_launch(rglru_scan, rc)
+    return h, fin
+
+
+rglru_scan.launches = 0

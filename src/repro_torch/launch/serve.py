@@ -11,11 +11,16 @@
         --continuous                              # MLA + MoE, on the card
     python -m repro_torch.launch.serve --arch mamba2-370m \
         --continuous --slots 16 --prefill-chunk 256   # SSD, on the card
+    python -m repro_torch.launch.serve --arch recurrentgemma-2b \
+        --continuous --slots 16 --num-blocks 2048 \
+        --prefill-chunk 256                       # RG-LRU + local attention
 
 ``--arch`` takes every ported config (``configs.list_archs()``): the dense
 qwen2-0.5b and llama3-8b, the MoE deepseek-v2-lite-16b (with MLA),
-deepseek-moe-16b and moonshot-v1-16b-a3b, and the attention-free
-mamba2-370m (SSD, per-seat state: it takes no pages).  The flags are the reference
+deepseek-moe-16b and moonshot-v1-16b-a3b, the attention-free
+mamba2-370m (SSD, per-seat state: it takes no pages) and the hybrid
+recurrentgemma-2b (RG-LRU seat state beside sliding-window attention
+pages, freed once out of the window).  The flags are the reference
 launcher's (``repro.launch.serve``) plus
 ``--device``.  Weights are random, drawn from a seeded ``torch.Generator``
 on the serving device.  ``--disaggregate`` and ``--explain`` need parts

@@ -28,8 +28,9 @@ def _leaf(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
 
 
 # leaves the reference keeps in float32 whatever the model's dtype (the MoE
-# router runs in f32; Mamba-2's decay, skip and step-size bias)
-F32_LEAVES = ("router", "A_log", "D", "dt_bias")
+# router runs in f32; Mamba-2's decay, skip and step-size bias; the RG-LRU's
+# decay parameter)
+F32_LEAVES = ("router", "A_log", "D", "dt_bias", "lambda")
 
 
 def params_from_numpy(tree, device, dtype: Optional[torch.dtype] = None):

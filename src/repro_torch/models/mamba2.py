@@ -125,14 +125,6 @@ def init_mamba2_cache(cfg, batch: int, dtype, device):
     }
 
 
-def init_mamba2_pool(cfg, *, layers: int, num_slots: int, dtype, device):
-    """Serving state: ``num_slots`` decode seats plus the null seat, each
-    leaf (layers, num_slots + 1, ...)."""
-    one = init_mamba2_cache(cfg, num_slots + 1, dtype, device)
-    return {k: v[None].repeat(layers, *([1] * v.ndim)) for k, v in
-            one.items()}
-
-
 def gather_slot_rows(cache, slots):
     """Per-row copy of the per-seat state for a prefill chunk batch;
     ``slots`` (P,) holds each row's seat, filler rows the null seat (the

@@ -11,10 +11,10 @@ serving:
   - ``SLOT``      O(1) per-request dense state in a fixed decode seat;
   - ``WINDOWED``  paged, with out-of-window blocks freed.
 
-``ATTN``, ``MLA`` and ``SSD`` are registered so far.  The other kinds
-register when their family is ported (ROADMAP.md, "Modules to port");
-until then :func:`model_state_layout` refuses a config that uses them with
-a typed ``ServePlanError``.
+Every mixer kind of the reference is registered: ``ATTN``, ``LOCAL_ATTN``
+(the attention hooks under a sliding window), ``MLA``, and the two slot
+mixers ``SSD`` and ``RGLRU``.  :func:`model_state_layout` still refuses a
+config whose kind has no spec with a typed ``ServePlanError``.
 """
 from __future__ import annotations
 
@@ -23,8 +23,9 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ATTN, MLA, SSD
-from repro_torch.models import attention, mamba2 as m2, mla as mla_mod
+from repro_torch.configs.base import ATTN, LOCAL_ATTN, MLA, RGLRU, SSD
+from repro_torch.models import attention, mamba2 as m2, mla as mla_mod, \
+    rglru as rg_mod
 
 # decode-state kinds under paged serving ------------------------------------
 PAGED = "paged"
@@ -219,23 +220,27 @@ def _attn_forward(p, h, positions, cfg, *, window, want_cache):
                                   window=window), None
 
 
-register_mixer(MixerSpec(
-    kind=ATTN, state=PAGED, param_key="attn",
-    init=attention.init_attention,
-    forward=_attn_forward,
-    decode=lambda p, h, pos, cfg, cache, *, window: attention.attn_decode(
-        p["attn"], h, pos, cfg, cache, window=window),
-    init_cache=attention.init_kv_cache,
-    init_state=_attn_init_state,
-    decode_paged=lambda p, h, positions, cfg, state, tables, *, block_size,
-        window, kernels, slot_mask=None: attention.attn_decode_paged(
-            p["attn"], h, positions, cfg, state, tables,
-            block_size=block_size, window=window, kernels=kernels),
-    prefill_paged=lambda p, h, starts, limits, slots, cfg, state, tables, *,
-        block_size, window, kernels: attention.attn_prefill_paged(
-            p["attn"], h, starts, limits, cfg, state, tables,
-            block_size=block_size, window=window, kernels=kernels),
-))
+# full attention pages every key; sliding-window attention (LOCAL_ATTN)
+# runs the same hooks under cfg.sliding_window and frees out-of-window blocks
+for _kind, _state in ((ATTN, PAGED), (LOCAL_ATTN, WINDOWED)):
+    register_mixer(MixerSpec(
+        kind=_kind, state=_state, param_key="attn",
+        init=attention.init_attention,
+        forward=_attn_forward,
+        decode=lambda p, h, pos, cfg, cache, *, window: attention.attn_decode(
+            p["attn"], h, pos, cfg, cache, window=window),
+        init_cache=attention.init_kv_cache,
+        init_state=_attn_init_state,
+        decode_paged=lambda p, h, positions, cfg, state, tables, *,
+            block_size, window, kernels, slot_mask=None:
+            attention.attn_decode_paged(
+                p["attn"], h, positions, cfg, state, tables,
+                block_size=block_size, window=window, kernels=kernels),
+        prefill_paged=lambda p, h, starts, limits, slots, cfg, state, tables,
+            *, block_size, window, kernels: attention.attn_prefill_paged(
+                p["attn"], h, starts, limits, cfg, state, tables,
+                block_size=block_size, window=window, kernels=kernels),
+    ))
 
 
 def _mla_forward(p, h, positions, cfg, *, window, want_cache):
@@ -287,40 +292,58 @@ def _gate_slot_update(state, new, slot_mask) -> None:
         old.copy_(v)
 
 
-def _ssd_forward(p, h, positions, cfg, *, window, want_cache):
-    if want_cache:
-        return m2.mamba2_forward(p["mixer"], h, cfg, return_cache=True)
-    return m2.mamba2_forward(p["mixer"], h, cfg), None
+def register_slot_mixer(kind, *, init, forward, decode, init_cache,
+                        prefill_chunk) -> MixerSpec:
+    """Register a mixer whose decode state is one dense row per seat
+    (``SLOT``): its params live under ``"mixer"``; ``forward(p, h, cfg, *,
+    return_cache)``, ``decode(p, h, cfg, cache) -> (y, new cache)`` (which
+    writes nothing), ``init_cache(cfg, batch, dtype, device)`` and
+    ``prefill_chunk(p, h, starts, limits, slots, cfg, state)`` take the
+    sublayer's own params.  The serving state is the cache of
+    ``num_slots + 1`` rows (the seats, then the null seat of filler
+    prefill rows) stacked over the layers.  The dense decode writes its
+    whole cache; the serving decode writes only running seats
+    (:func:`_gate_slot_update`)."""
+    def fwd(p, h, positions, cfg, *, window, want_cache):
+        if want_cache:
+            return forward(p["mixer"], h, cfg, return_cache=True)
+        return forward(p["mixer"], h, cfg), None
+
+    def dec(p, h, pos, cfg, cache, *, window):
+        y, new = decode(p["mixer"], h, cfg, cache)
+        _gate_slot_update(cache, new, None)
+        return y
+
+    def dec_paged(p, h, positions, cfg, state, tables, *, block_size,
+                  window, kernels, slot_mask=None):
+        B = h.shape[0]                  # the seats; the null seat is last
+        seats = {k: v[:B] for k, v in state.items()}
+        y, new = decode(p["mixer"], h, cfg, seats)
+        _gate_slot_update(seats, new, slot_mask)
+        return y
+
+    return register_mixer(MixerSpec(
+        kind=kind, state=SLOT, param_key="mixer", init=init, forward=fwd,
+        decode=dec,
+        init_cache=lambda cfg, batch, eff_len, dtype, device:
+            init_cache(cfg, batch, dtype, device),
+        init_state=lambda cfg, *, layers, num_blocks, block_size, num_slots,
+            dtype, device: {k: v[None].repeat(layers, *([1] * v.ndim))
+                            for k, v in init_cache(cfg, num_slots + 1, dtype,
+                                                   device).items()},
+        decode_paged=dec_paged,
+        prefill_paged=lambda p, h, starts, limits, slots, cfg, state, tables,
+            *, block_size, window, kernels: prefill_chunk(
+                p["mixer"], h, starts, limits, slots, cfg, state),
+    ))
 
 
-def _ssd_decode(p, h, pos, cfg, cache, *, window):
-    y, new = m2.mamba2_decode(p["mixer"], h, cfg, cache)
-    _gate_slot_update(cache, new, None)
-    return y
-
-
-def _ssd_decode_paged(p, h, positions, cfg, state, tables, *, block_size,
-                      window, kernels, slot_mask=None):
-    B = h.shape[0]                      # the seats; the null seat is last
-    seats = {k: v[:B] for k, v in state.items()}
-    y, new = m2.mamba2_decode(p["mixer"], h, cfg, seats)
-    _gate_slot_update(seats, new, slot_mask)
-    return y
-
-
-register_mixer(MixerSpec(
-    kind=SSD, state=SLOT, param_key="mixer",
-    init=m2.init_mamba2,
-    forward=_ssd_forward,
-    decode=_ssd_decode,
-    init_cache=lambda cfg, batch, eff_len, dtype, device:
-        m2.init_mamba2_cache(cfg, batch, dtype, device),
-    init_state=lambda cfg, *, layers, num_blocks, block_size, num_slots,
-        dtype, device: m2.init_mamba2_pool(cfg, layers=layers,
-                                           num_slots=num_slots, dtype=dtype,
-                                           device=device),
-    decode_paged=_ssd_decode_paged,
-    prefill_paged=lambda p, h, starts, limits, slots, cfg, state, tables, *,
-        block_size, window, kernels: m2.mamba2_prefill_chunk(
-            p["mixer"], h, starts, limits, slots, cfg, state),
-))
+register_slot_mixer(SSD, init=m2.init_mamba2, forward=m2.mamba2_forward,
+                    decode=m2.mamba2_decode,
+                    init_cache=m2.init_mamba2_cache,
+                    prefill_chunk=m2.mamba2_prefill_chunk)
+register_slot_mixer(RGLRU, init=rg_mod.init_rglru,
+                    forward=rg_mod.rglru_forward,
+                    decode=rg_mod.rglru_decode,
+                    init_cache=rg_mod.init_rglru_cache,
+                    prefill_chunk=rg_mod.rglru_prefill_chunk)

@@ -178,8 +178,13 @@ def forward(params, tokens, cfg, *, prefix_embeds=None, mode="train",
     logits = x @ _unembed(params, cfg).T
     if mode != "prefill":
         return logits, None, metrics
-    caches = {name: tree_map(lambda *xs: torch.stack(xs), *layers)
-              for name, layers in per_layer.items()}
+    # a segment of no layers (the reduced 2-layer hybrid's pattern) stacks
+    # empty caches of the shapes the reference's scan gives it
+    caches = {f"seg{si}": tree_map(lambda *xs: torch.stack(xs),
+                                   *per_layer[f"seg{si}"]) if seg.repeat
+              else _stack_caches(cfg, seg, tokens.shape[0], S, x.dtype,
+                                 window_override, x.device)
+              for si, seg in enumerate(segments(cfg))}
     return logits, caches, metrics
 
 
@@ -190,14 +195,19 @@ def init_caches(cfg, batch, cache_len, *, dtype=None, window_override=None,
                 device=None):
     """Zero caches matching :func:`decode_step` (stacked per segment)."""
     dt = dtype or dtype_of(cfg)
-    caches = {}
-    for si, seg in enumerate(segments(cfg)):
-        one = tuple(_init_sublayer_cache(cfg, kd, batch, cache_len, dt,
-                                         window_override, device)
-                    for kd in seg.kinds)
-        caches[f"seg{si}"] = tree_map(
-            lambda a: a[None].repeat(seg.repeat, *([1] * a.ndim)), one)
-    return caches
+    return {f"seg{si}": _stack_caches(cfg, seg, batch, cache_len, dt,
+                                      window_override, device)
+            for si, seg in enumerate(segments(cfg))}
+
+
+def _stack_caches(cfg, seg, batch, cache_len, dtype, window_override,
+                  device):
+    """Zero caches of one segment, each leaf (repeat, ...)."""
+    one = tuple(_init_sublayer_cache(cfg, kd, batch, cache_len, dtype,
+                                     window_override, device)
+                for kd in seg.kinds)
+    return tree_map(lambda a: a[None].repeat(seg.repeat, *([1] * a.ndim)),
+                    one)
 
 
 def decode_step(params, token, pos: int, cfg, caches, *,

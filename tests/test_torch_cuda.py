@@ -1,13 +1,17 @@
 """The port's CUDA kernels, its serving path and its Generator on the card.
 
-The seven kernels (fused paged decode, ragged prefill, flash attention
+The eight kernels (fused paged decode, ragged prefill, flash attention
 with per-row query offsets and MLA's (Dk, Dv) = (96, 64) and (192, 128),
 dense decode with a window, MLA paged decode, the MoE grouped matmul with
 empty and single-expert groups, the Mamba-2 SSD scan at chunks of 256,
-100, 8 and 1 with and without an initial state) against their plain
-versions, the wrappers' refusals (shapes, dtypes, inputs that require
-grad), and the Generator and HyperServe on the card token-identical to
-the CPU, for qwen2-0.5b, deepseek-v2-lite (MLA + MoE) and mamba2-370m.
+100, 8 and 1 with and without an initial state, the RG-LRU scan with and
+without an initial state, padded and at odd lengths; the four GQA
+attention kernels also at recurrentgemma-2b's head dim 256 with 10 query
+heads per kv head, windowed) against their plain versions, the wrappers'
+refusals (shapes, dtypes, inputs that require grad; never a plain
+version on a CUDA tensor), and the Generator and HyperServe on the card
+token-identical to the CPU, for qwen2-0.5b, deepseek-v2-lite (MLA + MoE),
+mamba2-370m and recurrentgemma-2b (RG-LRU + LOCAL_ATTN).
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
 CUDA kernels have no CPU mode; on the CPU the wrappers run the plain
@@ -32,7 +36,10 @@ of 256, so every float32 evaluation carries ~|cs| 2^-24 relative error in
 them, and two that sum in different orders differ by about twice the plain
 version's own distance from a float64 evaluation: its float32 limit, and
 its bfloat16 slack, is 2e-5 times max(1, the largest |output|) of the
-tensor plus twice that distance.
+tensor plus twice that distance.  The RG-LRU scan: 2e-5 in float32 (the
+kernel walks t in order, the plain version in a log-depth tree), and
+2e-5 as its bfloat16 slack (its float32 carries differ by that much, not
+by the attention kernels' 4e-6).
 """
 import dataclasses
 
@@ -46,6 +53,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import grouped_matmul as gm  # noqa: E402
 from repro_torch.kernels import paged_decode_attention as pda  # noqa: E402
 from repro_torch.kernels import ragged_prefill_attention as rpa  # noqa: E402
+from repro_torch.kernels import rglru_scan as rs  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serve.api import HyperServe  # noqa: E402
@@ -549,3 +557,178 @@ def test_mamba2_serving_on_the_card_matches_the_cpu(cuda):
         max_new_tokens=n))[0, len(p):].tolist()
         for p, n in zip(prompts, max_new)]
     assert got == outs["cpu"]
+
+
+RG_ABS = 2e-5           # the RG-LRU scan's bf16 slack (module docstring)
+
+
+def _rg_inputs(dtype, device, B, S, W, seed, *, init, pad=0,
+               init_dtype=None):
+    """x, input_gate, a_gate (dtype), log_a (float32) and an initial state
+    (``init_dtype``, default dtype), at the reference kernel test's
+    scales; row 0's last ``pad`` positions have a_gate = 0."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, S, W, generator=g) * 0.5
+    ig = torch.sigmoid(torch.randn(B, S, W, generator=g))
+    ag = torch.sigmoid(torch.randn(B, S, W, generator=g))
+    if pad:
+        ag[0, S - pad:] = 0.0
+    la = -torch.nn.functional.softplus(-torch.linspace(2.0, 6.0, W))
+    s0 = (torch.randn(B, W, generator=g).to(device, init_dtype or dtype)
+          if init else None)
+    return [t.to(device, dtype) for t in (x, ig, ag)] + [la.to(device)], s0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,W,init,pad", [
+    (4, 256, 2560, True, 136),      # a serving prefill call, a padded row
+    (2, 1024, 512, False, 0),       # the Generator's length
+    (3, 1, 64, True, 0),            # one step
+    (2, 100, 200, True, 100),       # a row all padding
+    (2, 1023, 96, False, 7),        # odd lengths, a ragged last unroll
+])
+def test_rglru_scan_kernel_matches_plain_version(cuda, dtype, B, S, W, init,
+                                                 pad):
+    args, s0 = _rg_inputs(dtype, cuda, B, S, W, seed=S + W, init=init,
+                          pad=pad)
+    n0 = rs.rglru_scan.launches
+    h, fin = rs.rglru_scan(*args, init_state=s0)
+    assert rs.rglru_scan.launches == n0 + 1
+    assert h.dtype == fin.dtype == dtype
+    kw = dict(init_state=s0)
+    _assert_close(h, lambda *a, **k: rs.rglru_scan_ref(*a, **k)[0], args, kw,
+                  slack=RG_ABS)
+    _assert_close(fin, lambda *a, **k: rs.rglru_scan_ref(*a, **k)[1], args,
+                  kw, slack=RG_ABS)
+    if pad:
+        # a_gate = 0: a_t = 1, beta = 0; the carry passes through exactly
+        held = s0[0] if pad == S else h[0, S - pad - 1]
+        assert torch.equal(h[0, S - pad:], held.expand(pad, W))
+        assert torch.equal(fin[0], held)
+
+
+def test_rglru_scan_kernel_takes_an_f32_state_and_strided_rows(cuda):
+    """bf16 inputs with a float32 initial state (the port's pool may hold
+    either), and x, input_gate and a_gate as strided views of wider rows."""
+    args, s0 = _rg_inputs(torch.bfloat16, cuda, 2, 64, 128, seed=3,
+                          init=True, init_dtype=torch.float32)
+    wide = torch.cat([a for a in args[:3]], dim=-1)          # (B, S, 3W)
+    views = [wide[..., i * 128:(i + 1) * 128] for i in range(3)]
+    got = rs.rglru_scan(*views, args[3], init_state=s0)
+    want = rs.rglru_scan(*args, init_state=s0)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    _assert_close(got[0], lambda *a, **k: rs.rglru_scan_ref(*a, **k)[0],
+                  args, dict(init_state=s0), slack=RG_ABS)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 50])
+def test_attention_kernels_at_head_dim_256_and_ten_heads(cuda, dtype,
+                                                         window):
+    """recurrentgemma-2b's LOCAL_ATTN shape, (H, KV, D) = (10, 1, 256): the
+    decode kernels take the 10 heads in two blocks of at most 8 and a
+    64 KB combine buffer in dynamic shared memory; flash its (256, 256)
+    tensor-core tiles (67.6 KB); each matches its plain version."""
+    H, KV, D, bs = 10, 1, 256, 16
+    g = torch.Generator().manual_seed(21)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(cuda, dtype)
+    nb = 64
+    k_pool, v_pool = rnd(nb, bs, KV, D), rnd(nb, bs, KV, D)
+    tables = (torch.randperm(nb - 1, generator=g)[:4 * 15] + 1).reshape(
+        4, 15).to(cuda, torch.int32)
+    lengths = torch.tensor([1, 17, 130, 240], dtype=torch.int32, device=cuda)
+    kw = dict(block_size=bs, window=window)
+    n0 = pda.paged_decode_attention.launches
+    args = (rnd(4, 1, H, D), k_pool, v_pool, tables, lengths)
+    _assert_close(pda.paged_decode_attention(*args, **kw),
+                  pda.paged_decode_attention_ref, args, kw)
+    assert pda.paged_decode_attention.launches == n0 + 1
+    starts = torch.tensor([0, 60, 150, 0], dtype=torch.int32, device=cuda)
+    limits = torch.tensor([40, 90, 170, 0], dtype=torch.int32, device=cuda)
+    args = (rnd(4, 40, H, D), k_pool, v_pool, tables, starts, limits)
+    got = rpa.ragged_prefill_attention(*args, **kw)
+    _assert_close(got, rpa.ragged_prefill_attention_ref, args, kw)
+    assert bool((got[3] == 0).all())             # the filler row
+    q, k, v = rnd(2, 150, H, D), rnd(2, 150, KV, D), rnd(2, 150, KV, D)
+    for fkw in (dict(causal=True, window=window),
+                dict(causal=True, window=window, q_offset=torch.tensor(
+                    [0, 70], dtype=torch.int32, device=cuda))):
+        qq = q if "q_offset" not in fkw else q[:, :80]
+        _assert_close(fa.flash_attention(qq, k, v, **fkw),
+                      fa.flash_attention_ref, (qq, k, v), fkw)
+    lens = torch.tensor([1, 50, 149, 150], dtype=torch.int32, device=cuda)
+    kd, vd = rnd(4, 150, KV, D), rnd(4, 150, KV, D)
+    args = (rnd(4, 1, H, D), kd, vd, lens)
+    _assert_close(da.decode_attention(*args, window=window),
+                  da.decode_attention_ref, args, dict(window=window))
+
+
+def test_unsupported_shapes_raise_and_never_fall_back(cuda, monkeypatch):
+    """A head dim no kernel was built for, a head count that is no multiple
+    of the kv heads, a float16 RG-LRU input or a float64 log_a are refused
+    before any launch, with no plain version run in their place; on a CUDA
+    tensor the RG-LRU wrapper never runs its plain version."""
+    g = torch.Generator().manual_seed(2)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(cuda)
+    pool = rnd(8, 4, 1, 96)
+    tables = torch.ones(2, 2, dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([3, 5], dtype=torch.int32, device=cuda)
+    n0 = (pda.paged_decode_attention.launches, da.decode_attention.launches,
+          rs.rglru_scan.launches)
+    with pytest.raises(ValueError, match="head dims"):
+        pda.paged_decode_attention(rnd(2, 1, 10, 96), pool, pool, tables,
+                                   lengths, block_size=4)
+    with pytest.raises(ValueError, match="H % KV"):
+        da.decode_attention(rnd(2, 1, 10, 64), rnd(2, 8, 3, 64),
+                            rnd(2, 8, 3, 64), lengths)
+    args, _ = _rg_inputs(torch.float32, cuda, 2, 8, 16, seed=1, init=False)
+    with pytest.raises(ValueError, match="dtypes"):
+        rs.rglru_scan(*[a.half() for a in args[:3]], args[3])
+    with pytest.raises(ValueError, match="log_a"):
+        rs.rglru_scan(*args[:3], args[3].double())
+    assert (pda.paged_decode_attention.launches,
+            da.decode_attention.launches, rs.rglru_scan.launches) == n0
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+    monkeypatch.setattr(rs, "rglru_scan_ref", plain)
+    rs.rglru_scan(*args)
+    assert rs.rglru_scan.launches == n0[2] + 1
+
+
+def test_hybrid_serving_on_the_card_matches_the_cpu(cuda):
+    """Reduced recurrentgemma-2b (5 layers, window 16) in float32: greedy
+    tokens on the card, fused and composed, equal the CPU's through window
+    freeing, with one rglru_scan launch per RG-LRU layer and prefill call
+    and one paged_decode_attention per LOCAL_ATTN layer and decode step."""
+    cfg = dataclasses.replace(get_config("recurrentgemma-2b").reduced(),
+                              dtype="float32", num_layers=5,
+                              sliding_window=16)
+    params = M.init_model(cfg, torch.Generator().manual_seed(0))
+    scfg = ServeConfig(block_size=4, num_blocks=40, max_blocks_per_req=12,
+                       max_slots=2, prefill_chunk=4)
+    prompts, max_new = [list(range(1, 9)), list(range(20, 33))], [20, 16]
+    n_rg = sum(m == "rglru" for m, _ in cfg.block_kinds())
+    n_attn = cfg.num_layers - n_rg
+    outs = {}
+    for device, kernels in (("cpu", "fused"), (cuda, "fused"),
+                            (cuda, "composed")):
+        n0 = (rs.rglru_scan.launches, pda.paged_decode_attention.launches)
+        serve = HyperServe(cfg, params, device=device,
+                           serve_cfg=dataclasses.replace(scfg,
+                                                         kernels=kernels))
+        rids = [serve.submit(p, n) for p, n in zip(prompts, max_new)]
+        out = serve.join()
+        outs[str(device), kernels] = [out[r] for r in rids]
+        if device != "cpu":
+            m = serve.engine.obs.metrics
+            calls = serve.stats()["prefill_calls"]
+            steps = m.counter(f"serve.kernels.decode.{kernels}").value
+            assert rs.rglru_scan.launches - n0[0] == n_rg * calls
+            assert pda.paged_decode_attention.launches - n0[1] == (
+                n_attn * steps if kernels == "fused" else 0)
+    assert len(set(map(str, outs.values()))) == 1, outs

@@ -13,7 +13,9 @@ sums run in another order; the caches hold K/V straight from the same
 projections).  Greedy tokens exactly equal: float32, so no argmax flips on
 rounding.  Windowed cases use a window shorter than the prompt, so the
 flash window, the ring-layout prefill cache and the ring decode cache all
-run.
+run; so does the hybrid recurrentgemma-2b, whose LOCAL_ATTN layers are
+windowed by the config and whose RG-LRU layers carry a recurrent state
+and a conv tail.
 """
 import dataclasses
 import functools
@@ -40,11 +42,16 @@ ARCHS = ["qwen2-0.5b", "llama3-8b"]
 WINDOWS = [None, 8]
 
 
+# recurrentgemma-2b cut to 5 layers, (RG-LRU, RG-LRU, LOCAL_ATTN) + (RG-LRU,
+# RG-LRU), so both segments exist, with a window shorter than the prompts
+HYBRID = ("recurrentgemma-2b", (("num_layers", 5), ("sliding_window", 16)))
+
+
 @functools.cache
-def _models(arch):
-    jcfg = dataclasses.replace(jax_get_config(arch).reduced(),
-                               dtype="float32")
-    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+def _models(arch, overrides=()):
+    kw = dict(overrides, dtype="float32")
+    jcfg = dataclasses.replace(jax_get_config(arch).reduced(), **kw)
+    cfg = dataclasses.replace(get_config(arch).reduced(), **kw)
     jp = JM.init_model(jcfg, jax.random.PRNGKey(0))
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
     return jcfg, cfg, jp, tp
@@ -55,13 +62,23 @@ def _tokens(cfg, shape, seed):
         1, cfg.vocab_size, size=shape).astype(np.int32)
 
 
+def _sorted(tree):
+    """The port tree with its dict keys in the order JAX flattens them."""
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_sorted(v) for v in tree)
+    return tree
+
+
 def _assert_tree_close(jtree, ttree):
     jl = jax.tree.leaves(jtree)
-    tl = tree_leaves(ttree)
+    tl = tree_leaves(_sorted(ttree))
     assert len(jl) == len(tl)
     for a, b in zip(jl, tl):
         assert tuple(a.shape) == tuple(b.shape)
-        assert np.max(np.abs(np.asarray(a) - b.numpy())) < TOL
+        if a.size:                  # a segment of no layers holds nothing
+            assert np.max(np.abs(np.asarray(a) - b.numpy())) < TOL
 
 
 @pytest.mark.parametrize("window", WINDOWS)
@@ -143,3 +160,62 @@ def test_seeded_sampling_replays_within_the_port():
     assert not torch.equal(runs[0], runs[2])
     assert not torch.equal(runs[0], greedy)
     assert bool(((runs[0] >= 0) & (runs[0] < cfg.vocab_size)).all())
+
+
+def test_hybrid_forward_decode_and_generator_match_reference():
+    """recurrentgemma-2b (RG-LRU + LOCAL_ATTN, 5 layers, window 16): the
+    prefill logits and caches (the windowed layer's in ring layout, the
+    RG-LRU layers' state and conv tail), 20 decode steps from zero caches
+    past the window, and the Generator's greedy tokens on 20-token
+    prompts, against the reference's."""
+    jcfg, cfg, jp, tp = _models(*HYBRID)
+    tokens = _tokens(cfg, (2, 19), 5)
+    lj, cj, _ = JM.forward(jp, jnp.asarray(tokens), jcfg, mode="prefill")
+    with torch.no_grad():
+        lt, ct, _ = M.forward(tp, torch.from_numpy(tokens), cfg,
+                              mode="prefill")
+    assert np.max(np.abs(np.asarray(lj) - lt.numpy())) < TOL
+    _assert_tree_close(cj, ct)
+    assert ct["seg0"][2]["k"].shape[2] == cfg.sliding_window
+    B, steps = 2, 20
+    tokens = _tokens(cfg, (B, steps), 6)
+    jc = JM.init_caches(jcfg, B, 24, dtype=jnp.float32)
+    tc = M.init_caches(cfg, B, 24, dtype=torch.float32)
+    _assert_tree_close(jc, tc)
+    step = jax.jit(JM.decode_step, static_argnums=3)
+    for t in range(steps):
+        lj, jc = step(jp, jnp.asarray(tokens[:, t:t + 1]), jnp.int32(t),
+                      jcfg, jc)
+        with torch.no_grad():
+            lt = M.decode_step(tp, torch.from_numpy(tokens[:, t:t + 1]), t,
+                               cfg, tc)
+        assert np.max(np.abs(np.asarray(lj) - lt.numpy())) < TOL, t
+    _assert_tree_close(jc, tc)
+    prompts = _tokens(cfg, (2, 20), 7)
+    want = JaxGenerator(jcfg, jp, max_len=48).generate(
+        jnp.asarray(prompts), JaxGenerateConfig(max_new_tokens=10))
+    got = Generator(cfg, tp, max_len=48, device="cpu").generate(
+        torch.from_numpy(prompts), GenerateConfig(max_new_tokens=10))
+    assert got.tolist() == np.asarray(want).tolist()
+
+
+def test_hybrid_of_two_layers_has_an_empty_pattern_segment():
+    """``.reduced()`` recurrentgemma-2b keeps 2 layers: its pattern segment
+    (the pattern cut to the 2 layers there are) repeats 0 times and the
+    tail holds both layers.  The prefill still returns the empty segment's caches, with
+    the shapes the reference's scan gives them, and the Generator seats
+    them: its greedy tokens match the reference's."""
+    jcfg, cfg, jp, tp = _models("recurrentgemma-2b")
+    tokens = _tokens(cfg, (2, 9), 8)
+    lj, cj, _ = JM.forward(jp, jnp.asarray(tokens), jcfg, mode="prefill")
+    with torch.no_grad():
+        lt, ct, _ = M.forward(tp, torch.from_numpy(tokens), cfg,
+                              mode="prefill")
+    assert ct["seg0"][0]["state"].shape[0] == 0
+    assert np.max(np.abs(np.asarray(lj) - lt.numpy())) < TOL
+    _assert_tree_close(cj, ct)
+    want = JaxGenerator(jcfg, jp, max_len=24).generate(
+        jnp.asarray(tokens), JaxGenerateConfig(max_new_tokens=6))
+    got = Generator(cfg, tp, max_len=24, device="cpu").generate(
+        torch.from_numpy(tokens), GenerateConfig(max_new_tokens=6))
+    assert got.tolist() == np.asarray(want).tolist()

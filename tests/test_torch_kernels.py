@@ -249,14 +249,62 @@ def test_kernel_input_checks_name_the_problem():
             mod._check(q[..., :32], k[..., :32], k[..., :32], *args[3:])
         with pytest.raises(ValueError, match="contiguous"):
             mod._check(q, k.transpose(0, 1), k, *args[3:])
-    for mod in (pda, da):                     # at most 8 heads per kv head
-        with pytest.raises(ValueError, match="H/KV <= 8"):
-            mod._check(q, k[:, :, :1], k[:, :, :1],
-                       *([torch.ones(2)] if mod is da else []))
+    for mod in (pda, da):        # any number of query heads per kv head,
+        n = [torch.ones(2)] if mod is da else []    # but H a multiple of KV
+        k1 = k[:, :, :1].contiguous()            # G = 16 over one kv head
+        mod._check(q, k1, k1, *n)
+        with pytest.raises(ValueError, match="H % KV"):
+            mod._check(q[:, :, :15], k, k, *n)
     with pytest.raises(ValueError, match="q_offset"):
         fa._check(q, k, k, torch.zeros(3, dtype=torch.int32))
     with pytest.raises(ValueError, match="length"):
         da._check(q, k, k, torch.ones(3))
+
+
+@pytest.mark.parametrize("kernel", ["paged_decode", "ragged_prefill",
+                                    "flash", "decode"])
+def test_attention_at_head_dim_256_and_ten_heads_per_kv_head(kernel):
+    """recurrentgemma-2b's LOCAL_ATTN shape, (H, KV, D) = (10, 1, 256),
+    windowed: every attention wrapper's checks take it (the kernels are
+    built for it), and the plain version the wrapper runs on the CPU
+    matches the reference's oracle within 2e-5 in float32."""
+    H, KV, D, window = 10, 1, 256, 9
+    rng = np.random.default_rng(12)
+
+    def rnd(*shape):
+        return rng.standard_normal(shape).astype(np.float32) * 0.3
+    if kernel in ("paged_decode", "ragged_prefill"):
+        k_pool, v_pool = _pools(rng, KV, D)
+        tables = _tables(3)
+        if kernel == "paged_decode":
+            mod, q = pda, rnd(3, 1, H, D)
+            extra = [np.asarray([10, 3, 24], np.int32)]
+        else:
+            mod, q = rpa, rnd(3, 8, H, D)
+            extra = [np.asarray([0, 5, 16], np.int32),
+                     np.asarray([12, 13, 24], np.int32)]
+        args = [q, k_pool, v_pool, tables, *extra]
+        kw = dict(block_size=BS, window=window)
+        fn = (mod.paged_decode_attention if mod is pda
+              else mod.ragged_prefill_attention)
+        oracle = (ref.paged_decode_attention if mod is pda
+                  else ref.ragged_prefill_attention)
+        mod._check(*(_t(a) for a in args[:3]))
+    elif kernel == "flash":
+        args, kw = [rnd(2, 24, H, D), rnd(2, 24, KV, D), rnd(2, 24, KV, D)], \
+            dict(window=window)
+        fn, oracle = fa.flash_attention, ref.flash_attention
+        fa._check(*(_t(a) for a in args), 0)
+    else:
+        args = [rnd(3, 1, H, D), rnd(3, 30, KV, D), rnd(3, 30, KV, D),
+                np.asarray([1, 17, 30], np.int32)]
+        kw = dict(window=window)
+        fn, oracle = da.decode_attention, ref.decode_attention
+        da._check(*(_t(a) for a in args))
+    got = fn(*(_t(a) for a in args), **kw)
+    want = oracle(*(jnp.asarray(a) for a in args), **kw)
+    assert got.shape == want.shape and got.shape[-2:] == (H, D)
+    assert _maxdiff(got, want) < TOL
 
 
 def test_resolve_paged_path():

@@ -119,6 +119,27 @@ def test_launcher_serves_mamba2_on_an_explicit_cpu(capsys):
     assert "generated 6 tokens" in out
 
 
+def test_launcher_serves_recurrentgemma_on_an_explicit_cpu(capsys):
+    """recurrentgemma-2b (RG-LRU seat state beside windowed LOCAL_ATTN
+    pages) through ``--arch``: served continuously, fused and composed,
+    and generated in a fixed batch."""
+    from repro_torch.launch import serve as launcher
+    for kernels in ("fused", "composed"):
+        launcher.main(["--arch", "recurrentgemma-2b", "--reduced",
+                       "--continuous", "--device", "cpu", "--requests", "3",
+                       "--max-new", "4", "--block-size", "4", "--num-blocks",
+                       "64", "--prefill-chunk", "8", "--kernels", kernels,
+                       "--metrics"])
+        out = capsys.readouterr().out
+        assert "served 3 requests" in out and "on cpu" in out
+        assert f"serve_kernels_decode_{kernels}" in out
+    launcher.main(["--arch", "recurrentgemma-2b", "--reduced", "--device",
+                   "cpu", "--batch", "2", "--prompt-len", "6", "--max-new",
+                   "3"])
+    out = capsys.readouterr().out
+    assert "generated 6 tokens" in out
+
+
 @pytest.mark.parametrize("window", [0, 4])
 def test_launcher_runs_fixed_batch_generation_on_an_explicit_cpu(capsys,
                                                                  window):

@@ -161,9 +161,16 @@ def test_pool_accounting_and_unservable_mixers():
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     assert pool.hbm_bytes() == cfg.num_layers * 2 * 16 * 2 * kv * hd * 4
     assert blocks_for(5, 4) == 2 and blocks_for(4, 4) == 1
-    # RG-LRU registers no MixerSpec yet (SSD does since mamba2-370m)
+    # every mixer kind of the reference registers a MixerSpec (RG-LRU and
+    # LOCAL_ATTN since recurrentgemma-2b): the hybrid is servable, with
+    # slot state beside windowed pages; a kind with no spec is refused
     hybrid = ModelConfig(name="hybrid", family="hybrid", num_layers=3,
                          d_model=64, num_heads=2, num_kv_heads=2, d_ff=128,
                          vocab_size=256, rglru=RGLRUConfig())
-    with pytest.raises(ServePlanError, match="'rglru'.*MixerSpec"):
-        StatePool(hybrid, pcfg, device="cpu")
+    layout = StatePool(hybrid, pcfg, device="cpu").layout
+    assert layout.has_slot_state and layout.has_windowed_state
+    assert layout.free_window == hybrid.sliding_window
+    bogus = dataclasses.replace(hybrid, rglru=RGLRUConfig(
+        block_pattern=("rglru", "bogus", "local")))
+    with pytest.raises(ServePlanError, match="'bogus'.*MixerSpec"):
+        StatePool(bogus, pcfg, device="cpu")

@@ -12,7 +12,10 @@ tokens and to both frameworks' ``Generator``s.  The MoE configs
 (deepseek-v2-lite-16b with MLA, deepseek-moe-16b) are served the same way,
 fused and composed, through the ragged MoE dispatch, and the attention-free
 mamba2-370m (SSD mixer, per-seat state) as the reference's own slot-state
-serving tests serve it.  Float32 so that no argmax can flip on rounding.
+serving tests serve it, and the hybrid recurrentgemma-2b (RG-LRU seat
+state beside windowed LOCAL_ATTN pages) through window freeing and a
+preemption that spills both.  Float32 so that no argmax can flip on
+rounding.
 """
 import dataclasses
 import functools
@@ -38,6 +41,7 @@ from repro_torch.serve.api import HyperServe, RequestRejected  # noqa: E402
 from repro_torch.serve.engine import \
     GenerateConfig as PortGenerateConfig  # noqa: E402
 from repro_torch.serve.engine import Generator as PortGenerator  # noqa: E402
+from repro_torch.serve.scheduler import RequestState  # noqa: E402
 
 CASES = {
     # tests/test_fused_serve.py: test_attn_fused_serve_matches_generator
@@ -72,21 +76,42 @@ SSD_CASES = {
 }
 
 
+# recurrentgemma-2b (RG-LRU + LOCAL_ATTN): tests/test_hyperserve.py's
+# hybrid cases, cut to 5 layers so both segments, (RG-LRU, RG-LRU,
+# LOCAL_ATTN) and the (RG-LRU, RG-LRU) tail, exist, with a 16-token window
+HYBRID = ("recurrentgemma-2b", (("num_layers", 5), ("sliding_window", 16)))
+HYBRID_CASES = {
+    # test_rglru_local_attn_windowed_serve_matches_generator: generation
+    # runs past the window, so out-of-window blocks are freed
+    "windowed": (dict(block_size=4, num_blocks=40, max_blocks_per_req=12,
+                      max_slots=2, prefill_chunk=4),
+                 [list(range(1, 9)), list(range(20, 33))], [20, 16]),
+    # several chunks per call, filler rows at the null seat and block
+    "batched": SSD_CASES["batched"],
+    # test_slot_state_preemption_spill_restore_exact: the paged LOCAL_ATTN
+    # layer's blocks run out, so a request is preempted and its seat rows
+    # are spilled and restored beside its pages
+    "preempt": (dict(block_size=2, num_blocks=11, max_blocks_per_req=10,
+                     max_slots=2, prefill_chunk=4, enable_prefix_cache=False),
+                [list(range(1, 5)), list(range(7, 11))], [8, 8]),
+}
+
+
 @functools.cache
-def _models(arch):
-    jcfg = dataclasses.replace(jax_get_config(arch).reduced(),
-                               dtype="float32")
-    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+def _models(arch, overrides=()):
+    kw = dict(overrides, dtype="float32")
+    jcfg = dataclasses.replace(jax_get_config(arch).reduced(), **kw)
+    cfg = dataclasses.replace(get_config(arch).reduced(), **kw)
     jp = JM.init_model(jcfg, jax.random.PRNGKey(0))
     return jcfg, cfg, jp, params_from_numpy(jax.tree.map(np.asarray, jp),
                                             "cpu")
 
 
 @functools.cache
-def _generator(arch):
+def _generator(arch, overrides=()):
     """One reference Generator per arch: its decode step compiles once
     for both cases."""
-    jcfg, _, jp, _ = _models(arch)
+    jcfg, _, jp, _ = _models(arch, overrides)
     return Generator(jcfg, jp, max_len=128)
 
 
@@ -200,6 +225,64 @@ def test_ssd_serve_matches_reference_and_generators(case):
         assert ps["prefill_chunks"] > ps["prefill_calls"]
     if case == "beyond_budget":
         assert ps["preemptions"] == 0 and ps["block_occupancy"] == 0.0
+
+
+@pytest.mark.parametrize("case", sorted(HYBRID_CASES))
+def test_hybrid_serve_matches_reference_and_generators(case):
+    """recurrentgemma-2b (RG-LRU seat state + LOCAL_ATTN windowed pages):
+    the port's HyperServe, fused and composed, gives the JAX HyperServe's
+    and both Generators' greedy tokens with the reference's counters and
+    compile ledger; every paged layer is windowed, so the runtime frees
+    out-of-window blocks (seen in the "windowed" case) and a running
+    request never holds more than ceil(window / block) + 1 blocks; the
+    "preempt" case preempts, spilling and restoring seat rows and pages."""
+    kw, prompts, max_new = HYBRID_CASES[case]
+    jcfg, cfg, jp, tp = _models(*HYBRID)
+    ref = JaxHyperServe(jcfg, jp, serve_cfg=JaxServeConfig(kernels="composed",
+                                                           **kw))
+    want = _serve(ref, prompts, max_new)
+    gen = _generator(*HYBRID)
+    want_gen = [gen.generate(jnp.asarray(p, jnp.int32)[None, :],
+                             GenerateConfig(max_new_tokens=n))[0, len(p):]
+                .tolist() for p, n in zip(prompts, max_new)]
+    port_gen = PortGenerator(cfg, tp, max_len=128, device="cpu")
+    got_gen = [port_gen.generate(torch.tensor([p]), PortGenerateConfig(
+        max_new_tokens=n))[0, len(p):].tolist()
+        for p, n in zip(prompts, max_new)]
+    assert want == want_gen == got_gen
+    rs = ref.stats()
+    bound = -(-cfg.sliding_window // kw["block_size"]) + 1
+    for kernels in ("fused", "composed"):
+        port = HyperServe(cfg, tp, device="cpu", serve_cfg=ServeConfig(
+            kernels=kernels, **kw))
+        eng = port.engine
+        assert eng.layout.free_window == cfg.sliding_window
+        assert eng.layout.has_slot_state and not eng.layout.pure_paged
+        rids = [port.submit(p, n) for p, n in zip(prompts, max_new)]
+        freed = False
+        while eng.scheduler.has_work():
+            port.step_once()
+            for r in eng.scheduler.requests.values():
+                if r.state is RequestState.RUNNING:
+                    assert r.live_blocks <= bound, (r.total_len, r.table)
+                    freed = freed or r.null_prefix > 0 or (
+                        bool(r.table) and r.table[0] == 0)
+        assert [port.result(r) for r in rids] == want, kernels
+        ps = port.stats()
+        for key in ("prefill_calls", "prefill_chunks", "preemptions",
+                    "prefix_hits", "finished"):
+            assert ps[key] == rs[key], key
+        assert eng.obs.compiled_keys() == ref.engine.obs.compiled_keys()
+        assert eng.blocks.num_free == eng.blocks.num_total     # drained
+        if case == "windowed":
+            assert freed, "windowed freeing never fired"
+        if case == "batched":
+            assert ps["prefill_chunks"] > ps["prefill_calls"]
+        if case == "preempt":
+            m = eng.obs.metrics
+            assert ps["preemptions"] >= 1, "the case must really preempt"
+            assert m.counter("serve.spills").value >= 1
+            assert m.counter("serve.restores").value >= 1
 
 
 def test_kernel_dispatch_counters_pinned():
@@ -322,22 +405,22 @@ def test_typed_errors_name_what_is_missing():
     with pytest.raises(ServePlanError, match="num_blocks"):
         HyperServe(cfg, params, device="cpu",
                    serve_cfg=ServeConfig(num_blocks=1))
-    with pytest.raises(ArchNotPortedError, match="RG-LRU"):
-        get_config("recurrentgemma-2b")
+    with pytest.raises(ArchNotPortedError, match="audio frontend"):
+        get_config("musicgen-large")
 
 
 def test_ported_and_not_yet_ported_archs():
-    """Six archs are ported (the dense GQA pair, the three MoE configs and
-    mamba2-370m), each a copy of the reference's config; every other arch
-    of the reference raises the typed ArchNotPortedError naming what it
-    still needs."""
+    """Seven archs are ported (the dense GQA pair, the three MoE configs,
+    mamba2-370m and the hybrid recurrentgemma-2b), each a copy of the
+    reference's config; every other arch of the reference raises the typed
+    ArchNotPortedError naming what it still needs."""
     from repro.configs.base import list_archs as jax_list_archs
     assert list_archs() == ("deepseek-moe-16b", "deepseek-v2-lite-16b",
                             "llama3-8b", "mamba2-370m", "moonshot-v1-16b-a3b",
-                            "qwen2-0.5b")
+                            "qwen2-0.5b", "recurrentgemma-2b")
     rest = sorted(set(jax_list_archs()) - set(list_archs()))
     assert rest == ["granite-3-2b", "internvl2-26b", "musicgen-large",
-                    "phi4-mini-3.8b", "recurrentgemma-2b"]
+                    "phi4-mini-3.8b"]
     for name in rest:
         with pytest.raises(ArchNotPortedError, match="not ported yet"):
             get_config(name)
