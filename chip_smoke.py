@@ -137,6 +137,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -862,9 +863,46 @@ def phase_build():
                         "ssd_scan", "rglru_scan"])
     log(f"[build] {time.perf_counter() - t0:.1f}s into {build.BUILD_DIR}")
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "built " in line:
-                log(f"[build] {name}: {line.strip()}")
+        log(f"[build] {name}: {text.splitlines()[0]}")
+        for fn, regs, spill in ptxas_report(text):
+            log(f"[build] {name}: {fn}: {regs} registers, {spill} bytes "
+                "spill stores")
+
+
+def ptxas_report(text):
+    """(instantiation, registers, spill-store bytes) of each kernel in an
+    ``nvcc -Xptxas -v`` log, the mangled names shortened to their kernel
+    and template arguments, e.g. ``flash_kernel<bf16,256,256>``."""
+    rows, fn, spill = [], None, 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            rows.append((short_kernel_name(fn), int(m.group(1)), spill))
+            fn = None
+    return rows
+
+
+def short_kernel_name(mangled: str) -> str:
+    m = re.search(r"(\w+?)I((?:13__nv_bfloat16|f|Li\d+E)+)E", mangled)
+    if m is None:
+        return mangled
+    head, name = m.group(1), m.group(1)
+    for i in range(len(head)):      # the last length-prefixed name in head
+        d = re.match(r"\d+", head[i:])
+        if d and int(d.group()) == len(head) - i - d.end() > 0:
+            name = head[i + d.end():]
+            break
+    args = re.findall(r"13__nv_bfloat16|Li\d+E|f", m.group(2))
+    return name + "<" + ",".join(
+        "bf16" if a.startswith("13") else "f32" if a == "f" else a[2:-1]
+        for a in args) + ">"
 
 
 def kernel_cases(torch, dtype, heads, kv, dim):

@@ -12,7 +12,13 @@ Generator prefill (B=8, S=1024, causal), decode_attention at the
 Generator's decode (B=8 over a 1096-entry cache, lengths 1025..1087),
 paged_decode_attention at the serving decode (16 seats, block 16,
 lengths 100..1564) and ragged_prefill_attention at a serving prefill call
-(4 rows of 256, one a filler); with two timers, ROUNDS readings each:
+(4 rows of 256, one a filler); and the prefill kernels at the other rows
+of PERF.md's kernel table: the ragged prefill at recurrentgemma-2b's
+(H, KV, D) = (10, 1, 256), window 2048, over ``chip_smoke.py``'s
+RG_PRE_ROWS (a row past the window, a filler), flash at (256, 256) over
+8 x 1024 with that window, and flash at deepseek-v2-lite's (Dk, Dv) =
+(192, 128) over its prefill call's rows (4 x 256 queries at offsets 0,
+256, 768, 1280 over 1536 keys); with two timers, ROUNDS readings each:
 
 * queued -- every launch queued behind a cold-L2 flush and one wait at
   the end (the ``time_ms`` of ``chip_smoke.py``);
@@ -37,6 +43,13 @@ import sys
 import time
 
 H, KV, D, BS = 14, 2, 64, 16
+# recurrentgemma-2b's and deepseek-v2-lite's rows, as chip_smoke.py builds
+# them (its RG_PRE_ROWS, RG_TABLE_W, DS_ROW_OFFSETS, DS_TABLE_W)
+RG_H, RG_KV, RG_D, RG_WINDOW = 10, 1, 256, 2048
+RG_PRE_ROWS = ((0, 900), (1792, 2900), (2304, 3000), (0, 0))
+RG_TABLE_W, RG_BLOCKS = 194, 4096
+DS_H, DS_DK, DS_DV = 16, 192, 128
+DS_ROW_OFFSETS, DS_KEYS = (0, 256, 768, 1280), 96 * BS
 ROUNDS = 5
 REPEATS = 30
 CALLS = 200
@@ -91,8 +104,21 @@ TIMERS = (("queued", timer_queued), ("synced", timer_synced))
 MEASURES = ("queued", "synced", "host_us", "check_us")
 
 
+def rg_table(torch, g, limits, window):
+    """Block tables as the recurrentgemma scheduler leaves them: each block
+    drawn once, the entries wholly below the window null (block 0)."""
+    perm = torch.randperm(RG_BLOCKS - 1, generator=g) + 1
+    tables = torch.zeros(len(limits), RG_TABLE_W, dtype=torch.int32)
+    used = 0
+    for r, n in enumerate(limits):
+        nb, freed = -(-n // BS), max(0, n - window) // BS
+        tables[r, freed:nb] = perm[used:used + nb - freed]
+        used += nb - freed
+    return tables
+
+
 def cases(torch):
-    """{kernel: (module, wrapper args, kwargs, check args)}, the same
+    """{case: (module, kernel, wrapper args, kwargs, check args)}, the same
     inputs in every process (drawn on the host from fixed seeds)."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
@@ -106,11 +132,12 @@ def cases(torch):
     def ints(t):
         return t.to("cuda", torch.int32)
     q, k, v = rnd(8, 1024, H, D), rnd(8, 1024, KV, D), rnd(8, 1024, KV, D)
-    out = {"flash_attention": (fa, (q, k, v), dict(causal=True),
-                               (q, k, v, 0))}
+    out = {"flash_attention": (fa, "flash_attention", (q, k, v),
+                               dict(causal=True), (q, k, v, 0))}
     q, k, v = rnd(8, 1, H, D), rnd(8, 1096, KV, D), rnd(8, 1096, KV, D)
     lens = ints(torch.randint(1025, 1088, (8,), generator=g))
-    out["decode_attention"] = (da, (q, k, v, lens), {}, (q, k, v, lens))
+    out["decode_attention"] = (da, "decode_attention", (q, k, v, lens), {},
+                               (q, k, v, lens))
     nb, width = 2048, 128
     k_pool, v_pool = rnd(nb, BS, KV, D), rnd(nb, BS, KV, D)
     perm = torch.randperm(nb - 1, generator=g) + 1
@@ -123,14 +150,39 @@ def cases(torch):
         used += nbk
     q = rnd(16, 1, H, D)
     out["paged_decode_attention"] = (
-        pda, (q, k_pool, v_pool, ints(tables), ints(lengths)),
+        pda, "paged_decode_attention",
+        (q, k_pool, v_pool, ints(tables), ints(lengths)),
         dict(block_size=BS), (q, k_pool, v_pool))
     starts = ints(torch.tensor([0, 768, 1280, 0]))
     limits = ints(torch.tensor([900, 1400, 1400, 0]))
     q = rnd(4, 256, H, D)
     out["ragged_prefill_attention"] = (
-        rpa, (q, k_pool, v_pool, ints(tables[:4]), starts, limits),
+        rpa, "ragged_prefill_attention",
+        (q, k_pool, v_pool, ints(tables[:4]), starts, limits),
         dict(block_size=BS), (q, k_pool, v_pool))
+    # recurrentgemma-2b: the ragged prefill over RG_PRE_ROWS, flash 8 x 1024
+    k_pool, v_pool = (rnd(RG_BLOCKS, BS, RG_KV, RG_D) for _ in range(2))
+    tables = rg_table(torch, g, [min(lim, st + 256) for st, lim in
+                                 RG_PRE_ROWS], RG_WINDOW + 256)
+    q = rnd(4, 256, RG_H, RG_D)
+    rows = (ints(torch.tensor([r[0] for r in RG_PRE_ROWS])),
+            ints(torch.tensor([r[1] for r in RG_PRE_ROWS])))
+    out["ragged_prefill_attention d256 g10"] = (
+        rpa, "ragged_prefill_attention",
+        (q, k_pool, v_pool, ints(tables), *rows),
+        dict(block_size=BS, window=RG_WINDOW), (q, k_pool, v_pool))
+    q, k, v = (rnd(8, 1024, n, RG_D) for n in (RG_H, RG_KV, RG_KV))
+    out["flash_attention d256 g10"] = (
+        fa, "flash_attention", (q, k, v),
+        dict(causal=True, window=RG_WINDOW), (q, k, v, 0))
+    # deepseek-v2-lite: its prefill call's flash rows, (Dk, Dv) = (192, 128)
+    q = rnd(4, 256, DS_H, DS_DK)
+    k, v = rnd(4, DS_KEYS, DS_H, DS_DK), rnd(4, DS_KEYS, DS_H, DS_DV)
+    offs = ints(torch.tensor(DS_ROW_OFFSETS))
+    out["flash_attention dk192 dv128"] = (
+        fa, "flash_attention", (q, k, v),
+        dict(causal=True, q_offset=offs, scale=DS_DK ** -0.5),
+        (q, k, v, offs))
     return out
 
 
@@ -139,16 +191,16 @@ def worker(tree: str) -> None:
     import torch
     from repro_torch.kernels import build
     result = {"tree": tree}
-    for name, (mod, args, kw, check) in cases(torch).items():
+    for case, (mod, name, args, kw, check) in cases(torch).items():
         fn, ref = getattr(mod, name), getattr(mod, f"{name}_ref")
         before = fn.launches
         got = fn(*args, **kw)
         torch.cuda.synchronize()
         if fn.launches != before + 1:
-            raise AssertionError(f"{tree}: {name} launched no kernel")
+            raise AssertionError(f"{tree}: {case} launched no kernel")
         err = (got.float() - ref(*args, **kw).float()).abs().max().item()
         if not err <= PARITY:
-            raise AssertionError(f"{tree}: {name} max abs error {err} > "
+            raise AssertionError(f"{tree}: {case} max abs error {err} > "
                                  f"{PARITY}")
         readings = {m: [] for m in MEASURES}
         for _ in range(ROUNDS):
@@ -158,7 +210,7 @@ def worker(tree: str) -> None:
                                                torch))
             readings["check_us"].append(host_us(lambda: mod._check(*check),
                                                 torch))
-        result[name] = {"lib": build.lib_path(name).name,
+        result[case] = {"lib": build.lib_path(name).name,
                         "max_abs_err": err, **readings}
     print(json.dumps(result))
 

@@ -48,6 +48,45 @@ def attention_problems(q, k, v, *, vector_loads=False, pairs=SAME_DIMS):
     return problems
 
 
+def side_input_problems(q, rows: int, *, pools=(), block_size=None,
+                        tables=None, lengths=None, starts=None, limits=None,
+                        dense=()):
+    """What is wrong with the side inputs of an attention kernel whose
+    queries ``q`` have ``rows`` rows: every pool, table, vector and dense
+    tensor (flash's k and v) must lie on q's device, since the kernel is
+    handed their raw pointers; ``tables`` must be (rows, W) and
+    ``lengths``, ``starts`` and ``limits`` (rows,), all of an integer
+    dtype; each pool's dim 1 must be ``block_size``.  Reads shapes, dtypes
+    and devices only, so meta tensors do.  Returns the list of problems."""
+    problems = []
+    named = [(f"pool {i}", t) for i, t in enumerate(pools)]
+    named += [(n, t) for n, t in (("block_tables", tables),
+                                  ("lengths", lengths), ("starts", starts),
+                                  ("limits", limits)) if t is not None]
+    named += [(n, t) for n, t in zip("kv", dense)]
+    for name, t in named:
+        if t.device != q.device:
+            problems.append(f"{name} on {t.device}, q on {q.device}: every "
+                            "input of the kernel must lie on q's device")
+    if tables is not None and (tables.dim() != 2 or tables.shape[0] != rows):
+        problems.append(f"block_tables {tuple(tables.shape)}: need "
+                        f"({rows}, W)")
+    for name, t in (("block_tables", tables), ("lengths", lengths),
+                    ("starts", starts), ("limits", limits)):
+        if t is None:
+            continue
+        if name != "block_tables" and tuple(t.shape) != (rows,):
+            problems.append(f"{name} {tuple(t.shape)}: need ({rows},)")
+        if t.dtype.is_floating_point or t.dtype.is_complex \
+                or t.dtype == torch.bool:
+            problems.append(f"{name} of dtype {t.dtype}: need integers")
+    for i, pool in enumerate(pools):
+        if pool.dim() < 2 or pool.shape[1] != block_size:
+            problems.append(f"pool {i} {tuple(pool.shape)}: dim 1 must be "
+                            f"block_size={block_size}")
+    return problems
+
+
 def raise_problems(name: str, problems) -> None:
     if problems:
         raise ValueError(f"{name} kernel: " + "; ".join(problems))

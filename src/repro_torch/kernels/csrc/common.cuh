@@ -8,18 +8,20 @@
 //                  paged_decode_attention.cu (block table) and
 //                  decode_attention.cu (dense cache);
 //   prefill_block  a tile of (token, head) query rows, causal with a query
-//                  offset, f32 FMAs: ragged_prefill_attention.cu (block
-//                  table) and flash_attention.cu in f32 (dense keys);
-//   prefill_block_mma  the same on the tensor cores for bf16:
-//                  flash_attention.cu in bf16 (the ragged prefill takes it
-//                  with one template change, measured on its own).
+//                  offset, f32 FMAs: ragged_prefill_attention.cu and
+//                  flash_attention.cu in f32, where the tensor cores'
+//                  TF32 would not keep f32 tokens identical;
+//   prefill_block_wgmma  the same for bf16 on Hopper's tensor cores: a
+//                  producer warpgroup fills a ring of K/V tiles with
+//                  cp.async behind mbarriers, a consumer warpgroup runs
+//                  Q K^T and P V on wgmma; both prefill kernels in bf16.
 //
 // The prefill bodies take separate key and value widths (DK, DV) and
 // address functors, for MLA's decompressed heads.  A kernel file resolves
 // its block's row, bounds and address functors and calls one of them, so a
-// faster body (tensor-core tiles, split-K) lifts each of its kernels at
-// once.  The mma.sync and cp.async helpers below also serve
-// grouped_matmul.cu and paged_mla_decode_attention.cu.
+// faster body lifts each of its kernels at once.  The mma.sync and
+// cp.async helpers below also serve grouped_matmul.cu and
+// paged_mla_decode_attention.cu.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -478,35 +480,8 @@ __device__ __forceinline__ void prefill_block(
 }
 
 // ---------------------------------------------------------------------------
-// prefill on the tensor cores (bf16)
+// mma.sync helpers (grouped_matmul.cu, paged_mla_decode_attention.cu)
 // ---------------------------------------------------------------------------
-// The same function as prefill_block for bf16 inputs, with both products on
-// mma.sync.m16n8k16 (bf16 in, f32 accumulate), FlashAttention-2 style.  A
-// block of MMA_THREADS threads takes MMA_ROWS flattened (token, head) query
-// rows: each warp owns 16 rows, its Q fragments in registers for the whole
-// key loop.  Key tiles of MMA_KT keys are staged in shared memory as bf16
-// with 16-byte loads (rows padded by 8 elements, so fragment reads hit 32
-// distinct banks).  Per tile a warp computes S = Q K^T (16 x MMA_KT) in
-// f32, masks it (causal, window, the tile's end), folds it into the online
-// softmax (row maxima over the 4 lanes of a row by shuffles, exp2 in f32),
-// and accumulates O += P V.  P is fed to the tensor cores as two bf16
-// halves, hi = bf16(P) and lo = bf16(P - hi): one bf16 P would add an
-// error of up to 2^-9 of each weight, far more than the f32 plain version
-// allows; hi + lo keeps about 16 bits, so O stays within f32-level error
-// of the plain version.  Masked scores are -inf and a row whose maximum is
-// still -inf takes 0 as its reference, so a row with no visible key yet
-// accumulates nothing and a row with none at all writes zeros.
-
-constexpr int MMA_WARPS = 4;
-constexpr int MMA_THREADS = MMA_WARPS * 32;
-constexpr int MMA_ROWS = MMA_WARPS * 16;   // query rows per block
-constexpr int MMA_KT = 64;                 // keys per staged tile
-
-template <int DK, int DV>
-__host__ __device__ constexpr size_t mma_smem_bytes() {
-    return MMA_KT * ((DK + 8) + (DV + 8)) * sizeof(__nv_bfloat16);
-}
-
 // c += a b for one m16n8k16 tile: a 16x16 bf16 (row), b 16x8 bf16 (col).
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -580,184 +555,492 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
-// Arguments as prefill_block's; smem: mma_smem_bytes<DK, DV>() bytes,
-// 16-byte aligned; k_src / v_src 16-byte aligned.  Call with MMA_THREADS
-// threads, r0 a multiple of MMA_ROWS.
+
+// cp.async.wait_all: every copy this thread issued has landed
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Hopper primitives: mbarriers, wgmma, register rebalancing (sm_90a)
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                 :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+                 :: "r"(smem_u32(bar)) : "memory");
+}
+
+// One arrival on ``bar`` once every cp.async this thread issued so far has
+// landed (the barrier's count includes it: .noinc).
+__device__ __forceinline__ void mbar_arrive_on_copies(uint64_t* bar) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+                 :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of this parity.  A phase
+// that has not completed after 2^35 clocks (about 17 s) means a fault of the
+// kernel: trap, so that the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    const uint32_t a = smem_u32(bar);
+    const long long t0 = clock64();
+    for (;;) {
+        uint32_t done;
+        asm volatile("{\n.reg .pred p;\n"
+                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                     "selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(a), "r"(parity) : "memory");
+        if (done) return;
+        if (clock64() - t0 > (1ll << 35)) __trap();
+    }
+}
+
+// Orders this thread's generic-proxy view of shared memory (st.shared,
+// cp.async) before the async proxy that wgmma reads it through.
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A shared-memory operand of wgmma: start address, leading and stride byte
+// offsets, swizzle mode (1: 128-byte rows, 2: 64-byte rows).
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo, uint64_t mode) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4)
+         | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16)
+         | ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (mode << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from touching an accumulator across a wgmma wait: its
+// registers are written asynchronously, after the asm that names them.
+template <int N>
+__device__ __forceinline__ void wg_pin(float (&d)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// d (64 x 64, f32) = a b + (accumulate ? d : 0), a from shared memory
+// (64 x 16, K-major), b from shared memory (16 x 64, K-major: the rows of
+// K), both bf16.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += a b, a from registers (the m16n8k16 A fragments of
+// the warpgroup's four warps), b from shared memory MN-major (16 rows of
+// 64 contiguous values: V's rows), both bf16.
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// prefill on Hopper's tensor cores (bf16): wgmma fed by an asynchronous ring
+// ---------------------------------------------------------------------------
+// The same function as prefill_block for bf16 inputs.  A block of
+// WG_THREADS threads takes WG_ROWS = 64 flattened (token, head) query rows
+// of one kv head, so the G heads of a kv head share every K/V tile, in two
+// warpgroups with their own roles:
+//
+//   producer (threads 128-255): walks the key tiles of WG_KT keys, and for
+//     each finds every key row's address once (its functor: a block-table
+//     read for a paged pool) into a small table in shared memory, then
+//     copies the K and V rows into a ring of NS stages with 16-byte
+//     cp.async, dealt over the warpgroup.  A paged pool is a gather (one
+//     table entry per 16 keys), which no single tensor map describes, so
+//     the dense keys take the same path: one body for both kernels.  Keys
+//     past the tile's end are written as zeros.  A stage is announced on
+//     its ``full`` mbarrier when each thread's copies have landed
+//     (cp.async.mbarrier.arrive), and refilled once the consumers have
+//     arrived on its ``empty`` mbarrier;
+//   consumer (threads 0-127): Q sits in shared memory, loaded once, as
+//     wgmma's A operand.  Per stage, S = Q K^T (64 x 64, f32) by DK / 16
+//     wgmma m64n64k16 from two shared operands; the mask (causal, window,
+//     the tile's end; skipped on a tile every row sees whole) and the
+//     online softmax on the accumulator registers (row maxima over the 4
+//     lanes of a row, exp2 in f32); then O = O * corr + P V by wgmma with
+//     P from registers: the S accumulator's layout is the A fragment
+//     layout, so P never touches shared memory.  P goes in as three bf16
+//     parts, hi = bf16(P), mid = bf16(P - hi), lo = bf16(P - hi - mid):
+//     one bf16 P errs by up to 2^-9 of each weight, and hi + lo by up to
+//     2^-18, which at |O| ~ 3 (a short window) is still more than half a
+//     bf16 step of the f32 plain version allows; three parts keep about 24
+//     bits, so the P V work is three times the counted.  V is read
+//     MN-major (its rows of DV contiguous values; no transpose).
+//
+// Tiles are stored as wgmma's canonical swizzled layouts: column blocks of
+// one swizzle row (128 bytes, or 64 when DK = 96 is no multiple of 64
+// values), the 16-byte chunks of a row XORed with the address bits above
+// the row (WgTile::at), every tile 1024-byte aligned.  Shared memory: Q 64
+// x DK plus NS stages of 64 x (DK + DV) bf16 (160 KB at (256, 256), two
+// stages, one block an SM; two blocks an SM for the narrower pairs).
+// Registers: O is DV / 2 f32 a thread (128 at DV = 256), S 32, one step's
+// P parts 12; a thread may hold 255 at one block an SM (under 240 used
+// at (256, 256), no spill) and 128 at two.  setmaxnreg, which would move
+// the producer's registers to the consumers, does not help here: this ptxas
+// compiles the whole kernel to the launch budget (at 384 threads, two
+// consumer warpgroups, the consumers were held to 168 and spilled), so
+// the producer warpgroup simply keeps its share.  Masked scores are -inf
+// and a row whose maximum is still -inf takes 0 as its reference, so a row
+// with no visible key writes zeros.
+
+constexpr int WG_THREADS = 256;   // the consumer warpgroup, then the producer
+constexpr int WG_ROWS = 64;       // query rows a block: one wgmma M tile
+constexpr int WG_KT = 64;         // keys a ring stage
+
+// Ring stages and blocks an SM for a (DK, DV) pair: two blocks an SM (their
+// consumer warpgroups hide each other's latencies; 128 registers a thread)
+// where the shared memory allows, one for (256, 256).
+template <int DK, int DV>
+struct WgShape {
+    static constexpr int NS = DK + DV >= 256 ? 2 : 3;
+    static constexpr size_t SMEM = 1024    // alignment slack
+        + sizeof(__nv_bfloat16) * ((size_t)WG_ROWS * DK
+                                   + (size_t)NS * WG_KT * (DK + DV));
+    static constexpr int MIN_BLOCKS = DK + DV > 320 ? 1 : 2;
+};
+
+// A tile of rows of D bf16 values in wgmma's swizzled layout.
+template <int D>
+struct WgTile {
+    static_assert(D % 32 == 0, "head dims are multiples of 32");
+    static constexpr int RW = D % 64 == 0 ? 128 : 64;   // swizzle row bytes
+    static constexpr int EPR = RW / 2;                   // values a row
+    static constexpr int CPR = RW / 16;                  // chunks a row
+    static constexpr uint64_t MODE = RW == 128 ? 1 : 2;
+    // byte offset of 16-byte chunk ``ch`` of row ``i`` in a tile of R rows
+    template <int R>
+    __device__ static __forceinline__ uint32_t at(int i, int ch) {
+        const uint32_t off = (ch / CPR) * (R * RW) + i * RW + (ch % CPR) * 16;
+        return off ^ (((off >> 7) & (CPR - 1)) << 4);
+    }
+    // K-major descriptor of the 16 values from ``k`` on of a tile of R rows
+    template <int R>
+    __device__ static __forceinline__ uint64_t desc(uint32_t base, int k) {
+        return wg_desc(base + (k / EPR) * (R * RW) + (k % EPR) * 2, 16,
+                       8 * RW, MODE);
+    }
+};
+
+// 2^x by the special-function unit; results below 2^-126 flush to zero (a
+// softmax weight that small adds nothing an f32 sum keeps)
+__device__ __forceinline__ float exp2_ftz(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+    asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// (x0, x1) -> three bf16 pairs whose sum is x to about 24 bits: hi =
+// bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid)
+__device__ __forceinline__ void split3_bf16(float x0, float x1,
+                                            uint32_t (&p)[3]) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    const float2 hf = __bfloat1622float2(h);
+    const float r0 = x0 - hf.x, r1 = x1 - hf.y;
+    const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+    const float2 mf = __bfloat1622float2(m);
+    const __nv_bfloat162 l = __floats2bfloat162_rn(r0 - mf.x, r1 - mf.y);
+    p[0] = *reinterpret_cast<const uint32_t*>(&h);
+    p[1] = *reinterpret_cast<const uint32_t*>(&m);
+    p[2] = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// Arguments as prefill_block's; smem: WgShape<DK, DV>::SMEM bytes of
+// dynamic shared memory; q_rows, k_src and v_src 16-byte aligned.  Call
+// with WG_THREADS threads from a kernel bounded by (WG_THREADS,
+// WgShape<DK, DV>::MIN_BLOCKS), r0 a multiple of WG_ROWS.
 template <int DK, int DV, typename KAddr, typename VAddr>
-__device__ __forceinline__ void prefill_block_mma(
+__device__ __forceinline__ void prefill_block_wgmma(
     const __nv_bfloat16* __restrict__ q_rows,
     const __nv_bfloat16* __restrict__ k_src,
     const __nv_bfloat16* __restrict__ v_src,
     __nv_bfloat16* __restrict__ out_rows, int C, int H, int G, int h, int r0,
     int start, int k_max, bool causal, int window, float scale,
-    const KAddr& kaddr, const VAddr& vaddr, __nv_bfloat16* smem) {
-    constexpr int KT = MMA_KT;
-    constexpr int LDK = DK + 8, LDV = DV + 8;  // staged row strides, elements
-    constexpr int NT = KT / 8;               // 8-key column tiles of S
-    constexpr int KS = DK / 16;              // 16-deep steps of Q K^T
-    constexpr int DN = DV / 8;               // 8-wide column tiles of O
-    constexpr int CHK = DK / 8, CHV = DV / 8;  // 16-byte chunks per row
-    __nv_bfloat16* k_s = smem;
-    __nv_bfloat16* v_s = smem + KT * LDK;
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int gid = lane / 4, tig = lane % 4;
+    const KAddr& kaddr, const VAddr& vaddr, unsigned char* smem) {
+    static_assert(DV % 64 == 0, "P V takes 64-value column blocks of V");
+    constexpr int NS = WgShape<DK, DV>::NS, KT = WG_KT;
+    using TK = WgTile<DK>;
+    using TV = WgTile<DV>;
+    constexpr int CHK = DK / 8, CHV = DV / 8;      // 16-byte chunks a row
+    constexpr uint32_t Q_BYTES = WG_ROWS * DK * 2;
+    constexpr uint32_t K_BYTES = KT * DK * 2, V_BYTES = KT * DV * 2;
+    constexpr uint32_t STAGE = K_BYTES + V_BYTES;
+    __shared__ uint64_t full[NS], empty[NS];
+    __shared__ size_t k_ofs[NS][KT], v_ofs[NS][KT];  // a stage's key rows
+
+    const uint32_t raw = smem_u32(smem);
+    const uint32_t base = (raw + 1023) & ~1023u;   // swizzle atoms align
+    unsigned char* tiles = smem + (base - raw);
     const int rows = C * G;
-
-    // this lane's two query rows: gid and gid + 8 of its warp's 16
-    bool act[2];
-    int qp[2];
-    size_t off[2];                     // the rows' query offsets, elements
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        const int r = r0 + warp * 16 + gid + 8 * i;
-        act[i] = r < rows;
-        const int c = act[i] ? r / G : 0, g = act[i] ? r % G : 0;
-        qp[i] = start + c;
-        off[i] = ((size_t)c * H + h * G + g) * DK;
-    }
-    uint32_t qa[KS][4];
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-        const int d = kk * 16 + tig * 2;
-        qa[kk][0] = act[0] ? ld32(q_rows + off[0] + d) : 0u;
-        qa[kk][1] = act[1] ? ld32(q_rows + off[1] + d) : 0u;
-        qa[kk][2] = act[0] ? ld32(q_rows + off[0] + d + 8) : 0u;
-        qa[kk][3] = act[1] ? ld32(q_rows + off[1] + d + 8) : 0u;
-    }
-    float o[DN][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-#pragma unroll
-    for (int dn = 0; dn < DN; ++dn)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[dn][j] = 0.f;
-
     const int c_lo = r0 / G;
-    const int c_hi = min(rows - 1, r0 + MMA_ROWS - 1) / G;
+    const int c_hi = min(rows - 1, r0 + WG_ROWS - 1) / G;
     const int k_hi = causal ? min(k_max, start + c_hi + 1) : k_max;
     const int k_lo = window > 0 ? max(0, start + c_lo - window + 1) : 0;
-    const float sl2 = scale * 1.4426950408889634f;     // scores in log2 units
+    const int ntiles = k_hi > k_lo ? (k_hi - k_lo + KT - 1) / KT : 0;
 
-    for (int t0 = k_lo; t0 < k_hi; t0 += KT) {
-        const int n = min(KT, k_hi - t0);
-        __syncthreads();               // previous tile fully consumed
-        if constexpr (DK == DV) {
-            for (int e = threadIdx.x; e < KT * CHK; e += MMA_THREADS) {
-                const int i = e / CHK, ch = e % CHK;
-                uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
-                if (i < n) {
-                    const size_t src = kaddr(t0 + i) + ch * 8;
-                    kv = __ldg(reinterpret_cast<const uint4*>(k_src + src));
-                    vv = __ldg(reinterpret_cast<const uint4*>(v_src + src));
-                }
-                *reinterpret_cast<uint4*>(k_s + i * LDK + ch * 8) = kv;
-                *reinterpret_cast<uint4*>(v_s + i * LDV + ch * 8) = vv;
-            }
-        } else {
-            for (int e = threadIdx.x; e < KT * CHK; e += MMA_THREADS) {
-                const int i = e / CHK, ch = e % CHK;
-                uint4 kv = make_uint4(0, 0, 0, 0);
-                if (i < n)
-                    kv = __ldg(reinterpret_cast<const uint4*>(
-                        k_src + kaddr(t0 + i) + ch * 8));
-                *reinterpret_cast<uint4*>(k_s + i * LDK + ch * 8) = kv;
-            }
-            for (int e = threadIdx.x; e < KT * CHV; e += MMA_THREADS) {
-                const int i = e / CHV, ch = e % CHV;
-                uint4 vv = make_uint4(0, 0, 0, 0);
-                if (i < n)
-                    vv = __ldg(reinterpret_cast<const uint4*>(
-                        v_src + vaddr(t0 + i) + ch * 8));
-                *reinterpret_cast<uint4*>(v_s + i * LDV + ch * 8) = vv;
-            }
+    if (threadIdx.x == 0) {
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+            mbar_init(&full[s], 128);      // one arrival a producer thread
+            mbar_init(&empty[s], 128);     // one a consumer thread
         }
-        __syncthreads();
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
 
-        float s[NT][4];
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) s[nt][j] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt) {
-                const __nv_bfloat16* kr = k_s + (nt * 8 + gid) * LDK
-                                        + kk * 16 + tig * 2;
-                mma_bf16(s[nt], qa[kk], ld32(kr), ld32(kr + 8));
+    if (threadIdx.x >= 128) {
+        // ---- producer warpgroup: the K/V ring ----
+        const int pt = threadIdx.x - 128;
+        for (int t = 0; t < ntiles; ++t) {
+            const int s = t % NS;
+            if (t >= NS) mbar_wait(&empty[s], ((t / NS) - 1) & 1);
+            const int t0 = k_lo + t * KT, n = min(KT, k_hi - t0);
+            // each key row's address once (a block-table read for pages),
+            // then 16-byte copies of its chunks, dealt over the warpgroup
+            if (pt < n) {
+                k_ofs[s][pt] = kaddr(t0 + pt);
+                v_ofs[s][pt] = vaddr(t0 + pt);
             }
-        // mask and scale; s[nt][j] is row (j / 2), key nt*8 + tig*2 + j%2
-        float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int i = j / 2;
-                const int kp = t0 + nt * 8 + tig * 2 + (j & 1);
-                const bool ok = act[i] && kp < k_hi
-                    && !(causal && kp > qp[i])
-                    && !(window > 0 && qp[i] - kp >= window);
-                s[nt][j] = ok ? s[nt][j] * sl2 : -INFINITY;
-                mx[i] = fmaxf(mx[i], s[nt][j]);
+            named_barrier(2, 128);
+            unsigned char* ks = tiles + Q_BYTES + s * STAGE;
+            unsigned char* vs = ks + K_BYTES;
+            for (int e = pt; e < KT * CHK; e += 128) {
+                const int i = e / CHK, ch = e % CHK;
+                const bool ok = i < n;
+                cp_async16(ks + TK::template at<KT>(i, ch),
+                           k_src + (ok ? k_ofs[s][i] + ch * 8 : 0), ok);
             }
-        float corr[2], ref[2], rs[2] = {0.f, 0.f};
+            for (int e = pt; e < KT * CHV; e += 128) {
+                const int i = e / CHV, ch = e % CHV;
+                const bool ok = i < n;
+                cp_async16(vs + TV::template at<KT>(i, ch),
+                           v_src + (ok ? v_ofs[s][i] + ch * 8 : 0), ok);
+            }
+            mbar_arrive_on_copies(&full[s]);
+        }
+        cp_async_wait_all();
+    } else {
+        // ---- consumer warpgroup ----
+        const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+        const int gid = lane / 4, tig = lane % 4;
+
+        // Q tile, zeros for rows past the last
+        for (int e = threadIdx.x; e < WG_ROWS * CHK; e += 128) {
+            const int i = e / CHK, ch = e % CHK, r = r0 + i;
+            uint4 v = make_uint4(0, 0, 0, 0);
+            if (r < rows)
+                v = __ldg(reinterpret_cast<const uint4*>(
+                    q_rows + ((size_t)(r / G) * H + h * G + r % G) * DK
+                    + ch * 8));
+            *reinterpret_cast<uint4*>(tiles + TK::template at<WG_ROWS>(i, ch))
+                = v;
+        }
+        fence_proxy_async();
+        named_barrier(1, 128);
+
+        // this thread's two query rows (gid and gid + 8 of its warp's 16)
+        // and the keys each may see, [lo, hi]; a row past the last sees none
+        bool act[2];
+        int lo[2], hi[2];
+        size_t off[2];                 // the rows' output offsets, elements
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-            mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-            mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-            const float m_new = fmaxf(m[i], mx[i]);
-            ref[i] = m_new == -INFINITY ? 0.f : m_new;
-            corr[i] = exp2f(m[i] - ref[i]);
-            m[i] = m_new;
+            const int r = r0 + warp * 16 + gid + 8 * i;
+            act[i] = r < rows;
+            const int c = act[i] ? r / G : 0, g = act[i] ? r % G : 0;
+            const int qp = start + c;
+            hi[i] = !act[i] ? -1 : causal ? min(qp, k_hi - 1) : k_hi - 1;
+            lo[i] = window > 0 ? qp - window + 1 : 0;
+            off[i] = ((size_t)c * H + h * G + g) * DV;
         }
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                s[nt][j] = exp2f(s[nt][j] - ref[j / 2]);
-                rs[j / 2] += s[nt][j];
-            }
-#pragma unroll
-        for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];
-#pragma unroll
-        for (int dn = 0; dn < DN; ++dn) {
-            o[dn][0] *= corr[0];
-            o[dn][1] *= corr[0];
-            o[dn][2] *= corr[1];
-            o[dn][3] *= corr[1];
-        }
-        // O += P V over 16-key steps; P's accumulator layout is the A
-        // fragment layout of two adjacent 8-key column tiles
-#pragma unroll
-        for (int kk = 0; kk < KT / 16; ++kk) {
-            uint32_t ph[4], pl[4];
-            split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
-            split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
-            split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
-            split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
-#pragma unroll
-            for (int dn = 0; dn < DN; ++dn) {
-                const __nv_bfloat16* vr = v_s + (kk * 16 + tig * 2) * LDV
-                                        + dn * 8 + gid;
-                const uint32_t b0 = pack_bf16(vr[0], vr[LDV]);
-                const uint32_t b1 = pack_bf16(vr[8 * LDV], vr[9 * LDV]);
-                mma_bf16(o[dn], ph, b0, b1);
-                mma_bf16(o[dn], pl, b0, b1);
-            }
-        }
-    }
+        // the block's first and last query positions: a key tile that
+        // every row sees whole needs no mask
+        const int q_first = start + c_lo, q_last = start + c_hi;
 
-    // each row's denominator: the sum over the 4 lanes that hold it
+        constexpr int NB = DV / 64;    // 64-wide column blocks of O
+        float o[NB][32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-        if (!act[i]) continue;
-        const float inv = 1.f / fmaxf(l[i], REPRO_L_FLOOR);
+        for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-        for (int dn = 0; dn < DN; ++dn) {
-            const __nv_bfloat162 v2 = __floats2bfloat162_rn(
-                o[dn][2 * i] * inv, o[dn][2 * i + 1] * inv);
-            *reinterpret_cast<__nv_bfloat162*>(
-                out_rows + off[i] / DK * DV + dn * 8 + tig * 2) = v2;
+            for (int j = 0; j < 32; ++j) o[nb][j] = 0.f;
+        const float sl2 = scale * 1.4426950408889634f;   // log2 units
+
+        for (int t = 0; t < ntiles; ++t) {
+            const int s = t % NS;
+            const int t0 = k_lo + t * KT;
+            mbar_wait(&full[s], (t / NS) & 1);
+            fence_proxy_async();
+            // the base passes through an asm the compiler cannot hoist, so
+            // that the DK / 16 descriptors of Q are not held across tiles
+            uint32_t qa;
+            asm volatile("mov.b32 %0, %1;\n" : "=r"(qa) : "r"(base));
+            const uint32_t ka = qa + Q_BYTES + s * STAGE, va = ka + K_BYTES;
+
+            // S = Q K^T; sc[4 nt + j] is row gid + 8 (j / 2), key 8 nt +
+            // 2 tig + j % 2 of the tile
+            float sc[32];
+            wg_fence();
+#pragma unroll
+            for (int kk = 0; kk < DK / 16; ++kk)
+                wgmma_ss(sc, TK::template desc<WG_ROWS>(qa, kk * 16),
+                         TK::template desc<KT>(ka, kk * 16), kk > 0);
+            wg_commit();
+            wg_wait_all();
+            wg_pin(sc);
+
+            float mx[2] = {-INFINITY, -INFINITY};
+            const bool whole = t0 + KT <= k_hi
+                && (!causal || t0 + KT - 1 <= q_first)
+                && (window <= 0 || t0 >= q_last - window + 1);
+            if (whole) {
+#pragma unroll
+                for (int j = 0; j < 32; ++j)
+                    mx[(j / 2) % 2] = fmaxf(mx[(j / 2) % 2], sc[j]);
+            } else {
+                int a[2], b[2];        // [lo, hi] from this lane's first key
+#pragma unroll
+                for (int i = 0; i < 2; ++i) {
+                    a[i] = lo[i] - (t0 + 2 * tig);
+                    b[i] = hi[i] - (t0 + 2 * tig);
+                }
+#pragma unroll
+                for (int j = 0; j < 32; ++j) {
+                    const int i = (j / 2) % 2, c = (j / 4) * 8 + (j & 1);
+                    sc[j] = c >= a[i] && c <= b[i] ? sc[j] : -INFINITY;
+                    mx[i] = fmaxf(mx[i], sc[j]);
+                }
+            }
+            // maxima of the raw scores, then p = 2^(s sl2 - max) in one FMA
+            float corr[2], ref[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+                mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+                const float m_new = fmaxf(m[i], mx[i] * sl2);
+                ref[i] = m_new == -INFINITY ? 0.f : m_new;
+                corr[i] = exp2_ftz(m[i] - ref[i]);
+                m[i] = m_new;
+            }
+#pragma unroll
+            for (int j = 0; j < 32; ++j) {
+                sc[j] = exp2_ftz(fmaf(sc[j], sl2, -ref[(j / 2) % 2]));
+                rs[(j / 2) % 2] += sc[j];
+            }
+#pragma unroll
+            for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];
+#pragma unroll
+            for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+                for (int j = 0; j < 32; ++j) o[nb][j] *= corr[(j / 2) % 2];
+
+            // O += P V, one 16-key step at a time: P's A fragments (keys
+            // 16 kk + 2 tig (+ 8), rows gid and gid + 8: accumulator
+            // entries 8 kk .. 8 kk + 7) in three bf16 parts; V's 16 rows
+            // are two 8-row groups 1024 bytes apart, its 64-value column
+            // block nb a KT x 128-byte block.  A step's wgmmas finish
+            // before the next step's parts are written, so the registers
+            // the tensor cores read are never reused under them.
+#pragma unroll
+            for (int kk = 0; kk < KT / 16; ++kk) {
+                uint32_t p[4][3];
+#pragma unroll
+                for (int x = 0; x < 4; ++x)
+                    split3_bf16(sc[8 * kk + 2 * x], sc[8 * kk + 2 * x + 1],
+                                p[x]);
+                wg_fence();
+#pragma unroll
+                for (int nb = 0; nb < NB; ++nb) {
+                    const uint64_t vd = wg_desc(
+                        va + nb * (KT * 128) + kk * 2048, 1024, 1024,
+                        TV::MODE);
+#pragma unroll
+                    for (int part = 0; part < 3; ++part) {
+                        const uint32_t a[4] = {p[0][part], p[1][part],
+                                               p[2][part], p[3][part]};
+                        wgmma_rs_mn(o[nb], a, vd);
+                    }
+                }
+                wg_commit();
+                wg_wait_all();
+#pragma unroll
+                for (int nb = 0; nb < NB; ++nb) wg_pin(o[nb]);
+#pragma unroll
+                for (int x = 0; x < 4; ++x)
+                    asm volatile("" :: "r"(p[x][0]), "r"(p[x][1]),
+                                 "r"(p[x][2]) : "memory");
+            }
+            mbar_arrive(&empty[s]);    // this tile's K and V are read
+        }
+
+        // each row's denominator: the sum over the 4 lanes that hold it
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+            l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+            if (!act[i]) continue;
+            const float inv = 1.f / fmaxf(l[i], REPRO_L_FLOOR);
+#pragma unroll
+            for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+                for (int j8 = 0; j8 < 8; ++j8) {
+                    const __nv_bfloat162 v2 = __floats2bfloat162_rn(
+                        o[nb][4 * j8 + 2 * i] * inv,
+                        o[nb][4 * j8 + 2 * i + 1] * inv);
+                    *reinterpret_cast<__nv_bfloat162*>(
+                        out_rows + off[i] + nb * 64 + j8 * 8 + tig * 2) = v2;
+                }
         }
     }
 }

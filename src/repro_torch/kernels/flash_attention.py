@@ -29,7 +29,8 @@ import torch
 
 from repro_torch.kernels import (DTYPE_CODES, NEG_INF, SAME_DIMS,
                                  attention_problems, build, count_launch,
-                                 raise_problems, refuse_grad)
+                                 raise_problems, refuse_grad,
+                                 side_input_problems)
 
 QOffset = Union[int, torch.Tensor]
 # (Dk, Dv) pairs the kernel is built for: the GQA heads, deepseek-v2-lite's
@@ -82,6 +83,7 @@ def _check(q, k, v, q_offset):
     B = q.shape[0]
     problems = attention_problems(q, k, v, vector_loads=True,
                                   pairs=DIM_PAIRS)
+    problems += side_input_problems(q, B, dense=(k, v))
     if k.shape[0] != B or v.shape[:3] != k.shape[:3]:
         problems.append(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                         f"match q {tuple(q.shape)}")
@@ -112,6 +114,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     B, Sq, H, D = q.shape
     Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
     q = q.contiguous()
+    if q.data_ptr() % 16:        # the kernel reads q in 16-byte chunks
+        q = q.clone()
     offs = (q_offset.to(torch.int32).contiguous()
             if torch.is_tensor(q_offset) else None)
     out = q.new_empty(B, Sq, H, Dv)

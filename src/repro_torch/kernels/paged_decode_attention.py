@@ -31,7 +31,7 @@ import torch
 
 from repro_torch.kernels import (DTYPE_CODES, NEG_INF, attention_problems,
                                  build, count_launch, raise_problems,
-                                 refuse_grad)
+                                 refuse_grad, side_input_problems)
 
 
 def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths, *,
@@ -72,10 +72,17 @@ def _lib():
     return fn
 
 
-def _check(q, k_pool, v_pool):
+def _check(q, k_pool, v_pool, block_tables=None, lengths=None,
+           block_size=None):
+    # the side inputs are optional: kernel_ab.py times this check beside
+    # older checkouts', which take (q, k_pool, v_pool) only
     problems = attention_problems(q, k_pool, v_pool, vector_loads=True)
     if q.shape[1] != 1:
         problems.append(f"q must be (B, 1, H, D), got {tuple(q.shape)}")
+    if block_tables is not None:
+        problems += side_input_problems(
+            q, q.shape[0], pools=(k_pool, v_pool), block_size=block_size,
+            tables=block_tables, lengths=lengths)
     raise_problems("paged_decode_attention", problems)
 
 
@@ -95,7 +102,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: no kernel for device "
                          f"{q.device}")
-    _check(q, k_pool, v_pool)
+    _check(q, k_pool, v_pool, block_tables, lengths, block_size)
     B, _, H, D = q.shape
     KV = k_pool.shape[2]
     W = block_tables.shape[1]
@@ -156,7 +163,8 @@ def _mla_lib():
     return fn
 
 
-def _mla_check(q_lat, q_rope, ckv_pool, krope_pool):
+def _mla_check(q_lat, q_rope, ckv_pool, krope_pool, block_tables, lengths,
+               block_size):
     B, H, R = q_lat.shape
     r = q_rope.shape[-1]
     problems = []
@@ -174,6 +182,12 @@ def _mla_check(q_lat, q_rope, ckv_pool, krope_pool):
     if not (ckv_pool.is_contiguous() and krope_pool.is_contiguous()) or \
             (ckv_pool.data_ptr() | krope_pool.data_ptr()) % 16:
         problems.append("the pools must be contiguous and 16-byte aligned")
+    if q_rope.device != q_lat.device:
+        problems.append(f"q_rope on {q_rope.device}, q_lat on "
+                        f"{q_lat.device}: need one device")
+    problems += side_input_problems(
+        q_lat, B, pools=(ckv_pool, krope_pool), block_size=block_size,
+        tables=block_tables, lengths=lengths)
     raise_problems("paged_mla_decode_attention", problems)
 
 
@@ -196,7 +210,8 @@ def paged_mla_decode_attention(q_lat, q_rope, ckv_pool, krope_pool,
     if q_lat.device.type != "cuda":
         raise ValueError(f"paged_mla_decode_attention: no kernel for device "
                          f"{q_lat.device}")
-    _mla_check(q_lat, q_rope, ckv_pool, krope_pool)
+    _mla_check(q_lat, q_rope, ckv_pool, krope_pool, block_tables, lengths,
+               block_size)
     B, H, R = q_lat.shape
     W = block_tables.shape[1]
     q_lat, q_rope = q_lat.contiguous(), q_rope.contiguous()

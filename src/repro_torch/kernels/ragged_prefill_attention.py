@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.kernels import (DTYPE_CODES, NEG_INF, attention_problems,
                                  build, count_launch, raise_problems,
-                                 refuse_grad)
+                                 refuse_grad, side_input_problems)
 
 
 def ragged_prefill_attention_ref(q, k_pool, v_pool, block_tables, starts,
@@ -70,9 +70,16 @@ def _lib():
     return fn
 
 
-def _check(q, k_pool, v_pool):
-    raise_problems("ragged_prefill_attention",
-                   attention_problems(q, k_pool, v_pool))
+def _check(q, k_pool, v_pool, block_tables=None, starts=None, limits=None,
+           block_size=None):
+    # the side inputs are optional: kernel_ab.py times this check beside
+    # older checkouts', which take (q, k_pool, v_pool) only
+    problems = attention_problems(q, k_pool, v_pool, vector_loads=True)
+    if block_tables is not None:
+        problems += side_input_problems(
+            q, q.shape[0], pools=(k_pool, v_pool), block_size=block_size,
+            tables=block_tables, starts=starts, limits=limits)
+    raise_problems("ragged_prefill_attention", problems)
 
 
 def ragged_prefill_attention(q, k_pool, v_pool, block_tables, starts, limits,
@@ -92,11 +99,13 @@ def ragged_prefill_attention(q, k_pool, v_pool, block_tables, starts, limits,
     if q.device.type != "cuda":
         raise ValueError(f"ragged_prefill_attention: no kernel for device "
                          f"{q.device}")
-    _check(q, k_pool, v_pool)
+    _check(q, k_pool, v_pool, block_tables, starts, limits, block_size)
     P, C, H, D = q.shape
     KV = k_pool.shape[2]
     W = block_tables.shape[1]
     q = q.contiguous()
+    if q.data_ptr() % 16:        # the kernel reads q in 16-byte chunks
+        q = q.clone()
     tables = block_tables.to(torch.int32).contiguous()
     st = starts.to(torch.int32).contiguous()
     lim = limits.to(torch.int32).contiguous()

@@ -7,9 +7,12 @@ empty and single-expert groups, the Mamba-2 SSD scan at chunks of 256,
 100, 8 and 1 with and without an initial state, the RG-LRU scan with and
 without an initial state, padded and at odd lengths; the four GQA
 attention kernels also at recurrentgemma-2b's head dim 256 with 10 query
-heads per kv head, windowed) against their plain versions, the wrappers'
-refusals (shapes, dtypes, inputs that require grad; never a plain
-version on a CUDA tensor), and the Generator and HyperServe on the card
+heads per kv head, windowed; the bf16 prefill body of flash and the ragged
+prefill at every (Dk, Dv) pair at the edges of its tiles) against their
+plain versions, the wrappers' refusals (shapes, dtypes, inputs that
+require grad, side inputs on another device or of the wrong shape, an
+unaligned pool; never a plain version on a CUDA tensor), and the
+Generator and HyperServe on the card
 token-identical to the CPU, for qwen2-0.5b, deepseek-v2-lite (MLA + MoE),
 mamba2-370m and recurrentgemma-2b (RG-LRU + LOCAL_ATTN).
 
@@ -276,30 +279,144 @@ def test_serving_on_the_card_matches_the_cpu(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dk,dv", [(96, 64), (192, 128)])
-def test_flash_kernel_takes_mla_head_dims(cuda, dtype, dk, dv):
+@pytest.mark.parametrize("dk,dv", [(96, 64), (192, 128), (64, 64),
+                                   (128, 128), (256, 256)])
+def test_flash_kernel_takes_mla_head_dims(cuda, dtype, dk, dv, monkeypatch):
     """MLA's decompressed heads: keys of Dk = nope + rope dims, values of
     Dv.  The output has the values' width (a wrapper that shaped it like
-    q, as before, fails here), dense causal and with per-row offsets."""
+    q, as before, fails here), dense causal and with per-row offsets.
+    Every built (Dk, Dv) pair also runs at the edges of the bf16 body's
+    tiles: C x G query rows and key ranges that are no multiple of 64, a
+    window smaller than one key tile, rows whose first query lies past the
+    window, per-row offsets, no causal mask; the plain version never runs
+    on a CUDA tensor."""
     g = torch.Generator().manual_seed(13)
 
     def rnd(*shape):
         return torch.randn(*shape, generator=g).to(cuda, dtype)
+    plain = fa.flash_attention_ref
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+    monkeypatch.setattr(fa, "flash_attention_ref", refuse)
     H = 16 if dk == 192 else 4
     n0 = fa.flash_attention.launches
     q, k, v = rnd(2, 77, H, dk), rnd(2, 77, H, dk), rnd(2, 77, H, dv)
     got = fa.flash_attention(q, k, v, causal=True)
     assert tuple(got.shape) == (2, 77, H, dv)
-    _assert_close(got, fa.flash_attention_ref, (q, k, v), dict(causal=True))
+    _assert_close(got, plain, (q, k, v), dict(causal=True))
     offs = torch.tensor([0, 37, 160, 219], dtype=torch.int32, device=cuda)
     q, k, v = rnd(4, 48, H, dk), rnd(4, 272, H, dk), rnd(4, 272, H, dv)
     kw = dict(causal=True, q_offset=offs, scale=dk ** -0.5)
     got = fa.flash_attention(q, k, v, **kw)
     assert tuple(got.shape) == (4, 48, H, dv)
-    _assert_close(got, fa.flash_attention_ref, (q, k, v), kw)
+    _assert_close(got, plain, (q, k, v), kw)
     assert fa.flash_attention.launches == n0 + 2
+    # three query heads a kv head: 77 x 3 rows; 300 keys
+    q, k, v = rnd(4, 77, 6, dk), rnd(4, 300, 2, dk), rnd(4, 300, 2, dv)
+    for kw in (dict(causal=True, window=37, q_offset=offs),
+               dict(causal=True, window=5, q_offset=offs),
+               dict(causal=True, window=100, q_offset=offs),
+               dict(causal=False, q_offset=0)):
+        _assert_close(fa.flash_attention(q, k, v, **kw), plain, (q, k, v),
+                      kw)
+    assert fa.flash_attention.launches == n0 + 6
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_attention(q[..., :dv], k[..., :dv], v[..., :32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dim", [64, 128, 256])
+@pytest.mark.parametrize("window", [None, 20])
+def test_ragged_prefill_kernel_at_the_edges_of_its_tiles(cuda, dtype, dim,
+                                                         window, monkeypatch):
+    """The ragged prefill at every head dim it is built for, three query
+    heads a kv head over 70-token chunks (210 query rows, no multiple of
+    64), with a first chunk, a row whose queries run past its limit, a row
+    that starts past the window (smaller than one key tile) with a null
+    block below it, a filler row (exact zeros) and key ranges that end
+    inside a tile; the plain version never runs on a CUDA tensor."""
+    g = torch.Generator().manual_seed(23)
+    bs, nb, Wt = 16, 128, 24
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(cuda, dtype)
+    plain = rpa.ragged_prefill_attention_ref
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+    monkeypatch.setattr(rpa, "ragged_prefill_attention_ref", refuse)
+    k_pool, v_pool = rnd(nb, bs, 2, dim), rnd(nb, bs, 2, dim)
+    tables = (torch.randperm(nb - 1, generator=g)[:4 * Wt] + 1).reshape(4, Wt)
+    tables[2, :10] = 0                       # freed below the window
+    starts = torch.tensor([0, 100, 300, 0], dtype=torch.int32)
+    limits = torch.tensor([70, 150, 370, 0], dtype=torch.int32)
+    args = (rnd(4, 70, 6, dim), k_pool, v_pool, tables.to(cuda, torch.int32),
+            starts.to(cuda), limits.to(cuda))
+    kw = dict(block_size=bs, window=window)
+    n0 = rpa.ragged_prefill_attention.launches
+    got = rpa.ragged_prefill_attention(*args, **kw)
+    assert rpa.ragged_prefill_attention.launches == n0 + 1
+    _assert_close(got, plain, args, kw)
+    assert bool((got[3] == 0).all())
+
+
+def test_wrappers_refuse_side_inputs_off_device_or_misshapen(cuda):
+    """Kernels 1, 3, 4 and 5 take raw pointers to their side inputs: a CPU
+    table, lengths, starts or k beside a CUDA q, a table of the wrong row
+    count, a pool whose dim 1 is not the block size, or (ragged) a pool
+    off a 16-byte boundary is refused with a ValueError that names it, and
+    nothing is launched."""
+    k_pool, v_pool, tables, q_dec, q_pre = _inputs(torch.bfloat16, cuda)
+    lengths = torch.tensor([10, 3, 24], dtype=torch.int32, device=cuda)
+    starts = torch.tensor([0, 5, 16, 0], dtype=torch.int32, device=cuda)
+    limits = torch.tensor([12, 13, 24, 0], dtype=torch.int32, device=cuda)
+    q_lat, q_rope, ckv, krope, mtab, mlen = _mla_inputs(
+        torch.bfloat16, cuda, 4, 64, 32, 4, [5, 9], seed=3)
+    wrappers = (fa.flash_attention, pda.paged_decode_attention,
+                pda.paged_mla_decode_attention, rpa.ragged_prefill_attention)
+    n0 = [w.launches for w in wrappers]
+    kw = dict(block_size=BS)
+    unaligned = torch.empty(k_pool.numel() + 1, dtype=k_pool.dtype,
+                            device=cuda)[1:].view(k_pool.shape)
+    cases = [
+        (lambda: pda.paged_decode_attention(q_dec, k_pool, v_pool,
+                                            tables[:3].cpu(), lengths, **kw),
+         "block_tables on cpu"),
+        (lambda: pda.paged_decode_attention(q_dec, k_pool, v_pool,
+                                            tables[:3], lengths.cpu(), **kw),
+         "lengths on cpu"),
+        (lambda: pda.paged_decode_attention(q_dec, k_pool, v_pool,
+                                            tables, lengths, **kw),
+         r"block_tables \(4, 6\): need \(3, W\)"),
+        (lambda: pda.paged_decode_attention(q_dec, k_pool, v_pool,
+                                            tables[:3], lengths,
+                                            block_size=BS * 2),
+         "dim 1 must be block_size=8"),
+        (lambda: pda.paged_mla_decode_attention(
+            q_lat, q_rope, ckv, krope, mtab.cpu(), mlen, block_size=4,
+            scale=0.1), "block_tables on cpu"),
+        (lambda: pda.paged_mla_decode_attention(
+            q_lat, q_rope, ckv, krope, mtab, mlen[:1], block_size=4,
+            scale=0.1), r"lengths \(1,\): need \(2,\)"),
+        (lambda: rpa.ragged_prefill_attention(q_pre, k_pool, v_pool, tables,
+                                              starts.cpu(), limits, **kw),
+         "starts on cpu"),
+        (lambda: rpa.ragged_prefill_attention(q_pre, k_pool, v_pool, tables,
+                                              starts, limits[:3], **kw),
+         r"limits \(3,\): need \(4,\)"),
+        (lambda: rpa.ragged_prefill_attention(q_pre, unaligned, v_pool,
+                                              tables, starts, limits, **kw),
+         "16-byte boundary"),
+        (lambda: fa.flash_attention(q_pre, k_pool[:4].cpu(), k_pool[:4]),
+         "k on cpu"),
+        (lambda: fa.flash_attention(q_pre, k_pool[:4], k_pool[:4].cpu()),
+         "v on cpu"),
+    ]
+    for call, pattern in cases:
+        with pytest.raises(ValueError, match=pattern):
+            call()
+    assert [w.launches for w in wrappers] == n0
 
 
 def _gm_inputs(dtype, device, sizes, D, F, seed):
