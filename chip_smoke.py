@@ -127,7 +127,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                  and rglru_scan one for their serving prefill calls and one
                  for their Generator prefill; the paged decode, ragged
                  prefill and dense decode a second row at (256, G = 10);
-                 each with that run's launches), and ``{"ok": true,
+                 the grouped matmul one for each of its five cases; each
+                 with that run's launches), and ``{"ok": true,
                  "device": {...}}`` as the last line.
 
 Each phase prints its wall seconds.  It needs one CUDA device and exits non-zero without one.
@@ -180,6 +181,7 @@ GM_ABS = F32_TOL
 # plain version both compute in float32
 MLA_BF16_TOL = 1e-4
 REPEATS = 30
+SLEEP_CYCLES = 500_000  # ~0.3 ms of the card's clock: > a call's host time
 PREEMPT_BLOCKS = 32
 # deepseek-v2-lite-16b (MLA + MoE) served at full width in bf16: DS_REQUESTS
 # prompts of DS_PROMPT tokens, DS_NEW greedy tokens each, through the
@@ -261,16 +263,18 @@ def time_ms(fn, torch, repeats: int = REPEATS) -> float:
     """Median device time of ``fn()`` in ms over ``repeats`` launches, each
     with a cold L2 (a 128 MB buffer is rewritten before every launch, as a
     serving step finds the previous layer's data evicted).  The launches
-    are queued with no wait between them, so the host's own time (a
-    wrapper's checks, the launch call) falls while the card still works on
-    the queue and is not counted, unless ``fn`` itself waits for the card
-    (a plain version that reads sizes back)."""
+    are queued with no wait between them, and the card is held busy
+    (``torch.cuda._sleep``, SLEEP_CYCLES) while the host enqueues each one,
+    so the host's own time (a wrapper's checks, the launch call) is not
+    counted even where it exceeds the flush, unless ``fn`` itself waits
+    for the card (a plain version that reads sizes back)."""
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device="cuda")
     fn()                                            # warm up
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(repeats)]
     for t0, t1 in events:
         flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         t0.record()
         fn()
         t1.record()
@@ -1180,6 +1184,14 @@ def time_kernels(torch, timed):
 # JSON row names where a kernel has a second row
 ROW_NAMES = {("flash_attention", "MLA rows q_offset (192, 128)"):
              "flash_attention_dk192_dv128",
+             ("grouped_matmul", "decode w_down"):
+             "grouped_matmul_decode_w_down",
+             ("grouped_matmul", "prefill w_gate/w_up"):
+             "grouped_matmul_prefill",
+             ("grouped_matmul", "prefill w_down"):
+             "grouped_matmul_prefill_w_down",
+             ("grouped_matmul", "prefill, one expert"):
+             "grouped_matmul_prefill_one_expert",
              ("ssd_scan", "Generator prefill"): "ssd_scan_generator_prefill",
              ("rglru_scan", "Generator prefill"):
              "rglru_scan_generator_prefill",
@@ -1224,7 +1236,7 @@ def moe_mla_table(torch, pm, timed):
     m, H = cfg.mla, cfg.num_heads
     rows = []
     for case in ("decode w_gate/w_up", "decode w_down", "prefill w_gate/w_up",
-                 "prefill w_down"):
+                 "prefill w_down", "prefill, one expert"):
         x, w, sizes = timed[("grouped_matmul", case)][2]
         lib = grouped_mm_yardstick(torch, x, w, sizes)
         rows.append((
@@ -1233,8 +1245,7 @@ def moe_mla_table(torch, pm, timed):
                                    d_out=w.shape[2], itemsize=2),
             lib, "torch._grouped_mm" if lib is not None else
             "library call: none (this torch has no torch._grouped_mm)",
-            "src/repro/kernels/grouped_matmul.py:58"
-            if case == "decode w_gate/w_up" else None))
+            "src/repro/kernels/grouped_matmul.py:58"))
     mla = timed[("paged_mla_decode_attention", "serving")][2]
     rows.append((
         "paged_mla_decode_attention", "serving",

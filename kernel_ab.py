@@ -18,16 +18,26 @@ of PERF.md's kernel table: the ragged prefill at recurrentgemma-2b's
 RG_PRE_ROWS (a row past the window, a filler), flash at (256, 256) over
 8 x 1024 with that window, and flash at deepseek-v2-lite's (Dk, Dv) =
 (192, 128) over its prefill call's rows (4 x 256 queries at offsets 0,
-256, 768, 1280 over 1536 keys); with two timers, ROUNDS readings each:
+256, 768, 1280 over 1536 keys); decode_attention at recurrentgemma-2b's
+Generator decode (8 rows over 1096 entries, (10, 1, 256)); and the grouped
+matmul at ``chip_smoke.py``'s five deepseek-v2-lite cases (a decode step's
+16 x top-6 = 96 rows and a prefill call's 4 x 256 x 6 = 6144, for the
+w_gate/w_up (2048 -> 1408) and w_down (1408 -> 2048) shapes over 64
+experts, and the 6144 rows all in one expert); with two timers, ROUNDS
+readings each:
 
 * queued -- every launch queued behind a cold-L2 flush and one wait at
-  the end (the ``time_ms`` of ``chip_smoke.py``);
+  the end, the card held busy (``torch.cuda._sleep``) while the host
+  enqueues each launch, so the host's time per call is never counted: the
+  kernels' own device time (the ``time_ms`` of ``chip_smoke.py``);
 * synced -- a wait after every launch, so host time that the card does
   not hide is counted too;
 
 and the host's own time of one wrapper call (``host_us``: CALLS calls
 queued back to back on the host's clock, the wait for the card after the
-clock stops) and of its input checks alone (``check_us``).
+clock stops) and of its input checks alone (``check_us``).  Where one
+PyTorch call computes the same function (``torch._grouped_mm``; SDPA for
+the (10, 1, 256) decode), its queued time is read beside (``library``).
 
 A reading is the median of REPEATS launches.  The script prints the
 card's name and power limit, one JSON line per process, a summary line
@@ -36,6 +46,7 @@ reading.  It exits non-zero without a card or when a process fails.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -50,11 +61,19 @@ RG_PRE_ROWS = ((0, 900), (1792, 2900), (2304, 3000), (0, 0))
 RG_TABLE_W, RG_BLOCKS = 194, 4096
 DS_H, DS_DK, DS_DV = 16, 192, 128
 DS_ROW_OFFSETS, DS_KEYS = (0, 256, 768, 1280), 96 * BS
+# deepseek-v2-lite-16b's routed experts, as chip_smoke.py draws them
+DS_E, DS_TOPK, DS_MODEL, DS_FF = 64, 6, 2048, 1408
+GM_ROWS = {"decode": 16 * DS_TOPK, "prefill": 4 * 256 * DS_TOPK}
 ROUNDS = 5
 REPEATS = 30
 CALLS = 200
-PARITY = 2.0 ** -6     # a bf16 step at |out| < 2: the parity of chip_smoke.py
-                       # is stricter; this only shows the kernel ran and is sane
+PARITY = 2.0 ** -6     # x max(1, max |out|): a bf16 step below 2; the parity
+                       # of chip_smoke.py is stricter; this only shows the
+                       # kernel ran and is sane
+
+
+SLEEP_CYCLES = 500_000   # ~0.3 ms of the card's clock: more than a call's
+                         # host time
 
 
 def timer_queued(fn, torch, repeats=REPEATS):
@@ -64,6 +83,7 @@ def timer_queued(fn, torch, repeats=REPEATS):
                torch.cuda.Event(enable_timing=True)) for _ in range(repeats)]
     for t0, t1 in events:
         flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         t0.record()
         fn()
         t1.record()
@@ -101,7 +121,7 @@ def host_us(fn, torch, calls=CALLS):
 
 
 TIMERS = (("queued", timer_queued), ("synced", timer_synced))
-MEASURES = ("queued", "synced", "host_us", "check_us")
+MEASURES = ("queued", "synced", "host_us", "check_us", "library")
 
 
 def rg_table(torch, g, limits, window):
@@ -117,9 +137,60 @@ def rg_table(torch, g, limits, window):
     return tables
 
 
+def sdpa_dense_decode(torch, q, k, v, lengths):
+    """One SDPA call with a length mask (the GQA head expansion and the
+    layout changes outside the call), as chip_smoke.py's yardstick."""
+    import torch.nn.functional as F
+    S, G = k.shape[1], q.shape[2] // k.shape[2]
+    k = k.repeat_interleave(G, 2).transpose(1, 2).contiguous()
+    v = v.repeat_interleave(G, 2).transpose(1, 2).contiguous()
+    qh = q.transpose(1, 2).contiguous()
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(qh, k, v, attn_mask=mask)
+
+
+def gm_cases(torch, g):
+    """The grouped matmul's five cases: expert-sorted rows, the model's
+    init scale, each of rows / top_k tokens routed to top_k distinct
+    experts drawn uniformly, or every row in one expert."""
+    from repro_torch.kernels import grouped_matmul as gm
+    scale = (2.0 / (DS_MODEL + DS_FF)) ** 0.5
+    w = {(DS_MODEL, DS_FF): (torch.randn(DS_E, DS_MODEL, DS_FF, generator=g)
+                             * scale).to("cuda", torch.bfloat16)}
+    w[(DS_FF, DS_MODEL)] = (torch.randn(DS_E, DS_FF, DS_MODEL, generator=g)
+                            * scale).to("cuda", torch.bfloat16)
+    out = {}
+    for case, rows, dims, one in (
+            ("decode w_gate/w_up", GM_ROWS["decode"], (DS_MODEL, DS_FF), 0),
+            ("decode w_down", GM_ROWS["decode"], (DS_FF, DS_MODEL), 0),
+            ("prefill w_gate/w_up", GM_ROWS["prefill"], (DS_MODEL, DS_FF), 0),
+            ("prefill w_down", GM_ROWS["prefill"], (DS_FF, DS_MODEL), 0),
+            ("prefill, one expert", GM_ROWS["prefill"], (DS_MODEL, DS_FF),
+             1)):
+        if one:
+            sizes = torch.zeros(DS_E, dtype=torch.int32)
+            sizes[DS_E // 2] = rows
+        else:
+            picks = torch.rand(rows // DS_TOPK, DS_E, generator=g).topk(
+                DS_TOPK, dim=-1).indices
+            sizes = torch.bincount(picks.reshape(-1), minlength=DS_E)
+        sizes = sizes.to("cuda", torch.int32)
+        x = torch.randn(rows, dims[0], generator=g).to("cuda", torch.bfloat16)
+        offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+        lib = None
+        if hasattr(torch, "_grouped_mm"):
+            lib = functools.partial(torch._grouped_mm, x, w[dims], offs=offs)
+        out[f"grouped_matmul {case}"] = (gm, "grouped_matmul",
+                                         (x, w[dims], sizes), {},
+                                         (x, w[dims], sizes), lib)
+    return out
+
+
 def cases(torch):
-    """{case: (module, kernel, wrapper args, kwargs, check args)}, the same
-    inputs in every process (drawn on the host from fixed seeds)."""
+    """{case: (module, kernel, wrapper args, kwargs, check args, library
+    call or None)}, the same inputs in every process (drawn on the host
+    from fixed seeds)."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_decode_attention as pda
@@ -183,6 +254,15 @@ def cases(torch):
         fa, "flash_attention", (q, k, v),
         dict(causal=True, q_offset=offs, scale=DS_DK ** -0.5),
         (q, k, v, offs))
+    # recurrentgemma-2b's Generator decode: 8 rows over 1096 entries
+    q = rnd(8, 1, RG_H, RG_D)
+    k, v = rnd(8, 1096, RG_KV, RG_D), rnd(8, 1096, RG_KV, RG_D)
+    lens = ints(torch.randint(1025, 1088, (8,), generator=g))
+    out["decode_attention d256 g10"] = (
+        da, "decode_attention", (q, k, v, lens), {}, (q, k, v, lens),
+        sdpa_dense_decode(torch, q, k, v, lens))
+    out = {c: t if len(t) == 6 else t + (None,) for c, t in out.items()}
+    out.update(gm_cases(torch, g))
     return out
 
 
@@ -191,18 +271,20 @@ def worker(tree: str) -> None:
     import torch
     from repro_torch.kernels import build
     result = {"tree": tree}
-    for case, (mod, name, args, kw, check) in cases(torch).items():
+    for case, (mod, name, args, kw, check, lib) in cases(torch).items():
         fn, ref = getattr(mod, name), getattr(mod, f"{name}_ref")
         before = fn.launches
         got = fn(*args, **kw)
         torch.cuda.synchronize()
         if fn.launches != before + 1:
             raise AssertionError(f"{tree}: {case} launched no kernel")
-        err = (got.float() - ref(*args, **kw).float()).abs().max().item()
-        if not err <= PARITY:
+        want = ref(*args, **kw).float()
+        err = (got.float() - want).abs().max().item()
+        limit = PARITY * max(1.0, want.abs().max().item())
+        if not err <= limit:
             raise AssertionError(f"{tree}: {case} max abs error {err} > "
-                                 f"{PARITY}")
-        readings = {m: [] for m in MEASURES}
+                                 f"{limit}")
+        readings = {m: [] for m in MEASURES if m != "library" or lib}
         for _ in range(ROUNDS):
             for m, timer in TIMERS:
                 readings[m].append(timer(lambda: fn(*args, **kw), torch))
@@ -210,6 +292,8 @@ def worker(tree: str) -> None:
                                                torch))
             readings["check_us"].append(host_us(lambda: mod._check(*check),
                                                 torch))
+            if lib is not None:
+                readings["library"].append(timer_queued(lib, torch))
         result[case] = {"lib": build.lib_path(name).name,
                         "max_abs_err": err, **readings}
     print(json.dumps(result))
@@ -234,7 +318,7 @@ def main(a: str, b: str) -> int:
         runs.append(json.loads(line))
     kernels = [k for k in runs[0] if k != "tree"]
     for kernel in kernels:
-        for name in MEASURES:
+        for name in [m for m in MEASURES if m in runs[0][kernel]]:
             med = {}
             for tree in (a, b):
                 vals = sorted(x for r in runs if r["tree"] == tree

@@ -1,12 +1,16 @@
 // Shared device code of the hand-written kernels.
 //
-// Three block bodies carry the four GQA attention kernels, each
+// Four block bodies carry the four GQA attention kernels, each
 // parameterised by how a key's address is found (an "address" functor: key
 // position -> element offset of that key's values for the block's kv head):
 //
 //   decode_block   one query token per row, G query heads per kv head:
 //                  paged_decode_attention.cu (block table) and
-//                  decode_attention.cu (dense cache);
+//                  decode_attention.cu in f32 (dense cache);
+//   decode_split_block  the same for bf16 on the tensor cores, one split
+//                  of a row's keys for all G heads (mma.sync), its partial
+//                  merged by decode_combine: decode_attention.cu in bf16;
+//                  the paged and MLA decode kernels are to take it next;
 //   prefill_block  a tile of (token, head) query rows, causal with a query
 //                  offset, f32 FMAs: ragged_prefill_attention.cu and
 //                  flash_attention.cu in f32, where the tensor cores'
@@ -20,8 +24,8 @@
 // address functors, for MLA's decompressed heads.  A kernel file resolves
 // its block's row, bounds and address functors and calls one of them, so a
 // faster body lifts each of its kernels at once.  The mma.sync and
-// cp.async helpers below also serve grouped_matmul.cu and
-// paged_mla_decode_attention.cu.
+// cp.async helpers below also serve paged_mla_decode_attention.cu, and
+// the wgmma, mbarrier and TMA helpers grouped_matmul.cu.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -602,6 +606,25 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     }
 }
 
+// One arrival on ``bar`` that also expects ``bytes`` of asynchronous copies
+// (TMA) to complete the phase.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// TMA: the box of a 2D tensor map at (c0 inner, c1 outer) into shared
+// memory at dst, completing ``bytes`` of ``bar``'s expected transactions.
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map,
+                                            int c0, int c1, uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes [%0], [%1, {%2, %3}], [%4];\n"
+        :: "r"(smem_u32(dst)), "l"(map), "r"(c0), "r"(c1),
+           "r"(smem_u32(bar)) : "memory");
+}
+
 // Orders this thread's generic-proxy view of shared memory (st.shared,
 // cp.async) before the async proxy that wgmma reads it through.
 __device__ __forceinline__ void fence_proxy_async() {
@@ -623,8 +646,10 @@ __device__ __forceinline__ void wg_fence() {
 __device__ __forceinline__ void wg_commit() {
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wg_wait_all() {
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// Wait until at most N committed wgmma groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
 // Keeps the compiler from touching an accumulator across a wgmma wait: its
@@ -680,6 +705,93 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[32],
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 128, f32) = a b + (accumulate ? d : 0), a from shared memory
+// (64 x 16, K-major), b from shared memory MN-major (16 rows of 128
+// contiguous values in two 64-value column blocks, the leading byte offset
+// of the descriptor apart: grouped_matmul.cu's weight tiles), both bf16.
+// The transpose bit reads b as it lies, no transpose through registers.
+__device__ __forceinline__ void wgmma_ss_mn128(float (&d)[64], uint64_t a,
+                                               uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// As wgmma_ss_mn128 at N = 256: b holds four 64-value column blocks.
+__device__ __forceinline__ void wgmma_ss_mn256(float (&d)[128], uint64_t a,
+                                               uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, "
+        "%88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, "
+        "%104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127}, "
+        "%128, %129, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+          "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+          "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+          "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+          "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+          "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+          "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+          "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+          "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+          "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(a), "l"(b), "r"(accumulate));
 }
 
 // ---------------------------------------------------------------------------
@@ -937,7 +1049,7 @@ __device__ __forceinline__ void prefill_block_wgmma(
                 wgmma_ss(sc, TK::template desc<WG_ROWS>(qa, kk * 16),
                          TK::template desc<KT>(ka, kk * 16), kk > 0);
             wg_commit();
-            wg_wait_all();
+            wg_wait<0>();
             wg_pin(sc);
 
             float mx[2] = {-INFINITY, -INFINITY};
@@ -1013,7 +1125,7 @@ __device__ __forceinline__ void prefill_block_wgmma(
                     }
                 }
                 wg_commit();
-                wg_wait_all();
+                wg_wait<0>();
 #pragma unroll
                 for (int nb = 0; nb < NB; ++nb) wg_pin(o[nb]);
 #pragma unroll
@@ -1042,5 +1154,322 @@ __device__ __forceinline__ void prefill_block_wgmma(
                         out_rows + off[i] + nb * 64 + j8 * 8 + tig * 2) = v2;
                 }
         }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// decode on the tensor cores, split over the keys (bf16)
+// ---------------------------------------------------------------------------
+// The same function as decode_block for bf16 inputs, for one split of a
+// row's keys: a block takes the keys [k_lo, k_hi) (its split clipped to
+// the row's visible range) for up to DS_HEADS query heads of one kv head,
+// so K and V are read once for all of them.  Keys arrive in tiles of DS_KT
+// in a ring of DsShape<D>::NS stages filled with 16-byte cp.async by all
+// threads (K and V rows padded by 16 bytes, so ldmatrix reads them without
+// bank conflicts); each of the DS_WARPS warps takes 16 keys of a tile:
+//
+//   S = Q K^T on mma.sync m16n8k16, the heads as the 16 rows (zeros past
+//     G), Q and K loaded with ldmatrix from shared memory.  q enters
+//     unscaled (it is exact in bf16) and scale * log2(e) is applied to the
+//     f32 scores;
+//   an online softmax in log2 units on the accumulator registers (row
+//     maxima over the 4 lanes of a row, ex2); keys past k_hi score -inf and
+//     a row whose maximum is still -inf takes 0 as its reference;
+//   O += P V on mma.sync with P from registers (the S accumulator layout is
+//     the A fragment layout) in three bf16 parts (split3_bf16: one part
+//     errs by up to 2^-9 of a weight, two by 2^-18, which the half-step
+//     rule at |O| ~ 3 does not allow; three keep ~24 bits), V's fragments
+//     by ldmatrix.trans.
+//
+// Then the warps' (m, l, O) are merged through shared memory (the stage
+// buffers, free by then), and the block writes either the normalised
+// output (``part`` null: the row's keys are one split) or the split's
+// partial (acc = O unnormalised, m in log2 units, l) to ``part``: for head
+// g, part[g * part_stride + d] is acc[d] (d < D), then m, then l.  An empty
+// range writes acc = 0, m = -inf, l = 0, or zeros as output.
+// decode_combine merges the partials of a row's splits in split order, so
+// a run replays bit for bit.
+
+constexpr int DS_WARPS = 4;
+constexpr int DS_THREADS = DS_WARPS * 32;
+constexpr int DS_KT = DS_WARPS * 16;   // keys a tile: 16 a warp
+constexpr int DS_HEADS = 16;           // query heads a block: the mma rows
+constexpr int DS_MAX_SPLITS = 4096;    // the combine's weights: 32 KB
+
+template <int D>
+struct DsShape {
+    static constexpr int LD = D + 8;   // padded row, elements
+    // stages: two where they leave three blocks an SM, one at D = 256 (a
+    // 64-key tile is 67 KB there, and two blocks an SM keep it in flight)
+    static constexpr int NS = D >= 256 ? 1 : 2;
+    static constexpr size_t Q_BYTES = sizeof(__nv_bfloat16) * DS_HEADS * LD;
+    static constexpr size_t TILE = sizeof(__nv_bfloat16) * DS_KT * LD;
+    static constexpr size_t SMEM = Q_BYTES + (size_t)NS * 2 * TILE;
+    static_assert(sizeof(float) * DS_WARPS * DS_HEADS * D
+                  <= (size_t)NS * 2 * TILE, "the merge reuses the stages");
+};
+
+// q_row: this block's G <= DS_HEADS query heads, (G, D) contiguous; k_src /
+// v_src: the whole K and V arrays, indexed by addr; out_row: (G, D) of the
+// output, used when part is null.  smem: DsShape<D>::SMEM bytes of dynamic
+// shared memory, 16-byte aligned.  Call with DS_THREADS threads.
+template <int D, typename Addr>
+__device__ __forceinline__ void decode_split_block(
+    const __nv_bfloat16* __restrict__ q_row,
+    const __nv_bfloat16* __restrict__ k_src,
+    const __nv_bfloat16* __restrict__ v_src,
+    __nv_bfloat16* __restrict__ out_row, float* __restrict__ part,
+    int part_stride, int G, int k_lo, int k_hi, float scale,
+    const Addr& addr, unsigned char* smem) {
+    using Sh = DsShape<D>;
+    constexpr int LD = Sh::LD, NS = Sh::NS, CH = D / 8;
+    __shared__ float m_s[DS_WARPS][DS_HEADS], l_s[DS_WARPS][DS_HEADS];
+    __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);
+    __nv_bfloat16* stages =
+        reinterpret_cast<__nv_bfloat16*>(smem + Sh::Q_BYTES);
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int gid = lane / 4, tig = lane % 4;
+    const int ntiles = k_hi > k_lo ? (k_hi - k_lo + DS_KT - 1) / DS_KT : 0;
+
+    if (ntiles == 0) {                 // nothing visible in this split
+        for (int e = threadIdx.x; e < G * (D + 2); e += DS_THREADS) {
+            const int g = e / (D + 2), d = e % (D + 2);
+            if (part == nullptr) {
+                if (d < D) out_row[(size_t)g * D + d] = __float2bfloat16(0.f);
+            } else {
+                part[(size_t)g * part_stride + d] =
+                    d == D ? -INFINITY : 0.f;
+            }
+        }
+        return;
+    }
+
+    // the copies of key tile t into stage t % NS; keys past k_hi are zeros
+    auto load = [&](int t) {
+        __nv_bfloat16* ks = stages + (size_t)(t % NS) * 2 * DS_KT * LD;
+        __nv_bfloat16* vs = ks + DS_KT * LD;
+        const int t0 = k_lo + t * DS_KT;
+        for (int e = threadIdx.x; e < DS_KT * CH; e += DS_THREADS) {
+            const int i = e / CH, ch = e % CH;
+            const bool ok = t0 + i < k_hi;
+            const size_t src = ok ? addr(t0 + i) + ch * 8 : 0;
+            cp_async16(ks + i * LD + ch * 8, k_src + src, ok);
+            cp_async16(vs + i * LD + ch * 8, v_src + src, ok);
+        }
+    };
+
+    const float sl2 = scale * 1.4426950408889634f;   // log2 units
+    float o[D / 8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) o[n][j] = 0.f;
+
+#pragma unroll
+    for (int p = 0; p < NS - 1; ++p) {
+        if (p < ntiles) load(p);
+        cp_async_commit();
+    }
+    // Q, zeros past the G heads, while the first keys are in flight
+    if ((reinterpret_cast<size_t>(q_row) & 15) == 0) {
+        for (int e = threadIdx.x; e < DS_HEADS * CH; e += DS_THREADS) {
+            const int g = e / CH, ch = e % CH;
+            *reinterpret_cast<uint4*>(q_s + g * LD + ch * 8) = g < G
+                ? __ldg(reinterpret_cast<const uint4*>(q_row
+                                                       + (size_t)g * D) + ch)
+                : make_uint4(0, 0, 0, 0);
+        }
+    } else {
+        for (int e = threadIdx.x; e < DS_HEADS * D; e += DS_THREADS) {
+            const int g = e / D, d = e % D;
+            q_s[g * LD + d] = g < G ? q_row[(size_t)g * D + d]
+                                    : __float2bfloat16(0.f);
+        }
+    }
+    for (int t = 0; t < ntiles; ++t) {
+        if (t + NS - 1 < ntiles) load(t + NS - 1);
+        cp_async_commit();
+        cp_async_wait<NS - 1>();       // tile t has landed
+        __syncthreads();               // for every thread (and Q too)
+        const int k0 = k_lo + t * DS_KT + 16 * warp;   // this warp's keys
+        if (k0 < k_hi) {               // warp-uniform
+            const __nv_bfloat16* ks =
+                stages + (size_t)(t % NS) * 2 * DS_KT * LD + 16 * warp * LD;
+            const __nv_bfloat16* vs = ks + DS_KT * LD;
+            // S: sc[j][c] is head gid + 8 (c / 2), key 8 j + 2 tig + c % 2
+            float sc[2][4] = {};
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk) {
+                uint32_t a[4], b[4];
+                ldsm_x4<false>(a, q_s + (lane & 15) * LD + kk * 16
+                                      + (lane >> 4) * 8);
+                // keys 0-7 then 8-15, dims +8 for lanes 8-15 and 24-31
+                ldsm_x4<false>(b, ks + ((lane >> 4) * 8 + (lane & 7)) * LD
+                                      + kk * 16 + ((lane >> 3) & 1) * 8);
+                mma_bf16(sc[0], a, b[0], b[1]);
+                mma_bf16(sc[1], a, b[2], b[3]);
+            }
+            float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+                for (int c = 0; c < 4; ++c) {
+                    const bool in = k0 + 8 * j + 2 * tig + (c & 1) < k_hi;
+                    sc[j][c] = in ? sc[j][c] * sl2 : -INFINITY;
+                    mx[c / 2] = fmaxf(mx[c / 2], sc[j][c]);
+                }
+            float corr[2], ref[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+                mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+                const float m_new = fmaxf(m[i], mx[i]);
+                ref[i] = m_new == -INFINITY ? 0.f : m_new;
+                corr[i] = exp2_ftz(m[i] - ref[i]);
+                m[i] = m_new;
+            }
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+                for (int c = 0; c < 4; ++c) {
+                    sc[j][c] = exp2_ftz(sc[j][c] - ref[c / 2]);
+                    rs[c / 2] += sc[j][c];
+                }
+#pragma unroll
+            for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];
+#pragma unroll
+            for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+                for (int c = 0; c < 4; ++c) o[n][c] *= corr[c / 2];
+            // P's A fragments (rows gid, gid + 8; keys 2 tig (+8)) in three
+            // bf16 parts
+            uint32_t p[4][3];
+            split3_bf16(sc[0][0], sc[0][1], p[0]);
+            split3_bf16(sc[0][2], sc[0][3], p[1]);
+            split3_bf16(sc[1][0], sc[1][1], p[2]);
+            split3_bf16(sc[1][2], sc[1][3], p[3]);
+#pragma unroll
+            for (int n = 0; n < D / 8; n += 2) {
+                // V of dims 8 n .. 8 n + 15: keys lane % 8 (+8 for lanes
+                // 8-15 and 24-31), dims +8 past lane 15, transposed
+                uint32_t b[4];
+                ldsm_x4<true>(b, vs + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD
+                                     + (n + (lane >> 4)) * 8);
+#pragma unroll
+                for (int part3 = 0; part3 < 3; ++part3) {
+                    const uint32_t a[4] = {p[0][part3], p[1][part3],
+                                           p[2][part3], p[3][part3]};
+                    mma_bf16(o[n], a, b[0], b[1]);
+                    mma_bf16(o[n + 1], a, b[2], b[3]);
+                }
+            }
+        }
+        __syncthreads();               // stage t % NS free for tile t + NS
+    }
+
+    // each row's l over its 4 lanes; the warps' (m, l, O) into shared memory
+    float* o_s = reinterpret_cast<float*>(stages);   // [warp][head][D]
+    __shared__ float f_s[DS_WARPS][DS_HEADS], mx_s[DS_HEADS], den_s[DS_HEADS];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+        if (tig == 0) {
+            m_s[warp][gid + 8 * i] = m[i];
+            l_s[warp][gid + 8 * i] = l[i];
+        }
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+            *reinterpret_cast<float2*>(
+                o_s + (warp * DS_HEADS + gid + 8 * i) * D + 8 * n + 2 * tig)
+                = make_float2(o[n][2 * i], o[n][2 * i + 1]);
+    }
+    __syncthreads();
+    // each head's maximum over the warps, the warps' factors, its l
+    if (threadIdx.x < DS_HEADS) {
+        const int g = threadIdx.x;
+        float mx = m_s[0][g];
+#pragma unroll
+        for (int w = 1; w < DS_WARPS; ++w) mx = fmaxf(mx, m_s[w][g]);
+        float den = 0.f;
+#pragma unroll
+        for (int w = 0; w < DS_WARPS; ++w) {
+            f_s[w][g] = m_s[w][g] == -INFINITY ? 0.f
+                                               : exp2_ftz(m_s[w][g] - mx);
+            den += l_s[w][g] * f_s[w][g];
+        }
+        mx_s[g] = mx;
+        den_s[g] = den;
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < G * D; e += DS_THREADS) {
+        const int g = e / D, d = e % D;
+        const float mx = mx_s[g], den = den_s[g];
+        float num = 0.f;
+#pragma unroll
+        for (int w = 0; w < DS_WARPS; ++w)
+            num += o_s[(w * DS_HEADS + g) * D + d] * f_s[w][g];
+        if (part == nullptr) {
+            out_row[(size_t)g * D + d] =
+                __float2bfloat16(num / fmaxf(den, REPRO_L_FLOOR));
+        } else {
+            float* pg = part + (size_t)g * part_stride;
+            pg[d] = num;
+            if (d == 0) {
+                pg[D] = mx;
+                pg[D + 1] = den;
+            }
+        }
+    }
+}
+
+// Merges the split partials of one (row, query head) per block of
+// DS_THREADS threads: part (splits, D + 2) as decode_split_block writes
+// them; out: that head's D outputs.  The splits' maxima and weights are
+// read in parallel into w_s (2 x splits floats of dynamic shared memory),
+// the denominator summed by the first warp in a fixed tree, and each output
+// sums its splits in split order, so a run replays bit for bit.  A split
+// with m = -inf weighs 0 (its acc is zeros); a row with no visible key
+// writes zeros.
+template <int D>
+__device__ __forceinline__ void decode_combine(
+    const float* __restrict__ part, int splits,
+    __nv_bfloat16* __restrict__ out, float* w_s) {
+    __shared__ float red[DS_WARPS], den_s;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    float mx = -INFINITY;
+    for (int z = threadIdx.x; z < splits; z += DS_THREADS)
+        mx = fmaxf(mx, part[(size_t)z * (D + 2) + D]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    if (lane == 0) red[warp] = mx;
+    __syncthreads();
+    mx = red[0];
+#pragma unroll
+    for (int w = 1; w < DS_WARPS; ++w) mx = fmaxf(mx, red[w]);
+    for (int z = threadIdx.x; z < splits; z += DS_THREADS) {
+        const float* pz = part + (size_t)z * (D + 2);
+        const float c = pz[D] == -INFINITY ? 0.f : exp2_ftz(pz[D] - mx);
+        w_s[z] = c;
+        w_s[splits + z] = c * pz[D + 1];
+    }
+    __syncthreads();
+    if (warp == 0) {
+        float den = 0.f;
+        for (int z = lane; z < splits; z += 32) den += w_s[splits + z];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+            den += __shfl_xor_sync(0xffffffffu, den, off);
+        if (lane == 0) den_s = den;
+    }
+    __syncthreads();
+    const float inv = 1.f / fmaxf(den_s, REPRO_L_FLOOR);
+    for (int d = threadIdx.x; d < D; d += DS_THREADS) {
+        float num = 0.f;
+#pragma unroll 8
+        for (int z = 0; z < splits; ++z)
+            num += part[(size_t)z * (D + 2) + d] * w_s[z];
+        out[d] = __float2bfloat16(num * inv);
     }
 }

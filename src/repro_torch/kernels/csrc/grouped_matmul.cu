@@ -8,58 +8,391 @@
 // Sums in f32, one rounding to x's type.
 //
 // What bounds it on the H100: at serving shapes, bytes.  A decode step
-// routes 16 tokens x top-6 = 96 rows over ~50 of the 64 experts: each
+// routes 16 tokens x top-6 = 96 rows over ~47 of the 64 experts: each
 // non-empty expert's (D, F) weight is read for a handful of rows, 2
 // flops per weight element read (2 bytes in bf16), far below the ~295
-// flops per byte the card needs before its tensor cores matter.  So the
-// kernel reads every weight byte of a non-empty expert once per launch and
-// none of an empty one.  A 4 x 256-token prefill call (6144 rows, ~96 per
-// expert) is near the balance point.
+// flops per byte the card needs before its tensor cores matter.  A 4 x
+// 256-token prefill call (6144 rows, ~96 per expert) reads 369 MB of
+// weights for 35 GFLOP: still bytes (0.123 ms of bytes against 0.036 ms of
+// tensor work).  So every weight byte of a non-empty expert is read once
+// per launch, none of an empty one, and enough of them are in flight on
+// every SM for the whole launch.  At decode the weights come as 128-byte
+// rows of 64-row boxes at a 2816-byte stride; the kernel reaches ~2.2 TB/s
+// there, as torch._grouped_mm does (PERF.md section 6).
 //
-// Design.  The TPU kernel steps a sequential grid (token tile, expert) and
-// accumulates each output tile across the (at most two) experts that
-// overlap it, in VMEM scratch.  Blocks on Hopper run in parallel in no
-// order, so nothing carries across experts: one thread block takes one
-// (F tile, expert), finds its group's rows [offs[e], offs[e+1]) from the
-// sizes on the device (no host sync: the grid depends only on E and F),
-// returns before any load when the group is empty, and loops over the
-// group's rows in tiles of BM rows; per row tile it streams the expert's
-// (D, GM_BN) weight slice once through a GM_STAGES-deep cp.async ring of
-// (GM_BK x GM_BN) tiles with the matching x tiles (rows past the group are
-// zero-filled, nothing read).  The row tile adapts to the rows an expert
-// gets on average, T / E, the one thing the host knows without a sync: 64
-// rows (four warps) when that is at most 64, as at decode, where more idle
-// warps and shared memory a block would only cost blocks in flight; 128
-// (eight warps) above, so that a prefill call's ~96 rows an expert take one
-// pass and its weights are read once there too.  bf16: 16 rows a warp,
-// mma.sync m16n8k16 with f32 accumulators, the fragments loaded with
-// ldmatrix (transposed for w's (k, n) rows); a warp whose rows all lie
-// past the group skips its products.  f32: an FMA
-// tile (each of 256 threads 4 x 4 outputs), never TF32, which keeps 10
-// bits.  Next: a persistent grid and wgmma for the prefill's larger
-// groups; split over D for decode, where each block's slice is 256 KB
-// streamed by one block.
+// Design (bf16).  The TPU kernel steps a sequential grid (token tile,
+// expert) and accumulates each output tile across the experts that overlap
+// it, in VMEM scratch.  Here a persistent grid (as many blocks as fit on
+// the card at once, no more than there can be items) walks a work list of
+// (expert, row tile, F tile) items, item i to block i % gridDim.x.  Every
+// block builds the list itself from the sizes on the device (no host
+// sync): its first warp prefix-sums the clamped group bounds and each
+// expert's row tiles into shared memory, and an item finds its expert by a
+// binary search there; an empty expert adds no item.  So no wave is half
+// empty, and the case where every row goes to one expert is 48 row tiles
+// over that expert's weights, which stay in L2.  Items are ordered row
+// tile major, so the blocks that run at once share their x tile in L2.
+//
+// A block is NC consumer warpgroups and one producer warp.  NC = 1 (tiles
+// of 64 rows x 128 columns, two blocks an SM) when the rows an expert gets
+// on average, T / E, the one thing the host knows without a sync, are at
+// most 64, as at decode; NC = 2 (128 x 256, one block an SM) above, so that
+// a prefill call's ~96 rows an expert take one tile, its weights are read
+// once, and its x tile is read from L2 once per 256 columns (at 128, the
+// x tiles move as many bytes from L2 into the SMs as the weights do).
+// The producer's one thread keeps a ring of NS (4) stages full with TMA,
+// each the x tile (BM x 64) and the weight tile (64 x BN) of one 64-deep k
+// step, behind mbarriers (full: the stage's bytes have landed; empty: each
+// consumer warp is done with it), and runs ahead across items, so one
+// item's epilogue overlaps the next one's loads.  TMA and not cp.async: a
+// producer warpgroup issuing 16-byte cp.async holds registers the 128 x
+// 256 tile needs (with it and 128 x 128 tiles a prefill call's launch took
+// 0.194-0.208 ms; with TMA and 128 x 256, 0.160, on an H100,
+// kernel_ab.py); the tensor maps (x as (T, D), w as (E D, F), 128-byte swizzle, the
+// layout of WgTile) are encoded on the host each launch through
+// cudaGetDriverEntryPoint, since build.py links no libcuda.  x comes in
+// boxes of 16 rows, only those its group's rows reach (at decode ~2 rows an
+// expert: one box); rows past the group in a box are the next group's, or
+// zeros past T, and rows past the boxes keep what the stage held: all are
+// multiplied but never stored.  Weight boxes past F are not loaded;
+// reads past D take the next expert's rows against x's zero columns.
+//
+// Each consumer warpgroup owns 64 rows of the tile and runs wgmma
+// m64nBNk16 (wgmma_ss_mn128 / wgmma_ss_mn256, common.cuh): A the x tile,
+// K-major; B the weight tile as it lies in memory, MN-major (its (d, f)
+// rows with f contiguous, the transpose bit set), its 64-value column
+// blocks one leading byte offset apart.  A stage is released once the
+// wgmma group that reads it has completed (wait_group 1, one group in
+// flight behind the issue).  f32 accumulators, rounded once to bf16 and
+// stored for the rows inside the group and the columns inside F; a
+// warpgroup whose rows all lie past the group only releases its stages.
+// Each output element is one block's sum over D in a fixed order, so a
+// run replays bit for bit.
+//
+// f32: an FMA tile per (F tile, expert) (each of 256 threads 4 x 4
+// outputs), never TF32, which keeps 10 bits; it runs only in the identity
+// checks.
+
+#include <cuda.h>
+
+#include <algorithm>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int GM_BN = 64, GM_BK = 32, GM_STAGES = 4;
-constexpr int GM_LDA = GM_BK + 8;            // staged row strides, elements:
-constexpr int GM_LDB = GM_BN + 8;            // padded against bank conflicts
-constexpr int GM_B = GM_BK * GM_LDB;
+// ---- bf16: persistent, wgmma fed by TMA ----
+constexpr int GW_BK = 64;
+constexpr int GW_XROWS = 16;        // rows of one x box: a tile loads only
+                                    // the boxes its group's rows reach
 
-// One bf16 row tile of BM rows: 16 rows a warp.
-template <int BM>
-struct GmTile {
-    static constexpr int THREADS = BM / 16 * 32;
-    static constexpr int A = BM * GM_LDA;    // x tile, elements
-    static constexpr int STAGE = A + GM_B;
-    static constexpr size_t SMEM = (size_t)GM_STAGES * STAGE
-                                 * sizeof(__nv_bfloat16);
+template <int NC>
+struct GwShape {
+    static constexpr int BM = 64 * NC;               // rows a tile
+    static constexpr int BN = 128 * NC;              // columns a tile
+    static constexpr int THREADS = 128 * NC + 32;    // consumers, producer
+    static constexpr int MIN_BLOCKS = NC == 1 ? 2 : 1;
+    static constexpr int NS = 4;                     // ring stages
+    static constexpr uint32_t X_BYTES = BM * GW_BK * 2;
+    static constexpr uint32_t W_BYTES = GW_BK * BN * 2;
+    static constexpr uint32_t STAGE = X_BYTES + W_BYTES;
+    // the ring (1024-byte aligned), then the work list's 2 (E + 1) ints
+    static size_t smem(int E) {
+        return 1024 + (size_t)NS * STAGE + sizeof(int) * 2 * (E + 1);
+    }
 };
 
-// f32 FMA tiles
+// One work item: expert e, rows [r0, r1), columns from n0.
+struct GwItem {
+    int e, r0, r1, n0;
+};
+
+// Item i of the list: tile_at[e] is the first row tile of expert e (an
+// exclusive prefix sum; tile_at[E] the total), row_at[e] its first row
+// (row_at[e + 1] its end).  The expert is the last e with tile_at[e] <= the
+// item's row tile, which skips the empty experts.
+__device__ __forceinline__ GwItem gw_item(const int* tile_at,
+                                          const int* row_at, int E, int nF,
+                                          int BM, int BN, int i) {
+    const int r = i / nF;
+    int lo = 0, hi = E;
+    while (hi - lo > 1) {
+        const int mid = (lo + hi) / 2;
+        if (tile_at[mid] <= r) lo = mid;
+        else hi = mid;
+    }
+    GwItem it;
+    it.e = lo;
+    it.r0 = row_at[lo] + (r - tile_at[lo]) * BM;
+    it.r1 = min(it.r0 + BM, row_at[lo + 1]);
+    it.n0 = (i % nF) * BN;
+    return it;
+}
+
+// The work list, by the first warp: group bounds clamped to T and the row
+// tiles of BM rows of each expert, prefix-summed 32 experts at a time.
+__device__ __forceinline__ void gw_work_list(const int* __restrict__ sizes,
+                                             int E, int T, int BM,
+                                             int* tile_at, int* row_at) {
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    int rows = 0, tiles = 0;                  // before this chunk of 32
+    for (int c0 = 0; c0 < E; c0 += 32) {
+        const int e = c0 + lane;
+        const int n = e < E ? max(sizes[e], 0) : 0;
+        int rs = n;                           // inclusive scan of sizes
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+            const int t = __shfl_up_sync(0xffffffffu, rs, off);
+            if (lane >= off) rs += t;
+        }
+        const int lo = min(rows + rs - n, T), hi = min(rows + rs, T);
+        const int nt = (hi - lo + BM - 1) / BM;
+        int ts = nt;                          // inclusive scan of row tiles
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+            const int t = __shfl_up_sync(0xffffffffu, ts, off);
+            if (lane >= off) ts += t;
+        }
+        if (e < E) {
+            row_at[e] = lo;
+            tile_at[e] = tiles + ts - nt;
+        }
+        rows += __shfl_sync(0xffffffffu, rs, 31);
+        tiles += __shfl_sync(0xffffffffu, ts, 31);
+    }
+    if (lane == 0) {
+        row_at[E] = min(rows, T);
+        tile_at[E] = tiles;
+    }
+}
+
+// acc (64 x BN, f32) (+)= a b: one k16 step of a consumer warpgroup
+template <int BN>
+__device__ __forceinline__ void gw_mma(float (&acc)[BN / 2], uint64_t a,
+                                       uint64_t b, int accumulate) {
+    if constexpr (BN == 128) wgmma_ss_mn128(acc, a, b, accumulate);
+    else wgmma_ss_mn256(acc, a, b, accumulate);
+}
+
+template <int NC>
+__global__ void __launch_bounds__(GwShape<NC>::THREADS,
+                                  GwShape<NC>::MIN_BLOCKS)
+grouped_matmul_bf16_kernel(
+    const __grid_constant__ CUtensorMap x_map,   // x (T, D): boxes 64 x 16
+    const __grid_constant__ CUtensorMap w_map,   // w (E D, F): boxes 64 x 64
+    const int* __restrict__ sizes,               // (E,)
+    __nv_bfloat16* __restrict__ out,             // (T, F)
+    int T, int D, int F, int E) {
+    using Sh = GwShape<NC>;
+    constexpr int BM = Sh::BM, BN = Sh::BN, NS = Sh::NS;
+    constexpr uint32_t STAGE = Sh::STAGE, X_BYTES = Sh::X_BYTES;
+    using TX = WgTile<GW_BK>;                 // x rows: 64 k values
+    __shared__ uint64_t full[NS], empty[NS];
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const uint32_t raw = smem_u32(smem_raw);
+    const uint32_t base = (raw + 1023) & ~1023u;   // swizzle atoms align
+    unsigned char* tiles = smem_raw + (base - raw);
+    int* tile_at = reinterpret_cast<int*>(tiles + NS * STAGE);
+    int* row_at = tile_at + E + 1;
+
+    gw_work_list(sizes, E, T, BM, tile_at, row_at);
+    if (threadIdx.x == 0) {
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+            mbar_init(&full[s], 1);            // the producer's expect_tx
+            mbar_init(&empty[s], 4 * NC);      // one a consumer warp
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    const int nF = (F + BN - 1) / BN, nk = (D + GW_BK - 1) / GW_BK;
+    const int items = tile_at[E] * nF;
+
+    if (threadIdx.x >= 128 * NC) {
+        // ---- producer: one thread issues every stage's TMA boxes ----
+        if (threadIdx.x != 128 * NC) return;
+        int step = 0;
+        for (int i = blockIdx.x; i < items; i += gridDim.x) {
+            const GwItem it = gw_item(tile_at, row_at, E, nF, BM, BN, i);
+            // x boxes that reach the group's rows (rows past it and past T
+            // come in as the next group's or zeros: multiplied, not stored);
+            // weight boxes that reach F
+            const int xb = (it.r1 - it.r0 + GW_XROWS - 1) / GW_XROWS;
+            const int wb = min(BN, F - it.n0 + 63) / 64;
+            const uint32_t bytes = (xb * GW_XROWS + wb * GW_BK) * 128;
+            for (int kt = 0; kt < nk; ++kt, ++step) {
+                const int s = step % NS;
+                if (step >= NS)
+                    mbar_wait(&empty[s], ((step / NS) - 1) & 1);
+                unsigned char* xs = tiles + s * STAGE;
+                unsigned char* ws = xs + X_BYTES;
+                mbar_arrive_expect_tx(&full[s], bytes);
+                for (int b = 0; b < xb; ++b)
+                    tma_load_2d(xs + b * GW_XROWS * 128, &x_map, kt * GW_BK,
+                                it.r0 + b * GW_XROWS, &full[s]);
+                // w rows e D + k (past D: the next expert's, against x's
+                // zero columns), 64 columns a box
+                for (int b = 0; b < wb; ++b)
+                    tma_load_2d(ws + b * (GW_BK * 128), &w_map,
+                                it.n0 + b * 64, it.e * D + kt * GW_BK,
+                                &full[s]);
+            }
+        }
+        return;
+    }
+
+    // ---- consumer warpgroup wg: rows 64 wg .. 64 wg + 63 of each tile ----
+    const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+    const int warp = t / 32, lane = t % 32, gid = lane / 4, tig = lane % 4;
+    float acc[BN / 2];
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
+    int step = 0;
+    for (int i = blockIdx.x; i < items; i += gridDim.x) {
+        const GwItem it = gw_item(tile_at, row_at, E, nF, BM, BN, i);
+        const bool live = it.r0 + 64 * wg < it.r1;    // warpgroup-uniform
+        for (int kt = 0; kt < nk; ++kt, ++step) {
+            const int s = step % NS;
+            mbar_wait(&full[s], (step / NS) & 1);
+            if (!live) {                   // nothing to multiply: release
+                if (lane == 0) mbar_arrive(&empty[s]);
+                continue;
+            }
+            const uint32_t xa = base + s * STAGE + wg * (64 * 128);
+            const uint32_t wa = base + s * STAGE + X_BYTES;
+            wg_pin(acc);
+            wg_fence();
+#pragma unroll
+            for (int kk = 0; kk < GW_BK / 16; ++kk)
+                // B: 16 k rows from kk * 16 (two 8-row groups 1024 bytes
+                // apart), its 64-value column blocks 64 x 128 bytes apart
+                gw_mma<BN>(acc, TX::template desc<64>(xa, kk * 16),
+                           wg_desc(wa + kk * 2048, GW_BK * 128, 1024, 1),
+                           kt > 0 || kk > 0);
+            wg_commit();
+            wg_wait<1>();                  // step - 1's products are done
+            wg_pin(acc);
+            if (kt > 0 && lane == 0) mbar_arrive(&empty[(step - 1) % NS]);
+        }
+        if (!live) continue;
+        wg_wait<0>();
+        wg_pin(acc);
+        if (lane == 0) mbar_arrive(&empty[(step - 1) % NS]);
+        // acc[4 j + 2 i + c]: row gid + 8 i of the warp's 16, column
+        // 8 j + 2 tig + c of the tile
+#pragma unroll
+        for (int i2 = 0; i2 < 2; ++i2) {
+            const int row = it.r0 + 64 * wg + 16 * warp + gid + 8 * i2;
+            if (row >= it.r1) continue;
+#pragma unroll
+            for (int j = 0; j < BN / 8; ++j) {
+                const int f = it.n0 + 8 * j + 2 * tig;
+                if (f < F)
+                    *reinterpret_cast<__nv_bfloat162*>(
+                        out + (size_t)row * F + f) = __floats2bfloat162_rn(
+                        acc[4 * j + 2 * i2], acc[4 * j + 2 * i2 + 1]);
+            }
+        }
+    }
+}
+
+// cuTensorMapEncodeTiled, taken from the driver through the runtime once
+// (build.py links no libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+int encode_tiled(EncodeTiled& fn) {
+    static EncodeTiled cached = nullptr;
+    if (cached == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult q;
+        const cudaError_t err = cudaGetDriverEntryPoint(
+            "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+        if (err != cudaSuccess) return (int)err;
+        if (q != cudaDriverEntryPointSuccess || p == nullptr)
+            return REPRO_UNSUPPORTED;
+        cached = reinterpret_cast<EncodeTiled>(p);
+    }
+    fn = cached;
+    return 0;
+}
+
+// A bf16 (rows, cols) row-major map with boxes of box_rows x 64 values in
+// the 128-byte swizzle of WgTile; reads past the edges fill zeros.
+int bf16_map(CUtensorMap* map, const void* base, long long rows, int cols,
+             int box_rows) {
+    EncodeTiled encode;
+    const int rc = encode_tiled(encode);
+    if (rc != 0) return rc;
+    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+    const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+    const cuuint32_t elem[2] = {1, 1};
+    const CUresult r = encode(
+        map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+        dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? 0 : REPRO_UNSUPPORTED;
+}
+
+// Blocks of a persistent launch: as many as fit on the card at once, and
+// no more than the items there can be (every expert's rows in whole tiles,
+// plus one partial tile for each non-empty expert).  The SM count and the
+// blocks an SM are read once a device and shared-memory size.
+template <int NC>
+int gw_grid(int T, int E, int F, size_t smem, int& grid) {
+    static int cached_dev = -1, cached_sms = 0, cached_per_sm = 0;
+    static size_t cached_smem = 0;
+    int dev;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev != cached_dev || smem != cached_smem) {
+        int sms, per_sm;
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+        if (err == cudaSuccess)
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, grouped_matmul_bf16_kernel<NC>,
+                GwShape<NC>::THREADS, smem);
+        if (err != cudaSuccess) return (int)err;
+        cached_dev = dev;
+        cached_sms = sms;
+        cached_per_sm = per_sm;
+        cached_smem = smem;
+    }
+    constexpr int BM = GwShape<NC>::BM, BN = GwShape<NC>::BN;
+    const long long items = ((long long)(T + BM - 1) / BM + std::min(E, T))
+                          * ((F + BN - 1) / BN);
+    grid = (int)std::min(items,
+                         (long long)std::max(1, cached_per_sm) * cached_sms);
+    return 0;
+}
+
+template <int NC>
+int launch_bf16(const void* x, const void* w, const int* sizes, void* out,
+                int T, int D, int F, int E, cudaStream_t stream) {
+    const size_t smem = GwShape<NC>::smem(E);
+    auto kernel = grouped_matmul_bf16_kernel<NC>;
+    cudaError_t err = reserve_smem(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    int grid;
+    CUtensorMap x_map, w_map;
+    int rc = gw_grid<NC>(T, E, F, smem, grid);
+    if (rc == 0) rc = bf16_map(&x_map, x, T, D, GW_XROWS);
+    if (rc == 0) rc = bf16_map(&w_map, w, (long long)E * D, F, GW_BK);
+    if (rc != 0) return rc;
+    kernel<<<grid, GwShape<NC>::THREADS, smem, stream>>>(
+        x_map, w_map, sizes, (__nv_bfloat16*)out, T, D, F, E);
+    return (int)cudaGetLastError();
+}
+
+// ---- f32: FMA tiles, one block per (F tile, expert) ----
 constexpr int GF_BM = 64, GF_BN = 64, GF_BK = 16, GF_THREADS = 256;
 
 // This block's group [lo, hi) of rows: the first warp sums the sizes
@@ -88,118 +421,6 @@ __device__ __forceinline__ void group_rows(const int* __restrict__ sizes,
     __syncthreads();
     lo = bounds[0];
     hi = bounds[1];
-}
-
-// Start the copies of k-tile kt of row tile m0 into stage buffers a_s, b_s.
-template <int BM>
-__device__ __forceinline__ void gm_load_stage(
-    __nv_bfloat16* a_s, __nv_bfloat16* b_s,
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-    int lo, int hi, int m0, int n0, int kt, int D, int F) {
-    constexpr int THREADS = GmTile<BM>::THREADS;
-    const int k0 = kt * GM_BK;
-    // x tile: BM rows x GM_BK cols = 4 chunks of 8 per row
-    for (int c = threadIdx.x; c < BM * (GM_BK / 8); c += THREADS) {
-        const int r = c / (GM_BK / 8), ch = c % (GM_BK / 8);
-        const int row = lo + m0 + r, col = k0 + ch * 8;
-        const bool ok = row < hi && col < D;
-        cp_async16(a_s + r * GM_LDA + ch * 8,
-                   ok ? x + (size_t)row * D + col : x, ok);
-    }
-    // w tile: GM_BK rows (d) x GM_BN cols (f) = 8 chunks of 8 per row
-    for (int c = threadIdx.x; c < GM_BK * (GM_BN / 8); c += THREADS) {
-        const int r = c / (GM_BN / 8), ch = c % (GM_BN / 8);
-        const int d = k0 + r, f = n0 + ch * 8;
-        const bool ok = d < D && f < F;
-        cp_async16(b_s + r * GM_LDB + ch * 8,
-                   ok ? w + (size_t)d * F + f : w, ok);
-    }
-}
-
-template <int BM>
-__global__ void __launch_bounds__(GmTile<BM>::THREADS)
-grouped_matmul_bf16_kernel(
-    const __nv_bfloat16* __restrict__ x,   // (T, D), sorted by expert
-    const __nv_bfloat16* __restrict__ w,   // (E, D, F)
-    const int* __restrict__ sizes,         // (E,)
-    __nv_bfloat16* __restrict__ out,       // (T, F)
-    int T, int D, int F) {
-    const int n0 = blockIdx.x * GM_BN;
-    const int e = blockIdx.y;
-    int lo, hi;
-    group_rows(sizes, e, gridDim.y, T, lo, hi);
-    if (lo >= hi) return;                  // empty group: no loads at all
-    constexpr int STAGE = GmTile<BM>::STAGE, A = GmTile<BM>::A;
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-    const __nv_bfloat16* we = w + (size_t)e * D * F;
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int gid = lane / 4, tig = lane % 4;
-    const int nk = (D + GM_BK - 1) / GM_BK;
-
-    for (int m0 = 0; m0 < hi - lo; m0 += BM) {
-        const bool live = m0 + warp * 16 < hi - lo;   // warp-uniform
-        float acc[GM_BN / 8][4];
-#pragma unroll
-        for (int nt = 0; nt < GM_BN / 8; ++nt)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[nt][j] = 0.f;
-#pragma unroll
-        for (int s = 0; s < GM_STAGES - 1; ++s) {
-            if (s < nk)
-                gm_load_stage<BM>(smem + s * STAGE, smem + s * STAGE + A, x,
-                                  we, lo, hi, m0, n0, s, D, F);
-            cp_async_commit();
-        }
-        for (int kt = 0; kt < nk; ++kt) {
-            cp_async_wait<GM_STAGES - 2>();    // k-tile kt has landed
-            __syncthreads();                   // and kt - 1 is consumed
-            const int next = kt + GM_STAGES - 1;
-            if (next < nk) {
-                __nv_bfloat16* st = smem + (next % GM_STAGES) * STAGE;
-                gm_load_stage<BM>(st, st + A, x, we, lo, hi, m0, n0, next, D,
-                                  F);
-            }
-            cp_async_commit();
-            if (!live) continue;
-            const __nv_bfloat16* a_s = smem + (kt % GM_STAGES) * STAGE;
-            const __nv_bfloat16* b_s = a_s + A;
-#pragma unroll
-            for (int kk = 0; kk < GM_BK / 16; ++kk) {
-                // A: rows lane % 16 of the warp's 16, columns +8 past lane 15
-                uint32_t a[4];
-                ldsm_x4<false>(a, a_s + (warp * 16 + (lane & 15)) * GM_LDA
-                                      + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-                for (int nt = 0; nt < GM_BN / 8; nt += 2) {
-                    // B of n-tiles nt and nt + 1: k rows lane % 8 (+8 for
-                    // lanes 8-15 and 24-31), columns +8 past lane 15
-                    uint32_t b[4];
-                    ldsm_x4<true>(b, b_s + (kk * 16 + (lane & 7)
-                                            + ((lane >> 3) & 1) * 8) * GM_LDB
-                                         + (nt + (lane >> 4)) * 8);
-                    mma_bf16(acc[nt], a, b[0], b[1]);
-                    mma_bf16(acc[nt + 1], a, b[2], b[3]);
-                }
-            }
-        }
-        cp_async_wait<0>();
-        __syncthreads();                       // buffers free for m0 + BM
-        if (!live) continue;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            const int row = lo + m0 + warp * 16 + gid + 8 * i;
-            if (row >= hi) continue;
-#pragma unroll
-            for (int nt = 0; nt < GM_BN / 8; ++nt) {
-                const int f = n0 + nt * 8 + tig * 2;
-                if (f < F)
-                    *reinterpret_cast<__nv_bfloat162*>(
-                        out + (size_t)row * F + f) = __floats2bfloat162_rn(
-                        acc[nt][2 * i], acc[nt][2 * i + 1]);
-            }
-        }
-    }
 }
 
 __global__ void __launch_bounds__(GF_THREADS) grouped_matmul_f32_kernel(
@@ -257,19 +478,6 @@ __global__ void __launch_bounds__(GF_THREADS) grouped_matmul_f32_kernel(
     }
 }
 
-template <int BM>
-int launch_bf16(dim3 grid, const void* x, const void* w, const int* sizes,
-                void* out, int T, int D, int F, cudaStream_t stream) {
-    using Tl = GmTile<BM>;
-    auto kernel = grouped_matmul_bf16_kernel<BM>;
-    cudaError_t err = reserve_smem(kernel, Tl::SMEM);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<grid, Tl::THREADS, Tl::SMEM, stream>>>(
-        (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, sizes,
-        (__nv_bfloat16*)out, T, D, F);
-    return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // x (T, D), w (E, D, F), group_sizes (E,) int32 summing to T (rows past T
@@ -285,12 +493,10 @@ extern "C" int grouped_matmul_launch(const void* x, const void* w,
     if (((size_t)x | (size_t)w) % 16 != 0) return REPRO_UNSUPPORTED;
     cudaStream_t st = (cudaStream_t)stream;
     const int* sizes = (const int*)group_sizes;
-    if (dtype == REPRO_BF16) {
-        const dim3 grid((F + GM_BN - 1) / GM_BN, E);
+    if (dtype == REPRO_BF16)
         return T > 64 * E
-            ? launch_bf16<128>(grid, x, w, sizes, out, T, D, F, st)
-            : launch_bf16<64>(grid, x, w, sizes, out, T, D, F, st);
-    }
+            ? launch_bf16<2>(x, w, sizes, out, T, D, F, E, st)
+            : launch_bf16<1>(x, w, sizes, out, T, D, F, E, st);
     if (dtype == REPRO_F32) {
         const dim3 grid((F + GF_BN - 1) / GF_BN, E);
         grouped_matmul_f32_kernel<<<grid, GF_THREADS, 0, st>>>(

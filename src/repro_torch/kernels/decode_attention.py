@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -51,12 +52,61 @@ def decode_attention_ref(q, k_cache, v_cache, length, *,
     return out.reshape(B, 1, H, Dv).to(q.dtype)
 
 
+MIN_SPLIT = 16         # keys: a split is at least one warp's tile
+MAX_SPLITS = 4096      # DS_MAX_SPLITS of csrc/common.cuh
+HEAD_CHUNK = 16        # query heads a block takes: the mma's 16 rows
+
+
+def decode_splits(S: int, blocks: int, sm_count: int):
+    """(splits, keys a split) of a bf16 launch over an S-entry cache with
+    ``blocks`` (row, kv head, head chunk) blocks a split: as many splits as
+    give every SM one block, each at least MIN_SPLIT keys, together covering
+    S; one split when the blocks alone fill the card.  One block an SM and
+    not more: every further split adds a partial for the combine to read,
+    and on an H100 one an SM measured faster than two at both Generator
+    shapes (PERF.md section 6)."""
+    want = min(MAX_SPLITS, max(1, sm_count // max(1, blocks)))
+    keys = max(MIN_SPLIT, -(-S // want))
+    if keys >= S:
+        return 1, max(1, S)
+    return -(-S // keys), keys
+
+
+def decode_workspace_shape(B: int, H: int, D: int, splits: int):
+    """Shape of the f32 partials of a bf16 launch: per (row, head, split)
+    the unnormalised output, then the running max and the denominator; None
+    when the keys are one split and the kernel writes the output itself."""
+    return None if splits == 1 else (B, H, splits, D + 2)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_WORKSPACE = {}   # (device index, stream) -> the f32 partials' buffer
+
+
+def _workspace(device, stream: int, numel: int) -> torch.Tensor:
+    """A buffer of at least ``numel`` floats for the split partials, kept
+    per device and stream: a call's kernels use it in stream order, so the
+    next call on the same stream may reuse it, and no allocation is made
+    on the host's hot path once it is large enough."""
+    key = (device.index, stream)
+    buf = _WORKSPACE.get(key)
+    if buf is None or buf.numel() < numel:
+        buf = _WORKSPACE[key] = torch.empty(numel, dtype=torch.float32,
+                                            device=device)
+    return buf
+
+
 @functools.cache
 def _lib():
     lib = build.load("decode_attention")
     fn = lib.decode_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                   + [ctypes.c_float] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -98,11 +148,18 @@ def decode_attention(q, k_cache, v_cache, length, *,
     lens = length.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     scale = scale if scale is not None else D ** -0.5
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    splits, keys, part = 1, max(1, S), None
+    if q.dtype == torch.bfloat16:
+        blocks = B * KV * -(-(H // KV) // HEAD_CHUNK)
+        splits, keys = decode_splits(S, blocks, _sm_count(q.device.index))
+        shape = decode_workspace_shape(B, H, D, splits)
+        if shape is not None:
+            part = _workspace(q.device, stream, math.prod(shape)).data_ptr()
     rc = _lib()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                lens.data_ptr(), out.data_ptr(), B, S, H, KV, D,
-                window if window is not None else 0, scale,
-                DTYPE_CODES[q.dtype],
-                torch.cuda.current_stream(q.device).cuda_stream)
+                lens.data_ptr(), out.data_ptr(), part, B, S, H, KV, D,
+                window if window is not None else 0, scale, splits, keys,
+                DTYPE_CODES[q.dtype], stream)
     count_launch(decode_attention, rc)
     return out
 

@@ -5,10 +5,12 @@ Replaces the TPU kernel ``repro/kernels/grouped_matmul.py``, function
 ``grouped_matmul``: ``out[t] = x[t] @ w[expert_of(t)]`` for ``x`` (T, D)
 sorted by expert, ``w`` (E, D, F) and ``group_sizes`` (E,) each expert's
 contiguous row count (groups may be empty).  The kernel
-(``csrc/grouped_matmul.cu``) runs one thread block per (F tile, expert),
-reads its group's bounds from the sizes on the device (no host sync) and
-streams each non-empty expert's weights once per row tile; its header
-says what bounds it on the H100 (bytes, at serving shapes).
+(``csrc/grouped_matmul.cu``) runs, in bf16, a persistent grid over a work
+list of (expert, row tile, F tile) items that each block builds from the
+sizes on the device (no host sync), its products on wgmma fed by a TMA
+ring, so each non-empty expert's weights stream once per row
+tile; in f32 one block per (F tile, expert) of FMAs.  Its header says
+what bounds it on the H100 (bytes, at serving shapes).
 
 :func:`grouped_matmul` launches the kernel for CUDA tensors and runs
 :func:`grouped_matmul_ref` for CPU tensors — the device of the input

@@ -8,7 +8,9 @@ empty and single-expert groups, the Mamba-2 SSD scan at chunks of 256,
 without an initial state, padded and at odd lengths; the four GQA
 attention kernels also at recurrentgemma-2b's head dim 256 with 10 query
 heads per kv head, windowed; the bf16 prefill body of flash and the ragged
-prefill at every (Dk, Dv) pair at the edges of its tiles) against their
+prefill at every (Dk, Dv) pair at the edges of its tiles; the grouped
+matmul at the edges of its row tiles and work list, the split dense decode
+at the edges of its splits for 1-20 heads a kv head) against their
 plain versions, the wrappers' refusals (shapes, dtypes, inputs that
 require grad, side inputs on another device or of the wrong shape, an
 unaligned pool; never a plain version on a CUDA tensor), and the
@@ -231,6 +233,34 @@ def test_decode_kernel_matches_plain_version(cuda, dtype, heads, kv, dim,
     _assert_close(got, da.decode_attention_ref, args, kw)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 7, 10, 16, 20])
+@pytest.mark.parametrize("dim", [64, 128, 256])
+@pytest.mark.parametrize("short_window", [False, True])
+def test_decode_kernel_at_the_edges_of_its_splits(cuda, dtype, G, dim,
+                                                  short_window):
+    """Lengths of one key, at a split's edge -1/0/+1 (the split the bf16
+    launch takes on this card) and the whole cache; a window shorter than a
+    split; G heads per kv head around the 16-row chunk."""
+    B, KV, S = 8, 2, 640
+    blocks = B * KV * -(-G // da.HEAD_CHUNK)
+    splits, keys = da.decode_splits(S, blocks, da._sm_count(0))
+    assert splits > 2
+    lengths = torch.tensor([1, keys - 1, keys, keys + 1, 2 * keys - 1,
+                            2 * keys, 2 * keys + 1, S], dtype=torch.int32)
+    g = torch.Generator().manual_seed(G * dim)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(cuda, dtype)
+    args = (rnd(B, 1, KV * G, dim), rnd(B, S, KV, dim), rnd(B, S, KV, dim),
+            lengths.to(cuda))
+    kw = dict(window=max(1, keys // 2) if short_window else None)
+    n0 = da.decode_attention.launches
+    got = da.decode_attention(*args, **kw)
+    assert da.decode_attention.launches == n0 + 1
+    _assert_close(got, da.decode_attention_ref, args, kw)
+
+
 def test_generator_on_the_card_matches_the_cpu(cuda):
     """Reduced qwen2-0.5b in float32 (head dim 64): the Generator's greedy
     tokens on the card (CUDA kernels) equal the CPU's (plain versions),
@@ -419,6 +449,9 @@ def test_wrappers_refuse_side_inputs_off_device_or_misshapen(cuda):
     assert [w.launches for w in wrappers] == n0
 
 
+EDGE_SIZES = [0, 1, 63, 64, 65, 127, 128, 129]   # around the 64-row tiles
+
+
 def _gm_inputs(dtype, device, sizes, D, F, seed):
     g = torch.Generator().manual_seed(seed)
     sizes = torch.tensor(sizes, dtype=torch.int32)
@@ -434,6 +467,12 @@ def _gm_inputs(dtype, device, sizes, D, F, seed):
     ([0, 0, 200, 0], 64, 16),                     # one expert takes all
     ([1] * 40 + [0] * 20 + [14, 0, 30, 12], 2048, 1408),   # a decode step
     ([5, 0, 9], 1408, 2048),                      # w_down's shape
+    # the edges of the bf16 kernel's row tiles, tile heights and work list
+    (EDGE_SIZES, 256, 1408),                      # 128-row tiles (T > 64 E)
+    (EDGE_SIZES + [0] * 8, 256, 72),              # 64-row tiles, F < a tile
+    ([0] * 32 + [6144] + [0] * 31, 2048, 1408),   # one expert: 288 items,
+                                                  # more than the grid holds
+    ([0, 0, 1], 1408, 2048),                      # 16 items: fewer
 ])
 def test_grouped_matmul_kernel_matches_plain_version(cuda, dtype, sizes, D,
                                                      F):
