@@ -895,8 +895,14 @@ def ptxas_report(text):
 
 def short_kernel_name(mangled: str) -> str:
     m = re.search(r"(\w+?)I((?:13__nv_bfloat16|f|Li\d+E)+)E", mangled)
-    if m is None:
-        return mangled
+    if m is None:                   # no template: the last nested name
+        pos, last = 3, mangled
+        while mangled.startswith("_ZN") and mangled[pos:pos + 1].isdigit():
+            d = re.match(r"\d+", mangled[pos:])
+            pos += d.end()
+            last = mangled[pos:pos + int(d.group())]
+            pos += int(d.group())
+        return last
     head, name = m.group(1), m.group(1)
     for i in range(len(head)):      # the last length-prefixed name in head
         d = re.match(r"\d+", head[i:])
@@ -1007,6 +1013,14 @@ def phase_kernels(torch):
                     f"{MLA_BF16_TOL} abs (f32 out)" if got.dtype ==
                     torch.float32 else
                     limit.replace(f"+ {BF16_ABS}", f"+ {slack}"))
+            if name == "paged_mla_decode_attention" and \
+                    dtype_name == "bfloat16":
+                from repro_torch.kernels.decode_attention import (
+                    mla_decode_splits)
+                rule += (", splits (count, keys) %s" % (mla_decode_splits(
+                    args[0].shape[0], args[4].shape[1] * BS,
+                    torch.cuda.get_device_properties(0).multi_processor_count
+                    if DEVICE == "cuda" else 132),))
             log(f"[kernels] {name} ({case}) {dtype_name}: max_abs_err="
                 f"{err:.3e} ({share:.3f} of allowed) (limit: {rule})")
             if not share <= 1:
@@ -1015,7 +1029,8 @@ def phase_kernels(torch):
             if dtype_name == "bfloat16":
                 timed[(name, case)] = (fn, ref, args, kw, err)
         # mamba2-370m's SSD scan: y and the final state
-        from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+        from repro_torch.kernels.ssd_scan import (ssd_body, ssd_scan,
+                                                  ssd_scan_ref)
         for case, args, kw in ssd_cases(torch, dtype):
             args32 = [t.float() for t in args]
             kw32 = dict(kw, init_state=None if kw["init_state"] is None
@@ -1031,8 +1046,11 @@ def phase_kernels(torch):
                           ssd_scan_ref(*[t.double() for t in args], **kw64))]
             sync(torch)
             err, share = max(c[0] for c in checks), max(c[1] for c in checks)
+            body = ssd_body(dtype, args[0].shape[-1], args[3].shape[-1],
+                            kw["chunk"])
             log(f"[kernels] ssd_scan ({case}, Q={kw['chunk']}, init_state="
-                f"{kw['init_state'] is not None}) {dtype_name}: max_abs_err="
+                f"{kw['init_state'] is not None}, {body} body) {dtype_name}: "
+                "max_abs_err="
                 f"{err:.3e} over y and the final state ({share:.3f} of "
                 f"allowed) (limit: {SSM_REL} x max(1, max |output|) + 2 x the "
                 f"plain version's own distance from float64"

@@ -2,7 +2,9 @@
 """Time the GQA attention kernels of two checkouts of this repository on
 one NVIDIA card, each checkout in its own process, in the order A, B, B, A.
 
-    python3 kernel_ab.py A_DIR B_DIR     # two unpacked checkouts, A first
+    python3 kernel_ab.py A_DIR B_DIR [CASE ...]   # two unpacked checkouts,
+                                                 # A first; CASEs: prefixes
+                                                 # of the case names to time
 
 Each process builds its checkout's kernels (into that checkout's
 ``build/``), holds each against that checkout's plain version, and times
@@ -23,8 +25,15 @@ Generator decode (8 rows over 1096 entries, (10, 1, 256)); and the grouped
 matmul at ``chip_smoke.py``'s five deepseek-v2-lite cases (a decode step's
 16 x top-6 = 96 rows and a prefill call's 4 x 256 x 6 = 6144, for the
 w_gate/w_up (2048 -> 1408) and w_down (1408 -> 2048) shapes over 64
-experts, and the 6144 rows all in one expert); with two timers, ROUNDS
-readings each:
+experts, and the 6144 rows all in one expert); mamba2-370m's ssd_scan at
+``chip_smoke.py``'s serving prefill call (4 rows x 256 with a bf16 initial
+state, one row padded past its limit, a filler row; its SSM_ROWS) and its
+Generator prefill (8 x 1024, chunks of 256), x, B and C column slices of
+one (rows, S, 2304) tensor as the layer hands them over; and
+deepseek-v2-lite's paged_mla_decode_attention at the serving decode (16
+seats over a 96-block table, block 16, lengths 100..1532); each case from
+``chip_smoke.py``'s seeds, so its inputs are those of phase 3.  With two
+timers, ROUNDS readings each:
 
 * queued -- every launch queued behind a cold-L2 flush and one wait at
   the end, the card held busy (``torch.cuda._sleep``) while the host
@@ -64,6 +73,14 @@ DS_ROW_OFFSETS, DS_KEYS = (0, 256, 768, 1280), 96 * BS
 # deepseek-v2-lite-16b's routed experts, as chip_smoke.py draws them
 DS_E, DS_TOPK, DS_MODEL, DS_FF = 64, 6, 2048, 1408
 GM_ROWS = {"decode": 16 * DS_TOPK, "prefill": 4 * 256 * DS_TOPK}
+# deepseek-v2-lite's MLA decode and mamba2-370m's SSD scan, as chip_smoke.py
+# draws them (its mla_inputs and ssd_inputs, seeds SEED + 6, + 20, + 21)
+DS_R, DS_ROPE, DS_BLOCKS, DS_TABLE_W = 512, 64, 2048, 96
+DS_LENGTHS = (100, 1500 + 32)
+SSM_H, SSM_P, SSM_N, SSM_Q = 32, 64, 128, 256
+SSM_ROWS = ((0, 900), (768, 1400), (1280, 1400), (0, 0))
+# the wrappers' input checks where a module's is not ``_check``
+CHECKS = {"paged_mla_decode_attention": "_mla_check"}
 ROUNDS = 5
 REPEATS = 30
 CALLS = 200
@@ -187,6 +204,62 @@ def gm_cases(torch, g):
     return out
 
 
+def mla_case(torch):
+    """The deepseek serving decode's MLA inputs (chip_smoke.mla_inputs)."""
+    from repro_torch.kernels import paged_decode_attention as pda
+    g = torch.Generator(device="cpu").manual_seed(6)
+    lengths = torch.randint(DS_LENGTHS[0], DS_LENGTHS[1] + 1, (16,),
+                            generator=g)
+    perm = torch.randperm(DS_BLOCKS - 1, generator=g) + 1
+    tables = torch.zeros(16, DS_TABLE_W, dtype=torch.int32)
+    used = 0
+    for b in range(16):
+        n = -(-int(lengths[b]) // BS)
+        tables[b, :n] = perm[used:used + n]
+        used += n
+    arrays = [torch.randn(*s, generator=g).to("cuda", torch.bfloat16)
+              for s in ((16, DS_H, DS_R), (16, DS_H, DS_ROPE),
+                        (DS_BLOCKS, BS, DS_R), (DS_BLOCKS, BS, DS_ROPE))]
+    args = (*arrays, tables.to("cuda"), lengths.to("cuda", torch.int32))
+    return {"paged_mla_decode_attention": (
+        pda, "paged_mla_decode_attention", args,
+        dict(block_size=BS, scale=(128 + DS_ROPE) ** -0.5),
+        (*args, BS), None)}
+
+
+def ssd_cases(torch):
+    """ssd_scan at the serving prefill call and the Generator prefill
+    (chip_smoke.ssd_inputs)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ssd_scan as ss
+    di = SSM_H * SSM_P
+    out = {}
+    for case, rows, S, seed, serving in (
+            ("ssd_scan serving prefill", 4, 256, 20, True),
+            ("ssd_scan Generator prefill", 8, 1024, 21, False)):
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        xbc = (torch.randn(rows, S, di + 2 * SSM_N, generator=g) * 0.3).to(
+            "cuda", torch.bfloat16)
+        x = xbc[..., :di].reshape(rows, S, SSM_H, SSM_P)
+        dt = F.softplus(torch.randn(rows, S, SSM_H, generator=g))
+        A = -torch.exp(torch.randn(SSM_H, generator=g) * 0.3)
+        init = None
+        if serving:
+            starts = torch.tensor([r[0] for r in SSM_ROWS])
+            limits = torch.tensor([r[1] for r in SSM_ROWS])
+            pos = starts[:, None] + torch.arange(S)[None, :]
+            dt = dt * (pos < limits[:, None])[..., None]
+            init = torch.randn(rows, SSM_H, SSM_P, SSM_N, generator=g)
+            init[limits == 0] = 0.0
+            init = init.to("cuda", torch.bfloat16)
+        args = (x, dt.to("cuda"), A.to("cuda"), xbc[..., di:di + SSM_N],
+                xbc[..., di + SSM_N:])
+        out[case] = (ss, "ssd_scan", args,
+                     dict(chunk=SSM_Q, init_state=init),
+                     (*args, SSM_Q, init), None)
+    return out
+
+
 def cases(torch):
     """{case: (module, kernel, wrapper args, kwargs, check args, library
     call or None)}, the same inputs in every process (drawn on the host
@@ -263,34 +336,44 @@ def cases(torch):
         sdpa_dense_decode(torch, q, k, v, lens))
     out = {c: t if len(t) == 6 else t + (None,) for c, t in out.items()}
     out.update(gm_cases(torch, g))
+    out.update(mla_case(torch))
+    out.update(ssd_cases(torch))
     return out
 
 
-def worker(tree: str) -> None:
+def worker(tree: str, only) -> None:
     sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
     import torch
     from repro_torch.kernels import build
     result = {"tree": tree}
     for case, (mod, name, args, kw, check, lib) in cases(torch).items():
+        if only and not case.startswith(tuple(only)):
+            continue
         fn, ref = getattr(mod, name), getattr(mod, f"{name}_ref")
         before = fn.launches
         got = fn(*args, **kw)
         torch.cuda.synchronize()
         if fn.launches != before + 1:
             raise AssertionError(f"{tree}: {case} launched no kernel")
-        want = ref(*args, **kw).float()
-        err = (got.float() - want).abs().max().item()
-        limit = PARITY * max(1.0, want.abs().max().item())
-        if not err <= limit:
-            raise AssertionError(f"{tree}: {case} max abs error {err} > "
-                                 f"{limit}")
+        want = ref(*args, **kw)
+        if not isinstance(got, tuple):            # ssd_scan: (y, state)
+            got, want = (got,), (want,)
+        errs = []
+        for g, w in zip(got, want):
+            errs.append((g.float() - w.float()).abs().max().item())
+            limit = PARITY * max(1.0, w.float().abs().max().item())
+            if not errs[-1] <= limit:
+                raise AssertionError(f"{tree}: {case} max abs error "
+                                     f"{errs[-1]} > {limit}")
+        err = max(errs)
         readings = {m: [] for m in MEASURES if m != "library" or lib}
         for _ in range(ROUNDS):
             for m, timer in TIMERS:
                 readings[m].append(timer(lambda: fn(*args, **kw), torch))
             readings["host_us"].append(host_us(lambda: fn(*args, **kw),
                                                torch))
-            readings["check_us"].append(host_us(lambda: mod._check(*check),
+            check_fn = getattr(mod, CHECKS.get(name, "_check"))
+            readings["check_us"].append(host_us(lambda: check_fn(*check),
                                                 torch))
             if lib is not None:
                 readings["library"].append(timer_queued(lib, torch))
@@ -299,7 +382,7 @@ def worker(tree: str) -> None:
     print(json.dumps(result))
 
 
-def main(a: str, b: str) -> int:
+def main(a: str, b: str, only) -> int:
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -311,7 +394,7 @@ def main(a: str, b: str) -> int:
     runs = []
     for tree in (a, b, b, a):
         out = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--worker", tree], check=True,
+                              "--worker", tree, *only], check=True,
                              capture_output=True, text=True, timeout=900)
         line = out.stdout.strip().splitlines()[-1]
         print(line, flush=True)
@@ -335,8 +418,8 @@ def main(a: str, b: str) -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--worker"]:
-        worker(sys.argv[2])
+        worker(sys.argv[2], sys.argv[3:])
         sys.exit(0)
-    if len(sys.argv) != 3:
+    if len(sys.argv) < 3:
         sys.exit(__doc__)
-    sys.exit(main(sys.argv[1], sys.argv[2]))
+    sys.exit(main(sys.argv[1], sys.argv[2], sys.argv[3:]))

@@ -9,8 +9,10 @@
 //                  decode_attention.cu in f32 (dense cache);
 //   decode_split_block  the same for bf16 on the tensor cores, one split
 //                  of a row's keys for all G heads (mma.sync), its partial
-//                  merged by decode_combine: decode_attention.cu in bf16;
-//                  the paged and MLA decode kernels are to take it next;
+//                  merged by decode_combine: decode_attention.cu in bf16
+//                  (paged_mla_decode_attention.cu merges its own splits'
+//                  partials with decode_combine too; the paged decode
+//                  kernel is to take the split body next);
 //   prefill_block  a tile of (token, head) query rows, causal with a query
 //                  offset, f32 FMAs: ragged_prefill_attention.cu and
 //                  flash_attention.cu in f32, where the tensor cores'
@@ -1424,17 +1426,17 @@ __device__ __forceinline__ void decode_split_block(
 }
 
 // Merges the split partials of one (row, query head) per block of
-// DS_THREADS threads: part (splits, D + 2) as decode_split_block writes
-// them; out: that head's D outputs.  The splits' maxima and weights are
+// DS_THREADS threads: part (splits, D + 2) as decode_split_block (or the
+// MLA decode kernel) writes them; out: that head's D outputs, in T.  The splits' maxima and weights are
 // read in parallel into w_s (2 x splits floats of dynamic shared memory),
 // the denominator summed by the first warp in a fixed tree, and each output
 // sums its splits in split order, so a run replays bit for bit.  A split
 // with m = -inf weighs 0 (its acc is zeros); a row with no visible key
 // writes zeros.
-template <int D>
+template <int D, typename T = __nv_bfloat16>
 __device__ __forceinline__ void decode_combine(
-    const float* __restrict__ part, int splits,
-    __nv_bfloat16* __restrict__ out, float* w_s) {
+    const float* __restrict__ part, int splits, T* __restrict__ out,
+    float* w_s) {
     __shared__ float red[DS_WARPS], den_s;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     float mx = -INFINITY;
@@ -1470,6 +1472,6 @@ __device__ __forceinline__ void decode_combine(
 #pragma unroll 8
         for (int z = 0; z < splits; ++z)
             num += part[(size_t)z * (D + 2) + d] * w_s[z];
-        out[d] = __float2bfloat16(num * inv);
+        out[d] = from_f<T>(num * inv);
     }
 }

@@ -16,21 +16,39 @@
 // byte, below the ~295 the card needs before its tensor cores matter.
 //
 // Design.  The TPU kernel steps a sequential grid (B, W) and carries (acc,
-// m, l) in VMEM across the pages.  Here one thread block per batch row
-// walks the row's keys in tiles of ML_KT: all H heads share the one latent
-// key stream, so each key is read once for every head.  A tile's ckv and
+// m, l) in VMEM across the pages.  Here, in bf16, a grid of (row, key
+// split) blocks walks each row's keys: the wrapper cuts the table's W * bs
+// keys into splits of whole ML_KT tiles on the host, from B, W, bs and the
+// SM count alone (mla_decode_splits: no length is read back), so that the
+// blocks give every SM one where the keys allow (16 seats over a 96-block
+// table: 8 splits of 192 keys, 128 blocks, where one block a row left 116
+// of 132 SMs idle and the longest row set the time).  A block clips its
+// split to its row's length on the device; a split at or past it writes
+// an empty partial (m = -inf, l = 0) and exits.  Each split's block walks
+// its keys in tiles of ML_KT: all H heads share the one latent key stream,
+// so each key is read once for every head.  A tile's ckv and
 // krope rows are staged in shared memory side by side (one (R + r)-wide
 // row per key) through a two-deep cp.async ring, the next tile in flight
 // while this one is used.  bf16 runs on the tensor cores: H <= 16 heads are
 // exactly the M of mma.sync m16n8k16, for the scores (depth R + r, warp w
-// takes keys 8w..8w+7) and for P . ckv (N = R, warp w takes R / 8 columns);
-// the softmax runs in f32 between them (two rows per warp, exp2).  P goes
+// takes keys 8w..8w+7) and for P . ckv (N = R, warp w takes R / 8 columns),
+// their fragments read from shared memory by ldmatrix (one instruction for
+// four 8 x 8 tiles); the softmax runs in f32 between them (two rows per
+// warp, exp2).  A warp of a tile's gather reads its eight keys' block-table
+// entries before any of their copies.  P goes
 // to the tensor cores as two bf16 halves, hi = bf16(P) and lo = bf16(P -
 // hi), so the output keeps f32-level error against the oracle, which does
-// not round P (the Pallas kernel does).  f32 runs the same loop on FMAs.
-// Known limit, left for later work: B = 16 blocks on 132 SMs underfill the
-// card and the longest row sets the time; split-K over the key axis with a
-// combine pass is the fix.
+// not round P (the Pallas kernel does).  A split writes its partial (the
+// unnormalised f32 read-out, m in log2 units, l) per head to a workspace
+// of (B, H, splits, R + 2) floats, and a second kernel in the same C call
+// (mla_combine_kernel, one block a (row, head), decode_combine of
+// common.cuh) merges a row's splits in split order, so a run replays bit
+// for bit; with one split the block writes the output itself.  The
+// partials cost H (R + 2) 4 bytes a split (32.9 KB at H = 16, R = 512),
+// written once and read once, against at least MLA_MIN_SPLIT = 128 keys of
+// 1152 bytes a split: at most 22% of the key bytes (4.2 MB against 16.5 MB
+// at the serving decode).  f32 runs one block a row on FMAs (the identity
+// runs only).
 
 #include "common.cuh"
 
@@ -44,7 +62,8 @@ constexpr int ML_LDP = ML_KT + 4;           // score row stride, floats
 
 template <int R, int RR>
 struct Mla {
-    static_assert(R % (8 * ML_WARPS) == 0 && RR % 16 == 0, "tile shape");
+    static_assert(R % (8 * ML_WARPS) == 0 && RR % 16 == 0
+                  && (R + RR) % 32 == 0, "tile shape");
     static constexpr int K = R + RR;        // score depth
     static constexpr int LD = K + 8;        // bf16 staged row stride
     static constexpr int LD32 = K + 1;      // f32 staged row stride
@@ -64,7 +83,9 @@ __device__ __forceinline__ size_t pool_row(const int* table, int pos, int bs,
 }
 
 // Stage keys [t0, t0 + ML_KT) of the row (zeros at and past k_hi): ckv in
-// columns [0, R), krope in [R, R + RR) of each LD-wide row.
+// columns [0, R), krope in [R, R + RR) of each LD-wide row.  Warp w stages
+// keys 8 w .. 8 w + 7, its lanes the 16-byte chunks of each; the eight
+// block-table reads come first, so no copy waits on its own table read.
 template <int R, int RR>
 __device__ __forceinline__ void mla_load_tile(
     __nv_bfloat16* kv_s, const __nv_bfloat16* __restrict__ ckv,
@@ -72,15 +93,26 @@ __device__ __forceinline__ void mla_load_tile(
     int k_hi, int bs) {
     using M = Mla<R, RR>;
     constexpr int CH = M::K / 8, CR = R / 8;   // 16-byte chunks per row
-    for (int c = threadIdx.x; c < ML_KT * CH; c += ML_THREADS) {
-        const int i = c / CH, ch = c % CH, pos = t0 + i;
-        const bool ok = pos < k_hi;
-        const __nv_bfloat16* src = ckv;
-        if (ok)
-            src = ch < CR ? ckv + pool_row(table, pos, bs, R) + ch * 8
-                          : krope + pool_row(table, pos, bs, RR)
-                                  + (ch - CR) * 8;
-        cp_async16(kv_s + i * M::LD + ch * 8, src, ok);
+    constexpr int KW = ML_KT / ML_WARPS;       // keys a warp
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    int blk[KW];
+#pragma unroll
+    for (int j = 0; j < KW; ++j) {
+        const int pos = t0 + warp * KW + j;
+        blk[j] = pos < k_hi ? __ldg(table + pos / bs) : -1;
+    }
+#pragma unroll
+    for (int j = 0; j < KW; ++j) {
+        const int i = warp * KW + j, pos = t0 + i;
+        const bool ok = blk[j] >= 0;
+        const size_t row = ok ? (size_t)blk[j] * bs + pos % bs : 0;
+#pragma unroll
+        for (int ch = lane; ch < CH; ch += 32) {
+            const __nv_bfloat16* src =
+                ch < CR ? ckv + row * R + ch * 8
+                        : krope + row * RR + (ch - CR) * 8;
+            cp_async16(kv_s + i * M::LD + ch * 8, src, ok);
+        }
     }
 }
 
@@ -92,11 +124,12 @@ __global__ void __launch_bounds__(ML_THREADS) mla_decode_bf16_kernel(
     const __nv_bfloat16* __restrict__ krope,   // (N, bs, RR)
     const int* __restrict__ tables,            // (B, W)
     const int* __restrict__ lengths,           // (B,)
-    float* __restrict__ out,                   // (B, H, R)
-    int H, int W, int bs, float scale) {
+    float* __restrict__ out,                   // (B, H, R), one split
+    float* __restrict__ part,                  // (B, H, splits, R + 2)
+    int H, int W, int bs, float scale, int split_len, int splits) {
     using M = Mla<R, RR>;
     constexpr int LD = M::LD;
-    const int b = blockIdx.x;
+    const int b = blockIdx.x, z = blockIdx.y;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int gid = lane / 4, tig = lane % 4;
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -108,10 +141,23 @@ __global__ void __launch_bounds__(ML_THREADS) mla_decode_bf16_kernel(
     float* c_s = l_s + ML_H;
 
     const int* table = tables + (size_t)b * W;
-    const int k_hi = min(lengths[b], W * bs);
-    const int ntiles = (max(k_hi, 0) + ML_KT - 1) / ML_KT;
+    // this split's keys [k_lo, k_hi), clipped to the row's length
+    const int k_lo = z * split_len;
+    const int k_hi = min(min(lengths[b], W * bs), k_lo + split_len);
+    const int ntiles = k_hi > k_lo ? (k_hi - k_lo + ML_KT - 1) / ML_KT : 0;
     const int cb = warp * M::NTW * 8;                  // this warp's columns
     float* out_b = out + (size_t)b * H * R;
+    // head h's partial: part_b[h * part_h + d]
+    const size_t part_h = (size_t)splits * (R + 2);
+    float* part_b = part == nullptr
+        ? nullptr : part + ((size_t)b * H * splits + z) * (R + 2);
+    if (ntiles == 0 && part_b != nullptr) {   // nothing visible: empty partial
+        for (int e = threadIdx.x; e < H * (R + 2); e += ML_THREADS) {
+            const int h = e / (R + 2), d = e % (R + 2);
+            part_b[h * part_h + d] = d == R ? -INFINITY : 0.f;
+        }
+        return;
+    }
 
     // queries (rows past H are zeros), then the first key tile
     for (int c = threadIdx.x; c < ML_H * (M::K / 8); c += ML_THREADS) {
@@ -129,7 +175,7 @@ __global__ void __launch_bounds__(ML_THREADS) mla_decode_bf16_kernel(
         l_s[threadIdx.x] = 0.f;
     }
     if (ntiles > 0)
-        mla_load_tile<R, RR>(kv_s, ckv, krope, table, 0, k_hi, bs);
+        mla_load_tile<R, RR>(kv_s, ckv, krope, table, k_lo, k_hi, bs);
     cp_async_commit();
 
     const float sl2 = scale * 1.4426950408889634f;     // scores in log2 units
@@ -142,7 +188,8 @@ __global__ void __launch_bounds__(ML_THREADS) mla_decode_bf16_kernel(
     for (int t = 0; t < ntiles; ++t) {
         if (t + 1 < ntiles) {
             mla_load_tile<R, RR>(kv_s + ((t + 1) & 1) * ML_KT * LD, ckv,
-                                 krope, table, (t + 1) * ML_KT, k_hi, bs);
+                                 krope, table, k_lo + (t + 1) * ML_KT, k_hi,
+                                 bs);
             cp_async_commit();
             cp_async_wait<1>();
         } else {
@@ -151,19 +198,28 @@ __global__ void __launch_bounds__(ML_THREADS) mla_decode_bf16_kernel(
         __syncthreads();                   // tile t (and the queries) landed
         const __nv_bfloat16* kv = kv_s + (t & 1) * ML_KT * LD;
 
-        // S = Q K^T for this warp's 8 keys, depth R + RR
-        float s[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-        for (int kk = 0; kk < M::K / 16; ++kk) {
-            const __nv_bfloat16* ar = q_s + gid * LD + kk * 16 + tig * 2;
-            const uint32_t a[4] = {ld32(ar), ld32(ar + 8 * LD), ld32(ar + 8),
-                                   ld32(ar + 8 * LD + 8)};
-            const __nv_bfloat16* br = kv + (warp * 8 + gid) * LD + kk * 16
-                                    + tig * 2;
-            mma_bf16(s, a, ld32(br), ld32(br + 8));
+        // S = Q K^T for this warp's 8 keys, depth R + RR, two 16-deep steps
+        // a pass, each into its own accumulator (half the chain of
+        // dependent mma): Q's A fragments and K's B fragments by ldmatrix
+        // (lanes 8 m .. 8 m + 7 address matrix m: for K, keys 0-7 at dims
+        // + 8 m)
+        float s[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 3
+        for (int kk = 0; kk < M::K / 16; kk += 2) {
+            uint32_t a0[4], a1[4], bk[4];
+            ldsm_x4<false>(a0, q_s + (lane & 15) * LD + kk * 16
+                                   + (lane >> 4) * 8);
+            ldsm_x4<false>(a1, q_s + (lane & 15) * LD + kk * 16 + 16
+                                   + (lane >> 4) * 8);
+            ldsm_x4<false>(bk, kv + (warp * 8 + (lane & 7)) * LD + kk * 16
+                                   + (lane >> 3) * 8);
+            mma_bf16(s, a0, bk[0], bk[1]);
+            mma_bf16(s1, a1, bk[2], bk[3]);
         }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[c] += s1[c];
         {
-            const int key = t * ML_KT + warp * 8 + tig * 2;
+            const int key = k_lo + t * ML_KT + warp * 8 + tig * 2;
 #pragma unroll
             for (int i = 0; i < 2; ++i) {
                 const float2 v = make_float2(
@@ -225,14 +281,27 @@ __global__ void __launch_bounds__(ML_THREADS) mla_decode_bf16_kernel(
                 split_bf16(p1[0], p1[1], ph[1], pl[1]);
                 split_bf16(p0[8], p0[9], ph[2], pl[2]);
                 split_bf16(p1[8], p1[9], ph[3], pl[3]);
+                // ckv's B fragments of columns nt, nt + 1 by ldmatrix.trans
+                // (an odd last column tile, R = 64, element by element)
 #pragma unroll
-                for (int nt = 0; nt < M::NTW; ++nt) {
-                    const __nv_bfloat16* vr = kv + (kk * 16 + tig * 2) * LD
-                                            + cb + nt * 8 + gid;
-                    const uint32_t b0 = pack_bf16(vr[0], vr[LD]);
-                    const uint32_t b1 = pack_bf16(vr[8 * LD], vr[9 * LD]);
-                    mma_bf16(o[nt], ph, b0, b1);
-                    mma_bf16(o[nt], pl, b0, b1);
+                for (int nt = 0; nt < M::NTW; nt += 2) {
+                    if (nt + 1 < M::NTW) {
+                        uint32_t bv[4];
+                        ldsm_x4<true>(bv, kv + (kk * 16 + (lane & 7)
+                                                + ((lane >> 3) & 1) * 8) * LD
+                                             + cb + (nt + (lane >> 4)) * 8);
+                        mma_bf16(o[nt], ph, bv[0], bv[1]);
+                        mma_bf16(o[nt], pl, bv[0], bv[1]);
+                        mma_bf16(o[nt + 1], ph, bv[2], bv[3]);
+                        mma_bf16(o[nt + 1], pl, bv[2], bv[3]);
+                    } else {
+                        const __nv_bfloat16* vr = kv + (kk * 16 + tig * 2) * LD
+                                                + cb + nt * 8 + gid;
+                        const uint32_t b0 = pack_bf16(vr[0], vr[LD]);
+                        const uint32_t b1 = pack_bf16(vr[8 * LD], vr[9 * LD]);
+                        mma_bf16(o[nt], ph, b0, b1);
+                        mma_bf16(o[nt], pl, b0, b1);
+                    }
                 }
             }
         }
@@ -241,17 +310,40 @@ __global__ void __launch_bounds__(ML_THREADS) mla_decode_bf16_kernel(
     cp_async_wait<0>();                    // the queries, for an empty row
     __syncthreads();
 
+    // the output (one split), or this split's partial: O unnormalised,
+    // then m (log2 units) and l
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
         const int h = gid + 8 * i;
         if (h >= H) continue;
-        const float inv = 1.f / fmaxf(l_s[h], REPRO_L_FLOOR);
+        if (part_b == nullptr) {
+            const float inv = 1.f / fmaxf(l_s[h], REPRO_L_FLOOR);
+#pragma unroll
+            for (int nt = 0; nt < M::NTW; ++nt)
+                *reinterpret_cast<float2*>(out_b + (size_t)h * R + cb
+                                           + nt * 8 + tig * 2) =
+                    make_float2(o[nt][2 * i] * inv, o[nt][2 * i + 1] * inv);
+            continue;
+        }
+        float* ph = part_b + h * part_h;
 #pragma unroll
         for (int nt = 0; nt < M::NTW; ++nt)
-            *reinterpret_cast<float2*>(out_b + (size_t)h * R + cb + nt * 8
-                                       + tig * 2) =
-                make_float2(o[nt][2 * i] * inv, o[nt][2 * i + 1] * inv);
+            *reinterpret_cast<float2*>(ph + cb + nt * 8 + tig * 2) =
+                make_float2(o[nt][2 * i], o[nt][2 * i + 1]);
+        if (warp == 0 && tig == 0) {
+            ph[R] = m_s[h];
+            ph[R + 1] = l_s[h];
+        }
     }
+}
+
+// Merges a row's split partials per (row, head): blockIdx.x = b * H + h.
+template <int R>
+__global__ void __launch_bounds__(DS_THREADS) mla_combine_kernel(
+    const float* __restrict__ part, float* __restrict__ out, int splits) {
+    extern __shared__ float w_s[];
+    decode_combine<R, float>(part + (size_t)blockIdx.x * splits * (R + 2),
+                             splits, out + (size_t)blockIdx.x * R, w_s);
 }
 
 template <int R, int RR>
@@ -364,17 +456,23 @@ __global__ void __launch_bounds__(ML_THREADS) mla_decode_f32_kernel(
 template <int R, int RR>
 int launch(const void* q_lat, const void* q_rope, const void* ckv,
            const void* krope, const int* tables, const int* lengths,
-           float* out, int B, int H, int W, int bs, float scale, int dtype,
-           cudaStream_t stream) {
+           float* out, float* part, int B, int H, int W, int bs, float scale,
+           int splits, int split_len, int dtype, cudaStream_t stream) {
     using M = Mla<R, RR>;
     if (dtype == REPRO_BF16) {
         auto kernel = mla_decode_bf16_kernel<R, RR>;
         cudaError_t err = reserve_smem(kernel, M::SMEM_BF16);
         if (err != cudaSuccess) return (int)err;
-        kernel<<<B, ML_THREADS, M::SMEM_BF16, stream>>>(
+        kernel<<<dim3(B, splits), ML_THREADS, M::SMEM_BF16, stream>>>(
             (const __nv_bfloat16*)q_lat, (const __nv_bfloat16*)q_rope,
             (const __nv_bfloat16*)ckv, (const __nv_bfloat16*)krope, tables,
-            lengths, out, H, W, bs, scale);
+            lengths, out, splits == 1 ? nullptr : part, H, W, bs, scale,
+            split_len, splits);
+        err = cudaGetLastError();
+        if (err != cudaSuccess || splits == 1) return (int)err;
+        mla_combine_kernel<R><<<B * H, DS_THREADS,
+                                sizeof(float) * 2 * splits, stream>>>(
+            part, out, splits);
         return (int)cudaGetLastError();
     }
     auto kernel = mla_decode_f32_kernel<R, RR>;
@@ -392,14 +490,23 @@ int launch(const void* q_lat, const void* q_rope, const void* ckv,
 // bs, RR), tables (B, W) int32, lengths (B,) int32, out (B, H, R) f32; all
 // contiguous on one device and 16-byte aligned.  H <= 16.  (R, RR) built:
 // (512, 64), deepseek-v2-lite's, and (64, 32), its reduced test config.
-// Returns cudaGetLastError() after the launch, or REPRO_UNSUPPORTED.
+// bf16: the W * bs keys are cut into ``splits`` splits of ``split_len``
+// keys (a multiple of 64, chosen by the wrapper), and ``part`` is a (B, H,
+// splits, R + 2) f32 workspace when splits > 1; f32 ignores the three.
+// Returns cudaGetLastError() after the launches, or REPRO_UNSUPPORTED.
 extern "C" int paged_mla_decode_attention_launch(
     const void* q_lat, const void* q_rope, const void* ckv_pool,
     const void* krope_pool, const void* tables, const void* lengths,
-    void* out, int B, int H, int R, int RR, int W, int bs, float scale,
-    int dtype, void* stream) {
+    void* out, void* part, int B, int H, int R, int RR, int W, int bs,
+    float scale, int splits, int split_len, int dtype, void* stream) {
     if (H <= 0 || H > ML_H) return REPRO_UNSUPPORTED;
     if (dtype != REPRO_BF16 && dtype != REPRO_F32) return REPRO_UNSUPPORTED;
+    if (dtype == REPRO_BF16
+        && (splits < 1 || splits > DS_MAX_SPLITS || split_len < ML_KT
+            || split_len % ML_KT != 0
+            || (long long)splits * split_len < (long long)W * bs
+            || (splits > 1 && part == nullptr)))
+        return REPRO_UNSUPPORTED;
     if (((size_t)q_lat | (size_t)q_rope | (size_t)ckv_pool
          | (size_t)krope_pool) % 16 != 0)
         return REPRO_UNSUPPORTED;
@@ -409,8 +516,8 @@ extern "C" int paged_mla_decode_attention_launch(
 #define REPRO_CASE(RANK, ROPE)                                              \
     if (R == RANK && RR == ROPE)                                            \
         return launch<RANK, ROPE>(q_lat, q_rope, ckv_pool, krope_pool, tab, \
-                                  len, (float*)out, B, H, W, bs, scale,     \
-                                  dtype, st);
+                                  len, (float*)out, (float*)part, B, H, W,  \
+                                  bs, scale, splits, split_len, dtype, st);
     REPRO_CASE(512, 64)
     REPRO_CASE(64, 32)
 #undef REPRO_CASE

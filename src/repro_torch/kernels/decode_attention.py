@@ -79,6 +79,33 @@ def decode_workspace_shape(B: int, H: int, D: int, splits: int):
     return None if splits == 1 else (B, H, splits, D + 2)
 
 
+MLA_TILE = 64          # keys a tile of the bf16 MLA decode kernel (ML_KT)
+MLA_MIN_SPLIT = 128    # keys: a split's partial (H (R + 2) floats, 32.9 KB
+                       # at deepseek-v2-lite's H = 16, R = 512) stays at most
+                       # 22% of its keys' bytes (1152 a key)
+
+
+def mla_decode_splits(B: int, S: int, sm_count: int):
+    """(splits, keys a split) of a bf16 MLA decode launch over B rows of a
+    table of S = W * block_size keys: whole MLA_TILE tiles a split, at least
+    MLA_MIN_SPLIT keys, together covering S, as many splits as give every
+    SM one (row, split) block and not more.  Made on the host from the
+    shapes alone: no row's length is read back from the card, so the plan
+    costs no wait and a CUDA graph could capture the call; a split past a
+    row's length exits at once on the card."""
+    tiles = max(1, -(-S // MLA_TILE))
+    want = max(1, sm_count // max(1, B))
+    per = max(MLA_MIN_SPLIT // MLA_TILE, -(-tiles // want))
+    return -(-tiles // per), per * MLA_TILE
+
+
+def mla_workspace_shape(B: int, H: int, R: int, splits: int):
+    """Shape of the f32 partials of a bf16 MLA decode launch: per (row,
+    head, split) the unnormalised read-out, then the running max and the
+    denominator; None for one split, where the kernel writes the output."""
+    return None if splits == 1 else (B, H, splits, R + 2)
+
+
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count

@@ -17,14 +17,18 @@ counts kernel launches.
 :func:`paged_mla_decode_attention` (kernel
 ``csrc/paged_mla_decode_attention.cu``) replaces the same file's
 ``paged_mla_decode_attention``: MLA's absorbed decode in the rank-R latent
-space, one thread block per row walking its table once for every head, an
-f32 (B, H, R) read-out; ``paged_mla_decode_attention.launches`` counts its
-launches.
+space, an f32 (B, H, R) read-out.  In bf16 each row's table is cut into
+key splits planned on the host (``decode_attention.mla_decode_splits``),
+one thread block a (row, split) walking its keys once for every head, the
+splits' partials merged by a second kernel in the same call;
+``paged_mla_decode_attention.launches`` counts wrapper calls that
+launched.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -32,6 +36,9 @@ import torch
 from repro_torch.kernels import (DTYPE_CODES, NEG_INF, attention_problems,
                                  build, count_launch, raise_problems,
                                  refuse_grad, side_input_problems)
+from repro_torch.kernels.decode_attention import (_sm_count, _workspace,
+                                                  mla_decode_splits,
+                                                  mla_workspace_shape)
 
 
 def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths, *,
@@ -157,8 +164,9 @@ def paged_mla_decode_attention_ref(q_lat, q_rope, ckv_pool, krope_pool,
 def _mla_lib():
     lib = build.load("paged_mla_decode_attention")
     fn = lib.paged_mla_decode_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                   + [ctypes.c_float] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -218,11 +226,20 @@ def paged_mla_decode_attention(q_lat, q_rope, ckv_pool, krope_pool,
     tables = block_tables.to(torch.int32).contiguous()
     lens = lengths.to(torch.int32).contiguous()
     out = torch.empty(B, H, R, dtype=torch.float32, device=q_lat.device)
+    stream = torch.cuda.current_stream(q_lat.device).cuda_stream
+    splits, keys, part = 1, W * block_size, None
+    if q_lat.dtype == torch.bfloat16:
+        splits, keys = mla_decode_splits(B, W * block_size,
+                                         _sm_count(q_lat.device.index))
+        shape = mla_workspace_shape(B, H, R, splits)
+        if shape is not None:
+            part = _workspace(q_lat.device, stream,
+                              math.prod(shape)).data_ptr()
     rc = _mla_lib()(q_lat.data_ptr(), q_rope.data_ptr(), ckv_pool.data_ptr(),
                     krope_pool.data_ptr(), tables.data_ptr(), lens.data_ptr(),
-                    out.data_ptr(), B, H, R, q_rope.shape[-1], W, block_size,
-                    float(scale), DTYPE_CODES[q_lat.dtype],
-                    torch.cuda.current_stream(q_lat.device).cuda_stream)
+                    out.data_ptr(), part, B, H, R, q_rope.shape[-1], W,
+                    block_size, float(scale), splits, keys,
+                    DTYPE_CODES[q_lat.dtype], stream)
     count_launch(paged_mla_decode_attention, rc)
     return out
 

@@ -9,8 +9,11 @@ positions, the intra-chunk quadratic form (L o C B^T)(dt x), the read-out
 of the state carried into each chunk, and the state update; returns y
 (B, S, H, P) and the final state (B, H, P, N), both in x's dtype.  The
 kernel (``csrc/ssd_scan.cu``) runs one thread block per (b, h) over its
-chunks in order with the float32 state in shared memory; its header says
-what bounds it on the H100.
+chunks in order, in one of two bodies that :func:`ssd_body` picks from the
+shapes before the launch: the tensor-core body (wgmma, bf16 at the full
+width, chunks of at least SSD_WG_QMIN positions) or the FMA body (float32,
+short chunks, the reduced widths); its header says what bounds it on the
+H100.
 
 :func:`ssd_scan` launches the kernel for CUDA tensors and runs
 :func:`ssd_scan_ref` for CPU tensors — the device of the input decides,
@@ -30,6 +33,23 @@ from repro_torch.kernels import (DTYPE_CODES, NEG_INF, build, count_launch,
 
 SSD_DIMS = ((64, 128), (32, 16))     # (P, N) built: full width, reduced
 SSD_QMAX = 256                       # longest chunk the kernel takes
+SSD_WG_DIMS = (64, 128)              # (P, N) of the tensor-core body
+SSD_WG_QMIN = 16                     # shortest chunk it takes: below one
+                                     # wgmma depth (16 keys) a 64-row tile
+                                     # is mostly zero-filled rows
+
+
+def ssd_body(dtype, P: int, N: int, chunk: int) -> str:
+    """Which body of the kernel a launch runs, from the shapes alone and
+    before the launch: "wgmma" (the tensor cores) for bf16 at (P, N) =
+    SSD_WG_DIMS and chunks of at least SSD_WG_QMIN positions, else "fma"
+    (float32 FMAs: the f32 identity runs, which must stay f32, the short
+    chunks of odd sequence lengths, and the reduced test widths).  Never a
+    choice made after a failure: a launch that fails raises."""
+    if (dtype == torch.bfloat16 and (P, N) == SSD_WG_DIMS
+            and chunk >= SSD_WG_QMIN):
+        return "wgmma"
+    return "fma"
 
 
 def ssd_scan_ref(x, dt, A, Bm, Cm, *, chunk=64, init_state=None,
@@ -96,7 +116,7 @@ def ssd_decode_step(x, dt, A, Bm, Cm, state):
 def _lib():
     lib = build.load("ssd_scan")
     fn = lib.ssd_scan_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                    + [ctypes.c_longlong] * 10 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -125,6 +145,27 @@ def _check(x, dt, A, Bm, Cm, chunk, init_state):
                         f"dividing S={S}")
     if any(t.stride(-1) != 1 for t in (x, Bm, Cm)):
         problems.append("x, Bm and Cm need a contiguous last dim")
+    elif x.ndim == 4 and Bm.ndim == Cm.ndim == 3 \
+            and ssd_body(x.dtype, P, N, chunk) == "wgmma":
+        # the tensor-core body copies 16-byte pieces of each row: one test
+        # of every base and row stride at once, the details if it fails
+        init = init_state if init_state is not None \
+            and init_state.is_contiguous() else None
+        sx, sb, sc = x.stride(), Bm.stride(), Cm.stride()
+        bits = (x.data_ptr() | Bm.data_ptr() | Cm.data_ptr()
+                | (0 if init is None else init.data_ptr())
+                | (sx[0] | sx[1] | sx[2] | sb[0] | sb[1] | sc[0] | sc[1])
+                * x.element_size())
+        if bits % 16:
+            views = (("x", x), ("Bm", Bm), ("Cm", Cm), ("init_state", init))
+            problems += [
+                f"{name} at {t.data_ptr() % 16} bytes past a 16-byte "
+                f"boundary with strides {tuple(t.stride())}: the tensor-core "
+                "body needs every row on a 16-byte boundary"
+                for name, t in views if t is not None and (
+                    t.data_ptr() % 16 or name != "init_state" and any(
+                        st * t.element_size() % 16
+                        for st in t.stride()[:-1]))]
     if init_state is not None and (
             init_state.shape != (Bb, H, P, N)
             or init_state.dtype not in (x.dtype, torch.float32)):
@@ -162,6 +203,7 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk=64, init_state=None):
                 y.data_ptr(), fin.data_ptr(), Bb, S, H, P, N, chunk,
                 DTYPE_CODES[x.dtype],
                 int(init is not None and init.dtype == torch.float32),
+                int(ssd_body(x.dtype, P, N, chunk) == "wgmma"),
                 *x.stride()[:3], *dt.stride(), *Bm.stride()[:2],
                 *Cm.stride()[:2],
                 torch.cuda.current_stream(x.device).cuda_stream)

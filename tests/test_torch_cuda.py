@@ -2,9 +2,13 @@
 
 The eight kernels (fused paged decode, ragged prefill, flash attention
 with per-row query offsets and MLA's (Dk, Dv) = (96, 64) and (192, 128),
-dense decode with a window, MLA paged decode, the MoE grouped matmul with
-empty and single-expert groups, the Mamba-2 SSD scan at chunks of 256,
-100, 8 and 1 with and without an initial state, the RG-LRU scan with and
+dense decode with a window, MLA paged decode (in bf16 at the edges of its
+key splits: rows ending inside a split, at its end and one past it, empty
+splits, one seat and sixteen, two calls bit-identical), the MoE grouped
+matmul with empty and single-expert groups, the Mamba-2 SSD scan at
+chunks of 256, 100, 48, 32, 16, 8 and 1 (both of its bodies) with and
+without an initial state and under a decay whose running sum falls
+below -200 in a chunk, the RG-LRU scan with and
 without an initial state, padded and at odd lengths; the four GQA
 attention kernels also at recurrentgemma-2b's head dim 256 with 10 query
 heads per kv head, windowed; the bf16 prefill body of flash and the ragged
@@ -537,6 +541,40 @@ def test_mla_decode_kernel_matches_plain_version(cuda, dtype, H, R, r, bs):
                                        *args[3:], **kw)
 
 
+@pytest.mark.parametrize("B", [1, 16])
+def test_mla_decode_kernel_at_the_edges_of_its_splits(cuda, B):
+    """bf16 at deepseek-v2-lite's (H, R, r) = (16, 512, 64) over a 96-block
+    table of block 16: the split plan cuts 1536 keys into splits of 192
+    (B = 16) or 128 (B = 1), so rows end inside a split, exactly at a
+    split's end and one past it, or fill the table, and the splits past a
+    row's length are empty.  A second call on the same inputs replays the
+    first bit for bit (the combine merges splits in split order)."""
+    H, R, r, bs, W = 16, 512, 64, 16, 96
+    edges = [1, 64, 127, 128, 129, 191, 192, 193, W * bs]
+    sets = ([[n] for n in edges] if B == 1 else
+            [edges + [100, 385, 700, 1000, 1151, 1152, 1500]])
+    g = torch.Generator().manual_seed(5)
+    ckv = torch.randn(B * W + 1, bs, R, generator=g).to(cuda, torch.bfloat16)
+    krope = torch.randn(B * W + 1, bs, r, generator=g).to(cuda,
+                                                          torch.bfloat16)
+    tables = (torch.randperm(B * W, generator=g) + 1).reshape(B, W).to(
+        cuda, torch.int32)
+    q_lat = torch.randn(B, H, R, generator=g).to(cuda, torch.bfloat16)
+    q_rope = torch.randn(B, H, r, generator=g).to(cuda, torch.bfloat16)
+    splits, keys = da.mla_decode_splits(
+        B, W * bs, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert splits > 1
+    kw = dict(block_size=bs, scale=(R + r) ** -0.5)
+    for lengths in sets:
+        lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+        args = (q_lat, q_rope, ckv, krope, tables, lens)
+        got = pda.paged_mla_decode_attention(*args, **kw)
+        again = pda.paged_mla_decode_attention(*args, **kw)
+        want = pda.paged_mla_decode_attention_ref(*args, **kw)
+        assert torch.equal(got, again)
+        assert (got - want).abs().max().item() < 1e-4, (lengths, keys)
+
+
 def test_deepseek_serving_on_the_card_matches_the_cpu(cuda):
     """Reduced deepseek-v2-lite (MLA + MoE) in float32: greedy tokens on
     the card (CUDA kernels) equal the CPU's (plain versions), fused and
@@ -614,7 +652,8 @@ def _ssd_close(got, want, want32, want64):
 @pytest.mark.parametrize("init", [False, True])
 @pytest.mark.parametrize("S,Q,P,N", [(512, 256, 64, 128), (200, 100, 64, 128),
                                      (64, 8, 64, 128), (45, 1, 32, 16),
-                                     (96, 32, 32, 16)])
+                                     (96, 32, 32, 16), (64, 16, 64, 128),
+                                     (144, 48, 64, 128)])
 def test_ssd_scan_kernel_matches_plain_version(cuda, dtype, init, S, Q, P,
                                                N):
     args, s0 = _ssd_inputs(dtype, cuda, 2, S, 3, P, N, seed=S + Q, init=init)
@@ -631,6 +670,36 @@ def test_ssd_scan_kernel_matches_plain_version(cuda, dtype, init, S, Q, P,
                              acc=torch.float64)
     for g, w, w32, w64 in zip((y, fin), want, want32, want64):
         _ssd_close(g, w, w32, w64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_under_a_strong_decay(cuda, dtype):
+    """dt ~ 3 and A ~ -1 over chunks of 256: the running sum cs of dt * A
+    falls below -200 inside a chunk, so exp(-cs) would overflow float32;
+    the decays exp(cs_q - cs_k) of the kernel must not, and its outputs
+    stay finite and within the SSD limit."""
+    g = torch.Generator().manual_seed(11)
+    B, S, H, P, N, Q = 2, 512, 3, 64, 128, 256
+    x = torch.randn(B, S, H, P, generator=g) * 0.3
+    dt = 3.0 + 0.2 * torch.rand(B, S, H, generator=g)
+    A = -(1.0 + 0.05 * torch.rand(H, generator=g))
+    Bm = torch.randn(B, S, N, generator=g) * 0.3
+    Cm = torch.randn(B, S, N, generator=g) * 0.3
+    s0 = torch.randn(B, H, P, N, generator=g)
+    cs = (dt * A).reshape(B, S // Q, Q, H).cumsum(2)
+    assert cs.min().item() < -200
+    args = [t.to(cuda, dtype) if i != 1 and i != 2 else t.to(cuda)
+            for i, t in enumerate((x, dt, A, Bm, Cm))]
+    init = s0.to(cuda, dtype)
+    y, fin = ss.ssd_scan(*args, chunk=Q, init_state=init)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(fin).all())
+    want = ss.ssd_scan_ref(*args, chunk=Q, init_state=init)
+    args32 = [a.float() for a in args]
+    want32 = ss.ssd_scan_ref(*args32, chunk=Q, init_state=init.float())
+    want64 = ss.ssd_scan_ref(*[a.double() for a in args], chunk=Q,
+                             init_state=init.double(), acc=torch.float64)
+    for g_, w, w32, w64 in zip((y, fin), want, want32, want64):
+        _ssd_close(g_, w, w32, w64)
 
 
 def test_ssd_scan_kernel_takes_strided_views_and_f32_state(cuda):

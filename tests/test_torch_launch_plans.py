@@ -1,21 +1,29 @@
-"""Host-side launch plans of the bf16 split decode and the grouped matmul.
+"""Host-side launch plans of the bf16 split decodes, the SSD scan's body
+and the grouped matmul.
 
 The dense decode kernel cuts each row's keys into splits chosen on the
 host from the cache length S and the SM count (``decode_splits``), and
 writes the splits' partials to a workspace of ``decode_workspace_shape``;
-both are plain Python, checked here on the CPU against what the kernel
-needs: splits of at least a warp's 16 keys that cover S, and blocks enough
-to give every SM one, and no more, wherever S has keys enough for them.  The wrappers' input
-checks (which run before a launch, on the card only) are plain Python too
-and refuse what no kernel takes.  The kernels themselves run on the card
-(``tests/test_torch_cuda.py``).
+the MLA decode kernel does the same over a table of W * block_size keys,
+in whole 64-key tiles (``mla_decode_splits``, ``mla_workspace_shape``).
+Both plans are plain Python, checked here on the CPU against what the
+kernels need: splits that cover the keys, and blocks enough to give every
+SM one, and no more, wherever there are keys enough for them.  The SSD
+scan's wrapper picks its kernel's body from the shapes (``ssd_body``).
+The wrappers' input checks (which run before a launch, on the card only)
+are plain Python too and refuse what no kernel takes.  The kernels
+themselves run on the card (``tests/test_torch_cuda.py``).
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import grouped_matmul as gm  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ssd_scan as ss  # noqa: E402
+from repro_torch.models import mamba2  # noqa: E402
 
 SMS = 132                  # an H100 SXM's SMs
 
@@ -77,3 +85,113 @@ def test_grouped_matmul_check_refuses_what_no_kernel_takes():
         gm._check(x, w, sizes[:3])
     with pytest.raises(ValueError, match="contiguous"):
         gm._check(x, w.transpose(1, 2).contiguous().transpose(1, 2), sizes)
+
+
+@pytest.mark.parametrize("B", [1, 4, 16])
+@pytest.mark.parametrize("W", [1, 96, 194])
+def test_mla_splits_cover_the_table_in_whole_tiles_one_block_an_sm(B, W):
+    """Every W * 16 keys in splits of whole 64-key tiles, at least
+    MLA_MIN_SPLIT keys, none wholly past the table; at most one (row,
+    split) block an SM, and where the rows have keys enough for every SM,
+    at least 3/4 of the card (splits are whole tiles, so a table of 49
+    tiles cut for 8 splits a row gives 7 of 7 tiles)."""
+    S = W * 16
+    splits, keys = da.mla_decode_splits(B, S, SMS)
+    assert splits >= 1 and keys % da.MLA_TILE == 0
+    assert keys >= da.MLA_MIN_SPLIT
+    assert splits * keys >= S > (splits - 1) * keys
+    assert B * splits <= SMS
+    room = B * -(-S // da.MLA_MIN_SPLIT)      # blocks the keys allow
+    assert B * splits >= 0.75 * min(SMS, room)
+    shape = da.mla_workspace_shape(B, 16, 512, splits)
+    assert shape is None if splits == 1 else shape == (B, 16, splits, 514)
+
+
+def test_mla_plan_at_the_serving_decode():
+    """deepseek-v2-lite's serving decode in chip_smoke.py: 16 seats over a
+    96-block table of block 16 on 132 SMs is 8 splits of 192 keys, 128
+    blocks; its partials are 4.2 MB against the keys' 16.5 MB."""
+    assert da.mla_decode_splits(16, 96 * 16, SMS) == (8, 192)
+    assert da.mla_workspace_shape(16, 16, 512, 8) == (16, 16, 8, 514)
+    assert da.mla_decode_splits(1, 16, SMS) == (1, 128)
+    assert da.mla_workspace_shape(1, 16, 512, 1) is None
+    assert da.mla_decode_splits(SMS, 96 * 16, SMS)[0] == 1
+    assert da.mla_decode_splits(4 * SMS, 96 * 16, SMS) == (1, 1536)
+
+
+@pytest.mark.parametrize("dtype,P,N,chunk,body", [
+    (torch.bfloat16, 64, 128, 256, "wgmma"),
+    (torch.bfloat16, 64, 128, 100, "wgmma"),
+    (torch.bfloat16, 64, 128, 48, "wgmma"),
+    (torch.bfloat16, 64, 128, 16, "wgmma"),
+    (torch.bfloat16, 64, 128, 8, "fma"),
+    (torch.bfloat16, 64, 128, 1, "fma"),
+    (torch.bfloat16, 32, 16, 32, "fma"),
+    (torch.float32, 64, 128, 256, "fma"),
+    (torch.float32, 32, 16, 1, "fma")])
+def test_ssd_body_is_chosen_by_shape(dtype, P, N, chunk, body):
+    """The tensor cores take bf16 at the full width from a 16-position
+    chunk on; float32 (the identity runs) and short chunks take the FMA
+    body."""
+    assert ss.ssd_body(dtype, P, N, chunk) == body
+
+
+def _ssd_views(rows, S, shift=0, width=None):
+    """x, dt, A, Bm, Cm as mamba2-370m's layer hands them over: column
+    slices of one (rows, S, 2304) bf16 tensor, ``shift`` elements in."""
+    H, P, N = 32, 64, 128
+    width = width or H * P + 2 * N
+    xbc = torch.zeros(rows, S, width + shift, dtype=torch.bfloat16)[
+        ..., shift:]
+    x = xbc[..., :H * P].reshape(rows, S, H, P)
+    dt = torch.ones(rows, S, H)
+    A = -torch.ones(H)
+    return x, dt, A, xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+
+
+def test_ssd_check_refuses_views_off_16_bytes():
+    """The tensor-core body copies 16-byte pieces of every row: a base or
+    a row stride off a 16-byte boundary is refused before any launch (the
+    FMA body reads elements and takes it)."""
+    ss._check(*_ssd_views(2, 256), 256, None)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        ss._check(*_ssd_views(2, 256, shift=4), 256, None)   # base + 8 B
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        ss._check(*_ssd_views(2, 256, width=2 * 2048 + 2 * 128 + 4),
+                  256, None)                                 # row stride
+    x, dt, A, Bm, Cm = _ssd_views(2, 256)
+    flat = torch.zeros(2 * 256 * 128 + 2, dtype=torch.bfloat16)
+    assert flat.data_ptr() % 16 == 0
+    with pytest.raises(ValueError, match="Bm at 4 bytes"):
+        ss._check(x, dt, A, flat[2:].view(2, 256, 128), Cm, 256, None)
+    ss._check(*_ssd_views(2, 256, shift=4), 8, None)        # FMA body
+
+
+@pytest.mark.parametrize("prefill", [False, True])
+def test_ssd_check_accepts_what_the_mamba2_layer_hands_over(prefill,
+                                                           monkeypatch):
+    """mamba2-370m's layer at its full widths (d_model 1024, 32 heads of
+    64, N = 128) on CPU tensors: every ssd_scan call of its forward and of
+    its serving prefill chunk passes the wrapper's check, chunk and init
+    state included, and takes the tensor-core body."""
+    cfg = get_config("mamba2-370m")
+    p = mamba2.init_mamba2(cfg, torch.Generator().manual_seed(0))
+    seen = []
+
+    def checked(x, dt, A, Bm, Cm, *, chunk, init_state=None):
+        ss._check(x, dt, A, Bm, Cm, chunk, init_state)
+        seen.append(ss.ssd_body(x.dtype, x.shape[-1], Bm.shape[-1], chunk))
+        return ss.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk,
+                               init_state=init_state)
+    monkeypatch.setattr(ops.ss, "ssd_scan", checked)
+    g = torch.Generator().manual_seed(1)
+    if prefill:
+        x = torch.randn(4, 64, cfg.d_model, generator=g).to(torch.bfloat16)
+        cache = mamba2.init_mamba2_cache(cfg, 5, torch.bfloat16, "cpu")
+        mamba2.mamba2_prefill_chunk(
+            p, x, torch.tensor([0, 64, 0, 0]), torch.tensor([64, 100, 30, 0]),
+            torch.tensor([0, 1, 2, 4]), cfg, cache)
+    else:
+        x = torch.randn(2, 32, cfg.d_model, generator=g).to(torch.bfloat16)
+        mamba2.mamba2_forward(p, x, cfg)
+    assert seen == ["wgmma"]
