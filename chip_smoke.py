@@ -19,7 +19,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                  1025..1087), at phase 10's (8 seats over 1024 gathered
                  keys, one seat empty) and, as extra coverage, at B=16 over
                  1600 entries with lengths 100..1564; the dense kernels also
-                 at llama3-8b's H=32, KV=8, D=128; and deepseek-v2-lite's
+                 at llama3-8b's H=32, KV=8, D=128; the paged decode also
+                 at phi4-mini's H=24, KV=8, D=128 (phase 4's seats and
+                 table); and deepseek-v2-lite's
                  kernels at phase 12's shapes: the grouped matmul at a decode
                  step's 16 x 6 = 96 rows (some experts empty) and a prefill
                  call's 4 x 256 x 6 = 6144, for the w_gate/w_up (2048 ->
@@ -166,6 +168,9 @@ ID_PROMPT_MAX = 700
 ROW_OFFSETS = (0, 256, 512, 768)    # composed prefill rows: whole chunks
 MIX_CACHE = 1600                    # extra decode coverage: mixed lengths
 LLAMA_H, LLAMA_KV, LLAMA_D = 32, 8, 128
+# phi4-mini-3.8b's attention layout: the paged decode at the serving decode's
+# seats and table, 3 query heads a kv head over 8 kv heads
+PHI4_H, PHI4_KV, PHI4_D = 24, 8, 128
 F32_TOL = 2e-5         # float32: the same sums in another order
 # bfloat16: both the kernels and the plain versions compute in float32 and
 # round once to bfloat16, so the kernel must be within one bfloat16 step of
@@ -308,7 +313,7 @@ def parity(torch, dtype_name, got, want, want32, slack=BF16_ABS):
     return err.max().item(), max(share.max().item(), share32.max().item())
 
 
-def decode_inputs(torch, dtype, device):
+def decode_inputs(torch, dtype, device, heads=H, kv=KV, dim=D):
     g = torch.Generator(device="cpu").manual_seed(SEED)
     # mixed lengths: prompts of 100..1500 plus up to 64 generated tokens;
     # most end in a partial page, one fills its last page exactly
@@ -321,9 +326,9 @@ def decode_inputs(torch, dtype, device):
         n = -(-int(lengths[b]) // BS)
         tables[b, :n] = perm[used:used + n]
         used += n
-    q = torch.randn(DEC_B, 1, H, D, generator=g)
-    k_pool = torch.randn(NUM_BLOCKS, BS, KV, D, generator=g)
-    v_pool = torch.randn(NUM_BLOCKS, BS, KV, D, generator=g)
+    q = torch.randn(DEC_B, 1, heads, dim, generator=g)
+    k_pool = torch.randn(NUM_BLOCKS, BS, kv, dim, generator=g)
+    v_pool = torch.randn(NUM_BLOCKS, BS, kv, dim, generator=g)
     to = dict(device=device)
     return (q.to(dtype=dtype, **to), k_pool.to(dtype=dtype, **to),
             v_pool.to(dtype=dtype, **to), tables.to(**to),
@@ -966,6 +971,20 @@ def kernel_cases(torch, dtype, heads, kv, dim):
     return cases
 
 
+def paged_plan(torch, dtype_name, args, window):
+    """The bf16 paged decode's split plan at these inputs, for the log."""
+    if dtype_name != "bfloat16":
+        return ""
+    from repro_torch.kernels.decode_attention import paged_decode_splits
+    q, k_pool, _, tables = args[:4]
+    sms = (torch.cuda.get_device_properties(0).multi_processor_count
+           if DEVICE == "cuda" else 132)
+    plan = paged_decode_splits(q.shape[0], k_pool.shape[2],
+                               q.shape[2] // k_pool.shape[2], q.shape[3],
+                               tables.shape[1] * BS, window, sms)
+    return f", splits (count, keys) {plan}"
+
+
 def phase_kernels(torch):
     timed = {}
     for dtype_name in ("bfloat16", "float32"):
@@ -987,6 +1006,8 @@ def phase_kernels(torch):
                     filler_zero = bool((got[3] == 0).all().item())
                     extra = f", filler row exactly zero={filler_zero}"
                     share = share if filler_zero else float("inf")
+                if name == "paged_decode_attention":
+                    extra = paged_plan(torch, dtype_name, args, window)
                 log(f"[kernels] {name} ({case}, H={heads} KV={kv} D={dim}) "
                     f"{dtype_name} window={window}: max_abs_err={err:.3e} "
                     f"({share:.3f} of allowed){extra} (limit: {limit})")
@@ -997,6 +1018,27 @@ def phase_kernels(torch):
                 if (dtype_name == "bfloat16" and dim == D and window is None
                         and (name, case) not in timed):
                     timed[(name, case)] = (fn, ref, args, kw, err)
+        # the paged decode at phi4-mini's (H, KV, D) = (24, 8, 128)
+        from repro_torch.kernels.paged_decode_attention import (
+            paged_decode_attention, paged_decode_attention_ref)
+        dec = decode_inputs(torch, dtype, DEVICE, PHI4_H, PHI4_KV, PHI4_D)
+        dec32 = [t.float() if t.is_floating_point() else t for t in dec]
+        for window in (None, WINDOW):
+            kw = dict(block_size=BS, window=window)
+            got = paged_decode_attention(*dec, **kw)
+            err, share = parity(torch, dtype_name, got,
+                                paged_decode_attention_ref(*dec, **kw),
+                                paged_decode_attention_ref(*dec32, **kw))
+            sync(torch)
+            plan = paged_plan(torch, dtype_name, dec, window)
+            log(f"[kernels] paged_decode_attention (phi4-mini serving, H="
+                f"{PHI4_H} KV={PHI4_KV} D={PHI4_D}) {dtype_name} window="
+                f"{window}: max_abs_err={err:.3e} ({share:.3f} of allowed)"
+                f"{plan} (limit: {limit})")
+            if not share <= 1:
+                raise AssertionError("kernel parity failed: paged_decode_"
+                                     f"attention phi4-mini {dtype_name} "
+                                     f"window={window}")
         # the deepseek-v2-lite path: grouped matmul (its bf16 slack covers
         # the f32 sums' differences over D = 2048), MLA decode (f32 out),
         # flash at (Dk, Dv) = (192, 128)
@@ -1082,6 +1124,8 @@ def phase_kernels(torch):
                 filler_zero = bool((got[0][3] == 0).all().item())
                 extra = f", filler row exactly zero={filler_zero}"
                 share = share if filler_zero else float("inf")
+            if name == "paged_decode_attention":
+                extra = paged_plan(torch, dtype_name, args, window)
             if name == "rglru_scan":
                 kw64 = dict(kw, acc=torch.float64)
                 w64 = ref(*[t.double() for t in args], **kw64)

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""Time the GQA attention kernels of two checkouts of this repository on
-one NVIDIA card, each checkout in its own process, in the order A, B, B, A.
+"""Time the kernels of two or more checkouts of this repository on one
+NVIDIA card, each checkout in its own process, in the order A, B, B, A
+(A, B, C, C, B, A for three).
 
-    python3 kernel_ab.py A_DIR B_DIR [CASE ...]   # two unpacked checkouts,
-                                                 # A first; CASEs: prefixes
-                                                 # of the case names to time
+    python3 kernel_ab.py A_DIR B_DIR [C_DIR ...] [CASE ...]
+                                     # unpacked checkouts (the arguments
+                                     # that are directories), A first;
+                                     # CASEs: prefixes of the case names
+                                     # to time
 
 Each process builds its checkout's kernels (into that checkout's
 ``build/``), holds each against that checkout's plain version, and times
@@ -14,14 +17,20 @@ Generator prefill (B=8, S=1024, causal), decode_attention at the
 Generator's decode (B=8 over a 1096-entry cache, lengths 1025..1087),
 paged_decode_attention at the serving decode (16 seats, block 16,
 lengths 100..1564) and ragged_prefill_attention at a serving prefill call
-(4 rows of 256, one a filler); and the prefill kernels at the other rows
-of PERF.md's kernel table: the ragged prefill at recurrentgemma-2b's
+(4 rows of 256, one a filler); and the kernels at the other rows of
+PERF.md's kernel table: the ragged prefill at recurrentgemma-2b's
 (H, KV, D) = (10, 1, 256), window 2048, over ``chip_smoke.py``'s
 RG_PRE_ROWS (a row past the window, a filler), flash at (256, 256) over
 8 x 1024 with that window, and flash at deepseek-v2-lite's (Dk, Dv) =
 (192, 128) over its prefill call's rows (4 x 256 queries at offsets 0,
 256, 768, 1280 over 1536 keys); decode_attention at recurrentgemma-2b's
-Generator decode (8 rows over 1096 entries, (10, 1, 256)); and the grouped
+Generator decode (8 rows over 1096 entries, (10, 1, 256)); the paged
+decode at recurrentgemma-2b's serving decode (16 seats of 100..3064 keys
+over a 194-block table, window 2048, the blocks below it null:
+``chip_smoke.py``'s rg_cases inputs); rglru_scan at recurrentgemma-2b's
+serving prefill call (4 rows x 256 x 2560 with a bf16 initial state, one
+row padded past its limit, a filler row) and its Generator prefill (8 x
+1024 x 2560); the grouped
 matmul at ``chip_smoke.py``'s five deepseek-v2-lite cases (a decode step's
 16 x top-6 = 96 rows and a prefill call's 4 x 256 x 6 = 6144, for the
 w_gate/w_up (2048 -> 1408) and w_down (1408 -> 2048) shapes over 64
@@ -46,12 +55,13 @@ and the host's own time of one wrapper call (``host_us``: CALLS calls
 queued back to back on the host's clock, the wait for the card after the
 clock stops) and of its input checks alone (``check_us``).  Where one
 PyTorch call computes the same function (``torch._grouped_mm``; SDPA for
-the (10, 1, 256) decode), its queued time is read beside (``library``).
+the (10, 1, 256) decodes), its queued time is read beside (``library``).
 
 A reading is the median of REPEATS launches.  The script prints the
 card's name and power limit, one JSON line per process, a summary line
-per kernel, checkout and timer, and last a JSON object with every
-reading.  It exits non-zero without a card or when a process fails.
+per kernel, checkout and timer (each checkout's median over A's), and
+last a JSON object with every reading.  It exits non-zero without a card
+or when a process fails.
 """
 from __future__ import annotations
 
@@ -79,6 +89,9 @@ DS_R, DS_ROPE, DS_BLOCKS, DS_TABLE_W = 512, 64, 2048, 96
 DS_LENGTHS = (100, 1500 + 32)
 SSM_H, SSM_P, SSM_N, SSM_Q = 32, 64, 128, 256
 SSM_ROWS = ((0, 900), (768, 1400), (1280, 1400), (0, 0))
+# recurrentgemma-2b's paged decode and RG-LRU scan, as chip_smoke.py draws
+# them (its rg_cases and rg_scan_inputs: seeds SEED + 40, + 30, + 31)
+RG_W, RG_LENGTHS, RG_LONG = 2560, (100, 3000 + 64), 4
 # the wrappers' input checks where a module's is not ``_check``
 CHECKS = {"paged_mla_decode_attention": "_mla_check"}
 ROUNDS = 5
@@ -157,14 +170,22 @@ def rg_table(torch, g, limits, window):
 def sdpa_dense_decode(torch, q, k, v, lengths):
     """One SDPA call with a length mask (the GQA head expansion and the
     layout changes outside the call), as chip_smoke.py's yardstick."""
+    mask = (torch.arange(k.shape[1], device=q.device)[None, :]
+            < lengths[:, None])
+    return sdpa_masked_decode(torch, q, k, v, mask)
+
+
+def sdpa_masked_decode(torch, q, k, v, mask):
+    """One SDPA call of q (B, 1, H, D) over k, v (B, S, KV, D) under a
+    boolean (B, S) mask (the GQA head expansion, the layout changes and
+    the mask outside the call)."""
     import torch.nn.functional as F
-    S, G = k.shape[1], q.shape[2] // k.shape[2]
+    G = q.shape[2] // k.shape[2]
     k = k.repeat_interleave(G, 2).transpose(1, 2).contiguous()
     v = v.repeat_interleave(G, 2).transpose(1, 2).contiguous()
     qh = q.transpose(1, 2).contiguous()
-    mask = (torch.arange(S, device=q.device)[None, :]
-            < lengths[:, None])[:, None, None, :]
-    return lambda: F.scaled_dot_product_attention(qh, k, v, attn_mask=mask)
+    return lambda: F.scaled_dot_product_attention(
+        qh, k, v, attn_mask=mask[:, None, None, :])
 
 
 def gm_cases(torch, g):
@@ -260,6 +281,62 @@ def ssd_cases(torch):
     return out
 
 
+def rg_cases(torch):
+    """The recurrentgemma serving decode's paged decode inputs
+    (chip_smoke.rg_cases) and rglru_scan at its serving prefill call and
+    Generator prefill (chip_smoke.rg_scan_inputs)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import rglru_scan as rs
+    out = {}
+    for case, rows, S, seed, serving in (
+            ("rglru_scan serving", 4, 256, 30, True),
+            ("rglru_scan generator", 8, 1024, 31, False)):
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        x = torch.randn(rows, S, RG_W, generator=g) * 0.5
+        ig = torch.sigmoid(torch.randn(rows, S, RG_W, generator=g))
+        ag = torch.sigmoid(torch.randn(rows, S, RG_W, generator=g))
+        la = -F.softplus(-torch.linspace(2.0, 6.0, RG_W)).to("cuda")
+        init = None
+        if serving:
+            starts = torch.tensor([r[0] for r in SSM_ROWS])
+            limits = torch.tensor([r[1] for r in SSM_ROWS])
+            pos = starts[:, None] + torch.arange(S)[None, :]
+            ag = ag * (pos < limits[:, None])[..., None]
+            init = torch.randn(rows, RG_W, generator=g)
+            init[limits == 0] = 0.0
+            init = init.to("cuda", torch.bfloat16)
+        args = tuple(t.to("cuda", torch.bfloat16) for t in (x, ig, ag)) + (
+            la,)
+        out[case] = (rs, "rglru_scan", args, dict(init_state=init),
+                     (*args, init), None)
+    g = torch.Generator(device="cpu").manual_seed(40)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to("cuda", torch.bfloat16)
+    k_pool, v_pool = (rnd(RG_BLOCKS, BS, RG_KV, RG_D) for _ in range(2))
+    lengths = torch.randint(RG_LENGTHS[0], RG_LENGTHS[1] + 1, (16,),
+                            generator=g)
+    top = RG_LENGTHS[1]
+    lengths[:RG_LONG] = torch.tensor([RG_WINDOW + 1, RG_WINDOW + BS,
+                                      (RG_WINDOW + top) // 2, top])
+    tables = rg_table(torch, g, lengths.tolist(), RG_WINDOW)
+    q = rnd(16, 1, RG_H, RG_D)
+    lens = lengths.to("cuda", torch.int32)
+    args = (q, k_pool, v_pool, tables.to("cuda"), lens)
+    S = RG_TABLE_W * BS
+    pos = torch.arange(S, device="cuda")[None, :]
+    mask = (pos < lens[:, None]) & (pos >= lens[:, None] - RG_WINDOW)
+    idx = tables.to("cuda").long()
+    k = k_pool[idx].reshape(16, S, RG_KV, RG_D)
+    v = v_pool[idx].reshape(16, S, RG_KV, RG_D)
+    out["paged_decode_attention d256 g10"] = (
+        pda, "paged_decode_attention", args,
+        dict(block_size=BS, window=RG_WINDOW), (q, k_pool, v_pool),
+        sdpa_masked_decode(torch, q, k, v, mask))
+    return out
+
+
 def cases(torch):
     """{case: (module, kernel, wrapper args, kwargs, check args, library
     call or None)}, the same inputs in every process (drawn on the host
@@ -338,6 +415,7 @@ def cases(torch):
     out.update(gm_cases(torch, g))
     out.update(mla_case(torch))
     out.update(ssd_cases(torch))
+    out.update(rg_cases(torch))
     return out
 
 
@@ -382,7 +460,7 @@ def worker(tree: str, only) -> None:
     print(json.dumps(result))
 
 
-def main(a: str, b: str, only) -> int:
+def main(trees, only) -> int:
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -392,7 +470,7 @@ def main(a: str, b: str, only) -> int:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip())
     runs = []
-    for tree in (a, b, b, a):
+    for tree in trees + trees[::-1]:
         out = subprocess.run([sys.executable, os.path.abspath(__file__),
                               "--worker", tree, *only], check=True,
                              capture_output=True, text=True, timeout=900)
@@ -403,7 +481,7 @@ def main(a: str, b: str, only) -> int:
     for kernel in kernels:
         for name in [m for m in MEASURES if m in runs[0][kernel]]:
             med = {}
-            for tree in (a, b):
+            for tree in trees:
                 vals = sorted(x for r in runs if r["tree"] == tree
                               for x in r[kernel][name])
                 med[tree] = vals[len(vals) // 2]
@@ -411,7 +489,9 @@ def main(a: str, b: str, only) -> int:
                 print(f"{kernel} {name} {tree}: median {med[tree]:.4f} "
                       f"{unit}, range {vals[0]:.4f}..{vals[-1]:.4f} {unit} "
                       f"over {len(vals)} readings")
-            print(f"{kernel} {name}: B / A = {med[b] / med[a]:.4f}")
+            for tree in trees[1:]:
+                print(f"{kernel} {name}: {tree} / {trees[0]} = "
+                      f"{med[tree] / med[trees[0]]:.4f}")
     print(json.dumps({"shape": [H, KV, D], "runs": runs}))
     return 0
 
@@ -420,6 +500,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--worker"]:
         worker(sys.argv[2], sys.argv[3:])
         sys.exit(0)
-    if len(sys.argv) < 3:
+    dirs = [a for a in sys.argv[1:] if os.path.isdir(a)]
+    if len(dirs) < 2:
         sys.exit(__doc__)
-    sys.exit(main(sys.argv[1], sys.argv[2], sys.argv[3:]))
+    sys.exit(main(dirs, [a for a in sys.argv[1:] if a not in dirs]))

@@ -264,10 +264,8 @@ class ArchNotPortedError(KeyError):
 
 # reference architectures whose families arrive in later slices
 NOT_YET_PORTED = {
-    "granite-3-2b": "its config module",
     "internvl2-26b": "the vision frontend",
     "musicgen-large": "the audio frontend",
-    "phi4-mini-3.8b": "its config module",
 }
 
 _REGISTRY: dict = {}
@@ -300,6 +298,7 @@ def list_archs() -> Tuple[str, ...]:
 def _load_all() -> None:
     # import every module in this package so configs self-register
     from repro_torch.configs import (deepseek_moe_16b,  # noqa: F401
-                                     deepseek_v2_lite_16b, llama3_8b,
-                                     mamba2_370m, moonshot_v1_16b_a3b,
+                                     deepseek_v2_lite_16b, granite_3_2b,
+                                     llama3_8b, mamba2_370m,
+                                     moonshot_v1_16b_a3b, phi4_mini_3_8b,
                                      qwen2_0_5b, recurrentgemma_2b)

@@ -9,10 +9,11 @@
 //                  decode_attention.cu in f32 (dense cache);
 //   decode_split_block  the same for bf16 on the tensor cores, one split
 //                  of a row's keys for all G heads (mma.sync), its partial
-//                  merged by decode_combine: decode_attention.cu in bf16
-//                  (paged_mla_decode_attention.cu merges its own splits'
-//                  partials with decode_combine too; the paged decode
-//                  kernel is to take the split body next);
+//                  merged by decode_combine: decode_attention.cu and
+//                  paged_decode_attention.cu in bf16 (a paged address
+//                  reads a tile's block ids before its copies);
+//                  paged_mla_decode_attention.cu merges its own splits'
+//                  partials with decode_combine too;
 //   prefill_block  a tile of (token, head) query rows, causal with a query
 //                  offset, f32 FMAs: ragged_prefill_attention.cu and
 //                  flash_attention.cu in f32, where the tensor cores'
@@ -73,20 +74,29 @@ inline cudaError_t reserve_smem(K kernel, size_t bytes) {
 // key addresses
 // ---------------------------------------------------------------------------
 // Paged pool (N, bs, KV, D): key ``pos`` of a row lives in block
-// ``table[pos / bs]`` at offset ``pos % bs``.
+// ``table[pos / bs]`` at offset ``pos % bs``.  ``kPaged`` tells the split
+// body to read a tile's block ids (``block``) before it issues the tile's
+// copies (``at``), so no copy waits on its own table read.
 template <int D>
 struct PagedAddr {
+    static constexpr bool kPaged = true;
     const int* table;   // this row's block table
     int bs, KV, h;
-    __device__ __forceinline__ size_t operator()(int pos) const {
-        const int bid = __ldg(table + pos / bs);
+    __device__ __forceinline__ int block(int pos) const {
+        return __ldg(table + pos / bs);
+    }
+    __device__ __forceinline__ size_t at(int bid, int pos) const {
         return (((size_t)bid * bs + pos % bs) * KV + h) * D;
+    }
+    __device__ __forceinline__ size_t operator()(int pos) const {
+        return at(block(pos), pos);
     }
 };
 
 // Dense cache (B, S, KV, D): key ``pos`` of row ``b`` at ((b*S + pos)*KV + h)*D.
 template <int D>
 struct DenseAddr {
+    static constexpr bool kPaged = false;
     int b, S, KV, h;
     __device__ __forceinline__ size_t operator()(int pos) const {
         return (((size_t)b * S + pos) * KV + h) * D;
@@ -1201,9 +1211,9 @@ constexpr int DS_MAX_SPLITS = 4096;    // the combine's weights: 32 KB
 template <int D>
 struct DsShape {
     static constexpr int LD = D + 8;   // padded row, elements
-    // stages: two where they leave three blocks an SM, one at D = 256 (a
-    // 64-key tile is 67 KB there, and two blocks an SM keep it in flight)
-    static constexpr int NS = D >= 256 ? 1 : 2;
+    // two stages, so a tile's copies overlap the previous tile's math: at
+    // D = 256 a 64-key tile is 67 KB and the block takes 143 KB, one an SM
+    static constexpr int NS = 2;
     static constexpr size_t Q_BYTES = sizeof(__nv_bfloat16) * DS_HEADS * LD;
     static constexpr size_t TILE = sizeof(__nv_bfloat16) * DS_KT * LD;
     static constexpr size_t SMEM = Q_BYTES + (size_t)NS * 2 * TILE;
@@ -1246,17 +1256,44 @@ __device__ __forceinline__ void decode_split_block(
         return;
     }
 
-    // the copies of key tile t into stage t % NS; keys past k_hi are zeros
+    // the copies of key tile t into stage t % NS; keys past k_hi are zeros.
+    // Through a block table, thread x copies 16-byte piece x % CH of keys
+    // x / CH + j KP (j < NP), reading the block ids of NB of its keys
+    // before it issues their copies.
     auto load = [&](int t) {
         __nv_bfloat16* ks = stages + (size_t)(t % NS) * 2 * DS_KT * LD;
         __nv_bfloat16* vs = ks + DS_KT * LD;
         const int t0 = k_lo + t * DS_KT;
-        for (int e = threadIdx.x; e < DS_KT * CH; e += DS_THREADS) {
-            const int i = e / CH, ch = e % CH;
-            const bool ok = t0 + i < k_hi;
-            const size_t src = ok ? addr(t0 + i) + ch * 8 : 0;
-            cp_async16(ks + i * LD + ch * 8, k_src + src, ok);
-            cp_async16(vs + i * LD + ch * 8, v_src + src, ok);
+        if constexpr (Addr::kPaged) {
+            constexpr int KP = DS_THREADS / CH, NP = DS_KT / KP;
+            constexpr int NB = NP < 8 ? NP : 8;
+            const int i0 = threadIdx.x / CH, ch = threadIdx.x % CH;
+#pragma unroll
+            for (int j0 = 0; j0 < NP; j0 += NB) {
+                int bid[NB];
+#pragma unroll
+                for (int j = 0; j < NB; ++j) {
+                    const int pos = t0 + i0 + (j0 + j) * KP;
+                    bid[j] = pos < k_hi ? addr.block(pos) : -1;
+                }
+#pragma unroll
+                for (int j = 0; j < NB; ++j) {
+                    const int i = i0 + (j0 + j) * KP;
+                    const bool ok = bid[j] >= 0;
+                    const size_t src = ok ? addr.at(bid[j], t0 + i) + ch * 8
+                                          : 0;
+                    cp_async16(ks + i * LD + ch * 8, k_src + src, ok);
+                    cp_async16(vs + i * LD + ch * 8, v_src + src, ok);
+                }
+            }
+        } else {
+            for (int e = threadIdx.x; e < DS_KT * CH; e += DS_THREADS) {
+                const int i = e / CH, ch = e % CH;
+                const bool ok = t0 + i < k_hi;
+                const size_t src = ok ? addr(t0 + i) + ch * 8 : 0;
+                cp_async16(ks + i * LD + ch * 8, k_src + src, ok);
+                cp_async16(vs + i * LD + ch * 8, v_src + src, ok);
+            }
         }
     };
 
@@ -1474,4 +1511,16 @@ __device__ __forceinline__ void decode_combine(
             num += part[(size_t)z * (D + 2) + d] * w_s[z];
         out[d] = from_f<T>(num * inv);
     }
+}
+
+// The second kernel of a split bf16 decode: one block of DS_THREADS a (row,
+// query head), blockIdx.x = b * H + head, over part (B, H, splits, D + 2),
+// and 2 x splits floats of dynamic shared memory.
+template <int D>
+__global__ void __launch_bounds__(DS_THREADS) decode_combine_kernel(
+    const float* __restrict__ part, __nv_bfloat16* __restrict__ out,
+    int splits) {
+    extern __shared__ float w_s[];
+    decode_combine<D>(part + (size_t)blockIdx.x * splits * (D + 2), splits,
+                      out + (size_t)blockIdx.x * D, w_s);
 }

@@ -107,16 +107,6 @@ __global__ void __launch_bounds__(DS_THREADS, 2) decode_split_kernel(
         DenseAddr<D>{b, S, KV, h}, ds_smem);
 }
 
-// one block a (row, query head): blockIdx.x = b * H + head
-template <int D>
-__global__ void __launch_bounds__(DS_THREADS) decode_combine_kernel(
-    const float* __restrict__ part, __nv_bfloat16* __restrict__ out,
-    int splits) {
-    extern __shared__ float w_s[];
-    decode_combine<D>(part + (size_t)blockIdx.x * splits * (D + 2), splits,
-                      out + (size_t)blockIdx.x * D, w_s);
-}
-
 template <int D>
 int launch_bf16(const void* q, const void* k_cache, const void* v_cache,
                 const int* lengths, void* out, float* part, int B, int S,

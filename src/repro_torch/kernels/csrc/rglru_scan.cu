@@ -16,37 +16,56 @@
 //
 // What bounds it on the H100: bytes.  Per element it reads three inputs
 // and writes one output (8 bytes in bf16) for about ten flops, far below
-// the ~20 flops per byte where the card's f32 units would bind; but the
-// recurrence is sequential in t, so the walk is latency-bound unless
-// enough independent channels keep loads in flight.
+// the ~20 flops per byte where the card's f32 units would bind.  The
+// recurrence is sequential in t, so the design is about keeping enough
+// independent loads in flight while the carry walks the time axis.
 //
 // Design.  The TPU kernel steps a sequential grid over blocks of the
 // sequence with the (1, W) state in VMEM scratch, and solves each block
-// with a log-depth associative scan on the vector unit.  On Hopper the
-// channels are independent, so one thread owns one (row, channel) and
-// walks t in order with its carry in a register: no shared memory, no
-// barrier, no carry between blocks.  A warp's 32 threads are 32
-// consecutive channels, so every load and store is coalesced along W.  The
-// inputs of the next RG_U steps are loaded while the current RG_U are
-// folded in (two register buffers), and the gates of those steps (exp,
-// expm1, sqrt) do not depend on the carry, so only one FMA per step sits
-// on the dependent chain.
+// with a log-depth associative scan on the vector unit.  Here one block
+// takes (row, tile of 32 channels) and walks S in segments of RG_NW x RG_L
+// steps, its RG_NW warps each taking RG_L consecutive steps of a segment
+// (lane l: channel l of the tile, so a warp's load of one step is 64
+// contiguous bytes in bf16).  In each segment:
+//   - each warp scans its RG_L steps from a zero carry, keeping the local
+//     h and the running product of a_t of every step in registers;
+//   - the warps' chunk pairs (prod a, local h at the chunk's end) meet in
+//     shared memory (double-buffered, one barrier a segment), and every
+//     warp folds those of the warps before it into the segment's carry to
+//     get its carry-in, and all of them to get the next segment's carry;
+//   - each warp writes h_t = local_t + prod_t carry_in (one fmaf a step,
+//     none of them on a dependent chain).
+// The next segment's loads are issued before this segment's math, and the
+// gates never wait on a carry.  One read and one write of each element,
+// one launch.  Steps past S load zeros, which pass the carry through
+// exactly, so the last segment's carry is the final state.  A padding step
+// leaves the product (x 1) and the local sum (+ 0) unchanged and the
+// fix-up and the carry fold are the same fmaf, so the final state of a
+// padded row equals its state at the limit bit for bit.  The rounding
+// order is "chunks, then carries", neither the plain version's log-depth
+// tree nor a walk in order; f32 and bf16 share the body (f32 arithmetic,
+// no tensor cores), and only the gates' functions differ (rg_gates).
 //
-// Known limits, left for a later change: at a serving prefill call
-// (4 rows x 2560 channels) there are 10240 threads, under 3 warps an SM,
-// too few loads in flight to reach the byte bound; and each thread walks
-// all S steps.  A chunked scan with parallel carries (a chunk's local
-// scan, then the carries of the chunks, then a fix-up) is the fix.
+// RG_NW = 4, RG_L = 8, one channel a thread, chosen on an H100 with
+// kernel_ab.py at a serving prefill call (4 rows x 256 x 2560: 320 blocks
+// of 128 threads walking 8 segments) and the Generator prefill (8 x 1024:
+// 640 blocks walking 32; PERF.md section 6).  Against it, in one call
+// each: two channels a thread (bf16x2 loads, half the blocks) ran 1.4x
+// and 2.0x slower; 8 warps ran as fast at the serving call and 1.09x
+// slower at the Generator (with chunks of 4 steps 0.96x and 1.07x); 4
+// warps with chunks of 4 steps 1.12x and 1.08x; the library's expf,
+// expm1f and sqrtf in bf16 1.4x and 1.2x slower.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int RG_THREADS = 64;   // channels per block
-constexpr int RG_U = 16;         // steps whose inputs are loaded together
+constexpr int RG_NW = 4;                 // warps a block: a segment's chunks
+constexpr int RG_L = 8;                  // steps a warp's chunk
+constexpr int RG_THREADS = RG_NW * 32;   // one channel a lane
 
 template <typename T>
-struct RgIn {                    // one row's input at channel w, strided
+struct RgIn {                    // one row's input at this lane's channel
     const T* __restrict__ p;
     long long ss;                // stride between steps, elements
     __device__ __forceinline__ T at(int t) const {
@@ -54,23 +73,46 @@ struct RgIn {                    // one row's input at channel w, strided
     }
 };
 
+// The inputs of steps t0 .. t0 + RG_L - 1; zeros at and past S (and for a
+// lane past W), which pass the carry through.
 template <typename T>
-__device__ __forceinline__ void rg_load(T (&x)[RG_U], T (&ig)[RG_U],
-                                        T (&ag)[RG_U], const RgIn<T>& xi,
+__device__ __forceinline__ void rg_load(T (&x)[RG_L], T (&ig)[RG_L],
+                                        T (&ag)[RG_L], const RgIn<T>& xi,
                                         const RgIn<T>& ii, const RgIn<T>& ai,
-                                        int t0, int S) {
+                                        int t0, int S, bool live) {
 #pragma unroll
-    for (int u = 0; u < RG_U; ++u) {
-        const int t = t0 + u;
-        if (t < S) {
-            x[u] = xi.at(t);
-            ig[u] = ii.at(t);
-            ag[u] = ai.at(t);
+    for (int u = 0; u < RG_L; ++u) {
+        if (live && t0 + u < S) {
+            x[u] = xi.at(t0 + u);
+            ig[u] = ii.at(t0 + u);
+            ag[u] = ai.at(t0 + u);
         } else {
             x[u] = from_f<T>(0.f);
             ig[u] = x[u];
             ag[u] = x[u];
         }
+    }
+}
+
+// a_t and beta_t of one step from x = log_at = c log_a a_gate (<= 0).
+// f32 (the token identity runs) takes the library's expf, expm1f and
+// sqrtf.  bf16, whose h rounds to 8 bits, takes them branch-free, so the
+// compiler interleaves the steps: e = expm1(x) by its Taylor polynomial to
+// x^7 above -0.35 (error below 2^-25 of e there) and exp(x) - 1 by ex2.approx
+// below (|e| > 0.29, so no cancellation), a_t = 1 + e and beta =
+// sqrt(-e (2 + e)) = sqrt(1 - a_t^2) by sqrt.approx.  x = -0 (padding)
+// gives e = -0, a_t = 1 and beta = 0 in both.
+template <typename T>
+__device__ __forceinline__ void rg_gates(float x, float& a_t, float& beta) {
+    if constexpr (sizeof(T) == 4) {
+        a_t = expf(x);
+        beta = sqrtf(-expm1f(2.f * x));
+    } else {
+        const float p = x * (1.f + x * (0.5f + x * (1.f / 6 + x * (1.f / 24
+            + x * (1.f / 120 + x * (1.f / 720 + x * (1.f / 5040)))))));
+        const float e = x > -0.35f ? p : __expf(x) - 1.f;
+        a_t = 1.f + e;
+        asm("sqrt.approx.f32 %0, %1;" : "=f"(beta) : "f"(-e * (2.f + e)));
     }
 }
 
@@ -84,37 +126,59 @@ __global__ void __launch_bounds__(RG_THREADS) rglru_scan_kernel(
     T* __restrict__ fin,             // (B, W)
     int S, int W, long long xb, long long xs, long long ib, long long is,
     long long ab, long long as, float c) {
-    const int w = blockIdx.x * RG_THREADS + threadIdx.x;
+    constexpr int SEG = RG_NW * RG_L;
+    __shared__ float a_s[2][RG_NW][32], b_s[2][RG_NW][32];
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int w = blockIdx.x * 32 + lane;
     const int b = blockIdx.y;
-    if (w >= W) return;
-    const RgIn<T> xi{x + b * xb + w, xs}, ii{ig + b * ib + w, is},
-        ai{ag + b * ab + w, as};
-    T* hp = h + (size_t)b * S * W + w;
-    const float cla = c * log_a[w];
-    float carry = init != nullptr ? to_f(init[(size_t)b * W + w]) : 0.f;
+    const bool live = w < W;
+    const int wl = live ? w : 0;
+    const RgIn<T> xi{x + b * xb + wl, xs}, ii{ig + b * ib + wl, is},
+        ai{ag + b * ab + wl, as};
+    T* hp = h + (size_t)b * S * W + wl;
+    const float cla = live ? c * log_a[w] : 0.f;
+    float carry = live && init != nullptr ? to_f(init[(size_t)b * W + w])
+                                          : 0.f;
 
-    T cx[RG_U], ci[RG_U], ca[RG_U];
-    rg_load(cx, ci, ca, xi, ii, ai, 0, S);
-    for (int t0 = 0; t0 < S; t0 += RG_U) {
-        T nx[RG_U], ni[RG_U], na[RG_U];    // the next steps' loads, in flight
-        rg_load(nx, ni, na, xi, ii, ai, t0 + RG_U, S);
+    T cx[RG_L], ci[RG_L], ca[RG_L];
+    rg_load(cx, ci, ca, xi, ii, ai, warp * RG_L, S, live);
+    for (int s0 = 0, buf = 0; s0 < S; s0 += SEG, buf ^= 1) {
+        T nx[RG_L], ni[RG_L], na[RG_L];    // the next segment's loads
+        rg_load(nx, ni, na, xi, ii, ai, s0 + SEG + warp * RG_L, S, live);
+        // this warp's chunk from a zero carry: local h and prod a
+        float loc[RG_L], pr[RG_L];
 #pragma unroll
-        for (int u = 0; u < RG_U; ++u) {
-            const float log_at = cla * to_f(ca[u]);
-            const float a_t = expf(log_at);
-            const float beta = sqrtf(-expm1f(2.f * log_at));
+        for (int u = 0; u < RG_L; ++u) {
+            float a_t, beta;
+            rg_gates<T>(cla * to_f(ca[u]), a_t, beta);
             const float bt = beta * (to_f(ci[u]) * to_f(cx[u]));
-            carry = a_t * carry + bt;
-            if (t0 + u < S) hp[(size_t)(t0 + u) * W] = from_f<T>(carry);
+            loc[u] = u == 0 ? bt : fmaf(a_t, loc[u - 1], bt);
+            pr[u] = u == 0 ? a_t : pr[u - 1] * a_t;
         }
+        a_s[buf][warp][lane] = pr[RG_L - 1];
+        b_s[buf][warp][lane] = loc[RG_L - 1];
+        __syncthreads();
+        // the carry into this warp's chunk, and out of the segment
+        float cin = carry;
 #pragma unroll
-        for (int u = 0; u < RG_U; ++u) {
+        for (int v = 0; v < RG_NW; ++v) {
+            if (v == warp) cin = carry;
+            carry = fmaf(a_s[buf][v][lane], carry, b_s[buf][v][lane]);
+        }
+        const int t0 = s0 + warp * RG_L;
+#pragma unroll
+        for (int u = 0; u < RG_L; ++u)
+            if (live && t0 + u < S)
+                hp[(size_t)(t0 + u) * W] = from_f<T>(fmaf(pr[u], cin,
+                                                          loc[u]));
+#pragma unroll
+        for (int u = 0; u < RG_L; ++u) {
             cx[u] = nx[u];
             ci[u] = ni[u];
             ca[u] = na[u];
         }
     }
-    fin[(size_t)b * W + w] = from_f<T>(carry);
+    if (live && warp == 0) fin[(size_t)b * W + w] = from_f<T>(carry);
 }
 
 template <typename T, typename S0>
@@ -122,7 +186,7 @@ int launch(const void* x, const void* ig, const void* ag, const float* log_a,
            const void* init, void* h, void* fin, int B, int S, int W,
            long long xb, long long xs, long long ib, long long is,
            long long ab, long long as, float c, cudaStream_t stream) {
-    const dim3 grid((W + RG_THREADS - 1) / RG_THREADS, B);
+    const dim3 grid((W + 31) / 32, B);
     rglru_scan_kernel<T, S0><<<grid, RG_THREADS, 0, stream>>>(
         (const T*)x, (const T*)ig, (const T*)ag, log_a, (const S0*)init,
         (T*)h, (T*)fin, S, W, xb, xs, ib, is, ab, as, c);

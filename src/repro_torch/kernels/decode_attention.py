@@ -79,6 +79,43 @@ def decode_workspace_shape(B: int, H: int, D: int, splits: int):
     return None if splits == 1 else (B, H, splits, D + 2)
 
 
+SPLIT_TILE = 64        # keys a tile of the bf16 split body (DS_KT)
+
+
+def paged_decode_splits(B: int, KV: int, G: int, D: int, keys: int,
+                        window: Optional[int], sm_count: int):
+    """(splits, keys a split) of a bf16 paged decode launch over B rows of
+    a table of ``keys`` = W * block_size keys, KV kv heads of G query heads
+    of head dim D: whole SPLIT_TILE tiles a split, together covering the
+    most keys a row can see (min(keys, window) when windowed, else keys),
+    as many splits as give every SM ``paged_blocks_an_sm(D)`` (row, kv
+    head, head chunk, split) blocks and not more; one split when the
+    blocks alone fill the card.  Each block places its split at the row's
+    lower bound max(0, length - window) + z * split_len on the card, so
+    the plan needs no length: it reads nothing back from the card and
+    costs no wait.  At the serving decodes on 132 SMs: qwen2's 16 rows x 2
+    kv heads of 7 at D = 64 over 128 x 16 keys, (16, 128) (512 blocks);
+    recurrentgemma's 16 x 1 kv head of 10 at D = 256 over 194 x 16 keys,
+    window 2048, (8, 256) (128 blocks); phi4-mini's 16 x 8 kv heads of 3
+    at D = 128 over 128 x 16 keys, (4, 512) (512 blocks)."""
+    cover = min(keys, window) if window is not None and window > 0 else keys
+    blocks = B * KV * -(-G // HEAD_CHUNK)
+    tiles = max(1, -(-cover // SPLIT_TILE))
+    want = min(MAX_SPLITS,
+               max(1, paged_blocks_an_sm(D) * sm_count // max(1, blocks)))
+    per = -(-tiles // want)
+    return -(-tiles // per), per * SPLIT_TILE
+
+
+def paged_blocks_an_sm(D: int) -> int:
+    """Blocks of the split body the plan gives an SM: four below D = 256
+    (at qwen2-0.5b's serving decode, D = 64, four read faster than two and
+    two faster than one on an H100; D = 128 takes the same, unmeasured),
+    one at D = 256, whose two 67 KB key stages take 143 KB of shared
+    memory (two an SM read slower there: a second wave)."""
+    return 1 if D >= 256 else 4
+
+
 MLA_TILE = 64          # keys a tile of the bf16 MLA decode kernel (ML_KT)
 MLA_MIN_SPLIT = 128    # keys: a split's partial (H (R + 2) floats, 32.9 KB
                        # at deepseek-v2-lite's H = 16, R = 512) stays at most

@@ -4,15 +4,18 @@ versions, launch counts.
 Replaces the TPU kernel ``repro/kernels/paged_decode_attention.py``,
 function ``paged_decode_attention``.  The kernel
 (``csrc/paged_decode_attention.cu``) walks each row's block table inside
-the kernel, so the pool is read once per live key and no dense
+the kernel, so the pool is read once per visible key and no dense
 ``pool[block_tables]`` copy exists; its header says what bounds it on the
-H100 (bytes) and how the TPU's sequential page grid became a loop inside
-one thread block per (kv head, row).
+H100 (bytes) and how the TPU's sequential page grid became, in bf16, key
+splits planned on the host (``decode_attention.paged_decode_splits``,
+from the shapes alone), each placed from its row's lower bound on the
+card, all G heads of a kv head on the tensor cores, the splits' partials
+merged by a second kernel in the same call.
 
 :func:`paged_decode_attention` launches the kernel for CUDA tensors and
 runs :func:`paged_decode_attention_ref` for CPU tensors — the device of
 the input decides, never a fallback.  ``paged_decode_attention.launches``
-counts kernel launches.
+counts wrapper calls that launched.
 
 :func:`paged_mla_decode_attention` (kernel
 ``csrc/paged_mla_decode_attention.cu``) replaces the same file's
@@ -37,8 +40,10 @@ from repro_torch.kernels import (DTYPE_CODES, NEG_INF, attention_problems,
                                  build, count_launch, raise_problems,
                                  refuse_grad, side_input_problems)
 from repro_torch.kernels.decode_attention import (_sm_count, _workspace,
+                                                  decode_workspace_shape,
                                                   mla_decode_splits,
-                                                  mla_workspace_shape)
+                                                  mla_workspace_shape,
+                                                  paged_decode_splits)
 
 
 def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths, *,
@@ -73,8 +78,9 @@ def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths, *,
 def _lib():
     lib = build.load("paged_decode_attention")
     fn = lib.paged_decode_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                   + [ctypes.c_float] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -118,12 +124,20 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
     lens = lengths.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     scale = scale if scale is not None else D ** -0.5
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    splits, keys, part = 1, W * block_size, None
+    if q.dtype == torch.bfloat16:
+        splits, keys = paged_decode_splits(B, KV, H // KV, D,
+                                           W * block_size, window,
+                                           _sm_count(q.device.index))
+        shape = decode_workspace_shape(B, H, D, splits)
+        if shape is not None:
+            part = _workspace(q.device, stream, math.prod(shape)).data_ptr()
     rc = _lib()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                tables.data_ptr(), lens.data_ptr(), out.data_ptr(), part,
                 B, H, KV, D, W, block_size,
-                window if window is not None else 0, scale,
-                DTYPE_CODES[q.dtype],
-                torch.cuda.current_stream(q.device).cuda_stream)
+                window if window is not None else 0, scale, splits, keys,
+                DTYPE_CODES[q.dtype], stream)
     count_launch(paged_decode_attention, rc)
     return out
 

@@ -11,9 +11,12 @@ passes one): for x, input_gate, a_gate (B, S, W) and log_a (W,) float32,
     h_t = a_t h_{t-1} + beta_t (input_gate_t x_t),  h_{-1} = init_state or 0
 
 in float32, and returns h (B, S, W) and the final state h_{S-1} (B, W),
-both rounded once to x's dtype.  The kernel (``csrc/rglru_scan.cu``) runs
-one thread per (row, channel) walking t in order with the carry in a
-register; its header says what bounds it on the H100.
+both rounded once to x's dtype.  The kernel (``csrc/rglru_scan.cu``)
+parallelises the time axis inside a block: a block's warps scan
+consecutive chunks of a segment from a zero carry, fold the chunks'
+(prod a, local h) pairs into carries through shared memory, and fix up
+h_t = local_t + prod_t carry_in; its header says what bounds it on the
+H100 (bytes) and how its segments were sized.
 
 :func:`rglru_scan` launches the kernel for CUDA tensors and runs
 :func:`rglru_scan_ref` for CPU tensors — the device of the input decides,

@@ -9,7 +9,10 @@ matmul with empty and single-expert groups, the Mamba-2 SSD scan at
 chunks of 256, 100, 48, 32, 16, 8 and 1 (both of its bodies) with and
 without an initial state and under a decay whose running sum falls
 below -200 in a chunk, the RG-LRU scan with and
-without an initial state, padded and at odd lengths; the four GQA
+without an initial state, padded and at odd lengths, at the edges of
+its warps' chunks and segments, a padded tail held bit for bit; the paged
+decode at the edges of its key splits for 3, 7 and 10 heads a kv head,
+windowed over null blocks; the four GQA
 attention kernels also at recurrentgemma-2b's head dim 256 with 10 query
 heads per kv head, windowed; the bf16 prefill body of flash and the ragged
 prefill at every (Dk, Dv) pair at the edges of its tiles; the grouped
@@ -263,6 +266,53 @@ def test_decode_kernel_at_the_edges_of_its_splits(cuda, dtype, G, dim,
     got = da.decode_attention(*args, **kw)
     assert da.decode_attention.launches == n0 + 1
     _assert_close(got, da.decode_attention_ref, args, kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [3, 7, 10])
+@pytest.mark.parametrize("dim", [64, 128, 256])
+@pytest.mark.parametrize("windowed", [False, True])
+def test_paged_decode_kernel_at_the_edges_of_its_splits(cuda, dtype, G, dim,
+                                                        windowed):
+    """Rows of length 0 and 1, exactly one split (the split the bf16 plan
+    takes on this card), one split and one key, exactly the window (or two
+    splits), the full table and one key short of it, and a row whose
+    visible keys straddle splits; windowed, the table's blocks wholly below
+    a row's window are the null block, whose keys are large, so reading
+    one would show.  G heads a kv head: phi4-mini's 3 (24 over 8), qwen2's
+    7, recurrentgemma's 10.  A second call replays the first bit for bit
+    (the combine merges the splits in split order); a row of length 0
+    writes zeros."""
+    KV = {3: 8, 7: 2, 10: 1}[G]
+    B, bs, W = 8, 16, 40
+    window = 200 if windowed else None
+    splits, keys = da.paged_decode_splits(B, KV, G, dim, W * bs, window,
+                                          da._sm_count(0))
+    assert splits > 1
+    lengths = [0, 1, keys, keys + 1, window or 2 * keys, W * bs, W * bs - 1,
+               (window or keys) + keys + 1]
+    g = torch.Generator().manual_seed(G * dim + windowed)
+    tables = (torch.randperm(B * W, generator=g) + 1).reshape(B, W).to(
+        torch.int32)
+    for r, n in enumerate(lengths):
+        if window:
+            tables[r, :max(0, n - window) // bs] = 0
+    k_pool, v_pool = (torch.randn(B * W + 1, bs, KV, dim, generator=g)
+                      for _ in range(2))
+    k_pool[0], v_pool[0] = 100.0, 100.0           # the null block
+    q = torch.randn(B, 1, KV * G, dim, generator=g)
+    args = (q.to(cuda, dtype), k_pool.to(cuda, dtype), v_pool.to(cuda, dtype),
+            tables.to(cuda), torch.tensor(lengths, dtype=torch.int32,
+                                          device=cuda))
+    kw = dict(block_size=bs, window=window)
+    n0 = pda.paged_decode_attention.launches
+    got = pda.paged_decode_attention(*args, **kw)
+    again = pda.paged_decode_attention(*args, **kw)
+    assert pda.paged_decode_attention.launches == n0 + 2
+    assert torch.equal(got, again)
+    assert not got[0].any()
+    _assert_close(got[1:], lambda *a, **k: pda.paged_decode_attention_ref(
+        *a, **k)[1:], args, kw)
 
 
 def test_generator_on_the_card_matches_the_cpu(cuda):
@@ -834,7 +884,9 @@ def test_rglru_scan_kernel_matches_plain_version(cuda, dtype, B, S, W, init,
 
 def test_rglru_scan_kernel_takes_an_f32_state_and_strided_rows(cuda):
     """bf16 inputs with a float32 initial state (the port's pool may hold
-    either), and x, input_gate and a_gate as strided views of wider rows."""
+    either), and x, input_gate and a_gate as strided views of wider rows,
+    of every other step of a longer sequence, and one element in with odd
+    strides: the same result bit for bit."""
     args, s0 = _rg_inputs(torch.bfloat16, cuda, 2, 64, 128, seed=3,
                           init=True, init_dtype=torch.float32)
     wide = torch.cat([a for a in args[:3]], dim=-1)          # (B, S, 3W)
@@ -842,8 +894,66 @@ def test_rglru_scan_kernel_takes_an_f32_state_and_strided_rows(cuda):
     got = rs.rglru_scan(*views, args[3], init_state=s0)
     want = rs.rglru_scan(*args, init_state=s0)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+    tall = torch.zeros(2, 128, 3 * 128, dtype=torch.bfloat16, device=cuda)
+    tall[:, ::2] = wide
+    steps = [tall[:, ::2, i * 128:(i + 1) * 128] for i in range(3)]
+    got = rs.rglru_scan(*steps, args[3], init_state=s0)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
     _assert_close(got[0], lambda *a, **k: rs.rglru_scan_ref(*a, **k)[0],
                   args, dict(init_state=s0), slack=RG_ABS)
+    odd = torch.cat([wide[..., :1], wide], dim=-1)           # (B, S, 3W + 1)
+    got = rs.rglru_scan(*[odd[..., 1 + i * 128:1 + (i + 1) * 128]
+                          for i in range(3)], args[3], init_state=s0)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+RG_L, RG_SEG = 8, 32    # csrc/rglru_scan.cu: RG_L steps a warp's chunk,
+                        # RG_NW x RG_L a segment
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [RG_L - 1, RG_L, RG_L + 1, RG_SEG - 1, RG_SEG,
+                               RG_SEG + 1, 1023, 1024])
+def test_rglru_scan_kernel_at_the_edges_of_its_segments(cuda, dtype, S):
+    """Lengths around a warp's chunk and a segment, and the Generator's
+    1024 and one short of it, over a width whose last channel tile is
+    partly past W; the final state is the last step's h bit for bit."""
+    args, s0 = _rg_inputs(dtype, cuda, 2, S, 200, seed=S, init=True)
+    n0 = rs.rglru_scan.launches
+    h, fin = rs.rglru_scan(*args, init_state=s0)
+    assert rs.rglru_scan.launches == n0 + 1
+    kw = dict(init_state=s0)
+    _assert_close(h, lambda *a, **k: rs.rglru_scan_ref(*a, **k)[0], args, kw,
+                  slack=RG_ABS)
+    _assert_close(fin, lambda *a, **k: rs.rglru_scan_ref(*a, **k)[1], args,
+                  kw, slack=RG_ABS)
+    assert torch.equal(fin, h[:, -1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [RG_SEG + 3, 256])
+def test_rglru_scan_kernel_passes_a_padded_tail_through(cuda, dtype, S):
+    """Rows padded past limits at and around a chunk's and a segment's
+    edges (a_gate = 0 there, as the serving prefill chunk zeroes it) and a
+    filler row (limit 0) with a zero state: every padded step holds the
+    state at the limit and the final state equals it bit for bit, and the
+    filler row stays zero."""
+    limits = [0, 1, RG_L - 1, RG_L, RG_SEG - 1, RG_SEG, RG_SEG + 1, S - 1]
+    args, s0 = _rg_inputs(dtype, cuda, len(limits), S, 200, seed=S + 1,
+                          init=True)
+    pos = torch.arange(S, device=cuda)
+    lim = torch.tensor(limits, device=cuda)
+    args[2] = args[2] * (pos[None, :] < lim[:, None])[..., None].to(dtype)
+    s0[0] = 0.0
+    h, fin = rs.rglru_scan(*args, init_state=s0)
+    for r, n in enumerate(limits):
+        held = s0[r] if n == 0 else h[r, n - 1]
+        assert torch.equal(h[r, n:], held.expand(S - n, -1)), n
+        assert torch.equal(fin[r], held), n
+    assert not h[0].any() and not fin[0].any()
+    kw = dict(init_state=s0)
+    _assert_close(h, lambda *a, **k: rs.rglru_scan_ref(*a, **k)[0], args, kw,
+                  slack=RG_ABS)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -5,15 +5,21 @@ The dense decode kernel cuts each row's keys into splits chosen on the
 host from the cache length S and the SM count (``decode_splits``), and
 writes the splits' partials to a workspace of ``decode_workspace_shape``;
 the MLA decode kernel does the same over a table of W * block_size keys,
-in whole 64-key tiles (``mla_decode_splits``, ``mla_workspace_shape``).
-Both plans are plain Python, checked here on the CPU against what the
-kernels need: splits that cover the keys, and blocks enough to give every
-SM one, and no more, wherever there are keys enough for them.  The SSD
-scan's wrapper picks its kernel's body from the shapes (``ssd_body``).
+in whole 64-key tiles (``mla_decode_splits``, ``mla_workspace_shape``),
+and the paged GQA decode over the most keys a row can see, min(W *
+block_size, window), in whole 64-key tiles placed from each row's lower
+bound on the card (``paged_decode_splits``).  The plans are plain Python,
+made from shapes alone (no length), checked here on the CPU against what
+the kernels need: splits that cover the keys, and blocks enough to give
+every SM one, and no more, wherever there are keys enough for them.  The
+SSD scan's wrapper picks its kernel's body from the shapes (``ssd_body``).
 The wrappers' input checks (which run before a launch, on the card only)
-are plain Python too and refuse what no kernel takes.  The kernels
-themselves run on the card (``tests/test_torch_cuda.py``).
+are plain Python too and refuse what no kernel takes, and take what the
+model layers hand over.  The kernels themselves run on the card
+(``tests/test_torch_cuda.py``).
 """
+import inspect
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -22,8 +28,9 @@ from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import grouped_matmul as gm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import rglru_scan as rs  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
-from repro_torch.models import mamba2  # noqa: E402
+from repro_torch.models import mamba2, rglru  # noqa: E402
 
 SMS = 132                  # an H100 SXM's SMs
 
@@ -117,6 +124,91 @@ def test_mla_plan_at_the_serving_decode():
     assert da.mla_workspace_shape(1, 16, 512, 1) is None
     assert da.mla_decode_splits(SMS, 96 * 16, SMS)[0] == 1
     assert da.mla_decode_splits(4 * SMS, 96 * 16, SMS) == (1, 1536)
+
+
+@pytest.mark.parametrize("B,KV,G", [(1, 1, 10), (16, 1, 10), (16, 2, 7),
+                                    (16, 8, 3), (4, 8, 3), (3, 2, 20),
+                                    (SMS, 1, 1), (64, 8, 4)])
+@pytest.mark.parametrize("W,window", [(1, None), (128, None), (194, 2048),
+                                      (194, None), (40, 200), (8, 4096),
+                                      (194, 1)])
+@pytest.mark.parametrize("D", [64, 256])
+def test_paged_splits_cover_the_window_in_whole_tiles_one_block_an_sm(
+        B, KV, G, W, window, D):
+    """The most keys a row can see, min(W * 16, window), in splits of
+    whole 64-key tiles, none wholly past them; at most
+    ``paged_blocks_an_sm(D)`` (row, kv head, head chunk, split) blocks an
+    SM (four below D = 256, one at it), and no cut into shorter splits of
+    whole tiles stays within that."""
+    keys = W * 16
+    cover = min(keys, window) if window else keys
+    splits, split_len = da.paged_decode_splits(B, KV, G, D, keys, window,
+                                               SMS)
+    assert splits >= 1 and split_len % da.SPLIT_TILE == 0
+    assert splits * split_len >= cover > (splits - 1) * split_len
+    blocks = B * KV * -(-G // da.HEAD_CHUNK)
+    slots = da.paged_blocks_an_sm(D) * SMS
+    assert da.paged_blocks_an_sm(D) == (1 if D == 256 else 4)
+    assert splits * blocks <= max(blocks, slots)
+    tiles, per = -(-cover // da.SPLIT_TILE), split_len // da.SPLIT_TILE
+    assert per == 1 or -(-tiles // (per - 1)) * blocks > slots
+
+
+def test_paged_plan_takes_shapes_only():
+    """The plan reads no length: its arguments are the shapes, the window
+    and the SM count, so a call makes it without a wait on the card."""
+    assert list(inspect.signature(da.paged_decode_splits).parameters) == [
+        "B", "KV", "G", "D", "keys", "window", "sm_count"]
+
+
+def test_paged_plan_at_the_serving_decodes():
+    """The numbers of the plan's docstring, chip_smoke.py's serving decodes
+    on 132 SMs: qwen2-0.5b's 16 seats x 2 kv heads of 7 at D = 64 over a
+    128-block table of block 16, recurrentgemma-2b's 16 x 1 kv head of 10
+    at D = 256 over 194 blocks with its window of 2048 (the splits cover
+    the window, not the 3104-key table), phi4-mini's 16 x 8 kv heads of 3
+    at D = 128; and their workspaces."""
+    assert da.paged_decode_splits(16, 2, 7, 64, 128 * 16, None,
+                                  SMS) == (16, 128)
+    assert da.paged_decode_splits(16, 1, 10, 256, 194 * 16, 2048,
+                                  SMS) == (8, 256)
+    assert da.paged_decode_splits(16, 8, 3, 128, 128 * 16, None,
+                                  SMS) == (4, 512)
+    assert da.paged_decode_splits(SMS, 8, 3, 128, 128 * 16, None,
+                                  SMS) == (1, 2048)
+    assert da.decode_workspace_shape(16, 14, 64, 16) == (16, 14, 16, 66)
+    assert da.decode_workspace_shape(16, 10, 256, 8) == (16, 10, 8, 258)
+    assert da.decode_workspace_shape(SMS, 24, 128, 1) is None
+
+
+@pytest.mark.parametrize("prefill", [False, True])
+def test_rglru_check_accepts_what_the_rglru_layer_hands_over(prefill,
+                                                             monkeypatch):
+    """recurrentgemma-2b's RG-LRU layer at its full width (lru_width 2560)
+    on CPU tensors: every rglru_scan call of its forward and of its serving
+    prefill chunk (an initial state from the seat rows) passes the
+    wrapper's check."""
+    cfg = get_config("recurrentgemma-2b")
+    p = rglru.init_rglru(cfg, torch.Generator().manual_seed(0))
+    seen = []
+
+    def checked(x, input_gate, a_gate, log_a, *, init_state=None, c=8.0):
+        rs._check(x, input_gate, a_gate, log_a, init_state)
+        seen.append(x.shape)
+        return rs.rglru_scan_ref(x, input_gate, a_gate, log_a,
+                                 init_state=init_state, c=c)
+    monkeypatch.setattr(ops.rs, "rglru_scan", checked)
+    g = torch.Generator().manual_seed(1)
+    if prefill:
+        x = torch.randn(4, 16, cfg.d_model, generator=g).to(torch.bfloat16)
+        cache = rglru.init_rglru_cache(cfg, 5, torch.bfloat16, "cpu")
+        rglru.rglru_prefill_chunk(
+            p, x, torch.tensor([0, 16, 0, 0]), torch.tensor([16, 20, 9, 0]),
+            torch.tensor([0, 1, 2, 4]), cfg, cache)
+    else:
+        x = torch.randn(2, 8, cfg.d_model, generator=g).to(torch.bfloat16)
+        rglru.rglru_forward(p, x, cfg)
+    assert len(seen) == 1 and seen[0][-1] == 2560
 
 
 @pytest.mark.parametrize("dtype,P,N,chunk,body", [

@@ -121,8 +121,9 @@ def _serve(server, prompts, max_new, **kw):
     return [out[r] for r in rids]
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "llama3-8b"])
+@pytest.mark.parametrize("arch,case", [
+    (arch, case) for arch in ("qwen2-0.5b", "llama3-8b") for case in
+    sorted(CASES)] + [("granite-3-2b", "mixed"), ("phi4-mini-3.8b", "mixed")])
 def test_serve_matches_reference_serve_and_generator(arch, case):
     kw, prompts, max_new = CASES[case]
     jcfg, cfg, jp, tp = _models(arch)
@@ -410,17 +411,17 @@ def test_typed_errors_name_what_is_missing():
 
 
 def test_ported_and_not_yet_ported_archs():
-    """Seven archs are ported (the dense GQA pair, the three MoE configs,
-    mamba2-370m and the hybrid recurrentgemma-2b), each a copy of the
-    reference's config; every other arch of the reference raises the typed
-    ArchNotPortedError naming what it still needs."""
+    """Nine archs are ported (the four dense GQA configs, the three MoE
+    configs, mamba2-370m and the hybrid recurrentgemma-2b), each a copy of
+    the reference's config; every other arch of the reference raises the
+    typed ArchNotPortedError naming what it still needs."""
     from repro.configs.base import list_archs as jax_list_archs
     assert list_archs() == ("deepseek-moe-16b", "deepseek-v2-lite-16b",
-                            "llama3-8b", "mamba2-370m", "moonshot-v1-16b-a3b",
+                            "granite-3-2b", "llama3-8b", "mamba2-370m",
+                            "moonshot-v1-16b-a3b", "phi4-mini-3.8b",
                             "qwen2-0.5b", "recurrentgemma-2b")
     rest = sorted(set(jax_list_archs()) - set(list_archs()))
-    assert rest == ["granite-3-2b", "internvl2-26b", "musicgen-large",
-                    "phi4-mini-3.8b"]
+    assert rest == ["internvl2-26b", "musicgen-large"]
     for name in rest:
         with pytest.raises(ArchNotPortedError, match="not ported yet"):
             get_config(name)
