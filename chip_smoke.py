@@ -6,8 +6,9 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
    1. device   — card name and power limit (nvidia-smi), torch/CUDA versions;
-   2. build    — nvcc builds the eight CUDA kernels from ``src/repro_torch``,
-                 one process per source, all started together;
+   2. build    — nvcc builds the nine CUDA sources from ``src/repro_torch``
+                 (the eight kernels and flash's backward), one process per
+                 source, all started together;
    3. kernels  — each kernel against its plain PyTorch version on the card,
                  bf16 and f32, with and without a window, at the shapes the
                  runs below give it: the paged kernels at phase 4's (H=14,
@@ -44,10 +45,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                  past the window, dense decode over the Generator's 1096
                  entries, a full 2048-entry ring and the composed phase's
                  gathered keys, flash at 8 x 1024, at S = 3072 and with the
-                 composed phase's per-row offsets.  Each kernel is timed in
-                 bf16 at its main-path shape beside its plain version, a
-                 library yardstick (SDPA; torch._grouped_mm; none for the
-                 two scans) and its bound;
+                 composed phase's per-row offsets; and the train step's:
+                 flash with its lse output at phase 23's shape (B=4,
+                 S=4096, (14, 2, 64)) and flash's backward there and at
+                 (24, 8, 128), S=2048, with and without a window, against
+                 flash_attention_bwd_ref and, in f32, autograd through the
+                 plain forward.  Each kernel is timed in bf16 at its
+                 main-path shape beside its plain version, a library
+                 yardstick (SDPA; SDPA's backward; torch._grouped_mm; none
+                 for the two scans) and its bound;
    4. serve    — qwen2-0.5b at full width (24 layers, random weights from a
                  seed) in bf16 through HyperServe continuous batching; the
                  fused kernels must launch 24 times per decode step /
@@ -123,9 +129,23 @@ Phases, in order; any failure raises and the script exits non-zero:
                  Generator's on prompts of at most the window (one exactly
                  it, so decode crosses it), and through a preemption that
                  spills and restores seat rows beside the pages;
-  23. result   — the nvidia-smi line, the kernel JSON line (eight kernels;
+  23. train    — qwen2-0.5b's train step at full width (all 24 layers,
+                 random weights from a seed) in bf16 through
+                 ``repro_torch.train.trainer.train``: 8 steps of 4 x 4096
+                 tokens of the reference's synthetic corpus (its train_4k
+                 with the global batch cut from 256 to 4); loss and grad
+                 norm finite, exactly 48 flash_attention launches (24 and
+                 24 remat) and 24 backward calls every step; step wall
+                 time, train tok/s, peak device memory;
+  24. train profile — torch.profiler over one train step;
+  25. train identity — qwen2-0.5b at full width, all 24 layers, float32,
+                 4 steps of 2 x 1024 with the kernels and with the plain
+                 versions: losses and grad norms within 1e-4 relative, the
+                 params within AdamW's bound;
+  26. result   — the nvidia-smi line, the kernel JSON line (nine kernels;
                  flash has a row for each run it is on: phase 6's (64, 64),
-                 phase 12's (192, 128) and phase 21's (256, 256); ssd_scan
+                 phase 12's (192, 128), phase 21's (256, 256) and phase
+                 23's train shape with lse, beside its backward's; ssd_scan
                  and rglru_scan one for their serving prefill calls and one
                  for their Generator prefill; the paged decode, ragged
                  prefill and dense decode a second row at (256, G = 10);
@@ -250,6 +270,23 @@ RG_GEN_PROMPTS = (2048, 1900, 700)
 # tree: their float32 carries differ by up to the float32 limit, which is
 # also its bf16 slack
 RG_ABS = F32_TOL
+# qwen2-0.5b's train step on the card (phase 23, bf16, all 24 layers):
+# TRAIN_B rows of TRAIN_S tokens, the reference's train_4k sequence length
+# with its global batch of 256 cut to 4 (the one cut: the reference spreads
+# 256 rows over a mesh's data axis, one card holds 4), TRAIN_STEPS steps
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 4096, 8
+# the f32 train identity (phase 25): kernels against plain versions on
+# TRAIN_ID_B x TRAIN_ID_S tokens, TRAIN_ID_STEPS steps from one seed, all 24
+# layers; losses and grad norms agree to TRAIN_ID_REL relative (the
+# attention's f32 sums differ in order, ~1e-6 of a value, carried through
+# 24 layers); the params' bound follows from AdamW (phase_train_identity)
+TRAIN_ID_B, TRAIN_ID_S, TRAIN_ID_STEPS = 2, 1024, 4
+TRAIN_ID_REL = 1e-4
+# the flash backward also at the wider heads of phi4-mini, llama3-8b and
+# granite, (H, KV, D) = (24, 8, 128), BWD_WIDE_B x BWD_WIDE_S, with and
+# without a window
+BWD_WIDE = (24, 8, 128)
+BWD_WIDE_B, BWD_WIDE_S = 2, 2048
 
 
 def log(msg: str) -> None:
@@ -310,6 +347,24 @@ def parity(torch, dtype_name, got, want, want32, slack=BF16_ABS):
     share = err / (step + slack)
     err32 = (got.float() - want32).abs()
     share32 = err32 / (0.5 * bf16_step(torch, want32) + slack)
+    return err.max().item(), max(share.max().item(), share32.max().item())
+
+
+def grad_parity(torch, dtype_name, got, want, want32):
+    """The flash backward's rule: (max abs error against the plain
+    version, worst share of the allowed error).  Its sums run over up to
+    TRAIN_S keys, or G x TRAIN_S query rows, in another order, so the f32
+    limit scales with the gradient, F32_TOL x max(1, max |grad|); in bf16
+    that f32 limit is the slack beside one step of the plain version and
+    half a step of its f32 result (the f32 rows print the differences it
+    covers)."""
+    lim = F32_TOL * max(1.0, want32.abs().max().item())
+    err = (got.float() - want.float()).abs()
+    if dtype_name == "float32":
+        return err.max().item(), err.max().item() / lim
+    share = err / (bf16_step(torch, want) + lim)
+    err32 = (got.float() - want32).abs()
+    share32 = err32 / (0.5 * bf16_step(torch, want32) + lim)
     return err.max().item(), max(share.max().item(), share32.max().item())
 
 
@@ -424,6 +479,21 @@ def sdpa_flash(torch, q, k, v):
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     return lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
                                                   enable_gqa=True)
+
+
+def sdpa_flash_bwd(torch, q, k, v, o, lse, do):
+    """Yardstick of the flash backward: (autograd.grad through one causal
+    GQA SDPA call, that SDPA call alone); its backward's time is the first
+    less the second.  The (B, H, S, D) transposes are outside the calls."""
+    import torch.nn.functional as F
+    qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    doh = do.transpose(1, 2).contiguous()
+
+    def fwd():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                              enable_gqa=True)
+    return (lambda: torch.autograd.grad(fwd(), (qh, kh, vh), doh)), fwd
 
 
 def sdpa_flash_rows(torch, q, k, v, q_offset, scale):
@@ -869,7 +939,7 @@ def phase_build():
     logs = build.build(["paged_decode_attention", "ragged_prefill_attention",
                         "flash_attention", "decode_attention",
                         "paged_mla_decode_attention", "grouped_matmul",
-                        "ssd_scan", "rglru_scan"])
+                        "ssd_scan", "rglru_scan", "flash_attention_bwd"])
     log(f"[build] {time.perf_counter() - t0:.1f}s into {build.BUILD_DIR}")
     for name, text in logs.items():
         log(f"[build] {name}: {text.splitlines()[0]}")
@@ -899,7 +969,8 @@ def ptxas_report(text):
 
 
 def short_kernel_name(mangled: str) -> str:
-    m = re.search(r"(\w+?)I((?:13__nv_bfloat16|f|Li\d+E)+)E", mangled)
+    m = re.search(r"(\w+?)I((?:13__nv_bfloat16|f|Li\d+E|Lb[01]E)+)E",
+                  mangled)
     if m is None:                   # no template: the last nested name
         pos, last = 3, mangled
         while mangled.startswith("_ZN") and mangled[pos:pos + 1].isdigit():
@@ -914,10 +985,11 @@ def short_kernel_name(mangled: str) -> str:
         if d and int(d.group()) == len(head) - i - d.end() > 0:
             name = head[i + d.end():]
             break
-    args = re.findall(r"13__nv_bfloat16|Li\d+E|f", m.group(2))
+    args = re.findall(r"13__nv_bfloat16|Lb[01]E|Li\d+E|f", m.group(2))
     return name + "<" + ",".join(
-        "bf16" if a.startswith("13") else "f32" if a == "f" else a[2:-1]
-        for a in args) + ">"
+        "bf16" if a.startswith("13") else "f32" if a == "f" else
+        ("lse" if a == "Lb1E" else "nolse") if a.startswith("Lb") else
+        a[2:-1] for a in args) + ">"
 
 
 def kernel_cases(torch, dtype, heads, kv, dim):
@@ -1148,8 +1220,128 @@ def phase_kernels(torch):
                                      f"{dtype_name}")
             if dtype_name == "bfloat16":
                 timed[(name, case)] = (fn, ref, args, kw, err)
+        # qwen2-0.5b's train step: flash with lse, and its backward
+        train_kernel_checks(torch, dtype_name, timed)
 
     return time_kernels(torch, timed)
+
+
+def bwd_inputs(torch, dtype, heads, kv, dim, batch, seq, window, seed):
+    """The flash backward's inputs as the train step hands them over: q,
+    k, v, the forward kernel's output and lse on them, and dO."""
+    from repro_torch.kernels.flash_attention import flash_attention_lse
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q, k, v, do = (torch.randn(batch, seq, n, dim, generator=g)
+                   .to(DEVICE, dtype) for n in (heads, kv, kv, heads))
+    out, lse = flash_attention_lse(q, k, v, causal=True, window=window)
+    return q, k, v, out, lse, do
+
+
+def train_kernel_checks(torch, dtype_name, timed):
+    """The kernels of the train step against their plain versions: the
+    forward with its lse at the train shape (B = TRAIN_B, S = TRAIN_S,
+    (14, 2, 64)), and the backward there and at (24, 8, 128), S =
+    BWD_WIDE_S, with and without a window, against
+    ``flash_attention_bwd_ref`` and, in f32, against autograd through
+    ``flash_attention_ref`` (in bf16 the saved output is rounded, so
+    autograd of the f32 forward is another function)."""
+    from repro_torch.kernels import flash_attention as fa
+    dtype = getattr(torch, dtype_name)
+    for case, (heads, kv, dim), batch, seq, window in (
+            ("train", (H, KV, D), TRAIN_B, TRAIN_S, None),
+            ("wide", BWD_WIDE, BWD_WIDE_B, BWD_WIDE_S, None),
+            ("wide windowed", BWD_WIDE, BWD_WIDE_B, BWD_WIDE_S, WINDOW)):
+        args = bwd_inputs(torch, dtype, heads, kv, dim, batch, seq, window,
+                          SEED + 50)
+        kw = dict(causal=True, window=window)
+        what = f"B={batch} S={seq} H={heads} KV={kv} D={dim}"
+        if case == "train":
+            q, k, v, out, lse = args[:5]
+            want, want_lse = fa.flash_attention_lse_ref(q, k, v, **kw)
+            want32 = fa.flash_attention_ref(q.float(), k.float(), v.float(),
+                                            **kw)
+            err, share = parity(torch, dtype_name, out, want, want32)
+            lse_err = (lse - want_lse).abs().max().item()
+            lse_share = lse_err / (F32_TOL * max(
+                1.0, want_lse.abs().max().item()))
+            sync(torch)
+            log(f"[kernels] flash_attention with lse ({case}, {what}) "
+                f"{dtype_name}: out max_abs_err={err:.3e} ({share:.3f} of "
+                f"allowed), lse max_abs_err={lse_err:.3e} ({lse_share:.3f} "
+                f"of {F32_TOL} x max(1, max |lse|), f32 in both dtypes)")
+            if not max(share, lse_share) <= 1:
+                raise AssertionError("kernel parity failed: flash_attention "
+                                     f"with lse {dtype_name}")
+            if dtype_name == "bfloat16":
+                timed[("flash_attention", "train lse")] = (
+                    fa.flash_attention_lse, fa.flash_attention_lse_ref,
+                    (q, k, v), kw, max(err, lse_err))
+            del want, want_lse, want32
+        n0 = fa.flash_attention_bwd.launches
+        got = fa.flash_attention_bwd(*args, **kw)
+        wants = fa.flash_attention_bwd_ref(*args, **kw)
+        wants32 = fa.flash_attention_bwd_ref(
+            *(t.float() for t in args), **kw)
+        checks = [grad_parity(torch, dtype_name, g, w, w32)
+                  for g, w, w32 in zip(got, wants, wants32)]
+        sync(torch)
+        if fa.flash_attention_bwd.launches != n0 + 1:
+            raise AssertionError("flash_attention_bwd launched no kernel")
+        scale_of = [max(1.0, w.abs().max().item()) for w in wants32]
+        msg = ", ".join(f"d{n} {c[0]:.3e} ({c[1]:.3f}; max |grad| {m:.3g})"
+                        for n, c, m in zip("qkv", checks, scale_of))
+        share = max(c[1] for c in checks)
+        del wants, wants32
+        if dtype_name == "float32":
+            leaves = [t.clone().requires_grad_() for t in args[:3]]
+            auto = torch.autograd.grad(fa.flash_attention_ref(*leaves, **kw),
+                                       leaves, args[5])
+            auto_checks = [grad_parity(torch, dtype_name, g, a, a)
+                           for g, a in zip(got, auto)]
+            msg += "; against autograd through the plain forward " + \
+                ", ".join(f"d{n} {c[0]:.3e} ({c[1]:.3f})"
+                          for n, c in zip("qkv", auto_checks))
+            share = max([share] + [c[1] for c in auto_checks])
+            del leaves, auto
+        log(f"[kernels] flash_attention_bwd ({case}, {what}) {dtype_name} "
+            f"window={window}: max_abs_err {msg} (limit: {F32_TOL} x max(1, "
+            "max |grad|)" + ("" if dtype_name == "float32" else
+                             ", as slack beside one bf16 step of the plain "
+                             "version and half a step of its f32 result")
+            + ")")
+        if not share <= 1:
+            raise AssertionError(f"kernel parity failed: flash_attention_bwd "
+                                 f"{case} {dtype_name}")
+        if dtype_name == "bfloat16" and case == "train":
+            timed[("flash_attention_bwd", "train")] = (
+                fa.flash_attention_bwd, fa.flash_attention_bwd_ref, args, kw,
+                max(c[0] for c in checks))
+        del got
+        torch.cuda.empty_cache()
+
+
+def train_table(torch, pm, timed):
+    """Timing rows of the train step's kernels at qwen2-0.5b's train
+    shape, read from phase 23's run: flash with its lse (SDPA's forward
+    beside) and the backward (SDPA's backward beside: autograd through
+    SDPA less SDPA's forward)."""
+    q, k, v = timed[("flash_attention", "train lse")][2]
+    args = timed[("flash_attention_bwd", "train")][2]
+    shape = dict(num_heads=H, kv_heads=KV, itemsize=2)
+    return (
+        ("flash_attention", "train lse",
+         pm.prefill_visible_cost([0] * TRAIN_B, [TRAIN_S] * TRAIN_B, TRAIN_S,
+                                 head_dim=D, **shape),
+         sdpa_flash(torch, q, k, v),
+         "SDPA causal, enable_gqa (transposes excluded)",
+         "src/repro/kernels/flash_attention.py:87", "qwen2-0.5b train"),
+        ("flash_attention_bwd", "train",
+         pm.flash_attention_bwd_cost(batch=TRAIN_B, seq_q=TRAIN_S,
+                                     seq_k=TRAIN_S, dk=D, dv=D, **shape),
+         sdpa_flash_bwd(torch, *args),
+         "SDPA backward (autograd.grad through SDPA causal, enable_gqa, less "
+         "its forward; transposes excluded)",
+         "src/repro/kernels/flash_attention.py:87", "qwen2-0.5b train"))
 
 
 def time_kernels(torch, timed):
@@ -1209,13 +1401,17 @@ def time_kernels(torch, timed):
          None, None, None))
     table = (tuple(t + ("qwen2-0.5b",) for t in table)
              + tuple(t + (DS_ARCH,) for t in moe_mla_table(torch, pm, timed))
-             + ssm_table(pm, timed) + rg_table(torch, pm, timed))
+             + ssm_table(pm, timed) + rg_table(torch, pm, timed)
+             + train_table(torch, pm, timed))
     out = []
     for name, case, cost, lib, lib_what, replaces, path in table:
         fn, ref, args, kw, err = timed[(name, case)]
         ms = time_ms(lambda: fn(*args, **kw), torch)
         plain_ms = time_ms(lambda: ref(*args, **kw), torch)
-        library_ms = time_ms(lib, torch) if lib is not None else None
+        if isinstance(lib, tuple):    # (with the part to take away, part)
+            library_ms = time_ms(lib[0], torch) - time_ms(lib[1], torch)
+        else:
+            library_ms = time_ms(lib, torch) if lib is not None else None
         bound_ms = cost.bound_seconds("bfloat16") * 1e3
         bound_by = cost.bound_by("bfloat16")
         msg = (f"[kernels] {name} ({case}) bf16: {ms:.4f} ms, plain "
@@ -1263,6 +1459,7 @@ ROW_NAMES = {("flash_attention", "MLA rows q_offset (192, 128)"):
              "ragged_prefill_attention_d256_g10",
              ("flash_attention", "recurrentgemma Generator prefill"):
              "flash_attention_d256_g10",
+             ("flash_attention", "train lse"): "flash_attention_train",
              ("decode_attention", "recurrentgemma Generator"):
              "decode_attention_d256_g10"}
 
@@ -2289,6 +2486,180 @@ def phase_rg_identity(torch, np):
     phase_preempt(torch, np, cfg, params, tag="hybrid preempt")
 
 
+def phase_train(torch, np):
+    """qwen2-0.5b's train step at full width (all 24 layers, random
+    weights from a seed) in bf16 through ``repro_torch.train.trainer
+    .train``: TRAIN_STEPS steps of TRAIN_B x TRAIN_S tokens of the
+    reference's synthetic corpus, AdamWConfig(total_steps=TRAIN_STEPS) as
+    the reference's launcher builds it.  Every step: loss and grad norm
+    finite, exactly 2 x 24 flash_attention forward launches (each layer's
+    forward and its remat recompute) and 24 backward calls.  Step wall
+    time (each step ends in a read of its metrics, which waits for the
+    card), training tokens/s and the peak of allocated device memory."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import trainer
+    cfg = get_config("qwen2-0.5b")
+    shape = ShapeConfig("train_4k_b4", TRAIN_S, TRAIN_B, "train")
+    n = cfg.num_layers
+    seen, last = [], [0, 0]
+
+    def hook(m):
+        f, b = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+        seen.append((m, f - last[0], b - last[1]))
+        log(f"[train] step {m['step']}: loss {m['loss']:.4f} grad_norm "
+            f"{m['grad_norm']:.4f} lr {m['lr']:.3e} wall {m['wall_s']:.3f}s, "
+            f"launches: flash {f - last[0]} forward, {b - last[1]} backward")
+        last[:] = [f, b]
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    # the main path's run: every launch count starts at 0 here
+    fa.flash_attention.launches = 0
+    fa.flash_attention_bwd.launches = 0
+    sync(torch)
+    t0 = time.perf_counter()
+    params, hist = trainer.train(
+        cfg, shape, adamw=AdamWConfig(total_steps=TRAIN_STEPS),
+        train_cfg=trainer.TrainConfig(num_steps=TRAIN_STEPS, log_every=1,
+                                      seed=SEED),
+        hook=hook, device=DEVICE)
+    sync(torch)
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "flash_attention_bwd": fa.flash_attention_bwd.launches}
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if DEVICE == "cuda" else float("nan"))
+    del params
+    walls = [m["wall_s"] for m, _, _ in seen]
+    step_s = sorted(b - a for a, b in zip(walls, walls[1:]))
+    med = step_s[len(step_s) // 2]
+    log(f"[train] qwen2-0.5b bf16 full width, {TRAIN_STEPS} steps of "
+        f"{TRAIN_B} x {TRAIN_S} tokens: {wall:.3f}s in all, first step "
+        f"{walls[0]:.3f}s (with warm-up), median of steps 2-{TRAIN_STEPS} "
+        f"{med:.4f}s ({TRAIN_B * TRAIN_S / med:.1f} train tok/s), range "
+        f"{step_s[0]:.4f}..{step_s[-1]:.4f}s; peak device memory "
+        f"{peak:.2f} GiB (torch.cuda.max_memory_allocated)")
+    log(f"[train] launches {launches}; expected per step {2 * n} forward "
+        f"({n} + {n} remat) and {n} backward, {TRAIN_STEPS} steps")
+    if len(hist) != TRAIN_STEPS or not all(
+            np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+            for m, _, _ in seen):
+        raise AssertionError("a train step's loss or grad norm is not "
+                             "finite")
+    if any((f, b) != (2 * n, n) for _, f, b in seen) or launches != {
+            "flash_attention": 2 * n * TRAIN_STEPS,
+            "flash_attention_bwd": n * TRAIN_STEPS}:
+        raise AssertionError(f"train launch counts {launches}, per step "
+                             f"{[(f, b) for _, f, b in seen]}: expected "
+                             f"{2 * n} and {n} a step")
+    return launches
+
+
+def phase_train_profile(torch):
+    """torch.profiler over one train step (after a warm step) of the same
+    configuration: device busy, idle share and top device items."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, make_loader
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import steps
+    cfg = get_config("qwen2-0.5b")
+    params, opt = steps.init_state(cfg, seed=SEED, device=DEVICE)
+    step = steps.make_train_step(cfg, AdamWConfig(total_steps=TRAIN_STEPS))
+    loader = make_loader(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=TRAIN_S, global_batch=TRAIN_B,
+                                    seed=SEED), DEVICE)
+    params, opt, _ = step(params, opt, next(loader))          # warm
+    batch = next(loader)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sync(torch)
+        t0 = time.perf_counter()
+        params, opt, _ = step(params, opt, batch)
+        sync(torch)
+        wall = time.perf_counter() - t0
+    report_profile("train profile", [("train step", prof, wall, 1)])
+
+
+def adam_step_bound(b1: float, b2: float, t: int) -> float:
+    """Largest |m_hat / sqrt(v_hat)| AdamW's step ``t`` can take for any
+    gradients (Cauchy-Schwarz over the moments' weights):
+    (1 - b1) / (1 - b1^t) x sqrt(sum_{j<t} (b1^2 / b2)^j) x
+    sqrt((1 - b2^t) / (1 - b2)); 1 at t = 1."""
+    return ((1 - b1) / (1 - b1 ** t)
+            * sum((b1 * b1 / b2) ** j for j in range(t)) ** 0.5
+            * ((1 - b2 ** t) / (1 - b2)) ** 0.5)
+
+
+def phase_train_identity(torch, np):
+    """qwen2-0.5b at full width, all 24 layers, float32: TRAIN_ID_STEPS
+    train steps of TRAIN_ID_B x TRAIN_ID_S tokens from one seed, once with
+    the kernels and once with the plain versions (``ops.set_mode("ref")``,
+    autograd through the plain forward).  Losses and grad norms agree to
+    TRAIN_ID_REL at every step.  The params after the steps differ by at
+    most what AdamW allows: a weight moves by lr_t x (its Adam ratio + wd x
+    p) a step, the ratio at most adam_step_bound, so two runs whose
+    gradients differ only in rounding (a gradient near zero may flip sign,
+    and Adam's first steps are close to sign(g) lr) part by at most sum_t
+    2 lr_t bound_t, plus an f32 rounding a step; the largest difference
+    and how many weights come near the bound are printed."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.core.tree import tree_flatten_with_path
+    from repro_torch.kernels import ops
+    from repro_torch.optim.adamw import AdamWConfig, schedule
+    from repro_torch.train import trainer
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), dtype="float32")
+    shape = ShapeConfig("train_identity", TRAIN_ID_S, TRAIN_ID_B, "train")
+    adamw = AdamWConfig(total_steps=TRAIN_ID_STEPS)
+    runs = {}
+    for mode in ("auto", "ref"):
+        ops.set_mode(mode)
+        try:
+            runs[mode] = trainer.train(
+                cfg, shape, adamw=adamw, device=DEVICE,
+                train_cfg=trainer.TrainConfig(num_steps=TRAIN_ID_STEPS,
+                                              log_every=1, seed=SEED))
+        finally:
+            ops.set_mode("auto")
+        torch.cuda.empty_cache()
+    worst = 0.0
+    for a, b in zip(runs["auto"][1], runs["ref"][1]):
+        for k in ("loss", "grad_norm"):
+            rel = abs(a[k] - b[k]) / max(1.0, abs(b[k]))
+            worst = max(worst, rel)
+        log(f"[train identity] step {a['step']}: loss {a['loss']:.7f} vs "
+            f"plain {b['loss']:.7f}, grad_norm {a['grad_norm']:.6f} vs "
+            f"{b['grad_norm']:.6f}")
+    lrs = [float(schedule(adamw, torch.tensor(t, dtype=torch.int32)))
+           for t in range(1, TRAIN_ID_STEPS + 1)]
+    bound = sum(2 * lr * adam_step_bound(adamw.b1, adamw.b2, t)
+                for t, lr in enumerate(lrs, 1))
+    pa = dict(tree_flatten_with_path(runs["auto"][0]))
+    pb = dict(tree_flatten_with_path(runs["ref"][0]))
+    diffs = {k: (pa[k] - pb[k]).abs() for k in pa}
+    # the decay multiplies a difference by 1 - lr wd < 1, so it only
+    # shrinks it; each run rounds its f32 update once a step, an ulp of the
+    # largest weight at most
+    big = max(t.abs().max().item() for t in pb.values())
+    bound += 2 * TRAIN_ID_STEPS * big * 2.0 ** -23
+    dmax = max(d.max().item() for d in diffs.values())
+    near = sum(int((d > 0.5 * bound).sum()) for d in diffs.values())
+    moved = sum(int((d > 0).sum()) for d in diffs.values())
+    total = sum(d.numel() for d in diffs.values())
+    log(f"[train identity] qwen2-0.5b f32 full width, {TRAIN_ID_STEPS} "
+        f"steps of {TRAIN_ID_B} x {TRAIN_ID_S}, kernels vs plain versions: "
+        f"losses and grad norms within {worst:.3e} relative (limit "
+        f"{TRAIN_ID_REL}); params after the steps: max |diff| {dmax:.3e} "
+        f"against AdamW's bound {bound:.3e} (lr_t {lrs}), {moved} of "
+        f"{total} weights differ at all, {near} by more than half the "
+        "bound")
+    if not worst <= TRAIN_ID_REL or not dmax <= bound:
+        raise AssertionError("train identity failed: kernels and plain "
+                             "versions part")
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2345,9 +2716,15 @@ def main() -> int:
     rg_gen_launches = timed("hybrid Generator", phase_rg_generator, torch, np)
     torch.cuda.empty_cache()
     timed("hybrid identity", phase_rg_identity, torch, np)
+    torch.cuda.empty_cache()
+    train_launches = timed("train", phase_train, torch, np)
+    timed("train profile", phase_train_profile, torch)
+    torch.cuda.empty_cache()
+    timed("train identity", phase_train_identity, torch, np)
     runs = {"qwen2-0.5b": launches, DS_ARCH: moe_launches,
             SSM_ARCH: ssm_launches, f"{SSM_ARCH} Generator": ssm_gen_launches,
-            RG_ARCH: rg_launches, f"{RG_ARCH} Generator": rg_gen_launches}
+            RG_ARCH: rg_launches, f"{RG_ARCH} Generator": rg_gen_launches,
+            "qwen2-0.5b train": train_launches}
     for row in rows:
         row["launches"] = runs[row["path"]][
             os.path.basename(row["source"])[:-len(".cu")]]

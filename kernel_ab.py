@@ -40,8 +40,11 @@ state, one row padded past its limit, a filler row; its SSM_ROWS) and its
 Generator prefill (8 x 1024, chunks of 256), x, B and C column slices of
 one (rows, S, 2304) tensor as the layer hands them over; and
 deepseek-v2-lite's paged_mla_decode_attention at the serving decode (16
-seats over a 96-block table, block 16, lengths 100..1532); each case from
-``chip_smoke.py``'s seeds, so its inputs are those of phase 3.  With two
+seats over a 96-block table, block 16, lengths 100..1532); flash's
+backward at qwen2-0.5b's train shape (4 x 4096, causal; a case only in
+trees that have it); each case from ``chip_smoke.py``'s seeds, so its
+inputs are those of phase 3.  Each tree also prints ptxas's registers and
+spill stores for the flash forward, the ragged prefill and the backward.  With two
 timers, ROUNDS readings each:
 
 * queued -- every launch queued behind a cold-L2 flush and one wait at
@@ -92,8 +95,14 @@ SSM_ROWS = ((0, 900), (768, 1400), (1280, 1400), (0, 0))
 # recurrentgemma-2b's paged decode and RG-LRU scan, as chip_smoke.py draws
 # them (its rg_cases and rg_scan_inputs: seeds SEED + 40, + 30, + 31)
 RG_W, RG_LENGTHS, RG_LONG = 2560, (100, 3000 + 64), 4
+# qwen2-0.5b's train step (chip_smoke.py's TRAIN_B x TRAIN_S): flash's
+# backward
+TRAIN_B, TRAIN_S = 4, 4096
 # the wrappers' input checks where a module's is not ``_check``
-CHECKS = {"paged_mla_decode_attention": "_mla_check"}
+CHECKS = {"paged_mla_decode_attention": "_mla_check",
+          "flash_attention_bwd": "_bwd_check"}
+# the sources whose ptxas report (registers, spill stores) each tree prints
+PTXAS = ("flash_attention", "ragged_prefill_attention", "flash_attention_bwd")
 ROUNDS = 5
 REPEATS = 30
 CALLS = 200
@@ -186,6 +195,54 @@ def sdpa_masked_decode(torch, q, k, v, mask):
     qh = q.transpose(1, 2).contiguous()
     return lambda: F.scaled_dot_product_attention(
         qh, k, v, attn_mask=mask[:, None, None, :])
+
+
+def train_cases(torch):
+    """Flash's backward at qwen2-0.5b's train shape (B = 4, S = 4096,
+    (14, 2, 64), causal), its inputs the forward kernel's output and lse
+    on q, k, v drawn from a seed, beside SDPA's backward (autograd through
+    SDPA less SDPA's forward).  None for a tree without the backward."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    if not hasattr(fa, "flash_attention_bwd"):
+        return {}
+    g = torch.Generator(device="cpu").manual_seed(50)
+    q, k, v, do = (torch.randn(TRAIN_B, TRAIN_S, n, D, generator=g)
+                   .to("cuda", torch.bfloat16) for n in (H, KV, KV, H))
+    o, lse = fa.flash_attention_lse(q, k, v, causal=True)
+    qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    doh = do.transpose(1, 2).contiguous()
+
+    def fwd():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                              enable_gqa=True)
+    args = (q, k, v, o, lse, do)
+    return {"flash_attention_bwd train": (
+        fa, "flash_attention_bwd", args, dict(causal=True), args,
+        (lambda: torch.autograd.grad(fwd(), (qh, kh, vh), doh), fwd))}
+
+
+def ptxas_rows(logs):
+    """[(kernel instantiation, registers, spill-store bytes)] of ``nvcc
+    -Xptxas -v`` logs, the names demangled as far as c++filt goes."""
+    import re
+    rows, fn = [], None
+    for text in logs.values():
+        spill = 0
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn, spill = m.group(1), 0
+                continue
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                spill = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn is not None:
+                rows.append([fn, int(m.group(1)), spill])
+                fn = None
+    return rows
 
 
 def gm_cases(torch, g):
@@ -416,6 +473,7 @@ def cases(torch):
     out.update(mla_case(torch))
     out.update(ssd_cases(torch))
     out.update(rg_cases(torch))
+    out.update(train_cases(torch))
     return out
 
 
@@ -423,7 +481,8 @@ def worker(tree: str, only) -> None:
     sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
     import torch
     from repro_torch.kernels import build
-    result = {"tree": tree}
+    result = {"tree": tree, "ptxas": ptxas_rows(build.build(
+        [n for n in PTXAS if (build.CSRC / f"{n}.cu").exists()]))}
     for case, (mod, name, args, kw, check, lib) in cases(torch).items():
         if only and not case.startswith(tuple(only)):
             continue
@@ -453,7 +512,10 @@ def worker(tree: str, only) -> None:
             check_fn = getattr(mod, CHECKS.get(name, "_check"))
             readings["check_us"].append(host_us(lambda: check_fn(*check),
                                                 torch))
-            if lib is not None:
+            if isinstance(lib, tuple):   # (with the part to take away, part)
+                readings["library"].append(timer_queued(lib[0], torch)
+                                           - timer_queued(lib[1], torch))
+            elif lib is not None:
                 readings["library"].append(timer_queued(lib, torch))
         result[case] = {"lib": build.lib_path(name).name,
                         "max_abs_err": err, **readings}
@@ -477,11 +539,19 @@ def main(trees, only) -> int:
         line = out.stdout.strip().splitlines()[-1]
         print(line, flush=True)
         runs.append(json.loads(line))
-    kernels = [k for k in runs[0] if k != "tree"]
-    for kernel in kernels:
-        for name in [m for m in MEASURES if m in runs[0][kernel]]:
+    for tree in trees:                 # each tree's build, once
+        run = next(r for r in runs if r["tree"] == tree)
+        for fn, regs, spill in run["ptxas"]:
+            print(f"ptxas {tree}: {fn}: {regs} registers, {spill} bytes "
+                  "spill stores")
+    kernels = [k for r in runs for k in r if k not in ("tree", "ptxas")]
+    for kernel in dict.fromkeys(kernels):
+        have = [t for t in trees if kernel in next(
+            r for r in runs if r["tree"] == t)]
+        first = next(r for r in runs if kernel in r)
+        for name in [m for m in MEASURES if m in first[kernel]]:
             med = {}
-            for tree in trees:
+            for tree in have:
                 vals = sorted(x for r in runs if r["tree"] == tree
                               for x in r[kernel][name])
                 med[tree] = vals[len(vals) // 2]
@@ -489,9 +559,9 @@ def main(trees, only) -> int:
                 print(f"{kernel} {name} {tree}: median {med[tree]:.4f} "
                       f"{unit}, range {vals[0]:.4f}..{vals[-1]:.4f} {unit} "
                       f"over {len(vals)} readings")
-            for tree in trees[1:]:
-                print(f"{kernel} {name}: {tree} / {trees[0]} = "
-                      f"{med[tree] / med[trees[0]]:.4f}")
+            for tree in have[1:]:
+                print(f"{kernel} {name}: {tree} / {have[0]} = "
+                      f"{med[tree] / med[have[0]]:.4f}")
     print(json.dumps({"shape": [H, KV, D], "runs": runs}))
     return 0
 

@@ -256,6 +256,25 @@ class ServeConfig:
 
 
 # ---------------------------------------------------------------------------
+# Input shapes (a copy of the reference's): ``seq_len`` tokens a row,
+# ``global_batch`` rows a step
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+# ---------------------------------------------------------------------------
 # Registry
 class ArchNotPortedError(KeyError):
     """The reference registers this architecture, but the port does not

@@ -1,0 +1,92 @@
+"""Synthetic data pipeline: deterministic corpus, packing, loading.
+
+A copy of the reference's ``repro.data.pipeline`` corpus and packer
+(numpy, the same generator calls), so a seed gives the same token stream
+bit for bit in both packages: a reproducible Zipf-ish token stream with
+document structure (BOS/EOS), greedily packed into fixed-length sequences
+(no cross-document attention masking at this level; the loss mask covers
+padding).  :func:`make_loader` moves each batch to the training device
+from pinned host memory; it has no mesh argument (one device: the data
+axis of a mesh is ROADMAP.md's multi-device item).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterator
+
+import numpy as np
+import torch
+
+BOS, EOS, PAD = 1, 2, 0
+
+
+@dataclasses.dataclass
+class DataConfig:
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    mean_doc_len: int = 512
+
+
+class SyntheticCorpus:
+    """Deterministic document stream (Zipf token distribution)."""
+
+    def __init__(self, cfg: DataConfig):
+        self.cfg = cfg
+        self.rng = np.random.default_rng(cfg.seed)
+        # zipf over the real vocab, avoiding specials
+        self._alpha = 1.1
+
+    def documents(self) -> Iterator[np.ndarray]:
+        cfg = self.cfg
+        hi = max(cfg.vocab_size - 3, 2)
+        while True:
+            n = max(8, int(self.rng.exponential(cfg.mean_doc_len)))
+            toks = self.rng.zipf(self._alpha, size=n)
+            toks = (toks - 1) % hi + 3
+            yield np.concatenate([[BOS], toks, [EOS]]).astype(np.int32)
+
+
+class PackedBatches:
+    """Greedy sequence packing into (B, S+1) token blocks."""
+
+    def __init__(self, cfg: DataConfig):
+        self.cfg = cfg
+        self.docs = SyntheticCorpus(cfg).documents()
+        self._buf = np.empty((0,), np.int32)
+
+    def _fill(self, n: int) -> np.ndarray:
+        while self._buf.size < n:
+            self._buf = np.concatenate([self._buf, next(self.docs)])
+        out, self._buf = self._buf[:n], self._buf[n:]
+        return out
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> Dict[str, np.ndarray]:
+        cfg = self.cfg
+        need = cfg.global_batch * (cfg.seq_len + 1)
+        block = self._fill(need).reshape(cfg.global_batch, cfg.seq_len + 1)
+        return {
+            "inputs": block[:, :-1].copy(),
+            "targets": block[:, 1:].copy(),
+            "mask": (block[:, 1:] != PAD).astype(np.float32),
+        }
+
+
+def make_loader(cfg: DataConfig, device) -> Iterator[Dict[str, torch.Tensor]]:
+    """Yields batches as tensors on ``device``: int32 ``inputs`` and
+    ``targets`` (B, S), f32 ``mask`` (B, S).  On a CUDA device each batch
+    is copied from pinned host memory with ``non_blocking=True``, so the
+    copy overlaps the previous step's work."""
+    device = torch.device(device)
+    pin = device.type == "cuda"
+    for b in PackedBatches(cfg):
+        out = {}
+        for k, v in b.items():
+            t = torch.from_numpy(v)
+            out[k] = (t.pin_memory().to(device, non_blocking=True) if pin
+                      else t.to(device))
+        yield out

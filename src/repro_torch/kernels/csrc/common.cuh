@@ -415,13 +415,19 @@ __host__ __device__ constexpr size_t pre_smem_bytes() {
 // q_rows / out_rows: this row's (C, H, DK) queries and (C, H, DV) outputs;
 // k_src / v_src: the whole K and V arrays, indexed by kaddr / vaddr over
 // [0, k_max).  smem: pre_smem_bytes<DK, DV>() of dynamic shared memory.
-// Call with PRE_THREADS threads.
-template <typename T, int DK, int DV, typename KAddr, typename VAddr>
+// With LSE, lse_rows is this row's (H, C) f32 log-sum-exp of the scaled
+// scores, natural log, written for the backward (flash_attention_bwd.cu);
+// a query with no visible key gets +inf, so a recompute exp(s - lse) gives
+// it P = 0.  A template flag, so the instantiations without it (serving)
+// compile as they did before it existed.  Call with PRE_THREADS threads.
+template <typename T, int DK, int DV, bool LSE = false, typename KAddr,
+          typename VAddr>
 __device__ __forceinline__ void prefill_block(
     const T* __restrict__ q_rows, const T* __restrict__ k_src,
     const T* __restrict__ v_src, T* __restrict__ out_rows, int C, int H,
     int G, int h, int r0, int start, int k_max, bool causal, int window,
-    float scale, const KAddr& kaddr, const VAddr& vaddr, float* smem) {
+    float scale, const KAddr& kaddr, const VAddr& vaddr, float* smem,
+    float* __restrict__ lse_rows = nullptr) {
     constexpr int KT = pre_key_tile<DK, DV>();
     const int rows = C * G;
     const int r = r0 + threadIdx.x;
@@ -492,6 +498,9 @@ __device__ __forceinline__ void prefill_block(
 #pragma unroll
         for (int d = 0; d < DV; ++d)
             out_rows[head * DV + d] = from_f<T>(acc[d] * inv);
+        if constexpr (LSE)             // m and the scores: natural units
+            lse_rows[(size_t)(h * G + g) * C + c] =
+                l > 0.f ? m + logf(l) : INFINITY;
     }
 }
 
@@ -921,18 +930,19 @@ __device__ __forceinline__ void split3_bf16(float x0, float x1,
     p[2] = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-// Arguments as prefill_block's; smem: WgShape<DK, DV>::SMEM bytes of
-// dynamic shared memory; q_rows, k_src and v_src 16-byte aligned.  Call
-// with WG_THREADS threads from a kernel bounded by (WG_THREADS,
+// Arguments as prefill_block's (LSE too); smem: WgShape<DK, DV>::SMEM
+// bytes of dynamic shared memory; q_rows, k_src and v_src 16-byte aligned.
+// Call with WG_THREADS threads from a kernel bounded by (WG_THREADS,
 // WgShape<DK, DV>::MIN_BLOCKS), r0 a multiple of WG_ROWS.
-template <int DK, int DV, typename KAddr, typename VAddr>
+template <int DK, int DV, bool LSE = false, typename KAddr, typename VAddr>
 __device__ __forceinline__ void prefill_block_wgmma(
     const __nv_bfloat16* __restrict__ q_rows,
     const __nv_bfloat16* __restrict__ k_src,
     const __nv_bfloat16* __restrict__ v_src,
     __nv_bfloat16* __restrict__ out_rows, int C, int H, int G, int h, int r0,
     int start, int k_max, bool causal, int window, float scale,
-    const KAddr& kaddr, const VAddr& vaddr, unsigned char* smem) {
+    const KAddr& kaddr, const VAddr& vaddr, unsigned char* smem,
+    float* __restrict__ lse_rows = nullptr) {
     static_assert(DV % 64 == 0, "P V takes 64-value column blocks of V");
     constexpr int NS = WgShape<DK, DV>::NS, KT = WG_KT;
     using TK = WgTile<DK>;
@@ -1165,6 +1175,14 @@ __device__ __forceinline__ void prefill_block_wgmma(
                     *reinterpret_cast<__nv_bfloat162*>(
                         out_rows + off[i] + nb * 64 + j8 * 8 + tig * 2) = v2;
                 }
+            // m is in log2 units of the raw scores times sl2 and l sums
+            // 2^(s sl2 - m), so ln(sum exp(s scale)) = (m + log2 l) ln 2
+            if (LSE && tig == 0) {
+                const int r = r0 + warp * 16 + gid + 8 * i;
+                lse_rows[(size_t)(h * G + r % G) * C + r / G] =
+                    l[i] > 0.f ? (m[i] + log2f(l[i])) * 0.6931471805599453f
+                               : INFINITY;
+            }
         }
     }
 }

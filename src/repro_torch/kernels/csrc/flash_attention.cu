@@ -43,6 +43,15 @@
 // thread), since the tensor cores' f32 input (TF32) keeps 10 bits.  A
 // query with no visible key writes zeros (the oracle's is the mean of V;
 // no causal query of the callers has none).
+//
+// With a non-null ``lse`` the kernel also writes each query row's
+// log-sum-exp of its scaled scores, (B, H, Sq) f32 in natural-log units
+// (the bf16 body keeps its running max in log2 units and converts once at
+// the end), which the backward (flash_attention_bwd.cu) recomputes P from;
+// a query with no visible key gets +inf there, so its P is 0.  The serving
+// callers pass null and run the instantiations without it (the LSE flag),
+// which compile as before; with it, only the pairs the backward takes are
+// built: (64, 64) and (128, 128).
 
 #include "common.cuh"
 
@@ -67,7 +76,7 @@ struct Body<__nv_bfloat16, DK, DV> {
 // Grid (kv head, batch row, query tile), the tiles in reverse: blocks start
 // in blockIdx order, so the last query tiles, which reach the most keys,
 // start first and the short ones fill in behind them.
-template <typename T, int DK, int DV>
+template <typename T, int DK, int DV, bool LSE>
 __global__ void __launch_bounds__(Body<T, DK, DV>::THREADS,
                                   Body<T, DK, DV>::MIN_BLOCKS)
 flash_kernel(
@@ -77,6 +86,7 @@ flash_kernel(
     const int* __restrict__ q_offsets, // (B,) or null: q_offset for all
     int q_offset,
     T* __restrict__ out,               // (B, Sq, H, DV)
+    float* __restrict__ lse,           // (B, H, Sq) or null
     int Sq, int Sk, int H, int KV, int causal, int window, float scale) {
     const int h = blockIdx.x;
     const int b = blockIdx.y;
@@ -86,65 +96,74 @@ flash_kernel(
     const int r0 = (gridDim.z - 1 - blockIdx.z) * Body<T, DK, DV>::ROWS;
     const DenseAddr<DK> kaddr{b, Sk, KV, h};
     const DenseAddr<DV> vaddr{b, Sk, KV, h};
+    float* lse_rows = LSE ? lse + rows : nullptr;
     extern __shared__ __align__(16) unsigned char smem[];
     if constexpr (sizeof(T) == 2)
-        prefill_block_wgmma<DK, DV>(q + rows * DK, k, v, out + rows * DV,
+        prefill_block_wgmma<DK, DV, LSE>(q + rows * DK, k, v,
+                                         out + rows * DV,
                                     Sq, H, G, h, r0, start, Sk, causal != 0,
-                                    window, scale, kaddr, vaddr, smem);
+                                    window, scale, kaddr, vaddr, smem,
+                                    lse_rows);
     else
-        prefill_block<T, DK, DV>(q + rows * DK, k, v, out + rows * DV, Sq, H,
+        prefill_block<T, DK, DV, LSE>(q + rows * DK, k, v, out + rows * DV,
+                                      Sq, H,
                                  G, h, r0, start, Sk, causal != 0, window,
                                  scale, kaddr, vaddr,
-                                 reinterpret_cast<float*>(smem));
+                                 reinterpret_cast<float*>(smem), lse_rows);
 }
 
-template <typename T, int DK, int DV>
+template <typename T, int DK, int DV, bool LSE>
 int launch(const void* q, const void* k, const void* v, const int* q_offsets,
-           int q_offset, void* out, int B, int Sq, int Sk, int H, int KV,
-           int causal, int window, float scale, cudaStream_t stream) {
+           int q_offset, void* out, float* lse, int B, int Sq, int Sk, int H,
+           int KV, int causal, int window, float scale, cudaStream_t stream) {
     using Bd = Body<T, DK, DV>;
-    auto kernel = flash_kernel<T, DK, DV>;
+    auto kernel = flash_kernel<T, DK, DV, LSE>;
     cudaError_t err = reserve_smem(kernel, Bd::SMEM);
     if (err != cudaSuccess) return (int)err;
     const int tiles = (Sq * (H / KV) + Bd::ROWS - 1) / Bd::ROWS;
     kernel<<<dim3(KV, B, tiles), Bd::THREADS, Bd::SMEM, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, q_offsets, q_offset, (T*)out,
-        Sq, Sk, H, KV, causal, window, scale);
+        lse, Sq, Sk, H, KV, causal, window, scale);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q (B, Sq, H, DK), k (B, Sk, KV, DK), v (B, Sk, KV, DV), out (B, Sq, H,
-// DV); q_offsets (B,) int32 or null (then q_offset applies to every row);
+// DV); lse (B, H, Sq) f32 or null (the backward's row log-sum-exp);
+// q_offsets (B,) int32 or null (then q_offset applies to every row);
 // all contiguous on one device, q, k and v 16-byte aligned.  window <= 0 means
 // none.  Returns cudaGetLastError() after the launch, or REPRO_UNSUPPORTED
-// for a (dtype, DK, DV) no kernel was built for.
+// for a (dtype, DK, DV, lse or not) no kernel was built for.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, const void* q_offsets,
-    int q_offset, void* out, int B, int Sq, int Sk, int H, int KV, int DK,
-    int DV, int causal, int window, float scale, int dtype, void* stream) {
+    int q_offset, void* out, void* lse, int B, int Sq, int Sk, int H, int KV,
+    int DK, int DV, int causal, int window, float scale, int dtype,
+    void* stream) {
     if (KV <= 0 || H % KV != 0) return REPRO_UNSUPPORTED;
     if (((size_t)q | (size_t)k | (size_t)v) % 16 != 0)
         return REPRO_UNSUPPORTED;
     const int* offs = (const int*)q_offsets;
+    float* lse_f = (float*)lse;
     cudaStream_t st = (cudaStream_t)stream;
-#define REPRO_CASE(DIMK, DIMV)                                               \
-    if (DK == DIMK && DV == DIMV) {                                          \
+#define REPRO_CASE(DIMK, DIMV, LSE)                                          \
+    if (DK == DIMK && DV == DIMV && (lse_f != nullptr) == LSE) {             \
         if (dtype == REPRO_F32)                                              \
-            return launch<float, DIMK, DIMV>(q, k, v, offs, q_offset, out,  \
-                                             B, Sq, Sk, H, KV, causal,       \
-                                             window, scale, st);             \
+            return launch<float, DIMK, DIMV, LSE>(                           \
+                q, k, v, offs, q_offset, out, lse_f, B, Sq, Sk, H, KV,       \
+                causal, window, scale, st);                                  \
         if (dtype == REPRO_BF16)                                             \
-            return launch<__nv_bfloat16, DIMK, DIMV>(                        \
-                q, k, v, offs, q_offset, out, B, Sq, Sk, H, KV, causal,      \
-                window, scale, st);                                          \
+            return launch<__nv_bfloat16, DIMK, DIMV, LSE>(                   \
+                q, k, v, offs, q_offset, out, lse_f, B, Sq, Sk, H, KV,       \
+                causal, window, scale, st);                                  \
     }
-    REPRO_CASE(64, 64)
-    REPRO_CASE(128, 128)
-    REPRO_CASE(256, 256)
-    REPRO_CASE(192, 128)
-    REPRO_CASE(96, 64)
+    REPRO_CASE(64, 64, false)
+    REPRO_CASE(128, 128, false)
+    REPRO_CASE(256, 256, false)
+    REPRO_CASE(192, 128, false)
+    REPRO_CASE(96, 64, false)
+    REPRO_CASE(64, 64, true)
+    REPRO_CASE(128, 128, true)
 #undef REPRO_CASE
     return REPRO_UNSUPPORTED;
 }

@@ -16,8 +16,19 @@ carry the rope dims beside the value's.
 :func:`flash_attention` launches the kernel for CUDA tensors and runs
 :func:`flash_attention_ref` for CPU tensors — the device of the input
 decides, never a fallback.  ``flash_attention.launches`` counts kernel
-launches.  There is no backward yet: the wrapper refuses inputs that
-require a gradient.
+launches.
+
+Gradients: when q, k or v requires grad, the wrapper runs
+:class:`FlashAttentionFn`, whose forward launches the same kernel with
+its ``lse`` output (each query row's log-sum-exp of the scaled scores,
+(B, H, Sq) f32, natural log; +inf for a row with no visible key) and
+whose backward is :func:`flash_attention_bwd`, the hand-written
+``csrc/flash_attention_bwd.cu`` (no ``pallas_call`` counterpart: the
+reference differentiates its oracle).  It takes q_offset 0 and (Dk, Dv)
+in :data:`BWD_PAIRS`; anything else raises ``ValueError`` before any
+launch.  On CPU tensors the same Function runs the plain forward and
+:func:`flash_attention_bwd_ref`.  ``flash_attention_bwd.launches`` counts
+backward calls (each launches three kernels: the row dot, dK/dV, dQ).
 """
 from __future__ import annotations
 
@@ -29,29 +40,24 @@ import torch
 
 from repro_torch.kernels import (DTYPE_CODES, NEG_INF, SAME_DIMS,
                                  attention_problems, build, count_launch,
-                                 raise_problems, refuse_grad,
-                                 side_input_problems)
+                                 raise_problems, side_input_problems)
 
 QOffset = Union[int, torch.Tensor]
 # (Dk, Dv) pairs the kernel is built for: the GQA heads, deepseek-v2-lite's
 # MLA heads (128 nope + 64 rope key dims, 128 value dims) and those of its
 # reduced test config
 DIM_PAIRS = SAME_DIMS + ((192, 128), (96, 64))
+# (Dk, Dv) pairs the backward is built for: qwen2's heads and the 128-wide
+# heads of phi4-mini, llama3-8b and granite
+BWD_PAIRS = ((64, 64), (128, 128))
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True,
-                        window: Optional[int] = None, q_offset: QOffset = 0,
-                        scale: Optional[float] = None) -> torch.Tensor:
-    """Plain version: dense masked attention in f32, rounded once to
-    q.dtype (the reference's ``ref.flash_attention``; the oracle also
-    rounds p to the input type before the PV product, so in bf16 the two
-    differ by that rounding).  q (B, Sq, H, Dk); k/v (B, Sk, KV, D*);
-    ``q_offset`` int or (B,) tensor.  Returns (B, Sq, H, Dv)."""
+def _masked_scores(q, k, *, causal, window, q_offset, scale):
+    """Scaled scores (B, KV, G, Sq, Sk) in f32, NEG_INF where masked, and
+    the visibility mask (B, Sq, Sk)."""
     B, Sq, H, D = q.shape
-    Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
-    G = H // KV
-    scale = scale if scale is not None else D ** -0.5
-    qh = q.reshape(B, Sq, KV, G, D).float() * scale
+    Sk, KV = k.shape[1], k.shape[2]
+    qh = q.reshape(B, Sq, KV, H // KV, D).float() * scale
     s = torch.einsum("bqkgd,bskd->bkgqs", qh, k.float())
     off = (q_offset.long().reshape(B, 1) if torch.is_tensor(q_offset)
            else torch.full((B, 1), int(q_offset), device=q.device))
@@ -62,18 +68,84 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
         mask &= qp >= kp
     if window is not None:
         mask &= qp - kp < window
-    s = s.masked_fill(~mask[:, None, None], NEG_INF)
+    return s.masked_fill(~mask[:, None, None], NEG_INF), mask
+
+
+def flash_attention_lse_ref(q, k, v, *, causal: bool = True,
+                            window: Optional[int] = None,
+                            q_offset: QOffset = 0,
+                            scale: Optional[float] = None):
+    """Plain version with the row log-sum-exp: (out (B, Sq, H, Dv) in
+    q.dtype, lse (B, H, Sq) f32, natural log of the sum of exp(scaled
+    score) over the visible keys, +inf for a row with none)."""
+    B, Sq, H, D = q.shape
+    Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
+    scale = scale if scale is not None else D ** -0.5
+    s, mask = _masked_scores(q, k, causal=causal, window=window,
+                             q_offset=q_offset, scale=scale)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    return out.reshape(B, Sq, H, Dv).to(q.dtype)
+    lse = torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
+    seen = mask.any(-1)[:, None, :].expand(B, H, Sq)
+    lse = lse.masked_fill(~seen, float("inf"))
+    return out.reshape(B, Sq, H, Dv).to(q.dtype), lse
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None, q_offset: QOffset = 0,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version: dense masked attention in f32, rounded once to
+    q.dtype (the reference's ``ref.flash_attention``; the oracle also
+    rounds p to the input type before the PV product, so in bf16 the two
+    differ by that rounding).  q (B, Sq, H, Dk); k/v (B, Sk, KV, D*);
+    ``q_offset`` int or (B,) tensor.  Returns (B, Sq, H, Dv)."""
+    return flash_attention_lse_ref(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, scale=scale)[0]
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                            window: Optional[int] = None,
+                            scale: Optional[float] = None):
+    """Plain backward, dense in f32 with the kernel's recompute-from-lse
+    formulas: P = exp(S - lse) on the visible pairs, D = rowsum(dO o),
+    dS = P (dO V^T - D); dQ = scale dS K, dK = scale dS^T Q, dV = P^T dO,
+    the G query heads of a kv head summed.  q_offset 0.  Returns (dq, dk,
+    dv) in the dtypes of q, k and v."""
+    B, Sq, H, D = q.shape
+    Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
+    G = H // KV
+    scale = scale if scale is not None else D ** -0.5
+    s, _ = _masked_scores(q, k, causal=causal, window=window, q_offset=0,
+                          scale=scale)
+    p = torch.exp(s - lse.float().reshape(B, KV, G, Sq, 1))
+    do_ = do.float().reshape(B, Sq, KV, G, Dv)
+    dd = (do_ * o.float().reshape(B, Sq, KV, G, Dv)).sum(-1)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, do_)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", do_, v.float())
+    ds = p * (dp - dd.permute(0, 2, 3, 1)[..., None]) * scale
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float())
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds,
+                      q.float().reshape(B, Sq, KV, G, D))
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 @functools.cache
 def _lib():
     lib = build.load("flash_attention")
     fn = lib.flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
-                   + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_lib():
+    lib = build.load("flash_attention_bwd")
+    fn = lib.flash_attention_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -94,6 +166,21 @@ def _check(q, k, v, q_offset):
     raise_problems("flash_attention", problems)
 
 
+def _grad_problems(q, v, q_offset):
+    """Why no gradient can be taken through the kernels for these inputs
+    (none: an empty list)."""
+    problems = []
+    if torch.is_tensor(q_offset) or q_offset != 0:
+        problems.append("a gradient needs q_offset = 0 (training passes "
+                        "no other; the per-row offsets are serving's)")
+    dims = (q.shape[-1], v.shape[-1])
+    if dims not in BWD_PAIRS:
+        problems.append(f"head dims (Dk, Dv) = {dims}: the backward is built "
+                        f"for {BWD_PAIRS} ((192, 128) and (256, 256) are "
+                        "queued, ROADMAP.md)")
+    return problems
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None, q_offset: QOffset = 0,
                     scale: Optional[float] = None) -> torch.Tensor:
@@ -103,11 +190,22 @@ def flash_attention(q, k, v, *, causal: bool = True,
     positions ``q_offset[b] + [0, Sq)``).  Returns (B, Sq, H, Dv).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
+    When an input requires grad, :class:`FlashAttentionFn` runs instead
+    (q_offset 0, (Dk, Dv) in :data:`BWD_PAIRS`, else ``ValueError``).
     """
-    refuse_grad("flash_attention", q, k, v)
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise_problems("flash_attention backward",
+                       _grad_problems(q, v, q_offset))
+        return FlashAttentionFn.apply(q, k, v, causal, window, scale)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, scale=scale)
+    return _forward(q, k, v, causal, window, q_offset, scale, False)[0]
+
+
+def _forward(q, k, v, causal, window, q_offset, scale, with_lse):
+    """One kernel launch: (out, lse or None) for CUDA tensors."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     _check(q, k, v, q_offset)
@@ -119,16 +217,120 @@ def flash_attention(q, k, v, *, causal: bool = True,
     offs = (q_offset.to(torch.int32).contiguous()
             if torch.is_tensor(q_offset) else None)
     out = q.new_empty(B, Sq, H, Dv)
-    scale = scale if scale is not None else D ** -0.5
+    lse = (torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+           if with_lse else None)
     rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 offs.data_ptr() if offs is not None else None,
                 0 if offs is not None else int(q_offset), out.data_ptr(),
+                lse.data_ptr() if lse is not None else None,
                 B, Sq, Sk, H, KV, D, Dv, int(bool(causal)),
                 window if window is not None else 0, scale,
                 DTYPE_CODES[q.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream)
     count_launch(flash_attention, rc)
-    return out
+    return out, lse
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_lse(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None):
+    """The forward that :class:`FlashAttentionFn` runs: (out, lse (B, H,
+    Sq) f32, natural log), q_offset 0.  CPU tensors take
+    :func:`flash_attention_lse_ref`; CUDA tensors launch the kernel with
+    its lse output (counted on ``flash_attention.launches``)."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_lse_ref(q, k, v, causal=causal, window=window,
+                                       scale=scale)
+    return _forward(q, k, v, causal, window, 0, scale, True)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with a gradient: the forward kernel (or, on CPU
+    tensors, the plain forward) also returns the row log-sum-exp, which is
+    saved with q, k, v and the output; the backward is
+    :func:`flash_attention_bwd`.  Under ``torch.utils.checkpoint`` the
+    forward runs again in the backward pass, so each remat'd layer
+    launches the forward kernel twice and the backward once."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        out, lse = flash_attention_lse(q, k, v, causal=causal, window=window,
+                                       scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
+                                         causal=ctx.causal,
+                                         window=ctx.window, scale=ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
+def _bwd_check(q, k, v, o, lse, do):
+    B, Sq, H, D = q.shape
+    problems = attention_problems(q, k, v, pairs=BWD_PAIRS)
+    problems += side_input_problems(q, B, dense=(k, v))
+    if k.shape[0] != B or v.shape[:3] != k.shape[:3]:
+        problems.append(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                        f"match q {tuple(q.shape)}")
+    want = (B, Sq, H, v.shape[-1])
+    for name, t in (("o", o), ("do", do)):
+        if tuple(t.shape) != want or t.dtype != q.dtype \
+                or t.device != q.device:
+            problems.append(f"{name} {tuple(t.shape)} {t.dtype} on "
+                            f"{t.device}: need {want} {q.dtype} on "
+                            f"{q.device}")
+    if tuple(lse.shape) != (B, H, Sq) or lse.dtype != torch.float32 \
+            or lse.device != q.device:
+        problems.append(f"lse {tuple(lse.shape)} {lse.dtype}: need "
+                        f"({B}, {H}, {Sq}) float32 on {q.device}")
+    raise_problems("flash_attention_bwd", problems)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None):
+    """Gradients (dq, dk, dv) of :func:`flash_attention` at q_offset 0
+    from the saved forward output ``o`` and row log-sum-exp ``lse`` (B, H,
+    Sq) f32, and the output's gradient ``do``.  (Dk, Dv) in
+    :data:`BWD_PAIRS`.
+
+    CPU tensors take :func:`flash_attention_bwd_ref`; CUDA tensors launch
+    the three kernels of ``csrc/flash_attention_bwd.cu`` in one call,
+    counted once on ``flash_attention_bwd.launches``."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                       window=window, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: no kernel for device "
+                         f"{q.device}")
+    # contiguous, and on 16-byte boundaries (the bf16 body's copies)
+    q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+    q, k, v, o, do = (t if t.data_ptr() % 16 == 0 else t.clone()
+                      for t in (q, k, v, o, do))
+    lse = lse.contiguous()
+    _bwd_check(q, k, v, o, lse, do)
+    B, Sq, H, D = q.shape
+    Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
+    scale = scale if scale is not None else D ** -0.5
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dd = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+    rc = _bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    do.data_ptr(), lse.data_ptr(), dd.data_ptr(),
+                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                    B, Sq, Sk, H, KV, D, Dv, int(bool(causal)),
+                    window if window is not None else 0, scale,
+                    DTYPE_CODES[q.dtype],
+                    torch.cuda.current_stream(q.device).cuda_stream)
+    count_launch(flash_attention_bwd, rc)
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

@@ -45,10 +45,22 @@ def resolve_paged_path(kernels: str) -> str:
 
 def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0,
                     scale=None):
-    """Dense blockwise flash attention; ``q_offset`` int or (B,) tensor."""
+    """Dense blockwise flash attention; ``q_offset`` int or (B,) tensor.
+    Differentiable: in ``auto`` mode through the kernels' autograd
+    Function (forward and backward kernels), in ``ref`` mode through
+    autograd over the plain version's dense ops."""
     fn = fa.flash_attention_ref if _MODE == "ref" else fa.flash_attention
     return fn(q, k, v, causal=causal, window=window, q_offset=q_offset,
               scale=scale)
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=True,
+                            window=None, scale=None):
+    """Plain backward of flash attention from the saved output and row
+    log-sum-exp: (dq, dk, dv).  For comparisons; the train path takes the
+    kernel through :func:`flash_attention`'s autograd Function."""
+    return fa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                      window=window, scale=scale)
 
 
 def decode_attention(q, k_cache, v_cache, length, *, scale=None,

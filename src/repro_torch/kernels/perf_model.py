@@ -17,7 +17,8 @@ Two work definitions, both computed from the same ``lengths`` /
 work of the two MoE/MLA kernels the same way: the keys below each row's
 length, the rows each expert takes, nothing for an empty expert;
 :func:`ssd_scan_cost` counts the SSD scan's causal pairs per chunk, and
-:func:`rglru_scan_cost` the RG-LRU recurrence's elements.
+:func:`rglru_scan_cost` the RG-LRU recurrence's elements, and
+:func:`flash_attention_bwd_cost` the flash backward's visible pairs.
 
 The dense kernels reuse the visible-work costs: a ``decode_attention``
 call is ``decode_visible_cost(lengths, window=...)`` (``min(length,
@@ -168,6 +169,34 @@ def prefill_visible_cost(starts: Sequence[int], limits: Sequence[int],
         "ragged_prefill", float(4 * head_dim * num_heads * pairs),
         float(queries * num_heads * item + keys * 2 * kv_heads * item
               + len(starts) * chunk * num_heads * item + 8 * len(starts)))
+
+
+def flash_attention_bwd_cost(*, batch: int, seq_q: int, seq_k: int,
+                             num_heads: int, kv_heads: int, dk: int, dv: int,
+                             itemsize: int, causal: bool = True,
+                             window: Optional[int] = None) -> KernelCost:
+    """The visible work of one flash backward call (q_offset 0): query
+    ``qp`` sees the keys ``kp < seq_k`` with ``kp <= qp`` when causal and
+    ``qp - kp < window`` when windowed.  Per visible pair and query head,
+    five products: S = Q K^T (2 Dk flops), dP = dO V^T (2 Dv), dV += P^T dO
+    (2 Dv), dK += dS^T Q (2 Dk) and dQ += dS K (2 Dk), so 2 (3 Dk + 2 Dv)
+    flops; the kernels' recompute of S and dP in the dQ pass is not work
+    the function needs and is not counted.  Bytes: q, k, v, o and dO read
+    once, lse and the row dot D (f32) read once, dq, dk and dv written
+    once."""
+    pairs = 0
+    for qp in range(seq_q):
+        hi = min(seq_k, qp + 1) if causal else seq_k
+        lo = max(0, qp - window + 1) if window is not None else 0
+        pairs += max(0, hi - lo)
+    q_elems = batch * seq_q * num_heads
+    kv_elems = batch * seq_k * kv_heads
+    return KernelCost(
+        "flash_attention_bwd",
+        float(2 * (3 * dk + 2 * dv) * batch * num_heads * pairs),
+        float(itemsize * (2 * q_elems * dk + 2 * q_elems * dv
+                          + 2 * kv_elems * (dk + dv))
+              + 2 * 4 * q_elems))
 
 
 # ---------------------------------------------------------------------------

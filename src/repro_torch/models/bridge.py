@@ -1,4 +1,5 @@
-"""Weight bridge: the reference's param pytree (as numpy) -> the port's.
+"""Weight bridge: the reference's param pytree (as numpy) -> the port's,
+and its AdamW state likewise.
 
 The two packages share the stacked layout and the leaf names, so the
 bridge maps leaf to leaf.  Call it with the JAX tree after
@@ -13,7 +14,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-
 
 
 def _leaf(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -47,3 +47,15 @@ def params_from_numpy(tree, device, dtype: Optional[torch.dtype] = None):
             return type(node)(convert(v, key) for v in node)
         return _leaf(node, device, None if key in F32_LEAVES else dtype)
     return convert(tree)
+
+
+def adamw_state_from_numpy(state, device):
+    """Port ``AdamWState`` from the reference's, as numpy (after
+    ``jax.tree.map(np.asarray, state)``): any object with ``mu``, ``nu``
+    and ``count`` fields.  The moments stay f32, ``count`` an int32
+    scalar, as in both packages."""
+    from repro_torch.optim.adamw import AdamWState
+    return AdamWState(mu=params_from_numpy(state.mu, device),
+                      nu=params_from_numpy(state.nu, device),
+                      count=torch.tensor(int(np.asarray(state.count)),
+                                         dtype=torch.int32, device=device))

@@ -15,17 +15,27 @@ Modes:
   decode_step(...)              -> logits (caches written in place)
   decode_step_paged / prefill_chunk_paged -> logits (pool written in place)
 
-The MoE FFN always takes the sort-based ragged dispatch (sort, grouped
-matmuls, unsort), the one the reference's serving resolves every MoE
-config to; the reference's other dispatches come with the train step.
+The serving steps' MoE FFN takes the sort-based ragged dispatch (sort,
+grouped matmuls, unsort), the one the reference's serving resolves every
+MoE config to.  ``forward`` takes the reference's ``moe_dispatch`` (default
+``"gshard"``, which, like ``"dp_local"``, raises ``NotImplementedError``
+naming its ROADMAP.md item; the Generator passes ``"ragged"``).
 
-Remat, unrolling and meshes, which shape the reference's compiled
-programs, have no counterpart in eager PyTorch.
+``forward(..., mode="train", remat=True)`` runs each repeat of a segment
+under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of
+the scan body), so a layer's activations are recomputed in the backward
+pass; the layer returns its MoE loss terms as values, which the
+recompute then drops instead of adding twice.  Unrolling and meshes,
+which shape the reference's compiled programs, have no counterpart in
+eager PyTorch.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import DENSE_FFN, MOE_FFN, NO_FFN
 from repro_torch.core.tree import tree_map
@@ -80,7 +90,7 @@ def init_model(cfg, gen: torch.Generator):
     return params
 
 
-def _ffn(p, x, cfg, ffn, metrics=None):
+def _ffn(p, x, cfg, ffn, metrics=None, dispatch="ragged"):
     """The FFN leg: x + FFN(norm2(x)), or x for a block without one.  For
     the MoE FFN, ``metrics`` (a dict) accumulates the router's loss terms;
     None skips computing them."""
@@ -88,7 +98,7 @@ def _ffn(p, x, cfg, ffn, metrics=None):
         return x
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     if ffn == MOE_FFN:
-        y, mm = moe_mod.moe_forward(p["ffn"], h, cfg,
+        y, mm = moe_mod.moe_forward(p["ffn"], h, cfg, dispatch=dispatch,
                                     metrics=metrics is not None)
         if metrics is not None:
             for name in ("moe_aux_loss", "moe_z_loss"):
@@ -115,14 +125,22 @@ def _layers(params, cfg, states=None):
 # per-sublayer forward / decode / cache — mixer dispatch is one registry
 # lookup; only the FFN leg lives here
 # ---------------------------------------------------------------------------
-def _sublayer_forward(p, x, positions, cfg, kind, *, mode, window_override,
-                      metrics):
-    mixer, ffn = kind
-    h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    w = MX.resolve_window(cfg, mixer, window_override)
-    y, cache = MX.get_mixer(mixer).forward(p, h, positions, cfg, window=w,
-                                           want_cache=mode == "prefill")
-    return _ffn(p, x + y, cfg, ffn, metrics), cache
+def _layer_forward(layer_p, kinds, x, positions, cfg, *, mode,
+                   window_override, moe_dispatch):
+    """One repeat of a segment: (x, the sublayers' caches, MoE aux loss,
+    MoE z loss), the loss terms as values (not written to a dict outside),
+    so a checkpointed recompute cannot add them twice."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    metrics = {"moe_aux_loss": zero, "moe_z_loss": zero}
+    caches = []
+    for p, (mixer, ffn) in zip(layer_p, kinds):
+        h = rms_norm(x, p["norm1"], cfg.norm_eps)
+        w = MX.resolve_window(cfg, mixer, window_override)
+        y, cache = MX.get_mixer(mixer).forward(p, h, positions, cfg, window=w,
+                                               want_cache=mode == "prefill")
+        x = _ffn(p, x + y, cfg, ffn, metrics, moe_dispatch)
+        caches.append(cache)
+    return x, tuple(caches), metrics["moe_aux_loss"], metrics["moe_z_loss"]
 
 
 def _sublayer_decode(p, x, pos, cfg, kind, cache, *, window_override):
@@ -145,12 +163,13 @@ def _init_sublayer_cache(cfg, kind, batch, cache_len, dtype, window_override,
 # forward (train / prefill)
 # ---------------------------------------------------------------------------
 def forward(params, tokens, cfg, *, prefix_embeds=None, mode="train",
-            window_override=None):
+            window_override=None, moe_dispatch="gshard", remat=True):
     """tokens: (B, S) int.  Returns (logits (B, S, V_pad), caches | None,
     metrics).  ``mode="prefill"`` also returns each layer's KV cache,
     stacked per segment like the params (windowed caches in ring layout).
     The metrics are the reference's MoE loss terms summed over the MoE
-    layers (zero without any)."""
+    layers (zero without any).  ``remat`` checkpoints each layer in train
+    mode when a gradient is being recorded."""
     if prefix_embeds is not None:
         raise NotImplementedError(
             f"{cfg.name}: prefix_embeds need the multimodal frontends, "
@@ -161,19 +180,24 @@ def forward(params, tokens, cfg, *, prefix_embeds=None, mode="train",
     x = F.embedding(tokens.long(), params["embed"])
     positions = torch.arange(S, device=x.device)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    metrics = {"moe_aux_loss": zero, "moe_z_loss": zero.clone()}
+    aux, z = zero, zero
+    remat = remat and mode == "train" and torch.is_grad_enabled()
     per_layer: dict = {}
     for si, seg in enumerate(segments(cfg)):
         seg_p = params[f"seg{si}"]
         for li in range(seg.repeat):
-            caches = []
-            for j, kind in enumerate(seg.kinds):
-                x, c = _sublayer_forward(
-                    tree_map(lambda a: a[li], seg_p[j]), x, positions, cfg,
-                    kind, mode=mode, window_override=window_override,
-                    metrics=metrics)
-                caches.append(c)
-            per_layer.setdefault(f"seg{si}", []).append(tuple(caches))
+            body = functools.partial(
+                _layer_forward, tree_map(lambda a: a[li], seg_p), seg.kinds,
+                positions=positions, cfg=cfg, mode=mode,
+                window_override=window_override, moe_dispatch=moe_dispatch)
+            if remat:
+                x, la, lz = checkpoint(lambda h, f=body: _drop_caches(f(h)),
+                                       x, use_reentrant=False)
+            else:
+                x, caches, la, lz = body(x)
+                per_layer.setdefault(f"seg{si}", []).append(caches)
+            aux, z = aux + la, z + lz
+    metrics = {"moe_aux_loss": aux, "moe_z_loss": z}
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x @ _unembed(params, cfg).T
     if mode != "prefill":
@@ -186,6 +210,11 @@ def forward(params, tokens, cfg, *, prefix_embeds=None, mode="train",
                                  window_override, x.device)
               for si, seg in enumerate(segments(cfg))}
     return logits, caches, metrics
+
+
+def _drop_caches(out):
+    x, _, aux, z = out
+    return x, aux, z
 
 
 # ---------------------------------------------------------------------------

@@ -66,7 +66,8 @@ class Generator:
         with self.obs.trace.span("gen.prefill", track="engine", batch=B,
                                  seq=S):
             logits, caches, _ = M.forward(self.params, tokens, self.cfg,
-                                          mode="prefill")
+                                          mode="prefill",
+                                          moe_dispatch="ragged")
         return logits, caches
 
     def init_caches(self, batch: int, prompt_caches):

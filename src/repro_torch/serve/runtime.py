@@ -48,7 +48,7 @@ from repro_torch.serve.scheduler import ContinuousScheduler, Request, RequestSta
 
 
 def resolve_device(device=None) -> torch.device:
-    """The device to serve on: ``device`` if given, else the card.
+    """The device to run on: ``device`` if given, else the card.
 
     With no device named and no CUDA device present this raises; it never
     falls back to the CPU (pass ``device="cpu"`` to run there on purpose).
@@ -57,7 +57,7 @@ def resolve_device(device=None) -> torch.device:
         return torch.device(device)
     if not torch.cuda.is_available():
         raise RuntimeError(
-            "no CUDA device is available: repro_torch serves on the card "
+            "no CUDA device is available: repro_torch runs on the card "
             "unless the caller passes device='cpu' explicitly")
     return torch.device("cuda")
 

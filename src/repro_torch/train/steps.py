@@ -1,0 +1,124 @@
+"""Train-step construction on one device: loss, grad, update.
+
+The port of ``repro.train.steps``.  ``make_train_step`` returns a step
+that runs the remat'd train forward (flash attention through its autograd
+Function: forward and backward kernels on the card), the cross entropy,
+``torch.autograd.grad`` over every param leaf and the reference's AdamW.
+The mesh and offload arguments of the reference's step (HyperShard
+layouts, the HyperOffload fetch/offload legs) are left out: a mesh or an
+offload request raises :class:`~repro_torch.api.errors.PlanError` naming
+ROADMAP.md's items (section 1, items 6 and 8).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.api.errors import PlanError
+from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.models import model as M
+from repro_torch.optim import adamw as opt_mod
+
+NOT_PORTED = ("the port trains on one device: meshes and plans (HyperShard, "
+              "the HyperPlan facade) are ROADMAP.md section 1 item 8, "
+              "host-resident state (HyperOffload) item 6")
+
+
+def refuse_plan(**kw) -> None:
+    """Raise :class:`PlanError` for any multi-device or offload argument
+    that is not None (``mesh=``, ``plan=``, ``offload_cfg=``)."""
+    given = sorted(k for k, v in kw.items() if v is not None)
+    if given:
+        raise PlanError(f"{', '.join(given)}: not ported yet; {NOT_PORTED}")
+
+
+def cross_entropy_parts(logits, targets, mask, vocab_size: int):
+    """(masked NLL sum, mask sum): the unreduced halves of the mean CE.
+
+    The logits go to f32 and a padded vocab is masked to -1e30, as in the
+    reference; the target's logit is picked with a gather, where the
+    reference contracts a one-hot: in f32 the one-hot contraction adds
+    exact zeros to the picked value, so both give the same number, and the
+    one-hot would be a (B, S, V) tensor (10 GB at qwen2's train shape on
+    the card)."""
+    V_pad = logits.shape[-1]
+    lf = logits.float()
+    if V_pad > vocab_size:
+        valid = torch.arange(V_pad, device=lf.device) < vocab_size
+        lf = lf.masked_fill(~valid, -1e30)
+    lse = torch.logsumexp(lf, dim=-1)
+    picked = lf.gather(-1, targets.long()[..., None])[..., 0]
+    nll = (lse - picked) * mask
+    return nll.sum(), mask.sum()
+
+
+def cross_entropy(logits, targets, mask, vocab_size: int):
+    """Mean CE over masked tokens; logits may be vocab-padded."""
+    nll_sum, mask_sum = cross_entropy_parts(logits, targets, mask, vocab_size)
+    return nll_sum / torch.clamp(mask_sum, min=1.0)
+
+
+def loss_fn(params, batch, cfg, *, moe_dispatch="gshard", remat=True,
+            prefix_embeds=None):
+    logits, _, metrics = M.forward(params, batch["inputs"], cfg,
+                                   prefix_embeds=prefix_embeds, mode="train",
+                                   moe_dispatch=moe_dispatch, remat=remat)
+    ce = cross_entropy(logits, batch["targets"], batch["mask"],
+                       cfg.vocab_size)
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    if cfg.moe is not None:
+        aux = (cfg.moe.router_aux_coef * metrics["moe_aux_loss"]
+               + cfg.moe.router_z_coef * metrics["moe_z_loss"])
+    loss = ce + aux
+    return loss, {"ce": ce, "aux": aux, **metrics}
+
+
+def value_and_grad(params, batch, cfg, *, moe_dispatch="gshard",
+                   remat=True):
+    """((loss, metrics), grads): the loss and its gradient with respect to
+    every param leaf, the grads a tree shaped like ``params`` (a leaf the
+    loss does not reach gets zeros)."""
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        loss, metrics = loss_fn(params, batch, cfg, moe_dispatch=moe_dispatch,
+                                remat=remat)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    grads = iter(torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads))
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return (loss.detach(), metrics), tree_map(lambda _: next(grads), params)
+
+
+def make_train_step(cfg, adamw_cfg: opt_mod.AdamWConfig, *,
+                    moe_dispatch: str = "gshard", remat: bool = True,
+                    mesh=None, offload_cfg=None):
+    """step(params, opt_state, batch) -> (params, opt_state, metrics): the
+    gradient of :func:`loss_fn`, then :func:`adamw_update`.  ``metrics``
+    holds the loss, its parts, the MoE terms, ``grad_norm`` and ``lr``, all
+    0-dim tensors on the device (read them at log time: reading one waits
+    for the card)."""
+    refuse_plan(mesh=mesh, offload_cfg=offload_cfg)
+
+    def step(params, opt_state, batch):
+        (loss, metrics), grads = value_and_grad(
+            params, batch, cfg, moe_dispatch=moe_dispatch, remat=remat)
+        new_params, new_opt, om = opt_mod.adamw_update(grads, opt_state,
+                                                       params, adamw_cfg)
+        return new_params, new_opt, {"loss": loss, **metrics, **om}
+    return step
+
+
+def init_state(cfg, *, seed: int = 0, device=None, mesh=None,
+               offload_cfg=None):
+    """(params, opt_state) drawn from ``seed`` on ``device`` (the card
+    unless the caller names another)."""
+    from repro_torch.serve.runtime import resolve_device
+    refuse_plan(mesh=mesh, offload_cfg=offload_cfg)
+    device = resolve_device(device)
+    params = M.init_model(cfg, torch.Generator(device=device)
+                          .manual_seed(seed))
+    return params, opt_mod.init_adamw(params)

@@ -1,0 +1,83 @@
+"""Training loop on one device: data -> step -> metrics -> checkpoints.
+
+The single-device loop of the reference's ``repro.train.trainer.train``,
+with its history keys, log cadence and observability names: the
+``train.step`` span, the ``train.steps`` counter, the ``train.step_s``
+histogram (the host's time around the step call: the card runs behind it,
+as jax's dispatch does in the reference, until a log step reads the
+metrics back), the ``train.loss`` and ``train.grad_norm`` gauges, and the
+compile-ledger key ``("train_step", (B, S, moe_dispatch))``.  A plan
+(``plan=``, the ``HyperPlan`` facade) or ``offload_cfg=`` raises
+:class:`~repro_torch.api.errors.PlanError`: ROADMAP.md section 1 item 8.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import tempfile
+import time
+from typing import Callable, Optional
+
+from repro_torch.ckpt import checkpoint
+from repro_torch.data.pipeline import DataConfig, make_loader
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.serve.runtime import resolve_device
+from repro_torch.train import steps as steps_mod
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    num_steps: int = 100
+    log_every: int = 10
+    ckpt_every: int = 0                 # 0 => disabled
+    ckpt_dir: str = dataclasses.field(
+        default_factory=lambda: os.path.join(tempfile.gettempdir(),
+                                             "repro_ckpt"))
+    seed: int = 0
+
+
+def train(cfg, shape, *, adamw: Optional[AdamWConfig] = None,
+          train_cfg: Optional[TrainConfig] = None,
+          moe_dispatch: str = "gshard", hook: Optional[Callable] = None,
+          obs=None, device=None, plan=None, offload_cfg=None, mesh=None):
+    """End-to-end training on ``device`` (the card unless the caller names
+    another).  Returns (params, history)."""
+    from repro_torch.obs import Observability
+    steps_mod.refuse_plan(mesh=mesh, plan=plan, offload_cfg=offload_cfg)
+    train_cfg = train_cfg or TrainConfig()
+    device = resolve_device(device)
+    obs = obs if obs is not None else Observability()
+    adamw = adamw or AdamWConfig(total_steps=train_cfg.num_steps)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=shape.seq_len,
+                      global_batch=shape.global_batch, seed=train_cfg.seed)
+
+    step_fn = steps_mod.make_train_step(cfg, adamw,
+                                        moe_dispatch=moe_dispatch)
+    params, opt = steps_mod.init_state(cfg, seed=train_cfg.seed,
+                                       device=device)
+
+    loader = make_loader(dcfg, device)
+    history = []
+    obs.record_compile("train_step",
+                       (shape.global_batch, shape.seq_len, moe_dispatch))
+    t0 = time.perf_counter()
+    for i, batch in zip(range(train_cfg.num_steps), loader):
+        t_step = time.perf_counter()
+        with obs.trace.span("train.step", track="train", step=i + 1):
+            params, opt, metrics = step_fn(params, opt, batch)
+        obs.metrics.counter("train.steps").inc()
+        obs.metrics.histogram("train.step_s").observe(
+            time.perf_counter() - t_step)
+        if (i + 1) % train_cfg.log_every == 0 or i == 0:
+            m = {k: float(v) for k, v in metrics.items()}
+            m["step"] = i + 1
+            m["wall_s"] = time.perf_counter() - t0
+            history.append(m)
+            for k in ("loss", "grad_norm"):
+                if k in m:
+                    obs.metrics.gauge(f"train.{k}").set(m[k])
+            if hook:
+                hook(m)
+        if train_cfg.ckpt_every and (i + 1) % train_cfg.ckpt_every == 0:
+            checkpoint.save(train_cfg.ckpt_dir, i + 1, params, opt)
+    return params, history

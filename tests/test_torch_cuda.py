@@ -18,8 +18,9 @@ heads per kv head, windowed; the bf16 prefill body of flash and the ragged
 prefill at every (Dk, Dv) pair at the edges of its tiles; the grouped
 matmul at the edges of its row tiles and work list, the split dense decode
 at the edges of its splits for 1-20 heads a kv head) against their
-plain versions, the wrappers' refusals (shapes, dtypes, inputs that
-require grad, side inputs on another device or of the wrong shape, an
+plain versions, the flash backward (dq, dk, dv and the forward's lse)
+against its plain version and autograd, the wrappers' refusals (shapes,
+dtypes, inputs that require grad where no backward is built, side inputs on another device or of the wrong shape, an
 unaligned pool; never a plain version on a CUDA tensor), and the
 Generator and HyperServe on the card
 token-identical to the CPU, for qwen2-0.5b, deepseek-v2-lite (MLA + MoE),
@@ -164,11 +165,15 @@ def test_wrappers_refuse_what_no_kernel_takes(cuda):
         pda.paged_decode_attention(q_dec.half(), k_pool, v_pool, tables[:3],
                                    lengths, block_size=BS)
     # the dense kernels: no launch for what they do not take, and none
-    # for an input that asks for a gradient (there is no backward yet)
+    # for an input that asks for a gradient no backward is built for
+    # (decode has none; flash's takes q_offset 0 and (64, 64) / (128, 128))
     q, k, kd = q_pre, k_pool[:4], k_pool[:3]     # B = 4 and B = 3 rows
     n0 = (fa.flash_attention.launches, da.decode_attention.launches)
-    with pytest.raises(RuntimeError, match="no backward"):
-        fa.flash_attention(q.clone().requires_grad_(), k, k)
+    with pytest.raises(ValueError, match="q_offset = 0"):
+        fa.flash_attention(q.clone().requires_grad_(), k, k, q_offset=3)
+    with pytest.raises(ValueError, match="backward is built"):
+        fa.flash_attention(q[..., :32].clone().requires_grad_(),
+                           k[..., :32], k[..., :32])
     with pytest.raises(RuntimeError, match="no backward"):
         da.decode_attention(q_dec, kd.clone().requires_grad_(), kd, lengths)
     with pytest.raises(ValueError, match="head dims"):
@@ -214,6 +219,77 @@ def test_flash_kernel_matches_plain_version(cuda, dtype, heads, kv, dim,
     kw = dict(causal=False, window=None, q_offset=0)
     _assert_close(fa.flash_attention(q, k, v, **kw), fa.flash_attention_ref,
                   (q, k, v), kw)
+
+
+def _assert_grad_close(got, want, want32):
+    """The backward's rule (``chip_smoke.py`` phase 3): float32 within
+    2e-5 x max(1, max |grad|) (its sums run over up to Sk keys, or G x Sq
+    query rows, in another order); bfloat16 within one step of the plain
+    version and half a step of its float32 result, plus that float32
+    limit as slack."""
+    lim = 2e-5 * max(1.0, want32.abs().max().item())
+    if got.dtype == torch.float32:
+        assert (got - want).abs().max().item() <= lim
+        return
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= _bf16_step(want) + lim).all())
+    err32 = (got.float() - want32).abs()
+    assert bool((err32 <= 0.5 * _bf16_step(want32) + lim).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,dim", [(7, 64), (1, 64), (3, 128)])
+@pytest.mark.parametrize("window", [None, 37])
+def test_flash_backward_kernel_matches_plain_version(cuda, dtype, G, dim,
+                                                     window, monkeypatch):
+    """The forward's lse against the plain version's, its output bit for
+    bit the serving path's (lse null), and the backward kernel's dq, dk,
+    dv against ``flash_attention_bwd_ref`` at 150 tokens (no multiple of
+    the 64-row tiles), causal and, unwindowed, not causal; through
+    autograd the Function against autograd over the plain forward, with
+    the plain versions barred from CUDA tensors."""
+    g = torch.Generator().manual_seed(17)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(cuda, dtype)
+    B, S, KV = 2, 150, 2
+    q, k, v = rnd(B, S, KV * G, dim), rnd(B, S, KV, dim), rnd(B, S, KV, dim)
+    do = rnd(B, S, KV * G, dim)
+    plain, plain_bwd = fa.flash_attention_ref, fa.flash_attention_bwd_ref
+    for causal in ((True, False) if window is None else (True,)):
+        kw = dict(causal=causal, window=window)
+        out, lse = fa.flash_attention_lse(q, k, v, **kw)
+        assert torch.equal(out, fa.flash_attention(q, k, v, **kw))
+        _, want_lse = fa.flash_attention_lse_ref(q, k, v, **kw)
+        assert (lse - want_lse).abs().max().item() <= \
+            2e-5 * want_lse.abs().max().item()
+        n0 = fa.flash_attention_bwd.launches
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        assert fa.flash_attention_bwd.launches == n0 + 1
+        want = plain_bwd(q, k, v, out, lse, do, **kw)
+        want32 = plain_bwd(*(t.float() for t in (q, k, v, out)), lse,
+                           do.float(), **kw)
+        for a, w, w32 in zip(got, want, want32):
+            assert a.dtype == dtype and a.shape == w.shape
+            _assert_grad_close(a, w, w32)
+        if dtype != torch.float32:
+            continue
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(plain(*leaves, **kw), leaves, do)
+
+        def refuse(*a, **k):
+            raise AssertionError("a plain version ran on a CUDA tensor")
+        monkeypatch.setattr(fa, "flash_attention_ref", refuse)
+        monkeypatch.setattr(fa, "flash_attention_lse_ref", refuse)
+        monkeypatch.setattr(fa, "flash_attention_bwd_ref", refuse)
+        n0 = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+        got = torch.autograd.grad(fa.flash_attention(*leaves, **kw), leaves,
+                                  do)
+        monkeypatch.undo()
+        assert (fa.flash_attention.launches,
+                fa.flash_attention_bwd.launches) == (n0[0] + 1, n0[1] + 1)
+        for a, w in zip(got, want):
+            _assert_grad_close(a, w, w)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -154,12 +154,18 @@ def test_windowed_decode_and_row_offsets_match_the_oracle(window):
 
 
 def test_dense_wrappers_refuse_inputs_that_require_grad():
-    """No backward yet: a gradient must not be computed wrong in silence,
-    so the wrappers refuse inputs that require one, on every device."""
+    """A gradient must not be computed wrong in silence, so the wrappers
+    refuse inputs that require one where no backward is built, on every
+    device: decode has none, and flash's takes q_offset 0 and (Dk, Dv) in
+    ``BWD_PAIRS`` only (here (16, 16), and a per-row offset tensor)."""
     q = torch.zeros(1, 4, 2, 16, requires_grad=True)
     k = torch.zeros(1, 4, 2, 16)
-    with pytest.raises(RuntimeError, match="no backward"):
+    with pytest.raises(ValueError, match="backward is built"):
         fa.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="q_offset = 0"):
+        fa.flash_attention(torch.zeros(1, 4, 2, 64, requires_grad=True),
+                           torch.zeros(1, 4, 2, 64), torch.zeros(1, 4, 2, 64),
+                           q_offset=torch.tensor([1]))
     with pytest.raises(RuntimeError, match="no backward"):
         da.decode_attention(q[:, :1], k, k, torch.tensor([3]))
     with torch.no_grad():
