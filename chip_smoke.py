@@ -50,7 +50,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                  S=4096, (14, 2, 64)) and flash's backward there and at
                  (24, 8, 128), S=2048, with and without a window, against
                  flash_attention_bwd_ref and, in f32, autograd through the
-                 plain forward.  Each kernel is timed in bf16 at its
+                 plain forward, each case logging the backward's body
+                 (flash_bwd_body) and its ptxas registers and spills.  Each
+                 kernel is timed in bf16 at its
                  main-path shape beside its plain version, a library
                  yardstick (SDPA; SDPA's backward; torch._grouped_mm; none
                  for the two scans) and its bound;
@@ -145,7 +147,8 @@ Phases, in order; any failure raises and the script exits non-zero:
   26. result   — the nvidia-smi line, the kernel JSON line (nine kernels;
                  flash has a row for each run it is on: phase 6's (64, 64),
                  phase 12's (192, 128), phase 21's (256, 256) and phase
-                 23's train shape with lse, beside its backward's; ssd_scan
+                 23's train shape with lse, beside its backward's at that
+                 shape and at (24, 8, 128), 2 x 2048; ssd_scan
                  and rglru_scan one for their serving prefill calls and one
                  for their Generator prefill; the paged decode, ragged
                  prefill and dense decode a second row at (256, G = 10);
@@ -933,6 +936,11 @@ def phase_device(torch):
     return smi
 
 
+# each source's ptxas report from phase 2: {source: [(instantiation,
+# registers, spill-store bytes)]}
+PTXAS = {}
+
+
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -943,7 +951,8 @@ def phase_build():
     log(f"[build] {time.perf_counter() - t0:.1f}s into {build.BUILD_DIR}")
     for name, text in logs.items():
         log(f"[build] {name}: {text.splitlines()[0]}")
-        for fn, regs, spill in ptxas_report(text):
+        PTXAS[name] = ptxas_report(text)
+        for fn, regs, spill in PTXAS[name]:
             log(f"[build] {name}: {fn}: {regs} registers, {spill} bytes "
                 "spill stores")
 
@@ -980,7 +989,7 @@ def short_kernel_name(mangled: str) -> str:
             pos += int(d.group())
         return last
     head, name = m.group(1), m.group(1)
-    for i in range(len(head)):      # the last length-prefixed name in head
+    for i in reversed(range(len(head))):   # the last length-prefixed name
         d = re.match(r"\d+", head[i:])
         if d and int(d.group()) == len(head) - i - d.end() > 0:
             name = head[i + d.end():]
@@ -1277,6 +1286,16 @@ def train_kernel_checks(torch, dtype_name, timed):
                     fa.flash_attention_lse, fa.flash_attention_lse_ref,
                     (q, k, v), kw, max(err, lse_err))
             del want, want_lse, want32
+        body = fa.flash_bwd_body(dtype, dim, dim)
+        kernels = ([f"flash_bwd_wgmma<{dim},{dim}>"] if body == "wgmma" else
+                   [f"flash_bwd_dkdv<{dim}>", f"flash_bwd_dq<{dim}>"])
+        report = {fn: (regs, spill) for fn, regs, spill
+                  in PTXAS.get("flash_attention_bwd", ())}
+        log(f"[kernels] flash_attention_bwd ({case}) {dtype_name}: body "
+            f"{body}: " + ", ".join(
+                f"{fn} {report[fn][0]} registers, {report[fn][1]} bytes spill "
+                "stores" if fn in report else f"{fn} (built before this run: "
+                "no ptxas report)" for fn in kernels))
         n0 = fa.flash_attention_bwd.launches
         got = fa.flash_attention_bwd(*args, **kw)
         wants = fa.flash_attention_bwd_ref(*args, **kw)
@@ -1312,8 +1331,8 @@ def train_kernel_checks(torch, dtype_name, timed):
         if not share <= 1:
             raise AssertionError(f"kernel parity failed: flash_attention_bwd "
                                  f"{case} {dtype_name}")
-        if dtype_name == "bfloat16" and case == "train":
-            timed[("flash_attention_bwd", "train")] = (
+        if dtype_name == "bfloat16" and case in ("train", "wide"):
+            timed[("flash_attention_bwd", case)] = (
                 fa.flash_attention_bwd, fa.flash_attention_bwd_ref, args, kw,
                 max(c[0] for c in checks))
         del got
@@ -1324,10 +1343,15 @@ def train_table(torch, pm, timed):
     """Timing rows of the train step's kernels at qwen2-0.5b's train
     shape, read from phase 23's run: flash with its lse (SDPA's forward
     beside) and the backward (SDPA's backward beside: autograd through
-    SDPA less SDPA's forward)."""
+    SDPA less SDPA's forward); and the backward at the wide heads
+    (BWD_WIDE, no window), which has no path (None): no run here trains a
+    128-wide model, so its (128, 128) instantiation is launched on no
+    main path and its row keeps 0 launches."""
     q, k, v = timed[("flash_attention", "train lse")][2]
     args = timed[("flash_attention_bwd", "train")][2]
+    wide = timed[("flash_attention_bwd", "wide")][2]
     shape = dict(num_heads=H, kv_heads=KV, itemsize=2)
+    wh, wkv, wd = BWD_WIDE
     return (
         ("flash_attention", "train lse",
          pm.prefill_visible_cost([0] * TRAIN_B, [TRAIN_S] * TRAIN_B, TRAIN_S,
@@ -1341,7 +1365,15 @@ def train_table(torch, pm, timed):
          sdpa_flash_bwd(torch, *args),
          "SDPA backward (autograd.grad through SDPA causal, enable_gqa, less "
          "its forward; transposes excluded)",
-         "src/repro/kernels/flash_attention.py:87", "qwen2-0.5b train"))
+         "src/repro/kernels/flash_attention.py:87", "qwen2-0.5b train"),
+        ("flash_attention_bwd", "wide",
+         pm.flash_attention_bwd_cost(batch=BWD_WIDE_B, seq_q=BWD_WIDE_S,
+                                     seq_k=BWD_WIDE_S, num_heads=wh,
+                                     kv_heads=wkv, dk=wd, dv=wd, itemsize=2),
+         sdpa_flash_bwd(torch, *wide),
+         "SDPA backward (autograd.grad through SDPA causal, enable_gqa, less "
+         "its forward; transposes excluded)",
+         "src/repro/kernels/flash_attention.py:87", None))
 
 
 def time_kernels(torch, timed):
@@ -1350,8 +1382,9 @@ def time_kernels(torch, timed):
     keys and pairs, live experts); for the paged kernels the reference's
     pages-visited model is printed beside it.  Returns the kernel JSON
     rows (none off the card), each with the ``path`` (qwen2-0.5b or
-    deepseek-v2-lite-16b) whose run its launches are read from; flash has
-    a row on each, at the shape that run gives it."""
+    deepseek-v2-lite-16b) whose run its launches are read from, or None
+    for a row that no path's run launches (0 launches); flash has a row
+    on each, at the shape that run gives it."""
     from repro_torch.kernels import perf_model as pm
     if DEVICE != "cuda":
         return []
@@ -1460,6 +1493,7 @@ ROW_NAMES = {("flash_attention", "MLA rows q_offset (192, 128)"):
              ("flash_attention", "recurrentgemma Generator prefill"):
              "flash_attention_d256_g10",
              ("flash_attention", "train lse"): "flash_attention_train",
+             ("flash_attention_bwd", "wide"): "flash_attention_bwd_d128",
              ("decode_attention", "recurrentgemma Generator"):
              "decode_attention_d256_g10"}
 
@@ -2726,8 +2760,9 @@ def main() -> int:
             RG_ARCH: rg_launches, f"{RG_ARCH} Generator": rg_gen_launches,
             "qwen2-0.5b train": train_launches}
     for row in rows:
-        row["launches"] = runs[row["path"]][
-            os.path.basename(row["source"])[:-len(".cu")]]
+        if row["path"] is not None:     # None: timed in phase 3 only
+            row["launches"] = runs[row["path"]][
+                os.path.basename(row["source"])[:-len(".cu")]]
     log(f"[time] all phases: {time.perf_counter() - t0:.1f}s")
     print(smi)
     print(json.dumps({"kernels": rows}))

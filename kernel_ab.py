@@ -41,8 +41,9 @@ Generator prefill (8 x 1024, chunks of 256), x, B and C column slices of
 one (rows, S, 2304) tensor as the layer hands them over; and
 deepseek-v2-lite's paged_mla_decode_attention at the serving decode (16
 seats over a 96-block table, block 16, lengths 100..1532); flash's
-backward at qwen2-0.5b's train shape (4 x 4096, causal; a case only in
-trees that have it); each case from ``chip_smoke.py``'s seeds, so its
+backward at qwen2-0.5b's train shape (4 x 4096, causal) and at (24, 8,
+128) over 2 x 2048 ("flash_attention_bwd wide"; cases only in trees that
+have the backward); each case from ``chip_smoke.py``'s seeds, so its
 inputs are those of phase 3.  Each tree also prints ptxas's registers and
 spill stores for the flash forward, the ragged prefill and the backward.  With two
 timers, ROUNDS readings each:
@@ -96,8 +97,9 @@ SSM_ROWS = ((0, 900), (768, 1400), (1280, 1400), (0, 0))
 # them (its rg_cases and rg_scan_inputs: seeds SEED + 40, + 30, + 31)
 RG_W, RG_LENGTHS, RG_LONG = 2560, (100, 3000 + 64), 4
 # qwen2-0.5b's train step (chip_smoke.py's TRAIN_B x TRAIN_S): flash's
-# backward
+# backward; and the backward at the wider heads (chip_smoke.py's BWD_WIDE)
 TRAIN_B, TRAIN_S = 4, 4096
+BWD_WIDE, BWD_WIDE_B, BWD_WIDE_S = (24, 8, 128), 2, 2048
 # the wrappers' input checks where a module's is not ``_check``
 CHECKS = {"paged_mla_decode_attention": "_mla_check",
           "flash_attention_bwd": "_bwd_check"}
@@ -199,28 +201,36 @@ def sdpa_masked_decode(torch, q, k, v, mask):
 
 def train_cases(torch):
     """Flash's backward at qwen2-0.5b's train shape (B = 4, S = 4096,
-    (14, 2, 64), causal), its inputs the forward kernel's output and lse
-    on q, k, v drawn from a seed, beside SDPA's backward (autograd through
-    SDPA less SDPA's forward).  None for a tree without the backward."""
+    (14, 2, 64), causal) and at the wide heads of phi4-mini, llama3-8b and
+    granite ((24, 8, 128), BWD_WIDE_B x BWD_WIDE_S, causal), its inputs the
+    forward kernel's output and lse on q, k, v drawn from a seed, beside
+    SDPA's backward (autograd through SDPA less SDPA's forward).  None for
+    a tree without the backward."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     if not hasattr(fa, "flash_attention_bwd"):
         return {}
-    g = torch.Generator(device="cpu").manual_seed(50)
-    q, k, v, do = (torch.randn(TRAIN_B, TRAIN_S, n, D, generator=g)
-                   .to("cuda", torch.bfloat16) for n in (H, KV, KV, H))
-    o, lse = fa.flash_attention_lse(q, k, v, causal=True)
-    qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
-                  for t in (q, k, v))
-    doh = do.transpose(1, 2).contiguous()
+    out = {}
+    for case, (heads, kv, dim), batch, seq in (
+            ("flash_attention_bwd train", (H, KV, D), TRAIN_B, TRAIN_S),
+            ("flash_attention_bwd wide", BWD_WIDE, BWD_WIDE_B, BWD_WIDE_S)):
+        g = torch.Generator(device="cpu").manual_seed(50)
+        q, k, v, do = (torch.randn(batch, seq, n, dim, generator=g)
+                       .to("cuda", torch.bfloat16)
+                       for n in (heads, kv, kv, heads))
+        o, lse = fa.flash_attention_lse(q, k, v, causal=True)
+        qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        doh = do.transpose(1, 2).contiguous()
 
-    def fwd():
-        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
-                                              enable_gqa=True)
-    args = (q, k, v, o, lse, do)
-    return {"flash_attention_bwd train": (
-        fa, "flash_attention_bwd", args, dict(causal=True), args,
-        (lambda: torch.autograd.grad(fwd(), (qh, kh, vh), doh), fwd))}
+        def fwd(qh=qh, kh=kh, vh=vh):
+            return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                                  enable_gqa=True)
+        args = (q, k, v, o, lse, do)
+        out[case] = (fa, "flash_attention_bwd", args, dict(causal=True), args,
+                     (lambda fwd=fwd, qh=qh, kh=kh, vh=vh, doh=doh:
+                      torch.autograd.grad(fwd(), (qh, kh, vh), doh), fwd))
+    return out
 
 
 def ptxas_rows(logs):

@@ -28,9 +28,11 @@
 // its block's row, bounds and address functors and calls one of them, so a
 // faster body lifts each of its kernels at once.  The mma.sync and
 // cp.async helpers below also serve paged_mla_decode_attention.cu, and
-// the wgmma, mbarrier and TMA helpers grouped_matmul.cu.
+// the wgmma, mbarrier and TMA helpers grouped_matmul.cu and
+// flash_attention_bwd.cu.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -646,6 +648,77 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map,
            "r"(smem_u32(bar)) : "memory");
 }
 
+// TMA: the box of a 4D tensor map at (c0 innermost .. c3) into shared
+// memory at dst, completing its bytes on ``bar``.
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+        :: "r"(smem_u32(dst)), "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+           "r"(smem_u32(bar)) : "memory");
+}
+
+// A bulk copy of ``bytes`` (a multiple of 16, both ends 16-byte aligned)
+// from device memory into shared memory, completing on ``bar``.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n"
+        :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+        : "memory");
+}
+
+// cuTensorMapEncodeTiled, taken from the driver through the runtime once
+// (build.py links no libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline int encode_tiled(EncodeTiled& fn) {
+    static EncodeTiled cached = nullptr;
+    if (cached == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult q;
+        const cudaError_t err = cudaGetDriverEntryPoint(
+            "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+        if (err != cudaSuccess) return (int)err;
+        if (q != cudaDriverEntryPointSuccess || p == nullptr)
+            return REPRO_UNSUPPORTED;
+        cached = reinterpret_cast<EncodeTiled>(p);
+    }
+    fn = cached;
+    return 0;
+}
+
+// A bf16 map of a contiguous (batch, seq, heads, d) tensor with boxes of
+// one head's 64 values (128 bytes, WgTile's 128-byte swizzle) x 64 rows of
+// seq: coordinates (d0, head, row, batch); rows past seq read as zeros.
+inline int bf16_rows_map(CUtensorMap* map, const void* base, int d,
+                         int heads, int seq, int batch) {
+    EncodeTiled encode;
+    const int rc = encode_tiled(encode);
+    if (rc != 0) return rc;
+    const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
+                                (cuuint64_t)seq, (cuuint64_t)batch};
+    const cuuint64_t strides[3] = {(cuuint64_t)d * 2,
+                                   (cuuint64_t)heads * d * 2,
+                                   (cuuint64_t)seq * heads * d * 2};
+    const cuuint32_t box[4] = {64, 1, 64, 1};
+    const cuuint32_t elem[4] = {1, 1, 1, 1};
+    const CUresult r = encode(
+        map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+        dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? 0 : REPRO_UNSUPPORTED;
+}
+
 // Orders this thread's generic-proxy view of shared memory (st.shared,
 // cp.async) before the async proxy that wgmma reads it through.
 __device__ __forceinline__ void fence_proxy_async() {
@@ -704,12 +777,14 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
         : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// d (64 x 64, f32) += a b, a from registers (the m16n8k16 A fragments of
-// the warpgroup's four warps), b from shared memory MN-major (16 rows of
-// 64 contiguous values: V's rows), both bf16.
-__device__ __forceinline__ void wgmma_rs_mn(float (&d)[32],
-                                            const uint32_t (&a)[4],
-                                            uint64_t b) {
+// d (64 x 64, f32) = a b + (accumulate ? d : 0), a from registers (the
+// m16n8k16 A fragments of the warpgroup's four warps), b from shared
+// memory, both bf16: with TB MN-major (16 rows of 64 contiguous values:
+// V's rows), else K-major (as wgmma_ss's).
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -717,7 +792,7 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[32],
         "%8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, "
         "%24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -725,7 +800,48 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[32],
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate), "n"(TB));
+}
+
+// d (64 x 64, f32) = a b + (accumulate ? d : 0) from two shared operands,
+// b MN-major (as wgmma_rs<1>'s); a K-major, or with TA MN-major (its 16
+// K rows of 64 contiguous M values, read transposed).
+template <int TA>
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[32], uint64_t a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, %35, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TA));
+}
+
+// As wgmma_ss_mn<1> at N = 32: b holds the first 32 values of its rows.
+__device__ __forceinline__ void wgmma_ss_tt32(float (&d)[16], uint64_t a,
+                                              uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "l"(a), "l"(b), "r"(accumulate));
 }
 
 // d (64 x 128, f32) = a b + (accumulate ? d : 0), a from shared memory
@@ -913,6 +1029,17 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 
 __device__ __forceinline__ void named_barrier(int id, int threads) {
     asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// (x0, x1) -> two bf16 pairs whose sum is x to about 16 bits: hi =
+// bf16(x), lo = bf16(x - hi)
+__device__ __forceinline__ void split2_bf16(float x0, float x1, uint32_t& hi,
+                                            uint32_t& lo) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    const float2 hf = __bfloat1622float2(h);
+    const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
 // (x0, x1) -> three bf16 pairs whose sum is x to about 24 bits: hi =
@@ -1143,7 +1270,7 @@ __device__ __forceinline__ void prefill_block_wgmma(
                     for (int part = 0; part < 3; ++part) {
                         const uint32_t a[4] = {p[0][part], p[1][part],
                                                p[2][part], p[3][part]};
-                        wgmma_rs_mn(o[nb], a, vd);
+                        wgmma_rs<1>(o[nb], a, vd);
                     }
                 }
                 wg_commit();

@@ -15,41 +15,94 @@
 //
 // Visible: causal (kp <= qp) unless asked otherwise, and, windowed, qp - kp
 // < window, with query positions [0, Sq) (q_offset 0: training passes no
-// other).  Three kernels, launched in order by flash_attention_bwd_launch:
+// other).  The reach of a key tile is the transpose of a query tile's:
+// queries at or past its first key when causal, below its last key +
+// window when windowed.
+//
+// What bounds it on the H100: operations.  The visible work is 2 x pairs
+// x (3 DK + 2 DV) flops a query head (perf_model.flash_attention_bwd_cost:
+// S, dP, dV, dK, dQ), ~2200 flops a byte at qwen2's train shape against
+// the card's ~295.  Two bodies, chosen by the wrapper before the launch
+// (flash_attention.flash_bwd_body) and refused here for a shape they do
+// not take:
+//
+// Tensor-core body (bf16 at fb_pair (DK, DV): (64, 64), (128, 128)), three
+// kernels:
+//
+//   flash_bwd_prep   one warp a (b, s, h) row: D_i, and lse_i log2(e),
+//                    into a (B, H, query tile, 2, 64) f32 workspace, one
+//                    512-byte piece a (row, head, tile) that a ring stage
+//                    takes in one bulk copy (rows past Sq: lse +inf, so
+//                    their P is 0); it zeroes the row's f32 dQ sums;
+//   flash_bwd_wgmma  one pass over the (key tile, query tile) pairs: S and
+//                    dP once a pair, and every gradient from them.  Grid
+//                    (b x kv head, 128-key tile), key tiles in ascending
+//                    order so that the longest walks (causal: key tile 0
+//                    sees every query tile) start first.  A block is two
+//                    warpgroups, 64 keys each, whose K and V stay in
+//                    shared memory; it walks the G query heads of its kv
+//                    head and, for each, the 64-row query tiles in reach.
+//                    Their Q, dO and lse/D rows come by TMA (128-byte
+//                    swizzle, WgTile's layout) into a ring of NS stages
+//                    behind mbarriers; thread 0 refills a stage once every
+//                    thread has passed the step after the one that read it
+//                    (no producer warp: a ninth warp would put three warps
+//                    on one of the SM's four register files and hold every
+//                    thread to 168 registers, which spilled).  Per step,
+//                    each warpgroup:
+//                      S^T = K Q^T, dP^T = V dO^T  (wgmma; at (64, 64) K
+//                        and V as register A fragments, loaded once by
+//                        ldmatrix, so that only Q and dO are read from
+//                        shared memory, whose bandwidth the products of
+//                        64-wide tiles share; at (128, 128) both operands
+//                        from shared memory, K-major);
+//                      P^T and dS^T = P^T (dP^T - D) on its registers;
+//                      dS^T to shared memory in two bf16 parts;
+//                      dV += P^T dO  (A from registers: the S^T
+//                        accumulator layout is wgmma's A fragment layout,
+//                        as the forward's P V; dO read MN-major);
+//                      dK += dS^T Q  (A the dS^T parts, Q read MN-major);
+//                      dQ = dS K over the block's 128 keys (after a barrier
+//                        of both warpgroups), this warpgroup's half of the
+//                        columns (dS^T read transposed, K MN-major), added
+//                        into an f32 (B, Sq, H, DK) sum by 8-byte atomics;
+//                    dK and dV stay in registers and are written once.  P
+//                    and dS enter their products as two bf16 parts (hi =
+//                    bf16(x), lo = bf16(x - hi), about 16 bits; a part
+//                    errs by up to 2^-17 of a weight): the work on the
+//                    tensor cores is 2 x pairs x (5 DK + 3 DV) flops, 1024
+//                    a pair and head at (64, 64), 1.6x the counted.  Three
+//                    parts (1408) held the same bf16 shares at 4 x 4096 and
+//                    took 1.19x the time (PERF.md section 6).  Each tile's
+//                    dK and dV product starts from a fresh accumulator and
+//                    is added on the CUDA cores: the tensor cores' f32
+//                    accumulation does not round to nearest, and chained
+//                    over the hundreds of tiles a row of dK sums (448 at
+//                    qwen2's train shape) it drifted past the bf16
+//                    half-step rule;
+//   flash_bwd_dq_out scale, one rounding to bf16.
+//
+//   dK and dV are each one block's sums in a fixed order, so they replay
+//   bit for bit.  dQ's f32 sums arrive by atomics in the order the blocks
+//   reach them, so bf16 dq can differ by one rounding between runs.
+//
+// FMA body (f32, where f32 must stay f32: never TF32), three kernels:
 //
 //   flash_bwd_dot   D_i, (B, H, Sq) f32, one warp a (token, head) row;
 //   flash_bwd_dkdv  grid (64-key tile, kv head, batch row): the block holds
 //                   its keys' K and V and walks the G query heads of its kv
 //                   head and, for each, the 64-row query tiles in the key
-//                   tile's reach (queries >= the tile's first key when
-//                   causal, below its last key + window when windowed: the
-//                   transpose of a query tile's reach), accumulating dK and
-//                   dV in registers, and writes them once.  The G heads are
-//                   summed in order inside one block: no atomics, a run
-//                   replays bit for bit;
+//                   tile's reach, accumulating dK and dV in registers, and
+//                   writes them once (no atomics: replays bit for bit);
 //   flash_bwd_dq    grid (64-row query tile, head, batch row): the block
 //                   holds its queries' Q, dO, lse and D and walks the key
-//                   tiles in reach, accumulating dQ in registers, written
-//                   once.
+//                   tiles in reach, accumulating dQ in registers.
 //
-// What bounds it on the H100: the work is operations: 2 x visible pairs x
-// (3 DK + 2 DV) flops (perf_model.flash_attention_bwd_cost), ~2200 flops a
-// byte at qwen2's train shape against the card's ~295.  Both kernels
-// recompute S and dP (the dK/dV and the dQ pass each need dS), so they do
-// 2 x pairs x (4 DK + 3 DV) flops, and more on the tensor cores (below).
-// Two bodies, chosen by dtype and head dim:
-//
-//   bf16 at (64, 64), qwen2's heads: mma.sync (flash_bwd_dkdv_mma,
-//     flash_bwd_dq_mma, further down): S and dP from the bf16 tiles, P and
-//     dS in three bf16 parts for their products, f32 sums;
-//   f32, and bf16 at (128, 128): the FMA body on the CUDA cores, all in
-//     f32 (bf16 widened on load; never TF32).  Each thread of a 256-thread
-//     block owns a 4 x 4 tile of the 64 x 64 scores (rows ty + 16 i, keys
-//     tx + 16 j) and, for the accumulations, 4 keys (or queries) x DK / 16
-//     dims, reading shared tiles padded to an odd row length so that
-//     neither the row-strided nor the column reads conflict.  At (128, 128)
-//     a warp's mma accumulators for dK and dV (16 keys x 128 dims each)
-//     would not fit beside the scores' in registers.
+//   Each thread of a 256-thread block owns a 4 x 4 tile of the 64 x 64
+//   scores (rows ty + 16 i, keys tx + 16 j) and, for the accumulations, 4
+//   keys (or queries) x DK / 16 dims, reading shared tiles padded to an odd
+//   row length so that neither the row-strided nor the column reads
+//   conflict.  It recomputes S and dP in its dQ kernel.
 //
 // dq, dk and dv are rounded once, at the store.  (DK, DV) pairs built:
 // (64, 64) and (128, 128).
@@ -71,16 +124,17 @@ struct BwdShape {
 };
 
 // Rows [r0, r0 + n) of a (B, S, heads, D) tensor at head ``hh`` into a
-// 64 x (D + 1) f32 tile, zeros past n.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
+// 64 x (D + 1) tile, zeros past n.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst,
+                                          const float* __restrict__ src,
                                           int b, int S, int heads, int hh,
                                           int r0, int n) {
     constexpr int LD = BwdShape<D>::LD;
     for (int e = threadIdx.x; e < BWD_T * D; e += BWD_THREADS) {
         const int i = e / D, d = e % D;
         dst[i * LD + d] = i < n
-            ? to_f(src[(((size_t)b * S + r0 + i) * heads + hh) * D + d]) : 0.f;
+            ? src[(((size_t)b * S + r0 + i) * heads + hh) * D + d] : 0.f;
     }
 }
 
@@ -148,10 +202,10 @@ __device__ __forceinline__ void probs(const float* Qs, const float* dOs,
 }
 
 // D_i = sum_d dO_i o_i over DV values, one warp a (b, s, h) row.
-template <typename T, int DV>
+template <int DV>
 __global__ void __launch_bounds__(BWD_THREADS) flash_bwd_dot(
-    const T* __restrict__ out,         // (B, Sq, H, DV)
-    const T* __restrict__ dout,        // (B, Sq, H, DV)
+    const float* __restrict__ out,     // (B, Sq, H, DV)
+    const float* __restrict__ dout,    // (B, Sq, H, DV)
     float* __restrict__ dd,            // (B, H, Sq)
     int rows, int Sq, int H) {
     const int row = (int)((blockIdx.x * (size_t)BWD_THREADS + threadIdx.x)
@@ -161,8 +215,8 @@ __global__ void __launch_bounds__(BWD_THREADS) flash_bwd_dot(
     float acc = 0.f;
 #pragma unroll
     for (int d = lane; d < DV; d += 32)
-        acc = fmaf(to_f(out[(size_t)row * DV + d]),
-                   to_f(dout[(size_t)row * DV + d]), acc);
+        acc = fmaf(out[(size_t)row * DV + d], dout[(size_t)row * DV + d],
+                   acc);
 #pragma unroll
     for (int o = 16; o > 0; o /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, o);
     if (lane == 0) {
@@ -171,16 +225,16 @@ __global__ void __launch_bounds__(BWD_THREADS) flash_bwd_dot(
     }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(BWD_THREADS) flash_bwd_dkdv(
-    const T* __restrict__ q,           // (B, Sq, H, D)
-    const T* __restrict__ k,           // (B, Sk, KV, D)
-    const T* __restrict__ v,           // (B, Sk, KV, D)
-    const T* __restrict__ dout,        // (B, Sq, H, D)
+    const float* __restrict__ q,       // (B, Sq, H, D)
+    const float* __restrict__ k,       // (B, Sk, KV, D)
+    const float* __restrict__ v,       // (B, Sk, KV, D)
+    const float* __restrict__ dout,    // (B, Sq, H, D)
     const float* __restrict__ lse,     // (B, H, Sq)
     const float* __restrict__ dd,      // (B, H, Sq)
-    T* __restrict__ dk,                // (B, Sk, KV, D)
-    T* __restrict__ dv,                // (B, Sk, KV, D)
+    float* __restrict__ dk,            // (B, Sk, KV, D)
+    float* __restrict__ dv,            // (B, Sk, KV, D)
     int Sq, int Sk, int H, int KV, int causal, int window, float scale) {
     constexpr int LD = BwdShape<D>::LD, NJ = D / 16;
     const int k0 = blockIdx.x * BWD_T, kvh = blockIdx.y, b = blockIdx.z;
@@ -194,8 +248,8 @@ __global__ void __launch_bounds__(BWD_THREADS) flash_bwd_dkdv(
     float* dSs = Ps + BWD_T * BWD_LDP;
     float* lse_s = dSs + BWD_T * BWD_LDP;
     float* dd_s = lse_s + BWD_T;
-    load_tile<T, D>(Ks, k, b, Sk, KV, kvh, k0, nk);
-    load_tile<T, D>(Vs, v, b, Sk, KV, kvh, k0, nk);
+    load_tile<D>(Ks, k, b, Sk, KV, kvh, k0, nk);
+    load_tile<D>(Vs, v, b, Sk, KV, kvh, k0, nk);
 
     // the query rows that see a key of [k0, k0 + nk): qp >= k0 when causal,
     // qp < k0 + nk - 1 + window when windowed
@@ -213,8 +267,8 @@ __global__ void __launch_bounds__(BWD_THREADS) flash_bwd_dkdv(
         for (int q0 = q_lo / BWD_T * BWD_T; q0 < q_end; q0 += BWD_T) {
             const int nq = min(BWD_T, Sq - q0);
             __syncthreads();           // the previous tile is consumed
-            load_tile<T, D>(Qs, q, b, Sq, H, hh, q0, nq);
-            load_tile<T, D>(dOs, dout, b, Sq, H, hh, q0, nq);
+            load_tile<D>(Qs, q, b, Sq, H, hh, q0, nq);
+            load_tile<D>(dOs, dout, b, Sq, H, hh, q0, nq);
             load_rows(lse_s, dd_s, lse, dd, ((size_t)b * H + hh) * Sq + q0,
                       nq);
             __syncthreads();
@@ -251,20 +305,20 @@ __global__ void __launch_bounds__(BWD_THREADS) flash_bwd_dkdv(
         const size_t at = (((size_t)b * Sk + k0 + kj) * KV + kvh) * D;
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
-            dk[at + tx + 16 * j] = from_f<T>(adk[i][j]);
-            dv[at + tx + 16 * j] = from_f<T>(adv[i][j]);
+            dk[at + tx + 16 * j] = adk[i][j];
+            dv[at + tx + 16 * j] = adv[i][j];
         }
     }
 }
 
 // Grid (query tile, head, batch row), the tiles in reverse: the last query
 // tiles reach the most keys and start first.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(BWD_THREADS) flash_bwd_dq(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ dd,
-    T* __restrict__ dq,                // (B, Sq, H, D)
+    float* __restrict__ dq,            // (B, Sq, H, D)
     int Sq, int Sk, int H, int KV, int causal, int window, float scale) {
     constexpr int LD = BwdShape<D>::LD, NJ = D / 16;
     const int q0 = (gridDim.x - 1 - blockIdx.x) * BWD_T;
@@ -278,8 +332,8 @@ __global__ void __launch_bounds__(BWD_THREADS) flash_bwd_dq(
     float* dSs = dOs + BWD_T * LD;
     float* lse_s = dSs + 2 * BWD_T * BWD_LDP;
     float* dd_s = lse_s + BWD_T;
-    load_tile<T, D>(Qs, q, b, Sq, H, hh, q0, nq);
-    load_tile<T, D>(dOs, dout, b, Sq, H, hh, q0, nq);
+    load_tile<D>(Qs, q, b, Sq, H, hh, q0, nq);
+    load_tile<D>(dOs, dout, b, Sq, H, hh, q0, nq);
     load_rows(lse_s, dd_s, lse, dd, ((size_t)b * H + hh) * Sq + q0, nq);
 
     // the keys the tile's queries see: kp <= q0 + nq - 1 when causal,
@@ -296,8 +350,8 @@ __global__ void __launch_bounds__(BWD_THREADS) flash_bwd_dq(
     for (int k0 = k_lo / BWD_T * BWD_T; k0 < k_end; k0 += BWD_T) {
         const int nk = min(BWD_T, Sk - k0);
         __syncthreads();               // the previous tile is consumed
-        load_tile<T, D>(Ks, k, b, Sk, KV, kvh, k0, nk);
-        load_tile<T, D>(Vs, v, b, Sk, KV, kvh, k0, nk);
+        load_tile<D>(Ks, k, b, Sk, KV, kvh, k0, nk);
+        load_tile<D>(Vs, v, b, Sk, KV, kvh, k0, nk);
         __syncthreads();
         probs<D>(Qs, dOs, Ks, Vs, lse_s, dd_s, nullptr, dSs, q0, k0, Sq, Sk,
                  causal != 0, window, scale);
@@ -324,330 +378,563 @@ __global__ void __launch_bounds__(BWD_THREADS) flash_bwd_dq(
         const size_t at = (((size_t)b * Sq + q0 + qi) * H + hh) * D;
 #pragma unroll
         for (int j = 0; j < NJ; ++j)
-            dq[at + tx + 16 * j] = from_f<T>(adq[i][j]);
+            dq[at + tx + 16 * j] = adq[i][j];
     }
 }
 
 // ---------------------------------------------------------------------------
-// the bf16 (64, 64) body on the tensor cores (mma.sync m16n8k16)
+// the tensor-core body (bf16): one fused wgmma pass (see the header)
 // ---------------------------------------------------------------------------
-// The same two kernels for qwen2's heads in bf16, with every product on the
-// tensor cores: S (or S^T) and dP (dP^T) straight from the bf16 tiles,
-// f32 sums; P and dS, f32, enter their products (dV, dK, dQ) as three
-// bf16 parts (split3_bf16, about 24 bits), as the forward's P V does, so
-// the result keeps f32-level accuracy.  Four warps a block, 16 keys (dK/dV)
-// or 16 query rows (dQ) a warp over a 64-wide tile of the other side.  The
-// dK/dV kernel computes S^T = K Q^T: its accumulators (keys x queries) are
-// the A fragments of P^T dO and dS^T Q as they stand, and the dQ kernel
-// computes S = Q K^T for dS K likewise.  Tiles are bf16 in shared memory,
-// rows padded to 72 values so that ldmatrix reads them without conflicts,
-// filled by cp.async (zeros past the last row).
-constexpr int MMA_THREADS = 128;
-constexpr int MMA_LD = 64 + 8;         // padded bf16 row of a tile
-constexpr size_t MMA_SMEM = sizeof(__nv_bfloat16) * 4 * BWD_T * MMA_LD
-                          + sizeof(float) * 2 * BWD_T;
+constexpr int FB_KEYS = 128;        // keys a block: 64 a consumer warpgroup
+constexpr int FB_Q = 64;            // query rows a ring stage
+constexpr int FB_THREADS = 256;     // two warpgroups
+constexpr int FB_PREP_THREADS = 256;
+constexpr float FB_LOG2E = 1.4426950408889634f;
 
-// Rows [r0, r0 + n) of a (B, S, heads, 64) bf16 tensor at head ``hh`` into a
-// 64 x MMA_LD tile by 16-byte cp.async copies, zeros past n.
-__device__ __forceinline__ void mma_load_tile(
-    __nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src, int b, int S,
-    int heads, int hh, int r0, int n) {
-    for (int e = threadIdx.x; e < BWD_T * 8; e += MMA_THREADS) {
-        const int i = e / 8, ch = e % 8;
-        const bool ok = i < n;
-        cp_async16(dst + i * MMA_LD + ch * 8,
-                   src + (ok ? (((size_t)b * S + r0 + i) * heads + hh) * 64
-                                   + ch * 8 : 0), ok);
-    }
+// (DK, DV) pairs of the tensor-core body
+__host__ __device__ constexpr bool fb_pair(int dk, int dv) {
+    return (dk == 64 && dv == 64) || (dk == 128 && dv == 128);
 }
 
-// acc (16 rows x 64) += X (16 x 64 rows of a tile at x) Y^T (Y: 64 rows of a
-// tile at y): the accumulator of n-tile j holds rows gid (+8), columns
-// 8 j + 2 tig (+1).
-__device__ __forceinline__ void mma_xyt(float (&acc)[8][4],
-                                        const __nv_bfloat16* x,
-                                        const __nv_bfloat16* y, int lane) {
+// Shared memory, from a 1024-byte aligned base: the two warpgroups' K and
+// V tiles, the ring's Q and dO tiles, two buffers (a step's and the one
+// before, still read by the other warpgroup's dQ) of both warpgroups' dS^T
+// parts, then each stage's lse log2(e) and D rows.  Every tile is one or
+// more 64-row, 128-byte swizzle blocks (WgTile) on a 1024-byte boundary.
+template <int DK, int DV>
+struct FbShape {
+    static constexpr int NS = DK + DV > 128 ? 2 : 3;   // ring stages
+    static constexpr uint32_t KH = 64 * DK * 2;        // a warpgroup's K
+    static constexpr uint32_t VH = 64 * DV * 2;
+    static constexpr uint32_t QT = FB_Q * DK * 2;      // a stage's Q
+    static constexpr uint32_t OT = FB_Q * DV * 2;      // its dO
+    static constexpr uint32_t STAGE = QT + OT;
+    static constexpr uint32_t DS = 64 * FB_Q * 2;      // one dS^T part
+    static constexpr uint32_t V_AT = 2 * KH;
+    static constexpr uint32_t RING_AT = V_AT + 2 * VH;
+    static constexpr uint32_t DS_AT = RING_AT + NS * STAGE;
+    static constexpr uint32_t ROWS_AT = DS_AT + 2 * 2 * 2 * DS;
+    static constexpr uint32_t ROWS = 2 * FB_Q * 4;     // a stage's lse, D
+    static constexpr size_t SMEM = 1024 + ROWS_AT + NS * ROWS;
+};
+
+// Keeps the parts of a register A operand untouched until its wgmma group
+// is waited for: the tensor cores read them after the issuing asm.
+__device__ __forceinline__ void keep_parts(const uint32_t (&pp)[2][4][4]) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-        uint32_t a[4];
-        ldsm_x4<false>(a, x + (lane & 15) * MMA_LD + kk * 16
-                              + (lane >> 4) * 8);
+    for (int part = 0; part < 2; ++part)
 #pragma unroll
-        for (int np = 0; np < 4; ++np) {
-            uint32_t b[4];
-            ldsm_x4<false>(b, y + (np * 16 + (lane >> 4) * 8 + (lane & 7))
-                                      * MMA_LD
-                                  + kk * 16 + ((lane >> 3) & 1) * 8);
-            mma_bf16(acc[2 * np], a, b[0], b[1]);
-            mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int x = 0; x < 4; ++x)
+                asm volatile("" :: "r"(pp[part][kk][x]) : "memory");
+}
+
+// dS^T part ``part`` of warpgroup ``w`` in buffer ``buf``, from the base
+template <int DK, int DV>
+__device__ __forceinline__ uint32_t fb_ds(int buf, int w, int part) {
+    using Sh = FbShape<DK, DV>;
+    return Sh::DS_AT + ((buf * 2 + w) * 2 + part) * Sh::DS;
+}
+
+// D_i = sum_d dO_i o_i and lse_i log2(e) into the ring's row pieces, one
+// warp a (b, s, h) row for s < the padded Sq, h fastest; a row's f32 dQ
+// sum zeroed.  Rows past Sq: lse +inf (their P is 0), D 0.
+template <int DK, int DV>
+__global__ void __launch_bounds__(FB_PREP_THREADS) flash_bwd_prep(
+    const __nv_bfloat16* __restrict__ out,    // (B, Sq, H, DV)
+    const __nv_bfloat16* __restrict__ dout,   // (B, Sq, H, DV)
+    const float* __restrict__ lse,            // (B, H, Sq)
+    float* __restrict__ rows,                 // (B, H, nqt, 2, 64)
+    float* __restrict__ dq_acc,               // (B, Sq, H, DK)
+    int B, int Sq, int H, int nqt) {
+    const long long row = ((long long)blockIdx.x * FB_PREP_THREADS
+                           + threadIdx.x) / 32;
+    const int lane = threadIdx.x % 32;
+    const int sp = nqt * FB_Q;
+    if (row >= (long long)B * sp * H) return;
+    const int h = (int)(row % H), s = (int)(row / H % sp);
+    const int b = (int)(row / ((long long)H * sp));
+    float* dst = rows + (((size_t)b * H + h) * nqt + s / FB_Q) * (2 * FB_Q)
+               + s % FB_Q;
+    if (s >= Sq) {
+        if (lane == 0) {
+            dst[0] = INFINITY;
+            dst[FB_Q] = 0.f;
         }
+        return;
+    }
+    const size_t at = ((size_t)b * Sq + s) * H + h;
+    float acc = 0.f;
+#pragma unroll
+    for (int d = 2 * lane; d < DV; d += 64) {
+        const float2 o = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(out + at * DV + d));
+        const float2 g = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(dout + at * DV + d));
+        acc = fmaf(o.x, g.x, fmaf(o.y, g.y, acc));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+#pragma unroll
+    for (int d = 2 * lane; d < DK; d += 64)
+        *reinterpret_cast<float2*>(dq_acc + at * DK + d) = make_float2(0.f,
+                                                                       0.f);
+    if (lane == 0) {
+        dst[0] = lse[((size_t)b * H + h) * Sq + s] * FB_LOG2E;
+        dst[FB_Q] = acc;
     }
 }
 
-// acc (16 x 64 dims) += F (16 x 64, f32 in the accumulator layout of
-// mma_xyt) Z (Z: the 64 x 64 tile at z, rows the sum's index), F in three
-// bf16 parts.  The tile's product is summed on the tensor cores into a
-// fresh accumulator and then added to acc on the CUDA cores: the tensor
-// cores' f32 accumulation does not round to nearest, and chained over
-// the hundreds of tiles a row of dK, dV or dQ sums (448 at qwen2's train
-// shape) it drifted by ~6e-4 of the sum, past the bf16 half-step rule;
-// twelve products a tile drift by ~1e-6.
-__device__ __forceinline__ void mma_fz(float (&acc)[8][4],
-                                       const float (&f)[8][4],
-                                       const __nv_bfloat16* z, int lane) {
-    float t[8][4] = {};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-        uint32_t p[4][3];
-        split3_bf16(f[2 * j][0], f[2 * j][1], p[0]);
-        split3_bf16(f[2 * j][2], f[2 * j][3], p[1]);
-        split3_bf16(f[2 * j + 1][0], f[2 * j + 1][1], p[2]);
-        split3_bf16(f[2 * j + 1][2], f[2 * j + 1][3], p[3]);
-#pragma unroll
-        for (int n = 0; n < 8; n += 2) {
-            uint32_t b[4];
-            ldsm_x4<true>(b, z + (16 * j + (lane & 7) + ((lane >> 3) & 1) * 8)
-                                     * MMA_LD
-                                 + (n + (lane >> 4)) * 8);
-#pragma unroll
-            for (int part = 0; part < 3; ++part) {
-                const uint32_t a[4] = {p[0][part], p[1][part], p[2][part],
-                                       p[3][part]};
-                mma_bf16(t[n], a, b[0], b[1]);
-                mma_bf16(t[n + 1], a, b[2], b[3]);
-            }
-        }
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[n][c] += t[n][c];
-}
-
-// Write a warp's 16 x 64 f32 accumulator as bf16 rows row0 + gid (+8) of
-// a (B, S, heads, 64) tensor at head hh, rows at or past n skipped.
-__device__ __forceinline__ void mma_store(__nv_bfloat16* __restrict__ dst,
-                                          const float (&acc)[8][4], int b,
-                                          int S, int heads, int hh, int row0,
-                                          int r, int n, int lane) {
-    const int gid = lane / 4, tig = lane % 4;
-#pragma unroll
-    for (int h2 = 0; h2 < 2; ++h2) {
-        const int i = r + gid + 8 * h2;
-        if (i >= n) continue;
-        __nv_bfloat16* row = dst
-            + (((size_t)b * S + row0 + i) * heads + hh) * 64 + 2 * tig;
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-            *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
-                __floats2bfloat162_rn(acc[j][2 * h2], acc[j][2 * h2 + 1]);
-    }
-}
-
-__global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dkdv_mma(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v,
-    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ dd, __nv_bfloat16* __restrict__ dk,
-    __nv_bfloat16* __restrict__ dv, int Sq, int Sk, int H, int KV,
-    int causal, int window, float scale) {
-    const int k0 = blockIdx.x * BWD_T, kvh = blockIdx.y, b = blockIdx.z;
-    const int G = H / KV, nk = min(BWD_T, Sk - k0);
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int gid = lane / 4, tig = lane % 4;
+template <int DK, int DV>
+__global__ void __launch_bounds__(FB_THREADS, 1) flash_bwd_wgmma(
+    const __grid_constant__ CUtensorMap q_map,    // q (B, Sq, H, DK)
+    const __grid_constant__ CUtensorMap k_map,    // k (B, Sk, KV, DK)
+    const __grid_constant__ CUtensorMap v_map,    // v (B, Sk, KV, DV)
+    const __grid_constant__ CUtensorMap do_map,   // dout (B, Sq, H, DV)
+    const float* __restrict__ rows,               // flash_bwd_prep's
+    float* __restrict__ dq_acc,                   // (B, Sq, H, DK), zeroed
+    __nv_bfloat16* __restrict__ dk,               // (B, Sk, KV, DK)
+    __nv_bfloat16* __restrict__ dv,               // (B, Sk, KV, DV)
+    int Sq, int Sk, int H, int KV, int causal, int window, float scale) {
+    static_assert(DK % 64 == 0 && DV % 64 == 0, "64-value column blocks");
+    using Sh = FbShape<DK, DV>;
+    using TK = WgTile<DK>;
+    using TV = WgTile<DV>;
+    using TS = WgTile<FB_Q>;
+    constexpr int NS = Sh::NS;
+    __shared__ uint64_t kv_full, full[NS];
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-    __nv_bfloat16* Vs = Ks + BWD_T * MMA_LD;
-    __nv_bfloat16* Qs = Vs + BWD_T * MMA_LD;
-    __nv_bfloat16* dOs = Qs + BWD_T * MMA_LD;
-    float* lse_s = reinterpret_cast<float*>(dOs + BWD_T * MMA_LD);
-    float* dd_s = lse_s + BWD_T;
-    mma_load_tile(Ks, k, b, Sk, KV, kvh, k0, nk);
-    mma_load_tile(Vs, v, b, Sk, KV, kvh, k0, nk);
-    cp_async_commit();
+    const uint32_t raw = smem_u32(smem_raw);
+    const uint32_t base = (raw + 1023) & ~1023u;   // swizzle atoms align
+    unsigned char* sm = smem_raw + (base - raw);
 
-    const int q_lo = causal ? k0 : 0;
+    const int kvh = blockIdx.x % KV, b = blockIdx.x / KV;
+    const int k0 = blockIdx.y * FB_KEYS;
+    const int G = H / KV, nk = min(FB_KEYS, Sk - k0);
+    const int nqt = (Sq + FB_Q - 1) / FB_Q;
+    // the query tiles in the key tile's reach, [t_lo, t_lo + nt), for each
+    // of the G heads: a step is one (head, query tile)
     const int q_end = window > 0 ? min(Sq, k0 + nk - 1 + window) : Sq;
-    // this lane's two keys: kp[h2] = k0 + 16 warp + gid + 8 h2
-    const int kw = k0 + 16 * warp + gid;
-    float adk[8][4] = {}, adv[8][4] = {};
-    for (int g = 0; g < G; ++g) {
-        const int hh = kvh * G + g;
-        for (int q0 = q_lo / BWD_T * BWD_T; q0 < q_end; q0 += BWD_T) {
-            const int nq = min(BWD_T, Sq - q0);
-            __syncthreads();           // the previous tile is consumed
-            mma_load_tile(Qs, q, b, Sq, H, hh, q0, nq);
-            mma_load_tile(dOs, dout, b, Sq, H, hh, q0, nq);
-            cp_async_commit();
-            load_rows(lse_s, dd_s, lse, dd, ((size_t)b * H + hh) * Sq + q0,
-                      nq);
-            cp_async_wait_all();
-            __syncthreads();
-            // S^T and dP^T: rows this warp's 16 keys, columns the queries
-            float st[8][4] = {}, dpt[8][4] = {};
-            mma_xyt(st, Ks + 16 * warp * MMA_LD, Qs, lane);
-            mma_xyt(dpt, Vs + 16 * warp * MMA_LD, dOs, lane);
+    const int t_lo = causal ? k0 / FB_Q : 0;
+    const int nt = max(0, (q_end + FB_Q - 1) / FB_Q - t_lo);
+    const int steps = G * nt;
+
+    // Step t's loads into ring stage t % NS, by thread 0: Q and dO of
+    // query head kvh G + t / nt, query tile t_lo + t % nt, and the tile's
+    // lse log2(e) and D rows
+    auto load_step = [&](int t) {
+        const int s = t % NS, hh = kvh * G + t / nt, qt = t_lo + t % nt;
+        unsigned char* st = sm + Sh::RING_AT + s * Sh::STAGE;
+        mbar_arrive_expect_tx(&full[s], Sh::STAGE + Sh::ROWS);
 #pragma unroll
-            for (int j = 0; j < 8; ++j)
+        for (int c = 0; c < DK / 64; ++c)
+            tma_load_4d(st + c * 8192, &q_map, c * 64, hh, qt * FB_Q, b,
+                        &full[s]);
 #pragma unroll
-                for (int c = 0; c < 4; ++c) {
-                    const int qi = 8 * j + 2 * tig + (c & 1);
-                    const int qp = q0 + qi, kp = kw + 8 * (c / 2);
-                    const bool vis = qi < nq && kp < Sk
-                        && (!causal || kp <= qp)
-                        && (window <= 0 || qp - kp < window);
-                    const float p = vis ? expf(st[j][c] * scale - lse_s[qi])
-                                        : 0.f;
-                    st[j][c] = p;
-                    dpt[j][c] = p * (dpt[j][c] - dd_s[qi]) * scale;
-                }
-            mma_fz(adv, st, dOs, lane);      // dV += P^T dO
-            mma_fz(adk, dpt, Qs, lane);      // dK += scale dS^T Q
+        for (int c = 0; c < DV / 64; ++c)
+            tma_load_4d(st + Sh::QT + c * 8192, &do_map, c * 64, hh,
+                        qt * FB_Q, b, &full[s]);
+        bulk_load(sm + Sh::ROWS_AT + s * Sh::ROWS,
+                  rows + (((size_t)b * H + hh) * nqt + qt) * (2 * FB_Q),
+                  Sh::ROWS, &full[s]);
+    };
+    if (threadIdx.x == 0) {
+        mbar_init(&kv_full, 1);
+#pragma unroll
+        for (int s = 0; s < NS; ++s) mbar_init(&full[s], 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        // the block's K and V once, the first NS steps' stages
+        mbar_arrive_expect_tx(&kv_full, 2 * (Sh::KH + Sh::VH));
+#pragma unroll
+        for (int w = 0; w < 2; ++w) {
+#pragma unroll
+            for (int c = 0; c < DK / 64; ++c)
+                tma_load_4d(sm + w * Sh::KH + c * 8192, &k_map, c * 64, kvh,
+                            k0 + 64 * w, b, &kv_full);
+#pragma unroll
+            for (int c = 0; c < DV / 64; ++c)
+                tma_load_4d(sm + Sh::V_AT + w * Sh::VH + c * 8192, &v_map,
+                            c * 64, kvh, k0 + 64 * w, b, &kv_full);
+        }
+        for (int t = 0; t < min(NS, steps); ++t) load_step(t);
+    }
+    __syncthreads();
+
+    // ---- consumer warpgroup wg: keys k0 + 64 wg .. + 63 ----
+    const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4;
+    const int lane = threadIdx.x % 32, gid = lane / 4, tig = lane % 4;
+    const int kb = k0 + 64 * wg;
+    const int kr = kb + 16 * warp + gid;   // this thread's keys kr, kr + 8
+    const float sl2 = scale * FB_LOG2E;
+    const uint32_t ka = base + wg * Sh::KH, va = base + Sh::V_AT + wg * Sh::VH;
+    // dK and dV: acc[4 j + 2 i + c] is key kr + 8 i, column 8 j + 2 tig + c
+    float adk[DK / 2], adv[DV / 2];
+#pragma unroll
+    for (int j = 0; j < DK / 2; ++j) adk[j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DV / 2; ++j) adv[j] = 0.f;
+    mbar_wait(&kv_full, 0);
+    // at (64, 64) this warp's K and V rows as wgmma A fragments, held for
+    // the whole walk (ldmatrix: lanes 0-15 give rows 16 warp + lane of the
+    // first 8 values of a 16-value step, lanes 16-31 of the second 8)
+    constexpr bool KV_REGS = DK == 64 && DV == 64;
+    uint32_t kf[KV_REGS ? 4 : 1][4], vf[KV_REGS ? 4 : 1][4];
+    if constexpr (KV_REGS) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+            const uint32_t off = TK::template at<64>(16 * warp + (lane & 15),
+                                                     2 * kk + (lane >> 4));
+            ldsm_x4<false>(kf[kk], reinterpret_cast<const __nv_bfloat16*>(
+                sm + wg * Sh::KH + off));
+            ldsm_x4<false>(vf[kk], reinterpret_cast<const __nv_bfloat16*>(
+                sm + Sh::V_AT + wg * Sh::VH + off));
         }
     }
-    cp_async_wait_all();               // K and V, when no query sees them
-    mma_store(dk, adk, b, Sk, KV, kvh, k0, 16 * warp, nk, lane);
-    mma_store(dv, adv, b, Sk, KV, kvh, k0, 16 * warp, nk, lane);
-}
 
-__global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dq_mma(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v,
-    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ dd, __nv_bfloat16* __restrict__ dq, int Sq,
-    int Sk, int H, int KV, int causal, int window, float scale) {
-    const int q0 = (gridDim.x - 1 - blockIdx.x) * BWD_T;
-    const int hh = blockIdx.y, b = blockIdx.z;
-    const int kvh = hh / (H / KV), nq = min(BWD_T, Sq - q0);
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int gid = lane / 4, tig = lane % 4;
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-    __nv_bfloat16* Vs = Ks + BWD_T * MMA_LD;
-    __nv_bfloat16* Qs = Vs + BWD_T * MMA_LD;
-    __nv_bfloat16* dOs = Qs + BWD_T * MMA_LD;
-    float* lse_s = reinterpret_cast<float*>(dOs + BWD_T * MMA_LD);
-    float* dd_s = lse_s + BWD_T;
-    mma_load_tile(Qs, q, b, Sq, H, hh, q0, nq);
-    mma_load_tile(dOs, dout, b, Sq, H, hh, q0, nq);
-    cp_async_commit();
-    load_rows(lse_s, dd_s, lse, dd, ((size_t)b * H + hh) * Sq + q0, nq);
+    for (int t = 0; t < steps; ++t) {
+        const int s = t % NS, hh = kvh * G + t / nt;
+        const int q0 = (t_lo + t % nt) * FB_Q;
+        mbar_wait(&full[s], (t / NS) & 1);
+        const uint32_t qa = base + Sh::RING_AT + s * Sh::STAGE;
+        const uint32_t oa = qa + Sh::QT;
 
-    const int k_end = causal ? min(Sk, q0 + nq) : Sk;
-    const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-    // this lane's two query rows: 16 warp + gid + 8 h2 of the tile
-    const int qr = 16 * warp + gid;
-    float adq[8][4] = {};
-    for (int k0 = k_lo / BWD_T * BWD_T; k0 < k_end; k0 += BWD_T) {
-        const int nk = min(BWD_T, Sk - k0);
-        __syncthreads();               // the previous tile is consumed
-        mma_load_tile(Ks, k, b, Sk, KV, kvh, k0, nk);
-        mma_load_tile(Vs, v, b, Sk, KV, kvh, k0, nk);
-        cp_async_commit();
-        cp_async_wait_all();
-        __syncthreads();
-        // S and dP: rows this warp's 16 queries, columns the keys
-        float s[8][4] = {}, dp[8][4] = {};
-        mma_xyt(s, Qs + 16 * warp * MMA_LD, Ks, lane);
-        mma_xyt(dp, dOs + 16 * warp * MMA_LD, Vs, lane);
+        // S^T = K Q^T and dP^T = V dO^T: st[4 j + 2 i + c] is key kr + 8 i,
+        // query q0 + 8 j + 2 tig + c
+        float st[32], dpt[32];
+        wg_fence();
+        if constexpr (KV_REGS) {
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+                wgmma_rs<0>(st, kf[kk], TK::template desc<FB_Q>(qa, kk * 16),
+                            kk > 0);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+                wgmma_rs<0>(dpt, vf[kk],
+                            TV::template desc<FB_Q>(oa, kk * 16), kk > 0);
+        } else {
+#pragma unroll
+            for (int kk = 0; kk < DK / 16; ++kk)
+                wgmma_ss(st, TK::template desc<64>(ka, kk * 16),
+                         TK::template desc<FB_Q>(qa, kk * 16), kk > 0);
+#pragma unroll
+            for (int kk = 0; kk < DV / 16; ++kk)
+                wgmma_ss(dpt, TV::template desc<64>(va, kk * 16),
+                         TV::template desc<FB_Q>(oa, kk * 16), kk > 0);
+        }
+        wg_commit();
+        wg_wait<0>();
+        wg_pin(st);
+        wg_pin(dpt);
+
+        // P^T = 2^(S^T scale log2 e - lse log2 e) where visible, else 0;
+        // dS^T = P^T (dP^T - D) (scale at the end).  A tile every pair of
+        // which is visible needs no mask; query rows past Sq have lse +inf.
+        const float* lr = reinterpret_cast<const float*>(
+            sm + Sh::ROWS_AT + s * Sh::ROWS);
+        const bool whole = kb + 63 < Sk
+            && (!causal || kb + 63 <= q0)
+            && (window <= 0 || q0 + FB_Q - 1 - kb < window);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            const float2 l2 = *reinterpret_cast<const float2*>(
+                lr + 8 * j + 2 * tig);
+            const float2 dd = *reinterpret_cast<const float2*>(
+                lr + FB_Q + 8 * j + 2 * tig);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int x = 4 * j + e, c = e & 1;
+                float p = exp2_ftz(fmaf(st[x], sl2, -(c ? l2.y : l2.x)));
+                if (!whole) {
+                    const int kp = kr + 8 * (e / 2);
+                    const int qp = q0 + 8 * j + 2 * tig + c;
+                    const bool vis = kp < Sk && (!causal || kp <= qp)
+                        && (window <= 0 || qp - kp < window);
+                    p = vis ? p : 0.f;
+                }
+                st[x] = p;
+                dpt[x] = p * (dpt[x] - (c ? dd.y : dd.x));
+            }
+        }
+
+        // dS^T in two bf16 parts into this step's buffer, rows this
+        // thread's keys, columns the queries (a 32-bit pair a store)
+        const int buf = t & 1;
 #pragma unroll
         for (int j = 0; j < 8; ++j)
 #pragma unroll
-            for (int c = 0; c < 4; ++c) {
-                const int qi = qr + 8 * (c / 2), kp = k0 + 8 * j + 2 * tig
-                    + (c & 1);
-                const int qp = q0 + qi;
-                const bool vis = qi < nq && kp < Sk
-                    && (!causal || kp <= qp)
-                    && (window <= 0 || qp - kp < window);
-                const float p = vis ? expf(s[j][c] * scale - lse_s[qi])
-                                    : 0.f;
-                s[j][c] = p * (dp[j][c] - dd_s[qi]) * scale;
+            for (int i = 0; i < 2; ++i) {
+                uint32_t hi, lo;
+                split2_bf16(dpt[4 * j + 2 * i], dpt[4 * j + 2 * i + 1], hi,
+                            lo);
+                const uint32_t off = TS::template at<64>(
+                    16 * warp + gid + 8 * i, j) + 4 * tig;
+                *reinterpret_cast<uint32_t*>(
+                    sm + fb_ds<DK, DV>(buf, wg, 0) + off) = hi;
+                *reinterpret_cast<uint32_t*>(
+                    sm + fb_ds<DK, DV>(buf, wg, 1) + off) = lo;
             }
-        mma_fz(adq, s, Ks, lane);            // dQ += scale dS K
+        fence_proxy_async();
+
+        // dV tile = P^T dO from a fresh accumulator: P^T's A fragments
+        // (queries 16 kk + 2 tig (+ 8): accumulator entries 8 kk .. 8 kk +
+        // 7) in two bf16 parts, pp[part][kk]; dO's 16 rows of a step two
+        // 8-row groups 1024 bytes apart, its 64-value column block nb 8 KB
+        // on
+        uint32_t pp[2][4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int x = 0; x < 4; ++x)
+                split2_bf16(st[8 * kk + 2 * x], st[8 * kk + 2 * x + 1],
+                            pp[0][kk][x], pp[1][kk][x]);
+        // (one 64-column block at a time where there are two, so that the
+        // parts, the tile and dK and dV fit the registers together)
+        float tv[32];
+#pragma unroll
+        for (int nb = 0; nb < DV / 64; ++nb) {
+            wg_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+                for (int part = 0; part < 2; ++part)
+                    wgmma_rs<1>(tv, pp[part][kk],
+                                wg_desc(oa + nb * 8192 + kk * 2048, 1024,
+                                        1024, 1), kk + part > 0);
+            wg_commit();
+            if constexpr (DV > 64) {
+                wg_wait<0>();
+                wg_pin(tv);
+#pragma unroll
+                for (int x = 0; x < 32; ++x) adv[nb * 32 + x] += tv[x];
+            }
+        }
+        if constexpr (DV > 64) keep_parts(pp);
+
+        // both warpgroups' dS^T are written, and step t - 1 is done with
+        // its stage: thread 0 refills it for step t - 1 + NS
+        named_barrier(1, 256);
+        if (threadIdx.x == 0 && t > 0 && t - 1 + NS < steps)
+            load_step(t - 1 + NS);
+
+        // dK tile = dS^T Q from a fresh accumulator: dS^T's parts K-major,
+        // Q MN-major as dO above
+        float tk[DK / 64][32];
+        wg_fence();
+#pragma unroll
+        for (int nb = 0; nb < DK / 64; ++nb)
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+                for (int part = 0; part < 2; ++part)
+                    wgmma_ss_mn<0>(
+                        tk[nb],
+                        TS::template desc<64>(
+                            base + fb_ds<DK, DV>(buf, wg, part), kk * 16),
+                        wg_desc(qa + nb * 8192 + kk * 2048, 1024, 1024, 1),
+                        kk + part > 0);
+        wg_commit();
+
+        // dQ = dS K over the 128 keys, columns DK / 2 wg .. + DK / 2: dS
+        // read transposed from both warpgroups' parts (16 keys a step: the
+        // 16 rows of a 64-key part), K MN-major (the same 16 rows)
+        float tq[DK / 4];
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+            for (int part = 0; part < 2; ++part) {
+                const uint64_t a = wg_desc(
+                    base + fb_ds<DK, DV>(buf, kk / 4, part) + kk % 4 * 2048,
+                    1024, 1024, 1);
+                const uint64_t bq = wg_desc(
+                    base + kk / 4 * Sh::KH + (kk % 4) * 2048
+                        + (DK == 64 ? wg * 64 : wg * 8192),
+                    1024, 1024, 1);
+                if constexpr (DK == 64)
+                    wgmma_ss_tt32(tq, a, bq, kk + part > 0);
+                else
+                    wgmma_ss_mn<1>(tq, a, bq, kk + part > 0);
+            }
+        wg_commit();
+
+        if constexpr (DV == 64) {
+            wg_wait<2>();              // dV's tile
+            wg_pin(tv);
+#pragma unroll
+            for (int x = 0; x < 32; ++x) adv[x] += tv[x];
+            keep_parts(pp);
+        }
+        wg_wait<1>();                  // dK's tile
+#pragma unroll
+        for (int nb = 0; nb < DK / 64; ++nb) {
+            wg_pin(tk[nb]);
+#pragma unroll
+            for (int x = 0; x < 32; ++x) adk[nb * 32 + x] += tk[nb][x];
+        }
+        wg_wait<0>();                  // dQ's tile
+        wg_pin(tq);
+        // tq[4 j + 2 i + c]: query q0 + 16 warp + gid + 8 i, column
+        // DK / 2 wg + 8 j + 2 tig + c
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            const int qp = q0 + 16 * warp + gid + 8 * i;
+            if (qp >= Sq) continue;
+            float* row = dq_acc + (((size_t)b * Sq + qp) * H + hh) * DK
+                       + DK / 2 * wg + 2 * tig;
+#pragma unroll
+            for (int j = 0; j < DK / 16; ++j)
+                atomicAdd(reinterpret_cast<float2*>(row + 8 * j),
+                          make_float2(tq[4 * j + 2 * i],
+                                      tq[4 * j + 2 * i + 1]));
+        }
     }
-    cp_async_wait_all();               // Q and dO, when no key is in reach
-    mma_store(dq, adq, b, Sq, H, hh, q0, 16 * warp, nq, lane);
+
+    // dK = scale dS^T Q and dV, rounded once
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int kp = kr + 8 * i;
+        if (kp >= Sk) continue;
+        const size_t at = (size_t)b * Sk + kp;
+#pragma unroll
+        for (int j = 0; j < DK / 8; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(
+                dk + (at * KV + kvh) * DK + 8 * j + 2 * tig) =
+                __floats2bfloat162_rn(adk[4 * j + 2 * i] * scale,
+                                      adk[4 * j + 2 * i + 1] * scale);
+#pragma unroll
+        for (int j = 0; j < DV / 8; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(
+                dv + (at * KV + kvh) * DV + 8 * j + 2 * tig) =
+                __floats2bfloat162_rn(adv[4 * j + 2 * i],
+                                      adv[4 * j + 2 * i + 1]);
+    }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* out,
-           const void* dout, const float* lse, float* dd, void* dq, void* dk,
-           void* dv, int B, int Sq, int Sk, int H, int KV, int causal,
-           int window, float scale, cudaStream_t stream) {
-    constexpr bool MMA = sizeof(T) == 2 && D == 64;     // the body (above)
-    if (MMA && ((size_t)q | (size_t)k | (size_t)v | (size_t)dout) % 16 != 0)
-        return REPRO_UNSUPPORTED;          // read by 16-byte copies
-    const int rows = B * Sq * H;
-    flash_bwd_dot<T, D><<<(rows + BWD_THREADS / 32 - 1) / (BWD_THREADS / 32),
-                          BWD_THREADS, 0, stream>>>(
-        (const T*)out, (const T*)dout, dd, rows, Sq, H);
+// dq = bf16(scale dq_acc), four values a thread
+__global__ void __launch_bounds__(FB_PREP_THREADS) flash_bwd_dq_out(
+    const float4* __restrict__ acc, __nv_bfloat162* __restrict__ dq,
+    size_t n4, float scale) {
+    const size_t i = (size_t)blockIdx.x * FB_PREP_THREADS + threadIdx.x;
+    if (i >= n4) return;
+    const float4 a = acc[i];
+    dq[2 * i] = __floats2bfloat162_rn(a.x * scale, a.y * scale);
+    dq[2 * i + 1] = __floats2bfloat162_rn(a.z * scale, a.w * scale);
+}
+
+template <int DK, int DV>
+int launch_wgmma(const void* q, const void* k, const void* v,
+                 const void* out, const void* dout, const float* lse,
+                 float* ws, void* dq, void* dk, void* dv, int B, int Sq,
+                 int Sk, int H, int KV, int causal, int window, float scale,
+                 cudaStream_t stream) {
+    using bf = __nv_bfloat16;
+    const int nqt = (Sq + FB_Q - 1) / FB_Q;
+    float* rows = ws;
+    float* dq_acc = ws + (size_t)B * H * nqt * 2 * FB_Q;
+    const long long prep_rows = (long long)B * nqt * FB_Q * H;
+    flash_bwd_prep<DK, DV><<<(unsigned)((prep_rows + FB_PREP_THREADS / 32 - 1)
+                                        / (FB_PREP_THREADS / 32)),
+                             FB_PREP_THREADS, 0, stream>>>(
+        (const bf*)out, (const bf*)dout, lse, rows, dq_acc, B, Sq, H, nqt);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    const dim3 kgrid((Sk + BWD_T - 1) / BWD_T, KV, B);
-    const dim3 qgrid((Sq + BWD_T - 1) / BWD_T, H, B);
-    if constexpr (MMA) {
-        using bf = __nv_bfloat16;
-        flash_bwd_dkdv_mma<<<kgrid, MMA_THREADS, MMA_SMEM, stream>>>(
-            (const bf*)q, (const bf*)k, (const bf*)v, (const bf*)dout, lse,
-            dd, (bf*)dk, (bf*)dv, Sq, Sk, H, KV, causal, window, scale);
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-        flash_bwd_dq_mma<<<qgrid, MMA_THREADS, MMA_SMEM, stream>>>(
-            (const bf*)q, (const bf*)k, (const bf*)v, (const bf*)dout, lse,
-            dd, (bf*)dq, Sq, Sk, H, KV, causal, window, scale);
-    } else {
-        constexpr size_t SMEM = BwdShape<D>::SMEM;
-        auto dkdv = flash_bwd_dkdv<T, D>;
-        auto dqk = flash_bwd_dq<T, D>;
-        err = reserve_smem(dkdv, SMEM);
-        if (err == cudaSuccess) err = reserve_smem(dqk, SMEM);
-        if (err != cudaSuccess) return (int)err;
-        dkdv<<<kgrid, BWD_THREADS, SMEM, stream>>>(
-            (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dd,
-            (T*)dk, (T*)dv, Sq, Sk, H, KV, causal, window, scale);
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-        dqk<<<qgrid, BWD_THREADS, SMEM, stream>>>(
-            (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dd,
-            (T*)dq, Sq, Sk, H, KV, causal, window, scale);
-    }
+    CUtensorMap q_map, k_map, v_map, do_map;
+    int rc = bf16_rows_map(&q_map, q, DK, H, Sq, B);
+    if (rc == 0) rc = bf16_rows_map(&k_map, k, DK, KV, Sk, B);
+    if (rc == 0) rc = bf16_rows_map(&v_map, v, DV, KV, Sk, B);
+    if (rc == 0) rc = bf16_rows_map(&do_map, dout, DV, H, Sq, B);
+    if (rc != 0) return rc;
+    constexpr size_t SMEM = FbShape<DK, DV>::SMEM;
+    auto kernel = flash_bwd_wgmma<DK, DV>;
+    err = reserve_smem(kernel, SMEM);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<dim3(B * KV, (Sk + FB_KEYS - 1) / FB_KEYS), FB_THREADS, SMEM,
+             stream>>>(q_map, k_map, v_map, do_map, rows, dq_acc, (bf*)dk,
+                       (bf*)dv, Sq, Sk, H, KV, causal, window, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const size_t n4 = (size_t)B * Sq * H * DK / 4;
+    flash_bwd_dq_out<<<(unsigned)((n4 + FB_PREP_THREADS - 1)
+                                  / FB_PREP_THREADS),
+                       FB_PREP_THREADS, 0, stream>>>(
+        (const float4*)dq_acc, (__nv_bfloat162*)dq, n4, scale);
+    return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_fma(const float* q, const float* k, const float* v,
+               const float* out, const float* dout, const float* lse,
+               float* dd, float* dq, float* dk, float* dv, int B, int Sq,
+               int Sk, int H, int KV, int causal, int window, float scale,
+               cudaStream_t stream) {
+    const int rows = B * Sq * H;
+    flash_bwd_dot<D><<<(rows + BWD_THREADS / 32 - 1) / (BWD_THREADS / 32),
+                       BWD_THREADS, 0, stream>>>(out, dout, dd, rows, Sq, H);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    constexpr size_t SMEM = BwdShape<D>::SMEM;
+    auto dkdv = flash_bwd_dkdv<D>;
+    auto dqk = flash_bwd_dq<D>;
+    err = reserve_smem(dkdv, SMEM);
+    if (err == cudaSuccess) err = reserve_smem(dqk, SMEM);
+    if (err != cudaSuccess) return (int)err;
+    dkdv<<<dim3((Sk + BWD_T - 1) / BWD_T, KV, B), BWD_THREADS, SMEM,
+           stream>>>(q, k, v, dout, lse, dd, dk, dv, Sq, Sk, H, KV, causal,
+                     window, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    dqk<<<dim3((Sq + BWD_T - 1) / BWD_T, H, B), BWD_THREADS, SMEM, stream>>>(
+        q, k, v, dout, lse, dd, dq, Sq, Sk, H, KV, causal, window, scale);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q (B, Sq, H, DK), k (B, Sk, KV, DK), v (B, Sk, KV, DV), out and dout (B,
-// Sq, H, DV), lse (B, H, Sq) f32 from the forward; dd: (B, H, Sq) f32
-// workspace for D; dq, dk, dv shaped like q, k, v.  All contiguous on one
-// device.  window <= 0 means none; queries at positions [0, Sq).  Launches
-// the three kernels on ``stream`` and returns the first cudaGetLastError()
-// that is not cudaSuccess, or REPRO_UNSUPPORTED for a (dtype, DK, DV) no
-// kernel was built for.
+// Sq, H, DV), lse (B, H, Sq) f32 from the forward; dq, dk, dv shaped like
+// q, k, v; all contiguous on one device.  ws: f32 workspace, the tensor-core
+// body's B H ceil(Sq / 64) 128 row values then B Sq H DK dQ sums, the FMA
+// body's B H Sq row dots (flash_attention.flash_bwd_workspace).  window <= 0
+// means none; queries at positions [0, Sq).  body: 0 the FMA body (f32), 1
+// the tensor-core body (bf16 at fb_pair (DK, DV), q, k, v and dout 16-byte
+// aligned), as flash_attention.flash_bwd_body chooses.  Launches the
+// body's three kernels on ``stream`` and returns the first
+// cudaGetLastError() that is not cudaSuccess, or REPRO_UNSUPPORTED for what
+// the body does not take.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out,
-    const void* dout, const void* lse, void* dd, void* dq, void* dk,
+    const void* dout, const void* lse, void* ws, void* dq, void* dk,
     void* dv, int B, int Sq, int Sk, int H, int KV, int DK, int DV,
-    int causal, int window, float scale, int dtype, void* stream) {
+    int causal, int window, float scale, int dtype, int body, void* stream) {
     if (KV <= 0 || H % KV != 0 || B <= 0 || Sq <= 0 || Sk <= 0)
         return REPRO_UNSUPPORTED;
     const float* lse_f = (const float*)lse;
-    float* dd_f = (float*)dd;
+    float* ws_f = (float*)ws;
     cudaStream_t st = (cudaStream_t)stream;
-#define REPRO_CASE(DIM)                                                      \
-    if (DK == DIM && DV == DIM) {                                            \
-        if (dtype == REPRO_F32)                                              \
-            return launch<float, DIM>(q, k, v, out, dout, lse_f, dd_f, dq,   \
-                                      dk, dv, B, Sq, Sk, H, KV, causal,      \
-                                      window, scale, st);                    \
-        if (dtype == REPRO_BF16)                                             \
-            return launch<__nv_bfloat16, DIM>(q, k, v, out, dout, lse_f,     \
-                                              dd_f, dq, dk, dv, B, Sq, Sk,   \
-                                              H, KV, causal, window, scale,  \
-                                              st);                           \
+    if (body == 1) {
+        if (dtype != REPRO_BF16 || !fb_pair(DK, DV)
+            || ((size_t)q | (size_t)k | (size_t)v | (size_t)dout) % 16 != 0)
+            return REPRO_UNSUPPORTED;
+        if (DK == 64)
+            return launch_wgmma<64, 64>(q, k, v, out, dout, lse_f, ws_f, dq,
+                                        dk, dv, B, Sq, Sk, H, KV, causal,
+                                        window, scale, st);
+        return launch_wgmma<128, 128>(q, k, v, out, dout, lse_f, ws_f, dq, dk,
+                                      dv, B, Sq, Sk, H, KV, causal, window,
+                                      scale, st);
     }
-    REPRO_CASE(64)
-    REPRO_CASE(128)
-#undef REPRO_CASE
+    if (body != 0 || dtype != REPRO_F32 || DK != DV) return REPRO_UNSUPPORTED;
+    using f = float;
+    if (DK == 64)
+        return launch_fma<64>((const f*)q, (const f*)k, (const f*)v,
+                              (const f*)out, (const f*)dout, lse_f, ws_f,
+                              (f*)dq, (f*)dk, (f*)dv, B, Sq, Sk, H, KV,
+                              causal, window, scale, st);
+    if (DK == 128)
+        return launch_fma<128>((const f*)q, (const f*)k, (const f*)v,
+                               (const f*)out, (const f*)dout, lse_f, ws_f,
+                               (f*)dq, (f*)dk, (f*)dv, B, Sq, Sk, H, KV,
+                               causal, window, scale, st);
     return REPRO_UNSUPPORTED;
 }

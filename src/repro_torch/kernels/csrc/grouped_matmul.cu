@@ -73,8 +73,6 @@
 // outputs), never TF32, which keeps 10 bits; it runs only in the identity
 // checks.
 
-#include <cuda.h>
-
 #include <algorithm>
 
 #include "common.cuh"
@@ -295,31 +293,6 @@ grouped_matmul_bf16_kernel(
             }
         }
     }
-}
-
-// cuTensorMapEncodeTiled, taken from the driver through the runtime once
-// (build.py links no libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-int encode_tiled(EncodeTiled& fn) {
-    static EncodeTiled cached = nullptr;
-    if (cached == nullptr) {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult q;
-        const cudaError_t err = cudaGetDriverEntryPoint(
-            "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-        if (err != cudaSuccess) return (int)err;
-        if (q != cudaDriverEntryPointSuccess || p == nullptr)
-            return REPRO_UNSUPPORTED;
-        cached = reinterpret_cast<EncodeTiled>(p);
-    }
-    fn = cached;
-    return 0;
 }
 
 // A bf16 (rows, cols) row-major map with boxes of box_rows x 64 values in

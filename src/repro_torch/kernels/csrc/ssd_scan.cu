@@ -676,7 +676,7 @@ __global__ void __launch_bounds__(SW_THREADS, 1) ssd_scan_wgmma_kernel(
                     for (int k = 0; k < 3; ++k) {
                         const uint32_t af[4] = {pp[kk][0][k], pp[kk][1][k],
                                                 pp[kk][2][k], pp[kk][3][k]};
-                        wgmma_rs_mn(acc, af, xd);
+                        wgmma_rs<1>(acc, af, xd);
                     }
                 }
                 wg_commit();
@@ -760,7 +760,7 @@ __global__ void __launch_bounds__(SW_THREADS, 1) ssd_scan_wgmma_kernel(
                 for (int k = 0; k < 3; ++k) {
                     const uint32_t af[4] = {pp[kk][0][k], pp[kk][1][k],
                                             pp[kk][2][k], pp[kk][3][k]};
-                    wgmma_rs_mn(s, af, bd);
+                    wgmma_rs<1>(s, af, bd);
                 }
             }
             wg_commit();

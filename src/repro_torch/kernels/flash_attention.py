@@ -26,9 +26,13 @@ whose backward is :func:`flash_attention_bwd`, the hand-written
 ``csrc/flash_attention_bwd.cu`` (no ``pallas_call`` counterpart: the
 reference differentiates its oracle).  It takes q_offset 0 and (Dk, Dv)
 in :data:`BWD_PAIRS`; anything else raises ``ValueError`` before any
-launch.  On CPU tensors the same Function runs the plain forward and
+launch.  :func:`flash_bwd_body` picks its body from the dtype and head
+dims before the launch: one fused wgmma pass for bf16 (dq through an f32
+workspace filled by atomics, so bf16 dq may differ by one rounding between
+runs; dk and dv replay bit for bit), the FMA body for f32.  On CPU tensors
+the same Function runs the plain forward and
 :func:`flash_attention_bwd_ref`.  ``flash_attention_bwd.launches`` counts
-backward calls (each launches three kernels: the row dot, dK/dV, dQ).
+backward calls (each launches its body's three kernels).
 """
 from __future__ import annotations
 
@@ -47,9 +51,34 @@ QOffset = Union[int, torch.Tensor]
 # MLA heads (128 nope + 64 rope key dims, 128 value dims) and those of its
 # reduced test config
 DIM_PAIRS = SAME_DIMS + ((192, 128), (96, 64))
-# (Dk, Dv) pairs the backward is built for: qwen2's heads and the 128-wide
-# heads of phi4-mini, llama3-8b and granite
+# (Dk, Dv) pairs the backward is built for, in both bodies (fb_pair in
+# csrc/flash_attention_bwd.cu): qwen2's heads and the 128-wide heads of
+# phi4-mini, llama3-8b and granite
 BWD_PAIRS = ((64, 64), (128, 128))
+BWD_QT = 64                  # query rows of a tile of the tensor-core body
+BWD_BODIES = {"fma": 0, "wgmma": 1}   # the launcher's body codes
+
+
+def flash_bwd_body(dtype, dk: int, dv: int) -> str:
+    """Which body of the backward a launch runs, from the dtype and head
+    dims alone and before the launch: "wgmma" (one fused pass on the
+    tensor cores) for bf16 at :data:`BWD_PAIRS`, else "fma" (float32
+    FMAs, never TF32: the f32 identity runs must stay f32).  Never a
+    choice made after a failure: a launch that fails raises."""
+    if dtype == torch.bfloat16 and (dk, dv) in BWD_PAIRS:
+        return "wgmma"
+    return "fma"
+
+
+def flash_bwd_workspace(body: str, B: int, Sq: int, H: int,
+                        dk: int) -> int:
+    """f32 values of the backward's workspace: for "wgmma" each (row,
+    head, 64-row query tile)'s lse and row dot D (2 x 64 values, padded
+    rows included), then the (B, Sq, H, Dk) f32 dQ sums; for "fma" the (B,
+    H, Sq) row dots."""
+    if body == "wgmma":
+        return B * H * -(-Sq // BWD_QT) * 2 * BWD_QT + B * Sq * H * dk
+    return B * H * Sq
 
 
 def _masked_scores(q, k, *, causal, window, q_offset, scale):
@@ -146,7 +175,8 @@ def _bwd_lib():
     lib = build.load("flash_attention_bwd")
     fn = lib.flash_attention_bwd_launch
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -274,6 +304,10 @@ class FlashAttentionFn(torch.autograd.Function):
 
 
 def _bwd_check(q, k, v, o, lse, do):
+    """Refuses, before any launch, what the backward's launcher refuses:
+    the dtypes, a (Dk, Dv) pair outside :data:`BWD_PAIRS`, misshapen side
+    inputs, and for the tensor-core body (its tiles come by TMA) q, k, v or
+    do off a 16-byte boundary or not contiguous."""
     B, Sq, H, D = q.shape
     problems = attention_problems(q, k, v, pairs=BWD_PAIRS)
     problems += side_input_problems(q, B, dense=(k, v))
@@ -291,6 +325,12 @@ def _bwd_check(q, k, v, o, lse, do):
             or lse.device != q.device:
         problems.append(f"lse {tuple(lse.shape)} {lse.dtype}: need "
                         f"({B}, {H}, {Sq}) float32 on {q.device}")
+    if flash_bwd_body(q.dtype, D, v.shape[-1]) == "wgmma":
+        for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+            if t.data_ptr() % 16 or not t.is_contiguous():
+                problems.append(f"{name} at {t.data_ptr() % 16} bytes past "
+                                "a 16-byte boundary or not contiguous: the "
+                                "tensor-core body loads its tiles by TMA")
     raise_problems("flash_attention_bwd", problems)
 
 
@@ -303,15 +343,16 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     :data:`BWD_PAIRS`.
 
     CPU tensors take :func:`flash_attention_bwd_ref`; CUDA tensors launch
-    the three kernels of ``csrc/flash_attention_bwd.cu`` in one call,
-    counted once on ``flash_attention_bwd.launches``."""
+    the three kernels of :func:`flash_bwd_body`'s body in
+    ``csrc/flash_attention_bwd.cu`` in one call, counted once on
+    ``flash_attention_bwd.launches``."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                        window=window, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: no kernel for device "
                          f"{q.device}")
-    # contiguous, and on 16-byte boundaries (the bf16 body's copies)
+    # contiguous, and on 16-byte boundaries (the tensor-core body's TMA)
     q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
     q, k, v, o, do = (t if t.data_ptr() % 16 == 0 else t.clone()
                       for t in (q, k, v, o, do))
@@ -320,14 +361,16 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     B, Sq, H, D = q.shape
     Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
     scale = scale if scale is not None else D ** -0.5
+    body = flash_bwd_body(q.dtype, D, Dv)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    dd = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+    ws = torch.empty(flash_bwd_workspace(body, B, Sq, H, D),
+                     dtype=torch.float32, device=q.device)
     rc = _bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    do.data_ptr(), lse.data_ptr(), dd.data_ptr(),
+                    do.data_ptr(), lse.data_ptr(), ws.data_ptr(),
                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                     B, Sq, Sk, H, KV, D, Dv, int(bool(causal)),
                     window if window is not None else 0, scale,
-                    DTYPE_CODES[q.dtype],
+                    DTYPE_CODES[q.dtype], BWD_BODIES[body],
                     torch.cuda.current_stream(q.device).cuda_stream)
     count_launch(flash_attention_bwd, rc)
     return dq, dk, dv

@@ -19,7 +19,9 @@ prefill at every (Dk, Dv) pair at the edges of its tiles; the grouped
 matmul at the edges of its row tiles and work list, the split dense decode
 at the edges of its splits for 1-20 heads a kv head) against their
 plain versions, the flash backward (dq, dk, dv and the forward's lse)
-against its plain version and autograd, the wrappers' refusals (shapes,
+against its plain version and autograd, in both of its bodies, over a
+sequence that wraps the tensor-core body's ring many times, a second
+call's dk and dv bit for bit, the wrappers' refusals (shapes,
 dtypes, inputs that require grad where no backward is built, side inputs on another device or of the wrong shape, an
 unaligned pool; never a plain version on a CUDA tensor), and the
 Generator and HyperServe on the card
@@ -238,21 +240,26 @@ def _assert_grad_close(got, want, want32):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("G,dim", [(7, 64), (1, 64), (3, 128)])
+@pytest.mark.parametrize("G,dim,S", [(7, 64, 150), (1, 64, 150),
+                                     (3, 128, 150), (7, 64, 1000),
+                                     (3, 128, 1000)])
 @pytest.mark.parametrize("window", [None, 37])
-def test_flash_backward_kernel_matches_plain_version(cuda, dtype, G, dim,
+def test_flash_backward_kernel_matches_plain_version(cuda, dtype, G, dim, S,
                                                      window, monkeypatch):
     """The forward's lse against the plain version's, its output bit for
     bit the serving path's (lse null), and the backward kernel's dq, dk,
     dv against ``flash_attention_bwd_ref`` at 150 tokens (no multiple of
-    the 64-row tiles), causal and, unwindowed, not causal; through
-    autograd the Function against autograd over the plain forward, with
-    the plain versions barred from CUDA tensors."""
+    the 64-row tiles) and at 1000, whose G x 16 query tiles wrap the
+    tensor-core body's ring of Q/dO stages many times, causal and,
+    unwindowed, not causal; a second call on the same inputs within the
+    rule of the first, its dk and dv bit for bit (dq's f32 sums arrive by
+    atomics); through autograd the Function against autograd over the
+    plain forward, with the plain versions barred from CUDA tensors."""
     g = torch.Generator().manual_seed(17)
 
     def rnd(*shape):
         return torch.randn(*shape, generator=g).to(cuda, dtype)
-    B, S, KV = 2, 150, 2
+    B, KV = 2, 2
     q, k, v = rnd(B, S, KV * G, dim), rnd(B, S, KV, dim), rnd(B, S, KV, dim)
     do = rnd(B, S, KV * G, dim)
     plain, plain_bwd = fa.flash_attention_ref, fa.flash_attention_bwd_ref
@@ -272,6 +279,10 @@ def test_flash_backward_kernel_matches_plain_version(cuda, dtype, G, dim,
         for a, w, w32 in zip(got, want, want32):
             assert a.dtype == dtype and a.shape == w.shape
             _assert_grad_close(a, w, w32)
+        again = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        for a, first, w32 in zip(again, got, want32):
+            _assert_grad_close(a, first, w32)
+        assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
         if dtype != torch.float32:
             continue
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]

@@ -12,7 +12,8 @@ bound on the card (``paged_decode_splits``).  The plans are plain Python,
 made from shapes alone (no length), checked here on the CPU against what
 the kernels need: splits that cover the keys, and blocks enough to give
 every SM one, and no more, wherever there are keys enough for them.  The
-SSD scan's wrapper picks its kernel's body from the shapes (``ssd_body``).
+SSD scan's wrapper picks its kernel's body from the shapes (``ssd_body``),
+and flash's backward from the dtype and head dims (``flash_bwd_body``).
 The wrappers' input checks (which run before a launch, on the card only)
 are plain Python too and refuse what no kernel takes, and take what the
 model layers hand over.  The kernels themselves run on the card
@@ -26,6 +27,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import grouped_matmul as gm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import rglru_scan as rs  # noqa: E402
@@ -287,3 +289,67 @@ def test_ssd_check_accepts_what_the_mamba2_layer_hands_over(prefill,
         x = torch.randn(2, 32, cfg.d_model, generator=g).to(torch.bfloat16)
         mamba2.mamba2_forward(p, x, cfg)
     assert seen == ["wgmma"]
+
+
+@pytest.mark.parametrize("dtype,dk,dv,body", [
+    (torch.bfloat16, 64, 64, "wgmma"),
+    (torch.bfloat16, 128, 128, "wgmma"),
+    (torch.float32, 64, 64, "fma"),
+    (torch.float32, 128, 128, "fma")])
+def test_flash_bwd_body_is_chosen_by_dtype_and_head_dims(dtype, dk, dv,
+                                                         body):
+    """The backward's fused tensor-core pass takes bf16 at its built pairs;
+    float32 (the identity runs, which must stay f32) takes the FMA body."""
+    assert fa.flash_bwd_body(dtype, dk, dv) == body
+
+
+def _bwd_args(dtype=torch.bfloat16, dk=64, dv=64, shift=0, B=2, S=100,
+              H=14, KV=2):
+    """q, k, v, o, lse, do as the train step hands them to the backward,
+    on the CPU; q ``shift`` elements past a 16-byte boundary."""
+    flat = torch.zeros(B * S * H * dk + shift, dtype=dtype)
+    q = flat[shift:].view(B, S, H, dk)
+    k = torch.zeros(B, S, KV, dk, dtype=dtype)
+    v = torch.zeros(B, S, KV, dv, dtype=dtype)
+    o, do = (torch.zeros(B, S, H, dv, dtype=dtype) for _ in range(2))
+    return q, k, v, o, torch.zeros(B, H, S), do
+
+
+@pytest.mark.parametrize("dtype,dk", [(torch.bfloat16, 64),
+                                      (torch.bfloat16, 128),
+                                      (torch.float32, 64)])
+def test_flash_bwd_check_takes_what_the_train_step_hands_over(dtype, dk):
+    fa._bwd_check(*_bwd_args(dtype, dk, dk))
+    assert fa._grad_problems(*_bwd_args(dtype, dk, dk)[:3:2], 0) == []
+
+
+@pytest.mark.parametrize("case,match", [
+    ("pair (96, 64)", "head dims"),
+    ("pair (256, 256)", "head dims"),
+    ("misaligned q", "16-byte boundary"),
+    ("lse shape", "lse"),
+    ("q_offset", "q_offset = 0")])
+def test_flash_bwd_check_refuses_what_the_launcher_refuses(case, match):
+    """The wrapper refuses before any launch what the C launcher refuses
+    (a pair outside BWD_PAIRS, a q offset, a base the tensor-core body's
+    TMA cannot take) and what it cannot check (shapes)."""
+    if case == "q_offset":
+        q, _, v = _bwd_args()[:3]
+        assert any(match in p for p in fa._grad_problems(q, v, 3))
+        q.requires_grad_()
+        with pytest.raises(ValueError, match=match):
+            fa.flash_attention(q, *_bwd_args()[1:3], q_offset=3)
+        return
+    if case.startswith("pair"):
+        dk, dv = (96, 64) if "96" in case else (256, 256)
+        args = _bwd_args(dk=dk, dv=dv)
+    elif case == "misaligned q":
+        args = _bwd_args(shift=1)
+        assert args[0].data_ptr() % 16 == 2
+    else:
+        args = list(_bwd_args())
+        args[4] = torch.zeros(2, 14, 99)
+    with pytest.raises(ValueError, match=match):
+        fa._bwd_check(*args)
+    if case == "misaligned q":            # the FMA body reads elements
+        fa._bwd_check(*_bwd_args(torch.float32, shift=1))
