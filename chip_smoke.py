@@ -47,11 +47,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                  gathered keys, flash at 8 x 1024, at S = 3072 and with the
                  composed phase's per-row offsets; and the train step's:
                  flash with its lse output at phase 23's shape (B=4,
-                 S=4096, (14, 2, 64)) and flash's backward there and at
-                 (24, 8, 128), S=2048, with and without a window, against
-                 flash_attention_bwd_ref and, in f32, autograd through the
-                 plain forward, each case logging the backward's body
-                 (flash_bwd_body) and its ptxas registers and spills.  Each
+                 S=4096, (14, 2, 64)), at phase 26's (B=2, S=4096, (16,
+                 16, 192/128)) and at phase 29's (B=2, 64 prefix + 4096
+                 = 4160 positions, (32, 32, 64): the last 128-key tile
+                 half full), flash's backward there, at (24, 8, 128),
+                 S=2048, with and without a window, and at the reduced MLA
+                 pair (96, 64), against flash_attention_bwd_ref and, in
+                 f32, autograd through the plain forward, each case
+                 logging the backward's body (flash_bwd_body) and its
+                 ptxas registers and spills.  Each
                  kernel is timed in bf16 at its
                  main-path shape beside its plain version, a library
                  yardstick (SDPA; SDPA's backward; torch._grouped_mm; none
@@ -144,11 +148,36 @@ Phases, in order; any failure raises and the script exits non-zero:
                  4 steps of 2 x 1024 with the kernels and with the plain
                  versions: losses and grad norms within 1e-4 relative, the
                  params within AdamW's bound;
-  26. result   — the nvidia-smi line, the kernel JSON line (nine kernels;
+  26. deepseek train — deepseek-v2-lite-16b's train step (MLA at (Dk, Dv)
+                 = (192, 128) + GShard MoE, the reference's default
+                 dispatch) at full width cut to 4 layers (the dense first
+                 and three MoE layers, about 2.25 B params: 5 layers run
+                 out of the card's memory) in bf16 through
+                 ``trainer.train``: 8 steps of 2 x 4096 tokens; loss and
+                 grad norm finite, exactly 8 flash_attention launches, 4
+                 backward calls and no grouped_matmul a step; step wall,
+                 tok/s, peak memory;
+  27. deepseek train profile — torch.profiler over one such step;
+  28. deepseek train identity — the same arch, 2 layers (dense + MoE),
+                 float32, 4 steps of 1 x 1024, kernels against plain
+                 versions, to phase 25's limits;
+  29. musicgen train — musicgen-large at full width cut to 36 of its 48
+                 layers, bf16, through ``make_train_step(multimodal=True)``:
+                 8 steps of 2 x 4096 tokens after 64 seeded conditioning
+                 frames of width 1024 (4160 positions, so flash's walks end
+                 in a partial tile); loss and grad norm finite, exactly
+                 72 forward and 36 backward flash calls and no
+                 grouped_matmul a step; step wall, tok/s, peak memory;
+  30. musicgen train identity — the same arch and prefix, 2 layers,
+                 float32, 4 steps of 1 x (64 + 1024), kernels against plain
+                 versions, to phase 25's limits;
+  31. result   — the nvidia-smi line, the kernel JSON line (nine kernels;
                  flash has a row for each run it is on: phase 6's (64, 64),
-                 phase 12's (192, 128), phase 21's (256, 256) and phase
-                 23's train shape with lse, beside its backward's at that
-                 shape and at (24, 8, 128), 2 x 2048; ssd_scan
+                 phase 12's (192, 128), phase 21's (256, 256), phase 23's
+                 train shape with lse, phase 26's at (192, 128) and phase
+                 29's at (32, 32, 64) over 4160 positions, each beside its
+                 backward's at that shape, and the backward at
+                 (24, 8, 128), 2 x 2048; ssd_scan
                  and rglru_scan one for their serving prefill calls and one
                  for their Generator prefill; the paged decode, ragged
                  prefill and dense decode a second row at (256, G = 10);
@@ -290,6 +319,36 @@ TRAIN_ID_REL = 1e-4
 # without a window
 BWD_WIDE = (24, 8, 128)
 BWD_WIDE_B, BWD_WIDE_S = 2, 2048
+# deepseek-v2-lite-16b's train step (phase 26, bf16, MLA + GShard MoE): full
+# width cut to DS_TRAIN_LAYERS layers, the dense first layer and three MoE
+# layers, about 2.25 B params: AdamW keeps old and new params and the f32
+# moments alive at once, about 22 bytes a param.  The deepest depth that
+# trains on an 80 GB card: at 4 layers the peak is 59.21 GiB, and 5 layers
+# run out of memory in their first step (train_depth.py on an H100 80GB
+# HBM3).  DS_TRAIN_B x DS_TRAIN_S tokens (GShard groups of 512 tokens,
+# capacity 60), the attention at (Dk, Dv) = (192, 128), G = 1 (BWD_MLA)
+DS_TRAIN_LAYERS = 4
+DS_TRAIN_B, DS_TRAIN_S, DS_TRAIN_STEPS = 2, 4096, 8
+BWD_MLA = (16, 16, 192, 128)                   # (H, KV, Dk, Dv)
+# phase 3 also holds the backward at the reduced config's pair (96, 64)
+BWD_MLA_REDUCED = (16, 16, 96, 64)
+BWD_MLA_REDUCED_B, BWD_MLA_REDUCED_S = 2, 1024
+# its f32 identity (phase 28): DS_TRAIN_ID_LAYERS layers (dense + MoE),
+# DS_TRAIN_ID_B x DS_TRAIN_ID_S tokens, DS_TRAIN_ID_STEPS steps
+DS_TRAIN_ID_LAYERS, DS_TRAIN_ID_B, DS_TRAIN_ID_S = 2, 1, 1024
+DS_TRAIN_ID_STEPS = 4
+# musicgen-large's train step with its multimodal prefix (phase 29, bf16):
+# full width cut to MG_LAYERS of its 48 layers (2.43 B params) by the same
+# reckoning: 36 layers peak at 64.41 GiB and all 48 run out of memory
+# (train_depth.py on an H100 80GB HBM3; depths between not measured).
+# MG_B x MG_S tokens after num_prefix_tokens (64) seeded conditioning
+# frames of frontend_dim (1024), so the attention sees 4160 positions
+MG_ARCH = "musicgen-large"
+MG_LAYERS = 36
+MG_B, MG_S, MG_STEPS = 2, 4096, 8
+# its f32 identity with the prefix (phase 30): MG_ID_LAYERS layers,
+# MG_ID_B x (64 + MG_ID_S) positions, MG_ID_STEPS steps, phase 25's limits
+MG_ID_LAYERS, MG_ID_B, MG_ID_S, MG_ID_STEPS = 2, 1, 1024, 4
 
 
 def log(msg: str) -> None:
@@ -1235,36 +1294,72 @@ def phase_kernels(torch):
     return time_kernels(torch, timed)
 
 
-def bwd_inputs(torch, dtype, heads, kv, dim, batch, seq, window, seed):
+def bwd_inputs(torch, dtype, heads, kv, dk, dv, batch, seq, window, seed):
     """The flash backward's inputs as the train step hands them over: q,
     k, v, the forward kernel's output and lse on them, and dO."""
     from repro_torch.kernels.flash_attention import flash_attention_lse
     g = torch.Generator(device="cpu").manual_seed(seed)
     q, k, v, do = (torch.randn(batch, seq, n, dim, generator=g)
-                   .to(DEVICE, dtype) for n in (heads, kv, kv, heads))
+                   .to(DEVICE, dtype) for n, dim in ((heads, dk), (kv, dk),
+                                                     (kv, dv), (heads, dv)))
     out, lse = flash_attention_lse(q, k, v, causal=True, window=window)
     return q, k, v, out, lse, do
 
 
+def bwd_kernel_names(fa, dtype, dk, dv):
+    """The instantiations flash_bwd_body's body launches for the backward's
+    main kernels, as ptxas_report names them."""
+    if fa.flash_bwd_body(dtype, dk, dv) == "wgmma":
+        cols = "_cols" if (dk, dv) == (192, 128) else ""
+        return [f"flash_bwd_wgmma{cols}<{dk},{dv}>"]
+    t = "f32" if dtype.itemsize == 4 else "bf16"
+    return [f"flash_bwd_dkdv<{t},{dk},{dv}>", f"flash_bwd_dq<{t},{dk},{dv}>"]
+
+
+# phase 3's flash cases at the shapes of the bf16 train runs (phases 23,
+# 26 and 29): each also holds the forward with its lse and is timed
+TRAIN_RUNS = ("train", "mla train", "musicgen train")
+
+
+def mg_attention():
+    """musicgen-large's attention in phase 29: (H, KV, Dk, Dv), and the
+    positions of a row, num_prefix_tokens + MG_S."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(MG_ARCH)
+    d = cfg.resolved_head_dim
+    return ((cfg.num_heads, cfg.num_kv_heads, d, d),
+            cfg.num_prefix_tokens + MG_S)
+
+
 def train_kernel_checks(torch, dtype_name, timed):
-    """The kernels of the train step against their plain versions: the
-    forward with its lse at the train shape (B = TRAIN_B, S = TRAIN_S,
-    (14, 2, 64)), and the backward there and at (24, 8, 128), S =
-    BWD_WIDE_S, with and without a window, against
-    ``flash_attention_bwd_ref`` and, in f32, against autograd through
-    ``flash_attention_ref`` (in bf16 the saved output is rounded, so
-    autograd of the f32 forward is another function)."""
+    """The kernels of the train steps against their plain versions: the
+    forward with its lse at qwen2's train shape (B = TRAIN_B, S = TRAIN_S,
+    (14, 2, 64)), at deepseek-v2-lite's (DS_TRAIN_B x DS_TRAIN_S,
+    BWD_MLA: (Dk, Dv) = (192, 128), G = 1) and at musicgen-large's with
+    its prefix (MG_B x 4160 positions, (32, 32, 64), G = 1: the last
+    128-key tile half full), and the backward there, at
+    (24, 8, 128), S = BWD_WIDE_S, with and without a window, and at the
+    reduced MLA pair (96, 64), against ``flash_attention_bwd_ref`` and, in
+    f32, against autograd through ``flash_attention_ref`` (in bf16 the
+    saved output is rounded, so autograd of the f32 forward is another
+    function)."""
     from repro_torch.kernels import flash_attention as fa
     dtype = getattr(torch, dtype_name)
-    for case, (heads, kv, dim), batch, seq, window in (
-            ("train", (H, KV, D), TRAIN_B, TRAIN_S, None),
-            ("wide", BWD_WIDE, BWD_WIDE_B, BWD_WIDE_S, None),
-            ("wide windowed", BWD_WIDE, BWD_WIDE_B, BWD_WIDE_S, WINDOW)):
-        args = bwd_inputs(torch, dtype, heads, kv, dim, batch, seq, window,
-                          SEED + 50)
+    wide = BWD_WIDE + BWD_WIDE[2:]
+    mg_heads, mg_positions = mg_attention()
+    for case, (heads, kv, dk, dv), batch, seq, window in (
+            ("train", (H, KV, D, D), TRAIN_B, TRAIN_S, None),
+            ("wide", wide, BWD_WIDE_B, BWD_WIDE_S, None),
+            ("wide windowed", wide, BWD_WIDE_B, BWD_WIDE_S, WINDOW),
+            ("mla train", BWD_MLA, DS_TRAIN_B, DS_TRAIN_S, None),
+            ("mla reduced", BWD_MLA_REDUCED, BWD_MLA_REDUCED_B,
+             BWD_MLA_REDUCED_S, None),
+            ("musicgen train", mg_heads, MG_B, mg_positions, None)):
+        args = bwd_inputs(torch, dtype, heads, kv, dk, dv, batch, seq,
+                          window, SEED + 50)
         kw = dict(causal=True, window=window)
-        what = f"B={batch} S={seq} H={heads} KV={kv} D={dim}"
-        if case == "train":
+        what = f"B={batch} S={seq} H={heads} KV={kv} Dk={dk} Dv={dv}"
+        if case in TRAIN_RUNS:
             q, k, v, out, lse = args[:5]
             want, want_lse = fa.flash_attention_lse_ref(q, k, v, **kw)
             want32 = fa.flash_attention_ref(q.float(), k.float(), v.float(),
@@ -1282,13 +1377,12 @@ def train_kernel_checks(torch, dtype_name, timed):
                 raise AssertionError("kernel parity failed: flash_attention "
                                      f"with lse {dtype_name}")
             if dtype_name == "bfloat16":
-                timed[("flash_attention", "train lse")] = (
+                timed[("flash_attention", f"{case} lse")] = (
                     fa.flash_attention_lse, fa.flash_attention_lse_ref,
                     (q, k, v), kw, max(err, lse_err))
             del want, want_lse, want32
-        body = fa.flash_bwd_body(dtype, dim, dim)
-        kernels = ([f"flash_bwd_wgmma<{dim},{dim}>"] if body == "wgmma" else
-                   [f"flash_bwd_dkdv<{dim}>", f"flash_bwd_dq<{dim}>"])
+        body = fa.flash_bwd_body(dtype, dk, dv)
+        kernels = bwd_kernel_names(fa, dtype, dk, dv)
         report = {fn: (regs, spill) for fn, regs, spill
                   in PTXAS.get("flash_attention_bwd", ())}
         log(f"[kernels] flash_attention_bwd ({case}) {dtype_name}: body "
@@ -1331,7 +1425,7 @@ def train_kernel_checks(torch, dtype_name, timed):
         if not share <= 1:
             raise AssertionError(f"kernel parity failed: flash_attention_bwd "
                                  f"{case} {dtype_name}")
-        if dtype_name == "bfloat16" and case in ("train", "wide"):
+        if dtype_name == "bfloat16" and case in TRAIN_RUNS + ("wide",):
             timed[("flash_attention_bwd", case)] = (
                 fa.flash_attention_bwd, fa.flash_attention_bwd_ref, args, kw,
                 max(c[0] for c in checks))
@@ -1346,12 +1440,22 @@ def train_table(torch, pm, timed):
     SDPA less SDPA's forward); and the backward at the wide heads
     (BWD_WIDE, no window), which has no path (None): no run here trains a
     128-wide model, so its (128, 128) instantiation is launched on no
-    main path and its row keeps 0 launches."""
+    main path and its row keeps 0 launches; then both at deepseek-v2-lite's
+    train shape (BWD_MLA), read from phase 26's run, and at musicgen-large's
+    with its prefix, read from phase 29's."""
     q, k, v = timed[("flash_attention", "train lse")][2]
     args = timed[("flash_attention_bwd", "train")][2]
     wide = timed[("flash_attention_bwd", "wide")][2]
+    mq, mk, mv = timed[("flash_attention", "mla train lse")][2]
+    margs = timed[("flash_attention_bwd", "mla train")][2]
+    gq, gk, gv = timed[("flash_attention", "musicgen train lse")][2]
+    gargs = timed[("flash_attention_bwd", "musicgen train")][2]
+    (gh, gkv, gd, _), gs = mg_attention()
+    mg_path = f"{MG_ARCH} train"
     shape = dict(num_heads=H, kv_heads=KV, itemsize=2)
     wh, wkv, wd = BWD_WIDE
+    mh, mkv, mdk, mdv = BWD_MLA
+    ds_path = f"{DS_ARCH} train"
     return (
         ("flash_attention", "train lse",
          pm.prefill_visible_cost([0] * TRAIN_B, [TRAIN_S] * TRAIN_B, TRAIN_S,
@@ -1373,7 +1477,39 @@ def train_table(torch, pm, timed):
          sdpa_flash_bwd(torch, *wide),
          "SDPA backward (autograd.grad through SDPA causal, enable_gqa, less "
          "its forward; transposes excluded)",
-         "src/repro/kernels/flash_attention.py:87", None))
+         "src/repro/kernels/flash_attention.py:87", None),
+        # every row whole and causal, so the mean head dim (Dk + Dv) / 2
+        # gives the exact visible work of (192, 128)
+        ("flash_attention", "mla train lse",
+         pm.prefill_visible_cost([0] * DS_TRAIN_B, [DS_TRAIN_S] * DS_TRAIN_B,
+                                 DS_TRAIN_S, num_heads=mh, kv_heads=mkv,
+                                 head_dim=(mdk + mdv) // 2, itemsize=2),
+         sdpa_flash(torch, mq, mk, mv),
+         "SDPA causal (transposes excluded)",
+         "src/repro/kernels/flash_attention.py:87", ds_path),
+        ("flash_attention_bwd", "mla train",
+         pm.flash_attention_bwd_cost(batch=DS_TRAIN_B, seq_q=DS_TRAIN_S,
+                                     seq_k=DS_TRAIN_S, num_heads=mh,
+                                     kv_heads=mkv, dk=mdk, dv=mdv,
+                                     itemsize=2),
+         sdpa_flash_bwd(torch, *margs),
+         "SDPA backward (autograd.grad through SDPA causal, less its "
+         "forward; transposes excluded)",
+         "src/repro/kernels/flash_attention.py:87", ds_path),
+        ("flash_attention", "musicgen train lse",
+         pm.prefill_visible_cost([0] * MG_B, [gs] * MG_B, gs, num_heads=gh,
+                                 kv_heads=gkv, head_dim=gd, itemsize=2),
+         sdpa_flash(torch, gq, gk, gv),
+         "SDPA causal (transposes excluded)",
+         "src/repro/kernels/flash_attention.py:87", mg_path),
+        ("flash_attention_bwd", "musicgen train",
+         pm.flash_attention_bwd_cost(batch=MG_B, seq_q=gs, seq_k=gs,
+                                     num_heads=gh, kv_heads=gkv, dk=gd,
+                                     dv=gd, itemsize=2),
+         sdpa_flash_bwd(torch, *gargs),
+         "SDPA backward (autograd.grad through SDPA causal, less its "
+         "forward; transposes excluded)",
+         "src/repro/kernels/flash_attention.py:87", mg_path))
 
 
 def time_kernels(torch, timed):
@@ -1494,6 +1630,14 @@ ROW_NAMES = {("flash_attention", "MLA rows q_offset (192, 128)"):
              "flash_attention_d256_g10",
              ("flash_attention", "train lse"): "flash_attention_train",
              ("flash_attention_bwd", "wide"): "flash_attention_bwd_d128",
+             ("flash_attention", "mla train lse"):
+             "flash_attention_train_dk192_dv128",
+             ("flash_attention_bwd", "mla train"):
+             "flash_attention_bwd_dk192_dv128",
+             ("flash_attention", "musicgen train lse"):
+             "flash_attention_train_musicgen",
+             ("flash_attention_bwd", "musicgen train"):
+             "flash_attention_bwd_musicgen",
              ("decode_attention", "recurrentgemma Generator"):
              "decode_attention_d256_g10"}
 
@@ -2520,90 +2664,150 @@ def phase_rg_identity(torch, np):
     phase_preempt(torch, np, cfg, params, tag="hybrid preempt")
 
 
-def phase_train(torch, np):
-    """qwen2-0.5b's train step at full width (all 24 layers, random
-    weights from a seed) in bf16 through ``repro_torch.train.trainer
-    .train``: TRAIN_STEPS steps of TRAIN_B x TRAIN_S tokens of the
-    reference's synthetic corpus, AdamWConfig(total_steps=TRAIN_STEPS) as
-    the reference's launcher builds it.  Every step: loss and grad norm
-    finite, exactly 2 x 24 flash_attention forward launches (each layer's
-    forward and its remat recompute) and 24 backward calls.  Step wall
-    time (each step ends in a read of its metrics, which waits for the
-    card), training tokens/s and the peak of allocated device memory."""
-    from repro_torch.configs.base import ShapeConfig, get_config
-    from repro_torch.kernels import flash_attention as fa
+def prefix_train(torch, cfg, shape, adamw, train_cfg, hook=None):
+    """``trainer.train``'s loop through ``make_train_step(multimodal=True)``
+    (the trainer, as the reference's, makes no prefix): each batch of the
+    reference's synthetic corpus gets num_prefix_tokens conditioning frames
+    of frontend_dim from a generator seeded by ``train_cfg.seed``, so that
+    flash sees num_prefix_tokens + seq_len positions.  Returns (params,
+    history) as the trainer does."""
+    from repro_torch.data.pipeline import DataConfig, make_loader
+    from repro_torch.train import steps
+    step = steps.make_train_step(cfg, adamw, multimodal=True)
+    params, opt = steps.init_state(cfg, seed=train_cfg.seed, device=DEVICE)
+    loader = make_loader(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=shape.seq_len,
+                                    global_batch=shape.global_batch,
+                                    seed=train_cfg.seed), DEVICE)
+    g = torch.Generator(device=DEVICE).manual_seed(train_cfg.seed + 11)
+    history = []
+    t0 = time.perf_counter()
+    for i, batch in zip(range(train_cfg.num_steps), loader):
+        batch["prefix_embeds"] = torch.randn(
+            shape.global_batch, cfg.num_prefix_tokens, cfg.frontend_dim,
+            generator=g, device=DEVICE)
+        params, opt, metrics = step(params, opt, batch)
+        m = {k: float(v) for k, v in metrics.items()}
+        m.update(step=i + 1, wall_s=time.perf_counter() - t0)
+        history.append(m)
+        if hook:
+            hook(m)
+    return params, history
+
+
+def run_train(torch, cfg, shape, n_steps, hook=None):
+    """``n_steps`` train steps from SEED with AdamWConfig(total_steps=
+    n_steps), as the reference's launcher builds it: through
+    ``trainer.train``, or, for an arch with a multimodal frontend
+    (frontend_dim), through prefix_train."""
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train import trainer
-    cfg = get_config("qwen2-0.5b")
-    shape = ShapeConfig("train_4k_b4", TRAIN_S, TRAIN_B, "train")
+    adamw = AdamWConfig(total_steps=n_steps)
+    train_cfg = trainer.TrainConfig(num_steps=n_steps, log_every=1,
+                                    seed=SEED)
+    if cfg.frontend_dim:
+        return prefix_train(torch, cfg, shape, adamw, train_cfg, hook)
+    return trainer.train(cfg, shape, adamw=adamw, train_cfg=train_cfg,
+                         hook=hook, device=DEVICE)
+
+
+def phase_train(torch, np, arch="qwen2-0.5b", layers=None, batch=TRAIN_B,
+                seq=TRAIN_S, n_steps=TRAIN_STEPS, tag="train"):
+    """``arch``'s train step at full width (``layers`` of its layers, all
+    when None; random weights from a seed) in bf16 through
+    ``repro_torch.train.trainer.train`` (an arch with a multimodal frontend
+    through ``make_train_step(multimodal=True)`` after seeded conditioning
+    frames: prefix_train), the reference's default gshard dispatch for MoE:
+    ``n_steps`` steps of ``batch`` x ``seq`` tokens of the reference's
+    synthetic corpus.  Every step: loss and grad norm finite, exactly 2
+    flash_attention forward launches a layer (its forward and its remat
+    recompute), one backward call a layer, and no grouped_matmul (gshard's
+    experts are einsums).  Step wall time (each step ends in a read of its
+    metrics, which waits for the card), training tokens/s and the peak of
+    allocated device memory."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gm
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    shape = ShapeConfig(f"train_{seq}_b{batch}", seq, batch, "train")
     n = cfg.num_layers
-    seen, last = [], [0, 0]
+    seen, last = [], [0, 0, 0]
 
     def hook(m):
-        f, b = fa.flash_attention.launches, fa.flash_attention_bwd.launches
-        seen.append((m, f - last[0], b - last[1]))
-        log(f"[train] step {m['step']}: loss {m['loss']:.4f} grad_norm "
+        now = (fa.flash_attention.launches, fa.flash_attention_bwd.launches,
+               gm.grouped_matmul.launches)
+        f, b, g = (x - y for x, y in zip(now, last))
+        seen.append((m, f, b, g))
+        log(f"[{tag}] step {m['step']}: loss {m['loss']:.4f} grad_norm "
             f"{m['grad_norm']:.4f} lr {m['lr']:.3e} wall {m['wall_s']:.3f}s, "
-            f"launches: flash {f - last[0]} forward, {b - last[1]} backward")
-        last[:] = [f, b]
+            f"launches: flash {f} forward, {b} backward, grouped_matmul {g}")
+        last[:] = now
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    # the main path's run: every launch count starts at 0 here
+    # this path's run: every launch count starts at 0 here
     fa.flash_attention.launches = 0
     fa.flash_attention_bwd.launches = 0
+    gm.grouped_matmul.launches = 0
     sync(torch)
     t0 = time.perf_counter()
-    params, hist = trainer.train(
-        cfg, shape, adamw=AdamWConfig(total_steps=TRAIN_STEPS),
-        train_cfg=trainer.TrainConfig(num_steps=TRAIN_STEPS, log_every=1,
-                                      seed=SEED),
-        hook=hook, device=DEVICE)
+    params, hist = run_train(torch, cfg, shape, n_steps, hook)
     sync(torch)
     wall = time.perf_counter() - t0
     launches = {"flash_attention": fa.flash_attention.launches,
-                "flash_attention_bwd": fa.flash_attention_bwd.launches}
+                "flash_attention_bwd": fa.flash_attention_bwd.launches,
+                "grouped_matmul": gm.grouped_matmul.launches}
     peak = (torch.cuda.max_memory_allocated() / 2 ** 30
             if DEVICE == "cuda" else float("nan"))
     del params
-    walls = [m["wall_s"] for m, _, _ in seen]
+    walls = [m["wall_s"] for m, _, _, _ in seen]
     step_s = sorted(b - a for a, b in zip(walls, walls[1:]))
     med = step_s[len(step_s) // 2]
-    log(f"[train] qwen2-0.5b bf16 full width, {TRAIN_STEPS} steps of "
-        f"{TRAIN_B} x {TRAIN_S} tokens: {wall:.3f}s in all, first step "
-        f"{walls[0]:.3f}s (with warm-up), median of steps 2-{TRAIN_STEPS} "
-        f"{med:.4f}s ({TRAIN_B * TRAIN_S / med:.1f} train tok/s), range "
+    rows = (f"{batch} x ({cfg.num_prefix_tokens} prefix + {seq}) positions"
+            if cfg.frontend_dim else f"{batch} x {seq} tokens")
+    log(f"[{tag}] {arch} bf16 full width, {n} layers, {n_steps} steps of "
+        f"{rows}: {wall:.3f}s in all, first step "
+        f"{walls[0]:.3f}s (with warm-up), median of steps 2-{n_steps} "
+        f"{med:.4f}s ({batch * seq / med:.1f} train tok/s), range "
         f"{step_s[0]:.4f}..{step_s[-1]:.4f}s; peak device memory "
         f"{peak:.2f} GiB (torch.cuda.max_memory_allocated)")
-    log(f"[train] launches {launches}; expected per step {2 * n} forward "
-        f"({n} + {n} remat) and {n} backward, {TRAIN_STEPS} steps")
-    if len(hist) != TRAIN_STEPS or not all(
+    log(f"[{tag}] launches {launches}; expected per step {2 * n} forward "
+        f"({n} + {n} remat), {n} backward and no grouped_matmul, {n_steps} "
+        "steps")
+    if len(hist) != n_steps or not all(
             np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
-            for m, _, _ in seen):
-        raise AssertionError("a train step's loss or grad norm is not "
+            for m, _, _, _ in seen):
+        raise AssertionError(f"{tag}: a step's loss or grad norm is not "
                              "finite")
-    if any((f, b) != (2 * n, n) for _, f, b in seen) or launches != {
-            "flash_attention": 2 * n * TRAIN_STEPS,
-            "flash_attention_bwd": n * TRAIN_STEPS}:
-        raise AssertionError(f"train launch counts {launches}, per step "
-                             f"{[(f, b) for _, f, b in seen]}: expected "
-                             f"{2 * n} and {n} a step")
+    if any((f, b, g) != (2 * n, n, 0) for _, f, b, g in seen) or \
+            launches != {"flash_attention": 2 * n * n_steps,
+                         "flash_attention_bwd": n * n_steps,
+                         "grouped_matmul": 0}:
+        raise AssertionError(f"{tag} launch counts {launches}, per step "
+                             f"{[x[1:] for x in seen]}: expected {2 * n}, "
+                             f"{n} and 0 a step")
     return launches
 
 
-def phase_train_profile(torch):
+def phase_train_profile(torch, arch="qwen2-0.5b", layers=None,
+                        batch=TRAIN_B, seq=TRAIN_S, tag="train profile"):
     """torch.profiler over one train step (after a warm step) of the same
-    configuration: device busy, idle share and top device items."""
+    configuration as phase_train's: device busy, idle share and top device
+    items."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import DataConfig, make_loader
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train import steps
-    cfg = get_config("qwen2-0.5b")
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     params, opt = steps.init_state(cfg, seed=SEED, device=DEVICE)
     step = steps.make_train_step(cfg, AdamWConfig(total_steps=TRAIN_STEPS))
     loader = make_loader(DataConfig(vocab_size=cfg.vocab_size,
-                                    seq_len=TRAIN_S, global_batch=TRAIN_B,
+                                    seq_len=seq, global_batch=batch,
                                     seed=SEED), DEVICE)
     params, opt, _ = step(params, opt, next(loader))          # warm
     batch = next(loader)
@@ -2614,7 +2818,7 @@ def phase_train_profile(torch):
         params, opt, _ = step(params, opt, batch)
         sync(torch)
         wall = time.perf_counter() - t0
-    report_profile("train profile", [("train step", prof, wall, 1)])
+    report_profile(tag, [("train step", prof, wall, 1)])
 
 
 def adam_step_bound(b1: float, b2: float, t: int) -> float:
@@ -2627,12 +2831,16 @@ def adam_step_bound(b1: float, b2: float, t: int) -> float:
             * ((1 - b2 ** t) / (1 - b2)) ** 0.5)
 
 
-def phase_train_identity(torch, np):
-    """qwen2-0.5b at full width, all 24 layers, float32: TRAIN_ID_STEPS
-    train steps of TRAIN_ID_B x TRAIN_ID_S tokens from one seed, once with
-    the kernels and once with the plain versions (``ops.set_mode("ref")``,
-    autograd through the plain forward).  Losses and grad norms agree to
-    TRAIN_ID_REL at every step.  The params after the steps differ by at
+def phase_train_identity(torch, np, arch="qwen2-0.5b", layers=None,
+                         batch=TRAIN_ID_B, seq=TRAIN_ID_S,
+                         n_steps=TRAIN_ID_STEPS, tag="train identity"):
+    """``arch`` at full width (``layers`` of its layers, all when None),
+    float32: ``n_steps`` train steps of ``batch`` x ``seq`` tokens from one
+    seed (MoE under gshard; a multimodal arch after the same seeded
+    conditioning frames, prefix_train), once with the kernels and once
+    with the plain versions (``ops.set_mode("ref")``, autograd through the
+    plain forward).  Losses and grad norms agree to TRAIN_ID_REL at every
+    step.  The params after the steps differ by at
     most what AdamW allows: a weight moves by lr_t x (its Adam ratio + wd x
     p) a step, the ratio at most adam_step_bound, so two runs whose
     gradients differ only in rounding (a gradient near zero may flip sign,
@@ -2643,18 +2851,16 @@ def phase_train_identity(torch, np):
     from repro_torch.core.tree import tree_flatten_with_path
     from repro_torch.kernels import ops
     from repro_torch.optim.adamw import AdamWConfig, schedule
-    from repro_torch.train import trainer
-    cfg = dataclasses.replace(get_config("qwen2-0.5b"), dtype="float32")
-    shape = ShapeConfig("train_identity", TRAIN_ID_S, TRAIN_ID_B, "train")
-    adamw = AdamWConfig(total_steps=TRAIN_ID_STEPS)
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    shape = ShapeConfig("train_identity", seq, batch, "train")
+    adamw = AdamWConfig(total_steps=n_steps)
     runs = {}
     for mode in ("auto", "ref"):
         ops.set_mode(mode)
         try:
-            runs[mode] = trainer.train(
-                cfg, shape, adamw=adamw, device=DEVICE,
-                train_cfg=trainer.TrainConfig(num_steps=TRAIN_ID_STEPS,
-                                              log_every=1, seed=SEED))
+            runs[mode] = run_train(torch, cfg, shape, n_steps)
         finally:
             ops.set_mode("auto")
         torch.cuda.empty_cache()
@@ -2663,11 +2869,11 @@ def phase_train_identity(torch, np):
         for k in ("loss", "grad_norm"):
             rel = abs(a[k] - b[k]) / max(1.0, abs(b[k]))
             worst = max(worst, rel)
-        log(f"[train identity] step {a['step']}: loss {a['loss']:.7f} vs "
+        log(f"[{tag}] step {a['step']}: loss {a['loss']:.7f} vs "
             f"plain {b['loss']:.7f}, grad_norm {a['grad_norm']:.6f} vs "
             f"{b['grad_norm']:.6f}")
     lrs = [float(schedule(adamw, torch.tensor(t, dtype=torch.int32)))
-           for t in range(1, TRAIN_ID_STEPS + 1)]
+           for t in range(1, n_steps + 1)]
     bound = sum(2 * lr * adam_step_bound(adamw.b1, adamw.b2, t)
                 for t, lr in enumerate(lrs, 1))
     pa = dict(tree_flatten_with_path(runs["auto"][0]))
@@ -2677,21 +2883,24 @@ def phase_train_identity(torch, np):
     # shrinks it; each run rounds its f32 update once a step, an ulp of the
     # largest weight at most
     big = max(t.abs().max().item() for t in pb.values())
-    bound += 2 * TRAIN_ID_STEPS * big * 2.0 ** -23
+    bound += 2 * n_steps * big * 2.0 ** -23
     dmax = max(d.max().item() for d in diffs.values())
     near = sum(int((d > 0.5 * bound).sum()) for d in diffs.values())
     moved = sum(int((d > 0).sum()) for d in diffs.values())
     total = sum(d.numel() for d in diffs.values())
-    log(f"[train identity] qwen2-0.5b f32 full width, {TRAIN_ID_STEPS} "
-        f"steps of {TRAIN_ID_B} x {TRAIN_ID_S}, kernels vs plain versions: "
+    log(f"[{tag}] {arch} f32 full width, {cfg.num_layers} layers, "
+        f"{n_steps} steps of {batch} x {seq}"
+        + (f" after {cfg.num_prefix_tokens} prefix frames"
+           if cfg.frontend_dim else "")
+        + ", kernels vs plain versions: "
         f"losses and grad norms within {worst:.3e} relative (limit "
         f"{TRAIN_ID_REL}); params after the steps: max |diff| {dmax:.3e} "
         f"against AdamW's bound {bound:.3e} (lr_t {lrs}), {moved} of "
         f"{total} weights differ at all, {near} by more than half the "
         "bound")
     if not worst <= TRAIN_ID_REL or not dmax <= bound:
-        raise AssertionError("train identity failed: kernels and plain "
-                             "versions part")
+        raise AssertionError(f"{tag} failed: kernels and plain versions "
+                             "part")
 
 
 def timed(name, fn, *args):
@@ -2755,10 +2964,31 @@ def main() -> int:
     timed("train profile", phase_train_profile, torch)
     torch.cuda.empty_cache()
     timed("train identity", phase_train_identity, torch, np)
+    torch.cuda.empty_cache()
+    ds_train = (DS_ARCH, DS_TRAIN_LAYERS, DS_TRAIN_B, DS_TRAIN_S)
+    ds_train_launches = timed("deepseek train", phase_train, torch, np,
+                              *ds_train, DS_TRAIN_STEPS, "deepseek train")
+    torch.cuda.empty_cache()
+    timed("deepseek train profile", phase_train_profile, torch, *ds_train,
+          "deepseek train profile")
+    torch.cuda.empty_cache()
+    timed("deepseek train identity", phase_train_identity, torch, np,
+          DS_ARCH, DS_TRAIN_ID_LAYERS, DS_TRAIN_ID_B, DS_TRAIN_ID_S,
+          DS_TRAIN_ID_STEPS, "deepseek train identity")
+    torch.cuda.empty_cache()
+    mg_train_launches = timed("musicgen train", phase_train, torch, np,
+                              MG_ARCH, MG_LAYERS, MG_B, MG_S, MG_STEPS,
+                              "musicgen train")
+    torch.cuda.empty_cache()
+    timed("musicgen train identity", phase_train_identity, torch, np,
+          MG_ARCH, MG_ID_LAYERS, MG_ID_B, MG_ID_S, MG_ID_STEPS,
+          "musicgen train identity")
     runs = {"qwen2-0.5b": launches, DS_ARCH: moe_launches,
             SSM_ARCH: ssm_launches, f"{SSM_ARCH} Generator": ssm_gen_launches,
             RG_ARCH: rg_launches, f"{RG_ARCH} Generator": rg_gen_launches,
-            "qwen2-0.5b train": train_launches}
+            "qwen2-0.5b train": train_launches,
+            f"{DS_ARCH} train": ds_train_launches,
+            f"{MG_ARCH} train": mg_train_launches}
     for row in rows:
         if row["path"] is not None:     # None: timed in phase 3 only
             row["launches"] = runs[row["path"]][

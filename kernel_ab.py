@@ -41,9 +41,10 @@ Generator prefill (8 x 1024, chunks of 256), x, B and C column slices of
 one (rows, S, 2304) tensor as the layer hands them over; and
 deepseek-v2-lite's paged_mla_decode_attention at the serving decode (16
 seats over a 96-block table, block 16, lengths 100..1532); flash's
-backward at qwen2-0.5b's train shape (4 x 4096, causal) and at (24, 8,
-128) over 2 x 2048 ("flash_attention_bwd wide"; cases only in trees that
-have the backward); each case from ``chip_smoke.py``'s seeds, so its
+backward at qwen2-0.5b's train shape (4 x 4096, causal), at (24, 8,
+128) over 2 x 2048 ("flash_attention_bwd wide") and at deepseek-v2-lite's
+(192, 128) over 2 x 4096 ("flash_attention_bwd mla"; cases only in trees
+whose backward takes them); each case from ``chip_smoke.py``'s seeds, so its
 inputs are those of phase 3.  Each tree also prints ptxas's registers and
 spill stores for the flash forward, the ragged prefill and the backward.  With two
 timers, ROUNDS readings each:
@@ -100,6 +101,9 @@ RG_W, RG_LENGTHS, RG_LONG = 2560, (100, 3000 + 64), 4
 # backward; and the backward at the wider heads (chip_smoke.py's BWD_WIDE)
 TRAIN_B, TRAIN_S = 4, 4096
 BWD_WIDE, BWD_WIDE_B, BWD_WIDE_S = (24, 8, 128), 2, 2048
+# deepseek-v2-lite's train step (chip_smoke.py's BWD_MLA, DS_TRAIN_B x
+# DS_TRAIN_S): (H, KV, Dk, Dv)
+BWD_MLA, BWD_MLA_B, BWD_MLA_S = (16, 16, 192, 128), 2, 4096
 # the wrappers' input checks where a module's is not ``_check``
 CHECKS = {"paged_mla_decode_attention": "_mla_check",
           "flash_attention_bwd": "_bwd_check"}
@@ -201,23 +205,30 @@ def sdpa_masked_decode(torch, q, k, v, mask):
 
 def train_cases(torch):
     """Flash's backward at qwen2-0.5b's train shape (B = 4, S = 4096,
-    (14, 2, 64), causal) and at the wide heads of phi4-mini, llama3-8b and
-    granite ((24, 8, 128), BWD_WIDE_B x BWD_WIDE_S, causal), its inputs the
-    forward kernel's output and lse on q, k, v drawn from a seed, beside
-    SDPA's backward (autograd through SDPA less SDPA's forward).  None for
-    a tree without the backward."""
+    (14, 2, 64), causal), at the wide heads of phi4-mini, llama3-8b and
+    granite ((24, 8, 128), BWD_WIDE_B x BWD_WIDE_S, causal) and, in trees
+    whose backward takes (192, 128), at deepseek-v2-lite's train shape
+    (BWD_MLA: "flash_attention_bwd mla"), its inputs the forward kernel's
+    output and lse on q, k, v drawn from a seed, beside SDPA's backward
+    (autograd through SDPA less SDPA's forward).  None for a tree without
+    the backward."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     if not hasattr(fa, "flash_attention_bwd"):
         return {}
     out = {}
-    for case, (heads, kv, dim), batch, seq in (
-            ("flash_attention_bwd train", (H, KV, D), TRAIN_B, TRAIN_S),
-            ("flash_attention_bwd wide", BWD_WIDE, BWD_WIDE_B, BWD_WIDE_S)):
+    shapes = [("flash_attention_bwd train", (H, KV, D, D), TRAIN_B, TRAIN_S),
+              ("flash_attention_bwd wide", BWD_WIDE + BWD_WIDE[2:],
+               BWD_WIDE_B, BWD_WIDE_S)]
+    if tuple(BWD_MLA[2:]) in getattr(fa, "BWD_PAIRS", ()):
+        shapes.append(("flash_attention_bwd mla", BWD_MLA, BWD_MLA_B,
+                       BWD_MLA_S))
+    for case, (heads, kv, dk, dv), batch, seq in shapes:
         g = torch.Generator(device="cpu").manual_seed(50)
         q, k, v, do = (torch.randn(batch, seq, n, dim, generator=g)
                        .to("cuda", torch.bfloat16)
-                       for n in (heads, kv, kv, heads))
+                       for n, dim in ((heads, dk), (kv, dk), (kv, dv),
+                                      (heads, dv)))
         o, lse = fa.flash_attention_lse(q, k, v, causal=True)
         qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
                       for t in (q, k, v))

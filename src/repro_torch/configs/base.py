@@ -276,17 +276,6 @@ SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
 
 # ---------------------------------------------------------------------------
 # Registry
-class ArchNotPortedError(KeyError):
-    """The reference registers this architecture, but the port does not
-    serve its mixer or FFN family yet (ROADMAP.md, "Modules to port")."""
-
-
-# reference architectures whose families arrive in later slices
-NOT_YET_PORTED = {
-    "internvl2-26b": "the vision frontend",
-    "musicgen-large": "the audio frontend",
-}
-
 _REGISTRY: dict = {}
 
 
@@ -298,11 +287,6 @@ def register(cfg: ModelConfig) -> ModelConfig:
 def get_config(name: str) -> ModelConfig:
     if not _REGISTRY:
         _load_all()
-    if name in NOT_YET_PORTED:
-        raise ArchNotPortedError(
-            f"arch {name!r} is not ported yet: it needs {NOT_YET_PORTED[name]} "
-            "(ROADMAP.md, 'Modules to port'); ported: "
-            f"{sorted(_REGISTRY)}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]
@@ -318,6 +302,7 @@ def _load_all() -> None:
     # import every module in this package so configs self-register
     from repro_torch.configs import (deepseek_moe_16b,  # noqa: F401
                                      deepseek_v2_lite_16b, granite_3_2b,
-                                     llama3_8b, mamba2_370m,
-                                     moonshot_v1_16b_a3b, phi4_mini_3_8b,
-                                     qwen2_0_5b, recurrentgemma_2b)
+                                     internvl2_26b, llama3_8b, mamba2_370m,
+                                     moonshot_v1_16b_a3b, musicgen_large,
+                                     phi4_mini_3_8b, qwen2_0_5b,
+                                     recurrentgemma_2b)

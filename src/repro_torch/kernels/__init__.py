@@ -12,15 +12,16 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # REPRO_F32, REPRO_BF16
 SAME_DIMS = ((64, 64), (128, 128), (256, 256))       # (Dk, Dv) built
 
 
-def refuse_grad(name: str, *tensors) -> None:
+def refuse_grad(name: str, *tensors, item: str = "train step") -> None:
     """Raise when a gradient is asked of a kernel that has no backward
     (the wrappers launch through ctypes, so autograd would not see the
     kernel and the gradient would be wrong in silence).  Flash attention
     has one (``flash_attention.FlashAttentionFn``); the other kernels'
-    backwards come with the training of their families (ROADMAP.md)."""
+    backwards come with the training of their families: ``item`` names
+    the ROADMAP.md item that brings this one's."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"{name}: an input requires grad, and the kernel "
-                           "has no backward yet (ROADMAP.md, train step); "
+                           f"has no backward yet (ROADMAP.md, {item}); "
                            "run under torch.no_grad()")
 
 

@@ -828,20 +828,24 @@ __device__ __forceinline__ void wgmma_ss_mn(float (&d)[32], uint64_t a,
         : "l"(a), "l"(b), "r"(accumulate), "n"(TA));
 }
 
-// As wgmma_ss_mn<1> at N = 32: b holds the first 32 values of its rows.
-__device__ __forceinline__ void wgmma_ss_tt32(float (&d)[16], uint64_t a,
-                                              uint64_t b, int accumulate) {
+// d (64 x 32, f32) = a b + (accumulate ? d : 0) from two shared operands,
+// each K-major, or with TA / TB MN-major (as wgmma_ss_mn's): with TB, b
+// holds 32 values of its rows, from byte 0 or 64 of a 128-byte swizzle
+// row.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss32(float (&d)[16], uint64_t a,
+                                           uint64_t b, int accumulate) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, "
         "%8, %9, %10, %11, %12, %13, %14, %15}, "
-        "%16, %17, p, 1, 1, 1, 1;\n}\n"
+        "%16, %17, p, 1, 1, %19, %20;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
           "+f"(d[15])
-        : "l"(a), "l"(b), "r"(accumulate));
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
 // d (64 x 128, f32) = a b + (accumulate ? d : 0), a from shared memory

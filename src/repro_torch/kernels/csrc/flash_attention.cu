@@ -51,7 +51,7 @@
 // a query with no visible key gets +inf there, so its P is 0.  The serving
 // callers pass null and run the instantiations without it (the LSE flag),
 // which compile as before; with it, only the pairs the backward takes are
-// built: (64, 64) and (128, 128).
+// built: (64, 64), (128, 128), (192, 128) and (96, 64).
 
 #include "common.cuh"
 
@@ -164,6 +164,8 @@ extern "C" int flash_attention_launch(
     REPRO_CASE(96, 64, false)
     REPRO_CASE(64, 64, true)
     REPRO_CASE(128, 128, true)
+    REPRO_CASE(192, 128, true)
+    REPRO_CASE(96, 64, true)
 #undef REPRO_CASE
     return REPRO_UNSUPPORTED;
 }

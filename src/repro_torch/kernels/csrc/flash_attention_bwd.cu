@@ -26,8 +26,9 @@
 // (flash_attention.flash_bwd_body) and refused here for a shape they do
 // not take:
 //
-// Tensor-core body (bf16 at fb_pair (DK, DV): (64, 64), (128, 128)), three
-// kernels:
+// Tensor-core body (bf16 at fb_pair (DK, DV): (64, 64), (128, 128) and,
+// with the columns split between the warpgroups instead of the keys,
+// (192, 128): flash_bwd_wgmma_cols below), three kernels:
 //
 //   flash_bwd_prep   one warp a (b, s, h) row: D_i, and lse_i log2(e),
 //                    into a (B, H, query tile, 2, 64) f32 workspace, one
@@ -86,7 +87,10 @@
 //   bit for bit.  dQ's f32 sums arrive by atomics in the order the blocks
 //   reach them, so bf16 dq can differ by one rounding between runs.
 //
-// FMA body (f32, where f32 must stay f32: never TF32), three kernels:
+// FMA body (f32, where f32 must stay f32: never TF32; and bf16 at (96,
+// 64), whose 96 is no multiple of the tensor-core body's 64-value column
+// blocks: tiles widened to f32 on load, outputs rounded once), three
+// kernels:
 //
 //   flash_bwd_dot   D_i, (B, H, Sq) f32, one warp a (token, head) row;
 //   flash_bwd_dkdv  grid (64-key tile, kv head, batch row): the block holds
@@ -105,7 +109,8 @@
 //   conflict.  It recomputes S and dP in its dQ kernel.
 //
 // dq, dk and dv are rounded once, at the store.  (DK, DV) pairs built:
-// (64, 64) and (128, 128).
+// (64, 64), (128, 128) and (192, 128) in both bodies, (96, 64) in the FMA
+// body (f32 and bf16).
 
 #include "common.cuh"
 
@@ -115,26 +120,29 @@ constexpr int BWD_THREADS = 256;
 constexpr int BWD_T = 64;              // query rows and keys a tile
 constexpr int BWD_LDP = BWD_T + 1;     // padded row of the P and dS tiles
 
-template <int D>
+template <int DK, int DV>
 struct BwdShape {
-    static constexpr int LD = D + 1;   // padded row of a Q, dO, K or V tile
-    // Q, dO, K, V tiles, P and dS tiles, lse and D of the query tile
+    // padded rows of a Q or K tile and of a dO or V tile (odd lengths)
+    static constexpr int LDK = DK + 1, LDV = DV + 1;
+    // Q, K, dO, V tiles, P and dS tiles, lse and D of the query tile
     static constexpr size_t SMEM =
-        sizeof(float) * (4 * BWD_T * LD + 2 * BWD_T * BWD_LDP + 2 * BWD_T);
+        sizeof(float) * (2 * BWD_T * (LDK + LDV) + 2 * BWD_T * BWD_LDP
+                         + 2 * BWD_T);
 };
 
 // Rows [r0, r0 + n) of a (B, S, heads, D) tensor at head ``hh`` into a
-// 64 x (D + 1) tile, zeros past n.
-template <int D>
+// 64 x (D + 1) f32 tile, zeros past n.
+template <typename T, int D>
 __device__ __forceinline__ void load_tile(float* dst,
-                                          const float* __restrict__ src,
+                                          const T* __restrict__ src,
                                           int b, int S, int heads, int hh,
                                           int r0, int n) {
-    constexpr int LD = BwdShape<D>::LD;
+    constexpr int LD = D + 1;
     for (int e = threadIdx.x; e < BWD_T * D; e += BWD_THREADS) {
         const int i = e / D, d = e % D;
         dst[i * LD + d] = i < n
-            ? src[(((size_t)b * S + r0 + i) * heads + hh) * D + d] : 0.f;
+            ? to_f(src[(((size_t)b * S + r0 + i) * heads + hh) * D + d])
+            : 0.f;
     }
 }
 
@@ -153,14 +161,14 @@ __device__ __forceinline__ void load_rows(float* lse_s, float* dd_s,
 // P and scale dS of the tile pair in shared memory into Ps / dSs (either
 // may be null): this thread's query rows ty + 16 i of the tile at q0 and
 // keys tx + 16 j of the tile at k0.
-template <int D>
+template <int DK, int DV>
 __device__ __forceinline__ void probs(const float* Qs, const float* dOs,
                                       const float* Ks, const float* Vs,
                                       const float* lse_s, const float* dd_s,
                                       float* Ps, float* dSs, int q0, int k0,
                                       int Sq, int Sk, bool causal, int window,
                                       float scale) {
-    constexpr int LD = BwdShape<D>::LD;
+    constexpr int LDK = BwdShape<DK, DV>::LDK, LDV = BwdShape<DK, DV>::LDV;
     const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
     float s[4][4], dp[4][4];
 #pragma unroll
@@ -168,22 +176,31 @@ __device__ __forceinline__ void probs(const float* Qs, const float* dOs,
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-        float a[4], c[4], kk[4], vv[4];
+    for (int d = 0; d < DK; ++d) {
+        float a[4], kk[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-            a[i] = Qs[(ty + 16 * i) * LD + d];
-            c[i] = dOs[(ty + 16 * i) * LD + d];
-            kk[i] = Ks[(tx + 16 * i) * LD + d];
-            vv[i] = Vs[(tx + 16 * i) * LD + d];
+            a[i] = Qs[(ty + 16 * i) * LDK + d];
+            kk[i] = Ks[(tx + 16 * i) * LDK + d];
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                s[i][j] = fmaf(a[i], kk[j], s[i][j]);
+            for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], kk[j], s[i][j]);
+    }
+#pragma unroll 4
+    for (int d = 0; d < DV; ++d) {
+        float c[4], vv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            c[i] = dOs[(ty + 16 * i) * LDV + d];
+            vv[i] = Vs[(tx + 16 * i) * LDV + d];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
                 dp[i][j] = fmaf(c[i], vv[j], dp[i][j]);
-            }
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -202,10 +219,10 @@ __device__ __forceinline__ void probs(const float* Qs, const float* dOs,
 }
 
 // D_i = sum_d dO_i o_i over DV values, one warp a (b, s, h) row.
-template <int DV>
+template <typename T, int DV>
 __global__ void __launch_bounds__(BWD_THREADS) flash_bwd_dot(
-    const float* __restrict__ out,     // (B, Sq, H, DV)
-    const float* __restrict__ dout,    // (B, Sq, H, DV)
+    const T* __restrict__ out,         // (B, Sq, H, DV)
+    const T* __restrict__ dout,        // (B, Sq, H, DV)
     float* __restrict__ dd,            // (B, H, Sq)
     int rows, int Sq, int H) {
     const int row = (int)((blockIdx.x * (size_t)BWD_THREADS + threadIdx.x)
@@ -215,8 +232,8 @@ __global__ void __launch_bounds__(BWD_THREADS) flash_bwd_dot(
     float acc = 0.f;
 #pragma unroll
     for (int d = lane; d < DV; d += 32)
-        acc = fmaf(out[(size_t)row * DV + d], dout[(size_t)row * DV + d],
-                   acc);
+        acc = fmaf(to_f(out[(size_t)row * DV + d]),
+                   to_f(dout[(size_t)row * DV + d]), acc);
 #pragma unroll
     for (int o = 16; o > 0; o /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, o);
     if (lane == 0) {
@@ -225,76 +242,81 @@ __global__ void __launch_bounds__(BWD_THREADS) flash_bwd_dot(
     }
 }
 
-template <int D>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(BWD_THREADS) flash_bwd_dkdv(
-    const float* __restrict__ q,       // (B, Sq, H, D)
-    const float* __restrict__ k,       // (B, Sk, KV, D)
-    const float* __restrict__ v,       // (B, Sk, KV, D)
-    const float* __restrict__ dout,    // (B, Sq, H, D)
+    const T* __restrict__ q,           // (B, Sq, H, DK)
+    const T* __restrict__ k,           // (B, Sk, KV, DK)
+    const T* __restrict__ v,           // (B, Sk, KV, DV)
+    const T* __restrict__ dout,        // (B, Sq, H, DV)
     const float* __restrict__ lse,     // (B, H, Sq)
     const float* __restrict__ dd,      // (B, H, Sq)
-    float* __restrict__ dk,            // (B, Sk, KV, D)
-    float* __restrict__ dv,            // (B, Sk, KV, D)
+    T* __restrict__ dk,                // (B, Sk, KV, DK)
+    T* __restrict__ dv,                // (B, Sk, KV, DV)
     int Sq, int Sk, int H, int KV, int causal, int window, float scale) {
-    constexpr int LD = BwdShape<D>::LD, NJ = D / 16;
+    constexpr int LDK = BwdShape<DK, DV>::LDK, LDV = BwdShape<DK, DV>::LDV;
+    constexpr int NK = DK / 16, NV = DV / 16;
     const int k0 = blockIdx.x * BWD_T, kvh = blockIdx.y, b = blockIdx.z;
     const int G = H / KV, nk = min(BWD_T, Sk - k0);
     extern __shared__ float sm[];
     float* Ks = sm;
-    float* Vs = Ks + BWD_T * LD;
-    float* Qs = Vs + BWD_T * LD;
-    float* dOs = Qs + BWD_T * LD;
-    float* Ps = dOs + BWD_T * LD;
+    float* Qs = Ks + BWD_T * LDK;
+    float* Vs = Qs + BWD_T * LDK;
+    float* dOs = Vs + BWD_T * LDV;
+    float* Ps = dOs + BWD_T * LDV;
     float* dSs = Ps + BWD_T * BWD_LDP;
     float* lse_s = dSs + BWD_T * BWD_LDP;
     float* dd_s = lse_s + BWD_T;
-    load_tile<D>(Ks, k, b, Sk, KV, kvh, k0, nk);
-    load_tile<D>(Vs, v, b, Sk, KV, kvh, k0, nk);
+    load_tile<T, DK>(Ks, k, b, Sk, KV, kvh, k0, nk);
+    load_tile<T, DV>(Vs, v, b, Sk, KV, kvh, k0, nk);
 
     // the query rows that see a key of [k0, k0 + nk): qp >= k0 when causal,
     // qp < k0 + nk - 1 + window when windowed
     const int q_lo = causal ? k0 : 0;
     const int q_end = window > 0 ? min(Sq, k0 + nk - 1 + window) : Sq;
     const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-    float adk[4][NJ], adv[4][NJ];
+    float adk[4][NK], adv[4][NV];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i) {
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) adk[i][j] = adv[i][j] = 0.f;
+        for (int j = 0; j < NK; ++j) adk[i][j] = 0.f;
+#pragma unroll
+        for (int j = 0; j < NV; ++j) adv[i][j] = 0.f;
+    }
 
     for (int g = 0; g < G; ++g) {
         const int hh = kvh * G + g;
         for (int q0 = q_lo / BWD_T * BWD_T; q0 < q_end; q0 += BWD_T) {
             const int nq = min(BWD_T, Sq - q0);
             __syncthreads();           // the previous tile is consumed
-            load_tile<D>(Qs, q, b, Sq, H, hh, q0, nq);
-            load_tile<D>(dOs, dout, b, Sq, H, hh, q0, nq);
+            load_tile<T, DK>(Qs, q, b, Sq, H, hh, q0, nq);
+            load_tile<T, DV>(dOs, dout, b, Sq, H, hh, q0, nq);
             load_rows(lse_s, dd_s, lse, dd, ((size_t)b * H + hh) * Sq + q0,
                       nq);
             __syncthreads();
-            probs<D>(Qs, dOs, Ks, Vs, lse_s, dd_s, Ps, dSs, q0, k0, Sq, Sk,
-                     causal != 0, window, scale);
+            probs<DK, DV>(Qs, dOs, Ks, Vs, lse_s, dd_s, Ps, dSs, q0, k0, Sq,
+                          Sk, causal != 0, window, scale);
             __syncthreads();
             // dV += P^T dO, dK += dS^T Q: keys ty + 16 i, dims tx + 16 j
             for (int qi = 0; qi < nq; ++qi) {
-                float p[4], ds[4], o[NJ], a[NJ];
+                float p[4], ds[4], o[NV], a[NK];
 #pragma unroll
                 for (int i = 0; i < 4; ++i) {
                     p[i] = Ps[qi * BWD_LDP + ty + 16 * i];
                     ds[i] = dSs[qi * BWD_LDP + ty + 16 * i];
                 }
 #pragma unroll
-                for (int j = 0; j < NJ; ++j) {
-                    o[j] = dOs[qi * LD + tx + 16 * j];
-                    a[j] = Qs[qi * LD + tx + 16 * j];
-                }
+                for (int j = 0; j < NV; ++j) o[j] = dOs[qi * LDV + tx + 16 * j];
 #pragma unroll
-                for (int i = 0; i < 4; ++i)
+                for (int j = 0; j < NK; ++j) a[j] = Qs[qi * LDK + tx + 16 * j];
 #pragma unroll
-                    for (int j = 0; j < NJ; ++j) {
+                for (int i = 0; i < 4; ++i) {
+#pragma unroll
+                    for (int j = 0; j < NV; ++j)
                         adv[i][j] = fmaf(p[i], o[j], adv[i][j]);
+#pragma unroll
+                    for (int j = 0; j < NK; ++j)
                         adk[i][j] = fmaf(ds[i], a[j], adk[i][j]);
-                    }
+                }
             }
         }
     }
@@ -302,38 +324,40 @@ __global__ void __launch_bounds__(BWD_THREADS) flash_bwd_dkdv(
     for (int i = 0; i < 4; ++i) {
         const int kj = ty + 16 * i;
         if (kj >= nk) continue;
-        const size_t at = (((size_t)b * Sk + k0 + kj) * KV + kvh) * D;
+        const size_t at = ((size_t)b * Sk + k0 + kj) * KV + kvh;
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-            dk[at + tx + 16 * j] = adk[i][j];
-            dv[at + tx + 16 * j] = adv[i][j];
-        }
+        for (int j = 0; j < NK; ++j)
+            dk[at * DK + tx + 16 * j] = from_f<T>(adk[i][j]);
+#pragma unroll
+        for (int j = 0; j < NV; ++j)
+            dv[at * DV + tx + 16 * j] = from_f<T>(adv[i][j]);
     }
 }
 
 // Grid (query tile, head, batch row), the tiles in reverse: the last query
 // tiles reach the most keys and start first.
-template <int D>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(BWD_THREADS) flash_bwd_dq(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ dout,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ dd,
-    float* __restrict__ dq,            // (B, Sq, H, D)
+    T* __restrict__ dq,                // (B, Sq, H, DK)
     int Sq, int Sk, int H, int KV, int causal, int window, float scale) {
-    constexpr int LD = BwdShape<D>::LD, NJ = D / 16;
+    constexpr int LDK = BwdShape<DK, DV>::LDK, LDV = BwdShape<DK, DV>::LDV;
+    constexpr int NK = DK / 16;
     const int q0 = (gridDim.x - 1 - blockIdx.x) * BWD_T;
     const int hh = blockIdx.y, b = blockIdx.z;
     const int kvh = hh / (H / KV), nq = min(BWD_T, Sq - q0);
     extern __shared__ float sm[];
     float* Ks = sm;
-    float* Vs = Ks + BWD_T * LD;
-    float* Qs = Vs + BWD_T * LD;
-    float* dOs = Qs + BWD_T * LD;
-    float* dSs = dOs + BWD_T * LD;
+    float* Qs = Ks + BWD_T * LDK;
+    float* Vs = Qs + BWD_T * LDK;
+    float* dOs = Vs + BWD_T * LDV;
+    float* dSs = dOs + BWD_T * LDV;
     float* lse_s = dSs + 2 * BWD_T * BWD_LDP;
     float* dd_s = lse_s + BWD_T;
-    load_tile<D>(Qs, q, b, Sq, H, hh, q0, nq);
-    load_tile<D>(dOs, dout, b, Sq, H, hh, q0, nq);
+    load_tile<T, DK>(Qs, q, b, Sq, H, hh, q0, nq);
+    load_tile<T, DV>(dOs, dout, b, Sq, H, hh, q0, nq);
     load_rows(lse_s, dd_s, lse, dd, ((size_t)b * H + hh) * Sq + q0, nq);
 
     // the keys the tile's queries see: kp <= q0 + nq - 1 when causal,
@@ -341,33 +365,33 @@ __global__ void __launch_bounds__(BWD_THREADS) flash_bwd_dq(
     const int k_end = causal ? min(Sk, q0 + nq) : Sk;
     const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
     const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-    float adq[4][NJ];
+    float adq[4][NK];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) adq[i][j] = 0.f;
+        for (int j = 0; j < NK; ++j) adq[i][j] = 0.f;
 
     for (int k0 = k_lo / BWD_T * BWD_T; k0 < k_end; k0 += BWD_T) {
         const int nk = min(BWD_T, Sk - k0);
         __syncthreads();               // the previous tile is consumed
-        load_tile<D>(Ks, k, b, Sk, KV, kvh, k0, nk);
-        load_tile<D>(Vs, v, b, Sk, KV, kvh, k0, nk);
+        load_tile<T, DK>(Ks, k, b, Sk, KV, kvh, k0, nk);
+        load_tile<T, DV>(Vs, v, b, Sk, KV, kvh, k0, nk);
         __syncthreads();
-        probs<D>(Qs, dOs, Ks, Vs, lse_s, dd_s, nullptr, dSs, q0, k0, Sq, Sk,
-                 causal != 0, window, scale);
+        probs<DK, DV>(Qs, dOs, Ks, Vs, lse_s, dd_s, nullptr, dSs, q0, k0, Sq,
+                      Sk, causal != 0, window, scale);
         __syncthreads();
         // dQ += dS K: query rows ty + 16 i, dims tx + 16 j
         for (int kj = 0; kj < nk; ++kj) {
-            float ds[4], kk[NJ];
+            float ds[4], kk[NK];
 #pragma unroll
             for (int i = 0; i < 4; ++i)
                 ds[i] = dSs[(ty + 16 * i) * BWD_LDP + kj];
 #pragma unroll
-            for (int j = 0; j < NJ; ++j) kk[j] = Ks[kj * LD + tx + 16 * j];
+            for (int j = 0; j < NK; ++j) kk[j] = Ks[kj * LDK + tx + 16 * j];
 #pragma unroll
             for (int i = 0; i < 4; ++i)
 #pragma unroll
-                for (int j = 0; j < NJ; ++j)
+                for (int j = 0; j < NK; ++j)
                     adq[i][j] = fmaf(ds[i], kk[j], adq[i][j]);
         }
     }
@@ -375,10 +399,10 @@ __global__ void __launch_bounds__(BWD_THREADS) flash_bwd_dq(
     for (int i = 0; i < 4; ++i) {
         const int qi = ty + 16 * i;
         if (qi >= nq) continue;
-        const size_t at = (((size_t)b * Sq + q0 + qi) * H + hh) * D;
+        const size_t at = (((size_t)b * Sq + q0 + qi) * H + hh) * DK;
 #pragma unroll
-        for (int j = 0; j < NJ; ++j)
-            dq[at + tx + 16 * j] = adq[i][j];
+        for (int j = 0; j < NK; ++j)
+            dq[at + tx + 16 * j] = from_f<T>(adq[i][j]);
     }
 }
 
@@ -391,9 +415,14 @@ constexpr int FB_THREADS = 256;     // two warpgroups
 constexpr int FB_PREP_THREADS = 256;
 constexpr float FB_LOG2E = 1.4426950408889634f;
 
-// (DK, DV) pairs of the tensor-core body
+// (DK, DV) pairs of the tensor-core body: the key split, then the column
+// split (flash_bwd_wgmma_cols)
+__host__ __device__ constexpr bool fb_cols(int dk, int dv) {
+    return dk == 192 && dv == 128;
+}
 __host__ __device__ constexpr bool fb_pair(int dk, int dv) {
-    return (dk == 64 && dv == 64) || (dk == 128 && dv == 128);
+    return (dk == 64 && dv == 64) || (dk == 128 && dv == 128)
+        || fb_cols(dk, dv);
 }
 
 // Shared memory, from a 1024-byte aligned base: the two warpgroups' K and
@@ -486,6 +515,29 @@ __global__ void __launch_bounds__(FB_PREP_THREADS) flash_bwd_prep(
     }
 }
 
+// Step t's loads into ring stage t % NS of either body's ring (shape Sh),
+// by one thread: Q and dO of query head kvh G + t / nt, query tile t_lo +
+// t % nt, and the tile's lse log2(e) and D rows
+template <typename Sh, int DK, int DV>
+__device__ __forceinline__ void fb_load_step(
+    unsigned char* sm, uint64_t* full, const CUtensorMap* q_map,
+    const CUtensorMap* do_map, const float* __restrict__ rows, int t, int b,
+    int kvh, int G, int H, int nt, int t_lo, int nqt) {
+    const int s = t % Sh::NS, hh = kvh * G + t / nt, qt = t_lo + t % nt;
+    unsigned char* st = sm + Sh::RING_AT + s * Sh::STAGE;
+    mbar_arrive_expect_tx(&full[s], Sh::STAGE + Sh::ROWS);
+#pragma unroll
+    for (int c = 0; c < DK / 64; ++c)
+        tma_load_4d(st + c * 8192, q_map, c * 64, hh, qt * FB_Q, b, &full[s]);
+#pragma unroll
+    for (int c = 0; c < DV / 64; ++c)
+        tma_load_4d(st + Sh::QT + c * 8192, do_map, c * 64, hh, qt * FB_Q, b,
+                    &full[s]);
+    bulk_load(sm + Sh::ROWS_AT + s * Sh::ROWS,
+              rows + (((size_t)b * H + hh) * nqt + qt) * (2 * FB_Q), Sh::ROWS,
+              &full[s]);
+}
+
 template <int DK, int DV>
 __global__ void __launch_bounds__(FB_THREADS, 1) flash_bwd_wgmma(
     const __grid_constant__ CUtensorMap q_map,    // q (B, Sq, H, DK)
@@ -520,24 +572,10 @@ __global__ void __launch_bounds__(FB_THREADS, 1) flash_bwd_wgmma(
     const int nt = max(0, (q_end + FB_Q - 1) / FB_Q - t_lo);
     const int steps = G * nt;
 
-    // Step t's loads into ring stage t % NS, by thread 0: Q and dO of
-    // query head kvh G + t / nt, query tile t_lo + t % nt, and the tile's
-    // lse log2(e) and D rows
+    // step t's loads into its ring stage, by thread 0
     auto load_step = [&](int t) {
-        const int s = t % NS, hh = kvh * G + t / nt, qt = t_lo + t % nt;
-        unsigned char* st = sm + Sh::RING_AT + s * Sh::STAGE;
-        mbar_arrive_expect_tx(&full[s], Sh::STAGE + Sh::ROWS);
-#pragma unroll
-        for (int c = 0; c < DK / 64; ++c)
-            tma_load_4d(st + c * 8192, &q_map, c * 64, hh, qt * FB_Q, b,
-                        &full[s]);
-#pragma unroll
-        for (int c = 0; c < DV / 64; ++c)
-            tma_load_4d(st + Sh::QT + c * 8192, &do_map, c * 64, hh,
-                        qt * FB_Q, b, &full[s]);
-        bulk_load(sm + Sh::ROWS_AT + s * Sh::ROWS,
-                  rows + (((size_t)b * H + hh) * nqt + qt) * (2 * FB_Q),
-                  Sh::ROWS, &full[s]);
+        fb_load_step<Sh, DK, DV>(sm, full, &q_map, &do_map, rows, t, b, kvh,
+                                 G, H, nt, t_lo, nqt);
     };
     if (threadIdx.x == 0) {
         mbar_init(&kv_full, 1);
@@ -752,7 +790,7 @@ __global__ void __launch_bounds__(FB_THREADS, 1) flash_bwd_wgmma(
                         + (DK == 64 ? wg * 64 : wg * 8192),
                     1024, 1024, 1);
                 if constexpr (DK == 64)
-                    wgmma_ss_tt32(tq, a, bq, kk + part > 0);
+                    wgmma_ss32<1, 1>(tq, a, bq, kk + part > 0);
                 else
                     wgmma_ss_mn<1>(tq, a, bq, kk + part > 0);
             }
@@ -811,6 +849,308 @@ __global__ void __launch_bounds__(FB_THREADS, 1) flash_bwd_wgmma(
     }
 }
 
+// The column split, (DK, DV) = (192, 128): deepseek-v2-lite's MLA heads.
+// The key split above does not fit there: a warpgroup of 64 keys would
+// hold dK^T 64 x 192 and dV^T 64 x 128 (160 f32 a thread) beside S^T and
+// dP^T (64), and FbShape<192, 128> leaves 1 KB of the block's shared
+// memory.  So a block takes 64 keys, both warpgroups work on all of them,
+// and they split the rest:
+//   S^T = K Q^T, dP^T = V dO^T: warpgroup w the 32 queries 32 w .. of the
+//     step's 64 (m64n32, 16 + 16 f32 a thread);
+//   P^T, dS^T = P^T (dP^T - D): each into this step's buffer in two bf16
+//     parts, the warpgroup's 32 query columns; a barrier of both;
+//   dV tile = P^T dO: the 64 columns 64 w .. of DV;
+//   dK tile = dS^T Q and dQ = dS K (the 64 keys): the 64 columns 64 w ..
+//     of DK and the 32 columns 128 + 32 w .. (a product's N never crosses a
+//     64-value swizzle block: its 32-wide piece starts at byte 0 or 64 of a
+//     128-byte row).
+// dK and dV stay in registers, 48 + 32 f32 a thread.  The ring, the row
+// pieces, dQ by f32 atomics, the two bf16 parts and the fresh tile
+// accumulators added on the CUDA cores are the key split's.
+constexpr int FC_KEYS = 64;         // keys a block, shared by both warpgroups
+
+// Shared memory, from a 1024-byte aligned base: the block's K and V tiles,
+// the ring's Q and dO tiles, two buffers (a step's and the one before) of
+// P^T and dS^T in two parts each, then each stage's lse log2(e) and D rows.
+template <int DK, int DV>
+struct FcShape {
+    static constexpr int NS = 2;                        // ring stages
+    static constexpr uint32_t KT = 64 * DK * 2;
+    static constexpr uint32_t VT = 64 * DV * 2;
+    static constexpr uint32_t QT = FB_Q * DK * 2;       // a stage's Q
+    static constexpr uint32_t OT = FB_Q * DV * 2;       // its dO
+    static constexpr uint32_t STAGE = QT + OT;
+    static constexpr uint32_t PART = 64 * FB_Q * 2;     // one bf16 part
+    static constexpr uint32_t BUF = 4 * PART;           // P^T, dS^T parts
+    static constexpr uint32_t V_AT = KT;
+    static constexpr uint32_t RING_AT = V_AT + VT;
+    static constexpr uint32_t BUF_AT = RING_AT + NS * STAGE;
+    static constexpr uint32_t ROWS_AT = BUF_AT + 2 * BUF;
+    static constexpr uint32_t ROWS = 2 * FB_Q * 4;
+    static constexpr size_t SMEM = 1024 + ROWS_AT + NS * ROWS;
+};
+
+template <int DK, int DV>
+__global__ void __launch_bounds__(FB_THREADS, 1) flash_bwd_wgmma_cols(
+    const __grid_constant__ CUtensorMap q_map,    // q (B, Sq, H, DK)
+    const __grid_constant__ CUtensorMap k_map,    // k (B, Sk, KV, DK)
+    const __grid_constant__ CUtensorMap v_map,    // v (B, Sk, KV, DV)
+    const __grid_constant__ CUtensorMap do_map,   // dout (B, Sq, H, DV)
+    const float* __restrict__ rows,               // flash_bwd_prep's
+    float* __restrict__ dq_acc,                   // (B, Sq, H, DK), zeroed
+    __nv_bfloat16* __restrict__ dk,               // (B, Sk, KV, DK)
+    __nv_bfloat16* __restrict__ dv,               // (B, Sk, KV, DV)
+    int Sq, int Sk, int H, int KV, int causal, int window, float scale) {
+    static_assert(fb_cols(DK, DV), "the column split's pair");
+    using Sh = FcShape<DK, DV>;
+    using TK = WgTile<DK>;
+    using TV = WgTile<DV>;
+    using TS = WgTile<FB_Q>;
+    constexpr int NS = Sh::NS;
+    __shared__ uint64_t kv_full, full[NS];
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const uint32_t raw = smem_u32(smem_raw);
+    const uint32_t base = (raw + 1023) & ~1023u;   // swizzle atoms align
+    unsigned char* sm = smem_raw + (base - raw);
+
+    const int kvh = blockIdx.x % KV, b = blockIdx.x / KV;
+    const int k0 = blockIdx.y * FC_KEYS;
+    const int G = H / KV, nk = min(FC_KEYS, Sk - k0);
+    const int nqt = (Sq + FB_Q - 1) / FB_Q;
+    const int q_end = window > 0 ? min(Sq, k0 + nk - 1 + window) : Sq;
+    const int t_lo = causal ? k0 / FB_Q : 0;
+    const int nt = max(0, (q_end + FB_Q - 1) / FB_Q - t_lo);
+    const int steps = G * nt;
+
+    auto load_step = [&](int t) {
+        fb_load_step<Sh, DK, DV>(sm, full, &q_map, &do_map, rows, t, b, kvh,
+                                 G, H, nt, t_lo, nqt);
+    };
+    if (threadIdx.x == 0) {
+        mbar_init(&kv_full, 1);
+#pragma unroll
+        for (int s = 0; s < NS; ++s) mbar_init(&full[s], 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        mbar_arrive_expect_tx(&kv_full, Sh::KT + Sh::VT);
+#pragma unroll
+        for (int c = 0; c < DK / 64; ++c)
+            tma_load_4d(sm + c * 8192, &k_map, c * 64, kvh, k0, b, &kv_full);
+#pragma unroll
+        for (int c = 0; c < DV / 64; ++c)
+            tma_load_4d(sm + Sh::V_AT + c * 8192, &v_map, c * 64, kvh, k0, b,
+                        &kv_full);
+        for (int t = 0; t < min(NS, steps); ++t) load_step(t);
+    }
+    __syncthreads();
+
+    const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4;
+    const int lane = threadIdx.x % 32, gid = lane / 4, tig = lane % 4;
+    const int kr = k0 + 16 * warp + gid;   // this thread's keys kr, kr + 8
+    const float sl2 = scale * FB_LOG2E;
+    const uint32_t ka = base, va = base + Sh::V_AT;
+    // adk[4 j + 2 i + c]: key kr + 8 i, column 64 wg + 8 j + 2 tig + c (j <
+    // 8), then 128 + 32 wg + 8 (j - 8) + 2 tig + c; adv[4 j + 2 i + c]: key
+    // kr + 8 i, column 64 wg + 8 j + 2 tig + c
+    float adk[48], adv[32];
+#pragma unroll
+    for (int j = 0; j < 48; ++j) adk[j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) adv[j] = 0.f;
+    mbar_wait(&kv_full, 0);
+
+    for (int t = 0; t < steps; ++t) {
+        const int s = t % NS, hh = kvh * G + t / nt;
+        const int q0 = (t_lo + t % nt) * FB_Q;
+        const int qw = q0 + 32 * wg;       // this warpgroup's 32 queries
+        mbar_wait(&full[s], (t / NS) & 1);
+        const uint32_t qa = base + Sh::RING_AT + s * Sh::STAGE;
+        const uint32_t oa = qa + Sh::QT;
+
+        // S^T = K Q^T and dP^T = V dO^T over this warpgroup's queries (rows
+        // 32 wg .. of the stage's tiles, 4 KB on): st[4 j + 2 i + c] is key
+        // kr + 8 i, query qw + 8 j + 2 tig + c
+        float st[16], dpt[16];
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < DK / 16; ++kk)
+            wgmma_ss32<0, 0>(st, TK::template desc<64>(ka, kk * 16),
+                             TK::template desc<FB_Q>(qa + 4096 * wg, kk * 16),
+                             kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < DV / 16; ++kk)
+            wgmma_ss32<0, 0>(dpt, TV::template desc<64>(va, kk * 16),
+                             TV::template desc<FB_Q>(oa + 4096 * wg, kk * 16),
+                             kk > 0);
+        wg_commit();
+        wg_wait<0>();
+        wg_pin(st);
+        wg_pin(dpt);
+
+        // P^T and dS^T = P^T (dP^T - D) (scale at the end), masked as the
+        // key split's
+        const float* lr = reinterpret_cast<const float*>(
+            sm + Sh::ROWS_AT + s * Sh::ROWS) + 32 * wg;
+        const bool whole = k0 + 63 < Sk
+            && (!causal || k0 + 63 <= qw)
+            && (window <= 0 || qw + 31 - k0 < window);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const float2 l2 = *reinterpret_cast<const float2*>(
+                lr + 8 * j + 2 * tig);
+            const float2 dd = *reinterpret_cast<const float2*>(
+                lr + FB_Q + 8 * j + 2 * tig);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int x = 4 * j + e, c = e & 1;
+                float p = exp2_ftz(fmaf(st[x], sl2, -(c ? l2.y : l2.x)));
+                if (!whole) {
+                    const int kp = kr + 8 * (e / 2);
+                    const int qp = qw + 8 * j + 2 * tig + c;
+                    const bool vis = kp < Sk && (!causal || kp <= qp)
+                        && (window <= 0 || qp - kp < window);
+                    p = vis ? p : 0.f;
+                }
+                st[x] = p;
+                dpt[x] = p * (dpt[x] - (c ? dd.y : dd.x));
+            }
+        }
+
+        // both into this step's buffer: rows this thread's keys, columns
+        // this warpgroup's queries (a 32-bit pair a store); parts P^T hi,
+        // lo, dS^T hi, lo
+        const uint32_t pb = Sh::BUF_AT + (t & 1) * Sh::BUF;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                const uint32_t off = pb + TS::template at<64>(
+                    16 * warp + gid + 8 * i, 4 * wg + j) + 4 * tig;
+                uint32_t hi, lo;
+                split2_bf16(st[4 * j + 2 * i], st[4 * j + 2 * i + 1], hi, lo);
+                *reinterpret_cast<uint32_t*>(sm + off) = hi;
+                *reinterpret_cast<uint32_t*>(sm + off + Sh::PART) = lo;
+                split2_bf16(dpt[4 * j + 2 * i], dpt[4 * j + 2 * i + 1], hi,
+                            lo);
+                *reinterpret_cast<uint32_t*>(sm + off + 2 * Sh::PART) = hi;
+                *reinterpret_cast<uint32_t*>(sm + off + 3 * Sh::PART) = lo;
+            }
+        fence_proxy_async();
+
+        // both warpgroups' halves are written, and step t - 1 is done with
+        // its stage: thread 0 refills it for step t - 1 + NS
+        named_barrier(1, 256);
+        if (threadIdx.x == 0 && t > 0 && t - 1 + NS < steps)
+            load_step(t - 1 + NS);
+
+        // dV tile = P^T dO and dK tile = dS^T Q from fresh accumulators:
+        // the parts K-major, dO and Q MN-major (16 query rows a step, 2 KB)
+        float tv[32], tk[32], tk2[16];
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int part = 0; part < 2; ++part)
+                wgmma_ss_mn<0>(
+                    tv, TS::template desc<64>(base + pb + part * Sh::PART,
+                                              kk * 16),
+                    wg_desc(oa + wg * 8192 + kk * 2048, 1024, 1024, 1),
+                    kk + part > 0);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int part = 0; part < 2; ++part) {
+                const uint64_t a = TS::template desc<64>(
+                    base + pb + (2 + part) * Sh::PART, kk * 16);
+                wgmma_ss_mn<0>(
+                    tk, a, wg_desc(qa + wg * 8192 + kk * 2048, 1024, 1024, 1),
+                    kk + part > 0);
+                wgmma_ss32<0, 1>(
+                    tk2, a,
+                    wg_desc(qa + 2 * 8192 + kk * 2048 + 64 * wg, 1024, 1024,
+                            1),
+                    kk + part > 0);
+            }
+        wg_commit();
+        wg_wait<0>();
+        wg_pin(tv);
+        wg_pin(tk);
+        wg_pin(tk2);
+#pragma unroll
+        for (int x = 0; x < 32; ++x) {
+            adv[x] += tv[x];
+            adk[x] += tk[x];
+        }
+#pragma unroll
+        for (int x = 0; x < 16; ++x) adk[32 + x] += tk2[x];
+
+        // dQ = dS K over the block's 64 keys, this warpgroup's columns: dS
+        // read transposed from the dS^T parts (16 keys a step), K MN-major
+        float tq[32], tq2[16];
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int part = 0; part < 2; ++part) {
+                const uint64_t a = wg_desc(
+                    base + pb + (2 + part) * Sh::PART + kk * 2048, 1024, 1024,
+                    1);
+                wgmma_ss_mn<1>(
+                    tq, a, wg_desc(ka + wg * 8192 + kk * 2048, 1024, 1024, 1),
+                    kk + part > 0);
+                wgmma_ss32<1, 1>(
+                    tq2, a,
+                    wg_desc(ka + 2 * 8192 + kk * 2048 + 64 * wg, 1024, 1024,
+                            1),
+                    kk + part > 0);
+            }
+        wg_commit();
+        wg_wait<0>();
+        wg_pin(tq);
+        wg_pin(tq2);
+        // tq[4 j + 2 i + c]: query q0 + 16 warp + gid + 8 i, column 64 wg +
+        // 8 j + 2 tig + c; tq2 the same at column 128 + 32 wg + 8 j + ...
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            const int qp = q0 + 16 * warp + gid + 8 * i;
+            if (qp >= Sq) continue;
+            float* row = dq_acc + (((size_t)b * Sq + qp) * H + hh) * DK
+                       + 2 * tig;
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+                atomicAdd(reinterpret_cast<float2*>(row + 64 * wg + 8 * j),
+                          make_float2(tq[4 * j + 2 * i],
+                                      tq[4 * j + 2 * i + 1]));
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                atomicAdd(reinterpret_cast<float2*>(row + 128 + 32 * wg
+                                                    + 8 * j),
+                          make_float2(tq2[4 * j + 2 * i],
+                                      tq2[4 * j + 2 * i + 1]));
+        }
+    }
+
+    // dK = scale dS^T Q and dV, rounded once
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int kp = kr + 8 * i;
+        if (kp >= Sk) continue;
+        const size_t at = ((size_t)b * Sk + kp) * KV + kvh;
+        __nv_bfloat16* dkr = dk + at * DK + 2 * tig;
+        __nv_bfloat16* dvr = dv + at * DV + 64 * wg + 2 * tig;
+#pragma unroll
+        for (int j = 0; j < 12; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(
+                dkr + (j < 8 ? 64 * wg + 8 * j : 128 + 32 * wg + 8 * (j - 8)))
+                = __floats2bfloat162_rn(adk[4 * j + 2 * i] * scale,
+                                        adk[4 * j + 2 * i + 1] * scale);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(dvr + 8 * j) =
+                __floats2bfloat162_rn(adv[4 * j + 2 * i],
+                                      adv[4 * j + 2 * i + 1]);
+    }
+}
+
 // dq = bf16(scale dq_acc), four values a thread
 __global__ void __launch_bounds__(FB_PREP_THREADS) flash_bwd_dq_out(
     const float4* __restrict__ acc, __nv_bfloat162* __restrict__ dq,
@@ -845,14 +1185,22 @@ int launch_wgmma(const void* q, const void* k, const void* v,
     if (rc == 0) rc = bf16_rows_map(&v_map, v, DV, KV, Sk, B);
     if (rc == 0) rc = bf16_rows_map(&do_map, dout, DV, H, Sq, B);
     if (rc != 0) return rc;
-    constexpr size_t SMEM = FbShape<DK, DV>::SMEM;
-    auto kernel = flash_bwd_wgmma<DK, DV>;
-    err = reserve_smem(kernel, SMEM);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<dim3(B * KV, (Sk + FB_KEYS - 1) / FB_KEYS), FB_THREADS, SMEM,
-             stream>>>(q_map, k_map, v_map, do_map, rows, dq_acc, (bf*)dk,
-                       (bf*)dv, Sq, Sk, H, KV, causal, window, scale);
-    err = cudaGetLastError();
+    auto run = [&](auto kernel, size_t smem, int keys) {
+        const cudaError_t e = reserve_smem(kernel, smem);
+        if (e != cudaSuccess) return e;
+        kernel<<<dim3(B * KV, (Sk + keys - 1) / keys), FB_THREADS, smem,
+                 stream>>>(q_map, k_map, v_map, do_map, rows, dq_acc,
+                           (bf*)dk, (bf*)dv, Sq, Sk, H, KV, causal, window,
+                           scale);
+        return cudaGetLastError();
+    };
+    if constexpr (fb_cols(DK, DV)) {
+        auto kernel = flash_bwd_wgmma_cols<DK, DV>;
+        err = run(kernel, FcShape<DK, DV>::SMEM, FC_KEYS);
+    } else {
+        auto kernel = flash_bwd_wgmma<DK, DV>;
+        err = run(kernel, FbShape<DK, DV>::SMEM, FB_KEYS);
+    }
     if (err != cudaSuccess) return (int)err;
     const size_t n4 = (size_t)B * Sq * H * DK / 4;
     flash_bwd_dq_out<<<(unsigned)((n4 + FB_PREP_THREADS - 1)
@@ -862,30 +1210,32 @@ int launch_wgmma(const void* q, const void* k, const void* v,
     return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_fma(const float* q, const float* k, const float* v,
-               const float* out, const float* dout, const float* lse,
-               float* dd, float* dq, float* dk, float* dv, int B, int Sq,
-               int Sk, int H, int KV, int causal, int window, float scale,
-               cudaStream_t stream) {
+template <typename T, int DK, int DV>
+int launch_fma(const void* q, const void* k, const void* v, const void* out,
+               const void* dout, const float* lse, float* dd, void* dq,
+               void* dk, void* dv, int B, int Sq, int Sk, int H, int KV,
+               int causal, int window, float scale, cudaStream_t stream) {
+    using cT = const T*;
     const int rows = B * Sq * H;
-    flash_bwd_dot<D><<<(rows + BWD_THREADS / 32 - 1) / (BWD_THREADS / 32),
-                       BWD_THREADS, 0, stream>>>(out, dout, dd, rows, Sq, H);
+    flash_bwd_dot<T, DV><<<(rows + BWD_THREADS / 32 - 1) / (BWD_THREADS / 32),
+                           BWD_THREADS, 0, stream>>>((cT)out, (cT)dout, dd,
+                                                     rows, Sq, H);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    constexpr size_t SMEM = BwdShape<D>::SMEM;
-    auto dkdv = flash_bwd_dkdv<D>;
-    auto dqk = flash_bwd_dq<D>;
+    constexpr size_t SMEM = BwdShape<DK, DV>::SMEM;
+    auto dkdv = flash_bwd_dkdv<T, DK, DV>;
+    auto dqk = flash_bwd_dq<T, DK, DV>;
     err = reserve_smem(dkdv, SMEM);
     if (err == cudaSuccess) err = reserve_smem(dqk, SMEM);
     if (err != cudaSuccess) return (int)err;
     dkdv<<<dim3((Sk + BWD_T - 1) / BWD_T, KV, B), BWD_THREADS, SMEM,
-           stream>>>(q, k, v, dout, lse, dd, dk, dv, Sq, Sk, H, KV, causal,
-                     window, scale);
+           stream>>>((cT)q, (cT)k, (cT)v, (cT)dout, lse, dd, (T*)dk, (T*)dv,
+                     Sq, Sk, H, KV, causal, window, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     dqk<<<dim3((Sq + BWD_T - 1) / BWD_T, H, B), BWD_THREADS, SMEM, stream>>>(
-        q, k, v, dout, lse, dd, dq, Sq, Sk, H, KV, causal, window, scale);
+        (cT)q, (cT)k, (cT)v, (cT)dout, lse, dd, (T*)dq, Sq, Sk, H, KV, causal,
+        window, scale);
     return (int)cudaGetLastError();
 }
 
@@ -916,25 +1266,28 @@ extern "C" int flash_attention_bwd_launch(
         if (dtype != REPRO_BF16 || !fb_pair(DK, DV)
             || ((size_t)q | (size_t)k | (size_t)v | (size_t)dout) % 16 != 0)
             return REPRO_UNSUPPORTED;
-        if (DK == 64)
-            return launch_wgmma<64, 64>(q, k, v, out, dout, lse_f, ws_f, dq,
-                                        dk, dv, B, Sq, Sk, H, KV, causal,
-                                        window, scale, st);
-        return launch_wgmma<128, 128>(q, k, v, out, dout, lse_f, ws_f, dq, dk,
-                                      dv, B, Sq, Sk, H, KV, causal, window,
-                                      scale, st);
+#define REPRO_CASE(DIMK, DIMV)                                               \
+        if (DK == DIMK && DV == DIMV)                                        \
+            return launch_wgmma<DIMK, DIMV>(q, k, v, out, dout, lse_f, ws_f, \
+                                            dq, dk, dv, B, Sq, Sk, H, KV,    \
+                                            causal, window, scale, st);
+        REPRO_CASE(64, 64)
+        REPRO_CASE(128, 128)
+        REPRO_CASE(192, 128)
+#undef REPRO_CASE
+        return REPRO_UNSUPPORTED;
     }
-    if (body != 0 || dtype != REPRO_F32 || DK != DV) return REPRO_UNSUPPORTED;
-    using f = float;
-    if (DK == 64)
-        return launch_fma<64>((const f*)q, (const f*)k, (const f*)v,
-                              (const f*)out, (const f*)dout, lse_f, ws_f,
-                              (f*)dq, (f*)dk, (f*)dv, B, Sq, Sk, H, KV,
-                              causal, window, scale, st);
-    if (DK == 128)
-        return launch_fma<128>((const f*)q, (const f*)k, (const f*)v,
-                               (const f*)out, (const f*)dout, lse_f, ws_f,
-                               (f*)dq, (f*)dk, (f*)dv, B, Sq, Sk, H, KV,
-                               causal, window, scale, st);
+    if (body != 0) return REPRO_UNSUPPORTED;
+#define REPRO_CASE(T, CODE, DIMK, DIMV)                                      \
+    if (dtype == CODE && DK == DIMK && DV == DIMV)                           \
+        return launch_fma<T, DIMK, DIMV>(q, k, v, out, dout, lse_f, ws_f, dq, \
+                                         dk, dv, B, Sq, Sk, H, KV, causal,   \
+                                         window, scale, st);
+    REPRO_CASE(float, REPRO_F32, 64, 64)
+    REPRO_CASE(float, REPRO_F32, 128, 128)
+    REPRO_CASE(float, REPRO_F32, 192, 128)
+    REPRO_CASE(float, REPRO_F32, 96, 64)
+    REPRO_CASE(__nv_bfloat16, REPRO_BF16, 96, 64)
+#undef REPRO_CASE
     return REPRO_UNSUPPORTED;
 }

@@ -29,7 +29,9 @@ in :data:`BWD_PAIRS`; anything else raises ``ValueError`` before any
 launch.  :func:`flash_bwd_body` picks its body from the dtype and head
 dims before the launch: one fused wgmma pass for bf16 (dq through an f32
 workspace filled by atomics, so bf16 dq may differ by one rounding between
-runs; dk and dv replay bit for bit), the FMA body for f32.  On CPU tensors
+runs; dk and dv replay bit for bit; at (192, 128) the warpgroups split the
+columns instead of the keys), the FMA body for f32 and for bf16 at (96,
+64).  On CPU tensors
 the same Function runs the plain forward and
 :func:`flash_attention_bwd_ref`.  ``flash_attention_bwd.launches`` counts
 backward calls (each launches its body's three kernels).
@@ -51,10 +53,13 @@ QOffset = Union[int, torch.Tensor]
 # MLA heads (128 nope + 64 rope key dims, 128 value dims) and those of its
 # reduced test config
 DIM_PAIRS = SAME_DIMS + ((192, 128), (96, 64))
-# (Dk, Dv) pairs the backward is built for, in both bodies (fb_pair in
-# csrc/flash_attention_bwd.cu): qwen2's heads and the 128-wide heads of
-# phi4-mini, llama3-8b and granite
-BWD_PAIRS = ((64, 64), (128, 128))
+# (Dk, Dv) pairs the backward is built for: qwen2's heads, the 128-wide
+# heads of phi4-mini, llama3-8b and granite, deepseek-v2-lite's MLA heads
+# and those of its reduced config
+BWD_PAIRS = ((64, 64), (128, 128), (192, 128), (96, 64))
+# the pairs of the tensor-core body (fb_pair in csrc/flash_attention_bwd.cu);
+# 96 is no multiple of its 64-value column blocks
+WGMMA_PAIRS = ((64, 64), (128, 128), (192, 128))
 BWD_QT = 64                  # query rows of a tile of the tensor-core body
 BWD_BODIES = {"fma": 0, "wgmma": 1}   # the launcher's body codes
 
@@ -62,10 +67,11 @@ BWD_BODIES = {"fma": 0, "wgmma": 1}   # the launcher's body codes
 def flash_bwd_body(dtype, dk: int, dv: int) -> str:
     """Which body of the backward a launch runs, from the dtype and head
     dims alone and before the launch: "wgmma" (one fused pass on the
-    tensor cores) for bf16 at :data:`BWD_PAIRS`, else "fma" (float32
-    FMAs, never TF32: the f32 identity runs must stay f32).  Never a
-    choice made after a failure: a launch that fails raises."""
-    if dtype == torch.bfloat16 and (dk, dv) in BWD_PAIRS:
+    tensor cores) for bf16 at :data:`WGMMA_PAIRS`, else "fma" (FMAs in
+    float32, never TF32: the f32 identity runs must stay f32; bf16 at (96,
+    64) widened to f32 on load).  Never a choice made after a failure: a
+    launch that fails raises."""
+    if dtype == torch.bfloat16 and (dk, dv) in WGMMA_PAIRS:
         return "wgmma"
     return "fma"
 
@@ -206,8 +212,9 @@ def _grad_problems(q, v, q_offset):
     dims = (q.shape[-1], v.shape[-1])
     if dims not in BWD_PAIRS:
         problems.append(f"head dims (Dk, Dv) = {dims}: the backward is built "
-                        f"for {BWD_PAIRS} ((192, 128) and (256, 256) are "
-                        "queued, ROADMAP.md)")
+                        f"for {BWD_PAIRS} ((256, 256), windowed, is queued "
+                        "with recurrentgemma's training, ROADMAP.md 2.9a "
+                        "and 1.5)")
     return problems
 
 

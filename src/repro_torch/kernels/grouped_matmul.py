@@ -83,7 +83,8 @@ def grouped_matmul(x, w, group_sizes) -> torch.Tensor:
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
-    refuse_grad("grouped_matmul", x, w)
+    refuse_grad("grouped_matmul", x, w,
+                item="section 2 item 2.9b; train MoE under gshard")
     if x.device.type == "cpu":
         return grouped_matmul_ref(x, w, group_sizes)
     if x.device.type != "cuda":

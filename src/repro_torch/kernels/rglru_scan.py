@@ -125,7 +125,8 @@ def rglru_scan(x, input_gate, a_gate, log_a, *, init_state=None,
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
     extra = () if init_state is None else (init_state,)
-    refuse_grad("rglru_scan", x, input_gate, a_gate, log_a, *extra)
+    refuse_grad("rglru_scan", x, input_gate, a_gate, log_a, *extra,
+                item="section 2 item 2.9d")
     if x.device.type == "cpu":
         return rglru_scan_ref(x, input_gate, a_gate, log_a,
                               init_state=init_state, c=c)

@@ -185,7 +185,8 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk=64, init_state=None):
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
     extra = () if init_state is None else (init_state,)
-    refuse_grad("ssd_scan", x, dt, A, Bm, Cm, *extra)
+    refuse_grad("ssd_scan", x, dt, A, Bm, Cm, *extra,
+                item="section 2 item 2.9c")
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk,
                             init_state=init_state)

@@ -9,6 +9,13 @@ The reference launcher's flags that one card can honour (``--arch``,
 ``--shape``, ``--reduced``, ``--steps``, ``--lr``, ``--ckpt-dir``,
 ``--moe-dispatch``), plus ``--device`` (default: the card) and
 ``--global-batch``, the single-card stand-in for the mesh's data axis.
+Every arch but the two recurrent ones trains: the MoE archs
+(deepseek-v2-lite-16b, deepseek-moe-16b, moonshot-v1-16b-a3b) under the
+default ``--moe-dispatch gshard``; ``ragged`` refuses the gradient its
+grouped matmul has no backward for (ROADMAP.md section 2 item 2.9b) and
+never falls back to gshard.  internvl2-26b and musicgen-large train
+without their prefix here, as the reference's launcher does (the prefix
+enters through ``make_train_step(multimodal=True)``).
 Weights are random, drawn from a seeded ``torch.Generator`` on the
 device; the data is the reference's synthetic corpus.  ``--plan`` other
 than the single-device default, ``--offload``, ``--pipeline``, ``--mesh

@@ -18,8 +18,10 @@ Modes:
 The serving steps' MoE FFN takes the sort-based ragged dispatch (sort,
 grouped matmuls, unsort), the one the reference's serving resolves every
 MoE config to.  ``forward`` takes the reference's ``moe_dispatch`` (default
-``"gshard"``, which, like ``"dp_local"``, raises ``NotImplementedError``
-naming its ROADMAP.md item; the Generator passes ``"ragged"``).
+``"gshard"``, the train step's; ``"dp_local"`` needs a mesh and raises; the
+Generator passes ``"ragged"``), and the reference's multimodal prefix
+(``prefix_embeds`` through ``frontend_proj``, internvl2-26b's and
+musicgen-large's stubbed frontends).
 
 ``forward(..., mode="train", remat=True)`` runs each repeat of a segment
 under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of
@@ -73,10 +75,10 @@ def _init_sublayer(cfg, kind, gen: torch.Generator, repeat: int):
 
 
 def init_model(cfg, gen: torch.Generator):
-    """Random params from ``gen``, on ``gen.device``, in ``cfg.dtype``."""
-    if cfg.frontend_dim:
-        raise NotImplementedError(
-            f"{cfg.name}: multimodal frontends are not ported yet")
+    """Random params from ``gen``, on ``gen.device``, in ``cfg.dtype``.  An
+    arch with a multimodal prefix (``cfg.frontend_dim``) also gets the
+    reference's ``frontend_proj`` (frontend_dim, d_model), which projects
+    its stubbed frontend's embeddings into the model."""
     dt = dtype_of(cfg)
     params: dict = {
         "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dt),
@@ -84,6 +86,9 @@ def init_model(cfg, gen: torch.Generator):
     }
     if not cfg.tie_embeddings:
         params["unembed"] = embed_init(gen, cfg.padded_vocab, cfg.d_model, dt)
+    if cfg.frontend_dim:
+        params["frontend_proj"] = dense_init(gen, cfg.frontend_dim,
+                                             cfg.d_model, dt)
     for si, seg in enumerate(segments(cfg)):
         params[f"seg{si}"] = tuple(_init_sublayer(cfg, kd, gen, seg.repeat)
                                    for kd in seg.kinds)
@@ -169,15 +174,21 @@ def forward(params, tokens, cfg, *, prefix_embeds=None, mode="train",
     stacked per segment like the params (windowed caches in ring layout).
     The metrics are the reference's MoE loss terms summed over the MoE
     layers (zero without any).  ``remat`` checkpoints each layer in train
-    mode when a gradient is being recorded."""
-    if prefix_embeds is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: prefix_embeds need the multimodal frontends, "
-            "which are not ported yet")
+    mode when a gradient is being recorded.
+
+    ``prefix_embeds`` (B, P, frontend_dim), for an arch with a multimodal
+    prefix: projected by ``frontend_proj`` and put before the tokens, so
+    the layers see P + S positions (and the prefill caches hold them); the
+    logits are the tokens' alone, (B, S, V_pad), as the reference's."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode={mode!r}: must be 'train' or 'prefill'")
-    S = tokens.shape[1]
     x = F.embedding(tokens.long(), params["embed"])
+    P_len = 0
+    if prefix_embeds is not None:
+        pe = prefix_embeds.to(x.dtype) @ params["frontend_proj"]
+        x = torch.cat([pe, x], dim=1)
+        P_len = pe.shape[1]
+    S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux, z = zero, zero
@@ -199,7 +210,7 @@ def forward(params, tokens, cfg, *, prefix_embeds=None, mode="train",
             aux, z = aux + la, z + lz
     metrics = {"moe_aux_loss": aux, "moe_z_loss": z}
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = x @ _unembed(params, cfg).T
+    logits = x[:, P_len:] @ _unembed(params, cfg).T
     if mode != "prefill":
         return logits, None, metrics
     # a segment of no layers (the reduced 2-layer hybrid's pattern) stacks

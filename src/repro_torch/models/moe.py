@@ -1,20 +1,34 @@
 """Mixture-of-Experts FFN: shared + routed experts (DeepSeekMoE family).
 
-The port of ``repro.models.moe`` on one device.  The routed experts run
-through the sort-based ragged dispatch (:mod:`repro_torch.core.overlap`,
-three ``grouped_matmul`` launches a layer), the one that serving takes for
-every MoE config.  The reference's GShard capacity dispatch and its
-data-parallel ``dp_local`` variant are training and multi-device paths:
-they come with the train step (ROADMAP.md, item 4 of "Modules to port").
+The port of ``repro.models.moe`` on one device, with two of the
+reference's dispatches:
+
+* ``"gshard"``, the reference's default and its train step's: the
+  capacity-based one-hot dispatch of GShard / Mesh-TF.  Tokens go in
+  groups of up to :data:`GROUP_SIZE`; each expert takes at most ``C =
+  max(1, int(G k / E capacity_factor))`` tokens a group, the slot-0
+  choices first, and the rest are dropped; the experts run as dense
+  einsums over the (E, groups, C) slots, as the reference leaves them to
+  XLA (no kernel on either side).  It is differentiable, so training
+  takes it;
+* ``"ragged"``: the sort-based dispatch (:mod:`repro_torch.core.overlap`,
+  three ``grouped_matmul`` launches a layer), the one serving takes for
+  every MoE config.  The grouped matmul has no backward yet (ROADMAP.md
+  section 2 item 2.9b), so a gradient through it is refused.
+
+The reference's data-parallel ``dp_local`` variant needs a mesh (ROADMAP.md
+section 1 item 1.8) and raises.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.overlap import ragged_moe_apply
 from repro_torch.models.common import dense_init, dtype_of, swiglu
 
-DISPATCHES = ("ragged",)
+DISPATCHES = ("gshard", "ragged")
+GROUP_SIZE = 512   # tokens per GShard dispatch group
 
 
 def _expert_init(gen: torch.Generator, E: int, d_in: int, d_out: int,
@@ -67,14 +81,14 @@ def moe_forward(p, x, cfg, *, dispatch: str = "ragged",
     ``metrics=False`` skips the router's loss terms (the serving steps
     discard them; the reference's compiler drops them there) and returns
     an empty dict."""
-    if dispatch in ("gshard", "dp_local"):
+    if dispatch == "dp_local":
         raise NotImplementedError(
-            f"moe dispatch {dispatch!r} is a training/multi-device path, "
-            "not ported yet (ROADMAP.md, 'Modules to port' item 4: the "
-            "train step); use dispatch='ragged'")
+            "moe dispatch 'dp_local' shards tokens over a mesh's data axis: "
+            "multi-device is ROADMAP.md section 1 item 1.8; use 'gshard' or "
+            "'ragged'")
     if dispatch not in DISPATCHES:
         raise ValueError(f"moe dispatch {dispatch!r}: must be one of "
-                         f"{DISPATCHES + ('gshard', 'dp_local')}")
+                         f"{DISPATCHES + ('dp_local',)}")
     mo = cfg.moe
     B, S, D = x.shape
     T = B * S
@@ -84,7 +98,8 @@ def moe_forward(p, x, cfg, *, dispatch: str = "ragged",
     gate_vals, idx = torch.topk(probs, mo.top_k, dim=-1)        # (T, k)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
 
-    y = ragged_moe_apply(p, xf, idx, gate_vals, cfg)
+    apply = gshard_apply if dispatch == "gshard" else ragged_moe_apply
+    y = apply(p, xf, idx, gate_vals, cfg)
     # shared experts: dense SwiGLU over all tokens
     y = y + swiglu(xf, p["ws_gate"], p["ws_up"], p["ws_down"])
     y = y.reshape(B, S, D)
@@ -101,3 +116,53 @@ def moe_forward(p, x, cfg, *, dispatch: str = "ragged",
         "router_entropy": -torch.mean(
             torch.sum(probs * torch.log(probs + 1e-9), dim=-1)),
     }
+
+
+def _group(T: int) -> int:
+    """Tokens a GShard group: the largest power-of-two fraction of
+    :data:`GROUP_SIZE` (or T) that divides T, as the reference's."""
+    g = min(GROUP_SIZE, T)
+    while T % g:
+        g //= 2
+    return max(g, 1)
+
+
+def gshard_apply(p, xf, idx, gate_vals, cfg):
+    """Capacity-based one-hot dispatch (the reference's ``_gshard_apply``).
+    xf (T, D); idx, gate_vals (T, k) from the router.  Returns the routed
+    experts' weighted sum (T, D) in xf.dtype; a token an expert has no room
+    for gets nothing from it."""
+    mo = cfg.moe
+    T, D = xf.shape
+    E, k = mo.num_experts, mo.top_k
+    G = _group(T)
+    Gn = T // G
+    C = max(1, int(G * k / E * mo.capacity_factor))
+    dt = xf.dtype
+
+    idx_g = idx.reshape(Gn, G, k)
+    gates_g = gate_vals.reshape(Gn, G, k).float()
+    x_g = xf.reshape(Gn, G, D)
+
+    # position-in-expert with k-slot priority (slot 0 first); a token past
+    # the capacity gets the one-hot of C, which the slice drops (the
+    # reference's one_hot of an out-of-range index is all zeros)
+    counts = torch.zeros(Gn, E, dtype=torch.long, device=xf.device)
+    dispatch = xf.new_zeros(Gn, G, E, C)
+    combine = xf.new_zeros(Gn, G, E, C)
+    for j in range(k):
+        oh = F.one_hot(idx_g[:, :, j], E)                       # (Gn, G, E)
+        pos = counts[:, None, :] + oh.cumsum(1) - oh            # before self
+        counts = counts + oh.sum(1)
+        keep = (pos < C) & (oh > 0)
+        pos_oh = F.one_hot(torch.where(keep, pos, C), C + 1)[..., :C]
+        d_j = pos_oh.to(dt) * keep.to(dt)[..., None]            # (Gn,G,E,C)
+        dispatch = dispatch + d_j
+        combine = combine + d_j * gates_g[:, :, j][..., None, None].to(dt)
+
+    expert_in = torch.einsum("gsec,gsd->egcd", dispatch, x_g)
+    h = F.silu(torch.einsum("egcd,edf->egcf", expert_in, p["w_gate"]))
+    h = h * torch.einsum("egcd,edf->egcf", expert_in, p["w_up"])
+    expert_out = torch.einsum("egcf,efd->egcd", h, p["w_down"])
+    y = torch.einsum("egcd,gsec->gsd", expert_out, combine)
+    return y.reshape(T, D)

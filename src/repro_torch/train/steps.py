@@ -73,16 +73,17 @@ def loss_fn(params, batch, cfg, *, moe_dispatch="gshard", remat=True,
 
 
 def value_and_grad(params, batch, cfg, *, moe_dispatch="gshard",
-                   remat=True):
+                   remat=True, prefix_embeds=None):
     """((loss, metrics), grads): the loss and its gradient with respect to
     every param leaf, the grads a tree shaped like ``params`` (a leaf the
-    loss does not reach gets zeros)."""
+    loss does not reach gets zeros).  ``prefix_embeds`` goes to
+    :func:`loss_fn` as an input, not differentiated."""
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
     try:
         loss, metrics = loss_fn(params, batch, cfg, moe_dispatch=moe_dispatch,
-                                remat=remat)
+                                remat=remat, prefix_embeds=prefix_embeds)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     finally:
         for p in leaves:
@@ -95,17 +96,21 @@ def value_and_grad(params, batch, cfg, *, moe_dispatch="gshard",
 
 def make_train_step(cfg, adamw_cfg: opt_mod.AdamWConfig, *,
                     moe_dispatch: str = "gshard", remat: bool = True,
-                    mesh=None, offload_cfg=None):
+                    multimodal: bool = False, mesh=None, offload_cfg=None):
     """step(params, opt_state, batch) -> (params, opt_state, metrics): the
     gradient of :func:`loss_fn`, then :func:`adamw_update`.  ``metrics``
     holds the loss, its parts, the MoE terms, ``grad_norm`` and ``lr``, all
     0-dim tensors on the device (read them at log time: reading one waits
-    for the card)."""
+    for the card).  With ``multimodal`` the step takes the batch's
+    ``"prefix_embeds"`` (B, P, frontend_dim) as the model's prefix, as the
+    reference's step does; without it the key is ignored."""
     refuse_plan(mesh=mesh, offload_cfg=offload_cfg)
 
     def step(params, opt_state, batch):
+        pe = batch.get("prefix_embeds") if multimodal else None
         (loss, metrics), grads = value_and_grad(
-            params, batch, cfg, moe_dispatch=moe_dispatch, remat=remat)
+            params, batch, cfg, moe_dispatch=moe_dispatch, remat=remat,
+            prefix_embeds=pe)
         new_params, new_opt, om = opt_mod.adamw_update(grads, opt_state,
                                                        params, adamw_cfg)
         return new_params, new_opt, {"loss": loss, **metrics, **om}

@@ -20,8 +20,10 @@ matmul at the edges of its row tiles and work list, the split dense decode
 at the edges of its splits for 1-20 heads a kv head) against their
 plain versions, the flash backward (dq, dk, dv and the forward's lse)
 against its plain version and autograd, in both of its bodies, over a
-sequence that wraps the tensor-core body's ring many times, a second
-call's dk and dv bit for bit, the wrappers' refusals (shapes,
+sequence that wraps the tensor-core body's ring many times, and at MLA's
+(Dk, Dv) = (192, 128) (the column-split tensor-core body) and (96, 64)
+over up to 4160 keys, a second call's dk and dv bit for bit, the
+wrappers' refusals (shapes,
 dtypes, inputs that require grad where no backward is built, side inputs on another device or of the wrong shape, an
 unaligned pool; never a plain version on a CUDA tensor), and the
 Generator and HyperServe on the card
@@ -240,28 +242,35 @@ def _assert_grad_close(got, want, want32):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("G,dim,S", [(7, 64, 150), (1, 64, 150),
-                                     (3, 128, 150), (7, 64, 1000),
-                                     (3, 128, 1000)])
+@pytest.mark.parametrize("G,dk,dv,S", [
+    (7, 64, 64, 150), (1, 64, 64, 150), (3, 128, 128, 150),
+    (7, 64, 64, 1000), (3, 128, 128, 1000),
+    (1, 192, 128, 150), (4, 192, 128, 300), (1, 192, 128, 4160),
+    (1, 96, 64, 150), (4, 96, 64, 300), (1, 96, 64, 4160)])
 @pytest.mark.parametrize("window", [None, 37])
-def test_flash_backward_kernel_matches_plain_version(cuda, dtype, G, dim, S,
-                                                     window, monkeypatch):
+def test_flash_backward_kernel_matches_plain_version(cuda, dtype, G, dk, dv,
+                                                     S, window, monkeypatch):
     """The forward's lse against the plain version's, its output bit for
     bit the serving path's (lse null), and the backward kernel's dq, dk,
     dv against ``flash_attention_bwd_ref`` at 150 tokens (no multiple of
-    the 64-row tiles) and at 1000, whose G x 16 query tiles wrap the
-    tensor-core body's ring of Q/dO stages many times, causal and,
-    unwindowed, not causal; a second call on the same inputs within the
-    rule of the first, its dk and dv bit for bit (dq's f32 sums arrive by
-    atomics); through autograd the Function against autograd over the
-    plain forward, with the plain versions barred from CUDA tensors."""
+    the 64-row tiles), at 1000, whose G x 16 query tiles wrap the
+    tensor-core body's ring of Q/dO stages many times, and at MLA's pairs
+    (192, 128) (bf16 on the tensor-core body with the columns split
+    between its warpgroups, f32 on the FMA body) and (96, 64) (the FMA body
+    in both dtypes) at G = 1 and G > 1, over 4160 keys among others (a
+    train row's prefix plus tokens: the last 128-key tile half full);
+    causal and, unwindowed, not causal; a second call on the same inputs
+    within the rule of the first, its dk and dv bit for bit (dq's f32 sums
+    arrive by atomics); through autograd the Function against autograd
+    over the plain forward, with the plain versions barred from CUDA
+    tensors."""
     g = torch.Generator().manual_seed(17)
 
     def rnd(*shape):
         return torch.randn(*shape, generator=g).to(cuda, dtype)
     B, KV = 2, 2
-    q, k, v = rnd(B, S, KV * G, dim), rnd(B, S, KV, dim), rnd(B, S, KV, dim)
-    do = rnd(B, S, KV * G, dim)
+    q, k, v = rnd(B, S, KV * G, dk), rnd(B, S, KV, dk), rnd(B, S, KV, dv)
+    do = rnd(B, S, KV * G, dv)
     plain, plain_bwd = fa.flash_attention_ref, fa.flash_attention_bwd_ref
     for causal in ((True, False) if window is None else (True,)):
         kw = dict(causal=causal, window=window)

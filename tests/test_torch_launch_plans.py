@@ -294,12 +294,18 @@ def test_ssd_check_accepts_what_the_mamba2_layer_hands_over(prefill,
 @pytest.mark.parametrize("dtype,dk,dv,body", [
     (torch.bfloat16, 64, 64, "wgmma"),
     (torch.bfloat16, 128, 128, "wgmma"),
+    (torch.bfloat16, 192, 128, "wgmma"),
+    (torch.bfloat16, 96, 64, "fma"),
     (torch.float32, 64, 64, "fma"),
-    (torch.float32, 128, 128, "fma")])
+    (torch.float32, 128, 128, "fma"),
+    (torch.float32, 192, 128, "fma"),
+    (torch.float32, 96, 64, "fma")])
 def test_flash_bwd_body_is_chosen_by_dtype_and_head_dims(dtype, dk, dv,
                                                          body):
-    """The backward's fused tensor-core pass takes bf16 at its built pairs;
-    float32 (the identity runs, which must stay f32) takes the FMA body."""
+    """The backward's fused tensor-core pass takes bf16 at its built pairs
+    (MLA's (192, 128) with the columns split); float32 (the identity runs,
+    which must stay f32) and bf16 at (96, 64), no multiple of its 64-value
+    column blocks, take the FMA body."""
     assert fa.flash_bwd_body(dtype, dk, dv) == body
 
 
@@ -315,16 +321,19 @@ def _bwd_args(dtype=torch.bfloat16, dk=64, dv=64, shift=0, B=2, S=100,
     return q, k, v, o, torch.zeros(B, H, S), do
 
 
-@pytest.mark.parametrize("dtype,dk", [(torch.bfloat16, 64),
-                                      (torch.bfloat16, 128),
-                                      (torch.float32, 64)])
-def test_flash_bwd_check_takes_what_the_train_step_hands_over(dtype, dk):
-    fa._bwd_check(*_bwd_args(dtype, dk, dk))
-    assert fa._grad_problems(*_bwd_args(dtype, dk, dk)[:3:2], 0) == []
+@pytest.mark.parametrize("dtype,dk,dv", [(torch.bfloat16, 64, 64),
+                                         (torch.bfloat16, 128, 128),
+                                         (torch.float32, 64, 64),
+                                         (torch.bfloat16, 192, 128),
+                                         (torch.bfloat16, 96, 64),
+                                         (torch.float32, 96, 64)])
+def test_flash_bwd_check_takes_what_the_train_step_hands_over(dtype, dk, dv):
+    fa._bwd_check(*_bwd_args(dtype, dk, dv))
+    assert fa._grad_problems(*_bwd_args(dtype, dk, dv)[:3:2], 0) == []
 
 
 @pytest.mark.parametrize("case,match", [
-    ("pair (96, 64)", "head dims"),
+    ("pair (128, 64)", "head dims"),
     ("pair (256, 256)", "head dims"),
     ("misaligned q", "16-byte boundary"),
     ("lse shape", "lse"),
@@ -341,7 +350,7 @@ def test_flash_bwd_check_refuses_what_the_launcher_refuses(case, match):
             fa.flash_attention(q, *_bwd_args()[1:3], q_offset=3)
         return
     if case.startswith("pair"):
-        dk, dv = (96, 64) if "96" in case else (256, 256)
+        dk, dv = (128, 64) if "64" in case else (256, 256)
         args = _bwd_args(dk=dk, dv=dv)
     elif case == "misaligned q":
         args = _bwd_args(shift=1)

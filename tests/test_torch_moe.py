@@ -8,6 +8,8 @@
 - ``ragged_moe_apply`` and ``moe_forward`` (dispatch ``"ragged"``, shared
   experts, the router's loss terms) against the reference on the same
   params, carried over by the weight bridge;
+- the GShard capacity dispatch (``"gshard"``, the train step's): outputs,
+  router metrics and gradients against ``jax.grad``, with capacity drops;
 - the expert-stack initialiser and the grouped matmul's work model.
 
 Inputs are made with numpy from a seed and handed to both frameworks.
@@ -147,13 +149,70 @@ def test_ragged_moe_apply_and_moe_forward_match_reference(arch):
 
 
 def test_training_dispatches_name_the_roadmap_item():
+    """``dp_local`` needs a mesh and raises naming multi-device's item,
+    never falling back to another dispatch; an unknown name is refused."""
     _, cfg, _, tp = _moe_models("deepseek-moe-16b")
     x = torch.zeros(1, 2, cfg.d_model)
-    for dispatch in ("gshard", "dp_local"):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            moe.moe_forward(tp, x, cfg, dispatch=dispatch)
+    with pytest.raises(NotImplementedError, match="item 1.8"):
+        moe.moe_forward(tp, x, cfg, dispatch="dp_local")
     with pytest.raises(ValueError, match="must be one of"):
         moe.moe_forward(tp, x, cfg, dispatch="dense")
+
+
+def _capacity_drops(cfg, idx):
+    """Routed (token, slot) pairs GShard drops for lack of room: per group
+    of ``moe._group(T)`` tokens, each expert's count past its capacity."""
+    mo = cfg.moe
+    T, k = idx.shape
+    G = moe._group(T)
+    C = max(1, int(G * k / mo.num_experts * mo.capacity_factor))
+    counts = np.stack([np.bincount(g.reshape(-1), minlength=mo.num_experts)
+                       for g in idx.reshape(T // G, G * k)])
+    return int(np.maximum(counts - C, 0).sum())
+
+
+@pytest.mark.parametrize("B,S,skew", [(3, 7, False), (2, 64, True),
+                                      (1, 1024, True)])
+def test_gshard_dispatch_matches_reference(B, S, skew):
+    """The reference's default dispatch on reduced deepseek-v2-lite in
+    float32: the FFN's output, its three router metrics and the gradients
+    of every MoE param and of the input against ``jax.grad``, at token
+    counts of one group (21, 128) and of two groups of 512.  ``skew``
+    leans every token toward expert 0, so that the capacity C drops
+    routed tokens (counted from the router's choices)."""
+    jcfg, cfg, jp, tp = _moe_models("deepseek-v2-lite-16b")
+    rng = np.random.default_rng(B * S)
+    x = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    if skew:
+        lean = np.asarray(jp["router"])[:, 0]
+        x += (4.0 * lean / np.linalg.norm(lean)).astype(np.float32)
+    r = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    names = ("moe_aux_loss", "moe_z_loss", "router_entropy")
+
+    def jloss(p, xx):
+        y, m = jax_moe.moe_forward(p, xx, jcfg, dispatch="gshard")
+        return jnp.sum(y * r) + sum(m[n] for n in names), (y, m)
+    (_, (yj, mj)), (gpj, gxj) = jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True)(jp, jnp.asarray(x))
+
+    leaves = {k: v.clone().requires_grad_() for k, v in tp.items()}
+    xt = torch.from_numpy(x).requires_grad_()
+    y, m = moe.moe_forward(leaves, xt, cfg, dispatch="gshard")
+    loss = (y * torch.from_numpy(r)).sum() + sum(m[n] for n in names)
+    grads = torch.autograd.grad(loss, [*leaves.values(), xt])
+    assert _maxdiff(y.detach(), yj) < 2e-5
+    for n in names:
+        assert abs(float(m[n].detach()) - float(mj[n])) < 1e-5, n
+    for (k, g) in zip([*leaves, "x"], grads):
+        want = np.asarray(gxj if k == "x" else gpj[k])
+        assert np.max(np.abs(g.numpy() - want)) <= \
+            1e-5 * max(1.0, float(np.abs(want).max())), k
+    with torch.no_grad():
+        probs, _ = moe.router_probs(tp, torch.from_numpy(x).reshape(B * S, -1),
+                                    cfg)
+        idx = torch.topk(probs, cfg.moe.top_k, dim=-1)[1].numpy()
+    if skew:
+        assert _capacity_drops(cfg, idx) > 0
 
 
 def test_expert_stacks_draw_per_layer_in_the_model_dtype():

@@ -188,3 +188,13 @@ def test_kernel_ab_needs_two_checkouts_and_a_card():
     out = run(REPO, REPO)
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr and out.stdout == ""
+
+
+def test_train_depth_needs_a_card():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run(
+        [sys.executable, "train_depth.py", "qwen2-0.5b", "1", "2"], cwd=REPO,
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert out.stderr.count("no CUDA device") == 2 and out.stdout == ""

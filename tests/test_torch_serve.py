@@ -33,8 +33,8 @@ from repro.models import model as JM  # noqa: E402
 from repro.serve.api import HyperServe as JaxHyperServe  # noqa: E402
 from repro.serve.engine import GenerateConfig, Generator  # noqa: E402
 from repro_torch.api.errors import ServePlanError  # noqa: E402
-from repro_torch.configs.base import (ArchNotPortedError,  # noqa: E402
-                                      ServeConfig, get_config, list_archs)
+from repro_torch.configs.base import (ServeConfig, get_config,  # noqa: E402
+                                      list_archs)
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.bridge import params_from_numpy  # noqa: E402
 from repro_torch.serve.api import HyperServe, RequestRejected  # noqa: E402
@@ -406,25 +406,24 @@ def test_typed_errors_name_what_is_missing():
     with pytest.raises(ServePlanError, match="num_blocks"):
         HyperServe(cfg, params, device="cpu",
                    serve_cfg=ServeConfig(num_blocks=1))
-    with pytest.raises(ArchNotPortedError, match="audio frontend"):
-        get_config("musicgen-large")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("musicgen-large-v2")
 
 
 def test_ported_and_not_yet_ported_archs():
-    """Nine archs are ported (the four dense GQA configs, the three MoE
-    configs, mamba2-370m and the hybrid recurrentgemma-2b), each a copy of
-    the reference's config; every other arch of the reference raises the
-    typed ArchNotPortedError naming what it still needs."""
+    """Every arch of the reference is ported (the four dense GQA configs,
+    the three MoE configs, mamba2-370m, the hybrid recurrentgemma-2b and
+    the two with a multimodal prefix, internvl2-26b and musicgen-large),
+    each a copy of the reference's config, full and reduced."""
     from repro.configs.base import list_archs as jax_list_archs
     assert list_archs() == ("deepseek-moe-16b", "deepseek-v2-lite-16b",
-                            "granite-3-2b", "llama3-8b", "mamba2-370m",
-                            "moonshot-v1-16b-a3b", "phi4-mini-3.8b",
+                            "granite-3-2b", "internvl2-26b", "llama3-8b",
+                            "mamba2-370m", "moonshot-v1-16b-a3b",
+                            "musicgen-large", "phi4-mini-3.8b",
                             "qwen2-0.5b", "recurrentgemma-2b")
-    rest = sorted(set(jax_list_archs()) - set(list_archs()))
-    assert rest == ["internvl2-26b", "musicgen-large"]
-    for name in rest:
-        with pytest.raises(ArchNotPortedError, match="not ported yet"):
-            get_config(name)
+    assert list_archs() == tuple(sorted(jax_list_archs()))
     for name in list_archs():      # the copies hold the reference's values
+        assert (dataclasses.asdict(get_config(name).reduced())
+                == dataclasses.asdict(jax_get_config(name).reduced()))
         assert (dataclasses.asdict(get_config(name))
                 == dataclasses.asdict(jax_get_config(name)))

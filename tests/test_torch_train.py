@@ -1,16 +1,22 @@
-"""The port's dense train step against the reference's, on the CPU.
+"""The port's train step against the reference's, on the CPU.
 
 The same inputs, made with numpy from a seed, go through the JAX package
-and the port in float32 on a reduced qwen2-0.5b (``.reduced()``: 2
-layers, d_model 256, 4 heads over 2 kv heads of 64): the cross entropy,
-AdamW from one state (bridged with ``adamw_state_from_numpy``), the packed
-synthetic loader, ``loss_fn`` and its gradient leaf by leaf, the flash
-backward (the port's autograd Function on the CPU runs the plain forward
-with its lse and ``flash_attention_bwd_ref``) against autograd and
-``jax.grad`` of the reference's oracle, the five-step ``train`` loop, the
-checkpoints in both directions, and the typed refusals of what one device
-does not train (a mesh, a plan, an offload, a MoE config under ``gshard``,
-a head-dim pair or a ``q_offset`` the backward does not take).
+and the port in float32 on reduced configs (``.reduced()``: 2 layers,
+d_model 256): qwen2-0.5b (4 heads over 2 kv heads of 64) for the cross
+entropy, AdamW from one state (bridged with ``adamw_state_from_numpy``),
+the packed synthetic loader, the flash backward (the port's autograd
+Function on the CPU runs the plain forward with its lse and
+``flash_attention_bwd_ref``) against autograd and ``jax.grad`` of the
+reference's oracle, and the checkpoints in both directions; ``loss_fn``
+and its gradient leaf by leaf, and five train steps, on each of
+:data:`TRAIN_ARCHS`: qwen2-0.5b, deepseek-v2-lite-16b (MLA at (Dk, Dv) =
+(96, 64), MoE under the reference's default gshard dispatch),
+deepseek-moe-16b, and musicgen-large and internvl2-26b with a seeded
+multimodal prefix (through ``make_train_step(multimodal=True)``, since
+neither trainer makes a prefix); and the typed refusals of what one
+device does not train (a mesh, a plan, an offload, a MoE config under
+the ragged dispatch, whose grouped matmul has no backward yet, a head-dim
+pair or a ``q_offset`` the backward does not take).
 
 Tolerances, float32 throughout: CE and AdamW 1e-6 (the same f32
 arithmetic in the same order; values of order 1); the flash gradients
@@ -19,8 +25,8 @@ its gradient 1e-5 x max(1, max |grad|) per leaf (matmuls, softmax and
 norms summed in another order over two layers); the train history 1e-4
 relative over five steps (the same differences carried through AdamW,
 whose first steps move a weight by about lr whatever the gradient's
-size).  The JAX trainer's compile is most of this file's time, so one
-run is shared by a module-scoped fixture.
+size).  The JAX trainer's compile is most of this file's time, so each
+arch's run is shared by a module-scoped fixture.
 """
 import dataclasses
 
@@ -56,6 +62,10 @@ from repro_torch.train import trainer  # noqa: E402
 
 TRAIN_STEPS = 5
 SHAPE = (32, 2)                       # seq_len, global batch
+# the dense GQA main path, MLA at (Dk, Dv) = (96, 64) with MoE, GQA with
+# MoE, and the two archs with a multimodal prefix
+TRAIN_ARCHS = ("qwen2-0.5b", "deepseek-v2-lite-16b", "deepseek-moe-16b",
+               "musicgen-large", "internvl2-26b")
 
 
 def _cfgs(arch="qwen2-0.5b"):
@@ -207,28 +217,44 @@ def _max_rel(a, b):
     return float(np.max(np.abs(a - b))) / max(1.0, float(np.max(np.abs(a))))
 
 
-def test_loss_and_grads_match_reference():
+def _prefix(cfg, seed, B=2):
+    """Seeded prefix embeddings (B, P, frontend_dim) for an arch with a
+    multimodal prefix, else None."""
+    if not cfg.frontend_dim:
+        return None
+    return np.random.default_rng(seed).standard_normal(
+        (B, cfg.num_prefix_tokens, cfg.frontend_dim)).astype(np.float32)
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_loss_and_grads_match_reference(arch):
     """``loss_fn`` and its gradient, leaf by leaf, against ``jax.grad`` of
-    the reference's (remat on, the reference's default); remat off gives
-    the port the same gradient."""
-    jcfg, cfg = _cfgs()
+    the reference's (remat on, the reference's default; MoE under its
+    default gshard dispatch; a seeded prefix where the arch has one);
+    remat off gives the port the same gradient."""
+    jcfg, cfg = _cfgs(arch)
     jp = JM.init_model(jcfg, jax.random.PRNGKey(0))
     tp = params_from_numpy(_np_tree(jp), "cpu")
     batch = _batch(cfg, 7)
+    pe = _prefix(cfg, 8)
     (jl, jm), jg = jax.value_and_grad(
-        lambda p: jax_steps.loss_fn(p, {k: jnp.asarray(v)
-                                        for k, v in batch.items()}, jcfg),
+        lambda p: jax_steps.loss_fn(
+            p, {k: jnp.asarray(v) for k, v in batch.items()}, jcfg,
+            prefix_embeds=None if pe is None else jnp.asarray(pe)),
         has_aux=True)(jp)
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
-    (tl, tm), tg = steps.value_and_grad(tp, tb, cfg)
+    tpe = None if pe is None else torch.from_numpy(pe)
+    (tl, tm), tg = steps.value_and_grad(tp, tb, cfg, prefix_embeds=tpe)
     assert abs(float(jl) - float(tl)) <= 1e-5
     for name in ("ce", "aux", "moe_aux_loss", "moe_z_loss"):
         assert abs(float(jm[name]) - float(tm[name])) <= 1e-5, name
+    assert (float(tm["aux"]) != 0.0) == (cfg.moe is not None)
     want, got = _jax_flat(jg), _flat(tg)
     assert sorted(want) == sorted(got)
     for k in want:
         assert _max_rel(want[k], got[k]) <= 1e-5, k
-    (tl2, _), tg2 = steps.value_and_grad(tp, tb, cfg, remat=False)
+    (tl2, _), tg2 = steps.value_and_grad(tp, tb, cfg, remat=False,
+                                         prefix_embeds=tpe)
     assert float(tl2) == float(tl)
     for (k, a), (_, b) in zip(tree_flatten_with_path(tg),
                               tree_flatten_with_path(tg2)):
@@ -265,12 +291,11 @@ def test_flash_backward_matches_autograd_and_jax(G, dim, window):
         assert np.max(np.abs(a.numpy() - np.asarray(c))) <= 2e-5
 
 
-@pytest.fixture(scope="module")
-def train_runs():
+def _trainer_runs(arch):
     """The reference's ``train`` and the port's for TRAIN_STEPS steps from
     the same params (the port's ``init_state`` returns the reference's,
     bridged), logging every step."""
-    jcfg, cfg = _cfgs()
+    jcfg, cfg = _cfgs(arch)
     S, B = SHAPE
     jobs, tobs = JaxObservability(), Observability()
     tcfg = dict(num_steps=TRAIN_STEPS, log_every=1)
@@ -292,8 +317,56 @@ def train_runs():
     return jhist, thist, jobs, tobs
 
 
-def test_train_history_matches_reference(train_runs):
-    jhist, thist, jobs, tobs = train_runs
+def _prefix_runs(arch):
+    """TRAIN_STEPS multimodal steps of the reference's ``make_train_step``
+    and the port's from the same params, on the packed corpus's batches
+    plus seeded prefix embeddings (neither trainer makes a prefix)."""
+    jcfg, cfg = _cfgs(arch)
+    S, B = SHAPE
+    jp = JM.init_model(jcfg, jax.random.PRNGKey(0))
+    jo = jax_opt.init_adamw(jp)
+    tp = params_from_numpy(_np_tree(jp), "cpu")
+    to = adamw_state_from_numpy(_np_tree(jo), "cpu")
+    jstep, _ = jax_steps.make_train_step(
+        jcfg, None, None, jax_opt.AdamWConfig(total_steps=TRAIN_STEPS),
+        multimodal=True, donate=False)
+    tstep = steps.make_train_step(
+        cfg, opt.AdamWConfig(total_steps=TRAIN_STEPS), multimodal=True)
+    batches = jax_pipeline.PackedBatches(jax_pipeline.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=S, global_batch=B, seed=0))
+    jhist, thist = [], []
+    for i in range(TRAIN_STEPS):
+        batch = {**next(batches), "prefix_embeds": _prefix(cfg, 100 + i, B)}
+        jp, jo, jm = jstep(jp, jo, {k: jnp.asarray(v)
+                                    for k, v in batch.items()})
+        tp, to, tm = tstep(tp, to, {k: torch.from_numpy(v)
+                                    for k, v in batch.items()})
+        jhist.append({"step": i + 1, **{k: float(v) for k, v in jm.items()}})
+        thist.append({"step": i + 1, **{k: float(v) for k, v in tm.items()}})
+    return jhist, thist
+
+
+@pytest.fixture(scope="module")
+def train_runs():
+    return _trainer_runs("qwen2-0.5b")
+
+
+@pytest.fixture(scope="module", params=TRAIN_ARCHS)
+def histories(request, train_runs):
+    arch = request.param
+    if arch == "qwen2-0.5b":
+        return arch, train_runs[:2]
+    if get_config(arch).frontend_dim:
+        return arch, _prefix_runs(arch)
+    return arch, _trainer_runs(arch)[:2]
+
+
+def test_train_history_matches_reference(histories):
+    """Five steps from one state, through the trainers (or, with a
+    prefix, the multimodal steps): loss, CE, grad norm and lr, and the MoE
+    terms where the arch has them (MoE under gshard), each step."""
+    arch, (jhist, thist) = histories
+    moe = get_config(arch).moe is not None
     assert len(jhist) == len(thist) == TRAIN_STEPS
     for j, t in zip(jhist, thist):
         assert sorted(j) == sorted(t)
@@ -301,7 +374,11 @@ def test_train_history_matches_reference(train_runs):
         for k in ("loss", "ce", "grad_norm", "lr"):
             assert abs(j[k] - t[k]) <= 1e-4 * max(1.0, abs(j[k])), (k, j, t)
         for k in ("aux", "moe_aux_loss", "moe_z_loss"):
-            assert j[k] == t[k] == 0.0
+            if moe:
+                assert abs(j[k] - t[k]) <= 1e-4 * max(1.0, abs(j[k])), \
+                    (k, j, t)
+            else:
+                assert j[k] == t[k] == 0.0
     assert thist[-1]["loss"] != thist[0]["loss"]
 
 
@@ -375,10 +452,10 @@ def test_checkpoints_cross_load_both_ways(tmp_path):
 
 def test_typed_refusals():
     """A mesh, a plan or an offload raises PlanError naming the ROADMAP
-    items; a MoE config under gshard raises the MoE module's
-    NotImplementedError (never a fall back to ragged); flash refuses a
-    gradient at a head-dim pair or a q_offset its backward does not take,
-    before anything runs."""
+    items; a MoE config under the ragged dispatch refuses the grouped
+    matmul's missing backward, naming its item (never a fall back to
+    gshard); flash refuses a gradient at a head-dim pair or a q_offset its
+    backward does not take, before anything runs."""
     jcfg, cfg = _cfgs()
     acfg = opt.AdamWConfig()
     with pytest.raises(PlanError, match="item"):
@@ -393,13 +470,13 @@ def test_typed_refusals():
     _, mcfg = _cfgs("deepseek-moe-16b")
     params, state = steps.init_state(mcfg, device="cpu")
     batch = {k: torch.from_numpy(v) for k, v in _batch(mcfg, 1, 1, 4).items()}
-    step = steps.make_train_step(mcfg, acfg)
-    with pytest.raises(NotImplementedError, match="item 4"):
+    step = steps.make_train_step(mcfg, acfg, moe_dispatch="ragged")
+    with pytest.raises(RuntimeError, match="2.9b"):
         step(params, state, batch)
-    q = torch.zeros(1, 4, 2, 192, requires_grad=True)
-    k, v = torch.zeros(1, 4, 2, 192), torch.zeros(1, 4, 2, 128)
+    q = torch.zeros(1, 4, 2, 256, requires_grad=True)
+    k = torch.zeros(1, 4, 2, 256)
     with pytest.raises(ValueError, match="backward is built"):
-        fa.flash_attention(q, k, v)
+        fa.flash_attention(q, k, k, window=8)
     q = torch.zeros(1, 4, 2, 64, requires_grad=True)
     k = torch.zeros(1, 8, 2, 64)
     with pytest.raises(ValueError, match="q_offset = 0"):
