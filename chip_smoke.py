@@ -6,9 +6,10 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
    1. device   — card name and power limit (nvidia-smi), torch/CUDA versions;
-   2. build    — nvcc builds the nine CUDA sources from ``src/repro_torch``
-                 (the eight kernels and flash's backward), one process per
-                 source, all started together;
+   2. build    — nvcc builds the eleven CUDA sources from
+                 ``src/repro_torch`` (the eight kernels and the backwards of
+                 flash and the two scans), one process per source, all
+                 started together;
    3. kernels  — each kernel against its plain PyTorch version on the card,
                  bf16 and f32, with and without a window, at the shapes the
                  runs below give it: the paged kernels at phase 4's (H=14,
@@ -51,11 +52,16 @@ Phases, in order; any failure raises and the script exits non-zero:
                  16, 192/128)) and at phase 29's (B=2, 64 prefix + 4096
                  = 4160 positions, (32, 32, 64): the last 128-key tile
                  half full), flash's backward there, at (24, 8, 128),
-                 S=2048, with and without a window, and at the reduced MLA
-                 pair (96, 64), against flash_attention_bwd_ref and, in
+                 S=2048, with and without a window, at the reduced MLA
+                 pair (96, 64) and at phase 34's (1 x 4096, (10, 1, 256),
+                 window 2048), against flash_attention_bwd_ref and, in
                  f32, autograd through the plain forward, each case
                  logging the backward's body (flash_bwd_body) and its
-                 ptxas registers and spills.  Each
+                 ptxas registers and spills; ssd_scan_bwd at phase 31's
+                 shape (4 x 4096, H = 32, (64, 128), chunks of 256) and
+                 rglru_scan_bwd at phase 34's (1 x 4096 x 2560), and both
+                 at 2 x 1024 with an initial state and dfin, against their
+                 plain versions.  Each
                  kernel is timed in bf16 at its
                  main-path shape beside its plain version, a library
                  yardstick (SDPA; SDPA's backward; torch._grouped_mm; none
@@ -171,7 +177,27 @@ Phases, in order; any failure raises and the script exits non-zero:
   30. musicgen train identity — the same arch and prefix, 2 layers,
                  float32, 4 steps of 1 x (64 + 1024), kernels against plain
                  versions, to phase 25's limits;
-  31. result   — the nvidia-smi line, the kernel JSON line (nine kernels;
+  31. mamba2 train — mamba2-370m's train step at full width, all 48
+                 layers, bf16, through ``trainer.train``: 8 steps of 4 x
+                 4096 tokens (train_4k, its batch cut to 4 as qwen2's);
+                 loss and grad norm finite, exactly 96 ssd_scan launches
+                 (48 and 48 remat), 48 ssd_scan_bwd and no flash a step;
+                 step wall, tok/s, peak memory;
+  32. mamba2 train profile — torch.profiler over one such step: device
+                 busy and idle share;
+  33. mamba2 train identity — 2 layers, float32, 4 steps of 1 x 1024,
+                 kernels against plain versions, to phase 25's limits;
+  34. recurrentgemma train — recurrentgemma-2b's train step at full width,
+                 all 26 layers (18 RG-LRU, 8 LOCAL_ATTN; no cut: its peak
+                 fits at one row, train_depth.py), bf16: 8 steps of 1 x
+                 4096 tokens, past the 2048 window; exactly 36
+                 rglru_scan, 18 rglru_scan_bwd, 16 flash forward and 8
+                 backward (at (256, 256), windowed) launches a step;
+  35. recurrentgemma train profile — torch.profiler over one such step;
+  36. recurrentgemma train identity — one group, float32, 4 steps of 1 x
+                 2560 (past the window), kernels against plain versions, to
+                 phase 25's limits;
+  37. result   — the nvidia-smi line, the kernel JSON line (eleven kernels;
                  flash has a row for each run it is on: phase 6's (64, 64),
                  phase 12's (192, 128), phase 21's (256, 256), phase 23's
                  train shape with lse, phase 26's at (192, 128) and phase
@@ -349,6 +375,25 @@ MG_B, MG_S, MG_STEPS = 2, 4096, 8
 # its f32 identity with the prefix (phase 30): MG_ID_LAYERS layers,
 # MG_ID_B x (64 + MG_ID_S) positions, MG_ID_STEPS steps, phase 25's limits
 MG_ID_LAYERS, MG_ID_B, MG_ID_S, MG_ID_STEPS = 2, 1, 1024, 4
+# mamba2-370m's train step (phase 31, bf16, all 48 layers, attention-free):
+# the reference's train_4k with its global batch cut to SSM_TRAIN_B, as
+# qwen2's (phase 23); its f32 identity (phase 33): SSM_TRAIN_ID_LAYERS
+# layers, SSM_TRAIN_ID_B x SSM_TRAIN_ID_S tokens, TRAIN_ID_STEPS steps
+SSM_TRAIN_B, SSM_TRAIN_S, SSM_TRAIN_STEPS = 4, 4096, 8
+SSM_TRAIN_ID_LAYERS, SSM_TRAIN_ID_B, SSM_TRAIN_ID_S = 2, 1, 1024
+# recurrentgemma-2b's train step (phase 34, bf16): full width, all 26
+# layers (no cut; at 1 x 4096 the peak is 61.49 GiB, train_depth.py
+# --batch 1 on an H100 80GB HBM3), RG_TRAIN_B x RG_TRAIN_S
+# tokens (past the 2048 window, so that it cuts), RG_TRAIN_STEPS steps;
+# its f32 identity (phase 36): one (RG-LRU, RG-LRU, LOCAL_ATTN) group,
+# RG_TRAIN_ID_B x RG_TRAIN_ID_S tokens (past the window too)
+RG_TRAIN_B, RG_TRAIN_S, RG_TRAIN_STEPS = 1, 4096, 8
+RG_TRAIN_ID_LAYERS, RG_TRAIN_ID_B, RG_TRAIN_ID_S = 3, 1, 2560
+RG_WINDOW = 2048
+# phase 3's backward calls of the two scans beside the train shapes: an
+# initial state and the final state's gradient, as a serving-sized call
+# would hand them over (SCAN_BWD_B x SCAN_BWD_S)
+SCAN_BWD_B, SCAN_BWD_S = 2, 1024
 
 
 def log(msg: str) -> None:
@@ -534,25 +579,44 @@ def sdpa_prefill(torch, q, k_pool, v_pool, tables, starts, limits):
     return lambda: F.scaled_dot_product_attention(qh, k, v, attn_mask=mask)
 
 
-def sdpa_flash(torch, q, k, v):
+def window_mask(torch, S, window, device):
+    """(S, S) boolean mask of causal attention under a window: query i
+    sees keys i - window < j <= i."""
+    pos = torch.arange(S, device=device)
+    return (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :]
+                                             < window)
+
+
+def sdpa_flash(torch, q, k, v, window=None):
     """Yardstick: one causal GQA SDPA call on the (B, H, S, D) layout (the
-    transposes are outside the call)."""
+    transposes, and with a window its boolean mask, are outside the
+    call)."""
     import torch.nn.functional as F
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if window is not None:
+        mask = window_mask(torch, q.shape[1], window, q.device)
+        return lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, enable_gqa=True)
     return lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
                                                   enable_gqa=True)
 
 
-def sdpa_flash_bwd(torch, q, k, v, o, lse, do):
+def sdpa_flash_bwd(torch, q, k, v, o, lse, do, window=None):
     """Yardstick of the flash backward: (autograd.grad through one causal
     GQA SDPA call, that SDPA call alone); its backward's time is the first
-    less the second.  The (B, H, S, D) transposes are outside the calls."""
+    less the second.  The (B, H, S, D) transposes, and with a window its
+    boolean mask, are outside the calls."""
     import torch.nn.functional as F
     qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
     doh = do.transpose(1, 2).contiguous()
+    mask = (None if window is None
+            else window_mask(torch, q.shape[1], window, q.device))
 
     def fwd():
+        if mask is not None:
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                  enable_gqa=True)
         return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
                                               enable_gqa=True)
     return (lambda: torch.autograd.grad(fwd(), (qh, kh, vh), doh)), fwd
@@ -1006,7 +1070,8 @@ def phase_build():
     logs = build.build(["paged_decode_attention", "ragged_prefill_attention",
                         "flash_attention", "decode_attention",
                         "paged_mla_decode_attention", "grouped_matmul",
-                        "ssd_scan", "rglru_scan", "flash_attention_bwd"])
+                        "ssd_scan", "rglru_scan", "flash_attention_bwd",
+                        "ssd_scan_bwd", "rglru_scan_bwd"])
     log(f"[build] {time.perf_counter() - t0:.1f}s into {build.BUILD_DIR}")
     for name, text in logs.items():
         log(f"[build] {name}: {text.splitlines()[0]}")
@@ -1288,8 +1353,10 @@ def phase_kernels(torch):
                                      f"{dtype_name}")
             if dtype_name == "bfloat16":
                 timed[(name, case)] = (fn, ref, args, kw, err)
-        # qwen2-0.5b's train step: flash with lse, and its backward
+        # the train steps: flash with lse, and its backward; the two
+        # scans' backwards
         train_kernel_checks(torch, dtype_name, timed)
+        scan_bwd_checks(torch, dtype_name, timed)
 
     return time_kernels(torch, timed)
 
@@ -1312,13 +1379,25 @@ def bwd_kernel_names(fa, dtype, dk, dv):
     if fa.flash_bwd_body(dtype, dk, dv) == "wgmma":
         cols = "_cols" if (dk, dv) == (192, 128) else ""
         return [f"flash_bwd_wgmma{cols}<{dk},{dv}>"]
+    if fa.flash_bwd_body(dtype, dk, dv) == "mma":
+        return ["flash_bwd_dkdv_wide_mma", "flash_bwd_dq_wide_mma"]
     t = "f32" if dtype.itemsize == 4 else "bf16"
+    if (dk, dv) == (256, 256):
+        return [f"flash_bwd_dkdv_wide<{t},{dk}>", f"flash_bwd_dq_wide<{t},{dk}>"]
     return [f"flash_bwd_dkdv<{t},{dk},{dv}>", f"flash_bwd_dq<{t},{dk},{dv}>"]
 
 
 # phase 3's flash cases at the shapes of the bf16 train runs (phases 23,
 # 26 and 29): each also holds the forward with its lse and is timed
-TRAIN_RUNS = ("train", "mla train", "musicgen train")
+TRAIN_RUNS = ("train", "mla train", "musicgen train", "recurrentgemma train")
+
+
+def rg_attention():
+    """recurrentgemma-2b's LOCAL_ATTN heads: (H, KV, Dk, Dv)."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(RG_ARCH)
+    d = cfg.resolved_head_dim
+    return cfg.num_heads, cfg.num_kv_heads, d, d
 
 
 def mg_attention():
@@ -1337,7 +1416,8 @@ def train_kernel_checks(torch, dtype_name, timed):
     (14, 2, 64)), at deepseek-v2-lite's (DS_TRAIN_B x DS_TRAIN_S,
     BWD_MLA: (Dk, Dv) = (192, 128), G = 1) and at musicgen-large's with
     its prefix (MG_B x 4160 positions, (32, 32, 64), G = 1: the last
-    128-key tile half full), and the backward there, at
+    128-key tile half full) and at recurrentgemma-2b's (RG_TRAIN_B x
+    RG_TRAIN_S, (10, 1, 256), window RG_WINDOW), and the backward there, at
     (24, 8, 128), S = BWD_WIDE_S, with and without a window, and at the
     reduced MLA pair (96, 64), against ``flash_attention_bwd_ref`` and, in
     f32, against autograd through ``flash_attention_ref`` (in bf16 the
@@ -1354,7 +1434,9 @@ def train_kernel_checks(torch, dtype_name, timed):
             ("mla train", BWD_MLA, DS_TRAIN_B, DS_TRAIN_S, None),
             ("mla reduced", BWD_MLA_REDUCED, BWD_MLA_REDUCED_B,
              BWD_MLA_REDUCED_S, None),
-            ("musicgen train", mg_heads, MG_B, mg_positions, None)):
+            ("musicgen train", mg_heads, MG_B, mg_positions, None),
+            ("recurrentgemma train", rg_attention(), RG_TRAIN_B, RG_TRAIN_S,
+             RG_WINDOW)):
         args = bwd_inputs(torch, dtype, heads, kv, dk, dv, batch, seq,
                           window, SEED + 50)
         kw = dict(causal=True, window=window)
@@ -1425,12 +1507,141 @@ def train_kernel_checks(torch, dtype_name, timed):
         if not share <= 1:
             raise AssertionError(f"kernel parity failed: flash_attention_bwd "
                                  f"{case} {dtype_name}")
-        if dtype_name == "bfloat16" and case in TRAIN_RUNS + ("wide",):
+        if dtype_name == "bfloat16" and case in TRAIN_RUNS + (
+                "wide", "mla reduced"):
             timed[("flash_attention_bwd", case)] = (
                 fa.flash_attention_bwd, fa.flash_attention_bwd_ref, args, kw,
                 max(c[0] for c in checks))
         del got
         torch.cuda.empty_cache()
+
+
+def ssd_bwd_cases(torch, dtype):
+    """(case, args, kwargs) of ssd_scan_bwd: mamba2-370m's train step
+    (SSM_TRAIN_B x SSM_TRAIN_S, chunks of 256, x, B and C column slices of
+    the layer's one tensor, dfin None as the train step hands it over), and
+    SCAN_BWD_B x SCAN_BWD_S with an initial state and the final state's
+    gradient; dy at N(0, 1)."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(SSM_ARCH)
+    s = cfg.ssm
+    H, P, N = s.num_heads(cfg.d_model), s.head_dim, s.d_state
+    out = []
+    for case, B, S, seed, state in (
+            ("train", SSM_TRAIN_B, SSM_TRAIN_S, SEED + 60, False),
+            ("initial state and dfin", SCAN_BWD_B, SCAN_BWD_S, SEED + 61,
+             True)):
+        args, kw = ssd_inputs(torch, dtype, cfg, B, S, seed, False)
+        g = torch.Generator(device="cpu").manual_seed(seed + 100)
+        dy = torch.randn(B, S, H, P, generator=g).to(DEVICE, dtype)
+        dfin = None
+        if state:
+            kw["init_state"] = torch.randn(B, H, P, N, generator=g).to(
+                DEVICE, dtype)
+            dfin = torch.randn(B, H, P, N, generator=g).to(DEVICE, dtype)
+        out.append((case, (*args, dy, dfin), kw))
+    return out
+
+
+def rg_bwd_cases(torch, dtype):
+    """(case, args, kwargs) of rglru_scan_bwd: recurrentgemma-2b's train
+    step (RG_TRAIN_B x RG_TRAIN_S x 2560, dfin None) and SCAN_BWD_B x
+    SCAN_BWD_S with an initial state and the final state's gradient; the
+    inputs as rg_scan_inputs draws them, dh at N(0, 1)."""
+    from repro_torch.configs.base import get_config
+    W = get_config(RG_ARCH).rglru.lru_width
+    out = []
+    for case, B, S, seed, state in (
+            ("train", RG_TRAIN_B, RG_TRAIN_S, SEED + 62, False),
+            ("initial state and dfin", SCAN_BWD_B, SCAN_BWD_S, SEED + 63,
+             True)):
+        args, kw = rg_scan_inputs(torch, dtype, W, B, S, seed, False)
+        g = torch.Generator(device="cpu").manual_seed(seed + 100)
+        dh = torch.randn(B, S, W, generator=g).to(DEVICE, dtype)
+        dfin = None
+        if state:
+            kw["init_state"] = torch.randn(B, W, generator=g).to(DEVICE,
+                                                                 dtype)
+            dfin = torch.randn(B, W, generator=g).to(DEVICE, dtype)
+        out.append((case, (*args, dh, dfin), kw))
+    return out
+
+
+def scan_grad_parity(torch, dtype_name, got, want, want32, want64, rel):
+    """The two scans' backward rule: (max abs error against the plain
+    version, worst share of the allowed error).  Every gradient sums over
+    a chunk's or the sequence's positions (d log_a and dA over all of
+    them) in another order, and the decays' running sums carry their own
+    rounding, so the f32 limit is ``rel`` x max(1, max |grad|) plus twice
+    the plain version's own distance from float64; in bf16 it is the slack
+    beside one bf16 step of the plain version and half a step of its f32
+    result.  A float32 gradient (ddt, dA, d log_a) is held to the f32 limit
+    in both dtypes."""
+    own = (want32.double() - want64).abs().max().item()
+    tol = rel * max(1.0, want32.abs().max().item()) + 2 * own
+    if dtype_name == "float32" or got.dtype == torch.float32:
+        err = (got.float() - want.float()).abs().max().item()
+        return err, err / tol
+    return parity(torch, dtype_name, got, want, want32, slack=tol)
+
+
+def scan_bwd_checks(torch, dtype_name, timed):
+    """The two scans' backward kernels against their plain versions at the
+    train steps' shapes and with an initial state and dfin: ssd_scan_bwd
+    (dx, ddt, dA, dBm, dCm, d init_state) and rglru_scan_bwd (dx, d
+    input_gate, d a_gate, d log_a, d init_state), to scan_grad_parity's
+    limit (SSM_REL; the RG-LRU's F32_TOL)."""
+    from repro_torch.kernels import rglru_scan as rs
+    from repro_torch.kernels import ssd_scan as ss
+    dtype = getattr(torch, dtype_name)
+
+    def cast(t, to):
+        return (t.to(to) if torch.is_tensor(t) and t.is_floating_point()
+                else t)
+    for name, fn, ref, cases, rel, grads in (
+            ("ssd_scan_bwd", ss.ssd_scan_bwd, ss.ssd_scan_bwd_ref,
+             ssd_bwd_cases, SSM_REL, ("dx", "ddt", "dA", "dBm", "dCm",
+                                      "dinit")),
+            ("rglru_scan_bwd", rs.rglru_scan_bwd, rs.rglru_scan_bwd_ref,
+             rg_bwd_cases, F32_TOL, ("dx", "dig", "dag", "dlog_a",
+                                     "dinit"))):
+        for case, args, kw in cases(torch, dtype):
+            n0 = fn.launches
+            got = fn(*args, **kw)
+            sync(torch)
+            if fn.launches != n0 + 1:
+                raise AssertionError(f"{name} launched no kernel")
+            want = ref(*args, **kw)
+            kw32 = {k: cast(v, torch.float32) for k, v in kw.items()}
+            want32 = ref(*(cast(t, torch.float32) for t in args), **kw32)
+            kw64 = {k: cast(v, torch.float64) for k, v in kw.items()}
+            want64 = ref(*(cast(t, torch.float64) for t in args),
+                         acc=torch.float64, **kw64)
+            checks = {n: scan_grad_parity(torch, dtype_name, g, w, w32, w64,
+                                          rel)
+                      for n, g, w, w32, w64 in zip(grads, got, want, want32,
+                                                   want64) if g is not None}
+            del want32, want64
+            x = args[0]
+            body = ("" if name != "ssd_scan_bwd" else ", key pass "
+                    + ss.ssd_bwd_body(dtype, x.shape[-1], args[3].shape[-1]))
+            log(f"[kernels] {name} ({case}, " + " x ".join(
+                map(str, x.shape)) + f"{body}) {dtype_name}: max_abs_err "
+                + ", ".join(f"{n} {e:.3e} ({sh:.3f})"
+                            for n, (e, sh) in checks.items())
+                + f" (limit: {rel} x max(1, max |grad|) + 2 x the plain "
+                "version's own distance from float64"
+                + ("" if dtype_name == "float32" else
+                   ", as slack beside one bf16 step of the plain version "
+                   "and half a step of its f32 result") + ")")
+            if not max(sh for _, sh in checks.values()) <= 1:
+                raise AssertionError(f"kernel parity failed: {name} {case} "
+                                     f"{dtype_name}")
+            if dtype_name == "bfloat16" and case == "train":
+                timed[(name, case)] = (fn, ref, args, kw, max(
+                    e for e, _ in checks.values()))
+            del got, want
+            torch.cuda.empty_cache()
 
 
 def train_table(torch, pm, timed):
@@ -1452,6 +1663,12 @@ def train_table(torch, pm, timed):
     gargs = timed[("flash_attention_bwd", "musicgen train")][2]
     (gh, gkv, gd, _), gs = mg_attention()
     mg_path = f"{MG_ARCH} train"
+    rq, rk, rv = timed[("flash_attention", "recurrentgemma train lse")][2]
+    rargs = timed[("flash_attention_bwd", "recurrentgemma train")][2]
+    rh, rkv, rd, _ = rg_attention()
+    rg_path = f"{RG_ARCH} train"
+    nargs = timed[("flash_attention_bwd", "mla reduced")][2]
+    nh, nkv, ndk, ndv = BWD_MLA_REDUCED
     shape = dict(num_heads=H, kv_heads=KV, itemsize=2)
     wh, wkv, wd = BWD_WIDE
     mh, mkv, mdk, mdv = BWD_MLA
@@ -1509,7 +1726,62 @@ def train_table(torch, pm, timed):
          sdpa_flash_bwd(torch, *gargs),
          "SDPA backward (autograd.grad through SDPA causal, less its "
          "forward; transposes excluded)",
-         "src/repro/kernels/flash_attention.py:87", mg_path))
+         "src/repro/kernels/flash_attention.py:87", mg_path),
+        ("flash_attention", "recurrentgemma train lse",
+         pm.prefill_visible_cost([0] * RG_TRAIN_B, [RG_TRAIN_S] * RG_TRAIN_B,
+                                 RG_TRAIN_S, num_heads=rh, kv_heads=rkv,
+                                 head_dim=rd, itemsize=2, window=RG_WINDOW),
+         sdpa_flash(torch, rq, rk, rv, window=RG_WINDOW),
+         "SDPA with the causal window's boolean mask, enable_gqa "
+         "(transposes and mask excluded)",
+         "src/repro/kernels/flash_attention.py:87", rg_path),
+        ("flash_attention_bwd", "recurrentgemma train",
+         pm.flash_attention_bwd_cost(batch=RG_TRAIN_B, seq_q=RG_TRAIN_S,
+                                     seq_k=RG_TRAIN_S, num_heads=rh,
+                                     kv_heads=rkv, dk=rd, dv=rd, itemsize=2,
+                                     window=RG_WINDOW),
+         sdpa_flash_bwd(torch, *rargs, window=RG_WINDOW),
+         "SDPA backward (autograd.grad through SDPA with the causal "
+         "window's mask, enable_gqa, less its forward; transposes and mask "
+         "excluded)", "src/repro/kernels/flash_attention.py:87", rg_path),
+        # the reduced MLA pair: no run here trains at it (0 launches)
+        ("flash_attention_bwd", "mla reduced",
+         pm.flash_attention_bwd_cost(batch=BWD_MLA_REDUCED_B,
+                                     seq_q=BWD_MLA_REDUCED_S,
+                                     seq_k=BWD_MLA_REDUCED_S, num_heads=nh,
+                                     kv_heads=nkv, dk=ndk, dv=ndv,
+                                     itemsize=2),
+         sdpa_flash_bwd(torch, *nargs),
+         "SDPA backward (autograd.grad through SDPA causal, less its "
+         "forward; transposes excluded)",
+         "src/repro/kernels/flash_attention.py:87", None))
+
+
+def scan_train_table(pm, timed):
+    """Timing rows of the two scans' backwards at the train steps' shapes,
+    read from phases 31 (mamba2-370m) and 34 (recurrentgemma-2b).  No
+    PyTorch call computes either, so neither has a library time."""
+    x = timed[("ssd_scan_bwd", "train")][2][0]
+    N = timed[("ssd_scan_bwd", "train")][2][3].shape[-1]
+    rx = timed[("rglru_scan_bwd", "train")][2][0]
+    return (
+        ("ssd_scan_bwd", "train",
+         pm.ssd_scan_bwd_cost(batch=x.shape[0], seq=x.shape[1],
+                              heads=x.shape[2], head_dim=x.shape[3],
+                              d_state=N,
+                              chunk=timed[("ssd_scan_bwd", "train")][3][
+                                  "chunk"],
+                              itemsize=2, init_state=False, dfin=False),
+         None, "library call: none (no PyTorch call computes the SSD "
+         "scan's backward)", "src/repro/kernels/ssd_scan.py:70",
+         f"{SSM_ARCH} train"),
+        ("rglru_scan_bwd", "train",
+         pm.rglru_scan_bwd_cost(batch=rx.shape[0], seq=rx.shape[1],
+                                width=rx.shape[2], itemsize=2,
+                                init_state=False, dfin=False),
+         None, "library call: none (no PyTorch call computes the RG-LRU "
+         "scan's backward)", "src/repro/kernels/rglru_scan.py:66",
+         f"{RG_ARCH} train"))
 
 
 def time_kernels(torch, timed):
@@ -1571,7 +1843,7 @@ def time_kernels(torch, timed):
     table = (tuple(t + ("qwen2-0.5b",) for t in table)
              + tuple(t + (DS_ARCH,) for t in moe_mla_table(torch, pm, timed))
              + ssm_table(pm, timed) + rg_table(torch, pm, timed)
-             + train_table(torch, pm, timed))
+             + train_table(torch, pm, timed) + scan_train_table(pm, timed))
     out = []
     for name, case, cost, lib, lib_what, replaces, path in table:
         fn, ref, args, kw, err = timed[(name, case)]
@@ -1638,6 +1910,12 @@ ROW_NAMES = {("flash_attention", "MLA rows q_offset (192, 128)"):
              "flash_attention_train_musicgen",
              ("flash_attention_bwd", "musicgen train"):
              "flash_attention_bwd_musicgen",
+             ("flash_attention", "recurrentgemma train lse"):
+             "flash_attention_train_d256_g10",
+             ("flash_attention_bwd", "recurrentgemma train"):
+             "flash_attention_bwd_d256_g10",
+             ("flash_attention_bwd", "mla reduced"):
+             "flash_attention_bwd_dk96_dv64",
              ("decode_attention", "recurrentgemma Generator"):
              "decode_attention_d256_g10"}
 
@@ -2711,6 +2989,41 @@ def run_train(torch, cfg, shape, n_steps, hook=None):
                          hook=hook, device=DEVICE)
 
 
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "grouped_matmul",
+                 "ssd_scan", "ssd_scan_bwd", "rglru_scan", "rglru_scan_bwd")
+
+
+def train_wrappers():
+    """The wrappers whose launches a train step counts, by kernel name."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import rglru_scan as rs
+    from repro_torch.kernels import ssd_scan as ss
+    return {"flash_attention": fa.flash_attention,
+            "flash_attention_bwd": fa.flash_attention_bwd,
+            "grouped_matmul": gm.grouped_matmul,
+            "ssd_scan": ss.ssd_scan, "ssd_scan_bwd": ss.ssd_scan_bwd,
+            "rglru_scan": rs.rglru_scan,
+            "rglru_scan_bwd": rs.rglru_scan_bwd}
+
+
+def train_launches_per_step(cfg):
+    """Each kernel's launches in one remat'd train step of ``cfg``: every
+    attention layer (ATTN, MLA, LOCAL_ATTN) two flash forwards (the
+    forward and its recompute) and one backward, every SSD layer two
+    ssd_scan and one ssd_scan_bwd, every RG-LRU layer two rglru_scan and
+    one rglru_scan_bwd; no grouped_matmul (gshard's experts are
+    einsums)."""
+    from repro_torch.configs.base import RGLRU, SSD
+    kinds = [m for m, _ in cfg.block_kinds()]
+    a = sum(m not in (SSD, RGLRU) for m in kinds)
+    n_ssd, n_rg = kinds.count(SSD), kinds.count(RGLRU)
+    return {"flash_attention": 2 * a, "flash_attention_bwd": a,
+            "grouped_matmul": 0, "ssd_scan": 2 * n_ssd,
+            "ssd_scan_bwd": n_ssd, "rglru_scan": 2 * n_rg,
+            "rglru_scan_bwd": n_rg}
+
+
 def phase_train(torch, np, arch="qwen2-0.5b", layers=None, batch=TRAIN_B,
                 seq=TRAIN_S, n_steps=TRAIN_STEPS, tag="train"):
     """``arch``'s train step at full width (``layers`` of its layers, all
@@ -2719,50 +3032,47 @@ def phase_train(torch, np, arch="qwen2-0.5b", layers=None, batch=TRAIN_B,
     through ``make_train_step(multimodal=True)`` after seeded conditioning
     frames: prefix_train), the reference's default gshard dispatch for MoE:
     ``n_steps`` steps of ``batch`` x ``seq`` tokens of the reference's
-    synthetic corpus.  Every step: loss and grad norm finite, exactly 2
-    flash_attention forward launches a layer (its forward and its remat
-    recompute), one backward call a layer, and no grouped_matmul (gshard's
-    experts are einsums).  Step wall time (each step ends in a read of its
-    metrics, which waits for the card), training tokens/s and the peak of
-    allocated device memory."""
+    synthetic corpus.  Every step: loss and grad norm finite, and exactly
+    train_launches_per_step's launches of every train kernel (per
+    attention layer two flash forwards and one backward, per SSD or RG-LRU
+    layer two scans and one scan backward, no grouped_matmul).  Step wall
+    time (each step ends in a read of its metrics, which waits for the
+    card), training tokens/s and the peak of allocated device memory."""
     from repro_torch.configs.base import ShapeConfig, get_config
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import grouped_matmul as gm
     cfg = get_config(arch)
     if layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=layers)
     shape = ShapeConfig(f"train_{seq}_b{batch}", seq, batch, "train")
     n = cfg.num_layers
-    seen, last = [], [0, 0, 0]
+    wrappers = train_wrappers()
+    want = train_launches_per_step(cfg)
+    seen, last = [], {k: 0 for k in TRAIN_KERNELS}
 
     def hook(m):
-        now = (fa.flash_attention.launches, fa.flash_attention_bwd.launches,
-               gm.grouped_matmul.launches)
-        f, b, g = (x - y for x, y in zip(now, last))
-        seen.append((m, f, b, g))
+        now = {k: wrappers[k].launches for k in TRAIN_KERNELS}
+        step = {k: now[k] - last[k] for k in TRAIN_KERNELS}
+        seen.append((m, step))
         log(f"[{tag}] step {m['step']}: loss {m['loss']:.4f} grad_norm "
             f"{m['grad_norm']:.4f} lr {m['lr']:.3e} wall {m['wall_s']:.3f}s, "
-            f"launches: flash {f} forward, {b} backward, grouped_matmul {g}")
-        last[:] = now
+            "launches: " + ", ".join(f"{k} {v}" for k, v in step.items()
+                                     if v or want[k]))
+        last.update(now)
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     # this path's run: every launch count starts at 0 here
-    fa.flash_attention.launches = 0
-    fa.flash_attention_bwd.launches = 0
-    gm.grouped_matmul.launches = 0
+    for w in wrappers.values():
+        w.launches = 0
     sync(torch)
     t0 = time.perf_counter()
     params, hist = run_train(torch, cfg, shape, n_steps, hook)
     sync(torch)
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": fa.flash_attention.launches,
-                "flash_attention_bwd": fa.flash_attention_bwd.launches,
-                "grouped_matmul": gm.grouped_matmul.launches}
+    launches = {k: wrappers[k].launches for k in TRAIN_KERNELS}
     peak = (torch.cuda.max_memory_allocated() / 2 ** 30
             if DEVICE == "cuda" else float("nan"))
     del params
-    walls = [m["wall_s"] for m, _, _, _ in seen]
+    walls = [m["wall_s"] for m, _ in seen]
     step_s = sorted(b - a for a, b in zip(walls, walls[1:]))
     med = step_s[len(step_s) // 2]
     rows = (f"{batch} x ({cfg.num_prefix_tokens} prefix + {seq}) positions"
@@ -2773,21 +3083,19 @@ def phase_train(torch, np, arch="qwen2-0.5b", layers=None, batch=TRAIN_B,
         f"{med:.4f}s ({batch * seq / med:.1f} train tok/s), range "
         f"{step_s[0]:.4f}..{step_s[-1]:.4f}s; peak device memory "
         f"{peak:.2f} GiB (torch.cuda.max_memory_allocated)")
-    log(f"[{tag}] launches {launches}; expected per step {2 * n} forward "
-        f"({n} + {n} remat), {n} backward and no grouped_matmul, {n_steps} "
-        "steps")
+    log(f"[{tag}] launches {launches}; expected per step "
+        + ", ".join(f"{k} {v}" for k, v in want.items())
+        + f", {n_steps} steps")
     if len(hist) != n_steps or not all(
             np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
-            for m, _, _, _ in seen):
+            for m, _ in seen):
         raise AssertionError(f"{tag}: a step's loss or grad norm is not "
                              "finite")
-    if any((f, b, g) != (2 * n, n, 0) for _, f, b, g in seen) or \
-            launches != {"flash_attention": 2 * n * n_steps,
-                         "flash_attention_bwd": n * n_steps,
-                         "grouped_matmul": 0}:
+    if any(step != want for _, step in seen) or launches != {
+            k: v * n_steps for k, v in want.items()}:
         raise AssertionError(f"{tag} launch counts {launches}, per step "
-                             f"{[x[1:] for x in seen]}: expected {2 * n}, "
-                             f"{n} and 0 a step")
+                             f"{[x[1] for x in seen]}: expected {want} a "
+                             "step")
     return launches
 
 
@@ -2911,6 +3219,15 @@ def timed(name, fn, *args):
 
 
 def main() -> int:
+    # this script alone: it runs every phase in one process, and without
+    # expandable segments the caching allocator's blocks of the earlier
+    # phases fragment the card, so that recurrentgemma-2b's train step
+    # (61.49 GiB at its peak) ran out of memory with 25.89 GiB reserved and
+    # unallocated.  Set before torch is imported; the port's entry points
+    # and train_depth.py (which imports this module) leave the allocator
+    # as it is.
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import repro_torch  # noqa: F401  (the port must be here, card or not)
     import numpy as np
     import torch
@@ -2983,12 +3300,37 @@ def main() -> int:
     timed("musicgen train identity", phase_train_identity, torch, np,
           MG_ARCH, MG_ID_LAYERS, MG_ID_B, MG_ID_S, MG_ID_STEPS,
           "musicgen train identity")
+    torch.cuda.empty_cache()
+    ssm_train = (SSM_ARCH, None, SSM_TRAIN_B, SSM_TRAIN_S)
+    ssm_train_launches = timed("mamba2 train", phase_train, torch, np,
+                               *ssm_train, SSM_TRAIN_STEPS, "mamba2 train")
+    torch.cuda.empty_cache()
+    timed("mamba2 train profile", phase_train_profile, torch, *ssm_train,
+          "mamba2 train profile")
+    torch.cuda.empty_cache()
+    timed("mamba2 train identity", phase_train_identity, torch, np,
+          SSM_ARCH, SSM_TRAIN_ID_LAYERS, SSM_TRAIN_ID_B, SSM_TRAIN_ID_S,
+          TRAIN_ID_STEPS, "mamba2 train identity")
+    torch.cuda.empty_cache()
+    rg_train = (RG_ARCH, None, RG_TRAIN_B, RG_TRAIN_S)
+    rg_train_launches = timed("recurrentgemma train", phase_train, torch, np,
+                              *rg_train, RG_TRAIN_STEPS,
+                              "recurrentgemma train")
+    torch.cuda.empty_cache()
+    timed("recurrentgemma train profile", phase_train_profile, torch,
+          *rg_train, "recurrentgemma train profile")
+    torch.cuda.empty_cache()
+    timed("recurrentgemma train identity", phase_train_identity, torch, np,
+          RG_ARCH, RG_TRAIN_ID_LAYERS, RG_TRAIN_ID_B, RG_TRAIN_ID_S,
+          TRAIN_ID_STEPS, "recurrentgemma train identity")
     runs = {"qwen2-0.5b": launches, DS_ARCH: moe_launches,
             SSM_ARCH: ssm_launches, f"{SSM_ARCH} Generator": ssm_gen_launches,
             RG_ARCH: rg_launches, f"{RG_ARCH} Generator": rg_gen_launches,
             "qwen2-0.5b train": train_launches,
             f"{DS_ARCH} train": ds_train_launches,
-            f"{MG_ARCH} train": mg_train_launches}
+            f"{MG_ARCH} train": mg_train_launches,
+            f"{SSM_ARCH} train": ssm_train_launches,
+            f"{RG_ARCH} train": rg_train_launches}
     for row in rows:
         if row["path"] is not None:     # None: timed in phase 3 only
             row["launches"] = runs[row["path"]][

@@ -45,7 +45,11 @@ backward at qwen2-0.5b's train shape (4 x 4096, causal), at (24, 8,
 128) over 2 x 2048 ("flash_attention_bwd wide") and at deepseek-v2-lite's
 (192, 128) over 2 x 4096 ("flash_attention_bwd mla"; cases only in trees
 whose backward takes them); each case from ``chip_smoke.py``'s seeds, so its
-inputs are those of phase 3.  Each tree also prints ptxas's registers and
+inputs are those of phase 3; and, in trees that have them, the backwards of
+recurrentgemma-2b's train step: flash at (256, 256), G = 10, window 2048,
+over 1 x 4096 ("flash_attention_bwd d256 g10") and rglru_scan_bwd over 1 x
+4096 x 2560, and mamba2-370m's ssd_scan_bwd over 4 x 4096 (H = 32, (64,
+128), chunks of 256): "ssd_scan_bwd train", "rglru_scan_bwd train".  Each tree also prints ptxas's registers and
 spill stores for the flash forward, the ragged prefill and the backward.  With two
 timers, ROUNDS readings each:
 
@@ -107,8 +111,13 @@ BWD_MLA, BWD_MLA_B, BWD_MLA_S = (16, 16, 192, 128), 2, 4096
 # the wrappers' input checks where a module's is not ``_check``
 CHECKS = {"paged_mla_decode_attention": "_mla_check",
           "flash_attention_bwd": "_bwd_check"}
+# recurrentgemma-2b's and mamba2-370m's train steps (chip_smoke.py's
+# RG_TRAIN_B x RG_TRAIN_S and SSM_TRAIN_B x SSM_TRAIN_S): flash's backward
+# at (256, 256), G = 10, windowed; the two scans' backwards
+RG_TRAIN_B, RG_TRAIN_S, SSM_TRAIN_B, SSM_TRAIN_S = 1, 4096, 4, 4096
 # the sources whose ptxas report (registers, spill stores) each tree prints
-PTXAS = ("flash_attention", "ragged_prefill_attention", "flash_attention_bwd")
+PTXAS = ("flash_attention", "ragged_prefill_attention", "flash_attention_bwd",
+         "ssd_scan_bwd", "rglru_scan_bwd")
 ROUNDS = 5
 REPEATS = 30
 CALLS = 200
@@ -223,24 +232,81 @@ def train_cases(torch):
     if tuple(BWD_MLA[2:]) in getattr(fa, "BWD_PAIRS", ()):
         shapes.append(("flash_attention_bwd mla", BWD_MLA, BWD_MLA_B,
                        BWD_MLA_S))
+    if (RG_D, RG_D) in getattr(fa, "BWD_PAIRS", ()):
+        shapes.append(("flash_attention_bwd d256 g10",
+                       (RG_H, RG_KV, RG_D, RG_D), RG_TRAIN_B, RG_TRAIN_S))
     for case, (heads, kv, dk, dv), batch, seq in shapes:
+        window = RG_WINDOW if case.endswith("d256 g10") else None
         g = torch.Generator(device="cpu").manual_seed(50)
         q, k, v, do = (torch.randn(batch, seq, n, dim, generator=g)
                        .to("cuda", torch.bfloat16)
                        for n, dim in ((heads, dk), (kv, dk), (kv, dv),
                                       (heads, dv)))
-        o, lse = fa.flash_attention_lse(q, k, v, causal=True)
+        o, lse = fa.flash_attention_lse(q, k, v, causal=True, window=window)
         qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
                       for t in (q, k, v))
         doh = do.transpose(1, 2).contiguous()
+        pos = torch.arange(seq, device="cuda")
+        mask = None if window is None else (
+            (pos[None, :] <= pos[:, None])
+            & (pos[:, None] - pos[None, :] < window))
 
-        def fwd(qh=qh, kh=kh, vh=vh):
+        def fwd(qh=qh, kh=kh, vh=vh, mask=mask):
+            if mask is not None:
+                return F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask, enable_gqa=True)
             return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
                                                   enable_gqa=True)
         args = (q, k, v, o, lse, do)
-        out[case] = (fa, "flash_attention_bwd", args, dict(causal=True), args,
+        out[case] = (fa, "flash_attention_bwd", args,
+                     dict(causal=True, window=window), args,
                      (lambda fwd=fwd, qh=qh, kh=kh, vh=vh, doh=doh:
                       torch.autograd.grad(fwd(), (qh, kh, vh), doh), fwd))
+    return out
+
+
+def scan_bwd_cases(torch):
+    """The two scans' backwards at the train steps' shapes, in trees that
+    have them: ssd_scan_bwd at mamba2-370m's (SSM_TRAIN_B x SSM_TRAIN_S,
+    chunks of 256, x, B and C column slices of one tensor, dfin None) and
+    rglru_scan_bwd at recurrentgemma-2b's (RG_TRAIN_B x RG_TRAIN_S x
+    2560), drawn as chip_smoke.py's ssd_bwd_cases and rg_bwd_cases draw
+    them (seeds SEED + 60, + 62).  No PyTorch call computes either."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import rglru_scan as rs
+    from repro_torch.kernels import ssd_scan as ss
+    out = {}
+    if hasattr(ss, "ssd_scan_bwd"):
+        di = SSM_H * SSM_P
+        B, S = SSM_TRAIN_B, SSM_TRAIN_S
+        g = torch.Generator(device="cpu").manual_seed(60)
+        xbc = (torch.randn(B, S, di + 2 * SSM_N, generator=g) * 0.3).to(
+            "cuda", torch.bfloat16)
+        x = xbc[..., :di].reshape(B, S, SSM_H, SSM_P)
+        dt = F.softplus(torch.randn(B, S, SSM_H, generator=g)).to("cuda")
+        A = -torch.exp(torch.randn(SSM_H, generator=g) * 0.3).to("cuda")
+        g = torch.Generator(device="cpu").manual_seed(160)
+        dy = torch.randn(B, S, SSM_H, SSM_P, generator=g).to(
+            "cuda", torch.bfloat16)
+        args = (x, dt, A, xbc[..., di:di + SSM_N], xbc[..., di + SSM_N:],
+                dy, None)
+        out["ssd_scan_bwd train"] = (
+            ss, "ssd_scan_bwd", args, dict(chunk=SSM_Q, init_state=None),
+            (*args[:5], SSM_Q, None), None)
+    if hasattr(rs, "rglru_scan_bwd"):
+        B, S = RG_TRAIN_B, RG_TRAIN_S
+        g = torch.Generator(device="cpu").manual_seed(62)
+        x = torch.randn(B, S, RG_W, generator=g) * 0.5
+        ig = torch.sigmoid(torch.randn(B, S, RG_W, generator=g))
+        ag = torch.sigmoid(torch.randn(B, S, RG_W, generator=g))
+        la = -F.softplus(-torch.linspace(2.0, 6.0, RG_W)).to("cuda")
+        g = torch.Generator(device="cpu").manual_seed(162)
+        dh = torch.randn(B, S, RG_W, generator=g)
+        args = tuple(t.to("cuda", torch.bfloat16) for t in (x, ig, ag)) + (
+            la, dh.to("cuda", torch.bfloat16), None)
+        out["rglru_scan_bwd train"] = (
+            rs, "rglru_scan_bwd", args, dict(init_state=None),
+            (*args[:4], None), None)
     return out
 
 
@@ -495,6 +561,7 @@ def cases(torch):
     out.update(ssd_cases(torch))
     out.update(rg_cases(torch))
     out.update(train_cases(torch))
+    out.update(scan_bwd_cases(torch))
     return out
 
 
@@ -518,6 +585,8 @@ def worker(tree: str, only) -> None:
             got, want = (got,), (want,)
         errs = []
         for g, w in zip(got, want):
+            if g is None:                         # no initial state
+                continue
             errs.append((g.float() - w.float()).abs().max().item())
             limit = PARITY * max(1.0, w.float().abs().max().item())
             if not errs[-1] <= limit:

@@ -51,7 +51,7 @@
 // a query with no visible key gets +inf there, so its P is 0.  The serving
 // callers pass null and run the instantiations without it (the LSE flag),
 // which compile as before; with it, only the pairs the backward takes are
-// built: (64, 64), (128, 128), (192, 128) and (96, 64).
+// built: (64, 64), (128, 128), (192, 128), (96, 64) and (256, 256).
 
 #include "common.cuh"
 
@@ -166,6 +166,7 @@ extern "C" int flash_attention_launch(
     REPRO_CASE(128, 128, true)
     REPRO_CASE(192, 128, true)
     REPRO_CASE(96, 64, true)
+    REPRO_CASE(256, 256, true)
 #undef REPRO_CASE
     return REPRO_UNSUPPORTED;
 }

@@ -89,8 +89,8 @@
 //
 // FMA body (f32, where f32 must stay f32: never TF32; and bf16 at (96,
 // 64), whose 96 is no multiple of the tensor-core body's 64-value column
-// blocks: tiles widened to f32 on load, outputs rounded once), three
-// kernels:
+// blocks, and at (256, 256): tiles widened to f32 on load, outputs rounded
+// once), three kernels:
 //
 //   flash_bwd_dot   D_i, (B, H, Sq) f32, one warp a (token, head) row;
 //   flash_bwd_dkdv  grid (64-key tile, kv head, batch row): the block holds
@@ -108,9 +108,26 @@
 //   row length so that neither the row-strided nor the column reads
 //   conflict.  It recomputes S and dP in its dQ kernel.
 //
+// At (256, 256) (recurrentgemma-2b's LOCAL_ATTN, f32 and bf16) the four
+// whole 64 x 257 f32 tiles would take 263 KB of shared memory, past the
+// 227 KB a block has: flash_bwd_dkdv_wide and flash_bwd_dq_wide hold the
+// block's own two tiles whole (K and V, or Q and dO) and take the other
+// side's in 64-dim chunks, S and dP summed over the chunks and dK, dV or dQ
+// formed a chunk of dims at a time (their 64 or 128 accumulators a thread
+// stay in registers); the other side's tiles are read twice a tile pair.
+// Each query head takes its own dK/dV block (one kv head over 4096 keys
+// gives 64 key tiles, under one block an SM without the split) and
+// flash_bwd_wide_sum adds a kv head's G f32 partials in order.  In bf16
+// the same two passes run their products on the tensor cores
+// (flash_bwd_dkdv_wide_mma, flash_bwd_dq_wide_mma: mma.sync over whole
+// bf16 tiles, P and dS in two bf16 parts; flash_attention.flash_bwd_body
+// "mma"): a wgmma body at (256, 256) would hold 128 + 128 dK and dV
+// accumulators a thread beside its ring.
+//
 // dq, dk and dv are rounded once, at the store.  (DK, DV) pairs built:
 // (64, 64), (128, 128) and (192, 128) in both bodies, (96, 64) in the FMA
-// body (f32 and bf16).
+// body (f32 and bf16), (256, 256) in the FMA body (f32) and the mma.sync
+// body (bf16).
 
 #include "common.cuh"
 
@@ -403,6 +420,579 @@ __global__ void __launch_bounds__(BWD_THREADS) flash_bwd_dq(
 #pragma unroll
         for (int j = 0; j < NK; ++j)
             dq[at + tx + 16 * j] = from_f<T>(adq[i][j]);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// the FMA body at (256, 256): the head dims in 64-wide chunks
+// ---------------------------------------------------------------------------
+constexpr int BW_DC = 64;              // head dims a chunk
+constexpr int BW_LDC = BW_DC + 1;      // its padded row
+
+template <int D>
+struct BwdWide {
+    static constexpr int LD = D + 1;
+    // the block's own two tiles whole (K and V, or Q and dO), a chunk of
+    // each of the other side's two, P and dS (or dS and a spare), lse, D
+    static constexpr size_t SMEM =
+        sizeof(float) * (2 * BWD_T * LD + 2 * BWD_T * BW_LDC
+                         + 2 * BWD_T * BWD_LDP + 2 * BWD_T);
+};
+
+// Dims [c0, c0 + 64) of rows [r0, r0 + n) of a (B, S, heads, D) tensor at
+// head ``hh`` into a 64 x 65 f32 tile, zeros past n.
+template <typename T, int D>
+__device__ __forceinline__ void load_chunk(float* dst,
+                                           const T* __restrict__ src, int b,
+                                           int S, int heads, int hh, int r0,
+                                           int n, int c0) {
+    for (int e = threadIdx.x; e < BWD_T * BW_DC; e += BWD_THREADS) {
+        const int i = e / BW_DC, d = e % BW_DC;
+        dst[i * BW_LDC + d] = i < n
+            ? to_f(src[(((size_t)b * S + r0 + i) * heads + hh) * D + c0 + d])
+            : 0.f;
+    }
+}
+
+// P and scale dS of a tile pair from the scores s and dP accumulated by
+// this thread (query rows ty + 16 i, keys tx + 16 j), as probs() forms them
+__device__ __forceinline__ void wide_probs(const float (&s)[4][4],
+                                           const float (&dp)[4][4],
+                                           const float* lse_s,
+                                           const float* dd_s, float* Ps,
+                                           float* dSs, int q0, int k0,
+                                           int Sq, int Sk, bool causal,
+                                           int window, float scale) {
+    const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int qi = ty + 16 * i, qp = q0 + qi;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int kj = tx + 16 * j, kp = k0 + kj;
+            const bool vis = qp < Sq && kp < Sk && (!causal || kp <= qp)
+                && (window <= 0 || qp - kp < window);
+            const float p = vis ? expf(s[i][j] * scale - lse_s[qi]) : 0.f;
+            if (Ps != nullptr) Ps[qi * BWD_LDP + kj] = p;
+            dSs[qi * BWD_LDP + kj] = p * (dp[i][j] - dd_s[qi]) * scale;
+        }
+    }
+}
+
+// s += A B^T over one chunk: A rows ty + 16 i of a, B rows tx + 16 j of bb
+// (row lengths lda, ldb), 64 dims from column ca of a and cb of bb
+__device__ __forceinline__ void wide_scores(float (&s)[4][4], const float* a,
+                                            int lda, int ca, const float* bb,
+                                            int ldb, int cb) {
+    const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll 4
+    for (int d = 0; d < BW_DC; ++d) {
+        float x[4], y[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            x[i] = a[(ty + 16 * i) * lda + ca + d];
+            y[i] = bb[(tx + 16 * i) * ldb + cb + d];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) s[i][j] = fmaf(x[i], y[j], s[i][j]);
+    }
+}
+
+// Row of query head hh's partial for key j of row b: the partials are laid
+// out (G, B, Sk, KV, 2 D), so a kv head's G partials of one key lie a
+// (B Sk KV) row apart for flash_bwd_wide_sum
+__device__ __forceinline__ size_t wide_part_row(int b, int j, int hh, int Sk,
+                                                int H, int KV) {
+    const int G = H / KV;
+    return ((size_t)(hh % G) * gridDim.z + b) * Sk * KV
+           + (size_t)j * KV + hh / G;
+}
+
+// One block a (key tile, query head, row): it writes the head's f32
+// partial dK and dV, and flash_bwd_wide_sum adds the kv head's G partials
+// in order.
+template <typename T, int D>
+__global__ void __launch_bounds__(BWD_THREADS) flash_bwd_dkdv_wide(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ dd,
+    float* __restrict__ part, int Sq, int Sk, int H, int KV, int causal,
+    int window, float scale) {
+    constexpr int LD = BwdWide<D>::LD, NJ = D / 16, NC = D / BW_DC;
+    const int k0 = blockIdx.x * BWD_T, b = blockIdx.z, hh = blockIdx.y;
+    const int kvh = hh / (H / KV), nk = min(BWD_T, Sk - k0);
+    extern __shared__ float sm[];
+    float* Ks = sm;
+    float* Vs = Ks + BWD_T * LD;
+    float* Qc = Vs + BWD_T * LD;
+    float* dOc = Qc + BWD_T * BW_LDC;
+    float* Ps = dOc + BWD_T * BW_LDC;
+    float* dSs = Ps + BWD_T * BWD_LDP;
+    float* lse_s = dSs + BWD_T * BWD_LDP;
+    float* dd_s = lse_s + BWD_T;
+    load_tile<T, D>(Ks, k, b, Sk, KV, kvh, k0, nk);
+    load_tile<T, D>(Vs, v, b, Sk, KV, kvh, k0, nk);
+    const int q_lo = causal ? k0 : 0;
+    const int q_end = window > 0 ? min(Sq, k0 + nk - 1 + window) : Sq;
+    const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+    float adk[4][NJ], adv[4][NJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) adk[i][j] = adv[i][j] = 0.f;
+
+    for (int q0 = q_lo / BWD_T * BWD_T; q0 < q_end; q0 += BWD_T) {
+        const int nq = min(BWD_T, Sq - q0);
+        float s[4][4], dp[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+        for (int c = 0; c < NC; ++c) {
+            __syncthreads();       // the chunks and rows consumed
+            if (c == 0)
+                load_rows(lse_s, dd_s, lse, dd,
+                          ((size_t)b * H + hh) * Sq + q0, nq);
+            load_chunk<T, D>(Qc, q, b, Sq, H, hh, q0, nq, c * BW_DC);
+            load_chunk<T, D>(dOc, dout, b, Sq, H, hh, q0, nq, c * BW_DC);
+            __syncthreads();
+            wide_scores(s, Qc, BW_LDC, 0, Ks, LD, c * BW_DC);
+            wide_scores(dp, dOc, BW_LDC, 0, Vs, LD, c * BW_DC);
+        }
+        wide_probs(s, dp, lse_s, dd_s, Ps, dSs, q0, k0, Sq, Sk,
+                   causal != 0, window, scale);
+        // dV += P^T dO, dK += dS^T Q a chunk of dims at a time: keys
+        // ty + 16 i, dims 64 c + tx + 16 jj
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+            __syncthreads();       // P and dS written, Qc free
+            load_chunk<T, D>(Qc, q, b, Sq, H, hh, q0, nq, c * BW_DC);
+            load_chunk<T, D>(dOc, dout, b, Sq, H, hh, q0, nq, c * BW_DC);
+            __syncthreads();
+            for (int qi = 0; qi < nq; ++qi) {
+                float p[4], ds[4], o[4], a[4];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    p[i] = Ps[qi * BWD_LDP + ty + 16 * i];
+                    ds[i] = dSs[qi * BWD_LDP + ty + 16 * i];
+                    o[i] = dOc[qi * BW_LDC + tx + 16 * i];
+                    a[i] = Qc[qi * BW_LDC + tx + 16 * i];
+                }
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+#pragma unroll
+                    for (int jj = 0; jj < 4; ++jj) {
+                        adv[i][4 * c + jj] =
+                            fmaf(p[i], o[jj], adv[i][4 * c + jj]);
+                        adk[i][4 * c + jj] =
+                            fmaf(ds[i], a[jj], adk[i][4 * c + jj]);
+                    }
+            }
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int kj = ty + 16 * i;
+        if (kj >= nk) continue;
+        // the head's f32 partials, dK then dV
+        float* pp = part + wide_part_row(b, k0 + kj, hh, Sk, H, KV) * 2 * D;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+            pp[tx + 16 * j] = adk[i][j];
+            pp[D + tx + 16 * j] = adv[i][j];
+        }
+    }
+}
+
+// dK and dV from the query heads' f32 partials, a kv head's G summed in
+// head order and rounded once: one thread a value of the (rows = B Sk KV,
+// 2 D) outputs, the partials (G, rows, 2 D)
+template <typename T, int D>
+__global__ void __launch_bounds__(BWD_THREADS) flash_bwd_wide_sum(
+    const float* __restrict__ part, T* __restrict__ dk, T* __restrict__ dv,
+    size_t rows, int G) {
+    const size_t i = (size_t)blockIdx.x * BWD_THREADS + threadIdx.x;
+    if (i >= rows * 2 * D) return;
+    float acc = 0.f;
+    for (int g = 0; g < G; ++g) acc += part[g * rows * 2 * D + i];
+    const size_t row = i / (2 * D);
+    const int d = (int)(i % (2 * D));
+    if (d < D) dk[row * D + d] = from_f<T>(acc);
+    else dv[row * D + d - D] = from_f<T>(acc);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(BWD_THREADS) flash_bwd_dq_wide(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ dd,
+    T* __restrict__ dq, int Sq, int Sk, int H, int KV, int causal,
+    int window, float scale) {
+    constexpr int LD = BwdWide<D>::LD, NJ = D / 16, NC = D / BW_DC;
+    const int q0 = (gridDim.x - 1 - blockIdx.x) * BWD_T;
+    const int hh = blockIdx.y, b = blockIdx.z;
+    const int kvh = hh / (H / KV), nq = min(BWD_T, Sq - q0);
+    extern __shared__ float sm[];
+    float* Qs = sm;
+    float* dOs = Qs + BWD_T * LD;
+    float* Kc = dOs + BWD_T * LD;
+    float* Vc = Kc + BWD_T * BW_LDC;
+    float* dSs = Vc + BWD_T * BW_LDC;
+    float* lse_s = dSs + 2 * BWD_T * BWD_LDP;
+    float* dd_s = lse_s + BWD_T;
+    load_tile<T, D>(Qs, q, b, Sq, H, hh, q0, nq);
+    load_tile<T, D>(dOs, dout, b, Sq, H, hh, q0, nq);
+    load_rows(lse_s, dd_s, lse, dd, ((size_t)b * H + hh) * Sq + q0, nq);
+    const int k_end = causal ? min(Sk, q0 + nq) : Sk;
+    const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+    const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+    float adq[4][NJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) adq[i][j] = 0.f;
+
+    for (int k0 = k_lo / BWD_T * BWD_T; k0 < k_end; k0 += BWD_T) {
+        const int nk = min(BWD_T, Sk - k0);
+        float s[4][4], dp[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+        for (int c = 0; c < NC; ++c) {
+            __syncthreads();           // the chunks consumed
+            load_chunk<T, D>(Kc, k, b, Sk, KV, kvh, k0, nk, c * BW_DC);
+            load_chunk<T, D>(Vc, v, b, Sk, KV, kvh, k0, nk, c * BW_DC);
+            __syncthreads();
+            wide_scores(s, Qs, LD, c * BW_DC, Kc, BW_LDC, 0);
+            wide_scores(dp, dOs, LD, c * BW_DC, Vc, BW_LDC, 0);
+        }
+        wide_probs(s, dp, lse_s, dd_s, nullptr, dSs, q0, k0, Sq, Sk,
+                   causal != 0, window, scale);
+        // dQ += dS K a chunk of dims at a time: query rows ty + 16 i, dims
+        // 64 c + tx + 16 jj
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+            __syncthreads();           // dS written, Kc free
+            load_chunk<T, D>(Kc, k, b, Sk, KV, kvh, k0, nk, c * BW_DC);
+            __syncthreads();
+            for (int kj = 0; kj < nk; ++kj) {
+                float ds[4], kk[4];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    ds[i] = dSs[(ty + 16 * i) * BWD_LDP + kj];
+                    kk[i] = Kc[kj * BW_LDC + tx + 16 * i];
+                }
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+#pragma unroll
+                    for (int jj = 0; jj < 4; ++jj)
+                        adq[i][4 * c + jj] =
+                            fmaf(ds[i], kk[jj], adq[i][4 * c + jj]);
+            }
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int qi = ty + 16 * i;
+        if (qi >= nq) continue;
+        const size_t at = (((size_t)b * Sq + q0 + qi) * H + hh) * D;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+            dq[at + tx + 16 * j] = from_f<T>(adq[i][j]);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// (256, 256) in bf16 on the tensor cores: the wide body's two passes with
+// every product on mma.sync m16n8k16
+// ---------------------------------------------------------------------------
+// The same split of the work as flash_bwd_dkdv_wide / flash_bwd_dq_wide,
+// the tiles held in bf16 (the inputs' own values) so that all four 64 x
+// 256 tiles of a tile pair fit in shared memory whole.  Per tile pair,
+// each of the 8 warps takes 16 rows and half the columns of S^T and dP^T
+// (or S and dP) over the head dims, forms P and dS on its registers and
+// stores them in two bf16 parts (hi = bf16(x), lo = bf16(x - hi): ~16
+// bits, as the fused wgmma body's); then 16 rows and half the head dims of
+// dV and dK (or dQ).  Each tile pair's product starts from zero and is
+// added into the running sums on the CUDA cores, half a warp's columns at
+// a time: the tensor cores' f32 accumulation does not round to nearest,
+// and chained over a row's tiles it drifts (PERF.md section 6).
+constexpr int WM_D = 256, WM_LD = WM_D + 8;   // bf16 rows, skewed 16 bytes
+constexpr int WM_LDP = BWD_T + 8;             // P / dS rows of 64 values
+
+struct WmShape {    // byte offsets into dynamic shared memory
+    static constexpr size_t TILE = BWD_T * WM_LD * 2;       // a 64 x 256 tile
+    static constexpr size_t PART = BWD_T * WM_LDP * 2;      // one P/dS part
+    static constexpr size_t T0 = 0, T1 = TILE, T2 = 2 * TILE, T3 = 3 * TILE;
+    static constexpr size_t PS = 4 * TILE;                   // 4 parts
+    static constexpr size_t ROWS = PS + 4 * PART;            // lse, D
+    static constexpr size_t BYTES = ROWS + 2 * BWD_T * 4;
+};
+
+// rows [r0, r0 + n) of a (B, S, heads, 256) bf16 tensor at head hh into a
+// [64][WM_LD] tile, zeros past n, 16 bytes a copy
+__device__ __forceinline__ void wm_rows(__nv_bfloat16* dst,
+                                        const __nv_bfloat16* src, int b,
+                                        int S, int heads, int hh, int r0,
+                                        int n) {
+    for (int e = threadIdx.x; e < BWD_T * WM_D / 8; e += BWD_THREADS) {
+        const int i = e / (WM_D / 8), c = e % (WM_D / 8);
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (i < n)
+            v = *reinterpret_cast<const uint4*>(
+                src + (((size_t)b * S + r0 + i) * heads + hh) * WM_D + c * 8);
+        *reinterpret_cast<uint4*>(dst + i * WM_LD + c * 8) = v;
+    }
+}
+
+// acc[4 .. ] (16 rows x 32 columns: four n8 tiles) = A B^T over the 256 head
+// dims: A rows m0 .. of a[row][d], B rows n0 .. of b[col][d]
+__device__ __forceinline__ void wm_scores(float (&acc)[4][4],
+                                          const __nv_bfloat16* a, int m0,
+                                          const __nv_bfloat16* b, int n0) {
+    const int lane = threadIdx.x % 32;
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+#pragma unroll 4
+    for (int ks = 0; ks < WM_D / 16; ++ks) {
+        uint32_t af[4];
+        ldsm_x4<false>(af, a + (m0 + lane % 16) * WM_LD + 16 * ks
+                             + (lane / 16) * 8);
+#pragma unroll
+        for (int pr = 0; pr < 2; ++pr) {
+            uint32_t bf4[4];
+            ldsm_x4<false>(bf4, b + (n0 + 16 * pr + lane % 8 + (lane / 16) * 8)
+                                      * WM_LD + 16 * ks + ((lane / 8) % 2) * 8);
+            mma_bf16(acc[2 * pr], af, bf4[0], bf4[1]);
+            mma_bf16(acc[2 * pr + 1], af, bf4[2], bf4[3]);
+        }
+    }
+}
+
+// sum[16 .. ] (16 rows x 128 columns d0 ..) += (hi + lo)[rows m0 .., 64 k]
+// b[k][d0 ..], a tile's product from zero, added on the CUDA cores half at
+// a time
+__device__ __forceinline__ void wm_accumulate(float (&sum)[16][4],
+                                              const __nv_bfloat16* hi,
+                                              const __nv_bfloat16* lo,
+                                              int m0, const __nv_bfloat16* b,
+                                              int d0) {
+    const int lane = threadIdx.x % 32;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+        float acc[8][4];
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < BWD_T / 16; ++ks) {
+            uint32_t ah[4], al[4];
+            const int off = (m0 + lane % 16) * WM_LDP + 16 * ks
+                + (lane / 16) * 8;
+            ldsm_x4<false>(ah, hi + off);
+            ldsm_x4<false>(al, lo + off);
+#pragma unroll
+            for (int pr = 0; pr < 4; ++pr) {
+                uint32_t bf4[4];
+                ldsm_x4<true>(bf4, b + (16 * ks + lane % 8 + ((lane / 8) % 2)
+                                        * 8) * WM_LD
+                                   + d0 + 64 * half + 16 * pr
+                                   + (lane / 16) * 8);
+                mma_bf16(acc[2 * pr], ah, bf4[0], bf4[1]);
+                mma_bf16(acc[2 * pr + 1], ah, bf4[2], bf4[3]);
+                mma_bf16(acc[2 * pr], al, bf4[0], bf4[1]);
+                mma_bf16(acc[2 * pr + 1], al, bf4[2], bf4[3]);
+            }
+        }
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sum[8 * half + t][e] += acc[t][e];
+    }
+}
+
+// P and scale dS of one warp's 16 x 32 corner of a tile pair from its S
+// and dP, as two bf16 parts into hi/lo tiles [row][col]; ``keys_rows``:
+// rows are keys (S^T: the dK/dV pass), else queries
+__device__ __forceinline__ void wm_probs(const float (&st)[4][4],
+                                         const float (&dp)[4][4],
+                                         bool keys_rows, int r0, int c0,
+                                         int q0, int k0, const float* lse_s,
+                                         const float* dd_s, int Sq, int Sk,
+                                         bool causal, int window, float scale,
+                                         __nv_bfloat16* p_hi,
+                                         __nv_bfloat16* p_lo,
+                                         __nv_bfloat16* s_hi,
+                                         __nv_bfloat16* s_lo) {
+    const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            float p[2], ds[2];
+            const int r = r0 + g + 8 * i;
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+                const int cc = c0 + 8 * t + 2 * t4 + u;
+                const int qi = keys_rows ? cc : r, kj = keys_rows ? r : cc;
+                const int qp = q0 + qi, kp = k0 + kj;
+                const bool vis = qp < Sq && kp < Sk && (!causal || kp <= qp)
+                    && (window <= 0 || qp - kp < window);
+                const float v = st[t][2 * i + u], w = dp[t][2 * i + u];
+                p[u] = vis ? expf(v * scale - lse_s[qi]) : 0.f;
+                ds[u] = p[u] * (w - dd_s[qi]) * scale;
+            }
+            const int off = r * WM_LDP + c0 + 8 * t + 2 * t4;
+            uint32_t hi, lo;
+            if (p_hi != nullptr) {
+                split2_bf16(p[0], p[1], hi, lo);
+                *reinterpret_cast<uint32_t*>(p_hi + off) = hi;
+                *reinterpret_cast<uint32_t*>(p_lo + off) = lo;
+            }
+            split2_bf16(ds[0], ds[1], hi, lo);
+            *reinterpret_cast<uint32_t*>(s_hi + off) = hi;
+            *reinterpret_cast<uint32_t*>(s_lo + off) = lo;
+        }
+}
+
+__global__ void __launch_bounds__(BWD_THREADS, 1) flash_bwd_dkdv_wide_mma(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v,
+    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ dd, float* __restrict__ part, int Sq, int Sk,
+    int H, int KV, int causal, int window, float scale) {
+    using bf = __nv_bfloat16;
+    using L = WmShape;
+    constexpr int D = WM_D;
+    const int k0 = blockIdx.x * BWD_T, b = blockIdx.z, hh = blockIdx.y;
+    const int kvh = hh / (H / KV), nk = min(BWD_T, Sk - k0);
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int mt = warp % 4, hw = warp / 4;          // 16 rows, a half
+    extern __shared__ __align__(16) unsigned char wm_raw[];
+    bf* Ks = reinterpret_cast<bf*>(wm_raw + L::T0);
+    bf* Vs = reinterpret_cast<bf*>(wm_raw + L::T1);
+    bf* Qs = reinterpret_cast<bf*>(wm_raw + L::T2);
+    bf* Os = reinterpret_cast<bf*>(wm_raw + L::T3);
+    bf* ps = reinterpret_cast<bf*>(wm_raw + L::PS);
+    bf *p_hi = ps, *p_lo = ps + BWD_T * WM_LDP,
+       *s_hi = ps + 2 * BWD_T * WM_LDP, *s_lo = ps + 3 * BWD_T * WM_LDP;
+    float* lse_s = reinterpret_cast<float*>(wm_raw + L::ROWS);
+    float* dd_s = lse_s + BWD_T;
+    wm_rows(Ks, k, b, Sk, KV, kvh, k0, nk);
+    wm_rows(Vs, v, b, Sk, KV, kvh, k0, nk);
+    const int q_lo = causal ? k0 : 0;
+    const int q_end = window > 0 ? min(Sq, k0 + nk - 1 + window) : Sq;
+    float adk[16][4], adv[16][4];
+#pragma unroll
+    for (int t = 0; t < 16; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) adk[t][e] = adv[t][e] = 0.f;
+
+    for (int q0 = q_lo / BWD_T * BWD_T; q0 < q_end; q0 += BWD_T) {
+        const int nq = min(BWD_T, Sq - q0);
+        __syncthreads();           // the last tiles and parts consumed
+        wm_rows(Qs, q, b, Sq, H, hh, q0, nq);
+        wm_rows(Os, dout, b, Sq, H, hh, q0, nq);
+        load_rows(lse_s, dd_s, lse, dd, ((size_t)b * H + hh) * Sq + q0, nq);
+        __syncthreads();
+        // S^T = K Q^T, dP^T = V dO^T: keys 16 mt, queries 32 hw
+        float st[4][4], dpt[4][4];
+        wm_scores(st, Ks, 16 * mt, Qs, 32 * hw);
+        wm_scores(dpt, Vs, 16 * mt, Os, 32 * hw);
+        wm_probs(st, dpt, true, 16 * mt, 32 * hw, q0, k0, lse_s, dd_s,
+                 Sq, Sk, causal != 0, window, scale, p_hi, p_lo, s_hi,
+                 s_lo);
+        __syncthreads();
+        // dV += P^T dO, dK += dS^T Q: keys 16 mt, head dims 128 hw
+        wm_accumulate(adv, p_hi, p_lo, 16 * mt, Os, 128 * hw);
+        wm_accumulate(adk, s_hi, s_lo, 16 * mt, Qs, 128 * hw);
+    }
+    const int g = lane / 4, t4 = lane % 4;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int kj = 16 * mt + g + 8 * i;
+        if (kj >= nk) continue;
+        float* pp = part + wide_part_row(b, k0 + kj, hh, Sk, H, KV) * 2 * D;
+#pragma unroll
+        for (int t = 0; t < 16; ++t) {
+            const int d = 128 * hw + 8 * t + 2 * t4;
+            *reinterpret_cast<float2*>(pp + d) =
+                make_float2(adk[t][2 * i], adk[t][2 * i + 1]);
+            *reinterpret_cast<float2*>(pp + D + d) =
+                make_float2(adv[t][2 * i], adv[t][2 * i + 1]);
+        }
+    }
+}
+
+__global__ void __launch_bounds__(BWD_THREADS, 1) flash_bwd_dq_wide_mma(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v,
+    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ dd, __nv_bfloat16* __restrict__ dq, int Sq,
+    int Sk, int H, int KV, int causal, int window, float scale) {
+    using bf = __nv_bfloat16;
+    using L = WmShape;
+    constexpr int D = WM_D;
+    const int q0 = (gridDim.x - 1 - blockIdx.x) * BWD_T;
+    const int hh = blockIdx.y, b = blockIdx.z;
+    const int kvh = hh / (H / KV), nq = min(BWD_T, Sq - q0);
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int mt = warp % 4, hw = warp / 4;
+    extern __shared__ __align__(16) unsigned char wm_raw[];
+    bf* Qs = reinterpret_cast<bf*>(wm_raw + L::T0);
+    bf* Os = reinterpret_cast<bf*>(wm_raw + L::T1);
+    bf* Ks = reinterpret_cast<bf*>(wm_raw + L::T2);
+    bf* Vs = reinterpret_cast<bf*>(wm_raw + L::T3);
+    bf* ps = reinterpret_cast<bf*>(wm_raw + L::PS);
+    bf *s_hi = ps, *s_lo = ps + BWD_T * WM_LDP;
+    float* lse_s = reinterpret_cast<float*>(wm_raw + L::ROWS);
+    float* dd_s = lse_s + BWD_T;
+    wm_rows(Qs, q, b, Sq, H, hh, q0, nq);
+    wm_rows(Os, dout, b, Sq, H, hh, q0, nq);
+    load_rows(lse_s, dd_s, lse, dd, ((size_t)b * H + hh) * Sq + q0, nq);
+    const int k_end = causal ? min(Sk, q0 + nq) : Sk;
+    const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+    float adq[16][4];
+#pragma unroll
+    for (int t = 0; t < 16; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) adq[t][e] = 0.f;
+
+    for (int k0 = k_lo / BWD_T * BWD_T; k0 < k_end; k0 += BWD_T) {
+        const int nk = min(BWD_T, Sk - k0);
+        __syncthreads();               // the last tiles and parts consumed
+        wm_rows(Ks, k, b, Sk, KV, kvh, k0, nk);
+        wm_rows(Vs, v, b, Sk, KV, kvh, k0, nk);
+        __syncthreads();
+        // S = Q K^T, dP = dO V^T: queries 16 mt, keys 32 hw
+        float sc[4][4], dp[4][4];
+        wm_scores(sc, Qs, 16 * mt, Ks, 32 * hw);
+        wm_scores(dp, Os, 16 * mt, Vs, 32 * hw);
+        wm_probs(sc, dp, false, 16 * mt, 32 * hw, q0, k0, lse_s, dd_s, Sq,
+                 Sk, causal != 0, window, scale, nullptr, nullptr, s_hi,
+                 s_lo);
+        __syncthreads();
+        // dQ += dS K: queries 16 mt, head dims 128 hw
+        wm_accumulate(adq, s_hi, s_lo, 16 * mt, Ks, 128 * hw);
+    }
+    const int g = lane / 4, t4 = lane % 4;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int qi = 16 * mt + g + 8 * i;
+        if (qi >= nq) continue;
+        const size_t at = (((size_t)b * Sq + q0 + qi) * H + hh) * D;
+#pragma unroll
+        for (int t = 0; t < 16; ++t) {
+            const int d = 128 * hw + 8 * t + 2 * t4;
+            *reinterpret_cast<__nv_bfloat162*>(dq + at + d) =
+                __floats2bfloat162_rn(adq[t][2 * i], adq[t][2 * i + 1]);
+        }
     }
 }
 
@@ -1210,6 +1800,73 @@ int launch_wgmma(const void* q, const void* k, const void* v,
     return (int)cudaGetLastError();
 }
 
+// The (256, 256) backward: the row dots, the dK/dV pass (a block a query
+// head) and its partials' sum, the dQ pass; on FMAs (either type) or, mma, on the
+// tensor cores (bf16)
+template <typename T, int D>
+int launch_wide(const void* q, const void* k, const void* v,
+                const void* out, const void* dout, const float* lse,
+                float* dd, void* dq, void* dk, void* dv, int B, int Sq,
+                int Sk, int H, int KV, int causal, int window, float scale,
+                bool mma, cudaStream_t stream) {
+    using cT = const T*;
+    const int rows = B * Sq * H;
+    flash_bwd_dot<T, D><<<(rows + BWD_THREADS / 32 - 1) / (BWD_THREADS / 32),
+                          BWD_THREADS, 0, stream>>>((cT)out, (cT)dout, dd,
+                                                    rows, Sq, H);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    // after the row dots, on a 16-byte boundary (the float2 stores)
+    float* part = dd + ((size_t)B * H * Sq + 3) / 4 * 4;
+    const dim3 kv_grid((Sk + BWD_T - 1) / BWD_T, H, B);
+    const dim3 q_grid((Sq + BWD_T - 1) / BWD_T, H, B);
+    if constexpr (sizeof(T) == 2 && D == WM_D) {
+        if (mma) {
+            err = reserve_smem(flash_bwd_dkdv_wide_mma, WmShape::BYTES);
+            if (err == cudaSuccess)
+                err = reserve_smem(flash_bwd_dq_wide_mma, WmShape::BYTES);
+            if (err != cudaSuccess) return (int)err;
+            flash_bwd_dkdv_wide_mma<<<kv_grid, BWD_THREADS, WmShape::BYTES,
+                                      stream>>>(
+                (cT)q, (cT)k, (cT)v, (cT)dout, lse, dd, part, Sq, Sk, H, KV,
+                causal, window, scale);
+        }
+    }
+    if (!mma) {
+        constexpr size_t SMEM = BwdWide<D>::SMEM;
+        auto dkdv = flash_bwd_dkdv_wide<T, D>;
+        err = reserve_smem(dkdv, SMEM);
+        if (err == cudaSuccess) err = reserve_smem(flash_bwd_dq_wide<T, D>,
+                                                   SMEM);
+        if (err != cudaSuccess) return (int)err;
+        dkdv<<<kv_grid, BWD_THREADS, SMEM, stream>>>(
+            (cT)q, (cT)k, (cT)v, (cT)dout, lse, dd, part, Sq, Sk, H, KV,
+            causal, window, scale);
+    }
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const size_t kv_rows = (size_t)B * Sk * KV;
+    flash_bwd_wide_sum<T, D><<<(unsigned)((kv_rows * 2 * D + BWD_THREADS - 1)
+                                         / BWD_THREADS),
+                               BWD_THREADS, 0, stream>>>(
+        part, (T*)dk, (T*)dv, kv_rows, H / KV);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    if constexpr (sizeof(T) == 2 && D == WM_D) {
+        if (mma)
+            flash_bwd_dq_wide_mma<<<q_grid, BWD_THREADS, WmShape::BYTES,
+                                    stream>>>(
+                (cT)q, (cT)k, (cT)v, (cT)dout, lse, dd, (T*)dq, Sq, Sk, H, KV,
+                causal, window, scale);
+    }
+    if (!mma)
+        flash_bwd_dq_wide<T, D><<<q_grid, BWD_THREADS, BwdWide<D>::SMEM,
+                                  stream>>>(
+            (cT)q, (cT)k, (cT)v, (cT)dout, lse, dd, (T*)dq, Sq, Sk, H, KV,
+            causal, window, scale);
+    return (int)cudaGetLastError();
+}
+
 template <typename T, int DK, int DV>
 int launch_fma(const void* q, const void* k, const void* v, const void* out,
                const void* dout, const float* lse, float* dd, void* dq,
@@ -1245,10 +1902,13 @@ int launch_fma(const void* q, const void* k, const void* v, const void* out,
 // Sq, H, DV), lse (B, H, Sq) f32 from the forward; dq, dk, dv shaped like
 // q, k, v; all contiguous on one device.  ws: f32 workspace, the tensor-core
 // body's B H ceil(Sq / 64) 128 row values then B Sq H DK dQ sums, the FMA
-// body's B H Sq row dots (flash_attention.flash_bwd_workspace).  window <= 0
+// body's B H Sq row dots, at (256, 256) padded to a multiple of 4 and
+// then G x B Sk KV 2 DK partial dK and dV
+// (flash_attention.flash_bwd_workspace).  window <= 0
 // means none; queries at positions [0, Sq).  body: 0 the FMA body (f32), 1
 // the tensor-core body (bf16 at fb_pair (DK, DV), q, k, v and dout 16-byte
-// aligned), as flash_attention.flash_bwd_body chooses.  Launches the
+// aligned), 2 the mma.sync body (bf16 at (256, 256), 16-byte aligned), as
+// flash_attention.flash_bwd_body chooses.  Launches the
 // body's three kernels on ``stream`` and returns the first
 // cudaGetLastError() that is not cudaSuccess, or REPRO_UNSUPPORTED for what
 // the body does not take.
@@ -1277,6 +1937,14 @@ extern "C" int flash_attention_bwd_launch(
 #undef REPRO_CASE
         return REPRO_UNSUPPORTED;
     }
+    if (body == 2) {
+        if (dtype != REPRO_BF16 || DK != WM_D || DV != WM_D
+            || ((size_t)q | (size_t)k | (size_t)v | (size_t)dout) % 16 != 0)
+            return REPRO_UNSUPPORTED;
+        return launch_wide<__nv_bfloat16, WM_D>(
+            q, k, v, out, dout, lse_f, ws_f, dq, dk, dv, B, Sq, Sk, H, KV,
+            causal, window, scale, true, st);
+    }
     if (body != 0) return REPRO_UNSUPPORTED;
 #define REPRO_CASE(T, CODE, DIMK, DIMV)                                      \
     if (dtype == CODE && DK == DIMK && DV == DIMV)                           \
@@ -1288,6 +1956,14 @@ extern "C" int flash_attention_bwd_launch(
     REPRO_CASE(float, REPRO_F32, 192, 128)
     REPRO_CASE(float, REPRO_F32, 96, 64)
     REPRO_CASE(__nv_bfloat16, REPRO_BF16, 96, 64)
+#undef REPRO_CASE
+#define REPRO_CASE(T, CODE)                                                  \
+    if (dtype == CODE && DK == 256 && DV == 256)                             \
+        return launch_wide<T, 256>(q, k, v, out, dout, lse_f, ws_f, dq, dk,  \
+                                   dv, B, Sq, Sk, H, KV, causal, window,     \
+                                   scale, false, st);
+    REPRO_CASE(float, REPRO_F32)
+    REPRO_CASE(__nv_bfloat16, REPRO_BF16)
 #undef REPRO_CASE
     return REPRO_UNSUPPORTED;
 }

@@ -94,28 +94,6 @@ __device__ __forceinline__ void rg_load(T (&x)[RG_L], T (&ig)[RG_L],
     }
 }
 
-// a_t and beta_t of one step from x = log_at = c log_a a_gate (<= 0).
-// f32 (the token identity runs) takes the library's expf, expm1f and
-// sqrtf.  bf16, whose h rounds to 8 bits, takes them branch-free, so the
-// compiler interleaves the steps: e = expm1(x) by its Taylor polynomial to
-// x^7 above -0.35 (error below 2^-25 of e there) and exp(x) - 1 by ex2.approx
-// below (|e| > 0.29, so no cancellation), a_t = 1 + e and beta =
-// sqrt(-e (2 + e)) = sqrt(1 - a_t^2) by sqrt.approx.  x = -0 (padding)
-// gives e = -0, a_t = 1 and beta = 0 in both.
-template <typename T>
-__device__ __forceinline__ void rg_gates(float x, float& a_t, float& beta) {
-    if constexpr (sizeof(T) == 4) {
-        a_t = expf(x);
-        beta = sqrtf(-expm1f(2.f * x));
-    } else {
-        const float p = x * (1.f + x * (0.5f + x * (1.f / 6 + x * (1.f / 24
-            + x * (1.f / 120 + x * (1.f / 720 + x * (1.f / 5040)))))));
-        const float e = x > -0.35f ? p : __expf(x) - 1.f;
-        a_t = 1.f + e;
-        asm("sqrt.approx.f32 %0, %1;" : "=f"(beta) : "f"(-e * (2.f + e)));
-    }
-}
-
 template <typename T, typename S0>
 __global__ void __launch_bounds__(RG_THREADS) rglru_scan_kernel(
     const T* __restrict__ x, const T* __restrict__ ig,

@@ -30,8 +30,10 @@ launch.  :func:`flash_bwd_body` picks its body from the dtype and head
 dims before the launch: one fused wgmma pass for bf16 (dq through an f32
 workspace filled by atomics, so bf16 dq may differ by one rounding between
 runs; dk and dv replay bit for bit; at (192, 128) the warpgroups split the
-columns instead of the keys), the FMA body for f32 and for bf16 at (96,
-64).  On CPU tensors
+columns instead of the keys), at (256, 256) a body whose products run on
+mma.sync over whole bf16 tiles, the FMA body for f32 (at (256, 256) with
+the head dims in 64-wide chunks) and for bf16 at (96, 64).  On CPU
+tensors
 the same Function runs the plain forward and
 :func:`flash_attention_bwd_ref`.  ``flash_attention_bwd.launches`` counts
 backward calls (each launches its body's three kernels).
@@ -55,36 +57,47 @@ QOffset = Union[int, torch.Tensor]
 DIM_PAIRS = SAME_DIMS + ((192, 128), (96, 64))
 # (Dk, Dv) pairs the backward is built for: qwen2's heads, the 128-wide
 # heads of phi4-mini, llama3-8b and granite, deepseek-v2-lite's MLA heads
-# and those of its reduced config
-BWD_PAIRS = ((64, 64), (128, 128), (192, 128), (96, 64))
+# and those of its reduced config, and recurrentgemma-2b's 256-wide heads
+BWD_PAIRS = ((64, 64), (128, 128), (192, 128), (96, 64), (256, 256))
 # the pairs of the tensor-core body (fb_pair in csrc/flash_attention_bwd.cu);
 # 96 is no multiple of its 64-value column blocks
 WGMMA_PAIRS = ((64, 64), (128, 128), (192, 128))
 BWD_QT = 64                  # query rows of a tile of the tensor-core body
-BWD_BODIES = {"fma": 0, "wgmma": 1}   # the launcher's body codes
+BWD_BODIES = {"fma": 0, "wgmma": 1, "mma": 2}   # the launcher's body codes
 
 
 def flash_bwd_body(dtype, dk: int, dv: int) -> str:
     """Which body of the backward a launch runs, from the dtype and head
     dims alone and before the launch: "wgmma" (one fused pass on the
-    tensor cores) for bf16 at :data:`WGMMA_PAIRS`, else "fma" (FMAs in
-    float32, never TF32: the f32 identity runs must stay f32; bf16 at (96,
-    64) widened to f32 on load).  Never a choice made after a failure: a
+    tensor cores) for bf16 at :data:`WGMMA_PAIRS`; "mma" for bf16 at
+    (256, 256) (the head dims in whole bf16 tiles, every product on
+    mma.sync: no wgmma body fits its 128 dK and dV accumulators a thread);
+    else "fma" (FMAs in float32, never TF32: the f32 identity runs must
+    stay f32; bf16 at (96, 64) widened to f32 on load).  Never a choice
+    made after a failure: a
     launch that fails raises."""
     if dtype == torch.bfloat16 and (dk, dv) in WGMMA_PAIRS:
         return "wgmma"
+    if dtype == torch.bfloat16 and (dk, dv) == (256, 256):
+        return "mma"
     return "fma"
 
 
-def flash_bwd_workspace(body: str, B: int, Sq: int, H: int,
-                        dk: int) -> int:
+def flash_bwd_workspace(body: str, B: int, Sq: int, H: int, dk: int,
+                        Sk: int = 0, KV: int = 1) -> int:
     """f32 values of the backward's workspace: for "wgmma" each (row,
     head, 64-row query tile)'s lse and row dot D (2 x 64 values, padded
-    rows included), then the (B, Sq, H, Dk) f32 dQ sums; for "fma" the (B,
-    H, Sq) row dots."""
+    rows included), then the (B, Sq, H, Dk) f32 dQ sums; for "fma" and
+    "mma" the (B, H, Sq) row dots, and at Dk = 256 these padded to a
+    multiple of 4 (16 bytes) and then each query head's (B, Sk, KV, 2 x
+    256) partial dK and dV (the (256, 256) bodies give every query head
+    its own dK/dV block, and a second kernel sums a kv head's G partials
+    in order)."""
     if body == "wgmma":
         return B * H * -(-Sq // BWD_QT) * 2 * BWD_QT + B * Sq * H * dk
-    return B * H * Sq
+    if dk != 256:
+        return B * H * Sq
+    return -(-B * H * Sq // 4) * 4 + H * B * Sk * 2 * dk
 
 
 def _masked_scores(q, k, *, causal, window, q_offset, scale):
@@ -181,8 +194,8 @@ def _bwd_lib():
     lib = build.load("flash_attention_bwd")
     fn = lib.flash_attention_bwd_launch
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -212,9 +225,7 @@ def _grad_problems(q, v, q_offset):
     dims = (q.shape[-1], v.shape[-1])
     if dims not in BWD_PAIRS:
         problems.append(f"head dims (Dk, Dv) = {dims}: the backward is built "
-                        f"for {BWD_PAIRS} ((256, 256), windowed, is queued "
-                        "with recurrentgemma's training, ROADMAP.md 2.9a "
-                        "and 1.5)")
+                        f"for {BWD_PAIRS}")
     return problems
 
 
@@ -332,12 +343,13 @@ def _bwd_check(q, k, v, o, lse, do):
             or lse.device != q.device:
         problems.append(f"lse {tuple(lse.shape)} {lse.dtype}: need "
                         f"({B}, {H}, {Sq}) float32 on {q.device}")
-    if flash_bwd_body(q.dtype, D, v.shape[-1]) == "wgmma":
+    if flash_bwd_body(q.dtype, D, v.shape[-1]) in ("wgmma", "mma"):
         for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
             if t.data_ptr() % 16 or not t.is_contiguous():
                 problems.append(f"{name} at {t.data_ptr() % 16} bytes past "
                                 "a 16-byte boundary or not contiguous: the "
-                                "tensor-core body loads its tiles by TMA")
+                                "tensor-core bodies load their tiles in "
+                                "16-byte pieces")
     raise_problems("flash_attention_bwd", problems)
 
 
@@ -370,7 +382,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     scale = scale if scale is not None else D ** -0.5
     body = flash_bwd_body(q.dtype, D, Dv)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    ws = torch.empty(flash_bwd_workspace(body, B, Sq, H, D),
+    ws = torch.empty(flash_bwd_workspace(body, B, Sq, H, D, Sk, KV),
                      dtype=torch.float32, device=q.device)
     rc = _bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                     do.data_ptr(), lse.data_ptr(), ws.data_ptr(),

@@ -17,8 +17,10 @@ Two work definitions, both computed from the same ``lengths`` /
 work of the two MoE/MLA kernels the same way: the keys below each row's
 length, the rows each expert takes, nothing for an empty expert;
 :func:`ssd_scan_cost` counts the SSD scan's causal pairs per chunk, and
-:func:`rglru_scan_cost` the RG-LRU recurrence's elements, and
-:func:`flash_attention_bwd_cost` the flash backward's visible pairs.
+:func:`rglru_scan_cost` the RG-LRU recurrence's elements,
+:func:`flash_attention_bwd_cost` the flash backward's visible pairs, and
+:func:`ssd_scan_bwd_cost` and :func:`rglru_scan_bwd_cost` the two scans'
+backwards.
 
 The dense kernels reuse the visible-work costs: a ``decode_attention``
 call is ``decode_visible_cost(lengths, window=...)`` (``min(length,
@@ -260,6 +262,52 @@ def ssd_scan_cost(*, batch: int, seq: int, heads: int, head_dim: int,
            + 2 * batch * seq * N * itemsize            # Bm, Cm
            + state * (2 if init_state else 1))         # init, final
     return KernelCost("ssd_scan", float(flops), float(hbm))
+
+
+def ssd_scan_bwd_cost(*, batch: int, seq: int, heads: int, head_dim: int,
+                      d_state: int, chunk: int, itemsize: int,
+                      init_state: bool, dfin: bool) -> KernelCost:
+    """One backward of the chunked SSD scan.  FLOPs per (row, chunk): the
+    scores C B^T again (2 N a causal pair) and their gradient's products dG
+    B and dG^T C (2 x 2 N a pair), once for all heads; per head, the
+    decayed scores' two products M^T dy and dy (x dt)^T (2 x 2 P a pair),
+    and the state products of 2 Q P N each: the chunk's own state, R_c,
+    g_c B_k and dB's state term every chunk, the read-out's dy S_c (dC's
+    state term and d cs) skipped for a row's first chunk when it starts
+    from zeros.  Decays, exponentials and the elementwise d cs terms are not
+    counted.  Bytes: x, dy, Bm and Cm read once and dx, dBm and dCm written
+    once in the working type, dt read and ddt written (float32), A read and
+    dA written, the initial state read and its gradient written when given,
+    dfin read when given."""
+    nc, Q = seq // chunk, chunk
+    pairs = Q * (Q + 1) // 2
+    P, N, H = head_dim, d_state, heads
+    readouts = nc if init_state else nc - 1
+    flops = batch * (nc * (3 * 2 * N * pairs
+                           + H * (2 * 2 * P * pairs + 4 * 2 * Q * P * N))
+                     + readouts * H * 2 * Q * P * N)
+    state = batch * H * P * N * itemsize
+    hbm = (3 * batch * seq * H * P * itemsize          # x, dy in; dx out
+           + 2 * batch * seq * H * 4 + 2 * H * 4       # dt, ddt; A, dA
+           + 4 * batch * seq * N * itemsize            # Bm, Cm; dBm, dCm
+           + state * ((2 if init_state else 0) + (1 if dfin else 0)))
+    return KernelCost("ssd_scan_bwd", float(flops), float(hbm))
+
+
+def rglru_scan_bwd_cost(*, batch: int, seq: int, width: int, itemsize: int,
+                        init_state: bool, dfin: bool) -> KernelCost:
+    """One backward of the RG-LRU scan over (batch, seq, width) elements.
+    FLOPs: about 28 an element (the gates and h again, 12; the adjoint's
+    multiply-add, 2; d log_at, 6; dx and d input_gate, 4; d a_gate and d
+    log_a, 4), each transcendental counted as one.  Bytes: x, input_gate,
+    a_gate and dh read once, dx, d input_gate and d a_gate written once,
+    log_a (float32) read and d log_a written once, the initial state read
+    and its gradient written when given, dfin read when given."""
+    n = batch * seq * width
+    state = batch * width * itemsize
+    hbm = (7 * n * itemsize + 2 * width * 4
+           + state * ((2 if init_state else 0) + (1 if dfin else 0)))
+    return KernelCost("rglru_scan_bwd", float(28 * n), float(hbm))
 
 
 def rglru_scan_cost(*, batch: int, seq: int, width: int, itemsize: int,

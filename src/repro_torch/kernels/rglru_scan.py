@@ -21,6 +21,14 @@ H100 (bytes) and how its segments were sized.
 :func:`rglru_scan` launches the kernel for CUDA tensors and runs
 :func:`rglru_scan_ref` for CPU tensors — the device of the input decides,
 never a fallback.  ``rglru_scan.launches`` counts kernel launches.
+
+Gradients: when an input requires grad, :func:`rglru_scan` runs
+:class:`RGLRUScanFn`, whose backward is :func:`rglru_scan_bwd`: the
+hand-written ``csrc/rglru_scan_bwd.cu`` on CUDA tensors (no
+``pallas_call`` counterpart: the reference differentiates its oracle
+``ref.rglru_scan``), :func:`rglru_scan_bwd_ref` on CPU tensors.
+``rglru_scan_bwd.launches`` counts backward calls (each launches the
+file's two kernels).
 :func:`rglru_decode_step` is plain PyTorch: the reference runs its decode
 step through the oracle only (``ops.rglru_decode_step``).
 """
@@ -32,7 +40,7 @@ import functools
 import torch
 
 from repro_torch.kernels import (DTYPE_CODES, build, count_launch,
-                                 raise_problems, refuse_grad)
+                                 raise_problems)
 
 
 def _gates(input_gate, a_gate, log_a, x, c, f):
@@ -57,12 +65,64 @@ def rglru_scan_ref(x, input_gate, a_gate, log_a, *, init_state=None,
     if init_state is not None:
         b = torch.cat([b[:, :1] + a[:, :1] * init_state.to(acc)[:, None],
                        b[:, 1:]], dim=1)
-    S, d = x.shape[1], 1
+    b = _linear_scan(a, b)
+    return b.to(x.dtype), b[:, -1].to(x.dtype)
+
+
+def _linear_scan(a, b):
+    """h_t = a_t h_{t-1} + b_t from h_{-1} = 0 along dim 1, in log2(S)
+    Hillis-Steele steps of the (a, b) monoid."""
+    S, d = a.shape[1], 1
     while d < S:
         b = torch.cat([b[:, :d], b[:, :-d] * a[:, d:] + b[:, d:]], dim=1)
         a = torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], dim=1)
         d *= 2
-    return b.to(x.dtype), b[:, -1].to(x.dtype)
+    return b
+
+
+def rglru_scan_bwd_ref(x, input_gate, a_gate, log_a, dh, dfin, *,
+                       init_state=None, c: float = 8.0, acc=torch.float32):
+    """Plain backward of :func:`rglru_scan_ref` in ``acc`` (float32;
+    float64 the yardstick), not autograd.  ``dh`` (B, S, W) and ``dfin``
+    (B, W) are the outputs' gradients (``dfin`` None: zeros).  The
+    adjoint g of h runs the recurrence backwards, g_t = dh_t + a_{t+1}
+    g_{t+1} with dfin added at t = S - 1 (the same monoid scanned over the
+    reversed time axis, a shifted by one), on h recomputed in ``acc``;
+    then with b_t = beta_t i_t x_t,
+
+      d log_at = g_t h_{t-1} a_t - g_t (i_t x_t) a_t^2 / beta_t
+
+    (the derivative of beta = sqrt(-expm1(2 log_at)) is -a_t^2 / beta_t),
+    dx = g beta i, d input_gate = g beta x, d a_gate = d log_at c log_a,
+    d log_a = sum_{b,t} d log_at c a_gate and d init_state = a_0 g_0.
+    Returns (dx, d input_gate, d a_gate, d log_a, d init_state or None) in
+    the inputs' dtypes."""
+    f = acc
+    log_at = c * log_a.to(f) * a_gate.to(f)
+    a = torch.exp(log_at)
+    beta = torch.sqrt(-torch.expm1(2.0 * log_at))
+    ix = input_gate.to(f) * x.to(f)
+    b = beta * ix
+    h0 = (init_state.to(f) if init_state is not None
+          else x.new_zeros(x.shape[0], x.shape[2], dtype=f))
+    b0 = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
+    h = _linear_scan(a, b0)
+    h_prev = torch.cat([h0[:, None], h[:, :-1]], dim=1)
+    gin = dh.to(f).clone()
+    if dfin is not None:
+        gin[:, -1] += dfin.to(f)
+    a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+    g = torch.flip(_linear_scan(torch.flip(a_next, (1,)),
+                                torch.flip(gin, (1,))), (1,))
+    dlog_at = g * h_prev * a - g * ix * a * a / beta
+    dx = g * beta * input_gate.to(f)
+    dig = g * beta * x.to(f)
+    dag = dlog_at * c * log_a.to(f)
+    dla = (dlog_at * c * a_gate.to(f)).sum((0, 1))
+    dinit = (None if init_state is None
+             else (a[:, 0] * g[:, 0]).to(init_state.dtype))
+    return (dx.to(x.dtype), dig.to(input_gate.dtype), dag.to(a_gate.dtype),
+            dla.to(log_a.dtype), dinit)
 
 
 def rglru_decode_step(x, input_gate, a_gate, log_a, state, *,
@@ -123,10 +183,16 @@ def rglru_scan(x, input_gate, a_gate, log_a, *, init_state=None,
     for zeros.  Returns (h (B, S, W), final state (B, W)), both in x.dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
+    When an input requires grad, :class:`RGLRUScanFn` runs instead.
     """
     extra = () if init_state is None else (init_state,)
-    refuse_grad("rglru_scan", x, input_gate, a_gate, log_a, *extra,
-                item="section 2 item 2.9d")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, input_gate, a_gate, log_a, *extra)):
+        return RGLRUScanFn.apply(x, input_gate, a_gate, log_a, init_state, c)
+    return _forward(x, input_gate, a_gate, log_a, init_state, c)
+
+
+def _forward(x, input_gate, a_gate, log_a, init_state, c):
     if x.device.type == "cpu":
         return rglru_scan_ref(x, input_gate, a_gate, log_a,
                               init_state=init_state, c=c)
@@ -150,3 +216,101 @@ def rglru_scan(x, input_gate, a_gate, log_a, *, init_state=None,
 
 
 rglru_scan.launches = 0
+
+
+class RGLRUScanFn(torch.autograd.Function):
+    """The RG-LRU scan with a gradient: the forward kernel (the plain
+    forward on CPU tensors) saves its inputs, not its bf16 output (the
+    backward needs h_{t-1} in float32 and recomputes it); the backward is
+    :func:`rglru_scan_bwd`, the final state's gradient (None when the loss
+    does not reach it, as in training) starting the reverse sweep.  Under
+    ``torch.utils.checkpoint`` each remat'd layer launches the forward
+    kernel twice and the backward once."""
+
+    @staticmethod
+    def forward(ctx, x, input_gate, a_gate, log_a, init_state, c):
+        ctx.set_materialize_grads(False)
+        h, fin = _forward(x, input_gate, a_gate, log_a, init_state, c)
+        ctx.save_for_backward(x, input_gate, a_gate, log_a, init_state)
+        ctx.c = c
+        return h, fin
+
+    @staticmethod
+    def backward(ctx, dh, dfin):
+        x, input_gate, a_gate, log_a, init_state = ctx.saved_tensors
+        if dh is None:
+            dh = torch.zeros_like(x)
+        grads = rglru_scan_bwd(x, input_gate, a_gate, log_a, dh, dfin,
+                               init_state=init_state, c=ctx.c)
+        return (*grads, None)
+
+
+RG_BWD_SEG = 64      # steps a segment of csrc/rglru_scan_bwd.cu
+
+
+def rglru_bwd_workspace(B: int, S: int, W: int) -> int:
+    """f32 values of the backward's workspace: the float32 carry into
+    every RG_BWD_SEG-step segment, (B, ceil(S / RG_BWD_SEG), W), then each
+    row's partial d log_a, (B, W)."""
+    return B * -(-S // RG_BWD_SEG) * W + B * W
+
+
+@functools.cache
+def _bwd_lib():
+    lib = build.load("rglru_scan_bwd")
+    fn = lib.rglru_scan_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def rglru_scan_bwd(x, input_gate, a_gate, log_a, dh, dfin, *,
+                   init_state=None, c: float = 8.0):
+    """Gradients (dx, d input_gate, d a_gate, d log_a, d init_state or
+    None) of :func:`rglru_scan` from the outputs' gradients ``dh`` and
+    ``dfin`` (None: zeros).  CPU tensors take :func:`rglru_scan_bwd_ref`;
+    CUDA tensors launch ``csrc/rglru_scan_bwd.cu``'s two kernels in one
+    call, counted once on ``rglru_scan_bwd.launches``.  The inputs are the
+    forward's and pass its checks; dh must match x, dfin the state's shape
+    in x's dtype or float32."""
+    if x.device.type == "cpu":
+        return rglru_scan_bwd_ref(x, input_gate, a_gate, log_a, dh, dfin,
+                                  init_state=init_state, c=c)
+    if x.device.type != "cuda":
+        raise ValueError(f"rglru_scan_bwd: no kernel for device {x.device}")
+    x, input_gate, a_gate, log_a, dh = (
+        t.contiguous() for t in (x, input_gate, a_gate, log_a, dh))
+    _check(x, input_gate, a_gate, log_a, init_state)
+    Bb, S, W = x.shape
+    problems = []
+    if dh.shape != x.shape or dh.dtype != x.dtype or dh.device != x.device:
+        problems.append(f"dh {tuple(dh.shape)} {dh.dtype}: need "
+                        f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    if dfin is not None and (dfin.shape != (Bb, W)
+                             or dfin.dtype not in (x.dtype, torch.float32)
+                             or dfin.device != x.device):
+        problems.append(f"dfin {tuple(dfin.shape)} {dfin.dtype}: need "
+                        f"({Bb}, {W}) in {x.dtype} or float32")
+    raise_problems("rglru_scan_bwd", problems)
+    init = None if init_state is None else init_state.contiguous()
+    dfin = None if dfin is None else dfin.contiguous()
+    dx, dig, dag = (torch.empty_like(x) for _ in range(3))
+    dla = torch.empty(W, dtype=torch.float32, device=x.device)
+    dinit = None if init is None else torch.empty_like(init)
+    ws = torch.empty(rglru_bwd_workspace(Bb, S, W), dtype=torch.float32,
+                     device=x.device)
+    rc = _bwd_lib()(x.data_ptr(), input_gate.data_ptr(), a_gate.data_ptr(),
+                    log_a.data_ptr(), 0 if init is None else init.data_ptr(),
+                    dh.data_ptr(), 0 if dfin is None else dfin.data_ptr(),
+                    dx.data_ptr(), dig.data_ptr(), dag.data_ptr(),
+                    dla.data_ptr(), 0 if dinit is None else dinit.data_ptr(),
+                    ws.data_ptr(), Bb, S, W, DTYPE_CODES[x.dtype],
+                    int(init is not None and init.dtype == torch.float32),
+                    int(dfin is not None and dfin.dtype == torch.float32),
+                    c, torch.cuda.current_stream(x.device).cuda_stream)
+    count_launch(rglru_scan_bwd, rc)
+    return dx, dig, dag, dla, dinit
+
+
+rglru_scan_bwd.launches = 0

@@ -18,6 +18,15 @@ H100.
 :func:`ssd_scan` launches the kernel for CUDA tensors and runs
 :func:`ssd_scan_ref` for CPU tensors — the device of the input decides,
 never a fallback.  ``ssd_scan.launches`` counts kernel launches.
+
+Gradients: when an input requires grad, :func:`ssd_scan` runs
+:class:`SSDScanFn`, whose backward is :func:`ssd_scan_bwd`: the
+hand-written ``csrc/ssd_scan_bwd.cu`` on CUDA tensors (no
+``pallas_call`` counterpart: the reference differentiates its oracle
+``ref.ssd_scan``), :func:`ssd_scan_bwd_ref` on CPU tensors; its key
+pass runs on the tensor cores for bf16 at the full width
+(:func:`ssd_bwd_body`).  ``ssd_scan_bwd.launches`` counts backward calls
+(each launches the six kernels of the file's header).
 :func:`ssd_decode_step` is plain PyTorch: the reference runs its decode
 step through the oracle only (``ops.ssd_decode_step``).
 """
@@ -29,7 +38,7 @@ import functools
 import torch
 
 from repro_torch.kernels import (DTYPE_CODES, NEG_INF, build, count_launch,
-                                 raise_problems, refuse_grad)
+                                 raise_problems)
 
 SSD_DIMS = ((64, 128), (32, 16))     # (P, N) built: full width, reduced
 SSD_QMAX = 256                       # longest chunk the kernel takes
@@ -97,6 +106,84 @@ def ssd_scan_ref(x, dt, A, Bm, Cm, *, chunk=64, init_state=None,
         * torch.exp(csh)[..., None]                        # (B, nc, H, Q, P)
     y = (y + y_off).permute(0, 1, 3, 2, 4).reshape(Bb, S, H, P)
     return y.to(x.dtype), s.to(x.dtype)
+
+
+def ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, dfin, *, chunk, init_state=None,
+                     acc=torch.float32):
+    """Plain backward of :func:`ssd_scan_ref`: an explicit reverse chunked
+    scan in ``acc`` (float32; float64 the yardstick), not autograd.  ``dy``
+    (B, S, H, P) and ``dfin`` (B, H, P, N) are the outputs' gradients
+    (``dfin`` None: zeros).  With cs the running sum of dt A in a chunk,
+    M = L o (C B^T) the decayed scores, S_c the state carried into chunk c
+    and g_c the adjoint of the state at its end (g = dfin after the last
+    chunk, g_{c-1} = exp(cs_last) g_c + sum_q exp(cs_q) dy_q^T C_q):
+
+      d(x dt)_k = sum_q M_qk dy_q + exp(cs_last - cs_k) g B_k,
+      dG_qk = sum_h L_qk (dy_q . (x dt)_k)  (dC += dG B, dB += dG^T C),
+      dC_q += sum_h exp(cs_q) S_c^T dy_q,  dB_k += sum_h exp(cs_last -
+      cs_k) g^T (x dt)_k,
+
+    and d cs from every exponential, whose reverse running sum in the
+    chunk is d(dt A).  Returns (dx, ddt, dA, dBm, dCm, d init_state or
+    None) in the inputs' dtypes."""
+    Bb, S, H, P = x.shape
+    N = Bm.shape[-1]
+    nc, Q = S // chunk, chunk
+    f = acc
+    xc = x.reshape(Bb, nc, Q, H, P).to(f).permute(0, 1, 3, 2, 4)  # (B,nc,H,Q,P)
+    dyc = dy.reshape(Bb, nc, Q, H, P).to(f).permute(0, 1, 3, 2, 4)
+    dtc = dt.reshape(Bb, nc, Q, H).to(f).permute(0, 1, 3, 2)      # (B,nc,H,Q)
+    Bc = Bm.reshape(Bb, nc, Q, N).to(f)
+    Cc = Cm.reshape(Bb, nc, Q, N).to(f)
+    Af = A.to(f)
+    cs = torch.cumsum(dtc * Af[:, None], dim=-1)                  # (B,nc,H,Q)
+    last = cs[..., -1]                                            # (B,nc,H)
+    tri = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    L = torch.exp(torch.where(tri, cs[..., :, None] - cs[..., None, :],
+                              torch.full((), NEG_INF, dtype=f,
+                                         device=x.device)))
+    M = L * (Cc @ Bc.transpose(-1, -2))[:, :, None]             # (B,nc,H,Q,Q)
+    xdt = xc * dtc[..., None]
+    decay = torch.exp(last[..., None] - cs)                       # (B,nc,H,Q)
+    eq = torch.exp(cs)
+    # the states carried into the chunks, and the adjoints at their ends
+    states = (xdt * decay[..., None]).transpose(-1, -2) @ Bc[:, :, None]
+    R = (dyc * eq[..., None]).transpose(-1, -2) @ Cc[:, :, None]
+    s = (init_state.to(f) if init_state is not None
+         else x.new_zeros(Bb, H, P, N, dtype=f))
+    prev = []
+    for c in range(nc):
+        prev.append(s)
+        s = s * torch.exp(last[:, c])[..., None, None] + states[:, c]
+    prev = torch.stack(prev, dim=1)                               # (B,nc,H,P,N)
+    g = (dfin.to(f) if dfin is not None
+         else x.new_zeros(Bb, H, P, N, dtype=f))
+    gend = [None] * nc
+    for c in reversed(range(nc)):
+        gend[c] = g
+        g = g * torch.exp(last[:, c])[..., None, None] + R[:, c]
+    gend = torch.stack(gend, dim=1)
+    # x dt: the intra-chunk products and the state's
+    u = Bc[:, :, None] @ gend.transpose(-1, -2)                   # g B_k
+    dxdt = M.transpose(-1, -2) @ dyc + decay[..., None] * u
+    dM = dyc @ xdt.transpose(-1, -2)
+    dG = (dM * L).sum(2)                                          # (B,nc,Q,Q)
+    T = dM * M
+    sd = decay * (xdt * u).sum(-1)
+    dcs = T.sum(-1) - T.sum(-2) - sd
+    dcs = dcs + eq * (dyc * (Cc[:, :, None] @ prev.transpose(-1, -2))).sum(-1)
+    dcs[..., -1] += sd.sum(-1) + torch.exp(last) * (gend * prev).sum((-1, -2))
+    d_dA = torch.flip(torch.cumsum(torch.flip(dcs, (-1,)), -1), (-1,))
+    ddt = (dxdt * xc).sum(-1) + d_dA * Af[:, None]
+    dA = (d_dA * dtc).sum((0, 1, 3))
+    dx = dxdt * dtc[..., None]
+    dC = dG @ Bc + ((dyc * eq[..., None]) @ prev).sum(2)
+    dB = dG.transpose(-1, -2) @ Cc + ((xdt * decay[..., None]) @ gend).sum(2)
+    dinit = None if init_state is None else g.to(init_state.dtype)
+    return (dx.permute(0, 1, 3, 2, 4).reshape(Bb, S, H, P).to(x.dtype),
+            ddt.permute(0, 1, 3, 2).reshape(Bb, S, H).to(dt.dtype),
+            dA.to(A.dtype), dB.reshape(Bb, S, N).to(Bm.dtype),
+            dC.reshape(Bb, S, N).to(Cm.dtype), dinit)
 
 
 def ssd_decode_step(x, dt, A, Bm, Cm, state):
@@ -183,10 +270,16 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk=64, init_state=None):
     Returns (y (B, S, H, P), final state (B, H, P, N)), both in x.dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
+    When an input requires grad, :class:`SSDScanFn` runs instead.
     """
     extra = () if init_state is None else (init_state,)
-    refuse_grad("ssd_scan", x, dt, A, Bm, Cm, *extra,
-                item="section 2 item 2.9c")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, Bm, Cm, *extra)):
+        return SSDScanFn.apply(x, dt, A, Bm, Cm, init_state, chunk)
+    return _forward(x, dt, A, Bm, Cm, chunk, init_state)
+
+
+def _forward(x, dt, A, Bm, Cm, chunk, init_state):
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk,
                             init_state=init_state)
@@ -213,3 +306,127 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk=64, init_state=None):
 
 
 ssd_scan.launches = 0
+
+
+class SSDScanFn(torch.autograd.Function):
+    """The SSD scan with a gradient: the forward kernel (the plain forward
+    on CPU tensors) saves its inputs; the backward is :func:`ssd_scan_bwd`
+    with both output gradients, the final state's (None when the loss does
+    not reach it, as in training) starting the reverse sweep.  Under
+    ``torch.utils.checkpoint`` the forward runs again in the backward
+    pass, so each remat'd layer launches the forward kernel twice and the
+    backward once."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, init_state, chunk):
+        ctx.set_materialize_grads(False)
+        y, fin = _forward(x, dt, A, Bm, Cm, chunk, init_state)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, init_state)
+        ctx.chunk = chunk
+        return y, fin
+
+    @staticmethod
+    def backward(ctx, dy, dfin):
+        x, dt, A, Bm, Cm, init_state = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        grads = ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dfin, chunk=ctx.chunk,
+                             init_state=init_state)
+        return (*grads, None)
+
+
+SSD_BWD_KT = 32      # keys (and queries) a tile of the backward's kernels
+SSD_BWD_BODIES = {"fma": 0, "mma": 1}   # the launcher's body codes
+
+
+def ssd_bwd_body(dtype, P: int, N: int) -> str:
+    """Which key pass the backward runs, from the shapes alone and before
+    the launch: "mma" (its products on the tensor cores, mma.sync, the f32
+    operands in three bf16 parts) for bf16 at (P, N) = SSD_WG_DIMS, else
+    "fma" (float32 FMAs: the f32 identity runs and the reduced widths)."""
+    if dtype == torch.bfloat16 and (P, N) == SSD_WG_DIMS:
+        return "mma"
+    return "fma"
+
+
+def ssd_bwd_workspace(B: int, S: int, H: int, P: int, N: int,
+                      chunk: int) -> int:
+    """f32 values of the backward's workspace (``csrc/ssd_scan_bwd.cu``):
+    the running sums cs, the d cs parts of the key and query passes (B H
+    S each), the chunk-boundary states and their adjoints (B H nc P N
+    each), the head-summed dG (B nc Q Q), the score rows' partial sums (B
+    H nc ceil(Q / 32) Q), each key tile's share of d cs_last (B H nc
+    ceil(Q / 32)), the chunk decays' d cs_last in up to 8 parts (B H nc 8)
+    and dA's per-row partials (B H)."""
+    nc, nt = S // chunk, -(-chunk // SSD_BWD_KT)
+    return (3 * B * H * S + 2 * B * H * nc * P * N + B * nc * chunk * chunk
+            + B * H * nc * nt * chunk + B * H * nc * nt + 8 * B * H * nc
+            + B * H)
+
+
+@functools.cache
+def _bwd_lib():
+    lib = build.load("ssd_scan_bwd")
+    fn = lib.ssd_scan_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dfin, *, chunk, init_state=None):
+    """Gradients (dx, ddt, dA, dBm, dCm, d init_state or None) of
+    :func:`ssd_scan` from the outputs' gradients ``dy`` and ``dfin``
+    (None: zeros).  CPU tensors take :func:`ssd_scan_bwd_ref`; CUDA
+    tensors launch ``csrc/ssd_scan_bwd.cu``'s kernels in one call, counted
+    once on ``ssd_scan_bwd.launches``.  The inputs are the forward's and
+    pass its checks; dy must match x, dfin the state's shape in x's dtype
+    or float32."""
+    if x.device.type == "cpu":
+        return ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, dfin, chunk=chunk,
+                                init_state=init_state)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan_bwd: no kernel for device {x.device}")
+    # contiguous, x, Bm, Cm and dy on 16-byte boundaries (the tensor-core
+    # key pass copies 16-byte pieces of their rows)
+    x, dt, A, Bm, Cm, dy = (t.contiguous() for t in (x, dt, A, Bm, Cm, dy))
+    x, Bm, Cm, dy = (t if t.data_ptr() % 16 == 0 else t.clone()
+                     for t in (x, Bm, Cm, dy))
+    _check(x, dt, A, Bm, Cm, chunk, init_state)
+    Bb, S, H, P = x.shape
+    N = Bm.shape[-1]
+    problems = []
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        problems.append(f"dy {tuple(dy.shape)} {dy.dtype}: need "
+                        f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    if dfin is not None and (dfin.shape != (Bb, H, P, N)
+                             or dfin.dtype not in (x.dtype, torch.float32)
+                             or dfin.device != x.device):
+        problems.append(f"dfin {tuple(dfin.shape)} {dfin.dtype}: need "
+                        f"({Bb}, {H}, {P}, {N}) in {x.dtype} or float32")
+    raise_problems("ssd_scan_bwd", problems)
+    init = None if init_state is None else init_state.contiguous()
+    dfin = None if dfin is None else dfin.contiguous()
+    dx, dB, dC = (torch.empty_like(t) for t in (x, Bm, Cm))
+    ddt = torch.empty(Bb, S, H, dtype=torch.float32, device=x.device)
+    dA = torch.empty(H, dtype=torch.float32, device=x.device)
+    dinit = None if init is None else torch.empty_like(init)
+    ws = torch.empty(ssd_bwd_workspace(Bb, S, H, P, N, chunk),
+                     dtype=torch.float32, device=x.device)
+    rc = _bwd_lib()(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                    Bm.data_ptr(), Cm.data_ptr(),
+                    0 if init is None else init.data_ptr(), dy.data_ptr(),
+                    0 if dfin is None else dfin.data_ptr(), dx.data_ptr(),
+                    ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+                    dC.data_ptr(), 0 if dinit is None else dinit.data_ptr(),
+                    ws.data_ptr(), Bb, S, H, P, N, chunk,
+                    DTYPE_CODES[x.dtype],
+                    int(init is not None and init.dtype == torch.float32),
+                    int(dfin is not None and dfin.dtype == torch.float32),
+                    SSD_BWD_BODIES[ssd_bwd_body(x.dtype, P, N)],
+                    torch.cuda.current_stream(x.device).cuda_stream)
+    count_launch(ssd_scan_bwd, rc)
+    return dx, ddt, dA, dB, dC, dinit
+
+
+ssd_scan_bwd.launches = 0

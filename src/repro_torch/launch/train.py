@@ -9,7 +9,8 @@ The reference launcher's flags that one card can honour (``--arch``,
 ``--shape``, ``--reduced``, ``--steps``, ``--lr``, ``--ckpt-dir``,
 ``--moe-dispatch``), plus ``--device`` (default: the card) and
 ``--global-batch``, the single-card stand-in for the mesh's data axis.
-Every arch but the two recurrent ones trains: the MoE archs
+Every arch trains, the two recurrent ones (mamba2-370m, recurrentgemma-2b)
+through the SSD and RG-LRU scans' backward kernels; the MoE archs
 (deepseek-v2-lite-16b, deepseek-moe-16b, moonshot-v1-16b-a3b) under the
 default ``--moe-dispatch gshard``; ``ragged`` refuses the gradient its
 grouped matmul has no backward for (ROADMAP.md section 2 item 2.9b) and

@@ -99,7 +99,10 @@ def _out(p, y, xh, z, cfg):
 def mamba2_forward(p, x, cfg, *, return_cache=False):
     """x: (B, S, D) -> (B, S, D), full-sequence chunked SSD.  With
     ``return_cache`` also the decode cache {"state": (B, H, P, N), "conv":
-    (B, K-1, C)}."""
+    (B, K-1, C)}.  Under grad (``mode="train"``) the scan's inputs require
+    grad, so ``ssd_scan`` runs ``SSDScanFn``: the forward kernel, and the
+    backward kernel in the backward pass; serving runs under no_grad and
+    launches the forward only."""
     s = cfg.ssm
     B, S, _ = x.shape
     z, xbc, dt, di, nh = _split_proj(p, x, cfg)

@@ -60,7 +60,10 @@ def _gates(p, xb):
 
 def rglru_forward(p, x, cfg, *, return_cache=False):
     """x: (B, S, D) -> (B, S, D).  With ``return_cache`` also the decode
-    cache {"state": (B, W), "conv": (B, K-1, W)}."""
+    cache {"state": (B, W), "conv": (B, K-1, W)}.  Under grad
+    (``mode="train"``) ``rglru_scan`` runs ``RGLRUScanFn``: the forward
+    kernel, and the backward kernel in the backward pass; serving runs
+    under no_grad and launches the forward only."""
     gate = F.gelu(x @ p["w_gate"], approximate="tanh")
     xb, conv_cache = causal_conv1d(x @ p["w_x"], p["conv_w"])
     ig, ag = _gates(p, xb)

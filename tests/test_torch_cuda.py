@@ -21,8 +21,12 @@ at the edges of its splits for 1-20 heads a kv head) against their
 plain versions, the flash backward (dq, dk, dv and the forward's lse)
 against its plain version and autograd, in both of its bodies, over a
 sequence that wraps the tensor-core body's ring many times, and at MLA's
-(Dk, Dv) = (192, 128) (the column-split tensor-core body) and (96, 64)
-over up to 4160 keys, a second call's dk and dv bit for bit, the
+(Dk, Dv) = (192, 128) (the column-split tensor-core body), (96, 64)
+and recurrentgemma-2b's (256, 256) over up to 4160 keys, a second call's
+dk and dv bit for bit; the SSD and RG-LRU scans' backwards against their
+plain versions (every gradient, with and without an initial state and
+the final state's gradient, a second call bit for bit, and through their
+autograd Functions against autograd over the plain forwards); the
 wrappers' refusals (shapes,
 dtypes, inputs that require grad where no backward is built, side inputs on another device or of the wrong shape, an
 unaligned pool; never a plain version on a CUDA tensor), and the
@@ -246,7 +250,8 @@ def _assert_grad_close(got, want, want32):
     (7, 64, 64, 150), (1, 64, 64, 150), (3, 128, 128, 150),
     (7, 64, 64, 1000), (3, 128, 128, 1000),
     (1, 192, 128, 150), (4, 192, 128, 300), (1, 192, 128, 4160),
-    (1, 96, 64, 150), (4, 96, 64, 300), (1, 96, 64, 4160)])
+    (1, 96, 64, 150), (4, 96, 64, 300), (1, 96, 64, 4160),
+    (10, 256, 256, 150), (1, 256, 256, 300)])
 @pytest.mark.parametrize("window", [None, 37])
 def test_flash_backward_kernel_matches_plain_version(cuda, dtype, G, dk, dv,
                                                      S, window, monkeypatch):
@@ -256,8 +261,11 @@ def test_flash_backward_kernel_matches_plain_version(cuda, dtype, G, dk, dv,
     the 64-row tiles), at 1000, whose G x 16 query tiles wrap the
     tensor-core body's ring of Q/dO stages many times, and at MLA's pairs
     (192, 128) (bf16 on the tensor-core body with the columns split
-    between its warpgroups, f32 on the FMA body) and (96, 64) (the FMA body
-    in both dtypes) at G = 1 and G > 1, over 4160 keys among others (a
+    between its warpgroups, f32 on the FMA body), (96, 64) (the FMA
+    body in both dtypes) and recurrentgemma-2b's (256, 256) (bf16 on the
+    mma.sync body, f32 on the FMA body with the head dims in 64-wide
+    chunks; both a dK/dV block a query head, its partials summed) at G = 1
+    and G > 1, over 4160 keys among others (a
     train row's prefix plus tokens: the last 128-key tile half full);
     causal and, unwindowed, not causal; a second call on the same inputs
     within the rule of the first, its dk and dv bit for bit (dq's f32 sums
@@ -310,6 +318,34 @@ def test_flash_backward_kernel_matches_plain_version(cuda, dtype, G, dk, dv,
                 fa.flash_attention_bwd.launches) == (n0[0] + 1, n0[1] + 1)
         for a, w in zip(got, want):
             _assert_grad_close(a, w, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,G,S", [(1, 1, 151), (1, 10, 301), (3, 2, 97)])
+@pytest.mark.parametrize("window", [None, 37])
+def test_flash_backward_wide_at_one_kv_head(cuda, dtype, B, G, S, window):
+    """The (256, 256) backward at one kv head, as recurrentgemma-2b lays
+    its heads out: a dK/dV block a query head, a kv head's G partials
+    summed in order; at counts of row dots (B H S = 151, 3010, 582) that
+    are no multiple of 4, so the partials start past padding; against the
+    plain version, and dk and dv bit for bit on a second call."""
+    g = torch.Generator().manual_seed(23)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(cuda, dtype)
+    q, k, v = rnd(B, S, G, 256), rnd(B, S, 1, 256), rnd(B, S, 1, 256)
+    do = rnd(B, S, G, 256)
+    kw = dict(causal=True, window=window)
+    out, lse = fa.flash_attention_lse(q, k, v, **kw)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    want = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    want32 = fa.flash_attention_bwd_ref(*(t.float() for t in (q, k, v, out)),
+                                        lse, do.float(), **kw)
+    for a, w, w32 in zip(got, want, want32):
+        assert a.dtype == dtype and a.shape == w.shape
+        _assert_grad_close(a, w, w32)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -819,6 +855,111 @@ def test_ssd_scan_kernel_matches_plain_version(cuda, dtype, init, S, Q, P,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("S,Q,P,N", [(512, 256, 64, 128), (200, 100, 64, 128),
+                                     (144, 48, 64, 128), (96, 32, 32, 16),
+                                     (45, 1, 32, 16)])
+def test_ssd_bwd_kernel_matches_plain_version(cuda, dtype, with_state, S, Q,
+                                              P, N, monkeypatch):
+    """The SSD scan's backward kernels against ``ssd_scan_bwd_ref`` (the
+    SSD limit of the module docstring on each of dx, ddt, dA, dB, dC and d
+    init_state), at chunks of 256, 100, 48, 32 and 1 (key and query tiles
+    of 32 whole, partial and single), with and without an initial state
+    and the final state's gradient; a second call bit for bit (no
+    atomics); through autograd, :class:`SSDScanFn` against autograd over
+    the plain forward in f32, with the plain versions barred from CUDA
+    tensors."""
+    args, s0 = _ssd_inputs(dtype, cuda, 2, S, 3, P, N, seed=S + Q + 1,
+                           init=with_state)
+    g = torch.Generator().manual_seed(S)
+    dy = torch.randn(2, S, 3, P, generator=g).to(cuda, dtype)
+    dfin = (torch.randn(2, 3, P, N, generator=g).to(cuda, dtype)
+            if with_state else None)
+    kw = dict(chunk=Q, init_state=s0)
+    n0 = ss.ssd_scan_bwd.launches
+    got = ss.ssd_scan_bwd(*args, dy, dfin, **kw)
+    assert ss.ssd_scan_bwd.launches == n0 + 1
+    want = ss.ssd_scan_bwd_ref(*args, dy, dfin, **kw)
+    f32 = lambda t: None if t is None else t.float()        # noqa: E731
+    f64 = lambda t: None if t is None else t.double()       # noqa: E731
+    want32 = ss.ssd_scan_bwd_ref(*map(f32, args), f32(dy), f32(dfin),
+                                 chunk=Q, init_state=f32(s0))
+    want64 = ss.ssd_scan_bwd_ref(*map(f64, args), f64(dy), f64(dfin),
+                                 chunk=Q, init_state=f64(s0),
+                                 acc=torch.float64)
+    assert (got[5] is None) == (not with_state)
+    for a, w, w32, w64 in zip(got, want, want32, want64):
+        if a is None:
+            continue
+        assert a.dtype == w.dtype and a.shape == w.shape
+        _ssd_close(a, w, w32, w64)
+    again = ss.ssd_scan_bwd(*args, dy, dfin, **kw)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(again, got))
+    if dtype != torch.float32:
+        return
+    leaves = [t.clone().requires_grad_() for t in args]
+    init = None if s0 is None else s0.clone().requires_grad_()
+    every = leaves + ([init] if init is not None else [])
+
+    def loss(y, fin):
+        out = (y * dy).sum()
+        return out + (fin * dfin).sum() if dfin is not None else out
+    auto = torch.autograd.grad(loss(*ss.ssd_scan_ref(
+        *leaves, chunk=Q, init_state=init)), every)
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+    monkeypatch.setattr(ss, "ssd_scan_ref", refuse)
+    monkeypatch.setattr(ss, "ssd_scan_bwd_ref", refuse)
+    n0 = ss.ssd_scan.launches, ss.ssd_scan_bwd.launches
+    through = torch.autograd.grad(loss(*ss.ssd_scan(
+        *leaves, chunk=Q, init_state=init)), every)
+    monkeypatch.undo()
+    assert (ss.ssd_scan.launches, ss.ssd_scan_bwd.launches) == (
+        n0[0] + 1, n0[1] + 1)
+    for a, w, w64 in zip(through, auto, want64):
+        _ssd_close(a, w, w, w64)
+
+
+def test_scan_backwards_refuse_before_any_launch(cuda):
+    """A shape or dtype the backward kernels do not take raises before any
+    launch: (P, N) outside SSD_DIMS, a chunk that does not divide S, a dy
+    of the wrong shape, a dfin of the wrong dtype; the RG-LRU's dh and
+    dfin likewise."""
+    args, _ = _ssd_inputs(torch.float32, cuda, 1, 64, 2, 16, 8, seed=1,
+                          init=False)
+    dy = torch.zeros(1, 64, 2, 16, device=cuda)
+    n0 = ss.ssd_scan_bwd.launches
+    with pytest.raises(ValueError, match="kernel built for"):
+        ss.ssd_scan_bwd(*args, dy, None, chunk=32)
+    args, _ = _ssd_inputs(torch.float32, cuda, 1, 64, 2, 32, 16, seed=1,
+                          init=False)
+    with pytest.raises(ValueError, match="chunk"):
+        ss.ssd_scan_bwd(*args, torch.zeros(1, 64, 2, 32, device=cuda), None,
+                        chunk=48)
+    with pytest.raises(ValueError, match="dy"):
+        ss.ssd_scan_bwd(*args, torch.zeros(1, 64, 2, 16, device=cuda), None,
+                        chunk=32)
+    with pytest.raises(ValueError, match="dfin"):
+        ss.ssd_scan_bwd(*args, torch.zeros(1, 64, 2, 32, device=cuda),
+                        torch.zeros(1, 2, 32, 16, device=cuda,
+                                    dtype=torch.float16), chunk=32)
+    assert ss.ssd_scan_bwd.launches == n0
+    rargs, _ = _rg_inputs(torch.float32, cuda, 2, 16, 8, seed=1, init=False)
+    n0 = rs.rglru_scan_bwd.launches
+    with pytest.raises(ValueError, match="dh"):
+        rs.rglru_scan_bwd(*rargs, torch.zeros(2, 15, 8, device=cuda), None)
+    with pytest.raises(ValueError, match="dfin"):
+        rs.rglru_scan_bwd(*rargs, torch.zeros(2, 16, 8, device=cuda),
+                          torch.zeros(3, 8, device=cuda))
+    with pytest.raises(ValueError, match="dtypes"):
+        rs.rglru_scan_bwd(*(t.half() if i < 3 else t
+                            for i, t in enumerate(rargs)),
+                          torch.zeros(2, 16, 8, device=cuda).half(), None)
+    assert rs.rglru_scan_bwd.launches == n0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_scan_kernel_under_a_strong_decay(cuda, dtype):
     """dt ~ 3 and A ~ -1 over chunks of 256: the running sum cs of dt * A
     falls below -200 inside a chunk, so exp(-cs) would overflow float32;
@@ -876,9 +1017,10 @@ def test_ssd_scan_kernel_takes_strided_views_and_f32_state(cuda):
 
 def test_ssd_scan_refusals_and_no_plain_version_on_the_card(cuda,
                                                             monkeypatch):
-    """An unbuilt (P, N), a chunk above 256 or not dividing S, and an
-    input that requires grad are refused before any launch; on a CUDA
-    tensor the wrapper never runs the plain version."""
+    """An unbuilt (P, N) and a chunk above 256 or not dividing S are
+    refused before any launch, also for an input that requires grad
+    (which takes ``SSDScanFn``: the same checks, then the kernel); on a
+    CUDA tensor the wrapper never runs the plain version."""
     args, _ = _ssd_inputs(torch.float32, cuda, 1, 64, 2, 32, 16, seed=4,
                           init=False)
     x, dt, A, Bm, Cm = args
@@ -889,8 +1031,8 @@ def test_ssd_scan_refusals_and_no_plain_version_on_the_card(cuda,
         ss.ssd_scan(*args, chunk=24)
     with pytest.raises(ValueError, match="dtypes"):
         ss.ssd_scan(x.half(), dt, A, Bm.half(), Cm.half(), chunk=8)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ss.ssd_scan(x, dt.clone().requires_grad_(), A, Bm, Cm, chunk=8)
+    with pytest.raises(ValueError, match="chunk"):
+        ss.ssd_scan(x, dt.clone().requires_grad_(), A, Bm, Cm, chunk=24)
     assert ss.ssd_scan.launches == n0
 
     def plain(*a, **k):
@@ -976,6 +1118,77 @@ def test_rglru_scan_kernel_matches_plain_version(cuda, dtype, B, S, W, init,
         held = s0[0] if pad == S else h[0, S - pad - 1]
         assert torch.equal(h[0, S - pad:], held.expand(pad, W))
         assert torch.equal(fin[0], held)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,W,with_state", [
+    (2, 4096, 2560, False),          # recurrentgemma-2b's train rows
+    (2, 1000, 512, True),
+    (3, 1, 64, True),                # one step
+    (2, 128, 96, True),              # whole 64-step segments
+    (2, 65, 40, False),              # a step past a segment, a partial tile
+    (2, 63, 40, True),               # a step short of one
+    (1, 1023, 96, True),             # odd lengths, a ragged last unroll
+])
+def test_rglru_bwd_kernel_matches_plain_version(cuda, dtype, B, S, W,
+                                                with_state, monkeypatch):
+    """The RG-LRU scan's backward kernel against ``rglru_scan_bwd_ref`` on
+    dx, d input_gate, d a_gate, d log_a and d init_state (2e-5 x max(1,
+    max |grad|) plus twice the plain version's own distance from float64:
+    the kernel's f32 carries walk t in order, the plain version's a
+    log-depth tree, and d log_a sums B x S terms), with and without an
+    initial state and the final state's gradient, at the edges of its
+    warps' chunks and segments; a second call bit for bit; through
+    autograd, :class:`RGLRUScanFn` against autograd over the plain forward
+    in f32, the plain versions barred from CUDA tensors."""
+    args, s0 = _rg_inputs(dtype, cuda, B, S, W, seed=S + W + 1,
+                          init=with_state)
+    g = torch.Generator().manual_seed(S + 5)
+    dh = torch.randn(B, S, W, generator=g).to(cuda, dtype)
+    dfin = (torch.randn(B, W, generator=g).to(cuda, dtype)
+            if with_state else None)
+    n0 = rs.rglru_scan_bwd.launches
+    got = rs.rglru_scan_bwd(*args, dh, dfin, init_state=s0)
+    assert rs.rglru_scan_bwd.launches == n0 + 1
+    want = rs.rglru_scan_bwd_ref(*args, dh, dfin, init_state=s0)
+    f32 = lambda t: None if t is None else t.float()        # noqa: E731
+    f64 = lambda t: None if t is None else t.double()       # noqa: E731
+    want32 = rs.rglru_scan_bwd_ref(*map(f32, args), f32(dh), f32(dfin),
+                                   init_state=f32(s0))
+    want64 = rs.rglru_scan_bwd_ref(*map(f64, args), f64(dh), f64(dfin),
+                                   init_state=f64(s0), acc=torch.float64)
+    assert (got[4] is None) == (not with_state)
+    for a, w, w32, w64 in zip(got, want, want32, want64):
+        if a is None:
+            continue
+        assert a.dtype == w.dtype and a.shape == w.shape
+        _ssd_close(a, w, w32, w64)
+    again = rs.rglru_scan_bwd(*args, dh, dfin, init_state=s0)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(again, got))
+    if dtype != torch.float32 or S > 1024:
+        return
+    leaves = [t.clone().requires_grad_() for t in args]
+    init = None if s0 is None else s0.clone().requires_grad_()
+    every = leaves + ([init] if init is not None else [])
+
+    def loss(h, fin):
+        out = (h * dh).sum()
+        return out + (fin * dfin).sum() if dfin is not None else out
+    auto = torch.autograd.grad(loss(*rs.rglru_scan_ref(
+        *leaves, init_state=init)), every)
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+    monkeypatch.setattr(rs, "rglru_scan_ref", refuse)
+    monkeypatch.setattr(rs, "rglru_scan_bwd_ref", refuse)
+    n0 = rs.rglru_scan.launches, rs.rglru_scan_bwd.launches
+    through = torch.autograd.grad(loss(*rs.rglru_scan(
+        *leaves, init_state=init)), every)
+    monkeypatch.undo()
+    assert (rs.rglru_scan.launches, rs.rglru_scan_bwd.launches) == (
+        n0[0] + 1, n0[1] + 1)
+    for a, w, w64 in zip(through, auto, want64):
+        _ssd_close(a, w, w, w64)
 
 
 def test_rglru_scan_kernel_takes_an_f32_state_and_strided_rows(cuda):

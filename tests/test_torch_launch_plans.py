@@ -230,6 +230,18 @@ def test_ssd_body_is_chosen_by_shape(dtype, P, N, chunk, body):
     assert ss.ssd_body(dtype, P, N, chunk) == body
 
 
+@pytest.mark.parametrize("dtype,P,N,body", [
+    (torch.bfloat16, 64, 128, "mma"),
+    (torch.bfloat16, 32, 16, "fma"),
+    (torch.float32, 64, 128, "fma"),
+    (torch.float32, 32, 16, "fma")])
+def test_ssd_bwd_body_is_chosen_by_shape(dtype, P, N, body):
+    """The backward's key pass runs on the tensor cores for bf16 at the
+    full width, whatever the chunk; float32 (the identity runs, which must
+    stay f32) and the reduced widths take the FMA body."""
+    assert ss.ssd_bwd_body(dtype, P, N) == body
+
+
 def _ssd_views(rows, S, shift=0, width=None):
     """x, dt, A, Bm, Cm as mamba2-370m's layer hands them over: column
     slices of one (rows, S, 2304) bf16 tensor, ``shift`` elements in."""
@@ -299,13 +311,16 @@ def test_ssd_check_accepts_what_the_mamba2_layer_hands_over(prefill,
     (torch.float32, 64, 64, "fma"),
     (torch.float32, 128, 128, "fma"),
     (torch.float32, 192, 128, "fma"),
-    (torch.float32, 96, 64, "fma")])
+    (torch.float32, 96, 64, "fma"),
+    (torch.bfloat16, 256, 256, "mma"),
+    (torch.float32, 256, 256, "fma")])
 def test_flash_bwd_body_is_chosen_by_dtype_and_head_dims(dtype, dk, dv,
                                                          body):
     """The backward's fused tensor-core pass takes bf16 at its built pairs
-    (MLA's (192, 128) with the columns split); float32 (the identity runs,
-    which must stay f32) and bf16 at (96, 64), no multiple of its 64-value
-    column blocks, take the FMA body."""
+    (MLA's (192, 128) with the columns split), bf16 at recurrentgemma's
+    (256, 256) takes the mma.sync body; float32 (the identity runs, which
+    must stay f32) and bf16 at (96, 64), no multiple of the fused pass's
+    64-value column blocks, take the FMA body."""
     assert fa.flash_bwd_body(dtype, dk, dv) == body
 
 
@@ -326,7 +341,9 @@ def _bwd_args(dtype=torch.bfloat16, dk=64, dv=64, shift=0, B=2, S=100,
                                          (torch.float32, 64, 64),
                                          (torch.bfloat16, 192, 128),
                                          (torch.bfloat16, 96, 64),
-                                         (torch.float32, 96, 64)])
+                                         (torch.float32, 96, 64),
+                                         (torch.bfloat16, 256, 256),
+                                         (torch.float32, 256, 256)])
 def test_flash_bwd_check_takes_what_the_train_step_hands_over(dtype, dk, dv):
     fa._bwd_check(*_bwd_args(dtype, dk, dv))
     assert fa._grad_problems(*_bwd_args(dtype, dk, dv)[:3:2], 0) == []
@@ -334,7 +351,7 @@ def test_flash_bwd_check_takes_what_the_train_step_hands_over(dtype, dk, dv):
 
 @pytest.mark.parametrize("case,match", [
     ("pair (128, 64)", "head dims"),
-    ("pair (256, 256)", "head dims"),
+    ("pair (32, 32)", "head dims"),
     ("misaligned q", "16-byte boundary"),
     ("lse shape", "lse"),
     ("q_offset", "q_offset = 0")])
@@ -350,7 +367,7 @@ def test_flash_bwd_check_refuses_what_the_launcher_refuses(case, match):
             fa.flash_attention(q, *_bwd_args()[1:3], q_offset=3)
         return
     if case.startswith("pair"):
-        dk, dv = (128, 64) if "64" in case else (256, 256)
+        dk, dv = (128, 64) if "64" in case else (32, 32)
         args = _bwd_args(dk=dk, dv=dv)
     elif case == "misaligned q":
         args = _bwd_args(shift=1)
@@ -362,3 +379,23 @@ def test_flash_bwd_check_refuses_what_the_launcher_refuses(case, match):
         fa._bwd_check(*args)
     if case == "misaligned q":            # the FMA body reads elements
         fa._bwd_check(*_bwd_args(torch.float32, shift=1))
+
+
+@pytest.mark.parametrize("B,S,KV,G,padded", [
+    (1, 4096, 1, 10, 40960),   # recurrentgemma-2b's train step
+    (2, 4096, 1, 10, 81920),
+    (5, 4096, 1, 10, 204800),
+    (1, 4097, 1, 1, 4100)])    # the row dots padded to 16 bytes
+def test_flash_bwd_workspace(B, S, KV, G, padded):
+    """At (256, 256) both bodies give every query head its own dK/dV
+    block, so the workspace holds each head's f32 partial dK and dV after
+    the row dots (padded to a 16-byte boundary for the partials' float2
+    stores), whatever the batch; the other FMA pairs' workspaces are the
+    row dots alone."""
+    H = KV * G
+    dots = B * H * S
+    partials = H * B * S * 2 * 256
+    for body in ("fma", "mma"):
+        assert fa.flash_bwd_workspace(body, B, S, H, 256, S, KV) == \
+            padded + partials
+    assert fa.flash_bwd_workspace("fma", B, S, H, 64, S, KV) == dots

@@ -152,7 +152,8 @@ def test_rglru_decode_step_matches_reference_and_the_scan():
 def test_rglru_scan_wrapper_on_the_cpu_takes_the_plain_version():
     """A CPU tensor runs the plain version and counts no launch; ``ops``
     dispatches to the wrapper, and in ``ref`` mode to the plain version;
-    an input that requires grad is refused (the kernel has no backward);
+    an input that requires grad takes :class:`RGLRUScanFn`, whose gradient
+    flows and matches autograd through the plain forward;
     the checks run before a launch name what the kernel does not take."""
     x, ig, ag, la, s0 = (torch.from_numpy(a) for a in _scan_inputs(
         2, 16, 8, seed=5, init=True))
@@ -166,8 +167,16 @@ def test_rglru_scan_wrapper_on_the_cpu_takes_the_plain_version():
             ops.set_mode("auto")
         assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert rs.rglru_scan.launches == n0
-    with pytest.raises(RuntimeError, match="no backward"):
-        rs.rglru_scan(x.clone().requires_grad_(), ig, ag, la)
+    leaf = x.clone().requires_grad_()
+    h, fin = rs.rglru_scan(leaf, ig, ag, la)
+    assert h.grad_fn is not None
+    (got,) = torch.autograd.grad(h.sum() + fin.sum(), leaf)
+    leaf2 = x.clone().requires_grad_()
+    h2, fin2 = rs.rglru_scan_ref(leaf2, ig, ag, la)
+    (auto,) = torch.autograd.grad(h2.sum() + fin2.sum(), leaf2)
+    assert _maxdiff(got, auto.numpy()) <= 2e-5 * max(
+        1.0, float(auto.abs().max()))
+    assert rs.rglru_scan.launches == n0 and rs.rglru_scan_bwd.launches == 0
     rs._check(x, ig, ag, la, s0)                     # what it takes
     rs._check(x.bfloat16(), ig.bfloat16(), ag.bfloat16(), la, s0)
     for args, match in (
@@ -198,6 +207,51 @@ def _layer():
     assert tl["lambda"].dtype == torch.float32    # the bridge keeps it f32
     tl = params_from_numpy(jax.tree.map(np.asarray, jl), "cpu")
     return jcfg, cfg, jl, tl
+
+
+@pytest.mark.parametrize("B,S,W,init,with_dfin", [
+    (2, 64, 16, False, False),
+    (2, 64, 16, False, True),
+    (2, 37, 8, True, True),                 # odd length
+    (1, 100, 32, True, False),
+])
+def test_rglru_scan_bwd_plain_matches_jax_vjp(B, S, W, init, with_dfin):
+    """``rglru_scan_bwd_ref`` against ``jax.vjp`` of the oracle, with dfin
+    zero and not, with and without ``init_state``, each gradient within
+    2e-5 x max(1, max |grad|); then autograd through the plain forward and
+    :class:`RGLRUScanFn` on CPU tensors against the same."""
+    x, ig, ag, la, s0 = _scan_inputs(B, S, W, seed=3 * S + W, init=init)
+    rng = np.random.default_rng(S + 2)
+    dh = rng.standard_normal((B, S, W)).astype(np.float32)
+    dfin = (rng.standard_normal((B, W)).astype(np.float32)
+            if with_dfin else None)
+    ins = [jnp.asarray(a) for a in (x, ig, ag, la)]
+    if init:
+        fn = lambda *a: ref.rglru_scan(*a[:4], init_state=a[4])  # noqa
+        ins.append(jnp.asarray(s0))
+    else:
+        fn = ref.rglru_scan
+    (_, jfin), vjp = jax.vjp(fn, *ins)
+    want = vjp((jnp.asarray(dh), jnp.zeros_like(jfin) if dfin is None
+                else jnp.asarray(dfin)))
+    T = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    got = rs.rglru_scan_bwd_ref(T(x), T(ig), T(ag), T(la), T(dh), T(dfin),
+                                init_state=T(s0))
+    assert (got[4] is None) == (not init)
+    for g, w in zip(got, want):
+        assert _maxdiff(g, w) <= 2e-5 * max(1.0, float(np.abs(
+            np.asarray(w)).max()))
+    leaves = [torch.from_numpy(a).requires_grad_()
+              for a in (x, ig, ag, la) + ((s0,) if init else ())]
+    for fn in (rs.rglru_scan_ref, rs.rglru_scan):
+        h, fin = fn(*leaves[:4], init_state=leaves[4] if init else None)
+        loss = (h * T(dh)).sum()
+        if dfin is not None:
+            loss = loss + (fin * T(dfin)).sum()
+        auto = torch.autograd.grad(loss, leaves)
+        for g, a in zip(got, auto):
+            assert _maxdiff(g, a.detach()) <= 2e-5 * max(
+                1.0, float(a.abs().max()))
 
 
 def test_rglru_forward_and_decode_match_reference():
@@ -262,4 +316,20 @@ def test_rglru_scan_cost_counts_the_work_by_hand():
     assert cost.hbm_bytes == 240 + 20 + 20
     init = pm.rglru_scan_cost(init_state=True, **kw)
     assert init.flops == 300 and init.hbm_bytes == cost.hbm_bytes + 20
+    assert cost.bound_by("bfloat16") == "bytes"
+
+
+def test_rglru_scan_bwd_cost_counts_the_work_by_hand():
+    """The backward at the forward test's shape: 30 elements at 28 flops;
+    x, input_gate, a_gate and dh read, dx, d input_gate and d a_gate written
+    (7 x 30 x 2 bytes), log_a read and d log_a written (2 x 5 x 4); the
+    initial state read and its gradient written, and dfin read, when
+    given (2 x 5 x 2 each)."""
+    kw = dict(batch=2, seq=3, width=5, itemsize=2)
+    cost = pm.rglru_scan_bwd_cost(init_state=False, dfin=False, **kw)
+    assert cost.flops == 30 * 28
+    assert cost.hbm_bytes == 420 + 40
+    full = pm.rglru_scan_bwd_cost(init_state=True, dfin=True, **kw)
+    assert full.flops == cost.flops
+    assert full.hbm_bytes == cost.hbm_bytes + 3 * 20
     assert cost.bound_by("bfloat16") == "bytes"

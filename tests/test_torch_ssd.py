@@ -115,7 +115,8 @@ def test_ssd_scan_plain_matches_pallas(B, S, H, P, N, Q):
 def test_ssd_scan_wrapper_on_the_cpu_takes_the_plain_version():
     """A CPU tensor runs the plain version and counts no launch; ``ops``
     dispatches to the wrapper, and in ``ref`` mode to the plain version;
-    an input that requires grad is refused (the kernel has no backward)."""
+    an input that requires grad takes :class:`SSDScanFn`, whose gradient
+    flows and matches autograd through the plain forward."""
     x, dt, A, Bm, Cm, s0 = (torch.from_numpy(a) for a in _scan_inputs(
         1, 32, 2, 32, 16, seed=5, init=True))
     n0 = ss.ssd_scan.launches
@@ -128,8 +129,82 @@ def test_ssd_scan_wrapper_on_the_cpu_takes_the_plain_version():
             ops.set_mode("auto")
         assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert ss.ssd_scan.launches == n0
-    with pytest.raises(RuntimeError, match="no backward"):
-        ss.ssd_scan(x.clone().requires_grad_(), dt, A, Bm, Cm, chunk=16)
+    leaf = x.clone().requires_grad_()
+    y, fin = ss.ssd_scan(leaf, dt, A, Bm, Cm, chunk=16)
+    assert y.grad_fn is not None
+    (got,) = torch.autograd.grad(y.sum() + fin.sum(), leaf)
+    leaf2 = x.clone().requires_grad_()
+    y2, fin2 = ss.ssd_scan_ref(leaf2, dt, A, Bm, Cm, chunk=16)
+    (auto,) = torch.autograd.grad(y2.sum() + fin2.sum(), leaf2)
+    assert _maxdiff(got, auto.numpy()) <= 2e-5 * max(
+        1.0, float(auto.abs().max()))
+    assert ss.ssd_scan.launches == n0 and ss.ssd_scan_bwd.launches == 0
+
+
+def _ssd_vjp(arrays, dy, dfin, Q):
+    """jax.vjp of the oracle ``ref.ssd_scan`` at ``arrays`` (x, dt, A, Bm,
+    Cm, init_state or None) with output cotangents (dy, dfin or zeros)."""
+    *ins, s0 = (None if a is None else jnp.asarray(a) for a in arrays)
+    if s0 is None:
+        fn = lambda *a: ref.ssd_scan(*a, chunk=Q)            # noqa: E731
+    else:
+        fn = lambda *a: ref.ssd_scan(*a[:5], chunk=Q,        # noqa: E731
+                                     init_state=a[5])
+        ins.append(s0)
+    (_, fin), vjp = jax.vjp(fn, *ins)
+    return vjp((jnp.asarray(dy), jnp.zeros_like(fin) if dfin is None
+                else jnp.asarray(dfin)))
+
+
+@pytest.mark.parametrize("B,S,H,P,N,Q,init,with_dfin", [
+    (2, 64, 4, 32, 16, 32, False, False),
+    (2, 64, 4, 32, 16, 32, False, True),
+    (2, 64, 4, 32, 16, 32, True, True),
+    (1, 100, 2, 16, 8, 100, True, False),   # Q = 100: no power of two
+    (2, 48, 3, 8, 4, 16, True, True),
+])
+def test_ssd_scan_bwd_plain_matches_jax_vjp(B, S, H, P, N, Q, init,
+                                            with_dfin):
+    """``ssd_scan_bwd_ref`` against ``jax.vjp`` of the oracle, with dfin
+    zero and not, with and without ``init_state``; each gradient within
+    2e-5 x max(1, max |grad|) plus twice the plain version's own distance
+    from its float64 evaluation (the decays' running sums, as the
+    forward's limit); then autograd through the plain forward and
+    :class:`SSDScanFn` on CPU tensors against the same."""
+    arrays = _scan_inputs(B, S, H, P, N, seed=7 * S + Q, init=init)
+    rng = np.random.default_rng(S + 1)
+    dy = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    dfin = (rng.standard_normal((B, H, P, N)).astype(np.float32)
+            if with_dfin else None)
+    want = _ssd_vjp(arrays, dy, dfin, Q)
+    T = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    targs = [T(a) for a in arrays]
+    got = ss.ssd_scan_bwd_ref(*targs[:5], T(dy), T(dfin), chunk=Q,
+                              init_state=targs[5])
+    got64 = ss.ssd_scan_bwd_ref(
+        *(None if a is None else a.double() for a in targs[:5]),
+        T(dy).double(), None if dfin is None else T(dfin).double(),
+        chunk=Q, init_state=None if not init else targs[5].double(),
+        acc=torch.float64)
+    leaves = [t.clone().requires_grad_() for t in targs if t is not None]
+    init_leaf = leaves[5] if init else None
+    for fn in (ss.ssd_scan_ref, ss.ssd_scan):
+        y, fin = fn(*leaves[:5], chunk=Q, init_state=init_leaf)
+        loss = (y * T(dy)).sum()
+        if dfin is not None:
+            loss = loss + (fin * T(dfin)).sum()
+        auto = torch.autograd.grad(loss, leaves)
+        for g, a in zip(got, auto):
+            assert _maxdiff(g, a.detach()) <= 2e-5 * max(
+                1.0, float(a.abs().max()))
+    assert got[5] is None if not init else got[5].shape == (B, H, P, N)
+    for g, g64, w in zip(got, got64, want):
+        if g is None:
+            continue
+        own = _maxdiff(g, g64.float())
+        limit = 2e-5 * max(1.0, float(np.abs(np.asarray(w)).max())) \
+            + 2 * own
+        assert _maxdiff(g, w) <= limit
 
 
 def test_decode_step_and_convs_match_reference():
@@ -281,3 +356,25 @@ def test_ssd_scan_cost_counts_the_work_by_hand():
     assert init.flops == 2 * (2 * per_chunk + 2 * 3 * 80)
     assert init.hbm_bytes == cost.hbm_bytes + state
     assert cost.bound_by("bfloat16") == "bytes"
+
+
+def test_ssd_scan_bwd_cost_counts_the_work_by_hand():
+    """The backward at the forward test's shapes: per (row, chunk) 10
+    causal pairs; C B^T, dG B and dG^T C 3 x 2 N = 30 flops a pair once for
+    the heads; per head M^T dy and dy (x dt)^T 2 x 2 P = 8 a pair and four
+    state products of 2 Q P N = 80, and the read-out's 80 for every chunk
+    but a zero-state row's first.  Bytes: x, dy, dx; dt, ddt; A, dA; Bm,
+    Cm, dBm, dCm; the initial state and its gradient, dfin when given."""
+    kw = dict(batch=2, seq=8, heads=3, head_dim=2, d_state=5, chunk=4,
+              itemsize=2)
+    per_chunk = 10 * 30 + 3 * (10 * 8 + 4 * 80)
+    cost = pm.ssd_scan_bwd_cost(init_state=False, dfin=False, **kw)
+    assert cost.flops == 2 * (2 * per_chunk + 1 * 3 * 80)
+    xs = 3 * (2 * 8 * 3 * 2 * 2)
+    dts = 2 * (2 * 8 * 3 * 4) + 2 * 3 * 4
+    bc = 4 * 2 * 8 * 5 * 2
+    state = 2 * 3 * 2 * 5 * 2
+    assert cost.hbm_bytes == xs + dts + bc
+    full = pm.ssd_scan_bwd_cost(init_state=True, dfin=True, **kw)
+    assert full.flops == 2 * (2 * per_chunk + 2 * 3 * 80)
+    assert full.hbm_bytes == cost.hbm_bytes + 3 * state

@@ -11,9 +11,12 @@ reference's oracle, and the checkpoints in both directions; ``loss_fn``
 and its gradient leaf by leaf, and five train steps, on each of
 :data:`TRAIN_ARCHS`: qwen2-0.5b, deepseek-v2-lite-16b (MLA at (Dk, Dv) =
 (96, 64), MoE under the reference's default gshard dispatch),
-deepseek-moe-16b, and musicgen-large and internvl2-26b with a seeded
+deepseek-moe-16b, musicgen-large and internvl2-26b with a seeded
 multimodal prefix (through ``make_train_step(multimodal=True)``, since
-neither trainer makes a prefix); and the typed refusals of what one
+neither trainer makes a prefix), mamba2-370m (the SSD scan's backward) and
+recurrentgemma-2b (the RG-LRU scan's, cut to its first three layers with a
+window of 8, so that the windowed flash backward runs too); and the typed
+refusals of what one
 device does not train (a mesh, a plan, an offload, a MoE config under
 the ragged dispatch, whose grouped matmul has no backward yet, a head-dim
 pair or a ``q_offset`` the backward does not take).
@@ -63,15 +66,21 @@ from repro_torch.train import trainer  # noqa: E402
 TRAIN_STEPS = 5
 SHAPE = (32, 2)                       # seq_len, global batch
 # the dense GQA main path, MLA at (Dk, Dv) = (96, 64) with MoE, GQA with
-# MoE, and the two archs with a multimodal prefix
+# MoE, the two archs with a multimodal prefix, and the two recurrent archs
+# (the SSD scan's and the RG-LRU scan's backward)
 TRAIN_ARCHS = ("qwen2-0.5b", "deepseek-v2-lite-16b", "deepseek-moe-16b",
-               "musicgen-large", "internvl2-26b")
+               "musicgen-large", "internvl2-26b", "mamba2-370m",
+               "recurrentgemma-2b")
+# recurrentgemma-2b's .reduced() keeps 2 layers, both RG-LRU: a third, its
+# LOCAL_ATTN, and a window of 8 (below the sequences here) make the
+# windowed flash backward part of its step
+REDUCED_EXTRA = {"recurrentgemma-2b": dict(num_layers=3, sliding_window=8)}
 
 
 def _cfgs(arch="qwen2-0.5b"):
-    jcfg = dataclasses.replace(jax_get_config(arch).reduced(),
-                               dtype="float32")
-    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    extra = dict(dtype="float32", **REDUCED_EXTRA.get(arch, {}))
+    jcfg = dataclasses.replace(jax_get_config(arch).reduced(), **extra)
+    cfg = dataclasses.replace(get_config(arch).reduced(), **extra)
     return jcfg, cfg
 
 
@@ -473,8 +482,8 @@ def test_typed_refusals():
     step = steps.make_train_step(mcfg, acfg, moe_dispatch="ragged")
     with pytest.raises(RuntimeError, match="2.9b"):
         step(params, state, batch)
-    q = torch.zeros(1, 4, 2, 256, requires_grad=True)
-    k = torch.zeros(1, 4, 2, 256)
+    q = torch.zeros(1, 4, 2, 32, requires_grad=True)
+    k = torch.zeros(1, 4, 2, 32)
     with pytest.raises(ValueError, match="backward is built"):
         fa.flash_attention(q, k, k, window=8)
     q = torch.zeros(1, 4, 2, 64, requires_grad=True)
