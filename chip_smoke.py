@@ -61,7 +61,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                  shape (4 x 4096, H = 32, (64, 128), chunks of 256) and
                  rglru_scan_bwd at phase 34's (1 x 4096 x 2560), and both
                  at 2 x 1024 with an initial state and dfin, against their
-                 plain versions.  Each
+                 plain versions, the SSD backward's log naming its body
+                 (ssd_bwd_body), its kernels and their ptxas registers
+                 and spills.  Each
                  kernel is timed in bf16 at its
                  main-path shape beside its plain version, a library
                  yardstick (SDPA; SDPA's backward; torch._grouped_mm; none
@@ -1567,6 +1569,16 @@ def rg_bwd_cases(torch, dtype):
     return out
 
 
+def ssd_bwd_kernel_names(ss, dtype, P, N):
+    """The kernels ssd_bwd_body's body launches before ssd_bwd_dt, as
+    ptxas_report names them."""
+    if ss.ssd_bwd_body(dtype, P, N) == "mma":
+        return ["ssd_bwd_states", "ssd_bwd_keys_mma", "ssd_bwd_queries_wg"]
+    t = "f32" if dtype.itemsize == 4 else "bf16"
+    return [f"{k}<{t},{P},{N}>" for k in ("ssd_bwd_chunk", "ssd_bwd_pass",
+                                          "ssd_bwd_keys", "ssd_bwd_queries")]
+
+
 def scan_grad_parity(torch, dtype_name, got, want, want32, want64, rel):
     """The two scans' backward rule: (max abs error against the plain
     version, worst share of the allowed error).  Every gradient sums over
@@ -1623,8 +1635,17 @@ def scan_bwd_checks(torch, dtype_name, timed):
                                                    want64) if g is not None}
             del want32, want64
             x = args[0]
-            body = ("" if name != "ssd_scan_bwd" else ", key pass "
-                    + ss.ssd_bwd_body(dtype, x.shape[-1], args[3].shape[-1]))
+            body = ""
+            if name == "ssd_scan_bwd":
+                report = {fn: (regs, spill) for fn, regs, spill
+                          in PTXAS.get("ssd_scan_bwd", ())}
+                body = ", body " + ss.ssd_bwd_body(
+                    dtype, x.shape[-1], args[3].shape[-1]) + ": " + ", ".join(
+                    f"{fn} {report[fn][0]} registers, {report[fn][1]} bytes "
+                    "spill stores" if fn in report else f"{fn} (built before "
+                    "this run: no ptxas report)"
+                    for fn in ssd_bwd_kernel_names(ss, dtype, x.shape[-1],
+                                                   args[3].shape[-1]))
             log(f"[kernels] {name} ({case}, " + " x ".join(
                 map(str, x.shape)) + f"{body}) {dtype_name}: max_abs_err "
                 + ", ".join(f"{n} {e:.3e} ({sh:.3f})"

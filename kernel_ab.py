@@ -60,6 +60,8 @@ timers, ROUNDS readings each:
 * synced -- a wait after every launch, so host time that the card does
   not hide is counted too;
 
+a backward's time split by kernel (``kernels``: torch.profiler's device
+time of each kernel over SPLIT_CALLS calls, each behind a cold-L2 flush);
 and the host's own time of one wrapper call (``host_us``: CALLS calls
 queued back to back on the host's clock, the wait for the card after the
 clock stops) and of its input checks alone (``check_us``).  Where one
@@ -176,6 +178,33 @@ def host_us(fn, torch, calls=CALLS):
 
 TIMERS = (("queued", timer_queued), ("synced", timer_synced))
 MEASURES = ("queued", "synced", "host_us", "check_us", "library")
+SPLIT_CALLS = 10     # calls of a backward under the profiler, for its split
+
+
+def kernel_split(fn, torch, calls=SPLIT_CALLS):
+    """Device ms a call of each kernel that one wrapper call launches (a
+    backward launches several), from torch.profiler's CUDA activity over
+    ``calls`` calls, each behind a cold-L2 flush: {kernel name: ms a
+    call}.  The repository's kernels are the ones in an anonymous
+    namespace (every csrc/*.cu keeps its kernels in one), which leaves
+    the flush's own kernel out."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    fn()
+    flush.zero_()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0))
+        if t > 0 and "(anonymous namespace)" in e.key:
+            out[e.key] = out.get(e.key, 0.0) + t / 1e3 / calls
+    return out
 
 
 def rg_table(torch, g, limits, window):
@@ -609,6 +638,9 @@ def worker(tree: str, only) -> None:
                 readings["library"].append(timer_queued(lib, torch))
         result[case] = {"lib": build.lib_path(name).name,
                         "max_abs_err": err, **readings}
+        if name.endswith("_bwd"):        # its time split by kernel
+            result[case]["kernels"] = kernel_split(lambda: fn(*args, **kw),
+                                                   torch)
     print(json.dumps(result))
 
 
@@ -652,6 +684,15 @@ def main(trees, only) -> int:
             for tree in have[1:]:
                 print(f"{kernel} {name}: {tree} / {have[0]} = "
                       f"{med[tree] / med[have[0]]:.4f}")
+        for tree in have:                # a backward's split by kernel
+            splits = [r[kernel]["kernels"] for r in runs
+                      if r["tree"] == tree and "kernels" in r[kernel]]
+            for fn in dict.fromkeys(k for sp in splits for k in sp):
+                vals = sorted(sp.get(fn, 0.0) for sp in splits)
+                print(f"{kernel} kernel {tree}: {fn}: median "
+                      f"{vals[len(vals) // 2]:.4f} ms a call, range "
+                      f"{vals[0]:.4f}..{vals[-1]:.4f} over {len(vals)} "
+                      "processes (profiler)")
     print(json.dumps({"shape": [H, KV, D], "runs": runs}))
     return 0
 

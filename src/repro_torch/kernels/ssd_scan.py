@@ -23,10 +23,10 @@ Gradients: when an input requires grad, :func:`ssd_scan` runs
 :class:`SSDScanFn`, whose backward is :func:`ssd_scan_bwd`: the
 hand-written ``csrc/ssd_scan_bwd.cu`` on CUDA tensors (no
 ``pallas_call`` counterpart: the reference differentiates its oracle
-``ref.ssd_scan``), :func:`ssd_scan_bwd_ref` on CPU tensors; its key
-pass runs on the tensor cores for bf16 at the full width
+``ref.ssd_scan``), :func:`ssd_scan_bwd_ref` on CPU tensors; for bf16 at
+the full width every product runs on the tensor cores
 (:func:`ssd_bwd_body`).  ``ssd_scan_bwd.launches`` counts backward calls
-(each launches the six kernels of the file's header).
+(each launches the body's kernels, as the file's header lists them).
 :func:`ssd_decode_step` is plain PyTorch: the reference runs its decode
 step through the oracle only (``ops.ssd_decode_step``).
 """
@@ -337,31 +337,39 @@ class SSDScanFn(torch.autograd.Function):
 
 SSD_BWD_KT = 32      # keys (and queries) a tile of the backward's kernels
 SSD_BWD_BODIES = {"fma": 0, "mma": 1}   # the launcher's body codes
+SSD_BWD_SPLITS = 8   # most parts of a chunk decay's d cs_last (FMA body)
 
 
 def ssd_bwd_body(dtype, P: int, N: int) -> str:
-    """Which key pass the backward runs, from the shapes alone and before
-    the launch: "mma" (its products on the tensor cores, mma.sync, the f32
-    operands in three bf16 parts) for bf16 at (P, N) = SSD_WG_DIMS, else
-    "fma" (float32 FMAs: the f32 identity runs and the reduced widths)."""
+    """Which body the backward runs, from the shapes alone and before the
+    launch: "mma" (the tensor cores, the f32 operands in three bf16 parts:
+    wgmma for the chunk states and the query pass, mma.sync for the key
+    pass) for bf16 at (P, N) = SSD_WG_DIMS, whatever the chunk, else "fma"
+    (float32 FMAs: the f32 identity runs, which must stay f32, and the
+    reduced widths)."""
     if dtype == torch.bfloat16 and (P, N) == SSD_WG_DIMS:
         return "mma"
     return "fma"
 
 
 def ssd_bwd_workspace(B: int, S: int, H: int, P: int, N: int,
-                      chunk: int) -> int:
-    """f32 values of the backward's workspace (``csrc/ssd_scan_bwd.cu``):
-    the running sums cs, the d cs parts of the key and query passes (B H
-    S each), the chunk-boundary states and their adjoints (B H nc P N
-    each), the head-summed dG (B nc Q Q), the score rows' partial sums (B
-    H nc ceil(Q / 32) Q), each key tile's share of d cs_last (B H nc
-    ceil(Q / 32)), the chunk decays' d cs_last in up to 8 parts (B H nc 8)
-    and dA's per-row partials (B H)."""
+                      chunk: int, body: str) -> int:
+    """f32 values of the backward's workspace (``csrc/ssd_scan_bwd.cu``)
+    for ``body``: the chunk-boundary states and their adjoints (B H nc P N
+    each: f32 in the FMA body; three bf16 parts, 1.5 f32 values an entry,
+    in the tensor-core body, which writes them once as the products read
+    them), the running sums cs and the d cs parts of the key and query
+    passes (B H S each), the head-summed dG (B nc Q Q), the score rows'
+    partial sums (B H nc ceil(Q / 32) Q), each key tile's share of d
+    cs_last (B H nc ceil(Q / 32)), the chunk decays' d cs_last (B H nc: one
+    in-block sum a chunk in the tensor-core body; up to SSD_BWD_SPLITS
+    parts in the FMA body) and dA's per-row partials (B H)."""
     nc, nt = S // chunk, -(-chunk // SSD_BWD_KT)
-    return (3 * B * H * S + 2 * B * H * nc * P * N + B * nc * chunk * chunk
-            + B * H * nc * nt * chunk + B * H * nc * nt + 8 * B * H * nc
-            + B * H)
+    mma = body == "mma"
+    state = B * H * nc * P * N * (3 if mma else 2) // 2
+    return (2 * state + 3 * B * H * S + B * nc * chunk * chunk
+            + B * H * nc * nt * chunk + B * H * nc * nt
+            + B * H * nc * (1 if mma else SSD_BWD_SPLITS) + B * H)
 
 
 @functools.cache
@@ -388,7 +396,7 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dfin, *, chunk, init_state=None):
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan_bwd: no kernel for device {x.device}")
     # contiguous, x, Bm, Cm and dy on 16-byte boundaries (the tensor-core
-    # key pass copies 16-byte pieces of their rows)
+    # body copies 16-byte pieces of their rows)
     x, dt, A, Bm, Cm, dy = (t.contiguous() for t in (x, dt, A, Bm, Cm, dy))
     x, Bm, Cm, dy = (t if t.data_ptr() % 16 == 0 else t.clone()
                      for t in (x, Bm, Cm, dy))
@@ -411,7 +419,8 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dfin, *, chunk, init_state=None):
     ddt = torch.empty(Bb, S, H, dtype=torch.float32, device=x.device)
     dA = torch.empty(H, dtype=torch.float32, device=x.device)
     dinit = None if init is None else torch.empty_like(init)
-    ws = torch.empty(ssd_bwd_workspace(Bb, S, H, P, N, chunk),
+    body = ssd_bwd_body(x.dtype, P, N)
+    ws = torch.empty(ssd_bwd_workspace(Bb, S, H, P, N, chunk, body),
                      dtype=torch.float32, device=x.device)
     rc = _bwd_lib()(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                     Bm.data_ptr(), Cm.data_ptr(),
@@ -423,7 +432,7 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dfin, *, chunk, init_state=None):
                     DTYPE_CODES[x.dtype],
                     int(init is not None and init.dtype == torch.float32),
                     int(dfin is not None and dfin.dtype == torch.float32),
-                    SSD_BWD_BODIES[ssd_bwd_body(x.dtype, P, N)],
+                    SSD_BWD_BODIES[body],
                     torch.cuda.current_stream(x.device).cuda_stream)
     count_launch(ssd_scan_bwd, rc)
     return dx, ddt, dA, dB, dC, dinit

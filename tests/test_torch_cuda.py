@@ -26,7 +26,9 @@ and recurrentgemma-2b's (256, 256) over up to 4160 keys, a second call's
 dk and dv bit for bit; the SSD and RG-LRU scans' backwards against their
 plain versions (every gradient, with and without an initial state and
 the final state's gradient, a second call bit for bit, and through their
-autograd Functions against autograd over the plain forwards); the
+autograd Functions against autograd over the plain forwards; the SSD
+backward also at mamba2-370m's 32 heads, over 16 chunks and past one wave
+of (b, h) pairs); the
 wrappers' refusals (shapes,
 dtypes, inputs that require grad where no backward is built, side inputs on another device or of the wrong shape, an
 unaligned pool; never a plain version on a CUDA tensor), and the
@@ -869,11 +871,32 @@ def test_ssd_bwd_kernel_matches_plain_version(cuda, dtype, with_state, S, Q,
     atomics); through autograd, :class:`SSDScanFn` against autograd over
     the plain forward in f32, with the plain versions barred from CUDA
     tensors."""
-    args, s0 = _ssd_inputs(dtype, cuda, 2, S, 3, P, N, seed=S + Q + 1,
+    _ssd_bwd_check(cuda, dtype, with_state, 2, S, 3, Q, P, N, monkeypatch)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("B,S,Q", [(2, 2048, 256), (1, 4096, 256),
+                                   (2, 512, 16), (2, 512, 64),
+                                   (8, 512, 128)])
+def test_ssd_bwd_kernel_at_mamba2_heads(cuda, dtype, with_state, B, S, Q,
+                                        monkeypatch):
+    """The same checks at mamba2-370m's 32 heads and (P, N) = (64, 128):
+    8 and 16 chunks of 256 (the passes over chunks walked in both
+    directions), chunks of 16 and 64 (one 64-row tile of the wgmma kernels
+    mostly zero-filled, and whole), and 8 x 32 = 256 (b, h) pairs, more
+    than the card's SMs hold at once, so that the state kernel's grid runs
+    past one wave."""
+    _ssd_bwd_check(cuda, dtype, with_state, B, S, 32, Q, 64, 128,
+                   monkeypatch)
+
+
+def _ssd_bwd_check(cuda, dtype, with_state, B, S, H, Q, P, N, monkeypatch):
+    args, s0 = _ssd_inputs(dtype, cuda, B, S, H, P, N, seed=S + Q + 1,
                            init=with_state)
     g = torch.Generator().manual_seed(S)
-    dy = torch.randn(2, S, 3, P, generator=g).to(cuda, dtype)
-    dfin = (torch.randn(2, 3, P, N, generator=g).to(cuda, dtype)
+    dy = torch.randn(B, S, H, P, generator=g).to(cuda, dtype)
+    dfin = (torch.randn(B, H, P, N, generator=g).to(cuda, dtype)
             if with_state else None)
     kw = dict(chunk=Q, init_state=s0)
     n0 = ss.ssd_scan_bwd.launches
@@ -893,6 +916,7 @@ def test_ssd_bwd_kernel_matches_plain_version(cuda, dtype, with_state, S, Q,
             continue
         assert a.dtype == w.dtype and a.shape == w.shape
         _ssd_close(a, w, w32, w64)
+    del want32
     again = ss.ssd_scan_bwd(*args, dy, dfin, **kw)
     assert all(a is None or torch.equal(a, b) for a, b in zip(again, got))
     if dtype != torch.float32:

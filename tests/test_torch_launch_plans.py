@@ -236,10 +236,37 @@ def test_ssd_body_is_chosen_by_shape(dtype, P, N, chunk, body):
     (torch.float32, 64, 128, "fma"),
     (torch.float32, 32, 16, "fma")])
 def test_ssd_bwd_body_is_chosen_by_shape(dtype, P, N, body):
-    """The backward's key pass runs on the tensor cores for bf16 at the
-    full width, whatever the chunk; float32 (the identity runs, which must
-    stay f32) and the reduced widths take the FMA body."""
+    """The backward runs on the tensor cores (its chunk states, R_c and
+    query pass on wgmma, its key pass on mma.sync) for bf16 at the full
+    width, whatever the chunk; float32 (the identity runs, which must stay
+    f32) and the reduced widths take the FMA body."""
     assert ss.ssd_bwd_body(dtype, P, N) == body
+
+
+@pytest.mark.parametrize("body,B,S,H,P,N,chunk,values", [
+    # 2 x 8, 3 heads, chunks of 4 (nc = 2, one 32-key tile): the states in
+    # three bf16 parts, 2 x (2 3 2 64 128 x 3 / 2) = 294912; cs, ct, rd 3 x
+    # 48; dG 2 2 16 = 64; rows 2 3 2 1 4 = 48; lastp 12; d cs_last one a
+    # chunk, 12; dA's parts 6
+    ("mma", 2, 8, 3, 64, 128, 4, 294912 + 144 + 64 + 48 + 12 + 12 + 6),
+    # the same in the FMA body: f32 states, 2 x 2 3 2 8192 = 196608, and d
+    # cs_last in 8 parts a chunk, 96
+    ("fma", 2, 8, 3, 64, 128, 4, 196608 + 144 + 64 + 48 + 12 + 96 + 6),
+    # mamba2-370m's train shape, 4 x 4096, 32 heads, chunks of 256 (nc =
+    # 16, nt = 8): parts 2 x 4 32 16 8192 x 3 / 2 = 50331648; 3 x 524288;
+    # dG 4 16 65536 = 4194304; rows 4 32 16 8 256 = 4194304; lastp 16384;
+    # d cs_last 2048; dA's parts 128 (241 MB)
+    ("mma", 4, 4096, 32, 64, 128, 256,
+     50331648 + 1572864 + 4194304 + 4194304 + 16384 + 2048 + 128),
+    # the reduced widths, a chunk of 1 (32 x 16; nt = 1): f32 states 2 x 1
+    # 2 45 512 = 92160; 3 x 90; dG 45; rows 90; lastp 90; d cs_last 720;
+    # dA's parts 2
+    ("fma", 1, 45, 2, 32, 16, 1, 92160 + 270 + 45 + 90 + 90 + 720 + 2)])
+def test_ssd_bwd_workspace_counts_the_layout_by_hand(body, B, S, H, P, N,
+                                                     chunk, values):
+    """The backward's f32 workspace for each body, counted region by
+    region as ``csrc/ssd_scan_bwd.cu``'s launcher lays it out."""
+    assert ss.ssd_bwd_workspace(B, S, H, P, N, chunk, body) == values
 
 
 def _ssd_views(rows, S, shift=0, width=None):
