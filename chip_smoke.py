@@ -741,6 +741,8 @@ def ssd_cases(torch, dtype):
     cases += [(f"S={S}",) + ssd_inputs(torch, dtype, cfg, 2, S, SEED + 22 + i,
                                        False)
               for i, S in enumerate(SSM_EXTRA_S)]
+    cases.append(("train",) + ssd_inputs(torch, dtype, cfg, SSM_TRAIN_B,
+                                         SSM_TRAIN_S, SEED + 64, False))
     return cases
 
 
@@ -831,6 +833,9 @@ def rg_cases(torch, dtype):
     cases += [("rglru_scan", f"S={S}", None, rglru_scan, rglru_scan_ref)
               + rg_scan_inputs(torch, dtype, W, 2, S, SEED + 32 + i, False)
               for i, S in enumerate(RG_EXTRA_S)]
+    cases.append(("rglru_scan", "train", None, rglru_scan, rglru_scan_ref)
+                 + rg_scan_inputs(torch, dtype, W, RG_TRAIN_B, RG_TRAIN_S,
+                                  SEED + 65, False))
     g = torch.Generator(device="cpu").manual_seed(SEED + 40)
     nb = RG_NUM_BLOCKS * 2
 
@@ -1381,8 +1386,8 @@ def bwd_kernel_names(fa, dtype, dk, dv):
     if fa.flash_bwd_body(dtype, dk, dv) == "wgmma":
         cols = "_cols" if (dk, dv) == (192, 128) else ""
         return [f"flash_bwd_wgmma{cols}<{dk},{dv}>"]
-    if fa.flash_bwd_body(dtype, dk, dv) == "mma":
-        return ["flash_bwd_dkdv_wide_mma", "flash_bwd_dq_wide_mma"]
+    if fa.flash_bwd_body(dtype, dk, dv) == "wide":
+        return ["flash_bwd_wide_dkdv", "flash_bwd_wide_dq"]
     t = "f32" if dtype.itemsize == 4 else "bf16"
     if (dk, dv) == (256, 256):
         return [f"flash_bwd_dkdv_wide<{t},{dk}>", f"flash_bwd_dq_wide<{t},{dk}>"]
@@ -1635,17 +1640,21 @@ def scan_bwd_checks(torch, dtype_name, timed):
                                                    want64) if g is not None}
             del want32, want64
             x = args[0]
-            body = ""
+            report = {k: (regs, spill) for k, regs, spill
+                      in PTXAS.get(name, ())}
             if name == "ssd_scan_bwd":
-                report = {fn: (regs, spill) for fn, regs, spill
-                          in PTXAS.get("ssd_scan_bwd", ())}
                 body = ", body " + ss.ssd_bwd_body(
-                    dtype, x.shape[-1], args[3].shape[-1]) + ": " + ", ".join(
-                    f"{fn} {report[fn][0]} registers, {report[fn][1]} bytes "
-                    "spill stores" if fn in report else f"{fn} (built before "
-                    "this run: no ptxas report)"
-                    for fn in ssd_bwd_kernel_names(ss, dtype, x.shape[-1],
-                                                   args[3].shape[-1]))
+                    dtype, x.shape[-1], args[3].shape[-1])
+                kernels = ssd_bwd_kernel_names(ss, dtype, x.shape[-1],
+                                               args[3].shape[-1])
+            else:
+                body, t = "", "f32" if dtype.itemsize == 4 else "bf16"
+                kernels = [f"rglru_bwd_{k}<{t}>"
+                           for k in ("chunks", "carries", "grads")]
+            body += ": " + ", ".join(
+                f"{k} {report[k][0]} registers, {report[k][1]} bytes spill "
+                "stores" if k in report else f"{k} (built before this run: "
+                "no ptxas report)" for k in kernels)
             log(f"[kernels] {name} ({case}, " + " x ".join(
                 map(str, x.shape)) + f"{body}) {dtype_name}: max_abs_err "
                 + ", ".join(f"{n} {e:.3e} ({sh:.3f})"
@@ -1779,13 +1788,30 @@ def train_table(torch, pm, timed):
 
 
 def scan_train_table(pm, timed):
-    """Timing rows of the two scans' backwards at the train steps' shapes,
-    read from phases 31 (mamba2-370m) and 34 (recurrentgemma-2b).  No
-    PyTorch call computes either, so neither has a library time."""
+    """Timing rows of the two scans and their backwards at the train
+    steps' shapes, read from phases 31 (mamba2-370m) and 34
+    (recurrentgemma-2b).  No PyTorch call computes any of them, so none
+    has a library time."""
     x = timed[("ssd_scan_bwd", "train")][2][0]
     N = timed[("ssd_scan_bwd", "train")][2][3].shape[-1]
     rx = timed[("rglru_scan_bwd", "train")][2][0]
+    fx = timed[("ssd_scan", "train")][2][0]
+    fkw = timed[("ssd_scan", "train")][3]
     return (
+        ("ssd_scan", "train",
+         pm.ssd_scan_cost(batch=fx.shape[0], seq=fx.shape[1],
+                          heads=fx.shape[2], head_dim=fx.shape[3],
+                          d_state=N, chunk=fkw["chunk"], itemsize=2,
+                          init_state=False),
+         None, "library call: none (no PyTorch call computes the SSD "
+         "scan)", "src/repro/kernels/ssd_scan.py:70", f"{SSM_ARCH} train"),
+        ("rglru_scan", "train",
+         pm.rglru_scan_cost(batch=rx.shape[0], seq=rx.shape[1],
+                            width=rx.shape[2], itemsize=2,
+                            init_state=False),
+         None, "library call: none (no PyTorch call computes the RG-LRU "
+         "recurrence)", "src/repro/kernels/rglru_scan.py:66",
+         f"{RG_ARCH} train"),
         ("ssd_scan_bwd", "train",
          pm.ssd_scan_bwd_cost(batch=x.shape[0], seq=x.shape[1],
                               heads=x.shape[2], head_dim=x.shape[3],
@@ -1913,6 +1939,8 @@ ROW_NAMES = {("flash_attention", "MLA rows q_offset (192, 128)"):
              ("grouped_matmul", "prefill, one expert"):
              "grouped_matmul_prefill_one_expert",
              ("ssd_scan", "Generator prefill"): "ssd_scan_generator_prefill",
+             ("ssd_scan", "train"): "ssd_scan_train",
+             ("rglru_scan", "train"): "rglru_scan_train",
              ("rglru_scan", "Generator prefill"):
              "rglru_scan_generator_prefill",
              ("paged_decode_attention", "recurrentgemma serving"):

@@ -22,7 +22,7 @@
 // What bounds it on the H100: operations.  The visible work is 2 x pairs
 // x (3 DK + 2 DV) flops a query head (perf_model.flash_attention_bwd_cost:
 // S, dP, dV, dK, dQ), ~2200 flops a byte at qwen2's train shape against
-// the card's ~295.  Two bodies, chosen by the wrapper before the launch
+// the card's ~295.  Three bodies, chosen by the wrapper before the launch
 // (flash_attention.flash_bwd_body) and refused here for a shape they do
 // not take:
 //
@@ -89,8 +89,8 @@
 //
 // FMA body (f32, where f32 must stay f32: never TF32; and bf16 at (96,
 // 64), whose 96 is no multiple of the tensor-core body's 64-value column
-// blocks, and at (256, 256): tiles widened to f32 on load, outputs rounded
-// once), three kernels:
+// blocks: tiles widened to f32 on load, outputs rounded once), three
+// kernels:
 //
 //   flash_bwd_dot   D_i, (B, H, Sq) f32, one warp a (token, head) row;
 //   flash_bwd_dkdv  grid (64-key tile, kv head, batch row): the block holds
@@ -108,26 +108,32 @@
 //   row length so that neither the row-strided nor the column reads
 //   conflict.  It recomputes S and dP in its dQ kernel.
 //
-// At (256, 256) (recurrentgemma-2b's LOCAL_ATTN, f32 and bf16) the four
-// whole 64 x 257 f32 tiles would take 263 KB of shared memory, past the
-// 227 KB a block has: flash_bwd_dkdv_wide and flash_bwd_dq_wide hold the
-// block's own two tiles whole (K and V, or Q and dO) and take the other
-// side's in 64-dim chunks, S and dP summed over the chunks and dK, dV or dQ
-// formed a chunk of dims at a time (their 64 or 128 accumulators a thread
-// stay in registers); the other side's tiles are read twice a tile pair.
-// Each query head takes its own dK/dV block (one kv head over 4096 keys
-// gives 64 key tiles, under one block an SM without the split) and
-// flash_bwd_wide_sum adds a kv head's G f32 partials in order.  In bf16
-// the same two passes run their products on the tensor cores
-// (flash_bwd_dkdv_wide_mma, flash_bwd_dq_wide_mma: mma.sync over whole
-// bf16 tiles, P and dS in two bf16 parts; flash_attention.flash_bwd_body
-// "mma"): a wgmma body at (256, 256) would hold 128 + 128 dK and dV
-// accumulators a thread beside its ring.
+// At (256, 256) (recurrentgemma-2b's LOCAL_ATTN) two bodies, each a dK/dV
+// pass and a dQ pass with no atomics (one kv head over 4096 keys gives
+// only 64 key tiles, and dQ's atomics from every key block would be ~1 GB
+// of f32 adds a call there):
+//
+//   bf16 (flash_attention.flash_bwd_body "wide"): flash_bwd_wide_dkdv and
+//   flash_bwd_wide_dq on wgmma, each a block a 64-row tile fed by TMA
+//   through a ring behind mbarriers, the warpgroups splitting the queries
+//   (or keys) of S and dP and the head dims of dK and dV (or dQ); every
+//   tile of 256 bf16 head dims whole in shared memory, 226 KB and 210 KB a
+//   block (see the section's comment below);
+//   f32 (the identity runs): flash_bwd_dkdv_wide and flash_bwd_dq_wide on
+//   FMAs.  The four whole 64 x 257 f32 tiles would take 263 KB of shared
+//   memory, past the 227 KB a block has, so each holds the block's own two
+//   tiles whole (K and V, or Q and dO) and takes the other side's in
+//   64-dim chunks, S and dP summed over the chunks and dK, dV or dQ formed
+//   a chunk of dims at a time (their 64 or 128 accumulators a thread stay
+//   in registers); the other side's tiles are read twice a tile pair.
+//
+// Both give each query head its own dK/dV block and flash_bwd_wide_sum
+// adds a kv head's f32 partials in order.
 //
 // dq, dk and dv are rounded once, at the store.  (DK, DV) pairs built:
 // (64, 64), (128, 128) and (192, 128) in both bodies, (96, 64) in the FMA
-// body (f32 and bf16), (256, 256) in the FMA body (f32) and the mma.sync
-// body (bf16).
+// body (f32 and bf16), (256, 256) in the wide bodies (FMAs in f32, wgmma
+// in bf16).
 
 #include "common.cuh"
 
@@ -706,297 +712,6 @@ __global__ void __launch_bounds__(BWD_THREADS) flash_bwd_dq_wide(
 }
 
 // ---------------------------------------------------------------------------
-// (256, 256) in bf16 on the tensor cores: the wide body's two passes with
-// every product on mma.sync m16n8k16
-// ---------------------------------------------------------------------------
-// The same split of the work as flash_bwd_dkdv_wide / flash_bwd_dq_wide,
-// the tiles held in bf16 (the inputs' own values) so that all four 64 x
-// 256 tiles of a tile pair fit in shared memory whole.  Per tile pair,
-// each of the 8 warps takes 16 rows and half the columns of S^T and dP^T
-// (or S and dP) over the head dims, forms P and dS on its registers and
-// stores them in two bf16 parts (hi = bf16(x), lo = bf16(x - hi): ~16
-// bits, as the fused wgmma body's); then 16 rows and half the head dims of
-// dV and dK (or dQ).  Each tile pair's product starts from zero and is
-// added into the running sums on the CUDA cores, half a warp's columns at
-// a time: the tensor cores' f32 accumulation does not round to nearest,
-// and chained over a row's tiles it drifts (PERF.md section 6).
-constexpr int WM_D = 256, WM_LD = WM_D + 8;   // bf16 rows, skewed 16 bytes
-constexpr int WM_LDP = BWD_T + 8;             // P / dS rows of 64 values
-
-struct WmShape {    // byte offsets into dynamic shared memory
-    static constexpr size_t TILE = BWD_T * WM_LD * 2;       // a 64 x 256 tile
-    static constexpr size_t PART = BWD_T * WM_LDP * 2;      // one P/dS part
-    static constexpr size_t T0 = 0, T1 = TILE, T2 = 2 * TILE, T3 = 3 * TILE;
-    static constexpr size_t PS = 4 * TILE;                   // 4 parts
-    static constexpr size_t ROWS = PS + 4 * PART;            // lse, D
-    static constexpr size_t BYTES = ROWS + 2 * BWD_T * 4;
-};
-
-// rows [r0, r0 + n) of a (B, S, heads, 256) bf16 tensor at head hh into a
-// [64][WM_LD] tile, zeros past n, 16 bytes a copy
-__device__ __forceinline__ void wm_rows(__nv_bfloat16* dst,
-                                        const __nv_bfloat16* src, int b,
-                                        int S, int heads, int hh, int r0,
-                                        int n) {
-    for (int e = threadIdx.x; e < BWD_T * WM_D / 8; e += BWD_THREADS) {
-        const int i = e / (WM_D / 8), c = e % (WM_D / 8);
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (i < n)
-            v = *reinterpret_cast<const uint4*>(
-                src + (((size_t)b * S + r0 + i) * heads + hh) * WM_D + c * 8);
-        *reinterpret_cast<uint4*>(dst + i * WM_LD + c * 8) = v;
-    }
-}
-
-// acc[4 .. ] (16 rows x 32 columns: four n8 tiles) = A B^T over the 256 head
-// dims: A rows m0 .. of a[row][d], B rows n0 .. of b[col][d]
-__device__ __forceinline__ void wm_scores(float (&acc)[4][4],
-                                          const __nv_bfloat16* a, int m0,
-                                          const __nv_bfloat16* b, int n0) {
-    const int lane = threadIdx.x % 32;
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
-#pragma unroll 4
-    for (int ks = 0; ks < WM_D / 16; ++ks) {
-        uint32_t af[4];
-        ldsm_x4<false>(af, a + (m0 + lane % 16) * WM_LD + 16 * ks
-                             + (lane / 16) * 8);
-#pragma unroll
-        for (int pr = 0; pr < 2; ++pr) {
-            uint32_t bf4[4];
-            ldsm_x4<false>(bf4, b + (n0 + 16 * pr + lane % 8 + (lane / 16) * 8)
-                                      * WM_LD + 16 * ks + ((lane / 8) % 2) * 8);
-            mma_bf16(acc[2 * pr], af, bf4[0], bf4[1]);
-            mma_bf16(acc[2 * pr + 1], af, bf4[2], bf4[3]);
-        }
-    }
-}
-
-// sum[16 .. ] (16 rows x 128 columns d0 ..) += (hi + lo)[rows m0 .., 64 k]
-// b[k][d0 ..], a tile's product from zero, added on the CUDA cores half at
-// a time
-__device__ __forceinline__ void wm_accumulate(float (&sum)[16][4],
-                                              const __nv_bfloat16* hi,
-                                              const __nv_bfloat16* lo,
-                                              int m0, const __nv_bfloat16* b,
-                                              int d0) {
-    const int lane = threadIdx.x % 32;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-        float acc[8][4];
-#pragma unroll
-        for (int t = 0; t < 8; ++t)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
-#pragma unroll
-        for (int ks = 0; ks < BWD_T / 16; ++ks) {
-            uint32_t ah[4], al[4];
-            const int off = (m0 + lane % 16) * WM_LDP + 16 * ks
-                + (lane / 16) * 8;
-            ldsm_x4<false>(ah, hi + off);
-            ldsm_x4<false>(al, lo + off);
-#pragma unroll
-            for (int pr = 0; pr < 4; ++pr) {
-                uint32_t bf4[4];
-                ldsm_x4<true>(bf4, b + (16 * ks + lane % 8 + ((lane / 8) % 2)
-                                        * 8) * WM_LD
-                                   + d0 + 64 * half + 16 * pr
-                                   + (lane / 16) * 8);
-                mma_bf16(acc[2 * pr], ah, bf4[0], bf4[1]);
-                mma_bf16(acc[2 * pr + 1], ah, bf4[2], bf4[3]);
-                mma_bf16(acc[2 * pr], al, bf4[0], bf4[1]);
-                mma_bf16(acc[2 * pr + 1], al, bf4[2], bf4[3]);
-            }
-        }
-#pragma unroll
-        for (int t = 0; t < 8; ++t)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) sum[8 * half + t][e] += acc[t][e];
-    }
-}
-
-// P and scale dS of one warp's 16 x 32 corner of a tile pair from its S
-// and dP, as two bf16 parts into hi/lo tiles [row][col]; ``keys_rows``:
-// rows are keys (S^T: the dK/dV pass), else queries
-__device__ __forceinline__ void wm_probs(const float (&st)[4][4],
-                                         const float (&dp)[4][4],
-                                         bool keys_rows, int r0, int c0,
-                                         int q0, int k0, const float* lse_s,
-                                         const float* dd_s, int Sq, int Sk,
-                                         bool causal, int window, float scale,
-                                         __nv_bfloat16* p_hi,
-                                         __nv_bfloat16* p_lo,
-                                         __nv_bfloat16* s_hi,
-                                         __nv_bfloat16* s_lo) {
-    const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            float p[2], ds[2];
-            const int r = r0 + g + 8 * i;
-#pragma unroll
-            for (int u = 0; u < 2; ++u) {
-                const int cc = c0 + 8 * t + 2 * t4 + u;
-                const int qi = keys_rows ? cc : r, kj = keys_rows ? r : cc;
-                const int qp = q0 + qi, kp = k0 + kj;
-                const bool vis = qp < Sq && kp < Sk && (!causal || kp <= qp)
-                    && (window <= 0 || qp - kp < window);
-                const float v = st[t][2 * i + u], w = dp[t][2 * i + u];
-                p[u] = vis ? expf(v * scale - lse_s[qi]) : 0.f;
-                ds[u] = p[u] * (w - dd_s[qi]) * scale;
-            }
-            const int off = r * WM_LDP + c0 + 8 * t + 2 * t4;
-            uint32_t hi, lo;
-            if (p_hi != nullptr) {
-                split2_bf16(p[0], p[1], hi, lo);
-                *reinterpret_cast<uint32_t*>(p_hi + off) = hi;
-                *reinterpret_cast<uint32_t*>(p_lo + off) = lo;
-            }
-            split2_bf16(ds[0], ds[1], hi, lo);
-            *reinterpret_cast<uint32_t*>(s_hi + off) = hi;
-            *reinterpret_cast<uint32_t*>(s_lo + off) = lo;
-        }
-}
-
-__global__ void __launch_bounds__(BWD_THREADS, 1) flash_bwd_dkdv_wide_mma(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v,
-    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ dd, float* __restrict__ part, int Sq, int Sk,
-    int H, int KV, int causal, int window, float scale) {
-    using bf = __nv_bfloat16;
-    using L = WmShape;
-    constexpr int D = WM_D;
-    const int k0 = blockIdx.x * BWD_T, b = blockIdx.z, hh = blockIdx.y;
-    const int kvh = hh / (H / KV), nk = min(BWD_T, Sk - k0);
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int mt = warp % 4, hw = warp / 4;          // 16 rows, a half
-    extern __shared__ __align__(16) unsigned char wm_raw[];
-    bf* Ks = reinterpret_cast<bf*>(wm_raw + L::T0);
-    bf* Vs = reinterpret_cast<bf*>(wm_raw + L::T1);
-    bf* Qs = reinterpret_cast<bf*>(wm_raw + L::T2);
-    bf* Os = reinterpret_cast<bf*>(wm_raw + L::T3);
-    bf* ps = reinterpret_cast<bf*>(wm_raw + L::PS);
-    bf *p_hi = ps, *p_lo = ps + BWD_T * WM_LDP,
-       *s_hi = ps + 2 * BWD_T * WM_LDP, *s_lo = ps + 3 * BWD_T * WM_LDP;
-    float* lse_s = reinterpret_cast<float*>(wm_raw + L::ROWS);
-    float* dd_s = lse_s + BWD_T;
-    wm_rows(Ks, k, b, Sk, KV, kvh, k0, nk);
-    wm_rows(Vs, v, b, Sk, KV, kvh, k0, nk);
-    const int q_lo = causal ? k0 : 0;
-    const int q_end = window > 0 ? min(Sq, k0 + nk - 1 + window) : Sq;
-    float adk[16][4], adv[16][4];
-#pragma unroll
-    for (int t = 0; t < 16; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) adk[t][e] = adv[t][e] = 0.f;
-
-    for (int q0 = q_lo / BWD_T * BWD_T; q0 < q_end; q0 += BWD_T) {
-        const int nq = min(BWD_T, Sq - q0);
-        __syncthreads();           // the last tiles and parts consumed
-        wm_rows(Qs, q, b, Sq, H, hh, q0, nq);
-        wm_rows(Os, dout, b, Sq, H, hh, q0, nq);
-        load_rows(lse_s, dd_s, lse, dd, ((size_t)b * H + hh) * Sq + q0, nq);
-        __syncthreads();
-        // S^T = K Q^T, dP^T = V dO^T: keys 16 mt, queries 32 hw
-        float st[4][4], dpt[4][4];
-        wm_scores(st, Ks, 16 * mt, Qs, 32 * hw);
-        wm_scores(dpt, Vs, 16 * mt, Os, 32 * hw);
-        wm_probs(st, dpt, true, 16 * mt, 32 * hw, q0, k0, lse_s, dd_s,
-                 Sq, Sk, causal != 0, window, scale, p_hi, p_lo, s_hi,
-                 s_lo);
-        __syncthreads();
-        // dV += P^T dO, dK += dS^T Q: keys 16 mt, head dims 128 hw
-        wm_accumulate(adv, p_hi, p_lo, 16 * mt, Os, 128 * hw);
-        wm_accumulate(adk, s_hi, s_lo, 16 * mt, Qs, 128 * hw);
-    }
-    const int g = lane / 4, t4 = lane % 4;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        const int kj = 16 * mt + g + 8 * i;
-        if (kj >= nk) continue;
-        float* pp = part + wide_part_row(b, k0 + kj, hh, Sk, H, KV) * 2 * D;
-#pragma unroll
-        for (int t = 0; t < 16; ++t) {
-            const int d = 128 * hw + 8 * t + 2 * t4;
-            *reinterpret_cast<float2*>(pp + d) =
-                make_float2(adk[t][2 * i], adk[t][2 * i + 1]);
-            *reinterpret_cast<float2*>(pp + D + d) =
-                make_float2(adv[t][2 * i], adv[t][2 * i + 1]);
-        }
-    }
-}
-
-__global__ void __launch_bounds__(BWD_THREADS, 1) flash_bwd_dq_wide_mma(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v,
-    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ dd, __nv_bfloat16* __restrict__ dq, int Sq,
-    int Sk, int H, int KV, int causal, int window, float scale) {
-    using bf = __nv_bfloat16;
-    using L = WmShape;
-    constexpr int D = WM_D;
-    const int q0 = (gridDim.x - 1 - blockIdx.x) * BWD_T;
-    const int hh = blockIdx.y, b = blockIdx.z;
-    const int kvh = hh / (H / KV), nq = min(BWD_T, Sq - q0);
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int mt = warp % 4, hw = warp / 4;
-    extern __shared__ __align__(16) unsigned char wm_raw[];
-    bf* Qs = reinterpret_cast<bf*>(wm_raw + L::T0);
-    bf* Os = reinterpret_cast<bf*>(wm_raw + L::T1);
-    bf* Ks = reinterpret_cast<bf*>(wm_raw + L::T2);
-    bf* Vs = reinterpret_cast<bf*>(wm_raw + L::T3);
-    bf* ps = reinterpret_cast<bf*>(wm_raw + L::PS);
-    bf *s_hi = ps, *s_lo = ps + BWD_T * WM_LDP;
-    float* lse_s = reinterpret_cast<float*>(wm_raw + L::ROWS);
-    float* dd_s = lse_s + BWD_T;
-    wm_rows(Qs, q, b, Sq, H, hh, q0, nq);
-    wm_rows(Os, dout, b, Sq, H, hh, q0, nq);
-    load_rows(lse_s, dd_s, lse, dd, ((size_t)b * H + hh) * Sq + q0, nq);
-    const int k_end = causal ? min(Sk, q0 + nq) : Sk;
-    const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-    float adq[16][4];
-#pragma unroll
-    for (int t = 0; t < 16; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) adq[t][e] = 0.f;
-
-    for (int k0 = k_lo / BWD_T * BWD_T; k0 < k_end; k0 += BWD_T) {
-        const int nk = min(BWD_T, Sk - k0);
-        __syncthreads();               // the last tiles and parts consumed
-        wm_rows(Ks, k, b, Sk, KV, kvh, k0, nk);
-        wm_rows(Vs, v, b, Sk, KV, kvh, k0, nk);
-        __syncthreads();
-        // S = Q K^T, dP = dO V^T: queries 16 mt, keys 32 hw
-        float sc[4][4], dp[4][4];
-        wm_scores(sc, Qs, 16 * mt, Ks, 32 * hw);
-        wm_scores(dp, Os, 16 * mt, Vs, 32 * hw);
-        wm_probs(sc, dp, false, 16 * mt, 32 * hw, q0, k0, lse_s, dd_s, Sq,
-                 Sk, causal != 0, window, scale, nullptr, nullptr, s_hi,
-                 s_lo);
-        __syncthreads();
-        // dQ += dS K: queries 16 mt, head dims 128 hw
-        wm_accumulate(adq, s_hi, s_lo, 16 * mt, Ks, 128 * hw);
-    }
-    const int g = lane / 4, t4 = lane % 4;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        const int qi = 16 * mt + g + 8 * i;
-        if (qi >= nq) continue;
-        const size_t at = (((size_t)b * Sq + q0 + qi) * H + hh) * D;
-#pragma unroll
-        for (int t = 0; t < 16; ++t) {
-            const int d = 128 * hw + 8 * t + 2 * t4;
-            *reinterpret_cast<__nv_bfloat162*>(dq + at + d) =
-                __floats2bfloat162_rn(adq[t][2 * i], adq[t][2 * i + 1]);
-        }
-    }
-}
-
-// ---------------------------------------------------------------------------
 // the tensor-core body (bf16): one fused wgmma pass (see the header)
 // ---------------------------------------------------------------------------
 constexpr int FB_KEYS = 128;        // keys a block: 64 a consumer warpgroup
@@ -1058,14 +773,15 @@ __device__ __forceinline__ uint32_t fb_ds(int buf, int w, int part) {
 
 // D_i = sum_d dO_i o_i and lse_i log2(e) into the ring's row pieces, one
 // warp a (b, s, h) row for s < the padded Sq, h fastest; a row's f32 dQ
-// sum zeroed.  Rows past Sq: lse +inf (their P is 0), D 0.
+// sum zeroed (dq_acc null: none, the (256, 256) body sums dQ in
+// registers).  Rows past Sq: lse +inf (their P is 0), D 0.
 template <int DK, int DV>
 __global__ void __launch_bounds__(FB_PREP_THREADS) flash_bwd_prep(
     const __nv_bfloat16* __restrict__ out,    // (B, Sq, H, DV)
     const __nv_bfloat16* __restrict__ dout,   // (B, Sq, H, DV)
     const float* __restrict__ lse,            // (B, H, Sq)
     float* __restrict__ rows,                 // (B, H, nqt, 2, 64)
-    float* __restrict__ dq_acc,               // (B, Sq, H, DK)
+    float* __restrict__ dq_acc,               // (B, Sq, H, DK) or null
     int B, int Sq, int H, int nqt) {
     const long long row = ((long long)blockIdx.x * FB_PREP_THREADS
                            + threadIdx.x) / 32;
@@ -1095,19 +811,20 @@ __global__ void __launch_bounds__(FB_PREP_THREADS) flash_bwd_prep(
     }
 #pragma unroll
     for (int o = 16; o > 0; o /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (dq_acc != nullptr)
 #pragma unroll
-    for (int d = 2 * lane; d < DK; d += 64)
-        *reinterpret_cast<float2*>(dq_acc + at * DK + d) = make_float2(0.f,
-                                                                       0.f);
+        for (int d = 2 * lane; d < DK; d += 64)
+            *reinterpret_cast<float2*>(dq_acc + at * DK + d) =
+                make_float2(0.f, 0.f);
     if (lane == 0) {
         dst[0] = lse[((size_t)b * H + h) * Sq + s] * FB_LOG2E;
         dst[FB_Q] = acc;
     }
 }
 
-// Step t's loads into ring stage t % NS of either body's ring (shape Sh),
-// by one thread: Q and dO of query head kvh G + t / nt, query tile t_lo +
-// t % nt, and the tile's lse log2(e) and D rows
+// Step t's loads into ring stage t % NS of a ring of Q/dO stages (shape
+// Sh), by one thread: Q and dO of query head kvh G + t / nt, query tile
+// t_lo + t % nt, and the tile's lse log2(e) and D rows
 template <typename Sh, int DK, int DV>
 __device__ __forceinline__ void fb_load_step(
     unsigned char* sm, uint64_t* full, const CUtensorMap* q_map,
@@ -1741,6 +1458,450 @@ __global__ void __launch_bounds__(FB_THREADS, 1) flash_bwd_wgmma_cols(
     }
 }
 
+// ---------------------------------------------------------------------------
+// (256, 256) in bf16 on wgmma: a dK/dV pass and a dQ pass
+// ---------------------------------------------------------------------------
+// recurrentgemma-2b's LOCAL_ATTN heads.  Neither fused pass above fits: a
+// key split would hold dK^T and dV^T 64 x 256 each (256 f32 a thread), and
+// adding dQ by f32 atomics from every key block would be some 1 GB of
+// atomic adds a call at its train shape.  So two passes, each a block a
+// 64-row tile, each fed by TMA through a ring of two stages behind
+// mbarriers, with no atomics:
+//
+//   flash_bwd_wide_dkdv  grid (row x query head, 64-key tile), key tiles
+//     in ascending order (the longest walks first).  The block's K and V
+//     stay in shared memory; it walks the query tiles in its keys' reach,
+//     their Q, dO and lse/D rows arriving through the ring.  Per step:
+//       S^T = K Q^T, dP^T = V dO^T: warpgroup w the 32 queries 32 w .. of
+//         the step's 64 (m64n32, 16 + 16 f32 a thread), as the column
+//         split's;
+//       P^T and dS^T = P^T (dP^T - D) into one buffer in two bf16 parts
+//         each (32 KB), after a barrier that also frees the step before's
+//         stage for the step after;
+//       dV += P^T dO, dK += dS^T Q: warpgroup w the 128 head dims 128 w ..
+//         of both (64 + 64 f32 a thread), each 64-column piece from a fresh
+//         accumulator (32 f32) added on the CUDA cores.
+//     Each block writes its query head's f32 partial dK and dV, and
+//     flash_bwd_wide_sum adds a kv head's G partials in order (two heads a
+//     block, half the partials, timed no faster: PERF.md section 6).
+//     Shared memory:
+//     K and V 64 KB, two 64 KB stages, the parts 32 KB, the rows: 226 KB
+//     with the alignment, one block an SM;
+//   flash_bwd_wide_dq  grid (row x query head, 64-row query tile), the
+//     tiles in descending order.  The block holds Q, dO and the tile's
+//     lse/D rows; K and V come through the ring a key tile a stage.  Per
+//     step S = Q K^T and dP = dO V^T (warpgroup w the keys 32 w .., m64n32),
+//     dS = P (dP - D) in two bf16 parts into one 16 KB buffer, then dQ +=
+//     dS K over the 64 keys, warpgroup w the head dims 128 w .. (m64n128
+//     from a fresh accumulator, 64 + 64 f32 a thread).
+//
+// As everywhere in this file: P and dS enter the products in two bf16
+// parts, each tile's product starts from a fresh accumulator and is added
+// in f32 on the CUDA cores, and dK, dV and dQ are each one block's sums
+// (then the ordered partial sum) in a fixed order, so all three replay bit
+// for bit.  The masks are the key split's: causal, window, keys past Sk;
+// rows past Sq read as zeros with lse +inf (their P is 0).
+constexpr int FW_D = 256;      // head dims
+
+// The dK/dV pass's shared memory from a 1024-byte aligned base: K, V, the
+// ring's Q and dO tiles, the P^T and dS^T parts, each stage's rows.  Every
+// tile is four 64-row, 128-byte swizzle blocks (WgTile<256>) of 8 KB.
+struct FwShape {
+    static constexpr int NS = 2;                        // ring stages
+    static constexpr uint32_t TILE = 64 * FW_D * 2;     // 64 rows x 256
+    static constexpr uint32_t V_AT = TILE;
+    static constexpr uint32_t QT = TILE;                // a stage's Q
+    static constexpr uint32_t RING_AT = 2 * TILE;
+    static constexpr uint32_t STAGE = 2 * TILE;         // Q, then dO
+    static constexpr uint32_t PART = 64 * FB_Q * 2;     // one bf16 part
+    static constexpr uint32_t BUF_AT = RING_AT + NS * STAGE;
+    static constexpr uint32_t ROWS_AT = BUF_AT + 4 * PART;
+    static constexpr uint32_t ROWS = 2 * FB_Q * 4;      // a stage's lse, D
+    static constexpr size_t SMEM = 1024 + ROWS_AT + NS * ROWS;
+};
+
+// The dQ pass's: Q, dO, the ring's K and V tiles, the dS parts, the rows.
+struct FqShape {
+    static constexpr int NS = 2;
+    static constexpr uint32_t TILE = 64 * FW_D * 2;
+    static constexpr uint32_t O_AT = TILE;
+    static constexpr uint32_t RING_AT = 2 * TILE;
+    static constexpr uint32_t STAGE = 2 * TILE;         // K, then V
+    static constexpr uint32_t PART = 64 * 64 * 2;
+    static constexpr uint32_t BUF_AT = RING_AT + NS * STAGE;
+    static constexpr uint32_t ROWS_AT = BUF_AT + 2 * PART;
+    static constexpr uint32_t ROWS = 2 * FB_Q * 4;
+    static constexpr size_t SMEM = 1024 + ROWS_AT + ROWS;
+};
+
+__global__ void __launch_bounds__(FB_THREADS, 1) flash_bwd_wide_dkdv(
+    const __grid_constant__ CUtensorMap q_map,    // q (B, Sq, H, 256)
+    const __grid_constant__ CUtensorMap k_map,    // k (B, Sk, KV, 256)
+    const __grid_constant__ CUtensorMap v_map,    // v (B, Sk, KV, 256)
+    const __grid_constant__ CUtensorMap do_map,   // dout (B, Sq, H, 256)
+    const float* __restrict__ rows,               // flash_bwd_prep's
+    float* __restrict__ part,                     // (G, B, Sk, KV, 512)
+    int Sq, int Sk, int H, int KV, int causal, int window, float scale) {
+    using Sh = FwShape;
+    using TK = WgTile<FW_D>;
+    using TS = WgTile<FB_Q>;
+    constexpr int NS = Sh::NS;
+    __shared__ uint64_t kv_full, full[NS];
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const uint32_t raw = smem_u32(smem_raw);
+    const uint32_t base = (raw + 1023) & ~1023u;   // swizzle atoms align
+    unsigned char* sm = smem_raw + (base - raw);
+
+    const int hh = blockIdx.x % H, b = blockIdx.x / H, B = gridDim.x / H;
+    const int G = H / KV, kvh = hh / G;
+    const int k0 = blockIdx.y * 64, nk = min(64, Sk - k0);
+    const int nqt = (Sq + FB_Q - 1) / FB_Q;
+    const int q_end = window > 0 ? min(Sq, k0 + nk - 1 + window) : Sq;
+    const int t_lo = causal ? k0 / FB_Q : 0;
+    const int steps = max(0, (q_end + FB_Q - 1) / FB_Q - t_lo);
+
+    auto load_step = [&](int t) {
+        fb_load_step<Sh, FW_D, FW_D>(sm, full, &q_map, &do_map, rows, t, b,
+                                     hh, 1, H, steps, t_lo, nqt);
+    };
+    if (threadIdx.x == 0) {
+        mbar_init(&kv_full, 1);
+#pragma unroll
+        for (int s = 0; s < NS; ++s) mbar_init(&full[s], 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        mbar_arrive_expect_tx(&kv_full, 2 * Sh::TILE);
+#pragma unroll
+        for (int c = 0; c < FW_D / 64; ++c) {
+            tma_load_4d(sm + c * 8192, &k_map, c * 64, kvh, k0, b, &kv_full);
+            tma_load_4d(sm + Sh::V_AT + c * 8192, &v_map, c * 64, kvh, k0, b,
+                        &kv_full);
+        }
+        for (int t = 0; t < min(NS, steps); ++t) load_step(t);
+    }
+    __syncthreads();
+
+    const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4;
+    const int lane = threadIdx.x % 32, gid = lane / 4, tig = lane % 4;
+    const int kr = k0 + 16 * warp + gid;   // this thread's keys kr, kr + 8
+    const float sl2 = scale * FB_LOG2E;
+    const uint32_t ka = base, va = base + Sh::V_AT;
+    const uint32_t pb = base + Sh::BUF_AT;
+    // adk[32 c + 4 j + 2 i + e], adv the same: key kr + 8 i, column 128 wg +
+    // 64 c + 8 j + 2 tig + e
+    float adk[64], adv[64];
+#pragma unroll
+    for (int j = 0; j < 64; ++j) adk[j] = adv[j] = 0.f;
+    mbar_wait(&kv_full, 0);
+
+    for (int t = 0; t < steps; ++t) {
+        const int s = t % NS;
+        const int q0 = (t_lo + t) * FB_Q;
+        const int qw = q0 + 32 * wg;       // this warpgroup's 32 queries
+        // both warpgroups are past step t - 1: the parts buffer is free,
+        // and so is its stage, which thread 0 refills for step t + 1
+        named_barrier(1, 256);
+        if (threadIdx.x == 0 && t > 0 && t + 1 < steps) load_step(t + 1);
+        mbar_wait(&full[s], (t / NS) & 1);
+        const uint32_t qa = base + Sh::RING_AT + s * Sh::STAGE;
+        const uint32_t oa = qa + Sh::TILE;
+
+        // S^T = K Q^T and dP^T = V dO^T over this warpgroup's queries (rows
+        // 32 wg .. of the stage's tiles, 4 KB on): st[4 j + 2 i + e] is key
+        // kr + 8 i, query qw + 8 j + 2 tig + e
+        float st[16], dpt[16];
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < FW_D / 16; ++kk)
+            wgmma_ss32<0, 0>(st, TK::desc<64>(ka, kk * 16),
+                             TK::desc<FB_Q>(qa + 4096 * wg, kk * 16),
+                             kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < FW_D / 16; ++kk)
+            wgmma_ss32<0, 0>(dpt, TK::desc<64>(va, kk * 16),
+                             TK::desc<FB_Q>(oa + 4096 * wg, kk * 16),
+                             kk > 0);
+        wg_commit();
+        wg_wait<0>();
+        wg_pin(st);
+        wg_pin(dpt);
+
+        // P^T and dS^T = P^T (dP^T - D) (scale at the end)
+        const float* lr = reinterpret_cast<const float*>(
+            sm + Sh::ROWS_AT + s * Sh::ROWS) + 32 * wg;
+        const bool whole = k0 + 63 < Sk
+            && (!causal || k0 + 63 <= qw)
+            && (window <= 0 || qw + 31 - k0 < window);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const float2 l2 = *reinterpret_cast<const float2*>(
+                lr + 8 * j + 2 * tig);
+            const float2 dd = *reinterpret_cast<const float2*>(
+                lr + FB_Q + 8 * j + 2 * tig);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int x = 4 * j + e, c = e & 1;
+                float p = exp2_ftz(fmaf(st[x], sl2, -(c ? l2.y : l2.x)));
+                if (!whole) {
+                    const int kp = kr + 8 * (e / 2);
+                    const int qp = qw + 8 * j + 2 * tig + c;
+                    const bool vis = kp < Sk && (!causal || kp <= qp)
+                        && (window <= 0 || qp - kp < window);
+                    p = vis ? p : 0.f;
+                }
+                st[x] = p;
+                dpt[x] = p * (dpt[x] - (c ? dd.y : dd.x));
+            }
+        }
+        // rows this thread's keys, columns this warpgroup's queries; parts
+        // P^T hi, lo, dS^T hi, lo
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                const uint32_t off = Sh::BUF_AT + TS::at<64>(
+                    16 * warp + gid + 8 * i, 4 * wg + j) + 4 * tig;
+                uint32_t hi, lo;
+                split2_bf16(st[4 * j + 2 * i], st[4 * j + 2 * i + 1], hi, lo);
+                *reinterpret_cast<uint32_t*>(sm + off) = hi;
+                *reinterpret_cast<uint32_t*>(sm + off + Sh::PART) = lo;
+                split2_bf16(dpt[4 * j + 2 * i], dpt[4 * j + 2 * i + 1], hi,
+                            lo);
+                *reinterpret_cast<uint32_t*>(sm + off + 2 * Sh::PART) = hi;
+                *reinterpret_cast<uint32_t*>(sm + off + 3 * Sh::PART) = lo;
+            }
+        fence_proxy_async();
+        named_barrier(1, 256);             // both halves of the parts
+
+        // dV += P^T dO and dK += dS^T Q, 64 columns a product from a fresh
+        // accumulator: the parts K-major, dO and Q MN-major (16 query rows
+        // a k step, 2 KB)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+            const uint32_t cb = (2 * wg + c) * 8192;
+            float tv[32];
+            wg_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+                for (int pt = 0; pt < 2; ++pt)
+                    wgmma_ss_mn<0>(
+                        tv, TS::desc<64>(pb + pt * Sh::PART,
+                                                  kk * 16),
+                        wg_desc(oa + cb + kk * 2048, 1024, 1024, 1),
+                        kk + pt > 0);
+            wg_commit();
+            wg_wait<0>();
+            wg_pin(tv);
+#pragma unroll
+            for (int x = 0; x < 32; ++x) adv[32 * c + x] += tv[x];
+            float tk[32];
+            wg_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+                for (int pt = 0; pt < 2; ++pt)
+                    wgmma_ss_mn<0>(
+                        tk, TS::desc<64>(
+                                pb + (2 + pt) * Sh::PART, kk * 16),
+                        wg_desc(qa + cb + kk * 2048, 1024, 1024, 1),
+                        kk + pt > 0);
+            wg_commit();
+            wg_wait<0>();
+            wg_pin(tk);
+#pragma unroll
+            for (int x = 0; x < 32; ++x) adk[32 * c + x] += tk[x];
+        }
+    }
+
+    // the head's f32 partials, scale dS^T Q then P^T dO
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int kp = kr + 8 * i;
+        if (kp >= Sk) continue;
+        float* pp = part + ((((size_t)(hh % G) * B + b) * Sk + kp) * KV + kvh)
+                               * (2 * FW_D)
+                  + 128 * wg + 2 * tig;
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                const int x = 32 * c + 4 * j + 2 * i, d = 64 * c + 8 * j;
+                *reinterpret_cast<float2*>(pp + d) =
+                    make_float2(adk[x] * scale, adk[x + 1] * scale);
+                *reinterpret_cast<float2*>(pp + FW_D + d) =
+                    make_float2(adv[x], adv[x + 1]);
+            }
+    }
+}
+
+__global__ void __launch_bounds__(FB_THREADS, 1) flash_bwd_wide_dq(
+    const __grid_constant__ CUtensorMap q_map,    // q (B, Sq, H, 256)
+    const __grid_constant__ CUtensorMap k_map,    // k (B, Sk, KV, 256)
+    const __grid_constant__ CUtensorMap v_map,    // v (B, Sk, KV, 256)
+    const __grid_constant__ CUtensorMap do_map,   // dout (B, Sq, H, 256)
+    const float* __restrict__ rows,               // flash_bwd_prep's
+    __nv_bfloat16* __restrict__ dq,               // (B, Sq, H, 256)
+    int Sq, int Sk, int H, int KV, int causal, int window, float scale) {
+    using Sh = FqShape;
+    using TK = WgTile<FW_D>;
+    using TS = WgTile<64>;
+    constexpr int NS = Sh::NS;
+    __shared__ uint64_t q_full, full[NS];
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const uint32_t raw = smem_u32(smem_raw);
+    const uint32_t base = (raw + 1023) & ~1023u;
+    unsigned char* sm = smem_raw + (base - raw);
+
+    const int hh = blockIdx.x % H, b = blockIdx.x / H, kvh = hh / (H / KV);
+    const int nqt = (Sq + FB_Q - 1) / FB_Q, qt = nqt - 1 - blockIdx.y;
+    const int q0 = qt * FB_Q, nq = min(FB_Q, Sq - q0);
+    const int k_end = causal ? min(Sk, q0 + nq) : Sk;
+    const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+    const int kt_lo = k_lo / 64;
+    const int nt = max(0, (k_end + 63) / 64 - kt_lo);
+
+    auto load_step = [&](int t) {
+        const int s = t % NS, kt = kt_lo + t;
+        unsigned char* st = sm + Sh::RING_AT + s * Sh::STAGE;
+        mbar_arrive_expect_tx(&full[s], Sh::STAGE);
+#pragma unroll
+        for (int c = 0; c < FW_D / 64; ++c) {
+            tma_load_4d(st + c * 8192, &k_map, c * 64, kvh, kt * 64, b,
+                        &full[s]);
+            tma_load_4d(st + Sh::TILE + c * 8192, &v_map, c * 64, kvh,
+                        kt * 64, b, &full[s]);
+        }
+    };
+    if (threadIdx.x == 0) {
+        mbar_init(&q_full, 1);
+#pragma unroll
+        for (int s = 0; s < NS; ++s) mbar_init(&full[s], 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        mbar_arrive_expect_tx(&q_full, 2 * Sh::TILE + Sh::ROWS);
+#pragma unroll
+        for (int c = 0; c < FW_D / 64; ++c) {
+            tma_load_4d(sm + c * 8192, &q_map, c * 64, hh, q0, b, &q_full);
+            tma_load_4d(sm + Sh::O_AT + c * 8192, &do_map, c * 64, hh, q0, b,
+                        &q_full);
+        }
+        bulk_load(sm + Sh::ROWS_AT,
+                  rows + (((size_t)b * H + hh) * nqt + qt) * (2 * FB_Q),
+                  Sh::ROWS, &q_full);
+        for (int t = 0; t < min(NS, nt); ++t) load_step(t);
+    }
+    __syncthreads();
+
+    const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4;
+    const int lane = threadIdx.x % 32, gid = lane / 4, tig = lane % 4;
+    const int qr = q0 + 16 * warp + gid;   // this thread's rows qr, qr + 8
+    const float sl2 = scale * FB_LOG2E;
+    const uint32_t qa = base, oa = base + Sh::O_AT;
+    const uint32_t pb = base + Sh::BUF_AT;
+    mbar_wait(&q_full, 0);
+    const float* lr = reinterpret_cast<const float*>(sm + Sh::ROWS_AT);
+    const float l2[2] = {lr[qr - q0], lr[qr - q0 + 8]};
+    const float dd[2] = {lr[FB_Q + qr - q0], lr[FB_Q + qr - q0 + 8]};
+    // adq[4 j + 2 i + e]: query qr + 8 i, column 128 wg + 8 j + 2 tig + e
+    float adq[64];
+#pragma unroll
+    for (int j = 0; j < 64; ++j) adq[j] = 0.f;
+
+    for (int t = 0; t < nt; ++t) {
+        const int s = t % NS;
+        const int kw = (kt_lo + t) * 64 + 32 * wg;   // this warpgroup's keys
+        named_barrier(1, 256);
+        if (threadIdx.x == 0 && t > 0 && t + 1 < nt) load_step(t + 1);
+        mbar_wait(&full[s], (t / NS) & 1);
+        const uint32_t ka = base + Sh::RING_AT + s * Sh::STAGE;
+        const uint32_t va = ka + Sh::TILE;
+
+        // S = Q K^T, dP = dO V^T over this warpgroup's 32 keys:
+        // sc[4 j + 2 i + e] is query qr + 8 i, key kw + 8 j + 2 tig + e
+        float sc[16], dp[16];
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < FW_D / 16; ++kk)
+            wgmma_ss32<0, 0>(sc, TK::desc<64>(qa, kk * 16),
+                             TK::desc<64>(ka + 4096 * wg, kk * 16),
+                             kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < FW_D / 16; ++kk)
+            wgmma_ss32<0, 0>(dp, TK::desc<64>(oa, kk * 16),
+                             TK::desc<64>(va + 4096 * wg, kk * 16),
+                             kk > 0);
+        wg_commit();
+        wg_wait<0>();
+        wg_pin(sc);
+        wg_pin(dp);
+
+        const bool whole = kw + 31 < Sk && (!causal || kw + 31 <= q0)
+            && (window <= 0 || q0 + 63 - kw < window);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int x = 4 * j + e, i = e / 2;
+                float p = exp2_ftz(fmaf(sc[x], sl2, -l2[i]));
+                if (!whole) {
+                    const int kp = kw + 8 * j + 2 * tig + (e & 1);
+                    const int qp = qr + 8 * i;
+                    const bool vis = kp < Sk && (!causal || kp <= qp)
+                        && (window <= 0 || qp - kp < window);
+                    p = vis ? p : 0.f;
+                }
+                dp[x] = p * (dp[x] - dd[i]);
+            }
+        // dS into the buffer: rows this thread's queries, columns this
+        // warpgroup's keys, in two parts
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                const uint32_t off = Sh::BUF_AT + TS::at<64>(
+                    16 * warp + gid + 8 * i, 4 * wg + j) + 4 * tig;
+                uint32_t hi, lo;
+                split2_bf16(dp[4 * j + 2 * i], dp[4 * j + 2 * i + 1], hi, lo);
+                *reinterpret_cast<uint32_t*>(sm + off) = hi;
+                *reinterpret_cast<uint32_t*>(sm + off + Sh::PART) = lo;
+            }
+        fence_proxy_async();
+        named_barrier(1, 256);             // both halves of dS
+
+        // dQ += dS K over the 64 keys, this warpgroup's 128 columns from a
+        // fresh accumulator: dS K-major, K MN-major (its two 64-column
+        // blocks 8 KB apart)
+        float tq[64];
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int pt = 0; pt < 2; ++pt)
+                wgmma_ss_mn128(
+                    tq, TS::desc<64>(pb + pt * Sh::PART, kk * 16),
+                    wg_desc(ka + 2 * wg * 8192 + kk * 2048, 8192, 1024, 1),
+                    kk + pt > 0);
+        wg_commit();
+        wg_wait<0>();
+        wg_pin(tq);
+#pragma unroll
+        for (int x = 0; x < 64; ++x) adq[x] += tq[x];
+    }
+
+    // dq = scale dS K, rounded once
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int qp = qr + 8 * i;
+        if (qp >= Sq) continue;
+        __nv_bfloat16* row = dq + (((size_t)b * Sq + qp) * H + hh) * FW_D
+                           + 128 * wg + 2 * tig;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
+                __floats2bfloat162_rn(adq[4 * j + 2 * i] * scale,
+                                      adq[4 * j + 2 * i + 1] * scale);
+    }
+}
+
 // dq = bf16(scale dq_acc), four values a thread
 __global__ void __launch_bounds__(FB_PREP_THREADS) flash_bwd_dq_out(
     const float4* __restrict__ acc, __nv_bfloat162* __restrict__ dq,
@@ -1800,15 +1961,14 @@ int launch_wgmma(const void* q, const void* k, const void* v,
     return (int)cudaGetLastError();
 }
 
-// The (256, 256) backward: the row dots, the dK/dV pass (a block a query
-// head) and its partials' sum, the dQ pass; on FMAs (either type) or, mma, on the
-// tensor cores (bf16)
+// The (256, 256) backward on FMAs (f32): the row dots, the dK/dV pass (a
+// block a query head) and its partials' sum, the dQ pass
 template <typename T, int D>
 int launch_wide(const void* q, const void* k, const void* v,
                 const void* out, const void* dout, const float* lse,
                 float* dd, void* dq, void* dk, void* dv, int B, int Sq,
                 int Sk, int H, int KV, int causal, int window, float scale,
-                bool mma, cudaStream_t stream) {
+                cudaStream_t stream) {
     using cT = const T*;
     const int rows = B * Sq * H;
     flash_bwd_dot<T, D><<<(rows + BWD_THREADS / 32 - 1) / (BWD_THREADS / 32),
@@ -1818,31 +1978,14 @@ int launch_wide(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return (int)err;
     // after the row dots, on a 16-byte boundary (the float2 stores)
     float* part = dd + ((size_t)B * H * Sq + 3) / 4 * 4;
-    const dim3 kv_grid((Sk + BWD_T - 1) / BWD_T, H, B);
-    const dim3 q_grid((Sq + BWD_T - 1) / BWD_T, H, B);
-    if constexpr (sizeof(T) == 2 && D == WM_D) {
-        if (mma) {
-            err = reserve_smem(flash_bwd_dkdv_wide_mma, WmShape::BYTES);
-            if (err == cudaSuccess)
-                err = reserve_smem(flash_bwd_dq_wide_mma, WmShape::BYTES);
-            if (err != cudaSuccess) return (int)err;
-            flash_bwd_dkdv_wide_mma<<<kv_grid, BWD_THREADS, WmShape::BYTES,
-                                      stream>>>(
-                (cT)q, (cT)k, (cT)v, (cT)dout, lse, dd, part, Sq, Sk, H, KV,
-                causal, window, scale);
-        }
-    }
-    if (!mma) {
-        constexpr size_t SMEM = BwdWide<D>::SMEM;
-        auto dkdv = flash_bwd_dkdv_wide<T, D>;
-        err = reserve_smem(dkdv, SMEM);
-        if (err == cudaSuccess) err = reserve_smem(flash_bwd_dq_wide<T, D>,
-                                                   SMEM);
-        if (err != cudaSuccess) return (int)err;
-        dkdv<<<kv_grid, BWD_THREADS, SMEM, stream>>>(
-            (cT)q, (cT)k, (cT)v, (cT)dout, lse, dd, part, Sq, Sk, H, KV,
-            causal, window, scale);
-    }
+    constexpr size_t SMEM = BwdWide<D>::SMEM;
+    auto dkdv = flash_bwd_dkdv_wide<T, D>;
+    err = reserve_smem(dkdv, SMEM);
+    if (err == cudaSuccess) err = reserve_smem(flash_bwd_dq_wide<T, D>, SMEM);
+    if (err != cudaSuccess) return (int)err;
+    dkdv<<<dim3((Sk + BWD_T - 1) / BWD_T, H, B), BWD_THREADS, SMEM,
+           stream>>>((cT)q, (cT)k, (cT)v, (cT)dout, lse, dd, part, Sq, Sk, H,
+                     KV, causal, window, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const size_t kv_rows = (size_t)B * Sk * KV;
@@ -1852,18 +1995,58 @@ int launch_wide(const void* q, const void* k, const void* v,
         part, (T*)dk, (T*)dv, kv_rows, H / KV);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    if constexpr (sizeof(T) == 2 && D == WM_D) {
-        if (mma)
-            flash_bwd_dq_wide_mma<<<q_grid, BWD_THREADS, WmShape::BYTES,
-                                    stream>>>(
-                (cT)q, (cT)k, (cT)v, (cT)dout, lse, dd, (T*)dq, Sq, Sk, H, KV,
-                causal, window, scale);
-    }
-    if (!mma)
-        flash_bwd_dq_wide<T, D><<<q_grid, BWD_THREADS, BwdWide<D>::SMEM,
-                                  stream>>>(
-            (cT)q, (cT)k, (cT)v, (cT)dout, lse, dd, (T*)dq, Sq, Sk, H, KV,
-            causal, window, scale);
+    flash_bwd_dq_wide<T, D><<<dim3((Sq + BWD_T - 1) / BWD_T, H, B),
+                              BWD_THREADS, SMEM, stream>>>(
+        (cT)q, (cT)k, (cT)v, (cT)dout, lse, dd, (T*)dq, Sq, Sk, H, KV,
+        causal, window, scale);
+    return (int)cudaGetLastError();
+}
+
+// The (256, 256) backward in bf16 on wgmma: the row pieces (flash_bwd_prep,
+// no dQ sums), the dK/dV pass and its heads' ordered sum, the dQ pass
+int launch_wide_wg(const void* q, const void* k, const void* v,
+                   const void* out, const void* dout, const float* lse,
+                   float* ws, void* dq, void* dk, void* dv, int B, int Sq,
+                   int Sk, int H, int KV, int causal, int window,
+                   float scale, cudaStream_t stream) {
+    using bf = __nv_bfloat16;
+    const int nqt = (Sq + FB_Q - 1) / FB_Q, nkt = (Sk + 63) / 64;
+    float* rows = ws;
+    float* part = ws + (size_t)B * H * nqt * 2 * FB_Q;
+    const long long prep_rows = (long long)B * nqt * FB_Q * H;
+    flash_bwd_prep<FW_D, FW_D><<<(unsigned)((prep_rows + FB_PREP_THREADS / 32
+                                             - 1) / (FB_PREP_THREADS / 32)),
+                                 FB_PREP_THREADS, 0, stream>>>(
+        (const bf*)out, (const bf*)dout, lse, rows, nullptr, B, Sq, H, nqt);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    CUtensorMap q_map, k_map, v_map, do_map;
+    int rc = bf16_rows_map(&q_map, q, FW_D, H, Sq, B);
+    if (rc == 0) rc = bf16_rows_map(&k_map, k, FW_D, KV, Sk, B);
+    if (rc == 0) rc = bf16_rows_map(&v_map, v, FW_D, KV, Sk, B);
+    if (rc == 0) rc = bf16_rows_map(&do_map, dout, FW_D, H, Sq, B);
+    if (rc != 0) return rc;
+    err = reserve_smem(flash_bwd_wide_dkdv, FwShape::SMEM);
+    if (err == cudaSuccess)
+        err = reserve_smem(flash_bwd_wide_dq, FqShape::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_wide_dkdv<<<dim3(B * H, nkt), FB_THREADS, FwShape::SMEM,
+                          stream>>>(q_map, k_map, v_map, do_map, rows, part,
+                                    Sq, Sk, H, KV, causal, window, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const size_t kv_rows = (size_t)B * Sk * KV;
+    flash_bwd_wide_sum<bf, FW_D><<<(unsigned)((kv_rows * 2 * FW_D
+                                               + BWD_THREADS - 1)
+                                              / BWD_THREADS),
+                                   BWD_THREADS, 0, stream>>>(
+        part, (bf*)dk, (bf*)dv, kv_rows, H / KV);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_wide_dq<<<dim3(B * H, nqt), FB_THREADS, FqShape::SMEM,
+                        stream>>>(q_map, k_map, v_map, do_map, rows,
+                                  (bf*)dq, Sq, Sk, H, KV, causal, window,
+                                  scale);
     return (int)cudaGetLastError();
 }
 
@@ -1900,18 +2083,18 @@ int launch_fma(const void* q, const void* k, const void* v, const void* out,
 
 // q (B, Sq, H, DK), k (B, Sk, KV, DK), v (B, Sk, KV, DV), out and dout (B,
 // Sq, H, DV), lse (B, H, Sq) f32 from the forward; dq, dk, dv shaped like
-// q, k, v; all contiguous on one device.  ws: f32 workspace, the tensor-core
-// body's B H ceil(Sq / 64) 128 row values then B Sq H DK dQ sums, the FMA
-// body's B H Sq row dots, at (256, 256) padded to a multiple of 4 and
-// then G x B Sk KV 2 DK partial dK and dV
-// (flash_attention.flash_bwd_workspace).  window <= 0
-// means none; queries at positions [0, Sq).  body: 0 the FMA body (f32), 1
-// the tensor-core body (bf16 at fb_pair (DK, DV), q, k, v and dout 16-byte
-// aligned), 2 the mma.sync body (bf16 at (256, 256), 16-byte aligned), as
-// flash_attention.flash_bwd_body chooses.  Launches the
-// body's three kernels on ``stream`` and returns the first
-// cudaGetLastError() that is not cudaSuccess, or REPRO_UNSUPPORTED for what
-// the body does not take.
+// q, k, v; all contiguous on one device.  ws: f32 workspace
+// (flash_attention.flash_bwd_workspace): the tensor-core bodies' B H
+// ceil(Sq / 64) 128 row values, then the fused pass's B Sq H DK dQ sums
+// or the (256, 256) pass's G x B Sk KV 2 DK partial dK and dV; the
+// FMA body's B H Sq row dots, at (256, 256) padded to a multiple of 4 and
+// then G x B Sk KV 2 DK partials.  window <= 0 means none; queries at
+// positions [0, Sq).  body: 0 the FMA body, 1 the fused tensor-core body
+// (bf16 at fb_pair (DK, DV)), 2 the (256, 256) wgmma body (bf16); q, k, v
+// and dout 16-byte aligned for 1 and 2, as flash_attention.flash_bwd_body
+// chooses.  Launches the body's kernels on ``stream`` and returns the
+// first cudaGetLastError() that is not cudaSuccess, or REPRO_UNSUPPORTED
+// for what the body does not take.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, void* ws, void* dq, void* dk,
@@ -1938,12 +2121,11 @@ extern "C" int flash_attention_bwd_launch(
         return REPRO_UNSUPPORTED;
     }
     if (body == 2) {
-        if (dtype != REPRO_BF16 || DK != WM_D || DV != WM_D
+        if (dtype != REPRO_BF16 || DK != FW_D || DV != FW_D
             || ((size_t)q | (size_t)k | (size_t)v | (size_t)dout) % 16 != 0)
             return REPRO_UNSUPPORTED;
-        return launch_wide<__nv_bfloat16, WM_D>(
-            q, k, v, out, dout, lse_f, ws_f, dq, dk, dv, B, Sq, Sk, H, KV,
-            causal, window, scale, true, st);
+        return launch_wide_wg(q, k, v, out, dout, lse_f, ws_f, dq, dk, dv, B,
+                              Sq, Sk, H, KV, causal, window, scale, st);
     }
     if (body != 0) return REPRO_UNSUPPORTED;
 #define REPRO_CASE(T, CODE, DIMK, DIMV)                                      \
@@ -1957,13 +2139,9 @@ extern "C" int flash_attention_bwd_launch(
     REPRO_CASE(float, REPRO_F32, 96, 64)
     REPRO_CASE(__nv_bfloat16, REPRO_BF16, 96, 64)
 #undef REPRO_CASE
-#define REPRO_CASE(T, CODE)                                                  \
-    if (dtype == CODE && DK == 256 && DV == 256)                             \
-        return launch_wide<T, 256>(q, k, v, out, dout, lse_f, ws_f, dq, dk,  \
-                                   dv, B, Sq, Sk, H, KV, causal, window,     \
-                                   scale, false, st);
-    REPRO_CASE(float, REPRO_F32)
-    REPRO_CASE(__nv_bfloat16, REPRO_BF16)
-#undef REPRO_CASE
+    if (dtype == REPRO_F32 && DK == 256 && DV == 256)
+        return launch_wide<float, 256>(q, k, v, out, dout, lse_f, ws_f, dq, dk,
+                                       dv, B, Sq, Sk, H, KV, causal, window,
+                                       scale, st);
     return REPRO_UNSUPPORTED;
 }

@@ -30,11 +30,10 @@ launch.  :func:`flash_bwd_body` picks its body from the dtype and head
 dims before the launch: one fused wgmma pass for bf16 (dq through an f32
 workspace filled by atomics, so bf16 dq may differ by one rounding between
 runs; dk and dv replay bit for bit; at (192, 128) the warpgroups split the
-columns instead of the keys), at (256, 256) a body whose products run on
-mma.sync over whole bf16 tiles, the FMA body for f32 (at (256, 256) with
-the head dims in 64-wide chunks) and for bf16 at (96, 64).  On CPU
-tensors
-the same Function runs the plain forward and
+columns instead of the keys), at (256, 256) a dK/dV pass and a dQ pass on
+wgmma (no atomics: all three replay bit for bit), the FMA body for f32 (at
+(256, 256) with the head dims in 64-wide chunks) and for bf16 at (96, 64).
+On CPU tensors the same Function runs the plain forward and
 :func:`flash_attention_bwd_ref`.  ``flash_attention_bwd.launches`` counts
 backward calls (each launches its body's three kernels).
 """
@@ -63,41 +62,43 @@ BWD_PAIRS = ((64, 64), (128, 128), (192, 128), (96, 64), (256, 256))
 # 96 is no multiple of its 64-value column blocks
 WGMMA_PAIRS = ((64, 64), (128, 128), (192, 128))
 BWD_QT = 64                  # query rows of a tile of the tensor-core body
-BWD_BODIES = {"fma": 0, "wgmma": 1, "mma": 2}   # the launcher's body codes
+BWD_BODIES = {"fma": 0, "wgmma": 1, "wide": 2}   # the launcher's body codes
 
 
 def flash_bwd_body(dtype, dk: int, dv: int) -> str:
     """Which body of the backward a launch runs, from the dtype and head
     dims alone and before the launch: "wgmma" (one fused pass on the
-    tensor cores) for bf16 at :data:`WGMMA_PAIRS`; "mma" for bf16 at
-    (256, 256) (the head dims in whole bf16 tiles, every product on
-    mma.sync: no wgmma body fits its 128 dK and dV accumulators a thread);
-    else "fma" (FMAs in float32, never TF32: the f32 identity runs must
-    stay f32; bf16 at (96, 64) widened to f32 on load).  Never a choice
-    made after a failure: a
-    launch that fails raises."""
+    tensor cores) for bf16 at :data:`WGMMA_PAIRS`; "wide" for bf16 at
+    (256, 256) (a dK/dV pass and a dQ pass on wgmma, the warpgroups
+    splitting the head dims: no fused pass fits 256 dK and dV accumulators
+    a thread); else "fma" (FMAs in float32, never TF32: the f32 identity
+    runs must stay f32; bf16 at (96, 64) widened to f32 on load).  Never a
+    choice made after a failure: a launch that fails raises."""
     if dtype == torch.bfloat16 and (dk, dv) in WGMMA_PAIRS:
         return "wgmma"
     if dtype == torch.bfloat16 and (dk, dv) == (256, 256):
-        return "mma"
+        return "wide"
     return "fma"
 
 
 def flash_bwd_workspace(body: str, B: int, Sq: int, H: int, dk: int,
                         Sk: int = 0, KV: int = 1) -> int:
-    """f32 values of the backward's workspace: for "wgmma" each (row,
-    head, 64-row query tile)'s lse and row dot D (2 x 64 values, padded
-    rows included), then the (B, Sq, H, Dk) f32 dQ sums; for "fma" and
-    "mma" the (B, H, Sq) row dots, and at Dk = 256 these padded to a
-    multiple of 4 (16 bytes) and then each query head's (B, Sk, KV, 2 x
-    256) partial dK and dV (the (256, 256) bodies give every query head
-    its own dK/dV block, and a second kernel sums a kv head's G partials
-    in order)."""
-    if body == "wgmma":
-        return B * H * -(-Sq // BWD_QT) * 2 * BWD_QT + B * Sq * H * dk
+    """f32 values of the backward's workspace.  The tensor-core bodies
+    ("wgmma", "wide") start with each (row, head, 64-row query tile)'s lse
+    and row dot D (2 x 64 values, padded rows included); then "wgmma" holds
+    the (B, Sq, H, Dk) f32 dQ sums, and "wide" each query head's (B, Sk,
+    KV, 2 x 256) partial dK and dV (the (256, 256) bodies give every query
+    head its own dK/dV block, and a second kernel sums a kv head's G
+    partials in order).  "fma" holds the (B, H, Sq) row dots, and at Dk =
+    256 these padded to a multiple of 4 (16 bytes) and then the same
+    partials."""
+    partials = H * B * Sk * 2 * dk
+    if body in ("wgmma", "wide"):
+        rows = B * H * -(-Sq // BWD_QT) * 2 * BWD_QT
+        return rows + (B * Sq * H * dk if body == "wgmma" else partials)
     if dk != 256:
         return B * H * Sq
-    return -(-B * H * Sq // 4) * 4 + H * B * Sk * 2 * dk
+    return -(-B * H * Sq // 4) * 4 + partials
 
 
 def _masked_scores(q, k, *, causal, window, q_offset, scale):
@@ -343,7 +344,7 @@ def _bwd_check(q, k, v, o, lse, do):
             or lse.device != q.device:
         problems.append(f"lse {tuple(lse.shape)} {lse.dtype}: need "
                         f"({B}, {H}, {Sq}) float32 on {q.device}")
-    if flash_bwd_body(q.dtype, D, v.shape[-1]) in ("wgmma", "mma"):
+    if flash_bwd_body(q.dtype, D, v.shape[-1]) in ("wgmma", "wide"):
         for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
             if t.data_ptr() % 16 or not t.is_contiguous():
                 problems.append(f"{name} at {t.data_ptr() % 16} bytes past "

@@ -28,7 +28,8 @@ hand-written ``csrc/rglru_scan_bwd.cu`` on CUDA tensors (no
 ``pallas_call`` counterpart: the reference differentiates its oracle
 ``ref.rglru_scan``), :func:`rglru_scan_bwd_ref` on CPU tensors.
 ``rglru_scan_bwd.launches`` counts backward calls (each launches the
-file's two kernels).
+file's four kernels: the time axis split over blocks in chunks, the
+chunks' carries joined by a short walk, the gradients, the d log_a sum).
 :func:`rglru_decode_step` is plain PyTorch: the reference runs its decode
 step through the oracle only (``ops.rglru_decode_step``).
 """
@@ -245,14 +246,17 @@ class RGLRUScanFn(torch.autograd.Function):
         return (*grads, None)
 
 
-RG_BWD_SEG = 64      # steps a segment of csrc/rglru_scan_bwd.cu
+RG_BWD_CHUNK = 64    # steps a chunk of csrc/rglru_scan_bwd.cu
 
 
 def rglru_bwd_workspace(B: int, S: int, W: int) -> int:
-    """f32 values of the backward's workspace: the float32 carry into
-    every RG_BWD_SEG-step segment, (B, ceil(S / RG_BWD_SEG), W), then each
-    row's partial d log_a, (B, W)."""
-    return B * -(-S // RG_BWD_SEG) * W + B * W
+    """f32 values of the backward's workspace, six (B, ceil(S /
+    RG_BWD_CHUNK), W) planes, one value a (row, chunk, channel) in each:
+    the chunks' pairs from zero carries (the product of a, the local h at
+    the chunk's end, the adjoint's local sum), then the carries joined
+    across chunks (h into each chunk, the adjoint out of it), then each
+    chunk's d log_a partial."""
+    return 6 * B * -(-S // RG_BWD_CHUNK) * W
 
 
 @functools.cache
@@ -270,7 +274,7 @@ def rglru_scan_bwd(x, input_gate, a_gate, log_a, dh, dfin, *,
     """Gradients (dx, d input_gate, d a_gate, d log_a, d init_state or
     None) of :func:`rglru_scan` from the outputs' gradients ``dh`` and
     ``dfin`` (None: zeros).  CPU tensors take :func:`rglru_scan_bwd_ref`;
-    CUDA tensors launch ``csrc/rglru_scan_bwd.cu``'s two kernels in one
+    CUDA tensors launch ``csrc/rglru_scan_bwd.cu``'s four kernels in one
     call, counted once on ``rglru_scan_bwd.launches``.  The inputs are the
     forward's and pass its checks; dh must match x, dfin the state's shape
     in x's dtype or float32."""

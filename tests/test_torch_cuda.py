@@ -265,7 +265,7 @@ def test_flash_backward_kernel_matches_plain_version(cuda, dtype, G, dk, dv,
     (192, 128) (bf16 on the tensor-core body with the columns split
     between its warpgroups, f32 on the FMA body), (96, 64) (the FMA
     body in both dtypes) and recurrentgemma-2b's (256, 256) (bf16 on the
-    mma.sync body, f32 on the FMA body with the head dims in 64-wide
+    wide wgmma body, f32 on the FMA body with the head dims in 64-wide
     chunks; both a dK/dV block a query head, its partials summed) at G = 1
     and G > 1, over 4160 keys among others (a
     train row's prefix plus tokens: the last 128-key tile half full);
@@ -323,14 +323,19 @@ def test_flash_backward_kernel_matches_plain_version(cuda, dtype, G, dk, dv,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,G,S", [(1, 1, 151), (1, 10, 301), (3, 2, 97)])
-@pytest.mark.parametrize("window", [None, 37])
+@pytest.mark.parametrize("B,G,S", [(1, 1, 151), (1, 10, 301), (3, 2, 97),
+                                   (1, 10, 4096), (2, 3, 1000)])
+@pytest.mark.parametrize("window", [None, 37, 2048])
 def test_flash_backward_wide_at_one_kv_head(cuda, dtype, B, G, S, window):
     """The (256, 256) backward at one kv head, as recurrentgemma-2b lays
     its heads out: a dK/dV block a query head, a kv head's G partials
     summed in order; at counts of row dots (B H S = 151, 3010, 582) that
-    are no multiple of 4, so the partials start past padding; against the
-    plain version, and dk and dv bit for bit on a second call."""
+    are no multiple of 4, so the partials start past padding; at
+    recurrentgemma-2b's train shape (1 x 4096, G = 10, window 2048); at
+    1000 tokens (no multiple of the 64-row tiles) with a window of 37,
+    shorter than one of the ring's 64-row stages, so that a key tile's
+    reach ends inside a stage; against the plain version, and dq, dk and
+    dv bit for bit on a second call (neither body adds by atomics)."""
     g = torch.Generator().manual_seed(23)
 
     def rnd(*shape):
@@ -347,7 +352,7 @@ def test_flash_backward_wide_at_one_kv_head(cuda, dtype, B, G, S, window):
         assert a.dtype == dtype and a.shape == w.shape
         _assert_grad_close(a, w, w32)
     again = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
-    assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1149,10 +1154,13 @@ def test_rglru_scan_kernel_matches_plain_version(cuda, dtype, B, S, W, init,
     (2, 4096, 2560, False),          # recurrentgemma-2b's train rows
     (2, 1000, 512, True),
     (3, 1, 64, True),                # one step
-    (2, 128, 96, True),              # whole 64-step segments
-    (2, 65, 40, False),              # a step past a segment, a partial tile
+    (2, 128, 96, True),              # whole 64-step chunks
+    (2, 65, 40, False),              # a step past a chunk, a partial tile
     (2, 63, 40, True),               # a step short of one
     (1, 1023, 96, True),             # odd lengths, a ragged last unroll
+    (1, 4096, 2560, False),          # the train step's one row exactly
+    (2, 64, 130, True),              # one whole chunk; 128 + 2 channels
+    (1, 1000, 2600, True),           # 15 chunks and 40 steps, W % 128 = 40
 ])
 def test_rglru_bwd_kernel_matches_plain_version(cuda, dtype, B, S, W,
                                                 with_state, monkeypatch):
@@ -1162,7 +1170,7 @@ def test_rglru_bwd_kernel_matches_plain_version(cuda, dtype, B, S, W,
     the kernel's f32 carries walk t in order, the plain version's a
     log-depth tree, and d log_a sums B x S terms), with and without an
     initial state and the final state's gradient, at the edges of its
-    warps' chunks and segments; a second call bit for bit; through
+    64-step chunks and 128-channel tiles; a second call bit for bit; through
     autograd, :class:`RGLRUScanFn` against autograd over the plain forward
     in f32, the plain versions barred from CUDA tensors."""
     args, s0 = _rg_inputs(dtype, cuda, B, S, W, seed=S + W + 1,

@@ -339,15 +339,16 @@ def test_ssd_check_accepts_what_the_mamba2_layer_hands_over(prefill,
     (torch.float32, 128, 128, "fma"),
     (torch.float32, 192, 128, "fma"),
     (torch.float32, 96, 64, "fma"),
-    (torch.bfloat16, 256, 256, "mma"),
+    (torch.bfloat16, 256, 256, "wide"),
     (torch.float32, 256, 256, "fma")])
 def test_flash_bwd_body_is_chosen_by_dtype_and_head_dims(dtype, dk, dv,
                                                          body):
     """The backward's fused tensor-core pass takes bf16 at its built pairs
     (MLA's (192, 128) with the columns split), bf16 at recurrentgemma's
-    (256, 256) takes the mma.sync body; float32 (the identity runs, which
-    must stay f32) and bf16 at (96, 64), no multiple of the fused pass's
-    64-value column blocks, take the FMA body."""
+    (256, 256) takes the wide wgmma body (a dK/dV pass and a dQ pass);
+    float32 (the identity runs, which must stay f32) and bf16 at (96, 64),
+    no multiple of the fused pass's 64-value column blocks, take the FMA
+    body."""
     assert fa.flash_bwd_body(dtype, dk, dv) == body
 
 
@@ -415,14 +416,18 @@ def test_flash_bwd_check_refuses_what_the_launcher_refuses(case, match):
     (1, 4097, 1, 1, 4100)])    # the row dots padded to 16 bytes
 def test_flash_bwd_workspace(B, S, KV, G, padded):
     """At (256, 256) both bodies give every query head its own dK/dV
-    block, so the workspace holds each head's f32 partial dK and dV after
-    the row dots (padded to a 16-byte boundary for the partials' float2
-    stores), whatever the batch; the other FMA pairs' workspaces are the
-    row dots alone."""
+    block, so the workspace holds each head's f32 partial dK and dV: the
+    FMA body's after its row dots (padded to a 16-byte boundary for the
+    partials' float2 stores), the wide wgmma body's after its ring's row
+    pieces (lse and D, 2 x 64 values a (row, head, 64-row query tile),
+    padded rows included), whatever the batch; the other FMA pairs'
+    workspaces are the row dots alone."""
     H = KV * G
     dots = B * H * S
     partials = H * B * S * 2 * 256
-    for body in ("fma", "mma"):
-        assert fa.flash_bwd_workspace(body, B, S, H, 256, S, KV) == \
-            padded + partials
+    assert fa.flash_bwd_workspace("fma", B, S, H, 256, S, KV) == \
+        padded + partials
+    pieces = B * H * -(-S // 64) * 128
+    assert fa.flash_bwd_workspace("wide", B, S, H, 256, S, KV) == \
+        pieces + partials
     assert fa.flash_bwd_workspace("fma", B, S, H, 64, S, KV) == dots

@@ -333,3 +333,19 @@ def test_rglru_scan_bwd_cost_counts_the_work_by_hand():
     assert full.flops == cost.flops
     assert full.hbm_bytes == cost.hbm_bytes + 3 * 20
     assert cost.bound_by("bfloat16") == "bytes"
+
+
+@pytest.mark.parametrize("B,S,W,chunks", [
+    (1, 4096, 2560, 64),       # recurrentgemma-2b's train step
+    (2, 1, 5, 1),              # one step: one chunk
+    (3, 64, 7, 1),             # one whole chunk
+    (3, 65, 7, 2),             # a step past it
+    (2, 200, 130, 4)])         # three chunks and a ragged tail
+def test_rglru_bwd_workspace_counts_its_planes_by_hand(B, S, W, chunks):
+    """The backward's f32 workspace: the time axis in chunks of
+    RG_BWD_CHUNK = 64 steps, and six (B, chunks, W) planes, one value a
+    (row, chunk, channel) in each: the chunk's product of a, its local h
+    and its local adjoint; the h carry into it and the adjoint's out of
+    it; its d log_a partial."""
+    assert rs.RG_BWD_CHUNK == 64
+    assert rs.rglru_bwd_workspace(B, S, W) == 6 * B * chunks * W
