@@ -92,7 +92,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                  launches per decode step and per prefill call, no fused
                  launch;
   11. preempt  — a pool smaller than the working set preempts, spills and
-                 restores, with tokens identical to an ample pool;
+                 restores, with tokens identical to an ample pool; then
+                 through HyperMem's tiers (tier_runs): the same pool with
+                 the host tier timed, with ``archive_host_bytes`` below
+                 one spilled entry (every entry through the disk tier:
+                 tokens identical, archive_evict_host >= 1 = mem.evict.host,
+                 both tiers empty at the end, 24 paged decodes a step and
+                 24 ragged prefills a call), each tier's spill and restore
+                 wall per MB, and a 1-byte disk tier raising
+                 MemCapacityError;
   12. moe serve — deepseek-v2-lite-16b (MLA + MoE, 27 layers, 64 routed
                  experts top-6, random weights from a seed) at full width
                  in bf16 through HyperServe: 16 requests of 100-1500 prompt
@@ -119,7 +127,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                  prefill and the decode loop each timed alone;
   18. ssm identity — mamba2-370m at full width, all 48 layers, float32:
                  HyperServe greedy tokens identical with the kernel and the
-                 plain versions, and to the Generator's;
+                 plain versions, and to the Generator's; then forced
+                 preemptions (forced_preemptions: a pure-slot model never
+                 runs out of blocks) through the tiers as phase 11, 48
+                 ssd_scan launches a prefill call;
   19. hybrid serve — recurrentgemma-2b (RG-LRU + LOCAL_ATTN, 26 layers: 18
                  RG-LRU and 8 local attention at head dim 256, 10 heads
                  over one kv head, window 2048; random weights from a seed)
@@ -142,7 +153,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                  prompts of 100-2400 tokens (two past the window), to the
                  Generator's on prompts of at most the window (one exactly
                  it, so decode crosses it), and through a preemption that
-                 spills and restores seat rows beside the pages;
+                 spills and restores seat rows beside the pages, also
+                 through the tiers as phase 11 (8 paged decodes a step, 8
+                 ragged prefills and 18 rglru_scan a call);
   23. train    — qwen2-0.5b's train step at full width (all 24 layers,
                  random weights from a seed) in bf16 through
                  ``repro_torch.train.trainer.train``: 8 steps of 4 x 4096
@@ -199,7 +212,22 @@ Phases, in order; any failure raises and the script exits non-zero:
   36. recurrentgemma train identity — one group, float32, 4 steps of 1 x
                  2560 (past the window), kernels against plain versions, to
                  phase 25's limits;
-  37. result   — the nvidia-smi line, the kernel JSON line (eleven kernels;
+  37. pool     — HyperOffload's KV pool (core/kvcache.KVCachePool) at
+                 qwen2-0.5b's attention shapes, f32: 4 rows x 131072
+                 tokens, a hot window of 8192 on the card, 60 blocks of
+                 2048 (~503 MB) in pinned host memory; attend within 1e-4
+                 of the decode_attention kernel over the flat cache, its
+                 wall and host->card rate;
+  38. train offload — phase 23's run for 4 steps without offload and
+                 with params and optimizer state in host memory between
+                 steps: loss and grad norm within a quarter bf16 step
+                 (2^-8 / 4) relative of the run without (two of them:
+                 the bf16 backward's dq atomics make runs differ), the
+                 launch counts exact, the train.fetch / train.offload
+                 spans, each leg's bytes and rate alone (a fetch, an
+                 offload and a fetch again equal bit for bit), memory
+                 allocated after an offload leg against without;
+  39. result   — the nvidia-smi line, the kernel JSON line (eleven kernels;
                  flash has a row for each run it is on: phase 6's (64, 64),
                  phase 12's (192, 128), phase 21's (256, 256), phase 23's
                  train shape with lse, phase 26's at (192, 128) and phase
@@ -218,6 +246,7 @@ Each phase prints its wall seconds.  It needs one CUDA device and exits non-zero
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -2372,7 +2401,7 @@ def phase_composed(torch, cfg, params, prompts, fused, scfg):
                              f"match {n} x (steps={steps}, calls={calls})")
 
 
-def phase_preempt(torch, np, cfg, params, tag="preempt"):
+def phase_preempt(torch, np, cfg, params, tag="preempt", tiers=False):
     from repro_torch.configs.base import ServeConfig
     from repro_torch.serve.api import HyperServe
     prompts = make_prompts(np.random.default_rng(SEED + 3), 4, 180, 220,
@@ -2395,6 +2424,142 @@ def phase_preempt(torch, np, cfg, params, tag="preempt"):
         f"ample pool: {got == ample}")
     if st["preemptions"] < 1 or spills < 1 or restores < 1 or got != ample:
         raise AssertionError("preemption phase failed")
+    if tiers:
+        tier_runs(torch, cfg, params, tag, ServeConfig(
+            num_blocks=PREEMPT_BLOCKS, **base), prompts, 64, ample)
+
+
+# ---------------------------------------------------------------------------
+# HyperMem's archive tiers under preemption
+# ---------------------------------------------------------------------------
+def serve_launch_want(cfg, steps, calls):
+    """Each serving kernel's launches over ``steps`` fused decode steps and
+    ``calls`` prefill calls of ``cfg``: per attention layer (ATTN,
+    LOCAL_ATTN) one paged decode a step and one ragged prefill a call, per
+    RG-LRU layer one rglru_scan and per SSD layer one ssd_scan a call."""
+    from repro_torch.configs.base import ATTN, LOCAL_ATTN, RGLRU, SSD
+    kinds = [m for m, _ in cfg.block_kinds()]
+    n_at = sum(m in (ATTN, LOCAL_ATTN) for m in kinds)
+    want = {"paged_decode_attention": n_at * steps,
+            "ragged_prefill_attention": n_at * calls,
+            "rglru_scan": kinds.count(RGLRU) * calls,
+            "ssd_scan": kinds.count(SSD) * calls}
+    return {k: v for k, v in want.items() if v}
+
+
+def serve_wrappers():
+    from repro_torch.kernels.paged_decode_attention import \
+        paged_decode_attention
+    from repro_torch.kernels.ragged_prefill_attention import \
+        ragged_prefill_attention
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    return {k.__name__: k for k in (paged_decode_attention,
+                                    ragged_prefill_attention, rglru_scan,
+                                    ssd_scan)}
+
+
+def time_archive(torch, archive):
+    """Time every spill into and restore out of ``archive`` (its ``put``
+    and ``fetch``, each between two syncs of the card) and count their
+    bytes: the wall a tier costs per MB, not what overlaps in a real run."""
+    from repro_torch.mem import tree_nbytes
+    acc = {"spill_s": 0.0, "spill_bytes": 0, "spills": 0,
+           "restore_s": 0.0, "restore_bytes": 0, "restores": 0}
+    put, fetch = archive.put, archive.fetch
+
+    def timed_put(key, value, **kw):
+        sync(torch)
+        t0 = time.perf_counter()
+        try:
+            put(key, value, **kw)
+        finally:
+            sync(torch)
+            acc["spill_s"] += time.perf_counter() - t0
+            acc["spill_bytes"] += tree_nbytes(value)
+            acc["spills"] += 1
+
+    def timed_fetch(key, **kw):
+        sync(torch)
+        t0 = time.perf_counter()
+        out = fetch(key, **kw)
+        sync(torch)
+        acc["restore_s"] += time.perf_counter() - t0
+        acc["restore_bytes"] += tree_nbytes(out)
+        acc["restores"] += 1
+        return out
+    archive.put, archive.fetch = timed_put, timed_fetch
+    return acc
+
+
+def per_mb(seconds, nbytes):
+    return 1e3 * seconds / (nbytes / 2 ** 20) if nbytes else float("nan")
+
+
+def tier_runs(torch, cfg, params, tag, scfg, prompts, max_new, want,
+              drive=None):
+    """The preemption of ``scfg`` through HyperMem's tiers, f32 at full
+    width: with the unbounded host archive (the host tier), then with
+    ``archive_host_bytes`` below one spilled entry, so every entry passes
+    through the disk tier: tokens identical to ``want`` (the ample
+    pool's), ``archive_evict_host`` >= 1 and equal to ``mem.evict.host``,
+    both tiers empty at the end, the serving kernels' launch counts exact;
+    the spill and restore wall per MB of each tier.  Then a disk budget
+    below one entry must raise MemCapacityError and nothing else.
+    ``drive(serve)`` serves the prompts (default: submit all and join)."""
+    from repro_torch.mem import MemCapacityError
+    from repro_torch.serve.api import HyperServe
+    drive = drive or (lambda serve: serve_all(serve, prompts, max_new)[0])
+    wrappers = serve_wrappers()
+    walls = {}
+    for tier, kw in (("host", {}), ("disk", dict(archive_host_bytes=1))):
+        serve = HyperServe(cfg, params, device=DEVICE,
+                           serve_cfg=dataclasses.replace(scfg, **kw))
+        acc = time_archive(torch, serve.engine.blocks.archive)
+        for w in wrappers.values():
+            w.launches = 0
+        got = drive(serve)
+        sync(torch)
+        st = serve.stats()
+        m = serve.engine.obs.metrics
+        launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+        expect = serve_launch_want(
+            cfg, int(m.counter("serve.kernels.decode.fused").value),
+            int(m.counter("serve.kernels.prefill.fused").value))
+        walls[tier] = acc
+        log(f"[{tag} tiers] {tier} tier: preemptions={st['preemptions']} "
+            f"archive_evict_host={st['archive_evict_host']} "
+            f"archive_evict_disk={st['archive_evict_disk']} mem.evict.host="
+            f"{int(m.counter('mem.evict.host').value)}, archive bytes at the "
+            f"end host {st['archive_host_bytes']} disk "
+            f"{st['archive_disk_bytes']}; {acc['spills']} spills "
+            f"{acc['spill_bytes'] / 2 ** 20:.3f} MB in {acc['spill_s']:.4f}s "
+            f"({per_mb(acc['spill_s'], acc['spill_bytes']):.3f} ms/MB), "
+            f"{acc['restores']} restores {acc['restore_bytes'] / 2 ** 20:.3f}"
+            f" MB in {acc['restore_s']:.4f}s "
+            f"({per_mb(acc['restore_s'], acc['restore_bytes']):.3f} ms/MB); "
+            f"launches {launches}, expected {expect}; tokens identical to "
+            f"the ample pool: {got == want}")
+        if got != want or st["preemptions"] < 1 or launches != expect:
+            raise AssertionError(f"{tag}: the {tier} tier's run failed")
+        if st["archive_host_bytes"] or st["archive_disk_bytes"]:
+            raise AssertionError(f"{tag}: the archive is not empty at the end")
+        if tier == "disk" and (
+                st["archive_evict_host"] < 1
+                or m.counter("mem.evict.host").value
+                != st["archive_evict_host"]):
+            raise AssertionError(f"{tag}: the disk tier was not used")
+    serve = HyperServe(cfg, params, device=DEVICE, serve_cfg=dataclasses.replace(
+        scfg, archive_host_bytes=1, archive_disk_bytes=1))
+    try:
+        drive(serve)
+    except MemCapacityError as e:
+        log(f"[{tag} tiers] disk budget of 1 byte: MemCapacityError "
+            f"({str(e)[:60]}...)")
+    else:
+        raise AssertionError(f"{tag}: a 1-byte disk tier did not raise "
+                             "MemCapacityError")
+    return walls
 
 
 def phase_moe_serve(torch, np):
@@ -2722,6 +2887,34 @@ def phase_ssm_identity(torch, np):
             j = next(j for j, (x, y) in enumerate(zip(a[i], b[i])) if x != y)
             raise AssertionError(f"{name}: request {i} diverges at token {j}"
                                  f": kernel {a[i][j]} vs {b[i][j]}")
+    tier_runs(torch, cfg, params, "ssm preempt", scfg, prompts, ID_NEW,
+              runs["kernel"], drive=lambda serve: forced_preemptions(
+                  serve, prompts, ID_NEW, scfg.restore_lookahead))
+
+
+def forced_preemptions(serve, prompts, max_new, lookahead, every=8, n=3):
+    """Serve ``prompts``, preempting the last running request every
+    ``every`` engine steps, ``n`` times (a pure-slot model never runs out
+    of blocks, so its preemption is forced, as the reference's own test of
+    the SSD family forces it), staging near-head restores after each as
+    the tail of an engine step does; then join."""
+    from repro_torch.serve.scheduler import RequestState, StepPlan
+    rids = [serve.submit(p, max_new) for p in prompts]
+    sched = serve.engine.scheduler
+    done, i = 0, 0
+    while done < n and sched.has_work():
+        serve.step_once()
+        i += 1
+        runners = [r for r in sched.active
+                   if r.state is RequestState.RUNNING]
+        if runners and i % every == 0:
+            sched._preempt(runners[-1], StepPlan())
+            serve.engine._stage_restores(
+                [r for r in list(sched.queue)[:lookahead]
+                 if r.state is RequestState.PREEMPTED])
+            done += 1
+    out = serve.join()
+    return [out[r] for r in rids]
 
 
 def leading_nulls(table) -> int:
@@ -2988,7 +3181,7 @@ def phase_rg_identity(torch, np):
             j = next(j for j, (u, v) in enumerate(zip(x[i], y[i])) if u != v)
             raise AssertionError(f"{a}: request {i} diverges at token {j}: "
                                  f"{b} {x[i][j]} vs {y[i][j]}")
-    phase_preempt(torch, np, cfg, params, tag="hybrid preempt")
+    phase_preempt(torch, np, cfg, params, tag="hybrid preempt", tiers=True)
 
 
 def prefix_train(torch, cfg, shape, adamw, train_cfg, hook=None):
@@ -3022,11 +3215,13 @@ def prefix_train(torch, cfg, shape, adamw, train_cfg, hook=None):
     return params, history
 
 
-def run_train(torch, cfg, shape, n_steps, hook=None):
+def run_train(torch, cfg, shape, n_steps, hook=None, offload_cfg=None,
+              obs=None):
     """``n_steps`` train steps from SEED with AdamWConfig(total_steps=
     n_steps), as the reference's launcher builds it: through
-    ``trainer.train``, or, for an arch with a multimodal frontend
-    (frontend_dim), through prefix_train."""
+    ``trainer.train`` (with ``offload_cfg`` and ``obs`` when given), or,
+    for an arch with a multimodal frontend (frontend_dim), through
+    prefix_train."""
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train import trainer
     adamw = AdamWConfig(total_steps=n_steps)
@@ -3035,7 +3230,8 @@ def run_train(torch, cfg, shape, n_steps, hook=None):
     if cfg.frontend_dim:
         return prefix_train(torch, cfg, shape, adamw, train_cfg, hook)
     return trainer.train(cfg, shape, adamw=adamw, train_cfg=train_cfg,
-                         hook=hook, device=DEVICE)
+                         hook=hook, device=DEVICE, offload_cfg=offload_cfg,
+                         obs=obs)
 
 
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "grouped_matmul",
@@ -3074,7 +3270,8 @@ def train_launches_per_step(cfg):
 
 
 def phase_train(torch, np, arch="qwen2-0.5b", layers=None, batch=TRAIN_B,
-                seq=TRAIN_S, n_steps=TRAIN_STEPS, tag="train"):
+                seq=TRAIN_S, n_steps=TRAIN_STEPS, tag="train",
+                offload_cfg=None, obs=None, record=None):
     """``arch``'s train step at full width (``layers`` of its layers, all
     when None; random weights from a seed) in bf16 through
     ``repro_torch.train.trainer.train`` (an arch with a multimodal frontend
@@ -3086,7 +3283,11 @@ def phase_train(torch, np, arch="qwen2-0.5b", layers=None, batch=TRAIN_B,
     attention layer two flash forwards and one backward, per SSD or RG-LRU
     layer two scans and one scan backward, no grouped_matmul).  Step wall
     time (each step ends in a read of its metrics, which waits for the
-    card), training tokens/s and the peak of allocated device memory."""
+    card), training tokens/s and the peak of allocated device memory, and
+    the memory allocated when the peak is reset (what earlier phases left).
+    ``offload_cfg`` and ``obs`` go to the trainer; ``record`` (a list)
+    gets each step's (metrics, launches, memory allocated after the step
+    and its offload leg)."""
     from repro_torch.configs.base import ShapeConfig, get_config
     cfg = get_config(arch)
     if layers is not None:
@@ -3101,20 +3302,30 @@ def phase_train(torch, np, arch="qwen2-0.5b", layers=None, batch=TRAIN_B,
         now = {k: wrappers[k].launches for k in TRAIN_KERNELS}
         step = {k: now[k] - last[k] for k in TRAIN_KERNELS}
         seen.append((m, step))
+        if record is not None:
+            record.append((m, step, torch.cuda.memory_allocated()
+                           if DEVICE == "cuda" else 0))
         log(f"[{tag}] step {m['step']}: loss {m['loss']:.4f} grad_norm "
             f"{m['grad_norm']:.4f} lr {m['lr']:.3e} wall {m['wall_s']:.3f}s, "
             "launches: " + ", ".join(f"{k} {v}" for k, v in step.items()
                                      if v or want[k]))
         last.update(now)
     if DEVICE == "cuda":
+        left = torch.cuda.memory_allocated()
+        gc.collect()        # earlier phases' engines wait in reference cycles
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        log(f"[{tag}] allocated at the peak's reset (left by earlier "
+            f"phases): {left / 2 ** 30:.3f} GiB, "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB after a "
+            "garbage collection (torch.cuda.memory_allocated)")
     # this path's run: every launch count starts at 0 here
     for w in wrappers.values():
         w.launches = 0
     sync(torch)
     t0 = time.perf_counter()
-    params, hist = run_train(torch, cfg, shape, n_steps, hook)
+    params, hist = run_train(torch, cfg, shape, n_steps, hook, offload_cfg,
+                             obs)
     sync(torch)
     wall = time.perf_counter() - t0
     launches = {k: wrappers[k].launches for k in TRAIN_KERNELS}
@@ -3260,6 +3471,162 @@ def phase_train_identity(torch, np, arch="qwen2-0.5b", layers=None,
                              "part")
 
 
+POOL_B, POOL_TOKENS = 4, 131072
+POOL_HOT, POOL_BLOCK = 8192, 2048
+POOL_ABS = 1e-4
+
+
+def phase_pool(torch):
+    """HyperOffload's KV pool at a long context, f32, at qwen2-0.5b's
+    attention shapes (14 heads over 2 kv heads of 64): POOL_B rows,
+    POOL_TOKENS tokens appended one at a time, a hot window of POOL_HOT
+    on the card and every older window archived to pinned host memory in
+    blocks of POOL_BLOCK (60 blocks, ~503 MB).  ``pool.attend(q)`` streams
+    the blocks to the card and merges them by log-sum-exp; it must match
+    the port's decode_attention kernel over the flat cache within POOL_ABS.
+    The attend's wall (after a warm-up attend) and the host->card rate it
+    reached (archive bytes over that wall)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.kvcache import KVCachePool, KVPoolConfig
+    from repro_torch.kernels.decode_attention import decode_attention
+    cfg = get_config("qwen2-0.5b")
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 41)
+    k = torch.randn(POOL_B, POOL_TOKENS, KV, D, generator=g,
+                    device=DEVICE) * 0.3
+    v = torch.randn(POOL_B, POOL_TOKENS, KV, D, generator=g,
+                    device=DEVICE) * 0.3
+    q = torch.randn(POOL_B, H, D, generator=g, device=DEVICE) * 0.5
+    pool = KVCachePool(cfg, POOL_B, POOL_TOKENS, KVPoolConfig(
+        hot_window=POOL_HOT, block=POOL_BLOCK, dtype="float32"),
+        device=DEVICE)
+    sync(torch)
+    t0 = time.perf_counter()
+    for t in range(POOL_TOKENS):
+        pool.append(k[:, t:t + 1], v[:, t:t + 1])
+    sync(torch)
+    t_append = time.perf_counter() - t0
+    pool.attend(q)
+    sync(torch)
+    t0 = time.perf_counter()
+    got = pool.attend(q)
+    sync(torch)
+    wall = time.perf_counter() - t0
+    want = decode_attention(q[:, None], k, v, torch.full(
+        (POOL_B,), POOL_TOKENS, dtype=torch.int32, device=DEVICE))[:, 0]
+    err = float((got - want).abs().max())
+    blocks = len(pool.archive_k)
+    host = pool.host_bytes()
+    log(f"[pool] f32 {POOL_B} rows x {POOL_TOKENS} tokens at (14, 2, 64), "
+        f"hot window {POOL_HOT} on the card ({pool.hbm_bytes() / 1e6:.1f} "
+        f"MB), {blocks} archived blocks of {POOL_BLOCK} in pinned host "
+        f"memory ({host / 1e6:.1f} MB); appends {t_append:.3f}s; attend "
+        f"{1e3 * wall:.3f} ms, host->card {host / wall / 1e9:.3f} GB/s over "
+        f"its wall; max |attend - decode_attention kernel| {err:.3e} "
+        f"(limit {POOL_ABS})")
+    if blocks != (POOL_TOKENS - 1) // POOL_HOT * (POOL_HOT // POOL_BLOCK):
+        raise AssertionError(f"pool: {blocks} archived blocks")
+    if not err <= POOL_ABS:
+        raise AssertionError(f"pool: attend differs by {err}")
+
+
+OFF_STEPS = 4
+# bf16 runs of the same code differ: the bf16 flash backward adds dQ by
+# f32 atomics in no fixed order, and a flipped bf16 rounding of dq moves
+# the grad norm by ~1e-4 relative at step 2 (three runs of one state on an
+# H100 80GB HBM3 at 700 W read 8.6500, 8.6503 and 8.6509; PERF.md).  So
+# the offloaded run is held to a quarter of a bf16 step (2^-8 / 4) of the
+# run without offload, its spread beside it, and the legs bit for bit.
+OFF_REL = 2 ** -8 / 4
+
+
+def phase_train_offload(torch, np):
+    """qwen2-0.5b's train step at full width (24 layers, bf16, 4 x 4096)
+    with its params and optimizer state in pinned host memory between
+    steps (``OffloadConfig(params_on_host=True, opt_state_on_host=True)``:
+    every leaf of rank >= 2; HyperOffload's fetch and offload legs around
+    each step), OFF_STEPS steps, beside two runs of the same OFF_STEPS
+    steps without offload: loss and grad norm within OFF_REL relative of
+    the first, the train launch counts exact every step (phase_train).
+    Then the legs alone on a fresh host state: fetch, offload, fetch
+    again, the two fetched states equal bit for bit.  Logged: the
+    ``train.fetch`` / ``train.offload`` spans (host time: the legs'
+    copies are asynchronous), the bytes a leg moves and each leg's rate
+    between syncs, and the memory allocated after a step's offload leg
+    against after a step without offload."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.offload import OffloadConfig
+    from repro_torch.core.tree import tree_flatten_with_path
+    from repro_torch.obs import Observability
+    from repro_torch.train import steps
+    both = OffloadConfig(params_on_host=True, opt_state_on_host=True)
+    plain, plain2, offl = [], [], []
+    for tag, rec in (("plain", plain), ("plain again", plain2)):
+        phase_train(torch, np, n_steps=OFF_STEPS,
+                    tag=f"train offload, {tag}", record=rec)
+    obs = Observability()
+    obs.trace.enable()
+    phase_train(torch, np, n_steps=OFF_STEPS, tag="train offload",
+                offload_cfg=both, obs=obs, record=offl)
+
+    def rel(a, b):
+        return max(abs(x[0][k] - y[0][k]) / max(1.0, abs(x[0][k]))
+                   for x, y in zip(a, b) for k in ("loss", "grad_norm"))
+    spans = {n: [e["dur"] / 1e3 for e in obs.trace.events()
+                 if e.get("ph") == "X" and e["name"] == n]
+             for n in ("train.fetch", "train.offload", "train.step")}
+    cfg = get_config("qwen2-0.5b")
+    host = steps.init_state(cfg, seed=SEED, device=DEVICE,
+                            offload_cfg=both)
+    nbytes = steps.state_nbytes(*host, both)
+    dev_t = torch.device(DEVICE)
+    sync(torch)
+    t0 = time.perf_counter()
+    dev = steps.fetch_state(*host, both, dev_t)
+    sync(torch)
+    t_fetch = time.perf_counter() - t0
+    del host
+    t0 = time.perf_counter()
+    host = steps.offload_state(*dev, both)
+    sync(torch)
+    t_off = time.perf_counter() - t0
+    again = steps.fetch_state(*host, both, dev_t)
+    exact = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        tree_flatten_with_path(dev), tree_flatten_with_path(again)))
+    pinned = all(t.is_pinned() for _, t in tree_flatten_with_path(host)
+                 if t.dim() >= 2)
+    del dev, host, again
+    gib = 2 ** 30
+    diff, spread = rel(plain, offl), rel(plain, plain2)
+    log(f"[train offload] {OFF_STEPS} steps with params and optimizer state "
+        f"on the host against {OFF_STEPS} without: max relative difference "
+        f"of loss and grad norm {diff:.3e} (limit {OFF_REL:.3e}); two runs "
+        f"without offload differ by {spread:.3e}; spans (ms, host time) "
+        + "; ".join(f"{n} " + ", ".join(f"{d:.3f}" for d in ds)
+                    for n, ds in spans.items()))
+    log(f"[train offload] a leg moves {nbytes / 1e9:.4f} GB (the rank >= 2 "
+        f"leaves of params, mu and nu, pinned on the host: {pinned}): fetch "
+        f"alone {t_fetch:.4f}s ({nbytes / t_fetch / 1e9:.3f} GB/s), offload "
+        f"alone {t_off:.4f}s ({nbytes / t_off / 1e9:.3f} GB/s), fetched "
+        f"again bit for bit: {exact}; memory allocated after each step, "
+        "GiB: without offload "
+        + ", ".join(f"{m / gib:.3f}" for _, _, m in plain)
+        + "; after its offload leg "
+        + ", ".join(f"{m / gib:.3f}" for _, _, m in offl))
+    if not diff <= OFF_REL:
+        raise AssertionError(f"train offload: the run differs by {diff}")
+    if not exact or (DEVICE == "cuda" and not pinned):
+        raise AssertionError("train offload: a leg changed the state or left "
+                             "it in pageable memory")
+    if len(spans["train.fetch"]) != OFF_STEPS or len(
+            spans["train.offload"]) != OFF_STEPS:
+        raise AssertionError(f"train offload: spans {spans}")
+    if DEVICE == "cuda" and not all(b[2] < a[2]
+                                    for a, b in zip(plain, offl)):
+        raise AssertionError("train offload: the offloaded state still "
+                             "takes the card's memory")
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3296,7 +3663,8 @@ def main() -> int:
     timed("dense identity", phase_dense_identity, torch, np, cfg32, params32)
     timed("composed", phase_composed, torch, cfg32, params32, id_prompts,
           fused, scfg)
-    timed("preempt", phase_preempt, torch, np, cfg32, params32)
+    timed("preempt", phase_preempt, torch, np, cfg32, params32, "preempt",
+          True)
     del params32
     moe_launches, serve, ds_prompts = timed("moe serve", phase_moe_serve,
                                             torch, np)
@@ -3372,6 +3740,10 @@ def main() -> int:
     timed("recurrentgemma train identity", phase_train_identity, torch, np,
           RG_ARCH, RG_TRAIN_ID_LAYERS, RG_TRAIN_ID_B, RG_TRAIN_ID_S,
           TRAIN_ID_STEPS, "recurrentgemma train identity")
+    torch.cuda.empty_cache()
+    timed("pool", phase_pool, torch)
+    torch.cuda.empty_cache()
+    timed("train offload", phase_train_offload, torch, np)
     runs = {"qwen2-0.5b": launches, DS_ARCH: moe_launches,
             SSM_ARCH: ssm_launches, f"{SSM_ARCH} Generator": ssm_gen_launches,
             RG_ARCH: rg_launches, f"{RG_ARCH} Generator": rg_gen_launches,

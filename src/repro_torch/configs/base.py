@@ -131,6 +131,58 @@ class ModelConfig:
             out.append((mixer, ffn))
         return tuple(out)
 
+    def param_count(self) -> int:
+        """Analytic parameter count (the reference's, for the device-memory
+        model of ``core/offload.py``)."""
+        d, L = self.d_model, self.num_layers
+        hd = self.resolved_head_dim
+        total = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        for mixer, ffn in self.block_kinds():
+            if mixer in (ATTN, LOCAL_ATTN):
+                total += d * self.num_heads * hd          # Wq
+                total += 2 * d * self.num_kv_heads * hd   # Wk, Wv
+                total += self.num_heads * hd * d          # Wo
+            elif mixer == MLA:
+                m = self.mla
+                qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+                total += d * (m.kv_lora_rank + m.qk_rope_head_dim)  # down kv
+                total += m.kv_lora_rank * self.num_heads * (
+                    m.qk_nope_head_dim + m.v_head_dim)
+                total += d * self.num_heads * qk_dim if not m.q_lora_rank \
+                    else (d * m.q_lora_rank
+                          + m.q_lora_rank * self.num_heads * qk_dim)
+                total += self.num_heads * m.v_head_dim * d          # Wo
+            elif mixer == SSD:
+                s = self.ssm
+                di = s.d_inner(d)
+                nh = s.num_heads(d)
+                total += d * (2 * di + 2 * s.d_state + nh)  # in_proj
+                total += di * d                              # out_proj
+                total += s.conv_width * (di + 2 * s.d_state) + 2 * nh
+            elif mixer == RGLRU:
+                w = self.rglru.lru_width or d
+                total += 2 * d * w + w * d                   # in (x,gate), out
+                total += self.rglru.conv_width * w + 2 * w   # conv + lru gates
+            if ffn == DENSE_FFN:
+                total += 3 * d * self.d_ff
+            elif ffn == MOE_FFN:
+                mo = self.moe
+                total += d * mo.num_experts                  # router
+                total += 3 * d * mo.d_ff_expert * (mo.num_experts
+                                                   + mo.num_shared_experts)
+        total += 2 * L * d                                   # norms (approx)
+        return total
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only routed-in experts count)."""
+        if self.moe is None:
+            return self.param_count()
+        mo = self.moe
+        inactive_per_moe_layer = 3 * self.d_model * mo.d_ff_expert * (
+            mo.num_experts - mo.top_k)
+        n_moe_layers = sum(1 for _, f in self.block_kinds() if f == MOE_FFN)
+        return self.param_count() - n_moe_layers * inactive_per_moe_layer
+
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: <=2 layers, d_model<=512, <=4 experts."""
         d = min(self.d_model, 256)
@@ -190,9 +242,10 @@ class ServeConfig:
     # copy-on-write prompt-prefix sharing
     enable_prefix_cache: bool = True
     prefix_cache_blocks: int = 32      # LRU cap on retained blocks
-    # byte budgets of the preemption archive's host and disk tiers (0 =
-    # unbounded).  The port keeps an unbounded host archive only; nonzero
-    # budgets are refused by the serving runtime (ROADMAP, HyperMem).
+    # HyperMem hierarchical archive: byte budgets for the preemption
+    # archive's host tier (LRU-spills to disk beyond this) and disk tier
+    # (a disk full of pinned spill state raises MemCapacityError); 0 =
+    # unbounded
     archive_host_bytes: int = 0
     archive_disk_bytes: int = 0
     # predictive restore: stage archived pages for PREEMPTED requests

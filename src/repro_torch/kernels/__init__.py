@@ -10,6 +10,10 @@ import torch
 NEG_INF = -1e30                                      # masked score
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # REPRO_F32, REPRO_BF16
 SAME_DIMS = ((64, 64), (128, 128), (256, 256))       # (Dk, Dv) built
+# devices whose tensors take a wrapper's plain version: the CPU, and meta
+# tensors (shapes only, no data: the residency planner's graph walk);
+# CUDA tensors launch the kernel, any other device raises
+PLAIN_DEVICES = ("cpu", "meta")
 
 
 def refuse_grad(name: str, *tensors, item: str = "train step") -> None:

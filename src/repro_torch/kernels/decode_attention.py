@@ -23,9 +23,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import (DTYPE_CODES, NEG_INF, attention_problems,
-                                 build, count_launch, raise_problems,
-                                 refuse_grad)
+from repro_torch.kernels import (DTYPE_CODES, NEG_INF, PLAIN_DEVICES,
+                                 attention_problems, build, count_launch,
+                                 raise_problems, refuse_grad)
 
 
 def decode_attention_ref(q, k_cache, v_cache, length, *,
@@ -200,7 +200,7 @@ def decode_attention(q, k_cache, v_cache, length, *,
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
     refuse_grad("decode_attention", q, k_cache, v_cache)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return decode_attention_ref(q, k_cache, v_cache, length, scale=scale,
                                     window=window)
     if q.device.type != "cuda":

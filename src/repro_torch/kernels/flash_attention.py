@@ -45,9 +45,10 @@ from typing import Optional, Union
 
 import torch
 
-from repro_torch.kernels import (DTYPE_CODES, NEG_INF, SAME_DIMS,
-                                 attention_problems, build, count_launch,
-                                 raise_problems, side_input_problems)
+from repro_torch.kernels import (DTYPE_CODES, NEG_INF, PLAIN_DEVICES,
+                                 SAME_DIMS, attention_problems, build,
+                                 count_launch, raise_problems,
+                                 side_input_problems)
 
 QOffset = Union[int, torch.Tensor]
 # (Dk, Dv) pairs the kernel is built for: the GQA heads, deepseek-v2-lite's
@@ -247,7 +248,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise_problems("flash_attention backward",
                        _grad_problems(q, v, q_offset))
         return FlashAttentionFn.apply(q, k, v, causal, window, scale)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, scale=scale)
     return _forward(q, k, v, causal, window, q_offset, scale, False)[0]
@@ -291,7 +292,7 @@ def flash_attention_lse(q, k, v, *, causal: bool = True,
     :func:`flash_attention_lse_ref`; CUDA tensors launch the kernel with
     its lse output (counted on ``flash_attention.launches``)."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return flash_attention_lse_ref(q, k, v, causal=causal, window=window,
                                        scale=scale)
     return _forward(q, k, v, causal, window, 0, scale, True)
@@ -366,7 +367,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     the three kernels of :func:`flash_bwd_body`'s body in
     ``csrc/flash_attention_bwd.cu`` in one call, counted once on
     ``flash_attention_bwd.launches``."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                        window=window, scale=scale)
     if q.device.type != "cuda":

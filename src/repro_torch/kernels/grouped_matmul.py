@@ -24,8 +24,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels import (DTYPE_CODES, build, count_launch,
-                                 raise_problems, refuse_grad)
+from repro_torch.kernels import (DTYPE_CODES, PLAIN_DEVICES, build,
+                                 count_launch, raise_problems, refuse_grad)
 
 
 def grouped_matmul_ref(x, w, group_sizes) -> torch.Tensor:
@@ -85,7 +85,7 @@ def grouped_matmul(x, w, group_sizes) -> torch.Tensor:
     """
     refuse_grad("grouped_matmul", x, w,
                 item="section 2 item 2.9b; train MoE under gshard")
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return grouped_matmul_ref(x, w, group_sizes)
     if x.device.type != "cuda":
         raise ValueError(f"grouped_matmul: no kernel for device {x.device}")

@@ -36,9 +36,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import (DTYPE_CODES, NEG_INF, attention_problems,
-                                 build, count_launch, raise_problems,
-                                 refuse_grad, side_input_problems)
+from repro_torch.kernels import (DTYPE_CODES, NEG_INF, PLAIN_DEVICES,
+                                 attention_problems, build, count_launch,
+                                 raise_problems, refuse_grad,
+                                 side_input_problems)
 from repro_torch.kernels.decode_attention import (_sm_count, _workspace,
                                                   decode_workspace_shape,
                                                   mla_decode_splits,
@@ -108,7 +109,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
     refuse_grad("paged_decode_attention", q, k_pool, v_pool)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return paged_decode_attention_ref(
             q, k_pool, v_pool, block_tables, lengths, block_size=block_size,
             window=window, scale=scale)
@@ -225,7 +226,7 @@ def paged_mla_decode_attention(q_lat, q_rope, ckv_pool, krope_pool,
     """
     refuse_grad("paged_mla_decode_attention", q_lat, q_rope, ckv_pool,
                 krope_pool)
-    if q_lat.device.type == "cpu":
+    if q_lat.device.type in PLAIN_DEVICES:
         return paged_mla_decode_attention_ref(
             q_lat, q_rope, ckv_pool, krope_pool, block_tables, lengths,
             block_size=block_size, scale=scale)

@@ -22,9 +22,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import (DTYPE_CODES, NEG_INF, attention_problems,
-                                 build, count_launch, raise_problems,
-                                 refuse_grad, side_input_problems)
+from repro_torch.kernels import (DTYPE_CODES, NEG_INF, PLAIN_DEVICES,
+                                 attention_problems, build, count_launch,
+                                 raise_problems, refuse_grad,
+                                 side_input_problems)
 
 
 def ragged_prefill_attention_ref(q, k_pool, v_pool, block_tables, starts,
@@ -92,7 +93,7 @@ def ragged_prefill_attention(q, k_pool, v_pool, block_tables, starts, limits,
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
     refuse_grad("ragged_prefill_attention", q, k_pool, v_pool)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return ragged_prefill_attention_ref(
             q, k_pool, v_pool, block_tables, starts, limits,
             block_size=block_size, window=window, scale=scale)

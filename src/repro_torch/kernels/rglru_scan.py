@@ -40,8 +40,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels import (DTYPE_CODES, build, count_launch,
-                                 raise_problems)
+from repro_torch.kernels import (DTYPE_CODES, PLAIN_DEVICES, build,
+                                 count_launch, raise_problems)
 
 
 def _gates(input_gate, a_gate, log_a, x, c, f):
@@ -194,7 +194,7 @@ def rglru_scan(x, input_gate, a_gate, log_a, *, init_state=None,
 
 
 def _forward(x, input_gate, a_gate, log_a, init_state, c):
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return rglru_scan_ref(x, input_gate, a_gate, log_a,
                               init_state=init_state, c=c)
     if x.device.type != "cuda":
@@ -278,7 +278,7 @@ def rglru_scan_bwd(x, input_gate, a_gate, log_a, dh, dfin, *,
     call, counted once on ``rglru_scan_bwd.launches``.  The inputs are the
     forward's and pass its checks; dh must match x, dfin the state's shape
     in x's dtype or float32."""
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return rglru_scan_bwd_ref(x, input_gate, a_gate, log_a, dh, dfin,
                                   init_state=init_state, c=c)
     if x.device.type != "cuda":

@@ -37,8 +37,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels import (DTYPE_CODES, NEG_INF, build, count_launch,
-                                 raise_problems)
+from repro_torch.kernels import (DTYPE_CODES, NEG_INF, PLAIN_DEVICES, build,
+                                 count_launch, raise_problems)
 
 SSD_DIMS = ((64, 128), (32, 16))     # (P, N) built: full width, reduced
 SSD_QMAX = 256                       # longest chunk the kernel takes
@@ -280,7 +280,7 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk=64, init_state=None):
 
 
 def _forward(x, dt, A, Bm, Cm, chunk, init_state):
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk,
                             init_state=init_state)
     if x.device.type != "cuda":
@@ -390,7 +390,7 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dfin, *, chunk, init_state=None):
     once on ``ssd_scan_bwd.launches``.  The inputs are the forward's and
     pass its checks; dy must match x, dfin the state's shape in x's dtype
     or float32."""
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, dfin, chunk=chunk,
                                 init_state=init_state)
     if x.device.type != "cuda":

@@ -51,8 +51,9 @@ def main(argv=None):
                          "the default (fsdp_tp, which resolves to the "
                          "single device) is ported")
     ap.add_argument("--offload", action="store_true",
-                    help="HyperOffload: params+opt state on host (not "
-                         "ported yet)")
+                    help="HyperOffload: params+opt state on host; a "
+                         "HyperPlan in the reference, not ported yet (the "
+                         "library's train(offload_cfg=) takes the legs)")
     ap.add_argument("--pipeline", type=int, default=0, metavar="STAGES",
                     help="pipeline-parallel 1F1B (not ported yet)")
     ap.add_argument("--explain", action="store_true",

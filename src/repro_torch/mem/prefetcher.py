@@ -16,7 +16,7 @@ bench-gate counters.
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Callable
+from typing import Callable, Optional
 
 
 class Prefetcher:
@@ -81,3 +81,17 @@ class Prefetcher:
         for key in [k for k in self._staged if not alive(k)]:
             self.drop(key)
 
+
+def run_schedule(schedule, step: int, prefetcher: Prefetcher,
+                 consume: Optional[Callable[[object], None]] = None) -> int:
+    """Drive a planner prefetch schedule at ``step``: stage every key the
+    :class:`~repro_torch.mem.planner.ResidencyPlan` maps to this step;
+    returns how many were newly staged.  ``consume(key)`` (if given) is
+    called for keys whose fetch step IS the use step (depth-0 plans)."""
+    n = 0
+    for key in schedule.get(step, ()):
+        if prefetcher.stage(key):
+            n += 1
+        if consume is not None:
+            consume(key)
+    return n

@@ -167,7 +167,11 @@ class BlockManager:
             "forked_blocks": self.forked_blocks,
             "cow_faults": self.cow_faults,
             "archive_entries": len(self.archive.keys()),
+            # per-tier split (HyperMem): host memory vs the disk tier the
+            # bounded archive spills into; "archive_bytes" stays the total
             "archive_bytes": self.archive.nbytes(),
+            "archive_host_bytes": self.archive.nbytes_host(),
+            "archive_disk_bytes": self.archive.nbytes_disk(),
         }
 
 

@@ -35,7 +35,6 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.api.errors import ServePlanError
 from repro_torch.configs.base import ServeConfig
 from repro_torch.core.kvcache import HostArchive
 from repro_torch.core.tree import tree_map
@@ -79,12 +78,6 @@ class ServeEngine:
         # compile ledger stay clean across engines in one process
         self.obs = obs if obs is not None else Observability()
         self.scfg = scfg = (serve_cfg or ServeConfig()).validate()
-        if scfg.archive_host_bytes or scfg.archive_disk_bytes:
-            raise ServePlanError(
-                "archive_host_bytes/archive_disk_bytes budget the HyperMem "
-                "host and disk tiers, which the port does not have yet "
-                "(ROADMAP.md, 'HyperMem and the host archive'); leave both "
-                "at 0 for the unbounded host archive")
         # plan-level kernels toggle -> lowering path, resolved ONCE so every
         # step this engine dispatches takes the same path (and the
         # serve.kernels.* counters pin it exactly)
@@ -96,9 +89,12 @@ class ServeEngine:
         self.pool = StatePool(cfg, self.pcfg, num_slots=scfg.max_slots,
                               device=self.device)
         self.layout = self.pool.layout
-        self.blocks = BlockManager(self.pcfg, HostArchive(self.device))
-        # predictive restore: a lookahead prefetcher stages restores for
+        # HyperMem: the archive is a bounded host->disk tier stack (0 =
+        # unbounded), and a lookahead prefetcher stages restores for
         # preempted requests nearing the queue head (StepPlan.near_head)
+        self.blocks = BlockManager(self.pcfg, HostArchive(
+            self.device, host_budget_bytes=scfg.archive_host_bytes,
+            disk_budget_bytes=scfg.archive_disk_bytes, obs=self.obs))
         self._restore_prefetch = Prefetcher(
             lambda key: self.blocks.archive.fetch(key, pop=False),
             depth=max(1, 2 * scfg.restore_lookahead), obs=self.obs)
@@ -403,7 +399,10 @@ class ServeEngine:
         occ = self.blocks.occupancy()
         m.gauge("serve.block_occupancy").set(occ)
         m.gauge("serve.blocks_free").set(self.blocks.num_free)
-        m.gauge("serve.archive_host_bytes").set(self.blocks.archive.nbytes())
+        m.gauge("serve.archive_host_bytes").set(
+            self.blocks.archive.nbytes_host())
+        m.gauge("serve.archive_disk_bytes").set(
+            self.blocks.archive.nbytes_disk())
         m.gauge("serve.pool_hbm_bytes").set(self.pool.hbm_bytes())
         m.gauge("serve.prefix_cache_blocks").set(
             sum(len(v) for v in self._prefix_cache.values()))
@@ -449,7 +448,12 @@ class ServeEngine:
             "prefill_calls": self.prefill_calls,
             "prefill_chunks": self.prefill_chunks,
             "pool_hbm_bytes": self.pool.hbm_bytes(),
-            "archive_host_bytes": self.blocks.archive.nbytes(),
+            # per-tier archive accounting (HyperMem): host memory vs the
+            # disk tier the bounded archive spills into, and its evictions
+            "archive_host_bytes": self.blocks.archive.nbytes_host(),
+            "archive_disk_bytes": self.blocks.archive.nbytes_disk(),
+            "archive_evict_host": self.blocks.archive.counters["evict_host"],
+            "archive_evict_disk": self.blocks.archive.counters["evict_disk"],
             "restore_ahead_hits": self.restore_ahead_hits,
             "prefetch_hits": self._restore_prefetch.counters["hit"],
             "prefetch_misses": self._restore_prefetch.counters["miss"],

@@ -1,31 +1,38 @@
-"""Train-step construction on one device: loss, grad, update.
+"""Train-step construction on one device: loss, grad, update, offload.
 
 The port of ``repro.train.steps``.  ``make_train_step`` returns a step
 that runs the remat'd train forward (flash attention through its autograd
 Function: forward and backward kernels on the card), the cross entropy,
 ``torch.autograd.grad`` over every param leaf and the reference's AdamW.
-The mesh and offload arguments of the reference's step (HyperShard
-layouts, the HyperOffload fetch/offload legs) are left out: a mesh or an
-offload request raises :class:`~repro_torch.api.errors.PlanError` naming
-ROADMAP.md's items (section 1, items 6 and 8).
+
+HyperOffload's legs between steps are :func:`fetch_state` (host -> card)
+and :func:`offload_state` (card -> pinned host memory), and
+:func:`init_state` places the state as ``offload_cfg`` says.  The
+reference runs them under a mesh; the port's one card stands for a
+one-device mesh, on which every leaf of rank >= 2 is fully sharded and
+so host-placed, and 1-D leaves stay on the card
+(:func:`repro_torch.core.offload.host_placeable`).  A mesh or a plan
+(HyperShard layouts, the HyperPlan facade) raises
+:class:`~repro_torch.api.errors.PlanError` naming ROADMAP.md's item 8.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.api.errors import PlanError
+from repro_torch.core import offload as off
+from repro_torch.core.kvcache import to_device
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.models import model as M
 from repro_torch.optim import adamw as opt_mod
 
 NOT_PORTED = ("the port trains on one device: meshes and plans (HyperShard, "
-              "the HyperPlan facade) are ROADMAP.md section 1 item 8, "
-              "host-resident state (HyperOffload) item 6")
+              "the HyperPlan facade) are ROADMAP.md section 1 item 8")
 
 
 def refuse_plan(**kw) -> None:
-    """Raise :class:`PlanError` for any multi-device or offload argument
-    that is not None (``mesh=``, ``plan=``, ``offload_cfg=``)."""
+    """Raise :class:`PlanError` for any multi-device argument that is not
+    None (``mesh=``, ``plan=``)."""
     given = sorted(k for k, v in kw.items() if v is not None)
     if given:
         raise PlanError(f"{', '.join(given)}: not ported yet; {NOT_PORTED}")
@@ -104,7 +111,7 @@ def make_train_step(cfg, adamw_cfg: opt_mod.AdamWConfig, *,
     for the card).  With ``multimodal`` the step takes the batch's
     ``"prefix_embeds"`` (B, P, frontend_dim) as the model's prefix, as the
     reference's step does; without it the key is ignored."""
-    refuse_plan(mesh=mesh, offload_cfg=offload_cfg)
+    refuse_plan(mesh=mesh)
 
     def step(params, opt_state, batch):
         pe = batch.get("prefix_embeds") if multimodal else None
@@ -117,13 +124,57 @@ def make_train_step(cfg, adamw_cfg: opt_mod.AdamWConfig, *,
     return step
 
 
+def _place(tree, fn):
+    """``fn`` on every host-placeable leaf of ``tree``; 1-D leaves pass."""
+    return tree_map(lambda t: fn(t) if off.host_placeable(t) else t, tree)
+
+
+def _move(params, opt_state, offload_cfg, fn):
+    if offload_cfg.params_on_host:
+        params = _place(params, fn)
+    if offload_cfg.opt_state_on_host:
+        opt_state = opt_mod.AdamWState(mu=_place(opt_state.mu, fn),
+                                       nu=_place(opt_state.nu, fn),
+                                       count=opt_state.count)
+    return params, opt_state
+
+
+def fetch_state(params, opt_state, offload_cfg, device):
+    """Host -> card leg of the HyperOffload cycle: asynchronous copies
+    from pinned memory on the current stream, queued ahead of the step."""
+    return _move(params, opt_state, offload_cfg,
+                 lambda t: to_device(t, device))
+
+
+def offload_state(params, opt_state, offload_cfg):
+    """Card -> host leg of the HyperOffload cycle: each host-placeable
+    leaf copied into pinned host memory by an asynchronous copy on the
+    current stream (the card's copy is freed with the step's old state;
+    the next :func:`fetch_state` is ordered after it on the stream, and a
+    host read of the state synchronises first)."""
+    return _move(params, opt_state, offload_cfg, off.to_host_async)
+
+
+def state_nbytes(params, opt_state, offload_cfg) -> int:
+    """Bytes one leg moves: the host-placeable leaves it covers."""
+    trees = ([params] if offload_cfg.params_on_host else []) + (
+        [opt_state.mu, opt_state.nu] if offload_cfg.opt_state_on_host
+        else [])
+    return sum(t.numel() * t.element_size() for tree in trees
+               for t in tree_leaves(tree) if off.host_placeable(t))
+
+
 def init_state(cfg, *, seed: int = 0, device=None, mesh=None,
                offload_cfg=None):
     """(params, opt_state) drawn from ``seed`` on ``device`` (the card
-    unless the caller names another)."""
+    unless the caller names another); with ``offload_cfg`` the params
+    and/or the optimizer's moments start in host memory."""
     from repro_torch.serve.runtime import resolve_device
-    refuse_plan(mesh=mesh, offload_cfg=offload_cfg)
+    refuse_plan(mesh=mesh)
     device = resolve_device(device)
     params = M.init_model(cfg, torch.Generator(device=device)
                           .manual_seed(seed))
-    return params, opt_mod.init_adamw(params)
+    opt = opt_mod.init_adamw(params)
+    if offload_cfg is not None:
+        params, opt = offload_state(params, opt, offload_cfg)
+    return params, opt

@@ -6,8 +6,12 @@ with its history keys, log cadence and observability names: the
 histogram (the host's time around the step call: the card runs behind it,
 as jax's dispatch does in the reference, until a log step reads the
 metrics back), the ``train.loss`` and ``train.grad_norm`` gauges, and the
-compile-ledger key ``("train_step", (B, S, moe_dispatch))``.  A plan
-(``plan=``, the ``HyperPlan`` facade) or ``offload_cfg=`` raises
+compile-ledger key ``("train_step", (B, S, moe_dispatch))``.  With an
+``offload_cfg`` that puts params or optimizer state on the host, each step
+runs between the HyperOffload legs, spans ``train.fetch`` and
+``train.offload`` inside ``train.step``, as the reference's trainer does
+under a mesh (the port's one card stands for a one-device mesh).  A plan
+(``plan=``, the ``HyperPlan`` facade) or a mesh raises
 :class:`~repro_torch.api.errors.PlanError`: ROADMAP.md section 1 item 8.
 """
 from __future__ import annotations
@@ -17,6 +21,8 @@ import os
 import tempfile
 import time
 from typing import Callable, Optional
+
+import torch
 
 from repro_torch.ckpt import checkpoint
 from repro_torch.data.pipeline import DataConfig, make_loader
@@ -43,7 +49,7 @@ def train(cfg, shape, *, adamw: Optional[AdamWConfig] = None,
     """End-to-end training on ``device`` (the card unless the caller names
     another).  Returns (params, history)."""
     from repro_torch.obs import Observability
-    steps_mod.refuse_plan(mesh=mesh, plan=plan, offload_cfg=offload_cfg)
+    steps_mod.refuse_plan(mesh=mesh, plan=plan)
     train_cfg = train_cfg or TrainConfig()
     device = resolve_device(device)
     obs = obs if obs is not None else Observability()
@@ -54,17 +60,27 @@ def train(cfg, shape, *, adamw: Optional[AdamWConfig] = None,
     step_fn = steps_mod.make_train_step(cfg, adamw,
                                         moe_dispatch=moe_dispatch)
     params, opt = steps_mod.init_state(cfg, seed=train_cfg.seed,
-                                       device=device)
+                                       device=device, offload_cfg=offload_cfg)
 
     loader = make_loader(dcfg, device)
     history = []
+    needs_offload = offload_cfg is not None and (
+        offload_cfg.params_on_host or offload_cfg.opt_state_on_host)
     obs.record_compile("train_step",
                        (shape.global_batch, shape.seq_len, moe_dispatch))
     t0 = time.perf_counter()
     for i, batch in zip(range(train_cfg.num_steps), loader):
         t_step = time.perf_counter()
         with obs.trace.span("train.step", track="train", step=i + 1):
+            if needs_offload:
+                with obs.trace.span("train.fetch", track="train"):
+                    params, opt = steps_mod.fetch_state(params, opt,
+                                                        offload_cfg, device)
             params, opt, metrics = step_fn(params, opt, batch)
+            if needs_offload:
+                with obs.trace.span("train.offload", track="train"):
+                    params, opt = steps_mod.offload_state(params, opt,
+                                                          offload_cfg)
         obs.metrics.counter("train.steps").inc()
         obs.metrics.histogram("train.step_s").observe(
             time.perf_counter() - t_step)
@@ -79,5 +95,14 @@ def train(cfg, shape, *, adamw: Optional[AdamWConfig] = None,
             if hook:
                 hook(m)
         if train_cfg.ckpt_every and (i + 1) % train_cfg.ckpt_every == 0:
+            _offload_done(device, needs_offload)
             checkpoint.save(train_cfg.ckpt_dir, i + 1, params, opt)
+    _offload_done(device, needs_offload)
     return params, history
+
+
+def _offload_done(device, needs_offload: bool) -> None:
+    """Wait for the offload leg's asynchronous copies before the host
+    reads the state it wrote."""
+    if needs_offload and device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()

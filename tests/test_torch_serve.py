@@ -398,9 +398,15 @@ def test_cancel_and_admission_control():
 def test_typed_errors_name_what_is_missing():
     cfg = get_config("qwen2-0.5b").reduced()
     params = M.init_model(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(ServePlanError, match="HyperMem"):
-        HyperServe(cfg, params, device="cpu",
-                   serve_cfg=ServeConfig(archive_host_bytes=1 << 20))
+    budgets = HyperServe(cfg, params, device="cpu", serve_cfg=ServeConfig(
+        archive_host_bytes=1 << 20, archive_disk_bytes=1 << 24))
+    tiers = budgets.engine.blocks.archive._tiers
+    assert (tiers.host_bytes, tiers.disk_bytes) == (1 << 20, 1 << 24)
+    assert budgets.stats()["archive_evict_host"] == 0
+    for knob in ("archive_host_bytes", "archive_disk_bytes"):
+        with pytest.raises(ServePlanError, match=knob):
+            HyperServe(cfg, params, device="cpu",
+                       serve_cfg=ServeConfig(**{knob: -1}))
     assert HyperServe(cfg, params, device="cpu", serve_cfg=ServeConfig(
         kernels="composed")).engine.kernel_path == "composed"
     with pytest.raises(ServePlanError, match="num_blocks"):

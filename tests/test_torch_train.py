@@ -17,7 +17,7 @@ neither trainer makes a prefix), mamba2-370m (the SSD scan's backward) and
 recurrentgemma-2b (the RG-LRU scan's, cut to its first three layers with a
 window of 8, so that the windowed flash backward runs too); and the typed
 refusals of what one
-device does not train (a mesh, a plan, an offload, a MoE config under
+device does not train (a mesh, a plan, a MoE config under
 the ragged dispatch, whose grouped matmul has no backward yet, a head-dim
 pair or a ``q_offset`` the backward does not take).
 
@@ -460,22 +460,29 @@ def test_checkpoints_cross_load_both_ways(tmp_path):
 
 
 def test_typed_refusals():
-    """A mesh, a plan or an offload raises PlanError naming the ROADMAP
-    items; a MoE config under the ragged dispatch refuses the grouped
+    """A mesh or a plan raises PlanError naming the ROADMAP item, and an
+    offload is accepted (HyperOffload's legs, tests/test_torch_offload.py);
+    a MoE config under the ragged dispatch refuses the grouped
     matmul's missing backward, naming its item (never a fall back to
     gshard); flash refuses a gradient at a head-dim pair or a q_offset its
     backward does not take, before anything runs."""
+    from repro_torch.core.offload import OffloadConfig
     jcfg, cfg = _cfgs()
     acfg = opt.AdamWConfig()
     with pytest.raises(PlanError, match="item"):
         steps.make_train_step(cfg, acfg, mesh=object())
-    with pytest.raises(PlanError, match="offload_cfg"):
-        steps.init_state(cfg, device="cpu", offload_cfg=object())
+    both = OffloadConfig(params_on_host=True, opt_state_on_host=True)
+    params, state = steps.init_state(cfg, device="cpu", offload_cfg=both)
+    assert all(t.device.type == "cpu"
+               for _, t in tree_flatten_with_path((params, state)))
+    steps.make_train_step(cfg, acfg, offload_cfg=both)
     shape = ShapeConfig("t", 8, 1, "train")
-    for kw in (dict(plan=object()), dict(offload_cfg=object()),
-               dict(mesh=object())):
+    for kw in (dict(plan=object()), dict(mesh=object())):
         with pytest.raises(PlanError, match="item 8"):
             trainer.train(cfg, shape, device="cpu", **kw)
+    _, hist = trainer.train(cfg, shape, device="cpu", offload_cfg=both,
+                            train_cfg=trainer.TrainConfig(num_steps=1))
+    assert len(hist) == 1 and np.isfinite(hist[0]["loss"])
     _, mcfg = _cfgs("deepseek-moe-16b")
     params, state = steps.init_state(mcfg, device="cpu")
     batch = {k: torch.from_numpy(v) for k, v in _batch(mcfg, 1, 1, 4).items()}
