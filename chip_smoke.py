@@ -6,10 +6,10 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
    1. device   — card name and power limit (nvidia-smi), torch/CUDA versions;
-   2. build    — nvcc builds the eleven CUDA sources from
+   2. build    — nvcc builds the twelve CUDA sources from
                  ``src/repro_torch`` (the eight kernels and the backwards of
-                 flash and the two scans), one process per source, all
-                 started together;
+                 flash, the two scans and the grouped matmul), one process
+                 per source, all started together;
    3. kernels  — each kernel against its plain PyTorch version on the card,
                  bf16 and f32, with and without a window, at the shapes the
                  runs below give it: the paged kernels at phase 4's (H=14,
@@ -63,11 +63,16 @@ Phases, in order; any failure raises and the script exits non-zero:
                  at 2 x 1024 with an initial state and dfin, against their
                  plain versions, the SSD backward's log naming its body
                  (ssd_bwd_body), its kernels and their ptxas registers
-                 and spills.  Each
+                 and spills; the grouped matmul's backward (dx and dw, 6b)
+                 at deepseek-v2-lite's train shape (2 x 4096 tokens, top-6:
+                 49152 sorted rows, 2048 -> 1408) and at a decode step's
+                 96 rows with empty experts, to the scan backwards' rule
+                 with F32_TOL, an empty expert's dw exact zeros.  Each
                  kernel is timed in bf16 at its
                  main-path shape beside its plain version, a library
-                 yardstick (SDPA; SDPA's backward; torch._grouped_mm; none
-                 for the two scans) and its bound;
+                 yardstick (SDPA; SDPA's backward; torch._grouped_mm, for
+                 the backward's dx and dw too where this torch takes their
+                 layouts; none for the two scans) and its bound;
    4. serve    — qwen2-0.5b at full width (24 layers, random weights from a
                  seed) in bf16 through HyperServe continuous batching; the
                  fused kernels must launch 24 times per decode step /
@@ -227,7 +232,32 @@ Phases, in order; any failure raises and the script exits non-zero:
                  spans, each leg's bytes and rate alone (a fetch, an
                  offload and a fetch again equal bit for bit), memory
                  allocated after an offload leg against without;
-  39. result   — the nvidia-smi line, the kernel JSON line (eleven kernels;
+  39. rl       — HyperRL, colocated (repro_torch.rl.RLSession): qwen2-0.5b
+                 at full width in bf16, 2 iterations of 2 prompts x 4
+                 samples of 128 + 64 tokens at temperature 1 (the
+                 launcher's diversity reward, lr 1e-5): weights_version 1
+                 then 2; every engine step exactly 24 paged decodes a
+                 decode step and 24 ragged prefills a prefill call, every
+                 update 48 flash forwards and 24 backwards; iteration 1's
+                 rollouts replayed bit for bit by a second session from the
+                 same seed; rollout tok/s, the learner step's wall, the
+                 publish wall, rl.stage_to_install_s, peak memory, and
+                 torch.profiler over rollout decode steps (idle share);
+  40. rl identity — the same in float32, one iteration: ratio_mean within
+                 1e-3 of 1 and clip_fraction 0 (on policy), then a greedy
+                 probe through the actor identical to a fresh Generator on
+                 the learner's params;
+  41. rl moe   — deepseek-v2-lite-16b cut to 4 layers (phase 26's), ragged
+                 actor and learner, bf16, one iteration of 1 x 4 samples of
+                 64 + 32 tokens: per decode step 4 MLA decodes and 9
+                 grouped matmuls, per prefill call 4 flash and 9, per
+                 update 8 flash, 4 backwards, 18 grouped matmuls and 9 of
+                 each grouped matmul backward kernel;
+  42. ragged train identity — deepseek-v2-lite at full width, 2 layers,
+                 float32, 2 steps of 1 x 1024 under the ragged dispatch,
+                 kernels against plain versions to phase 25's limits, both
+                 backward kernels launched 3 times a MoE layer and step;
+  43. result   — the nvidia-smi line, the kernel JSON line (twelve sources;
                  flash has a row for each run it is on: phase 6's (64, 64),
                  phase 12's (192, 128), phase 21's (256, 256), phase 23's
                  train shape with lse, phase 26's at (192, 128) and phase
@@ -237,7 +267,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                  and rglru_scan one for their serving prefill calls and one
                  for their Generator prefill; the paged decode, ragged
                  prefill and dense decode a second row at (256, G = 10);
-                 the grouped matmul one for each of its five cases; each
+                 the grouped matmul one for each of its five cases, its
+                 backward's dx and dw one each at the train shape with
+                 phase 41's launches; each
                  with that run's launches), and ``{"ok": true,
                  "device": {...}}`` as the last line.
 
@@ -387,6 +419,9 @@ BWD_WIDE_B, BWD_WIDE_S = 2, 2048
 DS_TRAIN_LAYERS = 4
 DS_TRAIN_B, DS_TRAIN_S, DS_TRAIN_STEPS = 2, 4096, 8
 BWD_MLA = (16, 16, 192, 128)                   # (H, KV, Dk, Dv)
+# the grouped matmul's backward (phase 3) at the rows phase 26's batch
+# routes under the ragged dispatch: DS_TRAIN_B x DS_TRAIN_S tokens, top-6
+GM_TRAIN_ROWS = DS_TRAIN_B * DS_TRAIN_S * 6
 # phase 3 also holds the backward at the reduced config's pair (96, 64)
 BWD_MLA_REDUCED = (16, 16, 96, 64)
 BWD_MLA_REDUCED_B, BWD_MLA_REDUCED_S = 2, 1024
@@ -421,6 +456,23 @@ SSM_TRAIN_ID_LAYERS, SSM_TRAIN_ID_B, SSM_TRAIN_ID_S = 2, 1, 1024
 RG_TRAIN_B, RG_TRAIN_S, RG_TRAIN_STEPS = 1, 4096, 8
 RG_TRAIN_ID_LAYERS, RG_TRAIN_ID_B, RG_TRAIN_ID_S = 3, 1, 2560
 RG_WINDOW = 2048
+# HyperRL (phases 39-42), colocated on the card, the toy diversity reward
+# of the reference's launcher: qwen2-0.5b at full width in bf16,
+# RL_PROMPTS prompts x RL_GROUP samples (RL_PROMPTS x RL_GROUP seats) of
+# RL_PROMPT_LEN tokens, RL_NEW new tokens at temperature 1, RL_ITERS
+# iterations at lr RL_LR; its f32 identity (one iteration, then a greedy
+# probe of RL_ID_PROMPT tokens, RL_ID_NEW new); deepseek-v2-lite-16b cut to
+# DS_TRAIN_LAYERS layers, ragged on both sides, bf16, DS_RL_PROMPTS x
+# DS_RL_GROUP samples of DS_RL_PROMPT_LEN tokens, DS_RL_NEW new, one
+# iteration; and the ragged train identity (f32, full width,
+# DS_RAGGED_ID_LAYERS layers, DS_RAGGED_ID_STEPS steps of 1 x
+# DS_TRAIN_ID_S, kernels against plain versions, phase 25's limits)
+RL_PROMPTS, RL_GROUP, RL_PROMPT_LEN, RL_NEW = 2, 4, 128, 64
+RL_ITERS, RL_LR = 2, 1e-5
+RL_ID_PROMPT, RL_ID_NEW = 64, 32
+DS_RL_PROMPTS, DS_RL_GROUP, DS_RL_PROMPT_LEN, DS_RL_NEW = 1, 4, 64, 32
+DS_RAGGED_ID_LAYERS, DS_RAGGED_ID_STEPS = 2, 2
+RL_NUM_BLOCKS = 256
 # phase 3's backward calls of the two scans beside the train shapes: an
 # initial state and the final state's gradient, as a serving-sized call
 # would hand them over (SCAN_BWD_B x SCAN_BWD_S)
@@ -1107,7 +1159,8 @@ def phase_build():
                         "flash_attention", "decode_attention",
                         "paged_mla_decode_attention", "grouped_matmul",
                         "ssd_scan", "rglru_scan", "flash_attention_bwd",
-                        "ssd_scan_bwd", "rglru_scan_bwd"])
+                        "ssd_scan_bwd", "rglru_scan_bwd",
+                        "grouped_matmul_bwd"])
     log(f"[build] {time.perf_counter() - t0:.1f}s into {build.BUILD_DIR}")
     for name, text in logs.items():
         log(f"[build] {name}: {text.splitlines()[0]}")
@@ -1155,9 +1208,12 @@ def short_kernel_name(mangled: str) -> str:
             name = head[i + d.end():]
             break
     args = re.findall(r"13__nv_bfloat16|Lb[01]E|Li\d+E|f", m.group(2))
+    # a bool argument is flash's LSE output, or the grouped matmul's
+    # K-major weights (KB: the backward's dx)
+    flags = ("lse", "nolse") if name.startswith("flash") else ("kb", "mn")
     return name + "<" + ",".join(
         "bf16" if a.startswith("13") else "f32" if a == "f" else
-        ("lse" if a == "Lb1E" else "nolse") if a.startswith("Lb") else
+        (flags[0] if a == "Lb1E" else flags[1]) if a.startswith("Lb") else
         a[2:-1] for a in args) + ">"
 
 
@@ -1393,6 +1449,7 @@ def phase_kernels(torch):
         # scans' backwards
         train_kernel_checks(torch, dtype_name, timed)
         scan_bwd_checks(torch, dtype_name, timed)
+        grouped_bwd_checks(torch, dtype_name, timed)
 
     return time_kernels(torch, timed)
 
@@ -1703,6 +1760,125 @@ def scan_bwd_checks(torch, dtype_name, timed):
             torch.cuda.empty_cache()
 
 
+def grouped_bwd_cases(torch, dtype):
+    """(case, (x, w, group sizes, dy)) of the grouped matmul's backward at
+    deepseek-v2-lite's train shape (GM_TRAIN_ROWS sorted rows of the
+    w_gate/w_up stacks, as phase 26's 2 x 4096 tokens route them) and at a
+    serving-sized mix of a decode step's DEC_B x top_k rows, where some
+    experts get none."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(DS_ARCH)
+    D, F = cfg.d_model, cfg.moe.d_ff_expert
+    out = []
+    for i, (case, rows) in enumerate((("train", GM_TRAIN_ROWS),
+                                      ("serving", DEC_B * cfg.moe.top_k))):
+        x, w, sizes = gm_inputs(torch, dtype, cfg, rows, D, F, SEED + 40 + i)
+        g = torch.Generator(device=DEVICE).manual_seed(SEED + 44 + i)
+        dy = (torch.randn(rows, F, generator=g, device=DEVICE)
+              * 0.01).to(dtype)
+        out.append((case, (x, w, sizes, dy)))
+    return out
+
+
+def grouped_bwd_checks(torch, dtype_name, timed):
+    """The grouped matmul's backward kernels (dx, dw) against its plain
+    version (grouped_matmul_bwd_ref) at grouped_bwd_cases' shapes, to
+    scan_grad_parity's rule with F32_TOL: dw sums a group's rows (~768 an
+    expert at the train shape, all of them in one expert's case), so the
+    f32 limit is F32_TOL x max(1, max |grad|) + twice the plain version's
+    own distance from float64, and in bf16 that limit is the slack beside
+    one step of the plain version and half a step of its f32 result.  An
+    empty expert's dw must be exact zeros."""
+    from repro_torch.kernels import grouped_matmul as gm
+    dtype = getattr(torch, dtype_name)
+    for case, args in grouped_bwd_cases(torch, dtype):
+        x, w, sizes, dy = args
+        n0 = (gm.grouped_matmul_bwd_dx.launches,
+              gm.grouped_matmul_bwd_dw.launches)
+        got = gm.grouped_matmul_bwd(*args)
+        sync(torch)
+        if (gm.grouped_matmul_bwd_dx.launches,
+                gm.grouped_matmul_bwd_dw.launches) != (n0[0] + 1, n0[1] + 1):
+            raise AssertionError("grouped_matmul_bwd launched no kernel")
+        want = gm.grouped_matmul_bwd_ref(*args)
+        f32 = [t.float() if t.is_floating_point() else t for t in args]
+        want32 = gm.grouped_matmul_bwd_ref(*f32)
+        f64 = [t.double() if t.is_floating_point() else t for t in args]
+        want64 = gm.grouped_matmul_bwd_ref(*f64, acc=torch.float64)
+        checks = {n: scan_grad_parity(torch, dtype_name, g, a, b, c, F32_TOL)
+                  for n, g, a, b, c in zip(("dx", "dw"), got, want, want32,
+                                           want64)}
+        empty = (sizes == 0).nonzero()[:, 0]
+        zeros = bool((got[1][empty] == 0).all().item())
+        log(f"[kernels] grouped_matmul_bwd ({case}, T={x.shape[0]}, "
+            f"D={x.shape[1]}, F={dy.shape[1]}, {len(empty)} of "
+            f"{len(sizes)} experts empty, their dw exact zeros={zeros}) "
+            f"{dtype_name}: max_abs_err "
+            + ", ".join(f"{n} {e:.3e} ({sh:.3f})"
+                        for n, (e, sh) in checks.items())
+            + f" (limit: {F32_TOL} x max(1, max |grad|) + 2 x the plain "
+            "version's own distance from float64"
+            + ("" if dtype_name == "float32" else
+               ", as slack beside one bf16 step of the plain version "
+               "and half a step of its f32 result") + ")")
+        if not max(sh for _, sh in checks.values()) <= 1 or not zeros:
+            raise AssertionError(f"kernel parity failed: grouped_matmul_bwd "
+                                 f"{case} {dtype_name}")
+        if dtype_name == "bfloat16" and case == "train":
+            timed[("grouped_matmul_bwd_dx", "train")] = (
+                gm.grouped_matmul_bwd_dx, gm.grouped_matmul_bwd_dx_ref,
+                (dy, w, sizes), {}, checks["dx"][0])
+            timed[("grouped_matmul_bwd_dw", "train")] = (
+                gm.grouped_matmul_bwd_dw, gm.grouped_matmul_bwd_dw_ref,
+                (x, dy, sizes), {}, checks["dw"][0])
+        del got, want, want32, want64, f32, f64
+        torch.cuda.empty_cache()
+
+
+def grouped_bwd_yardstick(torch, part, args):
+    """One torch._grouped_mm call computing the same dx (dy against each
+    expert's transposed weights) or dw (x's rows against dy's, the group
+    sizes splitting the summed dimension) where this torch has it and
+    takes that layout, else None; (call, what it is)."""
+    if not hasattr(torch, "_grouped_mm"):
+        return None, "library call: none (this torch has no torch._grouped_mm)"
+    a, b, sizes = args
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    if part == "dx":
+        call = lambda: torch._grouped_mm(a, b.transpose(1, 2), offs=offs)  # noqa: E731
+        what = "torch._grouped_mm(dy, w^T, offs)"
+    else:
+        call = lambda: torch._grouped_mm(a.t(), b, offs=offs)  # noqa: E731
+        what = "torch._grouped_mm(x^T, dy, offs) (K split by offs)"
+    try:
+        call()
+    except RuntimeError as e:            # a layout this build refuses
+        return None, (f"library call: none ({what} refused by this torch: "
+                      f"{str(e).splitlines()[0][:120]})")
+    return call, what
+
+
+def grouped_bwd_table(torch, pm, timed):
+    """Timing rows of the grouped matmul's backward at deepseek-v2-lite's
+    train shape (grouped_bwd_checks' "train" case), dx and dw, their
+    launches read from phase 41's RL run (its learner's ragged update)."""
+    rows = []
+    for part in ("dx", "dw"):
+        name = f"grouped_matmul_bwd_{part}"
+        args = timed[(name, "train")][2]
+        x_or_dy, _, sizes = args
+        w = timed[("grouped_matmul_bwd_dx", "train")][2][1]
+        lib, what = grouped_bwd_yardstick(torch, part, args)
+        rows.append((
+            name, "train",
+            pm.grouped_matmul_bwd_cost(sizes.tolist(), d_in=w.shape[1],
+                                       d_out=w.shape[2], itemsize=2,
+                                       part=part),
+            lib, what, "src/repro/kernels/grouped_matmul.py:58",
+            f"{DS_ARCH} rl"))
+    return tuple(rows)
+
+
 def train_table(torch, pm, timed):
     """Timing rows of the train step's kernels at qwen2-0.5b's train
     shape, read from phase 23's run: flash with its lse (SDPA's forward
@@ -1919,7 +2095,8 @@ def time_kernels(torch, timed):
     table = (tuple(t + ("qwen2-0.5b",) for t in table)
              + tuple(t + (DS_ARCH,) for t in moe_mla_table(torch, pm, timed))
              + ssm_table(pm, timed) + rg_table(torch, pm, timed)
-             + train_table(torch, pm, timed) + scan_train_table(pm, timed))
+             + train_table(torch, pm, timed) + scan_train_table(pm, timed)
+             + grouped_bwd_table(torch, pm, timed))
     out = []
     for name, case, cost, lib, lib_what, replaces, path in table:
         fn, ref, args, kw, err = timed[(name, case)]
@@ -1948,13 +2125,19 @@ def time_kernels(torch, timed):
             continue
         out.append({"name": ROW_NAMES.get((name, case), name),
                     "route": "cuda",
-                    "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                    "source": "src/repro_torch/kernels/csrc/"
+                              f"{SOURCE_OF.get(name, name)}.cu",
                     "replaces": replaces, "launches": 0, "max_abs_err": err,
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": library_ms,
                     "path": path})
     return out
 
+
+# the CUDA source of a wrapper whose name is not its source's (the
+# backward's two entry points); their launch counts are the wrappers' own
+SOURCE_OF = {"grouped_matmul_bwd_dx": "grouped_matmul_bwd",
+             "grouped_matmul_bwd_dw": "grouped_matmul_bwd"}
 
 # JSON row names where a kernel has a second row
 ROW_NAMES = {("flash_attention", "MLA rows q_offset (192, 128)"):
@@ -3216,12 +3399,12 @@ def prefix_train(torch, cfg, shape, adamw, train_cfg, hook=None):
 
 
 def run_train(torch, cfg, shape, n_steps, hook=None, offload_cfg=None,
-              obs=None):
+              obs=None, moe_dispatch="gshard"):
     """``n_steps`` train steps from SEED with AdamWConfig(total_steps=
     n_steps), as the reference's launcher builds it: through
-    ``trainer.train`` (with ``offload_cfg`` and ``obs`` when given), or,
-    for an arch with a multimodal frontend (frontend_dim), through
-    prefix_train."""
+    ``trainer.train`` (with ``offload_cfg``, ``obs`` and ``moe_dispatch``
+    when given), or, for an arch with a multimodal frontend
+    (frontend_dim), through prefix_train."""
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train import trainer
     adamw = AdamWConfig(total_steps=n_steps)
@@ -3231,7 +3414,7 @@ def run_train(torch, cfg, shape, n_steps, hook=None, offload_cfg=None,
         return prefix_train(torch, cfg, shape, adamw, train_cfg, hook)
     return trainer.train(cfg, shape, adamw=adamw, train_cfg=train_cfg,
                          hook=hook, device=DEVICE, offload_cfg=offload_cfg,
-                         obs=obs)
+                         obs=obs, moe_dispatch=moe_dispatch)
 
 
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "grouped_matmul",
@@ -3401,10 +3584,13 @@ def adam_step_bound(b1: float, b2: float, t: int) -> float:
 
 def phase_train_identity(torch, np, arch="qwen2-0.5b", layers=None,
                          batch=TRAIN_ID_B, seq=TRAIN_ID_S,
-                         n_steps=TRAIN_ID_STEPS, tag="train identity"):
+                         n_steps=TRAIN_ID_STEPS, tag="train identity",
+                         moe_dispatch="gshard"):
     """``arch`` at full width (``layers`` of its layers, all when None),
     float32: ``n_steps`` train steps of ``batch`` x ``seq`` tokens from one
-    seed (MoE under gshard; a multimodal arch after the same seeded
+    seed (MoE under ``moe_dispatch``, gshard by default; under "ragged" the
+    kernels' run must launch both grouped matmul backward kernels 3 times
+    per MoE layer and step; a multimodal arch after the same seeded
     conditioning frames, prefix_train), once with the kernels and once
     with the plain versions (``ops.set_mode("ref")``, autograd through the
     plain forward).  Losses and grad norms agree to TRAIN_ID_REL at every
@@ -3424,14 +3610,29 @@ def phase_train_identity(torch, np, arch="qwen2-0.5b", layers=None,
         cfg = dataclasses.replace(cfg, num_layers=layers)
     shape = ShapeConfig("train_identity", seq, batch, "train")
     adamw = AdamWConfig(total_steps=n_steps)
+    from repro_torch.configs.base import MOE_FFN
+    from repro_torch.kernels import grouped_matmul as gm
+    bwd = (gm.grouped_matmul_bwd_dx, gm.grouped_matmul_bwd_dw)
+    n0 = [k.launches for k in bwd]
     runs = {}
     for mode in ("auto", "ref"):
         ops.set_mode(mode)
         try:
-            runs[mode] = run_train(torch, cfg, shape, n_steps)
+            runs[mode] = run_train(torch, cfg, shape, n_steps,
+                                   moe_dispatch=moe_dispatch)
         finally:
             ops.set_mode("auto")
         torch.cuda.empty_cache()
+    got = [k.launches - n for k, n in zip(bwd, n0)]
+    moe = sum(f == MOE_FFN for _, f in cfg.block_kinds())
+    want = [3 * moe * n_steps if moe_dispatch == "ragged" else 0] * 2
+    if got != want:
+        raise AssertionError(f"{tag}: grouped_matmul_bwd dx/dw launches "
+                             f"{got}, expected {want}")
+    if moe_dispatch == "ragged":
+        log(f"[{tag}] ragged dispatch: grouped_matmul_bwd_dx and _dw "
+            f"launched {got} times (3 x {moe} MoE layers x {n_steps} steps, "
+            "the kernels' run; none in the plain versions' run)")
     worst = 0.0
     for a, b in zip(runs["auto"][1], runs["ref"][1]):
         for k in ("loss", "grad_norm"):
@@ -3627,6 +3828,315 @@ def phase_train_offload(torch, np):
                              "takes the card's memory")
 
 
+# ---------------------------------------------------------------------------
+# HyperRL: the port's colocated GRPO loop (repro_torch.rl)
+# ---------------------------------------------------------------------------
+def rl_session(torch, cfg, prompts, group, prompt_len, new, iters):
+    """A colocated RLSession on the card: ``prompts`` x ``group`` seats,
+    random weights from SEED, the launcher's serving leg (no prefix cache),
+    PRE_P x PRE_C prefill calls, lr RL_LR, temperature 1."""
+    from repro_torch.configs.base import RLConfig, ServeConfig
+    from repro_torch.models import model as M
+    from repro_torch.rl import RLSession
+    params = M.init_model(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED))
+    scfg = ServeConfig(block_size=BS, num_blocks=RL_NUM_BLOCKS,
+                       max_blocks_per_req=-(-(prompt_len + new) // BS) + 1,
+                       max_slots=prompts * group, prefill_chunk=PRE_C,
+                       prefill_batch=PRE_P, enable_prefix_cache=False)
+    rcfg = RLConfig(group_size=group, prompts_per_iter=prompts,
+                    max_new_tokens=new, temperature=1.0, lr=RL_LR,
+                    iterations=iters)
+    return RLSession(cfg, rl_cfg=rcfg, serve_cfg=scfg, params=params,
+                     seed=SEED, device=DEVICE)
+
+
+def rl_prompts(np, cfg, n, length, it):
+    """Iteration ``it``'s prompts, seeded: the same in every session."""
+    rng = np.random.default_rng(SEED + 100 + it)
+    return [rng.integers(1, cfg.vocab_size, size=length).tolist()
+            for _ in range(n)]
+
+
+def diversity(prompt, tokens):
+    """The reference launcher's toy reward: distinct tokens a rollout."""
+    return float(len(set(tokens)))
+
+
+def count_rl_launches(torch, rl, kernels):
+    """Wrap the session's engine step and learner update (on the objects
+    themselves) so that each call records the launches it made of every
+    kernel in ``kernels`` ({name: wrapper}) with what it ran: ("step",
+    decode steps, prefill calls, launches, 0) or ("update", 0, 0,
+    launches, wall seconds to the card's end).  Returns the record list."""
+    eng, learner = rl.actor.engine, rl.learner
+    m = eng.obs.metrics
+    step, update = eng.step, learner.update
+    records = []
+
+    def snap():
+        return {k: w.launches for k, w in kernels.items()}
+
+    def counted_step():
+        n0, d0, c0 = snap(), m.counter("serve.kernels.decode.fused").value, \
+            eng.prefill_calls
+        out = step()
+        n1 = snap()
+        records.append(("step",
+                        int(m.counter("serve.kernels.decode.fused").value
+                            - d0), eng.prefill_calls - c0,
+                        {k: n1[k] - n0[k] for k in n1}, 0.0))
+        return out
+
+    def counted_update(batch):
+        n0 = snap()
+        sync(torch)
+        t0 = time.perf_counter()
+        out = update(batch)
+        sync(torch)
+        wall = time.perf_counter() - t0
+        n1 = snap()
+        records.append(("update", 0, 0, {k: n1[k] - n0[k] for k in n1},
+                        wall))
+        return out
+    eng.step, learner.update = counted_step, counted_update
+    return records
+
+
+def check_rl_launches(tag, records, want_step, want_update):
+    """Every engine step's launches equal ``want_step(decode steps,
+    prefill calls)``, every update's ``want_update``; returns the totals."""
+    totals = {}
+    for kind, steps, calls, got, _ in records:
+        want = want_step(steps, calls) if kind == "step" else want_update
+        if got != want:
+            raise AssertionError(f"{tag}: a {kind} ({steps} decode steps, "
+                                 f"{calls} prefill calls) launched {got}, "
+                                 f"expected {want}")
+        for k, v in got.items():
+            totals[k] = totals.get(k, 0) + v
+    return totals
+
+
+def phase_rl(torch, np):
+    """qwen2-0.5b's colocated GRPO loop at full width in bf16 (phase 39):
+    RL_ITERS iterations of RL_PROMPTS prompts x RL_GROUP samples through
+    RLSession.iterate (rollout on HyperServe's paged kernels with the
+    batched sampler, the diversity reward, one GRPO update through flash
+    and its backward, publish).  weights_version ticks once an iteration;
+    every engine step launches exactly 24 paged decodes a decode step and
+    24 ragged prefills a prefill call, every update 48 flash forwards (24
+    and 24 remat) and 24 backwards, nothing else; iteration 1's rollouts
+    (tokens and logprobs, the learner batch) replay bit for bit in a second
+    session from the same seed.  Rollout tokens/s, the learner step's wall,
+    the publish wall, rl.stage_to_install_s, peak device memory, then
+    torch.profiler over rollout decode steps (the device's idle share)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.paged_decode_attention import \
+        paged_decode_attention
+    from repro_torch.kernels.ragged_prefill_attention import \
+        ragged_prefill_attention
+    cfg = get_config("qwen2-0.5b")
+    n = cfg.num_layers
+    kernels = {"paged_decode_attention": paged_decode_attention,
+               "ragged_prefill_attention": ragged_prefill_attention,
+               "flash_attention": fa.flash_attention,
+               "flash_attention_bwd": fa.flash_attention_bwd}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rl = rl_session(torch, cfg, RL_PROMPTS, RL_GROUP, RL_PROMPT_LEN, RL_NEW,
+                    RL_ITERS)
+    records = count_rl_launches(torch, rl, kernels)
+    # the main path's run: every launch count starts at 0 here
+    for w in kernels.values():
+        w.launches = 0
+    hist, batches = [], []
+    for it in range(RL_ITERS):
+        m = rl.iterate(rl_prompts(np, cfg, RL_PROMPTS, RL_PROMPT_LEN, it),
+                       diversity)
+        batches.append(rl.buffer.batch(pad_len_to=16))
+        hist.append(m)
+        upd = [r for r in records if r[0] == "update"][-1][4]
+        log(f"[rl] iteration {it + 1}: loss {m['loss']:+.6f} reward "
+            f"{m['reward_mean']:.3f} ratio_mean {m['ratio_mean']:.6f} "
+            f"clip_fraction {m['clip_fraction']:.4f} grad_norm "
+            f"{m['grad_norm']:.4f}; rollout {m['rollout_tokens']} tokens in "
+            f"{m['rollout_s']:.3f}s ({m['rollout_tokens'] / m['rollout_s']:.1f}"
+            f" rollout tok/s), learner step {upd:.4f}s, publish "
+            f"{m['publish_s'] * 1e3:.3f} ms, weights_version "
+            f"{int(m['weights_version'])}")
+        if int(m["weights_version"]) != it + 1 or not np.isfinite(m["loss"]):
+            raise AssertionError(f"rl: iteration {it + 1} left weights "
+                                 f"version {m['weights_version']}, loss "
+                                 f"{m['loss']}")
+    launches = check_rl_launches(
+        "rl", records,
+        lambda d, c: {"paged_decode_attention": n * d,
+                      "ragged_prefill_attention": n * c,
+                      "flash_attention": 0, "flash_attention_bwd": 0},
+        {"paged_decode_attention": 0, "ragged_prefill_attention": 0,
+         "flash_attention": 2 * n, "flash_attention_bwd": n})
+    steps = sum(r[1] for r in records)
+    calls = sum(r[2] for r in records)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    st = rl.obs.metrics.histogram("rl.stage_to_install_s")
+    log(f"[rl] qwen2-0.5b bf16 full width, {RL_ITERS} iterations of "
+        f"{RL_PROMPTS} x {RL_GROUP} rollouts of {RL_PROMPT_LEN} + {RL_NEW} "
+        f"tokens: launches {launches} over {steps} decode steps, {calls} "
+        f"prefill calls and {RL_ITERS} updates (exactly {n} paged decodes "
+        f"a decode step, {n} ragged prefills a call, {2 * n} flash and {n} "
+        f"flash backwards an update); rl.stage_to_install_s mean "
+        f"{st.sum / max(st.count, 1) * 1e3:.3f} ms over {st.count}; "
+        f"compile keys {rl.obs.compiled_keys('sampler')} (sampler), "
+        f"{len(rl.obs.compiled_keys('rl_step'))} rl_step; peak device "
+        f"memory {peak:.2f} GiB (torch.cuda.max_memory_allocated)")
+    rl_profile(torch, np, rl, cfg)
+    del rl
+    gc.collect()
+    torch.cuda.empty_cache()
+    again = rl_session(torch, cfg, RL_PROMPTS, RL_GROUP, RL_PROMPT_LEN,
+                       RL_NEW, 1)
+    again.iterate(rl_prompts(np, cfg, RL_PROMPTS, RL_PROMPT_LEN, 0),
+                  diversity)
+    replay = again.buffer.batch(pad_len_to=16)
+    same = all(np.array_equal(replay[k], batches[0][k]) for k in replay)
+    log(f"[rl] iteration 1 replayed in a second session from seed {SEED}: "
+        f"tokens and logprobs bit-identical={same} ({int(batches[0]['mask'].sum())}"
+        " response tokens)")
+    if not same:
+        raise AssertionError("rl: iteration 1's rollouts did not replay")
+    return launches
+
+
+def rl_profile(torch, np, rl, cfg):
+    """torch.profiler over RL rollout decode steps: a group's seats all
+    decoding, each step sampling every seat with the batched sampler."""
+    from torch.profiler import ProfilerActivity, profile
+    actor = rl.actor
+    for p in rl_prompts(np, cfg, RL_PROMPTS, RL_PROMPT_LEN, 9):
+        actor.submit_group(p)
+    sched = actor.engine.scheduler
+    for _ in range(64):                  # until every seat decodes
+        if sched.active and not sched.queue and all(
+                r.state.value == "running" for r in sched.active):
+            break
+        actor.step()
+    else:
+        raise AssertionError("rl profile: the group never reached decode")
+    n = 8
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sync(torch)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            actor.step()
+        sync(torch)
+        wall = time.perf_counter() - t0
+    report_profile("rl profile", [("rollout decode step", prof, wall, n)])
+    actor.drain()
+    for g in list(actor.groups.values()):
+        actor.release(g)
+
+
+def phase_rl_identity(torch, np):
+    """qwen2-0.5b at full width in float32 (phase 40): one iteration of the
+    loop; the update's ratio_mean within 1e-3 of 1 and clip_fraction 0 (on
+    policy: the actor's logprobs from the paged kernels, the learner's from
+    the flash forward); then, after the publish, a greedy rollout_greedy
+    probe through the actor identical to a fresh Generator built on the
+    learner's params, token for token."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.serve.engine import GenerateConfig, Generator
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), dtype="float32")
+    rl = rl_session(torch, cfg, RL_PROMPTS, RL_GROUP, RL_PROMPT_LEN, RL_NEW,
+                    1)
+    m = rl.iterate(rl_prompts(np, cfg, RL_PROMPTS, RL_PROMPT_LEN, 0),
+                   diversity)
+    probe = rl_prompts(np, cfg, 1, RL_ID_PROMPT, 7)[0]
+    got = rl.rollout_greedy(probe, RL_ID_NEW)
+    gen = Generator(cfg, rl.learner.params,
+                    max_len=RL_ID_PROMPT + RL_ID_NEW + 8, device=DEVICE)
+    want = gen.generate(torch.tensor([probe], device=DEVICE),
+                        GenerateConfig(max_new_tokens=RL_ID_NEW))
+    want = want[0, RL_ID_PROMPT:].tolist()
+    log(f"[rl identity] f32 full width, one iteration of {RL_PROMPTS} x "
+        f"{RL_GROUP} rollouts: ratio_mean {m['ratio_mean']:.9f} (limit 1 +- "
+        f"1e-3), clip_fraction {m['clip_fraction']}, weights_version "
+        f"{int(m['weights_version'])}; greedy probe of {RL_ID_PROMPT} + "
+        f"{RL_ID_NEW} tokens through the actor identical to a fresh "
+        f"Generator on the learner's params={got == want}")
+    if not abs(m["ratio_mean"] - 1) <= 1e-3 or m["clip_fraction"] != 0:
+        raise AssertionError("rl identity: the first update is not on policy")
+    if got != want or int(m["weights_version"]) != 1:
+        raise AssertionError("rl identity: the published weights are not "
+                             "the learner's")
+
+
+def phase_rl_moe(torch, np):
+    """deepseek-v2-lite-16b cut to DS_TRAIN_LAYERS layers (the dense first
+    and three MoE), ragged on both sides, bf16 (phase 41): one iteration of
+    DS_RL_PROMPTS x DS_RL_GROUP rollouts.  Exactly 4 MLA decodes and 9
+    grouped matmuls a decode step, 4 flash and 9 grouped matmuls a prefill
+    call; an update 8 flash forwards, 4 backwards, 18 grouped matmuls (3 a
+    MoE layer and forward, the remat's included) and 9 of each grouped
+    matmul backward kernel."""
+    from repro_torch.configs.base import MOE_FFN, get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels.paged_decode_attention import \
+        paged_mla_decode_attention
+    cfg = dataclasses.replace(get_config(DS_ARCH),
+                              num_layers=DS_TRAIN_LAYERS)
+    n = cfg.num_layers
+    moe = sum(f == MOE_FFN for _, f in cfg.block_kinds())
+    kernels = {"paged_mla_decode_attention": paged_mla_decode_attention,
+               "flash_attention": fa.flash_attention,
+               "flash_attention_bwd": fa.flash_attention_bwd,
+               "grouped_matmul": gm.grouped_matmul,
+               "grouped_matmul_bwd_dx": gm.grouped_matmul_bwd_dx,
+               "grouped_matmul_bwd_dw": gm.grouped_matmul_bwd_dw}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rl = rl_session(torch, cfg, DS_RL_PROMPTS, DS_RL_GROUP,
+                    DS_RL_PROMPT_LEN, DS_RL_NEW, 1)
+    records = count_rl_launches(torch, rl, kernels)
+    for w in kernels.values():
+        w.launches = 0
+    m = rl.iterate(rl_prompts(np, cfg, DS_RL_PROMPTS, DS_RL_PROMPT_LEN, 0),
+                   diversity)
+    launches = check_rl_launches(
+        "rl moe", records,
+        lambda d, c: {"paged_mla_decode_attention": n * d,
+                      "flash_attention": n * c, "flash_attention_bwd": 0,
+                      "grouped_matmul": 3 * moe * (d + c),
+                      "grouped_matmul_bwd_dx": 0,
+                      "grouped_matmul_bwd_dw": 0},
+        {"paged_mla_decode_attention": 0, "flash_attention": 2 * n,
+         "flash_attention_bwd": n, "grouped_matmul": 6 * moe,
+         "grouped_matmul_bwd_dx": 3 * moe,
+         "grouped_matmul_bwd_dw": 3 * moe})
+    upd = [r for r in records if r[0] == "update"][-1][4]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[rl moe] {DS_ARCH} bf16 full width, {n} layers ({moe} MoE), "
+        f"ragged actor and learner: loss {m['loss']:+.6f} ratio_mean "
+        f"{m['ratio_mean']:.6f} grad_norm {m['grad_norm']:.4f}, rollout "
+        f"{m['rollout_tokens']} tokens in {m['rollout_s']:.3f}s, learner "
+        f"step {upd:.4f}s, publish {m['publish_s'] * 1e3:.3f} ms, "
+        f"weights_version {int(m['weights_version'])}; launches {launches} "
+        f"(per decode step {n} MLA decodes and {3 * moe} grouped matmuls, "
+        f"per prefill call {n} flash and {3 * moe}, per update {2 * n} "
+        f"flash, {n} backwards, {6 * moe} grouped matmuls, {3 * moe} of each "
+        f"backward kernel); peak device memory {peak:.2f} GiB")
+    if int(m["weights_version"]) != 1 or not np.isfinite(m["loss"]) \
+            or not np.isfinite(m["grad_norm"]):
+        raise AssertionError("rl moe: the iteration did not publish a "
+                             "finite update")
+    return launches
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3744,6 +4254,16 @@ def main() -> int:
     timed("pool", phase_pool, torch)
     torch.cuda.empty_cache()
     timed("train offload", phase_train_offload, torch, np)
+    torch.cuda.empty_cache()
+    rl_launches = timed("rl", phase_rl, torch, np)
+    torch.cuda.empty_cache()
+    timed("rl identity", phase_rl_identity, torch, np)
+    torch.cuda.empty_cache()
+    ds_rl_launches = timed("rl moe", phase_rl_moe, torch, np)
+    torch.cuda.empty_cache()
+    timed("ragged train identity", phase_train_identity, torch, np,
+          DS_ARCH, DS_RAGGED_ID_LAYERS, DS_TRAIN_ID_B, DS_TRAIN_ID_S,
+          DS_RAGGED_ID_STEPS, "ragged train identity", "ragged")
     runs = {"qwen2-0.5b": launches, DS_ARCH: moe_launches,
             SSM_ARCH: ssm_launches, f"{SSM_ARCH} Generator": ssm_gen_launches,
             RG_ARCH: rg_launches, f"{RG_ARCH} Generator": rg_gen_launches,
@@ -3751,11 +4271,13 @@ def main() -> int:
             f"{DS_ARCH} train": ds_train_launches,
             f"{MG_ARCH} train": mg_train_launches,
             f"{SSM_ARCH} train": ssm_train_launches,
-            f"{RG_ARCH} train": rg_train_launches}
+            f"{RG_ARCH} train": rg_train_launches,
+            "qwen2-0.5b rl": rl_launches, f"{DS_ARCH} rl": ds_rl_launches}
     for row in rows:
         if row["path"] is not None:     # None: timed in phase 3 only
-            row["launches"] = runs[row["path"]][
-                os.path.basename(row["source"])[:-len(".cu")]]
+            key = (row["name"] if row["name"] in SOURCE_OF else
+                   os.path.basename(row["source"])[:-len(".cu")])
+            row["launches"] = runs[row["path"]][key]
     log(f"[time] all phases: {time.perf_counter() - t0:.1f}s")
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -1,7 +1,7 @@
 """Configuration system of the PyTorch port.
 
-A copy of the reference's ``repro.configs.base`` (the model and serving
-configs the ported slice reads), kept field for field so one config value
+A copy of the reference's ``repro.configs.base`` (the model, serving and
+RL configs the ported slices read), kept field for field so one config value
 means the same thing in both packages.  Every architecture is a frozen
 :class:`ModelConfig`; ``reduced()`` produces the CPU-test variant (2
 layers, d_model<=256).
@@ -306,6 +306,31 @@ class ServeConfig:
     def scheduler_config(self):
         from repro_torch.serve.scheduler import SchedulerConfig
         return self._sub(SchedulerConfig)
+
+
+# ---------------------------------------------------------------------------
+# RL post-training knobs (paper §3.3c sample-evaluate-update loops)
+@dataclass(frozen=True)
+class RLConfig:
+    """HyperRL runtime configuration (GRPO-style post-training).
+
+    Rollout knobs drive the actor's continuous-batching fan-out (each
+    prompt is sampled ``group_size`` times for group-relative advantages);
+    update knobs parameterise the masked clipped policy-gradient loss.
+    """
+    # rollout (actor)
+    group_size: int = 4                # GRPO samples per prompt
+    prompts_per_iter: int = 2          # prompt groups per iteration
+    max_new_tokens: int = 8            # rollout length budget
+    temperature: float = 1.0           # sampling temperature (>0)
+    # update (learner)
+    lr: float = 1e-5
+    clip_eps: float = 0.2              # PPO-style ratio clip
+    adv_eps: float = 1e-6              # group-advantage std floor
+    iterations: int = 3                # default loop length (launcher/example)
+
+    def replace(self, **kw) -> "RLConfig":
+        return replace(self, **kw)
 
 
 # ---------------------------------------------------------------------------

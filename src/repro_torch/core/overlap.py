@@ -21,6 +21,11 @@ def ragged_moe_apply(p, xf, idx, gate_vals, cfg):
     xf: (T, D); idx: (T, k) expert ids; gate_vals: (T, k) gate weights.
     Returns (T, D) in the experts' output type.
 
+    Differentiable: under autograd each grouped matmul runs through
+    ``GroupedMatmulFn`` (its backward kernel computes dx and dW), and the
+    sort, gather and unsort are plain indexing, so the train step and the
+    GRPO learner take this dispatch as serving does.
+
     The group sizes are counted on the device (``scatter_add_`` of ones:
     no read-back, unlike ``bincount``), and the rows are sorted by expert
     with a stable sort.  Where the reference scatter-adds each weighted

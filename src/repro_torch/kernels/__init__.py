@@ -19,12 +19,12 @@ PLAIN_DEVICES = ("cpu", "meta")
 def refuse_grad(name: str, *tensors, item: str = "train step") -> None:
     """Raise when a gradient is asked of a kernel that has no backward
     (the wrappers launch through ctypes, so autograd would not see the
-    kernel and the gradient would be wrong in silence).  Flash attention
-    and the two scans have one (``flash_attention.FlashAttentionFn``,
-    ``ssd_scan.SSDScanFn``, ``rglru_scan.RGLRUScanFn``); the grouped
-    matmul's comes with ROADMAP.md's item 2.9b, and the decode kernels
-    serve only: ``item`` names the ROADMAP.md item that brings this
-    one's."""
+    kernel and the gradient would be wrong in silence).  Flash attention,
+    the two scans and the grouped matmul have one
+    (``flash_attention.FlashAttentionFn``, ``ssd_scan.SSDScanFn``,
+    ``rglru_scan.RGLRUScanFn``, ``grouped_matmul.GroupedMatmulFn``); the
+    decode kernels serve only: ``item`` names the ROADMAP.md item that
+    brings this one's."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"{name}: an input requires grad, and the kernel "
                            f"has no backward yet (ROADMAP.md, {item}); "

@@ -849,10 +849,13 @@ __device__ __forceinline__ void wgmma_ss32(float (&d)[16], uint64_t a,
 }
 
 // d (64 x 128, f32) = a b + (accumulate ? d : 0), a from shared memory
-// (64 x 16, K-major), b from shared memory MN-major (16 rows of 128
-// contiguous values in two 64-value column blocks, the leading byte offset
-// of the descriptor apart: grouped_matmul.cu's weight tiles), both bf16.
-// The transpose bit reads b as it lies, no transpose through registers.
+// (64 x 16, K-major, or with TA MN-major: its 16 K rows of 64 contiguous M
+// values), b from shared memory MN-major (16 rows of 128 contiguous values
+// in two 64-value column blocks, the leading byte offset of the descriptor
+// apart: grouped_matmul.cu's weight tiles), or with TB = 0 K-major (128
+// rows of 16 values, as a's), both bf16.  The transpose bits read each
+// operand as it lies, no transpose through registers.
+template <int TA = 0, int TB = 1>
 __device__ __forceinline__ void wgmma_ss_mn128(float (&d)[64], uint64_t a,
                                                uint64_t b, int accumulate) {
     asm volatile(
@@ -866,7 +869,7 @@ __device__ __forceinline__ void wgmma_ss_mn128(float (&d)[64], uint64_t a,
         "%40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, "
         "%56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 1;\n}\n"
+        "%64, %65, p, 1, 1, %67, %68;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -880,10 +883,12 @@ __device__ __forceinline__ void wgmma_ss_mn128(float (&d)[64], uint64_t a,
           "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
           "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(accumulate));
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
-// As wgmma_ss_mn128 at N = 256: b holds four 64-value column blocks.
+// As wgmma_ss_mn128 at N = 256: b holds four 64-value column blocks (TB),
+// or 256 K-major rows (TB = 0).
+template <int TA = 0, int TB = 1>
 __device__ __forceinline__ void wgmma_ss_mn256(float (&d)[128], uint64_t a,
                                                uint64_t b, int accumulate) {
     asm volatile(
@@ -905,7 +910,7 @@ __device__ __forceinline__ void wgmma_ss_mn256(float (&d)[128], uint64_t a,
         "%104, %105, %106, %107, %108, %109, %110, %111, "
         "%112, %113, %114, %115, %116, %117, %118, %119, "
         "%120, %121, %122, %123, %124, %125, %126, %127}, "
-        "%128, %129, p, 1, 1, 0, 1;\n}\n"
+        "%128, %129, p, 1, 1, %131, %132;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -932,7 +937,7 @@ __device__ __forceinline__ void wgmma_ss_mn256(float (&d)[128], uint64_t a,
           "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
           "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "l"(a), "l"(b), "r"(accumulate));
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
 // ---------------------------------------------------------------------------

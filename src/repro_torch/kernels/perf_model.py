@@ -15,7 +15,8 @@ Two work definitions, both computed from the same ``lengths`` /
 
 :func:`paged_mla_decode_cost` and :func:`grouped_matmul_cost` count the
 work of the two MoE/MLA kernels the same way: the keys below each row's
-length, the rows each expert takes, nothing for an empty expert;
+length, the rows each expert takes, nothing for an empty expert
+(:func:`grouped_matmul_bwd_cost` the backward's dx and dw products);
 :func:`ssd_scan_cost` counts the SSD scan's causal pairs per chunk, and
 :func:`rglru_scan_cost` the RG-LRU recurrence's elements,
 :func:`flash_attention_bwd_cost` the flash backward's visible pairs, and
@@ -233,6 +234,30 @@ def grouped_matmul_cost(group_sizes: Sequence[int], *, d_in: int,
         "grouped_matmul", float(2 * rows * d_in * d_out),
         float((rows * d_in + live * d_in * d_out + rows * d_out) * itemsize
               + 4 * len(group_sizes)))
+
+
+def grouped_matmul_bwd_cost(group_sizes: Sequence[int], *, d_in: int,
+                            d_out: int, itemsize: int,
+                            part: str) -> KernelCost:
+    """One of the two products of the grouped matmul's backward, each 2 D
+    F FLOPs a row.  ``part="dx"``: dy's rows read once, every non-empty
+    expert's (D, F) weight read once, dx's rows written once.
+    ``part="dw"``: x's and dy's rows read once, every expert's (D, F)
+    gradient written once (an empty expert's zeros too).  The sizes are
+    read once by each."""
+    rows = sum(int(n) for n in group_sizes)
+    E = len(group_sizes)
+    live = sum(1 for n in group_sizes if int(n) > 0)
+    weights = (live if part == "dx" else E) * d_in * d_out
+    if part == "dx":
+        elems = rows * d_out + weights + rows * d_in
+    elif part == "dw":
+        elems = rows * d_in + rows * d_out + weights
+    else:
+        raise ValueError(f"part={part!r}: must be 'dx' or 'dw'")
+    return KernelCost(f"grouped_matmul_bwd_{part}",
+                      float(2 * rows * d_in * d_out),
+                      float(elems * itemsize + 4 * E))
 
 
 # ---------------------------------------------------------------------------

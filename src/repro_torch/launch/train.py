@@ -12,9 +12,8 @@ The reference launcher's flags that one card can honour (``--arch``,
 Every arch trains, the two recurrent ones (mamba2-370m, recurrentgemma-2b)
 through the SSD and RG-LRU scans' backward kernels; the MoE archs
 (deepseek-v2-lite-16b, deepseek-moe-16b, moonshot-v1-16b-a3b) under the
-default ``--moe-dispatch gshard``; ``ragged`` refuses the gradient its
-grouped matmul has no backward for (ROADMAP.md section 2 item 2.9b) and
-never falls back to gshard.  internvl2-26b and musicgen-large train
+default ``--moe-dispatch gshard`` or under ``ragged``, whose grouped
+matmuls run their forward and backward kernels.  internvl2-26b and musicgen-large train
 without their prefix here, as the reference's launcher does (the prefix
 enters through ``make_train_step(multimodal=True)``).
 Weights are random, drawn from a seeded ``torch.Generator`` on the

@@ -13,8 +13,10 @@ reference's dispatches:
   takes it;
 * ``"ragged"``: the sort-based dispatch (:mod:`repro_torch.core.overlap`,
   three ``grouped_matmul`` launches a layer), the one serving takes for
-  every MoE config.  The grouped matmul has no backward yet (ROADMAP.md
-  section 2 item 2.9b), so a gradient through it is refused.
+  every MoE config.  It is differentiable too, through the grouped
+  matmul's backward kernel (``grouped_matmul.GroupedMatmulFn``): the GRPO
+  learner trains an MoE policy under the dispatch its actor samples with,
+  and the train step takes it on request.
 
 The reference's data-parallel ``dp_local`` variant needs a mesh (ROADMAP.md
 section 1 item 1.8) and raises.

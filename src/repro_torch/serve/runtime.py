@@ -28,6 +28,7 @@ A finished prompt's full blocks can be retained in a copy-on-write
 """
 from __future__ import annotations
 
+import functools
 import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
@@ -61,11 +62,57 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
-def _sample_seed(seed: int, position: int) -> int:
-    """Generator seed for one request position: a fixed mix of
-    ``(seed, position)``, the port's counterpart of the reference's
-    ``fold_in(PRNGKey(seed), position)``."""
-    return (seed * 0x9E3779B97F4A7C15 + position) & 0x7FFFFFFFFFFFFFFF
+# ---------------------------------------------------------------------------
+# counter-based sampling: a row's draw is a function of (seed, position,
+# vocab index) alone, the port's counterpart of the reference's
+# fold_in(PRNGKey(seed), position) (its threefry bits are not reproduced)
+# ---------------------------------------------------------------------------
+_M32 = 0xFFFFFFFF
+_VOCAB_SALT = 0x632BE5AB
+
+
+def _mul32(x, c: int):
+    """(x c) mod 2^32 for int64 x in [0, 2^32) (a numpy array or a torch
+    tensor), in two 16-bit halves so that no product overflows int64."""
+    return (((x & 0xFFFF) * c) + ((((x >> 16) * c) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x):
+    """MurmurHash3's 32-bit finaliser on int64 values in [0, 2^32)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def row_keys(seeds, positions) -> np.ndarray:
+    """(B,) int64 keys of the rows' draws, from their seeds and positions
+    (``len(req.generated)``) alone."""
+    s = np.asarray(seeds, np.int64) & _M32
+    p = np.asarray(positions, np.int64) & _M32
+    return _mix32(_mix32(s) ^ _mul32(p, 0x9E3779B9))
+
+
+def sample_rows(logits, keys, temps, vocab_hash):
+    """One draw a row, on the logits' device: ``logits`` (B, >= V) of any
+    float type, ``keys`` (B,) int64 from :func:`row_keys`, ``temps`` (B,)
+    f32 > 0, ``vocab_hash`` (V,) int64 ``_mix32(arange(V) ^ salt)``.
+
+    Gumbel-max: token = argmax(logits / T + g) with g = -log(-log(u)) and u
+    in (0, 1) from 24 bits of ``_mix32(key ^ vocab_hash)``, so a row's
+    token depends on nothing but its own logits, key and temperature (not
+    on the other rows, the batch size or the engine's history); the logs
+    are taken in float64 and rounded once, so that a row of one and a row
+    of a batch agree.  Returns (tokens (B,) int64, logprobs (B,) f32: the
+    sampled token's log-softmax under the temperature-scaled logits)."""
+    V = vocab_hash.shape[0]
+    lg = logits[:, :V].float() / temps[:, None]
+    h = _mix32(keys[:, None] ^ vocab_hash[None, :])
+    u = ((h >> 8).double() + 0.5) * 2.0 ** -24
+    tok = torch.argmax(lg + (-torch.log(-torch.log(u))).float(), dim=-1)
+    lp = lg.gather(1, tok[:, None])[:, 0] - torch.logsumexp(lg, dim=-1)
+    return tok, lp
 
 
 class ServeEngine:
@@ -235,29 +282,67 @@ class ServeEngine:
         """Per-request seed for requests that didn't pin one at submit."""
         return (self.seed ^ (rid * 0x9E3779B1)) & 0x7FFFFFFF
 
-    def _sample(self, logits_row, req: Request) -> int:
-        """Sample the request's next token under a per-request generator.
+    @functools.cached_property
+    def _vocab_hash(self) -> torch.Tensor:
+        """(V,) int64 per-token hashes of :func:`sample_rows`, made once."""
+        v = torch.arange(self.cfg.vocab_size, dtype=torch.int64,
+                         device=self.device)
+        return _mix32(v ^ _VOCAB_SALT)
 
-        The generator is seeded from ``(req.seed, len(req.generated))``
-        only — no engine-global counter — so a temperature>0 request
-        resamples the identical token stream across runs AND across
-        preemption spill/restore.  The draw runs on the CPU, so the stream
-        does not depend on the device either.  With ``capture_logprobs``
-        the sampled token's logprob under the sampling distribution is
-        appended to ``req.logprobs``.
+    def _draw(self, logits, rows: List[Optional[Request]]):
+        """:func:`sample_rows` over ``logits`` (len(rows), >= V), row i for
+        temperature > 0 request ``rows[i]`` (None: an empty seat, drawn
+        with key 0 at temperature 1 and never read), then ONE transfer of
+        (tokens, logprobs) to the host as two float64 rows (token ids are
+        exact there)."""
+        keys = row_keys([r.seed if r else 0 for r in rows],
+                        [len(r.generated) if r else 0 for r in rows])
+        temps = np.asarray([r.temperature if r else 1.0 for r in rows],
+                           np.float32)
+        tok, lp = sample_rows(logits, self._tensor(keys),
+                              self._tensor(temps), self._vocab_hash)
+        out = torch.stack([tok.double(), lp.double()]).cpu().numpy()
+        return out[0].astype(np.int64), out[1]
+
+    def _sample(self, logits_row, req: Request) -> int:
+        """Sample the request's next token: greedy at temperature 0, else
+        :func:`sample_rows` on this one row, the function the batched
+        sampler computes for every row.
+
+        The draw depends only on ``(req.seed, len(req.generated))`` — no
+        engine-global state — so a temperature>0 request resamples the
+        identical token stream across runs AND across preemption
+        spill/restore (which never rolls ``generated`` back), and a row
+        samples the same token whatever else is seated.  With
+        ``capture_logprobs`` the sampled token's logprob under the sampling
+        distribution is appended to ``req.logprobs``.
         """
-        lg = logits_row[:self.cfg.vocab_size].float()
         if req.temperature > 0:
-            lg = (lg / req.temperature).cpu()
-            gen = torch.Generator(device="cpu")
-            gen.manual_seed(_sample_seed(req.seed, len(req.generated)))
-            tok = int(torch.multinomial(torch.softmax(lg, -1), 1,
-                                        generator=gen))
+            toks, lps = self._draw(logits_row[None], [req])
+            tok, lp = int(toks[0]), float(lps[0])
         else:
+            lg = logits_row[:self.cfg.vocab_size].float()
             tok = int(torch.argmax(lg))
+            lp = float(torch.log_softmax(lg, -1)[tok]) \
+                if req.capture_logprobs else 0.0
         if req.capture_logprobs:
-            req.logprobs.append(float(torch.log_softmax(lg, -1)[tok]))
+            req.logprobs.append(lp)
         return tok
+
+    def _sample_batch(self, runners: List[Request], logits):
+        """Batched temperature sampling for the decode step's runners: one
+        device computation over all ``max_slots`` rows (empty seats draw
+        with a zero key at temperature 1, never read), one transfer.  Row
+        semantics are :meth:`_sample`'s, so batching never changes a row's
+        stream."""
+        seated: List[Optional[Request]] = [None] * self.scfg.max_slots
+        for r in runners:
+            seated[r.slot] = r
+        toks, lps = self._draw(logits, seated)
+        for r in runners:
+            if r.capture_logprobs:
+                r.logprobs.append(float(lps[r.slot]))
+        return {r.slot: int(toks[r.slot]) for r in runners}
 
     # ------------------------------------------------------------------
     # prefill execution
@@ -373,10 +458,11 @@ class ServeEngine:
                         logits[:, -1, :self.cfg.vocab_size].float(),
                         dim=-1).cpu().numpy()
                     picks = {r.slot: int(nxt[r.slot]) for r in runners}
+                elif all(r.temperature > 0 for r in runners):
+                    # batched stochastic (the RL rollout hot path)
+                    self.obs.record_compile("sampler", (B,))
+                    picks = self._sample_batch(runners, logits[:, -1])
                 else:
-                    if all(r.temperature > 0 for r in runners):
-                        # the reference's batched stochastic sampler key
-                        self.obs.record_compile("sampler", (B,))
                     picks = {r.slot: self._sample(logits[r.slot, -1], r)
                              for r in runners}
             # one decode step advances every runner one token: the step's

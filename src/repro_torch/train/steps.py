@@ -47,15 +47,22 @@ def cross_entropy_parts(logits, targets, mask, vocab_size: int):
     exact zeros to the picked value, so both give the same number, and the
     one-hot would be a (B, S, V) tensor (10 GB at qwen2's train shape on
     the card)."""
+    lf = vocab_logits(logits, vocab_size)
+    lse = torch.logsumexp(lf, dim=-1)
+    picked = lf.gather(-1, targets.long()[..., None])[..., 0]
+    nll = (lse - picked) * mask
+    return nll.sum(), mask.sum()
+
+
+def vocab_logits(logits, vocab_size: int):
+    """The logits in f32 with a padded vocab's entries masked to -1e30, as
+    the reference's CE and GRPO logprobs take them."""
     V_pad = logits.shape[-1]
     lf = logits.float()
     if V_pad > vocab_size:
         valid = torch.arange(V_pad, device=lf.device) < vocab_size
         lf = lf.masked_fill(~valid, -1e30)
-    lse = torch.logsumexp(lf, dim=-1)
-    picked = lf.gather(-1, targets.long()[..., None])[..., 0]
-    nll = (lse - picked) * mask
-    return nll.sum(), mask.sum()
+    return lf
 
 
 def cross_entropy(logits, targets, mask, vocab_size: int):
@@ -79,18 +86,16 @@ def loss_fn(params, batch, cfg, *, moe_dispatch="gshard", remat=True,
     return loss, {"ce": ce, "aux": aux, **metrics}
 
 
-def value_and_grad(params, batch, cfg, *, moe_dispatch="gshard",
-                   remat=True, prefix_embeds=None):
-    """((loss, metrics), grads): the loss and its gradient with respect to
-    every param leaf, the grads a tree shaped like ``params`` (a leaf the
-    loss does not reach gets zeros).  ``prefix_embeds`` goes to
-    :func:`loss_fn` as an input, not differentiated."""
+def grad_of(fn, params):
+    """((loss, metrics), grads) of ``fn(params) -> (loss, metrics)``: the
+    gradient with respect to every param leaf, a tree shaped like
+    ``params`` (a leaf the loss does not reach gets zeros).  The leaves
+    record a gradient only during the call."""
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
     try:
-        loss, metrics = loss_fn(params, batch, cfg, moe_dispatch=moe_dispatch,
-                                remat=remat, prefix_embeds=prefix_embeds)
+        loss, metrics = fn(params)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     finally:
         for p in leaves:
@@ -99,6 +104,16 @@ def value_and_grad(params, batch, cfg, *, moe_dispatch="gshard",
                  for p, g in zip(leaves, grads))
     metrics = {k: v.detach() for k, v in metrics.items()}
     return (loss.detach(), metrics), tree_map(lambda _: next(grads), params)
+
+
+def value_and_grad(params, batch, cfg, *, moe_dispatch="gshard",
+                   remat=True, prefix_embeds=None):
+    """((loss, metrics), grads) of :func:`loss_fn` (:func:`grad_of`).
+    ``prefix_embeds`` goes to :func:`loss_fn` as an input, not
+    differentiated."""
+    return grad_of(lambda p: loss_fn(
+        p, batch, cfg, moe_dispatch=moe_dispatch, remat=remat,
+        prefix_embeds=prefix_embeds), params)
 
 
 def make_train_step(cfg, adamw_cfg: opt_mod.AdamWConfig, *,

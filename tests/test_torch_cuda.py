@@ -5,7 +5,8 @@ with per-row query offsets and MLA's (Dk, Dv) = (96, 64) and (192, 128),
 dense decode with a window, MLA paged decode (in bf16 at the edges of its
 key splits: rows ending inside a split, at its end and one past it, empty
 splits, one seat and sixteen, two calls bit-identical), the MoE grouped
-matmul with empty and single-expert groups, the Mamba-2 SSD scan at
+matmul with empty and single-expert groups and its backward (dx and dw,
+through its autograd Function too), the Mamba-2 SSD scan at
 chunks of 256, 100, 48, 32, 16, 8 and 1 (both of its bodies) with and
 without an initial state and under a decay whose running sum falls
 below -200 in a chunk, the RG-LRU scan with and
@@ -679,19 +680,100 @@ def test_grouped_matmul_kernel_matches_plain_version(cuda, dtype, sizes, D,
 
 
 def test_grouped_matmul_all_groups_empty_and_refusals(cuda):
-    """No rows at all (every group empty): an empty output and no launch.
-    The wrapper refuses what no kernel takes, before any launch."""
+    """No rows at all (every group empty): an empty output, dx empty and
+    dw zeros, and no launch.  The wrappers refuse what no kernel takes,
+    before any launch."""
     x, w, gs = _gm_inputs(torch.bfloat16, cuda, [0, 0, 0, 0], 64, 32, 1)
-    n0 = gm.grouped_matmul.launches
+    n0 = _gm_counts()
     assert tuple(gm.grouped_matmul(x, w, gs).shape) == (0, 32)
+    dx, dw = gm.grouped_matmul_bwd(x, w, gs, x.new_empty(0, 32))
+    assert tuple(dx.shape) == (0, 64) and not dw.any()
     x, w, gs = _gm_inputs(torch.float32, cuda, [2, 3], 64, 32, 2)
     with pytest.raises(ValueError, match="dtypes"):
         gm.grouped_matmul(x.half(), w.half(), gs)
     with pytest.raises(ValueError, match="multiples of 8"):
         gm.grouped_matmul(x[:, :60], w[:, :60].contiguous(), gs)
-    with pytest.raises(RuntimeError, match="no backward"):
-        gm.grouped_matmul(x, w.clone().requires_grad_(), gs)
-    assert gm.grouped_matmul.launches == n0
+    with pytest.raises(ValueError, match="dy"):
+        gm.grouped_matmul_bwd(x, w, gs, x.new_zeros(5, 16))
+    with pytest.raises(ValueError, match="dtype"):
+        gm.grouped_matmul_bwd(x, w, gs, x.new_zeros(5, 32).double())
+    with pytest.raises(ValueError, match="dy"):
+        gm.grouped_matmul_bwd_dw(x, x.new_zeros(5, 32).bfloat16(), gs)
+    assert _gm_counts() == n0
+
+
+def _gm_counts():
+    return (gm.grouped_matmul.launches, gm.grouped_matmul_bwd_dx.launches,
+            gm.grouped_matmul_bwd_dw.launches)
+
+
+def _gm_grad_close(got, want, want32, want64):
+    """The backward's rule (its sums run over up to thousands of rows in
+    another order): f32 within 2e-5 x max(1, max |grad|) plus twice the f32
+    plain version's own distance from float64; bf16 within one step of the
+    plain version and half a step of its f32 result, that f32 limit the
+    slack."""
+    lim = (2e-5 * max(1.0, want32.abs().max().item())
+           + 2 * (want32.double() - want64).abs().max().item())
+    err = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        assert err.max().item() <= lim
+        return
+    assert bool((err <= _bf16_step(want) + lim).all())
+    err32 = (got.float() - want32).abs()
+    assert bool((err32 <= 0.5 * _bf16_step(want32) + lim).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sizes,D,F", [
+    ([3, 0, 70, 1, 0, 0, 22, 0], 256, 128),       # empty groups
+    ([0, 0, 200, 0], 64, 16),                     # one expert, F < a tile
+    ([1] * 40 + [0] * 20 + [14, 0, 30, 12], 2048, 1408),   # a decode mix
+    ([5, 0, 9], 1408, 2048),                      # w_down's shape
+    (EDGE_SIZES, 256, 1408),                      # row tiles' edges
+    (EDGE_SIZES + [0] * 8, 256, 72),              # 64-row dx tiles
+    ([0] * 32 + [6144] + [0] * 31, 2048, 1408),   # one expert takes all
+    ([700, 768, 0, 833, 64, 65, 1, 0], 2048, 1408),   # train-sized groups
+])
+def test_grouped_matmul_bwd_kernels_match_plain_version(cuda, dtype, sizes,
+                                                        D, F):
+    """dx and dw against the plain backward, an empty expert's dw exact
+    zeros, one launch of each kernel a call; a second call bit for bit."""
+    x, w, gs = _gm_inputs(dtype, cuda, sizes, D, F, seed=len(sizes) + 1)
+    dy = torch.randn(x.shape[0], F, generator=torch.Generator()
+                     .manual_seed(5)).to(cuda, dtype)
+    n0 = _gm_counts()
+    got = gm.grouped_matmul_bwd(x, w, gs, dy)
+    assert _gm_counts() == (n0[0], n0[1] + 1, n0[2] + 1)
+    args = (x, w, gs, dy)
+    want = gm.grouped_matmul_bwd_ref(*args)
+    want32 = gm.grouped_matmul_bwd_ref(
+        *[a.float() if a.is_floating_point() else a for a in args])
+    want64 = gm.grouped_matmul_bwd_ref(
+        *[a.double() if a.is_floating_point() else a for a in args],
+        acc=torch.float64)
+    for g, a, b, c in zip(got, want, want32, want64):
+        assert g.dtype == dtype and g.shape == a.shape
+        _gm_grad_close(g, a, b, c)
+    empty = [e for e, n in enumerate(sizes) if n == 0]
+    assert not got[1][empty].any()
+    again = gm.grouped_matmul_bwd(x, w, gs, dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_matmul_fn_trains_through_both_kernels(cuda, dtype):
+    """A gradient through the wrapper runs GroupedMatmulFn: one forward and
+    one backward launch, and the backward kernels' dx and dw."""
+    x, w, gs = _gm_inputs(dtype, cuda, [30, 0, 77, 5], 128, 256, 9)
+    dy = torch.randn(x.shape[0], 256, generator=torch.Generator()
+                     .manual_seed(6)).to(cuda, dtype)
+    leaves = [x.clone().requires_grad_(), w.clone().requires_grad_()]
+    n0 = _gm_counts()
+    got = torch.autograd.grad(gm.grouped_matmul(*leaves, gs), leaves, dy)
+    assert _gm_counts() == tuple(n + 1 for n in n0)
+    want = gm.grouped_matmul_bwd(x, w, gs, dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def _mla_inputs(dtype, device, H, R, r, bs, lengths, seed):

@@ -1,8 +1,9 @@
 """Package-level contract of the port.
 
-- ``repro_torch`` and every submodule import without JAX and without
-  anything of the reference package ``repro`` (checked in a fresh
-  interpreter, where nothing else could have imported them);
+- ``repro_torch`` and every submodule, HyperRL's ``repro_torch.rl`` and
+  its launcher among them, import without JAX and without anything of the
+  reference package ``repro`` (checked in a fresh interpreter, where
+  nothing else could have imported them);
 - the serving entry points (``HyperServe``, ``ServeEngine``,
   ``Generator``, the launcher) run on the card unless the caller names
   ``device="cpu"``: with no CUDA device and no device named they raise,
@@ -35,6 +36,9 @@ bad = sorted(m for m in sys.modules
              or m == "repro" or m.startswith("repro."))
 assert not bad, bad
 assert "repro_torch.serve.runtime" in names, names
+assert {"repro_torch.rl", "repro_torch.rl.buffer", "repro_torch.rl.learner",
+        "repro_torch.rl.publish", "repro_torch.rl.rollout",
+        "repro_torch.rl.session", "repro_torch.launch.rl"} <= set(names), names
 print(len(names), "modules")
 """, devices=1)
     assert "modules" in out

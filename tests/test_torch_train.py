@@ -17,9 +17,9 @@ neither trainer makes a prefix), mamba2-370m (the SSD scan's backward) and
 recurrentgemma-2b (the RG-LRU scan's, cut to its first three layers with a
 window of 8, so that the windowed flash backward runs too); and the typed
 refusals of what one
-device does not train (a mesh, a plan, a MoE config under
-the ragged dispatch, whose grouped matmul has no backward yet, a head-dim
-pair or a ``q_offset`` the backward does not take).
+device does not train (a mesh, a plan, a head-dim pair or a ``q_offset``
+the backward does not take), and a MoE step under the ragged dispatch,
+which trains through the grouped matmul's backward.
 
 Tolerances, float32 throughout: CE and AdamW 1e-6 (the same f32
 arithmetic in the same order; values of order 1); the flash gradients
@@ -462,10 +462,11 @@ def test_checkpoints_cross_load_both_ways(tmp_path):
 def test_typed_refusals():
     """A mesh or a plan raises PlanError naming the ROADMAP item, and an
     offload is accepted (HyperOffload's legs, tests/test_torch_offload.py);
-    a MoE config under the ragged dispatch refuses the grouped
-    matmul's missing backward, naming its item (never a fall back to
-    gshard); flash refuses a gradient at a head-dim pair or a q_offset its
-    backward does not take, before anything runs."""
+    a MoE config under the ragged dispatch trains (the grouped matmul's
+    backward, ROADMAP item 2.9b; tests/test_torch_grouped_bwd.py holds it
+    against the reference), its experts moving; flash refuses a gradient at
+    a head-dim pair or a q_offset its backward does not take, before
+    anything runs."""
     from repro_torch.core.offload import OffloadConfig
     jcfg, cfg = _cfgs()
     acfg = opt.AdamWConfig()
@@ -487,8 +488,10 @@ def test_typed_refusals():
     params, state = steps.init_state(mcfg, device="cpu")
     batch = {k: torch.from_numpy(v) for k, v in _batch(mcfg, 1, 1, 4).items()}
     step = steps.make_train_step(mcfg, acfg, moe_dispatch="ragged")
-    with pytest.raises(RuntimeError, match="2.9b"):
-        step(params, state, batch)
+    new, _, m = step(params, state, batch)
+    assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
+    assert not torch.equal(new["seg1"][0]["ffn"]["w_gate"],
+                           params["seg1"][0]["ffn"]["w_gate"])
     q = torch.zeros(1, 4, 2, 32, requires_grad=True)
     k = torch.zeros(1, 4, 2, 32)
     with pytest.raises(ValueError, match="backward is built"):
