@@ -184,6 +184,17 @@ Phases, in order; any failure raises and the script exits non-zero:
                  backward calls and no grouped_matmul a step; step wall,
                  tok/s, peak memory;
   27. deepseek train profile — torch.profiler over one such step;
+  27a. deepseek ragged train — phase 26's run under the ragged dispatch
+                 (``trainer.train(..., moe_dispatch="ragged")``, the path
+                 of ``launch/train.py --moe-dispatch ragged``): the same 8
+                 steps of 2 x 4096 tokens, 49152 expert rows a MoE layer;
+                 exactly 8 flash forwards, 4 backwards, 18 grouped_matmul
+                 (3 a MoE layer, its remat again) and 9 of each grouped
+                 matmul backward kernel (dx, dw) a step; step wall, tok/s,
+                 peak memory;
+  27b. deepseek ragged train profile — torch.profiler over one such step,
+                 with the grouped matmul backward's share (dx, dw) of the
+                 step's device time;
   28. deepseek train identity — the same arch, 2 layers (dense + MoE),
                  float32, 4 steps of 1 x 1024, kernels against plain
                  versions, to phase 25's limits;
@@ -269,7 +280,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                  prefill and dense decode a second row at (256, G = 10);
                  the grouped matmul one for each of its five cases, its
                  backward's dx and dw one each at the train shape with
-                 phase 41's launches; each
+                 phase 27a's launches; each
                  with that run's launches), and ``{"ok": true,
                  "device": {...}}`` as the last line.
 
@@ -422,6 +433,13 @@ BWD_MLA = (16, 16, 192, 128)                   # (H, KV, Dk, Dv)
 # the grouped matmul's backward (phase 3) at the rows phase 26's batch
 # routes under the ragged dispatch: DS_TRAIN_B x DS_TRAIN_S tokens, top-6
 GM_TRAIN_ROWS = DS_TRAIN_B * DS_TRAIN_S * 6
+# the ragged train profile's shares of device time, by kernel name
+GM_BWD_SHARES = {
+    "grouped_matmul_bwd (dx + dw)":
+        r"grouped_matmul_dw_bf16_kernel|grouped_matmul_bf16_kernel<\d, true",
+    "grouped_matmul_bwd_dx": r"grouped_matmul_bf16_kernel<\d, true",
+    "grouped_matmul_bwd_dw": r"grouped_matmul_dw_bf16_kernel",
+    "grouped_matmul (forward)": r"grouped_matmul_bf16_kernel<\d, false"}
 # phase 3 also holds the backward at the reduced config's pair (96, 64)
 BWD_MLA_REDUCED = (16, 16, 96, 64)
 BWD_MLA_REDUCED_B, BWD_MLA_REDUCED_S = 2, 1024
@@ -1209,12 +1227,19 @@ def short_kernel_name(mangled: str) -> str:
             break
     args = re.findall(r"13__nv_bfloat16|Lb[01]E|Li\d+E|f", m.group(2))
     # a bool argument is flash's LSE output, or the grouped matmul's
-    # K-major weights (KB: the backward's dx)
-    flags = ("lse", "nolse") if name.startswith("flash") else ("kb", "mn")
-    return name + "<" + ",".join(
-        "bf16" if a.startswith("13") else "f32" if a == "f" else
-        (flags[0] if a == "Lb1E" else flags[1]) if a.startswith("Lb") else
-        a[2:-1] for a in args) + ">"
+    # K-major weights (KB: the backward's dx), then its staged epilogue
+    flags = ([("lse", "nolse")] if name.startswith("flash") else
+             [("kb", "mn"), ("staged", "direct")])
+    out, nb = [], 0
+    for a in args:
+        if a.startswith("Lb"):
+            pair = flags[min(nb, len(flags) - 1)]
+            out.append(pair[0] if a == "Lb1E" else pair[1])
+            nb += 1
+        else:
+            out.append("bf16" if a.startswith("13") else
+                       "f32" if a == "f" else a[2:-1])
+    return name + "<" + ",".join(out) + ">"
 
 
 def kernel_cases(torch, dtype, heads, kv, dim):
@@ -1861,7 +1886,8 @@ def grouped_bwd_yardstick(torch, part, args):
 def grouped_bwd_table(torch, pm, timed):
     """Timing rows of the grouped matmul's backward at deepseek-v2-lite's
     train shape (grouped_bwd_checks' "train" case), dx and dw, their
-    launches read from phase 41's RL run (its learner's ragged update)."""
+    launches read from the ragged deepseek train run, which launches them
+    at that shape."""
     rows = []
     for part in ("dx", "dw"):
         name = f"grouped_matmul_bwd_{part}"
@@ -1875,7 +1901,7 @@ def grouped_bwd_table(torch, pm, timed):
                                        d_out=w.shape[2], itemsize=2,
                                        part=part),
             lib, what, "src/repro/kernels/grouped_matmul.py:58",
-            f"{DS_ARCH} rl"))
+            f"{DS_ARCH} ragged train"))
     return tuple(rows)
 
 
@@ -2332,9 +2358,11 @@ def _device_ms(evt) -> float:
     return us / 1e3
 
 
-def report_profile(tag, windows):
+def report_profile(tag, windows, shares=None):
     """Device time by kernel against wall time for each profiled window
-    ``(name, profiler, wall seconds, steps)``, per step."""
+    ``(name, profiler, wall seconds, steps)``, per step; ``shares``
+    ({label: regex}) adds the device time of the kernels whose names match
+    each regex and its share of the device's busy time."""
     for name, prof, wall, steps in windows:
         # device-side rows only (kernels, copies): an operator's row also
         # carries its kernels' time, which would count it twice
@@ -2347,6 +2375,10 @@ def report_profile(tag, windows):
             f"{busy:.3f} ms, idle share {1 - busy / wall_ms:.3f}")
         for key, ms in rows[:8]:
             log(f"[{tag}]   {ms:8.4f} ms  {ms / busy:6.1%}  {key[:70]}")
+        for label, pattern in (shares or {}).items():
+            ms = sum(t for k, t in rows if re.search(pattern, k))
+            log(f"[{tag}] {name}: {label} {ms:.4f} ms a step, "
+                f"{ms / max(busy, 1e-9):.1%} of device busy")
         if busy <= 0:
             raise AssertionError("the profiler saw no device time")
 
@@ -3418,6 +3450,7 @@ def run_train(torch, cfg, shape, n_steps, hook=None, offload_cfg=None,
 
 
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "grouped_matmul",
+                 "grouped_matmul_bwd_dx", "grouped_matmul_bwd_dw",
                  "ssd_scan", "ssd_scan_bwd", "rglru_scan", "rglru_scan_bwd")
 
 
@@ -3430,41 +3463,53 @@ def train_wrappers():
     return {"flash_attention": fa.flash_attention,
             "flash_attention_bwd": fa.flash_attention_bwd,
             "grouped_matmul": gm.grouped_matmul,
+            "grouped_matmul_bwd_dx": gm.grouped_matmul_bwd_dx,
+            "grouped_matmul_bwd_dw": gm.grouped_matmul_bwd_dw,
             "ssd_scan": ss.ssd_scan, "ssd_scan_bwd": ss.ssd_scan_bwd,
             "rglru_scan": rs.rglru_scan,
             "rglru_scan_bwd": rs.rglru_scan_bwd}
 
 
-def train_launches_per_step(cfg):
+def train_launches_per_step(cfg, moe_dispatch="gshard"):
     """Each kernel's launches in one remat'd train step of ``cfg``: every
     attention layer (ATTN, MLA, LOCAL_ATTN) two flash forwards (the
     forward and its recompute) and one backward, every SSD layer two
     ssd_scan and one ssd_scan_bwd, every RG-LRU layer two rglru_scan and
-    one rglru_scan_bwd; no grouped_matmul (gshard's experts are
-    einsums)."""
-    from repro_torch.configs.base import RGLRU, SSD
+    one rglru_scan_bwd.  Every MoE layer under ``moe_dispatch="ragged"``
+    (models/moe.py's ragged_moe_apply: w_gate, w_up and w_down each one
+    grouped_matmul through GroupedMatmulFn) six grouped_matmul (the
+    forward and its recompute) and three of each backward kernel, dx and
+    dw; under gshard none (its experts are einsums)."""
+    from repro_torch.configs.base import MOE_FFN, RGLRU, SSD
     kinds = [m for m, _ in cfg.block_kinds()]
     a = sum(m not in (SSD, RGLRU) for m in kinds)
     n_ssd, n_rg = kinds.count(SSD), kinds.count(RGLRU)
+    moe = (sum(f == MOE_FFN for _, f in cfg.block_kinds())
+           if moe_dispatch == "ragged" else 0)
     return {"flash_attention": 2 * a, "flash_attention_bwd": a,
-            "grouped_matmul": 0, "ssd_scan": 2 * n_ssd,
+            "grouped_matmul": 6 * moe, "grouped_matmul_bwd_dx": 3 * moe,
+            "grouped_matmul_bwd_dw": 3 * moe, "ssd_scan": 2 * n_ssd,
             "ssd_scan_bwd": n_ssd, "rglru_scan": 2 * n_rg,
             "rglru_scan_bwd": n_rg}
 
 
 def phase_train(torch, np, arch="qwen2-0.5b", layers=None, batch=TRAIN_B,
                 seq=TRAIN_S, n_steps=TRAIN_STEPS, tag="train",
-                offload_cfg=None, obs=None, record=None):
+                offload_cfg=None, obs=None, record=None,
+                moe_dispatch="gshard"):
     """``arch``'s train step at full width (``layers`` of its layers, all
     when None; random weights from a seed) in bf16 through
     ``repro_torch.train.trainer.train`` (an arch with a multimodal frontend
     through ``make_train_step(multimodal=True)`` after seeded conditioning
-    frames: prefix_train), the reference's default gshard dispatch for MoE:
-    ``n_steps`` steps of ``batch`` x ``seq`` tokens of the reference's
-    synthetic corpus.  Every step: loss and grad norm finite, and exactly
-    train_launches_per_step's launches of every train kernel (per
-    attention layer two flash forwards and one backward, per SSD or RG-LRU
-    layer two scans and one scan backward, no grouped_matmul).  Step wall
+    frames: prefix_train), MoE under ``moe_dispatch`` (the reference's
+    default gshard, or ragged, as ``launch/train.py --moe-dispatch``
+    passes it): ``n_steps`` steps of ``batch`` x ``seq`` tokens of the
+    reference's synthetic corpus.  Every step: loss and grad norm finite,
+    and exactly train_launches_per_step's launches of every train kernel
+    (per attention layer two flash forwards and one backward, per SSD or
+    RG-LRU layer two scans and one scan backward, per MoE layer under
+    ragged six grouped matmuls and three of each of its backward kernels,
+    none under gshard).  Step wall
     time (each step ends in a read of its metrics, which waits for the
     card), training tokens/s and the peak of allocated device memory, and
     the memory allocated when the peak is reset (what earlier phases left).
@@ -3478,7 +3523,7 @@ def phase_train(torch, np, arch="qwen2-0.5b", layers=None, batch=TRAIN_B,
     shape = ShapeConfig(f"train_{seq}_b{batch}", seq, batch, "train")
     n = cfg.num_layers
     wrappers = train_wrappers()
-    want = train_launches_per_step(cfg)
+    want = train_launches_per_step(cfg, moe_dispatch)
     seen, last = [], {k: 0 for k in TRAIN_KERNELS}
 
     def hook(m):
@@ -3508,7 +3553,7 @@ def phase_train(torch, np, arch="qwen2-0.5b", layers=None, batch=TRAIN_B,
     sync(torch)
     t0 = time.perf_counter()
     params, hist = run_train(torch, cfg, shape, n_steps, hook, offload_cfg,
-                             obs)
+                             obs, moe_dispatch)
     sync(torch)
     wall = time.perf_counter() - t0
     launches = {k: wrappers[k].launches for k in TRAIN_KERNELS}
@@ -3520,8 +3565,8 @@ def phase_train(torch, np, arch="qwen2-0.5b", layers=None, batch=TRAIN_B,
     med = step_s[len(step_s) // 2]
     rows = (f"{batch} x ({cfg.num_prefix_tokens} prefix + {seq}) positions"
             if cfg.frontend_dim else f"{batch} x {seq} tokens")
-    log(f"[{tag}] {arch} bf16 full width, {n} layers, {n_steps} steps of "
-        f"{rows}: {wall:.3f}s in all, first step "
+    log(f"[{tag}] {arch} bf16 full width, {n} layers, {moe_dispatch} "
+        f"dispatch, {n_steps} steps of {rows}: {wall:.3f}s in all, first step "
         f"{walls[0]:.3f}s (with warm-up), median of steps 2-{n_steps} "
         f"{med:.4f}s ({batch * seq / med:.1f} train tok/s), range "
         f"{step_s[0]:.4f}..{step_s[-1]:.4f}s; peak device memory "
@@ -3543,10 +3588,11 @@ def phase_train(torch, np, arch="qwen2-0.5b", layers=None, batch=TRAIN_B,
 
 
 def phase_train_profile(torch, arch="qwen2-0.5b", layers=None,
-                        batch=TRAIN_B, seq=TRAIN_S, tag="train profile"):
+                        batch=TRAIN_B, seq=TRAIN_S, tag="train profile",
+                        moe_dispatch="gshard", shares=None):
     """torch.profiler over one train step (after a warm step) of the same
     configuration as phase_train's: device busy, idle share and top device
-    items."""
+    items (and report_profile's ``shares``)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import DataConfig, make_loader
@@ -3556,7 +3602,8 @@ def phase_train_profile(torch, arch="qwen2-0.5b", layers=None,
     if layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=layers)
     params, opt = steps.init_state(cfg, seed=SEED, device=DEVICE)
-    step = steps.make_train_step(cfg, AdamWConfig(total_steps=TRAIN_STEPS))
+    step = steps.make_train_step(cfg, AdamWConfig(total_steps=TRAIN_STEPS),
+                                 moe_dispatch=moe_dispatch)
     loader = make_loader(DataConfig(vocab_size=cfg.vocab_size,
                                     seq_len=seq, global_batch=batch,
                                     seed=SEED), DEVICE)
@@ -3569,7 +3616,7 @@ def phase_train_profile(torch, arch="qwen2-0.5b", layers=None,
         params, opt, _ = step(params, opt, batch)
         sync(torch)
         wall = time.perf_counter() - t0
-    report_profile(tag, [("train step", prof, wall, 1)])
+    report_profile(tag, [("train step", prof, wall, 1)], shares)
 
 
 def adam_step_bound(b1: float, b2: float, t: int) -> float:
@@ -4216,6 +4263,14 @@ def main() -> int:
     timed("deepseek train profile", phase_train_profile, torch, *ds_train,
           "deepseek train profile")
     torch.cuda.empty_cache()
+    ds_ragged_launches = timed(
+        "deepseek ragged train", phase_train, torch, np, *ds_train,
+        DS_TRAIN_STEPS, "deepseek ragged train", None, None, None, "ragged")
+    torch.cuda.empty_cache()
+    timed("deepseek ragged train profile", phase_train_profile, torch,
+          *ds_train, "deepseek ragged train profile", "ragged",
+          GM_BWD_SHARES)
+    torch.cuda.empty_cache()
     timed("deepseek train identity", phase_train_identity, torch, np,
           DS_ARCH, DS_TRAIN_ID_LAYERS, DS_TRAIN_ID_B, DS_TRAIN_ID_S,
           DS_TRAIN_ID_STEPS, "deepseek train identity")
@@ -4269,6 +4324,7 @@ def main() -> int:
             RG_ARCH: rg_launches, f"{RG_ARCH} Generator": rg_gen_launches,
             "qwen2-0.5b train": train_launches,
             f"{DS_ARCH} train": ds_train_launches,
+            f"{DS_ARCH} ragged train": ds_ragged_launches,
             f"{MG_ARCH} train": mg_train_launches,
             f"{SSM_ARCH} train": ssm_train_launches,
             f"{RG_ARCH} train": rg_train_launches,

@@ -34,7 +34,11 @@ row padded past its limit, a filler row) and its Generator prefill (8 x
 matmul at ``chip_smoke.py``'s five deepseek-v2-lite cases (a decode step's
 16 x top-6 = 96 rows and a prefill call's 4 x 256 x 6 = 6144, for the
 w_gate/w_up (2048 -> 1408) and w_down (1408 -> 2048) shapes over 64
-experts, and the 6144 rows all in one expert); mamba2-370m's ssd_scan at
+experts, and the 6144 rows all in one expert); its backward's dx and dw
+(in trees that have them) at the train step's 49152 rows
+("grouped_matmul_bwd train") and the RL update's 2304
+("grouped_matmul_bwd rl"), both shapes, each with its bound;
+mamba2-370m's ssd_scan at
 ``chip_smoke.py``'s serving prefill call (4 rows x 256 with a bf16 initial
 state, one row padded past its limit, a filler row; its SSM_ROWS) and its
 Generator prefill (8 x 1024, chunks of 256), x, B and C column slices of
@@ -49,9 +53,10 @@ inputs are those of phase 3; and, in trees that have them, the backwards of
 recurrentgemma-2b's train step: flash at (256, 256), G = 10, window 2048,
 over 1 x 4096 ("flash_attention_bwd d256 g10") and rglru_scan_bwd over 1 x
 4096 x 2560, and mamba2-370m's ssd_scan_bwd over 4 x 4096 (H = 32, (64,
-128), chunks of 256): "ssd_scan_bwd train", "rglru_scan_bwd train".  Each tree also prints ptxas's registers and
-spill stores for the flash forward, the ragged prefill and the backward.  With two
-timers, ROUNDS readings each:
+128), chunks of 256): "ssd_scan_bwd train", "rglru_scan_bwd train".
+Each tree also prints ptxas's registers and spill stores for the flash
+forward, the ragged prefill, the attention and scan backwards and both
+grouped matmul sources.  With two timers, ROUNDS readings each:
 
 * queued -- every launch queued behind a cold-L2 flush and one wait at
   the end, the card held busy (``torch.cuda._sleep``) while the host
@@ -94,6 +99,9 @@ DS_ROW_OFFSETS, DS_KEYS = (0, 256, 768, 1280), 96 * BS
 # deepseek-v2-lite-16b's routed experts, as chip_smoke.py draws them
 DS_E, DS_TOPK, DS_MODEL, DS_FF = 64, 6, 2048, 1408
 GM_ROWS = {"decode": 16 * DS_TOPK, "prefill": 4 * 256 * DS_TOPK}
+# the grouped matmul backward's rows: deepseek-v2-lite's train step (2 x
+# 4096 tokens) and its RL update (1 x 4 samples of 64 + 32 tokens)
+GM_BWD_ROWS = {"train": 2 * 4096 * DS_TOPK, "rl": 4 * (64 + 32) * DS_TOPK}
 # deepseek-v2-lite's MLA decode and mamba2-370m's SSD scan, as chip_smoke.py
 # draws them (its mla_inputs and ssd_inputs, seeds SEED + 6, + 20, + 21)
 DS_R, DS_ROPE, DS_BLOCKS, DS_TABLE_W = 512, 64, 2048, 96
@@ -112,14 +120,20 @@ BWD_WIDE, BWD_WIDE_B, BWD_WIDE_S = (24, 8, 128), 2, 2048
 BWD_MLA, BWD_MLA_B, BWD_MLA_S = (16, 16, 192, 128), 2, 4096
 # the wrappers' input checks where a module's is not ``_check``
 CHECKS = {"paged_mla_decode_attention": "_mla_check",
-          "flash_attention_bwd": "_bwd_check"}
+          "flash_attention_bwd": "_bwd_check",
+          "grouped_matmul_bwd_dx": "_bwd_inputs",
+          "grouped_matmul_bwd_dw": "_bwd_inputs"}
 # recurrentgemma-2b's and mamba2-370m's train steps (chip_smoke.py's
 # RG_TRAIN_B x RG_TRAIN_S and SSM_TRAIN_B x SSM_TRAIN_S): flash's backward
 # at (256, 256), G = 10, windowed; the two scans' backwards
 RG_TRAIN_B, RG_TRAIN_S, SSM_TRAIN_B, SSM_TRAIN_S = 1, 4096, 4, 4096
+# the source of a kernel whose wrapper is not named after it
+SOURCES = {"grouped_matmul_bwd_dx": "grouped_matmul_bwd",
+           "grouped_matmul_bwd_dw": "grouped_matmul_bwd"}
 # the sources whose ptxas report (registers, spill stores) each tree prints
 PTXAS = ("flash_attention", "ragged_prefill_attention", "flash_attention_bwd",
-         "ssd_scan_bwd", "rglru_scan_bwd")
+         "ssd_scan_bwd", "rglru_scan_bwd", "grouped_matmul",
+         "grouped_matmul_bwd")
 ROUNDS = 5
 REPEATS = 30
 CALLS = 200
@@ -398,6 +412,61 @@ def gm_cases(torch, g):
     return out
 
 
+def gm_bwd_cases(torch, g):
+    """The grouped matmul backward's cases, in trees whose wrapper has
+    grouped_matmul_bwd_dx: dx and dw at deepseek-v2-lite's train shape
+    ("grouped_matmul_bwd train": GM_BWD_ROWS["train"], chip_smoke.py's
+    DS_TRAIN_B x DS_TRAIN_S tokens x top-6) and at its RL update's
+    ("grouped_matmul_bwd rl": chip_smoke.py's DS_RL_PROMPTS x DS_RL_GROUP
+    samples of DS_RL_PROMPT_LEN + DS_RL_NEW tokens x top-6), each for the
+    w_gate/w_up (2048 -> 1408) and w_down (1408 -> 2048) shapes: rows
+    routed as gm_cases routes them, x and w at the model's init scale, dy
+    at 0.01 (chip_smoke.py's grouped_bwd_cases).  The library call is one
+    torch._grouped_mm for the same product: (dy, w^T) for dx and (x^T,
+    dy) with the group sizes splitting the summed rows for dw; each case
+    carries its bound (perf_model.grouped_matmul_bwd_cost)."""
+    from repro_torch.kernels import grouped_matmul as gm
+    out = {}
+    if not hasattr(gm, "grouped_matmul_bwd_dx"):
+        return out
+    scale = (2.0 / (DS_MODEL + DS_FF)) ** 0.5
+    for run, rows in GM_BWD_ROWS.items():
+        for shape, (d, f) in (("w_gate/w_up", (DS_MODEL, DS_FF)),
+                              ("w_down", (DS_FF, DS_MODEL))):
+            picks = torch.rand(rows // DS_TOPK, DS_E, generator=g).topk(
+                DS_TOPK, dim=-1).indices
+            sizes = torch.bincount(picks.reshape(-1), minlength=DS_E).to(
+                "cuda", torch.int32)
+            x = torch.randn(rows, d, generator=g).to("cuda", torch.bfloat16)
+            w = (torch.randn(DS_E, d, f, generator=g) * scale).to(
+                "cuda", torch.bfloat16)
+            dy = (torch.randn(rows, f, generator=g) * 0.01).to(
+                "cuda", torch.bfloat16)
+            offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+            has = hasattr(torch, "_grouped_mm")
+            for part, args, lib in (
+                    ("dx", (dy, w, sizes), has and functools.partial(
+                        torch._grouped_mm, dy, w.transpose(1, 2),
+                        offs=offs)),
+                    ("dw", (x, dy, sizes), has and functools.partial(
+                        torch._grouped_mm, x.t(), dy, offs=offs))):
+                name = f"grouped_matmul_bwd_{part}"
+                # the wrapper's checks: (a, dy) is (dy, dy) for dx
+                check = (name, args[0], dy, sizes, d, f, DS_E)
+                out[f"grouped_matmul_bwd {run} {shape} {part}"] = (
+                    gm, name, args, {}, check, lib or None,
+                    (part, sizes.tolist(), d, f))
+    return out
+
+
+def bwd_bound_ms(part, sizes, d, f):
+    """perf_model.grouped_matmul_bwd_cost's bound (bf16), ms."""
+    from repro_torch.kernels import perf_model as pm
+    return pm.grouped_matmul_bwd_cost(
+        sizes, d_in=d, d_out=f, itemsize=2,
+        part=part).bound_seconds("bfloat16") * 1e3
+
+
 def mla_case(torch):
     """The deepseek serving decode's MLA inputs (chip_smoke.mla_inputs)."""
     from repro_torch.kernels import paged_decode_attention as pda
@@ -586,6 +655,7 @@ def cases(torch):
         sdpa_dense_decode(torch, q, k, v, lens))
     out = {c: t if len(t) == 6 else t + (None,) for c, t in out.items()}
     out.update(gm_cases(torch, g))
+    out.update(gm_bwd_cases(torch, g))
     out.update(mla_case(torch))
     out.update(ssd_cases(torch))
     out.update(rg_cases(torch))
@@ -600,7 +670,8 @@ def worker(tree: str, only) -> None:
     from repro_torch.kernels import build
     result = {"tree": tree, "ptxas": ptxas_rows(build.build(
         [n for n in PTXAS if (build.CSRC / f"{n}.cu").exists()]))}
-    for case, (mod, name, args, kw, check, lib) in cases(torch).items():
+    for case, (mod, name, args, kw, check, lib, *bound) in \
+            cases(torch).items():
         if only and not case.startswith(tuple(only)):
             continue
         fn, ref = getattr(mod, name), getattr(mod, f"{name}_ref")
@@ -636,8 +707,10 @@ def worker(tree: str, only) -> None:
                                            - timer_queued(lib[1], torch))
             elif lib is not None:
                 readings["library"].append(timer_queued(lib, torch))
-        result[case] = {"lib": build.lib_path(name).name,
+        result[case] = {"lib": build.lib_path(SOURCES.get(name, name)).name,
                         "max_abs_err": err, **readings}
+        if bound:                        # (part, sizes, d, f)
+            result[case]["bound_ms"] = bwd_bound_ms(*bound[0])
         if name.endswith("_bwd"):        # its time split by kernel
             result[case]["kernels"] = kernel_split(lambda: fn(*args, **kw),
                                                    torch)
@@ -656,8 +729,11 @@ def main(trees, only) -> int:
     runs = []
     for tree in trees + trees[::-1]:
         out = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--worker", tree, *only], check=True,
+                              "--worker", tree, *only],
                              capture_output=True, text=True, timeout=900)
+        if out.returncode != 0:
+            print(out.stderr[-4000:], file=sys.stderr)
+            out.check_returncode()
         line = out.stdout.strip().splitlines()[-1]
         print(line, flush=True)
         runs.append(json.loads(line))
@@ -684,6 +760,9 @@ def main(trees, only) -> int:
             for tree in have[1:]:
                 print(f"{kernel} {name}: {tree} / {have[0]} = "
                       f"{med[tree] / med[have[0]]:.4f}")
+        if "bound_ms" in first[kernel]:
+            print(f"{kernel} bound: {first[kernel]['bound_ms']:.5f} ms "
+                  "(perf_model.grouped_matmul_bwd_cost, bf16 peaks)")
         for tree in have:                # a backward's split by kernel
             splits = [r[kernel]["kernels"] for r in runs
                       if r["tree"] == tree and "kernels" in r[kernel]]

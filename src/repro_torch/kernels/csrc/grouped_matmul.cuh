@@ -16,6 +16,18 @@
 // reads the next group's rows against a's zero columns (without KB) or
 // zeros past the map's K columns (with KB); rows of B past N are the next
 // group's or zeros: multiplied, never stored.
+//
+// STAGED picks the epilogue.  Without it (the forward) each consumer
+// thread stores its f32 accumulators as bf16 pairs straight to device
+// memory.  With it (dx) the warpgroup writes its 64 x BN rows as bf16 into
+// a buffer of its own in shared memory, in the 128-byte swizzle of a TMA
+// box (conflict-free 4-byte stores), and one thread stores a whole tile
+// with TMA (cp.async.bulk.tensor, shared to global) and goes on: the
+// store drains under the next item's main loop, and the buffer is only
+// waited for (bulk wait_group.read) when the next item's epilogue comes.
+// A tile cut by its group's end is copied from the buffer in 16-byte rows
+// instead, so that no row of the next group is written.  The buffer takes
+// a ring stage's room: NS = 3.
 #pragma once
 
 #include <algorithm>
@@ -29,19 +41,25 @@ constexpr int GW_BK = 64;
 constexpr int GW_XROWS = 16;        // rows of one a box: a tile loads only
                                     // the boxes its group's rows reach
 
-template <int NC>
+constexpr uint32_t GW_BOX = 64 * 128;  // bytes of a 64 x 64 bf16 box
+
+template <int NC, bool STAGED = false>
 struct GwShape {
     static constexpr int BM = 64 * NC;               // rows a tile
     static constexpr int BN = 128 * NC;              // columns a tile
     static constexpr int THREADS = 128 * NC + 32;    // consumers, producer
     static constexpr int MIN_BLOCKS = NC == 1 ? 2 : 1;
-    static constexpr int NS = 4;                     // ring stages
+    static constexpr int NS = STAGED ? 3 : 4;        // ring stages
     static constexpr uint32_t X_BYTES = BM * GW_BK * 2;
     static constexpr uint32_t W_BYTES = GW_BK * BN * 2;
     static constexpr uint32_t STAGE = X_BYTES + W_BYTES;
-    // the ring (1024-byte aligned), then the work list's 2 (E + 1) ints
+    // a warpgroup's staged rows: BN / 64 boxes of 64 x 64
+    static constexpr uint32_t OUT = STAGED ? BN / 64 * GW_BOX : 0;
+    // the ring (1024-byte aligned), the staged rows, then the work list's
+    // 2 (E + 1) ints
     static size_t smem(int E) {
-        return 1024 + (size_t)NS * STAGE + sizeof(int) * 2 * (E + 1);
+        return 1024 + (size_t)NS * STAGE + (size_t)NC * OUT
+             + sizeof(int) * 2 * (E + 1);
     }
 };
 
@@ -70,6 +88,20 @@ __device__ __forceinline__ GwItem gw_item(const int* tile_at,
     it.r1 = min(it.r0 + BM, row_at[lo + 1]);
     it.n0 = (i % nF) * BN;
     return it;
+}
+
+// A value every thread of the warp holds, made warp-uniform in ptxas's
+// eyes (a shuffle from lane 0).  A branch around wgmma or its accumulators
+// that ptxas cannot prove uniform makes it serialize every wgmma of the
+// kernel (its C7518 note), so the roles, the items and the loop bounds
+// derived from shared memory go through this.
+__device__ __forceinline__ int warp_uniform(int v) {
+    return __shfl_sync(0xffffffffu, v, 0);
+}
+
+__device__ __forceinline__ GwItem warp_uniform(GwItem it) {
+    return {warp_uniform(it.e), warp_uniform(it.r0), warp_uniform(it.r1),
+            warp_uniform(it.n0)};
 }
 
 // The work list, by the first warp: group bounds clamped to T and the row
@@ -145,16 +177,113 @@ __device__ __forceinline__ void gw_store(const float (&acc)[BN / 2],
     }
 }
 
-template <int NC, bool KB>
-__global__ void __launch_bounds__(GwShape<NC>::THREADS,
-                                  GwShape<NC>::MIN_BLOCKS)
+// TMA stores from shared memory: the box at shared address src to a 2D /
+// 3D tensor map's (c0 innermost, ...), in this thread's bulk group
+__device__ __forceinline__ void tma_store_2d(const void* map, int c0, int c1,
+                                             uint32_t src) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+        " [%0, {%1, %2}], [%3];\n"
+        :: "l"(map), "r"(c0), "r"(c1), "r"(src) : "memory");
+}
+__device__ __forceinline__ void tma_store_3d(const void* map, int c0, int c1,
+                                             int c2, uint32_t src) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+        " [%0, {%1, %2, %3}], [%4];\n"
+        :: "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(src) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// every bulk store this thread committed has read its shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// ... and has completed its writes
+__device__ __forceinline__ void bulk_wait() {
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// A consumer warpgroup's accumulator (64 x BN, f32; acc[4 j + 2 i + c] row
+// 16 warp + gid + 8 i, column 8 j + 2 tig + c) as bf16 into BN / 64 boxes
+// of 64 x 64 at shared address buf (1024-byte aligned, GW_BOX apart) in
+// the 128-byte swizzle: a row's 16-byte chunk ch at chunk ch ^ (row % 8),
+// row % 8 being gid.  A warp's store covers 8 rows x 4 words, 32 distinct
+// banks.  32-bit shared addresses: the consumers have no registers to
+// spare for generic pointers.
+template <int BN>
+__device__ __forceinline__ void gw_stage(const float (&acc)[BN / 2],
+                                         uint32_t buf) {
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32, lane = t % 32, gid = lane / 4, tig = lane % 4;
+#pragma unroll
+    for (int i2 = 0; i2 < 2; ++i2) {
+        const uint32_t row = buf + (16 * warp + gid + 8 * i2) * 128 + 4 * tig;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+            __nv_bfloat162 v = __floats2bfloat162_rn(acc[4 * j + 2 * i2],
+                                                     acc[4 * j + 2 * i2 + 1]);
+            asm volatile("st.shared.b32 [%0], %1;\n"
+                         :: "r"(row + (j / 8) * GW_BOX
+                                + (((j % 8) ^ gid) * 16)),
+                            "r"(*reinterpret_cast<uint32_t*>(&v))
+                         : "memory");
+        }
+    }
+}
+
+// The staged epilogue (STAGED): rows [row0, row0 + 64) of out (ld columns
+// a row) at column n0 from a warpgroup's accumulator through its buffer
+// buf; rows from row_end and columns from n_end are not stored.  Named
+// barrier ``bar`` is the warpgroup's own.
+template <int BN>
+__device__ __forceinline__ void gw_store_staged(
+    const float (&acc)[BN / 2], const CUtensorMap* out_map,
+    __nv_bfloat16* __restrict__ out, long long ld, int row0, int row_end,
+    int n0, int n_end, unsigned char* buf, int bar) {
+    const int t = threadIdx.x % 128;
+    if (t == 0) bulk_wait_read();      // the last tile's store has read buf
+    named_barrier(bar, 128);
+    gw_stage<BN>(acc, smem_u32(buf));
+    fence_proxy_async();               // buf's writes, before TMA reads them
+    named_barrier(bar, 128);
+    const int rows = min(64, row_end - row0);
+    if (rows == 64) {
+        if (t == 0) {
+#pragma unroll
+            for (int b = 0; b < BN / 64; ++b)
+                if (n0 + 64 * b < n_end)
+                    tma_store_2d(out_map, n0 + 64 * b, row0,
+                                 smem_u32(buf) + b * GW_BOX);
+            bulk_commit();
+        }
+        return;
+    }
+    // a tile cut by its group: 16-byte rows of the buffer, masked
+    constexpr int CH = BN / 8;         // 16-byte chunks a row
+    for (int c = t; c < rows * CH; c += 128) {
+        const int r = c / CH, ch = c % CH, col = n0 + 8 * ch;
+        if (col < n_end)
+            *reinterpret_cast<uint4*>(out + (long long)(row0 + r) * ld + col) =
+                *reinterpret_cast<const uint4*>(
+                    buf + (ch / 8) * GW_BOX + r * 128
+                    + (((ch % 8) ^ (r % 8)) * 16));
+    }
+}
+
+template <int NC, bool KB, bool STAGED>
+__global__ void __launch_bounds__(GwShape<NC, STAGED>::THREADS,
+                                  GwShape<NC, STAGED>::MIN_BLOCKS)
 grouped_matmul_bf16_kernel(
     const __grid_constant__ CUtensorMap a_map,   // a (T, K): boxes 64 x 16
     const __grid_constant__ CUtensorMap w_map,   // w rows: boxes 64 x 64
+    const __grid_constant__ CUtensorMap out_map, // out (T, N): 64 x 64
+                                                 // boxes (STAGED only)
     const int* __restrict__ sizes,               // (E,)
     __nv_bfloat16* __restrict__ out,             // (T, N)
     int T, int K, int N, int E) {
-    using Sh = GwShape<NC>;
+    using Sh = GwShape<NC, STAGED>;
     constexpr int BM = Sh::BM, BN = Sh::BN, NS = Sh::NS;
     constexpr uint32_t STAGE = Sh::STAGE, X_BYTES = Sh::X_BYTES;
     using TX = WgTile<GW_BK>;                 // a rows: 64 k values
@@ -163,7 +292,8 @@ grouped_matmul_bf16_kernel(
     const uint32_t raw = smem_u32(smem_raw);
     const uint32_t base = (raw + 1023) & ~1023u;   // swizzle atoms align
     unsigned char* tiles = smem_raw + (base - raw);
-    int* tile_at = reinterpret_cast<int*>(tiles + NS * STAGE);
+    unsigned char* staged = tiles + NS * STAGE;    // STAGED: NC buffers
+    int* tile_at = reinterpret_cast<int*>(staged + NC * Sh::OUT);
     int* row_at = tile_at + E + 1;
 
     gw_work_list(sizes, E, T, BM, tile_at, row_at);
@@ -177,9 +307,10 @@ grouped_matmul_bf16_kernel(
     }
     __syncthreads();
     const int nF = (N + BN - 1) / BN, nk = (K + GW_BK - 1) / GW_BK;
-    const int items = tile_at[E] * nF;
+    const int items = warp_uniform(tile_at[E]) * nF;
+    const int wg = warp_uniform(threadIdx.x / 128);   // NC: the producer
 
-    if (threadIdx.x >= 128 * NC) {
+    if (wg == NC) {
         // ---- producer: one thread issues every stage's TMA boxes ----
         if (threadIdx.x != 128 * NC) return;
         int step = 0;
@@ -220,13 +351,14 @@ grouped_matmul_bf16_kernel(
     }
 
     // ---- consumer warpgroup wg: rows 64 wg .. 64 wg + 63 of each tile ----
-    const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+    const int lane = threadIdx.x % 32;
     float acc[BN / 2];
 #pragma unroll
     for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
     int step = 0;
     for (int i = blockIdx.x; i < items; i += gridDim.x) {
-        const GwItem it = gw_item(tile_at, row_at, E, nF, BM, BN, i);
+        const GwItem it = warp_uniform(
+            gw_item(tile_at, row_at, E, nF, BM, BN, i));
         const bool live = it.r0 + 64 * wg < it.r1;    // warpgroup-uniform
         for (int kt = 0; kt < nk; ++kt, ++step) {
             const int s = step % NS;
@@ -260,8 +392,15 @@ grouped_matmul_bf16_kernel(
         wg_wait<0>();
         wg_pin(acc);
         if (lane == 0) mbar_arrive(&empty[(step - 1) % NS]);
-        gw_store<BN>(acc, out, N, it.r0 + 64 * wg, it.r1, it.n0, N);
+        if constexpr (STAGED)
+            gw_store_staged<BN>(acc, &out_map, out, N, it.r0 + 64 * wg,
+                                it.r1, it.n0, N, staged + wg * Sh::OUT,
+                                2 + wg);
+        else
+            gw_store<BN>(acc, out, N, it.r0 + 64 * wg, it.r1, it.n0, N);
     }
+    if constexpr (STAGED)
+        if (threadIdx.x % 128 == 0) bulk_wait();   // before buf goes away
 }
 
 // A bf16 (rows, cols) row-major map with boxes of box_rows x 64 values in
@@ -314,29 +453,31 @@ int persistent_grid(int threads, size_t smem, long long items, int& grid) {
 
 // out (T, N) = a (T, K) grouped against w (see the header: KB), all bf16,
 // on ``stream``; the work list's items are every group's rows in whole
-// tiles plus one partial tile for each non-empty group.
-template <int NC, bool KB>
+// tiles plus one partial tile for each non-empty group.  STAGED: the
+// epilogue through shared memory and TMA stores (the header).
+template <int NC, bool KB, bool STAGED = false>
 int launch_grouped_bf16(const void* a, const void* w, const int* sizes,
                         void* out, int T, int K, int N, int E,
                         cudaStream_t stream) {
-    using Sh = GwShape<NC>;
+    using Sh = GwShape<NC, STAGED>;
     const size_t smem = Sh::smem(E);
-    auto kernel = grouped_matmul_bf16_kernel<NC, KB>;
+    auto kernel = grouped_matmul_bf16_kernel<NC, KB, STAGED>;
     cudaError_t err = reserve_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
     const long long items = ((long long)(T + Sh::BM - 1) / Sh::BM
                              + std::min(E, T)) * ((N + Sh::BN - 1) / Sh::BN);
     int grid;
-    CUtensorMap a_map, w_map;
-    int rc = persistent_grid<grouped_matmul_bf16_kernel<NC, KB>>(
+    CUtensorMap a_map, w_map, out_map{};
+    int rc = persistent_grid<grouped_matmul_bf16_kernel<NC, KB, STAGED>>(
         Sh::THREADS, smem, items, grid);
     if (rc == 0) rc = bf16_map(&a_map, a, T, K, GW_XROWS);
     if (rc == 0)
         rc = KB ? bf16_map(&w_map, w, (long long)E * N, K, GW_BK)
                 : bf16_map(&w_map, w, (long long)E * K, N, GW_BK);
+    if (rc == 0 && STAGED) rc = bf16_map(&out_map, out, T, N, 64);
     if (rc != 0) return rc;
     kernel<<<grid, Sh::THREADS, smem, stream>>>(
-        a_map, w_map, sizes, (__nv_bfloat16*)out, T, K, N, E);
+        a_map, w_map, out_map, sizes, (__nv_bfloat16*)out, T, K, N, E);
     return (int)cudaGetLastError();
 }
 

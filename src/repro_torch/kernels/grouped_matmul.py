@@ -14,11 +14,12 @@ what bounds it on the H100 (bytes, at serving shapes).
 
 :func:`grouped_matmul_bwd` computes ``dx = dy w[e]^T`` and ``dw[e] =
 x_e^T dy_e`` (``csrc/grouped_matmul_bwd.cu``: dx on the forward's
-persistent kernel with the weights read K-major, dw a persistent kernel
-over (expert, D tile, F tile) items; it replaces no TPU kernel, since the
-reference differentiates its oracle).  :class:`GroupedMatmulFn` ties the
-two together, so a ragged MoE forward is differentiable: the train step
-and the GRPO learner under ``moe_dispatch="ragged"`` run both kernels.
+persistent kernel with the weights read K-major and its tiles stored
+through shared memory by TMA, dw a persistent kernel over (expert, D
+tile, F tile) items; it replaces no TPU kernel, since the reference
+differentiates its oracle).  :class:`GroupedMatmulFn` ties the two
+together, so a ragged MoE forward is differentiable: the train step and
+the GRPO learner under ``moe_dispatch="ragged"`` run both kernels.
 
 :func:`grouped_matmul` and :func:`grouped_matmul_bwd` launch their kernels
 for CUDA tensors and run :func:`grouped_matmul_ref` /

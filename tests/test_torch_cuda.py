@@ -734,11 +734,20 @@ def _gm_grad_close(got, want, want32, want64):
     (EDGE_SIZES + [0] * 8, 256, 72),              # 64-row dx tiles
     ([0] * 32 + [6144] + [0] * 31, 2048, 1408),   # one expert takes all
     ([700, 768, 0, 833, 64, 65, 1, 0], 2048, 1408),   # train-sized groups
+    # groups ending on a 64-row step (no row zeroed) and on 16-row slices
+    ([64, 128, 0, 192, 16, 48, 80], 256, 128),
+    ([30, 0, 77], 128, 256),                      # 3 items of dx and of dw
+    ("rl", 2048, 1408),                           # the RL update's rows
+    ("rl", 1408, 2048),
 ])
 def test_grouped_matmul_bwd_kernels_match_plain_version(cuda, dtype, sizes,
                                                         D, F):
     """dx and dw against the plain backward, an empty expert's dw exact
-    zeros, one launch of each kernel a call; a second call bit for bit."""
+    zeros, one launch of each kernel a call; a second call bit for bit.
+    "rl": deepseek-v2-lite's RL update, 1 x 4 samples of 64 + 32 tokens
+    routed top-6 over 64 experts (2304 rows, ~36 an expert)."""
+    if sizes == "rl":
+        sizes = _topk_sizes(4 * (64 + 32), 64, 6, seed=D)
     x, w, gs = _gm_inputs(dtype, cuda, sizes, D, F, seed=len(sizes) + 1)
     dy = torch.randn(x.shape[0], F, generator=torch.Generator()
                      .manual_seed(5)).to(cuda, dtype)
@@ -759,6 +768,84 @@ def test_grouped_matmul_bwd_kernels_match_plain_version(cuda, dtype, sizes,
     assert not got[1][empty].any()
     again = gm.grouped_matmul_bwd(x, w, gs, dy)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _topk_sizes(tokens, E, k, seed):
+    """Group sizes of ``tokens`` routed to ``k`` distinct experts of ``E``
+    drawn uniformly."""
+    g = torch.Generator().manual_seed(seed)
+    picks = torch.rand(tokens, E, generator=g).topk(k, dim=-1).indices
+    return torch.bincount(picks.reshape(-1), minlength=E).tolist()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sizes,nan_rows", [
+    ([70, 50, 33], (70, 76)),      # the last step of group 0 ends 6 rows
+                                   # into a 16-row slice: rows 70.. zeroed
+    ([40, 50, 33], (40, 64)),      # 40 rows: the slices from row 48 read
+                                   # zeros; rows 40..47 zeroed
+    ([64, 50, 33], (64, 80)),      # a group ending on a 64-row step
+])
+def test_grouped_matmul_bwd_rows_of_the_next_group_add_nothing(
+        cuda, dtype, sizes, nan_rows):
+    """NaN in x and dy at the first rows of group 1: the last k step of
+    group 0's dw reaches into them, and must add exactly nothing, so dw[0]
+    and dw[2] match the plain version (finite) and dx's rows outside the
+    NaN rows too."""
+    D, F = 256, 1408
+    x, w, gs = _gm_inputs(dtype, cuda, sizes, D, F, seed=11)
+    dy = torch.randn(x.shape[0], F, generator=torch.Generator()
+                     .manual_seed(12)).to(cuda, dtype)
+    lo, hi = nan_rows
+    x[lo:hi], dy[lo:hi] = float("nan"), float("nan")
+    dx, dw = gm.grouped_matmul_bwd(x, w, gs, dy)
+    args = (x, w, gs, dy)
+    want = gm.grouped_matmul_bwd_ref(*args)
+    want32 = gm.grouped_matmul_bwd_ref(
+        *[a.float() if a.is_floating_point() else a for a in args])
+    want64 = gm.grouped_matmul_bwd_ref(
+        *[a.double() if a.is_floating_point() else a for a in args],
+        acc=torch.float64)
+    keep = [e for e in range(len(sizes)) if e != 1]
+    assert bool(dw[keep].isfinite().all())
+    _gm_grad_close(dw[keep], want[1][keep], want32[1][keep],
+                   want64[1][keep])
+    rows = torch.ones(x.shape[0], dtype=torch.bool, device=cuda)
+    rows[lo:hi] = False
+    assert bool(dx[rows].isfinite().all())
+    _gm_grad_close(dx[rows], want[0][rows], want32[0][rows],
+                   want64[0][rows])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,F", [(2048, 1408), (256, 72)])
+def test_grouped_matmul_bwd_sizes_summing_to_less_than_rows(cuda, dtype, D,
+                                                            F):
+    """group_sizes summing to S < T: the rows past S (NaN here) belong to
+    no group, so dw is the plain version's over the first S rows, and dx's
+    first S rows are too (the rows past S are not written)."""
+    sizes = [100, 0, 37, 64]
+    S = sum(sizes)
+    x, w, gs = _gm_inputs(dtype, cuda, sizes + [0], D, F, seed=13)
+    T = S + 45
+    x = torch.cat([x, x.new_full((T - S, D), float("nan"))])
+    dy = torch.randn(T, F, generator=torch.Generator().manual_seed(14)).to(
+        cuda, dtype)
+    dy[S:] = float("nan")
+    gs = gs[:len(sizes)]
+    w = w[:len(sizes)].contiguous()
+    dx, dw = gm.grouped_matmul_bwd(x, w, gs, dy)
+    args = (x[:S], w, gs, dy[:S])
+    want = gm.grouped_matmul_bwd_ref(*args)
+    want32 = gm.grouped_matmul_bwd_ref(
+        *[a.float() if a.is_floating_point() else a for a in args])
+    want64 = gm.grouped_matmul_bwd_ref(
+        *[a.double() if a.is_floating_point() else a for a in args],
+        acc=torch.float64)
+    assert dx.shape == (T, D) and bool(dw.isfinite().all())
+    _gm_grad_close(dx[:S], want[0], want32[0], want64[0])
+    _gm_grad_close(dw, want[1], want32[1], want64[1])
+    assert not dw[1].any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -14,6 +14,9 @@ the kernels need: splits that cover the keys, and blocks enough to give
 every SM one, and no more, wherever there are keys enough for them.  The
 SSD scan's wrapper picks its kernel's body from the shapes (``ssd_body``),
 and flash's backward from the dtype and head dims (``flash_bwd_body``).
+``chip_smoke.py``'s train runs count the grouped matmul's and its
+backward's launches (``train_launches_per_step``) under both MoE
+dispatches.
 The wrappers' input checks (which run before a launch, on the card only)
 are plain Python too and refuse what no kernel takes, and take what the
 model layers hand over.  The kernels themselves run on the card
@@ -94,6 +97,61 @@ def test_grouped_matmul_check_refuses_what_no_kernel_takes():
         gm._check(x, w, sizes[:3])
     with pytest.raises(ValueError, match="contiguous"):
         gm._check(x, w.transpose(1, 2).contiguous().transpose(1, 2), sizes)
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (it imports torch and the port only inside
+    its phases)."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("layers,moe", [
+    ("reduced", 1),               # .reduced(): a dense layer, a MoE layer
+    (4, 3),                       # chip_smoke.py's train runs' cut
+    (None, 26),                   # all 27 layers: the first dense
+])
+def test_train_launches_per_step_under_both_dispatches(layers, moe):
+    """deepseek-v2-lite's train step: under ragged every MoE layer runs
+    w_gate, w_up and w_down as a grouped matmul each, twice (the forward
+    and its remat recompute), and each backward kernel three times;
+    under gshard no grouped matmul at all; the attention's counts (two
+    flash forwards and one backward a layer) the same under both."""
+    import dataclasses
+    cs = _chip_smoke()
+    cfg = get_config("deepseek-v2-lite-16b")
+    if layers == "reduced":
+        cfg = cfg.reduced()
+    elif layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    n = cfg.num_layers
+    ragged = cs.train_launches_per_step(cfg, "ragged")
+    gshard = cs.train_launches_per_step(cfg)
+    assert gshard == cs.train_launches_per_step(cfg, "gshard")
+    assert ragged == {**gshard, "grouped_matmul": 6 * moe,
+                      "grouped_matmul_bwd_dx": 3 * moe,
+                      "grouped_matmul_bwd_dw": 3 * moe}
+    assert gshard == {"flash_attention": 2 * n, "flash_attention_bwd": n,
+                      "grouped_matmul": 0, "grouped_matmul_bwd_dx": 0,
+                      "grouped_matmul_bwd_dw": 0, "ssd_scan": 0,
+                      "ssd_scan_bwd": 0, "rglru_scan": 0,
+                      "rglru_scan_bwd": 0}
+    assert set(ragged) == set(cs.TRAIN_KERNELS)
+
+
+def test_train_launches_per_step_without_moe_ignore_the_dispatch():
+    """A model with no MoE layer counts the same under both dispatches."""
+    cs = _chip_smoke()
+    for arch in ("qwen2-0.5b", "mamba2-370m", "recurrentgemma-2b"):
+        cfg = get_config(arch)
+        assert (cs.train_launches_per_step(cfg, "ragged")
+                == cs.train_launches_per_step(cfg))
 
 
 @pytest.mark.parametrize("B", [1, 4, 16])
