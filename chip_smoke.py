@@ -435,8 +435,6 @@ BWD_MLA = (16, 16, 192, 128)                   # (H, KV, Dk, Dv)
 GM_TRAIN_ROWS = DS_TRAIN_B * DS_TRAIN_S * 6
 # the ragged train profile's shares of device time, by kernel name
 GM_BWD_SHARES = {
-    "grouped_matmul_bwd (dx + dw)":
-        r"grouped_matmul_dw_bf16_kernel|grouped_matmul_bf16_kernel<\d, true",
     "grouped_matmul_bwd_dx": r"grouped_matmul_bf16_kernel<\d, true",
     "grouped_matmul_bwd_dw": r"grouped_matmul_dw_bf16_kernel",
     "grouped_matmul (forward)": r"grouped_matmul_bf16_kernel<\d, false"}

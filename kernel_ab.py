@@ -581,8 +581,9 @@ def rg_cases(torch):
 
 def cases(torch):
     """{case: (module, kernel, wrapper args, kwargs, check args, library
-    call or None)}, the same inputs in every process (drawn on the host
-    from fixed seeds)."""
+    call or None, bound's (part, sizes, d, f) or None)}, the same inputs
+    in every process (drawn on the host from fixed seeds); a case left
+    without the last items gets None for them."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_decode_attention as pda
@@ -653,7 +654,6 @@ def cases(torch):
     out["decode_attention d256 g10"] = (
         da, "decode_attention", (q, k, v, lens), {}, (q, k, v, lens),
         sdpa_dense_decode(torch, q, k, v, lens))
-    out = {c: t if len(t) == 6 else t + (None,) for c, t in out.items()}
     out.update(gm_cases(torch, g))
     out.update(gm_bwd_cases(torch, g))
     out.update(mla_case(torch))
@@ -661,7 +661,7 @@ def cases(torch):
     out.update(rg_cases(torch))
     out.update(train_cases(torch))
     out.update(scan_bwd_cases(torch))
-    return out
+    return {c: t + (None,) * (7 - len(t)) for c, t in out.items()}
 
 
 def worker(tree: str, only) -> None:
@@ -670,7 +670,7 @@ def worker(tree: str, only) -> None:
     from repro_torch.kernels import build
     result = {"tree": tree, "ptxas": ptxas_rows(build.build(
         [n for n in PTXAS if (build.CSRC / f"{n}.cu").exists()]))}
-    for case, (mod, name, args, kw, check, lib, *bound) in \
+    for case, (mod, name, args, kw, check, lib, bound) in \
             cases(torch).items():
         if only and not case.startswith(tuple(only)):
             continue
@@ -709,8 +709,8 @@ def worker(tree: str, only) -> None:
                 readings["library"].append(timer_queued(lib, torch))
         result[case] = {"lib": build.lib_path(SOURCES.get(name, name)).name,
                         "max_abs_err": err, **readings}
-        if bound:                        # (part, sizes, d, f)
-            result[case]["bound_ms"] = bwd_bound_ms(*bound[0])
+        if bound is not None:            # (part, sizes, d, f)
+            result[case]["bound_ms"] = bwd_bound_ms(*bound)
         if name.endswith("_bwd"):        # its time split by kernel
             result[case]["kernels"] = kernel_split(lambda: fn(*args, **kw),
                                                    torch)

@@ -40,7 +40,8 @@
 // a prefill call's ~96 rows an expert take one tile, its weights are read
 // once, and its x tile is read from L2 once per 256 columns (at 128, the
 // x tiles move as many bytes from L2 into the SMs as the weights do).
-// The producer's one thread keeps a ring of NS (4) stages full with TMA,
+// The producer's one thread keeps a ring of NS stages (4 at 64 x 128, 3 at
+// 128 x 256, whose epilogue takes a stage's room) full with TMA,
 // each the x tile (BM x 64) and the weight tile (64 x BN) of one 64-deep k
 // step, behind mbarriers (full: the stage's bytes have landed; empty: each
 // consumer warp is done with it), and runs ahead across items, so one
@@ -64,8 +65,11 @@
 // blocks one leading byte offset apart.  A stage is released once the
 // wgmma group that reads it has completed (wait_group 1, one group in
 // flight behind the issue).  f32 accumulators, rounded once to bf16 and
-// stored for the rows inside the group and the columns inside F; a
-// warpgroup whose rows all lie past the group only releases its stages.
+// stored for the rows inside the group and the columns inside F: at 128 x
+// 256 through shared memory and a TMA store that drains under the next
+// item, at 64 x 128 straight from registers (grouped_matmul.cuh's header
+// says why both); a warpgroup whose rows all lie past the group only
+// releases its stages.
 // Each output element is one block's sum over D in a fixed order, so a
 // run replays bit for bit.
 //
@@ -139,8 +143,8 @@ __global__ void __launch_bounds__(GF_THREADS) grouped_matmul_f32_kernel(
 }  // namespace
 
 // x (T, D), w (E, D, F), group_sizes (E,) int32 summing to T (rows past T
-// are never touched), out (T, F); all contiguous on one device, x and w
-// 16-byte aligned, D and F multiples of 8.  Returns cudaGetLastError()
+// are never touched), out (T, F); all contiguous on one device, x, w and
+// out 16-byte aligned, D and F multiples of 8.  Returns cudaGetLastError()
 // after the launch, or REPRO_UNSUPPORTED.
 extern "C" int grouped_matmul_launch(const void* x, const void* w,
                                      const void* group_sizes, void* out,
@@ -148,12 +152,14 @@ extern "C" int grouped_matmul_launch(const void* x, const void* w,
                                      void* stream) {
     if (T <= 0 || E <= 0) return T == 0 ? 0 : REPRO_UNSUPPORTED;
     if (D % 8 != 0 || F % 8 != 0) return REPRO_UNSUPPORTED;
-    if (((size_t)x | (size_t)w) % 16 != 0) return REPRO_UNSUPPORTED;
+    if (((size_t)x | (size_t)w | (size_t)out) % 16 != 0)
+        return REPRO_UNSUPPORTED;
     cudaStream_t st = (cudaStream_t)stream;
     const int* sizes = (const int*)group_sizes;
     if (dtype == REPRO_BF16)
         return T > 64 * E
-            ? launch_grouped_bf16<2, false>(x, w, sizes, out, T, D, F, E, st)
+            ? launch_grouped_bf16<2, false, true>(x, w, sizes, out, T, D, F,
+                                                  E, st)
             : launch_grouped_bf16<1, false>(x, w, sizes, out, T, D, F, E, st);
     if (dtype == REPRO_F32) {
         const dim3 grid((F + GF_BN - 1) / GF_BN, E);

@@ -17,9 +17,10 @@
 // zeros past the map's K columns (with KB); rows of B past N are the next
 // group's or zeros: multiplied, never stored.
 //
-// STAGED picks the epilogue.  Without it (the forward) each consumer
-// thread stores its f32 accumulators as bf16 pairs straight to device
-// memory.  With it (dx) the warpgroup writes its 64 x BN rows as bf16 into
+// STAGED picks the epilogue.  Without it (the forward's 64 x 128 tiles)
+// each consumer thread stores its f32 accumulators as bf16 pairs straight
+// to device memory.  With it (the forward's 128 x 256 tiles, and dx) the
+// warpgroup writes its 64 x BN rows as bf16 into
 // a buffer of its own in shared memory, in the 128-byte swizzle of a TMA
 // box (conflict-free 4-byte stores), and one thread stores a whole tile
 // with TMA (cp.async.bulk.tensor, shared to global) and goes on: the
@@ -27,7 +28,10 @@
 // waited for (bulk wait_group.read) when the next item's epilogue comes.
 // A tile cut by its group's end is copied from the buffer in 16-byte rows
 // instead, so that no row of the next group is written.  The buffer takes
-// a ring stage's room: NS = 3.
+// a ring stage's room: NS = 3.  Both stay because neither wins everywhere
+// in the forward (kernel_ab.py, PERF.md section 6): at 128 x 256 (prefill)
+// the staged epilogue is faster, at 64 x 128 (decode, where nearly every
+// tile is cut by its group's end) the direct one with its 4-stage ring.
 #pragma once
 
 #include <algorithm>

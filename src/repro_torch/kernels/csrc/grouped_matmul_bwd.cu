@@ -28,12 +28,9 @@
 // K-major A and each expert's w[e] read K-major as B: w[e] lies (D, F), F
 // contiguous, which is B = w[e]^T's K-major layout, so the TMA boxes of
 // 64 f values x 64 d rows feed wgmma with no transpose bit and no
-// transposed copy of the weights.  It takes the header's STAGED epilogue
-// (the forward does not): each warpgroup's 64 x 256 rows go as bf16 into
-// its own buffer in shared memory and out by one TMA store that drains
-// under the next item's 22 k steps, where the forward's thread-by-thread
-// 4-byte stores held the tensor cores idle at the end of every item; a
-// tile cut by its group's end is copied out in 16-byte rows, masked.
+// transposed copy of the weights, and its epilogue through shared memory
+// and TMA stores that drain under the next item's 22 k steps; a tile cut
+// by its group's end is copied out in 16-byte rows, masked.
 //
 // dw (bf16) is one persistent kernel over (expert, D tile, F tile) items,
 // expert-major (the blocks that run at once share an expert's rows in
@@ -41,11 +38,8 @@
 // MN-major (a row's D values contiguous: the transpose bit) and dy's are
 // B read MN-major, both through TMA boxes of 64 values x 64 rows in a
 // 3-stage ring fed by one producer thread.  Two consumer warpgroups take
-// 64 D rows each of a 128 x 256 tile, one m64n256k16 a k16 slice (256 x
-// 128 tiles, two m64n128 a warpgroup, pad nothing at gate/up's F = 1408
-// but read B twice from shared memory: 0.6478 against 0.6295 ms there on
-// an H100 80GB HBM3 at 700 W, kernel_ab.py).  At the
-// train shape (~768 rows an expert) an item is ~12 k steps, so its
+// 64 D rows each of a 128 x 256 tile, one m64n256k16 a k16 slice.  At
+// the train shape (~768 rows an expert) an item is ~12 k steps, so its
 // epilogue weighs: it goes through shared memory and TMA stores (dw's (E,
 // D, F) map clips at D and F), as dx's.  A tile starts at its group's
 // first row; on its last k step the k16 slices past the group are skipped
@@ -56,14 +50,11 @@
 // wgmma on a zero block.
 //
 // Registers: 168 a thread at most (9 warps, one SM's 64 K registers; a
-// sub-partition holds 3 of them), 128 of them the accumulators.  The
-// design keeps under that with no spill: every branch around wgmma or the
-// accumulators warp-uniform (grouped_matmul.cuh's warp_uniform), only
-// wgmma writing the accumulators (an empty expert's zeros from a wgmma on
-// the zero block), 32-bit shared addresses.  setmaxnreg (40 for a
-// producer warpgroup, 232 for the consumers) did not help: this ptxas
-// compiled the consumers to 168 with it, as it did for flash's prefill,
-// and spilled the same 1208 bytes.
+// sub-partition holds 3 of them), 128 of them the accumulators.  What
+// keeps the consumers under that with no spill: every branch around wgmma
+// or the accumulators warp-uniform (grouped_matmul.cuh's warp_uniform),
+// only wgmma writing the accumulators (an empty expert's zeros from a
+// wgmma on the zero block), and 32-bit shared addresses.
 //
 // At the train shape that is 64 x 16 x 6 = 6144 items, 47 waves on 132
 // SMs: the sum over an expert's rows is serial inside its item, and the
@@ -421,12 +412,12 @@ int check(int T, int D, int F, int E, const void* a, const void* b) {
 }  // namespace
 
 // dx (T, D) = each row of dy (T, F) against its expert's w (E, D, F)
-// transposed; group_sizes (E,) int32 summing to at most T (rows past the
-// sum are not written).  All contiguous on one device, dy, w and dx
-// 16-byte aligned, D and F multiples of 8, T > 0.  bf16 takes the
-// forward's tiles: 128 x 256 when an expert gets more than 64 rows on
-// average, else 64 x 128.  Returns cudaGetLastError() after the launch, or
-// REPRO_UNSUPPORTED.
+// transposed; group_sizes (E,) int32 summing to T (with fewer, the rows
+// past the sum are left as they were, as the forward leaves its output's).
+// All contiguous on one device, dy, w and dx 16-byte aligned, D and F
+// multiples of 8, T > 0.  bf16 takes the forward's tiles: 128 x 256 when
+// an expert gets more than 64 rows on average, else 64 x 128.  Returns
+// cudaGetLastError() after the launch, or REPRO_UNSUPPORTED.
 extern "C" int grouped_matmul_bwd_dx_launch(const void* dy, const void* w,
                                             const void* group_sizes,
                                             void* dx, int T, int D, int F,
@@ -451,8 +442,9 @@ extern "C" int grouped_matmul_bwd_dx_launch(const void* dy, const void* w,
 }
 
 // dw (E, D, F): dw[e] = x_e^T dy_e over expert e's rows of x (T, D) and dy
-// (T, F), zeros for an empty group; the same requirements as dx's (dw
-// 16-byte aligned).
+// (T, F), zeros for an empty group; group_sizes summing to at most T (the
+// rows past the sum belong to no expert and add nothing); otherwise the
+// same requirements as dx's (dw 16-byte aligned).
 extern "C" int grouped_matmul_bwd_dw_launch(const void* x, const void* dy,
                                             const void* group_sizes,
                                             void* dw, int T, int D, int F,

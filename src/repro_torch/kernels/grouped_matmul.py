@@ -80,7 +80,9 @@ def grouped_matmul_bwd_dx_ref(dy, w, group_sizes, *, acc=torch.float32):
 
 def grouped_matmul_bwd_dw_ref(x, dy, group_sizes, *, acc=torch.float32):
     """Plain dw (E, D, F): ``x_e^T dy_e`` over each expert's rows in
-    ``acc``, rounded once to x's dtype; an empty expert's zeros."""
+    ``acc``, rounded once to x's dtype; an empty expert's zeros.  The sizes
+    may sum to less than x's rows: the rows past the sum belong to no
+    expert, as in the kernel."""
     E = group_sizes.shape[0]
     dw = x.new_zeros(E, x.shape[1], dy.shape[1])
     start = 0
@@ -89,7 +91,7 @@ def grouped_matmul_bwd_dw_ref(x, dy, group_sizes, *, acc=torch.float32):
             dw[e] = (x[start:start + n].to(acc).T
                      @ dy[start:start + n].to(acc)).to(x.dtype)
         start += n
-    if start != x.shape[0]:
+    if start > x.shape[0]:
         raise ValueError(f"grouped_matmul_bwd: group sizes sum to {start}, "
                          f"x has {x.shape[0]} rows")
     return dw
@@ -213,7 +215,9 @@ def _bwd_launch(wrapper, fn, a, b, group_sizes, out, T, D, F, E):
 
 def grouped_matmul_bwd_dx(dy, w, group_sizes) -> torch.Tensor:
     """dx (T, D): each row of dy (T, F) against its expert's w (E, D, F)
-    transposed.  CPU tensors take the plain version; CUDA tensors launch
+    transposed; the sizes sum to T, as the forward's do (the kernel leaves
+    the rows past a smaller sum unwritten, and the plain version refuses
+    it).  CPU tensors take the plain version; CUDA tensors launch
     the dx kernel (with no rows, nothing: dx is empty)."""
     if dy.device.type in PLAIN_DEVICES:
         return grouped_matmul_bwd_dx_ref(dy, w, group_sizes)
@@ -237,7 +241,8 @@ def grouped_matmul_bwd_dx(dy, w, group_sizes) -> torch.Tensor:
 
 def grouped_matmul_bwd_dw(x, dy, group_sizes) -> torch.Tensor:
     """dw (E, D, F): ``x_e^T dy_e`` over each expert's rows of x (T, D) and
-    dy (T, F), E = len(group_sizes), zeros for an empty expert.  CPU tensors
+    dy (T, F), E = len(group_sizes), zeros for an empty expert; the sizes
+    sum to at most T, and rows past the sum add nothing.  CPU tensors
     take the plain version; CUDA tensors launch the dw kernel (with no
     rows, nothing: dw is zeros)."""
     if x.device.type in PLAIN_DEVICES:

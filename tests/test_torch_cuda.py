@@ -822,8 +822,10 @@ def test_grouped_matmul_bwd_rows_of_the_next_group_add_nothing(
 def test_grouped_matmul_bwd_sizes_summing_to_less_than_rows(cuda, dtype, D,
                                                             F):
     """group_sizes summing to S < T: the rows past S (NaN here) belong to
-    no group, so dw is the plain version's over the first S rows, and dx's
-    first S rows are too (the rows past S are not written)."""
+    no group, so dw is the plain version's (which takes S < T too).  dx's
+    contract is sizes summing to T, as the forward's: its first S rows are
+    the plain version's over the first S rows, and the rows past S are
+    unspecified (the kernel does not write them), so they are not read."""
     sizes = [100, 0, 37, 64]
     S = sum(sizes)
     x, w, gs = _gm_inputs(dtype, cuda, sizes + [0], D, F, seed=13)
@@ -842,6 +844,7 @@ def test_grouped_matmul_bwd_sizes_summing_to_less_than_rows(cuda, dtype, D,
     want64 = gm.grouped_matmul_bwd_ref(
         *[a.double() if a.is_floating_point() else a for a in args],
         acc=torch.float64)
+    assert torch.equal(gm.grouped_matmul_bwd_dw_ref(x, dy, gs), want[1])
     assert dx.shape == (T, D) and bool(dw.isfinite().all())
     _gm_grad_close(dx[:S], want[0], want32[0], want64[0])
     _gm_grad_close(dw, want[1], want32[1], want64[1])

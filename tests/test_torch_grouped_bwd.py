@@ -106,6 +106,32 @@ def test_grouped_matmul_fn_on_cpu_is_the_plain_backward():
     assert all(torch.equal(a, b.bfloat16()) for a, b in zip(bf, f32))
 
 
+def test_grouped_bwd_plain_sizes_summing_below_the_rows():
+    """Sizes summing to S < T: the plain dw takes them (the rows past S,
+    NaN here, belong to no expert) and equals jax.vjp's dw over the first S
+    rows; the plain dx, whose contract is the forward's (sizes summing to
+    T), refuses them, as it refuses sizes summing past T."""
+    sizes = SIZES[0]
+    x, w, gs, dy = _inputs(sizes, 24, 16, 7)
+    S = sum(sizes)
+    tx = torch.from_numpy(np.concatenate([x, np.full((4, 24), np.nan,
+                                                     np.float32)]))
+    tdy = torch.from_numpy(np.concatenate([dy, np.full((4, 16), np.nan,
+                                                       np.float32)]))
+    tgs = torch.from_numpy(gs)
+    dw = gm.grouped_matmul_bwd_dw_ref(tx, tdy, tgs)
+    _, vjp = jax.vjp(lambda b: jax_ref.grouped_matmul(jnp.asarray(x), b,
+                                                      jnp.asarray(gs)),
+                     jnp.asarray(w))
+    assert bool(dw.isfinite().all()) and _close(dw, vjp(jnp.asarray(dy))[0])
+    assert torch.equal(dw, gm.grouped_matmul_bwd_dw_ref(tx[:S], tdy[:S],
+                                                        tgs))
+    with pytest.raises(ValueError, match="sum to 15, dy has 19 rows"):
+        gm.grouped_matmul_bwd_dx_ref(tdy, torch.from_numpy(w), tgs)
+    with pytest.raises(ValueError, match="sum to 15, x has 11 rows"):
+        gm.grouped_matmul_bwd_dw_ref(tx[:11], tdy[:11], tgs)
+
+
 def test_grouped_bwd_cost_counts_the_work_by_hand():
     sizes, D, F = [2, 0, 4], 16, 8
     dx = pm.grouped_matmul_bwd_cost(sizes, d_in=D, d_out=F, itemsize=2,
