@@ -243,6 +243,17 @@ Phases, in order; any failure raises and the script exits non-zero:
                  spans, each leg's bytes and rate alone (a fetch, an
                  offload and a fetch again equal bit for bit), memory
                  allocated after an offload leg against without;
+  38a. train mesh — HyperShard on the card: a one-rank NCCL process group
+                 (file store in a temporary directory), ``make_host_mesh((1,
+                 1))``, qwen2-0.5b under ``ShardingPlan()`` (fsdp_tp)
+                 through ``trainer.train(mesh=, plan=)``: DTensor state and
+                 batches, flash under ``local_map``.  The f32 identity at
+                 phase 25's shapes against the run without a mesh (phase
+                 25's limits, the distance printed), then 4 bf16 steps of
+                 4 x 4096 with exactly 48 flash forwards and 24 backwards a
+                 step, loss and grad norm within 2^-8 / 4 of phase 23's
+                 first 4 steps, step wall, tok/s and peak beside phase
+                 23's;
   39. rl       — HyperRL, colocated (repro_torch.rl.RLSession): qwen2-0.5b
                  at full width in bf16, 2 iterations of 2 prompts x 4
                  samples of 128 + 64 tokens at temperature 1 (the
@@ -280,7 +291,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                  prefill and dense decode a second row at (256, G = 10);
                  the grouped matmul one for each of its five cases, its
                  backward's dx and dw one each at the train shape with
-                 phase 27a's launches; each
+                 phase 27a's launches; phase 23's two flash rows again
+                 with phase 38a's launches, named ``_mesh``; each
                  with that run's launches), and ``{"ok": true,
                  "device": {...}}`` as the last line.
 
@@ -3429,12 +3441,12 @@ def prefix_train(torch, cfg, shape, adamw, train_cfg, hook=None):
 
 
 def run_train(torch, cfg, shape, n_steps, hook=None, offload_cfg=None,
-              obs=None, moe_dispatch="gshard"):
+              obs=None, moe_dispatch="gshard", mesh=None, plan=None):
     """``n_steps`` train steps from SEED with AdamWConfig(total_steps=
     n_steps), as the reference's launcher builds it: through
-    ``trainer.train`` (with ``offload_cfg``, ``obs`` and ``moe_dispatch``
-    when given), or, for an arch with a multimodal frontend
-    (frontend_dim), through prefix_train."""
+    ``trainer.train`` (with ``offload_cfg``, ``obs``, ``moe_dispatch`` and a
+    HyperShard ``mesh`` and ``plan`` when given), or, for an arch with a
+    multimodal frontend (frontend_dim), through prefix_train."""
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train import trainer
     adamw = AdamWConfig(total_steps=n_steps)
@@ -3444,7 +3456,8 @@ def run_train(torch, cfg, shape, n_steps, hook=None, offload_cfg=None,
         return prefix_train(torch, cfg, shape, adamw, train_cfg, hook)
     return trainer.train(cfg, shape, adamw=adamw, train_cfg=train_cfg,
                          hook=hook, device=DEVICE, offload_cfg=offload_cfg,
-                         obs=obs, moe_dispatch=moe_dispatch)
+                         obs=obs, moe_dispatch=moe_dispatch, mesh=mesh,
+                         plan=plan)
 
 
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "grouped_matmul",
@@ -3494,7 +3507,7 @@ def train_launches_per_step(cfg, moe_dispatch="gshard"):
 def phase_train(torch, np, arch="qwen2-0.5b", layers=None, batch=TRAIN_B,
                 seq=TRAIN_S, n_steps=TRAIN_STEPS, tag="train",
                 offload_cfg=None, obs=None, record=None,
-                moe_dispatch="gshard"):
+                moe_dispatch="gshard", mesh=None, plan=None, summary=None):
     """``arch``'s train step at full width (``layers`` of its layers, all
     when None; random weights from a seed) in bf16 through
     ``repro_torch.train.trainer.train`` (an arch with a multimodal frontend
@@ -3513,7 +3526,8 @@ def phase_train(torch, np, arch="qwen2-0.5b", layers=None, batch=TRAIN_B,
     the memory allocated when the peak is reset (what earlier phases left).
     ``offload_cfg`` and ``obs`` go to the trainer; ``record`` (a list)
     gets each step's (metrics, launches, memory allocated after the step
-    and its offload leg)."""
+    and its offload leg); ``mesh`` and ``plan`` train it on a HyperShard
+    mesh; ``summary`` (a dict) gets the median step, tok/s and peak."""
     from repro_torch.configs.base import ShapeConfig, get_config
     cfg = get_config(arch)
     if layers is not None:
@@ -3551,7 +3565,7 @@ def phase_train(torch, np, arch="qwen2-0.5b", layers=None, batch=TRAIN_B,
     sync(torch)
     t0 = time.perf_counter()
     params, hist = run_train(torch, cfg, shape, n_steps, hook, offload_cfg,
-                             obs, moe_dispatch)
+                             obs, moe_dispatch, mesh, plan)
     sync(torch)
     wall = time.perf_counter() - t0
     launches = {k: wrappers[k].launches for k in TRAIN_KERNELS}
@@ -3569,6 +3583,9 @@ def phase_train(torch, np, arch="qwen2-0.5b", layers=None, batch=TRAIN_B,
         f"{med:.4f}s ({batch * seq / med:.1f} train tok/s), range "
         f"{step_s[0]:.4f}..{step_s[-1]:.4f}s; peak device memory "
         f"{peak:.2f} GiB (torch.cuda.max_memory_allocated)")
+    if summary is not None:
+        summary.update(median_s=med, tok_s=batch * seq / med, peak_gib=peak,
+                       first_s=walls[0])
     log(f"[{tag}] launches {launches}; expected per step "
         + ", ".join(f"{k} {v}" for k, v in want.items())
         + f", {n_steps} steps")
@@ -3871,6 +3888,117 @@ def phase_train_offload(torch, np):
                                     for a, b in zip(plain, offl)):
         raise AssertionError("train offload: the offloaded state still "
                              "takes the card's memory")
+
+
+# the HyperShard mesh phase: qwen2-0.5b on a one-rank NCCL mesh, the f32
+# identity at phase 25's shapes and limits, then MESH_STEPS bf16 steps of
+# TRAIN_B x TRAIN_S against phase 23's first MESH_STEPS steps within
+# MESH_BF16_REL (phase 38's allowance for the bf16 backward's dQ atomics);
+# an f32 distance above MESH_F32_NOTE is logged as a finding
+MESH_STEPS = 4
+MESH_BF16_REL = 2 ** -8 / 4
+MESH_F32_NOTE = 1e-6
+
+
+def phase_train_mesh(torch, np, train_record, train_summary):
+    """HyperShard on the card: a one-rank NCCL process group (initialised
+    from a file in a temporary directory: no port, no network),
+    ``make_host_mesh((1, 1))`` over it, and qwen2-0.5b trained on that
+    mesh under ``ShardingPlan()`` (fsdp_tp) through ``trainer.train``:
+    params, moments and batches are DTensors, the step runs under the
+    mesh, and flash's forward and backward kernels run under
+    ``local_map``.  First the f32 identity at phase 25's shapes (all 24
+    layers, TRAIN_ID_B x TRAIN_ID_S, TRAIN_ID_STEPS steps) against the same
+    run without a mesh: losses and grad norms within TRAIN_ID_REL, params
+    within AdamW's bound; the distance is printed.  Then MESH_STEPS bf16
+    steps at full width (TRAIN_B x TRAIN_S) with phase_train's exact
+    launch counts (48 flash forwards and 24 backwards a step), loss and
+    grad norm within MESH_BF16_REL of phase 23's first MESH_STEPS steps in
+    this process, the step wall, tok/s and peak printed beside phase 23's.
+    The group is destroyed at the end; nothing here is caught."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.core.hypershard import ShardingPlan
+    from repro_torch.core.meshctx import full_tensor
+    from repro_torch.core.tree import tree_flatten_with_path
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.adamw import AdamWConfig, schedule
+    store = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    dist.init_process_group("nccl" if DEVICE == "cuda" else "gloo",
+                            init_method=f"file://{store}/store", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh((1, 1))
+        plan = ShardingPlan()
+        log(f"[train mesh] mesh {tuple(mesh.shape)} "
+            f"{tuple(mesh.mesh_dim_names)} on {mesh.device_type}, "
+            f"{dist.get_backend()}, "
+            f"plan {plan}")
+        cfg = dataclasses.replace(get_config("qwen2-0.5b"), dtype="float32")
+        shape = ShapeConfig("train_identity", TRAIN_ID_S, TRAIN_ID_B,
+                            "train")
+        runs = {}
+        for name, m in (("plain", None), ("mesh", mesh)):
+            params, hist = run_train(torch, cfg, shape, TRAIN_ID_STEPS,
+                                     mesh=m, plan=plan if m else None)
+            runs[name] = ({k: full_tensor(t) for k, t in
+                           tree_flatten_with_path(params)}, hist)
+            del params
+            torch.cuda.empty_cache()
+        worst = max(abs(a[k] - b[k]) / max(1.0, abs(b[k]))
+                    for a, b in zip(runs["mesh"][1], runs["plain"][1])
+                    for k in ("loss", "grad_norm"))
+        adamw = AdamWConfig(total_steps=TRAIN_ID_STEPS)
+        lrs = [float(schedule(adamw, torch.tensor(t, dtype=torch.int32)))
+               for t in range(1, TRAIN_ID_STEPS + 1)]
+        pa, pb = runs["mesh"][0], runs["plain"][0]
+        big = max(t.abs().max().item() for t in pb.values())
+        bound = (sum(2 * lr * adam_step_bound(adamw.b1, adamw.b2, t)
+                     for t, lr in enumerate(lrs, 1))
+                 + 2 * TRAIN_ID_STEPS * big * 2.0 ** -23)
+        dmax = max((pa[k] - pb[k]).abs().max().item() for k in pb)
+        moved = sum(int((pa[k] != pb[k]).sum()) for k in pb)
+        log(f"[train mesh] f32 identity, qwen2-0.5b all {cfg.num_layers} "
+            f"layers, {TRAIN_ID_STEPS} steps of {TRAIN_ID_B} x {TRAIN_ID_S}, "
+            f"(1, 1) mesh vs no mesh: losses and grad norms within "
+            f"{worst:.3e} relative (limit {TRAIN_ID_REL}; a distance above "
+            f"{MESH_F32_NOTE} is a finding), params max |diff| {dmax:.3e} "
+            f"against AdamW's bound {bound:.3e}, {moved} weights differ at "
+            "all; losses "
+            + ", ".join(f"{a['loss']:.7f}/{b['loss']:.7f}" for a, b in
+                        zip(runs["mesh"][1], runs["plain"][1])))
+        if not worst <= TRAIN_ID_REL or not dmax <= bound:
+            raise AssertionError("train mesh: the f32 run on the mesh parts "
+                                 "from the run without one")
+        del runs, pa, pb
+        torch.cuda.empty_cache()
+        rec, summary = [], {}
+        launches = phase_train(torch, np, batch=TRAIN_B, seq=TRAIN_S,
+                               n_steps=MESH_STEPS, tag="train mesh",
+                               record=rec, mesh=mesh, plan=plan,
+                               summary=summary)
+        base = train_record[:MESH_STEPS]
+        rel = max(abs(a[0][k] - b[0][k]) / max(1.0, abs(b[0][k]))
+                  for a, b in zip(rec, base) for k in ("loss", "grad_norm"))
+        log(f"[train mesh] bf16 {TRAIN_B} x {TRAIN_S} on the (1, 1) mesh "
+            "against phase "
+            f"23 (train) in this process: loss and grad norm within "
+            f"{rel:.3e} relative (limit {MESH_BF16_REL:.3e}); median step "
+            f"{summary['median_s']:.4f}s vs {train_summary['median_s']:.4f}s"
+            f", {summary['tok_s']:.1f} vs {train_summary['tok_s']:.1f} train "
+            f"tok/s, peak {summary['peak_gib']:.2f} vs "
+            f"{train_summary['peak_gib']:.2f} GiB, first step "
+            f"{summary['first_s']:.3f}s vs {train_summary['first_s']:.3f}s")
+        if len(rec) != MESH_STEPS or not rel <= MESH_BF16_REL:
+            raise AssertionError(f"train mesh: bf16 run differs by {rel}")
+        return launches
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -4249,7 +4377,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed("hybrid identity", phase_rg_identity, torch, np)
     torch.cuda.empty_cache()
-    train_launches = timed("train", phase_train, torch, np)
+    train_record, train_summary = [], {}
+    train_launches = timed("train", phase_train, torch, np, "qwen2-0.5b",
+                           None, TRAIN_B, TRAIN_S, TRAIN_STEPS, "train", None,
+                           None, train_record, "gshard", None, None,
+                           train_summary)
     timed("train profile", phase_train_profile, torch)
     torch.cuda.empty_cache()
     timed("train identity", phase_train_identity, torch, np)
@@ -4308,6 +4440,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed("train offload", phase_train_offload, torch, np)
     torch.cuda.empty_cache()
+    mesh_launches = timed("train mesh", phase_train_mesh, torch, np,
+                          train_record, train_summary)
+    torch.cuda.empty_cache()
     rl_launches = timed("rl", phase_rl, torch, np)
     torch.cuda.empty_cache()
     timed("rl identity", phase_rl_identity, torch, np)
@@ -4326,7 +4461,13 @@ def main() -> int:
             f"{MG_ARCH} train": mg_train_launches,
             f"{SSM_ARCH} train": ssm_train_launches,
             f"{RG_ARCH} train": rg_train_launches,
-            "qwen2-0.5b rl": rl_launches, f"{DS_ARCH} rl": ds_rl_launches}
+            "qwen2-0.5b rl": rl_launches, f"{DS_ARCH} rl": ds_rl_launches,
+            "qwen2-0.5b mesh train": mesh_launches}
+    # the mesh run launches flash at phase 23's shapes: its rows are phase
+    # 3's rows of that shape, with the mesh run's launches
+    rows += [dict(row, name=row["name"] + "_mesh",
+                  path="qwen2-0.5b mesh train")
+             for row in rows if row["path"] == "qwen2-0.5b train"]
     for row in rows:
         if row["path"] is not None:     # None: timed in phase 3 only
             key = (row["name"] if row["name"] in SOURCE_OF else

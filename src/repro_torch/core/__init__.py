@@ -1,1 +1,3 @@
-"""Core substrate of the port: tensor trees and the host archive."""
+"""Core substrate of the port: tensor trees, the host archive, HyperOffload
+and HyperShard (``layout``, ``hypershard``, ``meshctx``,
+``ring_attention``)."""

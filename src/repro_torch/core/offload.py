@@ -1,15 +1,18 @@
 """HyperOffload (paper §3.2): compute/state decoupling through host memory.
 
-The port of ``repro.core.offload`` on one device.  The supernode's pooled
+The port of ``repro.core.offload``.  The supernode's pooled
 DRAM is the host's pinned (page-locked) memory; the card's memory is the
 managed cache.  What is here:
 
 - :class:`OffloadConfig`, a copy of the reference's;
 - :func:`spec_fully_sharded`, the reference's selectivity rule (only a
   leaf of rank >= 2 whose spec uses every mesh axis of size > 1 is
-  host-placed).  The port's one card stands for a one-device mesh, where
-  every spec is fully sharded, so a leaf of rank >= 2 goes to host memory
-  and a 1-D leaf stays on the card (:func:`host_placeable`);
+  host-placed).  On a mesh it is judged on a DTensor leaf's own spec and
+  its mesh's axis sizes, and the leaf's local shard goes to host memory
+  (:class:`HostShard`); with no mesh the port's one card stands for a
+  one-device mesh, where every spec is fully sharded, so a leaf of rank
+  >= 2 goes to host memory and a 1-D leaf stays on the card
+  (:func:`host_placeable`);
 - :func:`unstack_layers` / :func:`streamed_apply`, the per-layer cache
   pipeline: layer ``i``'s pinned host params are copied to the card with
   asynchronous copies on the current stream just before layer ``i`` runs,
@@ -71,22 +74,74 @@ def spec_fully_sharded(spec, axis_sizes: dict) -> bool:
 
 
 def host_placeable(t) -> bool:
-    """The one-device mesh's selectivity: ``spec_fully_sharded`` of any
-    spec of ``t``'s rank over ``{"data": 1, "model": 1}``."""
+    """Whether the offload legs host-place ``t``: a :class:`HostShard`
+    (already there); a DTensor whose spec is fully sharded over its mesh
+    (``spec_fully_sharded`` of its placements' spec and the mesh's axis
+    sizes, the reference's predicate on the leaf's real sharding); or, for
+    a plain tensor, the one-device mesh's selectivity, ``spec_fully_sharded``
+    of any spec of ``t``'s rank over ``{"data": 1, "model": 1}``."""
+    if isinstance(t, HostShard):
+        return True
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        from repro_torch.core.layout import spec_of
+        mesh = t.device_mesh
+        names = tuple(mesh.mesh_dim_names)
+        return spec_fully_sharded(spec_of(t.placements, names, t.dim()),
+                                  dict(zip(names, mesh.shape)))
     return spec_fully_sharded((None,) * t.dim(), {"data": 1, "model": 1})
 
 
-def to_host_async(t: torch.Tensor) -> torch.Tensor:
+class HostShard:
+    """A DTensor leaf between steps: its local shard in pinned host memory
+    (copied asynchronously on the current stream) and what rebuilds the
+    DTensor on its mesh (:meth:`to_mesh`)."""
+
+    def __init__(self, t):
+        self.local = to_host_async(t.to_local())
+        self.mesh, self.placements = t.device_mesh, t.placements
+        self.shape, self.stride = t.shape, t.stride()
+
+    def to_mesh(self, device):
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(to_device(self.local, device), self.mesh,
+                                  self.placements, run_check=False,
+                                  shape=self.shape, stride=self.stride)
+
+
+def to_host_async(t):
     """``t`` copied into pinned host memory by an asynchronous copy on the
-    current stream (a CPU tensor is returned as it is).  The copy is
-    final once the stream reaches it: a later copy back to the card on
-    the same stream is ordered after it, but a host read must synchronise
-    first."""
+    current stream (a CPU tensor is returned as it is; a DTensor becomes a
+    :class:`HostShard` of its local shard).  The copy is final once the
+    stream reaches it: a later copy back to the card on the same stream is
+    ordered after it, but a host read must synchronise first."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        return HostShard(t)
     if t.device.type == "cpu":
         return t
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
     return host
+
+
+def to_device_leaf(t, device):
+    """The fetch leg of one leaf: a :class:`HostShard` back on its mesh,
+    a host tensor on ``device``."""
+    if isinstance(t, HostShard):
+        return t.to_mesh(device)
+    return to_device(t, device)
+
+
+def local_nbytes(t) -> int:
+    """Bytes of ``t`` on this rank: a DTensor's (or a
+    :class:`HostShard`'s) local shard, a plain tensor whole."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, HostShard):
+        t = t.local
+    elif isinstance(t, DTensor):
+        t = t.to_local()
+    return t.numel() * t.element_size()
 
 
 def unstack_layers(stacked):

@@ -6,8 +6,10 @@ bit for bit in both packages: a reproducible Zipf-ish token stream with
 document structure (BOS/EOS), greedily packed into fixed-length sequences
 (no cross-document attention masking at this level; the loss mask covers
 padding).  :func:`make_loader` moves each batch to the training device
-from pinned host memory; it has no mesh argument (one device: the data
-axis of a mesh is ROADMAP.md's multi-device item).
+from pinned host memory; with a mesh every rank packs the same global
+batch from the seed and keeps its rows as DTensors sharded over the dp
+axes (:func:`batch_spec`), so the batches are bit-identical to the
+unsharded loader's.
 """
 from __future__ import annotations
 
@@ -76,17 +78,37 @@ class PackedBatches:
         }
 
 
-def make_loader(cfg: DataConfig, device) -> Iterator[Dict[str, torch.Tensor]]:
+def batch_spec(mesh) -> tuple:
+    """The reference's batch spec: rows over the dp axes the mesh has."""
+    from repro_torch.core.meshctx import dp_entry
+    return (dp_entry(mesh), None)
+
+
+def batch_sharding(mesh):
+    """:func:`batch_spec` as a ``NamedSharding`` on ``mesh``."""
+    from repro_torch.core.hypershard import NamedSharding
+    return NamedSharding(mesh, batch_spec(mesh))
+
+
+def make_loader(cfg: DataConfig, device, mesh=None
+                ) -> Iterator[Dict[str, torch.Tensor]]:
     """Yields batches as tensors on ``device``: int32 ``inputs`` and
     ``targets`` (B, S), f32 ``mask`` (B, S).  On a CUDA device each batch
     is copied from pinned host memory with ``non_blocking=True``, so the
-    copy overlaps the previous step's work."""
+    copy overlaps the previous step's work.  With ``mesh`` each is a
+    DTensor of the rank's rows (:func:`batch_sharding`); a batch whose rows
+    do not divide the dp axes raises."""
     device = torch.device(device)
     pin = device.type == "cuda"
+    sh = batch_sharding(mesh) if mesh is not None else None
     for b in PackedBatches(cfg):
         out = {}
         for k, v in b.items():
             t = torch.from_numpy(v)
-            out[k] = (t.pin_memory().to(device, non_blocking=True) if pin
-                      else t.to(device))
+            t = (t.pin_memory().to(device, non_blocking=True) if pin
+                 else t.to(device))
+            if sh is not None:
+                from repro_torch.core.hypershard import distribute
+                t = distribute(t, sh.mesh, sh.placements)
+            out[k] = t
         yield out

@@ -41,10 +41,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional, Union
 
 import torch
 
+from repro_torch.core.meshctx import is_dtensor
 from repro_torch.kernels import (DTYPE_CODES, NEG_INF, PLAIN_DEVICES,
                                  SAME_DIMS, attention_problems, build,
                                  count_launch, raise_problems,
@@ -231,6 +233,46 @@ def _grad_problems(q, v, q_offset):
     return problems
 
 
+def mesh_placements(q):
+    """The placements flash runs under on ``q``'s mesh: (those of q, k, v,
+    the output and its gradient; those of the (B, H, Sq) lse).  The batch
+    is ``Shard(0)`` over the dp axes (``pod``, ``data``) when it divides
+    them, the heads ``Shard(2)`` (the lse's ``Shard(1)``) over ``model``
+    when q arrives head-sharded there (the head mode), and every other
+    mesh dim is ``Replicate`` (a dim of size 1 always): each rank's call
+    sees whole sequences and whole heads, and no kernel ever takes a
+    DTensor."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = q.device_mesh
+    dp = [i for i, a in enumerate(mesh.mesh_dim_names) if a in ("pod", "data")]
+    batch_ok = q.shape[0] % math.prod(mesh.shape[i] for i in dp) == 0
+    qp, lp = [], []
+    for i, (name, p) in enumerate(zip(mesh.mesh_dim_names, q.placements)):
+        if mesh.shape[i] == 1:
+            qp.append(Replicate())
+            lp.append(Replicate())
+        elif i in dp and batch_ok:
+            qp.append(Shard(0))
+            lp.append(Shard(0))
+        elif name == "model" and isinstance(p, Shard) and p.dim == 2:
+            qp.append(Shard(2))
+            lp.append(Shard(1))
+        else:
+            qp.append(Replicate())
+            lp.append(Replicate())
+    return qp, lp
+
+
+def _local_map(fn, out_placements, in_placements, q):
+    """``fn`` under ``local_map`` on q's mesh, the inputs redistributed
+    to ``in_placements`` first.  One output's placements are a list, those
+    of several a tuple of lists."""
+    from torch.distributed.tensor.experimental import local_map
+    return local_map(fn, out_placements=out_placements,
+                     in_placements=in_placements, device_mesh=q.device_mesh,
+                     redistribute_inputs=True)
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None, q_offset: QOffset = 0,
                     scale: Optional[float] = None) -> torch.Tensor:
@@ -242,8 +284,19 @@ def flash_attention(q, k, v, *, causal: bool = True,
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     When an input requires grad, :class:`FlashAttentionFn` runs instead
     (q_offset 0, (Dk, Dv) in :data:`BWD_PAIRS`, else ``ValueError``).
+    DTensor inputs (a mesh's train forward) run this wrapper on each
+    rank's shards under ``local_map`` (:func:`mesh_placements`).
     """
     scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if is_dtensor(q):
+        if torch.is_tensor(q_offset):
+            raise ValueError("flash_attention: a q_offset tensor takes no "
+                             "DTensor q (the mesh path is the train "
+                             "forward's, q_offset 0)")
+        qp, _ = mesh_placements(q)
+        return _local_map(functools.partial(
+            flash_attention, causal=causal, window=window,
+            q_offset=q_offset, scale=scale), qp, (qp, qp, qp), q)(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise_problems("flash_attention backward",
                        _grad_problems(q, v, q_offset))
@@ -255,9 +308,11 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 
 def _forward(q, k, v, causal, window, q_offset, scale, with_lse):
-    """One kernel launch: (out, lse or None) for CUDA tensors."""
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    """One kernel launch: (out, lse or None) for CUDA tensors (never a
+    DTensor: those run this on their local shards under ``local_map``)."""
+    if q.device.type != "cuda" or is_dtensor(q):
+        raise ValueError(f"flash_attention: no kernel for a "
+                         f"{type(q).__name__} on {q.device}")
     _check(q, k, v, q_offset)
     B, Sq, H, D = q.shape
     Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
@@ -290,8 +345,14 @@ def flash_attention_lse(q, k, v, *, causal: bool = True,
     """The forward that :class:`FlashAttentionFn` runs: (out, lse (B, H,
     Sq) f32, natural log), q_offset 0.  CPU tensors take
     :func:`flash_attention_lse_ref`; CUDA tensors launch the kernel with
-    its lse output (counted on ``flash_attention.launches``)."""
+    its lse output (counted on ``flash_attention.launches``); DTensors run
+    it on each rank's shards under ``local_map``."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if is_dtensor(q):
+        qp, lp = mesh_placements(q)
+        return _local_map(functools.partial(
+            flash_attention_lse, causal=causal, window=window, scale=scale),
+            (qp, lp), (qp, qp, qp), q)(q, k, v)
     if q.device.type in PLAIN_DEVICES:
         return flash_attention_lse_ref(q, k, v, causal=causal, window=window,
                                        scale=scale)
@@ -366,7 +427,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     CPU tensors take :func:`flash_attention_bwd_ref`; CUDA tensors launch
     the three kernels of :func:`flash_bwd_body`'s body in
     ``csrc/flash_attention_bwd.cu`` in one call, counted once on
-    ``flash_attention_bwd.launches``."""
+    ``flash_attention_bwd.launches``.  DTensor inputs run it on each
+    rank's shards under ``local_map`` (:func:`mesh_placements`)."""
+    if is_dtensor(q):
+        qp, lp = mesh_placements(q)
+        return _local_map(functools.partial(
+            flash_attention_bwd, causal=causal, window=window, scale=scale),
+            (qp, qp, qp), (qp, qp, qp, qp, lp, qp), q)(q, k, v, o, lse, do)
     if q.device.type in PLAIN_DEVICES:
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                        window=window, scale=scale)

@@ -15,7 +15,7 @@ a gradient, and you can watch ``reward_mean`` move while
 from a seeded ``torch.Generator`` on the device.  ``--plan rl_disagg``
 (actor and learner on separate device groups) and ``--explain`` (the
 plan resolution report) need the multi-device facade and exit with a
-message naming ROADMAP.md section 1 item 8.
+message naming ROADMAP.md section 1 items 8e and 8h.
 """
 from __future__ import annotations
 
@@ -30,7 +30,8 @@ from repro_torch.models import model as M
 from repro_torch.rl import RLSession
 from repro_torch.serve.runtime import resolve_device
 
-MULTI_DEVICE = "ROADMAP.md section 1 item 8: multi-device, then the facade"
+DISAGG = "ROADMAP.md section 1 item 8e: mpmd groups and disaggregation"
+FACADE = "ROADMAP.md section 1 item 8h: the facade"
 
 
 def rl_configs(args):
@@ -88,10 +89,10 @@ def main(argv=None):
     if args.plan == "rl_disagg":
         raise SystemExit("PlanError: --plan rl_disagg puts actor and learner "
                          f"on separate device groups: not ported yet "
-                         f"({MULTI_DEVICE})")
+                         f"({DISAGG})")
     if args.explain:
         raise SystemExit("--explain needs the HyperPlan facade: not ported "
-                         f"yet ({MULTI_DEVICE})")
+                         f"yet ({FACADE})")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:

@@ -132,9 +132,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     not_ported = [(args.disaggregate, "--disaggregate needs mpmd role "
-                   "groups (ROADMAP.md, 'Multi-device')"),
+                   "groups (ROADMAP.md section 1 item 8e)"),
                   (args.explain, "--explain needs the HyperPlan facade "
-                   "(ROADMAP.md, 'Multi-device')")]
+                   "(ROADMAP.md section 1 item 8h)")]
     for flag, why in not_ported:
         if flag:
             raise SystemExit(f"not ported yet: {why}")

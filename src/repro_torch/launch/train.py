@@ -1,39 +1,76 @@
-"""Training launcher of the port: the single-device train loop.
+"""Training launcher of the port: the train loop on one device or on a
+HyperShard mesh.
 
     python -m repro_torch.launch.train --arch qwen2-0.5b \
         [--shape train_4k] [--global-batch 4] [--steps 100]   # on the card
     python -m repro_torch.launch.train --arch qwen2-0.5b --reduced \
         --steps 2 --device cpu                     # plain versions, CPU
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch qwen2-0.5b --reduced --device cpu --mesh auto   # gloo mesh
 
-The reference launcher's flags that one card can honour (``--arch``,
-``--shape``, ``--reduced``, ``--steps``, ``--lr``, ``--ckpt-dir``,
-``--moe-dispatch``), plus ``--device`` (default: the card) and
-``--global-batch``, the single-card stand-in for the mesh's data axis.
-Every arch trains, the two recurrent ones (mamba2-370m, recurrentgemma-2b)
-through the SSD and RG-LRU scans' backward kernels; the MoE archs
-(deepseek-v2-lite-16b, deepseek-moe-16b, moonshot-v1-16b-a3b) under the
-default ``--moe-dispatch gshard`` or under ``ragged``, whose grouped
-matmuls run their forward and backward kernels.  internvl2-26b and musicgen-large train
-without their prefix here, as the reference's launcher does (the prefix
-enters through ``make_train_step(multimodal=True)``).
-Weights are random, drawn from a seeded ``torch.Generator`` on the
-device; the data is the reference's synthetic corpus.  ``--plan`` other
-than the single-device default, ``--offload``, ``--pipeline``, ``--mesh
-auto`` and ``--explain`` need the multi-device facade and raise
-:class:`~repro_torch.api.errors.PlanError` naming ROADMAP.md section 1
-item 8.  The log line is the reference's.
+The reference launcher's flags (``--arch``, ``--shape``, ``--reduced``,
+``--steps``, ``--lr``, ``--plan``, ``--offload``, ``--mesh``,
+``--ckpt-dir``, ``--moe-dispatch``), plus ``--device`` (default: the
+card) and ``--global-batch``, the single-card stand-in for the mesh's
+data axis.  Every arch trains on one device, the two recurrent ones
+(mamba2-370m, recurrentgemma-2b) through the SSD and RG-LRU scans'
+backward kernels; the MoE archs (deepseek-v2-lite-16b, deepseek-moe-16b,
+moonshot-v1-16b-a3b) under the default ``--moe-dispatch gshard`` or under
+``ragged``, whose grouped matmuls run their forward and backward kernels.
+internvl2-26b and musicgen-large train without their prefix here, as the
+reference's launcher does (the prefix enters through
+``make_train_step(multimodal=True)``).  Weights are random, drawn from a
+seeded ``torch.Generator`` on the device; the data is the reference's
+synthetic corpus.
+
+``--mesh auto`` under ``torchrun`` (which sets ``WORLD_SIZE``, ``RANK``,
+``LOCAL_RANK`` and the rendezvous address) joins the process group, NCCL
+on the card (each rank on its ``LOCAL_RANK`` card) and gloo with
+``--device cpu``, and trains on a ``(1, world)`` mesh; one rank means no
+mesh, as the reference's ``Supernode.auto()`` gives.  ``--plan fsdp_tp``
+and ``tp_only`` resolve to the ``ShardingPlan`` those presets lower to;
+``--offload`` puts params and optimizer state on the host, on a mesh too.
+``--plan offload_all`` and ``--explain`` are the facade's (ROADMAP.md
+section 1 item 8h), ``--plan pipeline``, ``pipeline_fsdp`` and
+``--pipeline`` the 1F1B pipeline's (item 8f): they raise
+:class:`~repro_torch.api.errors.PlanError`.  Rank 0 prints the
+reference's log line.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 from repro_torch.api.errors import PlanError
 from repro_torch.configs.base import SHAPES, ShapeConfig, get_config
+from repro_torch.core.hypershard import ShardingPlan
+from repro_torch.core.offload import OffloadConfig
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.trainer import TrainConfig, train
 
-MULTI_DEVICE = "(ROADMAP.md section 1 item 8: multi-device, then the facade)"
+FACADE = "(ROADMAP.md section 1 item 8h: the facade)"
+PIPELINE = "(ROADMAP.md section 1 item 8f: the 1F1B pipeline)"
+# the ShardingPlans the reference's presets lower to (repro.api.plans)
+PLANS = {"fsdp_tp": ShardingPlan(), "tp_only": ShardingPlan(fsdp=None)}
+
+
+def join_mesh(device):
+    """``--mesh auto``: the mesh over ``torchrun``'s ranks, or None for
+    one rank.  Returns (mesh, device)."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        return None, device
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    on_cpu = device is not None and str(device) == "cpu"
+    if not on_cpu:
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo" if on_cpu else "nccl")
+    return make_host_mesh((1, 1)), device
 
 
 def main(argv=None):
@@ -46,13 +83,10 @@ def main(argv=None):
     ap.add_argument("--plan", default="fsdp_tp",
                     choices=["fsdp_tp", "tp_only", "offload_all",
                              "pipeline", "pipeline_fsdp"],
-                    help="HyperPlan training preset; on one device only "
-                         "the default (fsdp_tp, which resolves to the "
-                         "single device) is ported")
+                    help="HyperPlan training preset; fsdp_tp and tp_only "
+                         "resolve to their ShardingPlans")
     ap.add_argument("--offload", action="store_true",
-                    help="HyperOffload: params+opt state on host; a "
-                         "HyperPlan in the reference, not ported yet (the "
-                         "library's train(offload_cfg=) takes the legs)")
+                    help="HyperOffload: params+opt state on host")
     ap.add_argument("--pipeline", type=int, default=0, metavar="STAGES",
                     help="pipeline-parallel 1F1B (not ported yet)")
     ap.add_argument("--explain", action="store_true",
@@ -71,13 +105,14 @@ def main(argv=None):
                          "'cpu' to run the kernels' plain versions there)")
     args = ap.parse_args(argv)
 
-    for given, flag in ((args.plan != "fsdp_tp", f"--plan {args.plan}"),
-                        (args.offload, "--offload"),
-                        (args.pipeline, "--pipeline"),
-                        (args.mesh == "auto", "--mesh auto"),
-                        (args.explain, "--explain")):
+    for given, flag, item in (
+            (args.plan == "offload_all", "--plan offload_all", FACADE),
+            (args.plan.startswith("pipeline"), f"--plan {args.plan}",
+             PIPELINE),
+            (args.pipeline, "--pipeline", PIPELINE),
+            (args.explain, "--explain", FACADE)):
         if given:
-            raise PlanError(f"{flag}: not ported yet {MULTI_DEVICE}")
+            raise PlanError(f"{flag}: not ported yet {item}")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -88,10 +123,15 @@ def main(argv=None):
     if args.global_batch is not None:
         shape = dataclasses.replace(shape, global_batch=args.global_batch)
 
+    mesh, device = (join_mesh(args.device) if args.mesh == "auto"
+                    else (None, args.device))
+    rank0 = mesh is None or mesh.get_rank() == 0
+
     def log(m):
-        print(f"step {m['step']:5d}  loss {m['loss']:.4f}  "
-              f"grad_norm {m['grad_norm']:.3f}  lr {m['lr']:.2e}  "
-              f"{m['wall_s']:.1f}s", flush=True)
+        if rank0:
+            print(f"step {m['step']:5d}  loss {m['loss']:.4f}  "
+                  f"grad_norm {m['grad_norm']:.3f}  lr {m['lr']:.2e}  "
+                  f"{m['wall_s']:.1f}s", flush=True)
 
     try:
         train(cfg, shape,
@@ -100,11 +140,19 @@ def main(argv=None):
                   num_steps=args.steps, log_every=10,
                   ckpt_every=args.steps if args.ckpt_dir else 0,
                   **({"ckpt_dir": args.ckpt_dir} if args.ckpt_dir else {})),
-              moe_dispatch=args.moe_dispatch, hook=log, device=args.device)
+              moe_dispatch=args.moe_dispatch, hook=log, device=device,
+              mesh=mesh, plan=PLANS[args.plan],
+              offload_cfg=(OffloadConfig(params_on_host=True,
+                                         opt_state_on_host=True)
+                           if args.offload else None))
     except RuntimeError as e:
         if "no CUDA device" in str(e):
             raise SystemExit(str(e))
         raise
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -74,20 +74,26 @@ class ResidencyPlan:
         raise KeyError(path)
 
 
-def _param_leaves(cfg):
-    """``[(path, meta tensor)]`` of ``init_model(cfg)`` in the reference's
-    flatten order: the init runs under ``FakeTensorMode`` (no memory),
-    and each leaf becomes a meta tensor of its shape and dtype."""
+def param_shapes(cfg):
+    """``init_model(cfg)``'s tree with each leaf a meta tensor of its shape
+    and dtype: the init runs under ``FakeTensorMode`` (no memory)."""
     import torch
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    from repro_torch.core.tree import tree_flatten_with_path, tree_map
+    from repro_torch.core.tree import tree_map
     from repro_torch.models import model as M
 
     with FakeTensorMode():
         fake = M.init_model(cfg, torch.Generator().manual_seed(0))
-    params = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
-                                            device="meta"), fake)
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta"), fake)
+
+
+def _param_leaves(cfg):
+    """``[(path, meta tensor)]`` of :func:`param_shapes` in the reference's
+    flatten order."""
+    from repro_torch.core.tree import tree_flatten_with_path
+    params = param_shapes(cfg)
     return params, tree_flatten_with_path(params)
 
 
@@ -154,7 +160,7 @@ def plan_residency(cfg, offload, *, with_hlo: bool = False) -> ResidencyPlan:
         raise PlanError(
             "plan_residency(with_hlo=True): the reference summarises XLA's "
             "HLO of the lowered step, which the PyTorch port has no "
-            "counterpart of (ROADMAP.md section 1, item 8)")
+            "counterpart of (ROADMAP.md section 1 item 8h, the facade)")
     params, flat = _param_leaves(cfg)
     graph_order, order_note = True, ""
     try:

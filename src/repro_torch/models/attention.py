@@ -12,8 +12,8 @@ one parameter set:
 Caches and pool leaves are written in place: the reference returns the
 rewritten array (``dynamic_update_slice`` / ``.at[bidx, off].set``) from
 a step that donates it, so an in-place write keeps the same memory and the
-same result without a copy.  The ring and head-sharded multi-device modes
-of ``full_attention`` come with multi-device.
+same result without a copy.  Under a mesh, ``full_attention`` takes the
+reference's ring or head-sharded modes (:func:`set_attention_mode`).
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.meshctx import constrain, current_mesh, mesh_axis_size
 from repro_torch.kernels import ops
 from repro_torch.models.common import apply_rope, dense_init, dtype_of
 
@@ -58,9 +59,49 @@ def _qkv(p, x, cfg, positions):
     return q, k, v
 
 
+_ATTN_MODE = "ring"      # "ring" | "head" | "plain": see set_attention_mode
+
+
+def set_attention_mode(mode: str) -> None:
+    """Select the distributed attention strategy, as the reference does.
+
+    ``head``: Megatron-style head-sharded TP (requires KV heads and heads
+    divisible by the model axis); q/k/v are redistributed to heads over
+    ``model`` and flash runs on each rank's heads under ``local_map``.
+    ``ring`` (default): q/k/v stay sequence-sharded over the model axis,
+    matching the residual layout; K/V chunks rotate around the ring
+    (:mod:`repro_torch.core.ring_attention`).  ``plain``: flash on the
+    batch shard, every head and key local.
+    """
+    global _ATTN_MODE
+    if mode not in ("ring", "head", "plain"):
+        raise ValueError(f"attention mode {mode!r}: must be 'ring', 'head' "
+                         "or 'plain'")
+    _ATTN_MODE = mode
+
+
 def full_attention(q, k, v, *, window=None, scale=None):
-    """Full-sequence causal attention on one device (the reference's
-    ``plain`` strategy): one ``flash_attention`` launch."""
+    """Strategy-dispatching full-sequence attention (HyperShard-governed):
+    with no mesh (or a ``model`` axis of 1) one ``flash_attention``
+    launch; under a mesh the reference's dispatch, head mode when
+    selected and the heads divide, else ring when applicable, else plain
+    (flash under ``local_map`` on the batch shard)."""
+    mesh = current_mesh()
+    B, S, H, _ = q.shape
+    KV = k.shape[2]
+    tp = mesh_axis_size(mesh, "model") if mesh is not None else 1
+    if (_ATTN_MODE == "head" and mesh is not None and tp > 1
+            and KV % tp == 0 and H % tp == 0):
+        q = constrain(q, ("pod", "data"), None, "model", None)
+        k = constrain(k, ("pod", "data"), None, "model", None)
+        v = constrain(v, ("pod", "data"), None, "model", None)
+        out = ops.flash_attention(q, k, v, causal=True, window=window,
+                                  scale=scale)
+        return constrain(out, ("pod", "data"), None, "model", None)
+    from repro_torch.core.ring_attention import ring_applicable, \
+        ring_attention
+    if _ATTN_MODE != "plain" and ring_applicable(mesh, S):
+        return ring_attention(q, k, v, mesh, window=window, scale=scale)
     return ops.flash_attention(q, k, v, causal=True, window=window,
                                scale=scale)
 

@@ -6,7 +6,9 @@ bridge maps leaf to leaf.  Call it with the JAX tree after
 ``jax.tree.map(np.asarray, params)``; this module imports no JAX.
 bfloat16 leaves (numpy's ``ml_dtypes`` bfloat16, which torch cannot
 wrap) pass through float32, which holds every bfloat16 value exactly —
-the same route the reference's checkpoints take.
+the same route the reference's checkpoints take.  :func:`shard_params`
+distributes bridged params over a mesh as the sharded train step places
+them, and :func:`full_params` gathers them back.
 """
 from __future__ import annotations
 
@@ -59,3 +61,22 @@ def adamw_state_from_numpy(state, device):
                       nu=params_from_numpy(state.nu, device),
                       count=torch.tensor(int(np.asarray(state.count)),
                                          dtype=torch.int32, device=device))
+
+
+def shard_params(params, mesh, plan=None):
+    """Port params (e.g. from :func:`params_from_numpy`, the full tensors,
+    the same on every rank) distributed over ``mesh`` as the sharded
+    ``init_state`` places them: each leaf by
+    :func:`~repro_torch.core.hypershard.derive_param` under ``plan``
+    (default: the fsdp_tp ``ShardingPlan``)."""
+    from repro_torch.core import hypershard as hs
+    plan = plan or hs.ShardingPlan()
+    return hs.shard_tree(params, hs.make_param_shardings(mesh, params, plan))
+
+
+def full_params(params):
+    """The full tensors of sharded params (a collective per DTensor leaf,
+    so every rank calls it); plain leaves pass as they are."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.core.meshctx import full_tensor
+    return tree_map(full_tensor, params)

@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import DENSE_FFN, MOE_FFN, NO_FFN
+from repro_torch.core.meshctx import constrain, replicated
 from repro_torch.core.tree import tree_map
 from repro_torch.models import mixers as MX, moe as moe_mod
 from repro_torch.models.attention import DecodePosition
@@ -138,6 +139,7 @@ def _layer_forward(layer_p, kinds, x, positions, cfg, *, mode,
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     metrics = {"moe_aux_loss": zero, "moe_z_loss": zero}
     caches = []
+    x = constrain(x, ("pod", "data"), "model", None)
     for p, (mixer, ffn) in zip(layer_p, kinds):
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         w = MX.resolve_window(cfg, mixer, window_override)
@@ -182,12 +184,13 @@ def forward(params, tokens, cfg, *, prefix_embeds=None, mode="train",
     logits are the tokens' alone, (B, S, V_pad), as the reference's."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode={mode!r}: must be 'train' or 'prefill'")
-    x = F.embedding(tokens.long(), params["embed"])
+    x = F.embedding(tokens.long(), replicated(params["embed"]))
     P_len = 0
     if prefix_embeds is not None:
         pe = prefix_embeds.to(x.dtype) @ params["frontend_proj"]
         x = torch.cat([pe, x], dim=1)
         P_len = pe.shape[1]
+    x = constrain(x, ("pod", "data"), None, None)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -209,8 +212,10 @@ def forward(params, tokens, cfg, *, prefix_embeds=None, mode="train",
                 per_layer.setdefault(f"seg{si}", []).append(caches)
             aux, z = aux + la, z + lz
     metrics = {"moe_aux_loss": aux, "moe_z_loss": z}
+    x = constrain(x, ("pod", "data"), "model", None)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x[:, P_len:] @ _unembed(params, cfg).T
+    logits = constrain(logits, ("pod", "data"), None, "model")
     if mode != "prefill":
         return logits, None, metrics
     # a segment of no layers (the reduced 2-layer hybrid's pattern) stacks

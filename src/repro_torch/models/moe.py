@@ -19,7 +19,7 @@ reference's dispatches:
   and the train step takes it on request.
 
 The reference's data-parallel ``dp_local`` variant needs a mesh (ROADMAP.md
-section 1 item 1.8) and raises.
+section 1 item 1.8c, MoE training on a mesh) and raises.
 """
 from __future__ import annotations
 
@@ -86,7 +86,7 @@ def moe_forward(p, x, cfg, *, dispatch: str = "ragged",
     if dispatch == "dp_local":
         raise NotImplementedError(
             "moe dispatch 'dp_local' shards tokens over a mesh's data axis: "
-            "multi-device is ROADMAP.md section 1 item 1.8; use 'gshard' or "
+            "MoE on a mesh is ROADMAP.md section 1 item 1.8c; use 'gshard' or "
             "'ragged'")
     if dispatch not in DISPATCHES:
         raise ValueError(f"moe dispatch {dispatch!r}: must be one of "

@@ -45,8 +45,7 @@ class AdamWConfig:
 
 def init_adamw(params) -> AdamWState:
     zeros = lambda p: tree_map(  # noqa: E731
-        lambda x: torch.zeros(x.shape, dtype=torch.float32, device=x.device),
-        p)
+        lambda x: torch.zeros_like(x, dtype=torch.float32), p)
     dev = tree_leaves(params)[0].device
     return AdamWState(mu=zeros(params), nu=zeros(params),
                       count=torch.zeros((), dtype=torch.int32, device=dev))
@@ -64,7 +63,9 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf in f32, the leaves summed
-    in the order JAX flattens the tree."""
+    in the order JAX flattens the tree.  Over DTensor leaves each square
+    sum is a partial sum over the shards and the norm is the full one,
+    reduced over every shard before the root (a replicated DTensor)."""
     total = 0
     for _, x in tree_flatten_with_path(tree):
         total = total + torch.sum(torch.square(x.float()))

@@ -9,8 +9,8 @@ colocated on one device::
     new_params, history = rl.run(prompts_fn, reward_fn)
 
 The reference resolves the session through its ``Supernode`` facade and
-can split actor and learner over device groups; both come with ROADMAP.md
-section 1 item 8.
+can split actor and learner over device groups; they come with ROADMAP.md
+section 1 items 8h and 8e.
 """
 from repro_torch.configs.base import RLConfig
 from repro_torch.rl.buffer import Rollout, RolloutBuffer, group_advantages

@@ -22,7 +22,8 @@ The update is functional: every step returns new param tensors and writes
 none of the old ones, so weights the actor was handed keep serving the
 rollouts that started on them (:mod:`repro_torch.rl.publish`).  A mesh or a
 plan (HyperShard's fsdp/tp layouts) raises
-:class:`~repro_torch.api.errors.PlanError`: ROADMAP.md section 1 item 8.
+:class:`~repro_torch.api.errors.PlanError`: the learner on a mesh is
+ROADMAP.md section 1 item 8d.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.api.errors import PlanError
 from repro_torch.configs.base import RLConfig
 from repro_torch.core.tree import tree_map
 from repro_torch.models import model as M
@@ -88,7 +90,7 @@ def make_rl_step(cfg, adamw_cfg: opt_mod.AdamWConfig, *, rl_cfg: RLConfig,
     batch contract: inputs/targets (B, S) int32, mask/behaviour_logp (B, S)
     float32, advantages (B,) float32, all on the params' device.  The
     metrics are 0-dim tensors on the device."""
-    steps_mod.refuse_plan(mesh=mesh, plan=plan)
+    refuse_plan(mesh=mesh, plan=plan)
 
     def step(params, opt_state, batch):
         (loss, metrics), grads = steps_mod.grad_of(
@@ -99,6 +101,15 @@ def make_rl_step(cfg, adamw_cfg: opt_mod.AdamWConfig, *, rl_cfg: RLConfig,
                                                        params, adamw_cfg)
         return new_params, new_opt, {"loss": loss, **metrics, **om}
     return step
+
+
+def refuse_plan(**kw) -> None:
+    """Raise :class:`PlanError` for any multi-device argument that is not
+    None (``mesh=``, ``plan=``)."""
+    given = sorted(k for k, v in kw.items() if v is not None)
+    if given:
+        raise PlanError(f"{', '.join(given)}: not ported yet; the RL "
+                        "learner on a mesh is ROADMAP.md section 1 item 8d")
 
 
 class GRPOLearner:
@@ -113,7 +124,7 @@ class GRPOLearner:
                  seed: int = 0, moe_dispatch: str = "gshard", obs=None,
                  device=None, mesh=None, plan=None):
         from repro_torch.obs import Observability
-        steps_mod.refuse_plan(mesh=mesh, plan=plan)
+        refuse_plan(mesh=mesh, plan=plan)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.obs = obs if obs is not None else Observability()

@@ -20,7 +20,8 @@ hands the engine new weights under the reference's rules:
     rollout.
 
 The meshes, the reference's resharding ``device_put`` and its cross-group
-transfer of a disaggregated session come with ROADMAP.md section 1 item 8.
+transfer of a disaggregated session come with ROADMAP.md section 1 items
+8d and 8e.
 """
 from __future__ import annotations
 

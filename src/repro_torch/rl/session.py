@@ -3,7 +3,7 @@
 The port of ``repro.rl.session``.  The reference resolves its session
 from a ``Supernode`` and a ``HyperPlan`` (the learner's fsdp/tp sharding,
 the actor's serving knobs, the RL loop and optionally an actor/learner
-device split); the port has no facade yet (ROADMAP.md section 1 item 8),
+device split); the port has no facade yet (ROADMAP.md section 1 item 8h),
 so the session takes those legs directly, colocated on one device, and
 asking for roles (the reference's ``rl_disagg``) or a plan raises
 :class:`~repro_torch.api.errors.PlanError`.  Each :meth:`iterate` is one
@@ -33,8 +33,9 @@ from repro_torch.serve.runtime import resolve_device
 
 RewardFn = Callable[[List[int], List[int]], float]
 
-NOT_PORTED = ("actor/learner roles, plans and meshes need the multi-device "
-              "facade: ROADMAP.md section 1 item 8")
+NOT_PORTED = ("actor/learner roles are ROADMAP.md section 1 item 8e "
+              "(mpmd groups and disaggregation), a learner on a mesh item "
+              "8d, plans the facade's item 8h")
 
 
 def validate_rl(rl: RLConfig) -> RLConfig:

@@ -1,41 +1,94 @@
-"""Train-step construction on one device: loss, grad, update, offload.
+"""Train-step construction: loss, grad, update, offload, on one device
+or on a HyperShard mesh.
 
 The port of ``repro.train.steps``.  ``make_train_step`` returns a step
 that runs the remat'd train forward (flash attention through its autograd
 Function: forward and backward kernels on the card), the cross entropy,
 ``torch.autograd.grad`` over every param leaf and the reference's AdamW.
 
+With ``mesh=`` (a ``DeviceMesh`` with the reference's axis names) and
+``plan=`` (a :class:`~repro_torch.core.hypershard.ShardingPlan`), the
+params and the optimizer's moments are DTensors placed by
+:func:`~repro_torch.core.hypershard.make_param_shardings`, the batch is
+sharded over the dp axes, and the step runs under
+:func:`~repro_torch.core.meshctx.use_mesh`: DTensor's sharding
+propagation stands for GSPMD over the same strategy-free model code, the
+model's ``constrain`` points redistribute, and every kernel runs on the
+local shards under ``local_map``.  The step carries the reference's
+``shardings`` dict as ``step.shardings``.  This slice shards the dense
+GQA families (an ``ATTN`` mixer and a dense SwiGLU FFN); MLA, MoE, SSD,
+RG-LRU and the multimodal prefix under a mesh raise
+:class:`~repro_torch.api.errors.PlanError` naming ROADMAP.md section 1
+item 8c.
+
 HyperOffload's legs between steps are :func:`fetch_state` (host -> card)
 and :func:`offload_state` (card -> pinned host memory), and
-:func:`init_state` places the state as ``offload_cfg`` says.  The
-reference runs them under a mesh; the port's one card stands for a
-one-device mesh, on which every leaf of rank >= 2 is fully sharded and
-so host-placed, and 1-D leaves stay on the card
-(:func:`repro_torch.core.offload.host_placeable`).  A mesh or a plan
-(HyperShard layouts, the HyperPlan facade) raises
-:class:`~repro_torch.api.errors.PlanError` naming ROADMAP.md's item 8.
+:func:`init_state` places the state as ``offload_cfg`` says.  They
+host-place exactly the leaves the reference host-places: those whose
+spec is fully sharded (:func:`repro_torch.core.offload.host_placeable`);
+with no mesh the port's one card stands for a one-device mesh, on which
+every leaf of rank >= 2 is fully sharded.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.api.errors import PlanError
-from repro_torch.core import offload as off
-from repro_torch.core.kvcache import to_device
+from repro_torch.core import hypershard as hs, offload as off
+from repro_torch.core.meshctx import full_tensor, is_dtensor, use_mesh
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.models import model as M
 from repro_torch.optim import adamw as opt_mod
 
-NOT_PORTED = ("the port trains on one device: meshes and plans (HyperShard, "
-              "the HyperPlan facade) are ROADMAP.md section 1 item 8")
+MESH_FAMILIES = ("training on a mesh takes the dense GQA families (an ATTN "
+                 "mixer and a dense FFN); MLA, MoE, SSD, RG-LRU and the "
+                 "multimodal prefix on a mesh are ROADMAP.md section 1 "
+                 "item 8c")
+FACADE = ("HyperPlan, its presets and Supernode are the facade: ROADMAP.md "
+          "section 1 item 8h")
 
 
-def refuse_plan(**kw) -> None:
-    """Raise :class:`PlanError` for any multi-device argument that is not
-    None (``mesh=``, ``plan=``)."""
-    given = sorted(k for k, v in kw.items() if v is not None)
-    if given:
-        raise PlanError(f"{', '.join(given)}: not ported yet; {NOT_PORTED}")
+def check_mesh_plan(cfg, mesh, plan, *, multimodal: bool = False):
+    """The plan a step or a trainer runs under: ``plan`` (a
+    :class:`ShardingPlan`, or None for the default) once ``mesh`` is a
+    ``DeviceMesh`` and ``cfg`` a family this slice shards.  Raises
+    :class:`PlanError` naming the ROADMAP item otherwise."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs.base import ATTN, DENSE_FFN
+    if plan is not None and not isinstance(plan, hs.ShardingPlan):
+        raise PlanError(f"plan={type(plan).__name__}: the port takes a "
+                        f"ShardingPlan; {FACADE}")
+    if mesh is None:
+        return plan
+    if not isinstance(mesh, DeviceMesh):
+        raise PlanError(f"mesh={type(mesh).__name__}: not a torch "
+                        "DeviceMesh (build one with repro_torch.launch.mesh."
+                        "make_host_mesh; ROADMAP.md section 1 item 8)")
+    odd = sorted({f"{m}+{f}" for m, f in cfg.block_kinds()
+                  if (m, f) != (ATTN, DENSE_FFN)})
+    if odd or multimodal:
+        what = ", ".join(odd + (["the multimodal prefix"] if multimodal
+                                else []))
+        raise PlanError(f"{cfg.name}: {what} on a mesh: not ported yet; "
+                        f"{MESH_FAMILIES}")
+    return plan or hs.ShardingPlan()
+
+
+def train_shardings(cfg, mesh, plan):
+    """The reference's ``shardings`` dict: ``params`` (a tree of
+    :class:`~repro_torch.core.hypershard.NamedSharding` per leaf),
+    ``opt_in`` (the AdamW state's: the moments follow the params, the
+    count is replicated) and ``batch`` (``inputs``, ``targets``, ``mask``
+    sharded over the dp axes)."""
+    from repro_torch.data.pipeline import batch_sharding
+    from repro_torch.mem.planner import param_shapes
+    param_sh = hs.make_param_shardings(mesh, param_shapes(cfg), plan)
+    bsh = batch_sharding(mesh)
+    return {"params": param_sh,
+            "opt_in": opt_mod.AdamWState(mu=param_sh, nu=param_sh,
+                                         count=hs.NamedSharding(mesh, ())),
+            "batch": {k: bsh for k in ("inputs", "targets", "mask")}}
 
 
 def cross_entropy_parts(logits, targets, mask, vocab_size: int):
@@ -46,12 +99,61 @@ def cross_entropy_parts(logits, targets, mask, vocab_size: int):
     reference contracts a one-hot: in f32 the one-hot contraction adds
     exact zeros to the picked value, so both give the same number, and the
     one-hot would be a (B, S, V) tensor (10 GB at qwen2's train shape on
-    the card)."""
+    the card).  On DTensor logits (a mesh's train step, the vocab sharded
+    over ``model``) the log-sum-exp is reduced over the shards and each
+    rank picks within its own vocab range (:func:`pick_targets`), so the
+    logits are never gathered, which is what the reference's one-hot
+    contraction buys it."""
     lf = vocab_logits(logits, vocab_size)
-    lse = torch.logsumexp(lf, dim=-1)
-    picked = lf.gather(-1, targets.long()[..., None])[..., 0]
+    if is_dtensor(lf):
+        m = lf.detach().amax(dim=-1, keepdim=True)
+        lse = (m + torch.log(torch.exp(lf - m).sum(dim=-1,
+                                                   keepdim=True)))[..., 0]
+        picked = pick_targets(lf, targets)
+    else:
+        lse = torch.logsumexp(lf, dim=-1)
+        picked = lf.gather(-1, targets.long()[..., None])[..., 0]
     nll = (lse - picked) * mask
     return nll.sum(), mask.sum()
+
+
+def pick_targets(lf, targets):
+    """``lf[b, s, targets[b, s]]`` of DTensor logits ``lf`` (B, S, V),
+    under ``local_map``: a rank whose vocab shard holds the target picks
+    it, the others give zero, and the result is ``Partial`` (summed) over
+    the mesh dims that shard the vocab.  The batch keeps ``lf``'s
+    placements; ``targets`` is redistributed to them."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+    mesh = lf.device_mesh
+    vdim = lf.dim() - 1
+    lp, tp, op = [], [], []
+    for p in lf.placements:
+        if isinstance(p, Shard) and p.dim % lf.dim() == vdim:
+            lp.append(Shard(vdim))
+            tp.append(Replicate())
+            op.append(Partial())
+        elif isinstance(p, Shard) and p.dim % lf.dim() == 0:
+            lp.append(Shard(0))
+            tp.append(Shard(0))
+            op.append(Shard(0))
+        else:
+            lp.append(Replicate())
+            tp.append(Replicate())
+            op.append(Replicate())
+    local, offset = compute_local_shape_and_global_offset(
+        lf.shape, mesh, lp)
+    lo, n = offset[vdim], local[vdim]
+
+    def pick(lf_l, t_l):
+        t = t_l.long() - lo
+        inside = (t >= 0) & (t < n)
+        val = lf_l.gather(-1, t.clamp(0, max(n - 1, 0))[..., None])[..., 0]
+        return torch.where(inside, val, torch.zeros_like(val))
+    return local_map(pick, out_placements=op, in_placements=(lp, tp),
+                     device_mesh=mesh, redistribute_inputs=True)(lf, targets)
 
 
 def vocab_logits(logits, vocab_size: int):
@@ -118,29 +220,42 @@ def value_and_grad(params, batch, cfg, *, moe_dispatch="gshard",
 
 def make_train_step(cfg, adamw_cfg: opt_mod.AdamWConfig, *,
                     moe_dispatch: str = "gshard", remat: bool = True,
-                    multimodal: bool = False, mesh=None, offload_cfg=None):
+                    multimodal: bool = False, mesh=None, plan=None,
+                    offload_cfg=None):
     """step(params, opt_state, batch) -> (params, opt_state, metrics): the
     gradient of :func:`loss_fn`, then :func:`adamw_update`.  ``metrics``
     holds the loss, its parts, the MoE terms, ``grad_norm`` and ``lr``, all
     0-dim tensors on the device (read them at log time: reading one waits
     for the card).  With ``multimodal`` the step takes the batch's
     ``"prefix_embeds"`` (B, P, frontend_dim) as the model's prefix, as the
-    reference's step does; without it the key is ignored."""
-    refuse_plan(mesh=mesh)
+    reference's step does; without it the key is ignored.
+
+    With ``mesh`` the state and the batch are DTensors placed as
+    ``step.shardings`` says (:func:`init_state`, the loader's
+    ``make_loader(..., mesh=)``), the step runs under the mesh, and its
+    metrics come back as plain replicated tensors.  Without one
+    ``step.shardings`` is ``{}``, as the reference's."""
+    plan = check_mesh_plan(cfg, mesh, plan, multimodal=multimodal)
 
     def step(params, opt_state, batch):
-        pe = batch.get("prefix_embeds") if multimodal else None
-        (loss, metrics), grads = value_and_grad(
-            params, batch, cfg, moe_dispatch=moe_dispatch, remat=remat,
-            prefix_embeds=pe)
-        new_params, new_opt, om = opt_mod.adamw_update(grads, opt_state,
-                                                       params, adamw_cfg)
-        return new_params, new_opt, {"loss": loss, **metrics, **om}
+        with use_mesh(mesh):
+            pe = batch.get("prefix_embeds") if multimodal else None
+            (loss, metrics), grads = value_and_grad(
+                params, batch, cfg, moe_dispatch=moe_dispatch, remat=remat,
+                prefix_embeds=pe)
+            new_params, new_opt, om = opt_mod.adamw_update(
+                grads, opt_state, params, adamw_cfg)
+            metrics = {"loss": loss, **metrics, **om}
+        if mesh is not None:
+            metrics = {k: full_tensor(v) for k, v in metrics.items()}
+        return new_params, new_opt, metrics
+    step.shardings = ({} if mesh is None
+                      else train_shardings(cfg, mesh, plan))
     return step
 
 
 def _place(tree, fn):
-    """``fn`` on every host-placeable leaf of ``tree``; 1-D leaves pass."""
+    """``fn`` on every host-placeable leaf of ``tree``; the others pass."""
     return tree_map(lambda t: fn(t) if off.host_placeable(t) else t, tree)
 
 
@@ -156,9 +271,11 @@ def _move(params, opt_state, offload_cfg, fn):
 
 def fetch_state(params, opt_state, offload_cfg, device):
     """Host -> card leg of the HyperOffload cycle: asynchronous copies
-    from pinned memory on the current stream, queued ahead of the step."""
+    from pinned memory on the current stream, queued ahead of the step.
+    A host-placed shard of a DTensor (:class:`~repro_torch.core.offload.
+    HostShard`) comes back as the DTensor it was."""
     return _move(params, opt_state, offload_cfg,
-                 lambda t: to_device(t, device))
+                 lambda t: off.to_device_leaf(t, device))
 
 
 def offload_state(params, opt_state, offload_cfg):
@@ -166,29 +283,39 @@ def offload_state(params, opt_state, offload_cfg):
     leaf copied into pinned host memory by an asynchronous copy on the
     current stream (the card's copy is freed with the step's old state;
     the next :func:`fetch_state` is ordered after it on the stream, and a
-    host read of the state synchronises first)."""
+    host read of the state synchronises first).  A DTensor leaf leaves
+    its local shard there, as a :class:`~repro_torch.core.offload.
+    HostShard`."""
     return _move(params, opt_state, offload_cfg, off.to_host_async)
 
 
 def state_nbytes(params, opt_state, offload_cfg) -> int:
-    """Bytes one leg moves: the host-placeable leaves it covers."""
+    """Bytes one leg moves on this rank: the local shards of the
+    host-placeable leaves it covers."""
     trees = ([params] if offload_cfg.params_on_host else []) + (
         [opt_state.mu, opt_state.nu] if offload_cfg.opt_state_on_host
         else [])
-    return sum(t.numel() * t.element_size() for tree in trees
+    return sum(off.local_nbytes(t) for tree in trees
                for t in tree_leaves(tree) if off.host_placeable(t))
 
 
-def init_state(cfg, *, seed: int = 0, device=None, mesh=None,
+def init_state(cfg, *, seed: int = 0, device=None, mesh=None, plan=None,
                offload_cfg=None):
     """(params, opt_state) drawn from ``seed`` on ``device`` (the card
     unless the caller names another); with ``offload_cfg`` the params
-    and/or the optimizer's moments start in host memory."""
+    and/or the optimizer's moments start in host memory.  With ``mesh``
+    every rank draws the full params from the seed, as today, and keeps
+    its shard of each leaf as :func:`~repro_torch.core.hypershard.
+    derive_param` places it, so the sharded state equals the unsharded one
+    from the same seed; the moments follow the params."""
     from repro_torch.serve.runtime import resolve_device
-    refuse_plan(mesh=mesh)
+    plan = check_mesh_plan(cfg, mesh, plan)
     device = resolve_device(device)
     params = M.init_model(cfg, torch.Generator(device=device)
                           .manual_seed(seed))
+    if mesh is not None:
+        params = hs.shard_tree(params, hs.make_param_shardings(
+            mesh, params, plan))
     opt = opt_mod.init_adamw(params)
     if offload_cfg is not None:
         params, opt = offload_state(params, opt, offload_cfg)

@@ -1,18 +1,24 @@
-"""Training loop on one device: data -> step -> metrics -> checkpoints.
+"""Training loop: data -> step -> metrics -> checkpoints, on one device or
+on a HyperShard mesh.
 
-The single-device loop of the reference's ``repro.train.trainer.train``,
-with its history keys, log cadence and observability names: the
-``train.step`` span, the ``train.steps`` counter, the ``train.step_s``
-histogram (the host's time around the step call: the card runs behind it,
-as jax's dispatch does in the reference, until a log step reads the
-metrics back), the ``train.loss`` and ``train.grad_norm`` gauges, and the
-compile-ledger key ``("train_step", (B, S, moe_dispatch))``.  With an
-``offload_cfg`` that puts params or optimizer state on the host, each step
-runs between the HyperOffload legs, spans ``train.fetch`` and
-``train.offload`` inside ``train.step``, as the reference's trainer does
-under a mesh (the port's one card stands for a one-device mesh).  A plan
-(``plan=``, the ``HyperPlan`` facade) or a mesh raises
-:class:`~repro_torch.api.errors.PlanError`: ROADMAP.md section 1 item 8.
+The reference's ``repro.train.trainer.train``, with its history keys, log
+cadence and observability names: the ``train.step`` span, the
+``train.steps`` counter, the ``train.step_s`` histogram (the host's time
+around the step call: the card runs behind it, as jax's dispatch does in
+the reference, until a log step reads the metrics back), the
+``train.loss`` and ``train.grad_norm`` gauges, and the compile-ledger key
+``("train_step", (B, S, moe_dispatch))``.  With an ``offload_cfg`` (or a
+plan whose offload flags are set) that puts params or optimizer state on
+the host, each step runs between the HyperOffload legs, spans
+``train.fetch`` and ``train.offload`` inside ``train.step``.
+
+``mesh=`` (a ``DeviceMesh``) and ``plan=`` (a
+:class:`~repro_torch.core.hypershard.ShardingPlan`, the reference's legacy
+path through :func:`resolve_train_plan`) train the dense GQA families
+sharded (``repro_torch.train.steps``); every rank runs this loop, the
+loader gives each its rows, and checkpoints gather each leaf (rank 0
+writes).  A ``HyperPlan`` is the facade's, ROADMAP.md section 1 item 8h,
+and raises :class:`~repro_torch.api.errors.PlanError`.
 """
 from __future__ import annotations
 
@@ -42,14 +48,33 @@ class TrainConfig:
     seed: int = 0
 
 
+def resolve_train_plan(cfg, mesh, plan, offload_cfg):
+    """One resolution step, the reference's legacy path: (ShardingPlan |
+    None, OffloadConfig | None) -> (the sharding plan, the offload config),
+    the plan checked against ``mesh`` and ``cfg``
+    (:func:`~repro_torch.train.steps.check_mesh_plan`) and its
+    ``params_on_host`` / ``opt_state_on_host`` folded into the config, so
+    one declaration drives both."""
+    from repro_torch.core.offload import OffloadConfig
+    plan = steps_mod.check_mesh_plan(cfg, mesh, plan)
+    if plan is not None and (plan.params_on_host or plan.opt_state_on_host):
+        base = offload_cfg or OffloadConfig()
+        offload_cfg = dataclasses.replace(
+            base, params_on_host=base.params_on_host or plan.params_on_host,
+            opt_state_on_host=base.opt_state_on_host
+            or plan.opt_state_on_host)
+    return plan, offload_cfg
+
+
 def train(cfg, shape, *, adamw: Optional[AdamWConfig] = None,
           train_cfg: Optional[TrainConfig] = None,
           moe_dispatch: str = "gshard", hook: Optional[Callable] = None,
           obs=None, device=None, plan=None, offload_cfg=None, mesh=None):
     """End-to-end training on ``device`` (the card unless the caller names
-    another).  Returns (params, history)."""
+    another), on ``mesh`` under ``plan`` when given.  Returns (params,
+    history); under a mesh the params are DTensors."""
     from repro_torch.obs import Observability
-    steps_mod.refuse_plan(mesh=mesh, plan=plan)
+    plan, offload_cfg = resolve_train_plan(cfg, mesh, plan, offload_cfg)
     train_cfg = train_cfg or TrainConfig()
     device = resolve_device(device)
     obs = obs if obs is not None else Observability()
@@ -58,11 +83,13 @@ def train(cfg, shape, *, adamw: Optional[AdamWConfig] = None,
                       global_batch=shape.global_batch, seed=train_cfg.seed)
 
     step_fn = steps_mod.make_train_step(cfg, adamw,
-                                        moe_dispatch=moe_dispatch)
+                                        moe_dispatch=moe_dispatch, mesh=mesh,
+                                        plan=plan)
     params, opt = steps_mod.init_state(cfg, seed=train_cfg.seed,
-                                       device=device, offload_cfg=offload_cfg)
+                                       device=device, mesh=mesh, plan=plan,
+                                       offload_cfg=offload_cfg)
 
-    loader = make_loader(dcfg, device)
+    loader = make_loader(dcfg, device, mesh=mesh)
     history = []
     needs_offload = offload_cfg is not None and (
         offload_cfg.params_on_host or offload_cfg.opt_state_on_host)

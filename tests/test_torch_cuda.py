@@ -35,7 +35,8 @@ dtypes, inputs that require grad where no backward is built, side inputs on anot
 unaligned pool; never a plain version on a CUDA tensor), and the
 Generator and HyperServe on the card
 token-identical to the CPU, for qwen2-0.5b, deepseek-v2-lite (MLA + MoE),
-mamba2-370m and recurrentgemma-2b (RG-LRU + LOCAL_ATTN).
+mamba2-370m and recurrentgemma-2b (RG-LRU + LOCAL_ATTN), and one train step on
+a one-rank NCCL mesh (HyperShard) against the unsharded step.
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
 CUDA kernels have no CPU mode; on the CPU the wrappers run the plain
@@ -1580,3 +1581,50 @@ def test_hybrid_serving_on_the_card_matches_the_cpu(cuda):
             assert pda.paged_decode_attention.launches - n0[1] == (
                 n_attn * steps if kernels == "fused" else 0)
     assert len(set(map(str, outs.values()))) == 1, outs
+
+
+def test_train_step_on_a_one_rank_nccl_mesh(cuda, tmp_path):
+    """Reduced qwen2-0.5b in float32: one train step on a (1, 1) NCCL mesh
+    under ``ShardingPlan()`` (DTensor params, moments and batch; flash's
+    kernels under ``local_map``) against the unsharded step on the card
+    from the same state and batch: loss and grad norm within 1e-5
+    relative, params within 2e-5 x max(1, |p|), with two flash forward
+    launches and one backward call a layer in each step."""
+    import torch.distributed as dist
+
+    from repro_torch.core import hypershard as hs
+    from repro_torch.data.pipeline import DataConfig, make_loader
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.bridge import full_params, shard_params
+    from repro_torch.optim import adamw as opt
+    from repro_torch.train import steps
+    cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
+                              dtype="float32")
+    acfg = opt.AdamWConfig(total_steps=1)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=2)
+    p0 = M.init_model(cfg, torch.Generator(device=cuda).manual_seed(0))
+    p1, _, m1 = steps.make_train_step(cfg, acfg)(
+        p0, opt.init_adamw(p0), next(make_loader(dcfg, cuda)))
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh((1, 1))
+        step = steps.make_train_step(cfg, acfg, mesh=mesh,
+                                     plan=hs.ShardingPlan())
+        dp = shard_params(p0, mesh)
+        n0 = (fa.flash_attention.launches, fa.flash_attention_bwd.launches)
+        p2, _, m2 = step(dp, opt.init_adamw(dp),
+                         next(make_loader(dcfg, cuda, mesh=mesh)))
+        assert (fa.flash_attention.launches - n0[0],
+                fa.flash_attention_bwd.launches - n0[1]) == \
+            (2 * cfg.num_layers, cfg.num_layers)
+        for k in ("loss", "grad_norm"):
+            a, b = float(m2[k]), float(m1[k])
+            assert abs(a - b) <= 1e-5 * max(1.0, abs(b)), k
+        full = full_params(p2)
+        for a, b in zip(torch.utils._pytree.tree_leaves(full),
+                        torch.utils._pytree.tree_leaves(p1)):
+            assert (a - b).abs().max().item() <= 2e-5 * max(
+                1.0, b.abs().max().item())
+    finally:
+        dist.destroy_process_group()

@@ -125,7 +125,7 @@ def offload_runs():
     np_p = jax.tree.map(np.asarray, jp)
     np_o = jax.tree.map(np.asarray, jax_opt.init_adamw(jp))
 
-    def bridged_init(cfg, *, seed=0, device=None, mesh=None,
+    def bridged_init(cfg, *, seed=0, device=None, mesh=None, plan=None,
                      offload_cfg=None):
         p = params_from_numpy(np_p, "cpu")
         o = adamw_state_from_numpy(np_o, "cpu")

@@ -504,16 +504,27 @@ def test_typed_refusals():
 
 def test_launcher_trains_on_an_explicit_cpu(capsys, monkeypatch):
     """The reference's log line; without ``--device`` the launcher targets
-    the card (and exits without one); the multi-device flags raise."""
+    the card (and exits without one); ``--offload``, ``--plan tp_only`` and
+    ``--mesh auto`` on one rank (no mesh, as the reference's
+    ``Supernode.auto()``) train; the pipeline's and the facade's flags
+    raise, naming their ROADMAP items."""
     from repro_torch.launch import train as launcher
     launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--steps", "2",
                    "--device", "cpu", "--global-batch", "2"])
     out = capsys.readouterr().out.strip().splitlines()
     assert len(out) == 1 and out[0].startswith("step     1  loss ")
     assert "grad_norm" in out[0] and " lr " in out[0]
-    for flags in (["--offload"], ["--plan", "tp_only"], ["--pipeline", "2"],
-                  ["--mesh", "auto"], ["--explain"]):
-        with pytest.raises(PlanError, match="item 8"):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    for flags in (["--offload"], ["--plan", "tp_only"], ["--mesh", "auto"]):
+        launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--steps", "1",
+                       "--device", "cpu", "--global-batch", "2", *flags])
+        out = capsys.readouterr().out.strip().splitlines()
+        assert len(out) == 1 and out[0].startswith("step     1  loss ")
+    for flags, item in ((["--pipeline", "2"], "item 8f"),
+                        (["--plan", "pipeline"], "item 8f"),
+                        (["--plan", "offload_all"], "item 8h"),
+                        (["--explain"], "item 8h")):
+        with pytest.raises(PlanError, match=item):
             launcher.main(["--arch", "qwen2-0.5b", "--reduced", *flags])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
