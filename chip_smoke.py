@@ -254,6 +254,27 @@ Phases, in order; any failure raises and the script exits non-zero:
                  step, loss and grad norm within 2^-8 / 4 of phase 23's
                  first 4 steps, step wall, tok/s and peak beside phase
                  23's;
+  38b. serve mesh — HyperServe on 38a's (1, 1) mesh (the same one-rank
+                 group, destroyed after this phase) under
+                 ``ShardingPlan(fsdp=None)``: params and pool leaves
+                 DTensors, the paged kernels and the scans under
+                 ``local_map``.  qwen2-0.5b bf16, all 24 layers, phase 4's
+                 config and 16 requests, exactly 24 paged decodes a decode
+                 step and 24 ragged prefills a prefill call; decode tok/s,
+                 median TTFT and the decode-step wall beside phase 4's;
+                 torch.profiler over a prefill call and 8 decode steps.
+                 Then f32 at full width, all layers, 32 new tokens,
+                 tokens identical with and without the mesh and the
+                 mesh's launches exact: qwen2-0.5b (phase 10's prompts,
+                 and phase 11's preemption on the mesh against its ample
+                 pool), mamba2-370m (48 ``ssd_scan`` a prefill call, none
+                 a decode step), recurrentgemma-2b (8 paged decodes and no
+                 ``rglru_scan`` a decode step, 8 ragged prefills and 18
+                 scans a prefill call; two prompts past the window).  Last
+                 the four serving kernels handed DTensors on the mesh: the
+                 paged decode and ragged prefill at phase 4's shapes
+                 (bf16), both scans at the identities' prefill calls (f32),
+                 against their plain versions, timed;
   39. rl       — HyperRL, colocated (repro_torch.rl.RLSession): qwen2-0.5b
                  at full width in bf16, 2 iterations of 2 prompts x 4
                  samples of 128 + 64 tokens at temperature 1 (the
@@ -292,7 +313,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                  the grouped matmul one for each of its five cases, its
                  backward's dx and dw one each at the train shape with
                  phase 27a's launches; phase 23's two flash rows again
-                 with phase 38a's launches, named ``_mesh``; each
+                 with phase 38a's launches, named ``_mesh``, and phase
+                 38b's four ``_mesh`` rows with its runs' launches; each
                  with that run's launches), and ``{"ok": true,
                  "device": {...}}`` as the last line.
 
@@ -300,6 +322,7 @@ Each phase prints its wall seconds.  It needs one CUDA device and exits non-zero
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -319,6 +342,7 @@ H, KV, D, BS = 14, 2, 64, 16
 DEC_B, NUM_BLOCKS, TABLE_W = 16, 2048, 128
 PRE_P, PRE_C = 4, 256
 WINDOW = 256
+SERVE_REQUESTS = 16                 # the serve phases' requests, at t=0
 # the dense Generator run (bf16): B prompts of S tokens, NEW greedy tokens
 # into a cache of S + NEW + 8 entries
 GEN_B, GEN_S, GEN_NEW = 8, 1024, 64
@@ -351,6 +375,9 @@ GM_ABS = F32_TOL
 MLA_BF16_TOL = 1e-4
 REPEATS = 30
 SLEEP_CYCLES = 500_000  # ~0.3 ms of the card's clock: > a call's host time
+# phase 38b's rows: a wrapper handed DTensors spends more host time a call
+# (local_map, redistribution) than SLEEP_CYCLES covers
+MESH_SLEEP_CYCLES = 5_000_000
 PREEMPT_BLOCKS = 32
 # deepseek-v2-lite-16b (MLA + MoE) served at full width in bf16: DS_REQUESTS
 # prompts of DS_PROMPT tokens, DS_NEW greedy tokens each, through the
@@ -519,7 +546,8 @@ def sync(torch) -> None:
 # ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
-def time_ms(fn, torch, repeats: int = REPEATS) -> float:
+def time_ms(fn, torch, repeats: int = REPEATS,
+            sleep_cycles: int = SLEEP_CYCLES) -> float:
     """Median device time of ``fn()`` in ms over ``repeats`` launches, each
     with a cold L2 (a 128 MB buffer is rewritten before every launch, as a
     serving step finds the previous layer's data evicted).  The launches
@@ -534,13 +562,25 @@ def time_ms(fn, torch, repeats: int = REPEATS) -> float:
                torch.cuda.Event(enable_timing=True)) for _ in range(repeats)]
     for t0, t1 in events:
         flush.zero_()
-        torch.cuda._sleep(SLEEP_CYCLES)
+        torch.cuda._sleep(sleep_cycles)
         t0.record()
         fn()
         t1.record()
     events[-1][1].synchronize()
     times = sorted(t0.elapsed_time(t1) for t0, t1 in events)
     return times[len(times) // 2]
+
+
+def wall_us(fn, torch, calls: int = 50) -> float:
+    """Host wall in microseconds a call of ``fn`` over ``calls`` calls
+    queued back to back, between two syncs (after a warm-up call)."""
+    fn()
+    sync(torch)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    sync(torch)
+    return (time.perf_counter() - t0) / calls * 1e6
 
 
 # ---------------------------------------------------------------------------
@@ -2296,7 +2336,12 @@ def serve_all(serve, prompts, max_new):
     return [out[r] for r in rids], rids
 
 
-def phase_serve(torch, np):
+def phase_serve(torch, np, mesh=None, summary=None, tag="serve"):
+    """qwen2-0.5b at full width in bf16 through HyperServe, fused, on the
+    card (on ``mesh`` when given): SERVE_REQUESTS requests after a
+    warm-up, exactly one paged decode a layer and decode step and one
+    ragged prefill a layer and prefill call.  ``summary`` takes the run's
+    decode tok/s, median TTFT, decode-step wall and tokens."""
     from repro_torch.configs.base import ServeConfig, get_config
     from repro_torch.kernels.paged_decode_attention import \
         paged_decode_attention
@@ -2310,10 +2355,10 @@ def phase_serve(torch, np):
     scfg = ServeConfig(block_size=BS, num_blocks=NUM_BLOCKS,
                        max_blocks_per_req=TABLE_W, max_slots=DEC_B,
                        prefill_chunk=PRE_C, prefill_batch=PRE_P)
-    serve = HyperServe(cfg, params, serve_cfg=scfg, device=DEVICE)
+    serve = HyperServe(cfg, params, serve_cfg=scfg, device=DEVICE, mesh=mesh)
     rng = np.random.default_rng(SEED)
     serve_all(serve, make_prompts(rng, 2, 50, 60, cfg.vocab_size), 4)  # warm
-    prompts = make_prompts(rng, 16, 100, 1500, cfg.vocab_size)
+    prompts = make_prompts(rng, SERVE_REQUESTS, 100, 1500, cfg.vocab_size)
     eng = serve.engine
     m = eng.obs.metrics
     before = {k: m.counter(k).value for k in
@@ -2339,7 +2384,11 @@ def phase_serve(torch, np):
     decode_tokens = tokens - len(prompts)      # first tokens come of prefill
     ttfts = sorted(serve.request_meta(r)["ttft_s"] for r in rids)
     finished = sum(serve.state(r) == "finished" for r in rids)
-    log(f"[serve] qwen2-0.5b bf16 full width: {finished}/{len(prompts)} "
+    if summary is not None:
+        summary.update(decode_tok_s=decode_tokens / decode_s,
+                       ttft_s=ttfts[len(ttfts) // 2], step_s=decode_s / steps,
+                       tokens=outs)
+    log(f"[{tag}] qwen2-0.5b bf16 full width: {finished}/{len(prompts)} "
         f"requests finished, {tokens} tokens in {wall:.3f}s "
         f"({tokens / wall:.1f} tok/s overall), decode {decode_tokens} tokens "
         f"in {steps} steps, {decode_s:.3f}s ({decode_tokens / decode_s:.1f} "
@@ -2348,7 +2397,7 @@ def phase_serve(torch, np):
         f"{int(d['serve.prefill_chunks'])}, preemptions="
         f"{int(d['serve.preemptions'])}")
     n = cfg.num_layers
-    log(f"[serve] launches {launches}; expected decode {n} x {steps} = "
+    log(f"[{tag}] launches {launches}; expected decode {n} x {steps} = "
         f"{n * steps}, prefill {n} x {calls} = {n * calls}")
     if finished != len(prompts) or any(len(o) != 64 for o in outs):
         raise AssertionError("not every request finished with 64 tokens")
@@ -3900,11 +3949,10 @@ MESH_BF16_REL = 2 ** -8 / 4
 MESH_F32_NOTE = 1e-6
 
 
-def phase_train_mesh(torch, np, train_record, train_summary):
-    """HyperShard on the card: a one-rank NCCL process group (initialised
-    from a file in a temporary directory: no port, no network),
-    ``make_host_mesh((1, 1))`` over it, and qwen2-0.5b trained on that
-    mesh under ``ShardingPlan()`` (fsdp_tp) through ``trainer.train``:
+def phase_train_mesh(torch, np, mesh, train_record, train_summary):
+    """HyperShard on the card: qwen2-0.5b trained on ``mesh``, the (1, 1)
+    mesh of :func:`one_rank_group`, under ``ShardingPlan()`` (fsdp_tp)
+    through ``trainer.train``:
     params, moments and batches are DTensors, the step runs under the
     mesh, and flash's forward and backward kernels run under
     ``local_map``.  First the f32 identity at phase 25's shapes (all 24
@@ -3915,90 +3963,364 @@ def phase_train_mesh(torch, np, train_record, train_summary):
     launch counts (48 flash forwards and 24 backwards a step), loss and
     grad norm within MESH_BF16_REL of phase 23's first MESH_STEPS steps in
     this process, the step wall, tok/s and peak printed beside phase 23's.
-    The group is destroyed at the end; nothing here is caught."""
-    import shutil
-    import tempfile
-
+    Nothing here is caught."""
     import torch.distributed as dist
 
     from repro_torch.configs.base import ShapeConfig, get_config
     from repro_torch.core.hypershard import ShardingPlan
     from repro_torch.core.meshctx import full_tensor
     from repro_torch.core.tree import tree_flatten_with_path
-    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.optim.adamw import AdamWConfig, schedule
+    plan = ShardingPlan()
+    log(f"[train mesh] mesh {tuple(mesh.shape)} "
+        f"{tuple(mesh.mesh_dim_names)} on {mesh.device_type}, "
+        f"{dist.get_backend()}, "
+        f"plan {plan}")
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), dtype="float32")
+    shape = ShapeConfig("train_identity", TRAIN_ID_S, TRAIN_ID_B,
+                        "train")
+    runs = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        params, hist = run_train(torch, cfg, shape, TRAIN_ID_STEPS,
+                                 mesh=m, plan=plan if m else None)
+        runs[name] = ({k: full_tensor(t) for k, t in
+                       tree_flatten_with_path(params)}, hist)
+        del params
+        torch.cuda.empty_cache()
+    worst = max(abs(a[k] - b[k]) / max(1.0, abs(b[k]))
+                for a, b in zip(runs["mesh"][1], runs["plain"][1])
+                for k in ("loss", "grad_norm"))
+    adamw = AdamWConfig(total_steps=TRAIN_ID_STEPS)
+    lrs = [float(schedule(adamw, torch.tensor(t, dtype=torch.int32)))
+           for t in range(1, TRAIN_ID_STEPS + 1)]
+    pa, pb = runs["mesh"][0], runs["plain"][0]
+    big = max(t.abs().max().item() for t in pb.values())
+    bound = (sum(2 * lr * adam_step_bound(adamw.b1, adamw.b2, t)
+                 for t, lr in enumerate(lrs, 1))
+             + 2 * TRAIN_ID_STEPS * big * 2.0 ** -23)
+    dmax = max((pa[k] - pb[k]).abs().max().item() for k in pb)
+    moved = sum(int((pa[k] != pb[k]).sum()) for k in pb)
+    log(f"[train mesh] f32 identity, qwen2-0.5b all {cfg.num_layers} "
+        f"layers, {TRAIN_ID_STEPS} steps of {TRAIN_ID_B} x {TRAIN_ID_S}, "
+        f"(1, 1) mesh vs no mesh: losses and grad norms within "
+        f"{worst:.3e} relative (limit {TRAIN_ID_REL}; a distance above "
+        f"{MESH_F32_NOTE} is a finding), params max |diff| {dmax:.3e} "
+        f"against AdamW's bound {bound:.3e}, {moved} weights differ at "
+        "all; losses "
+        + ", ".join(f"{a['loss']:.7f}/{b['loss']:.7f}" for a, b in
+                    zip(runs["mesh"][1], runs["plain"][1])))
+    if not worst <= TRAIN_ID_REL or not dmax <= bound:
+        raise AssertionError("train mesh: the f32 run on the mesh parts "
+                             "from the run without one")
+    del runs, pa, pb
+    torch.cuda.empty_cache()
+    rec, summary = [], {}
+    launches = phase_train(torch, np, batch=TRAIN_B, seq=TRAIN_S,
+                           n_steps=MESH_STEPS, tag="train mesh",
+                           record=rec, mesh=mesh, plan=plan,
+                           summary=summary)
+    base = train_record[:MESH_STEPS]
+    rel = max(abs(a[0][k] - b[0][k]) / max(1.0, abs(b[0][k]))
+              for a, b in zip(rec, base) for k in ("loss", "grad_norm"))
+    log(f"[train mesh] bf16 {TRAIN_B} x {TRAIN_S} on the (1, 1) mesh "
+        "against phase "
+        f"23 (train) in this process: loss and grad norm within "
+        f"{rel:.3e} relative (limit {MESH_BF16_REL:.3e}); median step "
+        f"{summary['median_s']:.4f}s vs {train_summary['median_s']:.4f}s"
+        f", {summary['tok_s']:.1f} vs {train_summary['tok_s']:.1f} train "
+        f"tok/s, peak {summary['peak_gib']:.2f} vs "
+        f"{train_summary['peak_gib']:.2f} GiB, first step "
+        f"{summary['first_s']:.3f}s vs {train_summary['first_s']:.3f}s")
+    if len(rec) != MESH_STEPS or not rel <= MESH_BF16_REL:
+        raise AssertionError(f"train mesh: bf16 run differs by {rel}")
+    return launches
+
+
+@contextlib.contextmanager
+def one_rank_group():
+    """A one-rank process group (NCCL on the card; initialised from a file
+    in a temporary directory: no port, no network) and the (1, 1) mesh of
+    ``make_host_mesh`` over it, for phases 38a and 38b; the group is
+    destroyed when they are done."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
     store = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     dist.init_process_group("nccl" if DEVICE == "cuda" else "gloo",
                             init_method=f"file://{store}/store", rank=0,
                             world_size=1)
     try:
-        mesh = make_host_mesh((1, 1))
-        plan = ShardingPlan()
-        log(f"[train mesh] mesh {tuple(mesh.shape)} "
-            f"{tuple(mesh.mesh_dim_names)} on {mesh.device_type}, "
-            f"{dist.get_backend()}, "
-            f"plan {plan}")
-        cfg = dataclasses.replace(get_config("qwen2-0.5b"), dtype="float32")
-        shape = ShapeConfig("train_identity", TRAIN_ID_S, TRAIN_ID_B,
-                            "train")
-        runs = {}
-        for name, m in (("plain", None), ("mesh", mesh)):
-            params, hist = run_train(torch, cfg, shape, TRAIN_ID_STEPS,
-                                     mesh=m, plan=plan if m else None)
-            runs[name] = ({k: full_tensor(t) for k, t in
-                           tree_flatten_with_path(params)}, hist)
-            del params
-            torch.cuda.empty_cache()
-        worst = max(abs(a[k] - b[k]) / max(1.0, abs(b[k]))
-                    for a, b in zip(runs["mesh"][1], runs["plain"][1])
-                    for k in ("loss", "grad_norm"))
-        adamw = AdamWConfig(total_steps=TRAIN_ID_STEPS)
-        lrs = [float(schedule(adamw, torch.tensor(t, dtype=torch.int32)))
-               for t in range(1, TRAIN_ID_STEPS + 1)]
-        pa, pb = runs["mesh"][0], runs["plain"][0]
-        big = max(t.abs().max().item() for t in pb.values())
-        bound = (sum(2 * lr * adam_step_bound(adamw.b1, adamw.b2, t)
-                     for t, lr in enumerate(lrs, 1))
-                 + 2 * TRAIN_ID_STEPS * big * 2.0 ** -23)
-        dmax = max((pa[k] - pb[k]).abs().max().item() for k in pb)
-        moved = sum(int((pa[k] != pb[k]).sum()) for k in pb)
-        log(f"[train mesh] f32 identity, qwen2-0.5b all {cfg.num_layers} "
-            f"layers, {TRAIN_ID_STEPS} steps of {TRAIN_ID_B} x {TRAIN_ID_S}, "
-            f"(1, 1) mesh vs no mesh: losses and grad norms within "
-            f"{worst:.3e} relative (limit {TRAIN_ID_REL}; a distance above "
-            f"{MESH_F32_NOTE} is a finding), params max |diff| {dmax:.3e} "
-            f"against AdamW's bound {bound:.3e}, {moved} weights differ at "
-            "all; losses "
-            + ", ".join(f"{a['loss']:.7f}/{b['loss']:.7f}" for a, b in
-                        zip(runs["mesh"][1], runs["plain"][1])))
-        if not worst <= TRAIN_ID_REL or not dmax <= bound:
-            raise AssertionError("train mesh: the f32 run on the mesh parts "
-                                 "from the run without one")
-        del runs, pa, pb
-        torch.cuda.empty_cache()
-        rec, summary = [], {}
-        launches = phase_train(torch, np, batch=TRAIN_B, seq=TRAIN_S,
-                               n_steps=MESH_STEPS, tag="train mesh",
-                               record=rec, mesh=mesh, plan=plan,
-                               summary=summary)
-        base = train_record[:MESH_STEPS]
-        rel = max(abs(a[0][k] - b[0][k]) / max(1.0, abs(b[0][k]))
-                  for a, b in zip(rec, base) for k in ("loss", "grad_norm"))
-        log(f"[train mesh] bf16 {TRAIN_B} x {TRAIN_S} on the (1, 1) mesh "
-            "against phase "
-            f"23 (train) in this process: loss and grad norm within "
-            f"{rel:.3e} relative (limit {MESH_BF16_REL:.3e}); median step "
-            f"{summary['median_s']:.4f}s vs {train_summary['median_s']:.4f}s"
-            f", {summary['tok_s']:.1f} vs {train_summary['tok_s']:.1f} train "
-            f"tok/s, peak {summary['peak_gib']:.2f} vs "
-            f"{train_summary['peak_gib']:.2f} GiB, first step "
-            f"{summary['first_s']:.3f}s vs {train_summary['first_s']:.3f}s")
-        if len(rec) != MESH_STEPS or not rel <= MESH_BF16_REL:
-            raise AssertionError(f"train mesh: bf16 run differs by {rel}")
-        return launches
+        yield make_host_mesh((1, 1))
     finally:
         dist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
+
+
+# phase 38b's f32 identities on the mesh, each against the same engine
+# without one: qwen2-0.5b (phase 10's config and prompts; phase 11's forced
+# preemption, host tier), mamba2-370m (phase 17's) and recurrentgemma-2b
+# (MESH_RG_PROMPTS prompts, two past the window, RG_ID_TABLE_W blocks a
+# table); all layers of each
+MESH_RG_PROMPTS = 4
+
+
+def mesh_identity(torch, np, tag, arch, scfg, prompts, mesh):
+    """One f32 identity of phase 38b: ``arch`` at full width through
+    HyperServe without a mesh and on ``mesh``, greedy tokens identical
+    (the same kernels on the same tensors), and on the mesh exactly the
+    serving launches ``serve_launch_want`` gives for its decode steps and
+    prefill calls.  Returns (launches, params, cfg)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serve.api import HyperServe
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    params = M.init_model(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED))
+    wrappers = serve_wrappers()
+    runs, launches = {}, {}
+    for name, m in (("no mesh", None), ("mesh", mesh)):
+        for k in wrappers.values():
+            k.launches = 0
+        serve = HyperServe(cfg, params, serve_cfg=scfg, device=DEVICE,
+                           mesh=m)
+        runs[name], _ = serve_all(serve, prompts, ID_NEW)
+        sync(torch)
+        launches[name] = {k: w.launches for k, w in wrappers.items()
+                          if w.launches}
+    m = serve.engine.obs.metrics
+    steps = int(m.counter("serve.kernels.decode.fused").value)
+    calls = int(m.counter("serve.prefill_calls").value)
+    want = serve_launch_want(cfg, steps, calls)
+    log(f"[{tag}] f32 {arch} at full width, {cfg.num_layers} layers, "
+        f"{len(prompts)} requests x {ID_NEW} tokens: mesh tokens identical "
+        f"to no mesh: {runs['mesh'] == runs['no mesh']}; launches on the "
+        f"mesh {launches['mesh']}, expected {want} ({steps} decode steps, "
+        f"{calls} prefill calls; no mesh {launches['no mesh']})")
+    if runs["mesh"] != runs["no mesh"]:
+        a, b = runs["no mesh"], runs["mesh"]
+        i = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        j = next(j for j, (x, y) in enumerate(zip(a[i], b[i])) if x != y)
+        raise AssertionError(f"{tag}: request {i} diverges at token {j}: "
+                             f"{a[i][j]} without the mesh, {b[i][j]} on it")
+    if launches["mesh"] != want or not steps or not calls:
+        raise AssertionError(f"{tag}: launches {launches['mesh']} != {want}")
+    return launches["mesh"], params, cfg
+
+
+def phase_serve_mesh(torch, np, mesh, serve_summary):
+    """Phase 38b, HyperServe on the (1, 1) NCCL mesh of phase 38a under
+    ``ShardingPlan(fsdp=None)``: params and pool leaves DTensors, both
+    steps under the mesh, the paged kernels and the scans under
+    ``local_map``.  qwen2-0.5b bf16, all 24 layers, phase 4's config and
+    requests with exact launches, decode tok/s, median TTFT and the
+    decode-step wall beside phase 4's in this process, and a profile of a
+    prefill call and decode steps; then the f32 identities of
+    ``mesh_identity`` (qwen2-0.5b also preempted), and the kernel rows of
+    the four serving kernels on DTensor inputs (:func:`mesh_kernel_rows`).
+    Nothing here is caught.  Returns (the launches of each run, rows)."""
+    from repro_torch.configs.base import ServeConfig, get_config
+    from repro_torch.core.hypershard import ShardingPlan
+    from repro_torch.serve.api import HyperServe
+    plan = ShardingPlan(fsdp=None)
+    log(f"[serve mesh] mesh {tuple(mesh.shape)} "
+        f"{tuple(mesh.mesh_dim_names)} on {mesh.device_type}, plan {plan}")
+    summary = {}
+    launches, serve, prompts = phase_serve(torch, np, mesh, summary,
+                                           "serve mesh")
+    b = serve_summary
+    log(f"[serve mesh] against phase 4 (serve) in this process: decode "
+        f"{summary['decode_tok_s']:.1f} vs {b['decode_tok_s']:.1f} tok/s, "
+        f"median TTFT {summary['ttft_s']:.3f}s vs {b['ttft_s']:.3f}s, "
+        f"decode-step wall {summary['step_s'] * 1e3:.3f} vs "
+        f"{b['step_s'] * 1e3:.3f} ms ({summary['step_s'] / b['step_s']:.2f}"
+        f"x); bf16 tokens identical to phase 4's: "
+        f"{summary['tokens'] == b['tokens']}")
+    phase_profile(torch, serve, prompts, tag="serve mesh profile")
+    del serve
+    torch.cuda.empty_cache()
+    runs = {"qwen2-0.5b mesh": launches}
+    id_scfg = ServeConfig(block_size=BS, num_blocks=512,
+                          max_blocks_per_req=ID_TABLE_W, max_slots=ID_SLOTS,
+                          prefill_chunk=PRE_C, prefill_batch=PRE_P)
+    vocab = get_config("qwen2-0.5b").vocab_size
+    _, params, cfg = mesh_identity(
+        torch, np, "serve mesh identity", "qwen2-0.5b", id_scfg,
+        make_prompts(np.random.default_rng(SEED + 2), 6, 100, ID_PROMPT_MAX,
+                     vocab), mesh)
+    phase_preempt_mesh(torch, np, cfg, params, mesh)
+    del params
+    torch.cuda.empty_cache()
+    runs[f"{SSM_ARCH} mesh"], params, _ = mesh_identity(
+        torch, np, "serve mesh identity", SSM_ARCH,
+        dataclasses.replace(id_scfg, num_blocks=SSM_NUM_BLOCKS),
+        make_prompts(np.random.default_rng(SEED + 13), 6, 100, ID_PROMPT_MAX,
+                     get_config(SSM_ARCH).vocab_size), mesh)
+    del params
+    torch.cuda.empty_cache()
+    rg = get_config(RG_ARCH)
+    rng = np.random.default_rng(SEED + 15)
+    half = MESH_RG_PROMPTS // 2
+    runs[f"{RG_ARCH} mesh"], params, _ = mesh_identity(
+        torch, np, "serve mesh identity", RG_ARCH,
+        dataclasses.replace(id_scfg, num_blocks=1024,
+                            max_blocks_per_req=RG_ID_TABLE_W),
+        make_prompts(rng, half, rg.sliding_window + BS + 1, RG_ID_PROMPT[1],
+                     rg.vocab_size)
+        + make_prompts(rng, MESH_RG_PROMPTS - half, RG_ID_PROMPT[0],
+                       rg.sliding_window, rg.vocab_size), mesh)
+    del params
+    torch.cuda.empty_cache()
+    return runs, mesh_kernel_rows(torch, mesh)
+
+
+def phase_preempt_mesh(torch, np, cfg, params, mesh):
+    """Phase 11's forced preemption (PREEMPT_BLOCKS blocks for its four
+    requests, the host tier) on the mesh: the archive holds each leaf's
+    local shard and rebuilds the DTensor it spilled; tokens identical to
+    the ample pool without a mesh."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.serve.api import HyperServe
+    prompts = make_prompts(np.random.default_rng(SEED + 3), 4, 180, 220,
+                           cfg.vocab_size)
+    base = dict(block_size=BS, max_blocks_per_req=24, max_slots=4,
+                prefill_chunk=PRE_C, enable_prefix_cache=False)
+    ample, _ = serve_all(HyperServe(cfg, params, serve_cfg=ServeConfig(
+        num_blocks=256, **base), device=DEVICE), prompts, 64)
+    tight = HyperServe(cfg, params, device=DEVICE, mesh=mesh,
+                       serve_cfg=ServeConfig(num_blocks=PREEMPT_BLOCKS, **base))
+    got, _ = serve_all(tight, prompts, 64)
+    st = tight.stats()
+    m = tight.engine.obs.metrics
+    spills, restores = (int(m.counter("serve.spills").value),
+                        int(m.counter("serve.restores").value))
+    log(f"[serve mesh preempt] pool {PREEMPT_BLOCKS - 1} blocks on the "
+        f"mesh: preemptions={st['preemptions']} spills={spills} "
+        f"restores={restores}, archive host bytes now "
+        f"{st['archive_host_bytes']}; tokens identical to the ample pool "
+        f"without a mesh: {got == ample}")
+    if st["preemptions"] < 1 or spills < 1 or restores < 1 or got != ample:
+        raise AssertionError("serve mesh: the preempted run failed")
+
+
+def mesh_kernel_rows(torch, mesh):
+    """The ``_mesh`` rows of the kernel JSON: the paged decode and ragged
+    prefill at qwen2-0.5b's serving shapes in bf16 (phase 3's inputs) and
+    both scans at phase 38b's f32 identity prefill calls (PRE_P x PRE_C
+    rows with an initial state), each wrapper handed DTensors on ``mesh``
+    (the side inputs plain, as the steps hand them over) and run under
+    ``local_map``: its error against the plain version on the same local
+    tensors (the limits of phase 3), its time through the DTensor path,
+    the plain version's, the library call's where there is one, and the
+    bound of the work these inputs need.  The card is held busy for
+    MESH_SLEEP_CYCLES while each launch is queued, so the times are device
+    times; the host's wall a call, on DTensors and on the plain local
+    tensors, is logged beside them."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import perf_model as pm
+    from repro_torch.kernels import ragged_prefill_attention as rpa
+    from repro_torch.kernels import rglru_scan as rs
+    from repro_torch.kernels import ssd_scan as ss
+    rep = [Replicate()] * mesh.ndim
+
+    def on_mesh(t):
+        if not (torch.is_tensor(t) and t.is_floating_point()):
+            return t                    # side inputs and ints stay plain
+        return DTensor.from_local(t, mesh, rep, run_check=False)
+    shape = dict(num_heads=H, kv_heads=KV, head_dim=D, itemsize=2)
+    dec = decode_inputs(torch, torch.bfloat16, DEVICE)
+    pre = prefill_inputs(torch, torch.bfloat16, DEVICE)
+    kw = dict(block_size=BS)
+    ssm = get_config(SSM_ARCH)
+    s_args, s_kw = ssd_inputs(torch, torch.float32, ssm, PRE_P, PRE_C,
+                              SEED + 40, True)
+    r_args, r_kw = rg_scan_inputs(torch, torch.float32,
+                                  get_config(RG_ARCH).rglru.lru_width,
+                                  PRE_P, PRE_C, SEED + 41, True)
+    x, Bm = s_args[0], s_args[3]
+    cases = (
+        ("paged_decode_attention", pda.paged_decode_attention,
+         pda.paged_decode_attention_ref, dec, kw, "bfloat16",
+         pm.decode_visible_cost(dec[4].tolist(), **shape),
+         sdpa_decode(torch, *dec),
+         "src/repro/kernels/paged_decode_attention.py:91", "qwen2-0.5b mesh"),
+        ("ragged_prefill_attention", rpa.ragged_prefill_attention,
+         rpa.ragged_prefill_attention_ref, pre, kw, "bfloat16",
+         pm.prefill_visible_cost(pre[4].tolist(), pre[5].tolist(), PRE_C,
+                                 **shape),
+         sdpa_prefill(torch, *pre),
+         "src/repro/kernels/ragged_prefill_attention.py:89",
+         "qwen2-0.5b mesh"),
+        ("ssd_scan", ss.ssd_scan, ss.ssd_scan_ref, s_args, s_kw, "float32",
+         pm.ssd_scan_cost(batch=PRE_P, seq=PRE_C, heads=x.shape[2],
+                          head_dim=x.shape[3], d_state=Bm.shape[-1],
+                          chunk=s_kw["chunk"], itemsize=4, init_state=True),
+         None, "src/repro/kernels/ssd_scan.py:70", f"{SSM_ARCH} mesh"),
+        ("rglru_scan", rs.rglru_scan, rs.rglru_scan_ref, r_args, r_kw,
+         "float32",
+         pm.rglru_scan_cost(batch=PRE_P, seq=PRE_C, width=r_args[0].shape[2],
+                            itemsize=4, init_state=True),
+         None, "src/repro/kernels/rglru_scan.py:66", f"{RG_ARCH} mesh"))
+    rows = []
+    for name, fn, ref, args, kwargs, dtype_name, cost, lib, replaces, path \
+            in cases:
+        m_args = [on_mesh(a) for a in args]
+        m_kw = {k: on_mesh(v) for k, v in kwargs.items()}
+        n0 = fn.launches
+        got = fn(*m_args, **m_kw)
+        if fn.launches != n0 + 1:
+            raise AssertionError(f"{name} on the mesh: "
+                                 f"{fn.launches - n0} launches, not 1")
+        want = ref(*args, **kwargs)
+        if name == "ssd_scan":
+            want64 = ref(*[a.double() for a in args], chunk=kwargs["chunk"],
+                         init_state=kwargs["init_state"].double(),
+                         acc=torch.float64)
+            errs = [ssd_parity(torch, dtype_name, g.to_local(), w, w, w64)
+                    for g, w, w64 in zip(got, want, want64)]
+        else:
+            pairs = zip(got, want) if isinstance(got, tuple) else \
+                [(got, want)]
+            want32 = ref(*[a.float() if a.is_floating_point() else a
+                           for a in args], **kwargs) \
+                if dtype_name == "bfloat16" else want
+            w32 = want32 if isinstance(want32, tuple) else (want32,)
+            errs = [parity(torch, dtype_name, g.to_local(), w, w3,
+                           slack=RG_ABS if name == "rglru_scan"
+                           else BF16_ABS)
+                    for (g, w), w3 in zip(pairs, w32)]
+        err, share = max(e for e, _ in errs), max(sh for _, sh in errs)
+        ms = time_ms(lambda: fn(*m_args, **m_kw), torch,
+                     sleep_cycles=MESH_SLEEP_CYCLES)
+        plain_ms = time_ms(lambda: ref(*args, **kwargs), torch,
+                           sleep_cycles=MESH_SLEEP_CYCLES)
+        library_ms = (time_ms(lib, torch, sleep_cycles=MESH_SLEEP_CYCLES)
+                      if lib is not None else None)
+        bound_ms = cost.bound_seconds(dtype_name) * 1e3
+        walls = [wall_us(lambda: f(*a, **k), torch) for f, a, k in
+                 ((fn, m_args, m_kw), (fn, args, kwargs))]
+        log(f"[serve mesh kernels] {name} on DTensors ({dtype_name}): max "
+            f"abs err {err:.3e} (share {share:.3f} of the limit), {ms:.4f} "
+            f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+            f"({cost.bound_by(dtype_name)})"
+            + (f", SDPA {library_ms:.4f} ms" if lib is not None else "")
+            + f"; wall a call {walls[0]:.1f} us on DTensors, {walls[1]:.1f} "
+            "us on the plain local tensors")
+        if not share <= 1.0:
+            raise AssertionError(f"{name} on the mesh: error share {share}")
+        rows.append({"name": f"{name}_mesh", "route": "cuda",
+                     "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                     "replaces": replaces, "launches": 0,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms,
+                     "bound_by": cost.bound_by(dtype_name),
+                     "library_ms": library_ms, "path": path})
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -4334,7 +4656,9 @@ def main() -> int:
     smi = timed("device", phase_device, torch)
     timed("build", phase_build)
     rows = timed("kernels", phase_kernels, torch)
-    launches, serve, prompts = timed("serve", phase_serve, torch, np)
+    serve_summary = {}
+    launches, serve, prompts = timed("serve", phase_serve, torch, np, None,
+                                     serve_summary)
     timed("profile", phase_profile, torch, serve, prompts)
     del serve
     dense_launches, gen, gen_prompts = timed("dense", phase_dense, torch, np)
@@ -4440,8 +4764,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed("train offload", phase_train_offload, torch, np)
     torch.cuda.empty_cache()
-    mesh_launches = timed("train mesh", phase_train_mesh, torch, np,
-                          train_record, train_summary)
+    with one_rank_group() as mesh:
+        mesh_launches = timed("train mesh", phase_train_mesh, torch, np,
+                              mesh, train_record, train_summary)
+        torch.cuda.empty_cache()
+        serve_mesh_runs, serve_mesh_rows = timed(
+            "serve mesh", phase_serve_mesh, torch, np, mesh, serve_summary)
     torch.cuda.empty_cache()
     rl_launches = timed("rl", phase_rl, torch, np)
     torch.cuda.empty_cache()
@@ -4462,12 +4790,13 @@ def main() -> int:
             f"{SSM_ARCH} train": ssm_train_launches,
             f"{RG_ARCH} train": rg_train_launches,
             "qwen2-0.5b rl": rl_launches, f"{DS_ARCH} rl": ds_rl_launches,
-            "qwen2-0.5b mesh train": mesh_launches}
+            "qwen2-0.5b mesh train": mesh_launches, **serve_mesh_runs}
     # the mesh run launches flash at phase 23's shapes: its rows are phase
     # 3's rows of that shape, with the mesh run's launches
     rows += [dict(row, name=row["name"] + "_mesh",
                   path="qwen2-0.5b mesh train")
              for row in rows if row["path"] == "qwen2-0.5b train"]
+    rows += serve_mesh_rows
     for row in rows:
         if row["path"] is not None:     # None: timed in phase 3 only
             key = (row["name"] if row["name"] in SOURCE_OF else

@@ -12,7 +12,12 @@ predictive restore relies on.  Storage is a bounded
 entries to disk at ``host_budget_bytes``, and a disk tier full of pinned
 entries raises a typed :class:`~repro_torch.mem.tiers.MemCapacityError`
 instead of growing host memory without bound.  An entry that comes back
-from disk is pageable memory: correct, only slower to copy.
+from disk is pageable memory: correct, only slower to copy.  On a mesh
+(HyperServe's pool as DTensors) each rank archives its own shard of every
+DTensor leaf and the archive keeps the leaf's mesh and placements beside
+it, so that ``fetch`` rebuilds the DTensor exactly as it was spilled: no
+collective on a spill or a restore, host memory and byte counters are
+each rank's own.
 
 :class:`KVCachePool` is the paper's hierarchical KV cache for one
 attention layer: a **hot window** of the most recent ``hot_window``
@@ -30,7 +35,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.tree import tree_map
+from repro_torch.core.meshctx import is_dtensor
+from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.mem.tiers import DISK, HOST, TierStack
 
 
@@ -70,6 +76,9 @@ class HostArchive:
         self._tiers = TierStack(host_budget_bytes, disk_budget_bytes)
         self._obs = obs
         self._seen = dict(self._tiers.counters)
+        # key -> the tree's DTensor layouts ((mesh, placements, shape) a
+        # DTensor leaf, None a plain one), for the keys that hold any
+        self._layouts: dict = {}
 
     def _sync_obs(self) -> None:
         """Forward tier eviction deltas to the metrics registry."""
@@ -83,26 +92,42 @@ class HostArchive:
                 self._seen[which] = self._tiers.counters[which]
 
     def put(self, key, value, *, pinned: bool = True) -> None:
+        """Archive the tree ``value`` under ``key``; a DTensor leaf as this
+        rank's shard, its layout kept for :meth:`fetch`."""
+        layouts = tree_map(lambda t: _Layout(t) if is_dtensor(t) else None,
+                           value)
+        if any(v is not None for v in tree_leaves(layouts)):
+            self._layouts[key] = layouts
         try:
-            self._tiers.put(key, tree_map(to_host, value), pinned=pinned)
+            self._tiers.put(key, tree_map(
+                lambda t: to_host(t.to_local() if is_dtensor(t) else t),
+                value), pinned=pinned)
         finally:
             self._sync_obs()
 
     def fetch(self, key, *, pop: bool = True, promote: bool = False):
-        """The tree under ``key`` on the archive's device; ``pop=False``
+        """The tree under ``key`` on the archive's device (a spilled
+        DTensor leaf rebuilt on its mesh with its placements); ``pop=False``
         keeps the entry.  ``promote=False``: a peek is the predictive
         restore's staging path, which keeps its own device copy, so
         re-seating a disk entry in the host tier would only churn the LRU
         (the evict counters must show real pressure, not peeks)."""
         value, _ = self._tiers.get(key, pop=pop, promote=promote)
         self._sync_obs()
-        return tree_map(lambda t: to_device(t, self.device), value)
+        value = tree_map(lambda t: to_device(t, self.device), value)
+        layouts = (self._layouts.pop(key, None) if pop
+                   else self._layouts.get(key))
+        if layouts is None:
+            return value
+        return tree_map(lambda t, lay: t if lay is None else lay.rebuild(t),
+                        value, layouts)
 
     def __contains__(self, key) -> bool:
         return key in self._tiers
 
     def discard(self, key) -> None:
         self._tiers.discard(key)
+        self._layouts.pop(key, None)
 
     def keys(self):
         return self._tiers.keys()
@@ -122,6 +147,19 @@ class HostArchive:
 
     def nbytes_disk(self) -> int:
         return self._tiers.nbytes(DISK)
+
+
+class _Layout:
+    """What rebuilds an archived DTensor leaf from its local shard: its
+    mesh and placements (the pool's shards are even)."""
+
+    def __init__(self, t):
+        self.mesh, self.placements = t.device_mesh, tuple(t.placements)
+
+    def rebuild(self, local):
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(local, self.mesh, self.placements,
+                                  run_check=False)
 
 
 def _partial_attn(q, k, v):

@@ -100,6 +100,45 @@ def is_dtensor(t) -> bool:
     return isinstance(t, DTensor)
 
 
+def local_placed(t, mesh, placements):
+    """This rank's local shard of ``t`` placed by ``placements`` on
+    ``mesh``: a DTensor is redistributed first; a plain tensor (the same
+    on every rank) is taken as replicated and chunked, with no
+    communication."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not is_dtensor(t):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return t.redistribute(mesh, placements).to_local()
+
+
+def local_index(t, index):
+    """``t[index]`` where ``index`` picks rows of leading dims that no
+    placement shards and keeps ``t``'s rank (a seat index, block and
+    offset tensors): on a DTensor the rows of this rank's shard, as a
+    DTensor with ``t``'s placements (DTensor has no rule for such an
+    advanced index; no communication is needed)."""
+    if not is_dtensor(t):
+        return t[index]
+    from torch.distributed.tensor import DTensor, Shard
+    if any(isinstance(p, Shard) and p.dim < len(index)
+           for p in t.placements):
+        raise ValueError(f"local_index: {t.placements} shard a dim the "
+                         f"index picks from (the first {len(index)})")
+    return DTensor.from_local(t.to_local()[index], t.device_mesh,
+                              t.placements, run_check=False)
+
+
+def local_index_put(t, index, v) -> None:
+    """``t[index] = v`` in place, ``index`` as :func:`local_index` takes
+    it; on a DTensor ``t`` into this rank's shard (a view of ``t``'s own
+    storage), from ``v`` placed as ``t`` is."""
+    if is_dtensor(t):
+        v = local_placed(v, t.device_mesh, t.placements)
+        t = t.to_local()
+    t[index] = v.to(t.dtype)
+
+
 def full_tensor(t):
     """A DTensor's full value as a plain tensor on every rank (a
     collective); a plain tensor as it is."""

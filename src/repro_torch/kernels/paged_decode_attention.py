@@ -36,9 +36,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.meshctx import is_dtensor
 from repro_torch.kernels import (DTYPE_CODES, NEG_INF, PLAIN_DEVICES,
                                  attention_problems, build, count_launch,
-                                 raise_problems, refuse_grad,
+                                 on_local_shards, raise_problems,
+                                 refuse_grad, sharded_on,
                                  side_input_problems)
 from repro_torch.kernels.decode_attention import (_sm_count, _workspace,
                                                   decode_workspace_shape,
@@ -107,7 +109,19 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
     block_tables (B, W); lengths (B,) valid positions.  Returns (B, 1, H, D).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
+    DTensor q and pools (HyperServe on a mesh) run this wrapper on each
+    rank's shards under ``local_map``: the heads of q and of the output
+    sharded where the pools' KV heads are (dim 2), else every head on
+    every rank; the tables and lengths are plain tensors, the same on
+    every rank.
     """
+    if is_dtensor(q) or is_dtensor(k_pool):
+        hp = sharded_on(k_pool if is_dtensor(k_pool) else q, 2)
+        mesh = (k_pool if is_dtensor(k_pool) else q).device_mesh
+        return on_local_shards(functools.partial(
+            paged_decode_attention, block_size=block_size, window=window,
+            scale=scale), mesh, list(hp), (hp, hp, hp, None, None), q, k_pool,
+            v_pool, block_tables, lengths)
     refuse_grad("paged_decode_attention", q, k_pool, v_pool)
     if q.device.type in PLAIN_DEVICES:
         return paged_decode_attention_ref(

@@ -22,9 +22,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.meshctx import is_dtensor
 from repro_torch.kernels import (DTYPE_CODES, NEG_INF, PLAIN_DEVICES,
                                  attention_problems, build, count_launch,
-                                 raise_problems, refuse_grad,
+                                 on_local_shards, raise_problems,
+                                 refuse_grad, sharded_on,
                                  side_input_problems)
 
 
@@ -91,7 +93,17 @@ def ragged_prefill_attention(q, k_pool, v_pool, block_tables, starts, limits,
     Returns (P, C, H, D).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
+    DTensor q and pools run this wrapper on each rank's shards under
+    ``local_map``, as :func:`~repro_torch.kernels.paged_decode_attention.
+    paged_decode_attention` does.
     """
+    if is_dtensor(q) or is_dtensor(k_pool):
+        hp = sharded_on(k_pool if is_dtensor(k_pool) else q, 2)
+        mesh = (k_pool if is_dtensor(k_pool) else q).device_mesh
+        return on_local_shards(functools.partial(
+            ragged_prefill_attention, block_size=block_size, window=window,
+            scale=scale), mesh, list(hp), (hp, hp, hp, None, None, None), q,
+            k_pool, v_pool, block_tables, starts, limits)
     refuse_grad("ragged_prefill_attention", q, k_pool, v_pool)
     if q.device.type in PLAIN_DEVICES:
         return ragged_prefill_attention_ref(

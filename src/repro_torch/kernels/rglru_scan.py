@@ -40,8 +40,10 @@ import functools
 
 import torch
 
+from repro_torch.core.meshctx import is_dtensor
 from repro_torch.kernels import (DTYPE_CODES, PLAIN_DEVICES, build,
-                                 count_launch, raise_problems)
+                                 count_launch, on_local_shards,
+                                 raise_problems, sharded_on)
 
 
 def _gates(input_gate, a_gate, log_a, x, c, f):
@@ -184,13 +186,34 @@ def rglru_scan(x, input_gate, a_gate, log_a, *, init_state=None,
     for zeros.  Returns (h (B, S, W), final state (B, W)), both in x.dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
-    When an input requires grad, :class:`RGLRUScanFn` runs instead.
+    When an input requires grad, :class:`RGLRUScanFn` runs instead.  DTensor
+    inputs (HyperServe on a mesh) run this wrapper on each rank's channels
+    under ``local_map`` (:func:`_mesh_scan`).
     """
+    if any(is_dtensor(t) for t in (x, init_state)):
+        return _mesh_scan(x, input_gate, a_gate, log_a, init_state, c)
     extra = () if init_state is None else (init_state,)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, input_gate, a_gate, log_a, *extra)):
         return RGLRUScanFn.apply(x, input_gate, a_gate, log_a, init_state, c)
     return _forward(x, input_gate, a_gate, log_a, init_state, c)
+
+
+def _mesh_scan(x, input_gate, a_gate, log_a, init_state, c):
+    """:func:`rglru_scan` on a mesh: the channels sharded over the mesh
+    dims that shard the seat state's (dim 1 of ``init_state``; x's dim 2
+    without a state), each rank scanning its own channels from its own
+    rows of the pool (the recurrence is channelwise)."""
+    ref, d = (init_state, 1) if is_dtensor(init_state) else (x, 2)
+    ch = sharded_on(ref, d, 2)
+    state = sharded_on(ref, d, 1)
+    ins = (ch, ch, ch, sharded_on(ref, d, 0),
+           None if init_state is None else state)
+    return on_local_shards(
+        lambda x, ig, ag, la, init: rglru_scan(x, ig, ag, la,
+                                               init_state=init, c=c),
+        ref.device_mesh, (list(ch), list(state)), ins, x, input_gate,
+        a_gate, log_a, init_state)
 
 
 def _forward(x, input_gate, a_gate, log_a, init_state, c):

@@ -37,8 +37,10 @@ import functools
 
 import torch
 
+from repro_torch.core.meshctx import is_dtensor
 from repro_torch.kernels import (DTYPE_CODES, NEG_INF, PLAIN_DEVICES, build,
-                                 count_launch, raise_problems)
+                                 count_launch, on_local_shards,
+                                 raise_problems, sharded_on)
 
 SSD_DIMS = ((64, 128), (32, 16))     # (P, N) built: full width, reduced
 SSD_QMAX = 256                       # longest chunk the kernel takes
@@ -270,13 +272,36 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk=64, init_state=None):
     Returns (y (B, S, H, P), final state (B, H, P, N)), both in x.dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
-    When an input requires grad, :class:`SSDScanFn` runs instead.
+    When an input requires grad, :class:`SSDScanFn` runs instead.  DTensor
+    inputs (HyperServe on a mesh) run this wrapper on each rank's heads
+    under ``local_map`` (:func:`_mesh_scan`).
     """
+    if any(is_dtensor(t) for t in (x, init_state)):
+        return _mesh_scan(x, dt, A, Bm, Cm, chunk, init_state)
     extra = () if init_state is None else (init_state,)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, dt, A, Bm, Cm, *extra)):
         return SSDScanFn.apply(x, dt, A, Bm, Cm, init_state, chunk)
     return _forward(x, dt, A, Bm, Cm, chunk, init_state)
+
+
+def _mesh_scan(x, dt, A, Bm, Cm, chunk, init_state):
+    """:func:`ssd_scan` on a mesh: the heads sharded over the mesh dims
+    that shard the seat state's heads (dim 1 of ``init_state``; x's dim 2
+    without a state), so that each rank scans its own heads from its own
+    rows of the pool; B and C, shared by the heads, whole on every rank."""
+    from torch.distributed.tensor import Replicate
+    ref, d = (init_state, 1) if is_dtensor(init_state) else (x, 2)
+    heads = sharded_on(ref, d, 2)
+    state = sharded_on(ref, d, 1)
+    rep = (Replicate(),) * ref.device_mesh.ndim
+    ins = (heads, heads, sharded_on(ref, d, 0), rep, rep,
+           None if init_state is None else state)
+    return on_local_shards(
+        lambda x, dt, A, Bm, Cm, init: ssd_scan(x, dt, A, Bm, Cm, chunk=chunk,
+                                                init_state=init),
+        ref.device_mesh, (list(heads), list(state)), ins, x, dt, A, Bm, Cm,
+        init_state)
 
 
 def _forward(x, dt, A, Bm, Cm, chunk, init_state):

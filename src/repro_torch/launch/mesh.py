@@ -2,11 +2,13 @@
 
 The port of ``repro.launch.mesh``.  A ``DeviceMesh`` spans the ranks of
 the default process group (one device each: a card under NCCL, the CPU
-under gloo), with the reference's axis names.
+under gloo), with the reference's axis names.  :func:`join_mesh` is the
+launchers' ``--mesh auto``.
 """
 from __future__ import annotations
 
 import math
+import os
 
 from repro_torch.api.errors import TopologyError
 
@@ -32,3 +34,32 @@ def make_host_mesh(shape=(1, 1), axes=("data", "model"), *, device=None):
     if device is None:
         device = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(device, shape, mesh_dim_names=tuple(axes))
+
+
+# the process group's rendezvous, for ranks started without torchrun: an
+# init method such as file:///path/to/store (default: torchrun's env://)
+INIT_METHOD_ENV = "REPRO_TORCH_INIT_METHOD"
+
+
+def join_mesh(device):
+    """``--mesh auto``: the ``(1, world)`` mesh over the launcher's ranks,
+    or None for one rank (as the reference's ``Supernode.auto()`` gives).
+    ``WORLD_SIZE``, ``RANK`` and ``LOCAL_RANK`` come from ``torchrun`` (or
+    whoever starts the ranks), the rendezvous from torchrun's address or
+    from :data:`INIT_METHOD_ENV`.  NCCL on the card (each rank on its
+    ``LOCAL_RANK`` card), gloo with ``device="cpu"``.  Returns (mesh,
+    device)."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        return None, device
+    import torch
+    import torch.distributed as dist
+    on_cpu = device is not None and str(device) == "cpu"
+    if not on_cpu:
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo" if on_cpu else "nccl",
+                            init_method=os.environ.get(INIT_METHOD_ENV),
+                            rank=int(os.environ.get("RANK", "0")),
+                            world_size=world)
+    return make_host_mesh((1, 1)), device

@@ -15,6 +15,17 @@
         --continuous --slots 16 --num-blocks 2048 \
         --prefill-chunk 256                       # RG-LRU + local attention
 
+``--mesh auto`` with ``--continuous`` serves tensor-parallel on the
+``(1, world)`` mesh over the launcher's ranks (``torchrun``; gloo with
+``--device cpu``, NCCL on the cards), every rank running the same
+requests and rank 0 printing; one rank means no mesh::
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch qwen2-0.5b --reduced --continuous --device cpu --mesh auto
+
+The fixed batch on a mesh is the facade's ``Supernode.generate`` (ROADMAP.md
+section 1 item 8h) and exits naming it.
+
 ``--arch`` takes every ported config (``configs.list_archs()``): the dense
 qwen2-0.5b and llama3-8b, the MoE deepseek-v2-lite-16b (with MLA),
 deepseek-moe-16b and moonshot-v1-16b-a3b, the attention-free
@@ -37,6 +48,7 @@ import torch
 
 from repro_torch.api.errors import PlanError
 from repro_torch.configs.base import ServeConfig, get_config
+from repro_torch.launch.mesh import join_mesh
 from repro_torch.models import model as M
 from repro_torch.serve.api import HyperServe
 from repro_torch.serve.engine import GenerateConfig, Generator
@@ -66,7 +78,7 @@ def run_fixed(gen, args):
     print("first sequence:", out[0].tolist())
 
 
-def run_continuous(serve, cfg, args):
+def run_continuous(serve, cfg, args, log=print):
     rng = np.random.default_rng(0)
     rids = []
     t0 = time.perf_counter()
@@ -85,11 +97,14 @@ def run_continuous(serve, cfg, args):
     dt = time.perf_counter() - t0
     st = serve.stats()
     n_new = sum(len(out[r]) for r in rids)
-    print(f"served {len(rids)} requests, {n_new} tokens in {dt:.2f}s "
-          f"({n_new / dt:.1f} tok/s on {serve.engine.device})")
-    print(f"peak-free blocks={st['free_blocks']} "
-          f"preemptions={st['preemptions']} prefix_hits={st['prefix_hits']}")
-    print("first request tokens:", out[rids[0]])
+    mesh = serve.engine.mesh
+    where = str(serve.engine.device) + (
+        "" if mesh is None else f", mesh {tuple(mesh.shape)}")
+    log(f"served {len(rids)} requests, {n_new} tokens in {dt:.2f}s "
+        f"({n_new / dt:.1f} tok/s on {where})")
+    log(f"peak-free blocks={st['free_blocks']} "
+        f"preemptions={st['preemptions']} prefix_hits={st['prefix_hits']}")
+    log("first request tokens:", out[rids[0]])
 
 
 def main(argv=None):
@@ -129,19 +144,40 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="serving device (default: the CUDA card; pass "
                          "'cpu' to run the kernels' plain versions there)")
+    ap.add_argument("--mesh", default="none", choices=["none", "auto"],
+                    help="auto: serve tensor-parallel on the (1, world) "
+                         "mesh over torchrun's ranks (--continuous only)")
     args = ap.parse_args(argv)
 
     not_ported = [(args.disaggregate, "--disaggregate needs mpmd role "
                    "groups (ROADMAP.md section 1 item 8e)"),
                   (args.explain, "--explain needs the HyperPlan facade "
-                   "(ROADMAP.md section 1 item 8h)")]
+                   "(ROADMAP.md section 1 item 8h)"),
+                  (args.mesh == "auto" and not args.continuous,
+                   "--mesh auto without --continuous: the fixed batch on a "
+                   "mesh is the facade's Supernode.generate (ROADMAP.md "
+                   "section 1 item 8h)")]
     for flag, why in not_ported:
         if flag:
             raise SystemExit(f"not ported yet: {why}")
+    mesh, device = (join_mesh(args.device) if args.mesh == "auto"
+                    else (None, args.device))
     try:
-        device = resolve_device(args.device)
+        _serve(args, mesh, device)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _serve(args, mesh, device):
+    """The launcher's run on ``device`` (on every rank of ``mesh``)."""
+    try:
+        device = resolve_device(device)
     except RuntimeError as e:
         raise SystemExit(str(e))
+    rank0 = mesh is None or mesh.get_rank() == 0
+    log = print if rank0 else (lambda *a, **k: None)
 
     try:
         cfg = get_config(args.arch)
@@ -154,7 +190,7 @@ def main(argv=None):
             cfg, torch.Generator(device=device).manual_seed(0))
         if args.continuous:
             runner = HyperServe(cfg, params, serve_cfg=serve_config(args),
-                                device=device)
+                                device=device, mesh=mesh)
             obs = runner.obs()
         else:
             runner = Generator(
@@ -168,17 +204,17 @@ def main(argv=None):
         obs.trace.enable()
     try:
         if args.continuous:
-            run_continuous(runner, cfg, args)
+            run_continuous(runner, cfg, args, log)
         else:
             run_fixed(runner, args)
     finally:
         if args.trace:
             # export validates the payload before writing (assert inside)
-            print(f"trace: {obs.trace.export(args.trace)} "
-                  f"({len(obs.trace.events())} events, "
-                  f"{obs.trace.dropped} dropped)")
+            log(f"trace: {obs.trace.export(args.trace)} "
+                f"({len(obs.trace.events())} events, "
+                f"{obs.trace.dropped} dropped)")
         if args.metrics:
-            print(obs.metrics.dump_prometheus(), end="")
+            log(obs.metrics.dump_prometheus(), end="")
 
 
 if __name__ == "__main__":

@@ -40,12 +40,12 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import os
 
 from repro_torch.api.errors import PlanError
 from repro_torch.configs.base import SHAPES, ShapeConfig, get_config
 from repro_torch.core.hypershard import ShardingPlan
 from repro_torch.core.offload import OffloadConfig
+from repro_torch.launch.mesh import join_mesh
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.trainer import TrainConfig, train
 
@@ -53,24 +53,6 @@ FACADE = "(ROADMAP.md section 1 item 8h: the facade)"
 PIPELINE = "(ROADMAP.md section 1 item 8f: the 1F1B pipeline)"
 # the ShardingPlans the reference's presets lower to (repro.api.plans)
 PLANS = {"fsdp_tp": ShardingPlan(), "tp_only": ShardingPlan(fsdp=None)}
-
-
-def join_mesh(device):
-    """``--mesh auto``: the mesh over ``torchrun``'s ranks, or None for
-    one rank.  Returns (mesh, device)."""
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world == 1:
-        return None, device
-    import torch
-    import torch.distributed as dist
-
-    from repro_torch.launch.mesh import make_host_mesh
-    on_cpu = device is not None and str(device) == "cpu"
-    if not on_cpu:
-        device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
-        torch.cuda.set_device(device)
-    dist.init_process_group("gloo" if on_cpu else "nccl")
-    return make_host_mesh((1, 1)), device
 
 
 def main(argv=None):

@@ -1,6 +1,6 @@
 """GQA / MHA / sliding-window attention with KV cache.
 
-The port of ``repro.models.attention`` on one device.  Entry modes share
+The port of ``repro.models.attention``.  Entry modes share
 one parameter set:
   - ``attn_forward``       : full-sequence (training)
   - ``attn_prefill``       : full-sequence, returns the populated KV cache
@@ -13,7 +13,12 @@ Caches and pool leaves are written in place: the reference returns the
 rewritten array (``dynamic_update_slice`` / ``.at[bidx, off].set``) from
 a step that donates it, so an in-place write keeps the same memory and the
 same result without a copy.  Under a mesh, ``full_attention`` takes the
-reference's ring or head-sharded modes (:func:`set_attention_mode`).
+reference's ring or head-sharded modes (:func:`set_attention_mode`); the
+paged steps take DTensor params and pool leaves (HyperServe on a mesh):
+q, k and v come out of the column-sharded projections, each rank writes
+its own KV heads into its shard of the pool (:func:`write_pages`), the
+fused kernels run on each rank's heads under ``local_map``, and the
+row-sharded ``wo`` leaves a partial sum that DTensor reduces.
 """
 from __future__ import annotations
 
@@ -21,8 +26,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.meshctx import constrain, current_mesh, mesh_axis_size
-from repro_torch.kernels import ops
+from repro_torch.core.meshctx import (constrain, current_mesh, is_dtensor,
+                                      local_placed, mesh_axis_size)
+from repro_torch.kernels import ops, sharded_on
 from repro_torch.models.common import apply_rope, dense_init, dtype_of
 
 
@@ -183,6 +189,21 @@ def attn_decode(p, x, pos: DecodePosition, cfg, cache, *,
     return out.reshape(B, 1, H * hd) @ p["wo"]
 
 
+def write_pages(pool, bidx, off, val) -> None:
+    """``pool[bidx, off] = val`` in place: a one-layer pool view (N, bs, KV,
+    hd), (block, offset) index tensors and ``val`` (*idx, KV, hd).  On a
+    DTensor pool each rank writes its own KV heads (all of them where the
+    pool replicates) from ``val`` placed to match, into its local shard:
+    DTensor has no sharding rule for an index_put into a tensor sharded on
+    a dim it does not index, and the shard is a view of the pool's own
+    storage."""
+    if is_dtensor(pool):
+        val = local_placed(val, pool.device_mesh,
+                           sharded_on(pool, 2, val.dim() - 2))
+        pool = pool.to_local()
+    pool[bidx, off] = val
+
+
 def _gather_pages(pool, block_tables):
     """Dense (B, W * block, KV, hd) copy of each row's pages."""
     B, W = block_tables.shape
@@ -210,8 +231,8 @@ def attn_decode_paged(p, x, positions, cfg, kv, block_tables, *,
     bidx = block_tables.gather(
         1, (positions // block_size)[:, None].long())[:, 0].long()
     off = (positions % block_size).long()
-    kv["k"][bidx, off] = k[:, 0]
-    kv["v"][bidx, off] = v[:, 0]
+    write_pages(kv["k"], bidx, off, k[:, 0])
+    write_pages(kv["v"], bidx, off, v[:, 0])
     lengths = (positions + 1).to(torch.int32)
     if kernels == "fused":
         out = ops.paged_decode_attention(q, kv["k"], kv["v"], block_tables,
@@ -275,8 +296,8 @@ def attn_prefill_paged(p, x, starts, limits, cfg, kv, block_tables, *,
     bidx, off, _ = paged_chunk_indices(positions, limits, block_tables,
                                        block_size=block_size)
     bidx, off = bidx.long(), off.long()
-    kv["k"][bidx, off] = k
-    kv["v"][bidx, off] = v
+    write_pages(kv["k"], bidx, off, k)
+    write_pages(kv["v"], bidx, off, v)
     if kernels == "fused":
         out = ops.ragged_prefill_attention(
             q, kv["k"], kv["v"], block_tables, starts.to(torch.int32),

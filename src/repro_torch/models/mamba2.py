@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.meshctx import local_index, local_index_put
 from repro_torch.kernels import ops
 from repro_torch.models.common import (causal_conv1d, conv1d_decode_step,
                                        dense_init, dtype_of, rms_norm)
@@ -131,17 +132,29 @@ def init_mamba2_cache(cfg, batch: int, dtype, device):
 def gather_slot_rows(cache, slots):
     """Per-row copy of the per-seat state for a prefill chunk batch;
     ``slots`` (P,) holds each row's seat, filler rows the null seat (the
-    last row of every leaf; the index is clamped to it)."""
+    last row of every leaf; the index is clamped to it).  On a mesh each
+    rank gathers from its own shard of the seat leaves."""
     idx = slots.long().clamp(0, cache["state"].shape[0] - 1)
-    return {k: v[idx] for k, v in cache.items()}, idx
+    return {k: local_index(v, (idx,)) for k, v in cache.items()}, idx
 
 
 def scatter_slot_rows(cache, idx, new) -> None:
     """Write each row's new state into its seat, in place.  Live rows hold
     distinct seats; filler rows all write the null seat, which no request
-    owns, so their writes are dropped from every live seat."""
+    owns, so their writes are dropped from every live seat.  On a mesh
+    each rank writes its own shard of the seat leaves."""
     for k, v in new.items():
-        cache[k][idx] = v.to(cache[k].dtype)
+        local_index_put(cache[k], (idx,), v)
+
+
+def conv_tail(xp, off, K: int):
+    """Each row's K-1 conv inputs from index ``off`` of ``xp`` (P, T, ch):
+    the trailing context a chunk leaves for the next (its channels keep
+    ``xp``'s placement on a mesh)."""
+    P = xp.shape[0]
+    rows = off[:, None] + torch.arange(K - 1, device=off.device)[None, :]
+    return local_index(xp, (torch.arange(P, device=off.device)[:, None],
+                            rows))
 
 
 def mamba2_prefill_chunk(p, x, starts, limits, slots, cfg, cache):
@@ -166,9 +179,7 @@ def mamba2_prefill_chunk(p, x, starts, limits, slots, cfg, cache):
     # [limit-(K-1), limit) starts at index limit - start, clamped to [0, C]
     # as the reference's dynamic_slice clamps (a non-final chunk keeps its
     # own last K-1 inputs)
-    off = (limits - starts).long().clamp(0, C)
-    rows = off[:, None] + torch.arange(K - 1, device=x.device)[None, :]
-    conv_tail = xp[torch.arange(P, device=x.device)[:, None], rows]
+    tail = conv_tail(xp, (limits - starts).long().clamp(0, C), K)
     xbc, _ = causal_conv1d(xbc, p["conv_w"], cache=st["conv"])
     xs, Bm, Cm, dt, A = _scan_inputs(p, xbc, dt, cfg, di)
     pos = starts[:, None] + torch.arange(C, device=x.device)[None, :]
@@ -177,7 +188,7 @@ def mamba2_prefill_chunk(p, x, starts, limits, slots, cfg, cache):
     y, fin = ops.ssd_scan(xh, dt, A, Bm, Cm, chunk=_chunk(s.chunk_size, C),
                           init_state=st["state"])
     out = _out(p, y, xh, z, cfg)
-    scatter_slot_rows(cache, idx, {"state": fin, "conv": conv_tail})
+    scatter_slot_rows(cache, idx, {"state": fin, "conv": tail})
     return out
 
 

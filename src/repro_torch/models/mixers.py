@@ -24,6 +24,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ATTN, LOCAL_ATTN, MLA, RGLRU, SSD
+from repro_torch.core.meshctx import is_dtensor, local_placed
 from repro_torch.models import attention, mamba2 as m2, mla as mla_mod, \
     rglru as rg_mod
 
@@ -285,6 +286,9 @@ def _gate_slot_update(state, new, slot_mask) -> None:
     """
     for k, v in new.items():
         old = state[k]
+        if is_dtensor(old):         # a mesh: this rank's shard of the seats
+            v = local_placed(v, old.device_mesh, old.placements)
+            old = old.to_local()
         v = v.to(old.dtype)
         if slot_mask is not None:
             m = slot_mask.reshape((-1,) + (1,) * (v.ndim - 1))

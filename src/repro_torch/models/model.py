@@ -1,4 +1,4 @@
-"""The causal LM, PyTorch port of ``repro.models.model`` on one device.
+"""The causal LM, PyTorch port of ``repro.models.model``.
 
 Parameters keep the reference's stacked layout: ``params["seg{i}"]`` is a
 tuple of per-sublayer dicts whose leaves carry a leading ``repeat`` axis,
@@ -27,9 +27,13 @@ musicgen-large's stubbed frontends).
 under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of
 the scan body), so a layer's activations are recomputed in the backward
 pass; the layer returns its MoE loss terms as values, which the
-recompute then drops instead of adding twice.  Unrolling and meshes,
-which shape the reference's compiled programs, have no counterpart in
-eager PyTorch.
+recompute then drops instead of adding twice.  Unrolling, which shapes
+the reference's compiled programs, has no counterpart in eager PyTorch.
+
+The paged steps take the same code on a mesh (HyperServe tensor-parallel,
+its params and pool leaves DTensors, the step under ``use_mesh``): DTensor
+propagates the projections and reductions, and the mixers do their pool
+writes, seat gathers and kernel calls on local shards.
 """
 from __future__ import annotations
 
@@ -40,7 +44,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import DENSE_FFN, MOE_FFN, NO_FFN
-from repro_torch.core.meshctx import constrain, replicated
+from repro_torch.core.meshctx import constrain, is_dtensor, replicated
 from repro_torch.core.tree import tree_map
 from repro_torch.models import mixers as MX, moe as moe_mod
 from repro_torch.models.attention import DecodePosition
@@ -269,6 +273,15 @@ def decode_step(params, token, pos: int, cfg, caches, *,
     return x @ _unembed(params, cfg).T
 
 
+def _embed_tokens(params, tokens):
+    """The serving steps' embedding lookup.  On a mesh the table's rows
+    are sharded over ``model``: each rank looks up the tokens its rows
+    hold and the masked partial sums are reduced at once (an all-reduce
+    of the (B, S, D) activations, not a gather of the table), before
+    anything else reads them twice."""
+    return replicated(F.embedding(tokens.long(), params["embed"]))
+
+
 def _unembed(params, cfg):
     return params["embed"] if cfg.tie_embeddings else params["unembed"]
 
@@ -288,7 +301,7 @@ def decode_step_paged(params, tokens, positions, cfg, kv_pools, block_tables,
     fused decode hook takes its composed path).  Returns logits
     (B, 1, V_pad).
     """
-    x = F.embedding(tokens.long(), params["embed"])
+    x = _embed_tokens(params, tokens)
     for mixer, ffn, sub_p, kv in _layers(params, cfg, kv_pools):
         spec = MX.get_mixer(mixer)
         x = x + spec.decode_paged(
@@ -316,7 +329,7 @@ def prefill_chunk_paged(params, tokens, starts, limits, slots, cfg, kv_pools,
     ``kernels`` as in :func:`decode_step_paged`.
     """
     P, C = tokens.shape
-    x = F.embedding(tokens.long(), params["embed"])
+    x = _embed_tokens(params, tokens)
     for mixer, ffn, sub_p, kv in _layers(params, cfg, kv_pools):
         spec = MX.get_mixer(mixer)
         x = x + spec.prefill_paged(
@@ -328,5 +341,9 @@ def prefill_chunk_paged(params, tokens, starts, limits, slots, cfg, kv_pools,
     # row r's last in-chunk prompt token sits at chunk index
     # min(limit, start + C) - 1 - start (clamped for filler rows)
     last = (torch.minimum(limits, starts + C) - 1 - starts).clamp(0, C - 1)
+    # on a mesh the rows are picked from the replicated activations' local
+    # copy (DTensor has no rule for this advanced index), the same on every
+    # rank, which the unembedding then takes as replicated
+    x = replicated(x).to_local() if is_dtensor(x) else x
     x_last = x[torch.arange(P, device=x.device), last.long()]    # (P, D)
     return x_last @ _unembed(params, cfg).T

@@ -22,8 +22,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.common import (causal_conv1d, conv1d_decode_step,
                                        dense_init, dtype_of)
-from repro_torch.models.mamba2 import (_softplus, gather_slot_rows,
-                                       scatter_slot_rows)
+from repro_torch.models.mamba2 import (_softplus, conv_tail,
+                                       gather_slot_rows, scatter_slot_rows)
 
 
 def init_rglru(cfg, gen: torch.Generator, *, lead=()):
@@ -95,7 +95,7 @@ def rglru_prefill_chunk(p, x, starts, limits, slots, cfg, cache):
     seat); each row's conv tail is sliced at its limit so padding inputs
     never leak into the next chunk.  Returns the block output (P, C, D).
     """
-    P, C, _ = x.shape
+    C = x.shape[1]
     st, idx = gather_slot_rows(cache, slots)
     gate = F.gelu(x @ p["w_gate"], approximate="tanh")
     xb = x @ p["w_x"]
@@ -103,16 +103,14 @@ def rglru_prefill_chunk(p, x, starts, limits, slots, cfg, cache):
     xp = torch.cat([st["conv"].to(xb.dtype), xb], dim=1)     # (P, C+K-1, W)
     # the tail covering [limit-(K-1), limit) starts at index limit - start
     # of xp, clamped to [0, C] as the reference's dynamic_slice clamps
-    off = (limits - starts).long().clamp(0, C)
-    rows = off[:, None] + torch.arange(K - 1, device=x.device)[None, :]
-    conv_tail = xp[torch.arange(P, device=x.device)[:, None], rows]
+    tail = conv_tail(xp, (limits - starts).long().clamp(0, C), K)
     xb, _ = causal_conv1d(xb, p["conv_w"], cache=st["conv"])
     ig, ag = _gates(p, xb)
     pos = starts[:, None] + torch.arange(C, device=x.device)[None, :]
     ag = ag * (pos < limits[:, None])[..., None]
     h, fin = ops.rglru_scan(xb, ig, ag, _log_a(p), init_state=st["state"])
     y = (h * gate) @ p["w_out"]
-    scatter_slot_rows(cache, idx, {"state": fin, "conv": conv_tail})
+    scatter_slot_rows(cache, idx, {"state": fin, "conv": tail})
     return y
 
 

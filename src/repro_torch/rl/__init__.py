@@ -17,10 +17,10 @@ from repro_torch.rl.buffer import Rollout, RolloutBuffer, group_advantages
 from repro_torch.rl.learner import GRPOLearner, grpo_loss, make_rl_step
 from repro_torch.rl.publish import WeightPublisher
 from repro_torch.rl.rollout import RolloutEngine, RolloutGroup
-from repro_torch.rl.session import RLSession
+from repro_torch.rl.session import RLSession, serving_mesh_for
 
 __all__ = [
-    "RLConfig", "RLSession",
+    "RLConfig", "RLSession", "serving_mesh_for",
     "RolloutEngine", "RolloutGroup",
     "WeightPublisher",
     "RolloutBuffer", "Rollout", "group_advantages",

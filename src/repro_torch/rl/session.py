@@ -33,6 +33,27 @@ from repro_torch.serve.runtime import resolve_device
 
 RewardFn = Callable[[List[int], List[int]], float]
 
+
+def serving_mesh_for(mesh):
+    """The actor's serving mesh: the same ranks, ``model`` axis only.
+
+    Decoding is tensor-parallel only (the serving leg drops fsdp), so a
+    learner mesh's data axes carry no serving meaning, and the serving
+    runtime refuses them (``serve.engine.check_data_axis_serving``).  A
+    mesh whose non-model axes are all 1 is returned as it is; any other
+    becomes the flat ``("data", "model")`` view of shape ``(1, n)`` over
+    the same ranks in the same order (a new ``DeviceMesh``: every rank of
+    the mesh must call this)."""
+    if mesh is None:
+        return None
+    names = tuple(mesh.mesh_dim_names or ())
+    if all(n == 1 for a, n in zip(names, mesh.shape) if a != "model"):
+        return mesh
+    from torch.distributed.device_mesh import DeviceMesh
+    ranks = mesh.mesh.flatten().reshape(1, -1)
+    return DeviceMesh(mesh.device_type, ranks,
+                      mesh_dim_names=("data", "model"))
+
 NOT_PORTED = ("actor/learner roles are ROADMAP.md section 1 item 8e "
               "(mpmd groups and disaggregation), a learner on a mesh item "
               "8d, plans the facade's item 8h")

@@ -7,6 +7,8 @@ a network listener would sit one level above this and own nothing more
 than serialisation):
 
     serve = HyperServe(cfg, params)      # on the card; device="cpu" to opt out
+    # or tensor-parallel: HyperServe(cfg, params, mesh=mesh), every rank
+    # submitting the same requests (mesh: launch.mesh.make_host_mesh)
     rid = serve.submit([1, 2, 3], max_new_tokens=16)
     for tok in serve.stream(rid):        # drives the engine lazily
         ...
@@ -61,10 +63,12 @@ class RequestRejected(RuntimeError):
 
 
 class HyperServe:
-    def __init__(self, cfg, params, *, serve_cfg=None, seed: int = 0,
-                 obs: Optional[Observability] = None, device=None):
-        self.engine = ServeEngine(cfg, params, serve_cfg=serve_cfg, seed=seed,
-                                  obs=obs, device=device)
+    def __init__(self, cfg, params, *, serve_cfg=None, mesh=None, plan=None,
+                 seed: int = 0, obs: Optional[Observability] = None,
+                 device=None):
+        self.engine = ServeEngine(cfg, params, serve_cfg=serve_cfg, mesh=mesh,
+                                  plan=plan, seed=seed, obs=obs,
+                                  device=device)
 
     def obs(self) -> Observability:
         """The HyperTrace hub this server reports into."""

@@ -127,3 +127,70 @@ def _seat(dcaches, pcaches):
             d[:, :, :n] = p[:, :, p.shape[2] - n:].to(d.dtype)
         return d
     return tree_map(seat_leaf, dcaches, pcaches)
+
+
+# ---------------------------------------------------------------------------
+# HyperServe on a mesh: the data-axis guard, the pool's shardings and the
+# logits' vocab axis (the reference's serve/engine.py helpers)
+# ---------------------------------------------------------------------------
+def check_data_axis_serving(mesh) -> None:
+    """Refuse paged serving on a mesh with a non-trivial axis other than
+    ``model``.  Serving is tensor-parallel only: the decode batch is one
+    grid of seats shared by every rank and the paged pool replicates over
+    the data axes, so a data axis of more than one rank holds a second copy
+    of everything and serves nothing more.  Raises
+    :class:`~repro_torch.api.errors.ServePlanError` naming the flat
+    ``(1, n)`` view of the same ranks that serves instead
+    (:func:`repro_torch.rl.session.serving_mesh_for`)."""
+    from repro_torch.api.errors import ServePlanError
+    bad = {a: int(n) for a, n in zip(mesh.mesh_dim_names, mesh.shape)
+           if a != "model" and int(n) > 1}
+    if bad:
+        raise ServePlanError(
+            f"paged serving is tensor-parallel only, but the mesh carries "
+            f"non-trivial non-model ax{'es' if len(bad) > 1 else 'is'} "
+            f"{bad} (a data axis): every rank of a data group would hold "
+            "the same pool and run the same seats.  Serve on the flat "
+            f"(1, {mesh.size()}) model-only view of the same ranks "
+            "(repro_torch.rl.session.serving_mesh_for builds it).")
+
+
+def make_pool_shardings(mesh, pool_tree, plan):
+    """A :class:`~repro_torch.core.hypershard.NamedSharding` per
+    ``StatePool`` leaf (None without a mesh), each derived by
+    :func:`~repro_torch.core.hypershard.derive_pool` from the leaf's path
+    and shape: KV heads over tp when they divide it, MLA latents
+    replicated, seat state over heads or channels, conv tails over
+    channels; every axis that cannot bind replicates (``derive_pool``
+    records the fallback)."""
+    if mesh is None:
+        return None
+    from repro_torch.core import hypershard as hs
+    from repro_torch.core.layout import layout_for_mesh
+    from repro_torch.core.tree import tree_map_with_path
+    layout = layout_for_mesh(mesh)
+    return tree_map_with_path(
+        lambda p, l: hs.NamedSharding(mesh, hs.derive_pool(
+            p, tuple(l.shape), layout, plan)[0].partition_spec()), pool_tree)
+
+
+def _vocab_axis(cfg, mesh) -> Optional[str]:
+    """The logits' vocab axis: ``"model"`` when it divides the padded
+    vocabulary, else None (the logits replicate, as the reference falls
+    back on an odd ``model`` axis, e.g. 1024 entries over 3 ranks; the
+    unembedding's table then replicates by the same fallback)."""
+    from repro_torch.core.meshctx import mesh_axis_size
+    if mesh is None or "model" not in tuple(mesh.mesh_dim_names or ()):
+        return None
+    n = mesh_axis_size(mesh, "model")
+    return "model" if cfg.padded_vocab % n == 0 else None
+
+
+def full_logits(cfg, mesh, logits):
+    """DTensor ``logits`` (..., V_pad) as a plain tensor of every vocab
+    entry on every rank: placed over :func:`_vocab_axis` (the vocab dim
+    sharded over ``model`` where it divides, else replicated), then
+    gathered."""
+    from repro_torch.core.meshctx import constrain, full_tensor
+    spec = (None,) * (logits.dim() - 1) + (_vocab_axis(cfg, mesh),)
+    return full_tensor(constrain(logits, *spec))

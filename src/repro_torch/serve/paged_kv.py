@@ -11,7 +11,10 @@ The port of ``repro.serve.paged_kv``.  Two pieces:
     paged leaves ``(L, N_blocks, block, ...)`` indexed through block
     tables, slot leaves ``(L, num_slots + 1, ...)`` one row per decode
     seat plus the null seat.  Host-driven page and seat extract/insert
-    serve spill/restore.
+    serve spill/restore.  On a mesh every leaf is a DTensor placed as
+    ``serve.engine.make_pool_shardings`` derives it, and every page and
+    seat operation acts on each rank's local rows (the block and seat
+    dims are never sharded, so a row index means the same on every rank).
 
 Block id 0 is the **null block**: never allocated, the write target for
 inactive batch slots, the padding entry of every block table.  Reads
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.kvcache import HostArchive
+from repro_torch.core.meshctx import is_dtensor, local_index, local_index_put
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.models import mixers as MX
 
@@ -192,26 +196,41 @@ class StatePool:
     Construction resolves the config against the mixer registry
     (:func:`repro_torch.models.mixers.model_state_layout`) — an
     unregistered mixer kind raises a typed ``ServePlanError`` here.
+
+    With ``mesh`` (and the serving ``plan``) every leaf is a DTensor of
+    zeros placed by :func:`~repro_torch.serve.engine.make_pool_shardings`,
+    each rank allocating only its own shard.
     """
 
     def __init__(self, cfg, pcfg: PagedKVConfig, *, num_slots: int = 1,
-                 device):
+                 device, mesh=None, plan=None):
         self.cfg = cfg
         self.pcfg = pcfg
         self.num_slots = num_slots
         self.layout = MX.model_state_layout(cfg)
+        self.mesh = mesh
         dt = getattr(torch, pcfg.dtype)
-        self.state: dict = {
-            seg.name: tuple(spec.init_state(
+
+        def init(dev):
+            return {seg.name: tuple(spec.init_state(
                 cfg, layers=seg.repeat, num_blocks=pcfg.num_blocks,
                 block_size=pcfg.block_size, num_slots=num_slots, dtype=dt,
-                device=device)
+                device=dev)
                 for spec in seg.specs)
-            for seg in self.layout.segments}
+                for seg in self.layout.segments}
+        if mesh is None:
+            self.state: dict = init(device)
+            return
+        from repro_torch.serve.engine import make_pool_shardings
+        shapes = init("meta")
+        self.state = tree_map(
+            lambda t, s: _zeros_on(t, s.mesh, s.placements, device), shapes,
+            make_pool_shardings(mesh, shapes, plan))
 
     def hbm_bytes(self) -> int:
+        """Bytes of the pool on this rank (its local shards on a mesh)."""
         return sum(a.numel() * a.element_size()
-                   for a in tree_leaves(self.state))
+                   for a in map(_local, tree_leaves(self.state)))
 
     # -- structural helpers ------------------------------------------------
     # Every pool operation below targets one side of the paged/slot split;
@@ -242,24 +261,24 @@ class StatePool:
 
     # -- host-driven page movement (spill / restore / CoW copy) ------------
     def _idx(self, bids: Sequence[int]) -> torch.Tensor:
-        device = tree_leaves(self.state)[0].device
+        device = _local(tree_leaves(self.state)[0]).device
         return torch.tensor(list(bids), dtype=torch.long, device=device)
 
     def extract_pages(self, bids: Sequence[int]):
         """Copy blocks ``bids`` out of every paged leaf: (L, n, bs, ...);
-        slot sublayers contribute an empty dict."""
+        slot sublayers contribute an empty dict.  On a mesh each leaf is a
+        DTensor of this rank's rows, with its pool leaf's placements."""
         idx = self._idx(bids)
-        return self._collect(False, lambda a: a[:, idx])
+        return self._collect(False, lambda a: _rows(a, (slice(None), idx)))
 
     def insert_pages(self, pages, bids: Sequence[int]) -> None:
         idx = self._idx(bids)
-
-        def put(a, p):
-            a[:, idx] = p.to(a.dtype)
-        self._rewrite(False, put, pages)
+        self._rewrite(False, lambda a, p: _put_rows(a, (slice(None), idx), p),
+                      pages)
 
     def copy_page(self, src: int, dst: int) -> None:
         def cp(a):
+            a = _local(a)
             a[:, dst] = a[:, src]
         self._rewrite(False, cp)
 
@@ -267,14 +286,54 @@ class StatePool:
     def extract_slot(self, slot: int):
         """Copy one decode seat's dense state rows out: leaf (L, 1, ...);
         paged sublayers contribute an empty dict."""
-        return self._collect(True, lambda a: a[:, slot:slot + 1].clone())
+        return self._collect(True, lambda a: _rows(
+            a, (slice(None), slice(slot, slot + 1))))
 
     def insert_slot(self, slot: int, values) -> None:
-        def put(a, v):
-            a[:, slot:slot + 1] = v.to(a.dtype)
-        self._rewrite(True, put, values)
+        self._rewrite(True, lambda a, v: _put_rows(
+            a, (slice(None), slice(slot, slot + 1)), v), values)
 
     def zero_slot(self, slot: int) -> None:
         """Reset one seat's dense state (a newly admitted request must not
         inherit the previous occupant's recurrence)."""
-        self._rewrite(True, lambda a: a[:, slot].zero_())
+        self._rewrite(True, lambda a: _local(a)[:, slot].zero_())
+
+
+def _local(a):
+    """A pool leaf's storage on this rank: a DTensor's local shard (a view
+    of it: writes land in the DTensor), a plain tensor as it is."""
+    return a.to_local() if is_dtensor(a) else a
+
+
+def _zeros_on(like, mesh, placements, device):
+    """A DTensor of zeros shaped as ``like`` (a meta tensor) placed by
+    ``placements`` on ``mesh``, each rank allocating only its own shard."""
+    from torch.distributed.tensor import DTensor, Shard
+    shape = list(like.shape)
+    for n, p in zip(mesh.shape, placements):
+        if isinstance(p, Shard):
+            assert shape[p.dim] % n == 0, (like.shape, placements)
+            shape[p.dim] //= n
+    return DTensor.from_local(
+        torch.zeros(shape, dtype=like.dtype, device=device), mesh,
+        placements, run_check=False, shape=like.shape,
+        stride=like.stride())
+
+
+def _rows(a, index):
+    """A copy of ``a[index]`` (rows of the block or seat dim, which no
+    placement shards); on a DTensor the rows of this rank's shard, as a
+    DTensor with ``a``'s placements."""
+    out = local_index(a, index)
+    # a slice is a view of the pool: copy it; a tensor index copies already
+    return out if any(torch.is_tensor(i) for i in index) else out.clone()
+
+
+def _put_rows(a, index, v) -> None:
+    """``a[index] = v`` in place; on a mesh into this rank's shard, from
+    ``v``'s local shard, which must carry ``a``'s placements (a restore
+    puts back exactly the layout that was spilled)."""
+    if is_dtensor(a) and tuple(v.placements) != tuple(a.placements):
+        raise ValueError(f"restored rows placed {v.placements}, the pool "
+                         f"leaf {a.placements}")
+    local_index_put(a, index, v)

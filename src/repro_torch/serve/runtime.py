@@ -1,7 +1,8 @@
 """HyperServe engine loop: requests in, tokens out (PyTorch port).
 
-The port of ``repro.serve.runtime.ServeEngine`` on one device, without
-mesh, shardings, disaggregation or MPMD groups.  It composes the paged pool
+The port of ``repro.serve.runtime.ServeEngine``, on one device or
+tensor-parallel on a ``DeviceMesh``, without disaggregation or MPMD
+groups.  It composes the paged pool
 (:mod:`repro_torch.serve.paged_kv`), the continuous-batching scheduler
 (:mod:`repro_torch.serve.scheduler`) and the paged model steps
 (:mod:`repro_torch.models.model`) into one iteration:
@@ -22,6 +23,17 @@ kernels, or the composed lowering (gather, then the dense kernels); on the
 card their CUDA kernels, on an explicit ``device="cpu"`` their plain
 versions.
 
+On a mesh (``mesh=``, ``plan=`` a ``ShardingPlan`` with ``fsdp=None``) the
+params are DTensors placed by the plan's rules, the pool's leaves by
+:func:`~repro_torch.serve.engine.make_pool_shardings`, and both steps run
+under :func:`~repro_torch.core.meshctx.use_mesh`: the projections shard
+over ``model`` as DTensor propagates them, and the fused paged kernels and
+the two scans run on each rank's heads or channels under ``local_map``.
+The logits are gathered in full before any pick, so every rank takes the
+same decisions; the scheduler runs SPMD, every rank on the same requests.
+Only the fused lowering of the dense GQA, SSD and RG-LRU families serves
+on a mesh (:func:`check_mesh_serving`).
+
 A finished prompt's full blocks can be retained in a copy-on-write
 **prefix cache**: an identical prompt prefix forks the cached blocks
 (refcount bump, zero copies, zero recompute) and prefills only the tail.
@@ -36,8 +48,11 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ServeConfig
+from repro_torch.api.errors import PlanError, ServePlanError
+from repro_torch.configs.base import MLA, MOE_FFN, ServeConfig
+from repro_torch.core.hypershard import ShardingPlan
 from repro_torch.core.kvcache import HostArchive
+from repro_torch.core.meshctx import use_mesh
 from repro_torch.core.tree import tree_map
 from repro_torch.kernels import ops
 from repro_torch.mem.prefetcher import Prefetcher
@@ -45,6 +60,7 @@ from repro_torch.models import model as M
 from repro_torch.obs import Observability
 from repro_torch.serve.paged_kv import BlockManager, StatePool
 from repro_torch.serve.scheduler import ContinuousScheduler, Request, RequestState
+from repro_torch.train.steps import FACADE
 
 
 def resolve_device(device=None) -> torch.device:
@@ -60,6 +76,63 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available: repro_torch runs on the card "
             "unless the caller passes device='cpu' explicitly")
     return torch.device("cuda")
+
+
+MESH_FAMILIES = ("serving on a mesh takes the fused lowering of the dense "
+                 "GQA, SSD and RG-LRU families; MLA, MoE, the multimodal "
+                 "prefix and the composed lowering on a mesh are ROADMAP.md "
+                 "section 1 item 8c")
+
+
+def _resolve_serve_plan(plan):
+    """The plan a serving engine runs under: ``ShardingPlan(fsdp=None)``
+    for None, else ``plan`` itself, never rewritten.  Raises
+    :class:`~repro_torch.api.errors.ServePlanError` for a plan that shards
+    parameters over fsdp (a one-token decode step would gather every
+    weight each token, with nothing to amortise the gathers over), and
+    :class:`~repro_torch.api.errors.PlanError` for a plan that is not a
+    :class:`~repro_torch.core.hypershard.ShardingPlan` (the facade's
+    ``HyperPlan``)."""
+    if plan is None:
+        return ShardingPlan(fsdp=None)
+    if not isinstance(plan, ShardingPlan):
+        raise PlanError(f"plan={type(plan).__name__}: the port takes a "
+                        f"ShardingPlan; {FACADE}")
+    if plan.fsdp:
+        raise ServePlanError(
+            f"plan shards parameters over fsdp={plan.fsdp}, which the "
+            "serving runtime cannot use: decode steps would all-gather every "
+            "weight each token (fsdp amortises gathers over a whole training "
+            "step; a one-token step has nothing to amortise against), and "
+            "the paged pool shards over tp only.  Use plan.replace("
+            "fsdp=None).")
+    return plan
+
+
+def check_mesh_serving(cfg, mesh, kernel_path: str) -> None:
+    """Refuse, before anything is placed, what does not serve on a mesh
+    yet: a mesh that is not a ``DeviceMesh``, one with a data axis
+    (``serve.engine.check_data_axis_serving``), MLA, MoE, the multimodal
+    prefix and the composed lowering (:class:`ServePlanError` naming
+    ROADMAP item 8c)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.serve.engine import check_data_axis_serving
+    if not isinstance(mesh, DeviceMesh):
+        raise PlanError(f"mesh={type(mesh).__name__}: not a torch "
+                        "DeviceMesh (build one with repro_torch.launch.mesh."
+                        "make_host_mesh)")
+    check_data_axis_serving(mesh)
+    odd = sorted({what for m, f in cfg.block_kinds()
+                  for what, hit in (("MLA", m == MLA), ("MoE", f == MOE_FFN))
+                  if hit})
+    if cfg.frontend_dim:
+        odd.append("the multimodal prefix")
+    if kernel_path != "fused":
+        odd.append(f"the {kernel_path} lowering")
+    if odd:
+        raise ServePlanError(f"{cfg.name}: {', '.join(odd)} on a mesh: not "
+                             f"ported yet; {MESH_FAMILIES}")
 
 
 # ---------------------------------------------------------------------------
@@ -116,11 +189,18 @@ def sample_rows(logits, keys, temps, vocab_hash):
 
 
 class ServeEngine:
+    """The serving loop over one model, on ``device`` (the card unless the
+    caller names another) or tensor-parallel on ``mesh`` under ``plan``
+    (a ``ShardingPlan`` with ``fsdp=None``, the default; every rank builds
+    the engine with the same params and runs the same requests)."""
+
     def __init__(self, cfg, params, *, serve_cfg: Optional[ServeConfig] = None,
                  seed: int = 0, obs: Optional[Observability] = None,
-                 device=None):
+                 device=None, mesh=None, plan=None):
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.mesh = mesh
+        self.plan = _resolve_serve_plan(plan)
         # a bare engine gets a private hub so per-engine counters and the
         # compile ledger stay clean across engines in one process
         self.obs = obs if obs is not None else Observability()
@@ -129,12 +209,14 @@ class ServeEngine:
         # step this engine dispatches takes the same path (and the
         # serve.kernels.* counters pin it exactly)
         self.kernel_path = ops.resolve_paged_path(scfg.kernels)
+        if mesh is not None:
+            check_mesh_serving(cfg, mesh, self.kernel_path)
 
         self.pcfg = scfg.paged_config(model_dtype=cfg.dtype)
         # resolves cfg against the mixer registry; typed ServePlanError for
         # unservable stacks (unregistered mixer kinds)
         self.pool = StatePool(cfg, self.pcfg, num_slots=scfg.max_slots,
-                              device=self.device)
+                              device=self.device, mesh=mesh, plan=self.plan)
         self.layout = self.pool.layout
         # HyperMem: the archive is a bounded host->disk tier stack (0 =
         # unbounded), and a lookahead prefetcher stages restores for
@@ -155,6 +237,9 @@ class ServeEngine:
             needs_pages=self.layout.has_paged_state,
             seed_fn=self._default_seed, obs=self.obs)
         self.params = tree_map(lambda t: t.to(self.device), params)
+        if mesh is not None:
+            from repro_torch.models.bridge import shard_params
+            self.params = shard_params(self.params, mesh, self.plan)
 
         # prefix cache: token-tuple -> block ids (refs held by the cache)
         self._prefix_cache: "OrderedDict[Tuple[int, ...], List[int]]" = \
@@ -172,6 +257,15 @@ class ServeEngine:
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    def _full(self, logits):
+        """A step's logits as a plain tensor holding every vocab entry, the
+        same on every rank of a mesh (gathered over ``model`` where
+        ``serve.engine._vocab_axis`` shards them)."""
+        if self.mesh is None:
+            return logits
+        from repro_torch.serve.engine import full_logits
+        return full_logits(self.cfg, self.mesh, logits)
 
     # ------------------------------------------------------------------
     # tier-movement callbacks (scheduler-driven)
@@ -382,11 +476,13 @@ class ServeEngine:
         with self.obs.trace.span("serve.prefill", track="engine",
                                  rows=len(reqs), bucket=Pb,
                                  rids=[r.rid for r in reqs]):
-            logits = M.prefill_chunk_paged(
-                self.params, self._tensor(toks), self._tensor(starts),
-                self._tensor(limits), self._tensor(slots), self.cfg,
-                self.pool.state, self._tensor(tables),
-                block_size=self.scfg.block_size, kernels=self.kernel_path)
+            with use_mesh(self.mesh):
+                logits = self._full(M.prefill_chunk_paged(
+                    self.params, self._tensor(toks), self._tensor(starts),
+                    self._tensor(limits), self._tensor(slots), self.cfg,
+                    self.pool.state, self._tensor(tables),
+                    block_size=self.scfg.block_size,
+                    kernels=self.kernel_path))
         self.prefill_calls += 1
         self.prefill_chunks += len(reqs)
         self.obs.metrics.counter("serve.prefill_calls").inc()
@@ -443,13 +539,15 @@ class ServeEngine:
             t_dec = time.perf_counter()
             with self.obs.trace.span("serve.decode", track="engine",
                                      runners=len(runners)):
-                logits = M.decode_step_paged(
-                    self.params, self._tensor(tokens),
-                    self._tensor(positions), self.cfg, self.pool.state,
-                    self._tensor(tables), block_size=self.scfg.block_size,
-                    slot_mask=(self._tensor(slot_mask)
-                               if self.layout.has_slot_state else None),
-                    kernels=self.kernel_path)
+                with use_mesh(self.mesh):
+                    logits = self._full(M.decode_step_paged(
+                        self.params, self._tensor(tokens),
+                        self._tensor(positions), self.cfg, self.pool.state,
+                        self._tensor(tables),
+                        block_size=self.scfg.block_size,
+                        slot_mask=(self._tensor(slot_mask)
+                                   if self.layout.has_slot_state else None),
+                        kernels=self.kernel_path))
                 if all(r.temperature <= 0 and not r.capture_logprobs
                        for r in runners):
                     # batched greedy: one device op + one transfer for the

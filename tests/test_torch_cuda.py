@@ -36,7 +36,10 @@ unaligned pool; never a plain version on a CUDA tensor), and the
 Generator and HyperServe on the card
 token-identical to the CPU, for qwen2-0.5b, deepseek-v2-lite (MLA + MoE),
 mamba2-370m and recurrentgemma-2b (RG-LRU + LOCAL_ATTN), and one train step on
-a one-rank NCCL mesh (HyperShard) against the unsharded step.
+a one-rank NCCL mesh (HyperShard) against the unsharded step; on that mesh
+too, the paged decode, ragged prefill and both scans handed DTensors
+against their plain versions, and HyperServe against no mesh for the
+dense, SSD and RG-LRU families.
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
 CUDA kernels have no CPU mode; on the CPU the wrappers run the plain
@@ -1628,3 +1631,103 @@ def test_train_step_on_a_one_rank_nccl_mesh(cuda, tmp_path):
                 1.0, b.abs().max().item())
     finally:
         dist.destroy_process_group()
+
+
+@pytest.fixture
+def one_rank_mesh(cuda, tmp_path):
+    """A (1, 1) mesh over a one-rank NCCL group (a file store in the
+    test's temporary directory), destroyed after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        yield make_host_mesh((1, 1))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_serving_kernels_take_dtensors_on_a_one_rank_nccl_mesh(
+        one_rank_mesh, cuda, dtype):
+    """The paged decode, the ragged prefill and the two scans handed
+    DTensor inputs on a (1, 1) NCCL mesh (side inputs plain, as the
+    serving steps hand them over): one launch a call each, under
+    ``local_map``, and a DTensor out whose local tensor is within the
+    limits above of the plain version on the same local tensors."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    def on_mesh(t):
+        return None if t is None else DTensor.from_local(
+            t, one_rank_mesh, [Replicate(), Replicate()], run_check=False)
+
+    k_pool, v_pool, tables, q_dec, q_pre = _inputs(dtype, cuda)
+    lengths = torch.tensor([10, 3, 24], dtype=torch.int32, device=cuda)
+    starts = torch.tensor([0, 5, 16, 0], dtype=torch.int32, device=cuda)
+    limits = torch.tensor([12, 13, 24, 0], dtype=torch.int32, device=cuda)
+    for window in (None, 7):
+        kw = dict(block_size=BS, window=window)
+        for wrapper, ref, args in (
+                (pda.paged_decode_attention, pda.paged_decode_attention_ref,
+                 (q_dec, k_pool, v_pool, tables[:3], lengths)),
+                (rpa.ragged_prefill_attention,
+                 rpa.ragged_prefill_attention_ref,
+                 (q_pre, k_pool, v_pool, tables, starts, limits))):
+            n0 = wrapper.launches
+            got = wrapper(*map(on_mesh, args[:3]), *args[3:], **kw)
+            assert wrapper.launches == n0 + 1
+            assert isinstance(got, DTensor)
+            _assert_close(got.to_local(), ref, args, kw)
+    args, s0 = _ssd_inputs(dtype, cuda, 2, 200, 3, 64, 128, seed=5,
+                           init=True)
+    n0 = ss.ssd_scan.launches
+    y, fin = ss.ssd_scan(*map(on_mesh, args), chunk=100,
+                         init_state=on_mesh(s0))
+    assert ss.ssd_scan.launches == n0 + 1
+    want = ss.ssd_scan_ref(*args, chunk=100, init_state=s0)
+    want32 = ss.ssd_scan_ref(*[a.float() for a in args], chunk=100,
+                             init_state=s0.float())
+    want64 = ss.ssd_scan_ref(*[a.double() for a in args], chunk=100,
+                             init_state=s0.double(), acc=torch.float64)
+    for g, w, w32, w64 in zip((y, fin), want, want32, want64):
+        _ssd_close(g.to_local(), w, w32, w64)
+    args, s0 = _rg_inputs(dtype, cuda, 4, 256, 512, seed=6, init=True,
+                          pad=36)
+    n0 = rs.rglru_scan.launches
+    h, fin = rs.rglru_scan(*map(on_mesh, args), init_state=on_mesh(s0))
+    assert rs.rglru_scan.launches == n0 + 1
+    for i, got in enumerate((h, fin)):
+        _assert_close(got.to_local(),
+                      lambda *a, **k: rs.rglru_scan_ref(*a, **k)[i], args,
+                      dict(init_state=s0), slack=RG_ABS)
+
+
+def test_serving_on_a_one_rank_nccl_mesh_matches_no_mesh(one_rank_mesh,
+                                                         cuda):
+    """Reduced qwen2-0.5b, mamba2-370m and recurrentgemma-2b (3 layers,
+    window 16) in float32: HyperServe on the (1, 1) NCCL mesh under
+    ``ShardingPlan(fsdp=None)`` gives the tokens and the launch counts of
+    the same engine without a mesh (the same kernels on the same
+    tensors)."""
+    kernels = (pda.paged_decode_attention, rpa.ragged_prefill_attention,
+               ss.ssd_scan, rs.rglru_scan)
+    scfg = ServeConfig(block_size=4, num_blocks=48, max_blocks_per_req=8,
+                       max_slots=2, prefill_chunk=4)
+    prompts = [list(range(1, 9)), list(range(5, 10))]
+    for arch, kw in (("qwen2-0.5b", {}), ("mamba2-370m", {}),
+                     ("recurrentgemma-2b",
+                      dict(num_layers=3, sliding_window=16))):
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  dtype="float32", **kw)
+        params = M.init_model(cfg, torch.Generator(device=cuda).manual_seed(0))
+        runs = []
+        for mesh in (None, one_rank_mesh):
+            n0 = [k.launches for k in kernels]
+            serve = HyperServe(cfg, params, serve_cfg=scfg, mesh=mesh)
+            rids = [serve.submit(p, 6) for p in prompts]
+            out = serve.join()
+            runs.append(([out[r] for r in rids],
+                         [k.launches - n for k, n in zip(kernels, n0)]))
+        assert runs[0] == runs[1], arch
+        assert sum(runs[1][1]) > 0, arch
