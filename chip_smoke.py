@@ -255,7 +255,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                  first 4 steps, step wall, tok/s and peak beside phase
                  23's;
   38b. serve mesh — HyperServe on 38a's (1, 1) mesh (the same one-rank
-                 group, destroyed after this phase) under
+                 group) under
                  ``ShardingPlan(fsdp=None)``: params and pool leaves
                  DTensors, the paged kernels and the scans under
                  ``local_map``.  qwen2-0.5b bf16, all 24 layers, phase 4's
@@ -275,6 +275,31 @@ Phases, in order; any failure raises and the script exits non-zero:
                  paged decode and ragged prefill at phase 4's shapes
                  (bf16), both scans at the identities' prefill calls (f32),
                  against their plain versions, timed;
+  38c. deepseek mesh — MLA and MoE on the same (1, 1) mesh (the group is
+                 destroyed after this phase): deepseek-v2-lite-16b bf16,
+                 all 27 layers, one copy of its params, phase 13's config
+                 and 16 requests, exactly 27 MLA decodes a decode step,
+                 27 flash a prefill call and 3 x 26 = 78 grouped matmuls a
+                 step and a call (the ragged MoE under ``local_map``);
+                 decode tok/s, median TTFT, the decode-step wall and the
+                 peak beside phase 13's, and a profile.  f32 at
+                 DS_ID_LAYERS (4) layers: tokens identical with and
+                 without the mesh, launches exact, then phase 11's
+                 preemption on the mesh against its ample pool.  Then
+                 deepseek-v2-lite cut to 4 layers, bf16, 4 steps of
+                 2 x 4096 under fsdp_tp: gshard (8 flash forwards and 4
+                 backwards a step, no grouped matmul) and ragged (18
+                 grouped matmuls and 9 of each backward kernel a step),
+                 each within 2^-8 / 4 of phases 26 and 27a's first 4 steps
+                 (or twice a second run without the mesh's distance,
+                 where that is larger: the dQ atomics),
+                 wall, tok/s and peak beside theirs; the f32 identity at
+                 phase 28's shape against no mesh.  Last the deepseek
+                 path's kernels handed DTensors (the MLA decode, the
+                 grouped matmul at decode and prefill rows, its backward's
+                 dx and dw at the train rows, flash's forward and
+                 backward at (192, 128)), against their plain versions,
+                 timed;
   39. rl       — HyperRL, colocated (repro_torch.rl.RLSession): qwen2-0.5b
                  at full width in bf16, 2 iterations of 2 prompts x 4
                  samples of 128 + 64 tokens at temperature 1 (the
@@ -314,8 +339,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                  backward's dx and dw one each at the train shape with
                  phase 27a's launches; phase 23's two flash rows again
                  with phase 38a's launches, named ``_mesh``, and phase
-                 38b's four ``_mesh`` rows with its runs' launches; each
-                 with that run's launches), and ``{"ok": true,
+                 38b's four ``_mesh`` rows with its runs' launches and
+                 phase 38c's seven; each with that run's launches), and
+                 ``{"ok": true,
                  "device": {...}}`` as the last line.
 
 Each phase prints its wall seconds.  It needs one CUDA device and exits non-zero without one.
@@ -2710,27 +2736,39 @@ def serve_launch_want(cfg, steps, calls):
     """Each serving kernel's launches over ``steps`` fused decode steps and
     ``calls`` prefill calls of ``cfg``: per attention layer (ATTN,
     LOCAL_ATTN) one paged decode a step and one ragged prefill a call, per
-    RG-LRU layer one rglru_scan and per SSD layer one ssd_scan a call."""
-    from repro_torch.configs.base import ATTN, LOCAL_ATTN, RGLRU, SSD
+    MLA layer one MLA decode a step and one flash_attention a call (its
+    prefill is composed), per MoE layer three grouped_matmul a step and a
+    call, per RG-LRU layer one rglru_scan and per SSD layer one ssd_scan a
+    call."""
+    from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MLA, MOE_FFN,
+                                          RGLRU, SSD)
     kinds = [m for m, _ in cfg.block_kinds()]
     n_at = sum(m in (ATTN, LOCAL_ATTN) for m in kinds)
+    moe = sum(f == MOE_FFN for _, f in cfg.block_kinds())
     want = {"paged_decode_attention": n_at * steps,
             "ragged_prefill_attention": n_at * calls,
+            "paged_mla_decode_attention": kinds.count(MLA) * steps,
+            "flash_attention": kinds.count(MLA) * calls,
+            "grouped_matmul": 3 * moe * (steps + calls),
             "rglru_scan": kinds.count(RGLRU) * calls,
             "ssd_scan": kinds.count(SSD) * calls}
     return {k: v for k, v in want.items() if v}
 
 
 def serve_wrappers():
-    from repro_torch.kernels.paged_decode_attention import \
-        paged_decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.grouped_matmul import grouped_matmul
+    from repro_torch.kernels.paged_decode_attention import (
+        paged_decode_attention, paged_mla_decode_attention)
     from repro_torch.kernels.ragged_prefill_attention import \
         ragged_prefill_attention
     from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.kernels.ssd_scan import ssd_scan
     return {k.__name__: k for k in (paged_decode_attention,
-                                    ragged_prefill_attention, rglru_scan,
-                                    ssd_scan)}
+                                    ragged_prefill_attention,
+                                    paged_mla_decode_attention,
+                                    flash_attention, grouped_matmul,
+                                    rglru_scan, ssd_scan)}
 
 
 def time_archive(torch, archive):
@@ -2836,11 +2874,14 @@ def tier_runs(torch, cfg, params, tag, scfg, prompts, max_new, want,
     return walls
 
 
-def phase_moe_serve(torch, np):
+def phase_moe_serve(torch, np, mesh=None, summary=None, tag="moe serve"):
     """deepseek-v2-lite-16b (MLA + MoE) at full width in bf16 through
-    HyperServe, fused: one paged_mla_decode_attention per layer and decode
-    step, one flash_attention per layer and prefill call (MLA prefill is
-    composed), three grouped_matmul per MoE layer and step or call."""
+    HyperServe, fused (on ``mesh`` when given): one
+    paged_mla_decode_attention per layer and decode step, one
+    flash_attention per layer and prefill call (MLA prefill is composed),
+    three grouped_matmul per MoE layer and step or call.  ``summary``
+    takes the run's decode tok/s, median TTFT, decode-step wall, tokens
+    and peak device memory (reset before the params are drawn)."""
     from repro_torch.configs.base import MOE_FFN, ServeConfig, get_config
     from repro_torch.core.tree import tree_leaves
     from repro_torch.kernels.flash_attention import flash_attention
@@ -2850,17 +2891,32 @@ def phase_moe_serve(torch, np):
     from repro_torch.models import model as M
     from repro_torch.serve.api import HyperServe
     cfg = get_config(DS_ARCH)
+    if DEVICE == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = M.init_model(
         cfg, torch.Generator(device=DEVICE).manual_seed(SEED))
     sync(torch)
-    n_params = sum(t.numel() for t in tree_leaves(params))
-    log(f"[moe serve] {DS_ARCH} bf16 full width: {n_params / 1e9:.3f} B "
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    log(f"[{tag}] {DS_ARCH} bf16 full width: {n_params / 1e9:.3f} B "
         f"params drawn in {time.perf_counter() - t0:.1f}s")
     scfg = ServeConfig(block_size=BS, num_blocks=DS_NUM_BLOCKS,
                        max_blocks_per_req=DS_TABLE_W, max_slots=DEC_B,
                        prefill_chunk=PRE_C, prefill_batch=PRE_P)
-    serve = HyperServe(cfg, params, serve_cfg=scfg, device=DEVICE)
+    serve = HyperServe(cfg, params, serve_cfg=scfg, device=DEVICE, mesh=mesh)
+    if mesh is not None:
+        # one copy of the 16 B params: on the one-rank mesh every DTensor
+        # leaf is a view of the tensor drawn above
+        shared = sum(a.to_local().data_ptr() == b.data_ptr() for a, b in
+                     zip(tree_leaves(serve.engine.params), leaves))
+        log(f"[{tag}] {shared} of {len(leaves)} param leaves on the mesh "
+            "share the storage of the tensors drawn above")
+        if shared != len(leaves):
+            raise AssertionError(f"{tag}: the mesh copied the params")
+    del params, leaves
     rng = np.random.default_rng(SEED + 8)
     serve_all(serve, make_prompts(rng, 2, 50, 60, cfg.vocab_size), 4)  # warm
     prompts = make_prompts(rng, DS_REQUESTS, *DS_PROMPT, cfg.vocab_size)
@@ -2891,7 +2947,11 @@ def phase_moe_serve(torch, np):
     finished = sum(serve.state(r) == "finished" for r in rids)
     peak = (torch.cuda.max_memory_allocated() / 2**30 if DEVICE == "cuda"
             else 0.0)
-    log(f"[moe serve] {finished}/{len(prompts)} requests finished, {tokens} "
+    if summary is not None:
+        summary.update(decode_tok_s=decode_tokens / decode_s,
+                       ttft_s=ttfts[len(ttfts) // 2], step_s=decode_s / steps,
+                       tokens=outs, peak_gib=peak)
+    log(f"[{tag}] {finished}/{len(prompts)} requests finished, {tokens} "
         f"tokens in {wall:.3f}s ({tokens / wall:.1f} tok/s overall), decode "
         f"{decode_tokens} tokens in {steps} steps, {decode_s:.3f}s "
         f"({decode_tokens / decode_s:.1f} decode tok/s, "
@@ -2905,7 +2965,7 @@ def phase_moe_serve(torch, np):
     want = {"paged_mla_decode_attention": n * steps,
             "flash_attention": n * calls,
             "grouped_matmul": 3 * moe * (steps + calls)}
-    log(f"[moe serve] launches {launches}; expected MLA decode {n} x {steps}"
+    log(f"[{tag}] launches {launches}; expected MLA decode {n} x {steps}"
         f", flash {n} x {calls}, grouped matmul 3 x {moe} x ({steps} + "
         f"{calls}) = {want['grouped_matmul']} ({3 * moe} per decode step "
         f"and per prefill call)")
@@ -3968,52 +4028,15 @@ def phase_train_mesh(torch, np, mesh, train_record, train_summary):
 
     from repro_torch.configs.base import ShapeConfig, get_config
     from repro_torch.core.hypershard import ShardingPlan
-    from repro_torch.core.meshctx import full_tensor
-    from repro_torch.core.tree import tree_flatten_with_path
-    from repro_torch.optim.adamw import AdamWConfig, schedule
     plan = ShardingPlan()
     log(f"[train mesh] mesh {tuple(mesh.shape)} "
         f"{tuple(mesh.mesh_dim_names)} on {mesh.device_type}, "
         f"{dist.get_backend()}, "
         f"plan {plan}")
     cfg = dataclasses.replace(get_config("qwen2-0.5b"), dtype="float32")
-    shape = ShapeConfig("train_identity", TRAIN_ID_S, TRAIN_ID_B,
-                        "train")
-    runs = {}
-    for name, m in (("plain", None), ("mesh", mesh)):
-        params, hist = run_train(torch, cfg, shape, TRAIN_ID_STEPS,
-                                 mesh=m, plan=plan if m else None)
-        runs[name] = ({k: full_tensor(t) for k, t in
-                       tree_flatten_with_path(params)}, hist)
-        del params
-        torch.cuda.empty_cache()
-    worst = max(abs(a[k] - b[k]) / max(1.0, abs(b[k]))
-                for a, b in zip(runs["mesh"][1], runs["plain"][1])
-                for k in ("loss", "grad_norm"))
-    adamw = AdamWConfig(total_steps=TRAIN_ID_STEPS)
-    lrs = [float(schedule(adamw, torch.tensor(t, dtype=torch.int32)))
-           for t in range(1, TRAIN_ID_STEPS + 1)]
-    pa, pb = runs["mesh"][0], runs["plain"][0]
-    big = max(t.abs().max().item() for t in pb.values())
-    bound = (sum(2 * lr * adam_step_bound(adamw.b1, adamw.b2, t)
-                 for t, lr in enumerate(lrs, 1))
-             + 2 * TRAIN_ID_STEPS * big * 2.0 ** -23)
-    dmax = max((pa[k] - pb[k]).abs().max().item() for k in pb)
-    moved = sum(int((pa[k] != pb[k]).sum()) for k in pb)
-    log(f"[train mesh] f32 identity, qwen2-0.5b all {cfg.num_layers} "
-        f"layers, {TRAIN_ID_STEPS} steps of {TRAIN_ID_B} x {TRAIN_ID_S}, "
-        f"(1, 1) mesh vs no mesh: losses and grad norms within "
-        f"{worst:.3e} relative (limit {TRAIN_ID_REL}; a distance above "
-        f"{MESH_F32_NOTE} is a finding), params max |diff| {dmax:.3e} "
-        f"against AdamW's bound {bound:.3e}, {moved} weights differ at "
-        "all; losses "
-        + ", ".join(f"{a['loss']:.7f}/{b['loss']:.7f}" for a, b in
-                    zip(runs["mesh"][1], runs["plain"][1])))
-    if not worst <= TRAIN_ID_REL or not dmax <= bound:
-        raise AssertionError("train mesh: the f32 run on the mesh parts "
-                             "from the run without one")
-    del runs, pa, pb
-    torch.cuda.empty_cache()
+    mesh_train_identity(torch, cfg, ShapeConfig(
+        "train_identity", TRAIN_ID_S, TRAIN_ID_B, "train"), TRAIN_ID_STEPS,
+        mesh, plan, "train mesh")
     rec, summary = [], {}
     launches = phase_train(torch, np, batch=TRAIN_B, seq=TRAIN_S,
                            n_steps=MESH_STEPS, tag="train mesh",
@@ -4036,11 +4059,58 @@ def phase_train_mesh(torch, np, mesh, train_record, train_summary):
     return launches
 
 
+def mesh_train_identity(torch, cfg, shape, n_steps, mesh, plan, tag,
+                        moe_dispatch="gshard"):
+    """The f32 identity of a mesh train run: ``n_steps`` steps of ``cfg``
+    (float32) at ``shape`` through ``trainer.train`` without a mesh and on
+    ``mesh`` under ``plan``: losses and grad norms within TRAIN_ID_REL,
+    params within AdamW's bound; the distance is printed (above
+    MESH_F32_NOTE it is a finding)."""
+    from repro_torch.core.meshctx import full_tensor
+    from repro_torch.core.tree import tree_flatten_with_path
+    from repro_torch.optim.adamw import AdamWConfig, schedule
+    runs = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        params, hist = run_train(torch, cfg, shape, n_steps,
+                                 moe_dispatch=moe_dispatch, mesh=m,
+                                 plan=plan if m else None)
+        runs[name] = ({k: full_tensor(t) for k, t in
+                       tree_flatten_with_path(params)}, hist)
+        del params
+        torch.cuda.empty_cache()
+    worst = max(abs(a[k] - b[k]) / max(1.0, abs(b[k]))
+                for a, b in zip(runs["mesh"][1], runs["plain"][1])
+                for k in ("loss", "grad_norm"))
+    adamw = AdamWConfig(total_steps=n_steps)
+    lrs = [float(schedule(adamw, torch.tensor(t, dtype=torch.int32)))
+           for t in range(1, n_steps + 1)]
+    pa, pb = runs["mesh"][0], runs["plain"][0]
+    big = max(t.abs().max().item() for t in pb.values())
+    bound = (sum(2 * lr * adam_step_bound(adamw.b1, adamw.b2, t)
+                 for t, lr in enumerate(lrs, 1))
+             + 2 * n_steps * big * 2.0 ** -23)
+    dmax = max((pa[k] - pb[k]).abs().max().item() for k in pb)
+    moved = sum(int((pa[k] != pb[k]).sum()) for k in pb)
+    log(f"[{tag}] f32 identity, {cfg.name} {cfg.num_layers} layers, "
+        f"{moe_dispatch if cfg.moe else 'dense'}, {n_steps} steps of "
+        f"{shape.global_batch} x {shape.seq_len}, "
+        f"{tuple(mesh.shape)} mesh vs no mesh: losses and grad norms within "
+        f"{worst:.3e} relative (limit {TRAIN_ID_REL}; a distance above "
+        f"{MESH_F32_NOTE} is a finding), params max |diff| {dmax:.3e} "
+        f"against AdamW's bound {bound:.3e}, {moved} weights differ at "
+        "all; losses "
+        + ", ".join(f"{a['loss']:.7f}/{b['loss']:.7f}" for a, b in
+                    zip(runs["mesh"][1], runs["plain"][1])))
+    if not worst <= TRAIN_ID_REL or not dmax <= bound:
+        raise AssertionError(f"{tag}: the f32 run on the mesh parts from "
+                             "the run without one")
+
+
 @contextlib.contextmanager
 def one_rank_group():
     """A one-rank process group (NCCL on the card; initialised from a file
     in a temporary directory: no port, no network) and the (1, 1) mesh of
-    ``make_host_mesh`` over it, for phases 38a and 38b; the group is
+    ``make_host_mesh`` over it, for phases 38a, 38b and 38c; the group is
     destroyed when they are done."""
     import shutil
     import tempfile
@@ -4067,16 +4137,19 @@ def one_rank_group():
 MESH_RG_PROMPTS = 4
 
 
-def mesh_identity(torch, np, tag, arch, scfg, prompts, mesh):
-    """One f32 identity of phase 38b: ``arch`` at full width through
-    HyperServe without a mesh and on ``mesh``, greedy tokens identical
-    (the same kernels on the same tensors), and on the mesh exactly the
-    serving launches ``serve_launch_want`` gives for its decode steps and
-    prefill calls.  Returns (launches, params, cfg)."""
+def mesh_identity(torch, np, tag, arch, scfg, prompts, mesh, layers=None):
+    """One f32 identity of phases 38b and 38c: ``arch`` at full width
+    (``layers`` of its layers, all when None) through HyperServe without a
+    mesh and on ``mesh``, greedy tokens identical (the same kernels on the
+    same tensors), and on the mesh exactly the serving launches
+    ``serve_launch_want`` gives for its decode steps and prefill calls.
+    Returns (launches, params, cfg)."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as M
     from repro_torch.serve.api import HyperServe
     cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     params = M.init_model(
         cfg, torch.Generator(device=DEVICE).manual_seed(SEED))
     wrappers = serve_wrappers()
@@ -4176,7 +4249,8 @@ def phase_serve_mesh(torch, np, mesh, serve_summary):
     return runs, mesh_kernel_rows(torch, mesh)
 
 
-def phase_preempt_mesh(torch, np, cfg, params, mesh):
+def phase_preempt_mesh(torch, np, cfg, params, mesh,
+                       tag="serve mesh preempt"):
     """Phase 11's forced preemption (PREEMPT_BLOCKS blocks for its four
     requests, the host tier) on the mesh: the archive holds each leaf's
     local shard and rebuilds the DTensor it spilled; tokens identical to
@@ -4196,13 +4270,13 @@ def phase_preempt_mesh(torch, np, cfg, params, mesh):
     m = tight.engine.obs.metrics
     spills, restores = (int(m.counter("serve.spills").value),
                         int(m.counter("serve.restores").value))
-    log(f"[serve mesh preempt] pool {PREEMPT_BLOCKS - 1} blocks on the "
+    log(f"[{tag}] pool {PREEMPT_BLOCKS - 1} blocks on the "
         f"mesh: preemptions={st['preemptions']} spills={spills} "
         f"restores={restores}, archive host bytes now "
         f"{st['archive_host_bytes']}; tokens identical to the ample pool "
         f"without a mesh: {got == ample}")
     if st["preemptions"] < 1 or spills < 1 or restores < 1 or got != ample:
-        raise AssertionError("serve mesh: the preempted run failed")
+        raise AssertionError(f"{tag}: the preempted run failed")
 
 
 def mesh_kernel_rows(torch, mesh):
@@ -4294,32 +4368,280 @@ def mesh_kernel_rows(torch, mesh):
                            slack=RG_ABS if name == "rglru_scan"
                            else BF16_ABS)
                     for (g, w), w3 in zip(pairs, w32)]
-        err, share = max(e for e, _ in errs), max(sh for _, sh in errs)
-        ms = time_ms(lambda: fn(*m_args, **m_kw), torch,
-                     sleep_cycles=MESH_SLEEP_CYCLES)
-        plain_ms = time_ms(lambda: ref(*args, **kwargs), torch,
-                           sleep_cycles=MESH_SLEEP_CYCLES)
-        library_ms = (time_ms(lib, torch, sleep_cycles=MESH_SLEEP_CYCLES)
-                      if lib is not None else None)
-        bound_ms = cost.bound_seconds(dtype_name) * 1e3
-        walls = [wall_us(lambda: f(*a, **k), torch) for f, a, k in
-                 ((fn, m_args, m_kw), (fn, args, kwargs))]
-        log(f"[serve mesh kernels] {name} on DTensors ({dtype_name}): max "
-            f"abs err {err:.3e} (share {share:.3f} of the limit), {ms:.4f} "
-            f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
-            f"({cost.bound_by(dtype_name)})"
-            + (f", SDPA {library_ms:.4f} ms" if lib is not None else "")
-            + f"; wall a call {walls[0]:.1f} us on DTensors, {walls[1]:.1f} "
-            "us on the plain local tensors")
-        if not share <= 1.0:
-            raise AssertionError(f"{name} on the mesh: error share {share}")
-        rows.append({"name": f"{name}_mesh", "route": "cuda",
-                     "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-                     "replaces": replaces, "launches": 0,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms,
-                     "bound_by": cost.bound_by(dtype_name),
-                     "library_ms": library_ms, "path": path})
+        rows.append(mesh_row(
+            torch, "serve mesh kernels", f"{name}_mesh", name, errs,
+            lambda: fn(*m_args, **m_kw), lambda: fn(*args, **kwargs),
+            lambda: ref(*args, **kwargs), lib, cost, dtype_name, replaces,
+            path))
+    return rows
+
+
+def mesh_row(torch, tag, name, source, errs, on_mesh, local, plain, lib,
+             cost, dtype_name, replaces, path, calls=50):
+    """One ``_mesh`` row of the kernel JSON: a wrapper called on DTensors
+    (``on_mesh``) whose errors against its plain version, ``errs`` [(max
+    abs error, share of the limit)], are checked here (a share above 1
+    raises); its device time on DTensors, the plain version's
+    (``plain``), the library call's (``lib``: a call, a pair to take the
+    second's time from the first's, or None) with the card held busy
+    MESH_SLEEP_CYCLES while each launch is queued, and the bound of
+    ``cost``; the host wall a call on DTensors and on the plain local
+    tensors (``local``) over ``calls`` calls is logged beside."""
+    err, share = max(e for e, _ in errs), max(sh for _, sh in errs)
+    if not share <= 1.0:
+        raise AssertionError(f"{name} on the mesh: error share {share}")
+
+    def device_ms(fn):
+        return time_ms(fn, torch, sleep_cycles=MESH_SLEEP_CYCLES)
+    ms, plain_ms = device_ms(on_mesh), device_ms(plain)
+    if isinstance(lib, tuple):          # (with the part to take away, part)
+        library_ms = device_ms(lib[0]) - device_ms(lib[1])
+    else:
+        library_ms = device_ms(lib) if lib is not None else None
+    bound_ms = cost.bound_seconds(dtype_name) * 1e3
+    walls = [wall_us(f, torch, calls) for f in (on_mesh, local)]
+    log(f"[{tag}] {name} on DTensors ({dtype_name}): max abs err {err:.3e} "
+        f"(share {share:.3f} of the limit), {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+        f"({cost.bound_by(dtype_name)})"
+        + (f", library {library_ms:.4f} ms" if lib is not None else "")
+        + f"; wall a call {walls[0]:.1f} us on DTensors, {walls[1]:.1f} us "
+        "on the plain local tensors")
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}.cu",
+            "replaces": replaces, "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": cost.bound_by(dtype_name), "library_ms": library_ms,
+            "path": path}
+
+
+# phase 38c: deepseek-v2-lite-16b on the one-rank mesh of phases 38a and
+# 38b (MLA and MoE under HyperShard): serving at phase 13's config and
+# requests, the f32 identities at DS_ID_LAYERS and at phase 28's train
+# shape, and MESH_STEPS bf16 train steps under each dispatch against
+# phases 26 and 27a
+def phase_deepseek_mesh(torch, np, mesh, moe_summary, ds_records):
+    """Phase 38c.  deepseek-v2-lite-16b bf16, all 27 layers, through
+    HyperServe on ``mesh`` under ``ShardingPlan(fsdp=None)`` at phase
+    13's config and requests (phase_moe_serve: 27 MLA decodes a decode
+    step, 27 flash a prefill call, 3 x 26 grouped matmuls a step and a
+    call, exactly; one copy of the params, the peak printed), decode
+    tok/s, median TTFT and the decode-step wall beside phase 13's in this
+    process, and a profile; then the f32 identity at DS_ID_LAYERS against
+    the same engine without a mesh (mesh_identity) and through phase 11's
+    forced preemption on the mesh.  Then deepseek-v2-lite cut to
+    DS_TRAIN_LAYERS, bf16, DS_TRAIN_B x DS_TRAIN_S, fsdp_tp: MESH_STEPS
+    steps under gshard (8 flash forwards and 4 backwards a step, no
+    grouped matmul) and under ragged (18 grouped matmuls and 9 of each
+    backward kernel a step), loss and grad norm within MESH_BF16_REL of
+    phases 26 and 27a's first MESH_STEPS steps (``ds_records``: dispatch
+    -> record), or within twice the distance of a second run without the
+    mesh where that is larger (the bf16 backward's dQ atomics), wall,
+    tok/s and peak beside theirs; and the f32 identity at phase 28's
+    shape against no mesh.  Nothing here is caught.
+    Returns (the launches of each run, the kernel rows)."""
+    from repro_torch.configs.base import ServeConfig, ShapeConfig, get_config
+    from repro_torch.core.hypershard import ShardingPlan
+    runs, summary = {}, {}
+    launches, serve, prompts = phase_moe_serve(torch, np, mesh, summary,
+                                               "deepseek mesh")
+    b = moe_summary
+    log(f"[deepseek mesh] against phase 13 (moe serve) in this process: "
+        f"decode {summary['decode_tok_s']:.1f} vs {b['decode_tok_s']:.1f} "
+        f"tok/s, median TTFT {summary['ttft_s']:.3f}s vs "
+        f"{b['ttft_s']:.3f}s, decode-step wall {summary['step_s'] * 1e3:.3f}"
+        f" vs {b['step_s'] * 1e3:.3f} ms "
+        f"({summary['step_s'] / b['step_s']:.2f}x), peak "
+        f"{summary['peak_gib']:.2f} vs {b['peak_gib']:.2f} GiB;"
+        f" bf16 tokens identical to phase 13's: "
+        f"{summary['tokens'] == b['tokens']}")
+    phase_profile(torch, serve, prompts, DS_NEW, "deepseek mesh profile")
+    del serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs[f"{DS_ARCH} mesh"] = launches
+    cfg = get_config(DS_ARCH)
+    id_scfg = ServeConfig(block_size=BS, num_blocks=512,
+                          max_blocks_per_req=ID_TABLE_W, max_slots=ID_SLOTS,
+                          prefill_chunk=PRE_C, prefill_batch=PRE_P)
+    _, params, cfg32 = mesh_identity(
+        torch, np, "deepseek mesh identity", DS_ARCH, id_scfg,
+        make_prompts(np.random.default_rng(SEED + 9), 6, 100, ID_PROMPT_MAX,
+                     cfg.vocab_size), mesh, layers=DS_ID_LAYERS)
+    phase_preempt_mesh(torch, np, cfg32, params, mesh,
+                       "deepseek mesh preempt")
+    del params
+    torch.cuda.empty_cache()
+    plan = ShardingPlan()
+    for dispatch, tag, base_tag in (
+            ("gshard", "deepseek mesh train", "deepseek train"),
+            ("ragged", "deepseek mesh ragged train", "deepseek ragged train")):
+        rec, summ = [], {}
+        runs[f"{DS_ARCH} mesh{' ragged' if dispatch == 'ragged' else ''} "
+             "train"] = phase_train(
+            torch, np, DS_ARCH, DS_TRAIN_LAYERS, DS_TRAIN_B, DS_TRAIN_S,
+            MESH_STEPS, tag, record=rec, moe_dispatch=dispatch, mesh=mesh,
+            plan=plan, summary=summ)
+        base, base_summ = ds_records[dispatch]
+        # two bf16 runs without a mesh part too (the flash backward's dQ
+        # atomics, amplified through deepseek's routing: step 4's grad
+        # norm of phase 26 spans 1.2e-3 relative over five runs on the
+        # H100, PERF.md), so a second run without the mesh measures that
+        # noise here, and the mesh run may part from the first by twice
+        # it where that exceeds MESH_BF16_REL
+        again = []
+        phase_train(torch, np, DS_ARCH, DS_TRAIN_LAYERS, DS_TRAIN_B,
+                    DS_TRAIN_S, MESH_STEPS, f"{base_tag} again",
+                    record=again, moe_dispatch=dispatch)
+        noise, rel = (max(abs(x[0][k] - y[0][k]) / max(1.0, abs(y[0][k]))
+                          for x, y in zip(run, base[:MESH_STEPS])
+                          for k in ("loss", "grad_norm"))
+                      for run in (again, rec))
+        limit = max(MESH_BF16_REL, 2 * noise)
+        log(f"[{tag}] bf16 {DS_TRAIN_B} x {DS_TRAIN_S} on the "
+            f"{tuple(mesh.shape)} mesh against {base_tag} in this process: "
+            f"loss and grad norm within {rel:.3e} relative (a second run "
+            f"without the mesh: {noise:.3e}; limit {limit:.3e}, the larger "
+            f"of {MESH_BF16_REL:.3e} and twice that); median step "
+            f"{summ['median_s']:.4f}s vs {base_summ['median_s']:.4f}s, "
+            f"{summ['tok_s']:.1f} vs {base_summ['tok_s']:.1f} train tok/s, "
+            f"peak {summ['peak_gib']:.2f} vs {base_summ['peak_gib']:.2f} GiB")
+        if len(rec) != MESH_STEPS or not rel <= limit:
+            raise AssertionError(f"{tag}: bf16 run differs by {rel}")
+        torch.cuda.empty_cache()
+    mesh_train_identity(
+        torch, dataclasses.replace(cfg, dtype="float32",
+                                   num_layers=DS_TRAIN_ID_LAYERS),
+        ShapeConfig("train_identity", DS_TRAIN_ID_S, DS_TRAIN_ID_B, "train"),
+        DS_TRAIN_ID_STEPS, mesh, plan, "deepseek mesh train identity")
+    torch.cuda.empty_cache()
+    return runs, ds_mesh_kernel_rows(torch, mesh)
+
+
+def ds_mesh_kernel_rows(torch, mesh):
+    """The ``_mesh`` rows of phase 38c: each wrapper of the deepseek path
+    handed DTensors on ``mesh`` (the side inputs and the group sizes
+    plain, as the steps hand them over) and run under ``local_map``, in
+    bf16: the MLA decode at the serving run's seats (phase 3's inputs),
+    the grouped matmul at a decode step's and a prefill call's w_gate/w_up
+    rows, its backward's dx and dw at the ragged train rows, and flash's
+    forward with its lse and its backward at (192, 128), the train shape.
+    Each: one launch a call, its error against the plain version on the
+    same local tensors (phase 3's limits), its time through the DTensor
+    path (the card held MESH_SLEEP_CYCLES while each is queued), the plain
+    version's, the library call's and the bound of the work these inputs
+    need; the host's wall a call, on DTensors and on plain tensors,
+    logged beside."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import perf_model as pm
+    rep = [Replicate()] * mesh.ndim
+
+    def on_mesh(t):
+        if not (torch.is_tensor(t) and t.is_floating_point()):
+            return t                    # side inputs and ints stay plain
+        return DTensor.from_local(t, mesh, rep, run_check=False)
+    bf16 = torch.bfloat16
+    cfg = get_config(DS_ARCH)
+    m, H = cfg.mla, cfg.num_heads
+    D, F, k = cfg.d_model, cfg.moe.d_ff_expert, cfg.moe.top_k
+    mla = mla_inputs(torch, bf16, cfg)
+    dec = gm_inputs(torch, bf16, cfg, DEC_B * k, D, F, SEED + 10)
+    pre = gm_inputs(torch, bf16, cfg, PRE_P * PRE_C * k, D, F, SEED + 12)
+    x, w, sizes, dy = grouped_bwd_cases(torch, bf16)[0][1]
+    mh, mkv, mdk, mdv = BWD_MLA
+    fl = bwd_inputs(torch, bf16, mh, mkv, mdk, mdv, DS_TRAIN_B, DS_TRAIN_S,
+                    None, SEED + 50)
+    serve_path, train_path = f"{DS_ARCH} mesh", f"{DS_ARCH} mesh train"
+    gm_src, gm_tpu = "grouped_matmul", "src/repro/kernels/grouped_matmul.py:58"
+    fa_tpu = "src/repro/kernels/flash_attention.py:87"
+    cases = (
+        ("paged_mla_decode_attention_mesh", "paged_mla_decode_attention",
+         pda.paged_mla_decode_attention, pda.paged_mla_decode_attention_ref,
+         mla, dict(block_size=BS, scale=mla_scale(cfg)),
+         pda.paged_mla_decode_attention,
+         pm.paged_mla_decode_cost(mla[5].tolist(), num_heads=H,
+                                  kv_lora_rank=m.kv_lora_rank,
+                                  rope_dim=m.qk_rope_head_dim, itemsize=2),
+         sdpa_mla(torch, *mla, mla_scale(cfg)),
+         "src/repro/kernels/paged_decode_attention.py:189", serve_path),
+        ("grouped_matmul_mesh", gm_src, gm.grouped_matmul,
+         gm.grouped_matmul_ref, dec, {}, gm.grouped_matmul,
+         pm.grouped_matmul_cost(dec[2].tolist(), d_in=D, d_out=F,
+                                itemsize=2),
+         grouped_mm_yardstick(torch, *dec), gm_tpu, serve_path),
+        ("grouped_matmul_prefill_mesh", gm_src, gm.grouped_matmul,
+         gm.grouped_matmul_ref, pre, {}, gm.grouped_matmul,
+         pm.grouped_matmul_cost(pre[2].tolist(), d_in=D, d_out=F,
+                                itemsize=2),
+         grouped_mm_yardstick(torch, *pre), gm_tpu, serve_path),
+        ("grouped_matmul_bwd_dx_mesh", "grouped_matmul_bwd",
+         gm.grouped_matmul_bwd_dx, gm.grouped_matmul_bwd_dx_ref,
+         (dy, w, sizes), {}, gm.grouped_matmul_bwd_dx,
+         pm.grouped_matmul_bwd_cost(sizes.tolist(), d_in=D, d_out=F,
+                                    itemsize=2, part="dx"),
+         grouped_bwd_yardstick(torch, "dx", (dy, w, sizes))[0], gm_tpu,
+         f"{DS_ARCH} mesh ragged train"),
+        ("grouped_matmul_bwd_dw_mesh", "grouped_matmul_bwd",
+         gm.grouped_matmul_bwd_dw, gm.grouped_matmul_bwd_dw_ref,
+         (x, dy, sizes), {}, gm.grouped_matmul_bwd_dw,
+         pm.grouped_matmul_bwd_cost(sizes.tolist(), d_in=D, d_out=F,
+                                    itemsize=2, part="dw"),
+         grouped_bwd_yardstick(torch, "dw", (x, dy, sizes))[0], gm_tpu,
+         f"{DS_ARCH} mesh ragged train"),
+        ("flash_attention_train_dk192_dv128_mesh", "flash_attention",
+         fa.flash_attention_lse, fa.flash_attention_lse_ref, fl[:3],
+         dict(causal=True), fa.flash_attention,
+         pm.prefill_visible_cost([0] * DS_TRAIN_B, [DS_TRAIN_S] * DS_TRAIN_B,
+                                 DS_TRAIN_S, num_heads=mh, kv_heads=mkv,
+                                 head_dim=(mdk + mdv) // 2, itemsize=2),
+         sdpa_flash(torch, *fl[:3]), fa_tpu, train_path),
+        ("flash_attention_bwd_dk192_dv128_mesh", "flash_attention_bwd",
+         fa.flash_attention_bwd, fa.flash_attention_bwd_ref, fl,
+         dict(causal=True), fa.flash_attention_bwd,
+         pm.flash_attention_bwd_cost(batch=DS_TRAIN_B, seq_q=DS_TRAIN_S,
+                                     seq_k=DS_TRAIN_S, num_heads=mh,
+                                     kv_heads=mkv, dk=mdk, dv=mdv,
+                                     itemsize=2),
+         sdpa_flash_bwd(torch, *fl), fa_tpu, train_path))
+    rows = []
+    for (name, source, fn, ref, args, kwargs, counter, cost, lib, replaces,
+         path) in cases:
+        m_args = [on_mesh(a) for a in args]
+        n0 = counter.launches
+        got = fn(*m_args, **kwargs)
+        if counter.launches != n0 + 1:
+            raise AssertionError(f"{name}: {counter.launches - n0} "
+                                 "launches, not 1")
+        got = [g.to_local() for g in (got if isinstance(got, tuple)
+                                      else (got,))]
+        want = ref(*args, **kwargs)
+        want = want if isinstance(want, tuple) else (want,)
+        f32 = [a.float() if a.is_floating_point() else a for a in args]
+        want32 = ref(*f32, **kwargs)
+        want32 = want32 if isinstance(want32, tuple) else (want32,)
+        if "bwd" in name and "grouped" in name:
+            f64 = [a.double() if a.is_floating_point() else a for a in args]
+            errs = [scan_grad_parity(torch, "bfloat16", got[0], want[0],
+                                     want32[0], ref(*f64, acc=torch.float64),
+                                     F32_TOL)]
+        elif "bwd" in name:
+            errs = [grad_parity(torch, "bfloat16", g, a, b)
+                    for g, a, b in zip(got, want, want32)]
+        else:               # the output (flash's lse is held in phase 3)
+            errs = [parity(torch, "bfloat16", got[0], want[0], want32[0],
+                           slack=GM_ABS if source == gm_src else BF16_ABS)]
+        del got, want, want32
+        rows.append(mesh_row(
+            torch, "deepseek mesh kernels", name, source, errs,
+            lambda: fn(*m_args, **kwargs), lambda: fn(*args, **kwargs),
+            lambda: ref(*args, **kwargs), lib, cost, "bfloat16", replaces,
+            path, calls=10))
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -4673,8 +4995,9 @@ def main() -> int:
     timed("preempt", phase_preempt, torch, np, cfg32, params32, "preempt",
           True)
     del params32
+    moe_summary = {}
     moe_launches, serve, ds_prompts = timed("moe serve", phase_moe_serve,
-                                            torch, np)
+                                            torch, np, None, moe_summary)
     timed("moe profile", phase_profile, torch, serve, ds_prompts, DS_NEW,
           "moe profile")
     del serve
@@ -4711,15 +5034,20 @@ def main() -> int:
     timed("train identity", phase_train_identity, torch, np)
     torch.cuda.empty_cache()
     ds_train = (DS_ARCH, DS_TRAIN_LAYERS, DS_TRAIN_B, DS_TRAIN_S)
+    ds_records = {"gshard": ([], {}), "ragged": ([], {})}
     ds_train_launches = timed("deepseek train", phase_train, torch, np,
-                              *ds_train, DS_TRAIN_STEPS, "deepseek train")
+                              *ds_train, DS_TRAIN_STEPS, "deepseek train",
+                              None, None, ds_records["gshard"][0], "gshard",
+                              None, None, ds_records["gshard"][1])
     torch.cuda.empty_cache()
     timed("deepseek train profile", phase_train_profile, torch, *ds_train,
           "deepseek train profile")
     torch.cuda.empty_cache()
     ds_ragged_launches = timed(
         "deepseek ragged train", phase_train, torch, np, *ds_train,
-        DS_TRAIN_STEPS, "deepseek ragged train", None, None, None, "ragged")
+        DS_TRAIN_STEPS, "deepseek ragged train", None, None,
+        ds_records["ragged"][0], "ragged", None, None,
+        ds_records["ragged"][1])
     torch.cuda.empty_cache()
     timed("deepseek ragged train profile", phase_train_profile, torch,
           *ds_train, "deepseek ragged train profile", "ragged",
@@ -4770,6 +5098,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         serve_mesh_runs, serve_mesh_rows = timed(
             "serve mesh", phase_serve_mesh, torch, np, mesh, serve_summary)
+        torch.cuda.empty_cache()
+        ds_mesh_runs, ds_mesh_rows = timed(
+            "deepseek mesh", phase_deepseek_mesh, torch, np, mesh,
+            moe_summary, ds_records)
     torch.cuda.empty_cache()
     rl_launches = timed("rl", phase_rl, torch, np)
     torch.cuda.empty_cache()
@@ -4790,16 +5122,18 @@ def main() -> int:
             f"{SSM_ARCH} train": ssm_train_launches,
             f"{RG_ARCH} train": rg_train_launches,
             "qwen2-0.5b rl": rl_launches, f"{DS_ARCH} rl": ds_rl_launches,
-            "qwen2-0.5b mesh train": mesh_launches, **serve_mesh_runs}
+            "qwen2-0.5b mesh train": mesh_launches, **serve_mesh_runs,
+            **ds_mesh_runs}
     # the mesh run launches flash at phase 23's shapes: its rows are phase
     # 3's rows of that shape, with the mesh run's launches
     rows += [dict(row, name=row["name"] + "_mesh",
                   path="qwen2-0.5b mesh train")
              for row in rows if row["path"] == "qwen2-0.5b train"]
-    rows += serve_mesh_rows
+    rows += serve_mesh_rows + ds_mesh_rows
     for row in rows:
         if row["path"] is not None:     # None: timed in phase 3 only
-            key = (row["name"] if row["name"] in SOURCE_OF else
+            name = row["name"].removesuffix("_mesh")
+            key = (name if name in SOURCE_OF else
                    os.path.basename(row["source"])[:-len(".cu")])
             row["launches"] = runs[row["path"]][key]
     log(f"[time] all phases: {time.perf_counter() - t0:.1f}s")

@@ -245,7 +245,9 @@ class ServeConfig:
     # HyperMem hierarchical archive: byte budgets for the preemption
     # archive's host tier (LRU-spills to disk beyond this) and disk tier
     # (a disk full of pinned spill state raises MemCapacityError); 0 =
-    # unbounded
+    # unbounded.  On a mesh each rank stores its own shard of a spilled
+    # leaf, but both budgets count the leaf's global bytes, as the
+    # reference's do, so every rank evicts alike and as with no mesh
     archive_host_bytes: int = 0
     archive_disk_bytes: int = 0
     # predictive restore: stage archived pages for PREEMPTED requests

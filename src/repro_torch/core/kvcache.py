@@ -14,10 +14,12 @@ entries raises a typed :class:`~repro_torch.mem.tiers.MemCapacityError`
 instead of growing host memory without bound.  An entry that comes back
 from disk is pageable memory: correct, only slower to copy.  On a mesh
 (HyperServe's pool as DTensors) each rank archives its own shard of every
-DTensor leaf and the archive keeps the leaf's mesh and placements beside
-it, so that ``fetch`` rebuilds the DTensor exactly as it was spilled: no
-collective on a spill or a restore, host memory and byte counters are
-each rank's own.
+DTensor leaf and the archive keeps the leaf's mesh, placements, global
+shape and stride beside it, so that ``fetch`` rebuilds the DTensor exactly
+as it was spilled: no collective on a spill or a restore, and host memory
+is each rank's own.  The byte counters, the budgets and so the evictions
+and each key's tier count every leaf's global bytes, as the reference's
+do, so they are the same on every rank and the same as with no mesh.
 
 :class:`KVCachePool` is the paper's hierarchical KV cache for one
 attention layer: a **hot window** of the most recent ``hot_window``
@@ -37,7 +39,7 @@ import torch
 
 from repro_torch.core.meshctx import is_dtensor
 from repro_torch.core.tree import tree_leaves, tree_map
-from repro_torch.mem.tiers import DISK, HOST, TierStack
+from repro_torch.mem.tiers import DISK, HOST, TierStack, tree_nbytes
 
 
 @dataclasses.dataclass
@@ -93,7 +95,9 @@ class HostArchive:
 
     def put(self, key, value, *, pinned: bool = True) -> None:
         """Archive the tree ``value`` under ``key``; a DTensor leaf as this
-        rank's shard, its layout kept for :meth:`fetch`."""
+        rank's shard, its layout kept for :meth:`fetch` and its global
+        bytes counted (the reference's ``tree_nbytes`` of the global
+        arrays)."""
         layouts = tree_map(lambda t: _Layout(t) if is_dtensor(t) else None,
                            value)
         if any(v is not None for v in tree_leaves(layouts)):
@@ -101,7 +105,7 @@ class HostArchive:
         try:
             self._tiers.put(key, tree_map(
                 lambda t: to_host(t.to_local() if is_dtensor(t) else t),
-                value), pinned=pinned)
+                value), pinned=pinned, nbytes=tree_nbytes(value))
         finally:
             self._sync_obs()
 
@@ -151,15 +155,18 @@ class HostArchive:
 
 class _Layout:
     """What rebuilds an archived DTensor leaf from its local shard: its
-    mesh and placements (the pool's shards are even)."""
+    mesh, placements, global shape and stride (so that a leaf whose shards
+    are uneven rebuilds right too)."""
 
     def __init__(self, t):
         self.mesh, self.placements = t.device_mesh, tuple(t.placements)
+        self.shape, self.stride = tuple(t.shape), tuple(t.stride())
 
     def rebuild(self, local):
         from torch.distributed.tensor import DTensor
         return DTensor.from_local(local, self.mesh, self.placements,
-                                  run_check=False)
+                                  run_check=False, shape=self.shape,
+                                  stride=self.stride)
 
 
 def _partial_attn(q, k, v):

@@ -16,15 +16,18 @@ DTensor, as a constant does in the reference's SPMD program.
 from __future__ import annotations
 
 import contextlib
-import threading
+import types
 from repro_torch.core.layout import placements_on
 
-_state = threading.local()
+# process-wide, not thread-local: autograd runs a CUDA backward on its own
+# device thread, and a checkpointed layer's recompute there must take the
+# same mesh path (the same constrain points and dispatch) as its forward
+_state = types.SimpleNamespace(mesh=None)
 
 
 def current_mesh():
     """The active ``DeviceMesh``, or None."""
-    return getattr(_state, "mesh", None)
+    return _state.mesh
 
 
 @contextlib.contextmanager
@@ -112,6 +115,16 @@ def local_placed(t, mesh, placements):
     return t.redistribute(mesh, placements).to_local()
 
 
+def as_dtensor(t, mesh):
+    """``t`` as a DTensor on ``mesh``: a plain tensor (the same on every
+    rank) as replicated, with no communication; a DTensor as it is."""
+    if is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
 def local_index(t, index):
     """``t[index]`` where ``index`` picks rows of leading dims that no
     placement shards and keeps ``t``'s rank (a seat index, block and
@@ -137,6 +150,24 @@ def local_index_put(t, index, v) -> None:
         v = local_placed(v, t.device_mesh, t.placements)
         t = t.to_local()
     t[index] = v.to(t.dtype)
+
+
+def split_heads(t, heads: int):
+    """``t`` (..., heads * d) viewed as (..., heads, d).  On a DTensor
+    whose last dim is sharded over a mesh dim whose size does not divide
+    ``heads`` (a column shard that HyperShard's divisibility rule keeps
+    for the product dim, e.g. 4 heads of 96 over 3 ranks), that mesh dim
+    is gathered first: DTensor cannot split a shard across a head
+    boundary, where the reference's partitioner reshards."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate, Shard
+        last = t.dim() - 1
+        pl = [Replicate() if isinstance(p, Shard) and p.dim % t.dim() == last
+              and heads % n else p
+              for p, n in zip(t.placements, t.device_mesh.shape)]
+        if pl != list(t.placements):
+            t = t.redistribute(t.device_mesh, pl)
+    return t.reshape(*t.shape[:-1], heads, t.shape[-1] // heads)
 
 
 def full_tensor(t):

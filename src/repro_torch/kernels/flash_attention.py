@@ -46,7 +46,7 @@ from typing import Optional, Union
 
 import torch
 
-from repro_torch.core.meshctx import is_dtensor
+from repro_torch.core.meshctx import full_tensor, is_dtensor
 from repro_torch.kernels import (DTYPE_CODES, NEG_INF, PLAIN_DEVICES,
                                  SAME_DIMS, attention_problems, build,
                                  count_launch, raise_problems,
@@ -284,15 +284,16 @@ def flash_attention(q, k, v, *, causal: bool = True,
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     When an input requires grad, :class:`FlashAttentionFn` runs instead
     (q_offset 0, (Dk, Dv) in :data:`BWD_PAIRS`, else ``ValueError``).
-    DTensor inputs (a mesh's train forward) run this wrapper on each
-    rank's shards under ``local_map`` (:func:`mesh_placements`).
+    DTensor inputs (a mesh's train forward, MLA's paged prefill on a
+    mesh) run this wrapper on each rank's shards under ``local_map``
+    (:func:`mesh_placements`); a ``q_offset`` tensor is a side input,
+    whole on every rank.
     """
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if is_dtensor(q):
-        if torch.is_tensor(q_offset):
-            raise ValueError("flash_attention: a q_offset tensor takes no "
-                             "DTensor q (the mesh path is the train "
-                             "forward's, q_offset 0)")
+        # a q_offset tensor (MLA's paged prefill) is a side input, the same
+        # on every rank: each rank's call takes it whole
+        q_offset = full_tensor(q_offset) if is_dtensor(q_offset) else q_offset
         qp, _ = mesh_placements(q)
         return _local_map(functools.partial(
             flash_attention, causal=causal, window=window,

@@ -26,7 +26,9 @@ for CUDA tensors and run :func:`grouped_matmul_ref` /
 :func:`grouped_matmul_bwd_ref` for CPU tensors — the device of the input
 decides, never a fallback.  ``grouped_matmul.launches``,
 ``grouped_matmul_bwd_dx.launches`` and ``grouped_matmul_bwd_dw.launches``
-count each entry point's kernel launches.
+count each entry point's kernel launches.  On DTensors (MoE on a mesh)
+every entry point runs on each rank's local shards under ``local_map``
+and counts one launch a rank a call (:func:`mesh_placements`).
 """
 from __future__ import annotations
 
@@ -35,15 +37,20 @@ import functools
 
 import torch
 
+from repro_torch.core.meshctx import is_dtensor
 from repro_torch.kernels import (DTYPE_CODES, PLAIN_DEVICES, build,
-                                 count_launch, raise_problems)
+                                 count_launch, on_local_shards,
+                                 raise_problems)
 
 
 def grouped_matmul_ref(x, w, group_sizes) -> torch.Tensor:
     """Plain version: one f32 matmul per non-empty expert on its slice of
     rows, rounded once to x.dtype (the reference's
     ``ref.grouped_matmul``, without its (T, D, F) gather of every row's
-    weights).  Reads the sizes back to the host, which the kernel does not."""
+    weights).  The sizes may sum to less than T: the rows past the sum
+    belong to no expert and come out as zeros (the kernel leaves them
+    unwritten).  Reads the sizes back to the host, which the kernel does
+    not."""
     T, F = x.shape[0], w.shape[2]
     out = x.new_empty(T, F)
     start = 0
@@ -52,10 +59,15 @@ def grouped_matmul_ref(x, w, group_sizes) -> torch.Tensor:
             out[start:start + n] = (x[start:start + n].float()
                                     @ w[e].float()).to(x.dtype)
         start += n
-    if start != T:
-        raise ValueError(f"grouped_matmul: group sizes sum to {start}, "
-                         f"x has {T} rows")
+    _check_sum("grouped_matmul", start, T, "x")
+    out[start:] = 0
     return out
+
+
+def _check_sum(name: str, total: int, T: int, what: str) -> None:
+    if total > T:
+        raise ValueError(f"{name}: group sizes sum to {total}, {what} has "
+                         f"{T} rows")
 
 
 def grouped_matmul_bwd_dx_ref(dy, w, group_sizes, *, acc=torch.float32):
@@ -63,7 +75,8 @@ def grouped_matmul_bwd_dx_ref(dy, w, group_sizes, *, acc=torch.float32):
     gradient ``dy`` (T, F): one product ``dy_e w[e]^T`` per non-empty
     expert in ``acc`` (float32; float64 the yardstick of the f32
     evaluation's own rounding), rounded once to dy's dtype.  Reads the sizes
-    back to the host."""
+    back to the host.  As in the forward, the sizes may sum to less than
+    T, and the rows past the sum are zeros."""
     T, D = dy.shape[0], w.shape[1]
     dx = dy.new_empty(T, D)
     start = 0
@@ -72,9 +85,8 @@ def grouped_matmul_bwd_dx_ref(dy, w, group_sizes, *, acc=torch.float32):
             dx[start:start + n] = (dy[start:start + n].to(acc)
                                    @ w[e].to(acc).T).to(dy.dtype)
         start += n
-    if start != T:
-        raise ValueError(f"grouped_matmul_bwd: group sizes sum to {start}, "
-                         f"dy has {T} rows")
+    _check_sum("grouped_matmul_bwd", start, T, "dy")
+    dx[start:] = 0
     return dx
 
 
@@ -91,9 +103,7 @@ def grouped_matmul_bwd_dw_ref(x, dy, group_sizes, *, acc=torch.float32):
             dw[e] = (x[start:start + n].to(acc).T
                      @ dy[start:start + n].to(acc)).to(x.dtype)
         start += n
-    if start > x.shape[0]:
-        raise ValueError(f"grouped_matmul_bwd: group sizes sum to {start}, "
-                         f"x has {x.shape[0]} rows")
+    _check_sum("grouped_matmul_bwd", start, x.shape[0], "x")
     return dw
 
 
@@ -145,19 +155,93 @@ def _check(x, w, group_sizes):
 
 def grouped_matmul(x, w, group_sizes) -> torch.Tensor:
     """x (T, D) sorted by expert; w (E, D, F); group_sizes (E,) integer,
-    summing to T.  Returns (T, F) in x.dtype.
+    summing to at most T (the rows past the sum belong to no expert: the
+    kernel leaves them unwritten, the plain version zeros them).  Returns
+    (T, F) in x.dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     Differentiable in x and w: when a gradient is recorded the call goes
     through :class:`GroupedMatmulFn`, whose backward is
     :func:`grouped_matmul_bwd`.
+
+    DTensor x and w (MoE on a mesh) run this wrapper on each rank's local
+    shards under ``local_map``, one launch a rank a call
+    (:func:`mesh_placements`): where w shards its experts (expert
+    parallelism), each rank multiplies its own rows, x's ``Shard(0)``, by
+    its own experts, the sizes a DTensor sharded alike (each rank's
+    experts' row counts); elsewhere w is gathered whole.
     """
+    if is_dtensor(x) or is_dtensor(w):
+        _, wp, _ = mesh_placements(x, _experts_of(w, group_sizes))
+        w = w.redistribute(w.device_mesh, wp)   # differentiable: a gather
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return GroupedMatmulFn.apply(x, w, group_sizes)
     return _forward(x, w, group_sizes)
 
 
+def _experts_of(w, group_sizes) -> list:
+    """Per mesh dim of the DTensor ``w``: whether it shards w's experts
+    (dim 0 over more than one rank).  The group sizes must then be a
+    DTensor sharded there too, each rank's own experts' counts."""
+    from torch.distributed.tensor import Shard
+    if not is_dtensor(w):
+        raise ValueError("grouped_matmul: a DTensor x takes a DTensor w")
+    ep = [isinstance(q, Shard) and q.dim == 0 and n > 1
+          for q, n in zip(w.placements, w.device_mesh.shape)]
+    if any(ep) and _experts_of_sizes(group_sizes) != ep:
+        raise ValueError(f"grouped_matmul: w's experts sharded "
+                         f"{w.placements}, the group sizes "
+                         f"{getattr(group_sizes, 'placements', 'plain')}: "
+                         "each rank needs its own experts' sizes")
+    return ep
+
+
+def _experts_of_sizes(group_sizes) -> list:
+    """Per mesh dim: whether the DTensor sizes shard the experts."""
+    from torch.distributed.tensor import Shard
+    if not is_dtensor(group_sizes):
+        return []
+    return [isinstance(q, Shard) and n > 1 for q, n in
+            zip(group_sizes.placements, group_sizes.device_mesh.shape)]
+
+
+def mesh_placements(x, experts):
+    """(x's, w's, dw's) placements of a call on DTensors, per mesh dim of
+    x's mesh, given ``experts`` (per mesh dim: whether the experts are
+    sharded there).  x keeps its rows' sharding (``Shard(0)``, each rank's
+    own rows) or replication; w is ``Shard(0)`` where the experts are
+    sharded, which needs x's rows sharded there too, and ``Replicate``
+    elsewhere; dw is ``Shard(0)`` with the experts, a ``Partial`` sum
+    where only the rows are sharded (each rank's rows add to every
+    expert's gradient), ``Replicate`` where neither is."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    if not is_dtensor(x):
+        raise ValueError("grouped_matmul: a DTensor w takes a DTensor x")
+    experts = list(experts) or [False] * x.device_mesh.ndim
+    xp, wp, dwp = [], [], []
+    for p, ep, n in zip(x.placements, experts, x.device_mesh.shape):
+        rows = isinstance(p, Shard) and p.dim == 0
+        if not (rows or isinstance(p, Replicate)) or (ep and not rows):
+            raise ValueError(f"grouped_matmul: x placed {x.placements}: "
+                             "its rows must be sharded (dim 0) or "
+                             "replicated, and sharded where the experts are")
+        xp.append(Shard(0) if rows else Replicate())
+        wp.append(Shard(0) if ep else Replicate())
+        dwp.append(Shard(0) if ep else Partial() if rows and n > 1
+                   else Replicate())
+    return xp, wp, dwp
+
+
+def _sizes_placements(group_sizes):
+    return tuple(group_sizes.placements) if is_dtensor(group_sizes) else None
+
+
 def _forward(x, w, group_sizes) -> torch.Tensor:
+    if is_dtensor(x):
+        xp, wp, _ = mesh_placements(x, _experts_of(w, group_sizes))
+        return on_local_shards(_forward, x.device_mesh, xp,
+                               (xp, wp, _sizes_placements(group_sizes)),
+                               x, w, group_sizes)
     if x.device.type in PLAIN_DEVICES:
         return grouped_matmul_ref(x, w, group_sizes)
     if x.device.type != "cuda":
@@ -215,10 +299,17 @@ def _bwd_launch(wrapper, fn, a, b, group_sizes, out, T, D, F, E):
 
 def grouped_matmul_bwd_dx(dy, w, group_sizes) -> torch.Tensor:
     """dx (T, D): each row of dy (T, F) against its expert's w (E, D, F)
-    transposed; the sizes sum to T, as the forward's do (the kernel leaves
-    the rows past a smaller sum unwritten, and the plain version refuses
-    it).  CPU tensors take the plain version; CUDA tensors launch
-    the dx kernel (with no rows, nothing: dx is empty)."""
+    transposed; the sizes sum to at most T, as the forward's do (the
+    kernel leaves the rows past a smaller sum unwritten, the plain version
+    zeros them).  CPU tensors take the plain version; CUDA tensors launch
+    the dx kernel (with no rows, nothing: dx is empty); DTensors run it on
+    each rank's shards under ``local_map``, placed as the forward's x and
+    w (:func:`mesh_placements`)."""
+    if is_dtensor(dy):
+        xp, wp, _ = mesh_placements(dy, _experts_of(w, group_sizes))
+        return on_local_shards(grouped_matmul_bwd_dx, dy.device_mesh, xp,
+                               (xp, wp, _sizes_placements(group_sizes)),
+                               dy, w, group_sizes)
     if dy.device.type in PLAIN_DEVICES:
         return grouped_matmul_bwd_dx_ref(dy, w, group_sizes)
     if dy.device.type != "cuda":
@@ -244,7 +335,14 @@ def grouped_matmul_bwd_dw(x, dy, group_sizes) -> torch.Tensor:
     dy (T, F), E = len(group_sizes), zeros for an empty expert; the sizes
     sum to at most T, and rows past the sum add nothing.  CPU tensors
     take the plain version; CUDA tensors launch the dw kernel (with no
-    rows, nothing: dw is zeros)."""
+    rows, nothing: dw is zeros); DTensors run it on each rank's shards
+    under ``local_map``, dw sharded on its experts where the sizes are and
+    a ``Partial`` sum where only x's rows are (:func:`mesh_placements`)."""
+    if is_dtensor(x):
+        xp, _, dwp = mesh_placements(x, _experts_of_sizes(group_sizes))
+        return on_local_shards(grouped_matmul_bwd_dw, x.device_mesh, dwp,
+                               (xp, xp, _sizes_placements(group_sizes)),
+                               x, dy, group_sizes)
     if x.device.type in PLAIN_DEVICES:
         return grouped_matmul_bwd_dw_ref(x, dy, group_sizes)
     if x.device.type != "cuda":

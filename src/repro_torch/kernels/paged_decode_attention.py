@@ -25,7 +25,8 @@ key splits planned on the host (``decode_attention.mla_decode_splits``),
 one thread block a (row, split) walking its keys once for every head, the
 splits' partials merged by a second kernel in the same call;
 ``paged_mla_decode_attention.launches`` counts wrapper calls that
-launched.
+launched.  On DTensors (a mesh) both wrappers run on each rank's heads
+under ``local_map``, one launch a rank a call.
 """
 from __future__ import annotations
 
@@ -237,7 +238,22 @@ def paged_mla_decode_attention(q_lat, q_rope, ckv_pool, krope_pool,
     read-out (B, H, R) in f32 (the caller applies ``W_uv``).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
+    DTensor inputs (HyperServe on a mesh) run this wrapper on each rank's
+    shards under ``local_map``: q_lat, q_rope and the output with their
+    heads (dim 1) sharded where q_lat's are, the latent pools whole on
+    every rank (``derive_pool`` replicates them: they have no head dim),
+    the tables and lengths plain tensors, the same on every rank.
     """
+    if is_dtensor(q_lat) or is_dtensor(ckv_pool):
+        from torch.distributed.tensor import Replicate
+        mesh = (q_lat if is_dtensor(q_lat) else ckv_pool).device_mesh
+        hp = (sharded_on(q_lat, 1) if is_dtensor(q_lat)
+              else (Replicate(),) * mesh.ndim)
+        rep = (Replicate(),) * mesh.ndim
+        return on_local_shards(functools.partial(
+            paged_mla_decode_attention, block_size=block_size, scale=scale),
+            mesh, list(hp), (hp, hp, rep, rep, None, None), q_lat, q_rope,
+            ckv_pool, krope_pool, block_tables, lengths)
     refuse_grad("paged_mla_decode_attention", q_lat, q_rope, ckv_pool,
                 krope_pool)
     if q_lat.device.type in PLAIN_DEVICES:

@@ -23,8 +23,12 @@ requests and rank 0 printing; one rank means no mesh::
     torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
         --arch qwen2-0.5b --reduced --continuous --device cpu --mesh auto
 
-The fixed batch on a mesh is the facade's ``Supernode.generate`` (ROADMAP.md
-section 1 item 8h) and exits naming it.
+Every family serves so, the MLA and MoE archs with their latent pool
+replicated and their experts split over ``model``; the multimodal prefix
+and the composed lowering on a mesh are ROADMAP.md section 1 item 8c,
+part c4.  The fixed batch on a mesh is the facade's
+``Supernode.generate`` (ROADMAP.md section 1 item 8h) and exits naming
+it.
 
 ``--arch`` takes every ported config (``configs.list_archs()``): the dense
 qwen2-0.5b and llama3-8b, the MoE deepseek-v2-lite-16b (with MLA),

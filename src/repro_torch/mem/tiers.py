@@ -170,11 +170,14 @@ class TierStack:
             self._drop_disk(k)
 
     # -- public API ---------------------------------------------------------
-    def put(self, key, value, *, pinned: bool = True) -> None:
-        """Insert/replace ``key`` in the host tier; rebalance budgets."""
+    def put(self, key, value, *, pinned: bool = True,
+            nbytes: Optional[int] = None) -> None:
+        """Insert/replace ``key`` in the host tier; rebalance budgets.
+        ``nbytes`` is what the entry counts against the budgets (default:
+        its leaves' bytes; the archive passes a mesh's global bytes)."""
         self.discard(key)
-        self._host[key] = _Entry(value, tree_nbytes(value), pinned,
-                                 self._tick())
+        self._host[key] = _Entry(value, tree_nbytes(value) if nbytes is None
+                                 else nbytes, pinned, self._tick())
         self._shrink_host()
 
     def get(self, key, *, pop: bool = False,

@@ -1,6 +1,6 @@
 """Multi-head Latent Attention (DeepSeek-V2, arXiv:2405.04434).
 
-The port of ``repro.models.mla`` on one device.  Prefill and train use the
+The port of ``repro.models.mla``.  Prefill and train use the
 decompressed form through the port's ``full_attention`` / ``flash_rows``
 (one ``flash_attention`` launch with key and value head dims
 ``nope + rope`` and ``v_head_dim``).  Decode uses the absorbed form: the
@@ -12,11 +12,23 @@ and runs the reference's plain einsum form, as the dense decode does.
 
 Caches and pool leaves are written in place, as in
 :mod:`repro_torch.models.attention`.
+
+On a mesh (DTensor params, HyperShard's rules) the query, ``w_uk`` and
+``w_uv`` projections are column-sharded over ``model``, so the heads
+shard there; ``w_dkv``'s output is taken whole before it is split into
+the latents and normalised (its shard boundary need not fall on the
+c_kv | k_rope one); ``wo`` is row-sharded, its product a ``Partial`` sum.
+The latent pool replicates (``derive_pool``: it has no head dim), so
+every rank writes the same latents into its own full copy and reads its
+pages locally, and the fused decode runs on each rank's heads under
+``local_map``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.meshctx import (local_index, local_index_put,
+                                      replicated, split_heads)
 from repro_torch.kernels import ops
 from repro_torch.models.attention import (flash_rows, full_attention,
                                           paged_chunk_indices)
@@ -54,11 +66,13 @@ def _latents(p, x, positions, cfg):
     m = cfg.mla
     B, S, _ = x.shape
     H = cfg.num_heads
-    q = (x @ p["wq"]).reshape(B, S, H, m.qk_nope_head_dim
-                              + m.qk_rope_head_dim)
+    q = split_heads(x @ p["wq"], H)
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], -1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    dkv = x @ p["w_dkv"]
+    # on a mesh w_dkv is column-sharded, its output split over the ranks
+    # across the c_kv | k_rope boundary, and kv_norm reduces over all of
+    # c_kv: both are taken whole (an all-gather), the latents replicated
+    dkv = replicated(x @ p["w_dkv"])
     c_kv, k_rope = dkv.split([m.kv_lora_rank, m.qk_rope_head_dim], -1)
     c_kv = rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)
     k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
@@ -71,8 +85,8 @@ def _decompress(p, c_kv, k_rope, cfg):
     m = cfg.mla
     B, S, _ = c_kv.shape
     H = cfg.num_heads
-    k_nope = (c_kv @ p["w_uk"]).reshape(B, S, H, m.qk_nope_head_dim)
-    v = (c_kv @ p["w_uv"]).reshape(B, S, H, m.v_head_dim)
+    k_nope = split_heads(c_kv @ p["w_uk"], H)
+    v = split_heads(c_kv @ p["w_uv"], H)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         B, S, H, m.qk_rope_head_dim)], dim=-1)
     return k, v
@@ -118,8 +132,7 @@ def init_mla_pool(cfg, *, layers: int, num_blocks: int, block_size: int,
 def _absorbed_q(p, q_nope, cfg):
     """W_uk absorbed into the query: (B, H, nope) -> (B, H, R)."""
     m = cfg.mla
-    w_uk = p["w_uk"].reshape(m.kv_lora_rank, cfg.num_heads,
-                             m.qk_nope_head_dim)
+    w_uk = split_heads(p["w_uk"], cfg.num_heads)
     return torch.einsum("bhd,rhd->bhr", q_nope, w_uk)
 
 
@@ -142,7 +155,7 @@ def _readout(p, o_lat, x, cfg):
     """W_uv absorbed on the way out, then the output projection."""
     m = cfg.mla
     B, H = o_lat.shape[0], cfg.num_heads
-    w_uv = p["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
+    w_uv = split_heads(p["w_uv"], H)
     o = torch.einsum("bhr,rhd->bhd", o_lat, w_uv.float())
     return o.reshape(B, 1, H * m.v_head_dim).to(x.dtype) @ p["wo"]
 
@@ -182,8 +195,8 @@ def mla_decode_paged(p, x, positions, cfg, kv, block_tables, *,
     bidx = block_tables.gather(
         1, (positions // block_size)[:, None].long())[:, 0].long()
     off = (positions % block_size).long()
-    kv["ckv"][bidx, off] = c_new[:, 0]
-    kv["krope"][bidx, off] = kr_new[:, 0]
+    local_index_put(kv["ckv"], (bidx, off), c_new[:, 0])
+    local_index_put(kv["krope"], (bidx, off), kr_new[:, 0])
     q_lat = _absorbed_q(p, q_nope[:, 0], cfg)                    # (B, H, R)
     lengths = (positions + 1).to(torch.int32)
     if kernels == "fused":
@@ -192,11 +205,13 @@ def mla_decode_paged(p, x, positions, cfg, kv, block_tables, *,
             lengths, block_size=block_size, scale=_scale(m))
     else:
         W = block_tables.shape[1]
-        idx = block_tables.long()
+        idx = (block_tables.long(),)
         o_lat = _latent_attention(
             q_lat, q_rope[:, 0],
-            kv["ckv"][idx].reshape(B, W * block_size, m.kv_lora_rank),
-            kv["krope"][idx].reshape(B, W * block_size, m.qk_rope_head_dim),
+            local_index(kv["ckv"], idx).reshape(B, W * block_size,
+                                                m.kv_lora_rank),
+            local_index(kv["krope"], idx).reshape(B, W * block_size,
+                                                  m.qk_rope_head_dim),
             lengths, _scale(m))
     return _readout(p, o_lat, x, cfg)
 
@@ -222,13 +237,14 @@ def mla_prefill_chunk_paged(p, x, starts, limits, cfg, kv, block_tables, *,
     bidx, off, _ = paged_chunk_indices(positions, limits, block_tables,
                                        block_size=block_size)
     bidx, off = bidx.long(), off.long()
-    kv["ckv"][bidx, off] = c_kv
-    kv["krope"][bidx, off] = k_rope
+    local_index_put(kv["ckv"], (bidx, off), c_kv)
+    local_index_put(kv["krope"], (bidx, off), k_rope)
     W = block_tables.shape[1]
-    idx = block_tables.long()
-    ckv_seq = kv["ckv"][idx].reshape(P, W * block_size, m.kv_lora_rank)
-    krope_seq = kv["krope"][idx].reshape(P, W * block_size,
-                                         m.qk_rope_head_dim)
+    idx = (block_tables.long(),)
+    ckv_seq = local_index(kv["ckv"], idx).reshape(P, W * block_size,
+                                                  m.kv_lora_rank)
+    krope_seq = local_index(kv["krope"], idx).reshape(P, W * block_size,
+                                                      m.qk_rope_head_dim)
     k, v = _decompress(p, ckv_seq, krope_seq, cfg)
     q = torch.cat([q_nope, q_rope], dim=-1)
     out = flash_rows(q, k, v, starts, scale=_scale(m))

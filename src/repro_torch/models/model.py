@@ -18,8 +18,9 @@ Modes:
 The serving steps' MoE FFN takes the sort-based ragged dispatch (sort,
 grouped matmuls, unsort), the one the reference's serving resolves every
 MoE config to.  ``forward`` takes the reference's ``moe_dispatch`` (default
-``"gshard"``, the train step's; ``"dp_local"`` needs a mesh and raises; the
-Generator passes ``"ragged"``), and the reference's multimodal prefix
+``"gshard"``, the train step's; ``"dp_local"`` runs on a mesh and falls
+back to ``"ragged"`` without one, as the reference's; the Generator passes
+``"ragged"``), and the reference's multimodal prefix
 (``prefix_embeds`` through ``frontend_proj``, internvl2-26b's and
 musicgen-large's stubbed frontends).
 

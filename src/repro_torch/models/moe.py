@@ -1,7 +1,6 @@
 """Mixture-of-Experts FFN: shared + routed experts (DeepSeekMoE family).
 
-The port of ``repro.models.moe`` on one device, with two of the
-reference's dispatches:
+The port of ``repro.models.moe``, with the reference's three dispatches:
 
 * ``"gshard"``, the reference's default and its train step's: the
   capacity-based one-hot dispatch of GShard / Mesh-TF.  Tokens go in
@@ -18,18 +17,31 @@ reference's dispatches:
   learner trains an MoE policy under the dispatch its actor samples with,
   and the train step takes it on request.
 
-The reference's data-parallel ``dp_local`` variant needs a mesh (ROADMAP.md
-section 1 item 1.8c, MoE training on a mesh) and raises.
+* ``"dp_local"``: the reference's data-local dispatch
+  (:func:`~repro_torch.core.overlap.moe_dp_local`: the expert weights
+  gathered, each token shard dispatched with capacity on its own rank),
+  under a mesh whose dp and ``model`` sizes divide B and S; otherwise,
+  with no mesh among them, the ragged dispatch, exactly as the reference
+  falls back.
+
+On a mesh (DTensor params and activations) gshard's dispatch tensor is
+constrained to its experts over ``model``, as the reference's; the ragged
+dispatch runs expert-parallel (:mod:`repro_torch.core.overlap`); and the
+shared experts' column- and row-sharded SwiGLU gives a ``Partial`` sum
+over ``model``, as the routed experts' combine does, which the residual
+add reduces.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.overlap import ragged_moe_apply
+from repro_torch.core.meshctx import (as_dtensor, constrain, current_mesh,
+                                      full_tensor, is_dtensor, mesh_axis_size)
+from repro_torch.core.overlap import moe_dp_local, ragged_moe_apply
 from repro_torch.models.common import dense_init, dtype_of, swiglu
 
-DISPATCHES = ("gshard", "ragged")
+DISPATCHES = ("gshard", "ragged", "dp_local")
 GROUP_SIZE = 512   # tokens per GShard dispatch group
 
 
@@ -83,25 +95,30 @@ def moe_forward(p, x, cfg, *, dispatch: str = "ragged",
     ``metrics=False`` skips the router's loss terms (the serving steps
     discard them; the reference's compiler drops them there) and returns
     an empty dict."""
-    if dispatch == "dp_local":
-        raise NotImplementedError(
-            "moe dispatch 'dp_local' shards tokens over a mesh's data axis: "
-            "MoE on a mesh is ROADMAP.md section 1 item 1.8c; use 'gshard' or "
-            "'ragged'")
     if dispatch not in DISPATCHES:
         raise ValueError(f"moe dispatch {dispatch!r}: must be one of "
-                         f"{DISPATCHES + ('dp_local',)}")
+                         f"{DISPATCHES}")
     mo = cfg.moe
     B, S, D = x.shape
     T = B * S
     xf = x.reshape(T, D)
+    if is_dtensor(xf):
+        # pin the tokens' layout for the backward too: the gradient that
+        # reaches the reshape is redistributed to it first (DTensor's view
+        # rule misplaces a row gradient sharded over two mesh dims)
+        xf = xf.redistribute(xf.device_mesh, xf.placements)
 
     probs, logits = router_probs(p, xf, cfg)
     gate_vals, idx = torch.topk(probs, mo.top_k, dim=-1)        # (T, k)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
 
-    apply = gshard_apply if dispatch == "gshard" else ragged_moe_apply
-    y = apply(p, xf, idx, gate_vals, cfg)
+    mesh = current_mesh()
+    if dispatch == "dp_local" and _dp_local_fits(mesh, B, S):
+        y = moe_dp_local(p, x, idx.reshape(B, S, -1),
+                         gate_vals.reshape(B, S, -1), cfg, mesh).reshape(T, D)
+    else:
+        apply = gshard_apply if dispatch == "gshard" else ragged_moe_apply
+        y = apply(p, xf, idx, gate_vals, cfg)
     # shared experts: dense SwiGLU over all tokens
     y = y + swiglu(xf, p["ws_gate"], p["ws_up"], p["ws_down"])
     y = y.reshape(B, S, D)
@@ -110,14 +127,25 @@ def moe_forward(p, x, cfg, *, dispatch: str = "ragged",
 
     E = mo.num_experts
     me = probs.mean(dim=0)                                      # mean prob
-    ce = torch.zeros(E, dtype=torch.float32, device=x.device).scatter_add_(
-        0, idx.reshape(-1), torch.ones(idx.numel(), device=x.device)) / T
+    # each expert's count of choices, as the reference's one-hot mean (a
+    # comparison and a sum, which DTensor shards as it shards idx)
+    ce = (idx.reshape(-1, 1) == torch.arange(E, device=x.device)).sum(
+        0).float() / T
     return y, {
         "moe_aux_loss": E * torch.sum(me * ce) / mo.top_k,
         "moe_z_loss": torch.mean(torch.logsumexp(logits, dim=-1) ** 2),
         "router_entropy": -torch.mean(
             torch.sum(probs * torch.log(probs + 1e-9), dim=-1)),
     }
+
+
+def _dp_local_fits(mesh, B: int, S: int) -> bool:
+    """Whether ``dp_local`` runs: a mesh whose dp axes' size divides B and
+    whose ``model`` size divides S (the reference's test)."""
+    if mesh is None:
+        return False
+    dpn = mesh_axis_size(mesh, "pod") * mesh_axis_size(mesh, "data")
+    return B % dpn == 0 and S % mesh_axis_size(mesh, "model") == 0
 
 
 def _group(T: int) -> int:
@@ -142,16 +170,19 @@ def gshard_apply(p, xf, idx, gate_vals, cfg):
     C = max(1, int(G * k / E * mo.capacity_factor))
     dt = xf.dtype
 
-    idx_g = idx.reshape(Gn, G, k)
+    # the slots come from the routing alone (integers, no gradient), which
+    # a mesh gathers whole: every rank computes the same slots, and only
+    # the gates carry a gradient into the combine
+    idx_g = full_tensor(idx).reshape(Gn, G, k)
     gates_g = gate_vals.reshape(Gn, G, k).float()
     x_g = xf.reshape(Gn, G, D)
 
     # position-in-expert with k-slot priority (slot 0 first); a token past
     # the capacity gets the one-hot of C, which the slice drops (the
     # reference's one_hot of an out-of-range index is all zeros)
-    counts = torch.zeros(Gn, E, dtype=torch.long, device=xf.device)
-    dispatch = xf.new_zeros(Gn, G, E, C)
-    combine = xf.new_zeros(Gn, G, E, C)
+    counts = torch.zeros(Gn, E, dtype=torch.long, device=idx_g.device)
+    dispatch = torch.zeros(Gn, G, E, C, dtype=dt, device=idx_g.device)
+    combine = 0
     for j in range(k):
         oh = F.one_hot(idx_g[:, :, j], E)                       # (Gn, G, E)
         pos = counts[:, None, :] + oh.cumsum(1) - oh            # before self
@@ -162,9 +193,15 @@ def gshard_apply(p, xf, idx, gate_vals, cfg):
         dispatch = dispatch + d_j
         combine = combine + d_j * gates_g[:, :, j][..., None, None].to(dt)
 
+    # the reference's sharding hints: the experts over model
+    if is_dtensor(gate_vals):
+        dispatch = as_dtensor(dispatch, gate_vals.device_mesh)
+    dispatch = constrain(dispatch, ("pod", "data"), None, "model", None)
     expert_in = torch.einsum("gsec,gsd->egcd", dispatch, x_g)
+    expert_in = constrain(expert_in, "model", ("pod", "data"), None, None)
     h = F.silu(torch.einsum("egcd,edf->egcf", expert_in, p["w_gate"]))
     h = h * torch.einsum("egcd,edf->egcf", expert_in, p["w_up"])
     expert_out = torch.einsum("egcf,efd->egcd", h, p["w_down"])
+    expert_out = constrain(expert_out, "model", ("pod", "data"), None, None)
     y = torch.einsum("egcd,gsec->gsd", expert_out, combine)
     return y.reshape(T, D)

@@ -29,10 +29,15 @@ params are DTensors placed by the plan's rules, the pool's leaves by
 under :func:`~repro_torch.core.meshctx.use_mesh`: the projections shard
 over ``model`` as DTensor propagates them, and the fused paged kernels and
 the two scans run on each rank's heads or channels under ``local_map``.
-The logits are gathered in full before any pick, so every rank takes the
-same decisions; the scheduler runs SPMD, every rank on the same requests.
-Only the fused lowering of the dense GQA, SSD and RG-LRU families serves
-on a mesh (:func:`check_mesh_serving`).
+MLA's latent pool replicates and its fused decode runs on each rank's
+heads; the MoE FFN takes the ragged dispatch expert-parallel over
+``model`` (each rank its own experts' rows through the grouped matmul,
+the routed and shared experts' outputs ``Partial`` sums).  The logits are
+gathered in full before any pick, so every rank takes the same
+decisions; the scheduler runs SPMD, every rank on the same requests.
+The fused lowering of the dense GQA, MLA, MoE, SSD and RG-LRU families
+serves on a mesh; the multimodal prefix and the composed lowering do not
+yet (:func:`check_mesh_serving`).
 
 A finished prompt's full blocks can be retained in a copy-on-write
 **prefix cache**: an identical prompt prefix forks the cached blocks
@@ -49,7 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.api.errors import PlanError, ServePlanError
-from repro_torch.configs.base import MLA, MOE_FFN, ServeConfig
+from repro_torch.configs.base import ServeConfig
 from repro_torch.core.hypershard import ShardingPlan
 from repro_torch.core.kvcache import HostArchive
 from repro_torch.core.meshctx import use_mesh
@@ -79,9 +84,9 @@ def resolve_device(device=None) -> torch.device:
 
 
 MESH_FAMILIES = ("serving on a mesh takes the fused lowering of the dense "
-                 "GQA, SSD and RG-LRU families; MLA, MoE, the multimodal "
+                 "GQA, MLA, MoE, SSD and RG-LRU families; the multimodal "
                  "prefix and the composed lowering on a mesh are ROADMAP.md "
-                 "section 1 item 8c")
+                 "section 1 item 8c, part c4")
 
 
 def _resolve_serve_plan(plan):
@@ -112,9 +117,9 @@ def _resolve_serve_plan(plan):
 def check_mesh_serving(cfg, mesh, kernel_path: str) -> None:
     """Refuse, before anything is placed, what does not serve on a mesh
     yet: a mesh that is not a ``DeviceMesh``, one with a data axis
-    (``serve.engine.check_data_axis_serving``), MLA, MoE, the multimodal
-    prefix and the composed lowering (:class:`ServePlanError` naming
-    ROADMAP item 8c)."""
+    (``serve.engine.check_data_axis_serving``), the multimodal prefix and
+    the composed lowering (:class:`ServePlanError` naming ROADMAP item
+    8c, part c4)."""
     from torch.distributed.device_mesh import DeviceMesh
 
     from repro_torch.serve.engine import check_data_axis_serving
@@ -123,9 +128,7 @@ def check_mesh_serving(cfg, mesh, kernel_path: str) -> None:
                         "DeviceMesh (build one with repro_torch.launch.mesh."
                         "make_host_mesh)")
     check_data_axis_serving(mesh)
-    odd = sorted({what for m, f in cfg.block_kinds()
-                  for what, hit in (("MLA", m == MLA), ("MoE", f == MOE_FFN))
-                  if hit})
+    odd = []
     if cfg.frontend_dim:
         odd.append("the multimodal prefix")
     if kernel_path != "fused":

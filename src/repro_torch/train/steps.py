@@ -15,11 +15,16 @@ sharded over the dp axes, and the step runs under
 propagation stands for GSPMD over the same strategy-free model code, the
 model's ``constrain`` points redistribute, and every kernel runs on the
 local shards under ``local_map``.  The step carries the reference's
-``shardings`` dict as ``step.shardings``.  This slice shards the dense
-GQA families (an ``ATTN`` mixer and a dense SwiGLU FFN); MLA, MoE, SSD,
-RG-LRU and the multimodal prefix under a mesh raise
+``shardings`` dict as ``step.shardings``.  The dense GQA, MLA and MoE
+families shard (``ATTN`` or ``MLA`` mixers, dense or MoE FFNs: MLA trains
+through flash at its own (Dk, Dv) under ``local_map``, the MoE FFN under
+every ``moe_dispatch``: gshard's dispatch constrained to the experts over
+``model``, the ragged one expert-parallel with the grouped matmul and its
+backward under ``local_map``, ``dp_local`` by
+:func:`~repro_torch.core.overlap.moe_dp_local`); SSD and RG-LRU training
+and the multimodal prefix under a mesh raise
 :class:`~repro_torch.api.errors.PlanError` naming ROADMAP.md section 1
-item 8c.
+item 8c (parts c1 and c4).
 
 HyperOffload's legs between steps are :func:`fetch_state` (host -> card)
 and :func:`offload_state` (card -> pinned host memory), and
@@ -40,10 +45,9 @@ from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.models import model as M
 from repro_torch.optim import adamw as opt_mod
 
-MESH_FAMILIES = ("training on a mesh takes the dense GQA families (an ATTN "
-                 "mixer and a dense FFN); MLA, MoE, SSD, RG-LRU and the "
-                 "multimodal prefix on a mesh are ROADMAP.md section 1 "
-                 "item 8c")
+MESH_FAMILIES = ("training on a mesh takes the dense GQA, MLA and MoE "
+                 "families (ATTN or MLA mixers, dense or MoE FFNs, every "
+                 "moe_dispatch)")
 FACADE = ("HyperPlan, its presets and Supernode are the facade: ROADMAP.md "
           "section 1 item 8h")
 
@@ -55,7 +59,7 @@ def check_mesh_plan(cfg, mesh, plan, *, multimodal: bool = False):
     :class:`PlanError` naming the ROADMAP item otherwise."""
     from torch.distributed.device_mesh import DeviceMesh
 
-    from repro_torch.configs.base import ATTN, DENSE_FFN
+    from repro_torch.configs.base import ATTN, DENSE_FFN, MLA, MOE_FFN
     if plan is not None and not isinstance(plan, hs.ShardingPlan):
         raise PlanError(f"plan={type(plan).__name__}: the port takes a "
                         f"ShardingPlan; {FACADE}")
@@ -66,12 +70,14 @@ def check_mesh_plan(cfg, mesh, plan, *, multimodal: bool = False):
                         "DeviceMesh (build one with repro_torch.launch.mesh."
                         "make_host_mesh; ROADMAP.md section 1 item 8)")
     odd = sorted({f"{m}+{f}" for m, f in cfg.block_kinds()
-                  if (m, f) != (ATTN, DENSE_FFN)})
-    if odd or multimodal:
-        what = ", ".join(odd + (["the multimodal prefix"] if multimodal
-                                else []))
-        raise PlanError(f"{cfg.name}: {what} on a mesh: not ported yet; "
-                        f"{MESH_FAMILIES}")
+                  if m not in (ATTN, MLA) or f not in (DENSE_FFN, MOE_FFN)})
+    for what, part in ((", ".join(odd), "c1: SSD and RG-LRU training"),
+                       (multimodal and "the multimodal prefix",
+                        "c4: the multimodal prefix")):
+        if what:
+            raise PlanError(f"{cfg.name}: {what} on a mesh: not ported yet "
+                            f"(ROADMAP.md section 1 item 8c, part {part}); "
+                            f"{MESH_FAMILIES}")
     return plan or hs.ShardingPlan()
 
 

@@ -1731,3 +1731,132 @@ def test_serving_on_a_one_rank_nccl_mesh_matches_no_mesh(one_rank_mesh,
                          [k.launches - n for k, n in zip(kernels, n0)]))
         assert runs[0] == runs[1], arch
         assert sum(runs[1][1]) > 0, arch
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_deepseek_kernels_take_dtensors_on_a_one_rank_nccl_mesh(
+        one_rank_mesh, cuda, dtype):
+    """The MLA decode, the grouped matmul, its backward's dx and dw, and
+    flash's forward (with its lse) and backward at (Dk, Dv) = (192, 128),
+    each handed DTensor inputs on a (1, 1) NCCL mesh (the tables, lengths
+    and group sizes plain, as the steps hand them over): one launch a call
+    each, under ``local_map``, and DTensors out whose local tensors are
+    within the limits above of the plain versions on the same local
+    tensors.  The grouped matmul's sizes sum to 16 rows less than x holds
+    (the expert-parallel dispatch's rows of other ranks' experts): the
+    rows within the sum are checked, in the forward and in dx."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    def on_mesh(t):
+        return DTensor.from_local(t, one_rank_mesh, [Replicate()] * 2,
+                                  run_check=False)
+
+    args = _mla_inputs(dtype, cuda, 16, 512, 64, 16, [1, 65, 700, 257],
+                       seed=3)
+    kw = dict(block_size=16, scale=576 ** -0.5)
+    n0 = pda.paged_mla_decode_attention.launches
+    got = pda.paged_mla_decode_attention(*map(on_mesh, args[:4]), *args[4:],
+                                         **kw)
+    assert pda.paged_mla_decode_attention.launches == n0 + 1
+    assert isinstance(got, DTensor)
+    want = pda.paged_mla_decode_attention_ref(*args, **kw)
+    tol = 2e-5 if dtype == torch.float32 else 1e-4
+    assert (got.to_local() - want).abs().max().item() < tol
+
+    sizes = [1] * 40 + [0] * 20 + [14, 0, 30, 12]
+    x, w, gs = _gm_inputs(dtype, cuda, sizes, 2048, 1408, seed=9)
+    S = x.shape[0]
+    g = torch.Generator().manual_seed(10)
+    x = torch.cat([x, torch.randn(16, 2048, generator=g).to(cuda, dtype)])
+    dy = torch.randn(S + 16, 1408, generator=g).to(cuda, dtype)
+    n0 = _gm_counts()
+    out = gm.grouped_matmul(on_mesh(x), on_mesh(w), gs)
+    dx = gm.grouped_matmul_bwd_dx(on_mesh(dy), on_mesh(w), gs)
+    dw = gm.grouped_matmul_bwd_dw(on_mesh(x), on_mesh(dy), gs)
+    assert _gm_counts() == (n0[0] + 1, n0[1] + 1, n0[2] + 1)
+    assert all(isinstance(t, DTensor) for t in (out, dx, dw))
+    _assert_close(out.to_local()[:S], gm.grouped_matmul_ref,
+                  (x[:S], w, gs), {}, slack=GM_SLACK)
+    bwd = (x[:S], w, gs, dy[:S])
+    want = gm.grouped_matmul_bwd_ref(*bwd)
+    want32 = gm.grouped_matmul_bwd_ref(
+        *[a.float() if a.is_floating_point() else a for a in bwd])
+    want64 = gm.grouped_matmul_bwd_ref(
+        *[a.double() if a.is_floating_point() else a for a in bwd],
+        acc=torch.float64)
+    for got_, a, b, c in zip((dx.to_local()[:S], dw.to_local()), want,
+                             want32, want64):
+        _gm_grad_close(got_, a, b, c)
+
+    g = torch.Generator().manual_seed(11)
+    q, k, v, do = (torch.randn(1, 192, 4, d, generator=g).to(cuda, dtype)
+                   for d in (192, 192, 128, 128))
+    n0 = (fa.flash_attention.launches, fa.flash_attention_bwd.launches)
+    o, lse = fa.flash_attention_lse(*map(on_mesh, (q, k, v)), causal=True)
+    grads = fa.flash_attention_bwd(*map(on_mesh, (q, k, v, o.to_local(),
+                                                  lse.to_local(), do)),
+                                   causal=True)
+    assert (fa.flash_attention.launches, fa.flash_attention_bwd.launches) \
+        == (n0[0] + 1, n0[1] + 1)
+    _assert_close(o.to_local(), fa.flash_attention_ref, (q, k, v),
+                  dict(causal=True))
+    bargs = (q, k, v, o.to_local(), lse.to_local(), do)
+    want = fa.flash_attention_bwd_ref(*bargs, causal=True)
+    want32 = fa.flash_attention_bwd_ref(*(t.float() for t in bargs),
+                                        causal=True)
+    for got_, a, b in zip(grads, want, want32):
+        _assert_grad_close(got_.to_local(), a, b)
+
+
+def test_deepseek_on_a_one_rank_nccl_mesh_matches_no_mesh(one_rank_mesh,
+                                                          cuda):
+    """Reduced deepseek-v2-lite-16b (MLA + MoE) and deepseek-moe-16b in
+    float32: HyperServe on the (1, 1) NCCL mesh gives the tokens and the
+    launch counts of the same engine without a mesh; and two train steps of
+    deepseek-v2-lite under gshard and under ragged on the mesh (fsdp_tp)
+    give the losses and grad norms of the run without one within 1e-5
+    relative, with the same launches of every train kernel."""
+    from repro_torch.data.pipeline import DataConfig, make_loader
+    from repro_torch.optim import adamw as opt
+    from repro_torch.train import steps
+    kernels = (pda.paged_mla_decode_attention, fa.flash_attention,
+               fa.flash_attention_bwd, gm.grouped_matmul,
+               gm.grouped_matmul_bwd_dx, gm.grouped_matmul_bwd_dw)
+    scfg = ServeConfig(block_size=4, num_blocks=48, max_blocks_per_req=8,
+                       max_slots=2, prefill_chunk=4)
+    for arch in ("deepseek-v2-lite-16b", "deepseek-moe-16b"):
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  dtype="float32")
+        params = M.init_model(cfg, torch.Generator(device=cuda).manual_seed(0))
+        runs = []
+        for mesh in (None, one_rank_mesh):
+            n0 = [k.launches for k in kernels]
+            serve = HyperServe(cfg, params, serve_cfg=scfg, mesh=mesh)
+            rids = [serve.submit(p, 6) for p in ([1, 2, 3, 4, 5, 6, 7, 8],
+                                                 list(range(20, 33)))]
+            out = serve.join()
+            runs.append(([out[r] for r in rids],
+                         [k.launches - n for k, n in zip(kernels, n0)]))
+        assert runs[0] == runs[1], arch
+        assert runs[1][1][3] > 0, arch
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b").reduced(),
+                              dtype="float32")
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=2)
+    for dispatch in ("gshard", "ragged"):
+        runs = []
+        for mesh in (None, one_rank_mesh):
+            n0 = [k.launches for k in kernels]
+            step = steps.make_train_step(cfg, opt.AdamWConfig(total_steps=2),
+                                         moe_dispatch=dispatch, mesh=mesh)
+            p, o = steps.init_state(cfg, seed=0, device=cuda, mesh=mesh)
+            loader = make_loader(dcfg, cuda, mesh=mesh)
+            hist = []
+            for _ in range(2):
+                p, o, m = step(p, o, next(loader))
+                hist.append((float(m["loss"]), float(m["grad_norm"])))
+            runs.append((hist, [k.launches - n for k, n in zip(kernels, n0)]))
+        assert runs[0][1] == runs[1][1], dispatch
+        assert (runs[1][1][4] > 0) == (dispatch == "ragged")
+        for a, b in zip(runs[1][0], runs[0][0]):
+            for x, y in zip(a, b):
+                assert abs(x - y) <= 1e-5 * max(1.0, abs(y)), dispatch

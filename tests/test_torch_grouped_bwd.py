@@ -110,7 +110,9 @@ def test_grouped_bwd_plain_sizes_summing_below_the_rows():
     """Sizes summing to S < T: the plain dw takes them (the rows past S,
     NaN here, belong to no expert) and equals jax.vjp's dw over the first S
     rows; the plain dx, whose contract is the forward's (sizes summing to
-    T), refuses them, as it refuses sizes summing past T."""
+    at most T, the rows past the sum zeros), gives jax.vjp's dx on the
+    first S rows and zeros past them; both refuse sizes summing past the
+    rows."""
     sizes = SIZES[0]
     x, w, gs, dy = _inputs(sizes, 24, 16, 7)
     S = sum(sizes)
@@ -126,8 +128,14 @@ def test_grouped_bwd_plain_sizes_summing_below_the_rows():
     assert bool(dw.isfinite().all()) and _close(dw, vjp(jnp.asarray(dy))[0])
     assert torch.equal(dw, gm.grouped_matmul_bwd_dw_ref(tx[:S], tdy[:S],
                                                         tgs))
-    with pytest.raises(ValueError, match="sum to 15, dy has 19 rows"):
-        gm.grouped_matmul_bwd_dx_ref(tdy, torch.from_numpy(w), tgs)
+    dx = gm.grouped_matmul_bwd_dx_ref(tdy, torch.from_numpy(w), tgs)
+    _, vjp_x = jax.vjp(lambda a: jax_ref.grouped_matmul(a, jnp.asarray(w),
+                                                        jnp.asarray(gs)),
+                       jnp.asarray(x))
+    assert _close(dx[:S], vjp_x(jnp.asarray(dy))[0])
+    assert torch.equal(dx[S:], torch.zeros(4, 24))
+    with pytest.raises(ValueError, match="sum to 15, dy has 11 rows"):
+        gm.grouped_matmul_bwd_dx_ref(tdy[:11], torch.from_numpy(w), tgs)
     with pytest.raises(ValueError, match="sum to 15, x has 11 rows"):
         gm.grouped_matmul_bwd_dw_ref(tx[:11], tdy[:11], tgs)
 

@@ -17,21 +17,25 @@ test_hyperserve.py``).  Two process sets:
   prefill (chunks > calls); forced preemptions of qwen2 and of the
   hybrid (pages and seat rows through the host archive, each rank its own
   shard); each rank's pool leaves shaped as the reference's
-  ``derive_pool`` shards them; qwen2's gathered pool and first decode
-  logits within 1e-5 x max(1, |x|) of the unsharded port's (``wo``'s
-  partial sums taken in another order);
+  ``derive_pool`` shards them; qwen2 preempted under a small host
+  budget, the archive's tiers, bytes and evictions after every step equal
+  to the reference HyperServe's on a forced 2-device mesh (global bytes);
+  qwen2's gathered pool and first decode logits within 1e-5 x max(1, |x|)
+  of the unsharded port's (``wo``'s partial sums taken in another order);
 - 3 ranks: a ``(3, 1)`` mesh refused for its data axis, an fsdp plan, a
-  plan that is not a ``ShardingPlan`` and MLA + MoE refused with typed
-  errors naming their rule or ROADMAP item; ``serving_mesh_for`` gives
-  the flat ``(1, 3)`` view, which serves qwen2 as the JAX ``Generator``
-  does with the vocabulary (1024 % 3) and KV-head (2 % 3) fallbacks; and
-  the serving launcher's ``--mesh auto`` on the three ranks.
+  plan that is not a ``ShardingPlan``, the multimodal prefix and the
+  composed lowering refused with typed errors naming their rule or
+  ROADMAP item; ``serving_mesh_for`` gives the flat ``(1, 3)`` view,
+  which serves qwen2 as the JAX ``Generator`` does with the vocabulary
+  (1024 % 3) and KV-head (2 % 3) fallbacks; and the serving launcher's
+  ``--mesh auto`` on the three ranks.
 """
 import dataclasses
 import json
 import os
 import subprocess
 import sys
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -45,6 +49,7 @@ from repro.core import hypershard as jhs  # noqa: E402
 from repro.core.layout import Layout as JaxLayout  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.serve.engine import GenerateConfig, Generator  # noqa: E402
+from tests.conftest import run_subprocess  # noqa: E402
 from repro_torch.ckpt import checkpoint  # noqa: E402
 from repro_torch.configs.base import ServeConfig, get_config  # noqa: E402
 from repro_torch.core.tree import tree_flatten_with_path  # noqa: E402
@@ -85,13 +90,24 @@ CASES = {
         [list(range(1, 5)), list(range(7, 11))], [8, 8]),
     # :521 (the flat view of a (2, 4) mesh), here of (3, 1)
     "flat": ("qwen2-0.5b", {}, SMALL, [list(range(1, 10))], [5]),
+    # preemptions under a host budget of three of qwen2's pages (their
+    # global bytes; each holds half of them on a rank of (1, 2)): the
+    # archive's counters and tiers against the reference on its mesh
+    "budget": ("qwen2-0.5b", {}, dict(
+        block_size=2, num_blocks=9, max_blocks_per_req=6, max_slots=2,
+        prefill_chunk=4, enable_prefix_cache=False,
+        archive_host_bytes=12288),
+        [list(range(1, 5)), list(range(7, 11)), list(range(11, 14)),
+         list(range(20, 24))], [8, 8, 8, 8]),
 }
+ARCHIVE_STATS = ("preemptions", "archive_evict_host", "archive_evict_disk",
+                 "archive_host_bytes", "archive_disk_bytes", "finished")
 CASES["pool"] = CASES["qwen2"]
 FAMILIES = ("qwen2", "mamba2", "recurrentgemma")
 # process set -> (world, mesh shape, cases, tasks)
 SETS = {
     "tp2": (2, (1, 2), [c for c in CASES if c != "flat"],
-            ["serve", "pool"]),
+            ["serve", "pool", "archive"]),
     "three": (3, (1, 3), ["flat"], ["refuse", "flat", "launcher"]),
 }
 
@@ -112,7 +128,7 @@ def _start(tmp, name, ckpts):
     out = tmp / name
     out.mkdir()
     spec = dict(store=str(out / "store"), shape=list(shape), out=str(out),
-                tasks=tasks, cases={})
+                tasks=tasks, cases={}, archive_stats=ARCHIVE_STATS)
     for c in cases:
         arch, over, scfg, prompts, max_new = _case(c)
         spec["cases"][c] = dict(arch=arch, overrides=dict(over), scfg=scfg,
@@ -134,6 +150,44 @@ def _wait(name, out, procs):
             for r in range(len(procs))]
 
 
+# the reference's HyperServe on a forced 2-device (1, 2) mesh, stepped as
+# the worker's ``archive`` task steps the port's
+ARCHIVE_CODE = """
+import dataclasses, json, jax
+from repro.configs.base import ServeConfig, get_config
+from repro.launch.mesh import make_host_mesh
+from repro.models import model as M
+from repro.serve.api import HyperServe
+cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(), dtype="float32")
+serve = HyperServe(cfg, M.init_model(cfg, jax.random.PRNGKey(0)),
+                   serve_cfg=ServeConfig(**{scfg}),
+                   mesh=make_host_mesh((1, 2)))
+rids = [serve.submit(p, n) for p, n in zip({prompts}, {max_new})]
+trace = []
+while serve.stats()["finished"] < len(rids):
+    serve.step_once()
+    a, st = serve.engine.blocks.archive, serve.stats()
+    trace.append([sorted([str(k), a.tier_of(k)] for k in a.keys()),
+                  st["archive_host_bytes"], st["archive_disk_bytes"]])
+out = serve.join()
+st = serve.stats()
+print("ARCHIVE" + json.dumps(dict(
+    trace=trace, tokens=[out[r] for r in rids],
+    stats={{k: st[k] for k in {keys}}})))
+"""
+
+
+def _archive_reference():
+    """The reference's archive trace of the ``budget`` case on its forced
+    mesh (a subprocess of two forced host devices)."""
+    _, _, scfg, prompts, max_new = _case("budget")
+    out = run_subprocess(ARCHIVE_CODE.format(
+        scfg=repr(scfg), prompts=prompts, max_new=max_new,
+        keys=ARCHIVE_STATS), devices=2, timeout=600)
+    line = [ln for ln in out.splitlines() if ln.startswith("ARCHIVE")][0]
+    return json.loads(line[len("ARCHIVE"):])
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Both process sets started at once (params written first), then,
@@ -153,6 +207,15 @@ def runs(tmp_path_factory):
         checkpoint.save(ckpts[(arch, over)], 0, tp)
         models[(arch, over)] = (jcfg, cfg, jp, tp)
     procs = {n: _start(tmp, n, ckpts) for n in SETS}
+    archive = {}
+
+    def reference_archive():
+        try:
+            archive["ref"] = _archive_reference()
+        except Exception as e:          # re-raised on the test's thread
+            archive["error"] = e
+    thread = threading.Thread(target=reference_archive)
+    thread.start()
 
     gens, want, port = {}, {}, {}
     for name in CASES:
@@ -186,8 +249,12 @@ def runs(tmp_path_factory):
             pool={k: t.numpy() for k, t in
                   tree_flatten_with_path(server.engine.pool.state)})
     reports = {n: _wait(n, *procs[n]) for n in SETS}
+    thread.join()
+    if "error" in archive:
+        raise archive["error"]
     return dict(want=want, port=port, reports=reports,
-                pool=dict(np.load(tmp / "tp2" / "pool.npz")))
+                pool=dict(np.load(tmp / "tp2" / "pool.npz")),
+                archive=archive["ref"])
 
 
 @pytest.mark.parametrize("name", FAMILIES)
@@ -262,6 +329,23 @@ def test_gathered_pool_and_first_logits_match_the_unsharded_port(runs):
             1.0, float(np.abs(v).max())), k
 
 
+def test_archive_counts_global_bytes_as_the_reference(runs):
+    """(1, 2), preemptions under a host budget of three pages: after every
+    engine step each archived key's tier and the archive's host and disk
+    bytes, and at the end its eviction counters, equal the reference
+    HyperServe's on a forced 2-device mesh (every leaf's global bytes
+    counted, though each rank stores its half of the KV heads); the
+    budget evicts, and the tokens are the Generator's."""
+    ref = runs["archive"]
+    assert ref["stats"]["archive_evict_host"] >= 1
+    assert ref["tokens"] == runs["want"]["budget"]
+    for rep in runs["reports"]["tp2"]:
+        got = rep["archive"]
+        assert got["trace"] == ref["trace"]
+        assert got["stats"] == ref["stats"]
+        assert got["tokens"] == ref["tokens"]
+
+
 def test_data_axis_mesh_is_refused(runs):
     """A (3, 1) mesh: ``ServePlanError`` naming the data axis and the flat
     view that serves instead."""
@@ -302,12 +386,17 @@ def test_facade_plan_is_refused(runs):
 
 
 def test_mla_and_moe_are_refused_on_a_mesh(runs):
-    """Reduced deepseek-v2-lite (MLA + MoE) on the flat mesh:
-    ``ServePlanError`` naming both and ROADMAP item 8c."""
+    """What does not serve on a mesh yet, on the flat mesh: the multimodal
+    prefix (reduced musicgen-large) and the composed lowering (reduced
+    deepseek-v2-lite, whose MLA and MoE serve fused on a mesh), each a
+    ``ServePlanError`` naming ROADMAP item 8c, part c4."""
     for rep in runs["reports"]["three"]:
-        kind, msg = rep["refuse"]["deepseek"]
-        assert kind == "ServePlanError" and "item 8c" in msg
-        assert "MLA" in msg and "MoE" in msg
+        for case, what in (("prefix", "multimodal prefix"),
+                           ("composed", "composed lowering")):
+            kind, msg = rep["refuse"][case]
+            assert kind == "ServePlanError" and "item 8c, part c4" in msg
+            refused = msg.split(";")[0]       # what the message refuses
+            assert what in refused and "MLA" not in refused
 
 
 def test_launcher_serves_on_three_ranks(runs):

@@ -339,14 +339,21 @@ def test_offload_legs_host_place_the_reference_leaves(runs):
 
 
 def test_unported_families_refuse_on_a_mesh(runs):
-    """MLA, MoE, SSD, RG-LRU and the multimodal prefix raise PlanError
-    naming ROADMAP item 8c, before any step runs."""
+    """SSD and RG-LRU training raise PlanError naming ROADMAP item 8c,
+    part c1, and the multimodal prefix part c4, before any step runs; MLA
+    and MoE (deepseek-v2-lite, deepseek-moe) build their step on the
+    mesh."""
     msgs = runs["mesh"]["ring_1x2"]["report"]["refusals"]
     assert sorted(msgs) == sorted(["deepseek-v2-lite-16b",
                                    "deepseek-moe-16b", "mamba2-370m",
                                    "recurrentgemma-2b", "prefix"])
-    for arch, msg in msgs.items():
-        assert msg is not None and "item 8c" in msg, arch
+    assert msgs["deepseek-v2-lite-16b"] is msgs["deepseek-moe-16b"] is None
+    for arch, part, other in (("mamba2-370m", "c1", "c4"),
+                              ("recurrentgemma-2b", "c1", "c4"),
+                              ("prefix", "c4", "c1")):
+        msg = msgs[arch]
+        assert msg is not None and f"item 8c, part {part}" in msg, arch
+        assert f"part {other}" not in msg, arch
 
 
 def test_trainer_on_a_mesh_follows_the_unsharded_trainer(runs):

@@ -86,7 +86,9 @@ def test_grouped_matmul_plain_matches_oracle_and_pallas(T, D, F, E, dtype):
 
 def test_grouped_matmul_empty_groups():
     """tests/test_kernels.py's case: every row in one expert, the other
-    groups empty."""
+    groups empty; sizes summing below the rows leave the rows past the sum
+    zeros (they belong to no expert: the expert-parallel dispatch's rows of
+    other ranks' experts), and sizes summing past them are refused."""
     x = torch.ones(128, 32)
     w = torch.ones(4, 32, 16)
     sizes = np.array([0, 128, 0, 0], np.int32)
@@ -100,8 +102,11 @@ def test_grouped_matmul_empty_groups():
                                             jnp.asarray(sizes))) < 1e-5
     assert gm.grouped_matmul(x[:0], w, torch.zeros(4, dtype=torch.int32)
                              ).shape == (0, 16)
-    with pytest.raises(ValueError, match="sum to 100"):
-        gm.grouped_matmul(x, w, torch.tensor([0, 100, 0, 0]))
+    part = gm.grouped_matmul(x, w, torch.tensor([0, 100, 0, 0]))
+    assert torch.equal(part[:100], got[:100])
+    assert torch.equal(part[100:], torch.zeros(28, 16))
+    with pytest.raises(ValueError, match="sum to 200"):
+        gm.grouped_matmul(x, w, torch.tensor([0, 100, 100, 0]))
 
 
 @functools.cache
@@ -149,12 +154,16 @@ def test_ragged_moe_apply_and_moe_forward_match_reference(arch):
 
 
 def test_training_dispatches_name_the_roadmap_item():
-    """``dp_local`` needs a mesh and raises naming multi-device's item,
-    never falling back to another dispatch; an unknown name is refused."""
+    """``dp_local`` with no mesh falls back to the ragged dispatch, as the
+    reference's does (``repro/models/moe.py:75-92``): the same output and
+    metrics, bit for bit; an unknown name is refused."""
     _, cfg, _, tp = _moe_models("deepseek-moe-16b")
-    x = torch.zeros(1, 2, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="item 1.8"):
-        moe.moe_forward(tp, x, cfg, dispatch="dp_local")
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 8, cfg.d_model)).astype(np.float32))
+    y, m = moe.moe_forward(tp, x, cfg, dispatch="dp_local")
+    y_r, m_r = moe.moe_forward(tp, x, cfg, dispatch="ragged")
+    assert torch.equal(y, y_r) and sorted(m) == sorted(m_r)
+    assert all(torch.equal(m[k], m_r[k]) for k in m)
     with pytest.raises(ValueError, match="must be one of"):
         moe.moe_forward(tp, x, cfg, dispatch="dense")
 

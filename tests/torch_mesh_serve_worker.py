@@ -18,9 +18,12 @@ prompts, new tokens, checkpoint) and the tasks to run, in order:
   global shapes with the recorded pool fallbacks;
 - ``pool``: the ``pool`` case again, rank 0 writing the gathered pool and
   the first decode step's full logits;
+- ``archive``: the ``budget`` case stepped one engine step at a time:
+  after each, every archived key's tier and the archive's host and disk
+  bytes; then its counters and tokens;
 - ``refuse``: a ``(world, 1)`` mesh, an fsdp plan, a plan that is not a
-  ``ShardingPlan`` and deepseek-v2-lite's MLA + MoE, each message of the
-  typed error it raises;
+  ``ShardingPlan``, musicgen-large's multimodal prefix and the composed
+  lowering, each message of the typed error it raises;
 - ``flat``: ``serving_mesh_for`` of the ``(world, 1)`` mesh, its shape,
   names and vocab axis, and the ``flat`` case served on it;
 - ``launcher``: after the worker's own group is gone,
@@ -96,7 +99,7 @@ def pool_report(server, mesh):
 def run_serve(spec, mesh):
     out = {}
     for name, case in spec["cases"].items():
-        if name in ("pool", "flat"):
+        if name in ("pool", "flat", "budget"):
             continue
         server, tokens = serve(case, mesh)
         st = server.stats()
@@ -131,6 +134,26 @@ def run_pool(spec, mesh, rank):
     return {"tokens": tokens}
 
 
+def run_archive(spec, mesh):
+    """The ``budget`` case, a step at a time, its archive traced."""
+    case = spec["cases"]["budget"]
+    cfg, params = model(case)
+    server = HyperServe(cfg, params, serve_cfg=ServeConfig(**case["scfg"]),
+                        mesh=mesh, plan=SERVE_PLAN, device="cpu")
+    rids = [server.submit(p, n) for p, n in zip(case["prompts"],
+                                                case["max_new"])]
+    trace = []
+    while server.stats()["finished"] < len(rids):
+        server.step_once()
+        a, st = server.engine.blocks.archive, server.stats()
+        trace.append([sorted([str(k), a.tier_of(k)] for k in a.keys()),
+                      st["archive_host_bytes"], st["archive_disk_bytes"]])
+    out = server.join()
+    st = server.stats()
+    return {"trace": trace, "tokens": [out[r] for r in rids],
+            "stats": {k: st[k] for k in spec["archive_stats"]}}
+
+
 def message(fn):
     try:
         fn()
@@ -144,16 +167,18 @@ def run_refuse(spec, world):
     flat = serving_mesh_for(data)
     case = spec["cases"]["flat"]
 
-    def deepseek():
-        cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b")
-                                  .reduced(), dtype="float32")
+    def refused(arch, **knobs):
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  dtype="float32")
         HyperServe(cfg, M.init_model(cfg, torch.Generator().manual_seed(0)),
-                   serve_cfg=ServeConfig(**case["scfg"]), mesh=flat,
-                   device="cpu")
+                   serve_cfg=ServeConfig(**dict(case["scfg"], **knobs)),
+                   mesh=flat, device="cpu")
     return {"data_axis": message(lambda: serve(case, data)),
             "fsdp": message(lambda: serve(case, flat, ShardingPlan())),
             "facade": message(lambda: serve(case, flat, "serve")),
-            "deepseek": message(deepseek)}
+            "prefix": message(lambda: refused("musicgen-large")),
+            "composed": message(lambda: refused("deepseek-v2-lite-16b",
+                                                kernels="composed"))}
 
 
 def run_flat(spec, world):
@@ -195,6 +220,8 @@ def main():
                 report["serve"] = run_serve(spec, mesh)
             elif task == "pool":
                 report["pool"] = run_pool(spec, mesh, rank)
+            elif task == "archive":
+                report["archive"] = run_archive(spec, mesh)
             elif task == "refuse":
                 report["refuse"] = run_refuse(spec, world)
             elif task == "flat":

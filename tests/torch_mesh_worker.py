@@ -22,8 +22,8 @@ reduced f32 config's batch and the tasks to run, in order:
   it (rank 0 writes it, for a bit-for-bit comparison);
 - ``offload``: one offload leg of the restored state: the paths of the
   leaves that went to host memory, and a fetch back bit for bit;
-- ``refuse``: the families this slice does not shard, under the mesh:
-  each message of the ``PlanError`` they raise;
+- ``refuse``: a step of each other family built under the mesh: the
+  message of the ``PlanError`` it raises, None where it builds;
 - ``trainer``: ``trainer.train`` on the mesh from the seed.
 """
 import dataclasses
