@@ -130,12 +130,13 @@ Phases, in order; any failure raises and the script exits non-zero:
   17. ssm Generator — the Generator on the same model, 8 x 1024 prompt
                  tokens, 64 new: exactly 48 ssd_scan launches (one prefill);
                  prefill and the decode loop each timed alone;
-  18. ssm identity — mamba2-370m at full width, all 48 layers, float32:
+  18. ssm identity — mamba2-370m at full width, SSM_ID_LAYERS (16) of
+                 its 48 layers, float32:
                  HyperServe greedy tokens identical with the kernel and the
                  plain versions, and to the Generator's; then forced
                  preemptions (forced_preemptions: a pure-slot model never
-                 runs out of blocks) through the tiers as phase 11, 48
-                 ssd_scan launches a prefill call;
+                 runs out of blocks) through the tiers as phase 11, one
+                 ssd_scan launch a layer and prefill call;
   19. hybrid serve — recurrentgemma-2b (RG-LRU + LOCAL_ATTN, 26 layers: 18
                  RG-LRU and 8 local attention at head dim 256, 10 heads
                  over one kv head, window 2048; random weights from a seed)
@@ -152,8 +153,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   21. hybrid Generator — the Generator on the same model, 8 x 1024 prompt
                  tokens, 64 new: exactly 8 flash_attention and 18 rglru_scan
                  per prefill, 8 decode_attention per decode step;
-  22. hybrid identity — recurrentgemma-2b at full width, all 26 layers,
-                 float32: HyperServe greedy tokens identical with the
+  22. hybrid identity — recurrentgemma-2b at full width, RG_ID_LAYERS
+                 (8) of its 26 layers (two LOCAL_ATTN), float32:
+                 HyperServe greedy tokens identical with the
                  kernels, the plain versions and the composed lowering on 6
                  prompts of 100-2400 tokens (two past the window), to the
                  Generator's on prompts of at most the window (one exactly
@@ -263,14 +265,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                  step and 24 ragged prefills a prefill call; decode tok/s,
                  median TTFT and the decode-step wall beside phase 4's;
                  torch.profiler over a prefill call and 8 decode steps.
-                 Then f32 at full width, all layers, 32 new tokens,
-                 tokens identical with and without the mesh and the
-                 mesh's launches exact: qwen2-0.5b (phase 10's prompts,
-                 and phase 11's preemption on the mesh against its ample
-                 pool), mamba2-370m (48 ``ssd_scan`` a prefill call, none
-                 a decode step), recurrentgemma-2b (8 paged decodes and no
-                 ``rglru_scan`` a decode step, 8 ragged prefills and 18
-                 scans a prefill call; two prompts past the window).  Last
+                 Then f32 at full width, 32 new tokens, tokens identical
+                 with and without the mesh and the mesh's launches exact:
+                 qwen2-0.5b all 24 layers (phase 10's prompts, and phase
+                 11's preemption on the mesh against its ample pool),
+                 mamba2-370m at SSM_ID_LAYERS (one ``ssd_scan`` a layer and
+                 prefill call, none a decode step), recurrentgemma-2b at
+                 RG_ID_LAYERS (a paged decode a LOCAL_ATTN layer and no
+                 ``rglru_scan`` a decode step, a ragged prefill or a scan a
+                 layer and prefill call; two prompts past the window).  Last
                  the four serving kernels handed DTensors on the mesh: the
                  paged decode and ragged prefill at phase 4's shapes
                  (bf16), both scans at the identities' prefill calls (f32),
@@ -300,6 +303,33 @@ Phases, in order; any failure raises and the script exits non-zero:
                  dx and dw at the train rows, flash's forward and
                  backward at (192, 128)), against their plain versions,
                  timed;
+  38d. recurrent mesh — SSD, RG-LRU, the multimodal prefix and the
+                 composed lowering on the same (1, 1) mesh (the group is
+                 destroyed after this phase).  bf16 fsdp_tp training, 4
+                 steps each: mamba2-370m all 48 layers 4 x 4096 (exactly 96
+                 ``ssd_scan`` and 48 ``ssd_scan_bwd`` a step, both scans'
+                 backwards under ``local_map``), recurrentgemma-2b all 26
+                 layers 1 x 4096 (36 scans, 18 scan backwards, 16 flash
+                 and 8 flash backwards a step), musicgen-large at
+                 MG_LAYERS with its 64 seeded prefix frames, 2 x (64 +
+                 4096) (72 + 36 flash a step), each within 38c's rule of
+                 phases 31, 34 and 29's first 4 steps, wall, tok/s and
+                 peak beside theirs; the f32 identities against no mesh at
+                 phases 32, 35 and 30's shapes.  qwen2-0.5b bf16 served
+                 with ``kernels="composed"`` at phase 4's config and
+                 requests (exactly 24 ``decode_attention`` a decode step
+                 and 24 flash a prefill call, no fused kernel), decode
+                 tok/s, TTFT and the decode-step wall beside phase 4's;
+                 f32 tokens of the composed engine on the mesh identical
+                 to the fused one without it for qwen2, recurrentgemma
+                 at RG_ID_LAYERS (prompts past its window) and
+                 deepseek-v2-lite at 4 layers (MLA composed), and
+                 musicgen-large served
+                 text-only on the mesh at MG_SERVE_LAYERS identical to no
+                 mesh.  Last ``decode_attention`` (qwen2's composed
+                 shapes; (10, 1, 256) windowed), both scans and both scan
+                 backwards (the train shapes) handed DTensors, against
+                 their plain versions, timed;
   39. rl       — HyperRL, colocated (repro_torch.rl.RLSession): qwen2-0.5b
                  at full width in bf16, 2 iterations of 2 prompts x 4
                  samples of 128 + 64 tokens at temperature 1 (the
@@ -339,8 +369,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                  backward's dx and dw one each at the train shape with
                  phase 27a's launches; phase 23's two flash rows again
                  with phase 38a's launches, named ``_mesh``, and phase
-                 38b's four ``_mesh`` rows with its runs' launches and
-                 phase 38c's seven; each with that run's launches), and
+                 38b's four ``_mesh`` rows with its runs' launches,
+                 phase 38c's seven and phase 38d's six; each with that
+                 run's launches), and
                  ``{"ok": true,
                  "device": {...}}`` as the last line.
 
@@ -424,6 +455,9 @@ DS_ID_LAYERS = 4
 # keeps a token few blocks.  Its Generator runs GEN_B x GEN_S prompts.
 SSM_ARCH = "mamba2-370m"
 SSM_REQUESTS, SSM_NEW = 16, 64
+# its float32 identity runs: full width, SSM_ID_LAYERS of the 48 layers
+# (the depth cut keeps the script inside its time limit, PR 32)
+SSM_ID_LAYERS = 16
 SSM_PROMPT = (100, 1500)
 SSM_NUM_BLOCKS = 64
 # phase 3's ssd_scan at the prefill call: rows (start, limit) — a first
@@ -456,11 +490,14 @@ RG_PRE_ROWS = ((0, 900), (1792, 2900), (2304, 3000), (0, 0))
 RG_ID_TABLE_W = 160                            # 2400 + 32 tokens, whole
 RG_ROW_OFFSETS = (0, 1024, 1792, 2304)         # composed rows: whole chunks
 RG_EXTRA_S = (1, 100, 1023)                    # rglru_scan at odd lengths
-# the float32 identity runs: full width, all 26 layers (about 11 GB);
-# RG_ID_PROMPT prompt lengths (two above the window) for the kernel, plain
+# the float32 identity runs: full width, RG_ID_LAYERS of the 26 layers
+# ((RG-LRU, RG-LRU, LOCAL_ATTN) twice, then two RG-LRU: two windowed
+# attention layers; the depth cut keeps the script inside its time limit,
+# PR 32); RG_ID_PROMPT prompt lengths (two above the window) for the kernel, plain
 # and composed runs, RG_GEN_PROMPTS (at most the window, one exactly it)
 # for HyperServe against the Generator, whose ring seats a prompt right
 # only when its length is at most the window or a multiple of it
+RG_ID_LAYERS = 8
 RG_ID_PROMPT = (100, 2400)
 RG_GEN_PROMPTS = (2048, 1900, 700)
 # the RG-LRU scan walks t in order and its plain version in a log-depth
@@ -2362,13 +2399,18 @@ def serve_all(serve, prompts, max_new):
     return [out[r] for r in rids], rids
 
 
-def phase_serve(torch, np, mesh=None, summary=None, tag="serve"):
-    """qwen2-0.5b at full width in bf16 through HyperServe, fused, on the
-    card (on ``mesh`` when given): SERVE_REQUESTS requests after a
-    warm-up, exactly one paged decode a layer and decode step and one
-    ragged prefill a layer and prefill call.  ``summary`` takes the run's
-    decode tok/s, median TTFT, decode-step wall and tokens."""
+def phase_serve(torch, np, mesh=None, summary=None, tag="serve",
+                kernels="fused"):
+    """qwen2-0.5b at full width in bf16 through HyperServe on the card (on
+    ``mesh`` when given) under the ``kernels`` lowering: SERVE_REQUESTS
+    requests after a warm-up, exactly one paged decode a layer and decode
+    step and one ragged prefill a layer and prefill call (composed: one
+    ``decode_attention`` and one flash, and no fused kernel).
+    ``summary`` takes the run's decode tok/s, median TTFT, decode-step
+    wall and tokens."""
     from repro_torch.configs.base import ServeConfig, get_config
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_decode_attention import \
         paged_decode_attention
     from repro_torch.kernels.ragged_prefill_attention import \
@@ -2380,31 +2422,33 @@ def phase_serve(torch, np, mesh=None, summary=None, tag="serve"):
         cfg, torch.Generator(device=DEVICE).manual_seed(SEED))
     scfg = ServeConfig(block_size=BS, num_blocks=NUM_BLOCKS,
                        max_blocks_per_req=TABLE_W, max_slots=DEC_B,
-                       prefill_chunk=PRE_C, prefill_batch=PRE_P)
+                       prefill_chunk=PRE_C, prefill_batch=PRE_P,
+                       kernels=kernels)
     serve = HyperServe(cfg, params, serve_cfg=scfg, device=DEVICE, mesh=mesh)
     rng = np.random.default_rng(SEED)
     serve_all(serve, make_prompts(rng, 2, 50, 60, cfg.vocab_size), 4)  # warm
     prompts = make_prompts(rng, SERVE_REQUESTS, 100, 1500, cfg.vocab_size)
     eng = serve.engine
     m = eng.obs.metrics
+    decode_key = f"serve.kernels.decode.{kernels}"
     before = {k: m.counter(k).value for k in
-              ("serve.kernels.decode.fused", "serve.prefill_calls",
-               "serve.prefill_chunks", "serve.preemptions")}
+              (decode_key, "serve.prefill_calls", "serve.prefill_chunks",
+               "serve.preemptions")}
     itl0 = m.histogram("serve.itl_s").sum
     tokens0 = eng.tokens_generated
     # the main path's run: every launch count starts at 0 here
-    paged_decode_attention.launches = 0
-    ragged_prefill_attention.launches = 0
+    wrappers = (paged_decode_attention, ragged_prefill_attention,
+                decode_attention, flash_attention)
+    for w in wrappers:
+        w.launches = 0
     sync(torch)
     t0 = time.perf_counter()
     outs, rids = serve_all(serve, prompts, 64)
     sync(torch)
     wall = time.perf_counter() - t0
-    launches = {"paged_decode_attention": paged_decode_attention.launches,
-                "ragged_prefill_attention": ragged_prefill_attention.launches}
+    launches = {w.__name__: w.launches for w in wrappers}
     d = {k: m.counter(k).value - v for k, v in before.items()}
-    steps, calls = int(d["serve.kernels.decode.fused"]), \
-        int(d["serve.prefill_calls"])
+    steps, calls = int(d[decode_key]), int(d["serve.prefill_calls"])
     tokens = eng.tokens_generated - tokens0
     decode_s = m.histogram("serve.itl_s").sum - itl0
     decode_tokens = tokens - len(prompts)      # first tokens come of prefill
@@ -2414,7 +2458,8 @@ def phase_serve(torch, np, mesh=None, summary=None, tag="serve"):
         summary.update(decode_tok_s=decode_tokens / decode_s,
                        ttft_s=ttfts[len(ttfts) // 2], step_s=decode_s / steps,
                        tokens=outs)
-    log(f"[{tag}] qwen2-0.5b bf16 full width: {finished}/{len(prompts)} "
+    log(f"[{tag}] qwen2-0.5b bf16 full width, {kernels}: {finished}/"
+        f"{len(prompts)} "
         f"requests finished, {tokens} tokens in {wall:.3f}s "
         f"({tokens / wall:.1f} tok/s overall), decode {decode_tokens} tokens "
         f"in {steps} steps, {decode_s:.3f}s ({decode_tokens / decode_s:.1f} "
@@ -2423,17 +2468,21 @@ def phase_serve(torch, np, mesh=None, summary=None, tag="serve"):
         f"{int(d['serve.prefill_chunks'])}, preemptions="
         f"{int(d['serve.preemptions'])}")
     n = cfg.num_layers
+    dec, pre = (("paged_decode_attention", "ragged_prefill_attention")
+                if kernels == "fused" else
+                ("decode_attention", "flash_attention"))
+    want = {k: 0 for k in launches}
+    want.update({dec: n * steps, pre: n * calls})
     log(f"[{tag}] launches {launches}; expected decode {n} x {steps} = "
         f"{n * steps}, prefill {n} x {calls} = {n * calls}")
     if finished != len(prompts) or any(len(o) != 64 for o in outs):
         raise AssertionError("not every request finished with 64 tokens")
-    if (launches["paged_decode_attention"] != cfg.num_layers * steps
-            or launches["ragged_prefill_attention"] != cfg.num_layers * calls
-            or steps == 0 or calls == 0):
+    if launches != want or steps == 0 or calls == 0:
         raise AssertionError(f"launch counts {launches} do not match "
-                             f"{cfg.num_layers} x (steps={steps}, "
-                             f"calls={calls})")
-    return launches, serve, prompts
+                             f"{want} ({n} x (steps={steps}, "
+                             f"calls={calls}))")
+    return {k: v for k, v in launches.items() if k in (dec, pre)}, serve, \
+        prompts
 
 
 def _device_ms(evt) -> float:
@@ -2474,8 +2523,7 @@ def phase_profile(torch, serve, prompts, max_new=64, tag="profile"):
     by kernel against the step's wall time."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    for p in prompts:
-        serve.submit(p, max_new)
+    rids = [serve.submit(p, max_new) for p in prompts]
     windows = []
     with profile(activities=acts) as prof:
         sync(torch)
@@ -2495,6 +2543,8 @@ def phase_profile(torch, serve, prompts, max_new=64, tag="profile"):
         sync(torch)
         windows.append(("decode step", prof, time.perf_counter() - t0, n))
     report_profile(tag, windows)
+    for r in rids:              # the rest of the run is not measured
+        serve.cancel(r)
     serve.join()
 
 
@@ -2732,23 +2782,28 @@ def phase_preempt(torch, np, cfg, params, tag="preempt", tiers=False):
 # ---------------------------------------------------------------------------
 # HyperMem's archive tiers under preemption
 # ---------------------------------------------------------------------------
-def serve_launch_want(cfg, steps, calls):
-    """Each serving kernel's launches over ``steps`` fused decode steps and
-    ``calls`` prefill calls of ``cfg``: per attention layer (ATTN,
-    LOCAL_ATTN) one paged decode a step and one ragged prefill a call, per
-    MLA layer one MLA decode a step and one flash_attention a call (its
-    prefill is composed), per MoE layer three grouped_matmul a step and a
-    call, per RG-LRU layer one rglru_scan and per SSD layer one ssd_scan a
-    call."""
+def serve_launch_want(cfg, steps, calls, kernels="fused"):
+    """Each serving kernel's launches over ``steps`` decode steps and
+    ``calls`` prefill calls of ``cfg`` under the ``kernels`` lowering: per
+    attention layer (ATTN, LOCAL_ATTN) one paged decode a step and one
+    ragged prefill a call (composed: one decode_attention and one
+    flash_attention), per MLA layer one MLA decode a step (composed: the
+    plain absorbed form, no kernel) and one flash_attention a call (its
+    prefill is composed either way), per MoE layer three grouped_matmul a
+    step and a call, per RG-LRU layer one rglru_scan and per SSD layer one
+    ssd_scan a call."""
     from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MLA, MOE_FFN,
                                           RGLRU, SSD)
     kinds = [m for m, _ in cfg.block_kinds()]
     n_at = sum(m in (ATTN, LOCAL_ATTN) for m in kinds)
     moe = sum(f == MOE_FFN for _, f in cfg.block_kinds())
-    want = {"paged_decode_attention": n_at * steps,
-            "ragged_prefill_attention": n_at * calls,
-            "paged_mla_decode_attention": kinds.count(MLA) * steps,
-            "flash_attention": kinds.count(MLA) * calls,
+    fused = kernels == "fused"
+    want = {"paged_decode_attention": n_at * steps * fused,
+            "ragged_prefill_attention": n_at * calls * fused,
+            "decode_attention": n_at * steps * (not fused),
+            "paged_mla_decode_attention": kinds.count(MLA) * steps * fused,
+            "flash_attention": (kinds.count(MLA) + n_at * (not fused))
+            * calls,
             "grouped_matmul": 3 * moe * (steps + calls),
             "rglru_scan": kinds.count(RGLRU) * calls,
             "ssd_scan": kinds.count(SSD) * calls}
@@ -2756,6 +2811,7 @@ def serve_launch_want(cfg, steps, calls):
 
 
 def serve_wrappers():
+    from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.grouped_matmul import grouped_matmul
     from repro_torch.kernels.paged_decode_attention import (
@@ -2767,8 +2823,8 @@ def serve_wrappers():
     return {k.__name__: k for k in (paged_decode_attention,
                                     ragged_prefill_attention,
                                     paged_mla_decode_attention,
-                                    flash_attention, grouped_matmul,
-                                    rglru_scan, ssd_scan)}
+                                    decode_attention, flash_attention,
+                                    grouped_matmul, rglru_scan, ssd_scan)}
 
 
 def time_archive(torch, archive):
@@ -3169,7 +3225,7 @@ def phase_ssm_generator(torch, np):
 
 
 def phase_ssm_identity(torch, np):
-    """mamba2-370m in float32 at full width, all layers: HyperServe greedy
+    """mamba2-370m in float32 at full width, SSM_ID_LAYERS layers: HyperServe greedy
     tokens identical with the kernel and with the plain versions, and to
     the Generator's (prompt by prompt: chunks of min(256, S) halved until
     they divide S, so down to 1)."""
@@ -3179,7 +3235,8 @@ def phase_ssm_identity(torch, np):
     from repro_torch.models import model as M
     from repro_torch.serve.api import HyperServe
     from repro_torch.serve.engine import GenerateConfig, Generator
-    cfg = dataclasses.replace(get_config(SSM_ARCH), dtype="float32")
+    cfg = dataclasses.replace(get_config(SSM_ARCH), dtype="float32",
+                              num_layers=SSM_ID_LAYERS)
     params = M.init_model(
         cfg, torch.Generator(device=DEVICE).manual_seed(SEED))
     scfg = ServeConfig(block_size=BS, num_blocks=SSM_NUM_BLOCKS,
@@ -3426,7 +3483,7 @@ def phase_rg_generator(torch, np):
 
 
 def phase_rg_identity(torch, np):
-    """recurrentgemma-2b in float32 at full width, all 26 layers: HyperServe
+    """recurrentgemma-2b in float32 at full width, RG_ID_LAYERS layers: HyperServe
     greedy tokens identical with the kernels, the plain versions and the
     composed lowering on prompts up to RG_ID_PROMPT[1] tokens (two above
     the window); HyperServe's identical to the Generator's on prompts of
@@ -3444,7 +3501,8 @@ def phase_rg_identity(torch, np):
     from repro_torch.models import model as M
     from repro_torch.serve.api import HyperServe
     from repro_torch.serve.engine import GenerateConfig, Generator
-    cfg = dataclasses.replace(get_config(RG_ARCH), dtype="float32")
+    cfg = dataclasses.replace(get_config(RG_ARCH), dtype="float32",
+                              num_layers=RG_ID_LAYERS)
     params = M.init_model(
         cfg, torch.Generator(device=DEVICE).manual_seed(SEED))
     win = cfg.sliding_window
@@ -3518,28 +3576,34 @@ def phase_rg_identity(torch, np):
     phase_preempt(torch, np, cfg, params, tag="hybrid preempt", tiers=True)
 
 
-def prefix_train(torch, cfg, shape, adamw, train_cfg, hook=None):
+def prefix_train(torch, cfg, shape, adamw, train_cfg, hook=None, mesh=None,
+                 plan=None):
     """``trainer.train``'s loop through ``make_train_step(multimodal=True)``
     (the trainer, as the reference's, makes no prefix): each batch of the
     reference's synthetic corpus gets num_prefix_tokens conditioning frames
     of frontend_dim from a generator seeded by ``train_cfg.seed``, so that
-    flash sees num_prefix_tokens + seq_len positions.  Returns (params,
+    flash sees num_prefix_tokens + seq_len positions; on ``mesh`` under
+    ``plan`` the state, the batches and the prefix (its rows,
+    ``data.pipeline.place_prefix``) are DTensors.  Returns (params,
     history) as the trainer does."""
-    from repro_torch.data.pipeline import DataConfig, make_loader
+    from repro_torch.data.pipeline import (DataConfig, make_loader,
+                                           place_prefix)
     from repro_torch.train import steps
-    step = steps.make_train_step(cfg, adamw, multimodal=True)
-    params, opt = steps.init_state(cfg, seed=train_cfg.seed, device=DEVICE)
+    step = steps.make_train_step(cfg, adamw, multimodal=True, mesh=mesh,
+                                 plan=plan)
+    params, opt = steps.init_state(cfg, seed=train_cfg.seed, device=DEVICE,
+                                   mesh=mesh, plan=plan)
     loader = make_loader(DataConfig(vocab_size=cfg.vocab_size,
                                     seq_len=shape.seq_len,
                                     global_batch=shape.global_batch,
-                                    seed=train_cfg.seed), DEVICE)
+                                    seed=train_cfg.seed), DEVICE, mesh=mesh)
     g = torch.Generator(device=DEVICE).manual_seed(train_cfg.seed + 11)
     history = []
     t0 = time.perf_counter()
     for i, batch in zip(range(train_cfg.num_steps), loader):
-        batch["prefix_embeds"] = torch.randn(
+        batch["prefix_embeds"] = place_prefix(torch.randn(
             shape.global_batch, cfg.num_prefix_tokens, cfg.frontend_dim,
-            generator=g, device=DEVICE)
+            generator=g, device=DEVICE), mesh)
         params, opt, metrics = step(params, opt, batch)
         m = {k: float(v) for k, v in metrics.items()}
         m.update(step=i + 1, wall_s=time.perf_counter() - t0)
@@ -3555,14 +3619,16 @@ def run_train(torch, cfg, shape, n_steps, hook=None, offload_cfg=None,
     n_steps), as the reference's launcher builds it: through
     ``trainer.train`` (with ``offload_cfg``, ``obs``, ``moe_dispatch`` and a
     HyperShard ``mesh`` and ``plan`` when given), or, for an arch with a
-    multimodal frontend (frontend_dim), through prefix_train."""
+    multimodal frontend (frontend_dim), through prefix_train (on ``mesh``
+    too)."""
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train import trainer
     adamw = AdamWConfig(total_steps=n_steps)
     train_cfg = trainer.TrainConfig(num_steps=n_steps, log_every=1,
                                     seed=SEED)
     if cfg.frontend_dim:
-        return prefix_train(torch, cfg, shape, adamw, train_cfg, hook)
+        return prefix_train(torch, cfg, shape, adamw, train_cfg, hook, mesh,
+                            plan)
     return trainer.train(cfg, shape, adamw=adamw, train_cfg=train_cfg,
                          hook=hook, device=DEVICE, offload_cfg=offload_cfg,
                          obs=obs, moe_dispatch=moe_dispatch, mesh=mesh,
@@ -4110,7 +4176,7 @@ def mesh_train_identity(torch, cfg, shape, n_steps, mesh, plan, tag,
 def one_rank_group():
     """A one-rank process group (NCCL on the card; initialised from a file
     in a temporary directory: no port, no network) and the (1, 1) mesh of
-    ``make_host_mesh`` over it, for phases 38a, 38b and 38c; the group is
+    ``make_host_mesh`` over it, for phases 38a-38d; the group is
     destroyed when they are done."""
     import shutil
     import tempfile
@@ -4133,17 +4199,19 @@ def one_rank_group():
 # without one: qwen2-0.5b (phase 10's config and prompts; phase 11's forced
 # preemption, host tier), mamba2-370m (phase 17's) and recurrentgemma-2b
 # (MESH_RG_PROMPTS prompts, two past the window, RG_ID_TABLE_W blocks a
-# table); all layers of each
+# table); qwen2 at all layers, the other two at phases 18 and 22's depths
 MESH_RG_PROMPTS = 4
 
 
-def mesh_identity(torch, np, tag, arch, scfg, prompts, mesh, layers=None):
-    """One f32 identity of phases 38b and 38c: ``arch`` at full width
+def mesh_identity(torch, np, tag, arch, scfg, prompts, mesh, layers=None,
+                  kernels="fused"):
+    """One f32 identity of phases 38b-38d: ``arch`` at full width
     (``layers`` of its layers, all when None) through HyperServe without a
-    mesh and on ``mesh``, greedy tokens identical (the same kernels on the
-    same tensors), and on the mesh exactly the serving launches
-    ``serve_launch_want`` gives for its decode steps and prefill calls.
-    Returns (launches, params, cfg)."""
+    mesh (fused) and on ``mesh`` under the ``kernels`` lowering, greedy
+    tokens identical (the same kernels on the same tensors; composed, the
+    gathered pages through the dense ones), and on the mesh exactly the
+    serving launches ``serve_launch_want`` gives for its decode steps and
+    prefill calls.  Returns (launches, params, cfg)."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as M
     from repro_torch.serve.api import HyperServe
@@ -4157,19 +4225,21 @@ def mesh_identity(torch, np, tag, arch, scfg, prompts, mesh, layers=None):
     for name, m in (("no mesh", None), ("mesh", mesh)):
         for k in wrappers.values():
             k.launches = 0
-        serve = HyperServe(cfg, params, serve_cfg=scfg, device=DEVICE,
-                           mesh=m)
+        serve = HyperServe(cfg, params, device=DEVICE, mesh=m,
+                           serve_cfg=dataclasses.replace(
+                               scfg, kernels=kernels if m else "fused"))
         runs[name], _ = serve_all(serve, prompts, ID_NEW)
         sync(torch)
         launches[name] = {k: w.launches for k, w in wrappers.items()
                           if w.launches}
     m = serve.engine.obs.metrics
-    steps = int(m.counter("serve.kernels.decode.fused").value)
+    steps = int(m.counter(f"serve.kernels.decode.{kernels}").value)
     calls = int(m.counter("serve.prefill_calls").value)
-    want = serve_launch_want(cfg, steps, calls)
+    want = serve_launch_want(cfg, steps, calls, kernels)
     log(f"[{tag}] f32 {arch} at full width, {cfg.num_layers} layers, "
-        f"{len(prompts)} requests x {ID_NEW} tokens: mesh tokens identical "
-        f"to no mesh: {runs['mesh'] == runs['no mesh']}; launches on the "
+        f"{len(prompts)} requests x {ID_NEW} tokens: mesh ({kernels}) "
+        f"tokens identical to no mesh (fused): "
+        f"{runs['mesh'] == runs['no mesh']}; launches on the "
         f"mesh {launches['mesh']}, expected {want} ({steps} decode steps, "
         f"{calls} prefill calls; no mesh {launches['no mesh']})")
     if runs["mesh"] != runs["no mesh"]:
@@ -4230,7 +4300,8 @@ def phase_serve_mesh(torch, np, mesh, serve_summary):
         torch, np, "serve mesh identity", SSM_ARCH,
         dataclasses.replace(id_scfg, num_blocks=SSM_NUM_BLOCKS),
         make_prompts(np.random.default_rng(SEED + 13), 6, 100, ID_PROMPT_MAX,
-                     get_config(SSM_ARCH).vocab_size), mesh)
+                     get_config(SSM_ARCH).vocab_size), mesh,
+        layers=SSM_ID_LAYERS)
     del params
     torch.cuda.empty_cache()
     rg = get_config(RG_ARCH)
@@ -4243,7 +4314,8 @@ def phase_serve_mesh(torch, np, mesh, serve_summary):
         make_prompts(rng, half, rg.sliding_window + BS + 1, RG_ID_PROMPT[1],
                      rg.vocab_size)
         + make_prompts(rng, MESH_RG_PROMPTS - half, RG_ID_PROMPT[0],
-                       rg.sliding_window, rg.vocab_size), mesh)
+                       rg.sliding_window, rg.vocab_size), mesh,
+        layers=RG_ID_LAYERS)
     del params
     torch.cuda.empty_cache()
     return runs, mesh_kernel_rows(torch, mesh)
@@ -4483,25 +4555,30 @@ def phase_deepseek_mesh(torch, np, mesh, moe_summary, ds_records):
             MESH_STEPS, tag, record=rec, moe_dispatch=dispatch, mesh=mesh,
             plan=plan, summary=summ)
         base, base_summ = ds_records[dispatch]
-        # two bf16 runs without a mesh part too (the flash backward's dQ
-        # atomics, amplified through deepseek's routing: step 4's grad
-        # norm of phase 26 spans 1.2e-3 relative over five runs on the
-        # H100, PERF.md), so a second run without the mesh measures that
-        # noise here, and the mesh run may part from the first by twice
-        # it where that exceeds MESH_BF16_REL
-        again = []
-        phase_train(torch, np, DS_ARCH, DS_TRAIN_LAYERS, DS_TRAIN_B,
-                    DS_TRAIN_S, MESH_STEPS, f"{base_tag} again",
-                    record=again, moe_dispatch=dispatch)
-        noise, rel = (max(abs(x[0][k] - y[0][k]) / max(1.0, abs(y[0][k]))
-                          for x, y in zip(run, base[:MESH_STEPS])
-                          for k in ("loss", "grad_norm"))
-                      for run in (again, rec))
+
+        def dist(run):
+            return max(abs(x[0][k] - y[0][k]) / max(1.0, abs(y[0][k]))
+                       for x, y in zip(run, base[:MESH_STEPS])
+                       for k in ("loss", "grad_norm"))
+        rel, noise = dist(rec), 0.0
+        if not rel <= MESH_BF16_REL:
+            # two bf16 runs without a mesh part too (the flash backward's
+            # dQ atomics, amplified through deepseek's routing: step 4's
+            # grad norm of phase 26 spans 1.2e-3 relative over five runs
+            # on the H100, PERF.md), so a second run without the mesh
+            # measures that noise here, and the mesh run may part from the
+            # first by twice it where that exceeds MESH_BF16_REL
+            again = []
+            phase_train(torch, np, DS_ARCH, DS_TRAIN_LAYERS, DS_TRAIN_B,
+                        DS_TRAIN_S, MESH_STEPS, f"{base_tag} again",
+                        record=again, moe_dispatch=dispatch)
+            noise = dist(again)
         limit = max(MESH_BF16_REL, 2 * noise)
         log(f"[{tag}] bf16 {DS_TRAIN_B} x {DS_TRAIN_S} on the "
             f"{tuple(mesh.shape)} mesh against {base_tag} in this process: "
             f"loss and grad norm within {rel:.3e} relative (a second run "
-            f"without the mesh: {noise:.3e}; limit {limit:.3e}, the larger "
+            f"without the mesh, run only where the first limit is not met: "
+            f"{noise:.3e}; limit {limit:.3e}, the larger "
             f"of {MESH_BF16_REL:.3e} and twice that); median step "
             f"{summ['median_s']:.4f}s vs {base_summ['median_s']:.4f}s, "
             f"{summ['tok_s']:.1f} vs {base_summ['tok_s']:.1f} train tok/s, "
@@ -4642,6 +4719,262 @@ def ds_mesh_kernel_rows(torch, mesh):
             lambda: ref(*args, **kwargs), lib, cost, "bfloat16", replaces,
             path, calls=10))
         torch.cuda.empty_cache()
+    return rows
+
+
+# phase 38d: the recurrent and multimodal families and the composed
+# lowering on the one-rank mesh of phases 38a-38c.  musicgen-large serves
+# text-only on the mesh at MG_SERVE_LAYERS (its f32 identity: the fused
+# kernels at its (32, 32, 64) against no mesh)
+MG_SERVE_LAYERS = 4
+
+
+def phase_recurrent_mesh(torch, np, mesh, serve_summary, train_records):
+    """Phase 38d.  bf16 fsdp_tp training on ``mesh``, MESH_STEPS steps
+    each through phase_train (its exact launches a step): mamba2-370m at
+    phase 31's shape (96 ``ssd_scan`` and 48 ``ssd_scan_bwd`` a step, the
+    scans' backwards under ``local_map``), recurrentgemma-2b at phase 34's
+    (36 scans, 18 scan backwards, 16 flash and 8 flash backwards a step)
+    and musicgen-large at phase 29's, its seeded prefix placed as the
+    batch's rows (72 + 36 flash a step), loss and grad norm within
+    MESH_BF16_REL of those phases' first MESH_STEPS steps
+    (``train_records``: arch -> (record, summary)), or within twice the
+    distance of a second run without the mesh where that is larger (run
+    only when the first limit is not met), wall, tok/s and peak beside
+    theirs; the f32 identities against no mesh at phases 32, 35 and 30's
+    shapes.  Then qwen2-0.5b bf16 served composed on the mesh at phase 4's
+    config and requests (24 ``decode_attention`` a decode step and 24
+    flash a prefill call, exactly), decode tok/s, TTFT and the decode-step
+    wall beside phase 4's (``serve_summary``); the f32 identities of the
+    composed engine on the mesh against the fused one without it (qwen2,
+    recurrentgemma at RG_ID_LAYERS with two prompts past its window,
+    deepseek-v2-lite at DS_ID_LAYERS: MLA's composed decode), and
+    musicgen-large text-only on
+    the mesh at MG_SERVE_LAYERS against no mesh.  Nothing here is caught.
+    Returns (the launches of each run, the kernel rows)."""
+    from repro_torch.configs.base import ServeConfig, ShapeConfig, get_config
+    from repro_torch.core.hypershard import ShardingPlan
+    runs = {}
+    plan = ShardingPlan()
+    for arch, layers, batch, seq, tag, base_tag in (
+            (SSM_ARCH, None, SSM_TRAIN_B, SSM_TRAIN_S, "mamba2 mesh train",
+             "mamba2 train"),
+            (RG_ARCH, None, RG_TRAIN_B, RG_TRAIN_S,
+             "recurrentgemma mesh train", "recurrentgemma train"),
+            (MG_ARCH, MG_LAYERS, MG_B, MG_S, "musicgen mesh train",
+             "musicgen train")):
+        rec, summ = [], {}
+        runs[f"{arch} mesh train"] = phase_train(
+            torch, np, arch, layers, batch, seq, MESH_STEPS, tag, record=rec,
+            mesh=mesh, plan=plan, summary=summ)
+        base, base_summ = train_records[arch]
+
+        def dist(run):
+            return max(abs(x[0][k] - y[0][k]) / max(1.0, abs(y[0][k]))
+                       for x, y in zip(run, base[:MESH_STEPS])
+                       for k in ("loss", "grad_norm"))
+        rel, noise = dist(rec), None
+        if not rel <= MESH_BF16_REL:
+            # 38c's rule: two bf16 runs without a mesh part too (the
+            # flash backward's dQ atomics), so a second one measures that
+            again = []
+            torch.cuda.empty_cache()
+            phase_train(torch, np, arch, layers, batch, seq, MESH_STEPS,
+                        f"{base_tag} again", record=again)
+            noise = dist(again)
+        limit = MESH_BF16_REL if noise is None else max(MESH_BF16_REL,
+                                                        2 * noise)
+        log(f"[{tag}] bf16 on the {tuple(mesh.shape)} mesh against "
+            f"{base_tag} in this process: loss and grad norm within "
+            f"{rel:.3e} relative (limit {limit:.3e}"
+            + ("" if noise is None else
+               f", a second run without the mesh {noise:.3e}")
+            + f"); median step {summ['median_s']:.4f}s vs "
+            f"{base_summ['median_s']:.4f}s "
+            f"({summ['median_s'] / base_summ['median_s']:.2f}x), "
+            f"{summ['tok_s']:.1f} vs {base_summ['tok_s']:.1f} train tok/s, "
+            f"peak {summ['peak_gib']:.2f} vs {base_summ['peak_gib']:.2f} "
+            f"GiB, first step {summ['first_s']:.3f}s vs "
+            f"{base_summ['first_s']:.3f}s")
+        if len(rec) != MESH_STEPS or not rel <= limit:
+            raise AssertionError(f"{tag}: bf16 run differs by {rel}")
+        torch.cuda.empty_cache()
+    for arch, layers, batch, seq, n_steps in (
+            (SSM_ARCH, SSM_TRAIN_ID_LAYERS, SSM_TRAIN_ID_B, SSM_TRAIN_ID_S,
+             TRAIN_ID_STEPS),
+            (RG_ARCH, RG_TRAIN_ID_LAYERS, RG_TRAIN_ID_B, RG_TRAIN_ID_S,
+             TRAIN_ID_STEPS),
+            (MG_ARCH, MG_ID_LAYERS, MG_ID_B, MG_ID_S, MG_ID_STEPS)):
+        mesh_train_identity(
+            torch, dataclasses.replace(get_config(arch), dtype="float32",
+                                       num_layers=layers),
+            ShapeConfig("train_identity", seq, batch, "train"), n_steps,
+            mesh, plan, f"{arch} mesh train identity")
+        torch.cuda.empty_cache()
+    summary = {}
+    runs["qwen2-0.5b composed mesh"], serve, _ = phase_serve(
+        torch, np, mesh, summary, "composed mesh", kernels="composed")
+    b = serve_summary
+    log(f"[composed mesh] against phase 4 (serve, fused, no mesh) in this "
+        f"process: decode {summary['decode_tok_s']:.1f} vs "
+        f"{b['decode_tok_s']:.1f} tok/s, median TTFT {summary['ttft_s']:.3f}s"
+        f" vs {b['ttft_s']:.3f}s, decode-step wall "
+        f"{summary['step_s'] * 1e3:.3f} vs {b['step_s'] * 1e3:.3f} ms "
+        f"({summary['step_s'] / b['step_s']:.2f}x); bf16 tokens identical "
+        f"to phase 4's: {summary['tokens'] == b['tokens']}")
+    del serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    id_scfg = ServeConfig(block_size=BS, num_blocks=512,
+                          max_blocks_per_req=ID_TABLE_W, max_slots=ID_SLOTS,
+                          prefill_chunk=PRE_C, prefill_batch=PRE_P)
+    mesh_identity(torch, np, "composed mesh identity", "qwen2-0.5b", id_scfg,
+                  make_prompts(np.random.default_rng(SEED + 2), 6, 100,
+                               ID_PROMPT_MAX,
+                               get_config("qwen2-0.5b").vocab_size),
+                  mesh, kernels="composed")
+    torch.cuda.empty_cache()
+    rg = get_config(RG_ARCH)
+    rng = np.random.default_rng(SEED + 15)
+    half = MESH_RG_PROMPTS // 2
+    runs[f"{RG_ARCH} composed mesh"], params, _ = mesh_identity(
+        torch, np, "composed mesh identity", RG_ARCH,
+        dataclasses.replace(id_scfg, num_blocks=1024,
+                            max_blocks_per_req=RG_ID_TABLE_W),
+        make_prompts(rng, half, rg.sliding_window + BS + 1, RG_ID_PROMPT[1],
+                     rg.vocab_size)
+        + make_prompts(rng, MESH_RG_PROMPTS - half, RG_ID_PROMPT[0],
+                       rg.sliding_window, rg.vocab_size), mesh,
+        layers=RG_ID_LAYERS, kernels="composed")
+    del params
+    torch.cuda.empty_cache()
+    mesh_identity(torch, np, "composed mesh identity", DS_ARCH, id_scfg,
+                  make_prompts(np.random.default_rng(SEED + 9), 6, 100,
+                               ID_PROMPT_MAX, get_config(DS_ARCH).vocab_size),
+                  mesh, layers=DS_ID_LAYERS, kernels="composed")
+    torch.cuda.empty_cache()
+    mesh_identity(torch, np, "prefix mesh identity", MG_ARCH, id_scfg,
+                  make_prompts(np.random.default_rng(SEED + 17), 6, 100,
+                               ID_PROMPT_MAX, get_config(MG_ARCH).vocab_size),
+                  mesh, layers=MG_SERVE_LAYERS)
+    torch.cuda.empty_cache()
+    return runs, recurrent_mesh_kernel_rows(torch, mesh)
+
+
+def recurrent_mesh_kernel_rows(torch, mesh):
+    """The ``_mesh`` rows of phase 38d, each wrapper handed DTensors on
+    ``mesh`` (the lengths plain, as the composed decode hands them over)
+    and run under ``local_map``, in bf16: ``decode_attention`` at qwen2's
+    composed serving shapes (phase 4's 16 seats over TABLE_W gathered
+    pages) and at (10, 1, 256) with the window (phase 3's recurrentgemma
+    composed inputs), both scans and both scan backwards at the train
+    steps' shapes (phase 3's inputs).  Each row: its error against the
+    plain version (phase 3's limits), its device time on DTensors, the
+    plain version's, the library call's where there is one and the bound
+    (mesh_row)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import perf_model as pm
+    from repro_torch.kernels import rglru_scan as rs
+    from repro_torch.kernels import ssd_scan as ss
+    rep = [Replicate()] * mesh.ndim
+    bf16 = torch.bfloat16
+
+    def on_mesh(t):
+        if not (torch.is_tensor(t) and t.is_floating_point()):
+            return t                    # side inputs and ints stay plain
+        return DTensor.from_local(t, mesh, rep, run_check=False)
+    qdec = dense_decode_inputs(torch, bf16, DEVICE, H, KV, D, DEC_B,
+                               TABLE_W * BS, (100, 1564), SEED + 70)
+    rdec = dense_decode_inputs(torch, bf16, DEVICE, 10, 1, 256, ID_SLOTS,
+                               RG_ID_TABLE_W * BS,
+                               (RG_ID_PROMPT[0] + 1, RG_ID_PROMPT[1] + ID_NEW),
+                               SEED + 71)
+    ssm = get_config(SSM_ARCH)
+    s_args, s_kw = ssd_inputs(torch, bf16, ssm, SSM_TRAIN_B, SSM_TRAIN_S,
+                              SEED + 72, False)
+    _, sb_args, sb_kw = ssd_bwd_cases(torch, bf16)[0]
+    W = get_config(RG_ARCH).rglru.lru_width
+    r_args, r_kw = rg_scan_inputs(torch, bf16, W, RG_TRAIN_B, RG_TRAIN_S,
+                                  SEED + 73, False)
+    _, rb_args, rb_kw = rg_bwd_cases(torch, bf16)[0]
+    x, Bm = s_args[0], s_args[3]
+    ssd_shape = dict(batch=SSM_TRAIN_B, seq=SSM_TRAIN_S, heads=x.shape[2],
+                     head_dim=x.shape[3], d_state=Bm.shape[-1],
+                     chunk=s_kw["chunk"], itemsize=2, init_state=False)
+    rg_shape = dict(batch=RG_TRAIN_B, seq=RG_TRAIN_S, width=W, itemsize=2,
+                    init_state=False)
+    S = rdec[1].shape[1]
+    cases = (
+        ("decode_attention", da.decode_attention, da.decode_attention_ref,
+         qdec, {}, pm.decode_visible_cost(qdec[3].tolist(), num_heads=H,
+                                          kv_heads=KV, head_dim=D,
+                                          itemsize=2),
+         sdpa_dense_decode(torch, *qdec),
+         "src/repro/kernels/decode_attention.py:67",
+         "qwen2-0.5b composed mesh"),
+        ("decode_attention", da.decode_attention, da.decode_attention_ref,
+         rdec, dict(window=RG_WINDOW),
+         pm.decode_visible_cost(rdec[3].tolist(), num_heads=10, kv_heads=1,
+                                head_dim=256, itemsize=2, window=RG_WINDOW),
+         sdpa_masked(torch, rdec[0], rdec[1], rdec[2], rg_decode_mask(
+             torch, rdec[3], S, RG_WINDOW)),
+         "src/repro/kernels/decode_attention.py:67",
+         f"{RG_ARCH} composed mesh"),
+        ("ssd_scan", ss.ssd_scan, ss.ssd_scan_ref, s_args, s_kw,
+         pm.ssd_scan_cost(**ssd_shape), None,
+         "src/repro/kernels/ssd_scan.py:70", f"{SSM_ARCH} mesh train"),
+        ("ssd_scan_bwd", ss.ssd_scan_bwd, ss.ssd_scan_bwd_ref, sb_args,
+         sb_kw, pm.ssd_scan_bwd_cost(**ssd_shape, dfin=False), None,
+         "src/repro/kernels/ssd_scan.py:70", f"{SSM_ARCH} mesh train"),
+        ("rglru_scan", rs.rglru_scan, rs.rglru_scan_ref, r_args, r_kw,
+         pm.rglru_scan_cost(**rg_shape), None,
+         "src/repro/kernels/rglru_scan.py:66", f"{RG_ARCH} mesh train"),
+        ("rglru_scan_bwd", rs.rglru_scan_bwd, rs.rglru_scan_bwd_ref,
+         rb_args, rb_kw, pm.rglru_scan_bwd_cost(**rg_shape, dfin=False),
+         None, "src/repro/kernels/rglru_scan.py:66",
+         f"{RG_ARCH} mesh train"))
+    rows = []
+    for name, fn, ref, args, kwargs, cost, lib, replaces, path in cases:
+        m_args = [on_mesh(a) for a in args]
+        m_kw = {k: on_mesh(v) for k, v in kwargs.items()}
+        n0 = fn.launches
+        got = fn(*m_args, **m_kw)
+        if fn.launches != n0 + 1:
+            raise AssertionError(f"{name} on the mesh: "
+                                 f"{fn.launches - n0} launches, not 1")
+        got = got if isinstance(got, tuple) else (got,)
+        got = [g.to_local() for g in got if g is not None]
+
+        def up(a, dtype):
+            return a.to(dtype) if torch.is_tensor(a) \
+                and a.is_floating_point() else a
+        want = ref(*args, **kwargs)
+        want32 = ref(*[up(a, torch.float32) for a in args],
+                     **{k: up(v, torch.float32) for k, v in kwargs.items()})
+        want = want if isinstance(want, tuple) else (want,)
+        want32 = want32 if isinstance(want32, tuple) else (want32,)
+        if name.startswith(("ssd", "rglru")):
+            want64 = ref(*[up(a, torch.float64) for a in args],
+                         **{k: up(v, torch.float64)
+                            for k, v in kwargs.items()}, acc=torch.float64)
+            rel = SSM_REL if name.startswith("ssd") else F32_TOL
+            check = ssd_parity if name == "ssd_scan" else (
+                lambda t, d, g, w, w3, w6: scan_grad_parity(
+                    t, d, g, w, w3, w6, rel))
+            errs = [check(torch, "bfloat16", g, w, w3, w6)
+                    for g, w, w3, w6 in zip(got, want, want32, want64)
+                    if w is not None]
+        else:
+            errs = [parity(torch, "bfloat16", g, w, w3)
+                    for g, w, w3 in zip(got, want, want32)]
+        rows.append(mesh_row(
+            torch, "recurrent mesh kernels", f"{name}_mesh", name, errs,
+            lambda: fn(*m_args, **m_kw), lambda: fn(*args, **kwargs),
+            lambda: ref(*args, **kwargs), lib, cost, "bfloat16", replaces,
+            path))
     return rows
 
 
@@ -5057,9 +5390,13 @@ def main() -> int:
           DS_ARCH, DS_TRAIN_ID_LAYERS, DS_TRAIN_ID_B, DS_TRAIN_ID_S,
           DS_TRAIN_ID_STEPS, "deepseek train identity")
     torch.cuda.empty_cache()
+    # phases 29, 31 and 34's records: phase 38d's mesh runs are held to them
+    train_records = {a: ([], {}) for a in (MG_ARCH, SSM_ARCH, RG_ARCH)}
     mg_train_launches = timed("musicgen train", phase_train, torch, np,
                               MG_ARCH, MG_LAYERS, MG_B, MG_S, MG_STEPS,
-                              "musicgen train")
+                              "musicgen train", None, None,
+                              train_records[MG_ARCH][0], "gshard", None, None,
+                              train_records[MG_ARCH][1])
     torch.cuda.empty_cache()
     timed("musicgen train identity", phase_train_identity, torch, np,
           MG_ARCH, MG_ID_LAYERS, MG_ID_B, MG_ID_S, MG_ID_STEPS,
@@ -5067,7 +5404,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     ssm_train = (SSM_ARCH, None, SSM_TRAIN_B, SSM_TRAIN_S)
     ssm_train_launches = timed("mamba2 train", phase_train, torch, np,
-                               *ssm_train, SSM_TRAIN_STEPS, "mamba2 train")
+                               *ssm_train, SSM_TRAIN_STEPS, "mamba2 train",
+                               None, None, train_records[SSM_ARCH][0],
+                               "gshard", None, None,
+                               train_records[SSM_ARCH][1])
     torch.cuda.empty_cache()
     timed("mamba2 train profile", phase_train_profile, torch, *ssm_train,
           "mamba2 train profile")
@@ -5079,7 +5419,9 @@ def main() -> int:
     rg_train = (RG_ARCH, None, RG_TRAIN_B, RG_TRAIN_S)
     rg_train_launches = timed("recurrentgemma train", phase_train, torch, np,
                               *rg_train, RG_TRAIN_STEPS,
-                              "recurrentgemma train")
+                              "recurrentgemma train", None, None,
+                              train_records[RG_ARCH][0], "gshard", None,
+                              None, train_records[RG_ARCH][1])
     torch.cuda.empty_cache()
     timed("recurrentgemma train profile", phase_train_profile, torch,
           *rg_train, "recurrentgemma train profile")
@@ -5102,6 +5444,10 @@ def main() -> int:
         ds_mesh_runs, ds_mesh_rows = timed(
             "deepseek mesh", phase_deepseek_mesh, torch, np, mesh,
             moe_summary, ds_records)
+        torch.cuda.empty_cache()
+        rec_mesh_runs, rec_mesh_rows = timed(
+            "recurrent mesh", phase_recurrent_mesh, torch, np, mesh,
+            serve_summary, train_records)
     torch.cuda.empty_cache()
     rl_launches = timed("rl", phase_rl, torch, np)
     torch.cuda.empty_cache()
@@ -5123,13 +5469,13 @@ def main() -> int:
             f"{RG_ARCH} train": rg_train_launches,
             "qwen2-0.5b rl": rl_launches, f"{DS_ARCH} rl": ds_rl_launches,
             "qwen2-0.5b mesh train": mesh_launches, **serve_mesh_runs,
-            **ds_mesh_runs}
+            **ds_mesh_runs, **rec_mesh_runs}
     # the mesh run launches flash at phase 23's shapes: its rows are phase
     # 3's rows of that shape, with the mesh run's launches
     rows += [dict(row, name=row["name"] + "_mesh",
                   path="qwen2-0.5b mesh train")
              for row in rows if row["path"] == "qwen2-0.5b train"]
-    rows += serve_mesh_rows + ds_mesh_rows
+    rows += serve_mesh_rows + ds_mesh_rows + rec_mesh_rows
     for row in rows:
         if row["path"] is not None:     # None: timed in phase 3 only
             name = row["name"].removesuffix("_mesh")

@@ -170,6 +170,23 @@ def split_heads(t, heads: int):
     return t.reshape(*t.shape[:-1], heads, t.shape[-1] // heads)
 
 
+def whole_dims(t, *dims):
+    """``t`` with its dims ``dims`` whole on every rank: on a DTensor each
+    mesh dim that shards one of them is gathered, the others keep their
+    placements (the batch rows stay where they are); a plain tensor as it
+    is.  The causal conv takes its rows so: its shifted slices along the
+    sequence need every position of a row on one rank."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+    want = {d % t.dim() for d in dims}
+    pl = [Replicate() if isinstance(p, Shard) and p.dim % t.dim() in want
+          else p for p in t.placements]
+    if pl == list(t.placements):
+        return t
+    return t.redistribute(t.device_mesh, pl)
+
+
 def full_tensor(t):
     """A DTensor's full value as a plain tensor on every rank (a
     collective); a plain tensor as it is."""

@@ -90,6 +90,25 @@ def batch_sharding(mesh):
     return NamedSharding(mesh, batch_spec(mesh))
 
 
+def prefix_sharding(mesh):
+    """The multimodal prefix's sharding, as the reference's train step
+    places ``batch["prefix_embeds"]`` (B, P, frontend_dim): the rows over
+    the dp axes, ``P(bspec[0], None, None)``."""
+    from repro_torch.core.hypershard import NamedSharding
+    return NamedSharding(mesh, (batch_spec(mesh)[0], None, None))
+
+
+def place_prefix(prefix, mesh):
+    """A seeded prefix (B, P, frontend_dim), the same on every rank, as a
+    DTensor of the rank's rows (:func:`prefix_sharding`): each rank keeps
+    its chunk, with no communication; ``prefix`` itself with no mesh."""
+    if mesh is None:
+        return prefix
+    from repro_torch.core.hypershard import distribute
+    sh = prefix_sharding(mesh)
+    return distribute(prefix, sh.mesh, sh.placements)
+
+
 def make_loader(cfg: DataConfig, device, mesh=None
                 ) -> Iterator[Dict[str, torch.Tensor]]:
     """Yields batches as tensors on ``device``: int32 ``inputs`` and

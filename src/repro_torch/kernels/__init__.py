@@ -109,29 +109,37 @@ def count_launch(wrapper, rc: int) -> None:
     wrapper.launches += 1
 
 
-def sharded_on(t, dim: int, as_dim=None) -> tuple:
+def sharded_on(t, dim: int, as_dim=None, *, also=()) -> tuple:
     """One DTensor placement per dim of ``t``'s mesh: ``Shard(as_dim)``
     (default ``dim``) where the DTensor ``t`` is sharded on its dim ``dim``
     (and the mesh dim has more than one rank), ``Replicate()`` elsewhere:
     the placements of another tensor whose dim ``as_dim`` is sharded as
-    ``t``'s dim ``dim`` is.  The serving kernels run on each rank's heads
-    (channels) of a pool or a seat state sharded so, and on all of them
-    where it replicates."""
+    ``t``'s dim ``dim`` is.  ``also`` holds more ``(dim, as_dim)`` pairs
+    kept the same way (a train scan keeps the batch rows sharded as well as
+    the heads).  The serving kernels run on each rank's heads (channels)
+    of a pool or a seat state sharded so, and on all of them where it
+    replicates."""
     from torch.distributed.tensor import Replicate, Shard
-    as_dim = dim if as_dim is None else as_dim
-    return tuple(Shard(as_dim) if isinstance(p, Shard) and p.dim == dim
-                 and n > 1 else Replicate()
+    pairs = dict(((dim, dim if as_dim is None else as_dim), *also))
+    return tuple(Shard(pairs[p.dim]) if isinstance(p, Shard)
+                 and p.dim in pairs and n > 1 else Replicate()
                  for p, n in zip(t.placements, t.device_mesh.shape))
 
 
-def on_local_shards(fn, mesh, out_placements, in_placements, *args):
+def on_local_shards(fn, mesh, out_placements, in_placements, *args,
+                    in_grad_placements=None):
     """``fn(*args)`` on each rank's local shards under ``local_map``: a
     DTensor argument is redistributed to its entry of ``in_placements``
     first, an entry of None takes the argument as a plain tensor (a
     DTensor there is gathered in full: the side inputs, block tables,
     lengths, starts and limits, are the same on every rank).
     ``out_placements`` is a list for one output, a tuple of lists for
-    several.  ``fn`` is
+    several.  ``in_grad_placements`` gives, where an entry is not None,
+    the placements of that input's local gradient: ``Partial`` over the
+    mesh dims where each rank's call sees only a part of the input's uses
+    (an input shared by the rows or the heads that the mesh splits), so
+    that the parts are summed; elsewhere the gradient is placed as the
+    input.  ``fn`` is
     the wrapper itself, so every rank launches its kernel once (one launch
     a rank a call) on plain tensors and the checks see local tensors."""
     from torch.distributed.tensor.experimental import local_map
@@ -139,6 +147,11 @@ def on_local_shards(fn, mesh, out_placements, in_placements, *args):
     from repro_torch.core.meshctx import full_tensor
     args = tuple(full_tensor(a) if p is None and a is not None else a
                  for a, p in zip(args, in_placements))
+    grads = None
+    if in_grad_placements is not None:
+        grads = tuple(p if g is None else g
+                      for p, g in zip(in_placements, in_grad_placements))
     return local_map(fn, out_placements=out_placements,
-                     in_placements=in_placements, device_mesh=mesh,
+                     in_placements=in_placements,
+                     in_grad_placements=grads, device_mesh=mesh,
                      redistribute_inputs=True)(*args)

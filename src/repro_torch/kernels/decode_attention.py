@@ -23,9 +23,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.meshctx import is_dtensor
 from repro_torch.kernels import (DTYPE_CODES, NEG_INF, PLAIN_DEVICES,
                                  attention_problems, build, count_launch,
-                                 raise_problems, refuse_grad)
+                                 on_local_shards, raise_problems,
+                                 refuse_grad, sharded_on)
 
 
 def decode_attention_ref(q, k_cache, v_cache, length, *,
@@ -198,8 +200,20 @@ def decode_attention(q, k_cache, v_cache, length, *,
     below ``length - window`` masked when windowed.  Returns (B, 1, H, D).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
+    DTensor q and caches (HyperServe's composed decode on a mesh: the
+    caches are each rank's gathered pages) run this wrapper on each rank's
+    shards under ``local_map``: the heads of q and of the output sharded
+    where the caches' KV heads are (dim 2), else every head on every rank
+    (a replicated pool: recurrentgemma's single KV head); ``length`` is a
+    side input, the same on every rank.  One launch a rank a call.
     """
     refuse_grad("decode_attention", q, k_cache, v_cache)
+    if is_dtensor(q) or is_dtensor(k_cache):
+        ref = k_cache if is_dtensor(k_cache) else q
+        hp = sharded_on(ref, 2)
+        return on_local_shards(functools.partial(
+            decode_attention, scale=scale, window=window), ref.device_mesh,
+            list(hp), (hp, hp, hp, None), q, k_cache, v_cache, length)
     if q.device.type in PLAIN_DEVICES:
         return decode_attention_ref(q, k_cache, v_cache, length, scale=scale,
                                     window=window)

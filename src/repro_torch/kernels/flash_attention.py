@@ -233,12 +233,14 @@ def _grad_problems(q, v, q_offset):
     return problems
 
 
-def mesh_placements(q):
+def mesh_placements(q, k=None):
     """The placements flash runs under on ``q``'s mesh: (those of q, k, v,
     the output and its gradient; those of the (B, H, Sq) lse).  The batch
     is ``Shard(0)`` over the dp axes (``pod``, ``data``) when it divides
     them, the heads ``Shard(2)`` (the lse's ``Shard(1)``) over ``model``
-    when q arrives head-sharded there (the head mode), and every other
+    when q arrives head-sharded there (the head mode) and k's KV heads
+    divide it too (recurrentgemma's single KV head does not: its queries'
+    heads are gathered and every rank attends them all), and every other
     mesh dim is ``Replicate`` (a dim of size 1 always): each rank's call
     sees whole sequences and whole heads, and no kernel ever takes a
     DTensor."""
@@ -254,7 +256,8 @@ def mesh_placements(q):
         elif i in dp and batch_ok:
             qp.append(Shard(0))
             lp.append(Shard(0))
-        elif name == "model" and isinstance(p, Shard) and p.dim == 2:
+        elif (name == "model" and isinstance(p, Shard) and p.dim == 2
+              and (k is None or k.shape[2] % mesh.shape[i] == 0)):
             qp.append(Shard(2))
             lp.append(Shard(1))
         else:
@@ -294,7 +297,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
         # a q_offset tensor (MLA's paged prefill) is a side input, the same
         # on every rank: each rank's call takes it whole
         q_offset = full_tensor(q_offset) if is_dtensor(q_offset) else q_offset
-        qp, _ = mesh_placements(q)
+        qp, _ = mesh_placements(q, k)
         return _local_map(functools.partial(
             flash_attention, causal=causal, window=window,
             q_offset=q_offset, scale=scale), qp, (qp, qp, qp), q)(q, k, v)
@@ -350,7 +353,7 @@ def flash_attention_lse(q, k, v, *, causal: bool = True,
     it on each rank's shards under ``local_map``."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if is_dtensor(q):
-        qp, lp = mesh_placements(q)
+        qp, lp = mesh_placements(q, k)
         return _local_map(functools.partial(
             flash_attention_lse, causal=causal, window=window, scale=scale),
             (qp, lp), (qp, qp, qp), q)(q, k, v)
@@ -431,7 +434,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     ``flash_attention_bwd.launches``.  DTensor inputs run it on each
     rank's shards under ``local_map`` (:func:`mesh_placements`)."""
     if is_dtensor(q):
-        qp, lp = mesh_placements(q)
+        qp, lp = mesh_placements(q, k)
         return _local_map(functools.partial(
             flash_attention_bwd, causal=causal, window=window, scale=scale),
             (qp, qp, qp), (qp, qp, qp, qp, lp, qp), q)(q, k, v, o, lse, do)

@@ -187,8 +187,9 @@ def rglru_scan(x, input_gate, a_gate, log_a, *, init_state=None,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     When an input requires grad, :class:`RGLRUScanFn` runs instead.  DTensor
-    inputs (HyperServe on a mesh) run this wrapper on each rank's channels
-    under ``local_map`` (:func:`_mesh_scan`).
+    inputs (HyperServe and the train step on a mesh) run this wrapper on
+    each rank's rows and channels under ``local_map`` (:func:`_mesh_scan`),
+    with a gradient where an input requires one.
     """
     if any(is_dtensor(t) for t in (x, init_state)):
         return _mesh_scan(x, input_gate, a_gate, log_a, init_state, c)
@@ -199,21 +200,42 @@ def rglru_scan(x, input_gate, a_gate, log_a, *, init_state=None,
     return _forward(x, input_gate, a_gate, log_a, init_state, c)
 
 
-def _mesh_scan(x, input_gate, a_gate, log_a, init_state, c):
-    """:func:`rglru_scan` on a mesh: the channels sharded over the mesh
-    dims that shard the seat state's (dim 1 of ``init_state``; x's dim 2
-    without a state), each rank scanning its own channels from its own
-    rows of the pool (the recurrence is channelwise)."""
+def mesh_placements(x, init_state=None):
+    """The placements the scan and its backward run under on a mesh, a
+    dict: the channels sharded over the mesh dims that shard the seat
+    state's (dim 1 of ``init_state``; x's dim 2 without a state), each
+    rank scanning its own channels from its own rows of the pool (the
+    recurrence is channelwise), and the rows (dim 0) over the mesh dims
+    that shard them (the train step's batch over the dp axes).  ``ch`` is
+    that of x, both gates, h and their gradients, ``state`` the states',
+    ``per_ch`` log_a's; log_a's gradient (log_a is summed over every row)
+    is ``Partial`` over the row dims (``d_la``).  No input is shared
+    across channels."""
+    from torch.distributed.tensor import Partial, Shard
     ref, d = (init_state, 1) if is_dtensor(init_state) else (x, 2)
-    ch = sharded_on(ref, d, 2)
-    state = sharded_on(ref, d, 1)
-    ins = (ch, ch, ch, sharded_on(ref, d, 0),
-           None if init_state is None else state)
+    rows = ((0, 0),)
+    per_ch = sharded_on(ref, d, 0)
+    return dict(
+        mesh=ref.device_mesh, ch=list(sharded_on(ref, d, 2, also=rows)),
+        state=list(sharded_on(ref, d, 1, also=rows)), per_ch=list(per_ch),
+        d_la=[Partial() if isinstance(r, Shard) else p
+              for r, p in zip(sharded_on(ref, 0), per_ch)])
+
+
+def _mesh_scan(x, input_gate, a_gate, log_a, init_state, c):
+    """:func:`rglru_scan` on a mesh, under :func:`mesh_placements`: one
+    launch a rank a call on its rows and channels.  Under grad each rank's
+    call runs :class:`RGLRUScanFn` on its shards, so ``rglru_scan_bwd``
+    runs on them too, and log_a's gradient comes back ``Partial`` over
+    the row dims."""
+    pl = mesh_placements(x, init_state)
+    ch, state = pl["ch"], pl["state"]
+    ins = (ch, ch, ch, pl["per_ch"], None if init_state is None else state)
     return on_local_shards(
         lambda x, ig, ag, la, init: rglru_scan(x, ig, ag, la,
                                                init_state=init, c=c),
-        ref.device_mesh, (list(ch), list(state)), ins, x, input_gate,
-        a_gate, log_a, init_state)
+        pl["mesh"], (ch, state), ins, x, input_gate, a_gate, log_a,
+        init_state, in_grad_placements=(None, None, None, pl["d_la"], None))
 
 
 def _forward(x, input_gate, a_gate, log_a, init_state, c):
@@ -300,7 +322,22 @@ def rglru_scan_bwd(x, input_gate, a_gate, log_a, dh, dfin, *,
     CUDA tensors launch ``csrc/rglru_scan_bwd.cu``'s four kernels in one
     call, counted once on ``rglru_scan_bwd.launches``.  The inputs are the
     forward's and pass its checks; dh must match x, dfin the state's shape
-    in x's dtype or float32."""
+    in x's dtype or float32.  DTensor inputs (a mesh's train step hands
+    its scans' backward the local shards inside ``local_map``; a direct
+    call on DTensors) run this wrapper on each rank's rows and channels
+    under ``local_map`` (:func:`mesh_placements`), d log_a ``Partial``
+    over the row dims."""
+    if any(is_dtensor(t) for t in (x, dh, init_state)):
+        pl = mesh_placements(x, init_state)
+        ch, state = pl["ch"], pl["state"]
+        init = None if init_state is None else state
+        return on_local_shards(
+            lambda x, ig, ag, la, dh, dfin, i: rglru_scan_bwd(
+                x, ig, ag, la, dh, dfin, init_state=i, c=c),
+            pl["mesh"], (ch, ch, ch, pl["d_la"], init),
+            (ch, ch, ch, pl["per_ch"], ch, None if dfin is None else state,
+             init),
+            x, input_gate, a_gate, log_a, dh, dfin, init_state)
     if x.device.type in PLAIN_DEVICES:
         return rglru_scan_bwd_ref(x, input_gate, a_gate, log_a, dh, dfin,
                                   init_state=init_state, c=c)

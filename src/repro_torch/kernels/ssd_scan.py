@@ -273,8 +273,9 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk=64, init_state=None):
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     When an input requires grad, :class:`SSDScanFn` runs instead.  DTensor
-    inputs (HyperServe on a mesh) run this wrapper on each rank's heads
-    under ``local_map`` (:func:`_mesh_scan`).
+    inputs (HyperServe and the train step on a mesh) run this wrapper on
+    each rank's rows and heads under ``local_map`` (:func:`_mesh_scan`),
+    with a gradient where an input requires one.
     """
     if any(is_dtensor(t) for t in (x, init_state)):
         return _mesh_scan(x, dt, A, Bm, Cm, chunk, init_state)
@@ -285,23 +286,48 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk=64, init_state=None):
     return _forward(x, dt, A, Bm, Cm, chunk, init_state)
 
 
-def _mesh_scan(x, dt, A, Bm, Cm, chunk, init_state):
-    """:func:`ssd_scan` on a mesh: the heads sharded over the mesh dims
-    that shard the seat state's heads (dim 1 of ``init_state``; x's dim 2
-    without a state), so that each rank scans its own heads from its own
-    rows of the pool; B and C, shared by the heads, whole on every rank."""
-    from torch.distributed.tensor import Replicate
+def mesh_placements(x, init_state=None):
+    """The placements the scan and its backward run under on a mesh, a
+    dict: the heads sharded over the mesh dims that shard the seat state's
+    heads (dim 1 of ``init_state``; x's dim 2 without a state), so that
+    each rank scans its own heads from its own rows of the pool, and the
+    rows (dim 0) over the mesh dims that shard them (the train step's
+    batch over the dp axes); B and C, shared by the heads, whole over the
+    head dims.  ``heads`` is that of x, dt, y and their gradients,
+    ``state`` the states', ``per_head`` A's, ``shared`` B's and C's; A's
+    gradient (A is summed over every row) is ``Partial`` over the row dims
+    (``d_a``), and B's and C's (summed over every head) over the head dims
+    (``d_bc``), so that each is the sum of the ranks' parts."""
+    from torch.distributed.tensor import Partial, Shard
     ref, d = (init_state, 1) if is_dtensor(init_state) else (x, 2)
-    heads = sharded_on(ref, d, 2)
-    state = sharded_on(ref, d, 1)
-    rep = (Replicate(),) * ref.device_mesh.ndim
-    ins = (heads, heads, sharded_on(ref, d, 0), rep, rep,
+    rows = ((0, 0),)
+    shared, per_head = sharded_on(ref, 0), sharded_on(ref, d, 0)
+    return dict(
+        mesh=ref.device_mesh, heads=list(sharded_on(ref, d, 2, also=rows)),
+        state=list(sharded_on(ref, d, 1, also=rows)),
+        per_head=list(per_head), shared=list(shared),
+        d_a=[Partial() if isinstance(r, Shard) else h
+             for r, h in zip(shared, per_head)],
+        d_bc=[Partial() if isinstance(h, Shard) else r
+              for r, h in zip(shared, per_head)])
+
+
+def _mesh_scan(x, dt, A, Bm, Cm, chunk, init_state):
+    """:func:`ssd_scan` on a mesh, under :func:`mesh_placements`: one
+    launch a rank a call on its rows and heads.  Under grad each rank's
+    call runs :class:`SSDScanFn` on its shards, so ``ssd_scan_bwd`` runs
+    on them too, and the gradients of A, B and C come back ``Partial``
+    where each rank holds a part of them."""
+    pl = mesh_placements(x, init_state)
+    heads, shared, state = pl["heads"], pl["shared"], pl["state"]
+    ins = (heads, heads, pl["per_head"], shared, shared,
            None if init_state is None else state)
     return on_local_shards(
         lambda x, dt, A, Bm, Cm, init: ssd_scan(x, dt, A, Bm, Cm, chunk=chunk,
                                                 init_state=init),
-        ref.device_mesh, (list(heads), list(state)), ins, x, dt, A, Bm, Cm,
-        init_state)
+        pl["mesh"], (heads, state), ins, x, dt, A, Bm, Cm, init_state,
+        in_grad_placements=(None, None, pl["d_a"], pl["d_bc"], pl["d_bc"],
+                            None))
 
 
 def _forward(x, dt, A, Bm, Cm, chunk, init_state):
@@ -414,7 +440,23 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dfin, *, chunk, init_state=None):
     tensors launch ``csrc/ssd_scan_bwd.cu``'s kernels in one call, counted
     once on ``ssd_scan_bwd.launches``.  The inputs are the forward's and
     pass its checks; dy must match x, dfin the state's shape in x's dtype
-    or float32."""
+    or float32.  DTensor inputs (a mesh's train step hands its scans'
+    backward the local shards inside ``local_map``; a direct call on
+    DTensors) run this wrapper on each rank's rows and heads under
+    ``local_map`` (:func:`mesh_placements`), dA ``Partial`` over the row
+    dims and dBm, dCm over the head dims."""
+    if any(is_dtensor(t) for t in (x, dy, init_state)):
+        pl = mesh_placements(x, init_state)
+        heads, shared, state = pl["heads"], pl["shared"], pl["state"]
+        init = None if init_state is None else state
+        return on_local_shards(
+            lambda x, dt, A, Bm, Cm, dy, dfin, i: ssd_scan_bwd(
+                x, dt, A, Bm, Cm, dy, dfin, chunk=chunk, init_state=i),
+            pl["mesh"], (heads, heads, pl["d_a"], pl["d_bc"], pl["d_bc"],
+                         init),
+            (heads, heads, pl["per_head"], shared, shared, heads,
+             None if dfin is None else state, init),
+            x, dt, A, Bm, Cm, dy, dfin, init_state)
     if x.device.type in PLAIN_DEVICES:
         return ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, dfin, chunk=chunk,
                                 init_state=init_state)

@@ -23,10 +23,11 @@ requests and rank 0 printing; one rank means no mesh::
     torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
         --arch qwen2-0.5b --reduced --continuous --device cpu --mesh auto
 
-Every family serves so, the MLA and MoE archs with their latent pool
-replicated and their experts split over ``model``; the multimodal prefix
-and the composed lowering on a mesh are ROADMAP.md section 1 item 8c,
-part c4.  The fixed batch on a mesh is the facade's
+Every family serves so, under ``--kernels fused`` or ``composed``: the
+MLA and MoE archs with their latent pool replicated and their experts
+split over ``model``, internvl2-26b and musicgen-large text-only (as the
+reference's HyperServe, which passes no prefix).  The fixed batch on a
+mesh is the facade's
 ``Supernode.generate`` (ROADMAP.md section 1 item 8h) and exits naming
 it.
 

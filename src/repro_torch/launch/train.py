@@ -27,12 +27,14 @@ synthetic corpus.
 ``LOCAL_RANK`` and the rendezvous address) joins the process group, NCCL
 on the card (each rank on its ``LOCAL_RANK`` card) and gloo with
 ``--device cpu``, and trains on a ``(1, world)`` mesh; one rank means no
-mesh, as the reference's ``Supernode.auto()`` gives.  The dense GQA, MLA
-and MoE archs train so under either ``--moe-dispatch`` (``dp_local`` is a
-library dispatch, ``make_train_step(moe_dispatch="dp_local")``, as in the
-reference); mamba2-370m and recurrentgemma-2b on a mesh raise
-:class:`~repro_torch.api.errors.PlanError` naming ROADMAP.md section 1
-item 8c, part c1.  ``--plan fsdp_tp``
+mesh, as the reference's ``Supernode.auto()`` gives.  Every arch trains
+so: the dense GQA, MLA and MoE archs under either ``--moe-dispatch``
+(``dp_local`` is a library dispatch, ``make_train_step(moe_dispatch=
+"dp_local")``, as in the reference), mamba2-370m and recurrentgemma-2b
+with both scans' backwards on each rank's shards, internvl2-26b and
+musicgen-large without their prefix, as on one device (the prefix on a
+mesh is ``make_train_step(multimodal=True, mesh=)`` with
+``data.pipeline.place_prefix``).  ``--plan fsdp_tp``
 and ``tp_only`` resolve to the ``ShardingPlan`` those presets lower to;
 ``--offload`` puts params and optimizer state on the host, on a mesh too.
 ``--plan offload_all`` and ``--explain`` are the facade's (ROADMAP.md

@@ -17,8 +17,10 @@ reference's ring or head-sharded modes (:func:`set_attention_mode`); the
 paged steps take DTensor params and pool leaves (HyperServe on a mesh):
 q, k and v come out of the column-sharded projections, each rank writes
 its own KV heads into its shard of the pool (:func:`write_pages`), the
-fused kernels run on each rank's heads under ``local_map``, and the
-row-sharded ``wo`` leaves a partial sum that DTensor reduces.
+fused kernels (and, composed, each rank's gathered pages through
+``decode_attention`` or flash) run on each rank's heads under
+``local_map``, and the row-sharded ``wo`` leaves a partial sum that
+DTensor reduces.
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ from typing import Optional
 import torch
 
 from repro_torch.core.meshctx import (constrain, current_mesh, is_dtensor,
-                                      local_placed, mesh_axis_size)
+                                      local_index, local_placed,
+                                      mesh_axis_size)
 from repro_torch.kernels import ops, sharded_on
 from repro_torch.models.common import apply_rope, dense_init, dtype_of
 
@@ -205,10 +208,13 @@ def write_pages(pool, bidx, off, val) -> None:
 
 
 def _gather_pages(pool, block_tables):
-    """Dense (B, W * block, KV, hd) copy of each row's pages."""
+    """Dense (B, W * block, KV, hd) copy of each row's pages.  On a DTensor
+    pool each rank gathers from its own shard of the KV heads
+    (:func:`~repro_torch.core.meshctx.local_index`: DTensor has no rule for
+    this index), and the copy keeps the pool's placements."""
     B, W = block_tables.shape
-    return pool[block_tables.long()].reshape(B, W * pool.shape[1],
-                                             *pool.shape[2:])
+    pages = local_index(pool, (block_tables.reshape(-1).long(),))
+    return pages.reshape(B, W * pool.shape[1], *pool.shape[2:])
 
 
 def attn_decode_paged(p, x, positions, cfg, kv, block_tables, *,

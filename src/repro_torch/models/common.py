@@ -12,6 +12,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.meshctx import whole_dims
+
 
 def dtype_of(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
@@ -94,8 +96,14 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, *, cache=None):
     """Depthwise causal conv.  x: (B, S, C), w: (K, C).
 
     cache: (B, K-1, C) trailing context from the previous segment (or None).
-    Returns (y (B, S, C), new_cache (B, K-1, C)).
+    Returns (y (B, S, C), new_cache (B, K-1, C)).  On a DTensor (a mesh's
+    train step, whose residual is sharded over the sequence) each row is
+    made whole first (:func:`~repro_torch.core.meshctx.whole_dims`): the
+    shifted slices need every position of a row on one rank; the rows and
+    the channels keep their shards.
     """
+    x = whole_dims(x, 1)
+    cache = None if cache is None else whole_dims(cache, 1)
     B, S, C = x.shape
     K = w.shape[0]
     if cache is None:
@@ -111,7 +119,9 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, *, cache=None):
 
 def conv1d_decode_step(x: torch.Tensor, w: torch.Tensor, cache: torch.Tensor):
     """One-token conv step.  x: (B, C), cache: (B, K-1, C).  Returns
-    (y (B, C), new_cache (B, K-1, C))."""
+    (y (B, C), new_cache (B, K-1, C)); on a mesh the cache's K-1 steps
+    whole on every rank, as :func:`causal_conv1d` takes its rows."""
+    cache = whole_dims(cache, 1)
     K = w.shape[0]
     full = torch.cat([cache.to(x.dtype), x[:, None, :]], dim=1)  # (B, K, C)
     wf = w.float()

@@ -21,7 +21,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.meshctx import local_index, local_index_put
+from repro_torch.core.meshctx import (constrain, local_index,
+                                      local_index_put, split_heads)
 from repro_torch.kernels import ops
 from repro_torch.models.common import (causal_conv1d, conv1d_decode_step,
                                        dense_init, dtype_of, rms_norm)
@@ -65,11 +66,22 @@ def _chunk(chunk_size: int, S: int) -> int:
     return max(chunk, 1)
 
 
+DP = ("pod", "data")      # the batch rows' mesh axes
+
+
 def _split_proj(p, x, cfg):
+    """in_proj's output split into z | x B C | dt.  On a mesh its columns
+    come sharded over ``model`` (rule ("fsdp", "tp")), and a shard
+    boundary falls inside a part (1072 columns over 2 ranks split x B C at
+    536), so the output is gathered over every mesh dim but the rows'
+    before the split, as the reference's partitioner reshards: each part
+    whole on every rank, the rows (and, in training, the whole sequence of
+    each row) where the batch is."""
     s = cfg.ssm
     di = s.d_inner(cfg.d_model)
     nh = s.num_heads(cfg.d_model)
     zxbcdt = x @ p["in_proj"]
+    zxbcdt = constrain(zxbcdt, DP, *([None] * (zxbcdt.dim() - 1)))
     z = zxbcdt[..., :di]
     xbc = zxbcdt[..., di:2 * di + 2 * s.d_state]
     dt = zxbcdt[..., 2 * di + 2 * s.d_state:]
@@ -87,12 +99,27 @@ def _scan_inputs(p, xbc, dt, cfg, di):
     return xs, Bm, Cm, dt, A
 
 
+def _heads(xs, dt, nh):
+    """x split into its ``nh`` heads (:func:`~repro_torch.core.meshctx.
+    split_heads`), x and dt with the heads over ``model`` and the rows
+    where the batch is: each rank scans its own heads of its own rows (the
+    scan's B and C stay whole over the heads)."""
+    xh = split_heads(xs, nh)
+    lead = (DP,) + (None,) * (xh.dim() - 3)
+    return (constrain(xh, *lead, "model", None),
+            constrain(dt, *lead, "model"))
+
+
 def _out(p, y, xh, z, cfg):
     """Skip term (D rounded to x's dtype first, as the reference), gated
-    RMSNorm rms_norm(y * silu(z)), out_proj."""
+    RMSNorm rms_norm(y * silu(z)), out_proj.  On a mesh y comes with its
+    heads over ``model``, and z is placed as y's d_inner is (a local slice
+    of the gathered projection), so the gate is elementwise on each rank
+    and the norm's mean over d_inner a sum over the ranks' parts."""
     D = p["D"].to(xh.dtype)
     y = y + xh * D.reshape((1,) * (xh.ndim - 2) + (-1, 1))
     y = y.reshape(*z.shape)
+    z = constrain(z, DP, *([None] * (z.dim() - 2)), "model")
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
     return y @ p["out_proj"]
 
@@ -105,11 +132,11 @@ def mamba2_forward(p, x, cfg, *, return_cache=False):
     backward kernel in the backward pass; serving runs under no_grad and
     launches the forward only."""
     s = cfg.ssm
-    B, S, _ = x.shape
+    S = x.shape[1]
     z, xbc, dt, di, nh = _split_proj(p, x, cfg)
     xbc, conv_cache = causal_conv1d(xbc, p["conv_w"])
     xs, Bm, Cm, dt, A = _scan_inputs(p, xbc, dt, cfg, di)
-    xh = xs.reshape(B, S, nh, s.head_dim)
+    xh, dt = _heads(xs, dt, nh)
     y, state = ops.ssd_scan(xh, dt, A, Bm, Cm, chunk=_chunk(s.chunk_size, S))
     out = _out(p, y, xh, z, cfg)
     if return_cache:
@@ -170,7 +197,7 @@ def mamba2_prefill_chunk(p, x, starts, limits, slots, cfg, cache):
     into the next chunk.  Returns the block output (P, C, D).
     """
     s = cfg.ssm
-    P, C, _ = x.shape
+    C = x.shape[1]
     st, idx = gather_slot_rows(cache, slots)
     z, xbc, dt, di, nh = _split_proj(p, x, cfg)
     K = p["conv_w"].shape[0]
@@ -184,7 +211,7 @@ def mamba2_prefill_chunk(p, x, starts, limits, slots, cfg, cache):
     xs, Bm, Cm, dt, A = _scan_inputs(p, xbc, dt, cfg, di)
     pos = starts[:, None] + torch.arange(C, device=x.device)[None, :]
     dt = dt * (pos < limits[:, None])[..., None]
-    xh = xs.reshape(P, C, nh, s.head_dim)
+    xh, dt = _heads(xs, dt, nh)
     y, fin = ops.ssd_scan(xh, dt, A, Bm, Cm, chunk=_chunk(s.chunk_size, C),
                           init_state=st["state"])
     out = _out(p, y, xh, z, cfg)

@@ -192,8 +192,13 @@ def forward(params, tokens, cfg, *, prefix_embeds=None, mode="train",
     x = F.embedding(tokens.long(), replicated(params["embed"]))
     P_len = 0
     if prefix_embeds is not None:
+        # on a mesh frontend_proj's columns come over ``model`` (rule
+        # ("none", "tp")): the projected prefix is placed as the tokens'
+        # embeddings are, its rows where the batch is, before the two are
+        # joined along the sequence
         pe = prefix_embeds.to(x.dtype) @ params["frontend_proj"]
-        x = torch.cat([pe, x], dim=1)
+        pe = constrain(pe, ("pod", "data"), None, None)
+        x = torch.cat([pe, constrain(x, ("pod", "data"), None, None)], dim=1)
         P_len = pe.shape[1]
     x = constrain(x, ("pod", "data"), None, None)
     S = x.shape[1]

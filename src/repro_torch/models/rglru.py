@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.meshctx import constrain
 from repro_torch.kernels import ops
 from repro_torch.models.common import (causal_conv1d, conv1d_decode_step,
                                        dense_init, dtype_of)
@@ -53,9 +54,18 @@ def _log_a(p):
     return -_softplus(-p["lambda"])
 
 
+def _channels(t):
+    """On a mesh: ``t`` (B, S, W) or (B, W) with its channels over
+    ``model`` and its rows where the batch is, so that the conv and the
+    scan (both channelwise) run on each rank's channels of its own rows,
+    whole rows (the train step's residual comes sharded over the
+    sequence); the identity with no mesh."""
+    return constrain(t, ("pod", "data"), *([None] * (t.dim() - 2)), "model")
+
+
 def _gates(p, xb):
-    return (torch.sigmoid(xb @ p["w_input_gate"]),
-            torch.sigmoid(xb @ p["w_a_gate"]))
+    return (_channels(torch.sigmoid(xb @ p["w_input_gate"])),
+            _channels(torch.sigmoid(xb @ p["w_a_gate"])))
 
 
 def rglru_forward(p, x, cfg, *, return_cache=False):
@@ -64,8 +74,8 @@ def rglru_forward(p, x, cfg, *, return_cache=False):
     (``mode="train"``) ``rglru_scan`` runs ``RGLRUScanFn``: the forward
     kernel, and the backward kernel in the backward pass; serving runs
     under no_grad and launches the forward only."""
-    gate = F.gelu(x @ p["w_gate"], approximate="tanh")
-    xb, conv_cache = causal_conv1d(x @ p["w_x"], p["conv_w"])
+    gate = _channels(F.gelu(x @ p["w_gate"], approximate="tanh"))
+    xb, conv_cache = causal_conv1d(_channels(x @ p["w_x"]), p["conv_w"])
     ig, ag = _gates(p, xb)
     h, state = ops.rglru_scan(xb, ig, ag, _log_a(p))
     y = (h * gate) @ p["w_out"]
@@ -97,8 +107,8 @@ def rglru_prefill_chunk(p, x, starts, limits, slots, cfg, cache):
     """
     C = x.shape[1]
     st, idx = gather_slot_rows(cache, slots)
-    gate = F.gelu(x @ p["w_gate"], approximate="tanh")
-    xb = x @ p["w_x"]
+    gate = _channels(F.gelu(x @ p["w_gate"], approximate="tanh"))
+    xb = _channels(x @ p["w_x"])
     K = p["conv_w"].shape[0]
     xp = torch.cat([st["conv"].to(xb.dtype), xb], dim=1)     # (P, C+K-1, W)
     # the tail covering [limit-(K-1), limit) starts at index limit - start

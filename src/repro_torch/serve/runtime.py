@@ -35,9 +35,12 @@ heads; the MoE FFN takes the ragged dispatch expert-parallel over
 the routed and shared experts' outputs ``Partial`` sums).  The logits are
 gathered in full before any pick, so every rank takes the same
 decisions; the scheduler runs SPMD, every rank on the same requests.
-The fused lowering of the dense GQA, MLA, MoE, SSD and RG-LRU families
-serves on a mesh; the multimodal prefix and the composed lowering do not
-yet (:func:`check_mesh_serving`).
+Every family serves on a mesh, fused or composed: the composed lowering
+gathers each rank's shard of the pages (``meshctx.local_index``) and runs
+``decode_attention`` and flash on each rank's heads under ``local_map``
+(MLA's composed decode the plain absorbed form on them); an arch with a
+multimodal prefix serves text-only, as the reference's HyperServe does
+(:func:`check_mesh_serving` refuses only the data axis).
 
 A finished prompt's full blocks can be retained in a copy-on-write
 **prefix cache**: an identical prompt prefix forks the cached blocks
@@ -83,12 +86,6 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
-MESH_FAMILIES = ("serving on a mesh takes the fused lowering of the dense "
-                 "GQA, MLA, MoE, SSD and RG-LRU families; the multimodal "
-                 "prefix and the composed lowering on a mesh are ROADMAP.md "
-                 "section 1 item 8c, part c4")
-
-
 def _resolve_serve_plan(plan):
     """The plan a serving engine runs under: ``ShardingPlan(fsdp=None)``
     for None, else ``plan`` itself, never rewritten.  Raises
@@ -114,12 +111,13 @@ def _resolve_serve_plan(plan):
     return plan
 
 
-def check_mesh_serving(cfg, mesh, kernel_path: str) -> None:
-    """Refuse, before anything is placed, what does not serve on a mesh
-    yet: a mesh that is not a ``DeviceMesh``, one with a data axis
-    (``serve.engine.check_data_axis_serving``), the multimodal prefix and
-    the composed lowering (:class:`ServePlanError` naming ROADMAP item
-    8c, part c4)."""
+def check_mesh_serving(mesh) -> None:
+    """Refuse, before anything is placed, what does not serve on a mesh: a
+    mesh that is not a ``DeviceMesh`` (:class:`PlanError`), and one with a
+    data axis (``serve.engine.check_data_axis_serving``).  Every family
+    serves, under the fused and the composed lowering; an arch with a
+    multimodal prefix serves text-only, as the reference's HyperServe
+    never passes a prefix."""
     from torch.distributed.device_mesh import DeviceMesh
 
     from repro_torch.serve.engine import check_data_axis_serving
@@ -128,14 +126,6 @@ def check_mesh_serving(cfg, mesh, kernel_path: str) -> None:
                         "DeviceMesh (build one with repro_torch.launch.mesh."
                         "make_host_mesh)")
     check_data_axis_serving(mesh)
-    odd = []
-    if cfg.frontend_dim:
-        odd.append("the multimodal prefix")
-    if kernel_path != "fused":
-        odd.append(f"the {kernel_path} lowering")
-    if odd:
-        raise ServePlanError(f"{cfg.name}: {', '.join(odd)} on a mesh: not "
-                             f"ported yet; {MESH_FAMILIES}")
 
 
 # ---------------------------------------------------------------------------
@@ -213,7 +203,7 @@ class ServeEngine:
         # serve.kernels.* counters pin it exactly)
         self.kernel_path = ops.resolve_paged_path(scfg.kernels)
         if mesh is not None:
-            check_mesh_serving(cfg, mesh, self.kernel_path)
+            check_mesh_serving(mesh)
 
         self.pcfg = scfg.paged_config(model_dtype=cfg.dtype)
         # resolves cfg against the mixer registry; typed ServePlanError for

@@ -15,16 +15,17 @@ sharded over the dp axes, and the step runs under
 propagation stands for GSPMD over the same strategy-free model code, the
 model's ``constrain`` points redistribute, and every kernel runs on the
 local shards under ``local_map``.  The step carries the reference's
-``shardings`` dict as ``step.shardings``.  The dense GQA, MLA and MoE
-families shard (``ATTN`` or ``MLA`` mixers, dense or MoE FFNs: MLA trains
-through flash at its own (Dk, Dv) under ``local_map``, the MoE FFN under
-every ``moe_dispatch``: gshard's dispatch constrained to the experts over
-``model``, the ragged one expert-parallel with the grouped matmul and its
-backward under ``local_map``, ``dp_local`` by
-:func:`~repro_torch.core.overlap.moe_dp_local`); SSD and RG-LRU training
-and the multimodal prefix under a mesh raise
-:class:`~repro_torch.api.errors.PlanError` naming ROADMAP.md section 1
-item 8c (parts c1 and c4).
+``shardings`` dict as ``step.shardings``.  Every family shards: the
+dense GQA, MLA and MoE families (``ATTN`` or ``MLA`` mixers, dense or MoE
+FFNs: MLA trains through flash at its own (Dk, Dv) under ``local_map``,
+the MoE FFN under every ``moe_dispatch``: gshard's dispatch constrained
+to the experts over ``model``, the ragged one expert-parallel with the
+grouped matmul and its backward under ``local_map``, ``dp_local`` by
+:func:`~repro_torch.core.overlap.moe_dp_local`), SSD and RG-LRU (both
+scans and their backwards under ``local_map`` on each rank's rows and
+heads or channels, the gradients of their shared inputs summed over the
+ranks), and the multimodal prefix (``batch["prefix_embeds"]`` its rows
+over the dp axes, :func:`~repro_torch.data.pipeline.place_prefix`).
 
 HyperOffload's legs between steps are :func:`fetch_state` (host -> card)
 and :func:`offload_state` (card -> pinned host memory), and
@@ -45,21 +46,19 @@ from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.models import model as M
 from repro_torch.optim import adamw as opt_mod
 
-MESH_FAMILIES = ("training on a mesh takes the dense GQA, MLA and MoE "
-                 "families (ATTN or MLA mixers, dense or MoE FFNs, every "
-                 "moe_dispatch)")
 FACADE = ("HyperPlan, its presets and Supernode are the facade: ROADMAP.md "
           "section 1 item 8h")
 
 
-def check_mesh_plan(cfg, mesh, plan, *, multimodal: bool = False):
+def check_mesh_plan(mesh, plan):
     """The plan a step or a trainer runs under: ``plan`` (a
     :class:`ShardingPlan`, or None for the default) once ``mesh`` is a
-    ``DeviceMesh`` and ``cfg`` a family this slice shards.  Raises
-    :class:`PlanError` naming the ROADMAP item otherwise."""
+    ``DeviceMesh`` (every family, with or without the multimodal prefix,
+    trains on one).  Raises :class:`PlanError` for a plan that is not a
+    ``ShardingPlan`` (the facade's, naming its ROADMAP item) and for a
+    mesh that is not a ``DeviceMesh``."""
     from torch.distributed.device_mesh import DeviceMesh
 
-    from repro_torch.configs.base import ATTN, DENSE_FFN, MLA, MOE_FFN
     if plan is not None and not isinstance(plan, hs.ShardingPlan):
         raise PlanError(f"plan={type(plan).__name__}: the port takes a "
                         f"ShardingPlan; {FACADE}")
@@ -69,32 +68,28 @@ def check_mesh_plan(cfg, mesh, plan, *, multimodal: bool = False):
         raise PlanError(f"mesh={type(mesh).__name__}: not a torch "
                         "DeviceMesh (build one with repro_torch.launch.mesh."
                         "make_host_mesh; ROADMAP.md section 1 item 8)")
-    odd = sorted({f"{m}+{f}" for m, f in cfg.block_kinds()
-                  if m not in (ATTN, MLA) or f not in (DENSE_FFN, MOE_FFN)})
-    for what, part in ((", ".join(odd), "c1: SSD and RG-LRU training"),
-                       (multimodal and "the multimodal prefix",
-                        "c4: the multimodal prefix")):
-        if what:
-            raise PlanError(f"{cfg.name}: {what} on a mesh: not ported yet "
-                            f"(ROADMAP.md section 1 item 8c, part {part}); "
-                            f"{MESH_FAMILIES}")
     return plan or hs.ShardingPlan()
 
 
-def train_shardings(cfg, mesh, plan):
+def train_shardings(cfg, mesh, plan, *, multimodal: bool = False):
     """The reference's ``shardings`` dict: ``params`` (a tree of
     :class:`~repro_torch.core.hypershard.NamedSharding` per leaf),
     ``opt_in`` (the AdamW state's: the moments follow the params, the
     count is replicated) and ``batch`` (``inputs``, ``targets``, ``mask``
-    sharded over the dp axes)."""
-    from repro_torch.data.pipeline import batch_sharding
+    sharded over the dp axes; with ``multimodal`` also ``prefix_embeds``,
+    its rows over them: :func:`~repro_torch.data.pipeline.
+    prefix_sharding`)."""
+    from repro_torch.data.pipeline import batch_sharding, prefix_sharding
     from repro_torch.mem.planner import param_shapes
     param_sh = hs.make_param_shardings(mesh, param_shapes(cfg), plan)
     bsh = batch_sharding(mesh)
+    batch = {k: bsh for k in ("inputs", "targets", "mask")}
+    if multimodal:
+        batch["prefix_embeds"] = prefix_sharding(mesh)
     return {"params": param_sh,
             "opt_in": opt_mod.AdamWState(mu=param_sh, nu=param_sh,
                                          count=hs.NamedSharding(mesh, ())),
-            "batch": {k: bsh for k in ("inputs", "targets", "mask")}}
+            "batch": batch}
 
 
 def cross_entropy_parts(logits, targets, mask, vocab_size: int):
@@ -197,8 +192,9 @@ def loss_fn(params, batch, cfg, *, moe_dispatch="gshard", remat=True,
 def grad_of(fn, params):
     """((loss, metrics), grads) of ``fn(params) -> (loss, metrics)``: the
     gradient with respect to every param leaf, a tree shaped like
-    ``params`` (a leaf the loss does not reach gets zeros).  The leaves
-    record a gradient only during the call."""
+    ``params`` (a leaf the loss does not reach gets zeros; on a mesh each
+    placed as its param, :func:`_placed_as`).  The leaves record a
+    gradient only during the call."""
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
@@ -208,10 +204,22 @@ def grad_of(fn, params):
     finally:
         for p in leaves:
             p.requires_grad_(False)
-    grads = iter(torch.zeros_like(p) if g is None else g
+    grads = iter(torch.zeros_like(p) if g is None else _placed_as(g, p)
                  for p, g in zip(leaves, grads))
     metrics = {k: v.detach() for k, v in metrics.items()}
     return (loss.detach(), metrics), tree_map(lambda _: next(grads), params)
+
+
+def _placed_as(g, p):
+    """The gradient ``g`` placed as its param ``p`` on a mesh, as the
+    reference's step gives each gradient its param's sharding: a gradient
+    that comes back ``Partial`` (an input shared by the ranks' rows or
+    heads) is summed, and one that comes back sharded otherwise (the
+    gated norm's scale over d_inner) is placed as the param is, so that
+    the update keeps every param's placements."""
+    if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def value_and_grad(params, batch, cfg, *, moe_dispatch="gshard",
@@ -241,7 +249,7 @@ def make_train_step(cfg, adamw_cfg: opt_mod.AdamWConfig, *,
     ``make_loader(..., mesh=)``), the step runs under the mesh, and its
     metrics come back as plain replicated tensors.  Without one
     ``step.shardings`` is ``{}``, as the reference's."""
-    plan = check_mesh_plan(cfg, mesh, plan, multimodal=multimodal)
+    plan = check_mesh_plan(mesh, plan)
 
     def step(params, opt_state, batch):
         with use_mesh(mesh):
@@ -255,8 +263,8 @@ def make_train_step(cfg, adamw_cfg: opt_mod.AdamWConfig, *,
         if mesh is not None:
             metrics = {k: full_tensor(v) for k, v in metrics.items()}
         return new_params, new_opt, metrics
-    step.shardings = ({} if mesh is None
-                      else train_shardings(cfg, mesh, plan))
+    step.shardings = ({} if mesh is None else train_shardings(
+        cfg, mesh, plan, multimodal=multimodal))
     return step
 
 
@@ -315,7 +323,7 @@ def init_state(cfg, *, seed: int = 0, device=None, mesh=None, plan=None,
     derive_param` places it, so the sharded state equals the unsharded one
     from the same seed; the moments follow the params."""
     from repro_torch.serve.runtime import resolve_device
-    plan = check_mesh_plan(cfg, mesh, plan)
+    plan = check_mesh_plan(mesh, plan)
     device = resolve_device(device)
     params = M.init_model(cfg, torch.Generator(device=device)
                           .manual_seed(seed))

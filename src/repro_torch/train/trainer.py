@@ -14,7 +14,7 @@ the host, each step runs between the HyperOffload legs, spans
 
 ``mesh=`` (a ``DeviceMesh``) and ``plan=`` (a
 :class:`~repro_torch.core.hypershard.ShardingPlan`, the reference's legacy
-path through :func:`resolve_train_plan`) train the dense GQA families
+path through :func:`resolve_train_plan`) train every family
 sharded (``repro_torch.train.steps``); every rank runs this loop, the
 loader gives each its rows, and checkpoints gather each leaf (rank 0
 writes).  A ``HyperPlan`` is the facade's, ROADMAP.md section 1 item 8h,
@@ -48,15 +48,15 @@ class TrainConfig:
     seed: int = 0
 
 
-def resolve_train_plan(cfg, mesh, plan, offload_cfg):
+def resolve_train_plan(mesh, plan, offload_cfg):
     """One resolution step, the reference's legacy path: (ShardingPlan |
     None, OffloadConfig | None) -> (the sharding plan, the offload config),
-    the plan checked against ``mesh`` and ``cfg``
+    the plan checked against ``mesh``
     (:func:`~repro_torch.train.steps.check_mesh_plan`) and its
     ``params_on_host`` / ``opt_state_on_host`` folded into the config, so
     one declaration drives both."""
     from repro_torch.core.offload import OffloadConfig
-    plan = steps_mod.check_mesh_plan(cfg, mesh, plan)
+    plan = steps_mod.check_mesh_plan(mesh, plan)
     if plan is not None and (plan.params_on_host or plan.opt_state_on_host):
         base = offload_cfg or OffloadConfig()
         offload_cfg = dataclasses.replace(
@@ -74,7 +74,7 @@ def train(cfg, shape, *, adamw: Optional[AdamWConfig] = None,
     another), on ``mesh`` under ``plan`` when given.  Returns (params,
     history); under a mesh the params are DTensors."""
     from repro_torch.obs import Observability
-    plan, offload_cfg = resolve_train_plan(cfg, mesh, plan, offload_cfg)
+    plan, offload_cfg = resolve_train_plan(mesh, plan, offload_cfg)
     train_cfg = train_cfg or TrainConfig()
     device = resolve_device(device)
     obs = obs if obs is not None else Observability()

@@ -37,9 +37,12 @@ Generator and HyperServe on the card
 token-identical to the CPU, for qwen2-0.5b, deepseek-v2-lite (MLA + MoE),
 mamba2-370m and recurrentgemma-2b (RG-LRU + LOCAL_ATTN), and one train step on
 a one-rank NCCL mesh (HyperShard) against the unsharded step; on that mesh
-too, the paged decode, ragged prefill and both scans handed DTensors
-against their plain versions, and HyperServe against no mesh for the
-dense, SSD and RG-LRU families.
+too, the paged decode, ragged prefill, dense decode and both scans (with
+their backwards, under grad and called directly) handed DTensors against
+their plain versions, HyperServe against no mesh for the dense, SSD and
+RG-LRU families and the composed lowering against the fused one without
+a mesh, and mamba2, recurrentgemma and musicgen (with its prefix)
+trained on the mesh against no mesh.
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
 CUDA kernels have no CPU mode; on the CPU the wrappers run the plain
@@ -1860,3 +1863,178 @@ def test_deepseek_on_a_one_rank_nccl_mesh_matches_no_mesh(one_rank_mesh,
         for a, b in zip(runs[1][0], runs[0][0]):
             for x, y in zip(a, b):
                 assert abs(x - y) <= 1e-5 * max(1.0, abs(y)), dispatch
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_takes_dtensors_on_a_one_rank_nccl_mesh(
+        one_rank_mesh, cuda, dtype):
+    """The dense decode handed DTensor q and caches on a (1, 1) NCCL mesh
+    (the lengths plain, as the composed decode hands them over), plain and
+    windowed, at qwen2's (14, 2, 64) and recurrentgemma's (10, 1, 256):
+    one launch a call, under ``local_map``, a DTensor out whose local
+    tensor is within the limits above of the plain version; an input that
+    requires grad is refused on DTensors too."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    def on_mesh(t):
+        return DTensor.from_local(t, one_rank_mesh, [Replicate()] * 2,
+                                  run_check=False)
+    g = torch.Generator().manual_seed(12)
+    for heads, kv, dim, window in ((14, 2, 64, None), (14, 2, 64, 7),
+                                   (10, 1, 256, None), (10, 1, 256, 40)):
+        q = torch.randn(4, 1, heads, dim, generator=g).to(cuda, dtype)
+        k, v = (torch.randn(4, 96, kv, dim, generator=g).to(cuda, dtype)
+                for _ in range(2))
+        lengths = torch.tensor([96, 1, 50, 33], dtype=torch.int32,
+                               device=cuda)
+        n0 = da.decode_attention.launches
+        got = da.decode_attention(on_mesh(q), on_mesh(k), on_mesh(v),
+                                  lengths, window=window)
+        assert da.decode_attention.launches == n0 + 1
+        assert isinstance(got, DTensor)
+        _assert_close(got.to_local(), da.decode_attention_ref,
+                      (q, k, v, lengths), dict(window=window))
+    with pytest.raises(RuntimeError, match="requires grad"):
+        da.decode_attention(on_mesh(q.requires_grad_(True)), on_mesh(k),
+                            on_mesh(v), lengths)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scans_with_gradients_take_dtensors_on_a_one_rank_nccl_mesh(
+        one_rank_mesh, cuda, dtype):
+    """``SSDScanFn`` and ``RGLRUScanFn`` under ``local_map`` on a (1, 1)
+    NCCL mesh (the train step's path): the forward and every input's
+    gradient of sum(y * w) against the same call without a mesh (the same
+    kernels on the same tensors: within 1e-6 x max(1, |value|)), one
+    forward launch and one backward call each; and ``ssd_scan_bwd`` and
+    ``rglru_scan_bwd`` called on DTensors directly, the same against their
+    calls on the plain tensors."""
+    from repro_torch.core.meshctx import full_tensor
+    from torch.distributed.tensor import DTensor, Replicate
+
+    def on_mesh(t):
+        return DTensor.from_local(t, one_rank_mesh, [Replicate()] * 2,
+                                  run_check=False)
+
+    def close(got, want):
+        got = full_tensor(got)
+        lim = 1e-6 * max(1.0, want.float().abs().max().item())
+        assert (got.float() - want.float()).abs().max().item() <= lim
+
+    def both(fn, args, w, counters):
+        outs = []
+        for mesh in (False, True):
+            leaves = [a.detach().clone().requires_grad_(True) for a in args]
+            n0 = [c.launches for c in counters]
+            ins = [on_mesh(t) if mesh else t for t in leaves]
+            y = fn(*ins)
+            grads = torch.autograd.grad((y * (on_mesh(w) if mesh else w))
+                                        .sum(), ins)
+            assert [c.launches - n for c, n in zip(counters, n0)] == [1, 1]
+            outs.append((y.detach(), grads))
+        for a, b in zip((outs[1][0], *outs[1][1]), (outs[0][0],
+                                                    *outs[0][1])):
+            close(a, b)
+
+    args, _ = _ssd_inputs(dtype, cuda, 2, 256, 32, 64, 128, seed=21,
+                          init=False)
+    g = torch.Generator().manual_seed(22)
+    w = torch.randn(2, 256, 32, 64, generator=g).to(cuda, dtype)
+    both(lambda *t: ss.ssd_scan(*t, chunk=64)[0], args, w,
+         (ss.ssd_scan, ss.ssd_scan_bwd))
+    want = ss.ssd_scan_bwd(*args, w, None, chunk=64)
+    got = ss.ssd_scan_bwd(*map(on_mesh, args), on_mesh(w), None, chunk=64)
+    for a, b in zip(got[:5], want[:5]):
+        close(a, b)
+    args, _ = _rg_inputs(dtype, cuda, 2, 300, 256, seed=23, init=False)
+    w = torch.randn(2, 300, 256, generator=g).to(cuda, dtype)
+    both(lambda *t: rs.rglru_scan(*t)[0], args, w,
+         (rs.rglru_scan, rs.rglru_scan_bwd))
+    want = rs.rglru_scan_bwd(*args, w, None)
+    got = rs.rglru_scan_bwd(*map(on_mesh, args), on_mesh(w), None)
+    for a, b in zip(got[:4], want[:4]):
+        close(a, b)
+
+
+def test_recurrent_and_prefix_training_on_a_one_rank_nccl_mesh(
+        one_rank_mesh, cuda):
+    """Reduced mamba2-370m, recurrentgemma-2b (3 layers, window 8) and
+    musicgen-large (with a seeded prefix, its rows placed by
+    ``data.pipeline.place_prefix``) in float32: two fsdp_tp train steps
+    on the (1, 1) NCCL mesh give the losses and grad norms of the run
+    without one within 1e-5 relative, with the same launches of every
+    scan, scan backward and flash kernel (both scans' backwards under
+    ``local_map``)."""
+    from repro_torch.data.pipeline import (DataConfig, make_loader,
+                                           place_prefix)
+    from repro_torch.optim import adamw as opt
+    from repro_torch.train import steps
+    kernels = (ss.ssd_scan, ss.ssd_scan_bwd, rs.rglru_scan,
+               rs.rglru_scan_bwd, fa.flash_attention, fa.flash_attention_bwd)
+    for arch, kw in (("mamba2-370m", {}),
+                     ("recurrentgemma-2b",
+                      dict(num_layers=3, sliding_window=8)),
+                     ("musicgen-large", {})):
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  dtype="float32", **kw)
+        mm = bool(cfg.frontend_dim)
+        dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                          global_batch=2)
+        g = torch.Generator().manual_seed(31)
+        prefix = [torch.randn(2, cfg.num_prefix_tokens, cfg.frontend_dim,
+                              generator=g).to(cuda) for _ in range(2)] \
+            if mm else [None, None]
+        runs = []
+        for mesh in (None, one_rank_mesh):
+            n0 = [k.launches for k in kernels]
+            step = steps.make_train_step(cfg, opt.AdamWConfig(total_steps=2),
+                                         mesh=mesh, multimodal=mm)
+            p, o = steps.init_state(cfg, seed=0, device=cuda, mesh=mesh)
+            loader = make_loader(dcfg, cuda, mesh=mesh)
+            hist = []
+            for pe in prefix:
+                batch = next(loader)
+                if mm:
+                    batch["prefix_embeds"] = place_prefix(pe, mesh)
+                p, o, m = step(p, o, batch)
+                hist.append((float(m["loss"]), float(m["grad_norm"])))
+            runs.append((hist, [k.launches - n for k, n in zip(kernels, n0)]))
+        assert runs[0][1] == runs[1][1] and sum(runs[1][1]) > 0, arch
+        for a, b in zip(runs[1][0], runs[0][0]):
+            for x, y in zip(a, b):
+                assert abs(x - y) <= 1e-5 * max(1.0, abs(y)), arch
+
+
+def test_composed_serving_on_a_one_rank_nccl_mesh_matches_fused(
+        one_rank_mesh, cuda):
+    """Reduced qwen2-0.5b, recurrentgemma-2b (5 layers, window 16,
+    generation past it), deepseek-v2-lite-16b (MLA's composed decode) and
+    internvl2-26b (text-only) in float32: HyperServe with
+    ``kernels="composed"`` on the (1, 1) NCCL mesh gives the tokens of the
+    fused engine without a mesh, with ``decode_attention`` launched on
+    the mesh where the arch has GQA attention layers and no fused decode
+    launched."""
+    scfg = ServeConfig(block_size=4, num_blocks=48, max_blocks_per_req=12,
+                       max_slots=2, prefill_chunk=4)
+    prompts = [list(range(1, 9)), list(range(20, 33))]
+    for arch, kw in (("qwen2-0.5b", {}),
+                     ("recurrentgemma-2b",
+                      dict(num_layers=5, sliding_window=16)),
+                     ("deepseek-v2-lite-16b", {}), ("internvl2-26b", {})):
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  dtype="float32", **kw)
+        params = M.init_model(cfg, torch.Generator(device=cuda).manual_seed(0))
+        runs = []
+        for mesh, kernels in ((None, "fused"), (one_rank_mesh, "composed")):
+            n0 = (da.decode_attention.launches,
+                  pda.paged_decode_attention.launches)
+            serve = HyperServe(cfg, params, mesh=mesh, serve_cfg=(
+                dataclasses.replace(scfg, kernels=kernels)))
+            rids = [serve.submit(p, 20) for p in prompts]
+            out = serve.join()
+            runs.append(([out[r] for r in rids],
+                         (da.decode_attention.launches - n0[0],
+                          pda.paged_decode_attention.launches - n0[1])))
+        assert runs[1][0] == runs[0][0], arch
+        assert runs[1][1][1] == 0, arch
+        assert (runs[1][1][0] > 0) == (arch != "deepseek-v2-lite-16b"), arch

@@ -28,9 +28,11 @@ two-device mesh.  Each rank's local shard shapes equal the reference's
 ``ShardStrategy.shard_shape``, and ``bridge.shard_params`` places every
 leaf as the step's shardings do.  A checkpoint saved on (1, 2) restores bit
 for bit unsharded and on (2, 1); the offload legs on (1, 2) host-place
-exactly the leaves whose reference spec is fully sharded; MLA, MoE, SSD,
-RG-LRU and the multimodal prefix on a mesh raise ``PlanError``; and
-``trainer.train`` on (2, 1) from the seed follows the unsharded trainer.
+exactly the leaves whose reference spec is fully sharded; every family
+(MLA, MoE, SSD, RG-LRU, the multimodal prefix) builds its step on a mesh,
+while the facade's plan and a mesh that is not a ``DeviceMesh`` raise
+``PlanError``; and ``trainer.train`` on (2, 1) from the seed follows the
+unsharded trainer.
 """
 import dataclasses
 import json
@@ -339,21 +341,24 @@ def test_offload_legs_host_place_the_reference_leaves(runs):
 
 
 def test_unported_families_refuse_on_a_mesh(runs):
-    """SSD and RG-LRU training raise PlanError naming ROADMAP item 8c,
-    part c1, and the multimodal prefix part c4, before any step runs; MLA
-    and MoE (deepseek-v2-lite, deepseek-moe) build their step on the
-    mesh."""
+    """Every family builds its step on the mesh: MLA and MoE
+    (deepseek-v2-lite, deepseek-moe), SSD and RG-LRU (mamba2,
+    recurrentgemma) and the multimodal prefix (musicgen-large with
+    ``multimodal=True``).  What is still not ported on a mesh refuses
+    before any step runs: a plan that is not a ``ShardingPlan`` (the
+    facade's) raises ``PlanError`` naming ROADMAP item 8h, and a mesh that
+    is not a ``DeviceMesh`` one naming it."""
     msgs = runs["mesh"]["ring_1x2"]["report"]["refusals"]
     assert sorted(msgs) == sorted(["deepseek-v2-lite-16b",
                                    "deepseek-moe-16b", "mamba2-370m",
-                                   "recurrentgemma-2b", "prefix"])
-    assert msgs["deepseek-v2-lite-16b"] is msgs["deepseek-moe-16b"] is None
-    for arch, part, other in (("mamba2-370m", "c1", "c4"),
-                              ("recurrentgemma-2b", "c1", "c4"),
-                              ("prefix", "c4", "c1")):
-        msg = msgs[arch]
-        assert msg is not None and f"item 8c, part {part}" in msg, arch
-        assert f"part {other}" not in msg, arch
+                                   "recurrentgemma-2b", "musicgen-large",
+                                   "facade", "not_a_mesh"])
+    for arch in ("deepseek-v2-lite-16b", "deepseek-moe-16b", "mamba2-370m",
+                 "recurrentgemma-2b", "musicgen-large"):
+        assert msgs[arch] is None, (arch, msgs[arch])
+    assert msgs["facade"] is not None and "item 8h" in msgs["facade"]
+    assert msgs["not_a_mesh"] is not None \
+        and "not a torch DeviceMesh" in msgs["not_a_mesh"]
 
 
 def test_trainer_on_a_mesh_follows_the_unsharded_trainer(runs):

@@ -22,8 +22,10 @@ prompts, new tokens, checkpoint) and the tasks to run, in order:
   after each, every archived key's tier and the archive's host and disk
   bytes; then its counters and tokens;
 - ``refuse``: a ``(world, 1)`` mesh, an fsdp plan, a plan that is not a
-  ``ShardingPlan``, musicgen-large's multimodal prefix and the composed
-  lowering, each message of the typed error it raises;
+  ``ShardingPlan`` (each refused), and engines of musicgen-large (its
+  multimodal prefix, served text-only) and of deepseek-v2-lite under the
+  composed lowering built on the flat mesh: each refusal's typed error
+  and message, each engine's lowering;
 - ``flat``: ``serving_mesh_for`` of the ``(world, 1)`` mesh, its shape,
   names and vocab axis, and the ``flat`` case served on it;
 - ``launcher``: after the worker's own group is gone,
@@ -155,11 +157,13 @@ def run_archive(spec, mesh):
 
 
 def message(fn):
+    """[the type of the ``PlanError`` that ``fn()`` raises, its message],
+    or ["built", what ``fn()`` returned] where it raises none."""
     try:
-        fn()
+        got = fn()
     except PlanError as e:
         return [type(e).__name__, str(e)]
-    return None
+    return ["built", got if isinstance(got, str) else None]
 
 
 def run_refuse(spec, world):
@@ -167,18 +171,20 @@ def run_refuse(spec, world):
     flat = serving_mesh_for(data)
     case = spec["cases"]["flat"]
 
-    def refused(arch, **knobs):
+    def built(arch, **knobs):
+        """The lowering of an engine built on the flat mesh."""
         cfg = dataclasses.replace(get_config(arch).reduced(),
                                   dtype="float32")
-        HyperServe(cfg, M.init_model(cfg, torch.Generator().manual_seed(0)),
-                   serve_cfg=ServeConfig(**dict(case["scfg"], **knobs)),
-                   mesh=flat, device="cpu")
+        return HyperServe(
+            cfg, M.init_model(cfg, torch.Generator().manual_seed(0)),
+            serve_cfg=ServeConfig(**dict(case["scfg"], **knobs)),
+            mesh=flat, device="cpu").engine.kernel_path
     return {"data_axis": message(lambda: serve(case, data)),
             "fsdp": message(lambda: serve(case, flat, ShardingPlan())),
             "facade": message(lambda: serve(case, flat, "serve")),
-            "prefix": message(lambda: refused("musicgen-large")),
-            "composed": message(lambda: refused("deepseek-v2-lite-16b",
-                                                kernels="composed"))}
+            "prefix": message(lambda: built("musicgen-large")),
+            "composed": message(lambda: built("deepseek-v2-lite-16b",
+                                              kernels="composed"))}
 
 
 def run_flat(spec, world):

@@ -22,8 +22,10 @@ reduced f32 config's batch and the tasks to run, in order:
   it (rank 0 writes it, for a bit-for-bit comparison);
 - ``offload``: one offload leg of the restored state: the paths of the
   leaves that went to host memory, and a fetch back bit for bit;
-- ``refuse``: a step of each other family built under the mesh: the
-  message of the ``PlanError`` it raises, None where it builds;
+- ``refuse``: a step of each other family built under the mesh (the
+  multimodal one with its prefix), and a step under the facade's plan and
+  under a mesh that is not a ``DeviceMesh``: the message of the
+  ``PlanError`` each raises, None where it builds;
 - ``trainer``: ``trainer.train`` on the mesh from the seed.
 """
 import dataclasses
@@ -121,6 +123,15 @@ def train(spec, mesh, rank, out):
     return params, state
 
 
+def refusal(fn):
+    """The message of the ``PlanError`` that ``fn()`` raises, or None."""
+    try:
+        fn()
+    except PlanError as e:
+        return str(e)
+    return None
+
+
 def main():
     rank, world = int(sys.argv[1]), int(sys.argv[2])
     with open(sys.argv[3]) as f:
@@ -169,20 +180,15 @@ def main():
             elif task == "refuse":
                 msgs = {}
                 for arch in ("deepseek-v2-lite-16b", "deepseek-moe-16b",
-                             "mamba2-370m", "recurrentgemma-2b"):
-                    try:
-                        steps.make_train_step(get_config(arch).reduced(),
-                                              opt.AdamWConfig(), mesh=mesh)
-                        msgs[arch] = None
-                    except PlanError as e:
-                        msgs[arch] = str(e)
-                try:
-                    steps.make_train_step(
-                        get_config("musicgen-large").reduced(),
-                        opt.AdamWConfig(), mesh=mesh, multimodal=True)
-                    msgs["prefix"] = None
-                except PlanError as e:
-                    msgs["prefix"] = str(e)
+                             "mamba2-370m", "recurrentgemma-2b",
+                             "musicgen-large"):
+                    msgs[arch] = refusal(lambda: steps.make_train_step(
+                        get_config(arch).reduced(), opt.AdamWConfig(),
+                        mesh=mesh, multimodal=arch == "musicgen-large"))
+                msgs["facade"] = refusal(lambda: steps.make_train_step(
+                    qwen(), opt.AdamWConfig(), mesh=mesh, plan="fsdp_tp"))
+                msgs["not_a_mesh"] = refusal(lambda: steps.make_train_step(
+                    qwen(), opt.AdamWConfig(), mesh="auto"))
                 report["refusals"] = msgs
             elif task == "trainer":
                 cfg = qwen()
