@@ -330,6 +330,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                  shapes; (10, 1, 256) windowed), both scans and both scan
                  backwards (the train shapes) handed DTensors, against
                  their plain versions, timed;
+                 (Phases 39 and 40 run before 38a's one-rank group is
+                 opened, and phase 43 inside it, after 38d.)
   39. rl       — HyperRL, colocated (repro_torch.rl.RLSession): qwen2-0.5b
                  at full width in bf16, 2 iterations of 2 prompts x 4
                  samples of 128 + 64 tokens at temperature 1 (the
@@ -344,18 +346,55 @@ Phases, in order; any failure raises and the script exits non-zero:
   40. rl identity — the same in float32, one iteration: ratio_mean within
                  1e-3 of 1 and clip_fraction 0 (on policy), then a greedy
                  probe through the actor identical to a fresh Generator on
-                 the learner's params;
+                 the learner's params; then a second update on the same
+                 batch, for phase 43;
   41. rl moe   — deepseek-v2-lite-16b cut to 4 layers (phase 26's), ragged
                  actor and learner, bf16, one iteration of 1 x 4 samples of
                  64 + 32 tokens: per decode step 4 MLA decodes and 9
                  grouped matmuls, per prefill call 4 flash and 9, per
                  update 8 flash, 4 backwards, 18 grouped matmuls and 9 of
                  each grouped matmul backward kernel;
-  42. ragged train identity — deepseek-v2-lite at full width, 2 layers,
+  41b. ragged train identity — deepseek-v2-lite at full width, 2 layers,
                  float32, 2 steps of 1 x 1024 under the ragged dispatch,
                  kernels against plain versions to phase 25's limits, both
                  backward kernels launched 3 times a MoE layer and step;
-  43. result   — the nvidia-smi line, the kernel JSON line (twelve sources;
+  42. disagg serve — HyperMPMD's prefill/decode disaggregation: a child
+                 process on the same card (``--mpmd-child prefill``) is
+                 the prefill group, this process the decode group, gloo
+                 through a FileStore in a temporary directory (NCCL
+                 refuses two ranks on one card), the hand-offs through
+                 pinned host buffers.  qwen2-0.5b bf16 at phase 4's config
+                 and requests: exactly 24 flash_attention a dense prefill
+                 call in the child and nothing else, 24
+                 paged_decode_attention a decode step here and no ragged
+                 prefill; median TTFT, decode tok/s and the decode-step
+                 wall beside phase 4's, the KV hand-off's ms and GB/s a
+                 call; f32 at phase 10's config and prompts: tokens
+                 identical to phase 10's aggregated engine and to the
+                 Generator's; flash at the child's largest dense call
+                 (Pb, padded) held to its plain version and timed.  A
+                 child that fails fails the phase;
+  43. rl mesh  — GRPO with the learner on 38a's one-rank NCCL (1, 1) mesh
+                 under fsdp_tp: bf16 at phase 39's config with its exact
+                 launches, the first update's ratio_mean within 1e-3 of 1
+                 and clip_fraction 0, learner step and publish walls
+                 beside phase 39's; f32 at phase 40's: iteration 1's
+                 rollouts identical to phase 40's, the loss within 1e-5
+                 relative, the greedy probe after the publish identical
+                 to a fresh Generator's, the params after the update
+                 within phase 25's limits of phase 40's, and a second
+                 update on the same batch within 1e-5 relative of phase
+                 40's second (loss, ratio_mean, grad_norm);
+  44. rl disagg — ``rl_disagg`` with roles 1 + 1: this process the actor,
+                 a child (``--mpmd-child learner``) the learner, as in
+                 phase 42: f32 at phase 40's config, the rollouts, the
+                 loss and every published param bit for bit phase 40's;
+                 bf16 at phase 39's, 24 + 24 launches a decode step and
+                 prefill call here and 48 + 24 an update in the child,
+                 mpmd.tasks.actor and .learner exact on both, the publish
+                 wall and GB/s, rollout tok/s, the learner step wall and
+                 utilization_report() for both roles;
+  45. result   — the nvidia-smi line, the kernel JSON line (twelve sources;
                  flash has a row for each run it is on: phase 6's (64, 64),
                  phase 12's (192, 128), phase 21's (256, 256), phase 23's
                  train shape with lse, phase 26's at (192, 128) and phase
@@ -370,8 +409,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                  phase 27a's launches; phase 23's two flash rows again
                  with phase 38a's launches, named ``_mesh``, and phase
                  38b's four ``_mesh`` rows with its runs' launches,
-                 phase 38c's seven and phase 38d's six; each with that
-                 run's launches), and
+                 phase 38c's seven and phase 38d's six, phase 42's
+                 flash row at its largest dense prefill call (Pb,
+                 padded), checked and timed there, and phases 42-44's
+                 repeats of phase 4's serving rows and phase 23's train
+                 rows, named ``_disagg``, ``_rl_mesh`` and
+                 ``_rl_disagg``; each with that run's launches), and
                  ``{"ok": true,
                  "device": {...}}`` as the last line.
 
@@ -4981,10 +5024,12 @@ def recurrent_mesh_kernel_rows(torch, mesh):
 # ---------------------------------------------------------------------------
 # HyperRL: the port's colocated GRPO loop (repro_torch.rl)
 # ---------------------------------------------------------------------------
-def rl_session(torch, cfg, prompts, group, prompt_len, new, iters):
-    """A colocated RLSession on the card: ``prompts`` x ``group`` seats,
-    random weights from SEED, the launcher's serving leg (no prefix cache),
-    PRE_P x PRE_C prefill calls, lr RL_LR, temperature 1."""
+def rl_session(torch, cfg, prompts, group, prompt_len, new, iters,
+               mesh=None, roles=None):
+    """An RLSession on the card: ``prompts`` x ``group`` seats, random
+    weights from SEED, the launcher's serving leg (no prefix cache),
+    PRE_P x PRE_C prefill calls, lr RL_LR, temperature 1; colocated on one
+    device, on ``mesh``, or as ``roles`` of the process group's ranks."""
     from repro_torch.configs.base import RLConfig, ServeConfig
     from repro_torch.models import model as M
     from repro_torch.rl import RLSession
@@ -4998,7 +5043,7 @@ def rl_session(torch, cfg, prompts, group, prompt_len, new, iters):
                     max_new_tokens=new, temperature=1.0, lr=RL_LR,
                     iterations=iters)
     return RLSession(cfg, rl_cfg=rcfg, serve_cfg=scfg, params=params,
-                     seed=SEED, device=DEVICE)
+                     seed=SEED, device=DEVICE, mesh=mesh, roles=roles)
 
 
 def rl_prompts(np, cfg, n, length, it):
@@ -5068,7 +5113,7 @@ def check_rl_launches(tag, records, want_step, want_update):
     return totals
 
 
-def phase_rl(torch, np):
+def phase_rl(torch, np, summary=None):
     """qwen2-0.5b's colocated GRPO loop at full width in bf16 (phase 39):
     RL_ITERS iterations of RL_PROMPTS prompts x RL_GROUP samples through
     RLSession.iterate (rollout on HyperServe's paged kernels with the
@@ -5080,7 +5125,9 @@ def phase_rl(torch, np):
     (tokens and logprobs, the learner batch) replay bit for bit in a second
     session from the same seed.  Rollout tokens/s, the learner step's wall,
     the publish wall, rl.stage_to_install_s, peak device memory, then
-    torch.profiler over rollout decode steps (the device's idle share)."""
+    torch.profiler over rollout decode steps (the device's idle share).
+    ``summary`` takes each iteration's learner step and publish walls and
+    rollout tok/s, and the first update's ratio_mean and clip_fraction."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.paged_decode_attention import \
@@ -5109,6 +5156,13 @@ def phase_rl(torch, np):
         batches.append(rl.buffer.batch(pad_len_to=16))
         hist.append(m)
         upd = [r for r in records if r[0] == "update"][-1][4]
+        if summary is not None:
+            summary.setdefault("update_s", []).append(upd)
+            summary.setdefault("publish_s", []).append(m["publish_s"])
+            summary.setdefault("rollout_tok_s", []).append(
+                m["rollout_tokens"] / m["rollout_s"])
+            summary.setdefault("ratio_clip", []).append(
+                (m["ratio_mean"], m["clip_fraction"]))
         log(f"[rl] iteration {it + 1}: loss {m['loss']:+.6f} reward "
             f"{m['reward_mean']:.3f} ratio_mean {m['ratio_mean']:.6f} "
             f"clip_fraction {m['clip_fraction']:.4f} grad_norm "
@@ -5222,6 +5276,19 @@ def phase_rl_identity(torch, np):
     if got != want or int(m["weights_version"]) != 1:
         raise AssertionError("rl identity: the published weights are not "
                              "the learner's")
+    # phases 43 and 44 are held to this run: its batch (the rollouts'
+    # tokens and logprobs), its loss, the learner's params and the probe;
+    # phase 43 also to a second update on the same batch, whose metrics
+    # are read off the params and AdamW state the first update left
+    batch = rl.buffer.batch(pad_len_to=16)
+    params = rl.learner.params
+    m2 = rl.learner.update(batch)
+    log(f"[rl identity] a second update on the same batch: loss "
+        f"{m2['loss']:+.9e} (the first's {m['loss']:+.9e}), ratio_mean "
+        f"{m2['ratio_mean']:.9f}, grad_norm {m2['grad_norm']:.9e} (the "
+        f"first's {m['grad_norm']:.9e})")
+    return dict(batch=batch, loss=m["loss"], metrics=m, metrics2=m2,
+                params=params, probe=probe, probe_tokens=got)
 
 
 def phase_rl_moe(torch, np):
@@ -5285,6 +5352,632 @@ def phase_rl_moe(torch, np):
         raise AssertionError("rl moe: the iteration did not publish a "
                              "finite update")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phases 42-44: HyperMPMD on the card.  Phases 42 and 44 run two processes
+# on the one card, this one and a child (``python3 chip_smoke.py
+# --mpmd-child ROLE DIR RANK``), joined by gloo through a FileStore in a
+# temporary directory (NCCL refuses two ranks on one card); the hand-offs
+# go through pinned host buffers (repro_torch.core.mpmd).  Both processes
+# make the same calls in the same order (the port's contract for role
+# groups); the child writes what it measured to DIR/child.json.
+# ---------------------------------------------------------------------------
+MPMD_TIMEOUT_S = 300     # gloo's bound on a receive: a dead peer fails fast
+
+
+@contextlib.contextmanager
+def mpmd_pair(child_role, main_rank):
+    """A two-rank gloo world of this process (``main_rank``) and a child
+    running ``child_role`` on the same card.  Yields a function that waits
+    for the child (with a deadline) and returns its report, raising if it
+    exited with another code than 0; a failure here kills the child, and
+    the child is always waited for."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mpmd_")
+    child = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mpmd-child",
+         child_role, tmp, str(1 - main_rank)])
+
+    def report():
+        try:
+            rc = child.wait(timeout=MPMD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            raise AssertionError(f"{child_role} child did not exit within "
+                                 f"{MPMD_TIMEOUT_S} s")
+        if rc != 0:
+            raise AssertionError(f"{child_role} child exited with {rc}")
+        with open(os.path.join(tmp, "child.json")) as f:
+            return json.load(f)
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"file://{tmp}/store", rank=main_rank,
+            world_size=2, timeout=datetime.timedelta(seconds=MPMD_TIMEOUT_S))
+        try:
+            yield report
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        child.kill()
+        raise
+    finally:
+        child.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mpmd_child(role, tmp, rank):
+    """The child's side of phase 42 (``prefill``) or 44 (``learner``)."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{tmp}/store", rank=int(rank),
+        world_size=2, timeout=datetime.timedelta(seconds=MPMD_TIMEOUT_S))
+    try:
+        out = (disagg_serve_runs(torch, np) if role == "prefill"
+               else rl_disagg_runs(torch, np, None))
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, "child.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def disagg_serve_runs(torch, np):
+    """Phase 42's calls, the same on both processes (rank 0 the prefill
+    group, rank 1 the decode group): qwen2-0.5b bf16 at phase 4's config,
+    its warm-up and its SERVE_REQUESTS requests, then the f32 identity at
+    phase 10's config and prompts.  On the prefill rank returns the flash launches of every dense prefill call and the
+    launches of every other serving kernel; on the decode rank the
+    decode side's records."""
+    from repro_torch.configs.base import ServeConfig, get_config
+    from repro_torch.core import mpmd
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_decode_attention import \
+        paged_decode_attention
+    from repro_torch.kernels.ragged_prefill_attention import \
+        ragged_prefill_attention
+    from repro_torch.models import model as M
+    from repro_torch.serve.api import HyperServe
+    wrappers = (paged_decode_attention, ragged_prefill_attention,
+                decode_attention, flash_attention)
+    groups = mpmd.serving_groups(1, 1)
+    decode = groups["decode"].has()
+    cfg = get_config("qwen2-0.5b")
+    params = M.init_model(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED))
+    scfg = ServeConfig(block_size=BS, num_blocks=NUM_BLOCKS,
+                       max_blocks_per_req=TABLE_W, max_slots=DEC_B,
+                       prefill_chunk=PRE_C, prefill_batch=PRE_P)
+    serve = HyperServe(cfg, params, serve_cfg=scfg, device=DEVICE,
+                       prefill_group=groups["prefill"],
+                       decode_group=groups["decode"])
+    rng = np.random.default_rng(SEED)
+    serve_all(serve, make_prompts(rng, 2, 50, 60, cfg.vocab_size), 4)
+    prompts = make_prompts(rng, SERVE_REQUESTS, 100, 1500, cfg.vocab_size)
+    eng = serve.engine
+    out = {"calls": []}
+    hand = []
+    if decode:
+        m = eng.obs.metrics
+        before = {k: m.counter(k).value for k in
+                  ("serve.kernels.decode.fused", "serve.prefill_calls",
+                   "serve.prefill_chunks", "mpmd.tasks.prefill")}
+        itl0, tokens0 = m.histogram("serve.itl_s").sum, eng.tokens_generated
+        transfer = mpmd.transfer
+
+        def timed_transfer(*a, **kw):
+            # the KV hand-off of one prefill call, from the decode side:
+            # the child's copy off the card, gloo, the copy onto it
+            t0 = time.perf_counter()
+            got = transfer(*a, **kw)
+            sync(torch)
+            hand.append((time.perf_counter() - t0, sum(
+                t.numel() * t.element_size() for t in tree_leaves(got))))
+            return got
+        mpmd.transfer = timed_transfer
+    else:
+        prefill = eng._prefill
+
+        def counted_prefill(toks, lens):
+            n0 = {w.__name__: w.launches for w in wrappers}
+            prefill(toks, lens)
+            out["calls"].append(
+                [list(toks.shape), {w.__name__: w.launches - n0[w.__name__]
+                                    for w in wrappers}])
+        eng._prefill = counted_prefill
+    # the main path's run: every launch count starts at 0 here
+    for w in wrappers:
+        w.launches = 0
+    sync(torch)
+    t0 = time.perf_counter()
+    try:
+        outs, rids = serve_all(serve, prompts, 64)
+        sync(torch)
+    finally:
+        if decode:
+            mpmd.transfer = transfer
+    wall = time.perf_counter() - t0
+    out["launches"] = {w.__name__: w.launches for w in wrappers}
+    st = serve.stats()
+    if decode:
+        d = {k: m.counter(k).value - v for k, v in before.items()}
+        steps = int(d["serve.kernels.decode.fused"])
+        tokens = eng.tokens_generated - tokens0
+        decode_s = m.histogram("serve.itl_s").sum - itl0
+        ttfts = sorted(serve.request_meta(r)["ttft_s"] for r in rids)
+        out.update(steps=steps, calls=int(d["serve.prefill_calls"]),
+                   chunks=int(d["serve.prefill_chunks"]), wall=wall,
+                   tokens=tokens, decode_s=decode_s,
+                   decode_tokens=tokens - len(prompts),
+                   ttft_s=ttfts[len(ttfts) // 2], hand=hand,
+                   finished=sum(serve.state(r) == "finished" for r in rids),
+                   lengths=[len(o) for o in outs],
+                   prefix_hits=st["prefix_hits"],
+                   tasks=int(d["mpmd.tasks.prefill"]))
+    del serve, eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = M.init_model(
+        cfg32, torch.Generator(device=DEVICE).manual_seed(SEED))
+    scfg32 = ServeConfig(block_size=BS, num_blocks=512,
+                         max_blocks_per_req=ID_TABLE_W, max_slots=ID_SLOTS,
+                         prefill_chunk=PRE_C, prefill_batch=PRE_P)
+    prompts32 = make_prompts(np.random.default_rng(SEED + 2), 6, 100,
+                             ID_PROMPT_MAX, cfg.vocab_size)
+    out["f32"], _ = serve_all(HyperServe(
+        cfg32, params32, serve_cfg=scfg32, device=DEVICE,
+        prefill_group=groups["prefill"], decode_group=groups["decode"]),
+        prompts32, ID_NEW)
+    if decode:
+        from repro_torch.serve.engine import GenerateConfig, Generator
+        out["generator"] = [Generator(
+            cfg32, params32, max_len=len(p) + ID_NEW + 8, device=DEVICE)
+            .generate(torch.tensor([p], device=DEVICE),
+                      GenerateConfig(max_new_tokens=ID_NEW))[0, len(p):]
+            .tolist() for p in prompts32]
+    return out
+
+
+def phase_disagg_serve(torch, np, serve_summary, fused):
+    """Phase 42: qwen2-0.5b served disaggregated, the prefill group a child
+    process on the same card (rank 0), this process the decode group (rank
+    1).  bf16 at phase 4's config and requests: exactly 24 flash_attention
+    a dense prefill call in the child and nothing else there, exactly 24
+    paged_decode_attention a decode step here and no ragged prefill; every
+    request finished with 64 tokens; median TTFT, decode tok/s, the
+    decode-step wall beside phase 4's, the KV hand-off's ms and GB/s a
+    call.  f32 at phase 10's config and prompts: greedy tokens identical
+    to the aggregated engine's (phase 10's) and to the Generator's.
+    Returns {kernel: launches} of the run, both processes', and the
+    kernel JSON's flash row at the child's largest call
+    (:func:`disagg_flash_row`)."""
+    from repro_torch.configs.base import get_config
+    n = get_config("qwen2-0.5b").num_layers
+    with mpmd_pair("prefill", 1) as child_report:
+        got = disagg_serve_runs(torch, np)
+        child = child_report()
+    steps, calls = got["steps"], got["calls"]
+    hand = got["hand"]
+    ms = [t * 1e3 for t, _ in hand]
+    gbs = [b / t / 1e9 for t, b in hand]
+    mean_gb = sum(b for _, b in hand) / max(len(hand), 1) / 1e9
+    step_s = got["decode_s"] / steps
+    log(f"[disagg serve] qwen2-0.5b bf16 full width, prefill in a child "
+        f"process (rank 0), decode here (rank 1), gloo through pinned host "
+        f"buffers: {got['finished']}/{SERVE_REQUESTS} requests finished, "
+        f"{got['tokens']} tokens in {got['wall']:.3f}s, decode "
+        f"{got['decode_tokens']} tokens in {steps} steps, "
+        f"{got['decode_s']:.3f}s ({got['decode_tokens'] / got['decode_s']:.1f}"
+        f" decode tok/s; phase 4: {serve_summary['decode_tok_s']:.1f}), "
+        f"median TTFT {got['ttft_s']:.3f}s (phase 4: "
+        f"{serve_summary['ttft_s']:.3f}s), decode-step wall "
+        f"{step_s * 1e3:.3f} ms (phase 4: {serve_summary['step_s'] * 1e3:.3f}"
+        f" ms); prefill_calls={calls} prefill_chunks={got['chunks']}, "
+        f"prefix_hits={got['prefix_hits']}, mpmd.tasks.prefill="
+        f"{got['tasks']}")
+    log(f"[disagg serve] KV hand-off per call ({len(hand)} calls, "
+        f"{mean_gb:.4f} GB mean): ms {[round(x, 3) for x in ms]}, GB/s "
+        f"{[round(x, 3) for x in gbs]}")
+    log(f"[disagg serve] prefill child's dense calls (Pb, padded) and "
+        f"launches: {child['calls']}; child total {child['launches']}, "
+        f"decode side {got['launches']}")
+    for shape, la in child["calls"]:
+        if la != {"paged_decode_attention": 0, "ragged_prefill_attention": 0,
+                  "decode_attention": 0, "flash_attention": n}:
+            raise AssertionError(f"disagg serve: a dense prefill call "
+                                 f"{shape} launched {la}")
+    want = {"paged_decode_attention": n * steps, "ragged_prefill_attention": 0,
+            "decode_attention": 0, "flash_attention": 0}
+    if got["launches"] != want or len(child["calls"]) != calls \
+            or calls == 0 or got["tasks"] != calls:
+        raise AssertionError(f"disagg serve: decode side launched "
+                             f"{got['launches']}, expected {want}; "
+                             f"{len(child['calls'])} child calls for {calls}")
+    if got["finished"] != SERVE_REQUESTS or set(got["lengths"]) != {64}:
+        raise AssertionError("disagg serve: not every request finished "
+                             "with 64 tokens")
+    same_agg = got["f32"] == fused == child["f32"]
+    same_gen = got["f32"] == got["generator"]
+    log(f"[disagg serve] f32 identity, phase 10's {len(fused)} prompts x "
+        f"{ID_NEW} tokens: tokens identical to the aggregated engine's "
+        f"(phase 10) on both ranks={same_agg}, to the Generator's="
+        f"{same_gen}")
+    if not (same_agg and same_gen):
+        raise AssertionError("disagg serve: f32 tokens differ")
+    launches = {"flash_attention": sum(la["flash_attention"]
+                                       for _, la in child["calls"]),
+                "paged_decode_attention": got["launches"][
+                    "paged_decode_attention"]}
+    return launches, [disagg_flash_row(torch, [s for s, _ in
+                                               child["calls"]])]
+
+
+def disagg_flash_row(torch, shapes):
+    """The ``flash_attention_disagg`` row of the kernel JSON: the kernel at
+    the largest (Pb, padded) dense prefill call of phase 42's prefill
+    child, bf16 at qwen2-0.5b's heads, on seeded inputs: its error against
+    the plain version (phase 3's limits; a share above 1 raises), its
+    time, the plain version's, SDPA's, and the bound of the whole padded
+    block (the dense prefill computes every padded position of every
+    row)."""
+    from repro_torch.kernels import perf_model as pm
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    Pb, S = max(shapes, key=lambda s: s[0] * s[1])
+    q, k, v = flash_inputs(torch, torch.bfloat16, DEVICE, H, KV, D, Pb, S, S)
+    want32 = flash_attention_ref(q.float(), k.float(), v.float(),
+                                 causal=True)
+    err, share = parity(torch, "bfloat16", flash_attention(q, k, v,
+                                                           causal=True),
+                        flash_attention_ref(q, k, v, causal=True), want32)
+    del want32
+    if not share <= 1.0:
+        raise AssertionError(f"flash_attention at the disaggregated "
+                             f"prefill's ({Pb}, {S}): error share {share}")
+    cost = pm.prefill_visible_cost([0] * Pb, [S] * Pb, S, num_heads=H,
+                                   kv_heads=KV, head_dim=D, itemsize=2)
+    ms = time_ms(lambda: flash_attention(q, k, v, causal=True), torch)
+    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, causal=True),
+                       torch)
+    library_ms = time_ms(sdpa_flash(torch, q, k, v), torch)
+    bound_ms = cost.bound_seconds("bfloat16") * 1e3
+    log(f"[disagg serve] flash_attention at the child's largest dense "
+        f"prefill call ({Pb}, {S}) bf16: max abs err {err:.3e} (share "
+        f"{share:.3f} of the limit), {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.5f} ms ({cost.bound_by('bfloat16')}), SDPA "
+        f"causal, enable_gqa (transposes excluded) {library_ms:.4f} ms")
+    return {"name": "flash_attention_disagg", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:87",
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": cost.bound_by("bfloat16"), "library_ms": library_ms,
+            "path": "qwen2-0.5b disagg"}
+
+
+def phase_rl_mesh(torch, np, mesh, rl_summary, rl_id):
+    """Phase 43: GRPO with the learner on the one-rank NCCL (1, 1) mesh of
+    ``one_rank_group`` under fsdp_tp and the actor on the same mesh's
+    serving view.  bf16 at phase 39's config: phase 39's exact launches
+    (24 paged decodes a decode step, 24 ragged prefills a call, 48 flash
+    and 24 backwards an update), the first update's ratio_mean within
+    1e-3 of 1 and clip_fraction 0, the learner step and publish walls
+    beside phase 39's.  f32 at phase 40's config: iteration 1's rollouts
+    (tokens and logprobs) identical to phase 40's without the mesh, the
+    loss within 1e-5 relative, the greedy probe after the publish
+    identical to a fresh Generator's on the learner's params, the params
+    after the update within phase 25's limits of phase 40's (AdamW's bound
+    of one step, 2 lr, and an f32 rounding), and a second update on the
+    same batch (its metrics read off the params and AdamW state the first
+    left on the mesh) within 1e-5 relative of phase 40's second."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.paged_decode_attention import \
+        paged_decode_attention
+    from repro_torch.kernels.ragged_prefill_attention import \
+        ragged_prefill_attention
+    from repro_torch.core.tree import tree_flatten_with_path
+    from repro_torch.models.bridge import full_params
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.serve.engine import GenerateConfig, Generator
+    cfg = get_config("qwen2-0.5b")
+    n = cfg.num_layers
+    kernels = {"paged_decode_attention": paged_decode_attention,
+               "ragged_prefill_attention": ragged_prefill_attention,
+               "flash_attention": fa.flash_attention,
+               "flash_attention_bwd": fa.flash_attention_bwd}
+    rl = rl_session(torch, cfg, RL_PROMPTS, RL_GROUP, RL_PROMPT_LEN, RL_NEW,
+                    RL_ITERS, mesh=mesh)
+    records = count_rl_launches(torch, rl, kernels)
+    for w in kernels.values():
+        w.launches = 0
+    hist = []
+    for it in range(RL_ITERS):
+        m = rl.iterate(rl_prompts(np, cfg, RL_PROMPTS, RL_PROMPT_LEN, it),
+                       diversity)
+        upd = [r for r in records if r[0] == "update"][-1][4]
+        hist.append((m, upd))
+        log(f"[rl mesh] iteration {it + 1}: loss {m['loss']:+.6f} "
+            f"ratio_mean {m['ratio_mean']:.6f} clip_fraction "
+            f"{m['clip_fraction']:.4f}; rollout {m['rollout_tokens']} "
+            f"tokens in {m['rollout_s']:.3f}s "
+            f"({m['rollout_tokens'] / m['rollout_s']:.1f} rollout tok/s; "
+            f"phase 39: {rl_summary['rollout_tok_s'][it]:.1f}), learner "
+            f"step {upd:.4f}s (phase 39: {rl_summary['update_s'][it]:.4f}s)"
+            f", publish {m['publish_s'] * 1e3:.3f} ms (phase 39: "
+            f"{rl_summary['publish_s'][it] * 1e3:.3f} ms), weights_version "
+            f"{int(m['weights_version'])}")
+        if int(m["weights_version"]) != it + 1 or not np.isfinite(m["loss"]):
+            raise AssertionError(f"rl mesh: iteration {it + 1} left version "
+                                 f"{m['weights_version']}, loss {m['loss']}")
+    launches = check_rl_launches(
+        "rl mesh", records,
+        lambda d, c: {"paged_decode_attention": n * d,
+                      "ragged_prefill_attention": n * c,
+                      "flash_attention": 0, "flash_attention_bwd": 0},
+        {"paged_decode_attention": 0, "ragged_prefill_attention": 0,
+         "flash_attention": 2 * n, "flash_attention_bwd": n})
+    first = hist[0][0]
+    log(f"[rl mesh] launches {launches} (phase 39's per step and update); "
+        f"first update ratio_mean {first['ratio_mean']:.6f} (limit 1 +- "
+        f"1e-3; phase 39: {rl_summary['ratio_clip'][0][0]:.6f}), "
+        f"clip_fraction {first['clip_fraction']} (phase 39: "
+        f"{rl_summary['ratio_clip'][0][1]})")
+    if not abs(first["ratio_mean"] - 1) <= 1e-3 \
+            or first["clip_fraction"] != 0:
+        raise AssertionError("rl mesh: the first update is not on policy")
+    del rl, records
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    rl = rl_session(torch, cfg32, RL_PROMPTS, RL_GROUP, RL_PROMPT_LEN, RL_NEW,
+                    1, mesh=mesh)
+    m = rl.iterate(rl_prompts(np, cfg32, RL_PROMPTS, RL_PROMPT_LEN, 0),
+                   diversity)
+    batch = rl.buffer.batch(pad_len_to=16)
+    same = {k: bool(np.array_equal(batch[k], rl_id["batch"][k]))
+            for k in batch}
+    rel = abs(m["loss"] - rl_id["loss"]) / max(abs(rl_id["loss"]), 1e-30)
+    got = rl.rollout_greedy(rl_id["probe"], RL_ID_NEW)
+    params = full_params(rl.learner.params)
+    gen = Generator(cfg32, params, max_len=RL_ID_PROMPT + RL_ID_NEW + 8,
+                    device=DEVICE)
+    want = gen.generate(torch.tensor([rl_id["probe"]], device=DEVICE),
+                        GenerateConfig(max_new_tokens=RL_ID_NEW))
+    want = want[0, RL_ID_PROMPT:].tolist()
+    log(f"[rl mesh] f32, one iteration on the mesh: rollouts identical to "
+        f"phase 40's without it {same}; loss {m['loss']:+.9f} vs "
+        f"{rl_id['loss']:+.9f} (relative {rel:.3g}, limit 1e-5); ratio_mean "
+        f"{m['ratio_mean']:.9f}; greedy probe after the publish identical "
+        f"to a fresh Generator on the learner's params={got == want}")
+    if not all(same.values()) or not rel <= 1e-5 or got != want:
+        raise AssertionError("rl mesh: the f32 identity failed")
+    # the update itself: the params after it against phase 40's at phase
+    # 25's limits (AdamW's bound of one step and an f32 rounding), and a
+    # second update on the same batch, whose metrics are read off the
+    # params and AdamW state the first left on the mesh, against phase
+    # 40's second within 1e-5 relative
+    want_p = dict(tree_flatten_with_path(rl_id["params"]))
+    diffs = {k: (t - want_p[k]).abs() for k, t in
+             tree_flatten_with_path(params)}
+    big = max(t.abs().max().item() for t in want_p.values())
+    adamw = AdamWConfig()
+    bound = (2 * m["lr"] * adam_step_bound(adamw.b1, adamw.b2, 1)
+             + 2 * big * 2.0 ** -23)
+    dmax = max(d.max().item() for d in diffs.values())
+    differ = sum(int((d > 0).sum()) for d in diffs.values())
+    total = sum(d.numel() for d in diffs.values())
+    del diffs, params
+    m2 = rl.learner.update(batch)
+    w2 = rl_id["metrics2"]
+    rel2 = {k: abs(m2[k] - w2[k]) / max(abs(w2[k]), 1e-30)
+            for k in ("loss", "ratio_mean", "grad_norm")}
+    moved = {k: abs(w2[k] - rl_id["metrics"][k]) / max(abs(w2[k]), 1e-30)
+             for k in rel2}
+    log(f"[rl mesh] f32 params after the update vs phase 40's: max |diff| "
+        f"{dmax:.3e} against AdamW's bound {bound:.3e} (lr {m['lr']:.3e}), "
+        f"{differ} of {total} weights differ at all; a second update on the "
+        f"same batch: loss {m2['loss']:+.9e} vs {w2['loss']:+.9e}, relative "
+        f"differences {rel2} (limit 1e-5; phase 40's second update moved "
+        f"them from its first by {moved}, relative)")
+    if not dmax <= bound or not all(v <= 1e-5 for v in rel2.values()):
+        raise AssertionError("rl mesh: the update on the mesh is not phase "
+                             "40's")
+    return launches
+
+
+def rl_disagg_runs(torch, np, rl_id):
+    """Phase 44's calls, the same on both processes (rank 0 the actor,
+    rank 1 the learner): ``rl_disagg`` with roles 1 + 1, one f32 iteration
+    at phase 40's config, then RL_ITERS bf16 iterations at phase 39's.
+    On the learner rank (``rl_id`` None) returns each update's launches
+    and wall; on the actor rank its side's records."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.tree import tree_flatten_with_path
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.paged_decode_attention import \
+        paged_decode_attention
+    from repro_torch.kernels.ragged_prefill_attention import \
+        ragged_prefill_attention
+    roles = {"actor": 1, "learner": 1}
+    cfg = get_config("qwen2-0.5b")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    out = {}
+    rl = rl_session(torch, cfg32, RL_PROMPTS, RL_GROUP, RL_PROMPT_LEN, RL_NEW,
+                    1, roles=roles)
+    m = rl.iterate(rl_prompts(np, cfg32, RL_PROMPTS, RL_PROMPT_LEN, 0),
+                   diversity)
+    tasks = {k: rl.obs.metrics.counter(f"mpmd.tasks.{k}").value
+             for k in ("actor", "learner")}
+    out["f32"] = dict(loss=m["loss"], tasks=tasks)
+    if rl.actor is not None:
+        batch = rl.buffer.batch(pad_len_to=16)
+        out["f32"]["same_batch"] = {
+            k: bool(np.array_equal(batch[k], rl_id["batch"][k]))
+            for k in batch}
+        want = dict(tree_flatten_with_path(rl_id["params"]))
+        got = tree_flatten_with_path(rl.actor.engine.params)
+        out["f32"]["same_params"] = all(torch.equal(t, want[k])
+                                        for k, t in got)
+        out["f32"]["leaves"] = len(got)
+    del rl
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels = {"paged_decode_attention": paged_decode_attention,
+               "ragged_prefill_attention": ragged_prefill_attention,
+               "flash_attention": fa.flash_attention,
+               "flash_attention_bwd": fa.flash_attention_bwd}
+    rl = rl_session(torch, cfg, RL_PROMPTS, RL_GROUP, RL_PROMPT_LEN, RL_NEW,
+                    RL_ITERS, roles=roles)
+    records = []
+
+    def snap():
+        return {k: w.launches for k, w in kernels.items()}
+    if rl.actor is not None:
+        eng = rl.actor.engine
+        step, mt = eng.step, eng.obs.metrics
+
+        def counted_step():
+            n0, d0, c0 = snap(), mt.counter(
+                "serve.kernels.decode.fused").value, eng.prefill_calls
+            res = step()
+            n1 = snap()
+            records.append(("step", int(mt.counter(
+                "serve.kernels.decode.fused").value - d0),
+                eng.prefill_calls - c0, {k: n1[k] - n0[k] for k in n1}, 0.0))
+            return res
+        eng.step = counted_step
+    else:
+        update = rl.learner.update
+
+        def counted_update(batch):
+            n0 = snap()
+            sync(torch)
+            t0 = time.perf_counter()
+            res = update(batch)
+            sync(torch)
+            wall = time.perf_counter() - t0
+            n1 = snap()
+            records.append(("update", 0, 0, {k: n1[k] - n0[k] for k in n1},
+                            wall))
+            return res
+        rl.learner.update = counted_update
+    # the main path's run: every launch count starts at 0 here
+    for w in kernels.values():
+        w.launches = 0
+    out["iters"] = []
+    for it in range(RL_ITERS):
+        m = rl.iterate(rl_prompts(np, cfg, RL_PROMPTS, RL_PROMPT_LEN, it),
+                       diversity)
+        out["iters"].append({k: float(v) for k, v in m.items()})
+    out["util"] = rl.utilization_report()
+    out["tasks"] = {k: rl.obs.metrics.counter(f"mpmd.tasks.{k}").value
+                    for k in ("actor", "learner")}
+    out["records"] = records
+    out["nbytes"] = sum(t.numel() * t.element_size() for _, t in
+                        tree_flatten_with_path(
+                            rl.actor.engine.params if rl.actor is not None
+                            else rl.learner.params))
+    return out
+
+
+def phase_rl_disagg(torch, np, rl_summary, rl_id):
+    """Phase 44: ``rl_disagg`` with roles 1 + 1: this process the actor
+    (rank 0), a child process on the same card the learner (rank 1),
+    gloo through pinned host buffers.  f32 at phase 40's config: the
+    rollouts, the loss and every param after the update identical, bit for
+    bit, to phase 40's colocated run.  bf16 at phase 39's config: exactly
+    24 paged decodes a decode step and 24 ragged prefills a call here, 48
+    flash and 24 backwards an update in the child; mpmd.tasks.actor and
+    .learner equal to the iterations on both ranks; the publish wall and
+    GB/s, rollout tok/s, the learner step wall and utilization_report()
+    for both roles.  Returns {kernel: launches}, both processes'."""
+    from repro_torch.configs.base import get_config
+    n = get_config("qwen2-0.5b").num_layers
+    with mpmd_pair("learner", 0) as child_report:
+        got = rl_disagg_runs(torch, np, rl_id)
+        child = child_report()
+    f32 = got["f32"]
+    log(f"[rl disagg] f32 at phase 40's config: rollouts identical to "
+        f"phase 40's {f32['same_batch']}; loss {f32['loss']:+.9f} vs "
+        f"{rl_id['loss']:+.9f} (the learner child's {child['f32']['loss']:+.9f}"
+        f"); all {f32['leaves']} published params equal to phase 40's "
+        f"learner's, bit for bit={f32['same_params']}; mpmd.tasks {f32['tasks']}"
+        f" (child {child['f32']['tasks']})")
+    if not (all(f32["same_batch"].values()) and f32["same_params"]
+            and f32["loss"] == rl_id["loss"] == child["f32"]["loss"]
+            and f32["tasks"] == child["f32"]["tasks"]
+            == {"actor": 1, "learner": 1}):
+        raise AssertionError("rl disagg: the f32 run is not phase 40's")
+    upd = [r for r in child["records"] if r[0] == "update"]
+    for it, (m, u) in enumerate(zip(got["iters"], upd)):
+        log(f"[rl disagg] iteration {it + 1}: loss {m['loss']:+.6f} "
+            f"ratio_mean {m['ratio_mean']:.6f}; rollout "
+            f"{int(m['rollout_tokens'])} tokens in {m['rollout_s']:.3f}s "
+            f"({m['rollout_tokens'] / m['rollout_s']:.1f} rollout tok/s; "
+            f"phase 39: {rl_summary['rollout_tok_s'][it]:.1f}), learner "
+            f"step {u[4]:.4f}s in the child (phase 39: "
+            f"{rl_summary['update_s'][it]:.4f}s), publish "
+            f"{m['publish_s'] * 1e3:.3f} ms for {got['nbytes'] / 1e9:.4f} GB "
+            f"({got['nbytes'] / m['publish_s'] / 1e9:.3f} GB/s; phase 39's "
+            f"rebind {rl_summary['publish_s'][it] * 1e3:.3f} ms), "
+            f"weights_version {int(m['weights_version'])}")
+        if int(m["weights_version"]) != it + 1 or not np.isfinite(m["loss"]):
+            raise AssertionError(f"rl disagg: iteration {it + 1}")
+    log(f"[rl disagg] utilization_report() here {got['util']}, in the child "
+        f"{child['util']}; mpmd.tasks here {got['tasks']}, in the child "
+        f"{child['tasks']}")
+    want_tasks = {"actor": RL_ITERS, "learner": RL_ITERS}
+    if got["tasks"] != want_tasks or child["tasks"] != want_tasks \
+            or got["util"] != child["util"] \
+            or set(got["util"]) != {"actor", "learner"}:
+        raise AssertionError("rl disagg: tasks or utilization differ")
+    actor = check_rl_launches(
+        "rl disagg actor", [tuple(r) for r in got["records"]],
+        lambda d, c: {"paged_decode_attention": n * d,
+                      "ragged_prefill_attention": n * c,
+                      "flash_attention": 0, "flash_attention_bwd": 0}, None)
+    learner = check_rl_launches(
+        "rl disagg learner", [tuple(r) for r in child["records"]], None,
+        {"paged_decode_attention": 0, "ragged_prefill_attention": 0,
+         "flash_attention": 2 * n, "flash_attention_bwd": n})
+    if len(upd) != RL_ITERS:
+        raise AssertionError(f"rl disagg: {len(upd)} updates")
+    log(f"[rl disagg] launches: actor {actor}, learner {learner}")
+    return {"paged_decode_attention": actor["paged_decode_attention"],
+            "ragged_prefill_attention": actor["ragged_prefill_attention"],
+            "flash_attention": learner["flash_attention"],
+            "flash_attention_bwd": learner["flash_attention_bwd"]}
+
+
+def path_rows(rows, src_path, names, suffix, path):
+    """Rows of the kernel JSON repeated for a new path: for each kernel in
+    ``names``, the first row of ``src_path`` whose source it is, renamed
+    ``{kernel}_{suffix}`` and read from ``path``'s run."""
+    out = []
+    for k in names:
+        row = next((r for r in rows if r["path"] == src_path
+                    and os.path.basename(r["source"])[:-len(".cu")] == k),
+                   None)
+        if row is not None:
+            out.append(dict(row, name=f"{k}_{suffix}", path=path))
+        elif DEVICE == "cuda":        # off the card there are no rows
+            raise AssertionError(f"no {src_path} row of {k} to repeat for "
+                                 f"{path}")
+    return out
 
 
 def timed(name, fn, *args):
@@ -5434,6 +6127,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed("train offload", phase_train_offload, torch, np)
     torch.cuda.empty_cache()
+    # phases 39-40 before the one-rank group: phase 43 runs in it, held to
+    # their records
+    rl_summary = {}
+    rl_launches = timed("rl", phase_rl, torch, np, rl_summary)
+    torch.cuda.empty_cache()
+    rl_id = timed("rl identity", phase_rl_identity, torch, np)
+    torch.cuda.empty_cache()
     with one_rank_group() as mesh:
         mesh_launches = timed("train mesh", phase_train_mesh, torch, np,
                               mesh, train_record, train_summary)
@@ -5448,16 +6148,22 @@ def main() -> int:
         rec_mesh_runs, rec_mesh_rows = timed(
             "recurrent mesh", phase_recurrent_mesh, torch, np, mesh,
             serve_summary, train_records)
-    torch.cuda.empty_cache()
-    rl_launches = timed("rl", phase_rl, torch, np)
-    torch.cuda.empty_cache()
-    timed("rl identity", phase_rl_identity, torch, np)
+        torch.cuda.empty_cache()
+        rl_mesh_launches = timed("rl mesh", phase_rl_mesh, torch, np, mesh,
+                                 rl_summary, rl_id)
     torch.cuda.empty_cache()
     ds_rl_launches = timed("rl moe", phase_rl_moe, torch, np)
     torch.cuda.empty_cache()
     timed("ragged train identity", phase_train_identity, torch, np,
           DS_ARCH, DS_RAGGED_ID_LAYERS, DS_TRAIN_ID_B, DS_TRAIN_ID_S,
           DS_RAGGED_ID_STEPS, "ragged train identity", "ragged")
+    torch.cuda.empty_cache()
+    disagg_launches, disagg_rows = timed("disagg serve", phase_disagg_serve,
+                                         torch, np, serve_summary, fused)
+    torch.cuda.empty_cache()
+    rl_disagg_launches = timed("rl disagg", phase_rl_disagg, torch, np,
+                               rl_summary, rl_id)
+    del rl_id
     runs = {"qwen2-0.5b": launches, DS_ARCH: moe_launches,
             SSM_ARCH: ssm_launches, f"{SSM_ARCH} Generator": ssm_gen_launches,
             RG_ARCH: rg_launches, f"{RG_ARCH} Generator": rg_gen_launches,
@@ -5469,13 +6175,27 @@ def main() -> int:
             f"{RG_ARCH} train": rg_train_launches,
             "qwen2-0.5b rl": rl_launches, f"{DS_ARCH} rl": ds_rl_launches,
             "qwen2-0.5b mesh train": mesh_launches, **serve_mesh_runs,
-            **ds_mesh_runs, **rec_mesh_runs}
+            **ds_mesh_runs, **rec_mesh_runs,
+            "qwen2-0.5b disagg": disagg_launches,
+            "qwen2-0.5b rl mesh": rl_mesh_launches,
+            "qwen2-0.5b rl disagg": rl_disagg_launches}
     # the mesh run launches flash at phase 23's shapes: its rows are phase
     # 3's rows of that shape, with the mesh run's launches
     rows += [dict(row, name=row["name"] + "_mesh",
                   path="qwen2-0.5b mesh train")
              for row in rows if row["path"] == "qwen2-0.5b train"]
-    rows += serve_mesh_rows + ds_mesh_rows + rec_mesh_rows
+    rows += serve_mesh_rows + ds_mesh_rows + rec_mesh_rows + disagg_rows
+    # phases 42-44 launch the kernels of phase 4's serving and of phase
+    # 23's train step at those shapes: their rows, with these runs'
+    # launches (phase 42's dense prefill has its own flash row, above)
+    serving, train = ("paged_decode_attention", "ragged_prefill_attention"), \
+        ("flash_attention", "flash_attention_bwd")
+    rows += path_rows(rows, "qwen2-0.5b", ("paged_decode_attention",),
+                      "disagg", "qwen2-0.5b disagg")
+    for tag, path in (("rl_mesh", "qwen2-0.5b rl mesh"),
+                      ("rl_disagg", "qwen2-0.5b rl disagg")):
+        rows += (path_rows(rows, "qwen2-0.5b", serving, tag, path)
+                 + path_rows(rows, "qwen2-0.5b train", train, tag, path))
     for row in rows:
         if row["path"] is not None:     # None: timed in phase 3 only
             name = row["name"].removesuffix("_mesh")
@@ -5492,4 +6212,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mpmd-child"]:
+        sys.exit(mpmd_child(*sys.argv[2:5]))
     sys.exit(main())

@@ -31,6 +31,16 @@ mesh is the facade's
 ``Supernode.generate`` (ROADMAP.md section 1 item 8h) and exits naming
 it.
 
+``--disaggregate`` serves on at least two ranks with prefill and decode on
+separate role groups (HyperMPMD): the prefill group takes half the ranks,
+rounded up, and the decode group the rest, as the reference's
+``serve_disagg`` preset balances them; the prefill ranks run the dense
+prefill of every prompt and hand its KV pages to the decode ranks' pool.
+One rank exits naming the rule::
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch qwen2-0.5b --reduced --continuous --device cpu --disaggregate
+
 ``--arch`` takes every ported config (``configs.list_archs()``): the dense
 qwen2-0.5b and llama3-8b, the MoE deepseek-v2-lite-16b (with MLA),
 deepseek-moe-16b and moonshot-v1-16b-a3b, the attention-free
@@ -39,13 +49,13 @@ recurrentgemma-2b (RG-LRU seat state beside sliding-window attention
 pages, freed once out of the window).  The flags are the reference
 launcher's (``repro.launch.serve``) plus
 ``--device``.  Weights are random, drawn from a seeded ``torch.Generator``
-on the serving device.  ``--disaggregate`` and ``--explain`` need parts
-of the reference the port does not have yet (ROADMAP.md) and exit with a
-message naming them.
+on the serving device.  ``--explain`` needs the facade the port does not
+have yet (ROADMAP.md) and exits with a message naming it.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -53,7 +63,7 @@ import torch
 
 from repro_torch.api.errors import PlanError
 from repro_torch.configs.base import ServeConfig, get_config
-from repro_torch.launch.mesh import join_mesh
+from repro_torch.launch.mesh import join_mesh, join_world, role_groups
 from repro_torch.models import model as M
 from repro_torch.serve.api import HyperServe
 from repro_torch.serve.engine import GenerateConfig, Generator
@@ -105,6 +115,11 @@ def run_continuous(serve, cfg, args, log=print):
     mesh = serve.engine.mesh
     where = str(serve.engine.device) + (
         "" if mesh is None else f", mesh {tuple(mesh.shape)}")
+    pg = getattr(serve.engine, "prefill_group", None)
+    if pg is not None:
+        dg = serve.engine.decode_group
+        where += (f", prefill ranks {list(pg.ranks)}, decode ranks "
+                  f"{list(dg.ranks)}")
     log(f"served {len(rids)} requests, {n_new} tokens in {dt:.2f}s "
         f"({n_new / dt:.1f} tok/s on {where})")
     log(f"peak-free blocks={st['free_blocks']} "
@@ -138,7 +153,8 @@ def main(argv=None):
                          "(auto), or composed (gather the tables, then the "
                          "dense kernels)")
     ap.add_argument("--disaggregate", action="store_true",
-                    help="prefill/decode role split (not ported yet)")
+                    help="prefill/decode role split over the ranks "
+                         "(torchrun, >= 2 ranks; implies --continuous)")
     ap.add_argument("--explain", action="store_true",
                     help="plan resolution report (not ported yet)")
     ap.add_argument("--trace", metavar="PATH", default=None,
@@ -154,9 +170,15 @@ def main(argv=None):
                          "mesh over torchrun's ranks (--continuous only)")
     args = ap.parse_args(argv)
 
-    not_ported = [(args.disaggregate, "--disaggregate needs mpmd role "
-                   "groups (ROADMAP.md section 1 item 8e)"),
-                  (args.explain, "--explain needs the HyperPlan facade "
+    if args.disaggregate:
+        args.continuous = True
+        if args.mesh == "auto":
+            raise SystemExit("--disaggregate carves the ranks into role "
+                             "groups itself: drop --mesh auto")
+        if int(os.environ.get("WORLD_SIZE", "1")) < 2:
+            raise SystemExit("--disaggregate needs >= 2 devices: one rank "
+                             "a device (torchrun --nproc-per-node N, N >= 2)")
+    not_ported = [(args.explain, "--explain needs the HyperPlan facade "
                    "(ROADMAP.md section 1 item 8h)"),
                   (args.mesh == "auto" and not args.continuous,
                    "--mesh auto without --continuous: the fixed batch on a "
@@ -165,24 +187,33 @@ def main(argv=None):
     for flag, why in not_ported:
         if flag:
             raise SystemExit(f"not ported yet: {why}")
-    mesh, device = (join_mesh(args.device) if args.mesh == "auto"
-                    else (None, args.device))
+    groups = None
+    if args.disaggregate:
+        mesh, device = None, join_world(args.device)
+        groups = role_groups((("prefill", 0), ("decode", 0)))
+    else:
+        mesh, device = (join_mesh(args.device) if args.mesh == "auto"
+                        else (None, args.device))
     try:
-        _serve(args, mesh, device)
+        _serve(args, mesh, device, groups)
     finally:
-        if mesh is not None:
-            import torch.distributed as dist
+        import torch.distributed as dist
+        if dist.is_initialized():
             dist.destroy_process_group()
 
 
-def _serve(args, mesh, device):
-    """The launcher's run on ``device`` (on every rank of ``mesh``)."""
+def _serve(args, mesh, device, groups=None):
+    """The launcher's run on ``device`` (on every rank of ``mesh``, or of
+    the prefill and decode ``groups``)."""
     try:
         device = resolve_device(device)
     except RuntimeError as e:
         raise SystemExit(str(e))
-    rank0 = mesh is None or mesh.get_rank() == 0
-    log = print if rank0 else (lambda *a, **k: None)
+    from repro_torch.core.mpmd import my_rank
+    log = print if my_rank() == 0 else (lambda *a, **k: None)
+    disagg = ({} if groups is None else
+              dict(prefill_group=groups["prefill"],
+                   decode_group=groups["decode"]))
 
     try:
         cfg = get_config(args.arch)
@@ -195,7 +226,7 @@ def _serve(args, mesh, device):
             cfg, torch.Generator(device=device).manual_seed(0))
         if args.continuous:
             runner = HyperServe(cfg, params, serve_cfg=serve_config(args),
-                                device=device, mesh=mesh)
+                                device=device, mesh=mesh, **disagg)
             obs = runner.obs()
         else:
             runner = Generator(

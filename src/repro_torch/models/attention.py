@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.core.meshctx import (constrain, current_mesh, is_dtensor,
                                       local_index, local_placed,
-                                      mesh_axis_size)
+                                      mesh_axis_size, split_heads)
 from repro_torch.kernels import ops, sharded_on
 from repro_torch.models.common import apply_rope, dense_init, dtype_of
 
@@ -60,9 +60,9 @@ def _qkv(p, x, cfg, positions):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
+    # on a mesh whose model axis does not divide the heads (2 KV heads
+    # over 4 ranks) the column shard is gathered before the heads split
+    q, k, v = split_heads(q, H), split_heads(k, KV), split_heads(v, KV)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v

@@ -161,8 +161,30 @@ class ModelStateLayout:
 
     @property
     def pure_paged(self) -> bool:
-        """Only full (unwindowed) paged state: CoW prefix forks are sound."""
+        """Only full (unwindowed) paged state: CoW prefix forks and the
+        dense-prefill disagg handoff are sound.  A WINDOWED mixer
+        disqualifies even when mixed with full attention (its dense
+        prefill cache is a ring of ``window`` positions, not the
+        absolute-position pages the handoff seats)."""
         return not self.has_slot_state and not self.has_windowed_state
+
+
+def check_disagg_supported(cfg, layout: "ModelStateLayout") -> None:
+    """Disaggregated prefill hands the dense prefill cache over as pages —
+    sound only for pure (unwindowed) paged layouts.  The reference's rule
+    and message, enforced by the serving engine's constructor."""
+    if layout.pure_paged:
+        return
+    from repro_torch.api.errors import ServePlanError
+    offending = sorted({(sp.kind, sp.state) for seg in layout.segments
+                        for sp in seg.specs if sp.state != PAGED})
+    raise ServePlanError(
+        "prefill/decode disaggregation needs pure paged decode state "
+        "(rule: the dense prefill cache is handed over as pages); "
+        f"{cfg.name} has "
+        + ", ".join(f"mixer {k!r} with state rule {s!r}"
+                    for k, s in offending)
+        + " — serve it aggregated (chunked prefill on one mesh).")
 
 
 def model_state_layout(cfg) -> ModelStateLayout:

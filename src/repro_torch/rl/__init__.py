@@ -1,16 +1,18 @@
-"""repro_torch.rl — HyperRL on one device: colocated RL post-training.
+"""repro_torch.rl — HyperRL: RL post-training, colocated or as roles.
 
 The port of ``repro.rl`` (paper §3.3c): a continuous-batching rollout
-actor, a version-counted weight-publication path and a GRPO learner,
-colocated on one device::
+actor, a version-counted weight-publication path and a GRPO learner, on
+one device, colocated on a mesh (the learner under fsdp_tp, the actor on
+the same ranks' serving view), or as HyperMPMD roles on disjoint ranks::
 
     from repro_torch.rl import RLSession
     rl = RLSession(cfg, rl_cfg=RLConfig(...), params=params)
+    # or RLSession(..., mesh=mesh) / RLSession(..., roles={"actor": 2,
+    # "learner": 2}) on every rank of a torch.distributed world
     new_params, history = rl.run(prompts_fn, reward_fn)
 
-The reference resolves the session through its ``Supernode`` facade and
-can split actor and learner over device groups; they come with ROADMAP.md
-section 1 items 8h and 8e.
+The reference resolves the session through its ``Supernode`` facade
+(ROADMAP.md section 1 item 8h); the port takes its legs directly.
 """
 from repro_torch.configs.base import RLConfig
 from repro_torch.rl.buffer import Rollout, RolloutBuffer, group_advantages

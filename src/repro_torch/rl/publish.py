@@ -1,14 +1,21 @@
 """Weight publication: the learner's params -> the serving engine.
 
-The port of ``repro.rl.publish`` on one device.  :class:`WeightPublisher`
-hands the engine new weights under the reference's rules:
+The port of ``repro.rl.publish``.  :class:`WeightPublisher` hands the
+engine new weights under the reference's rules:
 
-  - **rebind** — on one device there is no layout to change: ``publish``
-    stages the learner's own tensors (moved to the engine's device, which
-    copies nothing when they are already there).  That is sound because
-    the learner never writes a param in place (its AdamW returns new
-    tensors every update), so the tensors the engine serves are never the
-    ones a later update writes;
+  - **resharding** — on one device there is no layout to change:
+    ``publish`` stages the learner's own tensors (moved to the engine's
+    device, which copies nothing when they are already there).  That is
+    sound because the learner never writes a param in place (its AdamW
+    returns new tensors every update), so the tensors the engine serves
+    are never the ones a later update writes.  Colocated on a mesh each
+    leaf goes from the learner's placements (fsdp_tp) to the engine's
+    serving placements (``fsdp=None``): a redistribute on the same mesh,
+    and through the full tensor where the actor serves on another view of
+    the same ranks (DTensor cannot redistribute between meshes).  Across
+    role groups (actor and learner on disjoint ranks) it is
+    :func:`publish_across`, i.e. :func:`repro_torch.core.mpmd.transfer`
+    into the engine's placements, then the same stage and install;
   - **version counter** — a publish only *stages* the new weights.  They
     install when no request is mid-generation (``in_flight``), so every
     in-flight decode finishes on the weights it started with; the counter
@@ -19,9 +26,10 @@ hands the engine new weights under the reference's rules:
     and forking them under new weights would splice two policies into one
     rollout.
 
-The meshes, the reference's resharding ``device_put`` and its cross-group
-transfer of a disaggregated session come with ROADMAP.md section 1 items
-8d and 8e.
+An engine with a prefill group (disaggregated serving) hands the weights
+it installs to its prefill ranks before their next prefill
+(``ServeEngine._sync_prefill_params``, the reference's
+``_staged_prefill``): the install bumps ``engine.params_epoch``.
 """
 from __future__ import annotations
 
@@ -29,7 +37,9 @@ import time
 
 import torch
 
-from repro_torch.core.tree import tree_map
+from repro_torch.core import mpmd
+from repro_torch.core.meshctx import full_tensor, is_dtensor
+from repro_torch.core.tree import tree_flatten_with_path, tree_map
 from repro_torch.serve.scheduler import RequestState
 
 
@@ -43,12 +53,37 @@ class WeightPublisher:
         self.staged_version = 0          # latest published (>= version)
         self._staged = None
         self._t_staged = 0.0
+        # the serving placements of every param leaf (None: one device)
+        self._placements = None
+        if engine.mesh is not None:
+            self._placements = {p: t.placements for p, t in
+                                tree_flatten_with_path(engine.params)}
+
+    def placement(self, path: str, _leaf=None):
+        """Leaf ``path``'s serving placements on the engine's mesh (the
+        ``placements`` of :func:`~repro_torch.core.mpmd.transfer`)."""
+        return self._placements[path]
 
     # ------------------------------------------------------------------
     def reshard(self, params):
         """Trainer layout -> serving layout: on one device, the same
-        tensors on the engine's device (no copy when already there)."""
-        return tree_map(lambda t: t.to(self.engine.device), params)
+        tensors on the engine's device (no copy when already there); on a
+        mesh each leaf placed as the engine's (a redistribute on the
+        engine's mesh, else through the full tensor: a collective, so
+        every rank publishes)."""
+        if self._placements is None:
+            return tree_map(lambda t: t.to(self.engine.device), params)
+        from repro_torch.core.hypershard import distribute
+        from repro_torch.core.tree import tree_map_with_path
+        mesh = self.engine.mesh
+
+        def place(path, t):
+            pl = self._placements[path]
+            if is_dtensor(t) and t.device_mesh == mesh:
+                return t.redistribute(mesh, pl)
+            return distribute(full_tensor(t).to(self.engine.device), mesh,
+                              pl)
+        return tree_map_with_path(place, params)
 
     @property
     def pending(self) -> bool:
@@ -105,6 +140,7 @@ class WeightPublisher:
                 r.shared_blocks = 0
                 r.prefill_done = 0
         self.engine.params = self._staged
+        self.engine.params_epoch += 1
         self._staged = None
         self.version = self.staged_version
         # stage->install gap: how long the newest policy waited for the
@@ -118,3 +154,19 @@ class WeightPublisher:
         # retained CoW prefix pages hold old-weight KV: evict them all
         self.engine._reclaim(self.engine.blocks.num_total)
         return True
+
+
+def publish_across(src: mpmd.ProcessGroup, dst: mpmd.ProcessGroup,
+                   publisher: "WeightPublisher", *, wait: bool = False):
+    """The actor's side of a disaggregated session's cross-group publish:
+    every rank of the actor group ``dst`` calls this while the learner
+    group ``src`` sends its params with
+    :func:`~repro_torch.core.mpmd.transfer`; they arrive in
+    ``publisher``'s serving placements on ``dst``, which stages and
+    installs them as :meth:`WeightPublisher.publish` does.  Returns the
+    staged version."""
+    eng = publisher.engine
+    got = mpmd.transfer(None, src, dst, publisher.placement
+                        if eng.mesh is not None else None,
+                        device=eng.device)
+    return publisher.publish(got, wait=wait)

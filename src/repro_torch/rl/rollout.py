@@ -1,7 +1,10 @@
 """RolloutEngine: GRPO prompt fan-out over HyperServe continuous batching.
 
-The port of ``repro.rl.rollout`` over the port's one-device
-:class:`~repro_torch.serve.runtime.ServeEngine`.  Each prompt fans out into
+The port of ``repro.rl.rollout`` over the port's
+:class:`~repro_torch.serve.runtime.ServeEngine`, on one device or
+tensor-parallel on a serving mesh (``mesh=``, ``plan=`` a
+``ShardingPlan`` with ``fsdp=None``; a session's actor group's mesh is one,
+as ``RLSession`` places it).  Each prompt fans out into
 ``group_size`` stochastic samples — one serving request each, with its own
 recorded seed (bit-reproducible: the draw depends on the seed and the
 position alone, ``serve/runtime.sample_rows``) and sampled-token logprob
@@ -49,11 +52,12 @@ class RolloutGroup:
 
 class RolloutEngine:
     """The actor: a ServeEngine on ``device`` (the card unless the caller
-    names another), its publisher, and the groups in flight.  The port's
+    names another), on ``mesh`` if given (every rank of it submitting the
+    same groups), its publisher, and the groups in flight.  The port's
     paged steps run an MoE FFN under the ragged dispatch only, so a MoE
     config asked to serve under another raises."""
 
-    def __init__(self, cfg, params, *, serve_cfg=None,
+    def __init__(self, cfg, params, *, serve_cfg=None, mesh=None, plan=None,
                  rl_cfg: Optional[RLConfig] = None, seed: int = 0,
                  moe_dispatch: Optional[str] = None, obs=None, device=None):
         md = resolve_moe_dispatch(cfg, moe_dispatch)
@@ -63,7 +67,8 @@ class RolloutEngine:
         self.cfg = cfg
         self.rl_cfg = rl_cfg or RLConfig()
         self.engine = ServeEngine(cfg, params, serve_cfg=serve_cfg, seed=seed,
-                                  obs=obs, device=device)
+                                  obs=obs, device=device, mesh=mesh,
+                                  plan=plan)
         self.obs = self.engine.obs
         self.publisher = WeightPublisher(self.engine)
         self.groups: Dict[int, RolloutGroup] = {}

@@ -129,6 +129,29 @@ def _seat(dcaches, pcaches):
     return tree_map(seat_leaf, dcaches, pcaches)
 
 
+def make_prefill_step(cfg, mesh=None):
+    """The dense prefill of a disaggregated engine's prefill group, the
+    counterpart of the reference's ``make_prefill_step`` as its
+    ``_dense_prefill_fn`` uses it: ``step(params, tokens (Pb, padded)) ->
+    (logits (Pb, padded, V_pad), caches)``, the caches stacked per segment
+    as ``model.forward(mode="prefill")`` gives them (one ``flash_attention``
+    launch an attention layer).  On ``mesh`` it runs under
+    :func:`~repro_torch.core.meshctx.use_mesh` on params placed by the
+    serving plan, the logits and caches DTensors.  The MoE FFN takes the
+    dropless ``ragged`` dispatch, as the ``Generator``'s prefill does, so a
+    row's output does not depend on its batch mates."""
+    from repro_torch.core.meshctx import use_mesh
+
+    @torch.no_grad()
+    def prefill(params, tokens):
+        with use_mesh(mesh):
+            logits, caches, _ = M.forward(params, tokens, cfg,
+                                          mode="prefill",
+                                          moe_dispatch="ragged")
+        return logits, caches
+    return prefill
+
+
 # ---------------------------------------------------------------------------
 # HyperServe on a mesh: the data-axis guard, the pool's shardings and the
 # logits' vocab axis (the reference's serve/engine.py helpers)

@@ -298,6 +298,37 @@ class StatePool:
         inherit the previous occupant's recurrence)."""
         self._rewrite(True, lambda a: _local(a)[:, slot].zero_())
 
+    def seat_prefill_caches(self, pcaches, bids: Sequence[int],
+                            seq_len: int, row: int = 0) -> None:
+        """Scatter a dense prefill cache (one request) into pages.
+
+        ``pcaches`` is the ``model.forward(..., mode="prefill")`` cache
+        tree with leaves (L, B, S, ...); ``row`` selects the request within
+        it.  Used by the disaggregated path, where a prefill worker
+        produces the dense cache and hands it to the decode worker's pool;
+        only sound for pure-paged layouts (the engine guards this).  On a
+        mesh each rank writes its own pool shard from the cache's local
+        shard, which must carry the pool leaf's placements (as
+        ``models.attention.write_pages`` writes its shard)."""
+        bs = self.pcfg.block_size
+        n = blocks_for(seq_len, bs)
+        assert n <= len(bids), (seq_len, len(bids))
+        idx = self._idx(list(bids)[:n])
+        pad = n * bs - seq_len
+
+        def seat(pool, pc):
+            if is_dtensor(pool) and tuple(pc.placements) != tuple(
+                    pool.placements):
+                raise ValueError(f"prefill cache placed {pc.placements}, "
+                                 f"the pool leaf {pool.placements}")
+            dst, src = _local(pool), _local(pc)[:, row, :seq_len]
+            if pad:
+                src = torch.cat([src, src.new_zeros(
+                    (src.shape[0], pad) + tuple(src.shape[2:]))], dim=1)
+            dst[:, idx] = src.reshape(src.shape[0], n, bs,
+                                      *src.shape[2:]).to(dst.dtype)
+        self._rewrite(False, seat, pcaches)
+
 
 def _local(a):
     """A pool leaf's storage on this rank: a DTensor's local shard (a view

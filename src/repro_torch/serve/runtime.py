@@ -1,8 +1,9 @@
 """HyperServe engine loop: requests in, tokens out (PyTorch port).
 
-The port of ``repro.serve.runtime.ServeEngine``, on one device or
-tensor-parallel on a ``DeviceMesh``, without disaggregation or MPMD
-groups.  It composes the paged pool
+The port of ``repro.serve.runtime.ServeEngine``, on one device,
+tensor-parallel on a ``DeviceMesh``, or disaggregated over the prefill and
+decode role groups of :mod:`repro_torch.core.mpmd`.  It composes the paged
+pool
 (:mod:`repro_torch.serve.paged_kv`), the continuous-batching scheduler
 (:mod:`repro_torch.serve.scheduler`) and the paged model steps
 (:mod:`repro_torch.models.model`) into one iteration:
@@ -42,9 +43,24 @@ gathers each rank's shard of the pages (``meshctx.local_index``) and runs
 multimodal prefix serves text-only, as the reference's HyperServe does
 (:func:`check_mesh_serving` refuses only the data axis).
 
-A finished prompt's full blocks can be retained in a copy-on-write
-**prefix cache**: an identical prompt prefix forks the cached blocks
-(refcount bump, zero copies, zero recompute) and prefills only the tail.
+Prefill/decode disaggregation (HyperMPMD §3.3): given ``prefill_group`` /
+``decode_group`` process groups (:func:`repro_torch.core.mpmd.
+serving_groups`), the decode group's ranks own the scheduler, the pool and
+the decode loop (this engine, on the decode group's mesh), and the prefill
+group's ranks run a :class:`PrefillWorker`: the decode group's first rank
+sends it each batch of scheduled prompts as one ``(Pb, padded)`` token
+block (Pb bucketed to a power of two, padded to a ``prefill_chunk``
+multiple), the worker runs the dense prefill on its own group (one
+``flash_attention`` an attention layer) and hands the last prompt
+position's logits rows and the caches back through
+:func:`~repro_torch.core.mpmd.transfer`, and the decode ranks seat the
+caches into their pool shards (``StatePool.seat_prefill_caches``): the
+decode ranks never spend a step on prefill compute.  Only pure paged
+layouts hand over (``models.mixers.check_disagg_supported``), and the
+prefix cache never forks under disaggregation.  A finished prompt's full
+blocks can otherwise be retained in a copy-on-write **prefix cache**: an
+identical prompt prefix forks the cached blocks (refcount bump, zero
+copies, zero recompute) and prefills only the tail.
 """
 from __future__ import annotations
 
@@ -58,13 +74,14 @@ import torch
 
 from repro_torch.api.errors import PlanError, ServePlanError
 from repro_torch.configs.base import ServeConfig
+from repro_torch.core import mpmd
 from repro_torch.core.hypershard import ShardingPlan
 from repro_torch.core.kvcache import HostArchive
 from repro_torch.core.meshctx import use_mesh
 from repro_torch.core.tree import tree_map
 from repro_torch.kernels import ops
 from repro_torch.mem.prefetcher import Prefetcher
-from repro_torch.models import model as M
+from repro_torch.models import mixers as MX, model as M
 from repro_torch.obs import Observability
 from repro_torch.serve.paged_kv import BlockManager, StatePool
 from repro_torch.serve.scheduler import ContinuousScheduler, Request, RequestState
@@ -128,6 +145,31 @@ def check_mesh_serving(mesh) -> None:
     check_data_axis_serving(mesh)
 
 
+def disagg_role(cfg, prefill_group, decode_group,
+                mesh=None) -> Optional[str]:
+    """This rank's role in a disaggregated engine: None without groups,
+    else ``"decode"`` or ``"prefill"``.  Raises the reference's
+    ``ValueError`` when only one group is given, a ``ValueError`` when
+    ``mesh`` is given beside the groups (each group serves on its own
+    mesh), and the reference's
+    :class:`~repro_torch.api.errors.ServePlanError` for a model whose
+    decode state is not pure paged (``check_disagg_supported``), before
+    either group is used."""
+    if (prefill_group is None) != (decode_group is None):
+        raise ValueError("disaggregation needs BOTH prefill and decode "
+                         "groups (or neither)")
+    if prefill_group is None:
+        return None
+    if mesh is not None:
+        raise ValueError("mesh= and the prefill/decode groups both given: a "
+                         "disaggregated engine serves on its groups' meshes")
+    MX.check_disagg_supported(cfg, MX.model_state_layout(cfg))
+    for g in (prefill_group, decode_group):
+        if g.mesh is not None:
+            check_mesh_serving(g.mesh)
+    return "decode" if decode_group.has() else "prefill"
+
+
 # ---------------------------------------------------------------------------
 # counter-based sampling: a row's draw is a function of (seed, position,
 # vocab index) alone, the port's counterpart of the reference's
@@ -185,11 +227,24 @@ class ServeEngine:
     """The serving loop over one model, on ``device`` (the card unless the
     caller names another) or tensor-parallel on ``mesh`` under ``plan``
     (a ``ShardingPlan`` with ``fsdp=None``, the default; every rank builds
-    the engine with the same params and runs the same requests)."""
+    the engine with the same params and runs the same requests).  With
+    ``prefill_group`` and ``decode_group`` it is the decode group's engine
+    of a disaggregated server (on the decode group's mesh; the prefill
+    group's ranks run :class:`PrefillWorker`)."""
 
     def __init__(self, cfg, params, *, serve_cfg: Optional[ServeConfig] = None,
                  seed: int = 0, obs: Optional[Observability] = None,
-                 device=None, mesh=None, plan=None):
+                 device=None, mesh=None, plan=None,
+                 prefill_group: Optional[mpmd.ProcessGroup] = None,
+                 decode_group: Optional[mpmd.ProcessGroup] = None):
+        role = disagg_role(cfg, prefill_group, decode_group, mesh)
+        if role == "prefill":
+            raise ValueError("this rank is in the prefill group: it runs "
+                             "PrefillWorker (HyperServe picks it)")
+        self.prefill_group = prefill_group
+        self.decode_group = decode_group
+        if decode_group is not None:
+            mesh = decode_group.mesh
         self.device = resolve_device(device)
         self.cfg = cfg
         self.mesh = mesh
@@ -247,6 +302,24 @@ class ServeEngine:
         # batching effectiveness: chunks serviced vs calls made
         self.prefill_calls = 0
         self.prefill_chunks = 0
+        # the prefill ranks hold the params of this install epoch
+        self.params_epoch = self._prefill_epoch = 0
+        if prefill_group is not None:
+            self.mpmd_sched = mpmd.MPMDScheduler(
+                {g.name: g for g in (prefill_group, decode_group)},
+                obs=self.obs, device=self.device)
+            if mesh is not None:
+                from repro_torch.core.tree import tree_flatten_with_path
+                self._cache_placements = {
+                    k: t.placements
+                    for k, t in tree_flatten_with_path(self.pool.state)}
+
+    @property
+    def is_decode_leader(self) -> bool:
+        """Whether this rank speaks for the decode group (it sends the
+        prefill group its work and every reply)."""
+        return (self.decode_group is None
+                or mpmd.my_rank() == self.decode_group.leader)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -332,8 +405,12 @@ class ServeEngine:
         return freed
 
     def _prefix_lookup(self, req: Request) -> List[int]:
-        # prefix forks are only sound for pure-paged layouts
-        if not self.scfg.enable_prefix_cache or not self.layout.pure_paged:
+        # disagg mode seats the whole dense prefill cache into the table,
+        # which would write through CoW-shared blocks: no sharing there.
+        # Prefix forks are only sound for pure-paged layouts.
+        if (not self.scfg.enable_prefix_cache
+                or self.prefill_group is not None
+                or not self.layout.pure_paged):
             return []
         bs = self.pcfg.block_size
         # at least one prompt token must remain to prefill (its logits seed
@@ -489,6 +566,75 @@ class ServeEngine:
                 self.scheduler.on_prompt_complete(req, first)
                 self.tokens_generated += 1
 
+    def _sync_prefill_params(self) -> None:
+        """Hand the prefill group the params installed since its last
+        prefill (a publish installs on the decode ranks at an idle
+        boundary; the prefill ranks take the same weights before they
+        next prefill, the reference's ``_staged_prefill``)."""
+        if self._prefill_epoch == self.params_epoch:
+            return
+        if self.is_decode_leader:
+            mpmd.send_to(self.prefill_group, ("params",))
+        mpmd.transfer(self.params, self.decode_group, self.prefill_group)
+        self._prefill_epoch = self.params_epoch
+
+    def _run_disagg_prefill(self, reqs: List[Request]) -> None:
+        """Whole-prompt prefill for all scheduled prompts as ONE dense
+        batch on the prefill group; each row's pages scatter into this
+        group's pool.  Rows are right-padded to a shared chunk-aligned
+        length (causal attention keeps rows independent, and the dense
+        prefill's MoE takes the dropless per-token dispatch, so batching
+        rows never changes a row's output); the batch dim is bucketed to
+        the next power of two (all-zero filler rows are computed and
+        never sent), one dense shape per (bucket, padded length)."""
+        S_max = max(r.prompt_len for r in reqs)
+        padded = S_max + (-S_max % self.scfg.prefill_chunk)
+        Pb = 1
+        while Pb < len(reqs):
+            Pb *= 2
+        toks = np.zeros((Pb, padded), np.int32)
+        for i, r in enumerate(reqs):
+            toks[i, :r.prompt_len] = r.prompt
+        lens = [r.prompt_len for r in reqs]
+        self.obs.record_compile("dense_prefill", (Pb, padded))
+        with self.obs.trace.span("serve.prefill", track="engine",
+                                 rows=len(reqs), bucket=Pb, padded=padded,
+                                 rids=[r.rid for r in reqs], disagg=True):
+            self._sync_prefill_params()
+            if self.is_decode_leader:
+                mpmd.send_to(self.prefill_group, ("prefill", toks, lens))
+            self.mpmd_sched.wait(self.mpmd_sched.submit(
+                self.prefill_group.name, None))
+            # the logits rows and the KV pages, from the prefill group's
+            # layout into this group's pool layout
+            with self.obs.trace.span("serve.kv_transfer", track="engine",
+                                     rows=len(reqs)):
+                got = mpmd.transfer(None, self.prefill_group,
+                                    self.decode_group, self._placement,
+                                    device=self.device)
+        from repro_torch.core.meshctx import full_tensor
+        logits, pcaches = full_tensor(got["logits"]), got["caches"]
+        self.prefill_calls += 1
+        self.prefill_chunks += len(reqs)
+        self.obs.metrics.counter("serve.prefill_calls").inc()
+        self.obs.metrics.counter("serve.prefill_chunks").inc(len(reqs))
+        for i, req in enumerate(reqs):
+            S = req.prompt_len
+            self.pool.seat_prefill_caches(pcaches, req.table, S, row=i)
+            self.scheduler.on_prefill_chunk(req, S - req.prefill_done)
+            first = self._sample(logits[i], req)
+            self.scheduler.on_prompt_complete(req, first)
+            self.tokens_generated += 1
+
+    def _placement(self, path: str, t):
+        """A handed-over leaf's placements on the decode mesh: a cache
+        leaf's are its pool leaf's (same dims past the batch), the logits
+        rows replicate."""
+        from torch.distributed.tensor import Replicate
+        return self._cache_placements.get(
+            path.removeprefix("caches/"),
+            [Replicate()] * self.mesh.ndim)
+
     # ------------------------------------------------------------------
     # the engine iteration
     # ------------------------------------------------------------------
@@ -505,9 +651,18 @@ class ServeEngine:
                 self.pool.zero_slot(req.slot)
         events: List[Tuple[int, int]] = []
         if plan.prefill:
+            # all scheduled chunks run in one batched call per group of
+            # prefill_batch rows.  (The reference keeps one request a call
+            # under a forced GShard MoE dispatch, whose rows depend on
+            # their batch mates; the port's serving takes only the
+            # dropless ragged dispatch, so the groups stand.)
             gsz = self.scfg.prefill_batch
             for i in range(0, len(plan.prefill), gsz):
-                self._run_prefill_batch(plan.prefill[i:i + gsz])
+                group = plan.prefill[i:i + gsz]
+                if self.prefill_group is not None:
+                    self._run_disagg_prefill(group)
+                else:
+                    self._run_prefill_batch(group)
             for req in plan.prefill:
                 if req.generated:
                     events.append((req.rid, req.generated[-1]))
@@ -644,3 +799,99 @@ class ServeEngine:
             "recompiles": self.obs.recompiles(),
         })
         return s
+
+
+class PrefillWorker:
+    """The prefill group's side of a disaggregated server: the params on
+    the group's mesh (or its one device) and the dense prefill step, run
+    as the decode group's first rank asks (the decode ranks keep the
+    engine's counters and spans).
+
+    :meth:`follow` serves that rank's messages until it replies: a
+    ``("prefill", tokens, lengths)`` block runs the dense prefill (an MPMD
+    task of this group) and hands each row's last prompt position's
+    logits and the caches of the real rows to the decode group
+    (:func:`~repro_torch.core.mpmd.transfer`); ``("params",)`` takes the
+    weights the decode group installed; ``("reply", value)`` ends the
+    call, returning the value the decode ranks' call returned, so that a
+    call returns the same on every rank."""
+
+    def __init__(self, cfg, params, *, serve_cfg: Optional[ServeConfig] = None,
+                 plan=None, obs: Optional[Observability] = None, device=None,
+                 prefill_group: mpmd.ProcessGroup,
+                 decode_group: mpmd.ProcessGroup):
+        if disagg_role(cfg, prefill_group, decode_group) != "prefill":
+            raise ValueError("PrefillWorker runs on the prefill group's "
+                             "ranks only")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.plan = _resolve_serve_plan(plan)
+        self.obs = obs if obs is not None else Observability()
+        self.scfg = (serve_cfg or ServeConfig()).validate()
+        self.prefill_group = prefill_group
+        self.decode_group = decode_group
+        self.mesh = prefill_group.mesh
+        self.params = self._place(tree_map(lambda t: t.to(self.device),
+                                           params))
+        self.mpmd_sched = mpmd.MPMDScheduler(
+            {g.name: g for g in (prefill_group, decode_group)},
+            obs=self.obs, device=self.device)
+        from repro_torch.serve.engine import make_prefill_step
+        self.prefill_step = make_prefill_step(cfg, self.mesh)
+
+    def _place(self, params):
+        if self.mesh is None:
+            return params
+        from repro_torch.models.bridge import shard_params
+        return shard_params(params, self.mesh, self.plan)
+
+    def follow(self):
+        """Serve the decode leader's messages until its reply; returns the
+        reply's value (re-raises what the decode ranks raised)."""
+        while True:
+            msg = mpmd.recv_obj(self.decode_group.leader)
+            kind = msg[0]
+            if kind == "prefill":
+                self._prefill(*msg[1:])
+            elif kind == "params":
+                self._take_params()
+            elif kind == "reply":
+                return msg[1]
+            elif kind == "raise":
+                raise msg[1]
+            else:
+                raise RuntimeError(f"unknown message {kind!r} from the "
+                                   "decode group")
+
+    def _take_params(self) -> None:
+        from repro_torch.core.hypershard import make_param_shardings
+        sh = (make_param_shardings(self.mesh, self.params, self.plan)
+              if self.mesh is not None else None)
+        placements = None
+        if sh is not None:
+            from repro_torch.core.tree import tree_flatten_with_path
+            by_path = {p: s.placements
+                       for p, s in tree_flatten_with_path(sh)}
+            placements = (lambda p, t: by_path[p])
+        self.params = mpmd.transfer(None, self.decode_group,
+                                    self.prefill_group, placements,
+                                    device=self.device)
+
+    @torch.no_grad()
+    def _prefill(self, toks: np.ndarray, lens: List[int]) -> None:
+        Pb, padded = toks.shape
+        n = len(lens)
+        self.obs.record_compile("dense_prefill", (Pb, padded))
+        task = self.mpmd_sched.submit(
+            self.prefill_group.name, self.prefill_step,
+            self.params, torch.from_numpy(toks).to(self.device))
+        logits, caches = self.mpmd_sched.wait(task)[0]
+        if self.mesh is not None:
+            from repro_torch.serve.engine import full_logits
+            logits = full_logits(self.cfg, self.mesh, logits)
+        last = torch.tensor(lens, device=logits.device) - 1
+        rows = logits[torch.arange(n, device=logits.device), last]
+        # the real rows only: the filler rows were computed, not sent
+        mpmd.transfer({"logits": rows,
+                       "caches": tree_map(lambda c: c[:, :n], caches)},
+                      self.prefill_group, self.decode_group)

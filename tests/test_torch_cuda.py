@@ -36,7 +36,10 @@ unaligned pool; never a plain version on a CUDA tensor), and the
 Generator and HyperServe on the card
 token-identical to the CPU, for qwen2-0.5b, deepseek-v2-lite (MLA + MoE),
 mamba2-370m and recurrentgemma-2b (RG-LRU + LOCAL_ATTN), and one train step on
-a one-rank NCCL mesh (HyperShard) against the unsharded step; on that mesh
+a one-rank NCCL mesh (HyperShard) against the unsharded step; HyperMPMD's
+hand-off of a tree of CUDA tensors (KV pages, params) from a second
+process on the card through gloo and pinned host memory, both ways, bit
+for bit; on that mesh
 too, the paged decode, ragged prefill, dense decode and both scans (with
 their backwards, under grad and called directly) handed DTensors against
 their plain versions, HyperServe against no mesh for the dense, SSD and
@@ -2038,3 +2041,88 @@ def test_composed_serving_on_a_one_rank_nccl_mesh_matches_fused(
         assert runs[1][0] == runs[0][0], arch
         assert runs[1][1][1] == 0, arch
         assert (runs[1][1][0] > 0) == (arch != "deepseek-v2-lite-16b"), arch
+
+
+# ---------------------------------------------------------------------------
+# HyperMPMD's hand-offs between two processes on the one card: gloo (NCCL
+# refuses two ranks on one card), the bytes through pinned host buffers
+# ---------------------------------------------------------------------------
+HAND_OFF_PEER = """
+import sys, datetime
+sys.path.insert(0, sys.argv[2])
+import torch, torch.distributed as dist
+from repro_torch.core import mpmd
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"file://{sys.argv[1]}/store",
+                        rank=1, world_size=2,
+                        timeout=datetime.timedelta(seconds=120))
+from tests_hand_off import tree
+src, dst = mpmd.ProcessGroup("src", (1,)), mpmd.ProcessGroup("dst", (0,))
+mpmd.transfer(tree(sys.argv[3], torch.device("cuda")), src, dst)
+back = mpmd.transfer(None, dst, src, device="cuda")
+assert all(torch.equal(a, b) for a, b in zip(
+    mpmd.tree_leaves(back), mpmd.tree_leaves(tree(sys.argv[3], "cuda"))))
+dist.destroy_process_group()
+"""
+
+
+def hand_off_tree(kind, device):
+    """A seeded tree as phase 42 hands over (KV pages: bf16 caches of two
+    layer segments, odd row counts, and f32 logits rows) or as phase 44
+    publishes (params: bf16 matrices, an f32 norm, an odd-length bf16
+    vector that leaves the next leaf's bytes unaligned without padding)."""
+    g = torch.Generator(device=device).manual_seed(3)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=device).to(dtype)
+    if kind == "pages":
+        return {"logits": rnd(3, 1024, dtype=torch.float32),
+                "caches": {f"seg{i}": ({"k": rnd(2, 3, 37, 2, 64),
+                                        "v": rnd(2, 3, 37, 2, 64)},)
+                           for i in range(2)}}
+    return {"embed": rnd(1000, 96), "seg0": ({"attn": {
+        "bq": rnd(7), "wq": rnd(96, 128, dtype=torch.float32)},
+        "norm": rnd(96, dtype=torch.float32)},)}
+
+
+@pytest.mark.parametrize("kind", ["pages", "params"])
+def test_hand_off_between_two_processes_is_exact(cuda, tmp_path, kind):
+    """A peer process on the same card hands a tree of CUDA tensors to
+    this one through ``mpmd.transfer`` (gloo, staged through pinned host
+    memory) and takes it back: both copies equal the seeded tree, bit for
+    bit, dtypes and shapes kept."""
+    import os
+    import subprocess
+    import sys
+
+    import torch.distributed as dist
+
+    from repro_torch.core import mpmd
+    src_dir = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    (tmp_path / "tests_hand_off.py").write_text(
+        "import torch\n" + __import__("inspect").getsource(hand_off_tree)
+        .replace("def hand_off_tree", "def tree"))
+    peer = subprocess.Popen(
+        [sys.executable, "-c", HAND_OFF_PEER, str(tmp_path), src_dir, kind],
+        env=dict(os.environ, PYTHONPATH=f"{tmp_path}:{src_dir}"))
+    try:
+        import datetime
+        dist.init_process_group(
+            "gloo", init_method=f"file://{tmp_path}/store", rank=0,
+            world_size=2, timeout=datetime.timedelta(seconds=120))
+        try:
+            src, dst = mpmd.ProcessGroup("src", (1,)), \
+                mpmd.ProcessGroup("dst", (0,))
+            got = mpmd.transfer(None, src, dst, device=cuda)
+            want = hand_off_tree(kind, cuda)
+            for a, b in zip(mpmd.tree_leaves(got), mpmd.tree_leaves(want)):
+                assert a.device.type == "cuda" and a.dtype == b.dtype
+                assert torch.equal(a, b)
+            mpmd.transfer(got, dst, src)
+        finally:
+            dist.destroy_process_group()
+        assert peer.wait(timeout=120) == 0
+    finally:
+        if peer.poll() is None:
+            peer.kill()

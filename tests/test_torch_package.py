@@ -1,7 +1,8 @@
 """Package-level contract of the port.
 
 - ``repro_torch`` and every submodule, HyperRL's ``repro_torch.rl`` and
-  its launcher among them, import without JAX and without anything of the
+  its launcher and HyperMPMD's ``repro_torch.core.mpmd`` among them,
+  import without JAX and without anything of the
   reference package ``repro`` (checked in a fresh interpreter, where
   nothing else could have imported them);
 - the serving entry points (``HyperServe``, ``ServeEngine``,
@@ -9,7 +10,9 @@
   ``device="cpu"``: with no CUDA device and no device named they raise,
   they never fall back to the CPU;
 - ``chip_smoke.py`` exits non-zero and prints no result without a card,
-  and in a directory that holds nothing else of the repository.
+  and in a directory that holds nothing else of the repository; a phase
+  whose child process (HyperMPMD's other role) exits non-zero fails, and
+  a phase that fails kills its child.
 """
 import os
 import shutil
@@ -36,6 +39,7 @@ bad = sorted(m for m in sys.modules
              or m == "repro" or m.startswith("repro."))
 assert not bad, bad
 assert "repro_torch.serve.runtime" in names, names
+assert "repro_torch.core.mpmd" in names, names
 assert {"repro_torch.rl", "repro_torch.rl.buffer", "repro_torch.rl.learner",
         "repro_torch.rl.publish", "repro_torch.rl.rollout",
         "repro_torch.rl.session", "repro_torch.launch.rl"} <= set(names), names
@@ -80,7 +84,8 @@ def test_launcher_serves_on_an_explicit_cpu(capsys):
     assert "served 2 requests" in out
     assert "serve_kernels_decode_composed" in out
     assert "serve_kernels_decode_fused" not in out
-    with pytest.raises(SystemExit, match="--disaggregate needs mpmd"):
+    with pytest.raises(SystemExit, match="--disaggregate needs >= 2 "
+                       "devices"):
         launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--continuous",
                        "--disaggregate", "--device", "cpu"])
 
@@ -179,6 +184,55 @@ def test_chip_smoke_fails_without_a_card_or_the_repository(tmp_path):
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
     assert "No module named 'repro_torch'" in out.stderr
+
+
+# chip_smoke.py's phases 42 and 44 with a child that joins the two-rank
+# world and then dies (exit 3), or hangs: the phase fails on the child's
+# exit code, and a phase that fails kills the child, each within seconds
+MPMD_CHILD_CODE = """
+import subprocess, sys, time
+import chip_smoke as C
+C.DEVICE = "cpu"
+C.MPMD_TIMEOUT_S = 60
+popen = subprocess.Popen
+JOIN = ("import sys, time, torch.distributed as d; d.init_process_group("
+        "'gloo', init_method=f'file://{sys.argv[1]}/store', "
+        "rank=int(sys.argv[2]), world_size=2); ")
+def child(then):
+    def start(argv, *a, **k):
+        return popen([sys.executable, "-c", JOIN + then, argv[4], argv[5]],
+                     *a, **k)
+    return start
+C.subprocess.Popen = child("sys.exit(3)")
+t0 = time.time()
+try:
+    with C.mpmd_pair("learner", 0) as report:
+        report()
+except AssertionError as e:
+    print("DIED", e, round(time.time() - t0))
+kids = []
+def hang(argv, *a, **k):
+    kids.append(child("time.sleep(600)")(argv, *a, **k))
+    return kids[-1]
+C.subprocess.Popen = hang
+t0 = time.time()
+try:
+    with C.mpmd_pair("prefill", 1):
+        raise ValueError("the phase failed")
+except ValueError:
+    print("KILLED", kids[0].poll() is not None, round(time.time() - t0))
+"""
+
+
+def test_chip_smoke_fails_a_phase_whose_child_fails():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", MPMD_CHILD_CODE], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    lines = {ln.split()[0]: ln.split() for ln in out.stdout.splitlines()}
+    assert "learner child exited with 3" in out.stdout, out.stderr[-2000:]
+    assert int(lines["DIED"][-1]) < 30
+    assert lines["KILLED"][1] == "True" and int(lines["KILLED"][2]) < 30
 
 
 def test_kernel_ab_needs_two_checkouts_and_a_card():

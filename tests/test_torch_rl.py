@@ -419,14 +419,26 @@ def test_counter_draw_follows_the_softmax():
 # refusals and the launcher
 # ---------------------------------------------------------------------------
 def test_roles_plans_and_meshes_are_refused():
+    """What one process still refuses: roles that need more ranks than
+    its world has (``TopologyError``, the reference's rule), roles other
+    than exactly actor and learner, a plan (the facade's, item 8h), a
+    mesh that is not a ``DeviceMesh``, and RL legs GRPO cannot learn
+    from.  Roles and meshes themselves run in
+    ``tests/test_torch_mesh_mpmd.py``."""
+    from repro_torch.api.errors import TopologyError
     cfg, tp = _qwen()
-    for kw in (dict(roles=(("actor", 1), ("learner", 1))),
-               dict(plan=object()), dict(mesh=object())):
-        with pytest.raises(PlanError, match="item 8"):
-            RLSession(cfg, params=tp, device="cpu", **kw)
-    with pytest.raises(PlanError, match="item 8"):
-        GRPOLearner(cfg, params=tp, device="cpu", mesh=object())
-    with pytest.raises(PlanError, match="item 8"):
+    with pytest.raises(TopologyError, match="need more devices"):
+        RLSession(cfg, params=tp, device="cpu",
+                  roles=(("actor", 1), ("learner", 1)))
+    with pytest.raises(PlanError, match="exactly"):
+        RLSession(cfg, params=tp, device="cpu",
+                  roles={"actor": 1, "critic": 1})
+    with pytest.raises(PlanError, match="item 8h"):
+        RLSession(cfg, params=tp, device="cpu", plan=object())
+    for ctor in (RLSession, GRPOLearner):
+        with pytest.raises(PlanError, match="DeviceMesh"):
+            ctor(cfg, params=tp, device="cpu", mesh=object())
+    with pytest.raises(PlanError, match="item 8h"):
         make_rl_step(cfg, None, rl_cfg=RLConfig(), plan=object())
     for bad in (dict(group_size=1), dict(temperature=0.0),
                 dict(max_new_tokens=0)):
@@ -443,9 +455,11 @@ def test_launcher_runs_on_an_explicit_cpu(capsys, monkeypatch):
     assert out[0].startswith("iter 0: loss=") and out[0].endswith(" v1")
     assert out[1].startswith("iter 1: loss=") and out[1].endswith(" v2")
     assert out[-1] == "done: 16 rollout tokens, 2 updates, weights v2"
-    for flags in (["--plan", "rl_disagg"], ["--explain"]):
-        with pytest.raises(SystemExit, match="item 8"):
-            launcher.main(["--arch", "qwen2-0.5b", "--reduced", *flags])
+    with pytest.raises(SystemExit, match="item 8h"):
+        launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--explain"])
+    with pytest.raises(SystemExit, match=">= 2 ranks"):
+        launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--plan",
+                       "rl_disagg"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--iters", "1"])
