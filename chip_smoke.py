@@ -267,8 +267,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                  torch.profiler over a prefill call and 8 decode steps.
                  Then f32 at full width, 32 new tokens, tokens identical
                  with and without the mesh and the mesh's launches exact:
-                 qwen2-0.5b all 24 layers (phase 10's prompts, and phase
-                 11's preemption on the mesh against its ample pool),
+                 qwen2-0.5b at MESH_QWEN_ID_LAYERS (phase 10's prompts,
+                 and phase 11's preemption on the mesh against its ample
+                 pool),
                  mamba2-370m at SSM_ID_LAYERS (one ``ssd_scan`` a layer and
                  prefill call, none a decode step), recurrentgemma-2b at
                  RG_ID_LAYERS (a paged decode a LOCAL_ATTN layer and no
@@ -321,7 +322,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                  and 24 flash a prefill call, no fused kernel), decode
                  tok/s, TTFT and the decode-step wall beside phase 4's;
                  f32 tokens of the composed engine on the mesh identical
-                 to the fused one without it for qwen2, recurrentgemma
+                 to the fused one without it for qwen2 at
+                 MESH_QWEN_ID_LAYERS, recurrentgemma
                  at RG_ID_LAYERS (prompts past its window) and
                  deepseek-v2-lite at 4 layers (MLA composed), and
                  musicgen-large served
@@ -394,7 +396,34 @@ Phases, in order; any failure raises and the script exits non-zero:
                  mpmd.tasks.actor and .learner exact on both, the publish
                  wall and GB/s, rollout tok/s, the learner step wall and
                  utilization_report() for both roles;
-  45. result   — the nvidia-smi line, the kernel JSON line (twelve sources;
+  45. pipeline — the 1F1B pipeline trainer colocated
+                 (repro_torch.train.pipeline_trainer.train_pipeline):
+                 qwen2-0.5b bf16 at full width, 2 stages of 12 layers, 4
+                 micro-batches of 1 x 4096 (phase 23's batches from the
+                 same seed), 8 steps: exactly 192 flash_attention and 96
+                 flash_attention_bwd launches, 4 bubble slots and 8
+                 hand-offs a step; step 1's loss and grad norm within
+                 2^-8 / 4 relative of phase 23's, every step within
+                 that or, only where a step is not, within twice phase
+                 23's distance from a second non-pipelined run of the
+                 same steps, made then; step wall,
+                 tok/s and peak beside phase 23's, a profile of one
+                 step; f32 at phase 25's
+                 shapes (2 micro-batches of 1 x 1024, 4 steps, 8 of the
+                 24 layers): the pipeline against ``trainer.train`` (phase
+                 25's limits), and the sequential dispatch equal to 1F1B
+                 bit for bit;
+  46. pipeline mpmd — stage 1 in a child process on the same card
+                 (``--mpmd-child pipeline``, gloo, the hand-offs through
+                 pinned host memory), stage 0 here: f32 at phase 45's
+                 identity config, the losses, grad norms and every merged
+                 param bit for bit phase 45's colocated run; bf16 at
+                 phase 45's config, 4 steps: exactly 96 + 48 flash
+                 launches a step in each process, the same history on
+                 both, the step wall beside phase 45's; the activation
+                 (and cotangent) hand-off's and the tied ``embed`` sync's
+                 ms and GB/s;
+  47. result   — the nvidia-smi line, the kernel JSON line (twelve sources;
                  flash has a row for each run it is on: phase 6's (64, 64),
                  phase 12's (192, 128), phase 21's (256, 256), phase 23's
                  train shape with lse, phase 26's at (192, 128) and phase
@@ -414,7 +443,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                  padded), checked and timed there, and phases 42-44's
                  repeats of phase 4's serving rows and phase 23's train
                  rows, named ``_disagg``, ``_rl_mesh`` and
-                 ``_rl_disagg``; each with that run's launches), and
+                 ``_rl_disagg``; flash and its backward at phase 45's
+                 micro-batch (1 x 4096, (14, 2, 64), lse), checked in
+                 phase 3, with phase 45's launches, and again as
+                 ``_pipeline_mpmd`` with both of phase 46's processes';
+                 each with that run's launches), and
                  ``{"ok": true,
                  "device": {...}}`` as the last line.
 
@@ -559,6 +592,18 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 4096, 8
 # 24 layers); the params' bound follows from AdamW (phase_train_identity)
 TRAIN_ID_B, TRAIN_ID_S, TRAIN_ID_STEPS = 2, 1024, 4
 TRAIN_ID_REL = 1e-4
+# the 1F1B pipeline (phases 45-46): phase 23's PIPE_B x TRAIN_S batch in
+# PIPE_MICRO micro-batches over PIPE_STAGES stages of 12 layers; its bf16
+# run held to phase 23's within PIPE_REL (the dQ atomics, as phase 38a);
+# its f32 identity at phase 25's shapes in PIPE_ID_MICRO micro-batches;
+# phase 46 PIPE_MPMD_STEPS bf16 steps, each hand-off timed
+# HANDOFF_REPEATS times.  The f32 identity (and phase 46's f32 run) at
+# PIPE_ID_LAYERS of qwen2's 24 layers, 4 a stage: cut for time
+PIPE_STAGES, PIPE_MICRO, PIPE_B = 2, 4, TRAIN_B
+PIPE_REL = 2 ** -8 / 4
+PIPE_ID_MICRO, PIPE_ID_LAYERS = 2, 8
+PIPE_MPMD_STEPS = 4
+HANDOFF_REPEATS = 5
 # the flash backward also at the wider heads of phi4-mini, llama3-8b and
 # granite, (H, KV, D) = (24, 8, 128), BWD_WIDE_B x BWD_WIDE_S, with and
 # without a window
@@ -1663,7 +1708,8 @@ def bwd_kernel_names(fa, dtype, dk, dv):
 
 # phase 3's flash cases at the shapes of the bf16 train runs (phases 23,
 # 26 and 29): each also holds the forward with its lse and is timed
-TRAIN_RUNS = ("train", "mla train", "musicgen train", "recurrentgemma train")
+TRAIN_RUNS = ("train", "mla train", "musicgen train", "recurrentgemma train",
+              "pipeline micro")
 
 
 def rg_attention():
@@ -1710,7 +1756,9 @@ def train_kernel_checks(torch, dtype_name, timed):
              BWD_MLA_REDUCED_S, None),
             ("musicgen train", mg_heads, MG_B, mg_positions, None),
             ("recurrentgemma train", rg_attention(), RG_TRAIN_B, RG_TRAIN_S,
-             RG_WINDOW)):
+             RG_WINDOW),
+            ("pipeline micro", (H, KV, D, D), PIPE_B // PIPE_MICRO, TRAIN_S,
+             None)):
         args = bwd_inputs(torch, dtype, heads, kv, dk, dv, batch, seq,
                           window, SEED + 50)
         kw = dict(causal=True, window=window)
@@ -2085,6 +2133,9 @@ def train_table(torch, pm, timed):
     rh, rkv, rd, _ = rg_attention()
     rg_path = f"{RG_ARCH} train"
     nargs = timed[("flash_attention_bwd", "mla reduced")][2]
+    pq, pk, pv = timed[("flash_attention", "pipeline micro lse")][2]
+    pargs = timed[("flash_attention_bwd", "pipeline micro")][2]
+    pb = PIPE_B // PIPE_MICRO
     nh, nkv, ndk, ndv = BWD_MLA_REDUCED
     shape = dict(num_heads=H, kv_heads=KV, itemsize=2)
     wh, wkv, wd = BWD_WIDE
@@ -2161,6 +2212,20 @@ def train_table(torch, pm, timed):
          "SDPA backward (autograd.grad through SDPA with the causal "
          "window's mask, enable_gqa, less its forward; transposes and mask "
          "excluded)", "src/repro/kernels/flash_attention.py:87", rg_path),
+        # phase 45's micro-batch: one row of qwen2's train shape
+        ("flash_attention", "pipeline micro lse",
+         pm.prefill_visible_cost([0] * pb, [TRAIN_S] * pb, TRAIN_S,
+                                 head_dim=D, **shape),
+         sdpa_flash(torch, pq, pk, pv),
+         "SDPA causal, enable_gqa (transposes excluded)",
+         "src/repro/kernels/flash_attention.py:87", "qwen2-0.5b pipeline"),
+        ("flash_attention_bwd", "pipeline micro",
+         pm.flash_attention_bwd_cost(batch=pb, seq_q=TRAIN_S, seq_k=TRAIN_S,
+                                     dk=D, dv=D, **shape),
+         sdpa_flash_bwd(torch, *pargs),
+         "SDPA backward (autograd.grad through SDPA causal, enable_gqa, less "
+         "its forward; transposes excluded)",
+         "src/repro/kernels/flash_attention.py:87", "qwen2-0.5b pipeline"),
         # the reduced MLA pair: no run here trains at it (0 launches)
         ("flash_attention_bwd", "mla reduced",
          pm.flash_attention_bwd_cost(batch=BWD_MLA_REDUCED_B,
@@ -2359,6 +2424,10 @@ ROW_NAMES = {("flash_attention", "MLA rows q_offset (192, 128)"):
              "flash_attention_bwd_d256_g10",
              ("flash_attention_bwd", "mla reduced"):
              "flash_attention_bwd_dk96_dv64",
+             ("flash_attention", "pipeline micro lse"):
+             "flash_attention_pipeline_micro",
+             ("flash_attention_bwd", "pipeline micro"):
+             "flash_attention_bwd_pipeline_micro",
              ("decode_attention", "recurrentgemma Generator"):
              "decode_attention_d256_g10"}
 
@@ -4242,8 +4311,12 @@ def one_rank_group():
 # without one: qwen2-0.5b (phase 10's config and prompts; phase 11's forced
 # preemption, host tier), mamba2-370m (phase 17's) and recurrentgemma-2b
 # (MESH_RG_PROMPTS prompts, two past the window, RG_ID_TABLE_W blocks a
-# table); qwen2 at all layers, the other two at phases 18 and 22's depths
+# table); qwen2 at MESH_QWEN_ID_LAYERS of its 24 layers (cut for time:
+# the mesh phases' host cost doubles on a slow host; its layers are all
+# alike), the other two at phases 18 and 22's depths; phase 38d's
+# composed qwen2 identity at the same depth
 MESH_RG_PROMPTS = 4
+MESH_QWEN_ID_LAYERS = 8
 
 
 def mesh_identity(torch, np, tag, arch, scfg, prompts, mesh, layers=None,
@@ -4332,11 +4405,14 @@ def phase_serve_mesh(torch, np, mesh, serve_summary):
                           max_blocks_per_req=ID_TABLE_W, max_slots=ID_SLOTS,
                           prefill_chunk=PRE_C, prefill_batch=PRE_P)
     vocab = get_config("qwen2-0.5b").vocab_size
-    _, params, cfg = mesh_identity(
-        torch, np, "serve mesh identity", "qwen2-0.5b", id_scfg,
-        make_prompts(np.random.default_rng(SEED + 2), 6, 100, ID_PROMPT_MAX,
-                     vocab), mesh)
-    phase_preempt_mesh(torch, np, cfg, params, mesh)
+    _, params, cfg = timed(
+        "serve mesh identity qwen2-0.5b", lambda: mesh_identity(
+            torch, np, "serve mesh identity", "qwen2-0.5b", id_scfg,
+            make_prompts(np.random.default_rng(SEED + 2), 6, 100,
+                         ID_PROMPT_MAX, vocab), mesh,
+            layers=MESH_QWEN_ID_LAYERS))
+    timed("serve mesh preempt", phase_preempt_mesh, torch, np, cfg, params,
+          mesh)
     del params
     torch.cuda.empty_cache()
     runs[f"{SSM_ARCH} mesh"], params, _ = mesh_identity(
@@ -4871,11 +4947,11 @@ def phase_recurrent_mesh(torch, np, mesh, serve_summary, train_records):
     id_scfg = ServeConfig(block_size=BS, num_blocks=512,
                           max_blocks_per_req=ID_TABLE_W, max_slots=ID_SLOTS,
                           prefill_chunk=PRE_C, prefill_batch=PRE_P)
-    mesh_identity(torch, np, "composed mesh identity", "qwen2-0.5b", id_scfg,
-                  make_prompts(np.random.default_rng(SEED + 2), 6, 100,
-                               ID_PROMPT_MAX,
-                               get_config("qwen2-0.5b").vocab_size),
-                  mesh, kernels="composed")
+    timed("composed mesh identity qwen2-0.5b", lambda: mesh_identity(
+        torch, np, "composed mesh identity", "qwen2-0.5b", id_scfg,
+        make_prompts(np.random.default_rng(SEED + 2), 6, 100, ID_PROMPT_MAX,
+                     get_config("qwen2-0.5b").vocab_size),
+        mesh, layers=MESH_QWEN_ID_LAYERS, kernels="composed"))
     torch.cuda.empty_cache()
     rg = get_config(RG_ARCH)
     rng = np.random.default_rng(SEED + 15)
@@ -5411,7 +5487,8 @@ def mpmd_pair(child_role, main_rank):
 
 
 def mpmd_child(role, tmp, rank):
-    """The child's side of phase 42 (``prefill``) or 44 (``learner``)."""
+    """The child's side of phase 42 (``prefill``), 44 (``learner``) or 46
+    (``pipeline``)."""
     import datetime
 
     import numpy as np
@@ -5424,6 +5501,7 @@ def mpmd_child(role, tmp, rank):
         world_size=2, timeout=datetime.timedelta(seconds=MPMD_TIMEOUT_S))
     try:
         out = (disagg_serve_runs(torch, np) if role == "prefill"
+               else pipeline_mpmd_runs(torch, np) if role == "pipeline"
                else rl_disagg_runs(torch, np, None))
     finally:
         dist.destroy_process_group()
@@ -5963,6 +6041,426 @@ def phase_rl_disagg(torch, np, rl_summary, rl_id):
             "flash_attention_bwd": learner["flash_attention_bwd"]}
 
 
+# ---------------------------------------------------------------------------
+# Phases 45-46: the 1F1B pipeline trainer (repro_torch.train.
+# pipeline_trainer) on qwen2-0.5b, colocated and with stage 1 in a child
+# process on the same card (``--mpmd-child pipeline``, as phases 42 and 44)
+# ---------------------------------------------------------------------------
+PIPE_COUNTERS = ("bubble_steps", "handoffs", "microbatches",
+                 "tied_embed_syncs")
+
+
+def run_pipeline(torch, cfg, shape, n_steps, micro, hook=None, obs=None):
+    """``n_steps`` pipelined steps from SEED with AdamWConfig(total_steps=
+    n_steps), PIPE_STAGES stages of ``micro`` micro-batches, through
+    ``train_pipeline`` (colocated, or one process a stage inside
+    :func:`mpmd_pair`'s world)."""
+    from repro_torch.configs.base import PipelineConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import trainer
+    from repro_torch.train.pipeline_trainer import train_pipeline
+    return train_pipeline(
+        cfg, shape, pipeline=PipelineConfig(stages=PIPE_STAGES,
+                                            micro_batches=micro),
+        adamw=AdamWConfig(total_steps=n_steps), hook=hook, obs=obs,
+        train_cfg=trainer.TrainConfig(num_steps=n_steps, log_every=1,
+                                      seed=SEED),
+        device=DEVICE)
+
+
+def pipeline_bf16(torch, np, tag, n_steps, want):
+    """qwen2-0.5b bf16 at full width through :func:`run_pipeline`:
+    ``n_steps`` steps of phase 23's PIPE_B x TRAIN_S batches in PIPE_MICRO
+    micro-batches.  Every step: loss and grad norm finite, exactly
+    ``want`` launches of flash and its backward (this process's), and the
+    schedule's counters (PIPE_STAGES stages: 2 S (S - 1) bubble slots,
+    2 M (S - 1) hand-offs, M micro-batches and one tied-embedding sync).
+    Returns (history, launches of the run, summary: median step, tok/s,
+    peak, first step)."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.obs import Observability
+    cfg = get_config("qwen2-0.5b")
+    shape = ShapeConfig(f"train_{TRAIN_S}_b{PIPE_B}", TRAIN_S, PIPE_B,
+                        "train")
+    S, M = PIPE_STAGES, PIPE_MICRO
+    want_c = {"bubble_steps": 2 * S * (S - 1), "handoffs": 2 * M * (S - 1),
+              "microbatches": M, "tied_embed_syncs": 1}
+    wrappers = {k: train_wrappers()[k] for k in want}
+    obs = Observability()
+    seen = []
+    last = {k: 0 for k in want}
+    last_c = {k: 0 for k in PIPE_COUNTERS}
+
+    def hook(m):
+        now = {k: w.launches for k, w in wrappers.items()}
+        c = {k: obs.metrics.counter(f"train.pipeline.{k}").value
+             for k in PIPE_COUNTERS}
+        step = {k: now[k] - last[k] for k in want}
+        cstep = {k: c[k] - last_c[k] for k in PIPE_COUNTERS}
+        seen.append((m, step, cstep))
+        log(f"[{tag}] step {m['step']}: loss {m['loss']:.4f} grad_norm "
+            f"{m['grad_norm']:.4f} lr {m['lr']:.3e} wall {m['wall_s']:.3f}s, "
+            f"launches {step}, counters {cstep}")
+        last.update(now)
+        last_c.update(c)
+    if DEVICE == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    # this path's run: every launch count starts at 0 here
+    for w in wrappers.values():
+        w.launches = 0
+    sync(torch)
+    t0 = time.perf_counter()
+    params, hist = run_pipeline(torch, cfg, shape, n_steps, M, hook, obs)
+    sync(torch)
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if DEVICE == "cuda" else float("nan"))
+    del params
+    walls = [m["wall_s"] for m, _, _ in seen]
+    step_s = sorted(b - a for a, b in zip(walls, walls[1:]))
+    med = step_s[len(step_s) // 2]
+    summary = dict(median_s=med, tok_s=PIPE_B * TRAIN_S / med, peak_gib=peak,
+                   first_s=walls[0])
+    log(f"[{tag}] qwen2-0.5b bf16 full width, {S} stages, {M} micro-batches "
+        f"of {PIPE_B // M} x {TRAIN_S}, {n_steps} steps: {wall:.3f}s in all, "
+        f"first step {walls[0]:.3f}s, median of steps 2-{n_steps} "
+        f"{med:.4f}s ({summary['tok_s']:.1f} train tok/s), range "
+        f"{step_s[0]:.4f}..{step_s[-1]:.4f}s; peak device memory "
+        f"{peak:.2f} GiB; launches {launches}, expected per step {want}")
+    if len(hist) != n_steps or not all(
+            np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+            for m, _, _ in seen):
+        raise AssertionError(f"{tag}: a step's loss or grad norm is not "
+                             "finite")
+    if any(step != want or cstep != want_c for _, step, cstep in seen) \
+            or launches != {k: v * n_steps for k, v in want.items()}:
+        raise AssertionError(f"{tag}: launches or counters "
+                             f"{[x[1:] for x in seen]}, expected {want} and "
+                             f"{want_c} a step")
+    return [m for m, _, _ in seen], launches, summary
+
+
+def pipeline_profile(torch):
+    """torch.profiler over one colocated pipeline step (after a warm step)
+    of phase 45's bf16 configuration: device busy, idle share and the top
+    device items, flash's forward and backward shares."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import PipelineConfig, get_config
+    from repro_torch.data.pipeline import DataConfig, make_loader
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.pipeline_trainer import PipelineTrainer
+    cfg = get_config("qwen2-0.5b")
+    tr = PipelineTrainer(cfg, PipelineConfig(stages=PIPE_STAGES,
+                                             micro_batches=PIPE_MICRO),
+                         adamw=AdamWConfig(total_steps=TRAIN_STEPS),
+                         seed=SEED, device=DEVICE)
+    loader = make_loader(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=TRAIN_S, global_batch=PIPE_B,
+                                    seed=SEED), DEVICE)
+    tr.step(next(loader))                                   # warm
+    batch = next(loader)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sync(torch)
+        t0 = time.perf_counter()
+        tr.step(batch)
+        sync(torch)
+        wall = time.perf_counter() - t0
+    report_profile("pipeline profile", [("pipeline step", prof, wall, 1)],
+                   {"flash forward": r"flash_kernel",
+                    "flash backward": r"flash_bwd"})
+
+
+def params_bound(torch, n_steps, ref):
+    """AdamW's bound on two runs whose gradients differ only in rounding
+    (phase_train_identity): sum_t 2 lr_t adam_step_bound(t), plus an f32
+    rounding of the largest weight of ``ref`` a step."""
+    from repro_torch.optim.adamw import AdamWConfig, schedule
+    adamw = AdamWConfig(total_steps=n_steps)
+    lrs = [float(schedule(adamw, torch.tensor(t, dtype=torch.int32)))
+           for t in range(1, n_steps + 1)]
+    big = max(t.abs().max().item() for t in ref.values())
+    return (sum(2 * lr * adam_step_bound(adamw.b1, adamw.b2, t)
+                for t, lr in enumerate(lrs, 1))
+            + 2 * n_steps * big * 2.0 ** -23)
+
+
+def pipeline_f32_cfg():
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config("qwen2-0.5b"), dtype="float32",
+                               num_layers=PIPE_ID_LAYERS)
+
+
+def pipeline_f32(torch):
+    """The f32 pipeline at phase 25's shapes (PIPE_ID_LAYERS layers,
+    TRAIN_ID_B x TRAIN_ID_S in PIPE_ID_MICRO micro-batches, TRAIN_ID_STEPS
+    steps): the history and {path: param} of the merged params."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.tree import tree_flatten_with_path
+    params, hist = run_pipeline(
+        torch, pipeline_f32_cfg(), ShapeConfig(
+            "train_identity", TRAIN_ID_S, TRAIN_ID_B, "train"),
+        TRAIN_ID_STEPS, PIPE_ID_MICRO)
+    return hist, dict(tree_flatten_with_path(params))
+
+
+def pipeline_f32_sequential(torch):
+    """:func:`pipeline_f32`'s steps in the no-overlap order: the trainer's
+    ``step(batch, dispatch="sequential")`` over the batches
+    ``train_pipeline`` reads.  Each step's (loss, grad norm) and {path:
+    param} of the merged params."""
+    from repro_torch.configs.base import PipelineConfig
+    from repro_torch.core.tree import tree_flatten_with_path
+    from repro_torch.data.pipeline import DataConfig, make_loader
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.pipeline_trainer import PipelineTrainer
+    cfg = pipeline_f32_cfg()
+    tr = PipelineTrainer(cfg, PipelineConfig(stages=PIPE_STAGES,
+                                             micro_batches=PIPE_ID_MICRO),
+                         adamw=AdamWConfig(total_steps=TRAIN_ID_STEPS),
+                         seed=SEED, device=DEVICE)
+    loader = make_loader(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=TRAIN_ID_S,
+                                    global_batch=TRAIN_ID_B, seed=SEED),
+                         DEVICE)
+    hist = []
+    for _, batch in zip(range(TRAIN_ID_STEPS), loader):
+        m = tr.step(batch, dispatch="sequential")
+        hist.append((m["loss"], m["grad_norm"]))
+    return hist, dict(tree_flatten_with_path(tr.merged_params()))
+
+
+def phase_pipeline(torch, np, train_record, train_summary):
+    """Phase 45: the 1F1B pipeline colocated (this process runs both
+    stages).  bf16 (pipeline_bf16, TRAIN_STEPS steps): 192 flash and 96
+    backward launches a step; step 1's loss and grad norm within PIPE_REL
+    of phase 23's (``train_record``), every step within PIPE_REL or, where
+    a step is not, within twice the distance between phase 23 and a second
+    run of phase 23's steps made here only then (the bf16 backward's dQ
+    atomics); the step wall,
+    tok/s and peak beside phase 23's; a profile of one step
+    (pipeline_profile).  f32 at phase 25's shapes, PIPE_ID_LAYERS layers:
+    the pipeline against ``trainer.train`` (losses and grad norms within
+    TRAIN_ID_REL, params within AdamW's bound) and the sequential dispatch
+    equal to 1F1B bit for bit.  Returns (the f32 1F1B run's history and
+    params, on the host, for phase 46; the bf16 run's launches; its
+    summary)."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.core.tree import tree_flatten_with_path
+    n = get_config("qwen2-0.5b").num_layers
+    want = {"flash_attention": 2 * n * PIPE_MICRO,
+            "flash_attention_bwd": n * PIPE_MICRO}
+    hist, launches, summary = pipeline_bf16(torch, np, "pipeline",
+                                            TRAIN_STEPS, want)
+    base = [m for m, _, _ in train_record[:TRAIN_STEPS]]
+
+    def rel(a, b, k):
+        return abs(a[k] - b[k]) / max(1.0, abs(b[k]))
+    keys = ("loss", "grad_norm")
+    first = max(rel(hist[0], base[0], k) for k in keys)
+    worst = max(rel(a, b, k) for a, b in zip(hist, base) for k in keys)
+    rerun, twice = [], None
+    if worst > PIPE_REL:
+        # phase 23's own spread, wanted only past PIPE_REL: a second
+        # non-pipelined run of its steps
+        run_train(torch, get_config("qwen2-0.5b"), ShapeConfig(
+            f"train_{TRAIN_S}_b{TRAIN_B}", TRAIN_S, TRAIN_B, "train"),
+            TRAIN_STEPS, rerun.append)
+        twice = 2 * max(rel(a, b, k) for a, b in zip(rerun, base)
+                        for k in keys)
+    limit = PIPE_REL if twice is None else max(PIPE_REL, twice)
+    for i, (a, b) in enumerate(zip(hist, base)):
+        c = rerun[i] if rerun else None
+        log(f"[pipeline] step {a['step']}: loss {a['loss']:.6f} vs phase 23 "
+            f"{b['loss']:.6f}"
+            + (f" (rerun {c['loss']:.6f})" if c else "")
+            + f", grad_norm {a['grad_norm']:.6f} vs {b['grad_norm']:.6f}"
+            + (f" (rerun {c['grad_norm']:.6f})" if c else ""))
+    spread = (f"not run: every step within {PIPE_REL:.3e}" if twice is None
+              else f"{twice:.3e}")
+    log(f"[pipeline] bf16 against phase 23 (train) in this process: step 1 "
+        f"within {first:.3e} relative (limit {PIPE_REL:.3e}), all "
+        f"{TRAIN_STEPS} steps within {worst:.3e} (limit {limit:.3e}: the "
+        f"larger of {PIPE_REL:.3e} and twice phase 23's distance from a "
+        f"second non-pipelined run, {spread}); median step "
+        f"{summary['median_s']:.4f}s vs {train_summary['median_s']:.4f}s "
+        f"({summary['median_s'] / train_summary['median_s']:.3f}x), "
+        f"{summary['tok_s']:.1f} vs {train_summary['tok_s']:.1f} train "
+        f"tok/s, peak {summary['peak_gib']:.2f} vs "
+        f"{train_summary['peak_gib']:.2f} GiB, first step "
+        f"{summary['first_s']:.3f}s vs {train_summary['first_s']:.3f}s")
+    if not first <= PIPE_REL or not worst <= limit:
+        raise AssertionError(f"pipeline: the bf16 run parts from phase 23 "
+                             f"(step 1 {first}, worst {worst})")
+    del rerun
+    torch.cuda.empty_cache()
+    pipeline_profile(torch)
+    torch.cuda.empty_cache()
+
+    plain, plain_hist = run_train(torch, pipeline_f32_cfg(), ShapeConfig(
+        "train_identity", TRAIN_ID_S, TRAIN_ID_B, "train"), TRAIN_ID_STEPS)
+    plain = dict(tree_flatten_with_path(plain))
+    pipe_hist, pipe = pipeline_f32(torch)
+    id_worst = max(rel(a, b, k) for a, b in zip(pipe_hist, plain_hist)
+                   for k in keys)
+    bound = params_bound(torch, TRAIN_ID_STEPS, plain)
+    dmax = max((pipe[k] - plain[k]).abs().max().item() for k in plain)
+    moved = sum(int((pipe[k] != plain[k]).sum()) for k in plain)
+    same_keys = sorted(pipe) == sorted(plain)
+    del plain
+    torch.cuda.empty_cache()
+    seq_hist, seq = pipeline_f32_sequential(torch)
+    seq_same = (seq_hist == [(m["loss"], m["grad_norm"]) for m in pipe_hist]
+                and all(torch.equal(seq[k], pipe[k]) for k in pipe))
+    del seq
+    log(f"[pipeline] f32 identity, {PIPE_ID_LAYERS} of {n} layers, "
+        f"{TRAIN_ID_STEPS} steps of "
+        f"{TRAIN_ID_B} x {TRAIN_ID_S} in {PIPE_ID_MICRO} micro-batches, "
+        f"{PIPE_STAGES} stages, against trainer.train: losses and grad "
+        f"norms within {id_worst:.3e} relative (limit {TRAIN_ID_REL}), "
+        f"params max |diff| {dmax:.3e} against AdamW's bound {bound:.3e}, "
+        f"{moved} weights differ at all; the sequential dispatch equal to "
+        f"1F1B bit for bit={seq_same}; losses "
+        + ", ".join(f"{a['loss']:.7f}/{b['loss']:.7f}"
+                    for a, b in zip(pipe_hist, plain_hist)))
+    if not (same_keys and id_worst <= TRAIN_ID_REL and dmax <= bound
+            and seq_same):
+        raise AssertionError("pipeline: the f32 pipeline parts from the "
+                             "non-pipelined trainer or from its sequential "
+                             "dispatch")
+    f32 = {"history": pipe_hist,
+           "params": {k: t.cpu() for k, t in pipe.items()}}
+    return f32, launches, summary
+
+
+def time_handoffs(torch):
+    """Both processes of phase 46 (rank 0 stage 0, rank 1 stage 1): each
+    hand-off the pipeline makes, timed as a round trip through
+    ``mpmd.Handoff`` (the sender's pinned host copy, the gloo send, the
+    receiver's copy onto the card): the activation (1 x TRAIN_S x d_model
+    bf16) goes to rank 1 and comes back as the cotangent (the same shape),
+    the tied ``embed`` (padded_vocab x d_model bf16, the sync after each
+    step) the same way.  On rank 0 returns, for each, the bytes, the
+    median round trip over HANDOFF_REPEATS (after one warm-up) and whether
+    every echo was exact."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import mpmd
+    cfg = get_config("qwen2-0.5b")
+    gm = mpmd.groups_from_mapping({"stage0": 1, "stage1": 1})
+    a, b = gm["stage0"], gm["stage1"]
+    me = mpmd.my_rank()
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 46)
+    wire = mpmd.Handoff()
+    out = {}
+    for name, shape in (("activation", (1, TRAIN_S, cfg.d_model)),
+                        ("embed", (cfg.padded_vocab, cfg.d_model))):
+        x = torch.randn(shape, generator=g, device=DEVICE).to(torch.bfloat16)
+        times, exact = [], True
+        for i in range(HANDOFF_REPEATS + 1):
+            sync(torch)
+            t0 = time.perf_counter()
+            if me == a.leader:
+                wire.send(x, a, b)
+                y = wire.recv(shape, torch.bfloat16, b, a, DEVICE)
+                sync(torch)
+                wire.wait()
+                exact &= bool(torch.equal(y, x))
+            else:
+                y = wire.recv(shape, torch.bfloat16, a, b, DEVICE)
+                wire.send(y, b, a)
+                wire.wait()
+            if i:
+                times.append(time.perf_counter() - t0)
+        times.sort()
+        out[name] = {"bytes": x.numel() * x.element_size(),
+                     "round_trip_s": times[len(times) // 2],
+                     "exact": exact}
+    return out
+
+
+def pipeline_mpmd_runs(torch, np):
+    """Phase 46's calls, the same on both processes (rank 0 stage 0, rank
+    1 stage 1): the f32 pipeline of phase 45's identity, the bf16 pipeline
+    for PIPE_MPMD_STEPS steps, then the hand-off timings.  Each process's
+    bf16 launches must be its stage's: 12 layers x PIPE_MICRO x (2 + 1).
+    Returns what the parent checks (the f32 params on rank 0 only)."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    n = get_config("qwen2-0.5b").num_layers // PIPE_STAGES
+    hist, params = pipeline_f32(torch)
+    out = {"f32": hist}
+    if dist.get_rank() == 0:
+        out["f32_params"] = params
+    del params
+    torch.cuda.empty_cache()
+    want = {"flash_attention": 2 * n * PIPE_MICRO,
+            "flash_attention_bwd": n * PIPE_MICRO}
+    out["bf16"], out["launches"], out["summary"] = pipeline_bf16(
+        torch, np, "pipeline mpmd", PIPE_MPMD_STEPS, want)
+    out["handoffs"] = time_handoffs(torch)
+    return out
+
+
+def phase_pipeline_mpmd(torch, np, pipe_f32, pipe_summary):
+    """Phase 46: the pipeline with one process a stage: this process stage
+    0 (rank 0), a child on the same card stage 1 (rank 1), gloo through
+    pinned host memory.  f32: the losses, grad norms and every merged
+    param bit for bit phase 45's colocated f32 run (the same kernels, the
+    hand-offs exact copies, the norm's partial sums added in stage order),
+    the child's history the same.  bf16: each process's launches exact
+    (96 + 48 a step), the same history in both, the step wall beside
+    phase 45's; the activation and embed hand-offs' ms and GB/s.
+    Returns {kernel: launches} of both processes' bf16 runs."""
+    with mpmd_pair("pipeline", 0) as child_report:
+        got = pipeline_mpmd_runs(torch, np)
+        child = child_report()
+    want = pipe_f32["params"]
+    params = got.pop("f32_params")
+    same = (sorted(params) == sorted(want)
+            and all(torch.equal(params[k].cpu(), want[k]) for k in want))
+    keys = ("loss", "grad_norm", "lr")
+    hist_same = ([[m[k] for k in keys] for m in got["f32"]]
+                 == [[m[k] for k in keys] for m in child["f32"]]
+                 == [[m[k] for k in keys] for m in pipe_f32["history"]])
+    log(f"[pipeline mpmd] f32 at phase 45's identity config, stage 1 in the "
+        f"child: losses {[m['loss'] for m in got['f32']]} (phase 45 "
+        f"{[m['loss'] for m in pipe_f32['history']]}); losses, grad norms "
+        f"and lr equal to phase 45's and the child's, bit for bit="
+        f"{hist_same}; all {len(want)} merged params equal to phase 45's, "
+        f"bit for bit={same}")
+    if not (same and hist_same):
+        raise AssertionError("pipeline mpmd: the f32 run is not phase 45's")
+    bf_same = ([[m[k] for k in keys] for m in got["bf16"]]
+               == [[m[k] for k in keys] for m in child["bf16"]])
+    s, c = got["summary"], child["summary"]
+    log(f"[pipeline mpmd] bf16: launches here {got['launches']}, in the "
+        f"child {child['launches']}; the same history in both={bf_same}; "
+        f"median step {s['median_s']:.4f}s here, {c['median_s']:.4f}s in "
+        f"the child, phase 45 {pipe_summary['median_s']:.4f}s "
+        f"({s['median_s'] / pipe_summary['median_s']:.3f}x); "
+        f"{s['tok_s']:.1f} train tok/s vs {pipe_summary['tok_s']:.1f}; peak "
+        f"{s['peak_gib']:.2f} GiB here, {c['peak_gib']:.2f} GiB in the "
+        f"child (each process's own allocator), phase 45 "
+        f"{pipe_summary['peak_gib']:.2f} GiB")
+    if not bf_same:
+        raise AssertionError("pipeline mpmd: the two processes' bf16 "
+                             "histories differ")
+    for name, h in got["handoffs"].items():
+        leg = h["round_trip_s"] / 2
+        log(f"[pipeline mpmd] hand-off {name}: {h['bytes'] / 1e6:.3f} MB, "
+            f"round trip {h['round_trip_s'] * 1e3:.3f} ms (median of "
+            f"{HANDOFF_REPEATS}), {leg * 1e3:.3f} ms a leg, "
+            f"{h['bytes'] / leg / 1e9:.3f} GB/s; echoes exact={h['exact']}")
+        if not h["exact"]:
+            raise AssertionError(f"pipeline mpmd: the {name} hand-off is "
+                                 "not exact")
+    return {k: got["launches"][k] + child["launches"][k]
+            for k in got["launches"]}
+
+
 def path_rows(rows, src_path, names, suffix, path):
     """Rows of the kernel JSON repeated for a new path: for each kernel in
     ``names``, the first row of ``src_path`` whose source it is, renamed
@@ -6164,6 +6662,13 @@ def main() -> int:
     rl_disagg_launches = timed("rl disagg", phase_rl_disagg, torch, np,
                                rl_summary, rl_id)
     del rl_id
+    torch.cuda.empty_cache()
+    pipe_f32, pipe_launches, pipe_summary = timed(
+        "pipeline", phase_pipeline, torch, np, train_record, train_summary)
+    torch.cuda.empty_cache()
+    pipe_mpmd_launches = timed("pipeline mpmd", phase_pipeline_mpmd, torch,
+                               np, pipe_f32, pipe_summary)
+    del pipe_f32
     runs = {"qwen2-0.5b": launches, DS_ARCH: moe_launches,
             SSM_ARCH: ssm_launches, f"{SSM_ARCH} Generator": ssm_gen_launches,
             RG_ARCH: rg_launches, f"{RG_ARCH} Generator": rg_gen_launches,
@@ -6178,7 +6683,9 @@ def main() -> int:
             **ds_mesh_runs, **rec_mesh_runs,
             "qwen2-0.5b disagg": disagg_launches,
             "qwen2-0.5b rl mesh": rl_mesh_launches,
-            "qwen2-0.5b rl disagg": rl_disagg_launches}
+            "qwen2-0.5b rl disagg": rl_disagg_launches,
+            "qwen2-0.5b pipeline": pipe_launches,
+            "qwen2-0.5b pipeline mpmd": pipe_mpmd_launches}
     # the mesh run launches flash at phase 23's shapes: its rows are phase
     # 3's rows of that shape, with the mesh run's launches
     rows += [dict(row, name=row["name"] + "_mesh",
@@ -6196,6 +6703,10 @@ def main() -> int:
                       ("rl_disagg", "qwen2-0.5b rl disagg")):
         rows += (path_rows(rows, "qwen2-0.5b", serving, tag, path)
                  + path_rows(rows, "qwen2-0.5b train", train, tag, path))
+    # phase 46 launches flash at phase 45's micro-batch: those rows, with
+    # both processes' launches
+    rows += path_rows(rows, "qwen2-0.5b pipeline", train, "pipeline_mpmd",
+                      "qwen2-0.5b pipeline mpmd")
     for row in rows:
         if row["path"] is not None:     # None: timed in phase 3 only
             name = row["name"].removesuffix("_mesh")

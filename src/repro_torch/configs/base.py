@@ -336,6 +336,64 @@ class RLConfig:
 
 
 # ---------------------------------------------------------------------------
+# HyperParallel-Mpipe: pipeline-parallel training knobs (the pipeline leg)
+@dataclass(frozen=True)
+class PipelineConfig:
+    """Pipeline-parallel training configuration (synchronous 1F1B).
+
+    ``stages`` contiguous layer stages run on disjoint groups of ranks
+    (MPMD role groups, one per stage); the global batch splits into
+    ``micro_batches`` micro-batches flowing through the warmup -> steady
+    1F1B -> drain schedule.  ``stage_layers`` pins explicit per-stage
+    macro-layer counts (empty = even split); ``stage_mesh`` pins each
+    stage group's (data, model) mesh for fsdp x tp *inside* the stage
+    (empty = all of the stage's ranks on the model axis).
+    """
+    stages: int = 2                    # pipeline stages (contiguous layers)
+    micro_batches: int = 4             # micro-batches per optimizer step
+    stage_layers: Tuple[int, ...] = () # explicit per-stage layer counts
+    stage_mesh: Tuple[int, ...] = ()   # (data, model) shape per stage mesh
+
+    def replace(self, **kw) -> "PipelineConfig":
+        return replace(self, **kw)
+
+    def validate(self) -> "PipelineConfig":
+        """Eager knob check; typed PipelinePlanError BEFORE any carve.
+
+        Model-dependent checks (stage-overclaim vs the macro-layer count)
+        live in :func:`repro_torch.core.pipeline.partition_stages`, which
+        fires when the trainer is built with a config in hand.
+        """
+        from repro_torch.api.errors import PipelinePlanError
+        problems = []
+        if self.stages < 1:
+            problems.append(f"stages={self.stages} (must be >= 1)")
+        if self.micro_batches < 1:
+            problems.append(f"micro_batches={self.micro_batches} "
+                            "(must be >= 1)")
+        if self.stage_layers:
+            if len(self.stage_layers) != self.stages:
+                problems.append(
+                    f"stage_layers={self.stage_layers} has "
+                    f"{len(self.stage_layers)} entries for "
+                    f"stages={self.stages}")
+            if any(c < 1 for c in self.stage_layers):
+                problems.append(f"stage_layers={self.stage_layers} "
+                                "(every stage needs >= 1 macro-layer)")
+        if self.stage_mesh:
+            if len(self.stage_mesh) != 2:
+                problems.append(f"stage_mesh={self.stage_mesh} (must be a "
+                                "(data, model) pair)")
+            elif any(n < 1 for n in self.stage_mesh):
+                problems.append(f"stage_mesh={self.stage_mesh} (axis sizes "
+                                "must be >= 1)")
+        if problems:
+            raise PipelinePlanError("invalid PipelineConfig: "
+                                    + "; ".join(problems))
+        return self
+
+
+# ---------------------------------------------------------------------------
 # Input shapes (a copy of the reference's): ``seq_len`` tokens a row,
 # ``global_batch`` rows a step
 @dataclass(frozen=True)

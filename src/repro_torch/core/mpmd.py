@@ -22,6 +22,13 @@ the world's default group:
     as one byte buffer, and each destination rank keeps its own shard as
     ``placements`` say (no communication on the destination mesh).  A rank
     in both groups copies locally;
+  - :class:`Handoff` is the pipeline's hand-off of one tensor whose shape
+    and dtype the receiver already knows: no header, the send does not
+    block (``dist.isend``; the handle and its buffer are kept until
+    :meth:`Handoff.wait`), and each direction between two ranks has a
+    process group of its own, so that two stages that send to each other
+    at once (an activation one way, a cotangent the other) cannot wait on
+    each other for ever;
   - :class:`MPMDScheduler` runs a task on the ranks of its group; the
     group's first rank then sends the task's window (submit, done) and
     name to every other rank, so that every rank records every role's
@@ -34,8 +41,9 @@ Gloo cannot send a CUDA tensor: where the world's backend is gloo (two
 processes on one card, as ``chip_smoke.py`` runs them; NCCL refuses two
 ranks on one card) the bytes go through pinned host buffers, one copy off
 the card before a send and one onto it after a receive.  Under NCCL they go
-card to card.  Every call here blocks until its peer answers; the process
-group's timeout bounds the wait for a peer that died.
+card to card.  Every call here but :meth:`Handoff.send` blocks until its
+peer answers; the process group's timeout bounds the wait for a peer that
+died.
 """
 from __future__ import annotations
 
@@ -82,17 +90,27 @@ def _world_ranks() -> List[int]:
 AXES = ("data", "model")           # every group's mesh: (1, n) over these
 
 
-def groups_from_mapping(mapping: Dict[str, int]) -> Dict[str, ProcessGroup]:
+def groups_from_mapping(mapping: Dict[str, int],
+                        shapes: Optional[Dict[str, Tuple[int, int]]] = None
+                        ) -> Dict[str, ProcessGroup]:
     """Carve process groups out of the world's ranks (paper Listing 1).
 
     mapping: {"prefill": 2, "decode": 2, ...}, carved in order from the
-    world's ranks; a group of n > 1 ranks gets the ``(1, n)`` mesh over
-    :data:`AXES`, on the cards under NCCL and on the host under gloo.
-    Every rank must call this with the same mapping."""
+    world's ranks; a group of n > 1 ranks gets a mesh over :data:`AXES`,
+    of the shape ``shapes[name]`` (a (data, model) pair, as a pipeline
+    stage's ``stage_mesh`` asks; default ``(1, n)``), on the cards under
+    NCCL and on the host under gloo.  Every rank must call this with the
+    same mapping."""
     ranks = _world_ranks()
+    shapes = shapes or {}
     need = sum(mapping.values())
     if need > len(ranks):
         raise ValueError(f"mapping needs {need} devices, have {len(ranks)}")
+    for name, shape in shapes.items():
+        if int(np.prod(shape)) != mapping[name]:
+            raise ValueError(f"group {name}: mesh {tuple(shape)} needs "
+                             f"{int(np.prod(shape))} ranks, the mapping "
+                             f"gives it {mapping[name]}")
     import torch.distributed as dist
     live = dist.is_initialized()
     device_type = "cuda" if live and dist.get_backend() == "nccl" else "cpu"
@@ -106,8 +124,8 @@ def groups_from_mapping(mapping: Dict[str, int]) -> Dict[str, ProcessGroup]:
             pg = dist.new_group(list(sub))
             if n > 1:
                 from torch.distributed.device_mesh import DeviceMesh
-                mesh = DeviceMesh(device_type, torch.tensor(sub)[None],
-                                  mesh_dim_names=AXES)
+                mesh = DeviceMesh(device_type, torch.tensor(sub).reshape(
+                    shapes.get(name, (1, n))), mesh_dim_names=AXES)
         groups[name] = ProcessGroup(name, sub, mesh, pg)
     return groups
 
@@ -253,6 +271,100 @@ def transfer(tree, src: ProcessGroup, dst: ProcessGroup, placements=None, *,
     return tree_map_with_path(
         lambda p, t: distribute(t, dst.mesh, placements(p, t)
                                 if placements is not None else rep), got)
+
+
+def _wire_buffer(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bytes where the wire can send them: the tensor itself (a
+    byte view) on the card under NCCL or on the host, else a pinned host
+    copy, made before this returns."""
+    b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    wire = _wire_device()
+    if b.device == wire:
+        return b
+    host = torch.empty(b.numel(), dtype=torch.uint8, pin_memory=b.is_cuda)
+    host.copy_(b)
+    return host
+
+
+class Handoff:
+    """Hand-offs of single tensors between two groups, for tensors whose
+    shape and dtype the receiving ranks already know (a pipeline stage's
+    activations and cotangents: the schedule fixes them), so no header
+    goes before the bytes.
+
+    :meth:`send` gathers the tensor in full on the source group (a
+    collective on its mesh) and its first rank posts ``dist.isend`` of it
+    to every rank of the destination group: it returns at once, and the
+    handle and its buffer (under gloo a pinned host copy of a card's
+    tensor) are kept until :meth:`wait`.  :meth:`recv` waits for the
+    bytes and places them as the destination keeps them.  In steady 1F1B
+    stage s sends the activation of a later micro-batch while stage s + 1
+    sends the cotangent of an earlier one, and each then receives the
+    other's.  A blocking send would make the two wait on each other for
+    ever once a buffer outgrows what the transport takes before its
+    receiver is there.  So would one process group for both directions
+    under NCCL: a pair's sends and receives run in order on one stream
+    there, each stage's send ahead of its receive.  Sends to a higher
+    rank go over one group of the whole world and sends to a lower rank
+    over another (each its own NCCL communicator and stream), so that the
+    traffic of each direction between two ranks is one queue, received in
+    the order it was sent.  Every rank of the world constructs a
+    ``Handoff`` at the same point (the groups are made collectively) and
+    keeps it for as many steps as it likes."""
+
+    def __init__(self):
+        import torch.distributed as dist
+        self._up, self._down = dist.new_group(), dist.new_group()
+        self._sends: List[Tuple[Any, torch.Tensor]] = []
+
+    def _group(self, src: int, dst: int):
+        return self._up if src < dst else self._down
+
+    def send(self, t, src: ProcessGroup, dst: ProcessGroup) -> None:
+        """Every rank of ``src`` calls this with its ``t`` (a DTensor on
+        ``src.mesh`` or a plain tensor, the same on each of its ranks)."""
+        import torch.distributed as dist
+        from repro_torch.core.meshctx import full_tensor
+        full = full_tensor(t)
+        me = my_rank()
+        if me != src.leader:
+            return
+        buf = _wire_buffer(full)
+        for r in dst.ranks:
+            if r == me:
+                raise ValueError(f"Handoff.send: rank {me} is in both "
+                                 f"{src.name} and {dst.name}")
+            self._sends.append((dist.isend(buf, r, self._group(me, r)), buf))
+
+    def recv(self, shape, dtype, src: ProcessGroup, dst: ProcessGroup,
+             device, placements=None):
+        """The tensor ``src`` sent, of ``shape`` and ``dtype``, on this rank
+        of ``dst``: on ``device`` where ``dst`` has no mesh (under gloo a
+        card's tensor comes from a pinned host buffer, copied
+        asynchronously), else a DTensor on ``dst.mesh`` with
+        ``placements`` (default: replicated), each rank keeping its chunk
+        with no communication."""
+        import torch.distributed as dist
+        device = torch.device(device)
+        wire = _wire_device()
+        buf = torch.empty(_nbytes(tuple(shape), dtype), dtype=torch.uint8,
+                          device=wire, pin_memory=device.type == "cuda"
+                          and wire.type == "cpu")
+        dist.recv(buf, src.leader, self._group(src.leader, my_rank()))
+        t = buf.to(device, non_blocking=True).view(dtype).reshape(shape)
+        if dst.mesh is None:
+            return t
+        from repro_torch.core.hypershard import distribute
+        from torch.distributed.tensor import Replicate
+        return distribute(t, dst.mesh, placements if placements is not None
+                          else [Replicate()] * dst.mesh.ndim)
+
+    def wait(self) -> None:
+        """Wait for every send posted since the last call (the receivers
+        have the bytes), then drop the handles and buffers."""
+        for work, _ in self._sends:
+            work.wait()
+        self._sends.clear()
 
 
 def send_to(group: ProcessGroup, obj) -> None:

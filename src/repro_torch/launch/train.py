@@ -38,28 +38,48 @@ mesh is ``make_train_step(multimodal=True, mesh=)`` with
 and ``tp_only`` resolve to the ``ShardingPlan`` those presets lower to;
 ``--offload`` puts params and optimizer state on the host, on a mesh too.
 ``--plan offload_all`` and ``--explain`` are the facade's (ROADMAP.md
-section 1 item 8h), ``--plan pipeline``, ``pipeline_fsdp`` and
-``--pipeline`` the 1F1B pipeline's (item 8f): they raise
-:class:`~repro_torch.api.errors.PlanError`.  Rank 0 prints the
-reference's log line.
+section 1 item 8h): they raise :class:`~repro_torch.api.errors.PlanError`.
+Rank 0 prints the reference's log line.
+
+``--pipeline STAGES`` (with ``--micro-batches M``, default 4) and ``--plan
+pipeline|pipeline_fsdp`` train through the 1F1B pipeline trainer
+(:func:`~repro_torch.train.pipeline_trainer.train_pipeline`; the presets
+are 2 stages of 4 micro-batches unless ``--pipeline`` names the stages):
+with one rank every stage runs in this process (colocated), under
+``torchrun`` with ``--mesh auto`` the stages are carved from the world's
+ranks (one group a stage when there are at least as many ranks as
+stages; the world is joined, no mesh over it is made); ``--offload``
+composes with both.  ``--ckpt-dir`` with a pipeline raises
+:class:`~repro_torch.api.errors.PlanError`: checkpointing is not wired for
+the pipeline, as in the reference.
+
+    python -m repro_torch.launch.train --arch qwen2-0.5b --reduced \
+        --steps 2 --device cpu --pipeline 2 --micro-batches 2
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch qwen2-0.5b --reduced --device cpu --mesh auto --pipeline 2
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 from repro_torch.api.errors import PlanError
-from repro_torch.configs.base import SHAPES, ShapeConfig, get_config
+from repro_torch.configs.base import (SHAPES, PipelineConfig, ShapeConfig,
+                                      get_config)
 from repro_torch.core.hypershard import ShardingPlan
 from repro_torch.core.offload import OffloadConfig
-from repro_torch.launch.mesh import join_mesh
+from repro_torch.launch.mesh import join_mesh, join_world
 from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.train.pipeline_trainer import train_pipeline
 from repro_torch.train.trainer import TrainConfig, train
 
 FACADE = "(ROADMAP.md section 1 item 8h: the facade)"
-PIPELINE = "(ROADMAP.md section 1 item 8f: the 1F1B pipeline)"
-# the ShardingPlans the reference's presets lower to (repro.api.plans)
+# the ShardingPlans the reference's presets lower to (repro.api.plans), and
+# the pipeline presets' (ShardingPlan, PipelineConfig)
 PLANS = {"fsdp_tp": ShardingPlan(), "tp_only": ShardingPlan(fsdp=None)}
+PIPELINE_PLANS = {"pipeline": (ShardingPlan(fsdp=None), PipelineConfig()),
+                  "pipeline_fsdp": (ShardingPlan(), PipelineConfig())}
 
 
 def main(argv=None):
@@ -77,7 +97,10 @@ def main(argv=None):
     ap.add_argument("--offload", action="store_true",
                     help="HyperOffload: params+opt state on host")
     ap.add_argument("--pipeline", type=int, default=0, metavar="STAGES",
-                    help="pipeline-parallel 1F1B (not ported yet)")
+                    help="Mpipe: pipeline-parallel 1F1B over STAGES stage "
+                         "groups (adds a pipeline leg to the chosen plan)")
+    ap.add_argument("--micro-batches", type=int, default=4,
+                    help="micro-batches per step for --pipeline")
     ap.add_argument("--explain", action="store_true",
                     help="plan resolution report (not ported yet)")
     ap.add_argument("--moe-dispatch", default="gshard",
@@ -94,14 +117,20 @@ def main(argv=None):
                          "'cpu' to run the kernels' plain versions there)")
     args = ap.parse_args(argv)
 
-    for given, flag, item in (
-            (args.plan == "offload_all", "--plan offload_all", FACADE),
-            (args.plan.startswith("pipeline"), f"--plan {args.plan}",
-             PIPELINE),
-            (args.pipeline, "--pipeline", PIPELINE),
-            (args.explain, "--explain", FACADE)):
+    for given, flag in ((args.plan == "offload_all", "--plan offload_all"),
+                        (args.explain, "--explain")):
         if given:
-            raise PlanError(f"{flag}: not ported yet {item}")
+            raise PlanError(f"{flag}: not ported yet {FACADE}")
+    plan, pipeline = PIPELINE_PLANS.get(args.plan, (PLANS.get(args.plan),
+                                                    None))
+    if args.pipeline:
+        pipeline = (pipeline or PipelineConfig()).replace(
+            stages=args.pipeline)
+    if pipeline is not None:
+        pipeline = pipeline.replace(micro_batches=args.micro_batches)
+        if args.ckpt_dir:
+            raise PlanError("--ckpt-dir: checkpointing is not wired for the "
+                            "pipeline, as in the reference")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -112,9 +141,16 @@ def main(argv=None):
     if args.global_batch is not None:
         shape = dataclasses.replace(shape, global_batch=args.global_batch)
 
-    mesh, device = (join_mesh(args.device) if args.mesh == "auto"
-                    else (None, args.device))
-    rank0 = mesh is None or mesh.get_rank() == 0
+    import torch.distributed as dist
+    mesh, device, joined = None, args.device, False
+    if args.mesh == "auto" and pipeline is not None:
+        # the stages are carved from the world's ranks: no mesh over it
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            device, joined = join_world(device), True
+    elif args.mesh == "auto":
+        mesh, device = join_mesh(device)
+        joined = mesh is not None
+    rank0 = not joined or dist.get_rank() == 0
 
     def log(m):
         if rank0:
@@ -122,25 +158,32 @@ def main(argv=None):
                   f"grad_norm {m['grad_norm']:.3f}  lr {m['lr']:.2e}  "
                   f"{m['wall_s']:.1f}s", flush=True)
 
+    adamw = AdamWConfig(lr=args.lr, total_steps=args.steps)
+    offload_cfg = (OffloadConfig(params_on_host=True, opt_state_on_host=True)
+                   if args.offload else None)
     try:
-        train(cfg, shape,
-              adamw=AdamWConfig(lr=args.lr, total_steps=args.steps),
-              train_cfg=TrainConfig(
-                  num_steps=args.steps, log_every=10,
-                  ckpt_every=args.steps if args.ckpt_dir else 0,
-                  **({"ckpt_dir": args.ckpt_dir} if args.ckpt_dir else {})),
-              moe_dispatch=args.moe_dispatch, hook=log, device=device,
-              mesh=mesh, plan=PLANS[args.plan],
-              offload_cfg=(OffloadConfig(params_on_host=True,
-                                         opt_state_on_host=True)
-                           if args.offload else None))
+        if pipeline is not None:
+            train_pipeline(cfg, shape, pipeline=pipeline, plan=plan,
+                           offload_cfg=offload_cfg, adamw=adamw,
+                           train_cfg=TrainConfig(num_steps=args.steps,
+                                                 log_every=10),
+                           moe_dispatch=args.moe_dispatch, hook=log,
+                           device=device)
+        else:
+            train(cfg, shape, adamw=adamw,
+                  train_cfg=TrainConfig(
+                      num_steps=args.steps, log_every=10,
+                      ckpt_every=args.steps if args.ckpt_dir else 0,
+                      **({"ckpt_dir": args.ckpt_dir} if args.ckpt_dir
+                         else {})),
+                  moe_dispatch=args.moe_dispatch, hook=log, device=device,
+                  mesh=mesh, plan=plan, offload_cfg=offload_cfg)
     except RuntimeError as e:
         if "no CUDA device" in str(e):
             raise SystemExit(str(e))
         raise
     finally:
-        if mesh is not None:
-            import torch.distributed as dist
+        if joined:
             dist.destroy_process_group()
 
 

@@ -16,6 +16,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from repro_torch.kernels import side_input_problems  # noqa: E402
 
 B, C, H, KV, D, BS, W, N = 3, 8, 14, 2, 64, 16, 6, 32

@@ -2126,3 +2126,210 @@ def test_hand_off_between_two_processes_is_exact(cuda, tmp_path, kind):
     finally:
         if peer.poll() is None:
             peer.kill()
+
+
+# ---------------------------------------------------------------------------
+# the 1F1B pipeline trainer on the card: colocated, and its hand-off of an
+# activation between two processes
+# ---------------------------------------------------------------------------
+def test_colocated_pipeline_step_matches_the_plain_step_on_the_card(cuda):
+    """Reduced qwen2-0.5b in float32 (tied embeddings): one colocated
+    pipeline step (2 stages, 2 micro-batches) against the non-pipelined
+    train step on the card from the same params (both drawn at seed 0,
+    the trainer by ``steps.init_state``) and batch: loss and grad
+    norm within 1e-5 relative, every param within 2e-5 x max(1, |p|), and
+    two flash forwards and one backward a layer and micro-batch."""
+    from repro_torch.configs.base import PipelineConfig
+    from repro_torch.core.tree import tree_flatten_with_path
+    from repro_torch.data.pipeline import DataConfig, make_loader
+    from repro_torch.optim import adamw as opt
+    from repro_torch.train import steps
+    from repro_torch.train.pipeline_trainer import PipelineTrainer
+    cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
+                              dtype="float32")
+    acfg = opt.AdamWConfig(total_steps=1)
+    batch = next(make_loader(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=64, global_batch=4), cuda))
+    p0 = M.init_model(cfg, torch.Generator(device=cuda).manual_seed(0))
+    p1, _, m1 = steps.make_train_step(cfg, acfg)(p0, opt.init_adamw(p0),
+                                                 batch)
+    tr = PipelineTrainer(cfg, PipelineConfig(stages=2, micro_batches=2),
+                         adamw=acfg, device=cuda)
+    n0 = (fa.flash_attention.launches, fa.flash_attention_bwd.launches)
+    m2 = tr.step(batch)
+    assert (fa.flash_attention.launches - n0[0],
+            fa.flash_attention_bwd.launches - n0[1]) == \
+        (2 * cfg.num_layers * 2, cfg.num_layers * 2)
+    for k in ("loss", "grad_norm"):
+        a, b = float(m2[k]), float(m1[k])
+        assert abs(a - b) <= 1e-5 * max(1.0, abs(b)), k
+    want = dict(tree_flatten_with_path(p1))
+    got = dict(tree_flatten_with_path(tr.merged_params()))
+    assert sorted(got) == sorted(want)
+    for k, b in want.items():
+        a = got[k]
+        assert a.device.type == "cuda"
+        assert float((a - b).abs().max()) <= 2e-5 * max(
+            1.0, float(b.abs().max())), k
+
+
+PIPELINE_PEER = """
+import sys, datetime
+sys.path.insert(0, sys.argv[2])
+import torch, torch.distributed as dist
+from repro_torch.core import mpmd
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"file://{sys.argv[1]}/store",
+                        rank=1, world_size=2,
+                        timeout=datetime.timedelta(seconds=120))
+s0, s1 = mpmd.ProcessGroup("stage0", (0,)), mpmd.ProcessGroup("stage1", (1,))
+wire = mpmd.Handoff()
+x = wire.recv((1, 4096, 896), torch.bfloat16, s0, s1, "cuda")
+wire.send(x, s1, s0)
+wire.wait()
+dist.destroy_process_group()
+"""
+
+
+def test_pipeline_handoff_between_two_processes_is_exact(cuda, tmp_path):
+    """A stage's activation at qwen2-0.5b's micro-batch shape (1 x 4096 x
+    896 bf16) handed to a peer process on the same card by
+    ``mpmd.Handoff`` (gloo, the non-blocking send staged through pinned
+    host memory) and back, as a cotangent goes back: both copies equal
+    the seeded tensor, bit for bit, on the card."""
+    import datetime
+    import os
+    import subprocess
+    import sys
+
+    import torch.distributed as dist
+
+    from repro_torch.core import mpmd
+    src_dir = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    peer = subprocess.Popen(
+        [sys.executable, "-c", PIPELINE_PEER, str(tmp_path), src_dir])
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"file://{tmp_path}/store", rank=0,
+            world_size=2, timeout=datetime.timedelta(seconds=120))
+        try:
+            s0, s1 = mpmd.ProcessGroup("stage0", (0,)), \
+                mpmd.ProcessGroup("stage1", (1,))
+            g = torch.Generator(device=cuda).manual_seed(4)
+            x = torch.randn(1, 4096, 896, generator=g,
+                            device=cuda).to(torch.bfloat16)
+            wire = mpmd.Handoff()
+            wire.send(x, s0, s1)
+            back = wire.recv(tuple(x.shape), x.dtype, s1, s0, cuda)
+            wire.wait()
+            assert back.device.type == "cuda" and torch.equal(back, x)
+        finally:
+            dist.destroy_process_group()
+        assert peer.wait(timeout=120) == 0
+    finally:
+        if peer.poll() is None:
+            peer.kill()
+
+
+NCCL_PIPELINE_RANK = """
+import dataclasses, datetime, sys
+sys.path.insert(0, sys.argv[3])
+import torch, torch.distributed as dist
+from repro_torch.configs.base import PipelineConfig, ShapeConfig, get_config
+from repro_torch.core import mpmd
+from repro_torch.core.pipeline import schedule_1f1b
+from repro_torch.core.tree import tree_flatten_with_path
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.train.pipeline_trainer import train_pipeline
+from repro_torch.train.trainer import TrainConfig
+rank = int(sys.argv[2])
+dev = torch.device("cuda", rank)
+torch.cuda.set_device(dev)
+dist.init_process_group("nccl", init_method=f"file://{sys.argv[1]}/store",
+                        rank=rank, world_size=2,
+                        timeout=datetime.timedelta(seconds=60))
+s = [mpmd.ProcessGroup("stage0", (0,)), mpmd.ProcessGroup("stage1", (1,))]
+wire = mpmd.Handoff()
+shape = (1, 4096, 896)
+
+
+def seeded(seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+
+exact = True
+for op in schedule_1f1b(2, 4).ops:
+    if op.stage != rank:
+        continue
+    if op.kind == "F" and rank == 0:
+        wire.send(seeded(op.micro), s[0], s[1])
+    elif op.kind == "F":
+        exact &= torch.equal(wire.recv(shape, torch.bfloat16, s[0], s[1],
+                                       dev), seeded(op.micro))
+    elif rank == 1:
+        wire.send(seeded(100 + op.micro), s[1], s[0])
+    else:
+        exact &= torch.equal(wire.recv(shape, torch.bfloat16, s[1], s[0],
+                                       dev), seeded(100 + op.micro))
+wire.wait()
+torch.cuda.synchronize(dev)
+assert exact, "a hand-off arrived changed"
+
+cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(), dtype="float32")
+
+
+def run():
+    params, hist = train_pipeline(
+        cfg, ShapeConfig("t", 64, 4, "train"),
+        pipeline=PipelineConfig(stages=2, micro_batches=4),
+        adamw=AdamWConfig(total_steps=2),
+        train_cfg=TrainConfig(num_steps=2, log_every=1), device=dev)
+    return dict(tree_flatten_with_path(params)), hist
+
+
+got, hist = run()
+dist.destroy_process_group()
+if rank == 0:
+    want, whist = run()
+    for a, b in zip(hist, whist):
+        for k in ("loss", "grad_norm", "lr"):
+            assert abs(a[k] - b[k]) <= 1e-5 * max(1.0, abs(b[k])), (k, a, b)
+    assert sorted(got) == sorted(want)
+    for k, b in want.items():
+        assert float((got[k] - b).abs().max()) <= 2e-5 * max(
+            1.0, float(b.abs().max())), k
+"""
+
+
+def test_pipeline_handoffs_between_two_cards_under_nccl(cuda, tmp_path):
+    """Two processes, one a card, under NCCL.  First the S = 2, M = 4 1F1B
+    order of hand-offs at qwen2-0.5b's micro-batch shape (1 x 4096 x 896
+    bf16, 7.3 MB: above NCCL's 4 MiB of buffer between two ranks, so a
+    send waits for its receive): stage 0 sends an activation at each F
+    while stage 1 sends a cotangent back at each B.  Both must finish
+    within the process group's 60 s timeout, every tensor bit for bit the
+    seeded one.  Then two steps of the reduced qwen2-0.5b in float32 with
+    one process a stage, against the colocated run of the same config on
+    card 0: loss, grad norm and lr within 1e-5 relative, every merged
+    param within 2e-5 x max(1, |p|)."""
+    import os
+    import subprocess
+    import sys
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: one process a card")
+    src_dir = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    ranks = [subprocess.Popen(
+        [sys.executable, "-c", NCCL_PIPELINE_RANK, str(tmp_path), str(r),
+         src_dir], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in ranks]
+    finally:
+        for p in ranks:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, log) in enumerate(zip(ranks, logs)):
+        assert p.returncode == 0, f"rank {r}:\n{log[-3000:]}"

@@ -24,6 +24,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from repro.data import pipeline as jax_pipeline  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.optim import adamw as jax_opt  # noqa: E402

@@ -30,6 +30,8 @@ from hypothesis import given, settings, strategies as st
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from repro.configs.base import get_config as jax_get_config  # noqa: E402
 from repro.configs.base import list_archs  # noqa: E402
 from repro.core import hypershard as jhs  # noqa: E402

@@ -26,6 +26,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from repro.kernels import perf_model as ref_pm  # noqa: E402
 from repro.kernels import ref  # noqa: E402
 from repro.kernels.decode_attention import \

@@ -45,6 +45,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from tests.conftest import run_subprocess  # noqa: E402
 from tests.test_torch_mesh_train import params_bound  # noqa: E402
 from repro.configs.base import get_config as jax_get_config  # noqa: E402

@@ -33,6 +33,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from repro.serve.engine import GenerateConfig  # noqa: E402
 from repro_torch.ckpt import checkpoint  # noqa: E402
 from repro_torch.configs.base import RLConfig, ServeConfig  # noqa: E402

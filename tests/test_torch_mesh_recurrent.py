@@ -48,6 +48,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from tests.conftest import run_subprocess  # noqa: E402
 from tests.test_torch_mesh_train import params_bound  # noqa: E402
 from tests.test_torch_serve import _generator, _models  # noqa: E402

@@ -29,6 +29,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from repro.configs.base import get_config as jax_get_config  # noqa: E402
 from repro.kernels import ref  # noqa: E402
 from repro.kernels.paged_decode_attention import \

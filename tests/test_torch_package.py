@@ -23,6 +23,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from tests.conftest import REPO, run_subprocess  # noqa: E402
 
 

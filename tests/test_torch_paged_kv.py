@@ -15,6 +15,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from hypothesis import given, settings, strategies as st  # noqa: E402
 
 from repro.serve import paged_kv as ref_kv  # noqa: E402

@@ -36,6 +36,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from repro.api import Supernode, plans  # noqa: E402
 from repro.configs.base import RLConfig as JaxRLConfig  # noqa: E402
 from repro.configs.base import ServeConfig as JaxServeConfig  # noqa: E402

@@ -40,6 +40,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from repro.ckpt import checkpoint as jax_ckpt  # noqa: E402
 from repro.configs.base import ShapeConfig as JaxShapeConfig  # noqa: E402
 from repro.configs.base import get_config as jax_get_config  # noqa: E402
@@ -504,10 +506,12 @@ def test_typed_refusals():
 
 def test_launcher_trains_on_an_explicit_cpu(capsys, monkeypatch):
     """The reference's log line; without ``--device`` the launcher targets
-    the card (and exits without one); ``--offload``, ``--plan tp_only`` and
+    the card (and exits without one); ``--offload``, ``--plan tp_only``,
     ``--mesh auto`` on one rank (no mesh, as the reference's
-    ``Supernode.auto()``) train; the pipeline's and the facade's flags
-    raise, naming their ROADMAP items."""
+    ``Supernode.auto()``), and the 1F1B pipeline's ``--pipeline 2`` and
+    ``--plan pipeline`` (colocated on one rank, with ``--mesh auto`` too)
+    train; the facade's flags raise, naming its ROADMAP item, and so does
+    ``--ckpt-dir`` with a pipeline (checkpointing is not wired there)."""
     from repro_torch.launch import train as launcher
     launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--steps", "2",
                    "--device", "cpu", "--global-batch", "2"])
@@ -515,17 +519,22 @@ def test_launcher_trains_on_an_explicit_cpu(capsys, monkeypatch):
     assert len(out) == 1 and out[0].startswith("step     1  loss ")
     assert "grad_norm" in out[0] and " lr " in out[0]
     monkeypatch.delenv("WORLD_SIZE", raising=False)
-    for flags in (["--offload"], ["--plan", "tp_only"], ["--mesh", "auto"]):
+    for flags in (["--offload"], ["--plan", "tp_only"], ["--mesh", "auto"],
+                  ["--pipeline", "2", "--micro-batches", "2"],
+                  ["--plan", "pipeline", "--micro-batches", "2"],
+                  ["--mesh", "auto", "--pipeline", "2", "--micro-batches",
+                   "2"]):
         launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--steps", "1",
                        "--device", "cpu", "--global-batch", "2", *flags])
         out = capsys.readouterr().out.strip().splitlines()
         assert len(out) == 1 and out[0].startswith("step     1  loss ")
-    for flags, item in ((["--pipeline", "2"], "item 8f"),
-                        (["--plan", "pipeline"], "item 8f"),
-                        (["--plan", "offload_all"], "item 8h"),
-                        (["--explain"], "item 8h")):
-        with pytest.raises(PlanError, match=item):
+    for flags in (["--plan", "offload_all"], ["--explain"]):
+        with pytest.raises(PlanError, match="item 8h"):
             launcher.main(["--arch", "qwen2-0.5b", "--reduced", *flags])
+    with pytest.raises(PlanError, match="checkpointing is not wired for "
+                       "the pipeline"):
+        launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--pipeline",
+                       "2", "--ckpt-dir", "ckpt"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--steps", "1"])
