@@ -57,7 +57,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                  window 2048), against flash_attention_bwd_ref and, in
                  f32, autograd through the plain forward, each case
                  logging the backward's body (flash_bwd_body) and its
-                 ptxas registers and spills; ssd_scan_bwd at phase 31's
+                 ptxas registers and spills; in bf16 also the
+                 deterministic backward (torch.use_deterministic_algorithms
+                 (True): the FMA body, no atomics) at phase 23's and phase
+                 26's shapes, at the same limits, a second call bit for
+                 bit the first, timed; ssd_scan_bwd at phase 31's
                  shape (4 x 4096, H = 32, (64, 128), chunks of 256) and
                  rglru_scan_bwd at phase 34's (1 x 4096 x 2560), and both
                  at 2 x 1024 with an initial state and dfin, against their
@@ -294,10 +298,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                  2 x 4096 under fsdp_tp: gshard (8 flash forwards and 4
                  backwards a step, no grouped matmul) and ragged (18
                  grouped matmuls and 9 of each backward kernel a step),
-                 each within 2^-8 / 4 of phases 26 and 27a's first 4 steps
-                 (or twice a second run without the mesh's distance,
-                 where that is larger: the dQ atomics),
-                 wall, tok/s and peak beside theirs; the f32 identity at
+                 wall, tok/s and peak beside phases 26 and 27a's; under
+                 each dispatch a pair of runs under
+                 torch.use_deterministic_algorithms(True) (the flash
+                 backward's bf16 body without atomics), without the mesh
+                 and on it, their losses and grad norms within 2^-8 / 4
+                 of each other with no rerun; the f32 identity at
                  phase 28's shape against no mesh.  Last the deepseek
                  path's kernels handed DTensors (the MLA decode, the
                  grouped matmul at decode and prefill rows, its backward's
@@ -423,7 +429,31 @@ Phases, in order; any failure raises and the script exits non-zero:
                  both, the step wall beside phase 45's; the activation
                  (and cotangent) hand-off's and the tied ``embed`` sync's
                  ms and GB/s;
-  47. result   — the nvidia-smi line, the kernel JSON line (twelve sources;
+  47. fabric   — HyperFabric: qwen2-0.5b bf16 at full width through
+                 ``Supernode.auto().fabric`` (two replicas colocated on
+                 the card, phase 4's ServeConfig each, tenants chat
+                 (interactive) and bulk (batch), elastic): a warm-up chat
+                 request, 40 requests one router step apart (two of three
+                 chat: a shared 512-token system prompt and a 16-64 token
+                 tail; one of three bulk, 1000-1500 tokens; 64 new each),
+                 then a burst of 12 at once that re-activates the drained
+                 replica; exactly 24 paged decodes a decode step and 24
+                 ragged prefills a prefill call of either replica,
+                 submitted = dispatched = finished, none rejected, a
+                 scale-down and a scale-up; aggregate decode tok/s, median
+                 TTFT by SLO class (wall and router steps), the front
+                 door's host ms a router step and a profile of the burst's
+                 first 8 router steps; an f32 rerun at 8 layers routes the
+                 same (the replica states and counters after every router
+                 step, the dispatch log) and every request's tokens equal a
+                 lone HyperServe's;
+  48. fabric mpmd — the f32 rerun with replica 1 in a child process on
+                 the same card (``--mpmd-child fabric``, gloo, the
+                 replicas' values shared from their rank): both processes'
+                 dispatch logs, per-step traces, tokens and counters bit
+                 for bit phase 47's f32 run, each process's launches its
+                 own replica's;
+  49. result   — the nvidia-smi line, the kernel JSON line (twelve sources;
                  flash has a row for each run it is on: phase 6's (64, 64),
                  phase 12's (192, 128), phase 21's (256, 256), phase 23's
                  train shape with lse, phase 26's at (192, 128) and phase
@@ -447,7 +477,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                  micro-batch (1 x 4096, (14, 2, 64), lse), checked in
                  phase 3, with phase 45's launches, and again as
                  ``_pipeline_mpmd`` with both of phase 46's processes';
-                 each with that run's launches), and
+                 the deterministic backward at phase 23's shape (no path
+                 launches it) and at phase 26's with phase 38c's
+                 deterministic runs' launches; phase 4's serving rows
+                 again as ``_fabric`` with phase 47's launches; each with
+                 that run's launches), and
                  ``{"ok": true,
                  "device": {...}}`` as the last line.
 
@@ -775,6 +809,28 @@ def grad_parity(torch, dtype_name, got, want, want32):
     err32 = (got.float() - want32).abs()
     share32 = err32 / (0.5 * bf16_step(torch, want32) + lim)
     return err.max().item(), max(share.max().item(), share32.max().item())
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """``torch.use_deterministic_algorithms(True)`` inside the block (the
+    flash backward then takes its bf16 body without atomics, PyTorch's own
+    kernels their deterministic versions), the setting before it restored
+    after."""
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before)
+
+
+def under_deterministic(torch, fn):
+    """``fn`` called under :func:`deterministic` (for ``time_ms``)."""
+    def call(*args, **kw):
+        with deterministic(torch):
+            return fn(*args, **kw)
+    return call
 
 
 def decode_inputs(torch, dtype, device, heads=H, kv=KV, dim=D):
@@ -1710,6 +1766,11 @@ def bwd_kernel_names(fa, dtype, dk, dv):
 # 26 and 29): each also holds the forward with its lse and is timed
 TRAIN_RUNS = ("train", "mla train", "musicgen train", "recurrentgemma train",
               "pipeline micro")
+# the bf16 backward at qwen2's and deepseek-v2-lite's train shapes under
+# torch.use_deterministic_algorithms(True) (the FMA body, no atomics: phase
+# 38c's bf16 pair runs it), checked and timed in bf16 only (in f32 the FMA
+# body is the default)
+DETERMINISTIC_RUNS = ("deterministic train", "deterministic mla train")
 
 
 def rg_attention():
@@ -1742,12 +1803,14 @@ def train_kernel_checks(torch, dtype_name, timed):
     reduced MLA pair (96, 64), against ``flash_attention_bwd_ref`` and, in
     f32, against autograd through ``flash_attention_ref`` (in bf16 the
     saved output is rounded, so autograd of the f32 forward is another
-    function)."""
+    function); in bf16 also the DETERMINISTIC_RUNS, qwen2's and
+    deepseek-v2-lite's train shapes under ``deterministic`` (the FMA body),
+    two calls bit for bit and each at the same limits."""
     from repro_torch.kernels import flash_attention as fa
     dtype = getattr(torch, dtype_name)
     wide = BWD_WIDE + BWD_WIDE[2:]
     mg_heads, mg_positions = mg_attention()
-    for case, (heads, kv, dk, dv), batch, seq, window in (
+    cases = (
             ("train", (H, KV, D, D), TRAIN_B, TRAIN_S, None),
             ("wide", wide, BWD_WIDE_B, BWD_WIDE_S, None),
             ("wide windowed", wide, BWD_WIDE_B, BWD_WIDE_S, WINDOW),
@@ -1758,84 +1821,110 @@ def train_kernel_checks(torch, dtype_name, timed):
             ("recurrentgemma train", rg_attention(), RG_TRAIN_B, RG_TRAIN_S,
              RG_WINDOW),
             ("pipeline micro", (H, KV, D, D), PIPE_B // PIPE_MICRO, TRAIN_S,
-             None)):
-        args = bwd_inputs(torch, dtype, heads, kv, dk, dv, batch, seq,
-                          window, SEED + 50)
-        kw = dict(causal=True, window=window)
-        what = f"B={batch} S={seq} H={heads} KV={kv} Dk={dk} Dv={dv}"
-        if case in TRAIN_RUNS:
-            q, k, v, out, lse = args[:5]
-            want, want_lse = fa.flash_attention_lse_ref(q, k, v, **kw)
-            want32 = fa.flash_attention_ref(q.float(), k.float(), v.float(),
-                                            **kw)
-            err, share = parity(torch, dtype_name, out, want, want32)
-            lse_err = (lse - want_lse).abs().max().item()
-            lse_share = lse_err / (F32_TOL * max(
-                1.0, want_lse.abs().max().item()))
-            sync(torch)
-            log(f"[kernels] flash_attention with lse ({case}, {what}) "
-                f"{dtype_name}: out max_abs_err={err:.3e} ({share:.3f} of "
-                f"allowed), lse max_abs_err={lse_err:.3e} ({lse_share:.3f} "
-                f"of {F32_TOL} x max(1, max |lse|), f32 in both dtypes)")
-            if not max(share, lse_share) <= 1:
-                raise AssertionError("kernel parity failed: flash_attention "
-                                     f"with lse {dtype_name}")
-            if dtype_name == "bfloat16":
-                timed[("flash_attention", f"{case} lse")] = (
-                    fa.flash_attention_lse, fa.flash_attention_lse_ref,
-                    (q, k, v), kw, max(err, lse_err))
-            del want, want_lse, want32
-        body = fa.flash_bwd_body(dtype, dk, dv)
-        kernels = bwd_kernel_names(fa, dtype, dk, dv)
-        report = {fn: (regs, spill) for fn, regs, spill
-                  in PTXAS.get("flash_attention_bwd", ())}
-        log(f"[kernels] flash_attention_bwd ({case}) {dtype_name}: body "
-            f"{body}: " + ", ".join(
-                f"{fn} {report[fn][0]} registers, {report[fn][1]} bytes spill "
-                "stores" if fn in report else f"{fn} (built before this run: "
-                "no ptxas report)" for fn in kernels))
-        n0 = fa.flash_attention_bwd.launches
-        got = fa.flash_attention_bwd(*args, **kw)
-        wants = fa.flash_attention_bwd_ref(*args, **kw)
-        wants32 = fa.flash_attention_bwd_ref(
-            *(t.float() for t in args), **kw)
-        checks = [grad_parity(torch, dtype_name, g, w, w32)
-                  for g, w, w32 in zip(got, wants, wants32)]
-        sync(torch)
-        if fa.flash_attention_bwd.launches != n0 + 1:
-            raise AssertionError("flash_attention_bwd launched no kernel")
-        scale_of = [max(1.0, w.abs().max().item()) for w in wants32]
-        msg = ", ".join(f"d{n} {c[0]:.3e} ({c[1]:.3f}; max |grad| {m:.3g})"
-                        for n, c, m in zip("qkv", checks, scale_of))
-        share = max(c[1] for c in checks)
-        del wants, wants32
-        if dtype_name == "float32":
-            leaves = [t.clone().requires_grad_() for t in args[:3]]
-            auto = torch.autograd.grad(fa.flash_attention_ref(*leaves, **kw),
-                                       leaves, args[5])
-            auto_checks = [grad_parity(torch, dtype_name, g, a, a)
-                           for g, a in zip(got, auto)]
-            msg += "; against autograd through the plain forward " + \
-                ", ".join(f"d{n} {c[0]:.3e} ({c[1]:.3f})"
-                          for n, c in zip("qkv", auto_checks))
-            share = max([share] + [c[1] for c in auto_checks])
-            del leaves, auto
-        log(f"[kernels] flash_attention_bwd ({case}, {what}) {dtype_name} "
-            f"window={window}: max_abs_err {msg} (limit: {F32_TOL} x max(1, "
-            "max |grad|)" + ("" if dtype_name == "float32" else
-                             ", as slack beside one bf16 step of the plain "
-                             "version and half a step of its f32 result")
-            + ")")
-        if not share <= 1:
-            raise AssertionError(f"kernel parity failed: flash_attention_bwd "
-                                 f"{case} {dtype_name}")
-        if dtype_name == "bfloat16" and case in TRAIN_RUNS + (
-                "wide", "mla reduced"):
-            timed[("flash_attention_bwd", case)] = (
-                fa.flash_attention_bwd, fa.flash_attention_bwd_ref, args, kw,
-                max(c[0] for c in checks))
-        del got
+             None))
+    if dtype_name == "bfloat16":
+        cases += (("deterministic train", (H, KV, D, D), TRAIN_B, TRAIN_S,
+                   None),
+                  ("deterministic mla train", BWD_MLA, DS_TRAIN_B,
+                   DS_TRAIN_S, None))
+    for case, (heads, kv, dk, dv), batch, seq, window in cases:
+        det = case in DETERMINISTIC_RUNS
+        with (deterministic(torch) if det else contextlib.nullcontext()):
+            bwd_check(torch, fa, dtype_name, dtype, timed, case, heads, kv,
+                      dk, dv, batch, seq, window)
         torch.cuda.empty_cache()
+
+
+def bwd_check(torch, fa, dtype_name, dtype, timed, case, heads, kv, dk, dv,
+              batch, seq, window):
+    """One case of :func:`train_kernel_checks`."""
+    args = bwd_inputs(torch, dtype, heads, kv, dk, dv, batch, seq,
+                      window, SEED + 50)
+    kw = dict(causal=True, window=window)
+    what = f"B={batch} S={seq} H={heads} KV={kv} Dk={dk} Dv={dv}"
+    if case in TRAIN_RUNS:
+        q, k, v, out, lse = args[:5]
+        want, want_lse = fa.flash_attention_lse_ref(q, k, v, **kw)
+        want32 = fa.flash_attention_ref(q.float(), k.float(), v.float(),
+                                        **kw)
+        err, share = parity(torch, dtype_name, out, want, want32)
+        lse_err = (lse - want_lse).abs().max().item()
+        lse_share = lse_err / (F32_TOL * max(
+            1.0, want_lse.abs().max().item()))
+        sync(torch)
+        log(f"[kernels] flash_attention with lse ({case}, {what}) "
+            f"{dtype_name}: out max_abs_err={err:.3e} ({share:.3f} of "
+            f"allowed), lse max_abs_err={lse_err:.3e} ({lse_share:.3f} "
+            f"of {F32_TOL} x max(1, max |lse|), f32 in both dtypes)")
+        if not max(share, lse_share) <= 1:
+            raise AssertionError("kernel parity failed: flash_attention "
+                                 f"with lse {dtype_name}")
+        if dtype_name == "bfloat16":
+            timed[("flash_attention", f"{case} lse")] = (
+                fa.flash_attention_lse, fa.flash_attention_lse_ref,
+                (q, k, v), kw, max(err, lse_err))
+        del want, want_lse, want32
+    body = fa.flash_bwd_body(dtype, dk, dv)
+    kernels = bwd_kernel_names(fa, dtype, dk, dv)
+    report = {fn: (regs, spill) for fn, regs, spill
+              in PTXAS.get("flash_attention_bwd", ())}
+    log(f"[kernels] flash_attention_bwd ({case}) {dtype_name}: body "
+        f"{body}: " + ", ".join(
+            f"{fn} {report[fn][0]} registers, {report[fn][1]} bytes spill "
+            "stores" if fn in report else f"{fn} (built before this run: "
+            "no ptxas report)" for fn in kernels))
+    n0 = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(*args, **kw)
+    wants = fa.flash_attention_bwd_ref(*args, **kw)
+    wants32 = fa.flash_attention_bwd_ref(
+        *(t.float() for t in args), **kw)
+    checks = [grad_parity(torch, dtype_name, g, w, w32)
+              for g, w, w32 in zip(got, wants, wants32)]
+    sync(torch)
+    if fa.flash_attention_bwd.launches != n0 + 1:
+        raise AssertionError("flash_attention_bwd launched no kernel")
+    scale_of = [max(1.0, w.abs().max().item()) for w in wants32]
+    msg = ", ".join(f"d{n} {c[0]:.3e} ({c[1]:.3f}; max |grad| {m:.3g})"
+                    for n, c, m in zip("qkv", checks, scale_of))
+    share = max(c[1] for c in checks)
+    del wants, wants32
+    if dtype_name == "float32":
+        leaves = [t.clone().requires_grad_() for t in args[:3]]
+        auto = torch.autograd.grad(fa.flash_attention_ref(*leaves, **kw),
+                                   leaves, args[5])
+        auto_checks = [grad_parity(torch, dtype_name, g, a, a)
+                       for g, a in zip(got, auto)]
+        msg += "; against autograd through the plain forward " + \
+            ", ".join(f"d{n} {c[0]:.3e} ({c[1]:.3f})"
+                      for n, c in zip("qkv", auto_checks))
+        share = max([share] + [c[1] for c in auto_checks])
+        del leaves, auto
+    log(f"[kernels] flash_attention_bwd ({case}, {what}) {dtype_name} "
+        f"window={window}: max_abs_err {msg} (limit: {F32_TOL} x max(1, "
+        "max |grad|)" + ("" if dtype_name == "float32" else
+                         ", as slack beside one bf16 step of the plain "
+                         "version and half a step of its f32 result")
+        + ")")
+    if not share <= 1:
+        raise AssertionError(f"kernel parity failed: flash_attention_bwd "
+                             f"{case} {dtype_name}")
+    fn = fa.flash_attention_bwd
+    if case in DETERMINISTIC_RUNS:
+        again = fa.flash_attention_bwd(*args, **kw)
+        same = all(torch.equal(a, b) for a, b in zip(again, got))
+        log(f"[kernels] flash_attention_bwd ({case}) {dtype_name}: a second "
+            f"call bit for bit the first (dq, dk, dv)={same}")
+        if body != "fma" or not same:
+            raise AssertionError(f"flash_attention_bwd ({case}): body {body}"
+                                 f", replays={same}")
+        del again
+        fn = under_deterministic(torch, fa.flash_attention_bwd)
+    if dtype_name == "bfloat16" and case in TRAIN_RUNS + DETERMINISTIC_RUNS + (
+            "wide", "mla reduced"):
+        timed[("flash_attention_bwd", case)] = (
+            fn, fa.flash_attention_bwd_ref, args, kw,
+            max(c[0] for c in checks))
+    del got
 
 
 def ssd_bwd_cases(torch, dtype):
@@ -2133,6 +2222,8 @@ def train_table(torch, pm, timed):
     rh, rkv, rd, _ = rg_attention()
     rg_path = f"{RG_ARCH} train"
     nargs = timed[("flash_attention_bwd", "mla reduced")][2]
+    dargs = timed[("flash_attention_bwd", "deterministic train")][2]
+    dmargs = timed[("flash_attention_bwd", "deterministic mla train")][2]
     pq, pk, pv = timed[("flash_attention", "pipeline micro lse")][2]
     pargs = timed[("flash_attention_bwd", "pipeline micro")][2]
     pb = PIPE_B // PIPE_MICRO
@@ -2226,6 +2317,25 @@ def train_table(torch, pm, timed):
          "SDPA backward (autograd.grad through SDPA causal, enable_gqa, less "
          "its forward; transposes excluded)",
          "src/repro/kernels/flash_attention.py:87", "qwen2-0.5b pipeline"),
+        # the deterministic body (phase 38c's bf16 pair) at qwen2's train
+        # shape (no run here launches it: 0) and at deepseek-v2-lite's
+        ("flash_attention_bwd", "deterministic train",
+         pm.flash_attention_bwd_cost(batch=TRAIN_B, seq_q=TRAIN_S,
+                                     seq_k=TRAIN_S, dk=D, dv=D, **shape),
+         sdpa_flash_bwd(torch, *dargs),
+         "SDPA backward, its default (autograd.grad through SDPA causal, "
+         "enable_gqa, less its forward; transposes excluded)",
+         "src/repro/kernels/flash_attention.py:87", None),
+        ("flash_attention_bwd", "deterministic mla train",
+         pm.flash_attention_bwd_cost(batch=DS_TRAIN_B, seq_q=DS_TRAIN_S,
+                                     seq_k=DS_TRAIN_S, num_heads=mh,
+                                     kv_heads=mkv, dk=mdk, dv=mdv,
+                                     itemsize=2),
+         sdpa_flash_bwd(torch, *dmargs),
+         "SDPA backward, its default (autograd.grad through SDPA causal, "
+         "less its forward; transposes excluded)",
+         "src/repro/kernels/flash_attention.py:87",
+         f"{DS_ARCH} deterministic train"),
         # the reduced MLA pair: no run here trains at it (0 launches)
         ("flash_attention_bwd", "mla reduced",
          pm.flash_attention_bwd_cost(batch=BWD_MLA_REDUCED_B,
@@ -2424,6 +2534,10 @@ ROW_NAMES = {("flash_attention", "MLA rows q_offset (192, 128)"):
              "flash_attention_bwd_d256_g10",
              ("flash_attention_bwd", "mla reduced"):
              "flash_attention_bwd_dk96_dv64",
+             ("flash_attention_bwd", "deterministic train"):
+             "flash_attention_bwd_deterministic",
+             ("flash_attention_bwd", "deterministic mla train"):
+             "flash_attention_bwd_deterministic_dk192_dv128",
              ("flash_attention", "pipeline micro lse"):
              "flash_attention_pipeline_micro",
              ("flash_attention_bwd", "pipeline micro"):
@@ -2604,6 +2718,15 @@ def _device_ms(evt) -> float:
     return us / 1e3
 
 
+def device_profile():
+    """torch.profiler over the card's activity alone: every profile here
+    reads device time by kernel (``report_profile``), and tracing the
+    host's operators as well doubled a profile phase's time and slowed the
+    windows' walls under it; the device busy reads the same either way)."""
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
 def report_profile(tag, windows, shares=None):
     """Device time by kernel against wall time for each profiled window
     ``(name, profiler, wall seconds, steps)``, per step; ``shares``
@@ -2633,11 +2756,9 @@ def phase_profile(torch, serve, prompts, max_new=64, tag="profile"):
     """Where a step's time goes: torch.profiler over one prefill call (the
     first step of a fresh batch) and over steady decode steps, device time
     by kernel against the step's wall time."""
-    from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     rids = [serve.submit(p, max_new) for p in prompts]
     windows = []
-    with profile(activities=acts) as prof:
+    with device_profile() as prof:
         sync(torch)
         t0 = time.perf_counter()
         serve.step_once()                    # admits 16, prefills 4 chunks
@@ -2647,7 +2768,7 @@ def phase_profile(torch, serve, prompts, max_new=64, tag="profile"):
     while any(r.state.value == "prefilling" for r in sched.active):
         serve.step_once()
     n = 8
-    with profile(activities=acts) as prof:
+    with device_profile() as prof:
         sync(torch)
         t0 = time.perf_counter()
         for _ in range(n):
@@ -2770,13 +2891,11 @@ def phase_dense(torch, np):
 
 def phase_dense_profile(torch, gen, prompts):
     """torch.profiler over one Generator prefill and 8 decode steps."""
-    from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     n = 8
-    with profile(activities=acts) as prof:
+    with device_profile() as prof:
         wall, logits, pcaches = dense_prefill(torch, gen, prompts)
     windows = [("dense prefill", prof, wall, 1)]
-    with profile(activities=acts) as prof:
+    with device_profile() as prof:
         # the seating runs before the profiled window opens
         wall = dense_decode(torch, gen, logits, pcaches, GEN_S, n)
     windows.append(("dense decode step", prof, wall, n))
@@ -3895,7 +4014,6 @@ def phase_train_profile(torch, arch="qwen2-0.5b", layers=None,
     """torch.profiler over one train step (after a warm step) of the same
     configuration as phase_train's: device busy, idle share and top device
     items (and report_profile's ``shares``)."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import DataConfig, make_loader
     from repro_torch.optim.adamw import AdamWConfig
@@ -3911,8 +4029,7 @@ def phase_train_profile(torch, arch="qwen2-0.5b", layers=None,
                                     seed=SEED), DEVICE)
     params, opt, _ = step(params, opt, next(loader))          # warm
     batch = next(loader)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         sync(torch)
         t0 = time.perf_counter()
         params, opt, _ = step(params, opt, batch)
@@ -4624,12 +4741,11 @@ def phase_deepseek_mesh(torch, np, mesh, moe_summary, ds_records):
     DS_TRAIN_LAYERS, bf16, DS_TRAIN_B x DS_TRAIN_S, fsdp_tp: MESH_STEPS
     steps under gshard (8 flash forwards and 4 backwards a step, no
     grouped matmul) and under ragged (18 grouped matmuls and 9 of each
-    backward kernel a step), loss and grad norm within MESH_BF16_REL of
-    phases 26 and 27a's first MESH_STEPS steps (``ds_records``: dispatch
-    -> record), or within twice the distance of a second run without the
-    mesh where that is larger (the bf16 backward's dQ atomics), wall,
-    tok/s and peak beside theirs; and the f32 identity at phase 28's
-    shape against no mesh.  Nothing here is caught.
+    backward kernel a step), wall, tok/s and peak beside phases 26 and
+    27a's (``ds_records``: dispatch -> record); under each dispatch the
+    :func:`deterministic_pair`, held to MESH_BF16_REL with no rerun; and
+    the f32 identity at phase 28's shape against no mesh.  Nothing here
+    is caught.
     Returns (the launches of each run, the kernel rows)."""
     from repro_torch.configs.base import ServeConfig, ShapeConfig, get_config
     from repro_torch.core.hypershard import ShardingPlan
@@ -4664,6 +4780,7 @@ def phase_deepseek_mesh(torch, np, mesh, moe_summary, ds_records):
     del params
     torch.cuda.empty_cache()
     plan = ShardingPlan()
+    det_launches = {}
     for dispatch, tag, base_tag in (
             ("gshard", "deepseek mesh train", "deepseek train"),
             ("ragged", "deepseek mesh ragged train", "deepseek ragged train")):
@@ -4674,37 +4791,25 @@ def phase_deepseek_mesh(torch, np, mesh, moe_summary, ds_records):
             MESH_STEPS, tag, record=rec, moe_dispatch=dispatch, mesh=mesh,
             plan=plan, summary=summ)
         base, base_summ = ds_records[dispatch]
-
-        def dist(run):
-            return max(abs(x[0][k] - y[0][k]) / max(1.0, abs(y[0][k]))
-                       for x, y in zip(run, base[:MESH_STEPS])
-                       for k in ("loss", "grad_norm"))
-        rel, noise = dist(rec), 0.0
-        if not rel <= MESH_BF16_REL:
-            # two bf16 runs without a mesh part too (the flash backward's
-            # dQ atomics, amplified through deepseek's routing: step 4's
-            # grad norm of phase 26 spans 1.2e-3 relative over five runs
-            # on the H100, PERF.md), so a second run without the mesh
-            # measures that noise here, and the mesh run may part from the
-            # first by twice it where that exceeds MESH_BF16_REL
-            again = []
-            phase_train(torch, np, DS_ARCH, DS_TRAIN_LAYERS, DS_TRAIN_B,
-                        DS_TRAIN_S, MESH_STEPS, f"{base_tag} again",
-                        record=again, moe_dispatch=dispatch)
-            noise = dist(again)
-        limit = max(MESH_BF16_REL, 2 * noise)
         log(f"[{tag}] bf16 {DS_TRAIN_B} x {DS_TRAIN_S} on the "
             f"{tuple(mesh.shape)} mesh against {base_tag} in this process: "
-            f"loss and grad norm within {rel:.3e} relative (a second run "
-            f"without the mesh, run only where the first limit is not met: "
-            f"{noise:.3e}; limit {limit:.3e}, the larger "
-            f"of {MESH_BF16_REL:.3e} and twice that); median step "
-            f"{summ['median_s']:.4f}s vs {base_summ['median_s']:.4f}s, "
-            f"{summ['tok_s']:.1f} vs {base_summ['tok_s']:.1f} train tok/s, "
-            f"peak {summ['peak_gib']:.2f} vs {base_summ['peak_gib']:.2f} GiB")
-        if len(rec) != MESH_STEPS or not rel <= limit:
-            raise AssertionError(f"{tag}: bf16 run differs by {rel}")
+            f"median step {summ['median_s']:.4f}s vs "
+            f"{base_summ['median_s']:.4f}s, {summ['tok_s']:.1f} vs "
+            f"{base_summ['tok_s']:.1f} train tok/s, peak "
+            f"{summ['peak_gib']:.2f} vs {base_summ['peak_gib']:.2f} GiB; "
+            f"loss and grad norm within {ds_distance(rec, base):.3e} "
+            "relative (not held: the dQ atomics of the default backward; "
+            "the deterministic pair below is)")
         torch.cuda.empty_cache()
+        rel, launches = deterministic_pair(torch, np, mesh, plan, dispatch,
+                                           tag)
+        for k, v in launches.items():
+            det_launches[k] = det_launches.get(k, 0) + v
+        if not rel <= MESH_BF16_REL:
+            raise AssertionError(f"{tag}: the deterministic bf16 runs with "
+                                 f"and without the mesh differ by {rel}")
+        torch.cuda.empty_cache()
+    runs[f"{DS_ARCH} deterministic train"] = det_launches
     mesh_train_identity(
         torch, dataclasses.replace(cfg, dtype="float32",
                                    num_layers=DS_TRAIN_ID_LAYERS),
@@ -4712,6 +4817,44 @@ def phase_deepseek_mesh(torch, np, mesh, moe_summary, ds_records):
         DS_TRAIN_ID_STEPS, mesh, plan, "deepseek mesh train identity")
     torch.cuda.empty_cache()
     return runs, ds_mesh_kernel_rows(torch, mesh)
+
+
+def ds_distance(run, base):
+    """The largest relative distance of two train records' losses and grad
+    norms over their first MESH_STEPS steps (max(1, |x|) below)."""
+    return max(abs(x[0][k] - y[0][k]) / max(1.0, abs(y[0][k]))
+               for x, y in zip(run, base[:MESH_STEPS])
+               for k in ("loss", "grad_norm"))
+
+
+def deterministic_pair(torch, np, mesh, plan, dispatch, tag):
+    """Phase 38c's bf16 check: deepseek-v2-lite at DS_TRAIN_LAYERS,
+    DS_TRAIN_B x DS_TRAIN_S, MESH_STEPS steps under ``dispatch``, twice
+    under ``deterministic`` (torch.use_deterministic_algorithms(True): the
+    flash backward's bf16 body without atomics, PyTorch's deterministic
+    kernels), without the mesh and on ``mesh`` under ``plan``, each with
+    phase_train's exact launches.  Returns (the largest relative distance
+    of their losses and grad norms, the two runs' launches summed)."""
+    recs, launches = {}, {}
+    with deterministic(torch):
+        for name, m in (("no mesh", None), ("mesh", mesh)):
+            recs[name] = []
+            got = phase_train(torch, np, DS_ARCH, DS_TRAIN_LAYERS,
+                              DS_TRAIN_B, DS_TRAIN_S, MESH_STEPS,
+                              f"{tag} deterministic, {name}",
+                              record=recs[name], moe_dispatch=dispatch,
+                              mesh=m, plan=plan if m is not None else None)
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+            torch.cuda.empty_cache()
+    rel = ds_distance(recs["mesh"], recs["no mesh"])
+    log(f"[{tag}] deterministic bf16 pair, {dispatch}: on the "
+        f"{tuple(mesh.shape)} mesh against no mesh, loss and grad norm "
+        f"within {rel:.3e} relative (limit {MESH_BF16_REL:.3e}, no rerun); "
+        f"bit for bit={rel == 0.0}; grad norms "
+        + ", ".join(f"{a[0]['grad_norm']:.9g}/{b[0]['grad_norm']:.9g}"
+                    for a, b in zip(recs["mesh"], recs["no mesh"])))
+    return rel, launches
 
 
 def ds_mesh_kernel_rows(torch, mesh):
@@ -5293,7 +5436,6 @@ def phase_rl(torch, np, summary=None):
 def rl_profile(torch, np, rl, cfg):
     """torch.profiler over RL rollout decode steps: a group's seats all
     decoding, each step sampling every seat with the batched sampler."""
-    from torch.profiler import ProfilerActivity, profile
     actor = rl.actor
     for p in rl_prompts(np, cfg, RL_PROMPTS, RL_PROMPT_LEN, 9):
         actor.submit_group(p)
@@ -5306,8 +5448,7 @@ def rl_profile(torch, np, rl, cfg):
     else:
         raise AssertionError("rl profile: the group never reached decode")
     n = 8
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         sync(torch)
         t0 = time.perf_counter()
         for _ in range(n):
@@ -5487,8 +5628,8 @@ def mpmd_pair(child_role, main_rank):
 
 
 def mpmd_child(role, tmp, rank):
-    """The child's side of phase 42 (``prefill``), 44 (``learner``) or 46
-    (``pipeline``)."""
+    """The child's side of phase 42 (``prefill``), 44 (``learner``), 46
+    (``pipeline``) or 48 (``fabric``)."""
     import datetime
 
     import numpy as np
@@ -5502,6 +5643,7 @@ def mpmd_child(role, tmp, rank):
     try:
         out = (disagg_serve_runs(torch, np) if role == "prefill"
                else pipeline_mpmd_runs(torch, np) if role == "pipeline"
+               else fabric_mpmd_runs(torch, np) if role == "fabric"
                else rl_disagg_runs(torch, np, None))
     finally:
         dist.destroy_process_group()
@@ -6147,7 +6289,6 @@ def pipeline_profile(torch):
     """torch.profiler over one colocated pipeline step (after a warm step)
     of phase 45's bf16 configuration: device busy, idle share and the top
     device items, flash's forward and backward shares."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import PipelineConfig, get_config
     from repro_torch.data.pipeline import DataConfig, make_loader
     from repro_torch.optim.adamw import AdamWConfig
@@ -6162,8 +6303,7 @@ def pipeline_profile(torch):
                                     seed=SEED), DEVICE)
     tr.step(next(loader))                                   # warm
     batch = next(loader)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         sync(torch)
         t0 = time.perf_counter()
         tr.step(batch)
@@ -6461,6 +6601,320 @@ def phase_pipeline_mpmd(torch, np, pipe_f32, pipe_summary):
             for k in got["launches"]}
 
 
+# phases 47-48: HyperFabric, qwen2-0.5b through Supernode.fabric at phase
+# 4's ServeConfig (a replica each), two replicas, two tenants (chat
+# interactive, bulk batch), elastic; FAB_REQUESTS requests one router step
+# apart (two of three chat: the shared FAB_SYSTEM-token system prompt and
+# a tail of FAB_TAIL tokens; one of three bulk: FAB_BULK tokens), FAB_NEW
+# new tokens each, after one warm-up chat request, then a burst of
+# FAB_BURST at once; the f32 rerun (and phase 48) at FAB_ID_LAYERS layers
+# (cut for time: the routing is the same at any depth)
+FAB_REQUESTS, FAB_BURST, FAB_NEW = 40, 12, 64
+FAB_SYSTEM, FAB_TAIL, FAB_BULK = 512, (16, 64), (1000, 1500)
+FAB_ID_LAYERS = 8
+FAB_PROFILE_STEPS = 8
+# the router's deterministic counters, held exactly between runs
+FAB_COUNTERS = ("submitted", "dispatched", "finished", "rejected",
+                "affinity_hits", "affinity_misses", "scale_up", "scale_down")
+
+
+def fabric_plan():
+    """The phases' plan: ``plans.fabric`` with phase 4's ServeConfig and
+    the two-tenant elastic FabricConfig."""
+    from repro_torch.api import plans
+    from repro_torch.configs.base import FabricConfig, ServeConfig, TenantSpec
+    scfg = ServeConfig(block_size=BS, num_blocks=NUM_BLOCKS,
+                       max_blocks_per_req=TABLE_W, max_slots=DEC_B,
+                       prefill_chunk=PRE_C, prefill_batch=PRE_P)
+    fcfg = FabricConfig(replicas=2, tenants=(
+        TenantSpec("chat", "interactive"), TenantSpec("bulk", "batch")),
+        elastic=True)
+    return plans.fabric(serve=scfg, fabric=fcfg)
+
+
+def fabric_prompts(np, vocab):
+    """(warm-up prompt, the main run's [(tenant, prompt)], the burst's)."""
+    rng = np.random.default_rng(SEED + 47)
+    system = rng.integers(1, vocab, size=FAB_SYSTEM).tolist()
+
+    def one(i):
+        if i % 3 == 2:
+            n = int(rng.integers(FAB_BULK[0], FAB_BULK[1] + 1))
+            return "bulk", rng.integers(1, vocab, size=n).tolist()
+        n = int(rng.integers(FAB_TAIL[0], FAB_TAIL[1] + 1))
+        return "chat", system + rng.integers(1, vocab, size=n).tolist()
+    # the warm-up's tail is shorter than a block, so the prefix it leaves
+    # retained is the system prompt's blocks alone: the key chat requests
+    # route to
+    warm = system + rng.integers(1, vocab, size=2).tolist()
+    return (warm, [one(i) for i in range(FAB_REQUESTS)],
+            [one(i) for i in range(FAB_BURST)])
+
+
+def fabric_drive(torch, fab, prompts, profile=False):
+    """Phase 47's traffic through the router ``fab``: the warm-up request
+    (drained), the main run's requests one router step apart, drained, then
+    the burst submitted at once and drained.  Records after every router
+    step the step, the replicas' states and FAB_COUNTERS.  With ``profile``
+    the burst's first FAB_PROFILE_STEPS router steps run under
+    torch.profiler (its device time against their wall).  Returns a
+    JSON-ready record: the trace, the dispatch log, every request's tokens
+    (by fabric id), the main run's fids, TTFTs (wall and router steps) and
+    walls, the front door's host seconds (router steps less the replicas'
+    ``step_once``) and the replicas' serving counters."""
+    warm, main, burst = prompts
+    trace, host = [], {"steps": 0, "router_s": 0.0, "replica_s": 0.0}
+    for rep in fab.replicas:
+        if rep is None:
+            continue
+
+        def timed_step(inner=rep.step_once):
+            t0 = time.perf_counter()
+            out = inner()
+            host["replica_s"] += time.perf_counter() - t0
+            return out
+        rep.step_once = timed_step
+
+    def step():
+        t0 = time.perf_counter()
+        fab.step()
+        host["router_s"] += time.perf_counter() - t0
+        host["steps"] += 1
+        st = fab.stats()
+        trace.append([len(trace) + 1, list(st["replica_states"])]
+                     + [st[k] for k in FAB_COUNTERS])
+
+    def drain(fids):
+        while fab.stats()["finished"] < fids[-1] + 1:
+            step()
+    fids = [fab.submit(warm, FAB_NEW, tenant="chat")]
+    drain(fids)
+    main_fids = []
+    sync(torch)
+    t0 = time.perf_counter()
+    for tenant, prompt in main:
+        main_fids.append(fab.submit(prompt, FAB_NEW, tenant=tenant))
+        step()
+    drain(main_fids)
+    sync(torch)
+    main_wall = time.perf_counter() - t0
+    main_host = dict(host)
+    burst_fids = [fab.submit(p, FAB_NEW, tenant=t) for t, p in burst]
+    if profile:
+        with device_profile() as prof:
+            sync(torch)
+            t1 = time.perf_counter()
+            for _ in range(FAB_PROFILE_STEPS):
+                step()
+            sync(torch)
+            wall = time.perf_counter() - t1
+        report_profile("fabric profile", [(
+            "router step (the burst, both replicas)", prof, wall,
+            FAB_PROFILE_STEPS)])
+    drain(burst_fids)
+    fids += main_fids + burst_fids
+    metas = {f: fab.request_meta(f) for f in main_fids}
+    st = fab.stats()
+    return {"trace": trace, "dispatch_log": [list(x) for x in
+                                             fab.dispatch_log],
+            "tokens": {str(f): fab.result(f) for f in fids},
+            "main_fids": main_fids,
+            "ttft": {str(f): [metas[f]["slo"], metas[f]["ttft_s"],
+                              metas[f]["ttft_steps"]] for f in main_fids},
+            "main_wall_s": main_wall, "main_host": main_host,
+            "counters": {k: st[k] for k in FAB_COUNTERS},
+            "replica_states": list(st["replica_states"]),
+            "replicas": [{k: v for k, v in r.items()
+                          if not k.endswith("_s") and "per_sec" not in k}
+                         for r in st["replicas"]]}
+
+
+def fabric_session_run(torch, np, cfg, profile=False):
+    """``Supernode.auto()`` (one device here; the (1, 2) world of phase
+    48's two processes) and phase 47's traffic through its fabric, every
+    launch count set to 0 first.  Returns (the record, the launches, the
+    replicas' decode steps and prefill calls summed over the ranks that
+    own them)."""
+    from repro_torch.api import Supernode
+    from repro_torch.models import model as M
+    params = M.init_model(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED))
+    session = Supernode.auto(device=DEVICE)
+    fab = session.fabric(cfg, params, plan=fabric_plan())
+    prompts = fabric_prompts(np, cfg.vocab_size)
+    wrappers = serve_wrappers()
+    # this path's run: every launch count starts at 0 here
+    for w in wrappers.values():
+        w.launches = 0
+    rec = fabric_drive(torch, fab, prompts, profile)
+    sync(torch)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    steps = calls = 0
+    for rep in fab.replicas:
+        if rep is not None:
+            m = rep.obs().metrics
+            steps += int(m.counter("serve.kernels.decode.fused").value)
+            calls += int(m.counter("serve.prefill_calls").value)
+    del fab, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, launches, steps, calls
+
+
+def fabric_check(tag, rec, launches, steps, calls, n_layers):
+    """Phase 47's exact checks of one run: n_layers paged decodes a decode
+    step and ragged prefills a prefill call (nothing else), submitted =
+    dispatched = finished, no rejection, a scale-down and a scale-up,
+    every request its FAB_NEW tokens."""
+    c = rec["counters"]
+    want = {w: 0 for w in launches}
+    want.update(paged_decode_attention=n_layers * steps,
+                ragged_prefill_attention=n_layers * calls)
+    n = 1 + FAB_REQUESTS + FAB_BURST
+    log(f"[{tag}] launches {launches}; expected {n_layers} x {steps} decode "
+        f"steps, {n_layers} x {calls} prefill calls; counters {c}, replica "
+        f"states at the end {rec['replica_states']}, {len(rec['trace'])} "
+        "router steps")
+    if launches != want or not steps or not calls:
+        raise AssertionError(f"{tag}: launch counts {launches}, expected "
+                             f"{want}")
+    if not (c["submitted"] == c["dispatched"] == c["finished"] == n
+            and c["rejected"] == 0 and c["scale_down"] >= 1
+            and c["scale_up"] >= 1):
+        raise AssertionError(f"{tag}: counters {c}")
+    if sorted(map(len, rec["tokens"].values())) != [FAB_NEW] * n:
+        raise AssertionError(f"{tag}: not every request has {FAB_NEW} "
+                             "tokens")
+
+
+def phase_fabric(torch, np):
+    """Phase 47: HyperFabric on the card.  qwen2-0.5b bf16 at full width
+    through ``Supernode.auto().fabric(cfg, params, plan=fabric_plan())``:
+    both replicas colocated on the one card (``carve_counts(1, 2) = [0,
+    0]``), phase 47's traffic (fabric_drive), the burst's first router
+    steps profiled.  fabric_check's exact checks; the aggregate decode
+    tok/s of the main run, median TTFT by SLO class (wall and router
+    steps), the front door's host ms a router step and the profiled idle
+    share recorded.  Then the f32 rerun at FAB_ID_LAYERS: its trace (each
+    step's replica states and counters) and dispatch log equal the bf16
+    run's, and every request's tokens equal a lone HyperServe's on the same
+    prompts (all submitted at once).  Returns (the bf16 run's launches,
+    the f32 record for phase 48)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serve.api import HyperServe
+    cfg = get_config("qwen2-0.5b")
+    rec, launches, steps, calls = fabric_session_run(torch, np, cfg, True)
+    fabric_check("fabric", rec, launches, steps, calls, cfg.num_layers)
+    decode_tokens = FAB_REQUESTS * (FAB_NEW - 1)   # first tokens: prefill
+    h = rec["main_host"]
+    by_slo = {}
+    for slo, ttft_s, ttft_steps in rec["ttft"].values():
+        by_slo.setdefault(slo, []).append((ttft_s, ttft_steps))
+    med = {slo: (sorted(v)[len(v) // 2][0],
+                 sorted(x[1] for x in v)[len(v) // 2])
+           for slo, v in by_slo.items()}
+    log(f"[fabric] qwen2-0.5b bf16 full width, 2 replicas colocated: main "
+        f"run {FAB_REQUESTS} requests in {rec['main_wall_s']:.3f}s, "
+        f"{decode_tokens / rec['main_wall_s']:.1f} aggregate decode tok/s; "
+        "median TTFT " + ", ".join(
+            f"{slo} {s:.3f}s / {n} router steps" for slo, (s, n)
+            in sorted(med.items()))
+        + f"; front door {(h['router_s'] - h['replica_s']) / h['steps'] * 1e3:.3f}"
+        f" ms a router step on the host ({h['steps']} steps: router "
+        f"{h['router_s']:.3f}s, replicas' step_once {h['replica_s']:.3f}s);"
+        f" {replica_counters(rec)}")
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                num_layers=FAB_ID_LAYERS)
+    rec32, launches32, steps32, calls32 = fabric_session_run(torch, np,
+                                                             cfg32)
+    fabric_check("fabric f32", rec32, launches32, steps32, calls32,
+                 FAB_ID_LAYERS)
+    same_route = (rec32["trace"] == rec["trace"]
+                  and rec32["dispatch_log"] == rec["dispatch_log"])
+    params32 = M.init_model(
+        cfg32, torch.Generator(device=DEVICE).manual_seed(SEED))
+    lone = HyperServe(cfg32, params32, serve_cfg=fabric_plan().serve,
+                      device=DEVICE)
+    warm, main, burst = fabric_prompts(np, cfg32.vocab_size)
+    prompts = [warm] + [p for _, p in main + burst]
+    rids = [lone.submit(p, FAB_NEW) for p in prompts]
+    out = lone.join()
+    same_tokens = [out[r] for r in rids] == [rec32["tokens"][str(f)]
+                                            for f in range(len(prompts))]
+    del lone, params32
+    torch.cuda.empty_cache()
+    log(f"[fabric] f32 rerun at {FAB_ID_LAYERS} layers: each router step's "
+        f"replica states and counters and the dispatch log equal the bf16 "
+        f"run's={same_route}; every request's tokens equal a lone "
+        f"HyperServe's on the same prompts={same_tokens}")
+    if not (same_route and same_tokens):
+        raise AssertionError("fabric: the f32 rerun routes differently or "
+                             "its tokens are not a lone HyperServe's")
+    return ({k: v for k, v in launches.items()
+             if k in ("paged_decode_attention", "ragged_prefill_attention")},
+            rec32)
+
+
+def replica_counters(rec):
+    """The replicas' serving counters, as logged."""
+    return "; ".join(
+        f"replica {i}: {r.get('tokens_generated')} tokens, "
+        f"{r.get('prefill_calls')} prefill calls, "
+        f"{r.get('prefix_hits', 0)} prefix hits"
+        for i, r in enumerate(rec["replicas"]))
+
+
+def fabric_mpmd_runs(torch, np):
+    """Phase 48's calls, the same on both processes of the two-rank gloo
+    world: phase 47's f32 run, each replica in its own process
+    (``Supernode.auto()`` gives the (1, 2) world; the carve is one rank a
+    replica).  Returns the record and this process's launches, decode
+    steps and prefill calls."""
+    from repro_torch.configs.base import get_config
+    cfg32 = dataclasses.replace(get_config("qwen2-0.5b"), dtype="float32",
+                                num_layers=FAB_ID_LAYERS)
+    rec, launches, steps, calls = fabric_session_run(torch, np, cfg32)
+    return {"record": rec, "launches": launches, "steps": steps,
+            "calls": calls}
+
+
+def phase_fabric_mpmd(torch, np, rec32):
+    """Phase 48: phase 47's f32 run with each replica in its own process on
+    the card: this process rank 0 (replica 0), a child rank 1 (replica 1),
+    gloo; every value a replica computes reaches the other rank through
+    ``mpmd.share``.  Both processes' dispatch logs, per-step traces,
+    tokens, counters and the replicas' serving counters equal phase 47's
+    f32 run's, bit for bit; each process's launches are FAB_ID_LAYERS a
+    decode step and a prefill call of its own replica.  Returns both
+    processes' launches summed."""
+    with mpmd_pair("fabric", 0) as child_report:
+        got = fabric_mpmd_runs(torch, np)
+        child = child_report()
+    want = json.loads(json.dumps(rec32))
+    keys = ("trace", "dispatch_log", "tokens", "counters", "replica_states",
+            "replicas")
+    same = {k: json.loads(json.dumps(got["record"][k])) == want[k]
+            == child["record"][k] for k in keys}
+    for run in (got, child):
+        lw = {w: 0 for w in run["launches"]}
+        lw.update(paged_decode_attention=FAB_ID_LAYERS * run["steps"],
+                  ragged_prefill_attention=FAB_ID_LAYERS * run["calls"])
+        same["launches"] = same.get("launches", True) and (
+            run["launches"] == lw)
+    log(f"[fabric mpmd] f32 at {FAB_ID_LAYERS} layers, replica 1 in the "
+        f"child: launches here {got['launches']} ({got['steps']} decode "
+        f"steps, {got['calls']} prefill calls), in the child "
+        f"{child['launches']} ({child['steps']}, {child['calls']}); equal "
+        f"to phase 47's f32 run in both processes: {same}; main run "
+        f"{got['record']['main_wall_s']:.3f}s vs phase 47's f32 "
+        f"{rec32['main_wall_s']:.3f}s")
+    if not all(same.values()):
+        raise AssertionError(f"fabric mpmd: differs from phase 47: {same}")
+    return {k: got["launches"][k] + child["launches"][k]
+            for k in ("paged_decode_attention", "ragged_prefill_attention")}
+
+
 def path_rows(rows, src_path, names, suffix, path):
     """Rows of the kernel JSON repeated for a new path: for each kernel in
     ``names``, the first row of ``src_path`` whose source it is, renamed
@@ -6495,6 +6949,10 @@ def main() -> int:
     # as it is.
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
+    # phase 38c's deterministic pair: under
+    # torch.use_deterministic_algorithms(True) cuBLAS must have a fixed
+    # workspace, set before its first call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import repro_torch  # noqa: F401  (the port must be here, card or not)
     import numpy as np
     import torch
@@ -6669,6 +7127,12 @@ def main() -> int:
     pipe_mpmd_launches = timed("pipeline mpmd", phase_pipeline_mpmd, torch,
                                np, pipe_f32, pipe_summary)
     del pipe_f32
+    torch.cuda.empty_cache()
+    fab_launches, fab_rec32 = timed("fabric", phase_fabric, torch, np)
+    torch.cuda.empty_cache()
+    fab_mpmd_launches = timed("fabric mpmd", phase_fabric_mpmd, torch, np,
+                              fab_rec32)
+    del fab_rec32
     runs = {"qwen2-0.5b": launches, DS_ARCH: moe_launches,
             SSM_ARCH: ssm_launches, f"{SSM_ARCH} Generator": ssm_gen_launches,
             RG_ARCH: rg_launches, f"{RG_ARCH} Generator": rg_gen_launches,
@@ -6685,7 +7149,9 @@ def main() -> int:
             "qwen2-0.5b rl mesh": rl_mesh_launches,
             "qwen2-0.5b rl disagg": rl_disagg_launches,
             "qwen2-0.5b pipeline": pipe_launches,
-            "qwen2-0.5b pipeline mpmd": pipe_mpmd_launches}
+            "qwen2-0.5b pipeline mpmd": pipe_mpmd_launches,
+            "qwen2-0.5b fabric": fab_launches,
+            "qwen2-0.5b fabric mpmd": fab_mpmd_launches}
     # the mesh run launches flash at phase 23's shapes: its rows are phase
     # 3's rows of that shape, with the mesh run's launches
     rows += [dict(row, name=row["name"] + "_mesh",
@@ -6707,6 +7173,10 @@ def main() -> int:
     # both processes' launches
     rows += path_rows(rows, "qwen2-0.5b pipeline", train, "pipeline_mpmd",
                       "qwen2-0.5b pipeline mpmd")
+    # phase 47 serves at phase 4's config and shapes: those rows, with the
+    # fabric run's launches
+    rows += path_rows(rows, "qwen2-0.5b", serving, "fabric",
+                      "qwen2-0.5b fabric")
     for row in rows:
         if row["path"] is not None:     # None: timed in phase 3 only
             name = row["name"].removesuffix("_mesh")

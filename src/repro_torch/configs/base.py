@@ -1,10 +1,10 @@
 """Configuration system of the PyTorch port.
 
-A copy of the reference's ``repro.configs.base`` (the model, serving and
-RL configs the ported slices read), kept field for field so one config value
-means the same thing in both packages.  Every architecture is a frozen
-:class:`ModelConfig`; ``reduced()`` produces the CPU-test variant (2
-layers, d_model<=256).
+A copy of the reference's ``repro.configs.base`` (the model, serving,
+fabric, RL and pipeline configs the ported slices read), kept field for
+field so one config value means the same thing in both packages.  Every
+architecture is a frozen :class:`ModelConfig`; ``reduced()`` produces the
+CPU-test variant (2 layers, d_model<=256).
 """
 from __future__ import annotations
 
@@ -308,6 +308,102 @@ class ServeConfig:
     def scheduler_config(self):
         from repro_torch.serve.scheduler import SchedulerConfig
         return self._sub(SchedulerConfig)
+
+
+# ---------------------------------------------------------------------------
+# HyperFabric: multi-tenant serving-fabric knobs (the tier ABOVE HyperServe)
+SLO_CLASSES = ("interactive", "batch")
+
+
+@dataclass(frozen=True)
+class TenantSpec:
+    """One tenant of the serving fabric: an SLO class plus fairness knobs.
+
+    ``weight`` drives the front door's weighted-fair dispatch (0 defers to
+    the class default: interactive 4, batch 1 — latency-sensitive traffic
+    gets 4x the dispatch bandwidth under contention).  ``max_inflight``
+    caps the tenant's outstanding requests (pending + dispatched, 0 =
+    unlimited); beyond it submits raise the typed ``over_quota``
+    rejection so one tenant can never occupy the whole front door.
+    """
+    name: str
+    slo: str = "interactive"           # one of SLO_CLASSES
+    weight: int = 0                    # 0 => class default
+    max_inflight: int = 0              # per-tenant outstanding cap (0 = off)
+
+
+@dataclass(frozen=True)
+class FabricConfig:
+    """Multi-tenant fabric configuration (router + replica carve).
+
+    ``replicas`` engines serve the same model on distinct submeshes
+    carved from one Supernode; ``split`` pins explicit device counts per
+    replica (heterogeneous big/small capacity — the H2 hyper-heterogeneity
+    serving story), empty = even split.  Front-door knobs bound the
+    global queue (``max_pending``) and how deep each replica's own
+    engine queue may grow before the router stops feeding it
+    (``dispatch_depth`` — shallow keeps scheduling authority at the
+    front door, where SLO classes exist).  Elastic knobs drain idle
+    replicas and re-activate them when the pending queue deepens.
+    """
+    replicas: int = 2
+    split: Tuple[int, ...] = ()        # devices per replica; () => even
+    tenants: Tuple[TenantSpec, ...] = (TenantSpec("default"),)
+    max_pending: int = 64              # bounded global front-door queue
+    dispatch_depth: int = 1            # engine-queued requests per replica
+    retry_after_s: float = 0.05        # backpressure hint on queue_full
+    affinity: bool = True              # CoW prefix-affinity routing
+    # elastic replica scale (drain/activate)
+    elastic: bool = False
+    min_replicas: int = 1              # never drain below this
+    scale_up_pending: int = 8          # pending depth that re-activates
+    scale_down_occupancy: float = 0.25 # drain only below this occupancy
+
+    def replace(self, **kw) -> "FabricConfig":
+        return replace(self, **kw)
+
+    def validate(self) -> "FabricConfig":
+        """Eager knob check; typed FabricPlanError BEFORE any engine builds."""
+        from repro_torch.api.errors import FabricPlanError
+        problems = []
+        if self.replicas < 1:
+            problems.append(f"replicas={self.replicas} (must be >= 1)")
+        if self.split:
+            if len(self.split) != self.replicas:
+                problems.append(f"split={self.split} has {len(self.split)} "
+                                f"entries for replicas={self.replicas}")
+            if any(c < 1 for c in self.split):
+                problems.append(f"split={self.split} (every replica needs "
+                                ">= 1 device)")
+        if not self.tenants:
+            problems.append("tenants=() (the fabric needs >= 1 tenant)")
+        seen = set()
+        for t in self.tenants:
+            if t.name in seen:
+                problems.append(f"duplicate tenant {t.name!r}")
+            seen.add(t.name)
+            if t.slo not in SLO_CLASSES:
+                problems.append(f"tenant {t.name!r} slo={t.slo!r} (must be "
+                                f"one of {SLO_CLASSES})")
+            if t.weight < 0 or t.max_inflight < 0:
+                problems.append(f"tenant {t.name!r} weight/max_inflight "
+                                "must be >= 0")
+        for knob, lo in (("max_pending", 1), ("dispatch_depth", 1),
+                         ("min_replicas", 1), ("scale_up_pending", 1)):
+            if getattr(self, knob) < lo:
+                problems.append(f"{knob}={getattr(self, knob)} (must be "
+                                f">= {lo})")
+        if self.min_replicas > self.replicas:
+            problems.append(f"min_replicas={self.min_replicas} > "
+                            f"replicas={self.replicas}")
+        if not 0.0 <= self.scale_down_occupancy <= 1.0:
+            problems.append(f"scale_down_occupancy="
+                            f"{self.scale_down_occupancy} (must be in "
+                            "[0, 1])")
+        if problems:
+            raise FabricPlanError("invalid FabricConfig: "
+                                  + "; ".join(problems))
+        return self
 
 
 # ---------------------------------------------------------------------------

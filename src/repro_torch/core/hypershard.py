@@ -19,8 +19,9 @@ accept uneven shards, and JAX does not: every placement here comes from
 the fallback, and :func:`distribute` asserts that each sharded dim divides,
 so DTensor never chunks unevenly.
 
-The user-facing declaration (``HyperPlan``) is the facade's, ROADMAP.md
-section 1 item 8h.
+The user-facing declaration is the facade's
+:class:`~repro_torch.api.plan.HyperPlan`, which lowers to a
+:class:`ShardingPlan`.
 """
 from __future__ import annotations
 

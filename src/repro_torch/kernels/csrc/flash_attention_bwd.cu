@@ -87,10 +87,11 @@
 //   bit for bit.  dQ's f32 sums arrive by atomics in the order the blocks
 //   reach them, so bf16 dq can differ by one rounding between runs.
 //
-// FMA body (f32, where f32 must stay f32: never TF32; and bf16 at (96,
-// 64), whose 96 is no multiple of the tensor-core body's 64-value column
-// blocks: tiles widened to f32 on load, outputs rounded once), three
-// kernels:
+// FMA body (f32, where f32 must stay f32: never TF32; bf16 at (96, 64),
+// whose 96 is no multiple of the tensor-core body's 64-value column
+// blocks; and bf16 at the tensor-core body's pairs when torch's
+// deterministic switch is on, for a dQ without atomics: tiles widened to
+// f32 on load, outputs rounded once), three kernels:
 //
 //   flash_bwd_dot   D_i, (B, H, Sq) f32, one warp a (token, head) row;
 //   flash_bwd_dkdv  grid (64-key tile, kv head, batch row): the block holds
@@ -131,9 +132,9 @@
 // adds a kv head's f32 partials in order.
 //
 // dq, dk and dv are rounded once, at the store.  (DK, DV) pairs built:
-// (64, 64), (128, 128) and (192, 128) in both bodies, (96, 64) in the FMA
-// body (f32 and bf16), (256, 256) in the wide bodies (FMAs in f32, wgmma
-// in bf16).
+// (64, 64), (128, 128) and (192, 128) in both bodies (the FMA body in f32
+// and bf16), (96, 64) in the FMA body (f32 and bf16), (256, 256) in the
+// wide bodies (FMAs in f32, wgmma in bf16).
 
 #include "common.cuh"
 
@@ -2138,6 +2139,11 @@ extern "C" int flash_attention_bwd_launch(
     REPRO_CASE(float, REPRO_F32, 192, 128)
     REPRO_CASE(float, REPRO_F32, 96, 64)
     REPRO_CASE(__nv_bfloat16, REPRO_BF16, 96, 64)
+    // bf16 at the tensor-core body's pairs: the deterministic backward
+    // (flash_attention.flash_bwd_body under torch's deterministic switch)
+    REPRO_CASE(__nv_bfloat16, REPRO_BF16, 64, 64)
+    REPRO_CASE(__nv_bfloat16, REPRO_BF16, 128, 128)
+    REPRO_CASE(__nv_bfloat16, REPRO_BF16, 192, 128)
 #undef REPRO_CASE
     if (dtype == REPRO_F32 && DK == 256 && DV == 256)
         return launch_wide<float, 256>(q, k, v, out, dout, lse_f, ws_f, dq, dk,

@@ -32,7 +32,11 @@ workspace filled by atomics, so bf16 dq may differ by one rounding between
 runs; dk and dv replay bit for bit; at (192, 128) the warpgroups split the
 columns instead of the keys), at (256, 256) a dK/dV pass and a dQ pass on
 wgmma (no atomics: all three replay bit for bit), the FMA body for f32 (at
-(256, 256) with the head dims in 64-wide chunks) and for bf16 at (96, 64).
+(256, 256) with the head dims in 64-wide chunks), for bf16 at (96, 64),
+and for bf16 at :data:`WGMMA_PAIRS` when
+``torch.use_deterministic_algorithms(True)`` is in force (its dQ has no
+atomics, so the whole backward replays bit for bit, as PyTorch's own
+kernels do under that switch).
 On CPU tensors the same Function runs the plain forward and
 :func:`flash_attention_bwd_ref`.  ``flash_attention_bwd.launches`` counts
 backward calls (each launches its body's three kernels).
@@ -69,16 +73,21 @@ BWD_BODIES = {"fma": 0, "wgmma": 1, "wide": 2}   # the launcher's body codes
 
 
 def flash_bwd_body(dtype, dk: int, dv: int) -> str:
-    """Which body of the backward a launch runs, from the dtype and head
-    dims alone and before the launch: "wgmma" (one fused pass on the
-    tensor cores) for bf16 at :data:`WGMMA_PAIRS`; "wide" for bf16 at
-    (256, 256) (a dK/dV pass and a dQ pass on wgmma, the warpgroups
-    splitting the head dims: no fused pass fits 256 dK and dV accumulators
-    a thread); else "fma" (FMAs in float32, never TF32: the f32 identity
-    runs must stay f32; bf16 at (96, 64) widened to f32 on load).  Never a
-    choice made after a failure: a launch that fails raises."""
+    """Which body of the backward a launch runs, from the dtype, the head
+    dims and ``torch.are_deterministic_algorithms_enabled()`` alone and
+    before the launch: "wgmma" (one fused pass on the tensor cores, dQ by
+    f32 atomics) for bf16 at :data:`WGMMA_PAIRS`, unless the deterministic
+    switch is on; "wide" for bf16 at (256, 256) (a dK/dV pass and a dQ pass
+    on wgmma, the warpgroups splitting the head dims: no fused pass fits
+    256 dK and dV accumulators a thread; no atomics); else "fma" (FMAs in
+    float32, never TF32: the f32 identity runs must stay f32; bf16 at (96,
+    64), and at :data:`WGMMA_PAIRS` under the deterministic switch,
+    widened to f32 on load, dQ summed in registers: it replays bit for
+    bit).  Never a choice made after a failure: a launch that fails
+    raises."""
     if dtype == torch.bfloat16 and (dk, dv) in WGMMA_PAIRS:
-        return "wgmma"
+        return ("fma" if torch.are_deterministic_algorithms_enabled()
+                else "wgmma")
     if dtype == torch.bfloat16 and (dk, dv) == (256, 256):
         return "wide"
     return "fma"

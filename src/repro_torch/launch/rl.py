@@ -21,8 +21,9 @@ a gradient, and you can watch ``reward_mean`` move while
 ``weights_version`` ticks once per iteration.  Weights are random, drawn
 from a seeded ``torch.Generator`` on the device.  Rank 0 prints.
 ``--plan rl_disagg`` on one rank exits naming the rule (it needs >= 2
-ranks); ``--explain`` (the plan resolution report) needs the facade and
-exits naming ROADMAP.md section 1 item 8h.
+ranks); ``--explain`` prints the learner-side plan resolution report
+(every leaf's spec + rule, :func:`repro_torch.api.explain.explain` of the
+plan the flags make) and exits.
 """
 from __future__ import annotations
 
@@ -38,8 +39,6 @@ from repro_torch.launch.mesh import join_mesh, join_world
 from repro_torch.models import model as M
 from repro_torch.rl import RLSession
 from repro_torch.serve.runtime import resolve_device
-
-FACADE = "ROADMAP.md section 1 item 8h: the facade"
 
 
 def rl_configs(args):
@@ -59,6 +58,14 @@ def rl_configs(args):
                     temperature=args.temperature,
                     lr=args.lr, iterations=args.iters)
     return scfg, rcfg
+
+
+def rl_plan(args):
+    """The reference launcher's plan: the ``--plan`` preset with the
+    flags' serving and RL legs."""
+    from repro_torch.api import plans
+    scfg, rcfg = rl_configs(args)
+    return plans.get(args.plan)(serve=scfg, rl=rcfg)
 
 
 def main(argv=None):
@@ -83,8 +90,7 @@ def main(argv=None):
     ap.add_argument("--num-blocks", type=int, default=128)
     ap.add_argument("--prefill-chunk", type=int, default=16)
     ap.add_argument("--explain", action="store_true",
-                    help="print the plan resolution report and exit (not "
-                         "ported yet)")
+                    help="print the plan resolution report and exit")
     ap.add_argument("--trace", metavar="PATH", default=None,
                     help="capture a HyperTrace timeline and write "
                          "Perfetto/Chrome trace_event JSON here")
@@ -98,8 +104,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.explain:
-        raise SystemExit("--explain needs the HyperPlan facade: not ported "
-                         f"yet ({FACADE})")
+        from repro_torch.api import Supernode
+        cfg = get_config(args.arch)
+        print(Supernode().explain(rl_plan(args),
+                                  cfg.reduced() if args.reduced else cfg,
+                                  batch=args.slots))
+        return
     disagg = args.plan == "rl_disagg"
     if disagg and args.mesh == "auto":
         raise SystemExit("--plan rl_disagg carves the ranks into role "

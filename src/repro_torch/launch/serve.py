@@ -27,8 +27,8 @@ Every family serves so, under ``--kernels fused`` or ``composed``: the
 MLA and MoE archs with their latent pool replicated and their experts
 split over ``model``, internvl2-26b and musicgen-large text-only (as the
 reference's HyperServe, which passes no prefix).  The fixed batch on a
-mesh is the facade's
-``Supernode.generate`` (ROADMAP.md section 1 item 8h) and exits naming
+mesh is ``Supernode.generate`` on a mesh, the last slice's
+(``Generator(mesh=)``, ROADMAP.md section 1 item 8h), and exits naming
 it.
 
 ``--disaggregate`` serves on at least two ranks with prefill and decode on
@@ -49,8 +49,9 @@ recurrentgemma-2b (RG-LRU seat state beside sliding-window attention
 pages, freed once out of the window).  The flags are the reference
 launcher's (``repro.launch.serve``) plus
 ``--device``.  Weights are random, drawn from a seeded ``torch.Generator``
-on the serving device.  ``--explain`` needs the facade the port does not
-have yet (ROADMAP.md) and exits with a message naming it.
+on the serving device.  ``--explain`` prints the serving plan resolution
+report (:func:`repro_torch.api.explain.explain`: every param, cache and
+serving-state leaf, the kernel rows) and exits.
 """
 from __future__ import annotations
 
@@ -79,6 +80,15 @@ def serve_config(args) -> ServeConfig:
                        max_slots=args.slots,
                        prefill_chunk=args.prefill_chunk,
                        kernels=args.kernels)
+
+
+def serve_plan(args):
+    """The reference launcher's plan: ``serve`` (``serve_disagg`` with
+    ``--disaggregate``) with the flags' serving leg."""
+    from repro_torch.api import plans
+    if args.disaggregate:
+        return plans.serve_disagg(serve=serve_config(args))
+    return plans.serve(serve=serve_config(args))
 
 
 def run_fixed(gen, args):
@@ -156,7 +166,8 @@ def main(argv=None):
                     help="prefill/decode role split over the ranks "
                          "(torchrun, >= 2 ranks; implies --continuous)")
     ap.add_argument("--explain", action="store_true",
-                    help="plan resolution report (not ported yet)")
+                    help="print the serving plan resolution report and "
+                         "exit")
     ap.add_argument("--trace", metavar="PATH", default=None,
                     help="capture a HyperTrace timeline and write "
                          "Perfetto/Chrome trace_event JSON here")
@@ -170,6 +181,18 @@ def main(argv=None):
                          "mesh over torchrun's ranks (--continuous only)")
     args = ap.parse_args(argv)
 
+    if args.explain:
+        # includes one row per serving-state leaf: paged / slot /
+        # windowed(w=N) kind + the derive_pool rule that fired
+        from repro_torch.api import Supernode
+        cfg = get_config(args.arch)
+        try:
+            print(Supernode().explain(serve_plan(args),
+                                      cfg.reduced() if args.reduced else cfg,
+                                      batch=args.slots, for_serving=True))
+        except PlanError as e:
+            raise SystemExit(f"{type(e).__name__}: {e}")
+        return
     if args.disaggregate:
         args.continuous = True
         if args.mesh == "auto":
@@ -178,15 +201,11 @@ def main(argv=None):
         if int(os.environ.get("WORLD_SIZE", "1")) < 2:
             raise SystemExit("--disaggregate needs >= 2 devices: one rank "
                              "a device (torchrun --nproc-per-node N, N >= 2)")
-    not_ported = [(args.explain, "--explain needs the HyperPlan facade "
-                   "(ROADMAP.md section 1 item 8h)"),
-                  (args.mesh == "auto" and not args.continuous,
-                   "--mesh auto without --continuous: the fixed batch on a "
-                   "mesh is the facade's Supernode.generate (ROADMAP.md "
-                   "section 1 item 8h)")]
-    for flag, why in not_ported:
-        if flag:
-            raise SystemExit(f"not ported yet: {why}")
+    if args.mesh == "auto" and not args.continuous:
+        raise SystemExit("not ported yet: --mesh auto without --continuous: "
+                         "the fixed batch on a mesh is Supernode.generate "
+                         "on a mesh (Generator(mesh=), ROADMAP.md section 1 "
+                         "item 8h, the last slice)")
     groups = None
     if args.disaggregate:
         mesh, device = None, join_world(args.device)

@@ -10,9 +10,9 @@ HyperShard mesh.
 
 The reference launcher's flags (``--arch``, ``--shape``, ``--reduced``,
 ``--steps``, ``--lr``, ``--plan``, ``--offload``, ``--mesh``,
-``--ckpt-dir``, ``--moe-dispatch``), plus ``--device`` (default: the
-card) and ``--global-batch``, the single-card stand-in for the mesh's
-data axis.  Every arch trains on one device, the two recurrent ones
+``--ckpt-dir``, ``--moe-dispatch``, ``--explain``), plus ``--device``
+(default: the card) and ``--global-batch``, the single-card stand-in for
+the mesh's data axis.  Every arch trains on one device, the two recurrent ones
 (mamba2-370m, recurrentgemma-2b) through the SSD and RG-LRU scans'
 backward kernels; the MoE archs (deepseek-v2-lite-16b, deepseek-moe-16b,
 moonshot-v1-16b-a3b) under the default ``--moe-dispatch gshard`` or under
@@ -34,12 +34,12 @@ so: the dense GQA, MLA and MoE archs under either ``--moe-dispatch``
 with both scans' backwards on each rank's shards, internvl2-26b and
 musicgen-large without their prefix, as on one device (the prefix on a
 mesh is ``make_train_step(multimodal=True, mesh=)`` with
-``data.pipeline.place_prefix``).  ``--plan fsdp_tp``
-and ``tp_only`` resolve to the ``ShardingPlan`` those presets lower to;
-``--offload`` puts params and optimizer state on the host, on a mesh too.
-``--plan offload_all`` and ``--explain`` are the facade's (ROADMAP.md
-section 1 item 8h): they raise :class:`~repro_torch.api.errors.PlanError`.
-Rank 0 prints the reference's log line.
+``data.pipeline.place_prefix``).  ``--plan`` names the
+:mod:`repro_torch.api.plans` preset the trainer resolves (``HyperPlan``);
+``--offload`` (and ``--plan offload_all``) puts params and optimizer state
+on the host, on a mesh too.  ``--explain`` prints the plan resolution
+report (:func:`repro_torch.api.explain.explain`, on the session's mesh)
+and exits.  Rank 0 prints the reference's log line.
 
 ``--pipeline STAGES`` (with ``--micro-batches M``, default 4) and ``--plan
 pipeline|pipeline_fsdp`` train through the 1F1B pipeline trainer
@@ -64,22 +64,14 @@ import argparse
 import dataclasses
 import os
 
+from repro_torch.api import Supernode, plans
 from repro_torch.api.errors import PlanError
 from repro_torch.configs.base import (SHAPES, PipelineConfig, ShapeConfig,
                                       get_config)
-from repro_torch.core.hypershard import ShardingPlan
-from repro_torch.core.offload import OffloadConfig
 from repro_torch.launch.mesh import join_mesh, join_world
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.pipeline_trainer import train_pipeline
 from repro_torch.train.trainer import TrainConfig, train
-
-FACADE = "(ROADMAP.md section 1 item 8h: the facade)"
-# the ShardingPlans the reference's presets lower to (repro.api.plans), and
-# the pipeline presets' (ShardingPlan, PipelineConfig)
-PLANS = {"fsdp_tp": ShardingPlan(), "tp_only": ShardingPlan(fsdp=None)}
-PIPELINE_PLANS = {"pipeline": (ShardingPlan(fsdp=None), PipelineConfig()),
-                  "pipeline_fsdp": (ShardingPlan(), PipelineConfig())}
 
 
 def main(argv=None):
@@ -92,8 +84,7 @@ def main(argv=None):
     ap.add_argument("--plan", default="fsdp_tp",
                     choices=["fsdp_tp", "tp_only", "offload_all",
                              "pipeline", "pipeline_fsdp"],
-                    help="HyperPlan training preset; fsdp_tp and tp_only "
-                         "resolve to their ShardingPlans")
+                    help="HyperPlan training preset to resolve")
     ap.add_argument("--offload", action="store_true",
                     help="HyperOffload: params+opt state on host")
     ap.add_argument("--pipeline", type=int, default=0, metavar="STAGES",
@@ -102,7 +93,7 @@ def main(argv=None):
     ap.add_argument("--micro-batches", type=int, default=4,
                     help="micro-batches per step for --pipeline")
     ap.add_argument("--explain", action="store_true",
-                    help="plan resolution report (not ported yet)")
+                    help="print the plan resolution report and exit")
     ap.add_argument("--moe-dispatch", default="gshard",
                     choices=["gshard", "ragged"])
     ap.add_argument("--mesh", default="none", choices=["none", "auto"])
@@ -117,17 +108,18 @@ def main(argv=None):
                          "'cpu' to run the kernels' plain versions there)")
     args = ap.parse_args(argv)
 
-    for given, flag in ((args.plan == "offload_all", "--plan offload_all"),
-                        (args.explain, "--explain")):
-        if given:
-            raise PlanError(f"{flag}: not ported yet {FACADE}")
-    plan, pipeline = PIPELINE_PLANS.get(args.plan, (PLANS.get(args.plan),
-                                                    None))
+    # ONE declaration: --offload and --pipeline set the plan, and the
+    # trainer derives the sharding and offload legs from it
+    plan = plans.get(args.plan)()
     if args.pipeline:
-        pipeline = (pipeline or PipelineConfig()).replace(
-            stages=args.pipeline)
+        plan = plan.replace(pipeline=(plan.pipeline or PipelineConfig())
+                            .replace(stages=args.pipeline))
+    if args.offload:
+        plan = plan.replace(params_on_host=True, opt_state_on_host=True)
+    pipeline = plan.pipeline
     if pipeline is not None:
         pipeline = pipeline.replace(micro_batches=args.micro_batches)
+        plan = plan.replace(pipeline=pipeline)
         if args.ckpt_dir:
             raise PlanError("--ckpt-dir: checkpointing is not wired for the "
                             "pipeline, as in the reference")
@@ -159,12 +151,15 @@ def main(argv=None):
                   f"{m['wall_s']:.1f}s", flush=True)
 
     adamw = AdamWConfig(lr=args.lr, total_steps=args.steps)
-    offload_cfg = (OffloadConfig(params_on_host=True, opt_state_on_host=True)
-                   if args.offload else None)
     try:
-        if pipeline is not None:
+        if args.explain:
+            report = Supernode(mesh=mesh).explain(plan, cfg,
+                                                  batch=shape.global_batch)
+            if rank0:
+                print(report)
+        elif pipeline is not None:
             train_pipeline(cfg, shape, pipeline=pipeline, plan=plan,
-                           offload_cfg=offload_cfg, adamw=adamw,
+                           adamw=adamw,
                            train_cfg=TrainConfig(num_steps=args.steps,
                                                  log_every=10),
                            moe_dispatch=args.moe_dispatch, hook=log,
@@ -177,7 +172,7 @@ def main(argv=None):
                       **({"ckpt_dir": args.ckpt_dir} if args.ckpt_dir
                          else {})),
                   moe_dispatch=args.moe_dispatch, hook=log, device=device,
-                  mesh=mesh, plan=plan, offload_cfg=offload_cfg)
+                  mesh=mesh, plan=plan)
     except RuntimeError as e:
         if "no CUDA device" in str(e):
             raise SystemExit(str(e))

@@ -160,7 +160,8 @@ def plan_residency(cfg, offload, *, with_hlo: bool = False) -> ResidencyPlan:
         raise PlanError(
             "plan_residency(with_hlo=True): the reference summarises XLA's "
             "HLO of the lowered step, which the PyTorch port has no "
-            "counterpart of (ROADMAP.md section 1 item 8h, the facade)")
+            "counterpart of yet (ROADMAP.md section 1 item 8h, the last "
+            "slice)")
     params, flat = _param_leaves(cfg)
     graph_order, order_note = True, ""
     try:

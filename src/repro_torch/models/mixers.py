@@ -70,6 +70,10 @@ class MixerSpec:
     #                             tables, *, block_size, window, kernels) -> y
     #   batched: h (P, C, D); starts/limits/slots (P,); tables (P, W) — all
     #   scheduled prompt chunks in ONE call, filler rows at limit 0
+    # the serving hooks that run a block-table-walking kernel under
+    # ``kernels="fused"`` (the facade's explain() reports the rest as
+    # composed): ATTN and LOCAL_ATTN both, MLA its decode
+    fused_hooks: Tuple[str, ...] = ()
 
     def window(self, cfg) -> Optional[int]:
         """Static sliding window this mixer serves under (None = unbounded)."""
@@ -263,6 +267,7 @@ for _kind, _state in ((ATTN, PAGED), (LOCAL_ATTN, WINDOWED)):
             *, block_size, window, kernels: attention.attn_prefill_paged(
                 p["attn"], h, starts, limits, cfg, state, tables,
                 block_size=block_size, window=window, kernels=kernels),
+        fused_hooks=("decode", "prefill"),
     ))
 
 
@@ -293,6 +298,7 @@ register_mixer(MixerSpec(
         block_size, window, kernels: mla_mod.mla_prefill_chunk_paged(
             p["attn"], h, starts, limits, cfg, state, tables,
             block_size=block_size, kernels=kernels),
+    fused_hooks=("decode",),
 ))
 
 

@@ -11,8 +11,9 @@ the same ranks' serving view), or as HyperMPMD roles on disjoint ranks::
     # "learner": 2}) on every rank of a torch.distributed world
     new_params, history = rl.run(prompts_fn, reward_fn)
 
-The reference resolves the session through its ``Supernode`` facade
-(ROADMAP.md section 1 item 8h); the port takes its legs directly.
+The facade's ``Supernode.rl`` resolves a session from one ``HyperPlan``
+(``plans.rl_colocate()`` / ``plans.rl_disagg()``); ``RLSession`` also
+takes its legs directly.
 """
 from repro_torch.configs.base import RLConfig
 from repro_torch.rl.buffer import Rollout, RolloutBuffer, group_advantages

@@ -28,10 +28,9 @@ the params and the AdamW moments are DTensors placed by ``hypershard``,
 the batch's rows go over the dp axes, and the step runs under
 :func:`~repro_torch.core.meshctx.use_mesh` through ``steps.grad_of``, as
 the mesh train step does (every family shards; the kernels run on each
-rank's shards under ``local_map``).  A plan that is not a
-``ShardingPlan`` (the facade's ``HyperPlan``) raises
-:class:`~repro_torch.api.errors.PlanError` naming ROADMAP.md section 1
-item 8h.
+rank's shards under ``local_map``).  A facade's ``HyperPlan`` lowers
+to its ``ShardingPlan`` (``steps.check_mesh_plan``); what is no plan
+raises :class:`~repro_torch.api.errors.PlanError`.
 """
 from __future__ import annotations
 

@@ -3,9 +3,12 @@
 The port of ``repro.rl.session``.  The reference resolves its session
 from a ``Supernode`` and a ``HyperPlan`` (the learner's fsdp/tp sharding,
 the actor's serving knobs, the RL loop and optionally an actor/learner
-device split); the port has no facade yet (ROADMAP.md section 1 item 8h),
-so the session takes those legs directly and ``plan=`` raises
-:class:`~repro_torch.api.errors.PlanError` naming it.  Three layouts:
+device split); the port's session takes those legs directly, or from a
+``plan=`` (a :class:`~repro_torch.api.plan.HyperPlan`, as
+``Supernode.rl`` passes it, or a legacy ``ShardingPlan``) through
+``HyperPlan.coerce``: its ``rl``, ``serve`` and ``roles`` legs stand in
+for the arguments not given, and its sharding is the learner's.  Three
+layouts:
 
   - one device (no ``mesh``, no ``roles``): both sides on ``device``;
   - ``mesh=`` (colocated, the reference's ``rl_colocate`` on a mesh): the
@@ -77,9 +80,6 @@ def serving_mesh_for(mesh):
     return DeviceMesh(mesh.device_type, ranks,
                       mesh_dim_names=("data", "model"))
 
-FACADE = "plans are the facade's, ROADMAP.md section 1 item 8h"
-
-
 def validate_rl(rl: RLConfig) -> RLConfig:
     """The reference's checks of a plan's RL leg (``HyperPlan.validate``):
     PlanError for a loop GRPO cannot learn from."""
@@ -100,6 +100,24 @@ def validate_rl(rl: RLConfig) -> RLConfig:
     return rl
 
 
+def _plan_legs(plan, mesh, rl_cfg, serve_cfg, roles):
+    """The reference's resolution of an RL plan (``HyperPlan.coerce``,
+    the RL and serving legs defaulted, ``validate`` against ``mesh``'s
+    layout): (rl_cfg, serve_cfg, roles, the learner's ShardingPlan), each
+    argument given winning over the plan's leg."""
+    from repro_torch.api.plan import HyperPlan
+    from repro_torch.core.layout import layout_for_mesh
+    hp = HyperPlan.coerce(plan)
+    if hp.rl is None:
+        hp = hp.replace(rl=RLConfig())
+    if hp.serve is None:
+        hp = hp.replace(serve=ServeConfig())
+    hp.validate(layout_for_mesh(mesh) if mesh is not None else None)
+    return (rl_cfg or hp.rl_config(), serve_cfg or hp.serve_config(),
+            roles if roles is not None else (hp.roles_dict() or None),
+            hp.sharding_plan())
+
+
 class RLSession:
     """GRPO with a :class:`GRPOLearner` and a :class:`RolloutEngine`
     serving the learner's params, one MoE dispatch for both: on ``device``
@@ -111,8 +129,10 @@ class RLSession:
                  adamw=None, seed: int = 0,
                  moe_dispatch: Optional[str] = None, device=None,
                  roles=None, plan=None, mesh=None):
+        lplan = None
         if plan is not None:
-            raise PlanError(f"plan: not ported yet; {FACADE}")
+            rl_cfg, serve_cfg, roles, lplan = _plan_legs(
+                plan, mesh, rl_cfg, serve_cfg, roles)
         from repro_torch.train.steps import check_mesh_plan
         check_mesh_plan(mesh, None)       # PlanError: not a DeviceMesh
         if roles is not None and mesh is not None:
@@ -151,7 +171,8 @@ class RLSession:
             self.learner = GRPOLearner(
                 cfg, rl_cfg=self.rl_cfg, params=params, adamw=adamw,
                 seed=seed, moe_dispatch=md, obs=self.obs, device=device,
-                mesh=learner_mesh)
+                mesh=learner_mesh,
+                plan=lplan if learner_mesh is not None else None)
         if on["actor"]:
             if self.learner is not None and (mesh is None or
                                              params is None):
@@ -172,8 +193,8 @@ class RLSession:
                 cfg, aparams, serve_cfg=self.serve_cfg, rl_cfg=self.rl_cfg,
                 seed=seed, moe_dispatch=md, obs=self.obs, device=device,
                 mesh=actor_mesh,
-                plan=ShardingPlan(fsdp=None) if actor_mesh is not None
-                else None)
+                plan=(lplan or ShardingPlan()).replace(fsdp=None)
+                if actor_mesh is not None else None)
         self.sched = (mpmd.MPMDScheduler(self.groups, obs=self.obs,
                                          device=device)
                       if self.groups else None)

@@ -233,3 +233,8 @@ class HyperServe:
     def stats(self) -> Dict[str, float]:
         """The engine's stats (the decode group's, on every rank)."""
         return self._call(lambda: self.engine.stats())
+
+    def snapshot(self) -> Dict:
+        """Read-only routing surface (see :meth:`ServeEngine.snapshot`;
+        the decode group's, on every rank)."""
+        return self._call(lambda: self.engine.snapshot())

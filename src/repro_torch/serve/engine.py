@@ -19,6 +19,7 @@ replays within the port, not JAX's random bits.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -164,17 +165,21 @@ def check_data_axis_serving(mesh) -> None:
     of everything and serves nothing more.  Raises
     :class:`~repro_torch.api.errors.ServePlanError` naming the flat
     ``(1, n)`` view of the same ranks that serves instead
-    (:func:`repro_torch.rl.session.serving_mesh_for`)."""
+    (:func:`repro_torch.rl.session.serving_mesh_for`).  ``mesh`` may
+    also be a mapping of axis name -> size (the facade's explain, which
+    has a layout and no mesh)."""
     from repro_torch.api.errors import ServePlanError
-    bad = {a: int(n) for a, n in zip(mesh.mesh_dim_names, mesh.shape)
-           if a != "model" and int(n) > 1}
+    sizes = (dict(mesh) if isinstance(mesh, dict)
+             else dict(zip(mesh.mesh_dim_names, mesh.shape)))
+    bad = {a: int(n) for a, n in sizes.items() if a != "model" and int(n) > 1}
     if bad:
         raise ServePlanError(
             f"paged serving is tensor-parallel only, but the mesh carries "
             f"non-trivial non-model ax{'es' if len(bad) > 1 else 'is'} "
             f"{bad} (a data axis): every rank of a data group would hold "
             "the same pool and run the same seats.  Serve on the flat "
-            f"(1, {mesh.size()}) model-only view of the same ranks "
+            f"(1, {math.prod(int(n) for n in sizes.values())}) model-only "
+            "view of the same ranks "
             "(repro_torch.rl.session.serving_mesh_for builds it).")
 
 

@@ -85,7 +85,6 @@ from repro_torch.models import mixers as MX, model as M
 from repro_torch.obs import Observability
 from repro_torch.serve.paged_kv import BlockManager, StatePool
 from repro_torch.serve.scheduler import ContinuousScheduler, Request, RequestState
-from repro_torch.train.steps import FACADE
 
 
 def resolve_device(device=None) -> torch.device:
@@ -103,20 +102,25 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
-def _resolve_serve_plan(plan):
-    """The plan a serving engine runs under: ``ShardingPlan(fsdp=None)``
-    for None, else ``plan`` itself, never rewritten.  Raises
-    :class:`~repro_torch.api.errors.ServePlanError` for a plan that shards
-    parameters over fsdp (a one-token decode step would gather every
-    weight each token, with nothing to amortise the gathers over), and
-    :class:`~repro_torch.api.errors.PlanError` for a plan that is not a
-    :class:`~repro_torch.core.hypershard.ShardingPlan` (the facade's
-    ``HyperPlan``)."""
+def _resolve_serve_plan(plan, mesh=None):
+    """Validate the caller's plan for serving; never silently rewrite it.
+    Returns ``(ShardingPlan, ServeConfig | None)``: ``ShardingPlan(fsdp=
+    None)`` for None; for a :class:`~repro_torch.api.plan.HyperPlan`
+    (validated against ``mesh``'s layout through ``HyperPlan.coerce``) its
+    lowered ``ShardingPlan`` and its serving leg; a ``ShardingPlan`` as it
+    is.  Raises :class:`~repro_torch.api.errors.ServePlanError` for a plan
+    that shards parameters over fsdp (a one-token decode step would gather
+    every weight each token, with nothing to amortise the gathers over),
+    and :class:`~repro_torch.api.errors.PlanError` for what is no plan."""
     if plan is None:
-        return ShardingPlan(fsdp=None)
+        return ShardingPlan(fsdp=None), None
+    scfg = None
     if not isinstance(plan, ShardingPlan):
-        raise PlanError(f"plan={type(plan).__name__}: the port takes a "
-                        f"ShardingPlan; {FACADE}")
+        from repro_torch.api.plan import HyperPlan
+        from repro_torch.core.layout import layout_for_mesh
+        hp = HyperPlan.coerce(plan)
+        hp.validate(layout_for_mesh(mesh) if mesh is not None else None)
+        plan, scfg = hp.sharding_plan(), hp.serve
     if plan.fsdp:
         raise ServePlanError(
             f"plan shards parameters over fsdp={plan.fsdp}, which the "
@@ -124,8 +128,9 @@ def _resolve_serve_plan(plan):
             "weight each token (fsdp amortises gathers over a whole training "
             "step; a one-token step has nothing to amortise against), and "
             "the paged pool shards over tp only.  Use plan.replace("
-            "fsdp=None).")
-    return plan
+            "fsdp=None), or a serving preset (repro_torch.api.plans.serve() "
+            "/ serve_disagg()).")
+    return plan, scfg
 
 
 def check_mesh_serving(mesh) -> None:
@@ -248,11 +253,12 @@ class ServeEngine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.mesh = mesh
-        self.plan = _resolve_serve_plan(plan)
+        self.plan, plan_scfg = _resolve_serve_plan(plan, mesh)
         # a bare engine gets a private hub so per-engine counters and the
         # compile ledger stay clean across engines in one process
         self.obs = obs if obs is not None else Observability()
-        self.scfg = scfg = (serve_cfg or ServeConfig()).validate()
+        self.scfg = scfg = (serve_cfg or plan_scfg
+                            or ServeConfig()).validate()
         # plan-level kernels toggle -> lowering path, resolved ONCE so every
         # step this engine dispatches takes the same path (and the
         # serve.kernels.* counters pin it exactly)
@@ -757,6 +763,37 @@ class ServeEngine:
                                    f"({max_steps} steps)")
         return {rid: r.generated for rid, r in self.scheduler.requests.items()}
 
+    def snapshot(self) -> Dict:
+        """Cheap read-only routing surface (HyperFabric keys off this).
+
+        Host-side scheduler and pool accounting only: no device sync, no
+        mutation, so a router can poll it at every dispatch decision.  The
+        prefix-cache view exposes both the retained block ids and the
+        token-tuple keys: the keys are what longest-prefix affinity
+        matching needs, the ids what capacity accounting needs.
+        Everything here is a function of the request history, which is
+        what lets routing decisions (and their counters) be pinned
+        exactly."""
+        sched = self.scheduler
+        prefilling = sum(1 for r in sched.active
+                         if r.state is RequestState.PREFILLING)
+        running = sum(1 for r in sched.active
+                      if r.state is RequestState.RUNNING)
+        return {
+            "queue_depth": len(sched.queue),
+            "prefilling": prefilling,
+            "running": running,
+            "free_slots": self.scfg.max_slots - prefilling - running,
+            "max_slots": self.scfg.max_slots,
+            "max_queue": sched.cfg.max_queue,
+            "free_blocks": self.blocks.num_free,
+            "block_occupancy": self.blocks.occupancy(),
+            "prefix_cache_block_ids": tuple(
+                b for bids in self._prefix_cache.values() for b in bids),
+            "prefix_keys": tuple(self._prefix_cache.keys()),
+            "has_work": sched.has_work(),
+        }
+
     def stats(self) -> Dict[str, float]:
         now = time.perf_counter()
         # interval rate: tokens since the previous stats() call over the
@@ -825,9 +862,10 @@ class PrefillWorker:
                              "ranks only")
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.plan = _resolve_serve_plan(plan)
+        self.plan, plan_scfg = _resolve_serve_plan(plan,
+                                                   prefill_group.mesh)
         self.obs = obs if obs is not None else Observability()
-        self.scfg = (serve_cfg or ServeConfig()).validate()
+        self.scfg = (serve_cfg or plan_scfg or ServeConfig()).validate()
         self.prefill_group = prefill_group
         self.decode_group = decode_group
         self.mesh = prefill_group.mesh

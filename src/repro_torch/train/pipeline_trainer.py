@@ -57,9 +57,11 @@ and ``pipeline.drain`` spans on ``pipeline:stage{s}`` tracks (on the
 ranks that run the stage), and the compile key ``("pipeline_step", (S,
 M, cfg.name, moe_dispatch))``.  ``step`` returns the same dict on every
 rank.  HyperOffload composes: each stage's state is fetched before the
-step and offloaded after it.  The port has no ``HyperPlan`` yet (ROADMAP
-item 8h): the trainer takes a ``PipelineConfig`` and a ``ShardingPlan``
-for the stage meshes.  Checkpointing is not wired, as in the reference.
+step and offloaded after it.  The trainer takes a ``PipelineConfig`` and
+a plan for the stage meshes: a ``HyperPlan`` (as ``Supernode.train``
+passes it) or a legacy ``ShardingPlan``, resolved by
+``trainer.resolve_train_plan``.  Checkpointing is not wired, as in the
+reference.
 """
 from __future__ import annotations
 

@@ -46,22 +46,20 @@ from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.models import model as M
 from repro_torch.optim import adamw as opt_mod
 
-FACADE = ("HyperPlan, its presets and Supernode are the facade: ROADMAP.md "
-          "section 1 item 8h")
-
 
 def check_mesh_plan(mesh, plan):
     """The plan a step or a trainer runs under: ``plan`` (a
     :class:`ShardingPlan`, or None for the default) once ``mesh`` is a
     ``DeviceMesh`` (every family, with or without the multimodal prefix,
-    trains on one).  Raises :class:`PlanError` for a plan that is not a
-    ``ShardingPlan`` (the facade's, naming its ROADMAP item) and for a
-    mesh that is not a ``DeviceMesh``."""
+    trains on one).  A facade's :class:`~repro_torch.api.plan.HyperPlan`
+    goes through ``HyperPlan.coerce``: validated against ``mesh``'s layout
+    and lowered to its ``ShardingPlan``, as the reference's trainer
+    resolves it.  Raises :class:`PlanError` for a plan that is neither and
+    for a mesh that is not a ``DeviceMesh``."""
     from torch.distributed.device_mesh import DeviceMesh
 
     if plan is not None and not isinstance(plan, hs.ShardingPlan):
-        raise PlanError(f"plan={type(plan).__name__}: the port takes a "
-                        f"ShardingPlan; {FACADE}")
+        plan = _coerced(mesh, plan).sharding_plan()
     if mesh is None:
         return plan
     if not isinstance(mesh, DeviceMesh):
@@ -69,6 +67,18 @@ def check_mesh_plan(mesh, plan):
                         "DeviceMesh (build one with repro_torch.launch.mesh."
                         "make_host_mesh; ROADMAP.md section 1 item 8)")
     return plan or hs.ShardingPlan()
+
+
+def _coerced(mesh, plan):
+    """``HyperPlan.coerce(plan)`` validated against ``mesh``'s layout (a
+    ``PlanError`` for what is no plan, as the reference's)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.api.plan import HyperPlan
+    from repro_torch.core.layout import layout_for_mesh
+    hp = HyperPlan.coerce(plan)
+    return hp.validate(layout_for_mesh(mesh)
+                       if isinstance(mesh, DeviceMesh) else None)
 
 
 def train_shardings(cfg, mesh, plan, *, multimodal: bool = False):
@@ -104,18 +114,51 @@ def cross_entropy_parts(logits, targets, mask, vocab_size: int):
     over ``model``) the log-sum-exp is reduced over the shards and each
     rank picks within its own vocab range (:func:`pick_targets`), so the
     logits are never gathered, which is what the reference's one-hot
-    contraction buys it."""
+    contraction buys it.  DTensor logits whose vocab no mesh dim of more
+    than one rank splits (a (1, 1) mesh, a data axis alone) take the
+    plain formula on each rank's rows under ``local_map``
+    (:func:`local_nll`): the same ops on the same values as without a
+    mesh, so that a deterministic run on such a mesh replays the run
+    without one bit for bit."""
     lf = vocab_logits(logits, vocab_size)
-    if is_dtensor(lf):
+    if is_dtensor(lf) and _vocab_split(lf):
         m = lf.detach().amax(dim=-1, keepdim=True)
         lse = (m + torch.log(torch.exp(lf - m).sum(dim=-1,
                                                    keepdim=True)))[..., 0]
-        picked = pick_targets(lf, targets)
+        nll = lse - pick_targets(lf, targets)
+    elif is_dtensor(lf):
+        nll = local_nll(lf, targets)
     else:
-        lse = torch.logsumexp(lf, dim=-1)
-        picked = lf.gather(-1, targets.long()[..., None])[..., 0]
-    nll = (lse - picked) * mask
+        nll = _nll(lf, targets)
+    nll = nll * mask
     return nll.sum(), mask.sum()
+
+
+def _nll(lf, targets):
+    """Each token's NLL, log-sum-exp less the target's logit (gathered)."""
+    lse = torch.logsumexp(lf, dim=-1)
+    return lse - lf.gather(-1, targets.long()[..., None])[..., 0]
+
+
+def _vocab_split(lf) -> bool:
+    """Whether a mesh dim of more than one rank shards ``lf``'s vocab."""
+    from torch.distributed.tensor import Shard
+    mesh = lf.device_mesh
+    return any(isinstance(p, Shard) and p.dim % lf.dim() == lf.dim() - 1
+               and mesh.shape[i] > 1 for i, p in enumerate(lf.placements))
+
+
+def local_nll(lf, targets):
+    """:func:`_nll` of DTensor logits whose vocab is whole on every rank,
+    under ``local_map``: each rank's rows (the batch and sequence keep
+    ``lf``'s shards; ``targets`` is redistributed to them)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    rows = [p if isinstance(p, Shard) and p.dim % lf.dim() < lf.dim() - 1
+            else Replicate() for p in lf.placements]
+    return local_map(_nll, out_placements=rows, in_placements=(rows, rows),
+                     device_mesh=lf.device_mesh,
+                     redistribute_inputs=True)(lf, targets)
 
 
 def pick_targets(lf, targets):

@@ -13,12 +13,11 @@ the host, each step runs between the HyperOffload legs, spans
 ``train.fetch`` and ``train.offload`` inside ``train.step``.
 
 ``mesh=`` (a ``DeviceMesh``) and ``plan=`` (a
-:class:`~repro_torch.core.hypershard.ShardingPlan`, the reference's legacy
-path through :func:`resolve_train_plan`) train every family
-sharded (``repro_torch.train.steps``); every rank runs this loop, the
-loader gives each its rows, and checkpoints gather each leaf (rank 0
-writes).  A ``HyperPlan`` is the facade's, ROADMAP.md section 1 item 8h,
-and raises :class:`~repro_torch.api.errors.PlanError`.
+:class:`~repro_torch.api.plan.HyperPlan`, or the reference's legacy
+:class:`~repro_torch.core.hypershard.ShardingPlan`; one resolution step,
+:func:`resolve_train_plan`) train every family sharded
+(``repro_torch.train.steps``); every rank runs this loop, the loader
+gives each its rows, and checkpoints gather each leaf (rank 0 writes).
 """
 from __future__ import annotations
 
@@ -49,13 +48,20 @@ class TrainConfig:
 
 
 def resolve_train_plan(mesh, plan, offload_cfg):
-    """One resolution step, the reference's legacy path: (ShardingPlan |
-    None, OffloadConfig | None) -> (the sharding plan, the offload config),
-    the plan checked against ``mesh``
-    (:func:`~repro_torch.train.steps.check_mesh_plan`) and its
-    ``params_on_host`` / ``opt_state_on_host`` folded into the config, so
-    one declaration drives both."""
+    """One resolution step: (HyperPlan | ShardingPlan | None, OffloadConfig
+    | None) -> (the sharding plan, the offload config), the plan checked
+    against ``mesh`` (:func:`~repro_torch.train.steps.check_mesh_plan`).
+    A ``HyperPlan`` lowers to both legs, a legacy ``OffloadConfig`` folded
+    in first (``HyperPlan.absorb_offload``), as the reference's; a
+    ``ShardingPlan``'s ``params_on_host`` / ``opt_state_on_host`` fold into
+    the config, so one declaration drives both."""
+    from repro_torch.api.plan import HyperPlan
     from repro_torch.core.offload import OffloadConfig
+    if isinstance(plan, HyperPlan):
+        hp = plan if offload_cfg is None else plan.absorb_offload(offload_cfg)
+        hp = steps_mod._coerced(mesh, hp)
+        return (steps_mod.check_mesh_plan(mesh, hp.sharding_plan()),
+                hp.offload_config())
     plan = steps_mod.check_mesh_plan(mesh, plan)
     if plan is not None and (plan.params_on_host or plan.opt_state_on_host):
         base = offload_cfg or OffloadConfig()

@@ -45,7 +45,11 @@ their backwards, under grad and called directly) handed DTensors against
 their plain versions, HyperServe against no mesh for the dense, SSD and
 RG-LRU families and the composed lowering against the fused one without
 a mesh, and mamba2, recurrentgemma and musicgen (with its prefix)
-trained on the mesh against no mesh.
+trained on the mesh against no mesh.  The bf16 flash backward under
+``torch.use_deterministic_algorithms(True)`` (the FMA body, no atomics)
+replays bit for bit at qwen2's and deepseek-v2-lite's head dims, and the
+fabric launcher serves qwen2-0.5b at full width with the reference
+launcher's routing.
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
 CUDA kernels have no CPU mode; on the CPU the wrappers run the plain
@@ -333,6 +337,47 @@ def test_flash_backward_kernel_matches_plain_version(cuda, dtype, G, dk, dv,
             _assert_grad_close(a, w, w)
 
 
+@pytest.mark.parametrize("G,dk,dv,S", [
+    (7, 64, 64, 150), (7, 64, 64, 4096), (3, 128, 128, 1000),
+    (1, 192, 128, 300), (1, 192, 128, 4096)])
+@pytest.mark.parametrize("window", [None, 37])
+def test_flash_backward_deterministic_bf16_replays(cuda, G, dk, dv, S,
+                                                   window):
+    """Under ``torch.use_deterministic_algorithms(True)`` the bf16
+    backward at the tensor-core body's pairs takes the FMA body
+    (``flash_bwd_body`` "fma": dQ summed in registers, no atomics): two
+    calls on the same inputs equal bit for bit in dq, dk and dv, each
+    within the bf16 rule of the plain version, at qwen2's (64, 64) and
+    deepseek-v2-lite's (192, 128) among others, over 4096 keys too; with
+    the switch off the body is the tensor-core one again."""
+    g = torch.Generator().manual_seed(19)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(cuda, torch.bfloat16)
+    B, KV = 2, 2 if G > 1 else 16
+    q, k, v = rnd(B, S, KV * G, dk), rnd(B, S, KV, dk), rnd(B, S, KV, dv)
+    do = rnd(B, S, KV * G, dv)
+    kw = dict(causal=True, window=window)
+    assert fa.flash_bwd_body(torch.bfloat16, dk, dv) == "wgmma"
+    out, lse = fa.flash_attention_lse(q, k, v, **kw)
+    want = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    want32 = fa.flash_attention_bwd_ref(*(t.float() for t in (q, k, v, out)),
+                                        lse, do.float(), **kw)
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        assert fa.flash_bwd_body(torch.bfloat16, dk, dv) == "fma"
+        n0 = fa.flash_attention_bwd.launches
+        first = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        again = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        assert fa.flash_attention_bwd.launches == n0 + 2
+    finally:
+        torch.use_deterministic_algorithms(before)
+    for a, b, w, w32 in zip(first, again, want, want32):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+        _assert_grad_close(a, w, w32)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,G,S", [(1, 1, 151), (1, 10, 301), (3, 2, 97),
                                    (1, 10, 4096), (2, 3, 1000)])
@@ -463,6 +508,31 @@ def test_paged_decode_kernel_at_the_edges_of_its_splits(cuda, dtype, G, dim,
     assert not got[0].any()
     _assert_close(got[1:], lambda *a, **k: pda.paged_decode_attention_ref(
         *a, **k)[1:], args, kw)
+
+
+def test_fabric_launcher_serves_at_full_width_on_the_card(cuda):
+    """``python -m repro_torch.launch.fabric --arch qwen2-0.5b`` with no
+    device named serves on the card at full width: two colocated
+    replicas, the reference launcher's two-tenant traffic, every request
+    dispatched and none rejected, the routing counters the reference's
+    launcher prints for the same flags (they depend on the submissions
+    only)."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.fabric", "--arch",
+         "qwen2-0.5b", "--elastic"], capture_output=True, text=True,
+        timeout=600, cwd=root,
+        env=dict(os.environ, PYTHONPATH=os.path.join(root, "src")))
+    assert out.returncode == 0, out.stderr[-4000:]
+    lines = out.stdout.strip().splitlines()
+    assert lines[0].startswith("fabric served 12 requests (192 tokens)")
+    assert lines[1] == ("dispatched=13 affinity_hits=8 rejected=0 "
+                        "scale_up=0 scale_down=1")
+    assert lines[2] == ("chat (interactive) TTFT in router steps: "
+                        "[1, 1, 1, 13, 13, 13, 24, 25]")
 
 
 def test_generator_on_the_card_matches_the_cpu(cuda):

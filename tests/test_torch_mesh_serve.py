@@ -381,11 +381,13 @@ def test_fsdp_plan_is_refused(runs):
 
 
 def test_facade_plan_is_refused(runs):
-    """A plan that is not a ``ShardingPlan`` (the facade's ``HyperPlan``):
-    ``PlanError`` naming ROADMAP item 8h."""
+    """A plan that is no plan (a preset's name where a ``HyperPlan`` or a
+    ``ShardingPlan`` goes): the reference's ``PlanError`` from
+    ``HyperPlan.coerce``."""
     for rep in runs["reports"]["three"]:
         kind, msg = rep["refuse"]["facade"]
-        assert kind == "PlanError" and "item 8h" in msg
+        assert kind == "PlanError" and \
+            "cannot coerce str into a HyperPlan" in msg
 
 
 def test_mla_and_moe_are_refused_on_a_mesh(runs):
@@ -393,7 +395,7 @@ def test_mla_and_moe_are_refused_on_a_mesh(runs):
     engine of the multimodal musicgen-large (served text-only, fused, as
     the reference's HyperServe serves it) and one of deepseek-v2-lite
     (MLA and MoE) under the composed lowering; what is still refused
-    (a data axis, an fsdp plan, the facade's plan) is refused by the
+    (a data axis, an fsdp plan, a plan that is no plan) is refused by the
     tests above."""
     for rep in runs["reports"]["three"]:
         assert rep["refuse"]["prefix"] == ["built", "fused"]

@@ -347,9 +347,9 @@ def test_unported_families_refuse_on_a_mesh(runs):
     (deepseek-v2-lite, deepseek-moe), SSD and RG-LRU (mamba2,
     recurrentgemma) and the multimodal prefix (musicgen-large with
     ``multimodal=True``).  What is still not ported on a mesh refuses
-    before any step runs: a plan that is not a ``ShardingPlan`` (the
-    facade's) raises ``PlanError`` naming ROADMAP item 8h, and a mesh that
-    is not a ``DeviceMesh`` one naming it."""
+    before any step runs: a plan that is no plan (a preset's name) raises
+    the reference's ``PlanError`` from ``HyperPlan.coerce``, and a mesh
+    that is not a ``DeviceMesh`` one naming it."""
     msgs = runs["mesh"]["ring_1x2"]["report"]["refusals"]
     assert sorted(msgs) == sorted(["deepseek-v2-lite-16b",
                                    "deepseek-moe-16b", "mamba2-370m",
@@ -358,7 +358,8 @@ def test_unported_families_refuse_on_a_mesh(runs):
     for arch in ("deepseek-v2-lite-16b", "deepseek-moe-16b", "mamba2-370m",
                  "recurrentgemma-2b", "musicgen-large"):
         assert msgs[arch] is None, (arch, msgs[arch])
-    assert msgs["facade"] is not None and "item 8h" in msgs["facade"]
+    assert msgs["facade"] is not None and \
+        "cannot coerce str into a HyperPlan" in msgs["facade"]
     assert msgs["not_a_mesh"] is not None \
         and "not a torch DeviceMesh" in msgs["not_a_mesh"]
 

@@ -462,8 +462,9 @@ def test_checkpoints_cross_load_both_ways(tmp_path):
 
 
 def test_typed_refusals():
-    """A mesh or a plan raises PlanError naming the ROADMAP item, and an
-    offload is accepted (HyperOffload's legs, tests/test_torch_offload.py);
+    """A mesh that is not a DeviceMesh raises PlanError naming the ROADMAP
+    item, a plan that is no plan the reference's PlanError from
+    ``HyperPlan.coerce``, and an offload is accepted (HyperOffload's legs, tests/test_torch_offload.py);
     a MoE config under the ragged dispatch trains (the grouped matmul's
     backward, ROADMAP item 2.9b; tests/test_torch_grouped_bwd.py holds it
     against the reference), its experts moving; flash refuses a gradient at
@@ -480,8 +481,9 @@ def test_typed_refusals():
                for _, t in tree_flatten_with_path((params, state)))
     steps.make_train_step(cfg, acfg, offload_cfg=both)
     shape = ShapeConfig("t", 8, 1, "train")
-    for kw in (dict(plan=object()), dict(mesh=object())):
-        with pytest.raises(PlanError, match="item 8"):
+    for kw, why in ((dict(plan=object()), "cannot coerce object into a "
+                     "HyperPlan"), (dict(mesh=object()), "item 8")):
+        with pytest.raises(PlanError, match=why):
             trainer.train(cfg, shape, device="cpu", **kw)
     _, hist = trainer.train(cfg, shape, device="cpu", offload_cfg=both,
                             train_cfg=trainer.TrainConfig(num_steps=1))
@@ -510,8 +512,10 @@ def test_launcher_trains_on_an_explicit_cpu(capsys, monkeypatch):
     ``--mesh auto`` on one rank (no mesh, as the reference's
     ``Supernode.auto()``), and the 1F1B pipeline's ``--pipeline 2`` and
     ``--plan pipeline`` (colocated on one rank, with ``--mesh auto`` too)
-    train; the facade's flags raise, naming its ROADMAP item, and so does
-    ``--ckpt-dir`` with a pipeline (checkpointing is not wired there)."""
+    train, and so does ``--plan offload_all`` (through the facade's
+    plan); ``--explain`` prints the plan resolution report;
+    ``--ckpt-dir`` with a pipeline raises (checkpointing is not wired
+    there)."""
     from repro_torch.launch import train as launcher
     launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--steps", "2",
                    "--device", "cpu", "--global-batch", "2"])
@@ -528,9 +532,15 @@ def test_launcher_trains_on_an_explicit_cpu(capsys, monkeypatch):
                        "--device", "cpu", "--global-batch", "2", *flags])
         out = capsys.readouterr().out.strip().splitlines()
         assert len(out) == 1 and out[0].startswith("step     1  loss ")
-    for flags in (["--plan", "offload_all"], ["--explain"]):
-        with pytest.raises(PlanError, match="item 8h"):
-            launcher.main(["--arch", "qwen2-0.5b", "--reduced", *flags])
+    launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--steps", "1",
+                   "--device", "cpu", "--global-batch", "2", "--plan",
+                   "offload_all"])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert len(out) == 1 and out[0].startswith("step     1  loss ")
+    launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--explain"])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[0].startswith("HyperPlan resolution: model=qwen2-0.5b "
+                             "plan=fsdp_tp")
     with pytest.raises(PlanError, match="checkpointing is not wired for "
                        "the pipeline"):
         launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--pipeline",
